@@ -8,21 +8,29 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero before a result is printed):
 
 1. Set-up: the card's name and power limit, torch/CUDA versions, and the
-   build of the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a).
-2. Each kernel (B1 paged decode, B2 paged prefill) against its plain
+   build of the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+   source, in parallel, sm_90a).
+2. Each kernel (B1/B3 paged decode, B2/B4 paged prefill; B3/B4 over int8
+   pages quantised with the port's ``quantise_kv_rows``) against its plain
    PyTorch version on the card: olmo-1b heads (16/16, dh 128, page 16), GQA
    layouts (40/8 and 32/2, dh 128, page 16) and the smoke layout (4/2, dh
-   16, page 8), fp32 and bf16, window and softcap on and off; ragged
+   16, page 8), fp32 and bf16 q, window and softcap on and off; ragged
    positions and block tables that share pages and pad with the null page.
-3. The main path: olmo-1b at full width (bf16, seeded random weights)
+3. The main paths: olmo-1b at full width (bf16, seeded random weights)
    serving a shared-prefix stream through ``run_paged_stream`` with chunked
-   prefill, with the kernels' launch counts set to 0 just before.
+   prefill — first on bf16 pages (B1/B2), then on int8 pages with
+   speculative decoding (k up to 4, a 2-layer int8 draft; B3/B4) — each
+   with the kernels' launch counts set to 0 just before it.
 4. One paged prefill step and one paged decode step at full width with the
-   kernels and with the plain attention, on identical inputs; then a
-   profiled window of full-width decode steps (device busy vs host wall).
-5. The smoke config's greedy stream on the card and on the CPU.
-6. Kernel timing at the main path's shapes: kernel, plain version, one
-   PyTorch library call (a yardstick the port never calls) and the bound.
+   kernels and with the plain attention, on identical inputs, for bf16 and
+   int8 pages; then profiled windows of full-width decode steps (bf16
+   pages) and speculative steps (int8 pages): device busy vs host wall.
+5. The smoke config's greedy stream on the card and on the CPU: plain, and
+   with speculation on model-dtype pages (B2 through the verify lane) and on
+   int8 pages; the spec streams equal the plain ones.
+6. Kernel timing at the main paths' shapes (B4 also at the verify window's):
+   kernel, plain version, one PyTorch library call (a yardstick the port
+   never calls) and the bound.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -54,8 +62,12 @@ KERNEL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Full-width logits, kernel vs plain attention: the plain tail rounds scores
 # and probabilities to bf16 (as the JAX package does), the kernels keep them
 # in fp32; 16 bf16 layers amplify that into differences of order 0.1 on
-# logits of order 1.
+# logits of order 1. (On int8 pages both compute in fp32 and round the
+# attention output to bf16, so they agree more closely.)
 STEP_LOGIT_ATOL = 0.25
+# Near-tie margin: a greedy stream may flip where the top-2 logits of the
+# reference run lie closer than this (float reassociation).
+TIE_MARGIN = 1e-4
 
 
 def log(msg: str) -> None:
@@ -86,21 +98,33 @@ def setup() -> None:
     info = build.build_info
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", info["log"])]
     spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", info["log"])]
-    log(f"[setup] kernels loaded in {info['seconds']:.1f}s from "
-        f"{Path(info['library']).name}: {len(regs)} kernels, registers "
+    libs = ", ".join(Path(x).name for x in info["libraries"])
+    log(f"[setup] kernels built and loaded in {info['seconds']:.1f}s from "
+        f"{libs}: {len(regs)} kernels, registers "
         f"{min(regs, default=0)}..{max(regs, default=0)}, max spill stores "
         f"{max(spills, default=0)} B")
 
 
 # ------------------------------------------------------------------ phase 2
-def _kernel_inputs(heads, kv_heads, dh, ps, dtype, *, chunk, seed):
+def _quantised(pages: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    from repro_torch.models import quantise_kv_rows
+
+    return quantise_kv_rows(pages)
+
+
+def _kernel_inputs(heads, kv_heads, dh, ps, dtype, *, chunk, seed, int8=False):
     """Ragged rows over a shared pool: row 1 reuses row 0's first pages,
-    padding points at the null page 0."""
+    padding points at the null page 0. With ``int8`` the pages come back as
+    (int8 pages, scales) pairs, quantised from the same normals."""
     g = torch.Generator().manual_seed(seed)
     n_pages, pb = 24, 6
     dev = "cuda"
-    kp = torch.randn(n_pages, ps, kv_heads, dh, generator=g).to(dev, dtype)
-    vp = torch.randn(n_pages, ps, kv_heads, dh, generator=g).to(dev, dtype)
+    kp = torch.randn(n_pages, ps, kv_heads, dh, generator=g).to(dev)
+    vp = torch.randn(n_pages, ps, kv_heads, dh, generator=g).to(dev)
+    if int8:
+        kp, vp = _quantised(kp), _quantised(vp)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
     bt = torch.tensor([
         [3, 7, 0, 0, 0, 0],
         [3, 7, 9, 11, 0, 0],
@@ -125,21 +149,32 @@ def kernels_vs_plain() -> None:
               "gqa-32/2": (32, 2, 128, 16), "smoke": (4, 2, 16, 8)}
     modes = [(None, None), (24, None), (None, 2.0), (24, 2.0)]
     worst = {}
-    for kname, fn, plain, chunk in (
+    for kname, fn, plain, chunk, int8 in (
         ("decode", kernels.paged_decode_attention,
-         kernels.paged_decode_attention_plain, 0),
+         kernels.paged_decode_attention_plain, 0, False),
         ("prefill", kernels.paged_prefill_attention,
-         kernels.paged_prefill_attention_plain, 8),
+         kernels.paged_prefill_attention_plain, 8, False),
+        ("decode_int8", kernels.paged_decode_attention_int8,
+         kernels.paged_decode_attention_int8_plain, 0, True),
+        ("prefill_int8", kernels.paged_prefill_attention_int8,
+         kernels.paged_prefill_attention_int8_plain, 8, True),
     ):
         for sname, (h, kh, dh, ps) in shapes.items():
             for dtype in (torch.float32, torch.bfloat16):
                 for window, cap in modes:
                     q, kp, vp, bt, pos = _kernel_inputs(
-                        h, kh, dh, ps, dtype, chunk=chunk, seed=len(worst)
+                        h, kh, dh, ps, dtype, chunk=chunk, seed=len(worst),
+                        int8=int8,
                     )
-                    out = fn(q, kp, vp, bt, pos, window=window, softcap=cap)
-                    ref = plain(q.float(), kp.float(), vp.float(), bt, pos,
-                                window=window, softcap=cap)
+                    kw = dict(window=window, softcap=cap)
+                    if int8:  # pages are (int8, scales); plain takes them as is
+                        pages = (kp[0], vp[0], kp[1], vp[1])
+                        out = fn(q, *pages, bt, pos, **kw)
+                        ref = plain(q.float(), *pages, bt, pos, **kw)
+                    else:
+                        out = fn(q, kp, vp, bt, pos, **kw)
+                        ref = plain(q.float(), kp.float(), vp.float(), bt, pos,
+                                    **kw)
                     torch.cuda.synchronize()
                     err = (out.float() - ref).abs().max().item()
                     tag = f"{kname}/{sname}/{str(dtype)[6:]}/w={window}/cap={cap}"
@@ -155,11 +190,65 @@ def kernels_vs_plain() -> None:
 
 
 # ------------------------------------------------------------------ phase 3
-def full_width_stream() -> dict:
-    from repro_torch import kernels, models
+def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
+    """One main path: the kernels' counts set to 0 just before the stream,
+    read just after; every kernel in ``expect`` must have launched and no
+    other kernel may have."""
+    from repro_torch import kernels
+    from repro_torch.runtime.kvcache import page_bytes
+    from repro_torch.runtime.serve import Engine, run_paged_stream
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()  # this path's run starts here
+    t0 = time.perf_counter()
+    with Engine(cfg, params, ecfg) as eng:
+        rep = run_paged_stream(eng, reqs, slots=8, seed=0)
+        pool_gb = (eng.pool_physical_pages * cfg.num_layers * page_bytes(
+            ecfg.page_size, cfg.num_kv_heads, cfg.head_dim, ecfg.kv_dtype,
+            cfg.dtype) / 1e9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    check(rep["finished"] == len(reqs),
+          f"{label}: finished {rep['finished']}/{len(reqs)}")
+    check(rep["compiles_after_warmup"] == 0,
+          f"{label}: compiles_after_warmup {rep['compiles_after_warmup']}")
+    check(rep["prefill_chunks"] > 0, f"{label}: no prefill chunks ran")
+    check(rep["kv_dtype"] == ecfg.kv_dtype, f"{label}: pool {rep['kv_dtype']}")
+    for name, n in launches.items():
+        if name in expect:
+            check(n > 0, f"{label}: {name} was not launched on the main path")
+        else:
+            check(n == 0, f"{label}: {name} launched {n} times off its path")
+    for r in reqs:
+        check(len(r.tokens) == r.new_tokens, f"{label} rid {r.rid}: short stream")
+        check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"{label} rid {r.rid}: token outside the vocabulary")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[stream:{label}] {rep['finished']} requests, {rep['tokens']} tokens "
+        f"({rep['prompt_tokens']} prompt tokens ingested, "
+        f"{rep['shared_prompt_tokens']} shared) in {wall:.1f}s incl. warmup | "
+        f"{rep['tok_per_s']:.1f} tok/s, latency p50 {rep['p50_ms']:.1f} ms "
+        f"p95 {rep['p95_ms']:.1f} ms, ttft p50 {rep['ttft_p50_ms']:.1f} ms "
+        f"p95 {rep['ttft_p95_ms']:.1f} ms | steps {rep['steps']} lanes "
+        f"{rep['lane_steps']}, compiles_after_warmup "
+        f"{rep['compiles_after_warmup']}, rebinds {rep['rebinds']} | peak "
+        f"memory {peak_gb:.2f} GB, KV pool {pool_gb:.3f} GB "
+        f"({rep['kv_dtype']}) | launches {launches}")
+    log(f"[stream:{label}] host_plan_ms {rep['pipeline']['host_plan_ms']} "
+        f"device_wait_ms {rep['pipeline']['device_wait_ms']} "
+        f"share_ratio {rep['share_ratio']} bucket_crossings "
+        f"{rep['bucket_crossings']} chunk_bucket_crossings "
+        f"{rep['chunk_bucket_crossings']} tokens/target step "
+        f"{rep.get('tokens_per_target_step')}")
+    return rep, launches
+
+
+def full_width_streams() -> dict:
+    from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.runtime.scheduler import shared_prefix_arrivals
-    from repro_torch.runtime.serve import Engine, EngineConfig, run_paged_stream
+    from repro_torch.runtime.serve import EngineConfig
 
     cfg = get_config("olmo-1b")
     t0 = time.perf_counter()
@@ -168,47 +257,33 @@ def full_width_stream() -> dict:
     n_params = sum(t.numel() for t in params.values())
     log(f"[stream] olmo-1b {n_params / 1e9:.3f}B params bf16 initialised in "
         f"{time.perf_counter() - t0:.1f}s")
-    ecfg = EngineConfig(max_len=1024, max_batch=8, page_size=16,
-                        prefill_chunk=64)
-    reqs = shared_prefix_arrivals(
-        16, 20.0, seed=0, num_prefixes=4, prefix_len=128, tokens_mean=16,
-        total_max=ecfg.max_len, sample_frac=0.25, vocab=cfg.vocab_size,
+    base = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64)
+
+    def traffic():
+        return shared_prefix_arrivals(
+            16, 20.0, seed=0, num_prefixes=4, prefix_len=128, tokens_mean=16,
+            total_max=base["max_len"], sample_frac=0.25, vocab=cfg.vocab_size,
+        )
+
+    _, launches = _serve(
+        "bf16", cfg, params, EngineConfig(**base), traffic(),
+        ("paged_decode_attention", "paged_prefill_attention"),
     )
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()  # the main path's run starts here
-    t0 = time.perf_counter()
-    with Engine(cfg, params, ecfg) as eng:
-        rep = run_paged_stream(eng, reqs, slots=8, seed=0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
-    check(rep["finished"] == len(reqs),
-          f"finished {rep['finished']}/{len(reqs)}")
-    check(rep["compiles_after_warmup"] == 0,
-          f"compiles_after_warmup {rep['compiles_after_warmup']}")
-    check(rep["prefill_chunks"] > 0, "no prefill chunks ran")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
-    for r in reqs:
-        check(len(r.tokens) == r.new_tokens, f"rid {r.rid}: short stream")
-        check(all(0 <= t < cfg.vocab_size for t in r.tokens),
-              f"rid {r.rid}: token outside the vocabulary")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[stream] {rep['finished']} requests, {rep['tokens']} tokens "
-        f"({rep['prompt_tokens']} prompt tokens ingested, "
-        f"{rep['shared_prompt_tokens']} shared) in {wall:.1f}s incl. warmup | "
-        f"{rep['tok_per_s']:.1f} tok/s, latency p50 {rep['p50_ms']:.1f} ms "
-        f"p95 {rep['p95_ms']:.1f} ms, ttft p50 {rep['ttft_p50_ms']:.1f} ms "
-        f"p95 {rep['ttft_p95_ms']:.1f} ms | steps {rep['steps']} "
-        f"(decode {rep['lane_steps']['decode']}, prefill "
-        f"{rep['lane_steps']['prefill']}), compiles_after_warmup "
-        f"{rep['compiles_after_warmup']}, rebinds {rep['rebinds']} | peak "
-        f"memory {peak_gb:.2f} GB | launches {launches}")
-    log(f"[stream] host_plan_ms {rep['pipeline']['host_plan_ms']} "
-        f"device_wait_ms {rep['pipeline']['device_wait_ms']} "
-        f"share_ratio {rep['share_ratio']} bucket_crossings "
-        f"{rep['bucket_crossings']} chunk_bucket_crossings "
-        f"{rep['chunk_bucket_crossings']}")
+    rep8, launches8 = _serve(
+        "int8+spec", cfg, params,
+        EngineConfig(**base, kv_dtype="int8", spec_k=4, draft_layers=2,
+                     draft_kv_dtype="int8"),
+        traffic(),
+        ("paged_decode_attention_int8", "paged_prefill_attention_int8"),
+    )
+    check(rep8["lane_steps"]["draft"] > 0 and rep8["lane_steps"]["verify"] > 0,
+          f"int8+spec: draft/verify lane steps {rep8['lane_steps']}")
+    spec = rep8["spec"]
+    log(f"[stream:int8+spec] acceptance rate {spec['acceptance_rate']} "
+        f"({spec['accepted_tokens']}/{spec['drafted_tokens']} drafted tokens; "
+        f"a 2-layer draft of random weights), k_bucket_crossings "
+        f"{spec['k_bucket_crossings']}, lane calls {rep8['lane_calls']}")
+    launches.update({k: v for k, v in launches8.items() if "int8" in k})
     return {"launches": launches, "params": params, "cfg": cfg}
 
 
@@ -226,48 +301,43 @@ def steps_kernel_vs_plain(cfg, params) -> None:
     bt = torch.zeros(b, 8, dtype=torch.int32)
     bt[:, :5] = torch.arange(1, 21, dtype=torch.int32).view(b, 5)
     bt = bt.to(dev)
-    logits = {}
-    for impl in ("kernel", "plain"):
-        cache = models.init_paged_cache(cfg, 24, ps, device=dev)
-        lp, cache = models.paged_prefill_step(
-            cfg, params, cache, tok, start, bt, length, attn_impl=impl)
-        dtok = lp.argmax(-1).to(torch.int32)[:, None]
-        ld, _ = models.paged_decode_step(
-            cfg, params, cache, dtok, length.clone(), bt, attn_impl=impl)
-        logits[impl] = (lp, ld)
-    torch.cuda.synchronize()
-    for i, name in enumerate(("prefill", "decode")):
-        a, p = logits["kernel"][i], logits["plain"][i]
-        check(bool(torch.isfinite(a).all()), f"{name}: non-finite logits")
-        err = (a - p).abs().max().item()
-        agree = (a.argmax(-1) == p.argmax(-1)).float().mean().item()
-        log(f"[steps] {name} logits kernel vs plain: max abs diff {err:.4f} "
-            f"(tolerance {STEP_LOGIT_ATOL}; |logits| max "
-            f"{p.abs().max().item():.2f}), argmax agreement {agree:.2f}")
-        check(err <= STEP_LOGIT_ATOL, f"{name}: logits differ by {err:.4f}")
+    for kv_dtype in ("fp32", "int8"):
+        logits = {}
+        for impl in ("kernel", "plain"):
+            cache = models.init_paged_cache(cfg, 24, ps, kv_dtype, device=dev)
+            lp, cache = models.paged_prefill_step(
+                cfg, params, cache, tok, start, bt, length, attn_impl=impl)
+            dtok = lp.argmax(-1).to(torch.int32)[:, None]
+            ld, _ = models.paged_decode_step(
+                cfg, params, cache, dtok, length.clone(), bt, attn_impl=impl)
+            logits[impl] = (lp, ld)
+        torch.cuda.synchronize()
+        pages = "bf16" if kv_dtype == "fp32" else "int8"
+        for i, name in enumerate(("prefill", "decode")):
+            a, p = logits["kernel"][i], logits["plain"][i]
+            check(bool(torch.isfinite(a).all()),
+                  f"{name}/{pages}: non-finite logits")
+            err = (a - p).abs().max().item()
+            agree = (a.argmax(-1) == p.argmax(-1)).float().mean().item()
+            log(f"[steps] {name} on {pages} pages, logits kernel vs plain: max "
+                f"abs diff {err:.4f} (tolerance {STEP_LOGIT_ATOL}; |logits| "
+                f"max {p.abs().max().item():.2f}), argmax agreement {agree:.2f}")
+            check(err <= STEP_LOGIT_ATOL,
+                  f"{name}/{pages}: logits differ by {err:.4f}")
 
 
-def profile_decode_steps(cfg, params, steps: int = 5) -> None:
-    """Where a full-width decode step's time goes: ``torch.profiler`` over
-    a few eager steps (8 slots, 256-token tables) — device kernel time by
-    name against the host wall time of the same steps."""
+def _profile(label: str, run, steps: int, attn_kernel: str) -> None:
+    """Device kernel time by name (``torch.profiler``) over ``steps`` calls
+    of ``run`` against their host wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import models
-
-    dev, slots, pb, ps = "cuda", 8, 16, 16
-    cache = models.init_paged_cache(cfg, slots * pb + 1, ps, device=dev)
-    bt = torch.arange(1, slots * pb + 1, dtype=torch.int32,
-                      device=dev).view(slots, pb)
-    pos = torch.full((slots,), 200, dtype=torch.int32, device=dev)
-    tok = torch.zeros(slots, 1, dtype=torch.int32, device=dev)
     for _ in range(2):
-        models.paged_decode_step(cfg, params, cache, tok, pos, bt)
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            models.paged_decode_step(cfg, params, cache, tok, pos, bt)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name = {}
@@ -277,46 +347,152 @@ def profile_decode_steps(cfg, params, steps: int = 5) -> None:
             by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3 / steps
     busy = sum(by_name.values())
     if busy == 0:
-        log("[profile] decode step: device time not measured (profiler "
-            f"recorded no CUDA kernels); host wall {wall_ms:.2f} ms/step")
+        log(f"[profile] {label}: device time not measured (profiler recorded "
+            f"no CUDA kernels); host wall {wall_ms:.2f} ms/step")
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    attn = sum(v for k, v in by_name.items() if "paged_decode_kernel" in k)
-    log(f"[profile] full-width decode step (8 slots, pos 200): wall "
-        f"{wall_ms:.2f} ms, device busy {busy:.3f} ms "
+    attn = sum(v for k, v in by_name.items() if attn_kernel in k)
+    log(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}%), "
-        f"paged_decode_kernel {attn:.3f} ms; top kernels: "
+        f"{attn_kernel} {attn:.3f} ms; top kernels: "
         + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
 
 
-# ------------------------------------------------------------------ phase 5
-def smoke_card_vs_cpu() -> None:
+def profile_steps(cfg, params) -> None:
+    """Where a full-width step's time goes: a decode step on bf16 pages (8
+    slots at position 200, 256-token tables), and a speculative step on
+    int8 pages (a 2-layer int8 draft proposing 4 tokens, then a 5-row
+    verify with the table at the 64-page cap)."""
     from repro_torch import models
+    from repro_torch.runtime import steps as steps_mod
+
+    dev, slots, pb, ps = "cuda", 8, 16, 16
+    bt = torch.arange(1, slots * pb + 1, dtype=torch.int32,
+                      device=dev).view(slots, pb)
+    pos = torch.full((slots,), 200, dtype=torch.int32, device=dev)
+    tok = torch.zeros(slots, 1, dtype=torch.int32, device=dev)
+    cache = models.init_paged_cache(cfg, slots * pb + 1, ps, device=dev)
+    _profile("full-width decode step (bf16 pages, 8 slots, pos 200)",
+             lambda: models.paged_decode_step(cfg, params, cache, tok, pos, bt),
+             5, "paged_decode_kernel")
+    del cache
+    k, cap = 4, 64
+    dcfg, dparams = models.draft_view(cfg, params, 2)
+    draft = steps_mod.make_draft_fn(dcfg, k=k)
+    verify = steps_mod.make_paged_verify_fn(cfg)
+    dcache = models.init_cache(dcfg, slots, 1024, "int8", device=dev)
+    cache8 = models.init_paged_cache(cfg, slots * cap + 1, ps, "int8", device=dev)
+    btf = torch.arange(1, slots * cap + 1, dtype=torch.int32,
+                       device=dev).view(slots, cap)
+    active = torch.ones(slots, dtype=torch.bool, device=dev)
+    temps = torch.ones(slots, device=dev)
+    gen = torch.Generator(device=dev)
+    length = torch.full((slots,), k + 1, dtype=torch.int32, device=dev)
+
+    def spec_step():
+        drafts, _, _ = draft(dparams, dcache, tok, pos, active)
+        window = torch.cat([tok, drafts], dim=1)
+        return verify(params, cache8, window, pos, btf, length, temps, active,
+                      gen)
+
+    _profile("full-width spec step (int8 pages, draft 2 layers x k 4 + "
+             "5-row verify, 8 slots, pos 200)", spec_step, 5,
+             "paged_prefill_kernel")
+
+
+# ------------------------------------------------------------------ phase 5
+def _near_tie(cfg, params, seq, kv_dtype: str) -> bool:
+    """Top-2 margin of the greedy logits after ``seq`` (one plain chunked
+    prefill on the CPU, pages of ``kv_dtype``) is under ``TIE_MARGIN``."""
+    from repro_torch import models
+
+    ps = 8
+    n = -(-len(seq) // ps)
+    cache = models.init_paged_cache(cfg, n + 1, ps, kv_dtype)
+    logits, _ = models.paged_prefill_step(
+        cfg, params, cache, torch.tensor([seq], dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32),
+        torch.arange(1, n + 1, dtype=torch.int32)[None],
+        torch.tensor([len(seq)], dtype=torch.int32), attn_impl="plain",
+    )
+    top2 = logits[0].topk(2).values
+    return float(top2[0] - top2[1]) < TIE_MARGIN
+
+
+def smoke_card_vs_cpu() -> dict:
+    """The smoke config (fp32, TF32 off), greedy: card = CPU for the plain
+    stream and for speculation on model-dtype and on int8 pages; each spec
+    stream equals its pool's plain stream up to a near-tie."""
+    from repro_torch import kernels, models
     from repro_torch.configs import get_config
     from repro_torch.runtime.scheduler import shared_prefix_arrivals
     from repro_torch.runtime.serve import Engine, EngineConfig, run_paged_stream
 
     cfg = get_config("olmo-1b").smoke()
     params = models.init_params(cfg, seed=0)
-    streams = {}
-    for dev in ("cuda", "cpu"):
-        reqs = shared_prefix_arrivals(
-            12, 1000.0, seed=2, num_prefixes=3, prefix_len=20, tokens_mean=8,
-            total_max=64, sample_frac=0.0, vocab=cfg.vocab_size,
-        )
-        ecfg = EngineConfig(max_len=64, max_batch=4, page_size=8,
-                            num_pages=40, prefill_chunk=16)
-        with Engine(cfg, params, ecfg, device=dev) as eng:
-            rep = run_paged_stream(eng, reqs, slots=4)
-        check(rep["finished"] == len(reqs) and rep["compiles_after_warmup"] == 0,
-              f"smoke stream on {dev}: {rep['finished']} finished, "
-              f"{rep['compiles_after_warmup']} compiles after warmup")
-        streams[dev] = {r.rid: r.tokens for r in reqs}
-    same = streams["cuda"] == streams["cpu"]
-    n = sum(len(t) for t in streams["cpu"].values())
-    log(f"[smoke] fp32 greedy stream, card vs CPU: {len(streams['cpu'])} "
-        f"requests, {n} tokens, identical: {same}")
-    check(same, "smoke stream differs between the card and the CPU")
+    streams, b2_verify = {}, {}
+    for kv_dtype, spec_k in (("fp32", 0), ("fp32", 2), ("int8", 0), ("int8", 2)):
+        for dev in ("cuda", "cpu"):
+            reqs = shared_prefix_arrivals(
+                12, 1000.0, seed=2, num_prefixes=3, prefix_len=20,
+                tokens_mean=8, total_max=64, sample_frac=0.0,
+                vocab=cfg.vocab_size,
+            )
+            ecfg = EngineConfig(max_len=64, max_batch=4, page_size=8,
+                                num_pages=40, prefill_chunk=16,
+                                kv_dtype=kv_dtype, spec_k=spec_k,
+                                draft_kv_dtype=kv_dtype)
+            kernels.reset_launch_counts()
+            with Engine(cfg, params, ecfg, device=dev) as eng:
+                rep = run_paged_stream(eng, reqs, slots=4)
+                warm_vf = len(eng._k_buckets())
+            tag = f"{kv_dtype}/spec_k={spec_k}/{dev}"
+            check(rep["finished"] == len(reqs)
+                  and rep["compiles_after_warmup"] == 0,
+                  f"smoke stream {tag}: {rep['finished']} finished, "
+                  f"{rep['compiles_after_warmup']} compiles after warmup")
+            if spec_k:
+                check(rep["lane_steps"]["verify"] > 0, f"{tag}: no verify")
+            if spec_k and kv_dtype == "fp32" and dev == "cuda":
+                # B2 serves the pf and vf lanes, one launch per layer per
+                # call, warmup's dummy calls included
+                n = kernels.paged_prefill_attention.launches
+                steps = rep["lane_steps"]
+                want = cfg.num_layers * (
+                    steps["prefill"] + len(eng._chunk_buckets())
+                    + steps["verify"] + warm_vf
+                )
+                check(n == want, f"{tag}: B2 launched {n}, expected {want}")
+                b2_verify = {"launches": cfg.num_layers
+                             * (steps["verify"] + warm_vf),
+                             "verify_steps": steps["verify"]}
+            streams[tag] = {r.rid: (r.prompt, r.tokens) for r in reqs}
+    for kv_dtype in ("fp32", "int8"):
+        for spec_k in (0, 2):
+            a = streams[f"{kv_dtype}/spec_k={spec_k}/cuda"]
+            b = streams[f"{kv_dtype}/spec_k={spec_k}/cpu"]
+            check(a == b, f"smoke {kv_dtype}/spec_k={spec_k}: card != CPU")
+        plain = streams[f"{kv_dtype}/spec_k=0/cpu"]
+        spec = streams[f"{kv_dtype}/spec_k=2/cpu"]
+        ties = 0
+        for rid, (prompt, toks) in plain.items():
+            other = spec[rid][1]
+            diff = [i for i, (x, y) in enumerate(zip(toks, other)) if x != y]
+            if diff:
+                check(_near_tie(
+                    cfg, params, list(prompt) + toks[:diff[0]], kv_dtype),
+                    f"smoke {kv_dtype}: spec stream differs at rid {rid}")
+                ties += 1
+            else:
+                check(toks == other, f"smoke {kv_dtype}: rid {rid} length")
+        n = sum(len(t) for _, t in plain.values())
+        log(f"[smoke] {kv_dtype} pages, greedy: card = CPU with and without "
+            f"speculation; spec = plain stream ({len(plain)} requests, {n} "
+            f"tokens, {ties} near-tie divergences)")
+    log(f"[smoke] B2 through the verify lane: {b2_verify['launches']} launches "
+        f"({b2_verify['verify_steps']} verify steps x {cfg.num_layers} layers, "
+        f"warmup included)")
+    return b2_verify
 
 
 # ------------------------------------------------------------------ phase 6
@@ -339,7 +515,7 @@ def _median_ms(fn, runs: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def time_kernels(launches: dict) -> list[dict]:
+def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch import kernels
@@ -348,81 +524,125 @@ def time_kernels(launches: dict) -> list[dict]:
     h = kh = 16
     dh, ps, slots, pool = 128, 16, 8, 513
     g = torch.Generator().manual_seed(3)
-    kp = torch.randn(pool, ps, kh, dh, generator=g).to(dev, dtype)
-    vp = torch.randn(pool, ps, kh, dh, generator=g).to(dev, dtype)
+    kp = torch.randn(pool, ps, kh, dh, generator=g).to(dev)
+    vp = torch.randn(pool, ps, kh, dh, generator=g).to(dev)
+    (kq, ks), (vq, vs) = _quantised(kp), _quantised(vp)  # the int8 pool
+    kp, vp = kp.to(dtype), vp.to(dtype)  # the bf16 pool
     perm = torch.randperm(pool - 1, generator=g) + 1  # distinct live pages
-    elem = kp.element_size()
-    rows = []
 
-    def bound(kv_tokens: int, pairs: int, q, out, *ints) -> tuple[float, str]:
-        nbytes = (2 * kv_tokens * kh * dh * elem + q.numel() * elem
-                  + out.numel() * elem + sum(t.numel() * 4 for t in ints))
+    def bound(kv_tokens: int, pairs: int, q, out, ints, kv_bytes: int):
+        """Least time for the call: each visible K/V row read once (and its
+        scale, for int8), q read, out written; or its flops at bf16 peak."""
+        nbytes = (2 * kv_tokens * kv_bytes + q.numel() * q.element_size()
+                  + out.numel() * out.element_size()
+                  + sum(t.numel() * 4 for t in ints))
         ops = 4 * dh * pairs  # QK^T and PV, two flops per MAC
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
         return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
-    # B1 at the decode lane's shapes: 8 slots, pages bucket 16 (<= 256 tokens)
-    pb = 16
-    bt = perm[: slots * pb].view(slots, pb).to(torch.int32).to(dev)
-    pos = torch.randint(96, pb * ps, (slots,), generator=g,
-                        dtype=torch.int32).to(dev)
-    q = torch.randn(slots, h, dh, generator=g).to(dev, dtype)
-    gk = kp[bt].reshape(slots, pb * ps, kh, dh).transpose(1, 2).contiguous()
-    gv = vp[bt].reshape(slots, pb * ps, kh, dh).transpose(1, 2).contiguous()
-    mask = (torch.arange(pb * ps, device=dev)[None] <= pos[:, None].long())
-    cases = [(
-        kernels.paged_decode_attention, kernels.paged_decode_attention_plain,
-        (q, kp, vp, bt, pos), "src/repro/kernels/decode_attention.py:322",
-        lambda: F.scaled_dot_product_attention(
-            q[:, :, None], gk, gv, attn_mask=mask[:, None, None]),
-        int((pos + 1).sum()), int((pos + 1).sum()) * h,
-    )]
-    # B2 at the prefill lane's shapes: 8 rows, chunk 64, table at the cap 64
-    c, pbf = 64, 64
-    btf = perm[: slots * pbf].view(slots, pbf).to(torch.int32).to(dev)
-    start = torch.tensor([0, 64, 128, 192, 0, 64, 128, 192],
-                         dtype=torch.int32, device=dev)
-    qf = torch.randn(slots, c, h, dh, generator=g).to(dev, dtype)
-    L = 256  # keys past start + c - 1 are masked for every row
-    gkf = kp[btf[:, : L // ps]].reshape(slots, L, kh, dh).transpose(1, 2)
-    gvf = vp[btf[:, : L // ps]].reshape(slots, L, kh, dh).transpose(1, 2)
-    gkf, gvf = gkf.contiguous(), gvf.contiguous()
-    qi = start[:, None].long() + torch.arange(c, device=dev)[None]
-    maskf = torch.arange(L, device=dev)[None, None] <= qi[:, :, None]
-    kv_tok = int((start + c).sum())
-    pairs = int(sum((int(s) + i + 1) for s in start.tolist() for i in range(c))) * h
-    cases.append((
-        kernels.paged_prefill_attention, kernels.paged_prefill_attention_plain,
-        (qf, kp, vp, btf, start), "src/repro/kernels/prefill_attention.py:220",
-        lambda: F.scaled_dot_product_attention(
-            qf.transpose(1, 2), gkf, gvf, attn_mask=maskf[:, None]),
-        kv_tok, pairs,
-    ))
-    for fn, plain, args, replaces, library, kv_tokens, pairs in cases:
+    def gathered(pages, bt, length, scale=None):
+        """Pages of each row as [B, KH, L, dh] in q's dtype (dequantised
+        first for int8) — the library call's inputs, made before timing."""
+        g_ = pages[bt[:, : length // ps]].float()
+        if scale is not None:
+            g_ = g_ * scale[bt[:, : length // ps]][..., None, None]
+        return g_.reshape(bt.shape[0], length, kh, dh).transpose(1, 2).to(
+            dtype).contiguous()
+
+    def decode_case(int8: bool):
+        # B1/B3 at the decode lane's shapes: 8 slots, pages bucket 16
+        pb = 16
+        bt = perm[: slots * pb].view(slots, pb).to(torch.int32).to(dev)
+        pos = torch.randint(96, pb * ps, (slots,), generator=g,
+                            dtype=torch.int32).to(dev)
+        q = torch.randn(slots, h, dh, generator=g).to(dev, dtype)
+        mask = torch.arange(pb * ps, device=dev)[None] <= pos[:, None].long()
+        sc = (ks, vs) if int8 else (None, None)
+        gk = gathered(kq if int8 else kp, bt, pb * ps, sc[0])
+        gv = gathered(vq if int8 else vp, bt, pb * ps, sc[1])
+        pages = (kq, vq, ks, vs) if int8 else (kp, vp)
+        return (q, *pages, bt, pos), lambda: F.scaled_dot_product_attention(
+            q[:, :, None], gk, gv, attn_mask=mask[:, None, None]
+        ), int((pos + 1).sum()), int((pos + 1).sum()) * h
+
+    def chunk_case(int8: bool, c: int, start: list, length: int):
+        # B2/B4 at the prefill lane's shapes (8 rows x chunk 64) or the
+        # verify lane's (8 rows x k+1 = 5); table at the 64-page cap
+        pbf = 64
+        btf = perm[: slots * pbf].view(slots, pbf).to(torch.int32).to(dev)
+        st = torch.tensor(start, dtype=torch.int32, device=dev)
+        q = torch.randn(slots, c, h, dh, generator=g).to(dev, dtype)
+        sc = (ks, vs) if int8 else (None, None)
+        gk = gathered(kq if int8 else kp, btf, length, sc[0])
+        gv = gathered(vq if int8 else vp, btf, length, sc[1])
+        qi = st[:, None].long() + torch.arange(c, device=dev)[None]
+        mask = torch.arange(length, device=dev)[None, None] <= qi[:, :, None]
+        pages = (kq, vq, ks, vs) if int8 else (kp, vp)
+        pairs = sum(s_ + i + 1 for s_ in start for i in range(c)) * h
+        return (q, *pages, btf, st), lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), gk, gv, attn_mask=mask[:, None]
+        ), int((st + c).sum()), pairs
+
+    prefill_start = [0, 64, 128, 192, 0, 64, 128, 192]  # keys < 256
+    verify_start = [130, 200, 250, 300, 140, 180, 220, 231]  # keys < 320
+    bf16_row, int8_row = kh * dh * 2, kh * dh + 4  # bytes per K or V row
+    cases = [
+        (kernels.paged_decode_attention, kernels.paged_decode_attention_plain,
+         "src/repro/kernels/decode_attention.py:322", bf16_row,
+         decode_case(False), None),
+        (kernels.paged_prefill_attention,
+         kernels.paged_prefill_attention_plain,
+         "src/repro/kernels/prefill_attention.py:220", bf16_row,
+         chunk_case(False, 64, prefill_start, 256), None),
+        (kernels.paged_decode_attention_int8,
+         kernels.paged_decode_attention_int8_plain,
+         "src/repro/kernels/decode_attention.py:346", int8_row,
+         decode_case(True), None),
+        (kernels.paged_prefill_attention_int8,
+         kernels.paged_prefill_attention_int8_plain,
+         "src/repro/kernels/prefill_attention.py:253", int8_row,
+         chunk_case(True, 64, prefill_start, 256),
+         chunk_case(True, 5, verify_start, 320)),
+    ]
+
+    def measure(fn, plain, kv_row, case):
+        args, library, kv_tokens, pairs = case
         out = fn(*args)
-        ref = plain(args[0].float(), kp.float(), vp.float(), *args[3:])
+        ref = plain(args[0].float(), *args[1:])
         torch.cuda.synchronize()
         err = (out.float() - ref).abs().max().item()
-        check(err <= KERNEL_ATOL[dtype], f"{fn.__name__} at main-path shapes: "
-              f"max abs err {err:.3g}")
+        check(err <= KERNEL_ATOL[dtype], f"{fn.__name__} at main-path shapes "
+              f"q{tuple(args[0].shape)}: max abs err {err:.3g}")
         saved = fn.launches  # timing launches are not main-path launches
         ms = _median_ms(lambda: fn(*args))
         fn.launches = saved
         plain_ms = _median_ms(lambda: plain(*args))
         library_ms = _median_ms(library)
-        bound_ms, bound_by = bound(kv_tokens, pairs, args[0], out, *args[3:])
-        rows.append({
-            "name": fn.__name__, "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_attention.cu",
-            "replaces": replaces, "launches": launches[fn.__name__],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-        })
+        bound_ms, bound_by = bound(kv_tokens, pairs, args[0], out,
+                                   args[-2:], kv_row)
         log(f"[timing] {fn.__name__} bf16 q{tuple(args[0].shape)} pages "
-            f"{tuple(kp.shape)} table {tuple(args[3].shape)}: kernel {ms:.4f} "
-            f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{tuple(args[1].shape)} {args[1].dtype} table "
+            f"{tuple(args[-2].shape)}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), max abs err {err:.3g}")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    rows = []
+    for fn, plain, replaces, kv_row, case, verify in cases:
+        source = "src/repro_torch/csrc/" + (
+            "paged_attention_int8.cu" if "int8" in fn.__name__
+            else "paged_attention.cu")
+        row = {"name": fn.__name__, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[fn.__name__],
+               **measure(fn, plain, kv_row, case)}
+        if verify is not None:  # the same kernel at the verify window
+            row.update({f"verify_{k}": v for k, v in
+                        measure(fn, plain, kv_row, verify).items()})
+        if fn is kernels.paged_prefill_attention:
+            row["verify_launches"] = b2_verify["launches"]  # smoke, phase 5
+        rows.append(row)
     return rows
 
 
@@ -436,13 +656,13 @@ def main() -> int:
     t0 = time.perf_counter()
     setup()
     kernels_vs_plain()
-    main_path = full_width_stream()
+    main_path = full_width_streams()
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
-    profile_decode_steps(main_path["cfg"], main_path["params"])
+    profile_steps(main_path["cfg"], main_path["params"])
     del main_path["params"]
     torch.cuda.empty_cache()
-    smoke_card_vs_cpu()
-    rows = time_kernels(main_path["launches"])
+    b2_verify = smoke_card_vs_cpu()
+    rows = time_kernels(main_path["launches"], b2_verify)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

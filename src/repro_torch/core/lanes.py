@@ -1,8 +1,9 @@
 """Dispatch-coordinate registry: lanes and their bucket axes as declarations.
 
 The port's copy of ``repro.core.lanes`` (DESIGN.md §12), holding the lanes
-the paged serving path runs: ``cbp`` (paged decode) and ``pf`` (chunked
-paged prefill).
+the paged serving path runs: ``cbp`` (paged decode), ``pf`` (chunked paged
+prefill) and speculative decoding's ``vf`` (paged verify), ``dr`` (draft)
+and ``drp`` (the draft's prompt mirror).
 
 * ``LaneAxis``    — one coordinate of a lane's key: a name plus the *bucket
                     ladder* that enumerates its warmup fan-out (an engine
@@ -20,8 +21,10 @@ paged prefill).
 
 The registry holds *declarations only* (method names, not callables), so it
 imports nothing heavier than the stdlib and carries no reference to a live
-engine. The JAX package's ``kv_dtype`` and ``mesh`` coordinates join the
-keys when int8 pages and the multi-device layer are ported.
+engine. The page dtype is a coordinate of every pool lane (``kv_dtype``) and
+the draft cache's dtype one of the draft lanes (``draft_kv_dtype``), as in
+the JAX package; its ``mesh`` coordinate joins the keys when the
+multi-device layer is ported.
 """
 
 from __future__ import annotations
@@ -193,27 +196,60 @@ class LaneRegistry:
 
 # --------------------------------------------------------------- the registry
 # The serving engine's lanes (DESIGN.md §12). Registration order IS warmup
-# order per engine kind: decode capacity first, then prompt ingestion.
+# order per engine kind: decode capacity first, then prompt ingestion, then
+# the speculative lanes (verify, draft, draft prompt mirror).
 LANES = LaneRegistry()
 
 _SLOTS = LaneAxis("slots")  # pinned per batcher (paged_continuous(slots=...))
 _PAGES = LaneAxis("pages_bucket", "_pages_buckets")
 _CHUNK = LaneAxis("chunk_bucket", "_chunk_buckets")
+_KBUCKET = LaneAxis("k_bucket", "_k_buckets")
+_KVDTYPE = LaneAxis("kv_dtype", "_warm_kv_dtypes")
+# The draft lanes carry their own storage-dtype ladder: an int8 draft cache
+# can pair with a model-dtype verify pool (DESIGN.md §16) without
+# multiplying the verify lanes' fan-out.
+_DRAFT_KVDTYPE = LaneAxis("draft_kv_dtype", "_warm_draft_kv_dtypes")
 
 CBP = LANES.register(LaneSpec(
     name="cbp", role="decode",
-    axes=(_SLOTS, _PAGES),
+    axes=(_SLOTS, _PAGES, _KVDTYPE),
     builder="_build_paged_slot_decode", warmer="_warm_cbp",
     engines=frozenset({"paged"}),
-    doc="Paged continuous decode: the capacity bucket as a semi-static "
-        "coordinate (DESIGN.md §9).",
+    doc="Paged continuous decode: capacity bucket + page dtype as "
+        "semi-static coordinates (DESIGN.md §9/§12).",
 ))
 
 PF = LANES.register(LaneSpec(
     name="pf", role="prefill",
-    axes=(_SLOTS, _CHUNK),
+    axes=(_SLOTS, _CHUNK, _KVDTYPE),
     builder="_build_paged_prefill", warmer="_warm_pf",
     engines=frozenset({"paged"}), enabled="_supports_chunked_prefill",
     doc="Paged chunked prefill, batched: every prefilling slot the budget "
-        "covers rides one call (DESIGN.md §10).",
+        "covers rides one call (DESIGN.md §10/§12).",
+))
+
+VF = LANES.register(LaneSpec(
+    name="vf", role="verify",
+    axes=(_SLOTS, _KBUCKET, _KVDTYPE),
+    builder="_build_paged_verify", warmer="_warm_vf",
+    engines=frozenset({"paged"}), enabled="_spec_lanes_enabled",
+    doc="Paged verify: K+1 window through the chunk path (DESIGN.md §11).",
+))
+
+DR = LANES.register(LaneSpec(
+    name="dr", role="draft",
+    axes=(_SLOTS, _KBUCKET, _DRAFT_KVDTYPE),
+    builder="_build_draft", warmer="_warm_dr",
+    engines=frozenset({"paged"}), enabled="_spec_lanes_enabled",
+    doc="Draft lane: K decode steps of the truncated-layer view in one "
+        "branch target (DESIGN.md §11; the draft cache is dense).",
+))
+
+DRP = LANES.register(LaneSpec(
+    name="drp", role="draft",
+    axes=(_SLOTS, _CHUNK, _DRAFT_KVDTYPE),
+    builder="_build_draft_prefill", warmer="_warm_drp",
+    engines=frozenset({"paged"}), enabled="_spec_lanes_enabled",
+    doc="Draft prompt mirror: chunked dense ingestion over the draft view "
+        "(DESIGN.md §11).",
 ))

@@ -1,0 +1,43 @@
+// Paged decode (B3) and chunked prefill (B4) attention over int8 pages with
+// f32 per-token-row scales: the host entry points of the templates in
+// paged_attention.cuh, instantiated for q/out in {float32, bfloat16}. B4 is
+// also the verify lane's kernel (a chunk of K+1 rows).
+#include "paged_attention.cuh"
+
+using paged::Args;
+
+// dtype: 0 = float32, 1 = bfloat16 (q and out); pages are int8 and
+// k_scale / v_scale are float32 [P, page_size]. Returns the cudaError_t of
+// the launch (0 on success). Launches on `stream`, allocates nothing, does
+// not sync.
+extern "C" int paged_decode_attention_int8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* pos, void* out, int batch, int heads, int kv_heads,
+    int pages_per_row, int dtype, int head_dim, int page_size,
+    int has_window, int window, int has_softcap, float softcap,
+    float sm_scale, void* stream) {
+  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(pos), out, batch, 1, heads, kv_heads,
+               pages_per_row, window, sm_scale, softcap};
+  return paged::launch<paged::DecodeLaunch, true>(
+      a, dtype, head_dim, page_size, has_window, has_softcap, stream);
+}
+
+extern "C" int paged_prefill_attention_int8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* start, void* out, int batch, int chunk, int heads,
+    int kv_heads, int pages_per_row, int dtype, int head_dim, int page_size,
+    int has_window, int window, int has_softcap, float softcap,
+    float sm_scale, void* stream) {
+  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(start), out, batch, chunk, heads,
+               kv_heads, pages_per_row, window, sm_scale, softcap};
+  return paged::launch<paged::PrefillLaunch, true>(
+      a, dtype, head_dim, page_size, has_window, has_softcap, stream);
+}

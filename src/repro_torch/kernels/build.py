@@ -1,11 +1,14 @@
 """Build, load and launch the port's CUDA kernels.
 
-The sources in ``repro_torch/csrc`` are compiled at first use with ``nvcc``
-into a shared library with a plain C interface, loaded with ``ctypes``. The
-library lands in ``build/repro_torch/`` at the root of the checkout, named
-by a hash of the sources and flags, so an edit rebuilds and an unchanged
-tree reuses the last build. Nothing here runs at import: a CPU-only install
-imports every module and never needs ``nvcc``.
+Each source in ``repro_torch/csrc`` is compiled at first use with ``nvcc``
+into its own shared library with a plain C interface, loaded with
+``ctypes``. The sources build as parallel ``nvcc`` processes (the model-dtype
+kernels B1/B2 and the int8 ones B3/B4 are separate files over one shared
+header). Each library lands in ``build/repro_torch/`` at the root of the
+checkout, named by a hash of its source, the shared header and the flags, so
+an edit rebuilds and an unchanged tree reuses the last build. Nothing here
+runs at import: a CPU-only install imports every module and never needs
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -18,35 +21,51 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("paged_attention.cu",)
+HEADERS = ("paged_attention.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Instantiated specialisations (csrc/paged_attention.cu: by_shape/launch).
+# Instantiated specialisations (csrc/paged_attention.cuh: by_shape/launch).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 128)
 PAGE_SIZES = (8, 16)
 
 _ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    # q, k_pages, v_pages, block_tables, pos, out, batch, heads, kv_heads,
-    # pages_per_row, dtype, head_dim, page_size, has_window, window,
-    # has_softcap, softcap, sm_scale, stream
-    "paged_decode_attention": [_ptr] * 6 + [_int] * 10 + [_float] * 2 + [_ptr],
-    # as decode, with the chunk length after batch
-    "paged_prefill_attention": [_ptr] * 6 + [_int] * 11 + [_float] * 2 + [_ptr],
+# source -> {entry point: argtypes}
+SOURCES = {
+    "paged_attention.cu": {
+        # q, k_pages, v_pages, block_tables, pos, out, batch, heads,
+        # kv_heads, pages_per_row, dtype, head_dim, page_size, has_window,
+        # window, has_softcap, softcap, sm_scale, stream
+        "paged_decode_attention": [_ptr] * 6 + [_int] * 10 + [_float] * 2
+        + [_ptr],
+        # as decode, with the chunk length after batch
+        "paged_prefill_attention": [_ptr] * 6 + [_int] * 11 + [_float] * 2
+        + [_ptr],
+    },
+    "paged_attention_int8.cu": {
+        # as paged_decode_attention, with k_scale, v_scale after v_pages
+        "paged_decode_attention_int8": [_ptr] * 8 + [_int] * 10
+        + [_float] * 2 + [_ptr],
+        # as paged_prefill_attention, with k_scale, v_scale after v_pages
+        "paged_prefill_attention_int8": [_ptr] * 8 + [_int] * 11
+        + [_float] * 2 + [_ptr],
+    },
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-build_info: dict = {}  # {"seconds", "library", "log"} of this process's load
+_lib: SimpleNamespace | None = None
+# {"seconds", "libraries", "log"} of this process's load; "seconds" is the
+# wall time of the parallel build (or of loading cached libraries)
+build_info: dict = {}
 
 
 def _nvcc() -> str:
@@ -60,19 +79,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
+def library_path(source: str = "paged_attention.cu") -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (*HEADERS, source):
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libpaged_attention-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(path: Path) -> str:
+def _start_compile(source: str, path: Path):
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp
+
+
+def _finish_compile(proc, tmp: Path, path: Path) -> str:
+    log = proc.communicate()[0]
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
@@ -81,47 +106,73 @@ def _compile(path: Path) -> str:
     return log
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use (thread-safe, once per process)."""
+def load() -> SimpleNamespace:
+    """The kernels' entry points, every source built on first use — all
+    missing libraries at once, one ``nvcc`` each — and loaded once per
+    process (thread-safe)."""
     global _lib
     with _lock:
         if _lib is None:
             t0 = time.perf_counter()
-            path = library_path()
-            log = _compile(path) if not path.exists() else (
-                path.with_suffix(".log").read_text()
-                if path.with_suffix(".log").exists() else ""
-            )
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = _int
+            paths = {src: library_path(src) for src in SOURCES}
+            running = {
+                src: _start_compile(src, path)
+                for src, path in paths.items() if not path.exists()
+            }
+            logs = {}
+            for src, path in paths.items():
+                if src in running:
+                    logs[src] = _finish_compile(*running[src], path)
+                elif path.with_suffix(".log").exists():
+                    logs[src] = path.with_suffix(".log").read_text()
+                else:
+                    logs[src] = ""
+            fns = {}
+            for src, path in paths.items():
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in SOURCES[src].items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = _int
+                    fns[name] = fn
             build_info.update(
-                seconds=time.perf_counter() - t0, library=str(path), log=log
+                seconds=time.perf_counter() - t0,
+                libraries=[str(p) for p in paths.values()],
+                log="\n".join(logs.values()),
             )
-            _lib = lib
+            _lib = SimpleNamespace(**fns)
     return _lib
 
 
 def check_operands(
-    name: str, q, k_pages, v_pages, block_tables, positions, q_ndim: int
+    name: str, q, k_pages, v_pages, block_tables, positions, q_ndim: int,
+    k_scale=None, v_scale=None,
 ) -> None:
-    """Validate what the CUDA kernels take; raise on anything else."""
+    """Validate what the CUDA kernels take; raise on anything else.
+
+    Without scales the pages share q's type (B1/B2); with ``k_scale`` /
+    ``v_scale`` the pages are int8 and the scales contiguous float32
+    ``[P, page_size]`` on the same device (B3/B4)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: expected CUDA tensors, got {dev}")
-    for t in (k_pages, v_pages, block_tables, positions):
+    quant = k_scale is not None or v_scale is not None
+    scales = (k_scale, v_scale) if quant else ()
+    for t in (k_pages, v_pages, block_tables, positions, *scales):
+        if t is None:
+            raise ValueError(f"{name}: int8 pages need both k_scale and v_scale")
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
-    for t in (q, k_pages, v_pages, block_tables, positions):
+    for t in (q, k_pages, v_pages, block_tables, positions, *scales):
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-    if q.dtype not in DTYPE_CODES or k_pages.dtype != q.dtype or (
-        v_pages.dtype != q.dtype
+    page_dtype = torch.int8 if quant else q.dtype
+    if q.dtype not in DTYPE_CODES or k_pages.dtype != page_dtype or (
+        v_pages.dtype != page_dtype
     ):
+        want = "int8 pages" if quant else "pages of q's type"
         raise ValueError(
-            f"{name}: q/pages must share one of {tuple(DTYPE_CODES)}, got "
+            f"{name}: q must be one of {tuple(DTYPE_CODES)} with {want}, got "
             f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}"
         )
     if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
@@ -133,7 +184,13 @@ def check_operands(
             f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k_pages.shape)} "
             f"v{tuple(v_pages.shape)}"
         )
-    _, ps, kh, dh = k_pages.shape
+    n_pages, ps, kh, dh = k_pages.shape
+    for t in scales:
+        if t.dtype != torch.float32 or tuple(t.shape) != (n_pages, ps):
+            raise ValueError(
+                f"{name}: scales must be float32 [{n_pages}, {ps}], got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
     b, h = q.shape[0], q.shape[-2]
     if q.shape[-1] != dh or h % kh != 0:
         raise ValueError(

@@ -1,12 +1,16 @@
-"""Paged decode attention, kernel B1: CUDA wrapper, launch count, plain version.
+"""Paged decode attention, kernels B1 (model-dtype pages) and B3 (int8 pages):
+CUDA wrappers, launch counts, plain versions.
 
-Replaces the Pallas TPU kernel
-``repro/kernels/decode_attention.py:paged_decode_attention`` (through
-``_paged_decode_call`` / ``_make_paged_kernel``). One query token per row; its
+Replace the Pallas TPU kernels
+``repro/kernels/decode_attention.py:paged_decode_attention`` and
+``paged_decode_attention_int8`` (both through ``_paged_decode_call`` /
+``_make_paged_kernel``). One query token per row; its
 GQA group ``[G, dh]`` for each kv head attends over the pages listed in
 ``block_tables[b]``, gathered from a ``[P, ps, KH, dh]`` pool, with the
 per-row causal mask ``ki <= pos[b]``, an optional sliding window and logit
-softcap, and an online softmax.
+softcap, and an online softmax. B3 reads int8 pages and dequantises each
+K/V row by its f32 scale (``k_scale``/``v_scale``, ``[P, page_size]``) as it
+loads it.
 
 On the card (``csrc/paged_attention.cu``, ``paged_decode_kernel``) one block
 serves one ``(row, kv head)``: it reads the row's block table and position
@@ -15,11 +19,13 @@ itself (where the TPU kernel prefetched them as scalars), loops over pages
 page's K/V in shared memory, and keeps scores, softmax state and the
 accumulator in fp32. The work is bound by the K/V bytes it reads from device
 memory; the design reads each needed page once per kv head and nothing past
-``pos``. Window, softcap, head_dim, page_size and the element type are
-template parameters: one compiled kernel per specialisation.
+``pos``. Window, softcap, head_dim, page_size, the query type and the page
+type are template parameters: one compiled kernel per specialisation; B3 is
+the same body with int8 pages (``paged_attention_int8.cu``), so its bytes
+per K/V element are 1 instead of 2 (bf16) plus 4 per row for the scale.
 
-The wrapper runs the plain version only for CPU tensors. For CUDA tensors it
-launches the kernel or raises.
+The wrappers run the plain version only for CPU tensors. For CUDA tensors
+they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -71,6 +77,88 @@ def paged_decode_attention(
 paged_decode_attention.launches = 0  # kernel launches (CUDA path only)
 
 
+def paged_decode_attention_int8(
+    q: torch.Tensor,  # [B, H, dh] one token per row
+    k_pages: torch.Tensor,  # int8 [P, page_size, KH, dh] quantised pages
+    v_pages: torch.Tensor,
+    k_scale: torch.Tensor,  # f32 [P, page_size] per-token-row scales
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # i32[B, pages_bucket] page ids (0 = null page)
+    pos: torch.Tensor,  # i32[B] per-row positions (inclusive)
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode attention over int8 pages -> [B, H, dh] in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_int8_plain(
+            q, k_pages, v_pages, k_scale, v_scale, block_tables, pos,
+            window=window, softcap=softcap,
+        )
+    name = "paged_decode_attention_int8"
+    build.check_operands(
+        name, q, k_pages, v_pages, block_tables, pos, 3, k_scale, v_scale
+    )
+    b, h, dh = q.shape
+    _, ps, kh, _ = k_pages.shape
+    out = torch.empty_like(q)
+    rc = build.load().paged_decode_attention_int8(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), b, h, kh, block_tables.shape[1],
+        build.DTYPE_CODES[q.dtype], dh, ps,
+        int(window is not None), int(window or 0),
+        int(softcap is not None), float(softcap or 0.0),
+        1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.raise_on_error(name, rc)
+    paged_decode_attention_int8.launches += 1
+    return out
+
+
+paged_decode_attention_int8.launches = 0  # kernel launches (CUDA path only)
+
+
+def gather_pages(
+    pages: torch.Tensor, block_tables: torch.Tensor, scale=None
+) -> torch.Tensor:
+    """Each row's pages as one fp32 sequence [B, PB*ps, KH, dh]; int8 pages
+    are dequantised by their per-row ``scale`` [P, page_size]."""
+    b, pb = block_tables.shape
+    _, ps, kh, dh = pages.shape
+    g = pages[block_tables].float()  # [B, PB, ps, KH, dh]
+    if scale is not None:
+        g = g * scale[block_tables][..., None, None]
+    return g.reshape(b, pb * ps, kh, dh)
+
+
+def decode_attention_gathered(
+    q: torch.Tensor,  # [B, H, dh]
+    gk: torch.Tensor,  # fp32 [B, L, KH, dh] gathered keys
+    gv: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Masked fp32 softmax attention of one query per row over its gathered
+    K/V -> [B, H, dh] in q's dtype: the body the plain versions share."""
+    b, h, dh = q.shape
+    seq, kh = gk.shape[1], gk.shape[2]
+    qg = q.reshape(b, kh, h // kh, dh).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, gk) * (1.0 / math.sqrt(dh))
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    ki = torch.arange(seq, device=q.device)[None, :]
+    p = pos.long()[:, None]
+    ok = ki <= p
+    if window is not None:
+        ok &= ki > p - window
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    o = torch.einsum("bhgk,bkhd->bhgd", torch.softmax(s, dim=-1), gv)
+    return o.reshape(b, h, dh).to(q.dtype)
+
+
 def paged_decode_attention_plain(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -83,21 +171,31 @@ def paged_decode_attention_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version (gather + masked softmax, fp32), the counterpart
     of ``paged_decode_attention_reference`` in the JAX package."""
-    b, h, dh = q.shape
-    _, page_size, kh, _ = k_pages.shape
-    seq = block_tables.shape[1] * page_size
-    group = h // kh
-    gk = k_pages[block_tables].reshape(b, seq, kh, dh).float()
-    gv = v_pages[block_tables].reshape(b, seq, kh, dh).float()
-    qg = q.reshape(b, kh, group, dh).float()
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, gk) * (1.0 / math.sqrt(dh))
-    if softcap is not None:
-        s = torch.tanh(s / softcap) * softcap
-    ki = torch.arange(seq, device=q.device)[None, :]
-    p = pos.long()[:, None]
-    ok = ki <= p
-    if window is not None:
-        ok &= ki > p - window
-    s = torch.where(ok[:, None, None, :], s, NEG_INF)
-    o = torch.einsum("bhgk,bkhd->bhgd", torch.softmax(s, dim=-1), gv)
-    return o.reshape(b, h, dh).to(q.dtype)
+    return decode_attention_gathered(
+        q, gather_pages(k_pages, block_tables),
+        gather_pages(v_pages, block_tables), pos,
+        window=window, softcap=softcap,
+    )
+
+
+def paged_decode_attention_int8_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of B3: gather the row's int8 pages, dequantise
+    them to fp32 and run the shared body. The counterpart of
+    ``paged_decode_attention_int8_reference``, which also rounds the
+    dequantised K/V to q's dtype first (a difference only at bf16)."""
+    return decode_attention_gathered(
+        q, gather_pages(k_pages, block_tables, k_scale),
+        gather_pages(v_pages, block_tables, v_scale), pos,
+        window=window, softcap=softcap,
+    )

@@ -3,12 +3,15 @@
 Synthesises open-loop Poisson traffic — shared-prefix prompts by default,
 distinct prompts with ``--prompt-len`` — and drives it through
 ``Engine.paged_continuous``, reporting latency percentiles, TTFT, throughput
-and cold-path activity (builds after warmup, rebinds). Weights are a seeded
-random init. Runs on the GPU unless ``--device cpu``:
+and cold-path activity (builds after warmup, rebinds). ``--kv-dtype int8``
+stores the pool as int8 pages (kernels B3/B4); ``--spec-k K`` turns on
+speculative decoding with a ``--draft-layers``-deep draft. Weights are a
+seeded random init. Runs on the GPU unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --arch olmo-1b --requests 16 --rate 50 --tokens-mean 16 \\
-      --max-len 1024 --page-size 16 --prefix-len 128 --prefill-chunk 64
+      --max-len 1024 --page-size 16 --prefix-len 128 --prefill-chunk 64 \\
+      --kv-dtype int8 --spec-k 4 --draft-layers 2
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from repro_torch.runtime.scheduler import (
     poisson_arrivals,
     shared_prefix_arrivals,
 )
+from repro_torch.runtime.kvcache import KV_DTYPES
 from repro_torch.runtime.serve import Engine, EngineConfig, run_paged_stream
 
 SLOTS = 8  # continuous-batching slots, as in the JAX package's launcher
@@ -34,7 +38,7 @@ _REPORT_KEYS = (
     "occupancy", "prefill_chunk", "prefill_chunks", "chunk_bucket_crossings",
     "h2d_uploads", "kv_dtype", "pool_pages", "pages_in_use_peak",
     "peak_concurrent", "share_ratio", "overcommit_ratio", "preemptions",
-    "bucket_crossings", "cow_copies",
+    "bucket_crossings", "cow_copies", "spec_k", "k_bucket_crossings",
 )
 
 
@@ -58,6 +62,9 @@ def _print_report(rep: dict) -> None:
     print(f"[serve/paged] {cold}", flush=True)
     print(f"[serve/paged] lanes: {rep.get('lane_steps')} "
           f"pipeline: {rep.get('pipeline')}", flush=True)
+    if "spec" in rep:
+        print(f"[serve/paged] specdec: {rep['spec']} tokens/target step "
+              f"{rep.get('tokens_per_target_step')}", flush=True)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -87,6 +94,16 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="max prompt tokens ingested per step (0 = token-by-"
                          "token teacher forcing)")
+    ap.add_argument("--kv-dtype", choices=KV_DTYPES, default="fp32",
+                    help="page storage: fp32 = the model dtype, int8 = int8 "
+                         "pages with per-row scales")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="max draft depth of speculative decoding (0 = off)")
+    ap.add_argument("--draft-layers", type=int, default=1,
+                    help="depth of the truncated-layer draft, in layer "
+                         "periods")
+    ap.add_argument("--draft-kv-dtype", choices=KV_DTYPES, default="fp32",
+                    help="storage of the draft's dense cache")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
@@ -98,6 +115,8 @@ def main(argv: list[str] | None = None) -> dict:
         ap.error(f"--rate must be > 0 requests/s, got {args.rate}")
     if args.requests < 1:
         ap.error(f"--requests must be >= 1, got {args.requests}")
+    if args.spec_k < 0:
+        ap.error(f"--spec-k must be >= 0, got {args.spec_k}")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -112,6 +131,10 @@ def main(argv: list[str] | None = None) -> dict:
         page_size=args.page_size,
         num_pages=args.num_pages,
         prefill_chunk=args.prefill_chunk,
+        kv_dtype=args.kv_dtype,
+        spec_k=args.spec_k,
+        draft_layers=args.draft_layers,
+        draft_kv_dtype=args.draft_kv_dtype,
     )
     if args.prompt_len > 0:
         reqs = poisson_arrivals(

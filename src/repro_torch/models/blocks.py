@@ -1,4 +1,5 @@
-"""Paged attention + MLP blocks (counterpart of ``repro.models.blocks``)."""
+"""Attention + MLP blocks through the paged KV cache and the draft's dense
+cache (counterpart of ``repro.models.blocks``)."""
 
 from __future__ import annotations
 
@@ -79,5 +80,52 @@ def block_paged_prefill(
     h, cache = attn.paged_prefill_attention(
         cfg, p["attn"], h, cache, start, block_tables, length,
         local=local, attn_impl=attn_impl,
+    )
+    return _block_tail(cfg, slot, p, x + h), cache
+
+
+# ------------------------------------------------- the draft's dense cache
+def block_cache_init(
+    cfg: ArchConfig,
+    slot: int,
+    batch: int,
+    max_len: int,
+    kv_dtype: str = "fp32",
+    device: torch.device | str = "cpu",
+) -> dict:
+    """One slot's dense per-slot KV cache (attention-only stacks)."""
+    _mixer(cfg, slot, "the dense cache")
+    return attn.init_kv_cache(cfg, batch, max_len, kv_dtype, device)
+
+
+def block_decode(
+    cfg: ArchConfig,
+    slot: int,
+    p: dict,
+    x: torch.Tensor,
+    cache: dict,
+    pos: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Single-token block step into the dense cache, per-row positions."""
+    local = _mixer(cfg, slot, "dense decode")
+    h = norm_apply(cfg, _scale(p, "norm1"), x)
+    h, cache = attn.decode_attention(cfg, p["attn"], h, cache, pos, local=local)
+    return _block_tail(cfg, slot, p, x + h), cache
+
+
+def block_chunk_decode(
+    cfg: ArchConfig,
+    slot: int,
+    p: dict,
+    x: torch.Tensor,
+    cache: dict,
+    start: torch.Tensor,
+    length: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Chunk-of-C-tokens block step into the dense cache (DESIGN.md §10)."""
+    local = _mixer(cfg, slot, "dense chunk ingestion")
+    h = norm_apply(cfg, _scale(p, "norm1"), x)
+    h, cache = attn.chunked_decode_attention(
+        cfg, p["attn"], h, cache, start, length, local=local
     )
     return _block_tail(cfg, slot, p, x + h), cache

@@ -1,4 +1,5 @@
-"""Top-level LM for the paged serving path (counterpart of ``repro.models.model``).
+"""Top-level LM for the paged serving path and its speculative draft
+(counterpart of ``repro.models.model``).
 
 Params are a flat ``dict[str, Tensor]`` keyed by the JAX pytree's paths::
 
@@ -8,20 +9,29 @@ Params are a flat ``dict[str, Tensor]`` keyed by the JAX pytree's paths::
     "blocks.{slot}.attn.wq"      [m, D, H, dh]   ... stacked [m, ...] per
     "blocks.{slot}.mlp.w_gate"   [m, D, F]       period slot, as in JAX
 
-Caches mirror the blocks: one ``{"k", "v"}`` dict of ``[m, P, page_size, KH,
-dh]`` pages per period slot. The JAX package drives depth with
-``lax.scan``; here it is a Python loop over layers, and each layer's cache
-is a view into the stacked tensor, updated in place.
+Caches mirror the blocks: per period slot, one dict of ``[m, P, page_size,
+KH, dh]`` pages (plus ``[m, P, page_size]`` scales for int8 pages), or, for
+the draft's dense cache, ``[m, B, max_len, KH, dh]`` rows. The JAX package
+drives depth with ``lax.scan``; here it is a Python loop over layers, and
+each layer's cache is a view into the stacked tensor, updated in place.
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import torch
 
 from repro_torch.configs import ArchConfig
 
 from .attention import init_paged_kv_cache
-from .blocks import block_paged_decode, block_paged_prefill
+from .blocks import (
+    block_cache_init,
+    block_chunk_decode,
+    block_decode,
+    block_paged_decode,
+    block_paged_prefill,
+)
 from .layers import dtype_of, embed_apply, head_apply, norm_apply
 
 
@@ -98,20 +108,42 @@ def layer_params(params: dict, slot: int, i: int) -> dict:
     return out
 
 
+def _stack(one: dict, m: int) -> dict:
+    return {k: t[None].repeat(m, *([1] * t.dim())) for k, t in one.items()}
+
+
 def init_paged_cache(
     cfg: ArchConfig,
     num_pages: int,
     page_size: int,
+    kv_dtype: str = "fp32",
     device: torch.device | str = "cpu",
 ) -> list:
     """Pooled paged KV cache, stacked ``[m, ...]`` per period slot. ``num_pages``
-    includes the reserved null page 0."""
+    includes the reserved null page 0. ``kv_dtype="int8"`` adds the
+    ``k_scale``/``v_scale`` leaves ``[m, P, page_size]``, which share the page
+    axis, so ``copy_cache_pages`` moves them with the pages."""
     m = cfg.num_layers // cfg.period
-    out = []
-    for _ in range(cfg.period):
-        one = init_paged_kv_cache(cfg, num_pages, page_size, device)
-        out.append({k: t[None].repeat(m, *([1] * t.dim())) for k, t in one.items()})
-    return out
+    return [
+        _stack(init_paged_kv_cache(cfg, num_pages, page_size, kv_dtype, device), m)
+        for _ in range(cfg.period)
+    ]
+
+
+def init_cache(
+    cfg: ArchConfig,
+    batch: int,
+    max_len: int,
+    kv_dtype: str = "fp32",
+    device: torch.device | str = "cpu",
+) -> list:
+    """Dense per-slot KV cache (the draft lanes' storage), stacked ``[m, ...]``
+    per period slot; ``kv_dtype="int8"`` adds ``ks``/``vs`` scale leaves."""
+    m = cfg.num_layers // cfg.period
+    return [
+        _stack(block_cache_init(cfg, slot, batch, max_len, kv_dtype, device), m)
+        for slot in range(cfg.period)
+    ]
 
 
 def _layers(cfg: ArchConfig, params: dict, cache: list):
@@ -174,20 +206,133 @@ def paged_prefill_step(
     i32[B]; block_tables: i32[B, PB]; length: i32[B]. Returns (logits of the
     last real chunk row [B,V] float32, cache updated in place).
     """
+    x = _paged_chunk_hidden(
+        cfg, params, cache, inputs, start, block_tables, length, attn_impl
+    )
+    return head_apply(cfg, params, _last_real_row(x, length)), cache
+
+
+def _paged_chunk_hidden(
+    cfg: ArchConfig,
+    params: dict,
+    cache: list,
+    inputs: torch.Tensor,
+    start: torch.Tensor,
+    block_tables: torch.Tensor,
+    length: torch.Tensor,
+    attn_impl: str,
+) -> torch.Tensor:
+    """The chunk tower shared by the paged prompt and verify paths: embed,
+    every layer through ``block_paged_prefill``, final norm -> [B,C,D]."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     for slot, p, c in _layers(cfg, params, cache):
         x, _ = block_paged_prefill(
             cfg, slot, p, x, c, start, block_tables, length,
             attn_impl=attn_impl,
         )
+    return _final_norm(cfg, params, x)
+
+
+def paged_verify_step(
+    cfg: ArchConfig,
+    params: dict,
+    cache: list,
+    inputs: torch.Tensor,
+    start: torch.Tensor,
+    block_tables: torch.Tensor,
+    length: torch.Tensor,
+    *,
+    attn_impl: str = "kernel",
+) -> tuple[torch.Tensor, list]:
+    """Verify lane (DESIGN.md §11): score all K+1 positions of a draft window
+    in one pass through the paged chunk tower. Same contract as
+    ``paged_prefill_step`` (inputs are the current token followed by K draft
+    candidates; columns >= ``length`` write only the null page), but the head
+    projects every row: returns (logits [B,C,V] float32, cache updated in
+    place). Row i's logits are what ``paged_decode_step`` gives after feeding
+    rows 0..i one at a time, up to the order of float sums."""
+    x = _paged_chunk_hidden(
+        cfg, params, cache, inputs, start, block_tables, length, attn_impl
+    )
+    return head_apply(cfg, params, x), cache
+
+
+def decode_step(
+    cfg: ArchConfig,
+    params: dict,
+    cache: list,
+    inputs: torch.Tensor,
+    pos: torch.Tensor,
+) -> tuple[torch.Tensor, list]:
+    """One token for the whole stack through the dense per-slot cache.
+
+    inputs: i32[B,1]; pos: i32[B] per-row positions (the scalar-position
+    form belongs to the burst engine and raises). Returns (logits [B,V]
+    float32, cache updated in place)."""
+    x = embed_apply(cfg, params["embed.embedding"], inputs)
+    for slot, p, c in _layers(cfg, params, cache):
+        x, _ = block_decode(cfg, slot, p, x, c, pos)
     x = _final_norm(cfg, params, x)
+    return head_apply(cfg, params, x[:, -1]), cache
+
+
+def _dense_chunk_hidden(
+    cfg: ArchConfig,
+    params: dict,
+    cache: list,
+    inputs: torch.Tensor,
+    start: torch.Tensor,
+    length: torch.Tensor,
+) -> torch.Tensor:
+    """The chunk tower over the dense per-slot cache -> normed [B,C,D]."""
+    x = embed_apply(cfg, params["embed.embedding"], inputs)
+    for slot, p, c in _layers(cfg, params, cache):
+        x, _ = block_chunk_decode(cfg, slot, p, x, c, start, length)
+    return _final_norm(cfg, params, x)
+
+
+def chunked_decode_step(
+    cfg: ArchConfig,
+    params: dict,
+    cache: list,
+    inputs: torch.Tensor,
+    start: torch.Tensor,
+    length: torch.Tensor,
+) -> tuple[torch.Tensor, list]:
+    """A chunk of C tokens for the whole stack into the dense per-slot cache
+    (the draft's prompt mirror). inputs: i32[B,C]; start, length: i32[B]
+    (length 0 = idle row). Returns (logits of the last real chunk row [B,V]
+    float32, cache updated in place)."""
+    x = _dense_chunk_hidden(cfg, params, cache, inputs, start, length)
     return head_apply(cfg, params, _last_real_row(x, length)), cache
+
+
+def draft_view(
+    cfg: ArchConfig, params: dict, draft_layers: int = 1
+) -> tuple[ArchConfig, dict]:
+    """Truncated-layer draft model: the speculative-decode predictor as a
+    view of the target (DESIGN.md §11), no extra weights.
+
+    Keeps the first ``draft_layers`` repetitions of every period slot —
+    each ``blocks.*`` tensor's leading ``[m]`` axis is sliced (a view, no
+    copy) — and shares the embedding, head and final norm tensors with the
+    target. Returns ``(draft_cfg, draft_params)``."""
+    m = cfg.num_layers // cfg.period
+    d = max(1, min(int(draft_layers), m))
+    dcfg = replace(
+        cfg, name=f"{cfg.name}-draft{d}", num_layers=d * cfg.period
+    ).validate()
+    dparams = {
+        k: (t[:d] if k.startswith("blocks.") else t) for k, t in params.items()
+    }
+    return dcfg, dparams
 
 
 def copy_cache_pages(cache: list, src: int, dst: int) -> list:
     """Copy one physical page's contents in every layer — the device half
-    of copy-on-write (``kvcache.BlockTable.ensure_writable``). In place:
-    ``dst`` pages are overwritten, nothing is reallocated."""
+    of copy-on-write (``kvcache.BlockTable.ensure_writable``). Every leaf
+    with a page axis moves, int8 pages' scales included. In place: ``dst``
+    pages are overwritten, nothing is reallocated."""
     for slot_cache in cache:
         for t in slot_cache.values():
             t[:, dst] = t[:, src]

@@ -37,10 +37,11 @@ the engine (a single jitted gather/scatter, see ``models.copy_cache_pages``)
 so this module stays importable without a device.
 
 Pages may be stored quantised (DESIGN.md §12): ``kv_dtype`` labels the pool
-and ``page_bytes`` prices a page (int8 pages cost ~1/4 of fp32, plus
-per-token-row scale arrays that ride the device cache pytree — the same
-``copy_page`` COWs them with the page bits). Host-side accounting is
-dtype-blind: a page is a page; only its byte cost changes.
+(``"fp32"`` means pages in the model dtype, ``"int8"`` int8 pages) and
+``page_bytes`` prices a page (an int8 page costs half a bf16 one and a
+quarter of an fp32 one, plus per-token-row scale arrays that ride the device
+cache — the same ``copy_page`` COWs them with the page bits). Host-side
+accounting is dtype-blind: a page is a page; only its byte cost changes.
 """
 
 from __future__ import annotations
@@ -57,29 +58,40 @@ NULL_PAGE = 0
 # pure accounting: how many bytes a page costs, which is what matched-memory
 # pool sizing (benchmarks/quantkv_bench.py) trades against page count.
 KV_DTYPES = ("fp32", "int8")
-_KV_ELEMENT_BYTES = {"fp32": 4, "int8": 1}
+# bytes per K/V element of a model-dtype ("fp32") page, by ArchConfig.dtype
+_MODEL_ELEMENT_BYTES = {"float32": 4, "bfloat16": 2}
 _SCALE_BYTES = 4  # f32 per-token-row scale, int8 pools only
 
 
 def page_bytes(
-    page_size: int, kv_heads: int, head_dim: int, kv_dtype: str = "fp32"
+    page_size: int,
+    kv_heads: int,
+    head_dim: int,
+    kv_dtype: str = "fp32",
+    model_dtype: str = "float32",
 ) -> int:
     """Device bytes one physical page costs (K + V, plus scales for int8).
 
-    The matched-memory arithmetic of DESIGN.md §12: an int8 page stores the
-    same ``page_size × KH × dh`` K/V elements in a quarter of the bytes,
-    plus one f32 scale per token row per tensor — so a fixed byte budget
-    buys ~4× the pages, which is what lets an int8 pool seat ~2× the
-    concurrent requests under the seating gate.
+    ``kv_dtype="fp32"`` pages hold the model dtype (``model_dtype``, an
+    ``ArchConfig.dtype``): 4 bytes per element at float32, 2 at bfloat16.
+    An int8 page stores the same ``page_size × KH × dh`` K/V elements at 1
+    byte each, plus one f32 scale per token row per tensor — about half a
+    bf16 page, a quarter of an fp32 one — which is the page count a fixed
+    byte budget trades against.
     """
     if kv_dtype not in KV_DTYPES:
         raise KVCacheError(
             f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}"
         )
+    if model_dtype not in _MODEL_ELEMENT_BYTES:
+        raise KVCacheError(
+            f"model_dtype must be one of {tuple(_MODEL_ELEMENT_BYTES)}, got "
+            f"{model_dtype!r}"
+        )
     elems = page_size * kv_heads * head_dim
-    body = 2 * elems * _KV_ELEMENT_BYTES[kv_dtype]  # K + V
-    scales = 2 * page_size * _SCALE_BYTES if kv_dtype == "int8" else 0
-    return body + scales
+    if kv_dtype == "int8":
+        return 2 * elems + 2 * page_size * _SCALE_BYTES  # K + V, scales
+    return 2 * elems * _MODEL_ELEMENT_BYTES[model_dtype]
 
 
 class KVCacheError(RuntimeError):

@@ -5,23 +5,27 @@
   (``poisson_arrivals``, ``shared_prefix_arrivals``,
   ``attach_distinct_prompts``) are the JAX package's, unchanged.
 * ``PagedContinuousBatcher`` — slot-based continuous batching against a
-  paged KV pool (``runtime.kvcache``, DESIGN.md §9) with two lanes: ``cbp``
-  (one token per decoding slot) and ``pf`` (batched chunked prefill,
-  DESIGN.md §10). Block tables map positions onto pooled pages, prompts
-  share full pages through the prefix cache, pool pressure evicts idle
-  prefix pages and then preempts, and both lanes' bucket axes are
-  semi-static dispatch keys: a crossing is a rebind on the cold path, never
-  a build.
+  paged KV pool (``runtime.kvcache``, DESIGN.md §9) with the lanes ``cbp``
+  (one token per decoding slot), ``pf`` (batched chunked prefill, DESIGN.md
+  §10) and, with speculation on, ``dr``/``vf``/``drp`` (DESIGN.md §11): a
+  truncated-layer draft proposes K greedy candidates per slot, the target
+  scores the K+1 window in one verify pass, and acceptance rewinds
+  positions and trims block tables as data. Block tables map positions
+  onto pooled pages (model-dtype or int8), prompts share full pages through
+  the prefix cache, pool pressure evicts idle prefix pages and then
+  preempts, and every lane's bucket axes are semi-static dispatch keys: a
+  crossing is a rebind on the cold path, never a build.
 
-Left for later slices of the port: the async step pipeline, the
-draft/verify lanes, disaggregation, the mesh axis, fault injection,
-deadlines and the watchdog.
+Left for later slices of the port: the async step pipeline (so speculation
+commits synchronously), the dense engine and its ``vfd`` lane,
+disaggregation, the mesh axis, fault injection, deadlines and the watchdog.
 """
 
 from __future__ import annotations
 
 import heapq
 import itertools
+from collections import deque
 import threading
 import time
 from dataclasses import dataclass, field
@@ -42,23 +46,35 @@ CHUNK_BUCKET_MIN = 8
 
 @dataclass(frozen=True)
 class StepPlan:
-    """One step's lane allocation: the prompt tokens the prefill lane may
-    ingest this step."""
+    """One step's lane allocation: ``chunk_budget`` prompt tokens for the
+    prefill lane, and the draft depth ``k`` (the k-bucket) for the
+    draft/verify lanes — 0 routes decoding slots through the decode lane."""
 
     chunk_budget: int
+    k: int = 0
 
 
 class LanePolicy:
     """Per-step token-budget split across lanes (DESIGN.md §11): each
-    decoding slot consumes one budget token and the remainder funds the
-    prefill lane's chunks. (The JAX package's policy also sizes the draft
-    depth k; that axis arrives with the draft/verify lanes.)"""
+    decoding slot consumes ``1 + k`` budget tokens (its verify window) and
+    the remainder funds the prefill lane's chunks. The draft depth ``k`` is
+    drawn from the log-sized k-bucket set {1, 2, 4, ..., spec_k} and clamped
+    by the longest useful window (``max_remaining - 1``), so k shrinks near
+    stream tails and the crossing is a rebind over warmed buckets."""
 
-    def __init__(self, *, token_budget: int):
+    def __init__(self, *, token_budget: int, spec_k: int = 0):
         self.token_budget = token_budget
+        self.spec_k = spec_k
 
-    def plan(self, *, n_decode: int) -> StepPlan:
-        return StepPlan(chunk_budget=self.token_budget - n_decode)
+    def plan(self, *, n_decode: int, max_remaining: int = 0) -> StepPlan:
+        """``max_remaining`` is the largest remaining emission count over
+        draft-eligible slots (0 when speculation is off or none is)."""
+        k = 0
+        if self.spec_k > 0 and n_decode > 0 and max_remaining > 1:
+            k = bucket_pow2(min(self.spec_k, max_remaining - 1), 1, self.spec_k)
+        return StepPlan(
+            chunk_budget=self.token_budget - n_decode * (1 + k), k=k
+        )
 
 
 # ------------------------------------------------------------------ requests
@@ -307,7 +323,14 @@ class BatcherStats:
     host_plan_ms: float = 0.0  # host time per step outside device waits
     device_wait_ms: float = 0.0  # host time blocked on d2h pulls
     d2h_transfers: int = 0
+    # lane calls (DESIGN.md §11)
     decode_steps: int = 0
+    draft_steps: int = 0
+    verify_steps: int = 0
+    # speculation: candidates offered vs accepted, k-bucket crossings
+    drafted_tokens: int = 0
+    accepted_tokens: int = 0
+    k_bucket_crossings: int = 0
     # The metrics registry this batcher's per-lane counters and latency
     # histograms live in (DESIGN.md §14); ``lane_calls`` derives from it.
     registry: MetricsRegistry = field(
@@ -328,8 +351,19 @@ class BatcherStats:
         return self.active_slot_steps / total if total else 0.0
 
     @property
+    def target_steps(self) -> int:
+        """Target-model decode-side calls: the denominator of tokens per
+        target step."""
+        return self.decode_steps + self.verify_steps
+
+    @property
     def lane_steps(self) -> dict:
-        return {"prefill": self.prefill_calls, "decode": self.decode_steps}
+        return {
+            "prefill": self.prefill_calls,
+            "draft": self.draft_steps,
+            "verify": self.verify_steps,
+            "decode": self.decode_steps,
+        }
 
 
 @dataclass
@@ -370,15 +404,19 @@ class _DeviceMirror:
 
 
 class PagedContinuousBatcher:
-    """Continuous batching against a paged KV pool (DESIGN.md §9/§10).
+    """Continuous batching against a paged KV pool (DESIGN.md §9/§10/§11).
 
     Each seated request owns a ``kvcache.BlockTable`` over the shared
-    ``PagePool``; the decode lane's key is ``("cbp", slots, pages_bucket)``
-    where ``pages_bucket`` is the (bucketed) widest table of a decoding slot,
-    and the prefill lane's is ``("pf", slots, chunk_bucket)``.
-    ``dispatch_fn(bucket)`` / ``prefill_dispatch(bucket)`` return the branch
-    target for a bucket (the engine's dispatcher); the step loop calls it
-    directly.
+    ``PagePool``; the decode lane's key is ``("cbp", slots, pages_bucket,
+    kv_dtype)`` where ``pages_bucket`` is the (bucketed) widest table of a
+    decoding slot, and the prefill lane's is ``("pf", slots, chunk_bucket,
+    kv_dtype)``. ``dispatch_fn(bucket)`` / ``prefill_dispatch(bucket)``
+    return the branch target for a bucket (the engine's dispatcher); the
+    step loop calls it directly. With ``draft_dispatch(k)``,
+    ``verify_dispatch(k)`` and ``draft_prefill_dispatch(bucket)`` supplied
+    and ``spec_k > 0``, a step whose plan has k > 0 runs the draft and
+    verify lanes instead of the decode lane (synchronously: draft pull,
+    verify pull, accept/rollback).
 
     Admission walks the ``PrefixCache``: prompt pages already populated by
     an earlier request are adopted by reference, the ingestion cursor starts
@@ -390,6 +428,7 @@ class PagedContinuousBatcher:
 
     _decode_lane = "cbp"
     _prefill_lane = "pf"
+    _verify_lane = "vf"
 
     def __init__(
         self,
@@ -406,6 +445,11 @@ class PagedContinuousBatcher:
         prefill_dispatch: Callable[[int], Callable] | None = None,
         prefill_chunk: int = 0,
         telemetry: Telemetry | None = None,
+        draft_dispatch: Callable[[int], Callable] | None = None,
+        verify_dispatch: Callable[[int], Callable] | None = None,
+        draft_prefill_dispatch: Callable[[int], Callable] | None = None,
+        draft_cache: Any = None,
+        spec_k: int = 0,
     ):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
@@ -441,6 +485,10 @@ class PagedContinuousBatcher:
         self._pages_bucket = 1
         self._bt_host: np.ndarray | None = None
         self._bt_dirty = True  # packed decode tables need a rebuild
+        # full-width packed tables for the verify lane (pinned at the page
+        # cap, like the prefill lane's: k is the only verify bucket axis)
+        self._bt_full: np.ndarray | None = None
+        self._bt_full_dirty = True
         # chunked prefill (DESIGN.md §10): PREFILL/DECODE state per slot
         self._prefill_dispatch = prefill_dispatch
         self.prefill_chunk = prefill_chunk if prefill_dispatch else 0
@@ -449,7 +497,24 @@ class PagedContinuousBatcher:
         self._chunk_bucket = 0
         self._prefilling = np.zeros(num_slots, bool)
         self._chunk_slots: set[int] = set()
-        self._lane_policy = LanePolicy(token_budget=self.token_budget)
+        self._flip_slots: set[int] = set()  # flipped to DECODE this step
+        # speculative decoding (DESIGN.md §11): on only when the engine
+        # supplied both spec lanes
+        self._draft_dispatch = draft_dispatch
+        self._verify_dispatch = verify_dispatch
+        self._draft_prefill_dispatch = draft_prefill_dispatch
+        self._draft_cache = draft_cache  # dense per-slot, updated in place
+        self.spec_k = spec_k if (draft_dispatch and verify_dispatch) else 0
+        self._k_bucket: int | None = None  # unset until the first spec step
+        # the draft prompt mirror samples into a generator of its own, so
+        # it never moves the sampled streams
+        self._draft_generator = torch.Generator(device=self.device)
+        self._draft_generator.manual_seed(seed)
+        # per-slot, per-verify a/k acceptance samples (a bounded window)
+        self.accept_samples: deque[float] = deque(maxlen=4096)
+        self._lane_policy = LanePolicy(
+            token_budget=self.token_budget, spec_k=self.spec_k
+        )
         self.preempted: list[Request] = []
         self.rejected: list[Request] = []  # oversized: can never be seated
         self._starved_rids: set[int] = set()
@@ -472,6 +537,21 @@ class PagedContinuousBatcher:
     @property
     def pages_bucket(self) -> int:
         return self._pages_bucket
+
+    @property
+    def kv_dtype(self) -> str:
+        """The pool's page storage dtype (DESIGN.md §12), fixed per batcher."""
+        return self.pool.kv_dtype
+
+    @property
+    def _spec_on(self) -> bool:
+        return self.spec_k > 0
+
+    def _tables_changed(self) -> None:
+        """Some block table changed shape or contents (growth, COW, trim,
+        admit, release): both packed host tables need a rebuild."""
+        self._bt_dirty = True
+        self._bt_full_dirty = True
 
     def live_tables(self):
         return [t for t in self._tables if t is not None]
@@ -556,7 +636,7 @@ class PagedContinuousBatcher:
         self._active[s] = False
         self._prefilling[s] = False
         self._mirror.touch("active")
-        self._bt_dirty = True
+        self._tables_changed()
         req.tokens = []
         req.t_admit = None
         req.t_first = None  # restart: earlier progress is discarded
@@ -630,39 +710,60 @@ class PagedContinuousBatcher:
             req.t_admit = now
             self._note_admit(req, now)
             self._mirror.touch("tok", "pos", "active", "temps", "greedy")
-            self._bt_dirty = True
+            self._tables_changed()
             self.stats.admitted += 1
             self.stats.shared_tokens += matched
         return deferred
 
-    def _page_upkeep(self) -> None:
-        """Pre-step cold path: every decoding slot must own a writable page
-        for its current position. Growth/COW happens here, never in-loop;
-        the prefill lane reserves its own chunk's pages."""
+    def _page_upkeep(self, k: int = 0) -> None:
+        """Pre-step cold path: every decoding slot must own writable pages
+        for its whole write window this step — its current position for the
+        decode lane, ``[pos, pos + len - 1]`` for a verify window of ``len``
+        (DESIGN.md §11). Growth/COW happens here, never in-loop; the prefill
+        lane reserves its own chunk's pages."""
+        ps = self.pool.page_size
         for s, req in enumerate(self._slots):
             if req is None or not self._active[s] or self._prefilling[s]:
                 continue
             table = self._tables[s]
             pos = int(self._pos[s])
-            need = table.page_index(pos) + 1 - table.num_pages
+            top = pos + max(self._verify_len(s, k) - 1, 0) if k > 0 else pos
+            need = table.page_index(top) + 1 - table.num_pages
             if need > 0:
-                self._bt_dirty = True
+                self._tables_changed()
                 if not self._reclaim_pages(need, req.priority) or (
-                    not table.ensure_capacity(pos)
+                    not table.ensure_capacity(top)
                 ):
                     self._preempt_slot(s)  # can't grow: preempt the requester
                     continue
-            if not table.ensure_writable(pos, self._device_copy_page):
-                self._preempt_slot(s)
+            for pi in range(table.page_index(pos), table.page_index(top) + 1):
+                if not table.ensure_writable(
+                    max(pos, pi * ps), self._device_copy_page
+                ):
+                    self._preempt_slot(s)
+                    break
 
     def _device_copy_page(self, src: int, dst: int) -> None:
-        self._bt_dirty = True  # COW swapped a page id in some table
+        self._tables_changed()  # COW swapped a page id in some table
         self._cache = self._cache_copy(self._cache, src, dst)
 
     # ------------------------------------------------------------- planning
     def _plan_step(self) -> StepPlan:
+        """The lane policy's budget split. Draft eligibility (greedy, past
+        any token-by-token prompt forcing) is computed here on the cold
+        path; per-slot verify windows are clamped later as data."""
         decoding = self._active & ~self._prefilling
-        return self._lane_policy.plan(n_decode=int(decoding.sum()))
+        max_rem = 0
+        if self._spec_on:
+            for s, req in enumerate(self._slots):
+                if req is None or not decoding[s] or not req.greedy:
+                    continue
+                if self._cursor[s] + 1 < len(req.effective_prompt):
+                    continue  # still forcing prompt tokens
+                max_rem = max(max_rem, req.new_tokens - len(req.tokens))
+        return self._lane_policy.plan(
+            n_decode=int(decoding.sum()), max_remaining=max_rem
+        )
 
     def _plan_chunks(self, budget_left: int) -> list[tuple[int, int, int]]:
         """FIFO chunk allocation for the prefill lane: earliest-admitted
@@ -698,6 +799,14 @@ class PagedContinuousBatcher:
             self.stats.chunk_bucket_crossings += 1
             self._chunk_bucket = bucket
 
+    def _note_k_bucket(self, k: int) -> None:
+        """k-axis crossing accounting: another draft depth re-dispatches the
+        draft/verify targets, a rebind over warmed buckets. The first spec
+        step binds rather than crosses."""
+        if self._k_bucket is not None and k != self._k_bucket:
+            self.stats.k_bucket_crossings += 1
+        self._k_bucket = k
+
     # ------------------------------------------------------- prefill lane
     def _prefill_step(self, now: float, budget: int) -> list[Request]:
         """Ingest chunks for prefilling requests, batched (DESIGN.md §10):
@@ -717,7 +826,7 @@ class PagedContinuousBatcher:
             need = table.page_index(cursor + chunk - 1) + 1 - table.num_pages
             if need <= 0:
                 continue
-            self._bt_dirty = True
+            self._tables_changed()
             if not self._reclaim_pages(need, req.priority) or (
                 not table.ensure_capacity(cursor + chunk - 1)
             ):
@@ -750,18 +859,37 @@ class PagedContinuousBatcher:
         self.stats.note_lane(self._prefill_lane)
         self.stats.h2d_uploads += 4
         dev = self.device
+        tok_dev = torch.tensor(tok, device=dev)
+        start_dev = torch.tensor(self._pos, device=dev)
+        length_dev = torch.tensor(length, device=dev)
         t0_ns = time.perf_counter_ns()
         nxt, self._cache = step(
             self._cache,
-            torch.tensor(tok, device=dev),
-            torch.tensor(self._pos, device=dev),
+            tok_dev,
+            start_dev,
             torch.tensor(bt, device=dev),
-            torch.tensor(length, device=dev),
+            length_dev,
             self._mirror.get("temps", self._temps),
             self._mirror.get("greedy", self._greedy),
             self.generator,
         )
         self._lane_tick(self._prefill_lane, t0_ns)
+        if self._spec_on and self._draft_prefill_dispatch is not None:
+            # draft prompt mirror (DESIGN.md §11): the draft stack ingests
+            # the same chunk windows into its dense cache from the same
+            # device inputs. Prefix-cache-adopted pages never pass through
+            # here, so the draft's view of a shared prefix stays cold:
+            # acceptance drops on those requests, correctness never does.
+            dstep = self._draft_prefill_dispatch(bucket)
+            self.stats.note_lane("drp")
+            t0_ns = time.perf_counter_ns()
+            _, self._draft_cache = dstep(
+                self._draft_cache, tok_dev, start_dev, length_dev,
+                self._mirror.get("temps", self._temps),
+                self._mirror.get("greedy", self._greedy),
+                self._draft_generator,
+            )
+            self._lane_tick("drp", t0_ns)
         nxt_host = self._pull(nxt)
         finished: list[Request] = []
         for s, cursor, chunk in kept:
@@ -776,12 +904,13 @@ class PagedContinuousBatcher:
             self.stats.prompt_tokens += chunk
             self.stats.prefill_chunks += 1
             if cursor >= len(prompt):  # flip: prompt done, prime generation
-                self._bt_dirty = True  # the decode tables gain this row
+                self._tables_changed()  # the decode tables gain this row
                 full = len(prompt) // self.pool.page_size
                 if full > 0:
                     self.prefix.insert(prompt, table.pages[:full])
                 self._prompt_cached[s] = True
                 self._prefilling[s] = False
+                self._flip_slots.add(s)  # its first token is budgeted
                 self._mirror.touch("active")
                 token = int(nxt_host[s])
                 req.tokens.append(token)
@@ -818,14 +947,20 @@ class PagedContinuousBatcher:
             return []
         finished: list[Request] = []
         self._chunk_slots = set()
+        self._flip_slots = set()
         plan = self._plan_step()
         if self.prefill_chunk > 0 and (self._prefilling & self._active).any():
             finished.extend(self._prefill_step(now, plan.chunk_budget))
-        self._page_upkeep()
+        self._page_upkeep(plan.k)
         decoding = self._active & ~self._prefilling
         if not decoding.any():
             self.stats.steps += 1  # prefill-only step
             self._count_prefill_only_step()
+            return finished
+        if plan.k > 0:  # the draft/verify lanes replace the decode lane
+            finished.extend(self._spec_step(now, plan.k, decoding))
+            self.stats.steps += 1
+            self._count_prefilling_slot_steps()
             return finished
         finished.extend(self._decode_lane_step(now, decoding))
         return finished
@@ -844,7 +979,7 @@ class PagedContinuousBatcher:
         if bucket != self._pages_bucket:
             self.stats.bucket_crossings += 1
             self._pages_bucket = bucket
-            self._bt_dirty = True  # table width changed
+            self._tables_changed()  # table width changed
         step = self._dispatch(bucket)  # cold: slot-hit unless bucket moved
         if self._bt_dirty:
             bt = np.zeros((self.num_slots, bucket), np.int32)  # null page 0
@@ -922,8 +1057,193 @@ class PagedContinuousBatcher:
         self._slots[s] = None
         self._active[s] = False
         self._mirror.touch("active")
-        self._bt_dirty = True
+        self._tables_changed()
         self.stats.finished += 1
+
+    # ---------------------------------------------------- draft/verify lanes
+    def _verify_len(self, s: int, k: int) -> int:
+        """Slot ``s``'s verify-window length (0 = not in the lane): 1 +
+        min(k, remaining - 1) for draft-eligible slots, which keeps every
+        write inside the request's capacity; sampling slots, prompt-forcing
+        slots and slots that flipped this step ride with length 1 — a verify
+        of length 1 is a decode step."""
+        req = self._slots[s]
+        if req is None or not self._active[s] or self._prefilling[s]:
+            return 0
+        if (
+            not req.greedy
+            or s in self._flip_slots
+            or self._cursor[s] + 1 < len(req.effective_prompt)
+        ):
+            return 1
+        return 1 + min(k, max(req.new_tokens - len(req.tokens) - 1, 0))
+
+    def _run_draft(self, k: int, decoding) -> np.ndarray:
+        """Draft lane: K greedy candidates per slot in one call. The draft
+        writes its own KV for the fed token at ``pos``, which is how its
+        cache tracks the committed stream (rejected tails are overwritten
+        once ``pos`` is rewound). Returns the host [S, K] candidates — an
+        inherent sync, since the host packs the verify windows from them."""
+        step = self._draft_dispatch(k)  # cold: slot-hit unless k moved
+        t0_ns = time.perf_counter_ns()
+        drafts, self._draft_cache, _ = step(
+            self._draft_cache,
+            self._mirror.get("tok", self._tok),
+            self._mirror.get("pos", self._pos),
+            self._mirror.get("active", decoding),
+        )
+        self._lane_tick("dr", t0_ns)
+        self.stats.draft_steps += 1
+        self.stats.note_lane("dr")
+        return self._pull(drafts)
+
+    @staticmethod
+    def _accepted_prefix(drafts_row, rows_row, k_s: int) -> int:
+        """Greedy acceptance: the longest prefix where the draft's candidate
+        equals the target's own greedy continuation."""
+        a = 0
+        while a < k_s and int(drafts_row[a]) == int(rows_row[a]):
+            a += 1
+        return a
+
+    def _pack_verify_tok(self, drafts, lengths: np.ndarray, k: int):
+        """[S, K+1] verify windows: the committed token, then the candidates;
+        columns >= length are bucket padding."""
+        tok = np.zeros((self.num_slots, k + 1), np.int32)
+        tok[:, 0] = self._tok[:, 0]
+        for s in range(self.num_slots):
+            if lengths[s] > 1:
+                tok[s, 1 : lengths[s]] = drafts[s, : lengths[s] - 1]
+        return tok
+
+    def _verify_call(self, k: int, tok: np.ndarray, lengths: np.ndarray):
+        """The paged verify target ``("vf", slots, k, kv_dtype)`` with the
+        full-width packed tables (rebuilt only when a table changed);
+        ``_page_upkeep(k)`` already reserved and COW'd every page of the
+        windows. Returns the packed ``[S, K+2]`` device tensor."""
+        if self._bt_full_dirty:
+            bt = np.zeros((self.num_slots, self.max_pages_per_req), np.int32)
+            for s, table in enumerate(self._tables):
+                if table is not None:
+                    bt[s, : table.num_pages] = table.pages
+            self._bt_full = bt
+            self._bt_full_dirty = False
+            self._mirror.touch("bt_full")
+        step = self._verify_dispatch(k)  # cold: slot-hit unless k moved
+        self.stats.h2d_uploads += 2  # per-step window data (tokens, lengths)
+        dev = self.device
+        _, _, self._cache, packed = step(
+            self._cache,
+            torch.tensor(tok, device=dev),
+            self._mirror.get("pos", self._pos),
+            self._mirror.get("bt_full", self._bt_full),
+            torch.tensor(lengths, device=dev),
+            self._mirror.get("temps", self._temps),
+            self._mirror.get("greedy", self._greedy),
+            self.generator,
+        )
+        return packed
+
+    def _spec_step(self, now: float, k: int, decoding) -> list[Request]:
+        """Speculative decode for the decoding slots (DESIGN.md §11): the
+        draft lane proposes K candidates per slot, the verify lane scores
+        all K+1 positions in one target pass, and acceptance rewinds
+        positions and trims tables as data. Synchronous: one packed pull
+        per lane call (drafts, then ``pack_verify_d2h``'s ``[S, K+2]``)."""
+        self._note_k_bucket(k)
+        drafts = self._run_draft(k, decoding)
+        lengths = np.array(
+            [self._verify_len(s, k) for s in range(self.num_slots)], np.int32
+        )
+        tok = self._pack_verify_tok(drafts, lengths, k)
+        t0_ns = time.perf_counter_ns()
+        packed = self._verify_call(k, tok, lengths)
+        self._lane_tick(self._verify_lane, t0_ns)
+        self.stats.verify_steps += 1
+        self.stats.note_lane(self._verify_lane)
+        p = self._pull(packed)
+        return self._apply_verify(now, p[:, : k + 1], p[:, k + 1], drafts, lengths)
+
+    def _apply_verify(self, now, rows, nxt0, drafts, lengths) -> list[Request]:
+        """Accept/rollback as data: commit the accepted prefix plus the
+        target's correction token, advance ``pos`` past it and feed the
+        correction token next. Rejected-tail KV sits beyond the new
+        position — masked by the per-row causal frontier, overwritten by the
+        next committed write, and released by ``_after_commit``'s trim once
+        no window can reach its pages."""
+        finished: list[Request] = []
+        for s, req in enumerate(self._slots):
+            if req is None or not self._active[s]:
+                self.stats.idle_slot_steps += 1
+                continue
+            if self._prefilling[s]:
+                continue  # the chunk lane owns this slot (ticked elsewhere)
+            self.stats.active_slot_steps += 1
+            ln = int(lengths[s])
+            if ln == 0:
+                continue
+            prompt = req.effective_prompt
+            if self._cursor[s] + 1 < len(prompt):
+                # token-by-token forcing: row 0 wrote this prompt token's
+                # KV; feed the next prompt token, drop the sample
+                self._pos[s] += 1
+                self._cursor[s] += 1
+                self._tok[s, 0] = prompt[self._cursor[s]]
+                self._after_commit(s, req)
+                self.stats.prompt_tokens += 1
+                continue
+            self._before_emit(s, req)
+            if ln == 1:
+                emitted = [int(nxt0[s])]
+            else:
+                k_s = ln - 1
+                a = self._accepted_prefix(drafts[s], rows[s], k_s)
+                emitted = [int(t) for t in rows[s, : a + 1]]
+                self.stats.drafted_tokens += k_s
+                self.stats.accepted_tokens += a
+                self.accept_samples.append(a / k_s)
+                if self._trace is not None:
+                    self._trace.emit(
+                        "spec_rollback" if a < k_s else "spec_accept",
+                        "lane:" + self._verify_lane,
+                        args={"slot": s, "accepted": a, "k": k_s},
+                    )
+            self._pos[s] += len(emitted)
+            self._tok[s, 0] = emitted[-1]
+            req.tokens.extend(emitted)
+            self._after_commit(s, req)
+            self._note_tokens(req, now)
+            self.stats.tokens += len(emitted)
+            if req.done:
+                req.t_done = now
+                self._note_finish(req, now)
+                finished.append(req)
+                self._release(s)
+        self._mirror.touch("tok", "pos")
+        return finished
+
+    def _before_emit(self, s: int, req: Request) -> None:
+        """Prompt fully written: publish its full pages for sharing."""
+        if not self._prompt_cached[s]:
+            prompt = req.effective_prompt
+            full = len(prompt) // self.pool.page_size
+            if full > 0:
+                self.prefix.insert(prompt, self._tables[s].pages[:full])
+            self._prompt_cached[s] = True
+
+    def _after_commit(self, s: int, req: Request) -> None:
+        """Sync the table to the new frontier and release only the pages
+        the next verify window can no longer reach (``pos .. pos +
+        min(spec_k, remaining - 1)``): trim fires as a request's tail
+        drains, not on every rollback."""
+        table = self._tables[s]
+        pos = int(self._pos[s])
+        table.num_tokens = pos
+        horizon = pos + min(
+            self.spec_k, max(req.new_tokens - len(req.tokens) - 1, 0)
+        )
+        if table.trim(table.page_index(horizon) + 1):
+            self._tables_changed()
 
     # ------------------------------------------------------------ occupancy
     def _count_prefilling_slot_steps(self) -> None:
@@ -960,10 +1280,24 @@ def latency_report(requests: Sequence[Request], batcher=None) -> dict:
             "device_wait_ms": round(st.device_wait_ms, 3),
             "d2h_transfers": st.d2h_transfers,
         }
-        if st.decode_steps:
+        if st.target_steps:
             lanes["tokens_per_target_step"] = round(
-                st.tokens / st.decode_steps, 3
+                st.tokens / st.target_steps, 3
             )
+        if st.drafted_tokens:
+            lanes["spec"] = {
+                "k": batcher.spec_k,
+                "drafted_tokens": st.drafted_tokens,
+                "accepted_tokens": st.accepted_tokens,
+                "acceptance_rate": round(
+                    st.accepted_tokens / st.drafted_tokens, 4
+                ),
+                "k_bucket_crossings": st.k_bucket_crossings,
+            }
+            acc = np.array(batcher.accept_samples)
+            if len(acc):
+                lanes["spec"]["acceptance_p50"] = float(np.percentile(acc, 50))
+                lanes["spec"]["acceptance_p95"] = float(np.percentile(acc, 95))
     if not done:
         return {"finished": 0, **lanes}
     lat = np.array([r.latency_s for r in done])

@@ -7,14 +7,17 @@ admits requests, picks the branch target in the ``Dispatcher``'s table,
 warms it, and only then lets the hot loop run.
 
 A **branch target** for a dispatch key is the step callable specialised on
-the key's static shapes — slots and ``pages_bucket`` for the ``cbp`` decode
-lane, slots and ``chunk_bucket`` for the ``pf`` prefill lane — with the
-attention implementation (``EngineConfig.attn_impl``) baked in when it is
-built. **Warm** means build plus one dummy run. Every key in every enabled
-lane's fan-out is warmed before the stream starts, so
+the key's static shapes and page dtype — slots, ``pages_bucket`` and
+``kv_dtype`` for the ``cbp`` decode lane, slots, ``chunk_bucket`` and
+``kv_dtype`` for the ``pf`` prefill lane, slots, ``k_bucket`` and
+``kv_dtype`` for the ``vf`` verify lane, slots, ``k_bucket`` /
+``chunk_bucket`` and ``draft_kv_dtype`` for the ``dr``/``drp`` draft lanes —
+with the attention implementation (``EngineConfig.attn_impl``) baked in when
+it is built. **Warm** means build plus one dummy run. Every key in every
+enabled lane's fan-out is warmed before the stream starts, so
 ``compiles_after_warmup`` (builds after the warm boundary) stays 0 and a
-bucket crossing is a rebind. Capturing the targets as CUDA graphs is later
-work.
+bucket, k or dtype crossing is a rebind. Capturing the targets as CUDA
+graphs is later work.
 
 The engine runs on the card by default (``device="cuda"``) and raises when
 no GPU is present unless the caller passes ``device="cpu"``.
@@ -22,7 +25,7 @@ no GPU is present unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
@@ -34,7 +37,13 @@ from repro_torch.core import lanes as lanes_mod
 from repro_torch.core.lanes import LANES
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.runtime import steps as steps_mod
-from repro_torch.runtime.kvcache import PagePool, PrefixCache, sharing_report
+from repro_torch.models.layers import dtype_of
+from repro_torch.runtime.kvcache import (
+    KV_DTYPES,
+    PagePool,
+    PrefixCache,
+    sharing_report,
+)
 from repro_torch.runtime.scheduler import (
     CHUNK_BUCKET_MIN,
     Clock,
@@ -57,21 +66,42 @@ class EngineConfig:
     # Chunked prefill (DESIGN.md §10): the largest prompt chunk ingested per
     # step; 0 disables the chunked lane (prompts teacher-force token by
     # token). Chunk sizes come from the log-sized bucket set {8, ...,
-    # prefill_chunk}, each a warmed ("pf", slots, chunk_bucket) key.
+    # prefill_chunk}, each a warmed ("pf", slots, chunk_bucket, kv_dtype)
+    # key.
     prefill_chunk: int = 0
     # Attention implementation baked into every step (semi-static):
-    # "kernel" (B1/B2; their plain versions on the CPU) or "plain".
+    # "kernel" (B1-B4; their plain versions on the CPU) or "plain".
     attn_impl: str = "kernel"
+    # Speculative decoding (DESIGN.md §11): max draft depth per target step
+    # (0 disables the draft/verify lanes; per-step k comes from the
+    # log-sized k-bucket set {1, 2, ..., spec_k}, each a warmed key) and the
+    # truncated-layer draft view's depth in layer periods.
+    spec_k: int = 0
+    draft_layers: int = 1
+    # Page storage dtype (DESIGN.md §12): "fp32" keeps pages in the model
+    # dtype, "int8" stores int8 pages plus per-row scales (kernels B3/B4);
+    # kv_dtypes lists extra dtypes to warm, so a pool on one of them is a
+    # rebind, never a build.
+    kv_dtype: str = "fp32"
+    kv_dtypes: tuple = ()
+    # The draft's dense-cache dtype and extras to warm (DESIGN.md §16): an
+    # int8 draft pairs with a model-dtype verify pool.
+    draft_kv_dtype: str = "fp32"
+    draft_kv_dtypes: tuple = ()
 
 
 @dataclass
 class _WarmCtx:
-    """State threaded through one warmup pass: the pooled cache the dummy
-    runs write into (their writes land in the null page only) and a
-    throwaway generator, so warmup consumes none of the batcher's draws."""
+    """State threaded through one warmup pass: the pooled caches the dummy
+    runs write into, one per warmed page dtype (their writes land in the
+    null page only), the draft caches per draft dtype, the batcher's
+    speculation opt-in, and a throwaway generator, so warmup consumes none
+    of the batcher's draws."""
 
-    cache: Any
+    paged_caches: dict  # kv_dtype -> pooled cache
     generator: torch.Generator
+    spec: bool = False
+    draft_caches: dict = field(default_factory=dict)  # draft dtype -> cache
 
 
 class Engine:
@@ -102,6 +132,14 @@ class Engine:
         self.cfg = cfg
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.ecfg = ecfg
+        # Speculative decoding: the draft is a truncated-layer view of the
+        # target (shared embedding/head, the first draft_layers periods of
+        # blocks), so it costs no extra weights.
+        self.draft_cfg = self.draft_params = None
+        if ecfg.spec_k > 0:
+            self.draft_cfg, self.draft_params = models.draft_view(
+                cfg, self.params, ecfg.draft_layers
+            )
         self.telemetry = telemetry or Telemetry()
         self._warm_marks: dict | None = None
         self._decode = Dispatcher(
@@ -128,13 +166,23 @@ class Engine:
         spec = LANES.spec_for(key)
         return getattr(self, spec.builder)(*spec.coords(key))
 
-    def _guarded(self, step: Callable, shapes: dict) -> Callable:
-        """Bind ``step`` to the key's static shapes: a call with other
-        shapes, or off the engine's device, is a dispatch bug and raises
-        (the aval guard of a compiled executable)."""
-        params, device = self.params, self.device
+    def _guarded(
+        self, step: Callable, shapes: dict, cache_dtype: torch.dtype,
+        params: dict | None = None,
+    ) -> Callable:
+        """Bind ``step`` to the key's static shapes and cache dtype: a call
+        with other shapes, another cache dtype, or off the engine's device
+        is a dispatch bug and raises (the aval guard of a compiled
+        executable). ``params`` defaults to the target's weights."""
+        params = self.params if params is None else params
+        device = self.device
 
         def target(cache, *rows):
+            if cache[0]["k"].dtype != cache_dtype:
+                raise ValueError(
+                    f"cache: expected {cache_dtype} K/V, got "
+                    f"{cache[0]['k'].dtype}"
+                )
             for (name, want), t in zip(shapes.items(), rows):
                 if tuple(t.shape) != want or t.device != device:
                     raise ValueError(
@@ -145,11 +193,22 @@ class Engine:
 
         return target
 
-    def _build_paged_slot_decode(self, slots: int, pages_bucket: int) -> Callable:
-        """Branch target for ``("cbp", slots, pages_bucket)``:
+    def _kv_torch_dtype(self, kv_dtype: str, cfg: ArchConfig) -> torch.dtype:
+        """The K/V tensors' dtype for a ``kv_dtype`` coordinate."""
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}"
+            )
+        return torch.int8 if kv_dtype == "int8" else dtype_of(cfg)
+
+    def _build_paged_slot_decode(
+        self, slots: int, pages_bucket: int, kv_dtype: str
+    ) -> Callable:
+        """Branch target for ``("cbp", slots, pages_bucket, kv_dtype)``:
         capacity is a semi-static condition (DESIGN.md §9) — the block
         table's width is part of the target's shapes, and outgrowing the
-        bucket re-dispatches on the cold path."""
+        bucket re-dispatches on the cold path; the page dtype is another
+        (DESIGN.md §12), so model-dtype and int8 pools are two targets."""
         step = steps_mod.make_paged_slot_decode_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl
         )
@@ -157,10 +216,12 @@ class Engine:
             "tok": (slots, 1), "pos": (slots,),
             "block_tables": (slots, pages_bucket), "active": (slots,),
             "temps": (slots,), "greedy": (slots,),
-        })
+        }, self._kv_torch_dtype(kv_dtype, self.cfg))
 
-    def _build_paged_prefill(self, slots: int, chunk_bucket: int) -> Callable:
-        """Branch target for ``("pf", slots, chunk_bucket)``:
+    def _build_paged_prefill(
+        self, slots: int, chunk_bucket: int, kv_dtype: str
+    ) -> Callable:
+        """Branch target for ``("pf", slots, chunk_bucket, kv_dtype)``:
         batched chunked prefill (DESIGN.md §10). The chunk width is part of
         the shapes; the block table is pinned at the per-request page cap."""
         step = steps_mod.make_paged_prefill_fn(
@@ -170,7 +231,45 @@ class Engine:
             "tok": (slots, chunk_bucket), "start": (slots,),
             "block_tables": (slots, self.max_pages_per_req),
             "length": (slots,), "temps": (slots,), "greedy": (slots,),
-        })
+        }, self._kv_torch_dtype(kv_dtype, self.cfg))
+
+    def _build_paged_verify(self, slots: int, k: int, kv_dtype: str) -> Callable:
+        """Branch target for ``("vf", slots, k, kv_dtype)``: the target
+        scores all K+1 window positions in one pass through the paged chunk
+        path (DESIGN.md §11). The window width k+1 is part of the shapes;
+        the block table is pinned at the per-request page cap."""
+        step = steps_mod.make_paged_verify_fn(
+            self.cfg, attn_impl=self.ecfg.attn_impl
+        )
+        return self._guarded(step, {
+            "tok": (slots, k + 1), "start": (slots,),
+            "block_tables": (slots, self.max_pages_per_req),
+            "length": (slots,), "temps": (slots,), "greedy": (slots,),
+        }, self._kv_torch_dtype(kv_dtype, self.cfg))
+
+    def _build_draft(self, slots: int, k: int, draft_kv_dtype: str) -> Callable:
+        """Branch target for ``("dr", slots, k, draft_kv_dtype)``: K draft
+        decode steps looped inside one target (DESIGN.md §11), so depth
+        variation re-dispatches on the cold path; the draft cache's dtype is
+        its own coordinate (DESIGN.md §16)."""
+        step = steps_mod.make_draft_fn(self.draft_cfg, k=k)
+        return self._guarded(step, {
+            "tok": (slots, 1), "pos": (slots,), "active": (slots,),
+        }, self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
+            params=self.draft_params)
+
+    def _build_draft_prefill(
+        self, slots: int, chunk_bucket: int, draft_kv_dtype: str
+    ) -> Callable:
+        """Branch target for ``("drp", slots, chunk_bucket,
+        draft_kv_dtype)``: the draft's prompt mirror — chunked dense
+        ingestion over the draft view, so its cache tracks the prompts."""
+        step = steps_mod.make_slot_prefill_fn(self.draft_cfg)
+        return self._guarded(step, {
+            "tok": (slots, chunk_bucket), "start": (slots,),
+            "length": (slots,), "temps": (slots,), "greedy": (slots,),
+        }, self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
+            params=self.draft_params)
 
     @property
     def pool_pages(self) -> int:
@@ -204,6 +303,18 @@ class Engine:
                 return out
             b *= 2
 
+    def _k_buckets(self) -> list[int]:
+        """The log-sized k-bucket fan-out {1, 2, 4, ..., spec_k}."""
+        if self.ecfg.spec_k <= 0:
+            return []
+        out, b = [], 1
+        while True:
+            b = min(b, self.ecfg.spec_k)
+            out.append(b)
+            if b >= self.ecfg.spec_k:
+                return out
+            b *= 2
+
     def _pages_buckets(self) -> list[int]:
         """The log-sized capacity-bucket fan-out {1, 2, ..., page cap}."""
         out, pb = [], 1
@@ -213,9 +324,33 @@ class Engine:
                 return out
             pb = min(pb * 2, self.max_pages_per_req)
 
+    def _warm_kv_dtypes(self) -> tuple[str, ...]:
+        """The kv_dtype axis ladder: the configured pool dtype plus the
+        extras to keep warm, deduped."""
+        return tuple(
+            dict.fromkeys((self.ecfg.kv_dtype,) + tuple(self.ecfg.kv_dtypes))
+        )
+
+    def _warm_draft_kv_dtypes(self) -> tuple[str, ...]:
+        """The draft lanes' storage-dtype ladder, deduped."""
+        return tuple(
+            dict.fromkeys(
+                (self.ecfg.draft_kv_dtype,) + tuple(self.ecfg.draft_kv_dtypes)
+            )
+        )
+
     def _supports_chunked_prefill(self, ctx: Any = None) -> bool:
         """The ``pf`` lane's gate (``LaneSpec.enabled``): a chunk size set."""
         return self.ecfg.prefill_chunk > 0
+
+    def _supports_spec_decode(self) -> bool:
+        """Speculation needs a draft depth (the port's stacks are
+        attention-only, which the verify lane's chunk path requires)."""
+        return self.ecfg.spec_k > 0
+
+    def _spec_lanes_enabled(self, ctx: "_WarmCtx") -> bool:
+        """The draft/verify lanes' gate: the batcher's opt-in and support."""
+        return bool(ctx.spec) and self._supports_spec_decode()
 
     # ----------------------------------------------------- registry warmup
     # One warm method per LaneSpec: dummy-run the freshly built target
@@ -231,20 +366,54 @@ class Engine:
         )
 
     def _warm_cbp(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
-        _, s, pb = key
+        _, s, pb, dt = key
         out = exe(
-            ctx.cache, self._zeros(s, 1), self._zeros(s), self._zeros(s, pb),
-            self._zeros(s, dtype=torch.bool), *self._warm_sampling(s),
-            ctx.generator,
+            ctx.paged_caches[dt], self._zeros(s, 1), self._zeros(s),
+            self._zeros(s, pb), self._zeros(s, dtype=torch.bool),
+            *self._warm_sampling(s), ctx.generator,
         )
         steps_mod.pull_host(out[4])
 
     def _warm_pf(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
-        _, s, cb = key
+        _, s, cb, dt = key
         nxt, _ = exe(
-            ctx.cache, self._zeros(s, cb), self._zeros(s),
+            ctx.paged_caches[dt], self._zeros(s, cb), self._zeros(s),
             self._zeros(s, self.max_pages_per_req), self._zeros(s),
             *self._warm_sampling(s), ctx.generator,
+        )
+        steps_mod.pull_host(nxt)
+
+    def _warm_vf(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
+        _, s, k, dt = key
+        out = exe(
+            ctx.paged_caches[dt], self._zeros(s, k + 1), self._zeros(s),
+            self._zeros(s, self.max_pages_per_req), self._zeros(s),
+            *self._warm_sampling(s), ctx.generator,
+        )
+        steps_mod.pull_host(out[3])
+
+    def _draft_warm_cache(self, ctx: _WarmCtx, s: int, dt: str) -> list:
+        """The draft cache of dtype ``dt``, created on its first warm."""
+        if dt not in ctx.draft_caches:
+            ctx.draft_caches[dt] = models.init_cache(
+                self.draft_cfg, s, self.ecfg.max_len, dt, device=self.device
+            )
+        return ctx.draft_caches[dt]
+
+    def _warm_dr(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
+        _, s, k, dt = key
+        drafts, _, _ = exe(
+            self._draft_warm_cache(ctx, s, dt), self._zeros(s, 1),
+            self._zeros(s), self._zeros(s, dtype=torch.bool),
+        )
+        steps_mod.pull_host(drafts)
+
+    def _warm_drp(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
+        _, s, cb, dt = key
+        nxt, _ = exe(
+            self._draft_warm_cache(ctx, s, dt), self._zeros(s, cb),
+            self._zeros(s), self._zeros(s), *self._warm_sampling(s),
+            ctx.generator,
         )
         steps_mod.pull_host(nxt)
 
@@ -282,12 +451,21 @@ class Engine:
         return self._decode.stats.rebinds - base
 
     def paged_continuous(
-        self, *, slots: int | None = None, seed: int = 0
+        self,
+        *,
+        slots: int | None = None,
+        seed: int = 0,
+        spec_decode: bool | None = None,
+        kv_dtype: str | None = None,
+        draft_kv_dtype: str | None = None,
     ) -> PagedContinuousBatcher:
-        """Cold path: build the page pool + prefix cache, warm every paged
-        lane key through the registry, and return a paged batcher
-        (DESIGN.md §9/§10). Sampled rows draw from a generator seeded with
-        ``seed``."""
+        """Cold path: build the page pool + prefix cache, warm every enabled
+        paged lane key through the registry — every warmed page dtype, and
+        with speculation every k bucket and draft dtype — and return a paged
+        batcher (DESIGN.md §9-§12). Sampled rows draw from a generator
+        seeded with ``seed``. ``kv_dtype`` / ``draft_kv_dtype`` override the
+        configured pool / draft dtypes and must be in the warmed sets;
+        ``spec_decode`` overrides ``spec_k > 0``."""
         if self.cfg.input_kind != "tokens":
             raise ValueError(
                 f"{self.cfg.name}: continuous batching feeds sampled ids "
@@ -295,34 +473,69 @@ class Engine:
             )
         s = slots or self.ecfg.max_batch
         ecfg = self.ecfg
-        pool = PagePool(
-            self.pool_pages, ecfg.page_size, telemetry=self.telemetry
+        dt = kv_dtype or ecfg.kv_dtype
+        if dt not in self._warm_kv_dtypes():
+            raise ValueError(
+                f"kv_dtype={dt!r} is not in the warmed set "
+                f"{self._warm_kv_dtypes()}; add it to EngineConfig.kv_dtype/"
+                f"kv_dtypes so its lanes are warmed (a cold pool dtype would "
+                f"build mid-stream)."
+            )
+        ddt = draft_kv_dtype or ecfg.draft_kv_dtype
+        if ddt not in self._warm_draft_kv_dtypes():
+            raise ValueError(
+                f"draft_kv_dtype={ddt!r} is not in the warmed set "
+                f"{self._warm_draft_kv_dtypes()}; add it to EngineConfig."
+                f"draft_kv_dtype/draft_kv_dtypes."
+            )
+        use_spec = (
+            (ecfg.spec_k > 0 if spec_decode is None else spec_decode)
+            and self._supports_spec_decode()
         )
-        cache = models.init_paged_cache(
-            self.cfg, self.pool_physical_pages, ecfg.page_size,
-            device=self.device,
+        pool = PagePool(
+            self.pool_pages, ecfg.page_size, kv_dtype=dt,
+            telemetry=self.telemetry,
         )
         warm_gen = torch.Generator(device=self.device)
         warm_gen.manual_seed(seed)
-        self._warm_lanes("paged", s, _WarmCtx(cache=cache, generator=warm_gen))
+        ctx = _WarmCtx(
+            paged_caches={
+                d: models.init_paged_cache(
+                    self.cfg, self.pool_physical_pages, ecfg.page_size, d,
+                    device=self.device,
+                )
+                for d in self._warm_kv_dtypes()
+            },
+            generator=warm_gen,
+            spec=use_spec,
+        )
+        self._warm_lanes("paged", s, ctx)
 
         def dispatch(pages_bucket: int) -> Callable:
-            return self._decode.dispatch(lanes_mod.CBP.key(s, pages_bucket))
+            return self._decode.dispatch(lanes_mod.CBP.key(s, pages_bucket, dt))
 
         prefill_dispatch = None
         if self._supports_chunked_prefill():
 
             def prefill_dispatch(chunk_bucket: int) -> Callable:
-                return self._decode.dispatch(lanes_mod.PF.key(s, chunk_bucket))
+                return self._decode.dispatch(
+                    lanes_mod.PF.key(s, chunk_bucket, dt)
+                )
+
+        draft_dispatch = verify_dispatch = draft_prefill_dispatch = None
+        if use_spec:
+            draft_dispatch, verify_dispatch, draft_prefill_dispatch = (
+                self._spec_dispatchers(s, dt, ddt)
+            )
 
         # pre-bind the hot slot to the smallest bucket (already warmed)
-        self._decode.dispatch(lanes_mod.CBP.key(s, 1))
+        self._decode.dispatch(lanes_mod.CBP.key(s, 1, dt))
         self.mark_warm_boundary()
         return PagedContinuousBatcher(
             dispatch_fn=dispatch,
             pool=pool,
             prefix_cache=PrefixCache(pool),
-            cache=cache,
+            cache=ctx.paged_caches[dt],
             num_slots=s,
             max_pages_per_req=self.max_pages_per_req,
             device=self.device,
@@ -331,7 +544,30 @@ class Engine:
             prefill_dispatch=prefill_dispatch,
             prefill_chunk=ecfg.prefill_chunk,
             telemetry=self.telemetry,
+            draft_dispatch=draft_dispatch,
+            verify_dispatch=verify_dispatch,
+            draft_prefill_dispatch=draft_prefill_dispatch,
+            draft_cache=ctx.draft_caches.get(ddt) if use_spec else None,
+            spec_k=ecfg.spec_k if use_spec else 0,
         )
+
+    def _spec_dispatchers(self, slots: int, kv_dtype: str, draft_kv_dtype: str):
+        """The speculative lanes' dispatch closures over warmed keys: the
+        verify lane pins the pool dtype, the draft lanes the draft dtype."""
+        s = slots
+
+        def draft_dispatch(k: int) -> Callable:
+            return self._decode.dispatch(lanes_mod.DR.key(s, k, draft_kv_dtype))
+
+        def verify_dispatch(k: int) -> Callable:
+            return self._decode.dispatch(lanes_mod.VF.key(s, k, kv_dtype))
+
+        def draft_prefill_dispatch(chunk_bucket: int) -> Callable:
+            return self._decode.dispatch(
+                lanes_mod.DRP.key(s, chunk_bucket, draft_kv_dtype)
+            )
+
+        return draft_dispatch, verify_dispatch, draft_prefill_dispatch
 
 
 # ------------------------------------------------------------ stream driver
@@ -342,14 +578,18 @@ def run_paged_stream(
     slots: int | None = None,
     seed: int = 0,
     clock: Clock | None = None,
+    kv_dtype: str | None = None,
 ) -> dict:
     """Drive a request stream through the paged KV engine; return a report.
 
     The acceptance contract: zero builds after warmup (every bucket of
     every lane was warmed), and sharing lets peak *logical* tokens exceed
-    the pool's physical capacity on shared-prefix traffic.
+    the pool's physical capacity on shared-prefix traffic. ``kv_dtype``
+    overrides the configured pool dtype (it must be in the warmed set).
+    With ``EngineConfig.spec_k > 0`` the report's ``spec`` block carries
+    drafted/accepted tokens, the acceptance rate and k-bucket crossings.
     """
-    cb = eng.paged_continuous(slots=slots, seed=seed)  # warmup first
+    cb = eng.paged_continuous(slots=slots, seed=seed, kv_dtype=kv_dtype)
     clock = clock or Clock()  # ...so served latencies exclude it
     q = RequestQueue(requests)
     finished: list[Request] = []
@@ -426,6 +666,8 @@ def run_paged_stream(
         prefill_chunks=cb.stats.prefill_chunks,
         chunk_bucket_crossings=cb.stats.chunk_bucket_crossings,
         h2d_uploads=cb.stats.h2d_uploads,
+        spec_k=cb.spec_k,
+        k_bucket_crossings=cb.stats.k_bucket_crossings,
         cow_copies=cb.pool.stats.cow_copies,
         prefix_evictions=cb.pool.stats.prefix_evictions,
         unserved=len(requests) - len(finished),

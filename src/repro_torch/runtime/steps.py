@@ -1,4 +1,5 @@
-"""Step builders for the paged serving lanes (counterpart of ``repro.runtime.steps``).
+"""Step builders for the paged serving lanes and the speculative lanes
+(counterpart of ``repro.runtime.steps``).
 
 A step is a plain function over tensors; ``runtime.serve.Engine`` binds it to
 a dispatch key's static shapes. Each step ends with its *bundle*: the next
@@ -98,6 +99,98 @@ def make_paged_prefill_fn(
         return _sample_rows(logits, temps, greedy, generator), cache
 
     return paged_prefill_step
+
+
+def pack_verify_d2h(rows: torch.Tensor, nxt0: torch.Tensor) -> torch.Tensor:
+    """``[S,K+1]`` verify rows + ``[S]`` row-0 samples -> one ``[S,K+2]``
+    int32 tensor: the verify step's single d2h transfer."""
+    return torch.cat([rows, nxt0[:, None]], dim=1)
+
+
+def make_paged_verify_fn(
+    cfg: ArchConfig, *, attn_impl: str = "kernel"
+) -> Callable:
+    """Verify lane through the paged KV cache (DESIGN.md §11):
+
+        step(params, cache, tok[S,K+1], start[S], block_tables[S,PB],
+             length[S], temps[S], greedy[S], generator)
+          -> (rows[S,K+1], next0[S], cache, packed[S,K+2])
+
+    ``tok`` is each slot's current token followed by its K draft
+    candidates; all K+1 positions are scored in one target pass through the
+    chunk path (columns >= ``length`` write only the null page).
+    ``rows[s, i]`` is the greedy continuation after rows 0..i — acceptance
+    and the correction token are host-side comparisons over it. ``next0``
+    is the mode-respecting sample from row 0 (one generator draw, as a
+    decode step), so a length-1 window is a decode step and sampling slots
+    ride the same call. ``packed`` is ``pack_verify_d2h(rows, next0)``."""
+
+    def verify_step(
+        params, cache, tok, start, block_tables, length, temps, greedy,
+        generator,
+    ):
+        logits, cache = models.paged_verify_step(
+            cfg, params, cache, tok, start, block_tables, length,
+            attn_impl=attn_impl,
+        )
+        rows = logits.argmax(dim=-1).to(torch.int32)
+        nxt0 = _sample_rows(logits[:, 0], temps, greedy, generator)
+        return rows, nxt0, cache, pack_verify_d2h(rows, nxt0)
+
+    return verify_step
+
+
+def make_draft_fn(draft_cfg: ArchConfig, *, k: int) -> Callable:
+    """Draft lane (DESIGN.md §11): K greedy candidates per slot in one
+    branch target, the ``("dr", slots, k_bucket, draft_kv_dtype)`` key:
+
+        step(draft_params, draft_cache, tok[S,1], pos[S], active[S])
+          -> (drafts[S,K], draft_cache, new_pos[S])
+
+    ``draft_cfg``/``draft_params`` are the truncated-layer view
+    (``models.draft_view``), ``draft_cache`` its dense per-slot cache. The K
+    decode steps loop inside the target, so k is fixed when it is built;
+    each step feeds the previous candidate back and writes the draft's KV
+    at the advancing position (the scheduler later rewinds ``pos`` as data
+    and the next round overwrites a rejected tail). Candidates are greedy,
+    as the JAX package's scheduler forces them, so the draft draws nothing
+    from the batcher's generator and sampled streams are untouched."""
+
+    def draft_step(params, cache, tok, pos, active):
+        drafts = []
+        for _ in range(k):
+            logits, cache = models.decode_step(draft_cfg, params, cache, tok, pos)
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+            drafts.append(nxt)
+            tok = nxt[:, None]
+            pos = pos + active.to(torch.int32)
+        return torch.stack(drafts, dim=1), cache, pos
+
+    return draft_step
+
+
+def make_slot_prefill_fn(cfg: ArchConfig) -> Callable:
+    """Chunked prefill into the dense per-slot cache (DESIGN.md §10) — the
+    draft's prompt mirror, the ``("drp", slots, chunk_bucket,
+    draft_kv_dtype)`` key:
+
+        step(params, cache, tok[S,CB], start[S], length[S], temps[S],
+             greedy[S], generator)
+          -> (next_tok[S], cache)
+
+    Every slot carries its own chunk window (``length`` 0 = idle row,
+    writes nothing). The batcher discards ``next_tok`` and hands this lane a
+    generator of its own, so the mirror never moves the sampled streams."""
+
+    def slot_prefill_step(
+        params, cache, tok, start, length, temps, greedy, generator
+    ):
+        logits, cache = models.chunked_decode_step(
+            cfg, params, cache, tok, start, length
+        )
+        return _sample_rows(logits, temps, greedy, generator), cache
+
+    return slot_prefill_step
 
 
 def pull_host(dev: torch.Tensor, recorder=None) -> tuple[np.ndarray, int]:

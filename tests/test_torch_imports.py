@@ -40,3 +40,21 @@ def test_no_source_file_imports_jax_or_repro():
         if FORBIDDEN.search(p.read_text())
     ]
     assert offenders == []
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    smoke = PKG.parents[1] / "chip_smoke.py"
+    assert not FORBIDDEN.search(smoke.read_text())
+    assert "import repro_torch" in smoke.read_text()
+
+
+def test_every_kernel_source_is_built():
+    """Each CUDA source of the package has a build entry, and the int8
+    kernels' entry points are bound."""
+    from repro_torch.kernels import build
+
+    sources = {p.name for p in (PKG / "csrc").glob("*.cu")}
+    assert sources == set(build.SOURCES)
+    assert {"paged_decode_attention_int8", "paged_prefill_attention_int8"} <= {
+        fn for fns in build.SOURCES.values() for fn in fns
+    }

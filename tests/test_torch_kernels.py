@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, models
 from repro_torch.kernels import build
 
 TOL = 1e-5
@@ -108,16 +108,27 @@ def test_prefill_chunk_of_one_is_decode():
     torch.testing.assert_close(pre[:, 0], dec, atol=0, rtol=0)
 
 
+PLAIN = {
+    kernels.paged_decode_attention: kernels.paged_decode_attention_plain,
+    kernels.paged_prefill_attention: kernels.paged_prefill_attention_plain,
+    kernels.paged_decode_attention_int8: kernels.paged_decode_attention_int8_plain,
+    kernels.paged_prefill_attention_int8:
+        kernels.paged_prefill_attention_int8_plain,
+}
+
+
 @pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.__name__)
 def test_cpu_tensors_take_the_plain_version_without_a_launch(kernel):
-    chunk = CHUNK if kernel is kernels.paged_prefill_attention else 0
+    chunk = CHUNK if "prefill" in kernel.__name__ else 0
     args = [torch.from_numpy(a) for a in _inputs(2, 8, chunk=chunk)]
-    plain = (
-        kernels.paged_prefill_attention_plain if chunk
-        else kernels.paged_decode_attention_plain
-    )
+    if kernel.__name__.endswith("_int8"):  # int8 pages and their scales
+        k8, ks = models.quantise_kv_rows(args[1])
+        v8, vs = models.quantise_kv_rows(args[2])
+        args = [args[0], k8, v8, ks, vs, *args[3:]]
     before = kernel.launches
-    torch.testing.assert_close(kernel(*args), plain(*args), atol=0, rtol=0)
+    torch.testing.assert_close(
+        kernel(*args), PLAIN[kernel](*args), atol=0, rtol=0
+    )
     assert kernel.launches == before
 
 

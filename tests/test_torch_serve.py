@@ -138,12 +138,14 @@ def test_unknown_lane_raises(smoke):
             eng._build(("cb", 4))
         with pytest.raises(UnknownLaneError):
             eng._build(("cbp", 4))  # missing the pages_bucket coordinate
+        with pytest.raises(UnknownLaneError):
+            eng._build(("cbp", 4, 2))  # missing the kv_dtype coordinate
 
 
 def test_branch_target_rejects_other_shapes(smoke):
     _, tcfg, _, tparams = smoke
     with Engine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu") as eng:
-        step = eng._build(("cbp", 4, 2))
+        step = eng._build(("cbp", 4, 2, "fp32"))
         cache = tm.init_paged_cache(tcfg, eng.pool_physical_pages, 8)
         z = torch.zeros
         with pytest.raises(ValueError, match="block_tables"):
