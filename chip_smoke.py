@@ -9,28 +9,41 @@ Phases (any failure exits non-zero before a result is printed):
 
 1. Set-up: the card's name and power limit, torch/CUDA versions, and the
    build of the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, in parallel, sm_90a).
-2. Each kernel (B1/B3 paged decode, B2/B4 paged prefill; B3/B4 over int8
-   pages quantised with the port's ``quantise_kv_rows``) against its plain
-   PyTorch version on the card: olmo-1b heads (16/16, dh 128, page 16), GQA
-   layouts (40/8 and 32/2, dh 128, page 16) and the smoke layout (4/2, dh
-   16, page 8), fp32 and bf16 q, window and softcap on and off; ragged
-   positions and block tables that share pages and pad with the null page.
-3. The main paths: olmo-1b at full width (bf16, seeded random weights)
+   source, all started together, sm_90a).
+2. Each kernel against its plain PyTorch version on the card, fp32 and
+   bf16: B1/B3 paged decode and B2/B4 paged prefill (B3/B4 over int8 pages
+   quantised with the port's ``quantise_kv_rows``) on olmo-1b heads (16/16,
+   dh 128, page 16), GQA layouts (40/8 and 32/2, dh 128, page 16) and the
+   smoke layout (4/2, dh 16, page 8), window and softcap on and off, ragged
+   positions and block tables that share pages and pad with the null page;
+   B5 dense decode at the first, a middle and the last row, and B6/B7 flash
+   attention over a ragged 200-token sequence in every causal x window x
+   softcap mode (B7 from flags), on the same four head layouts, fed the
+   model's ``[B, S, H, dh]`` layout as strided views.
+3. The serving paths: olmo-1b at full width (bf16, seeded random weights)
    serving a shared-prefix stream through ``run_paged_stream`` with chunked
    prefill — first on bf16 pages (B1/B2), then on int8 pages with
-   speculative decoding (k up to 4, a 2-layer int8 draft; B3/B4) — each
-   with the kernels' launch counts set to 0 just before it.
+   speculative decoding (k up to 4, a 2-layer int8 draft; B3/B4) — and a
+   Poisson stream through the per-burst engine (``run_burst_stream``:
+   ``set_mode`` + ``decode_loop``, B5), each with the kernels' launch counts
+   set to 0 just before it and every other kernel held at 0 launches.
 4. One paged prefill step and one paged decode step at full width with the
    kernels and with the plain attention, on identical inputs, for bf16 and
-   int8 pages; then profiled windows of full-width decode steps (bf16
-   pages) and speculative steps (int8 pages): device busy vs host wall.
+   int8 pages; the prompt-then-burst path (``prefill`` of 8 prompts of 256
+   with B6, ``pad_cache`` to 1024, ``decode_loop`` of 32 greedy tokens with
+   B5) held against ``forward`` (B6) over prompt + tokens, and ``forward``
+   with B6 against the naive attention; then profiled windows of full-width
+   decode steps (bf16 pages), speculative steps (int8 pages) and burst
+   steps: device busy vs host wall.
 5. The smoke config's greedy stream on the card and on the CPU: plain, and
    with speculation on model-dtype pages (B2 through the verify lane) and on
    int8 pages; the spec streams equal the plain ones.
-6. Kernel timing at the main paths' shapes (B4 also at the verify window's):
-   kernel, plain version, one PyTorch library call (a yardstick the port
-   never calls) and the bound.
+6. The paper's kernel pair through ``KernelBranch`` (B6 specialised against
+   B7 from flags, in the causal, causal + window 256 and causal + softcap 50
+   modes, at 8 x 1024 tokens); then kernel timing at the main paths' shapes
+   (B4 also at the verify window's): kernel, plain version, one PyTorch
+   library call (a yardstick the port never calls) and the bound, and the
+   B7 / B6 time ratio per mode.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -44,6 +57,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -68,6 +82,11 @@ STEP_LOGIT_ATOL = 0.25
 # Near-tie margin: a greedy stream may flip where the top-2 logits of the
 # reference run lie closer than this (float reassociation).
 TIE_MARGIN = 1e-4
+# The same at full width in bf16, where the burst's one-token steps and
+# forward's 288-row products round differently in every layer: a flip is a
+# near-tie when forward's top logit leads the burst's token by less than the
+# bf16 logits tolerance between two attention implementations.
+BF16_TIE_MARGIN = STEP_LOGIT_ATOL
 
 
 def log(msg: str) -> None:
@@ -182,14 +201,126 @@ def kernels_vs_plain() -> None:
                     check(err <= KERNEL_ATOL[dtype],
                           f"{tag}: max abs err {err:.3g} > "
                           f"{KERNEL_ATOL[dtype]}")
+    for sname, (h, kh, dh, _) in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            worst.update(_dense_cases(f"{sname}/{str(dtype)[6:]}", h, kh, dh,
+                                      dtype, seed=len(worst)))
     for dtype in ("float32", "bfloat16"):
-        errs = {k: v for k, v in worst.items() if f"/{dtype}/" in k}
+        errs = {k: v for k, v in worst.items() if f"/{dtype}" in k}
         log(f"[kernels] {len(errs)} {dtype} cases pass, max abs err "
             f"{max(errs.values()):.3g} (tolerance "
             f"{KERNEL_ATOL[getattr(torch, dtype)]})")
 
 
+def _dense_cases(tag: str, h: int, kh: int, dh: int, dtype, *, seed: int,
+                 seq: int = 200) -> dict:
+    """B5 at pos 0, mid and last, B6 and B7 (flags) in every mode, on the
+    model's [B, S, H, dh] layout passed as transposed views; the sequence is
+    ragged against the kernels' 16-row tiles."""
+    from repro_torch import kernels
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(2, seq, n, dh, generator=g).to("cuda", dtype)
+               .transpose(1, 2) for n in (h, kh, kh))
+    ref_in = [t.float() for t in (q, k, v)]
+    errs = {}
+
+    def held(name: str, out, ref) -> None:
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        errs[f"{name}/{tag}"] = err
+        check(err <= KERNEL_ATOL[dtype],
+              f"{name}/{tag}: max abs err {err:.3g} > {KERNEL_ATOL[dtype]}")
+
+    for causal in (True, False):
+        for window in (None, 48):
+            for cap in (None, 30.0):
+                mode = f"causal={causal}/w={window}/cap={cap}"
+                ref = kernels.flash_attention_plain(
+                    *ref_in, causal=causal, window=window, softcap=cap)
+                out = kernels.flash_attention(
+                    q, k, v, causal=causal, window=window, softcap=cap)
+                check(out.transpose(1, 2).is_contiguous(),
+                      f"flash/{tag}: output not in the [B, S, H, dh] layout")
+                held(f"flash/{mode}", out, ref)
+                flags = torch.tensor([int(causal), window or 0, int(cap or 0)],
+                                     dtype=torch.int32, device="cuda")
+                held(f"branchy/{mode}",
+                     kernels.flash_attention_branchy(q, k, v, flags), ref)
+    for pos in (0, seq // 2, seq - 1):
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        for window, cap in ((None, None), (48, None), (None, 30.0), (48, 30.0)):
+            kw = dict(window=window, softcap=cap)
+            held(f"dense_decode/pos={pos}/w={window}/cap={cap}",
+                 kernels.decode_attention(q[:, :, 0], k, v, p, **kw),
+                 kernels.decode_attention_plain(
+                     ref_in[0][:, :, 0], *ref_in[1:], p, **kw))
+    return errs
+
+
 # ------------------------------------------------------------------ phase 3
+def _launches(label: str, expect: tuple) -> dict:
+    """Read the kernels' counts after a path: every kernel in ``expect``
+    launched, every other kernel not."""
+    from repro_torch import kernels
+
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    for name, n in launches.items():
+        if name in expect:
+            check(n > 0, f"{label}: {name} was not launched on its path")
+        else:
+            check(n == 0, f"{label}: {name} launched {n} times off its path")
+    return launches
+
+
+def _check_stream(label: str, cfg, reqs, rep: dict) -> None:
+    check(rep["finished"] == len(reqs),
+          f"{label}: finished {rep['finished']}/{len(reqs)}")
+    for r in reqs:
+        check(len(r.tokens) == r.new_tokens, f"{label} rid {r.rid}: short stream")
+        check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"{label} rid {r.rid}: token outside the vocabulary")
+
+
+def burst_stream(cfg, params) -> dict:
+    """The per-burst engine at full width: Poisson traffic (the paged
+    streams' rate), a quarter sampled; every burst pays set_mode, so its
+    builds after the stream starts are the distinct (bucket, mode) keys it
+    meets."""
+    from repro_torch import kernels
+    from repro_torch.runtime.scheduler import poisson_arrivals
+    from repro_torch.runtime.serve import Engine, EngineConfig, run_burst_stream
+
+    ecfg = EngineConfig(max_len=1024, max_batch=8, batch_quantum=4)
+    reqs = poisson_arrivals(16, 20.0, seed=0, tokens_mean=16,
+                            tokens_max=ecfg.max_len, sample_frac=0.25,
+                            vocab=cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()  # this path's run starts here
+    t0 = time.perf_counter()
+    with Engine(cfg, params, ecfg) as eng:
+        rep = run_burst_stream(eng, reqs)
+        keys = list(eng._decode.cache.stats.keys)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches("burst", ("decode_attention",))
+    _check_stream("burst", cfg, reqs, rep)
+    check(rep["compiles_after_warmup"] == len(set(keys)) == len(keys),
+          f"burst: compiles_after_warmup {rep['compiles_after_warmup']} for "
+          f"keys {keys}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[stream:burst] {rep['finished']} requests, {rep['tokens']} tokens "
+        f"in {wall:.1f}s | {rep['tok_per_s']:.1f} tok/s, latency p50 "
+        f"{rep['p50_ms']:.1f} ms p95 {rep['p95_ms']:.1f} ms, ttft p50 "
+        f"{rep['ttft_p50_ms']:.1f} ms p95 {rep['ttft_p95_ms']:.1f} ms | "
+        f"mode switches {rep['mode_switches']}, hot calls "
+        f"{rep['hot_calls']}, compiles_after_warmup "
+        f"{rep['compiles_after_warmup']} (keys {[tuple(k[1:]) for k in keys]}),"
+        f" rebinds {rep['rebinds']} | peak memory {peak_gb:.2f} GB | "
+        f"launches {launches}")
+    return launches
+
+
 def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
     """One main path: the kernels' counts set to 0 just before the stream,
     read just after; every kernel in ``expect`` must have launched and no
@@ -208,22 +339,12 @@ def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
             cfg.dtype) / 1e9)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
-    check(rep["finished"] == len(reqs),
-          f"{label}: finished {rep['finished']}/{len(reqs)}")
+    launches = _launches(label, expect)
     check(rep["compiles_after_warmup"] == 0,
           f"{label}: compiles_after_warmup {rep['compiles_after_warmup']}")
     check(rep["prefill_chunks"] > 0, f"{label}: no prefill chunks ran")
     check(rep["kv_dtype"] == ecfg.kv_dtype, f"{label}: pool {rep['kv_dtype']}")
-    for name, n in launches.items():
-        if name in expect:
-            check(n > 0, f"{label}: {name} was not launched on the main path")
-        else:
-            check(n == 0, f"{label}: {name} launched {n} times off its path")
-    for r in reqs:
-        check(len(r.tokens) == r.new_tokens, f"{label} rid {r.rid}: short stream")
-        check(all(0 <= t < cfg.vocab_size for t in r.tokens),
-              f"{label} rid {r.rid}: token outside the vocabulary")
+    _check_stream(label, cfg, reqs, rep)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[stream:{label}] {rep['finished']} requests, {rep['tokens']} tokens "
         f"({rep['prompt_tokens']} prompt tokens ingested, "
@@ -284,6 +405,7 @@ def full_width_streams() -> dict:
         f"a 2-layer draft of random weights), k_bucket_crossings "
         f"{spec['k_bucket_crossings']}, lane calls {rep8['lane_calls']}")
     launches.update({k: v for k, v in launches8.items() if "int8" in k})
+    launches["decode_attention"] = burst_stream(cfg, params)["decode_attention"]
     return {"launches": launches, "params": params, "cfg": cfg}
 
 
@@ -324,6 +446,73 @@ def steps_kernel_vs_plain(cfg, params) -> None:
                 f"max {p.abs().max().item():.2f}), argmax agreement {agree:.2f}")
             check(err <= STEP_LOGIT_ATOL,
                   f"{name}/{pages}: logits differ by {err:.4f}")
+
+
+def prompt_then_burst(cfg, params) -> dict:
+    """``prefill`` (B6) of 8 prompts of 256, ``pad_cache`` to 1024, then
+    ``set_mode`` + ``decode_loop`` of 32 greedy tokens (B5) — the JAX
+    package's prefill-then-decode sequence — and ``forward`` (B6) over
+    prompt + tokens, with the counts set to 0 just before and read after.
+    Then ``forward`` with B6 against the naive attention on the same
+    tokens, and a profiled window of burst steps."""
+    from repro_torch import kernels, models
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.serve import GREEDY, Engine, EngineConfig
+
+    b, prompt_len, n, max_len = 8, 256, 32, 1024
+    g = torch.Generator().manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=g,
+                            dtype=torch.int32).to("cuda")
+    kernels.reset_launch_counts()  # this path's run starts here
+    t0 = time.perf_counter()
+    last, cache = steps.make_prefill_fn(cfg)(params, prompts)
+    cache = models.pad_cache(cfg, cache, max_len)
+    first = last.argmax(-1).to(torch.int32)[:, None]
+    with Engine(cfg, params, EngineConfig(max_len=max_len, max_batch=b,
+                                          batch_quantum=4)) as eng:
+        eng.set_mode(batch=b, sampling=GREEDY)
+        toks, cache = eng.decode_loop(cache, first, prompt_len, n)
+        seq = torch.cat([prompts, first,
+                         torch.from_numpy(toks[:, :-1]).to("cuda")], dim=1)
+        logits, _ = models.forward(cfg, params, seq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches("prompt+burst",
+                             ("flash_attention", "decode_attention"))
+        check(launches["flash_attention"] == 2 * cfg.num_layers,
+              f"prompt+burst: B6 launched {launches['flash_attention']} "
+              f"times, expected one per layer for prefill and for forward")
+        check(bool(torch.isfinite(logits).all()), "forward: non-finite logits")
+        gen = logits[:, prompt_len:].float()  # predicts toks[:, i]
+        chosen = torch.from_numpy(toks).to("cuda").long()
+        lead = gen.max(-1).values - gen.gather(-1, chosen[..., None])[..., 0]
+        flips = int((lead > 0).sum())
+        check(bool((lead < BF16_TIE_MARGIN).all()),
+              f"prompt+burst: forward's top logit leads the burst's token by "
+              f"{lead.max().item():.4f}")
+        log(f"[prompt+burst] prefill {b}x{prompt_len} (B6), pad_cache to "
+            f"{max_len}, decode_loop {n} greedy tokens (B5), forward over "
+            f"{seq.shape[1]} tokens (B6) in {wall:.2f}s: argmax agrees at "
+            f"{b * n - flips}/{b * n} generated positions; {flips} flips, "
+            f"each a near-tie (max lead {lead.max().item():.4f} < "
+            f"{BF16_TIE_MARGIN}; {int(((lead > 0) & (lead < TIE_MARGIN)).sum())}"
+            f" under {TIE_MARGIN}) | launches {launches}")
+        naive, _ = models.forward(cfg, params, seq, impl="naive")
+        err = (logits - naive).abs().max().item()
+        agree = (logits.argmax(-1) == naive.argmax(-1)).float().mean().item()
+        log(f"[prompt+burst] forward B6 vs naive attention: logits max abs "
+            f"diff {err:.4f} (tolerance {STEP_LOGIT_ATOL}; |logits| max "
+            f"{naive.abs().max().item():.2f}), argmax agreement {agree:.3f}")
+        check(err <= STEP_LOGIT_ATOL, f"forward: B6 vs naive differ by {err}")
+        del logits, naive
+        exe = eng._current
+        tok = torch.from_numpy(toks[:, -1:]).to("cuda")
+        pos = torch.tensor(prompt_len + n, dtype=torch.int32, device="cuda")
+        gen_ = torch.Generator(device="cuda")
+        _profile(f"full-width burst step (dense cache, {b} rows, pos "
+                 f"{prompt_len + n})", lambda: exe(cache, tok, pos, gen_), 5,
+                 "dense_decode_kernel")
+    return launches
 
 
 def _profile(label: str, run, steps: int, attn_kernel: str) -> None:
@@ -646,6 +835,158 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
     return rows
 
 
+# Modes of the kernel pair at the prefill shape: olmo-1b's (causal) and the
+# two that a specialisation changes most — a 256-token window (skips tiles)
+# and a softcap of 50 (adds a tanh per score).
+PAIR_MODES = {"causal": dict(causal=True),
+              "causal+window256": dict(causal=True, window=256),
+              "causal+softcap50": dict(causal=True, softcap=50.0)}
+
+
+def _prefill_shape_qkv(seed: int):
+    """8 x 1024 tokens, 16 heads of 128, bf16, in the model's [B, S, H, dh]
+    layout handed over as [B, H, S, dh] views."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(8, 1024, 16, 128, generator=g).to("cuda", torch.bfloat16)
+            .transpose(1, 2) for _ in range(3)]
+
+
+def kernel_pair() -> dict:
+    """The paper's kernel-level comparison as a path: ``KernelBranch``'s
+    specialised kernel (B6) and its runtime-flag twin (B7) set to each mode
+    and called on the same inputs; counts set to 0 just before."""
+    from repro_torch import kernels
+    from repro_torch.kernels import KernelBranch
+
+    q, k, v = _prefill_shape_qkv(7)
+    spec, branchy = KernelBranch("pair"), KernelBranch("pair", branchy=True)
+    kernels.reset_launch_counts()  # this path's run starts here
+    errs = {}
+    for name, mode in PAIR_MODES.items():
+        spec.set_mode(**mode)
+        branchy.set_mode(**mode)
+        a, b = spec(q, k, v), branchy(q, k, v)
+        torch.cuda.synchronize()
+        errs[name] = (a.float() - b.float()).abs().max().item()
+        check(errs[name] <= KERNEL_ATOL[torch.bfloat16],
+              f"kernel pair {name}: B6 and B7 differ by {errs[name]:.3g}")
+    launches = _launches("kernel pair",
+                         ("flash_attention", "flash_attention_branchy"))
+    log(f"[pair] KernelBranch B6 vs B7 at 8x1024, 16 heads of 128, bf16: max "
+        f"abs diff per mode {errs} (tolerance {KERNEL_ATOL[torch.bfloat16]}); "
+        f"{spec.builds} specialisations built; launches {launches}")
+    return launches
+
+
+def time_dense_kernels(launches: dict) -> list[dict]:
+    """B5 at the burst decode shape (8 rows, a 1024-row cache, pos 255) and
+    B6/B7 at the prefill shape in each ``PAIR_MODES`` mode: kernel, plain,
+    library (SDPA; none computes a softcap) and bound, and B7 / B6."""
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+
+    dtype, dh, h = torch.bfloat16, 128, 16
+
+    def bound(nbytes: int, pairs: int) -> tuple[float, str]:
+        t_b = nbytes / HBM_BYTES_PER_S
+        t_o = 4 * dh * pairs / PEAK_FLOPS[dtype]  # QK^T and PV
+        return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+    def timed(fn, call, plain, args, library) -> dict:
+        """``call`` runs the wrapper ``fn`` (bound to a mode); timing
+        launches are not main-path launches, so ``fn``'s count is kept."""
+        out = call(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        check(err <= KERNEL_ATOL[dtype], f"{fn.__name__} at main-path shapes: "
+              f"max abs err {err:.3g}")
+        saved = fn.launches
+        ms = _median_ms(lambda: call(*args))
+        fn.launches = saved
+        return {"max_abs_err": err, "ms": ms,
+                "plain_ms": _median_ms(lambda: plain(*args)),
+                "library_ms": None if library is None else _median_ms(library)}
+
+    rows = []
+    # B5: 8 rows at pos 255 of a [8, 1024, 16, 128] cache (transposed view)
+    g = torch.Generator().manual_seed(11)
+    cache_k, cache_v = (torch.randn(8, 1024, h, dh, generator=g)
+                        .to("cuda", dtype).transpose(1, 2) for _ in range(2))
+    q1 = torch.randn(8, h, dh, generator=g).to("cuda", dtype)
+    pos = torch.tensor(255, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(1024, device="cuda") <= 255)[None, None, None]
+    m = timed(kernels.decode_attention, kernels.decode_attention,
+              kernels.decode_attention_plain, (q1, cache_k, cache_v, pos),
+              lambda: F.scaled_dot_product_attention(
+                  q1[:, :, None], cache_k, cache_v, attn_mask=mask))
+    seen = 256
+    b_ms, b_by = bound(2 * 8 * seen * h * dh * 2 + 2 * q1.numel() * 2 + 4,
+                       8 * h * seen)
+    rows.append({"name": "decode_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/decode_attention.cu",
+                 "replaces": "src/repro/kernels/decode_attention.py:97",
+                 "launches": launches["decode_attention"], **m,
+                 "bound_ms": b_ms, "bound_by": b_by})
+    log(f"[timing] decode_attention bf16 q(8, 16, 128) cache (8, 16, 1024, "
+        f"128) pos 255: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms,"
+        f" sdpa {m['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max "
+        f"abs err {m['max_abs_err']:.3g}")
+    # B6 / B7 at the prefill shape, one entry per mode
+    q, k, v = _prefill_shape_qkv(12)
+    s_ = 1024
+    per_mode = {"flash_attention": {}, "flash_attention_branchy": {}}
+    for name, mode in PAIR_MODES.items():
+        window = mode.get("window")
+        qi = torch.arange(s_, device="cuda")[:, None]
+        ki = torch.arange(s_, device="cuda")[None, :]
+        ok = ki <= qi
+        if window is not None:
+            ok &= ki > qi - window
+        pairs = 8 * h * int(ok.sum())
+        b_ms, b_by = bound(4 * 8 * s_ * h * dh * 2, pairs)
+        if "softcap" in mode:
+            library = None
+        elif window is None:
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True)
+        else:
+            library = lambda ok=ok: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=ok)
+        flags = torch.tensor([1, window or 0, int(mode.get("softcap", 0))],
+                             dtype=torch.int32, device="cuda")
+        for fn, call, plain, args in (
+            (kernels.flash_attention, partial(kernels.flash_attention, **mode),
+             partial(kernels.flash_attention_plain, **mode), (q, k, v)),
+            (kernels.flash_attention_branchy, kernels.flash_attention_branchy,
+             kernels.flash_attention_branchy_plain, (q, k, v, flags)),
+        ):
+            m = timed(fn, call, plain, args, library)
+            per_mode[fn.__name__][name] = {**m, "bound_ms": b_ms,
+                                           "bound_by": b_by}
+            log(f"[timing] {fn.__name__} bf16 8x1024, 16 heads of 128, "
+                f"{name}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f}"
+                f" ms, sdpa {m['library_ms']} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), max abs err {m['max_abs_err']:.3g}")
+    ratio = {name: per_mode["flash_attention_branchy"][name]["ms"]
+             / per_mode["flash_attention"][name]["ms"] for name in PAIR_MODES}
+    log(f"[timing] B7 / B6 time ratio per mode: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ratio.items()))
+    for fname, replaces in (
+        ("flash_attention", "src/repro/kernels/flash_attention.py:112"),
+        ("flash_attention_branchy", "src/repro/kernels/flash_attention.py:239"),
+    ):
+        main = per_mode[fname]["causal"]
+        rows.append({"name": fname, "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces": replaces, "launches": launches[fname],
+                     **main, "modes": per_mode[fname],
+                     "b7_over_b6": ratio})
+    return rows
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -658,11 +999,16 @@ def main() -> int:
     kernels_vs_plain()
     main_path = full_width_streams()
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
+    prompt = prompt_then_burst(main_path["cfg"], main_path["params"])
     profile_steps(main_path["cfg"], main_path["params"])
     del main_path["params"]
     torch.cuda.empty_cache()
     b2_verify = smoke_card_vs_cpu()
-    rows = time_kernels(main_path["launches"], b2_verify)
+    launches = dict(main_path["launches"],
+                    flash_attention=prompt["flash_attention"],
+                    flash_attention_branchy=kernel_pair()[
+                        "flash_attention_branchy"])
+    rows = time_kernels(launches, b2_verify) + time_dense_kernels(launches)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

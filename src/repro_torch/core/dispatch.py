@@ -8,7 +8,7 @@ a key — into a single ``Dispatcher``. In the port a branch target is the
 step callable specialised on the key's static shapes; capturing it as a CUDA
 graph is later work.
 
-    key --> CompileCache (single-flight builds)
+    key --> CompileCache (bounded, evicting, single-flight builds)
         --> DispatchPolicy (hysteresis: when is a rebind worth it?)
         --> hot slot (direct call, no hashing, no conditionals)
 
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Hashable
 
@@ -45,6 +46,7 @@ class CacheStats:
     hits: int = 0
     misses: int = 0
     single_flight_waits: int = 0
+    evictions: int = 0
     compile_seconds: float = 0.0
     keys: list = field(default_factory=list)
 
@@ -63,12 +65,20 @@ class CompileCache:
     """key -> branch target, with single-flight cold-path builds: on a miss
     exactly one caller runs ``builder()`` (the leader); concurrent callers
     for the same key block until the leader finishes and then reuse its
-    target."""
+    target. ``capacity`` bounds the table: least-recently-used entries are
+    evicted, except keys pinned by a live hot slot."""
 
-    def __init__(self, name: str = "cache", recorder: Any = None):
+    def __init__(
+        self, name: str = "cache", capacity: int | None = None,
+        recorder: Any = None,
+    ):
+        if capacity is not None and capacity < 1:
+            raise DispatchError(f"capacity must be >= 1, got {capacity}")
         self.name = name
-        self._table: dict[Hashable, Any] = {}
+        self.capacity = capacity
+        self._table: OrderedDict[Hashable, Any] = OrderedDict()
         self._building: dict[Hashable, _Build] = {}
+        self._pinned: set[Hashable] = set()
         self._lock = threading.Lock()
         self.stats = CacheStats()
         # Optional flight recorder (core.telemetry.FlightRecorder): build
@@ -83,11 +93,20 @@ class CompileCache:
         with self._lock:
             return len(self._table)
 
+    def pin(self, key: Hashable) -> None:
+        with self._lock:
+            self._pinned.add(key)
+
+    def unpin(self, key: Hashable) -> None:
+        with self._lock:
+            self._pinned.discard(key)
+
     def get_or_build(self, key: Hashable, builder: Callable[[], Any]) -> Any:
         """Cold path: build-and-insert on miss, single-flight per key."""
         while True:
             with self._lock:
                 if key in self._table:
+                    self._table.move_to_end(key)
                     self.stats.hits += 1
                     return self._table[key]
                 build = self._building.get(key)
@@ -119,6 +138,7 @@ class CompileCache:
                     self.stats.misses += 1
                     self.stats.keys.append(key)
                     self.stats.compile_seconds += build_s
+                    self._evict_locked()
                     del self._building[key]
                 build.event.set()
                 if t0_ns:  # build span, tagged with its dispatch key
@@ -129,8 +149,23 @@ class CompileCache:
                     )
                 return exe
             # Follower: wait for the leader, then retry the lookup (the
-            # leader may have failed; then loop and become the leader).
+            # entry may have been evicted or the leader may have failed; then
+            # loop and become the leader).
             build.event.wait()
+
+    def _evict_locked(self) -> None:
+        if self.capacity is None:
+            return
+        rec = self.recorder
+        for key in list(self._table):
+            if len(self._table) <= self.capacity:
+                break
+            if key in self._pinned:
+                continue
+            del self._table[key]
+            self.stats.evictions += 1
+            if rec is not None and rec.enabled:
+                rec.emit("cache_evict", "dispatcher", args={"key": str(key)})
 
 
 # -------------------------------------------------------------------- policy
@@ -143,9 +178,12 @@ class DispatchPolicy:
                    ``BranchChanger`` behaviour (rebind immediately); higher
                    values keep the slot stable under rapid oscillation, at
                    the cost of serving the minority key from the table.
+    capacity     — bound on cached branch targets (None = unbounded); the
+                   hot slot's key is never evicted.
     """
 
     hysteresis: int = 1
+    capacity: int | None = None
 
     def __post_init__(self) -> None:
         if self.hysteresis < 1:
@@ -224,7 +262,9 @@ class Dispatcher:
         # cache, rebind + hysteresis events from here. The slot fast path
         # never touches it.
         self.recorder = recorder
-        self.cache = CompileCache(name=self._name, recorder=recorder)
+        self.cache = CompileCache(
+            name=self._name, capacity=self.policy.capacity, recorder=recorder
+        )
         self._current: Callable | None = None  # the hot slot
         self._current_key: Hashable | None = None
         self._candidate: Hashable | None = None
@@ -300,8 +340,11 @@ class Dispatcher:
 
     def _rebind(self, key: Hashable, exe: Callable) -> None:
         old = self._current_key
+        self.cache.pin(key)
         self._current = exe  # <- the "jmp patch"
         self._current_key = key
+        if old is not None and old != key:
+            self.cache.unpin(old)
         self._candidate = key
         self._streak = self.policy.hysteresis  # saturate
         self.stats.rebinds += 1

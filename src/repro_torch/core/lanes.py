@@ -1,9 +1,10 @@
 """Dispatch-coordinate registry: lanes and their bucket axes as declarations.
 
 The port's copy of ``repro.core.lanes`` (DESIGN.md §12), holding the lanes
-the paged serving path runs: ``cbp`` (paged decode), ``pf`` (chunked paged
-prefill) and speculative decoding's ``vf`` (paged verify), ``dr`` (draft)
-and ``drp`` (the draft's prompt mirror).
+the ported engines run: ``burst`` (the per-burst engine's decode, sampling
+mode baked in), and the paged serving path's ``cbp`` (paged decode), ``pf``
+(chunked paged prefill) and speculative decoding's ``vf`` (paged verify),
+``dr`` (draft) and ``drp`` (the draft's prompt mirror).
 
 * ``LaneAxis``    — one coordinate of a lane's key: a name plus the *bucket
                     ladder* that enumerates its warmup fan-out (an engine
@@ -199,6 +200,16 @@ class LaneRegistry:
 # order per engine kind: decode capacity first, then prompt ingestion, then
 # the speculative lanes (verify, draft, draft prompt mirror).
 LANES = LaneRegistry()
+
+BURST = LANES.register(LaneSpec(
+    name="burst", role="decode",
+    axes=(LaneAxis("batch_bucket"), LaneAxis("mode")),
+    builder="_build_burst_decode",
+    engines=frozenset({"burst"}),
+    doc="Per-burst decode: sampling mode baked into the branch target "
+        "(the paper's construct; built on demand by set_mode, no warm "
+        "fan-out).",
+))
 
 _SLOTS = LaneAxis("slots")  # pinned per batcher (paged_continuous(slots=...))
 _PAGES = LaneAxis("pages_bucket", "_pages_buckets")

@@ -1,12 +1,15 @@
-// Paged attention kernels for Hopper (sm_90a): decode (B1, B3) and chunked
-// prefill (B2, B4) over a pooled KV page cache, in the model dtype (B1/B2)
-// or as int8 pages with per-token-row scales (B3/B4).
+// Attention kernels for Hopper (sm_90a) over a KV cache read one key block
+// at a time: paged decode (B1, B3) and chunked prefill (B2, B4) over a pooled
+// KV page cache, in the model dtype (B1/B2) or as int8 pages with
+// per-token-row scales (B3/B4), and dense single-token decode (B5) over a
+// [B, S, KH, HD] cache with a scalar position.
 //
 // Replaces the Pallas TPU kernels
 //   src/repro/kernels/decode_attention.py:paged_decode_attention        (B1)
 //   src/repro/kernels/prefill_attention.py:paged_prefill_attention      (B2)
 //   src/repro/kernels/decode_attention.py:paged_decode_attention_int8   (B3)
 //   src/repro/kernels/prefill_attention.py:paged_prefill_attention_int8 (B4)
+//   src/repro/kernels/decode_attention.py:decode_attention              (B5)
 // with the same layouts and the same arithmetic: scores, the online softmax
 // (NEG_INF = -2e38, denominator clamped at 1e-37) and the accumulator are
 // fp32 whatever the storage type; an int8 K/V element is dequantised as
@@ -14,16 +17,25 @@
 // body.
 //
 // This header holds the templates; paged_attention.cu instantiates the
-// model-dtype kernels (B1/B2) and paged_attention_int8.cu the int8 ones
-// (B3/B4), so the two halves build as two nvcc processes side by side.
+// model-dtype kernels (B1/B2), paged_attention_int8.cu the int8 ones
+// (B3/B4) and decode_attention.cu the dense one (B5), so each builds as its
+// own nvcc process side by side. flash_attention.cu (B6/B7) takes its
+// conversions and constants from here.
 //
-// Layouts (all contiguous):
+// Layouts (pages contiguous):
 //   pages        [P, page_size, KH, HD]   float / bfloat16 / int8
 //   scales       [P, page_size] float     (int8 pages only)
 //   block_tables [B, PB] int32            logical page j of row b -> page id
 //   decode:  q/out [B, H, HD],      pos   [B] int32 (row's query position)
 //   prefill: q/out [B, C, H, HD],   start [B] int32 (chunk row 0 position)
+//   dense:   q/out [B, H, HD], k/v [B, S, KH, HD] by element strides (unit
+//            stride on HD), pos a 0-dim int32 read on the device
 // Query head h = kh * G + g belongs to kv head kh (G = H / KH, the GQA group).
+//
+// A block of keys is a page for B1-B4 and kDenseBlock consecutive cache rows
+// for B5: the one body (attend_pages) takes the block's address from a
+// policy (PagedRows chases the block table, DenseRows is the table j -> j),
+// so the online softmax is written once.
 //
 // Semi-static specialisation: the query/output type, the page type,
 // head_dim, page_size and the window / softcap modes are template
@@ -32,12 +44,12 @@
 // instantiation and return cudaErrorInvalidValue for a combination that was
 // not instantiated.
 //
-// What bounds it on the card: each block streams its row's K/V pages (and,
+// What bounds it on the card: each block streams its row's K/V blocks (and,
 // for int8, their scales) once from device memory (bytes), and the
 // arithmetic per byte is a handful of fp32 FMAs, far below the H100's
 // ops:byte balance, so the kernels are memory-bound; int8 pages halve the
-// bytes of bf16 ones. The design reads only the pages a row needs — pages
-// past the row's last query position, and (window mode) pages wholly before
+// bytes of bf16 ones. The design reads only the blocks a row needs — blocks
+// past the row's last query position, and (window mode) blocks wholly before
 // its window, are skipped structurally via the loop bounds — and keeps
 // scores, softmax state and the accumulator in shared memory, so the only
 // device traffic is K/V (+ scales) in, q in and the output out. No tensor
@@ -58,6 +70,7 @@ constexpr float kMinDenom = 1e-37f;
 constexpr int kThreads = 128;
 constexpr int kDecodeRows = 8;    // query rows (GQA group members) per block
 constexpr int kPrefillRows = 16;  // packed chunk rows (C*G) per block
+constexpr int kDenseBlock = 16;   // dense cache rows per key block (B5)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -96,19 +109,56 @@ struct Tile {
   int qi[TR];  // causal frontier (query position) of each row
 };
 
+// Where key block pb of one batch row and kv head lives: element offset of
+// its first row, offset of its first scale (int8 pages), valid rows.
+struct Block {
+  size_t off;
+  size_t scale_off;
+  int n;
+};
+
+// B1-B4: block pb is page table[pb] of a [P, PS, KH, HD] pool.
+template <int PS>
+struct PagedRows {
+  const int* table;
+  size_t row_stride;  // KH * HD
+  size_t head_off;    // kh * HD
+  __device__ Block block(int pb) const {
+    const size_t page = static_cast<size_t>(table[pb]);
+    return {page * PS * row_stride + head_off, page * PS, PS};
+  }
+};
+
+// B5: block pb is rows [pb * PS, pb * PS + PS) of one row's dense cache,
+// clipped at seq_len.
+template <int PS>
+struct DenseRows {
+  size_t base;        // b * batch_stride + kh * head_stride
+  size_t row_stride;  // sequence stride
+  int seq_len;
+  __device__ Block block(int pb) const {
+    return {base + static_cast<size_t>(pb) * PS * row_stride, 0,
+            min(PS, seq_len - pb * PS)};
+  }
+};
+
 // Online-softmax attention of the tile's `rows` query rows (already in
-// tile.q / tile.qi) over logical pages [p_lo, p_hi] of one batch row, for kv
-// head `kh`. Leaves the unnormalised accumulator in tile.acc and the softmax
-// denominator in tile.l. P is the page element type; for int8 pages each
-// staged K/V element is multiplied by its row's scale.
-template <typename P, int HD, int PS, bool WINDOW, bool SOFTCAP, int TR>
-__device__ void attend_pages(Tile<HD, PS, TR>& tile,
-                             const P* __restrict__ k_pages,
-                             const P* __restrict__ v_pages,
+// tile.q / tile.qi) over key blocks [p_lo, p_hi] of one batch row and kv
+// head, addressed by `src` (PagedRows or DenseRows). Leaves the unnormalised
+// accumulator in tile.acc and the softmax denominator in tile.l. P is the
+// K/V element type; for int8 pages each staged K/V element is multiplied by
+// its row's scale. Rows past a block's end (the ragged tail of a dense
+// cache) stage a copy of its last row and are masked by the causal test:
+// they lie past every query position, as pos < seq_len. A clamp, not a
+// branch: every row's load stays unconditional, so a block's loads issue
+// together.
+template <typename P, int HD, int PS, bool WINDOW, bool SOFTCAP, int TR,
+          class Rows>
+__device__ void attend_pages(Tile<HD, PS, TR>& tile, const P* __restrict__ k,
+                             const P* __restrict__ v,
                              const float* __restrict__ k_scale,
                              const float* __restrict__ v_scale,
-                             const int* __restrict__ table, int kv_heads,
-                             int kh, int rows, int p_lo, int p_hi,
+                             const Rows& src, int rows, int p_lo, int p_hi,
                              float sm_scale, int window, float softcap) {
   constexpr bool kQuant = std::is_same<P, int8_t>::value;
   const int tid = threadIdx.x;
@@ -117,26 +167,24 @@ __device__ void attend_pages(Tile<HD, PS, TR>& tile,
     tile.m[tid] = kNegInf;
     tile.l[tid] = 0.f;
   }
-  const size_t row_stride = static_cast<size_t>(kv_heads) * HD;
   for (int pb = p_lo; pb <= p_hi; ++pb) {
-    const size_t page = static_cast<size_t>(table[pb]);
-    const size_t base = page * PS * row_stride + static_cast<size_t>(kh) * HD;
+    const Block blk = src.block(pb);
     if constexpr (kQuant) {
       if (tid < PS) {
-        tile.ks[tid] = k_scale[page * PS + tid];
-        tile.vs[tid] = v_scale[page * PS + tid];
+        tile.ks[tid] = k_scale[blk.scale_off + tid];
+        tile.vs[tid] = v_scale[blk.scale_off + tid];
       }
       __syncthreads();
     }
     for (int i = tid; i < PS * HD; i += kThreads) {
       const int t = i / HD, d = i % HD;
-      const size_t off = base + t * row_stride + d;
+      const size_t off = blk.off + min(t, blk.n - 1) * src.row_stride + d;
       if constexpr (kQuant) {
-        tile.k[t][d] = to_float(k_pages[off]) * tile.ks[t];
-        tile.v[t][d] = to_float(v_pages[off]) * tile.vs[t];
+        tile.k[t][d] = to_float(k[off]) * tile.ks[t];
+        tile.v[t][d] = to_float(v[off]) * tile.vs[t];
       } else {
-        tile.k[t][d] = to_float(k_pages[off]);
-        tile.v[t][d] = to_float(v_pages[off]);
+        tile.k[t][d] = to_float(k[off]);
+        tile.v[t][d] = to_float(v[off]);
       }
     }
     __syncthreads();
@@ -214,10 +262,12 @@ __global__ void __launch_bounds__(kThreads)
   int p_lo = 0;
   if constexpr (WINDOW) p_lo = max(p - window + 1, 0) / PS;
   __syncthreads();
+  const PagedRows<PS> src{block_tables + static_cast<size_t>(b) * pages_per_row,
+                          static_cast<size_t>(kv_heads) * HD,
+                          static_cast<size_t>(kh) * HD};
   attend_pages<P, HD, PS, WINDOW, SOFTCAP, kDecodeRows>(
-      tile, k_pages, v_pages, k_scale, v_scale,
-      block_tables + static_cast<size_t>(b) * pages_per_row, kv_heads, kh,
-      rows, p_lo, p_hi, sm_scale, window, softcap);
+      tile, k_pages, v_pages, k_scale, v_scale, src, rows, p_lo, p_hi,
+      sm_scale, window, softcap);
   T* out_b = out + (static_cast<size_t>(b) * heads + h0) * HD;
   for (int i = tid; i < rows * HD; i += kThreads) {
     const int r = i / HD;
@@ -259,10 +309,12 @@ __global__ void __launch_bounds__(kThreads)
   int p_lo = 0;
   if constexpr (WINDOW) p_lo = max(st + r0 / group - window + 1, 0) / PS;
   __syncthreads();
+  const PagedRows<PS> src{block_tables + static_cast<size_t>(b) * pages_per_row,
+                          static_cast<size_t>(kv_heads) * HD,
+                          static_cast<size_t>(kh) * HD};
   attend_pages<P, HD, PS, WINDOW, SOFTCAP, kPrefillRows>(
-      tile, k_pages, v_pages, k_scale, v_scale,
-      block_tables + static_cast<size_t>(b) * pages_per_row, kv_heads, kh,
-      rows, p_lo, p_hi, sm_scale, window, softcap);
+      tile, k_pages, v_pages, k_scale, v_scale, src, rows, p_lo, p_hi,
+      sm_scale, window, softcap);
   for (int i = tid; i < rows * HD; i += kThreads) {
     const int lr = i / HD, r = r0 + lr, c = r / group, g = r % group;
     const size_t row = (static_cast<size_t>(b) * chunk + c) * heads +

@@ -2,9 +2,9 @@
 
 Each source in ``repro_torch/csrc`` is compiled at first use with ``nvcc``
 into its own shared library with a plain C interface, loaded with
-``ctypes``. The sources build as parallel ``nvcc`` processes (the model-dtype
-kernels B1/B2 and the int8 ones B3/B4 are separate files over one shared
-header). Each library lands in ``build/repro_torch/`` at the root of the
+``ctypes``. The sources build as parallel ``nvcc`` processes, one per file
+(the model-dtype paged kernels B1/B2, the int8 ones B3/B4, dense decode B5
+and flash attention B6/B7, all over one shared header). Each library lands in ``build/repro_torch/`` at the root of the
 checkout, named by a hash of its source, the shared header and the flags, so
 an edit rebuilds and an unchanged tree reuses the last build. Nothing here
 runs at import: a CPU-only install imports every module and never needs
@@ -39,6 +39,7 @@ HEAD_DIMS = (16, 128)
 PAGE_SIZES = (8, 16)
 
 _ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_i64 = ctypes.c_longlong  # element strides
 # source -> {entry point: argtypes}
 SOURCES = {
     "paged_attention.cu": {
@@ -58,6 +59,24 @@ SOURCES = {
         # as paged_prefill_attention, with k_scale, v_scale after v_pages
         "paged_prefill_attention_int8": [_ptr] * 8 + [_int] * 11
         + [_float] * 2 + [_ptr],
+    },
+    "decode_attention.cu": {
+        # q, k, v, pos, out, batch, heads, kv_heads, seq_len, strides q
+        # (b, h), k/v (b, s, h), out (b, h), dtype, head_dim, has_window,
+        # window, has_softcap, softcap, sm_scale, stream
+        "dense_decode_attention": [_ptr] * 5 + [_int] * 4 + [_i64] * 7
+        + [_int] * 5 + [_float] * 2 + [_ptr],
+    },
+    "flash_attention.cu": {
+        # q, k, v, out, batch, heads, kv_heads, sq, sk, strides (b, h, s)
+        # of q, k, v, out, dtype, head_dim, causal, has_window, window,
+        # has_softcap, softcap, sm_scale, stream
+        "flash_attention": [_ptr] * 4 + [_int] * 5 + [_i64] * 12
+        + [_int] * 6 + [_float] * 2 + [_ptr],
+        # q, k, v, flags, out, batch, heads, kv_heads, sq, sk, 12 strides,
+        # dtype, head_dim, sm_scale, stream
+        "flash_attention_branchy": [_ptr] * 5 + [_int] * 5 + [_i64] * 12
+        + [_int] * 2 + [_float] + [_ptr],
     },
 }
 
@@ -206,6 +225,52 @@ def check_operands(
             f"{name}: no kernel instantiated for head_dim={dh}, "
             f"page_size={ps} (instantiated: head_dim {HEAD_DIMS}, "
             f"page_size {PAGE_SIZES})"
+        )
+
+
+def check_strided_operands(
+    name: str, q, k, v, q_ndim: int, ints: dict,
+) -> None:
+    """Validate what the dense kernels (B5-B7) take; raise on anything else.
+
+    q is ``[B, H, dh]`` (``q_ndim`` 3) or ``[B, H, Sq, dh]`` (4) and k/v
+    ``[B, KH, S, dh]``, all of one type in ``DTYPE_CODES``, read through
+    their strides: only ``dh`` needs a unit stride, so a transposed view of
+    ``[B, S, KH, dh]`` is taken as it is. ``ints`` maps each int32
+    operand's name to ``(tensor, required shape)`` (``pos`` ``()``, ``flags`` ``(3,)``)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {dev}")
+    for t in (k, v, *(t for t, _ in ints.values())):
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {t.device} and {dev}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"{name}: q, k, v must share one of {tuple(DTYPE_CODES)}, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if q.dim() != q_ndim or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"v{tuple(v.shape)}"
+        )
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{name}: head_dim must have unit stride")
+    b, kh, s, dh = k.shape
+    if q.shape[0] != b or q.shape[-1] != dh or q.shape[1] % kh != 0 or s == 0:
+        raise ValueError(
+            f"{name}: q{tuple(q.shape)} does not fit k/v{tuple(k.shape)}"
+        )
+    for label, (t, shape) in ints.items():
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: {label} must be int32 {shape}, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+    if dh not in HEAD_DIMS:
+        raise ValueError(
+            f"{name}: no kernel instantiated for head_dim={dh} "
+            f"(instantiated: head_dim {HEAD_DIMS})"
         )
 
 

@@ -1,5 +1,6 @@
-"""Paged decode attention, kernels B1 (model-dtype pages) and B3 (int8 pages):
-CUDA wrappers, launch counts, plain versions.
+"""Decode attention: paged kernels B1 (model-dtype pages) and B3 (int8 pages),
+and dense kernel B5 (scalar position): CUDA wrappers, launch counts, plain
+versions.
 
 Replace the Pallas TPU kernels
 ``repro/kernels/decode_attention.py:paged_decode_attention`` and
@@ -23,6 +24,13 @@ memory; the design reads each needed page once per kv head and nothing past
 type are template parameters: one compiled kernel per specialisation; B3 is
 the same body with int8 pages (``paged_attention_int8.cu``), so its bytes
 per K/V element are 1 instead of 2 (bf16) plus 4 per row for the scale.
+
+B5 (``decode_attention``, replacing ``repro/kernels/decode_attention.py:
+decode_attention``) is the same body over a dense ``[B, KH, S, dh]`` cache,
+read through strides (``csrc/decode_attention.cu``): the model passes its
+``[B, Smax, KH, dh]`` cache transposed, a view. ``pos`` is a 0-dim int32
+tensor the kernel reads on the device, so the burst loop never syncs to
+hand it over.
 
 The wrappers run the plain version only for CPU tensors. For CUDA tensors
 they launch the kernel or raise.
@@ -198,4 +206,59 @@ def paged_decode_attention_int8_plain(
         q, gather_pages(k_pages, block_tables, k_scale),
         gather_pages(v_pages, block_tables, v_scale), pos,
         window=window, softcap=softcap,
+    )
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, H, dh] one token per row
+    k: torch.Tensor,  # [B, KH, S, dh] dense cache (any strides, dh unit)
+    v: torch.Tensor,
+    pos: torch.Tensor,  # i32[] shared cache position (inclusive, < S)
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token decode over a dense cache at one position -> [B, H, dh]."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(
+            q, k, v, pos, window=window, softcap=softcap
+        )
+    name = "decode_attention"
+    build.check_strided_operands(name, q, k, v, 3, {"pos": (pos, ())})
+    if k.stride() != v.stride():
+        raise ValueError(f"{name}: k and v must share their strides")
+    b, h, dh = q.shape
+    _, kh, seq, _ = k.shape
+    out = torch.empty_like(q)
+    rc = build.load().dense_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), b, h, kh, seq, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(2), k.stride(1), out.stride(0), out.stride(1),
+        build.DTYPE_CODES[q.dtype], dh, int(window is not None),
+        int(window or 0), int(softcap is not None), float(softcap or 0.0),
+        1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.raise_on_error(name, rc)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0  # kernel launches (CUDA path only)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of B5, the counterpart of
+    ``repro/kernels/ref.py:decode_attention_ref``: every row at ``pos``,
+    fp32 scores and softmax, output in q's dtype."""
+    return decode_attention_gathered(
+        q, k.transpose(1, 2).float(), v.transpose(1, 2).float(),
+        pos.reshape(1).expand(q.shape[0]), window=window, softcap=softcap,
     )

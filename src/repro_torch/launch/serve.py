@@ -1,17 +1,24 @@
-"""Serving driver for the port: a request stream through the paged engine.
+"""Serving entry point of the port: a request stream through the paged engine
+or the per-burst engine.
 
-Synthesises open-loop Poisson traffic — shared-prefix prompts by default,
-distinct prompts with ``--prompt-len`` — and drives it through
-``Engine.paged_continuous``, reporting latency percentiles, TTFT, throughput
-and cold-path activity (builds after warmup, rebinds). ``--kv-dtype int8``
-stores the pool as int8 pages (kernels B3/B4); ``--spec-k K`` turns on
-speculative decoding with a ``--draft-layers``-deep draft. Weights are a
-seeded random init. Runs on the GPU unless ``--device cpu``:
+``--engine paged`` (default) synthesises open-loop Poisson traffic —
+shared-prefix prompts by default, distinct prompts with ``--prompt-len`` —
+and drives it through ``Engine.paged_continuous``; ``--kv-dtype int8``
+stores the pool as int8 pages (kernels B3/B4) and ``--spec-k K`` turns on
+speculative decoding with a ``--draft-layers``-deep draft. ``--engine
+burst`` drives prompt-less Poisson traffic through ``run_burst_stream``
+(``set_mode`` + ``decode_loop``, kernel B5): one sampling mode per burst,
+batch sizes bucketed by ``--batch-quantum``. Both report latency
+percentiles, TTFT, throughput and cold-path activity (builds after warmup,
+rebinds; for burst, mode switches). Weights are a seeded random init. Runs
+on the GPU unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --arch olmo-1b --requests 16 --rate 50 --tokens-mean 16 \\
       --max-len 1024 --page-size 16 --prefix-len 128 --prefill-chunk 64 \\
       --kv-dtype int8 --spec-k 4 --draft-layers 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine burst --smoke \\
+      --device cpu
 """
 
 from __future__ import annotations
@@ -29,7 +36,12 @@ from repro_torch.runtime.scheduler import (
     shared_prefix_arrivals,
 )
 from repro_torch.runtime.kvcache import KV_DTYPES
-from repro_torch.runtime.serve import Engine, EngineConfig, run_paged_stream
+from repro_torch.runtime.serve import (
+    Engine,
+    EngineConfig,
+    run_burst_stream,
+    run_paged_stream,
+)
 
 SLOTS = 8  # continuous-batching slots, as in the JAX package's launcher
 
@@ -39,12 +51,14 @@ _REPORT_KEYS = (
     "h2d_uploads", "kv_dtype", "pool_pages", "pages_in_use_peak",
     "peak_concurrent", "share_ratio", "overcommit_ratio", "preemptions",
     "bucket_crossings", "cow_copies", "spec_k", "k_bucket_crossings",
+    "mode_switches", "hot_calls",
 )
 
 
 def _print_report(rep: dict) -> None:
+    tag = f"[serve/{rep['engine']}]"
     head = (
-        f"[serve/paged] {rep.get('finished', 0)} requests, "
+        f"{tag} {rep.get('finished', 0)} requests, "
         f"{rep.get('tokens', 0)} tokens on {rep['device']}"
     )
     if "p50_ms" in rep:
@@ -59,18 +73,21 @@ def _print_report(rep: dict) -> None:
         )
     print(head, flush=True)
     cold = {k: rep[k] for k in _REPORT_KEYS if k in rep}
-    print(f"[serve/paged] {cold}", flush=True)
-    print(f"[serve/paged] lanes: {rep.get('lane_steps')} "
-          f"pipeline: {rep.get('pipeline')}", flush=True)
+    print(f"{tag} {cold}", flush=True)
+    if "lane_steps" in rep:
+        print(f"{tag} lanes: {rep['lane_steps']} "
+              f"pipeline: {rep.get('pipeline')}", flush=True)
     if "spec" in rep:
-        print(f"[serve/paged] specdec: {rep['spec']} tokens/target step "
+        print(f"{tag} specdec: {rep['spec']} tokens/target step "
               f"{rep.get('tokens_per_target_step')}", flush=True)
 
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--engine", choices=("paged",), default="paged",
-                    help="serving engine (the port has the paged engine)")
+    ap.add_argument("--engine", choices=("paged", "burst"), default="paged",
+                    help="serving engine: paged continuous batching, or the "
+                         "per-burst engine (mode baked into each burst's "
+                         "branch target)")
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family config (fp32, 2 layers)")
@@ -82,6 +99,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--sample-frac", type=float, default=0.5,
                     help="fraction of requests that sample (vs greedy)")
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--batch-quantum", type=int, default=4,
+                    help="burst batch sizes round up to a multiple of this")
     ap.add_argument("--page-size", type=int, default=8,
                     help="tokens per KV page")
     ap.add_argument("--num-pages", type=int, default=0,
@@ -117,6 +136,18 @@ def main(argv: list[str] | None = None) -> dict:
         ap.error(f"--requests must be >= 1, got {args.requests}")
     if args.spec_k < 0:
         ap.error(f"--spec-k must be >= 0, got {args.spec_k}")
+    if args.engine == "burst":
+        # the per-burst stream seeds first_token only and has no lanes
+        # besides its decode (there is no step pipeline to overlap either)
+        if args.prompt_len > 0:
+            ap.error("--prompt-len requires --engine paged (the burst "
+                     "stream does not ingest prompts)")
+        if args.spec_k > 0:
+            ap.error("--spec-k requires --engine paged (the burst stream "
+                     "has no draft/verify lanes)")
+        if args.kv_dtype != "fp32":
+            ap.error("--kv-dtype requires --engine paged (the dense cache "
+                     "has no page pool to quantise)")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -127,6 +158,7 @@ def main(argv: list[str] | None = None) -> dict:
     params = models.init_params(cfg, seed=args.seed, device=device)
     ecfg = EngineConfig(
         max_len=args.max_len,
+        batch_quantum=args.batch_quantum,
         max_batch=SLOTS,
         page_size=args.page_size,
         num_pages=args.num_pages,
@@ -136,7 +168,13 @@ def main(argv: list[str] | None = None) -> dict:
         draft_layers=args.draft_layers,
         draft_kv_dtype=args.draft_kv_dtype,
     )
-    if args.prompt_len > 0:
+    if args.engine == "burst":
+        reqs = poisson_arrivals(
+            args.requests, args.rate, seed=args.seed,
+            tokens_mean=args.tokens_mean, tokens_max=args.max_len,
+            sample_frac=args.sample_frac, vocab=cfg.vocab_size,
+        )
+    elif args.prompt_len > 0:
         reqs = poisson_arrivals(
             args.requests, args.rate, seed=args.seed,
             tokens_mean=args.tokens_mean,
@@ -154,7 +192,10 @@ def main(argv: list[str] | None = None) -> dict:
             sample_frac=args.sample_frac, vocab=cfg.vocab_size,
         )
     with Engine(cfg, params, ecfg, device=device) as eng:
-        rep = run_paged_stream(eng, reqs, seed=args.seed)
+        if args.engine == "burst":
+            rep = run_burst_stream(eng, reqs, seed=args.seed)
+        else:
+            rep = run_paged_stream(eng, reqs, seed=args.seed)
     if args.json:
         print(json.dumps(rep, indent=2))
     else:

@@ -1,8 +1,10 @@
-"""Model code of the port: the paged serving path of the dense LM family and
-the speculative draft's dense-cache path."""
+"""Model code of the port: the dense LM family's full-sequence forward and
+prefill, its paged serving path, and its dense-cache decode (burst engine
+and speculative draft)."""
 
 from .attention import (
     ATTN_IMPLS,
+    FULL_IMPLS,
     KV_QUANT_MAX,
     KV_SCALE_EPS,
     dequantise_kv_rows,
@@ -13,6 +15,7 @@ from .model import (
     copy_cache_pages,
     decode_step,
     draft_view,
+    forward,
     init_cache,
     init_paged_cache,
     init_params,
@@ -20,10 +23,13 @@ from .model import (
     paged_decode_step,
     paged_prefill_step,
     paged_verify_step,
+    pad_cache,
+    prefill,
 )
 
 __all__ = [
     "ATTN_IMPLS",
+    "FULL_IMPLS",
     "KV_QUANT_MAX",
     "KV_SCALE_EPS",
     "chunked_decode_step",
@@ -31,6 +37,7 @@ __all__ = [
     "decode_step",
     "dequantise_kv_rows",
     "draft_view",
+    "forward",
     "init_cache",
     "init_paged_cache",
     "init_params",
@@ -38,5 +45,7 @@ __all__ = [
     "paged_decode_step",
     "paged_prefill_step",
     "paged_verify_step",
+    "pad_cache",
+    "prefill",
     "quantise_kv_rows",
 ]

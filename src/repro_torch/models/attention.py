@@ -1,6 +1,7 @@
-"""GQA attention through a paged KV cache, and the speculative draft's dense
-per-slot cache (counterpart of ``repro.models.attention``'s paged, per-row
-decode and chunked functions).
+"""GQA attention: full-sequence (``forward``/``prefill``), through a paged
+KV cache, and through the dense per-slot cache at a shared scalar position
+(the burst engine) or at per-row positions (the speculative draft):
+counterpart of ``repro.models.attention``.
 
 Pages are updated **in place** (``index_put_``), where the JAX package
 returns a functionally updated cache: the pooled ``[P, page_size, KH, dh]``
@@ -32,9 +33,21 @@ fp32 this is exactly the JAX package's arithmetic. At bf16 the JAX
 package's int8 paths promote the residual stream to f32 and fail to trace,
 so there the port's rule has no JAX counterpart.
 
-The draft lanes' dense cache (``init_kv_cache``, ``decode_attention``,
-``chunked_decode_attention``) is plain PyTorch: the JAX package has no
-Pallas kernel for the per-row dense path either.
+Full-sequence attention (``attention``, ``prefill_attention``) has three
+implementations, chosen semi-statically as ``impl`` when a step is built:
+``"naive"`` (materialised ``[B,KH,G,S,S]`` scores, the JAX package's
+baseline), ``"chunked"`` (online softmax over key blocks of
+``CHUNK_BLOCK``, its flash-style data movement in plain PyTorch) and
+``"kernel"`` (B6, ``kernels.flash_attention``; its plain version on the
+CPU), fed ``[B,S,H,dh]`` activations as strided views.
+
+The dense cache's decode (``decode_attention``) at a **scalar** position —
+every row at one depth, the burst engine — writes the new K/V row at ``pos``
+in place and attends with B5 (``attn_impl="kernel"``) or the JAX package's
+einsum tail (``"plain"``); it takes model-dtype caches only, as the JAX
+package's. At **per-row** positions (the draft lanes) it and
+``chunked_decode_attention`` are plain PyTorch, model dtype or int8: the JAX
+package has no Pallas kernel for the per-row dense path either.
 """
 
 from __future__ import annotations
@@ -49,7 +62,9 @@ from repro_torch.runtime.kvcache import KV_DTYPES
 from .layers import apply_rope, dtype_of, rms_norm, softcap
 
 NEG_INF = -2.0e38
-ATTN_IMPLS = ("kernel", "plain")
+ATTN_IMPLS = ("kernel", "plain")  # paged and dense decode
+FULL_IMPLS = ("naive", "chunked", "kernel")  # forward and prefill
+CHUNK_BLOCK = 1024  # key block of "chunked" (the JAX PerfOpts default)
 # int8 KV quantisation range (DESIGN.md §12): symmetric, full int8 span.
 KV_QUANT_MAX = 127.0
 KV_SCALE_EPS = 1e-8  # all-zero rows quantise with a tiny non-zero scale
@@ -73,6 +88,153 @@ def _out_proj(cfg: ArchConfig, p: dict, o: torch.Tensor) -> torch.Tensor:
     """o [B,S,H,dh] -> [B,S,D] through wo [H,dh,D]."""
     b, s = o.shape[:2]
     return o.reshape(b, s, cfg.q_dim) @ p["wo"].reshape(cfg.q_dim, -1)
+
+
+def _group(cfg: ArchConfig, q: torch.Tensor) -> torch.Tensor:
+    """[B,S,H,dh] -> [B,S,KH,G,dh]."""
+    b, s, h, dh = q.shape
+    return q.reshape(b, s, cfg.num_kv_heads, h // cfg.num_kv_heads, dh)
+
+
+# ------------------------------------------------------- full sequence
+def _mask(
+    s_q: int,
+    s_k: int,
+    *,
+    causal: bool,
+    window: int | None,
+    q_offset: int = 0,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """[S_q, S_k] additive mask (0 / half the dtype's lowest value)."""
+    qi = torch.arange(s_q, device=device)[:, None] + q_offset
+    ki = torch.arange(s_k, device=device)[None, :]
+    ok = torch.ones(s_q, s_k, dtype=torch.bool, device=device)
+    if causal:
+        ok &= ki <= qi
+    if window is not None:
+        ok &= ki > qi - window
+    neg = torch.finfo(dtype).min / 2
+    return torch.where(ok, 0.0, neg).to(dtype)
+
+
+def _sdpa_naive(
+    cfg: ArchConfig,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int | None,
+) -> torch.Tensor:
+    """q: [B,Sq,KH,G,dh]; k,v: [B,Sk,KH,dh] -> [B,Sq,KH,G,dh]. Scores are
+    f32 products of the operands (the JAX package's
+    ``preferred_element_type``), probabilities in v's dtype."""
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    scores = softcap(scores, cfg.attn_logit_softcap)
+    scores = scores + _mask(
+        q.shape[1], k.shape[1], causal=True, window=window, device=q.device
+    )
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).to(v.dtype)
+
+
+def _sdpa_chunked(
+    cfg: ArchConfig,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int | None,
+    block: int = CHUNK_BLOCK,
+) -> torch.Tensor:
+    """Online softmax over key blocks: O(S·block) score memory instead of
+    O(S²). Shapes as ``_sdpa_naive``; the key length must be a multiple of
+    the block (as in the JAX package)."""
+    b, sq, kh, g, dh = q.shape
+    sk = k.shape[1]
+    block = min(block, sk)
+    if sk % block:
+        raise ValueError(f"key length {sk} is not a multiple of block {block}")
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    qf = q.float()
+    qi = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((b, kh, g, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, kh, g, sq), device=q.device)
+    acc = torch.zeros((b, kh, g, sq, dh), device=q.device)
+    for i in range(sk // block):
+        k_i = k[:, i * block:(i + 1) * block].float()
+        v_i = v[:, i * block:(i + 1) * block].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_i) * scale
+        s = softcap(s, cfg.attn_logit_softcap)
+        ki = torch.arange(block, device=q.device)[None, :] + i * block
+        ok = ki <= qi
+        if window is not None:
+            ok &= ki > qi - window
+        s = s + torch.where(ok, 0.0, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p_ = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p_.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p_, v_i
+        )
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-37)[..., None]
+    return out.movedim(-2, 1).to(v.dtype)  # [B,Sq,KH,G,dh]
+
+
+def _full_sequence(
+    cfg: ArchConfig, p: dict, q, k, v, *, local: bool, impl: str
+) -> torch.Tensor:
+    """Causal self-attention of q [B,S,H,dh] over k/v [B,S,KH,dh], projected
+    through ``wo`` -> [B,S,D], by the semi-static ``impl``."""
+    window = cfg.sliding_window if local else None
+    b, s = q.shape[:2]
+    if impl == "kernel":
+        o = kernels.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window, softcap=cfg.attn_logit_softcap,
+        ).transpose(1, 2)  # [B,S,H,dh]: the kernel writes q's layout
+        return _out_proj(cfg, p, o)
+    if impl == "chunked":
+        og = _sdpa_chunked(cfg, _group(cfg, q), k, v, window=window)
+    elif impl == "naive":
+        og = _sdpa_naive(cfg, _group(cfg, q), k, v, window=window)
+    else:
+        raise ValueError(f"impl must be one of {FULL_IMPLS}, got {impl!r}")
+    return _out_proj(cfg, p, og.reshape(b, s, cfg.num_heads, cfg.head_dim))
+
+
+def attention(
+    cfg: ArchConfig,
+    p: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    local: bool,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """Full-sequence causal attention. x: [B,S,D] -> [B,S,D]."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    return _full_sequence(cfg, p, q, k, v, local=local, impl=impl)
+
+
+def prefill_attention(
+    cfg: ArchConfig,
+    p: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    local: bool,
+    impl: str = "kernel",
+) -> tuple[torch.Tensor, dict]:
+    """Full-sequence attention that also returns the populated KV cache
+    ``{"k", "v"}`` of ``[B,S,KH,dh]``."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    out = _full_sequence(cfg, p, q, k, v, local=local, impl=impl)
+    return out, {"k": k, "v": v}
 
 
 def _decode_sdpa_rows(
@@ -342,6 +504,38 @@ def _dense_view(cache: dict) -> tuple[torch.Tensor, torch.Tensor]:
     return cache["k"], cache["v"]
 
 
+def _decode_at_scalar(
+    cfg: ArchConfig,
+    p: dict,
+    x: torch.Tensor,
+    cache: dict,
+    pos: torch.Tensor,
+    *,
+    local: bool,
+    attn_impl: str,
+) -> tuple[torch.Tensor, dict]:
+    """The burst engine's decode: every row at the 0-dim position ``pos``.
+    The new K/V row lands at ``pos`` (clamped into the cache, as the JAX
+    package's ``dynamic_update_slice``) by ``index_copy_`` on the device
+    tensor, so no step waits for the host; then B5 or the plain tail."""
+    b = x.shape[0]
+    smax = cache["k"].shape[1]
+    q, k, v = _qkv(cfg, p, x, pos.reshape(1, 1).expand(b, 1))
+    at = pos.clamp(0, smax - 1).reshape(1).long()
+    cache["k"].index_copy_(1, at, k)
+    cache["v"].index_copy_(1, at, v)
+    if attn_impl == "kernel":
+        o = kernels.decode_attention(
+            q[:, 0], cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
+            pos, window=cfg.sliding_window if local else None,
+            softcap=cfg.attn_logit_softcap,
+        )
+        return _out_proj(cfg, p, o[:, None]), cache
+    return _decode_sdpa_rows(
+        cfg, p, q, cache["k"], cache["v"], pos.expand(b), local=local
+    ), cache
+
+
 def decode_attention(
     cfg: ArchConfig,
     p: dict,
@@ -350,21 +544,25 @@ def decode_attention(
     pos: torch.Tensor,
     *,
     local: bool,
+    attn_impl: str = "kernel",
 ) -> tuple[torch.Tensor, dict]:
-    """One-token decode into the dense per-slot cache, per-row form.
+    """One-token decode into the dense per-slot cache.
 
-    x: [B,1,D]; cache k/v: [B,Smax,KH,dh]; ``pos``: i32[B], each row at its
-    own depth. Writes row b's new K/V at ``pos[b]`` in place (a position
-    past the cache writes nothing, as the JAX package's masked select) and
-    attends with a per-row causal mask, so a slot that joined at position
-    0 never sees its previous occupant's rows. An int8 cache quantises the
-    row and follows the int8 dtype rule. The scalar-position form belongs
-    to the burst engine (kernel B5) and is not ported.
+    x: [B,1,D]; cache k/v: [B,Smax,KH,dh]. ``pos`` is either a 0-dim i32
+    tensor — the whole batch at one position, the burst engine; model-dtype
+    caches only, attention by ``attn_impl`` (B5 or plain) — or i32[B], each
+    row at its own depth (the draft lanes; plain PyTorch). The per-row form
+    writes row b's new K/V at ``pos[b]`` in place (a position past the
+    cache writes nothing, as the JAX package's masked select) and attends
+    with a per-row causal mask, so a slot that joined at position 0 never
+    sees its previous occupant's rows; an int8 cache quantises the row and
+    follows the int8 dtype rule.
     """
-    if pos.dim() != 1:
-        raise ValueError(
-            "decode_attention takes per-row positions [B]; the scalar-"
-            "position form belongs to the burst engine, which is not ported"
+    if pos.dim() == 0:
+        if cache["k"].dtype == torch.int8:
+            raise ValueError("int8 dense KV caches require per-row pos [B]")
+        return _decode_at_scalar(
+            cfg, p, x, cache, pos, local=local, attn_impl=attn_impl
         )
     b = x.shape[0]
     smax = cache["k"].shape[1]

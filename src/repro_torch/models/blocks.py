@@ -1,5 +1,5 @@
-"""Attention + MLP blocks through the paged KV cache and the draft's dense
-cache (counterpart of ``repro.models.blocks``)."""
+"""Attention + MLP blocks: full sequence, through the paged KV cache, and
+through the dense cache (counterpart of ``repro.models.blocks``)."""
 
 from __future__ import annotations
 
@@ -39,6 +39,40 @@ def _block_tail(
         raise ValueError(f"{cfg.name}: slot {slot} mlp {mlp!r} is not ported")
     h = norm_apply(cfg, _scale(p, "norm2"), x)
     return x + mlp_mod.mlp_apply(cfg, p["mlp"], h)
+
+
+def block_apply(
+    cfg: ArchConfig,
+    slot: int,
+    p: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """Full-sequence block (``forward``)."""
+    local = _mixer(cfg, slot, "the full-sequence path")
+    h = norm_apply(cfg, _scale(p, "norm1"), x)
+    h = attn.attention(cfg, p["attn"], h, positions, local=local, impl=impl)
+    return _block_tail(cfg, slot, p, x + h)
+
+
+def block_prefill(
+    cfg: ArchConfig,
+    slot: int,
+    p: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    impl: str = "kernel",
+) -> tuple[torch.Tensor, dict]:
+    """Full-sequence block that also emits this slot's cache entry."""
+    local = _mixer(cfg, slot, "prefill")
+    h = norm_apply(cfg, _scale(p, "norm1"), x)
+    h, cache = attn.prefill_attention(
+        cfg, p["attn"], h, positions, local=local, impl=impl
+    )
+    return _block_tail(cfg, slot, p, x + h), cache
 
 
 def block_paged_decode(
@@ -105,11 +139,16 @@ def block_decode(
     x: torch.Tensor,
     cache: dict,
     pos: torch.Tensor,
+    *,
+    attn_impl: str = "kernel",
 ) -> tuple[torch.Tensor, dict]:
-    """Single-token block step into the dense cache, per-row positions."""
+    """Single-token block step into the dense cache at a scalar position
+    (the burst engine) or per-row positions (the draft)."""
     local = _mixer(cfg, slot, "dense decode")
     h = norm_apply(cfg, _scale(p, "norm1"), x)
-    h, cache = attn.decode_attention(cfg, p["attn"], h, cache, pos, local=local)
+    h, cache = attn.decode_attention(
+        cfg, p["attn"], h, cache, pos, local=local, attn_impl=attn_impl
+    )
     return _block_tail(cfg, slot, p, x + h), cache
 
 

@@ -1,5 +1,6 @@
-"""Top-level LM for the paged serving path and its speculative draft
-(counterpart of ``repro.models.model``).
+"""Top-level LM: full-sequence forward and prefill, the paged serving path,
+dense-cache decode (burst engine and speculative draft): counterpart of
+``repro.models.model``, inference only.
 
 Params are a flat ``dict[str, Tensor]`` keyed by the JAX pytree's paths::
 
@@ -11,7 +12,8 @@ Params are a flat ``dict[str, Tensor]`` keyed by the JAX pytree's paths::
 
 Caches mirror the blocks: per period slot, one dict of ``[m, P, page_size,
 KH, dh]`` pages (plus ``[m, P, page_size]`` scales for int8 pages), or, for
-the draft's dense cache, ``[m, B, max_len, KH, dh]`` rows. The JAX package
+the dense cache, ``[m, B, max_len, KH, dh]`` rows (``prefill`` returns it at
+the prompt's length; ``pad_cache`` grows it). The JAX package
 drives depth with ``lax.scan``; here it is a Python loop over layers, and
 each layer's cache is a view into the stacked tensor, updated in place.
 """
@@ -21,16 +23,19 @@ from __future__ import annotations
 from dataclasses import replace
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
 
 from .attention import init_paged_kv_cache
 from .blocks import (
+    block_apply,
     block_cache_init,
     block_chunk_decode,
     block_decode,
     block_paged_decode,
     block_paged_prefill,
+    block_prefill,
 )
 from .layers import dtype_of, embed_apply, head_apply, norm_apply
 
@@ -158,6 +163,74 @@ def _final_norm(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return norm_apply(cfg, params.get("final_norm.scale"), x)
 
 
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """Positions 0..S-1 of every row of x [B,S,...] as i32[B,S]."""
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+
+def forward(
+    cfg: ArchConfig,
+    params: dict,
+    inputs: torch.Tensor,
+    *,
+    impl: str = "kernel",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """inputs: i32[B,S] tokens. Returns (logits [B,S,V] float32, aux): the
+    JAX package's pair, inference only (no remat, no backward); ``aux`` is
+    the MoE loss term, 0 for the ported dense stacks. ``impl`` picks the
+    attention: ``"kernel"`` (B6), ``"naive"`` or ``"chunked"``."""
+    x = embed_apply(cfg, params["embed.embedding"], inputs)
+    positions = _positions(x)
+    for i in range(cfg.num_layers // cfg.period):
+        for slot in range(cfg.period):
+            x = block_apply(
+                cfg, slot, layer_params(params, slot, i), x, positions,
+                impl=impl,
+            )
+    x = _final_norm(cfg, params, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return head_apply(cfg, params, x), aux
+
+
+def prefill(
+    cfg: ArchConfig,
+    params: dict,
+    inputs: torch.Tensor,
+    *,
+    impl: str = "kernel",
+) -> tuple[torch.Tensor, list]:
+    """Run the full prompt i32[B,S]; returns (last-token logits [B,V]
+    float32, dense cache stacked ``[m, B, S, KH, dh]`` per period slot)."""
+    x = embed_apply(cfg, params["embed.embedding"], inputs)
+    positions = _positions(x)
+    per_slot: list[list[dict]] = [[] for _ in range(cfg.period)]
+    for i in range(cfg.num_layers // cfg.period):
+        for slot in range(cfg.period):
+            x, c = block_prefill(
+                cfg, slot, layer_params(params, slot, i), x, positions,
+                impl=impl,
+            )
+            per_slot[slot].append(c)
+    x = _final_norm(cfg, params, x)
+    cache = [
+        {name: torch.stack([c[name] for c in layers]) for name in layers[0]}
+        for layers in per_slot
+    ]
+    return head_apply(cfg, params, x[:, -1]), cache
+
+
+def pad_cache(cfg: ArchConfig, cache: list, max_len: int) -> list:
+    """Grow a prefill cache (length = prompt) to ``max_len`` rows for
+    decoding: ``[m, B, S, KH, dh]`` -> ``[m, B, max_len, KH, dh]``, zeros
+    past the prompt."""
+    return [
+        {name: F.pad(t, (0, 0, 0, 0, 0, max_len - t.shape[2]))
+         for name, t in slot.items()}
+        for slot in cache
+    ]
+
+
 def paged_decode_step(
     cfg: ArchConfig,
     params: dict,
@@ -263,15 +336,18 @@ def decode_step(
     cache: list,
     inputs: torch.Tensor,
     pos: torch.Tensor,
+    *,
+    attn_impl: str = "kernel",
 ) -> tuple[torch.Tensor, list]:
     """One token for the whole stack through the dense per-slot cache.
 
-    inputs: i32[B,1]; pos: i32[B] per-row positions (the scalar-position
-    form belongs to the burst engine and raises). Returns (logits [B,V]
-    float32, cache updated in place)."""
+    inputs: i32[B,1]; pos: a 0-dim i32 tensor (the whole batch at one
+    position — the burst engine; attention by ``attn_impl``, B5 or plain;
+    an int8 cache raises) or i32[B] per-row positions (the draft; plain).
+    Returns (logits [B,V] float32, cache updated in place)."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     for slot, p, c in _layers(cfg, params, cache):
-        x, _ = block_decode(cfg, slot, p, x, c, pos)
+        x, _ = block_decode(cfg, slot, p, x, c, pos, attn_impl=attn_impl)
     x = _final_norm(cfg, params, x)
     return head_apply(cfg, params, x[:, -1]), cache
 

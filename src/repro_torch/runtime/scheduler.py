@@ -1,9 +1,12 @@
 """Request scheduler + paged continuous batching (counterpart of
-``repro.runtime.scheduler``, synchronous paged path).
+``repro.runtime.scheduler``: the per-burst engine's batch forming and the
+synchronous paged path).
 
 * ``Request`` / ``RequestQueue`` / ``Clock`` and the traffic generators
   (``poisson_arrivals``, ``shared_prefix_arrivals``,
   ``attach_distinct_prompts``) are the JAX package's, unchanged.
+* ``form_bursts`` — the per-burst engine's batch forming (one sampling
+  mode per burst, bucketed batch sizes).
 * ``PagedContinuousBatcher`` — slot-based continuous batching against a
   paged KV pool (``runtime.kvcache``, DESIGN.md §9) with the lanes ``cbp``
   (one token per decoding slot), ``pf`` (batched chunked prefill, DESIGN.md
@@ -34,7 +37,7 @@ from typing import Any, Callable, Iterable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import bucket_pow2
+from repro_torch.core import bucket_multiple, bucket_pow2
 from repro_torch.core.telemetry import MetricsRegistry, Telemetry
 from repro_torch.runtime.kvcache import BlockTable
 from repro_torch.runtime.steps import pull_host
@@ -286,6 +289,26 @@ class RequestQueue:
                     break
                 out.append(heapq.heappop(self._heap)[2])
         return out
+
+
+def form_bursts(
+    requests: Sequence[Request], *, quantum: int, max_batch: int
+) -> list[tuple[int, bool, list[Request]]]:
+    """Per-burst batch forming: (bucket, greedy, requests) groups.
+
+    Requests are split by sampling mode (a burst has one mode — the mode is
+    baked into the per-burst branch target), chunked to ``max_batch``, and
+    the chunk size is rounded up to a batch bucket. Every returned burst
+    costs one ``Engine.set_mode`` before its hot loop."""
+    bursts = []
+    for greedy in (True, False):
+        group = [r for r in requests if r.greedy == greedy]
+        for i in range(0, len(group), max_batch):
+            chunk = group[i:i + max_batch]
+            bursts.append(
+                (bucket_multiple(len(chunk), quantum, max_batch), greedy, chunk)
+            )
+    return bursts
 
 
 class Clock:

@@ -1,5 +1,6 @@
 """Serving engine on the unified dispatch core (counterpart of
-``repro.runtime.serve``, paged continuous path).
+``repro.runtime.serve``: the per-burst engine and the paged continuous
+path).
 
 The HFT analogy (DESIGN.md §2/§4): the *hot path* is the token loop — it
 never builds a step or branches on mode. The *cold path* is the scheduler: it
@@ -19,20 +20,34 @@ enabled lane's fan-out is warmed before the stream starts, so
 bucket, k or dtype crossing is a rebind. Capturing the targets as CUDA
 graphs is later work.
 
+The **per-burst engine** is the paper's construct in its plain form: a burst
+of requests shares one sampling mode, ``set_mode`` (the cold path) buckets
+the batch, dispatches the ``("burst", bucket, mode)`` target — building it
+on first sight — rebinds the hot slot and warms it with a dummy run, and
+``decode_loop`` (the hot path) calls the slot directly, step after step,
+chaining tokens and the position on the device (kernel B5 reads the
+position there) and pulling the tokens once at the end.
+``run_burst_stream`` drives a request stream through it; its builds after
+the stream starts are the keys it first meets, the baseline cost the
+continuous engines remove.
+
 The engine runs on the card by default (``device="cuda"``) and raises when
 no GPU is present unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch import models
 from repro_torch.configs import ArchConfig
-from repro_torch.core import Dispatcher
+from repro_torch.core import DispatchError, DispatchPolicy, Dispatcher
+from repro_torch.core import bucket_multiple
 from repro_torch.core import lanes as lanes_mod
 from repro_torch.core.lanes import LANES
 from repro_torch.core.telemetry import Telemetry
@@ -50,14 +65,26 @@ from repro_torch.runtime.scheduler import (
     PagedContinuousBatcher,
     Request,
     RequestQueue,
+    form_bursts,
     latency_report,
 )
+
+GREEDY, SAMPLE = 0, 1
 
 
 @dataclass
 class EngineConfig:
     max_len: int = 512
+    # Per-burst engine: batch sizes round up to a multiple of batch_quantum
+    # (each a ("burst", bucket, mode) key); sampled bursts draw at
+    # temperature.
+    batch_quantum: int = 4
     max_batch: int = 64
+    temperature: float = 1.0
+    # Dispatch policy (DESIGN.md §3): how sticky is the hot slot, and how
+    # many branch targets may the table keep (None = all).
+    hysteresis: int = 1
+    cache_capacity: int | None = None
     # Paged KV cache (DESIGN.md §9): page granularity and pool size
     # (allocatable pages, excluding the reserved null page). 0 pages means
     # "dense-equivalent": max_batch × max_len tokens worth of pages.
@@ -105,7 +132,8 @@ class _WarmCtx:
 
 
 class Engine:
-    """Single-device engine over the paged serving lanes."""
+    """Single-device engine: the per-burst engine and the paged serving
+    lanes."""
 
     def __init__(
         self,
@@ -142,11 +170,18 @@ class Engine:
             )
         self.telemetry = telemetry or Telemetry()
         self._warm_marks: dict | None = None
+        self._burst_calls = None  # lazy: lane_calls_total{lane="burst"}
+        self._burst_hist = None  # lazy: lane_step_ms{lane="burst"}
         self._decode = Dispatcher(
             self._build,
             name=f"decode@{id(self):x}",
+            policy=DispatchPolicy(
+                hysteresis=ecfg.hysteresis, capacity=ecfg.cache_capacity
+            ),
             recorder=self.telemetry.recorder,
         )
+        self._current: Callable | None = None  # mirror of the hot slot
+        self.stats = {"tokens": 0, "hot_calls": 0, "mode_switches": 0}
 
     def close(self) -> None:
         """Release the dispatcher's entry-point name."""
@@ -200,6 +235,18 @@ class Engine:
                 f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}"
             )
         return torch.int8 if kv_dtype == "int8" else dtype_of(cfg)
+
+    def _build_burst_decode(self, batch: int, mode: int) -> Callable:
+        """Branch target for ``("burst", batch_bucket, mode)``: a dense-cache
+        decode step over the whole bucket at one position, with the sampling
+        mode baked in (the per-burst engine, DESIGN.md §2)."""
+        step = steps_mod.make_sampling_decode_fn(
+            self.cfg, mode=mode, temperature=self.ecfg.temperature,
+            attn_impl=self.ecfg.attn_impl,
+        )
+        return self._guarded(
+            step, {"tok": (batch, 1), "pos": ()}, dtype_of(self.cfg)
+        )
 
     def _build_paged_slot_decode(
         self, slots: int, pages_bucket: int, kv_dtype: str
@@ -450,6 +497,95 @@ class Engine:
         base = (self._warm_marks or {}).get("rebinds", 0)
         return self._decode.stats.rebinds - base
 
+    # ------------------------------------------------------ per-burst engine
+    def set_mode(self, *, batch: int, sampling: int = GREEDY) -> dict:
+        """Cold path: bucket the batch, build-or-fetch the burst target,
+        rebind the hot slot, and warm it with one dummy run on a fresh
+        cache (dummy-order warming, paper §4.3)."""
+        t0 = time.perf_counter()
+        bucket = bucket_multiple(
+            batch, self.ecfg.batch_quantum, self.ecfg.max_batch
+        )
+        key = lanes_mod.BURST.key(bucket, sampling)
+        exe = self._decode.dispatch(key)
+        self._current = exe  # <- the jmp patch (engine-side mirror)
+        cache = models.init_cache(
+            self.cfg, bucket, self.ecfg.max_len, device=self.device
+        )
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        tok, _ = exe(cache, self._zeros(bucket, 1), self._zeros(), gen)
+        steps_mod.pull_host(tok)
+        self.stats["mode_switches"] += 1
+        self.telemetry.registry.inc("mode_switches_total")
+        return {
+            "bucket": bucket,
+            "key": key,
+            "switch_s": time.perf_counter() - t0,
+            "compiles": self._decode.stats.misses,
+        }
+
+    def decode_loop(
+        self,
+        cache: list,
+        first_token: torch.Tensor,
+        start_pos: int,
+        num_tokens: int,
+        generator: torch.Generator | None = None,
+        on_step: Callable[[int, torch.Tensor], None] | None = None,
+    ) -> tuple[np.ndarray, list]:
+        """The latency-critical loop: direct calls of the hot slot only.
+
+        ``first_token`` i32[B,1] (B = the bucket ``set_mode`` chose);
+        ``cache`` a dense cache of ``max_len`` rows holding positions before
+        ``start_pos``. Each step's token and position stay on the device and
+        feed the next step; the tokens are pulled once, at the end, as
+        ``[B, num_tokens]``. Sampled bursts draw from ``generator`` (a fresh
+        one seeded 0 if None). ``on_step(i, tok)`` observes each step's
+        device output as it is issued — e.g. to timestamp the first token
+        without serialising the rest of the loop."""
+        exe = self._current
+        if exe is None:
+            raise DispatchError("set_mode() before decode_loop() (cold path)")
+        tok = torch.as_tensor(first_token, dtype=torch.int32).to(self.device)
+        batch = int(tok.shape[0])
+        if num_tokens <= 0:
+            return np.zeros((batch, 0), np.int32), cache
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        # Burst/continuous report parity (DESIGN.md §14): burst steps feed
+        # the same registry families the batcher lanes do, under the
+        # "burst" lane label.
+        if self._burst_calls is None:
+            reg = self.telemetry.registry
+            self._burst_calls = reg.counter("lane_calls_total", lane="burst")
+            self._burst_hist = reg.histogram("lane_step_ms", lane="burst")
+        rec = self.telemetry.trace_or_none()
+        pos = torch.tensor(start_pos, dtype=torch.int32, device=self.device)
+        out = []
+        for i in range(num_tokens):
+            t0_ns = time.perf_counter_ns()
+            nxt, cache = exe(cache, tok, pos, generator)
+            dt_ns = time.perf_counter_ns() - t0_ns
+            self._burst_calls.inc()
+            self._burst_hist.observe(dt_ns / 1e6)
+            if rec is not None:
+                rec.emit(
+                    "lane_step", "lane:burst", ph="X",
+                    ts_ns=t0_ns, dur_ns=dt_ns, args={"step": i},
+                )
+            out.append(nxt)
+            if on_step is not None:
+                on_step(i, nxt)
+            tok = nxt[:, None]
+            pos = pos + 1
+            self.stats["hot_calls"] += 1
+        self.stats["tokens"] += num_tokens * batch
+        toks, _ = steps_mod.pull_host(torch.stack(out, dim=1), rec)
+        return toks, cache
+
+    # ---------------------------------------------------- paged continuous
     def paged_continuous(
         self,
         *,
@@ -570,7 +706,90 @@ class Engine:
         return draft_dispatch, verify_dispatch, draft_prefill_dispatch
 
 
-# ------------------------------------------------------------ stream driver
+# ----------------------------------------------------------- stream runners
+def run_burst_stream(
+    eng: Engine,
+    requests: list[Request],
+    *,
+    clock: Clock | None = None,
+    seed: int = 0,
+) -> dict:
+    """Per-burst baseline: every burst pays ``set_mode`` (dispatch, a build
+    on a key's first sight, a rebind) before its hot loop; mixed modes split
+    into separate bursts because the mode is baked into the target. Every
+    burst starts from a fresh cache at position 0 with each request's
+    ``first_token``. Sampled bursts draw from one generator seeded ``seed``.
+    """
+    clock = clock or Clock()
+    q = RequestQueue(requests)
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(seed)
+    finished: list[Request] = []
+    compiles0 = eng._decode.stats.misses
+    rebinds0 = eng._decode.stats.rebinds
+    switches = 0
+    while q:
+        now = clock.now()
+        due = q.pop_due(now)
+        if not due:
+            nxt = q.next_arrival()
+            if nxt is None:
+                break
+            clock.jump_to(nxt)
+            continue
+        for r in due:
+            if r.new_tokens > eng.ecfg.max_len:
+                raise ValueError(
+                    f"request {r.rid} wants {r.new_tokens} tokens but the "
+                    f"engine's cache holds max_len={eng.ecfg.max_len}."
+                )
+        for bucket, greedy, chunk in form_bursts(
+            due, quantum=eng.ecfg.batch_quantum, max_batch=eng.ecfg.max_batch
+        ):
+            info = eng.set_mode(  # cold path
+                batch=len(chunk), sampling=GREEDY if greedy else SAMPLE
+            )
+            switches += 1
+            b = info["bucket"]
+            cache = models.init_cache(
+                eng.cfg, b, eng.ecfg.max_len, device=eng.device
+            )
+            first = torch.zeros((b, 1), dtype=torch.int32)
+            for i, r in enumerate(chunk):
+                first[i, 0] = r.first_token
+                r.t_admit = clock.now()
+            first_t: dict = {}
+
+            def note_first(i, tok, _first_t=first_t):
+                if i == 0:  # TTFT: when the first step's output exists
+                    steps_mod.pull_host(tok)
+                    _first_t["t"] = clock.now()
+
+            toks, _ = eng.decode_loop(  # hot path
+                cache, first.to(eng.device), 0,
+                max(r.new_tokens for r in chunk), generator=gen,
+                on_step=note_first,
+            )
+            done_t = clock.now()
+            for i, r in enumerate(chunk):
+                r.tokens = [int(t) for t in toks[i, : r.new_tokens]]
+                r.t_first = first_t.get("t", done_t)
+                r.t_done = done_t
+                finished.append(r)
+    report = latency_report(finished)
+    report.update(
+        engine="burst",
+        device=str(eng.device),
+        attn_impl=eng.ecfg.attn_impl,
+        hot_calls=eng.stats["hot_calls"],
+        mode_switches=switches,
+        compiles_total=eng._decode.stats.misses,
+        compiles_after_warmup=eng._decode.stats.misses - compiles0,
+        rebinds=eng._decode.stats.rebinds - rebinds0,
+    )
+    return report
+
+
 def run_paged_stream(
     eng: Engine,
     requests: list[Request],

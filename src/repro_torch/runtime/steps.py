@@ -1,5 +1,6 @@
-"""Step builders for the paged serving lanes and the speculative lanes
-(counterpart of ``repro.runtime.steps``).
+"""Step builders for the paged serving lanes, the speculative lanes, the
+per-burst engine and full-sequence prefill (counterpart of
+``repro.runtime.steps``).
 
 A step is a plain function over tensors; ``runtime.serve.Engine`` binds it to
 a dispatch key's static shapes. Each step ends with its *bundle*: the next
@@ -48,6 +49,66 @@ def _step_bundle(nxt: torch.Tensor, new_pos: torch.Tensor):
     (``[next_tok | new_pos]``, the step's one d2h transfer)."""
     tok_col = nxt[:, None]
     return tok_col, torch.stack([nxt, new_pos], dim=1)
+
+
+def make_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel") -> Callable:
+    """Plain decode step over the dense cache:
+
+        step(params, cache, inputs[B,1], pos) -> (logits[B,V], cache)"""
+
+    def serve_step(params, cache, inputs, pos):
+        return models.decode_step(
+            cfg, params, cache, inputs, pos, attn_impl=attn_impl
+        )
+
+    return serve_step
+
+
+def make_sampling_decode_fn(
+    cfg: ArchConfig,
+    *,
+    mode: int,
+    temperature: float = 1.0,
+    attn_impl: str = "kernel",
+) -> Callable:
+    """Decode step with the sampling mode *baked into the target* — the
+    per-burst engine's branch targets, one per ``("burst", bucket, mode)``
+    key (DESIGN.md §2):
+
+        step(params, cache, inputs[B,1], pos, generator) -> (tok[B], cache)
+
+    ``pos`` is a 0-dim int32 device tensor (every row at one position).
+    ``mode`` 0 = greedy (argmax), 1 = a sample at ``temperature`` drawn from
+    ``generator`` (Gumbel-max, as ``_sample_rows``; the JAX package draws
+    from threefry keys, so only greedy bursts compare token for token).
+    Flipping mode means dispatching another target: cheap once built, but a
+    build on first sight and a slot rebind per flip."""
+    if mode not in (0, 1):
+        raise ValueError(f"mode must be 0 (greedy) or 1 (sample), got {mode}")
+    decode = make_decode_fn(cfg, attn_impl=attn_impl)
+
+    def step(params, cache, inputs, pos, generator):
+        logits, cache = decode(params, cache, inputs, pos)
+        if mode == 0:
+            return logits.argmax(dim=-1).to(torch.int32), cache
+        u = torch.rand(
+            logits.shape, generator=generator, device=logits.device,
+            dtype=logits.dtype,
+        )
+        g = logits / temperature - torch.log(-torch.log(u))
+        return g.argmax(dim=-1).to(torch.int32), cache
+
+    return step
+
+
+def make_prefill_fn(cfg: ArchConfig, *, impl: str = "kernel") -> Callable:
+    """Full-prompt prefill: ``step(params, inputs[B,S]) -> (logits[B,V],
+    cache [m,B,S,KH,dh] per slot)``; ``impl`` as ``models.prefill``."""
+
+    def prefill_step(params, inputs):
+        return models.prefill(cfg, params, inputs, impl=impl)
+
+    return prefill_step
 
 
 def make_paged_slot_decode_fn(

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
@@ -33,6 +35,33 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert out.returncode == 0, out.stderr
 
 
+# the modules this slice of the port added: each must stand alone
+SLICE_MODULES = (
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.ops",
+    "repro_torch.core.specialization",
+)
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_imports_alone_without_jax_or_repro(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'repro') "
+        "or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert not FORBIDDEN.search((PKG / (module.split(".", 1)[1].replace(
+        ".", "/") + ".py")).read_text())
+
+
 def test_no_source_file_imports_jax_or_repro():
     offenders = [
         str(p.relative_to(PKG))
@@ -49,12 +78,13 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
 
 
 def test_every_kernel_source_is_built():
-    """Each CUDA source of the package has a build entry, and the int8
-    kernels' entry points are bound."""
+    """Each CUDA source of the package has a build entry, and every
+    kernel's entry point is bound."""
     from repro_torch.kernels import build
 
     sources = {p.name for p in (PKG / "csrc").glob("*.cu")}
     assert sources == set(build.SOURCES)
-    assert {"paged_decode_attention_int8", "paged_prefill_attention_int8"} <= {
-        fn for fns in build.SOURCES.values() for fn in fns
-    }
+    assert {
+        "paged_decode_attention_int8", "paged_prefill_attention_int8",
+        "dense_decode_attention", "flash_attention", "flash_attention_branchy",
+    } <= {fn for fns in build.SOURCES.values() for fn in fns}

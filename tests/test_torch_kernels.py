@@ -1,7 +1,10 @@
 """Kernels B1 (paged decode) and B2 (paged prefill) of the port against the
 JAX package: their plain versions (what the wrappers run on CPU tensors)
 against the Pallas kernels in interpret mode and against the ``*_reference``
-oracles, and — on a card — the CUDA kernels against the plain versions.
+oracles, and — on a card — the CUDA kernels against the plain versions; for
+the dense kernels B5-B7 (held against the JAX package in
+``test_torch_flash.py``) the wrappers' CPU/CUDA split and, on a card, the
+CUDA kernels against their plain versions.
 
 Inputs are numpy arrays from a seed: GQA groups 1, 2 and 5, page sizes 8 and
 16, window and softcap on and off, ragged positions, a page shared by two
@@ -117,7 +120,7 @@ PLAIN = {
 }
 
 
-@pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.__name__)
+@pytest.mark.parametrize("kernel", list(PLAIN), ids=lambda k: k.__name__)
 def test_cpu_tensors_take_the_plain_version_without_a_launch(kernel):
     chunk = CHUNK if "prefill" in kernel.__name__ else 0
     args = [torch.from_numpy(a) for a in _inputs(2, 8, chunk=chunk)]
@@ -183,3 +186,62 @@ def test_cuda_wrapper_raises_on_uninstantiated_shape(cuda):
             q[..., :8].contiguous(), kp[..., :8].contiguous(),
             vp[..., :8].contiguous(), bt, pos,
         )
+
+
+# -------------------------------------------- dense kernels B5, B6 and B7
+DENSE_PLAIN = {
+    kernels.decode_attention: kernels.decode_attention_plain,
+    kernels.flash_attention: kernels.flash_attention_plain,
+    kernels.flash_attention_branchy: kernels.flash_attention_branchy_plain,
+}
+
+
+def _dense_args(kernel, dtype=torch.float32, device="cpu"):
+    """GQA 4/2, dh 16, a ragged 40-token sequence; B5 at pos 30 over the
+    model's [B, S, KH, dh] cache as a [B, KH, S, dh] view; B7 with flags
+    (causal, window 24, softcap 3)."""
+    rng = np.random.default_rng(1)
+    b, s, h, kh, dh = 2, 40, 4, 2, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, dh)).astype(
+        np.float32)).to(device, dtype).transpose(1, 2) for n in (h, kh, kh))
+    if kernel is kernels.decode_attention:
+        return [q[:, :, 0], k, v,
+                torch.tensor(30, dtype=torch.int32, device=device)]
+    if kernel is kernels.flash_attention_branchy:
+        return [q, k, v, torch.tensor([1, 24, 3], dtype=torch.int32,
+                                      device=device)]
+    return [q, k, v]
+
+
+@pytest.mark.parametrize("kernel", list(DENSE_PLAIN), ids=lambda k: k.__name__)
+def test_dense_cpu_tensors_take_the_plain_version_without_a_launch(kernel):
+    args = _dense_args(kernel)
+    before = kernel.launches
+    torch.testing.assert_close(kernel(*args), DENSE_PLAIN[kernel](*args),
+                               atol=0, rtol=0)
+    assert kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kernel", list(DENSE_PLAIN), ids=lambda k: k.__name__)
+def test_cuda_dense_kernels_match_plain(cuda, kernel, dtype, atol):
+    """As ``test_cuda_kernels_match_plain``: fp32 1e-4, bf16 2e-2."""
+    args = _dense_args(kernel, dtype, cuda)
+    before = kernel.launches
+    out = kernel(*args)
+    ref = DENSE_PLAIN[kernel](*[a.float() if a.is_floating_point() else a
+                                for a in args])
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", list(DENSE_PLAIN), ids=lambda k: k.__name__)
+def test_cuda_dense_wrapper_raises_on_uninstantiated_shape(cuda, kernel):
+    args = _dense_args(kernel, torch.float32, cuda)
+    args[:3] = [a[..., :8] for a in args[:3]]  # head_dim 8, unit stride kept
+    with pytest.raises(ValueError, match="no kernel instantiated"):
+        kernel(*args)

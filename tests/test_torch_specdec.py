@@ -159,9 +159,11 @@ def test_dense_decode_and_chunk_steps_match_jax(smoke, kv_dtype):
 
 
 def test_dense_decode_takes_per_row_positions_only(smoke):
+    """On the draft's int8 dense cache: the scalar-position form (the burst
+    engine's) takes model-dtype caches only, as in the JAX package."""
     _, tcfg, _, tparams = smoke
-    cache = models.init_cache(tcfg, 2, 8)
-    with pytest.raises(ValueError, match="burst engine"):
+    cache = models.init_cache(tcfg, 2, 8, "int8")
+    with pytest.raises(ValueError, match="per-row pos"):
         models.decode_step(tcfg, tparams, cache,
                            torch.zeros(2, 1, dtype=torch.int32),
                            torch.tensor(3, dtype=torch.int32))
