@@ -38,12 +38,23 @@ Phases (any failure exits non-zero before a result is printed):
 5. The smoke config's greedy stream on the card and on the CPU: plain, and
    with speculation on model-dtype pages (B2 through the verify lane) and on
    int8 pages; the spec streams equal the plain ones.
-6. The paper's kernel pair through ``KernelBranch`` (B6 specialised against
+6. mamba2 (B8): the SSD chunked scan against its plain version on the
+   smoke config's heads (chunks 4, 8, 16; S 16, 32 and a ragged 20) and on
+   mamba2-370m's (chunk 256; S 1024 and a ragged 1056), fp32 and bf16, with
+   B and C as stride-0 views of one group; then mamba2-370m at full width
+   (48 layers, bf16, seeded weights): ``prefill`` of 8 prompts of 1024
+   (B8), ``pad_cache`` (SSM slots untouched), 32 greedy burst tokens on the
+   recurrent state, ``forward`` over the 1056 tokens (B8; exactly 2 x 48
+   launches) against the burst's tokens and against ``ssd_scan``, profiled
+   prefill and burst steps, and the olmo burst cell's traffic through the
+   per-burst engine; the smoke config's greedy burst stream card = CPU.
+7. The paper's kernel pair through ``KernelBranch`` (B6 specialised against
    B7 from flags, in the causal, causal + window 256 and causal + softcap 50
    modes, at 8 x 1024 tokens); then kernel timing at the main paths' shapes
-   (B4 also at the verify window's): kernel, plain version, one PyTorch
-   library call (a yardstick the port never calls) and the bound, and the
-   B7 / B6 time ratio per mode.
+   (B4 also at the verify window's, B8 at the mamba2 prefill's): kernel,
+   plain version, one PyTorch library call where one exists (a yardstick
+   the port never calls) and the bound, and the B7 / B6 time ratio per
+   mode.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -282,11 +293,13 @@ def _check_stream(label: str, cfg, reqs, rep: dict) -> None:
               f"{label} rid {r.rid}: token outside the vocabulary")
 
 
-def burst_stream(cfg, params) -> dict:
+def burst_stream(cfg, params, label: str = "burst",
+                 expect: tuple = ("decode_attention",)) -> dict:
     """The per-burst engine at full width: Poisson traffic (the paged
     streams' rate), a quarter sampled; every burst pays set_mode, so its
     builds after the stream starts are the distinct (bucket, mode) keys it
-    meets."""
+    meets. ``expect``: the kernels of the model's decode step (none for
+    mamba2, whose recurrent step is plain tensor code)."""
     from repro_torch import kernels
     from repro_torch.runtime.scheduler import poisson_arrivals
     from repro_torch.runtime.serve import Engine, EngineConfig, run_burst_stream
@@ -303,13 +316,13 @@ def burst_stream(cfg, params) -> dict:
         keys = list(eng._decode.cache.stats.keys)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _launches("burst", ("decode_attention",))
-    _check_stream("burst", cfg, reqs, rep)
+    launches = _launches(label, expect)
+    _check_stream(label, cfg, reqs, rep)
     check(rep["compiles_after_warmup"] == len(set(keys)) == len(keys),
-          f"burst: compiles_after_warmup {rep['compiles_after_warmup']} for "
-          f"keys {keys}")
+          f"{label}: compiles_after_warmup {rep['compiles_after_warmup']} "
+          f"for keys {keys}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[stream:burst] {rep['finished']} requests, {rep['tokens']} tokens "
+    log(f"[stream:{label}] {cfg.name}: {rep['finished']} requests, {rep['tokens']} tokens "
         f"in {wall:.1f}s | {rep['tok_per_s']:.1f} tok/s, latency p50 "
         f"{rep['p50_ms']:.1f} ms p95 {rep['p95_ms']:.1f} ms, ttft p50 "
         f"{rep['ttft_p50_ms']:.1f} ms p95 {rep['ttft_p95_ms']:.1f} ms | "
@@ -684,7 +697,214 @@ def smoke_card_vs_cpu() -> dict:
     return b2_verify
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------- phase 6 (mamba2)
+# B8 against its plain version, tolerances relative to the largest |output|
+# (SSD outputs are sums of up to L decayed terms, not bounded by 1 as
+# attention's are). fp32: the same fp32 sums in another order, and the
+# chunk's log-decay prefix sum taken by a block scan instead of a
+# sequential one (|cum| reaches ~200 over a 256-row chunk, so exp(cum_l -
+# cum_l') carries ~1e-5 relative) -> 2e-4. bf16: both round y to bf16
+# (relative 2^-8), and may round one element to neighbouring values -> 1e-2.
+# The state is fp32 on both sides from the same inputs -> 2e-4 in both types.
+SSD_REL_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+SSD_STATE_REL_TOL = 2e-4
+# The B8 cases: the smoke config's heads (8 of 16, state 16) at the chunks
+# the JAX package's kernel tests use, a ragged 20; and mamba2-370m's (32 of
+# 64, state 128, chunk 256) at two rows of 1024 and a ragged 1056.
+SSD_CASES = [(2, s, 8, 16, 16, chunk) for chunk in (4, 8, 16)
+             for s in (16, 32, 20)] + [(2, s, 32, 64, 128, 256)
+                                       for s in (1024, 1056)]
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, *, seed: int):
+    """B8's operands as the SSM mixer hands them over: x a strided view of
+    one xBC tensor, B and C its single group as stride-0 views over the
+    heads, dt a softplus in fp32, A = -exp(.) per head."""
+    g = torch.Generator().manual_seed(seed)
+    xbc = torch.randn(b, s, h * p + 2 * n, generator=g).to("cuda", dtype)
+    x = xbc[..., : h * p].reshape(b, s, h, p)
+    bm = xbc[..., h * p : h * p + n].reshape(b, s, 1, n).expand(b, s, h, n)
+    cm = xbc[..., h * p + n :].reshape(b, s, 1, n).expand(b, s, h, n)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=g)).cuda()
+    a = -torch.exp(torch.randn(h, generator=g) * 0.3).cuda()
+    return x, bm, cm, dt, a
+
+
+def _ssd_errs(out, ref) -> tuple[float, float]:
+    """Max abs error of y and of the state, each over the largest |ref|."""
+    return tuple((o.float() - r.float()).abs().max().item()
+                 / r.float().abs().max().item() for o, r in zip(out, ref))
+
+
+def ssd_vs_plain() -> dict:
+    """B8 against ``ssd_chunk_plain`` on the card for every case, fp32 and
+    bf16, y and the final state."""
+    from repro_torch import kernels
+
+    worst = {}
+    for b, s, h, p, n, chunk in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, bm, cm, dt, a = _ssd_inputs(b, s, h, p, n, dtype,
+                                           seed=len(worst))
+            check(bm.stride(2) == 0 and not x.is_contiguous(),
+                  "B8 cases: B/C must be stride-0 views, x a strided view")
+            out = kernels.ssd_chunk(x, bm, cm, dt, a, chunk=chunk)
+            ref = kernels.ssd_chunk_plain(x, bm, cm, dt, a, chunk=chunk)
+            torch.cuda.synchronize()
+            ey, es = _ssd_errs(out, ref)
+            tag = f"L={chunk}/S={s}/P={p}/N={n}/{str(dtype)[6:]}"
+            worst[tag] = (ey, es)
+            check(ey <= SSD_REL_TOL[dtype] and es <= SSD_STATE_REL_TOL,
+                  f"ssd_chunk {tag}: relative max err y {ey:.3g}, state "
+                  f"{es:.3g} > {SSD_REL_TOL[dtype]}, {SSD_STATE_REL_TOL}")
+    for dtype in ("float32", "bfloat16"):
+        errs = {k: v for k, v in worst.items() if k.endswith(dtype)}
+        log(f"[ssd] {len(errs)} {dtype} B8 cases pass (ragged S and stride-0 "
+            f"B/C included): max relative err y "
+            f"{max(e[0] for e in errs.values()):.3g}, state "
+            f"{max(e[1] for e in errs.values()):.3g} (tolerance "
+            f"{SSD_REL_TOL[getattr(torch, dtype)]}, {SSD_STATE_REL_TOL})")
+    return worst
+
+
+class _VirtualClock:
+    """Time moves only by the stream loop's jumps to the next arrival, so a
+    stream forms the same bursts on the card and on the CPU."""
+
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def now(self) -> float:
+        return self.t
+
+    def jump_to(self, t: float) -> None:
+        self.t = max(self.t, t)
+
+
+def mamba_prompt_then_burst(cfg, params) -> dict:
+    """mamba2-370m at full width: ``prefill`` of 8 prompts of 1024 through
+    B8, ``pad_cache`` (which leaves the SSM slots alone), ``set_mode`` +
+    ``decode_loop`` of 32 greedy tokens on the recurrent state, and
+    ``forward`` over the 1056 tokens through B8 (a ragged tail), with the
+    counts set to 0 just before and read after. Then ``forward`` with B8
+    against ``ssd_scan``, and profiled windows of one prefill and one burst
+    step."""
+    from repro_torch import kernels, models
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.serve import GREEDY, Engine, EngineConfig
+
+    b, prompt_len, n, max_len = 8, 1024, 32, 1024
+    g = torch.Generator().manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=g,
+                            dtype=torch.int32).to("cuda")
+    kernels.reset_launch_counts()  # this path's run starts here
+    t0 = time.perf_counter()
+    last, cache = steps.make_prefill_fn(cfg)(params, prompts)
+    padded = models.pad_cache(cfg, cache, max_len)
+    check(all(padded[0][k] is cache[0][k] for k in cache[0]),
+          "mamba pad_cache: the SSM slot's cache was not left alone")
+    first = last.argmax(-1).to(torch.int32)[:, None]
+    with Engine(cfg, params, EngineConfig(max_len=max_len, max_batch=b,
+                                          batch_quantum=4)) as eng:
+        eng.set_mode(batch=b, sampling=GREEDY)
+        toks, cache = eng.decode_loop(padded, first, prompt_len, n)
+        seq = torch.cat([prompts, first,
+                         torch.from_numpy(toks[:, :-1]).to("cuda")], dim=1)
+        logits, _ = models.forward(cfg, params, seq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches("mamba prompt+burst", ("ssd_chunk",))
+        check(launches["ssd_chunk"] == 2 * cfg.num_layers,
+              f"mamba prompt+burst: B8 launched {launches['ssd_chunk']} "
+              f"times, expected one per layer for prefill and for forward")
+        check(bool(torch.isfinite(logits).all()),
+              "mamba forward: non-finite logits")
+        gen = logits[:, prompt_len:].float()  # predicts toks[:, i]
+        chosen = torch.from_numpy(toks).to("cuda").long()
+        lead = gen.max(-1).values - gen.gather(-1, chosen[..., None])[..., 0]
+        flips = int((lead > 0).sum())
+        check(bool((lead < BF16_TIE_MARGIN).all()),
+              f"mamba prompt+burst: forward's top logit leads the burst's "
+              f"token by {lead.max().item():.4f}")
+        log(f"[mamba prompt+burst] prefill {b}x{prompt_len} (B8), pad_cache "
+            f"(SSM slots unchanged), decode_loop {n} greedy tokens on the "
+            f"recurrent state, forward over {seq.shape[1]} tokens (B8) in "
+            f"{wall:.2f}s: argmax agrees at {b * n - flips}/{b * n} "
+            f"generated positions; {flips} flips, each a near-tie (max lead "
+            f"{lead.max().item():.4f} < {BF16_TIE_MARGIN}) | launches "
+            f"{launches}")
+        scan, _ = models.forward(cfg, params, seq, impl="naive")
+        err = (logits - scan).abs().max().item()
+        agree = (logits.argmax(-1) == scan.argmax(-1)).float().mean().item()
+        log(f"[mamba prompt+burst] forward B8 vs ssd_scan: logits max abs "
+            f"diff {err:.4f} (tolerance {STEP_LOGIT_ATOL}; |logits| max "
+            f"{scan.abs().max().item():.2f}), argmax agreement {agree:.3f}")
+        check(err <= STEP_LOGIT_ATOL,
+              f"mamba forward: B8 vs ssd_scan differ by {err}")
+        del logits, scan
+        _profile(f"full-width mamba2 prefill ({b}x{prompt_len}, B8)",
+                 lambda: models.prefill(cfg, params, prompts), 2,
+                 "ssd_chunk_kernel")
+        exe = eng._current
+        tok = torch.from_numpy(toks[:, -1:]).to("cuda")
+        pos = torch.tensor(prompt_len + n, dtype=torch.int32, device="cuda")
+        gen_ = torch.Generator(device="cuda")
+        _profile(f"full-width mamba2 burst step ({b} rows, recurrent state)",
+                 lambda: exe(cache, tok, pos, gen_), 5, "ssd_chunk_kernel")
+    return launches
+
+
+def mamba_full_width() -> dict:
+    """mamba2-370m at full width (48 layers, bf16, seeded weights): the
+    prompt-then-burst path through B8, then the olmo burst cell's traffic
+    through the per-burst engine on the recurrent state."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-370m")
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.values())
+    log(f"[mamba] mamba2-370m {n_params / 1e9:.3f}B params bf16 initialised "
+        f"in {time.perf_counter() - t0:.1f}s")
+    launches = mamba_prompt_then_burst(cfg, params)
+    burst_stream(cfg, params, "mamba burst", ())
+    return launches
+
+
+def mamba_smoke_card_vs_cpu() -> None:
+    """The mamba2 smoke config (fp32, TF32 off), greedy: the burst stream's
+    tokens on the card equal the CPU's under one virtual clock."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.scheduler import poisson_arrivals
+    from repro_torch.runtime.serve import Engine, EngineConfig, run_burst_stream
+
+    cfg = get_config("mamba2-370m").smoke()
+    params = models.init_params(cfg, seed=0)
+    streams, reports = {}, {}
+    for dev in ("cuda", "cpu"):
+        reqs = poisson_arrivals(12, 50.0, seed=4, tokens_mean=8,
+                                tokens_max=32, sample_frac=0.0,
+                                vocab=cfg.vocab_size)
+        with Engine(cfg, params, EngineConfig(max_len=32, max_batch=8,
+                                              batch_quantum=4),
+                    device=dev) as eng:
+            rep = run_burst_stream(eng, reqs, clock=_VirtualClock())
+        _check_stream(f"mamba smoke/{dev}", cfg, reqs, rep)
+        streams[dev] = {r.rid: r.tokens for r in reqs}
+        reports[dev] = {k: rep[k] for k in ("mode_switches", "compiles_total",
+                                            "rebinds")}
+    check(streams["cuda"] == streams["cpu"] and reports["cuda"] == reports[
+        "cpu"], f"mamba smoke burst stream: card != CPU ({reports})")
+    log(f"[smoke] mamba2 greedy burst stream: card = CPU "
+        f"({len(streams['cpu'])} requests, "
+        f"{sum(len(t) for t in streams['cpu'].values())} tokens, "
+        f"{reports['cpu']})")
+
+
+# ------------------------------------------------------------------ phase 7
 def _median_ms(fn, runs: int = 30, warmup: int = 5) -> float:
     """Median of per-call CUDA-event times; L2 is flushed before each call
     (the serving loop finds a layer's pages cold)."""
@@ -987,6 +1207,54 @@ def time_dense_kernels(launches: dict) -> list[dict]:
 
 
 
+def time_ssd_kernel(launches: dict) -> list[dict]:
+    """B8 at the prefill shape (8 x 1024 tokens, 32 heads of 64, state 128,
+    chunk 256, bf16, the mixer's strided and stride-0 operands): kernel,
+    plain, no library call (no single PyTorch call computes SSD), and the
+    bound from this input's bytes and useful flops."""
+    from repro_torch import kernels
+
+    b, s, h, p, n, chunk = 8, 1024, 32, 64, 128, 256
+    dtype = torch.bfloat16
+    args = _ssd_inputs(b, s, h, p, n, dtype, seed=21)
+    out = kernels.ssd_chunk(*args, chunk=chunk)
+    ref = kernels.ssd_chunk_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    ey, es = _ssd_errs(out, ref)
+    check(ey <= SSD_REL_TOL[dtype] and es <= SSD_STATE_REL_TOL,
+          f"ssd_chunk at the prefill shape: relative err y {ey:.3g}, state "
+          f"{es:.3g}")
+    saved = kernels.ssd_chunk.launches  # timing launches are not the path's
+    ms = _median_ms(lambda: kernels.ssd_chunk(*args, chunk=chunk))
+    kernels.ssd_chunk.launches = saved
+    plain_ms = _median_ms(lambda: kernels.ssd_chunk_plain(*args, chunk=chunk))
+    # each input read once (B and C as their one group), each output
+    # written once; flops of the causal half of the two L x L products per
+    # chunk, the inter-chunk term and the state update (2 per MAC)
+    nbytes = (2 * b * s * h * p * 2 + 2 * b * s * n * 2 + b * s * h * 4
+              + h * 4 + b * h * p * n * 4)
+    ops = 0
+    for c0 in range(0, s, chunk):
+        r = min(chunk, s - c0)
+        ops += 2 * (r * (r + 1) // 2) * (n + p) + 4 * r * p * n
+    ops *= b * h
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    bound_ms = max(t_b, t_o) * 1e3
+    bound_by = "bytes" if t_b >= t_o else "operations"
+    log(f"[timing] ssd_chunk bf16 x({b}, {s}, {h}, {p}) state {n} chunk "
+        f"{chunk}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
+        f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.2f} GFLOP), relative err y {ey:.3g} state {es:.3g}")
+    return [{"name": "ssd_chunk", "route": "cuda",
+             "source": "src/repro_torch/csrc/ssd_chunk.cu",
+             "replaces": "src/repro/kernels/ssd_chunk.py:73",
+             "launches": launches["ssd_chunk"], "max_abs_err": max(
+                 (o.float() - r_.float()).abs().max().item()
+                 for o, r_ in zip(out, ref)),
+             "max_rel_err": max(ey, es), "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1003,12 +1271,18 @@ def main() -> int:
     profile_steps(main_path["cfg"], main_path["params"])
     del main_path["params"]
     torch.cuda.empty_cache()
+    ssd_vs_plain()
+    mamba = mamba_full_width()
+    torch.cuda.empty_cache()
     b2_verify = smoke_card_vs_cpu()
+    mamba_smoke_card_vs_cpu()
     launches = dict(main_path["launches"],
                     flash_attention=prompt["flash_attention"],
                     flash_attention_branchy=kernel_pair()[
-                        "flash_attention_branchy"])
-    rows = time_kernels(launches, b2_verify) + time_dense_kernels(launches)
+                        "flash_attention_branchy"],
+                    ssd_chunk=mamba["ssd_chunk"])
+    rows = (time_kernels(launches, b2_verify) + time_dense_kernels(launches)
+            + time_ssd_kernel(launches))
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -80,6 +80,10 @@ class ArchConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_headdim
+
+    @property
     def has_attention(self) -> bool:
         return any(m.startswith("attn") for m in self.layer_pattern)
 

@@ -7,7 +7,9 @@ the paged serving path's attention over model-dtype pages;
 lane). ``decode_attention`` (B5) is the burst engine's dense decode at a
 scalar position; ``flash_attention`` (B6) carries ``prefill``/``forward``,
 and ``flash_attention_branchy`` (B7) is its runtime-flag twin, the
-conditional baseline ``KernelBranch`` sets beside it. Their wrappers run the
+conditional baseline ``KernelBranch`` sets beside it. ``ssd_chunk`` (B8) is
+the Mamba-2 SSD chunked scan under the SSM mixer's ``prefill``/``forward``.
+Their wrappers run the
 plain version on CPU tensors and launch the kernel on CUDA tensors;
 ``launches`` on each wrapper counts kernel launches.
 """
@@ -33,6 +35,7 @@ from .prefill_attention import (
     paged_prefill_attention_int8_plain,
     paged_prefill_attention_plain,
 )
+from .ssd_chunk import ssd_chunk, ssd_chunk_plain
 
 KERNELS = (
     paged_decode_attention,
@@ -42,6 +45,7 @@ KERNELS = (
     decode_attention,
     flash_attention,
     flash_attention_branchy,
+    ssd_chunk,
 )
 
 
@@ -68,4 +72,6 @@ __all__ = [
     "paged_prefill_attention_int8_plain",
     "paged_prefill_attention_plain",
     "reset_launch_counts",
+    "ssd_chunk",
+    "ssd_chunk_plain",
 ]

@@ -4,7 +4,8 @@ Each source in ``repro_torch/csrc`` is compiled at first use with ``nvcc``
 into its own shared library with a plain C interface, loaded with
 ``ctypes``. The sources build as parallel ``nvcc`` processes, one per file
 (the model-dtype paged kernels B1/B2, the int8 ones B3/B4, dense decode B5
-and flash attention B6/B7, all over one shared header). Each library lands in ``build/repro_torch/`` at the root of the
+and flash attention B6/B7, all over one shared header, and the SSD chunked
+scan B8). Each library lands in ``build/repro_torch/`` at the root of the
 checkout, named by a hash of its source, the shared header and the flags, so
 an edit rebuilds and an unchanged tree reuses the last build. Nothing here
 runs at import: a CPU-only install imports every module and never needs
@@ -77,6 +78,14 @@ SOURCES = {
         # dtype, head_dim, sm_scale, stream
         "flash_attention_branchy": [_ptr] * 5 + [_int] * 5 + [_i64] * 12
         + [_int] * 2 + [_float] + [_ptr],
+    },
+    "ssd_chunk.cu": {
+        # x, b, c, dt, a, y, state, batch, seqlen, heads, heads_per_group,
+        # strides x (b, s, h), b and c (b, s, g), dt (b, s, h), dtype,
+        # chunk, headdim, state_dim, stream; the (chunk, headdim, state)
+        # instantiations are kernels/ssd_chunk.py:SSD_SHAPES
+        "ssd_chunk": [_ptr] * 7 + [_int] * 4 + [_i64] * 12 + [_int] * 4
+        + [_ptr],
     },
 }
 

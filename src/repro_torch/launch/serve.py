@@ -7,8 +7,10 @@ and drives it through ``Engine.paged_continuous``; ``--kv-dtype int8``
 stores the pool as int8 pages (kernels B3/B4) and ``--spec-k K`` turns on
 speculative decoding with a ``--draft-layers``-deep draft. ``--engine
 burst`` drives prompt-less Poisson traffic through ``run_burst_stream``
-(``set_mode`` + ``decode_loop``, kernel B5): one sampling mode per burst,
-batch sizes bucketed by ``--batch-quantum``. Both report latency
+(``set_mode`` + ``decode_loop``, kernel B5 for attention stacks): one
+sampling mode per burst, batch sizes bucketed by ``--batch-quantum``; it
+also serves ``--arch mamba2-370m`` on the SSM's recurrent state (the paged
+engine refuses an SSM arch). Both report latency
 percentiles, TTFT, throughput and cold-path activity (builds after warmup,
 rebinds; for burst, mode switches). Weights are a seeded random init. Runs
 on the GPU unless ``--device cpu``:
@@ -19,6 +21,8 @@ on the GPU unless ``--device cpu``:
       --kv-dtype int8 --spec-k 4 --draft-layers 2
   PYTHONPATH=src python -m repro_torch.launch.serve --engine burst --smoke \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --engine burst
 """
 
 from __future__ import annotations
@@ -152,6 +156,11 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.engine == "paged":
+        try:
+            models.check_paged(cfg)
+        except ValueError as e:
+            ap.error(f"--engine paged: {e}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")

@@ -1,6 +1,7 @@
-"""Model code of the port: the dense LM family's full-sequence forward and
-prefill, its paged serving path, and its dense-cache decode (burst engine
-and speculative draft)."""
+"""Model code of the port: the dense LM family's and the Mamba-2 (SSM)
+family's full-sequence forward and prefill, the dense family's paged serving
+path, and the dense-cache decode (burst engine and speculative draft; an SSM
+slot's recurrent state)."""
 
 from .attention import (
     ATTN_IMPLS,
@@ -11,6 +12,7 @@ from .attention import (
     quantise_kv_rows,
 )
 from .model import (
+    check_paged,
     chunked_decode_step,
     copy_cache_pages,
     decode_step,
@@ -26,12 +28,14 @@ from .model import (
     pad_cache,
     prefill,
 )
+from .ssm import init_ssm_cache, ssd_scan, ssm_apply, ssm_decode_step
 
 __all__ = [
     "ATTN_IMPLS",
     "FULL_IMPLS",
     "KV_QUANT_MAX",
     "KV_SCALE_EPS",
+    "check_paged",
     "chunked_decode_step",
     "copy_cache_pages",
     "decode_step",
@@ -41,6 +45,7 @@ __all__ = [
     "init_cache",
     "init_paged_cache",
     "init_params",
+    "init_ssm_cache",
     "layer_params",
     "paged_decode_step",
     "paged_prefill_step",
@@ -48,4 +53,7 @@ __all__ = [
     "pad_cache",
     "prefill",
     "quantise_kv_rows",
+    "ssd_scan",
+    "ssm_apply",
+    "ssm_decode_step",
 ]

@@ -13,7 +13,9 @@ Params are a flat ``dict[str, Tensor]`` keyed by the JAX pytree's paths::
 Caches mirror the blocks: per period slot, one dict of ``[m, P, page_size,
 KH, dh]`` pages (plus ``[m, P, page_size]`` scales for int8 pages), or, for
 the dense cache, ``[m, B, max_len, KH, dh]`` rows (``prefill`` returns it at
-the prompt's length; ``pad_cache`` grows it). The JAX package
+the prompt's length; ``pad_cache`` grows it) — for a mamba slot the
+recurrent ``{"conv": [m, B, K-1, C], "state": [m, B, H, P, N] float32}``,
+whose size does not depend on the length. The JAX package
 drives depth with ``lax.scan``; here it is a Python loop over layers, and
 each layer's cache is a view into the stacked tensor, updated in place.
 """
@@ -36,6 +38,7 @@ from .blocks import (
     block_paged_decode,
     block_paged_prefill,
     block_prefill,
+    check_paged_slot,
 )
 from .layers import dtype_of, embed_apply, head_apply, norm_apply
 
@@ -45,8 +48,10 @@ def init_params(
 ) -> dict[str, torch.Tensor]:
     """Seeded random weights in the JAX package's layout and scales
     (``dense_init``: normal / sqrt(fan_in) with fan_in the per-layer shape's
-    first axis; embeddings normal * 0.02; norm weights zero). Drawn from a
-    ``torch.Generator`` on ``device``, so the values differ from JAX's."""
+    first axis; embeddings normal * 0.02; norm weights zero; a mamba
+    slot's conv normal * 0.1, ``A_log``/``dt_bias`` float32 zeros and ``D``
+    float32 ones, as ``ssm_init``). Drawn from a ``torch.Generator`` on
+    ``device``, so the values differ from JAX's."""
     if cfg.input_kind != "tokens":
         raise ValueError(f"{cfg.name}: embedding-input frontends are not ported")
     gen = torch.Generator(device=device)
@@ -64,8 +69,8 @@ def init_params(
     def dense(*shape: int) -> torch.Tensor:  # stacked [m, *shape]
         return normal((m, *shape), shape[0] ** -0.5)
 
-    def zeros(*shape: int) -> torch.Tensor:
-        return torch.zeros(shape, dtype=dt, device=device)
+    def zeros(*shape: int, dtype: torch.dtype = dt) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     rms = cfg.norm == "rmsnorm"
     params = {"embed.embedding": normal((cfg.vocab_size, d), 0.02)}
@@ -74,9 +79,7 @@ def init_params(
     if rms:
         params["final_norm.scale"] = zeros(d)
     for slot in range(cfg.period):
-        if not cfg.mixer_at(slot).startswith("attn") or cfg.mlp_at(slot) not in (
-            "mlp", "none"
-        ):
+        if cfg.mlp_at(slot) not in ("mlp", "none"):
             raise ValueError(
                 f"{cfg.name}: slot {slot} ({cfg.mixer_at(slot)}, "
                 f"{cfg.mlp_at(slot)}) is not ported"
@@ -84,13 +87,30 @@ def init_params(
         pre = f"blocks.{slot}."
         if rms:
             params[pre + "norm1.scale"] = zeros(m, d)
-        params[pre + "attn.wq"] = dense(d, h, dh)
-        params[pre + "attn.wk"] = dense(d, kh, dh)
-        params[pre + "attn.wv"] = dense(d, kh, dh)
-        params[pre + "attn.wo"] = dense(h, dh, d)
-        if cfg.qk_norm:
-            params[pre + "attn.q_scale"] = zeros(m, dh)
-            params[pre + "attn.k_scale"] = zeros(m, dh)
+        if cfg.mixer_at(slot) == "mamba":
+            din, nh = cfg.ssm_d_inner, cfg.ssm_heads
+            gn = cfg.ssm_groups * cfg.ssm_state
+            params[pre + "ssm.wz"] = dense(d, din)
+            params[pre + "ssm.wx"] = dense(d, din)
+            params[pre + "ssm.wB"] = dense(d, gn)
+            params[pre + "ssm.wC"] = dense(d, gn)
+            params[pre + "ssm.wdt"] = dense(d, nh)
+            params[pre + "ssm.conv"] = normal(
+                (m, cfg.conv_kernel, din + 2 * gn), 0.1)
+            params[pre + "ssm.A_log"] = zeros(m, nh, dtype=torch.float32)
+            params[pre + "ssm.D"] = torch.ones(
+                (m, nh), dtype=torch.float32, device=device)
+            params[pre + "ssm.dt_bias"] = zeros(m, nh, dtype=torch.float32)
+            params[pre + "ssm.norm_scale"] = zeros(m, din)
+            params[pre + "ssm.out"] = dense(din, d)
+        else:
+            params[pre + "attn.wq"] = dense(d, h, dh)
+            params[pre + "attn.wk"] = dense(d, kh, dh)
+            params[pre + "attn.wv"] = dense(d, kh, dh)
+            params[pre + "attn.wo"] = dense(h, dh, d)
+            if cfg.qk_norm:
+                params[pre + "attn.q_scale"] = zeros(m, dh)
+                params[pre + "attn.k_scale"] = zeros(m, dh)
         if cfg.mlp_at(slot) == "mlp":
             if rms:
                 params[pre + "norm2.scale"] = zeros(m, d)
@@ -127,12 +147,20 @@ def init_paged_cache(
     """Pooled paged KV cache, stacked ``[m, ...]`` per period slot. ``num_pages``
     includes the reserved null page 0. ``kv_dtype="int8"`` adds the
     ``k_scale``/``v_scale`` leaves ``[m, P, page_size]``, which share the page
-    axis, so ``copy_cache_pages`` moves them with the pages."""
+    axis, so ``copy_cache_pages`` moves them with the pages. Attention-only
+    stacks (SSM state is per row, not pageable)."""
+    check_paged(cfg)
     m = cfg.num_layers // cfg.period
     return [
         _stack(init_paged_kv_cache(cfg, num_pages, page_size, kv_dtype, device), m)
         for _ in range(cfg.period)
     ]
+
+
+def check_paged(cfg: ArchConfig) -> None:
+    """Raise unless every period slot can live in the paged KV cache."""
+    for slot in range(cfg.period):
+        check_paged_slot(cfg, slot)
 
 
 def init_cache(
@@ -142,8 +170,10 @@ def init_cache(
     kv_dtype: str = "fp32",
     device: torch.device | str = "cpu",
 ) -> list:
-    """Dense per-slot KV cache (the draft lanes' storage), stacked ``[m, ...]``
-    per period slot; ``kv_dtype="int8"`` adds ``ks``/``vs`` scale leaves."""
+    """Dense per-slot cache (the burst engine's and the draft lanes'
+    storage), stacked ``[m, ...]`` per period slot; ``kv_dtype="int8"`` adds
+    ``ks``/``vs`` scale leaves (attention slots only); a mamba slot holds
+    its conv window and state whatever ``max_len``."""
     m = cfg.num_layers // cfg.period
     return [
         _stack(block_cache_init(cfg, slot, batch, max_len, kv_dtype, device), m)
@@ -178,8 +208,9 @@ def forward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """inputs: i32[B,S] tokens. Returns (logits [B,S,V] float32, aux): the
     JAX package's pair, inference only (no remat, no backward); ``aux`` is
-    the MoE loss term, 0 for the ported dense stacks. ``impl`` picks the
-    attention: ``"kernel"`` (B6), ``"naive"`` or ``"chunked"``."""
+    the MoE loss term, 0 for the ported stacks. ``impl`` picks the
+    attention — ``"kernel"`` (B6), ``"naive"`` or ``"chunked"`` — and the
+    SSD scan of mamba slots: ``"kernel"`` (B8), else ``ssd_scan``."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     positions = _positions(x)
     for i in range(cfg.num_layers // cfg.period):
@@ -201,7 +232,9 @@ def prefill(
     impl: str = "kernel",
 ) -> tuple[torch.Tensor, list]:
     """Run the full prompt i32[B,S]; returns (last-token logits [B,V]
-    float32, dense cache stacked ``[m, B, S, KH, dh]`` per period slot)."""
+    float32, dense cache stacked ``[m, B, S, KH, dh]`` per period slot, or
+    ``{conv, state}`` stacked ``[m, ...]`` for a mamba slot); ``impl`` as
+    ``forward``."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     positions = _positions(x)
     per_slot: list[list[dict]] = [[] for _ in range(cfg.period)]
@@ -223,11 +256,14 @@ def prefill(
 def pad_cache(cfg: ArchConfig, cache: list, max_len: int) -> list:
     """Grow a prefill cache (length = prompt) to ``max_len`` rows for
     decoding: ``[m, B, S, KH, dh]`` -> ``[m, B, max_len, KH, dh]``, zeros
-    past the prompt."""
+    past the prompt. A mamba slot's cache has no length axis and is
+    returned as it is."""
     return [
-        {name: F.pad(t, (0, 0, 0, 0, 0, max_len - t.shape[2]))
-         for name, t in slot.items()}
-        for slot in cache
+        slot_cache if cfg.mixer_at(slot) == "mamba" else {
+            name: F.pad(t, (0, 0, 0, 0, 0, max_len - t.shape[2]))
+            for name, t in slot_cache.items()
+        }
+        for slot, slot_cache in enumerate(cache)
     ]
 
 
@@ -344,7 +380,8 @@ def decode_step(
     inputs: i32[B,1]; pos: a 0-dim i32 tensor (the whole batch at one
     position — the burst engine; attention by ``attn_impl``, B5 or plain;
     an int8 cache raises) or i32[B] per-row positions (the draft; plain).
-    Returns (logits [B,V] float32, cache updated in place)."""
+    Mamba slots ignore ``pos``. Returns (logits [B,V] float32, cache
+    updated in place)."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     for slot, p, c in _layers(cfg, params, cache):
         x, _ = block_decode(cfg, slot, p, x, c, pos, attn_impl=attn_impl)

@@ -29,7 +29,9 @@ chaining tokens and the position on the device (kernel B5 reads the
 position there) and pulling the tokens once at the end.
 ``run_burst_stream`` drives a request stream through it; its builds after
 the stream starts are the keys it first meets, the baseline cost the
-continuous engines remove.
+continuous engines remove. It serves the SSM family too: a mamba slot's
+dense cache is its recurrent conv window and state, stepped in place. The
+paged path is attention-only.
 
 The engine runs on the card by default (``device="cuda"``) and raises when
 no GPU is present unless the caller passes ``device="cpu"``.
@@ -213,10 +215,11 @@ class Engine:
         device = self.device
 
         def target(cache, *rows):
-            if cache[0]["k"].dtype != cache_dtype:
+            # the K/V rows or pages, or a mamba slot's conv window
+            got = cache[0]["k" if "k" in cache[0] else "conv"].dtype
+            if got != cache_dtype:
                 raise ValueError(
-                    f"cache: expected {cache_dtype} K/V, got "
-                    f"{cache[0]['k'].dtype}"
+                    f"cache: expected {cache_dtype} K/V, got {got}"
                 )
             for (name, want), t in zip(shapes.items(), rows):
                 if tuple(t.shape) != want or t.device != device:
@@ -601,7 +604,9 @@ class Engine:
         batcher (DESIGN.md §9-§12). Sampled rows draw from a generator
         seeded with ``seed``. ``kv_dtype`` / ``draft_kv_dtype`` override the
         configured pool / draft dtypes and must be in the warmed sets;
-        ``spec_decode`` overrides ``spec_k > 0``."""
+        ``spec_decode`` overrides ``spec_k > 0``. A stack with a mamba slot
+        raises at once: its state is per row, not pageable."""
+        models.check_paged(self.cfg)
         if self.cfg.input_kind != "tokens":
             raise ValueError(
                 f"{self.cfg.name}: continuous batching feeds sampled ids "

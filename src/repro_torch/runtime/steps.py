@@ -103,7 +103,8 @@ def make_sampling_decode_fn(
 
 def make_prefill_fn(cfg: ArchConfig, *, impl: str = "kernel") -> Callable:
     """Full-prompt prefill: ``step(params, inputs[B,S]) -> (logits[B,V],
-    cache [m,B,S,KH,dh] per slot)``; ``impl`` as ``models.prefill``."""
+    cache [m,B,S,KH,dh] per slot, or a mamba slot's {conv, state})``;
+    ``impl`` as ``models.prefill`` (B6 and B8 with ``"kernel"``)."""
 
     def prefill_step(params, inputs):
         return models.prefill(cfg, params, inputs, impl=impl)

@@ -88,3 +88,23 @@ def test_every_kernel_source_is_built():
         "paged_decode_attention_int8", "paged_prefill_attention_int8",
         "dense_decode_attention", "flash_attention", "flash_attention_branchy",
     } <= {fn for fns in build.SOURCES.values() for fn in fns}
+
+
+# the modules of the SSM slice: each must stand alone
+SSM_SLICE_MODULES = (
+    "repro_torch.models.ssm",
+    "repro_torch.kernels.ssd_chunk",
+    "repro_torch.configs.mamba2_370m",
+)
+
+
+@pytest.mark.parametrize("module", SSM_SLICE_MODULES)
+def test_ssm_slice_module_imports_alone_without_jax_or_repro(module):
+    test_slice_module_imports_alone_without_jax_or_repro(module)
+
+
+def test_ssd_kernel_source_is_built_and_bound():
+    from repro_torch.kernels import build
+
+    assert "ssd_chunk" in build.SOURCES["ssd_chunk.cu"]
+    assert (PKG / "csrc" / "ssd_chunk.cu").exists()

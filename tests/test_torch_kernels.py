@@ -245,3 +245,87 @@ def test_cuda_dense_wrapper_raises_on_uninstantiated_shape(cuda, kernel):
     args[:3] = [a[..., :8] for a in args[:3]]  # head_dim 8, unit stride kept
     with pytest.raises(ValueError, match="no kernel instantiated"):
         kernel(*args)
+
+
+# ------------------------------------------------- SSD chunked scan (B8)
+def _ssd_args(b, s, h, p, n, chunk, dtype=torch.float32, device="cpu"):
+    """B8's operands as the mamba mixer passes them: x a strided view of one
+    xBC tensor, B and C one group as stride-0 views over the heads, dt a
+    softplus, A negative (held against the JAX package in
+    ``test_torch_ssm.py``)."""
+    rng = np.random.default_rng(chunk + s)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (b, s, h * p + 2 * n)).astype(np.float32)).to(device, dtype)
+    x = xbc[..., : h * p].reshape(b, s, h, p)
+    bm, cm = (xbc[..., h * p + i * n : h * p + (i + 1) * n].reshape(
+        b, s, 1, n).expand(b, s, h, n) for i in (0, 1))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, s, h)).astype(np.float32))).to(device)
+    a = -torch.exp(torch.from_numpy(
+        rng.standard_normal(h).astype(np.float32) * 0.3)).to(device)
+    return x, bm, cm, dt, a
+
+
+def test_ssd_cpu_tensors_take_the_plain_version_without_a_launch():
+    args = _ssd_args(2, 20, 8, 16, 16, 8)
+    before = kernels.ssd_chunk.launches
+    out = kernels.ssd_chunk(*args, chunk=8)
+    ref = kernels.ssd_chunk_plain(*args, chunk=8)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, atol=0, rtol=0)
+    assert kernels.ssd_chunk.launches == before
+
+
+def test_ssd_kernel_source_instantiates_every_listed_shape():
+    """Each (chunk, headdim, state) the wrapper accepts is instantiated in
+    ``csrc/ssd_chunk.cu`` (and nothing else is)."""
+    import re
+
+    from repro_torch.kernels.ssd_chunk import SSD_SHAPES
+
+    src = (build.CSRC / "ssd_chunk.cu").read_text()
+    made = {tuple(int(v) for v in m) for m in re.findall(
+        r"REPRO_SSD\((\d+), (\d+), (\d+)\);", src)}
+    assert made == set(SSD_SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 20, 8, 16, 16, 8), (2, 3, 8, 16, 16, 16), (2, 32, 8, 16, 16, 4),
+    (1, 300, 32, 64, 128, 256),
+])
+def test_cuda_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype, rel):
+    """Ragged S (also S < chunk), stride-0 B/C. Errors relative to the
+    largest |output|: fp32 sums in another order -> 2e-4; bf16 y rounded to
+    bf16 on both sides -> 1e-2; the fp32 state -> 2e-4."""
+    args = _ssd_args(b, s, h, p, n, chunk, dtype, cuda)
+    before = kernels.ssd_chunk.launches
+    y, st = kernels.ssd_chunk(*args, chunk=chunk)
+    ry, rst = kernels.ssd_chunk_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kernels.ssd_chunk.launches == before + 1
+    assert y.dtype == dtype and y.is_contiguous() and st.dtype == torch.float32
+    for out, ref, tol in ((y, ry, rel), (st, rst, 2e-4)):
+        err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert err <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_wrapper_raises_on_uninstantiated_shape_and_h0(cuda):
+    from repro_torch.configs import get_config
+
+    args = _ssd_args(2, 16, 8, 16, 16, 8, device=cuda)
+    with pytest.raises(ValueError, match="no kernel instantiated"):
+        kernels.ssd_chunk(*args, chunk=32)
+    cfg = get_config("mamba2-370m").smoke()
+    p = {k: v.to(cuda) for k, v in models.layer_params(
+        models.init_params(cfg), 0, 0)["ssm"].items()}
+    x = torch.zeros(2, 16, cfg.d_model, device=cuda)
+    h0 = torch.zeros(2, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
+                     device=cuda)
+    before = kernels.ssd_chunk.launches
+    with pytest.raises(ValueError, match="zero state"):
+        models.ssm_apply(cfg, p, x, h0, impl="kernel")
+    assert kernels.ssd_chunk.launches == before
