@@ -19,7 +19,9 @@ Phases (any failure exits non-zero before a result is printed):
    B5 dense decode at the first, a middle and the last row, and B6/B7 flash
    attention over a ragged 200-token sequence in every causal x window x
    softcap mode (B7 from flags), on the same four head layouts, fed the
-   model's ``[B, S, H, dh]`` layout as strided views.
+   model's ``[B, S, H, dh]`` layout as strided views; in bf16 at dh 128 (the
+   tensor-core body) also at lengths 1, 64, 65, 129 and a ragged 1056, and
+   64 queries over 200 keys.
 3. The serving paths: olmo-1b at full width (bf16, seeded random weights)
    serving a shared-prefix stream through ``run_paged_stream`` with chunked
    prefill — first on bf16 pages (B1/B2), then on int8 pages with
@@ -80,9 +82,12 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Kernel vs plain, same inputs. fp32: both sum in fp32, in another order ->
-# 1e-4. bf16: the plain version runs in fp32 on the same bf16 values, the
-# kernel also computes in fp32 but rounds its output to bf16 (relative
-# 2^-9, outputs here are |o| < 4) -> 2e-2.
+# 1e-4. bf16: the plain version runs in fp32 on the same bf16 values; the
+# kernels compute scores and the softmax in fp32 and round the output to
+# bf16 (relative 2^-9, outputs here are |o| < 4), and B6/B7's tensor-core
+# body (bf16, head_dim 128) also rounds the probabilities P to bf16 before
+# P V (relative 2^-9 on each weight of a convex sum, as SDPA's flash kernels
+# do) -> 2e-2.
 KERNEL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Full-width logits, kernel vs plain attention: the plain tail rounds scores
 # and probabilities to bf16 (as the JAX package does), the kernels keep them
@@ -133,6 +138,29 @@ def setup() -> None:
         f"{libs}: {len(regs)} kernels, registers "
         f"{min(regs, default=0)}..{max(regs, default=0)}, max spill stores "
         f"{max(spills, default=0)} B")
+    tc = _ptxas_by_kernel(info["log"], "flash_tc")
+    check(len(tc) == 9, f"expected 9 tensor-core flash instantiations (B6 x 8 "
+          f"modes, B7), the build log has {len(tc)}")
+    log(f"[setup] tensor-core flash body (B6 x 8 modes, B7): registers "
+        f"{min(r for r, _ in tc.values())}..{max(r for r, _ in tc.values())}"
+        f", spill stores max {max(sp for _, sp in tc.values())} B")
+
+
+def _ptxas_by_kernel(text: str, name: str) -> dict:
+    """{mangled kernel: (registers, spill store bytes)} of the kernels whose
+    name holds ``name``, from nvcc's ``-Xptxas -v`` log."""
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1) if name in m.group(1) else None
+            spill = 0
+        elif current and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif current and "Used" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out[current], current = (regs, spill), None
+    return out
 
 
 # ------------------------------------------------------------------ phase 2
@@ -216,33 +244,49 @@ def kernels_vs_plain() -> None:
         for dtype in (torch.float32, torch.bfloat16):
             worst.update(_dense_cases(f"{sname}/{str(dtype)[6:]}", h, kh, dh,
                                       dtype, seed=len(worst)))
+        if dh == 128:  # the tensor-core body's edges: tails, Sq != Sk
+            for sq, sk in TC_EDGE_LENGTHS:
+                worst.update(_flash_cases(
+                    f"{sname}/bfloat16/sq={sq}/sk={sk}", h, kh, dh,
+                    torch.bfloat16, seed=len(worst), sq=sq, sk=sk))
     for dtype in ("float32", "bfloat16"):
         errs = {k: v for k, v in worst.items() if f"/{dtype}" in k}
         log(f"[kernels] {len(errs)} {dtype} cases pass, max abs err "
             f"{max(errs.values()):.3g} (tolerance "
             f"{KERNEL_ATOL[getattr(torch, dtype)]})")
+    tc = {k: v for k, v in worst.items() if "/sq=" in k}
+    log(f"[kernels] tensor-core B6/B7 edges (lengths "
+        f"{[sq for sq, sk in TC_EDGE_LENGTHS if sq == sk]}, Sq 64 over Sk "
+        f"200; 3 layouts x 8 modes): {len(tc)} cases, max abs err "
+        f"{max(tc.values()):.3g}")
 
 
-def _dense_cases(tag: str, h: int, kh: int, dh: int, dtype, *, seed: int,
-                 seq: int = 200) -> dict:
-    """B5 at pos 0, mid and last, B6 and B7 (flags) in every mode, on the
-    model's [B, S, H, dh] layout passed as transposed views; the sequence is
-    ragged against the kernels' 16-row tiles."""
+# (Sq, Sk) of B6/B7 in bf16 at dh 128 beside the 200-token case: one row,
+# one and a bit of a 64-row warpgroup, one and a bit of a 128-key tile, a
+# ragged 1056 (8 tiles + 32), and fewer queries than keys.
+TC_EDGE_LENGTHS = ((1, 1), (64, 64), (65, 65), (129, 129), (1056, 1056),
+                   (64, 200))
+
+
+def _held(errs: dict, name: str, out, ref, dtype) -> None:
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    errs[name] = err
+    check(err <= KERNEL_ATOL[dtype],
+          f"{name}: max abs err {err:.3g} > {KERNEL_ATOL[dtype]}")
+
+
+def _flash_cases(tag: str, h: int, kh: int, dh: int, dtype, *, seed: int,
+                 sq: int, sk: int) -> dict:
+    """B6 and B7 (flags) in every causal x window x softcap mode on the
+    model's [B, S, H, dh] layout passed as transposed views."""
     from repro_torch import kernels
 
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(2, seq, n, dh, generator=g).to("cuda", dtype)
-               .transpose(1, 2) for n in (h, kh, kh))
+    q, k, v = (torch.randn(2, s, n, dh, generator=g).to("cuda", dtype)
+               .transpose(1, 2) for s, n in ((sq, h), (sk, kh), (sk, kh)))
     ref_in = [t.float() for t in (q, k, v)]
     errs = {}
-
-    def held(name: str, out, ref) -> None:
-        torch.cuda.synchronize()
-        err = (out.float() - ref).abs().max().item()
-        errs[f"{name}/{tag}"] = err
-        check(err <= KERNEL_ATOL[dtype],
-              f"{name}/{tag}: max abs err {err:.3g} > {KERNEL_ATOL[dtype]}")
-
     for causal in (True, False):
         for window in (None, 48):
             for cap in (None, 30.0):
@@ -253,19 +297,35 @@ def _dense_cases(tag: str, h: int, kh: int, dh: int, dtype, *, seed: int,
                     q, k, v, causal=causal, window=window, softcap=cap)
                 check(out.transpose(1, 2).is_contiguous(),
                       f"flash/{tag}: output not in the [B, S, H, dh] layout")
-                held(f"flash/{mode}", out, ref)
+                _held(errs, f"flash/{mode}/{tag}", out, ref, dtype)
                 flags = torch.tensor([int(causal), window or 0, int(cap or 0)],
                                      dtype=torch.int32, device="cuda")
-                held(f"branchy/{mode}",
-                     kernels.flash_attention_branchy(q, k, v, flags), ref)
+                _held(errs, f"branchy/{mode}/{tag}",
+                      kernels.flash_attention_branchy(q, k, v, flags), ref,
+                      dtype)
+    return errs
+
+
+def _dense_cases(tag: str, h: int, kh: int, dh: int, dtype, *, seed: int,
+                 seq: int = 200) -> dict:
+    """B6 and B7 in every mode and B5 at pos 0, mid and last, on the model's
+    [B, S, H, dh] layout passed as transposed views; the sequence is ragged
+    against the kernels' tiles."""
+    from repro_torch import kernels
+
+    errs = _flash_cases(tag, h, kh, dh, dtype, seed=seed, sq=seq, sk=seq)
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(2, seq, n, dh, generator=g).to("cuda", dtype)
+               .transpose(1, 2) for n in (h, kh, kh))
+    ref_in = [t.float() for t in (q, k, v)]
     for pos in (0, seq // 2, seq - 1):
         p = torch.tensor(pos, dtype=torch.int32, device="cuda")
         for window, cap in ((None, None), (48, None), (None, 30.0), (48, 30.0)):
             kw = dict(window=window, softcap=cap)
-            held(f"dense_decode/pos={pos}/w={window}/cap={cap}",
-                 kernels.decode_attention(q[:, :, 0], k, v, p, **kw),
-                 kernels.decode_attention_plain(
-                     ref_in[0][:, :, 0], *ref_in[1:], p, **kw))
+            _held(errs, f"dense_decode/pos={pos}/w={window}/cap={cap}/{tag}",
+                  kernels.decode_attention(q[:, :, 0], k, v, p, **kw),
+                  kernels.decode_attention_plain(
+                      ref_in[0][:, :, 0], *ref_in[1:], p, **kw), dtype)
     return errs
 
 
@@ -1125,9 +1185,15 @@ def time_dense_kernels(launches: dict) -> list[dict]:
         saved = fn.launches
         ms = _median_ms(lambda: call(*args))
         fn.launches = saved
+        # the library's own distance from the plain version: a yardstick of
+        # what bf16 rounding (P included) costs
+        lib_err = None if library is None else (
+            library().float().reshape(ref.shape) - ref.float()
+        ).abs().max().item()
         return {"max_abs_err": err, "ms": ms,
                 "plain_ms": _median_ms(lambda: plain(*args)),
-                "library_ms": None if library is None else _median_ms(library)}
+                "library_ms": None if library is None else _median_ms(library),
+                "library_max_abs_err": lib_err}
 
     rows = []
     # B5: 8 rows at pos 255 of a [8, 1024, 16, 128] cache (transposed view)
@@ -1188,11 +1254,19 @@ def time_dense_kernels(launches: dict) -> list[dict]:
             log(f"[timing] {fn.__name__} bf16 8x1024, 16 heads of 128, "
                 f"{name}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f}"
                 f" ms, sdpa {m['library_ms']} ms, bound {b_ms:.4f} ms "
-                f"({b_by}), max abs err {m['max_abs_err']:.3g}")
+                f"({b_by}), max abs err {m['max_abs_err']:.3g} (sdpa's "
+                f"{m['library_max_abs_err']})")
     ratio = {name: per_mode["flash_attention_branchy"][name]["ms"]
              / per_mode["flash_attention"][name]["ms"] for name in PAIR_MODES}
     log(f"[timing] B7 / B6 time ratio per mode: "
         + ", ".join(f"{k} {v:.3f}" for k, v in ratio.items()))
+    b6, b7 = per_mode["flash_attention"], per_mode["flash_attention_branchy"]
+    log(f"[timing] B6 causal / SDPA causal "
+        f"{b6['causal']['ms'] / b6['causal']['library_ms']:.3f}; kernel / "
+        f"plain per mode, B6: "
+        + ", ".join(f"{k} {m['ms'] / m['plain_ms']:.4f}" for k, m in b6.items())
+        + "; B7: "
+        + ", ".join(f"{k} {m['ms'] / m['plain_ms']:.4f}" for k, m in b7.items()))
     for fname, replaces in (
         ("flash_attention", "src/repro/kernels/flash_attention.py:112"),
         ("flash_attention_branchy", "src/repro/kernels/flash_attention.py:239"),

@@ -4,9 +4,10 @@ Each source in ``repro_torch/csrc`` is compiled at first use with ``nvcc``
 into its own shared library with a plain C interface, loaded with
 ``ctypes``. The sources build as parallel ``nvcc`` processes, one per file
 (the model-dtype paged kernels B1/B2, the int8 ones B3/B4, dense decode B5
-and flash attention B6/B7, all over one shared header, and the SSD chunked
-scan B8). Each library lands in ``build/repro_torch/`` at the root of the
-checkout, named by a hash of its source, the shared header and the flags, so
+and flash attention B6/B7, all over one shared header — B6/B7 also over the
+Hopper helpers of ``flash_tc.cuh`` — and the SSD chunked scan B8). Each
+library lands in ``build/repro_torch/`` at the root of the checkout, named
+by a hash of its source, the headers and the flags, so
 an edit rebuilds and an unchanged tree reuses the last build. Nothing here
 runs at import: a CPU-only install imports every module and never needs
 ``nvcc``.
@@ -27,7 +28,7 @@ from types import SimpleNamespace
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-HEADERS = ("paged_attention.cuh",)
+HEADERS = ("paged_attention.cuh", "flash_tc.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -9,7 +9,10 @@ softmax and an output in q's dtype; the mask positions are the query and key
 indices from 0, as in the Pallas kernels and ``ref.py:attention_ref``.
 
 On the card (``csrc/flash_attention.cu``) one block serves one (row, query
-head, tile of 16 queries) and walks the key tiles itself. B6 bakes causal,
+head, tile of queries) and walks the key tiles itself: in bf16 at head_dim
+128 on tensor cores (wgmma over 128-query, 128-key tiles that TMA loads into
+a shared-memory ring), in fp32 or at head_dim 16 on CUDA cores (16 x 16
+tiles; wgmma has no fp32 mode but TF32). B6 bakes causal,
 window and softcap into the compiled kernel and never loads a key tile the
 mask removes whole; B7 reads ``flags = (causal, window|0, softcap|0)`` (an
 int32[3] tensor, the cap an integer as in the Pallas kernel) on the device,
@@ -34,10 +37,30 @@ import torch
 from . import build
 from .decode_attention import NEG_INF
 
+# bf16 at this head_dim takes the tensor-core body; the rest CUDA cores
+TENSOR_CORE_HEAD_DIM = 128
+
 
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     """(batch, head, sequence) element strides of a [B, H, S, dh] tensor."""
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _check_tensor_core_views(name: str, q, k, v) -> None:
+    """bf16 at head_dim 128 runs on tensor cores, whose tiles TMA loads:
+    every base must be 16-byte aligned and every batch, head and sequence
+    stride a multiple of 16 bytes (8 elements); raise on a view that is
+    not."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] != TENSOR_CORE_HEAD_DIM:
+        return
+    for label, t in zip("qkv", (q, k, v)):
+        if t.data_ptr() % 16 or any(s % 8 for s in _strides(t)):
+            raise ValueError(
+                f"{name}: {label} cannot be loaded by TMA (base address "
+                f"{t.data_ptr() % 16} bytes past 16-byte alignment, strides "
+                f"{_strides(t)}); bf16 head_dim-128 views need 16-byte "
+                f"aligned bases and strides in multiples of 8 elements"
+            )
 
 
 def _launch_args(q, k, v, out) -> tuple:
@@ -65,6 +88,7 @@ def flash_attention(
         )
     name = "flash_attention"
     build.check_strided_operands(name, q, k, v, 4, {})
+    _check_tensor_core_views(name, q, k, v)
     out = torch.empty_like(q)
     dh = q.shape[-1]
     rc = build.load().flash_attention(
@@ -93,6 +117,7 @@ def flash_attention_branchy(
         return flash_attention_branchy_plain(q, k, v, flags)
     name = "flash_attention_branchy"
     build.check_strided_operands(name, q, k, v, 4, {"flags": (flags, (3,))})
+    _check_tensor_core_views(name, q, k, v)
     out = torch.empty_like(q)
     dh = q.shape[-1]
     rc = build.load().flash_attention_branchy(

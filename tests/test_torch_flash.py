@@ -35,6 +35,7 @@ from repro_torch import kernels, models
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import KernelBranch
+from repro_torch.kernels.decode_attention import NEG_INF
 
 TOL = 2e-5
 LOGIT_TOL = 1e-4
@@ -135,6 +136,114 @@ def test_flash_takes_strided_views_and_ragged_lengths(seq):
         kernels.flash_attention(*views, window=16), contiguous,
         atol=0, rtol=0,
     )
+
+
+# ------------------------------------- B6/B7's tensor-core body (bf16, 128)
+# chip_smoke.py's KERNEL_ATOL[bf16], the kernels' tolerance on the card
+BF16_KERNEL_ATOL = 2e-2
+TC_MODES = [
+    (causal, window, softcap)
+    for causal in (True, False)
+    for window in (None, 256)
+    for softcap in (None, 50.0)
+]
+
+
+def _tensor_core_rounding(q, k, v, *, causal, window, softcap, tile=128):
+    """The tensor-core body's arithmetic in PyTorch: bf16 q/k/v, fp32 scores
+    and online softmax over 128-key tiles (exp2 of logits scaled by log2 e),
+    the probabilities P rounded to bf16 for P V with fp32 accumulation, the
+    denominator summed from the unrounded P, the output rounded to bf16.
+    The hardware's approximate exp2 and tanh (relative errors near 2^-22
+    and 2^-11) are left to the card's checks."""
+    b, h, sq, dh = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kh, h // kh, sq, dh).float()
+    m = torch.full((b, kh, h // kh, sq), NEG_INF)
+    l = torch.zeros_like(m)
+    o = torch.zeros(b, kh, h // kh, sq, dh)
+    qi = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, tile):
+        kt, vt = (t[:, :, k0 : k0 + tile].float() for t in (k, v))
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kt) * (1.0 / dh**0.5)
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        ki = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones(sq, kt.shape[2], dtype=torch.bool)
+        if causal:
+            ok &= ki <= qi
+        if window is not None:
+            ok &= ki > qi - window
+        x = torch.where(ok, s * 1.4426950408889634, NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1))
+        p = torch.exp2(x - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.bfloat16().float(), vt)
+        m = m_new
+    o = o / l.clamp_min(1e-37)[..., None]
+    return o.reshape(b, h, sq, dh).bfloat16()
+
+
+@pytest.mark.parametrize("causal,window,softcap", TC_MODES)
+def test_tensor_core_rounding_stays_within_the_bf16_tolerance(
+    causal, window, softcap
+):
+    """P rounded to bf16 before P V is the one rounding the tensor-core body
+    adds; at 1 x 1024 tokens, 2 heads of 128, it keeps the output within the
+    card's bf16 tolerance of the fp32 plain version (by design, on the
+    CPU)."""
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 1024, 128)).astype(
+        np.float32)).bfloat16() for _ in range(3))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    emulated = _tensor_core_rounding(q, k, v, **kw).float()
+    plain = kernels.flash_attention_plain(q.float(), k.float(), v.float(),
+                                          **kw)
+    err = (emulated - plain).abs().max().item()
+    assert 0 < err <= BF16_KERNEL_ATOL
+
+
+def _entry_routes(src: str, entry: str) -> dict:
+    """{(dtype code, head_dim): launcher} of one C entry point."""
+    import re
+
+    body = src.split(f'extern "C" int {entry}(')[1].split("\n}\n")[0]
+    return {(int(d), int(hd)): fn for d, hd, fn in re.findall(
+        r"if \(dtype == (\d) && head_dim == (\d+)\) return (\w+)", body)}
+
+
+@pytest.mark.parametrize("entry", ["flash_attention",
+                                   "flash_attention_branchy"])
+def test_flash_entry_points_route_bf16_128_to_tensor_cores(entry):
+    """Both C entry points send bf16 (code 1) at head_dim 128 to the
+    tensor-core body and fp32 or head_dim 16 to the CUDA-core body, for
+    every dtype and head_dim the wrappers accept; the tensor-core body runs
+    both products as wgmma and loads its tiles with TMA."""
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    routes = _entry_routes(src, entry)
+    want = {(c, hd) for c in build.DTYPE_CODES.values()
+            for hd in build.HEAD_DIMS}
+    assert set(routes) == want
+    suffix = "_branchy" if entry.endswith("branchy") else ""
+    for key, fn in routes.items():
+        body = "launch_tensor_cores" if key == (1, 128) else "launch_cuda_cores"
+        assert fn == body + suffix, (key, fn)
+    tc = src.split("__device__ void flash_tc_block(")[1].split("\n}\n")[0]
+    for call in ("wgmma_ss(", "wgmma_rs(", "tma_load_4d(", "mbar_wait("):
+        assert call in tc
+    assert "flash_block_simt" not in tc
+
+
+def test_every_header_is_hashed_into_the_libraries():
+    """A header missing from ``build.HEADERS`` would let an edit to it reuse
+    a stale library."""
+    from repro_torch.kernels import build
+
+    assert {p.name for p in build.CSRC.glob("*.cuh")} <= set(build.HEADERS)
 
 
 # -------------------------------------------------------------------- B5

@@ -196,14 +196,26 @@ DENSE_PLAIN = {
 }
 
 
-def _dense_args(kernel, dtype=torch.float32, device="cpu"):
-    """GQA 4/2, dh 16, a ragged 40-token sequence; B5 at pos 30 over the
-    model's [B, S, KH, dh] cache as a [B, KH, S, dh] view; B7 with flags
-    (causal, window 24, softcap 3)."""
+# (heads, kv heads, head_dim, Sq, Sk): the smoke layout on CUDA cores, and
+# in bf16 the tensor-core body of B6/B7 on a GQA layout with a ragged
+# length and with fewer queries than keys
+DENSE_SHAPES = {
+    "smoke": (4, 2, 16, 40, 40),
+    "gqa-32/2": (32, 2, 128, 200, 200),
+    "gqa-32/2-sq64": (32, 2, 128, 64, 200),
+}
+
+
+def _dense_args(kernel, dtype=torch.float32, device="cpu", shape="smoke"):
+    """GQA 4/2, dh 16, a ragged 40-token sequence by default; B5 at pos 30
+    over the model's [B, S, KH, dh] cache as a [B, KH, S, dh] view; B7 with
+    flags (causal, window 24, softcap 3)."""
     rng = np.random.default_rng(1)
-    b, s, h, kh, dh = 2, 40, 4, 2, 16
+    h, kh, dh, sq, sk = DENSE_SHAPES[shape]
+    b = 2
     q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, dh)).astype(
-        np.float32)).to(device, dtype).transpose(1, 2) for n in (h, kh, kh))
+        np.float32)).to(device, dtype).transpose(1, 2)
+        for s, n in ((sq, h), (sk, kh), (sk, kh)))
     if kernel is kernels.decode_attention:
         return [q[:, :, 0], k, v,
                 torch.tensor(30, dtype=torch.int32, device=device)]
@@ -223,12 +235,15 @@ def test_dense_cpu_tensors_take_the_plain_version_without_a_launch(kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
-                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,atol,shape", [
+    (torch.float32, 1e-4, "smoke"), (torch.bfloat16, 2e-2, "smoke"),
+    (torch.bfloat16, 2e-2, "gqa-32/2"), (torch.bfloat16, 2e-2, "gqa-32/2-sq64"),
+])
 @pytest.mark.parametrize("kernel", list(DENSE_PLAIN), ids=lambda k: k.__name__)
-def test_cuda_dense_kernels_match_plain(cuda, kernel, dtype, atol):
-    """As ``test_cuda_kernels_match_plain``: fp32 1e-4, bf16 2e-2."""
-    args = _dense_args(kernel, dtype, cuda)
+def test_cuda_dense_kernels_match_plain(cuda, kernel, dtype, atol, shape):
+    """As ``test_cuda_kernels_match_plain``: fp32 1e-4, bf16 2e-2 (B6/B7's
+    tensor-core body also rounds P to bf16 before P V)."""
+    args = _dense_args(kernel, dtype, cuda, shape)
     before = kernel.launches
     out = kernel(*args)
     ref = DENSE_PLAIN[kernel](*[a.float() if a.is_floating_point() else a
@@ -245,6 +260,46 @@ def test_cuda_dense_wrapper_raises_on_uninstantiated_shape(cuda, kernel):
     args[:3] = [a[..., :8] for a in args[:3]]  # head_dim 8, unit stride kept
     with pytest.raises(ValueError, match="no kernel instantiated"):
         kernel(*args)
+
+
+FLASH_KERNELS = (kernels.flash_attention, kernels.flash_attention_branchy)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values as a view that TMA cannot load: its base 2 bytes past
+    16-byte alignment and every stride odd (unit stride on dh kept)."""
+    wide = torch.zeros(*t.shape[:-1], t.shape[-1] + 1, dtype=t.dtype,
+                       device=t.device)
+    view = wide[..., 1:]
+    view.copy_(t)
+    return view
+
+
+def test_tensor_core_view_check_refuses_what_tma_cannot_load():
+    """bf16 at dh 128 (the tensor-core body) needs 16-byte aligned bases and
+    strides in multiples of 8 elements; other dtypes and widths do not."""
+    from repro_torch.kernels.flash_attention import _check_tensor_core_views
+
+    q, k, v = _dense_args(kernels.flash_attention, torch.bfloat16,
+                          shape="gqa-32/2")
+    _check_tensor_core_views("flash", q, k, v)  # the model's views pass
+    with pytest.raises(ValueError, match="cannot be loaded by TMA"):
+        _check_tensor_core_views("flash", _misaligned(q), k, v)
+    with pytest.raises(ValueError, match="v cannot be loaded by TMA"):
+        _check_tensor_core_views("flash", q, k, _misaligned(v))
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    _check_tensor_core_views("flash", _misaligned(q32), k32, v32)  # CUDA cores
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", FLASH_KERNELS, ids=lambda k: k.__name__)
+def test_cuda_flash_wrapper_raises_on_a_misaligned_bf16_view(cuda, kernel):
+    args = _dense_args(kernel, torch.bfloat16, cuda, "gqa-32/2")
+    args[1] = _misaligned(args[1])
+    before = kernel.launches
+    with pytest.raises(ValueError, match="cannot be loaded by TMA"):
+        kernel(*args)
+    assert kernel.launches == before
 
 
 # ------------------------------------------------- SSD chunked scan (B8)
