@@ -21,7 +21,9 @@ Phases (any failure exits non-zero before a result is printed):
    softcap mode (B7 from flags), on the same four head layouts, fed the
    model's ``[B, S, H, dh]`` layout as strided views; in bf16 at dh 128 (the
    tensor-core body) also at lengths 1, 64, 65, 129 and a ragged 1056, and
-   64 queries over 200 keys.
+   64 queries over 200 keys; B2/B4's tensor-core body (bf16, dh 128) also at
+   chunks 1, 5, 63, 64, 65 and 130, groups 1, 5 and 16, pages of 8 and 16,
+   a window of 40 crossing page boundaries and starts off page boundaries.
 3. The serving paths: olmo-1b at full width (bf16, seeded random weights)
    serving a shared-prefix stream through ``run_paged_stream`` with chunked
    prefill — first on bf16 pages (B1/B2), then on int8 pages with
@@ -35,8 +37,9 @@ Phases (any failure exits non-zero before a result is printed):
    with B6, ``pad_cache`` to 1024, ``decode_loop`` of 32 greedy tokens with
    B5) held against ``forward`` (B6) over prompt + tokens, and ``forward``
    with B6 against the naive attention; then profiled windows of full-width
-   decode steps (bf16 pages), speculative steps (int8 pages) and burst
-   steps: device busy vs host wall.
+   decode steps (bf16 pages), speculative steps (int8 pages), `pf` steps
+   (8 rows x chunk 64 on bf16 and on int8 pages: B2's and B4's share) and
+   burst steps: device busy vs host wall.
 5. The smoke config's greedy stream on the card and on the CPU: plain, and
    with speculation on model-dtype pages (B2 through the verify lane) and on
    int8 pages; the spec streams equal the plain ones.
@@ -53,10 +56,10 @@ Phases (any failure exits non-zero before a result is printed):
 7. The paper's kernel pair through ``KernelBranch`` (B6 specialised against
    B7 from flags, in the causal, causal + window 256 and causal + softcap 50
    modes, at 8 x 1024 tokens); then kernel timing at the main paths' shapes
-   (B4 also at the verify window's, B8 at the mamba2 prefill's): kernel,
-   plain version, one PyTorch library call where one exists (a yardstick
-   the port never calls) and the bound, and the B7 / B6 time ratio per
-   mode.
+   (B4 also at the verify window's, B8 at the mamba2 prefill's): kernel
+   (per call, and B1-B4 also device-only from the profiler), plain version,
+   one PyTorch library call where one exists (a yardstick the port never
+   calls) and the bound, and the B7 / B6 time ratio per mode.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -84,10 +87,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Kernel vs plain, same inputs. fp32: both sum in fp32, in another order ->
 # 1e-4. bf16: the plain version runs in fp32 on the same bf16 values; the
 # kernels compute scores and the softmax in fp32 and round the output to
-# bf16 (relative 2^-9, outputs here are |o| < 4), and B6/B7's tensor-core
-# body (bf16, head_dim 128) also rounds the probabilities P to bf16 before
-# P V (relative 2^-9 on each weight of a convex sum, as SDPA's flash kernels
-# do) -> 2e-2.
+# bf16 (relative 2^-9, outputs here are |o| < 4), and the tensor-core bodies
+# of B6/B7 and B2/B4 (bf16, head_dim 128) also round the probabilities P to
+# bf16 before P V (relative 2^-9 on each weight of a convex sum, as SDPA's
+# flash kernels do; B4 folds the V scale into P first) -> 2e-2.
 KERNEL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Full-width logits, kernel vs plain attention: the plain tail rounds scores
 # and probabilities to bf16 (as the JAX package does), the kernels keep them
@@ -144,6 +147,15 @@ def setup() -> None:
     log(f"[setup] tensor-core flash body (B6 x 8 modes, B7): registers "
         f"{min(r for r, _ in tc.values())}..{max(r for r, _ in tc.values())}"
         f", spill stores max {max(sp for _, sp in tc.values())} B")
+    pf = _ptxas_by_kernel(info["log"], "paged_prefill_tc")
+    check(len(pf) == 16, f"expected 16 tensor-core paged prefill "
+          f"instantiations (B2, B4 x 2 page sizes x 4 modes), the build log "
+          f"has {len(pf)}")
+    spill = max(sp for _, sp in pf.values())
+    log(f"[setup] tensor-core paged prefill body (B2, B4 x pages 8/16 x 4 "
+        f"modes): registers {min(r for r, _ in pf.values())}.."
+        f"{max(r for r, _ in pf.values())}, spill stores max {spill} B")
+    check(spill == 0, f"the tensor-core paged prefill body spills {spill} B")
 
 
 def _ptxas_by_kernel(text: str, name: str) -> dict:
@@ -249,6 +261,7 @@ def kernels_vs_plain() -> None:
                 worst.update(_flash_cases(
                     f"{sname}/bfloat16/sq={sq}/sk={sk}", h, kh, dh,
                     torch.bfloat16, seed=len(worst), sq=sq, sk=sk))
+    worst.update(_prefill_tc_cases())
     for dtype in ("float32", "bfloat16"):
         errs = {k: v for k, v in worst.items() if f"/{dtype}" in k}
         log(f"[kernels] {len(errs)} {dtype} cases pass, max abs err "
@@ -259,6 +272,68 @@ def kernels_vs_plain() -> None:
         f"{[sq for sq, sk in TC_EDGE_LENGTHS if sq == sk]}, Sq 64 over Sk "
         f"200; 3 layouts x 8 modes): {len(tc)} cases, max abs err "
         f"{max(tc.values()):.3g}")
+    for kname in ("prefill", "prefill_int8"):
+        tc = {k: v for k, v in worst.items() if k.startswith(f"tc_{kname}/")}
+        log(f"[kernels] tensor-core {kname} edges (chunks {TC_CHUNKS}, groups "
+            f"{TC_GROUPS}, pages 8/16, 4 modes, window {TC_WINDOW}, starts off "
+            f"page boundaries): {len(tc)} cases, max abs err "
+            f"{max(tc.values()):.3g}")
+
+
+# B2/B4's tensor-core body (bf16, dh 128): chunks of one token, the verify
+# lane's 5, one short of / exactly / one past a 64-row tile and two tiles +
+# 2; GQA groups 1, 5 (Q by 16-byte loads) and 16 (Q by TMA, four chunk
+# tokens a tile); a window that crosses page boundaries.
+TC_CHUNKS = (1, 5, 63, 64, 65, 130)
+TC_GROUPS = (1, 5, 16)
+TC_WINDOW = 40
+
+
+def _prefill_tc_cases() -> dict:
+    """B2 and B4 in bf16 at dh 128 against their plain versions over
+    every ``TC_CHUNKS`` x ``TC_GROUPS`` x page size x mode, 2 kv heads, 3
+    rows whose starts lie off page boundaries, each row's pages scattered
+    over the pool and its table padded with the null page 0."""
+    from repro_torch import kernels
+
+    errs, kh, dh = {}, 2, 128
+    modes = [(None, None), (TC_WINDOW, None), (None, 30.0), (TC_WINDOW, 30.0)]
+    for ps in (8, 16):
+        start = [5, ps + 3, 3 * ps - 1]
+        pb = -(-(max(start) + max(TC_CHUNKS)) // ps) + 1
+        g = torch.Generator().manual_seed(ps)
+        n_pages = 3 * pb + 1
+        kp = torch.randn(n_pages, ps, kh, dh, generator=g).to("cuda")
+        vp = torch.randn(n_pages, ps, kh, dh, generator=g).to("cuda")
+        (kq, ks), (vq, vs) = _quantised(kp), _quantised(vp)
+        kb, vb = kp.bfloat16(), vp.bfloat16()
+        # (name, kernel, plain version, its pages, the plain version's)
+        cases = (("prefill", kernels.paged_prefill_attention,
+                  kernels.paged_prefill_attention_plain, (kb, vb),
+                  (kb.float(), vb.float())),
+                 ("prefill_int8", kernels.paged_prefill_attention_int8,
+                  kernels.paged_prefill_attention_int8_plain,
+                  (kq, vq, ks, vs), (kq, vq, ks, vs)))
+        perm = torch.randperm(n_pages - 1, generator=g) + 1
+        st = torch.tensor(start, dtype=torch.int32, device="cuda")
+        for chunk in TC_CHUNKS:
+            # each row's pages, then the null page past what it needs
+            bt = perm[: 3 * pb].view(3, pb).clone()
+            for r, s_ in enumerate(start):
+                bt[r, -(-(s_ + chunk) // ps):] = 0
+            bt = bt.to(torch.int32).to("cuda")
+            for group in TC_GROUPS:
+                q = torch.randn(3, chunk, kh * group, dh, generator=g).to(
+                    "cuda", torch.bfloat16)
+                for window, cap in modes:
+                    kw = dict(window=window, softcap=cap)
+                    for kname, fn, plain, pages, ref_pages in cases:
+                        _held(errs, f"tc_{kname}/c={chunk}/G={group}/ps={ps}/"
+                              f"w={window}/cap={cap}/bfloat16",
+                              fn(q, *pages, bt, st, **kw),
+                              plain(q.float(), *ref_pages, bt, st, **kw),
+                              torch.bfloat16)
+    return errs
 
 
 # (Sq, Sk) of B6/B7 in bf16 at dh 128 beside the 200-token case: one row,
@@ -410,9 +485,22 @@ def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
         pool_gb = (eng.pool_physical_pages * cfg.num_layers * page_bytes(
             ecfg.page_size, cfg.num_kv_heads, cfg.head_dim, ecfg.kv_dtype,
             cfg.dtype) / 1e9)
+        warm = len(eng._chunk_buckets()) + len(eng._k_buckets())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches(label, expect)
+    # the chunk kernel serves the pf and vf lanes, one launch per layer per
+    # call, warmup's calls included; the steps themselves follow wall-clock
+    # admission, so the count differs from run to run
+    steps = rep["lane_steps"]
+    pf_kernel = next(k for k in expect if "prefill" in k)
+    want = cfg.num_layers * (steps["prefill"] + steps["verify"] + warm)
+    check(launches[pf_kernel] == want,
+          f"{label}: {pf_kernel} launched {launches[pf_kernel]} times, "
+          f"expected {want} (one per layer per pf/vf call)")
+    log(f"[stream:{label}] {pf_kernel} {want} launches = {cfg.num_layers} "
+        f"layers x ({steps['prefill']} pf + {steps['verify']} vf steps + "
+        f"{warm} warmup calls)")
     check(rep["compiles_after_warmup"] == 0,
           f"{label}: compiles_after_warmup {rep['compiles_after_warmup']}")
     check(rep["prefill_chunks"] > 0, f"{label}: no prefill chunks ran")
@@ -588,6 +676,16 @@ def prompt_then_burst(cfg, params) -> dict:
     return launches
 
 
+def _kernel_ms(prof, calls: int) -> dict:
+    """{kernel name: device ms per call} of a profile over ``calls`` calls."""
+    by_name = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t > 0 and e.device_type.name == "CUDA":
+            by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3 / calls
+    return by_name
+
+
 def _profile(label: str, run, steps: int, attn_kernel: str) -> None:
     """Device kernel time by name (``torch.profiler``) over ``steps`` calls
     of ``run`` against their host wall time."""
@@ -602,11 +700,7 @@ def _profile(label: str, run, steps: int, attn_kernel: str) -> None:
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    by_name = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0) or 0
-        if t > 0 and e.device_type.name == "CUDA":
-            by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3 / steps
+    by_name = _kernel_ms(prof, steps)
     busy = sum(by_name.values())
     if busy == 0:
         log(f"[profile] {label}: device time not measured (profiler recorded "
@@ -616,15 +710,17 @@ def _profile(label: str, run, steps: int, attn_kernel: str) -> None:
     attn = sum(v for k, v in by_name.items() if attn_kernel in k)
     log(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}%), "
-        f"{attn_kernel} {attn:.3f} ms; top kernels: "
+        f"{attn_kernel} {attn:.3f} ms ({100 * attn / busy:.1f}% of busy); "
+        f"top kernels: "
         + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
 
 
 def profile_steps(cfg, params) -> None:
     """Where a full-width step's time goes: a decode step on bf16 pages (8
-    slots at position 200, 256-token tables), and a speculative step on
-    int8 pages (a 2-layer int8 draft proposing 4 tokens, then a 5-row
-    verify with the table at the 64-page cap)."""
+    slots at position 200, 256-token tables), a speculative step on int8
+    pages (a 2-layer int8 draft proposing 4 tokens, then a 5-row verify
+    with the table at the 64-page cap), and a `pf` step on bf16 and on int8
+    pages (B2's and B4's share)."""
     from repro_torch import models
     from repro_torch.runtime import steps as steps_mod
 
@@ -659,7 +755,26 @@ def profile_steps(cfg, params) -> None:
 
     _profile("full-width spec step (int8 pages, draft 2 layers x k 4 + "
              "5-row verify, 8 slots, pos 200)", spec_step, 5,
-             "paged_prefill_kernel")
+             "paged_prefill_tc_kernel")
+    del cache8, dcache
+    # one `pf` step of each paged cell: 8 rows x chunk 64 at starts 0-192
+    # (keys < 256), tables at the 64-page cap
+    c = 64
+    st = torch.tensor([0, 64, 128, 192] * 2, dtype=torch.int32, device=dev)
+    length = torch.full((slots,), c, dtype=torch.int32, device=dev)
+    g = torch.Generator().manual_seed(9)
+    chunk = torch.randint(0, cfg.vocab_size, (slots, c), generator=g,
+                          dtype=torch.int32).to(dev)
+    for kv_dtype, kernel in (("fp32", "B2"), ("int8", "B4")):
+        pcache = models.init_paged_cache(cfg, slots * cap + 1, ps, kv_dtype,
+                                         device=dev)
+        pages = "bf16" if kv_dtype == "fp32" else "int8"
+        _profile(f"full-width pf step ({pages} pages, {slots} rows x chunk "
+                 f"{c}, starts 0-192; {kernel})",
+                 lambda: models.paged_prefill_step(cfg, params, pcache, chunk,
+                                                   st, btf, length),
+                 5, "paged_prefill_tc_kernel")
+        del pcache
 
 
 # ------------------------------------------------------------------ phase 5
@@ -984,6 +1099,64 @@ def _median_ms(fn, runs: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def _queued_ms(fn, flush, runs: int) -> float | None:
+    """Device time per call of ``fn`` from CUDA events around ``runs`` calls
+    queued behind a device sleep, so that the host has enqueued every call
+    before the first one starts and its time drops out; the L2 flush before
+    each call is timed the same way alone and taken off. None when the
+    sleep ended before the host had enqueued the calls."""
+    def span(body) -> float | None:
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's 1.98 GHz
+        a.record()
+        for _ in range(runs):
+            body()
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        return a.elapsed_time(b) if queued else None
+
+    both = span(lambda: (flush.zero_(), fn()))
+    alone = span(flush.zero_)
+    if both is None or alone is None:
+        return None
+    return (both - alone) / runs
+
+
+def _device_ms(fn, kernel: str, runs: int = 30) -> tuple[float | None,
+                                                        float | None]:
+    """Device time per call of ``fn``, without the host time ``_median_ms``
+    includes, with L2 flushed before each call (the flush not counted), two
+    ways: ``torch.profiler`` (the kernels whose name holds ``kernel``; up to
+    three tries, as a profile has on some runs recorded no kernels at all)
+    and ``_queued_ms``. Either is None where it measured nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(5):
+        fn()
+    profiled = None
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(v for k, v in _kernel_ms(prof, runs).items() if kernel in k)
+        if ms > 0:
+            profiled = ms
+            break
+    return profiled, _queued_ms(fn, flush, runs)
+
+
+def _fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
     import torch.nn.functional as F
 
@@ -1084,6 +1257,13 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
               f"q{tuple(args[0].shape)}: max abs err {err:.3g}")
         saved = fn.launches  # timing launches are not main-path launches
         ms = _median_ms(lambda: fn(*args))
+        profiled_ms, queued_ms = _device_ms(lambda: fn(*args), "paged_")
+        check(profiled_ms is not None or queued_ms is not None,
+              f"{fn.__name__}: neither the profiler nor CUDA events measured "
+              f"its device time")
+        device_ms, device_by = ((profiled_ms, "profiler")
+                                if profiled_ms is not None
+                                else (queued_ms, "cuda events"))
         fn.launches = saved
         plain_ms = _median_ms(lambda: plain(*args))
         library_ms = _median_ms(library)
@@ -1091,12 +1271,15 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
                                    args[-2:], kv_row)
         log(f"[timing] {fn.__name__} bf16 q{tuple(args[0].shape)} pages "
             f"{tuple(args[1].shape)} {args[1].dtype} table "
-            f"{tuple(args[-2].shape)}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), max abs err {err:.3g}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms}
+            f"{tuple(args[-2].shape)}: kernel {ms:.4f} ms per call (device "
+            f"only {_fmt_ms(profiled_ms)} profiled, {_fmt_ms(queued_ms)} "
+            f"by queued events), plain {plain_ms:.4f} ms, sdpa "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), max "
+            f"abs err {err:.3g}")
+        return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                "device_ms_by": device_by, "queued_ms": queued_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
 
     rows = []
     for fn, plain, replaces, kv_row, case, verify in cases:

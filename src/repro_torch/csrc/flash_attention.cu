@@ -570,38 +570,11 @@ cudaError_t launch_cuda_cores_branchy(const void* q, const void* k,
 }
 
 // ------------------------------------------ tensor-core route on the host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime, so the
-// library links no libcuda of its own and every source builds with the
-// same flags.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // A 4-D map (HD, S, heads, batch) of a bf16 [B, heads, S, 128] view with
 // element strides (sb, sh, ss), read in boxes of [128 rows][64].
 bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int heads,
                 int seq, long long sb, long long sh, long long ss) {
-  const EncodeTiled encode = encoder();
+  const flash_tc::EncodeTiled encode = flash_tc::encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(heads),

@@ -1,8 +1,10 @@
-// Hopper building blocks of the tensor-core flash-attention body
-// (flash_attention.cu, B6/B7 in bf16 at head_dim 128): mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors, the two wgmma shapes the body
-// issues and the special-function unit's exp2 and tanh. Inline PTX only
-// (no CUTLASS/CuTe), so the library builds in seconds.
+// Hopper building blocks of the tensor-core attention bodies (bf16 at
+// head_dim 128): flash attention (flash_attention.cu, B6/B7) and paged
+// prefill (paged_prefill_tc.cuh, B2/B4). mbarriers, TMA tile loads, bulk
+// copies, wgmma shared-memory descriptors, the wgmma shapes the bodies issue,
+// the special-function unit's exp2 and tanh, and on the host the lookup of
+// libcuda's tensor-map encoder. Inline PTX only (no CUTLASS/CuTe), so the
+// libraries build in seconds.
 //
 // Tiles are bf16 [rows][64] halves of a [rows][128] tile, 128 bytes a row,
 // loaded by TMA with the 128-byte swizzle into 1024-byte aligned shared
@@ -79,6 +81,28 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// A plain bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory, counted on `bar` like a TMA box.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma's operand reads); a barrier among the writers follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `count` threads, whole warps.
+__device__ __forceinline__ void named_sync(uint32_t id, uint32_t count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ------------------------------------------------------------------ wgmma
 // Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
@@ -104,9 +128,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving accesses of an accumulator across the
 // asynchronous products that own it.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D (+)= A B, A [64 x 16] and B [16 x 128] both from shared memory
@@ -137,6 +162,27 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a_desc,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// D (+)= A B, A [64 x 16] and B [16 x 64] both from shared memory: the
+// 64-column shape (half the accumulator of the one above).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a_desc,
+                                         uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a_desc), "l"(b_desc), "r"(scale_d));
 }
 
@@ -191,6 +237,34 @@ __device__ __forceinline__ float tanh_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------------ host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime, so no
+// library links a libcuda of its own and every source builds with the same
+// flags. nullptr when libcuda has none.
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
 }
 
 }  // namespace flash_tc

@@ -1,9 +1,13 @@
 // Paged decode (B1) and chunked prefill (B2) attention over model-dtype
 // pages: the host entry points of the templates in paged_attention.cuh,
-// instantiated for q/pages in {float32, bfloat16}.
+// instantiated for q/pages in {float32, bfloat16}. B2 in bf16 at head_dim 128
+// runs the tensor-core body of paged_prefill_tc.cuh, the rest CUDA cores.
 #include "paged_attention.cuh"
+#include "paged_prefill_tc.cuh"
 
 using paged::Args;
+using paged::launch_prefill_cuda_cores;
+using paged_tc::launch_prefill_tensor_cores;
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out). Returns the
 // cudaError_t of the launch (0 on success). Launches on `stream`, allocates
@@ -22,16 +26,22 @@ extern "C" int paged_decode_attention(
       a, dtype, head_dim, page_size, has_window, has_softcap, stream);
 }
 
+// As paged_decode_attention, with the chunk length after batch and the
+// pool's page count (for its tensor map) after pages_per_row.
 extern "C" int paged_prefill_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* start, void* out, int batch,
-    int chunk, int heads, int kv_heads, int pages_per_row, int dtype,
-    int head_dim, int page_size, int has_window, int window, int has_softcap,
-    float softcap, float sm_scale, void* stream) {
+    int chunk, int heads, int kv_heads, int pages_per_row, int num_pages,
+    int dtype, int head_dim, int page_size, int has_window, int window,
+    int has_softcap, float softcap, float sm_scale, void* stream) {
   const Args a{q, k_pages, v_pages, nullptr, nullptr,
                static_cast<const int*>(block_tables),
                static_cast<const int*>(start), out, batch, chunk, heads,
                kv_heads, pages_per_row, window, sm_scale, softcap};
-  return paged::launch<paged::PrefillLaunch, false>(
-      a, dtype, head_dim, page_size, has_window, has_softcap, stream);
+  const int w = has_window, c = has_softcap;
+  if (dtype == 1 && head_dim == 128) return launch_prefill_tensor_cores<__nv_bfloat16>(a, num_pages, page_size, w, c, stream);
+  if (dtype == 0 && head_dim == 16) return launch_prefill_cuda_cores<float, float, 16>(a, page_size, w, c, stream);
+  if (dtype == 0 && head_dim == 128) return launch_prefill_cuda_cores<float, float, 128>(a, page_size, w, c, stream);
+  if (dtype == 1 && head_dim == 16) return launch_prefill_cuda_cores<__nv_bfloat16, __nv_bfloat16, 16>(a, page_size, w, c, stream);
+  return cudaErrorInvalidValue;
 }

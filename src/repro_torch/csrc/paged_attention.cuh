@@ -20,7 +20,8 @@
 // model-dtype kernels (B1/B2), paged_attention_int8.cu the int8 ones
 // (B3/B4) and decode_attention.cu the dense one (B5), so each builds as its
 // own nvcc process side by side. flash_attention.cu (B6/B7) takes its
-// conversions and constants from here.
+// conversions and constants from here. B2/B4 in bf16 at head_dim 128 run the
+// tensor-core body of paged_prefill_tc.cuh instead of paged_prefill_kernel.
 //
 // Layouts (pages contiguous):
 //   pages        [P, page_size, KH, HD]   float / bfloat16 / int8
@@ -53,7 +54,8 @@
 // its window, are skipped structurally via the loop bounds — and keeps
 // scores, softmax state and the accumulator in shared memory, so the only
 // device traffic is K/V (+ scales) in, q in and the output out. No tensor
-// cores, TMA or wgmma yet: this is the simple version that is right first.
+// cores, TMA or wgmma: the simple version that is right first (B2/B4 in bf16
+// at head_dim 128 have a tensor-core body, paged_prefill_tc.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -382,18 +384,33 @@ cudaError_t by_mode(const Args& a, bool window, bool softcap, cudaStream_t s) {
 }
 
 template <template <typename, typename, int, int, bool, bool> class L,
+          typename T, typename P, int HD>
+cudaError_t by_page(const Args& a, int page_size, bool window, bool softcap,
+                    cudaStream_t s) {
+  if (page_size == 8) return by_mode<L, T, P, HD, 8>(a, window, softcap, s);
+  if (page_size == 16) return by_mode<L, T, P, HD, 16>(a, window, softcap, s);
+  return cudaErrorInvalidValue;
+}
+
+template <template <typename, typename, int, int, bool, bool> class L,
           typename T, typename P>
 cudaError_t by_shape(const Args& a, int head_dim, int page_size, bool window,
                      bool softcap, cudaStream_t s) {
-  if (head_dim == 16 && page_size == 8)
-    return by_mode<L, T, P, 16, 8>(a, window, softcap, s);
-  if (head_dim == 16 && page_size == 16)
-    return by_mode<L, T, P, 16, 16>(a, window, softcap, s);
-  if (head_dim == 128 && page_size == 8)
-    return by_mode<L, T, P, 128, 8>(a, window, softcap, s);
-  if (head_dim == 128 && page_size == 16)
-    return by_mode<L, T, P, 128, 16>(a, window, softcap, s);
+  if (head_dim == 16) return by_page<L, T, P, 16>(a, page_size, window, softcap, s);
+  if (head_dim == 128) return by_page<L, T, P, 128>(a, page_size, window, softcap, s);
   return cudaErrorInvalidValue;
+}
+
+// B2/B4 on CUDA cores at one (query type, page type, head_dim): the body for
+// fp32 and for head_dim 16 (paged_prefill_tc.cuh serves bf16 at 128).
+template <typename T, typename P, int HD>
+cudaError_t launch_prefill_cuda_cores(const Args& a, int page_size,
+                                      int has_window, int has_softcap,
+                                      void* stream) {
+  if (a.kv_heads <= 0 || a.heads % a.kv_heads != 0) return cudaErrorInvalidValue;
+  return by_page<PrefillLaunch, T, P, HD>(a, page_size, has_window != 0,
+                                         has_softcap != 0,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 // dtype picks the query/output type T: 0 = float32, 1 = bfloat16. With

@@ -1,10 +1,15 @@
 // Paged decode (B3) and chunked prefill (B4) attention over int8 pages with
 // f32 per-token-row scales: the host entry points of the templates in
 // paged_attention.cuh, instantiated for q/out in {float32, bfloat16}. B4 is
-// also the verify lane's kernel (a chunk of K+1 rows).
+// also the verify lane's kernel (a chunk of K+1 rows); in bf16 at head_dim
+// 128 it runs the tensor-core body of paged_prefill_tc.cuh, the rest CUDA
+// cores.
 #include "paged_attention.cuh"
+#include "paged_prefill_tc.cuh"
 
 using paged::Args;
+using paged::launch_prefill_cuda_cores;
+using paged_tc::launch_prefill_tensor_cores;
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out); pages are int8 and
 // k_scale / v_scale are float32 [P, page_size]. Returns the cudaError_t of
@@ -26,18 +31,24 @@ extern "C" int paged_decode_attention_int8(
       a, dtype, head_dim, page_size, has_window, has_softcap, stream);
 }
 
+// As paged_decode_attention_int8, with the chunk length after batch and the
+// pool's page count (for its tensor maps) after pages_per_row.
 extern "C" int paged_prefill_attention_int8(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_tables,
     const void* start, void* out, int batch, int chunk, int heads,
-    int kv_heads, int pages_per_row, int dtype, int head_dim, int page_size,
-    int has_window, int window, int has_softcap, float softcap,
+    int kv_heads, int pages_per_row, int num_pages, int dtype, int head_dim,
+    int page_size, int has_window, int window, int has_softcap, float softcap,
     float sm_scale, void* stream) {
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(block_tables),
                static_cast<const int*>(start), out, batch, chunk, heads,
                kv_heads, pages_per_row, window, sm_scale, softcap};
-  return paged::launch<paged::PrefillLaunch, true>(
-      a, dtype, head_dim, page_size, has_window, has_softcap, stream);
+  const int w = has_window, c = has_softcap;
+  if (dtype == 1 && head_dim == 128) return launch_prefill_tensor_cores<int8_t>(a, num_pages, page_size, w, c, stream);
+  if (dtype == 0 && head_dim == 16) return launch_prefill_cuda_cores<float, int8_t, 16>(a, page_size, w, c, stream);
+  if (dtype == 0 && head_dim == 128) return launch_prefill_cuda_cores<float, int8_t, 128>(a, page_size, w, c, stream);
+  if (dtype == 1 && head_dim == 16) return launch_prefill_cuda_cores<__nv_bfloat16, int8_t, 16>(a, page_size, w, c, stream);
+  return cudaErrorInvalidValue;
 }

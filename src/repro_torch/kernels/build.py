@@ -4,8 +4,9 @@ Each source in ``repro_torch/csrc`` is compiled at first use with ``nvcc``
 into its own shared library with a plain C interface, loaded with
 ``ctypes``. The sources build as parallel ``nvcc`` processes, one per file
 (the model-dtype paged kernels B1/B2, the int8 ones B3/B4, dense decode B5
-and flash attention B6/B7, all over one shared header — B6/B7 also over the
-Hopper helpers of ``flash_tc.cuh`` — and the SSD chunked scan B8). Each
+and flash attention B6/B7, all over one shared header — B6/B7 and the
+tensor-core body of B2/B4 (``paged_prefill_tc.cuh``) also over the Hopper
+helpers of ``flash_tc.cuh`` — and the SSD chunked scan B8). Each
 library lands in ``build/repro_torch/`` at the root of the checkout, named
 by a hash of its source, the headers and the flags, so
 an edit rebuilds and an unchanged tree reuses the last build. Nothing here
@@ -28,7 +29,7 @@ from types import SimpleNamespace
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-HEADERS = ("paged_attention.cuh", "flash_tc.cuh")
+HEADERS = ("paged_attention.cuh", "flash_tc.cuh", "paged_prefill_tc.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,8 +51,9 @@ SOURCES = {
         # window, has_softcap, softcap, sm_scale, stream
         "paged_decode_attention": [_ptr] * 6 + [_int] * 10 + [_float] * 2
         + [_ptr],
-        # as decode, with the chunk length after batch
-        "paged_prefill_attention": [_ptr] * 6 + [_int] * 11 + [_float] * 2
+        # as decode, with the chunk length after batch and the pool's page
+        # count after pages_per_row
+        "paged_prefill_attention": [_ptr] * 6 + [_int] * 12 + [_float] * 2
         + [_ptr],
     },
     "paged_attention_int8.cu": {
@@ -59,7 +61,7 @@ SOURCES = {
         "paged_decode_attention_int8": [_ptr] * 8 + [_int] * 10
         + [_float] * 2 + [_ptr],
         # as paged_prefill_attention, with k_scale, v_scale after v_pages
-        "paged_prefill_attention_int8": [_ptr] * 8 + [_int] * 11
+        "paged_prefill_attention_int8": [_ptr] * 8 + [_int] * 12
         + [_float] * 2 + [_ptr],
     },
     "decode_attention.cu": {

@@ -10,19 +10,31 @@ functions, with a chunk of K+1 rows). A chunk of C query tokens
 per row attends over the row's pages, which already hold the chunk's own K/V;
 chunk row ``i`` is causal at ``start[b] + i``, with an optional sliding
 window and logit softcap. B4 reads int8 pages and dequantises each K/V row
-by its f32 scale as it loads it.
+by its f32 scale.
 
-On the card (``csrc/paged_attention.cu``, ``paged_prefill_kernel``) the
-chunk's rows of one kv head are packed as ``[C·G, dh]`` — row ``r`` is chunk
-token ``r // G`` — and one block serves one ``(row, kv head, tile of 16
-packed rows)``. It loops over pages up to the tile's last causal frontier
-(the block table is ``max_pages_per_req`` wide, so the skip is what keeps the
-work proportional to the prompt) and, in window mode, from its first row's
-window; K/V pages stage in shared memory and the softmax runs in fp32. The
-work is bound by the K/V bytes read; each tile reads only the pages its
-rows can see. Window, softcap, head_dim, page_size, the query type and the
-page type are template parameters; B4 is the same body with int8 pages
-(``paged_attention_int8.cu``).
+On the card the chunk's rows of one kv head are packed as ``[C·G, dh]`` —
+row ``r`` is chunk token ``r // G``, causal at ``start[b] + r // G`` — and a
+block serves one ``(row, kv head, tile of packed rows)``, looping over the
+row's pages up to the tile's last causal frontier (the block table is
+``max_pages_per_req`` wide, so the skip is what keeps the work proportional
+to the prompt) and, in window mode, from its first row's window. Two bodies,
+chosen in the C entry points by dtype and head_dim:
+
+- bf16 at head_dim 128 on tensor cores (``csrc/paged_prefill_tc.cuh``):
+  tiles of 64 packed rows; a producer warp brings 64-key tiles of pages in
+  through the block table by TMA (one box per page) into a multi-stage
+  mbarrier ring; ``S = Q Kᵀ`` and ``O += P V`` run on ``wgmma`` with the
+  softmax in fp32 registers and P rounded to bf16. B4's int8 tiles are
+  widened to bf16 in shared memory (exact), the K scale applied to S's
+  columns and the V scale folded into P before its rounding.
+- fp32, or head_dim 16, on CUDA cores (``csrc/paged_attention.cuh``,
+  ``paged_prefill_kernel``): tiles of 16 packed rows, one page at a time in
+  fp32 shared memory.
+
+Window, softcap, page_size and the page type are template parameters of
+both. The work is bound by the K/V bytes read; each tile reads only the
+pages its rows can see. B2 is ``csrc/paged_attention.cu``, B4
+``csrc/paged_attention_int8.cu``.
 
 The wrappers run the plain version only for CPU tensors. For CUDA tensors
 they launch the kernel or raise.
@@ -37,8 +49,26 @@ import torch
 
 from . import build
 from .decode_attention import gather_pages
+from .flash_attention import TENSOR_CORE_HEAD_DIM
 
 NEG_INF = -2.0e38
+
+
+def _check_tma_operands(name: str, q, *tensors) -> None:
+    """bf16 at head_dim 128 runs on tensor cores, which load q, the pools
+    and the scales by TMA and bulk copies: every base must be 16-byte
+    aligned (the operands are contiguous, so at head_dim 128 every stride
+    is a multiple of 16 bytes); raise on a tensor that is not."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] != TENSOR_CORE_HEAD_DIM:
+        return
+    for t in (q, *tensors):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: a {tuple(t.shape)} {t.dtype} operand cannot be "
+                f"loaded by TMA (base address {t.data_ptr() % 16} bytes past "
+                f"16-byte alignment); bf16 head_dim-128 calls need 16-byte "
+                f"aligned q, pages and scales"
+            )
 
 
 def paged_prefill_attention(
@@ -59,13 +89,15 @@ def paged_prefill_attention(
         )
     name = "paged_prefill_attention"
     build.check_operands(name, q, k_pages, v_pages, block_tables, start, 4)
+    _check_tma_operands(name, q, k_pages, v_pages)
     b, c, h, dh = q.shape
-    _, ps, kh, _ = k_pages.shape
+    n_pages, ps, kh, _ = k_pages.shape
     out = torch.empty_like(q)
     rc = build.load().paged_prefill_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), start.data_ptr(), out.data_ptr(),
-        b, c, h, kh, block_tables.shape[1], build.DTYPE_CODES[q.dtype], dh, ps,
+        b, c, h, kh, block_tables.shape[1], n_pages,
+        build.DTYPE_CODES[q.dtype], dh, ps,
         int(window is not None), int(window or 0),
         int(softcap is not None), float(softcap or 0.0),
         1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream,
@@ -100,14 +132,15 @@ def paged_prefill_attention_int8(
     build.check_operands(
         name, q, k_pages, v_pages, block_tables, start, 4, k_scale, v_scale
     )
+    _check_tma_operands(name, q, k_pages, v_pages, k_scale, v_scale)
     b, c, h, dh = q.shape
-    _, ps, kh, _ = k_pages.shape
+    n_pages, ps, kh, _ = k_pages.shape
     out = torch.empty_like(q)
     rc = build.load().paged_prefill_attention_int8(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
         start.data_ptr(), out.data_ptr(), b, c, h, kh, block_tables.shape[1],
-        build.DTYPE_CODES[q.dtype], dh, ps,
+        n_pages, build.DTYPE_CODES[q.dtype], dh, ps,
         int(window is not None), int(window or 0),
         int(softcap is not None), float(softcap or 0.0),
         1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream,

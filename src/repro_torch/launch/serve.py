@@ -2,7 +2,8 @@
 or the per-burst engine.
 
 ``--engine paged`` (default) synthesises open-loop Poisson traffic —
-shared-prefix prompts by default, distinct prompts with ``--prompt-len`` —
+``--num-prefixes`` shared prefixes by default, distinct prompts with
+``--prompt-len``, drawn as the JAX package's launcher draws them —
 and drives it through ``Engine.paged_continuous``; ``--kv-dtype int8``
 stores the pool as int8 pages (kernels B3/B4) and ``--spec-k K`` turns on
 speculative decoding with a ``--draft-layers``-deep draft. ``--engine
@@ -86,7 +87,34 @@ def _print_report(rep: dict) -> None:
               f"{rep.get('tokens_per_target_step')}", flush=True)
 
 
-def main(argv: list[str] | None = None) -> dict:
+def make_requests(args: argparse.Namespace, vocab: int) -> list:
+    """The request stream of the parsed flags, drawn as the JAX package's
+    launcher draws it: prompt-less Poisson traffic for ``--engine burst``,
+    distinct prompts with ``--prompt-len``, shared prefixes otherwise. New
+    tokens are capped at ``max_len - max(prompt_len, 1) + 1``: the batchers
+    seat ``prompt + new - 1 <= max_len`` positions."""
+    if args.engine == "paged" and args.prompt_len <= 0:
+        return shared_prefix_arrivals(
+            args.requests, args.rate, seed=args.seed,
+            num_prefixes=args.num_prefixes, prefix_len=args.prefix_len,
+            tokens_mean=args.tokens_mean, total_max=args.max_len,
+            sample_frac=args.sample_frac, vocab=vocab,
+        )
+    reqs = poisson_arrivals(
+        args.requests, args.rate, seed=args.seed,
+        tokens_mean=args.tokens_mean,
+        tokens_max=max(1, args.max_len - max(args.prompt_len, 1) + 1),
+        sample_frac=args.sample_frac, vocab=vocab,
+    )
+    if args.prompt_len > 0:
+        attach_distinct_prompts(
+            reqs, args.prompt_len, vocab=vocab, seed=args.seed + 1
+        )
+    return reqs
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    """The launcher's flags, checked against the engine they name."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--engine", choices=("paged", "burst"), default="paged",
                     help="serving engine: paged continuous batching, or the "
@@ -103,14 +131,17 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--sample-frac", type=float, default=0.5,
                     help="fraction of requests that sample (vs greedy)")
     ap.add_argument("--max-len", type=int, default=128)
-    ap.add_argument("--batch-quantum", type=int, default=4,
-                    help="burst batch sizes round up to a multiple of this")
+    ap.add_argument("--batch-quantum", type=int, default=2,
+                    help="burst batch sizes round up to a multiple of this "
+                         "(2, the value the JAX package's launcher fixes)")
     ap.add_argument("--page-size", type=int, default=8,
                     help="tokens per KV page")
     ap.add_argument("--num-pages", type=int, default=0,
                     help="pool pages (0 = 8 slots x max-len worth)")
     ap.add_argument("--prefix-len", type=int, default=16,
                     help="shared prompt prefix length")
+    ap.add_argument("--num-prefixes", type=int, default=3,
+                    help="number of distinct shared prefixes")
     ap.add_argument("--prompt-len", type=int, default=0,
                     help="give every request its own random prompt of this "
                          "length instead of a shared prefix")
@@ -152,15 +183,22 @@ def main(argv: list[str] | None = None) -> dict:
         if args.kv_dtype != "fp32":
             ap.error("--kv-dtype requires --engine paged (the dense cache "
                      "has no page pool to quantise)")
-
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.smoke()
     if args.engine == "paged":
         try:
-            models.check_paged(cfg)
+            models.check_paged(_config(args))
         except ValueError as e:
             ap.error(f"--engine paged: {e}")
+    return args
+
+
+def _config(args: argparse.Namespace):
+    cfg = get_config(args.arch)
+    return cfg.smoke() if args.smoke else cfg
+
+
+def main(argv: list[str] | None = None) -> dict:
+    args = parse_args(argv)
+    cfg = _config(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
@@ -177,29 +215,7 @@ def main(argv: list[str] | None = None) -> dict:
         draft_layers=args.draft_layers,
         draft_kv_dtype=args.draft_kv_dtype,
     )
-    if args.engine == "burst":
-        reqs = poisson_arrivals(
-            args.requests, args.rate, seed=args.seed,
-            tokens_mean=args.tokens_mean, tokens_max=args.max_len,
-            sample_frac=args.sample_frac, vocab=cfg.vocab_size,
-        )
-    elif args.prompt_len > 0:
-        reqs = poisson_arrivals(
-            args.requests, args.rate, seed=args.seed,
-            tokens_mean=args.tokens_mean,
-            tokens_max=max(1, args.max_len - args.prompt_len),
-            sample_frac=args.sample_frac, vocab=cfg.vocab_size,
-        )
-        attach_distinct_prompts(
-            reqs, args.prompt_len, vocab=cfg.vocab_size, seed=args.seed + 1
-        )
-    else:
-        reqs = shared_prefix_arrivals(
-            args.requests, args.rate, seed=args.seed,
-            num_prefixes=3, prefix_len=args.prefix_len,
-            tokens_mean=args.tokens_mean, total_max=args.max_len,
-            sample_frac=args.sample_frac, vocab=cfg.vocab_size,
-        )
+    reqs = make_requests(args, cfg.vocab_size)
     with Engine(cfg, params, ecfg, device=device) as eng:
         if args.engine == "burst":
             rep = run_burst_stream(eng, reqs, seed=args.seed)

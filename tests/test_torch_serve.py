@@ -196,3 +196,90 @@ def test_pool_pressure_defers_and_preempts_without_changing_streams(smoke):
     assert rt["preemptions"] + rt["starved_admissions"] > 0
     assert rt["compiles_after_warmup"] == 0
     assert {r.rid: r.tokens for r in tight} == {r.rid: r.tokens for r in ample}
+
+
+# ------------------------------------------- the launcher's traffic, flags
+def _fields(reqs) -> list:
+    return [(r.rid, r.arrival_s, r.new_tokens, r.greedy, r.temperature,
+             r.first_token, tuple(r.prompt)) for r in reqs]
+
+
+def test_launcher_draws_the_reference_distinct_prompt_traffic():
+    """``--prompt-len`` traffic is the JAX launcher's (arrival times, token
+    budgets and prompts), with new tokens capped at
+    ``max_len - max(prompt_len, 1) + 1`` — the cap the batchers seat."""
+    argv = ["--smoke", "--device", "cpu", "--prompt-len", "48",
+            "--max-len", "64", "--seed", "3", "--requests", "40",
+            "--tokens-mean", "16"]
+    args = launch.parse_args(argv)
+    vocab = jax_config("olmo-1b").smoke().vocab_size
+    ours = launch.make_requests(args, vocab)
+    # as src/repro/launch/serve.py's traffic(seed) draws them
+    ref = jsched.poisson_arrivals(
+        args.requests, args.rate, seed=args.seed,
+        tokens_mean=args.tokens_mean,
+        tokens_max=max(1, args.max_len - max(args.prompt_len, 1) + 1),
+        sample_frac=args.sample_frac, vocab=vocab,
+    )
+    jsched.attach_distinct_prompts(ref, args.prompt_len, vocab=vocab,
+                                   seed=args.seed + 1)
+    assert _fields(ours) == _fields(ref)
+    cap = args.max_len - args.prompt_len + 1
+    assert max(r.new_tokens for r in ours) == cap
+    assert sum(r.new_tokens == cap for r in ours) >= 1
+
+
+@pytest.mark.parametrize("num_prefixes", [2, 5])
+def test_launcher_num_prefixes_draws_the_reference_shared_prefix_traffic(
+    num_prefixes,
+):
+    """``--num-prefixes N`` reaches ``shared_prefix_arrivals`` as the JAX
+    launcher's flag does; the default stays the reference's 3."""
+    vocab = jax_config("olmo-1b").smoke().vocab_size
+    argv = ["--smoke", "--device", "cpu", "--requests", "12",
+            "--prefix-len", "16", "--max-len", "64", "--seed", "2"]
+    default = launch.parse_args(argv)
+    args = launch.parse_args(argv + ["--num-prefixes", str(num_prefixes)])
+    assert default.num_prefixes == 3
+
+    def ref(n):
+        return jsched.shared_prefix_arrivals(
+            args.requests, args.rate, seed=args.seed, num_prefixes=n,
+            prefix_len=args.prefix_len, tokens_mean=args.tokens_mean,
+            total_max=args.max_len, sample_frac=args.sample_frac,
+            vocab=vocab,
+        )
+
+    ours = launch.make_requests(args, vocab)
+    assert _fields(ours) == _fields(ref(num_prefixes))
+    assert _fields(ours) != _fields(launch.make_requests(default, vocab))
+    assert len({r.prompt[: args.prefix_len] for r in ours}) == num_prefixes
+
+
+def test_burst_launcher_builds_its_engine_with_the_reference_quantum(
+    monkeypatch,
+):
+    """With default flags ``--engine burst`` buckets batch sizes by the
+    quantum that the JAX launcher fixes (``batch_quantum=2``)."""
+    import re
+    from pathlib import Path
+
+    import repro.launch.serve as jlaunch
+
+    want = re.findall(r"batch_quantum=(\d+)",
+                      Path(jlaunch.__file__).read_text())
+    assert want == ["2"]
+    built = {}
+
+    class Built(Exception):
+        pass
+
+    def engine(cfg, params, ecfg, device=None):
+        built["ecfg"], built["device"] = ecfg, device
+        raise Built
+
+    monkeypatch.setattr(launch, "Engine", engine)
+    with pytest.raises(Built):
+        launch.main(["--engine", "burst", "--smoke", "--device", "cpu"])
+    assert built["ecfg"].batch_quantum == int(want[0])
+    assert built["device"].type == "cpu"
