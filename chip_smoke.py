@@ -23,7 +23,10 @@ Phases (any failure exits non-zero before a result is printed):
    tensor-core body) also at lengths 1, 64, 65, 129 and a ragged 1056, and
    64 queries over 200 keys; B2/B4's tensor-core body (bf16, dh 128) also at
    chunks 1, 5, 63, 64, 65 and 130, groups 1, 5 and 16, pages of 8 and 16,
-   a window of 40 crossing page boundaries and starts off page boundaries.
+   a window of 40 crossing page boundaries and starts off page boundaries;
+   B1/B3's cluster-split body (dh 128) at every split count 1-8, groups 1, 5
+   and 16, pages of 8 and 16, every mode, positions 0 and on page
+   boundaries, short rows beside a 64-page row.
 3. The serving paths: olmo-1b at full width (bf16, seeded random weights)
    serving a shared-prefix stream through ``run_paged_stream`` with chunked
    prefill — first on bf16 pages (B1/B2), then on int8 pages with
@@ -37,7 +40,8 @@ Phases (any failure exits non-zero before a result is printed):
    with B6, ``pad_cache`` to 1024, ``decode_loop`` of 32 greedy tokens with
    B5) held against ``forward`` (B6) over prompt + tokens, and ``forward``
    with B6 against the naive attention; then profiled windows of full-width
-   decode steps (bf16 pages), speculative steps (int8 pages), `pf` steps
+   decode steps (bf16 and int8 pages: B1's and B3's share), speculative
+   steps (int8 pages), `pf` steps
    (8 rows x chunk 64 on bf16 and on int8 pages: B2's and B4's share) and
    burst steps: device busy vs host wall.
 5. The smoke config's greedy stream on the card and on the CPU: plain, and
@@ -156,6 +160,15 @@ def setup() -> None:
         f"modes): registers {min(r for r, _ in pf.values())}.."
         f"{max(r for r, _ in pf.values())}, spill stores max {spill} B")
     check(spill == 0, f"the tensor-core paged prefill body spills {spill} B")
+    sp = _ptxas_by_kernel(info["log"], "paged_decode_split")
+    check(len(sp) == 128, f"expected 128 cluster-split paged decode "
+          f"instantiations (B1, B3 x 2 query types x head_dim 16/128 x pages "
+          f"8/16 x 4 modes x R 1/4), the build log has {len(sp)}")
+    spill = max(s_ for _, s_ in sp.values())
+    log(f"[setup] cluster-split paged decode body (B1, B3): registers "
+        f"{min(r for r, _ in sp.values())}..{max(r for r, _ in sp.values())}"
+        f", spill stores max {spill} B")
+    check(spill == 0, f"the cluster-split paged decode body spills {spill} B")
 
 
 def _ptxas_by_kernel(text: str, name: str) -> dict:
@@ -262,6 +275,7 @@ def kernels_vs_plain() -> None:
                     f"{sname}/bfloat16/sq={sq}/sk={sk}", h, kh, dh,
                     torch.bfloat16, seed=len(worst), sq=sq, sk=sk))
     worst.update(_prefill_tc_cases())
+    worst.update(_decode_split_cases())
     for dtype in ("float32", "bfloat16"):
         errs = {k: v for k, v in worst.items() if f"/{dtype}" in k}
         log(f"[kernels] {len(errs)} {dtype} cases pass, max abs err "
@@ -272,6 +286,15 @@ def kernels_vs_plain() -> None:
         f"{[sq for sq, sk in TC_EDGE_LENGTHS if sq == sk]}, Sq 64 over Sk "
         f"200; 3 layouts x 8 modes): {len(tc)} cases, max abs err "
         f"{max(tc.values()):.3g}")
+    for kname in ("decode", "decode_int8"):
+        sp = {k: v for k, v in worst.items() if k.startswith(f"split_{kname}/")}
+        log(f"[kernels] cluster-split {kname} edges (S 1-{SPLIT_MAX}, groups "
+            f"{SPLIT_GROUPS}, pages 8/16, 4 modes, window {TC_WINDOW}, "
+            f"positions 0 and on page boundaries, short rows beside a "
+            f"{SPLIT_LONG_PAGES}-page row, fp32 and bf16): {len(sp)} cases, "
+            f"max abs err fp32 "
+            f"{max(v for k, v in sp.items() if k.endswith('float32')):.3g}, "
+            f"bf16 {max(v for k, v in sp.items() if k.endswith('bfloat16')):.3g}")
     for kname in ("prefill", "prefill_int8"):
         tc = {k: v for k, v in worst.items() if k.startswith(f"tc_{kname}/")}
         log(f"[kernels] tensor-core {kname} edges (chunks {TC_CHUNKS}, groups "
@@ -333,6 +356,63 @@ def _prefill_tc_cases() -> dict:
                               fn(q, *pages, bt, st, **kw),
                               plain(q.float(), *ref_pages, bt, st, **kw),
                               torch.bfloat16)
+    return errs
+
+
+# B1/B3's cluster-split body: every split count, GQA groups 1 (one row a
+# CTA), 5 and 16 (tiles of 4 rows), rows at key 0, on page boundaries and
+# short beside one of 64 pages (the bucket of a 1024-token row at page 16).
+SPLIT_MAX = 8
+SPLIT_GROUPS = (1, 5, 16)
+SPLIT_LONG_PAGES = 64
+
+
+def _decode_split_cases() -> dict:
+    """B1 and B3 against their plain versions at every S 1-``SPLIT_MAX``
+    (past a short row's pages: CTAs without pages) x ``SPLIT_GROUPS`` x
+    page size x mode x fp32/bf16, head_dim 128, 2 kv heads; the window
+    leaves lane groups and warps of its first page with only masked keys.
+    Pages are scattered over the pool, tables padded with the null page 0."""
+    from repro_torch import kernels
+
+    errs, kh, dh = {}, 2, 128
+    modes = [(None, None), (TC_WINDOW, None), (None, 30.0), (TC_WINDOW, 30.0)]
+    for ps in (8, 16):
+        pos = [0, ps - 1, ps, 2 * ps - 1, 3 * ps + 5,
+               SPLIT_LONG_PAGES * ps - 1]
+        g = torch.Generator().manual_seed(100 + ps)
+        n_pages = 2 * SPLIT_LONG_PAGES + 1
+        kp = torch.randn(n_pages, ps, kh, dh, generator=g).to("cuda")
+        vp = torch.randn(n_pages, ps, kh, dh, generator=g).to("cuda")
+        (kq, ks), (vq, vs) = _quantised(kp), _quantised(vp)
+        bt = torch.zeros(len(pos), SPLIT_LONG_PAGES, dtype=torch.int32)
+        for r, p in enumerate(pos):
+            need = p // ps + 1
+            bt[r, :need] = (torch.randperm(n_pages - 1, generator=g) + 1)[:need]
+        bt = bt.to("cuda")
+        pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        for group in SPLIT_GROUPS:
+            qf = torch.randn(len(pos), kh * group, dh, generator=g).to("cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                q = qf.to(dtype)
+                # (name, kernel, plain version, its pages, the plain's)
+                cases = (("decode", kernels.paged_decode_attention,
+                          kernels.paged_decode_attention_plain,
+                          (kp.to(dtype), vp.to(dtype)),
+                          (kp.to(dtype).float(), vp.to(dtype).float())),
+                         ("decode_int8", kernels.paged_decode_attention_int8,
+                          kernels.paged_decode_attention_int8_plain,
+                          (kq, vq, ks, vs), (kq, vq, ks, vs)))
+                for window, cap in modes:
+                    kw = dict(window=window, softcap=cap)
+                    for kname, fn, plain, pages, ref_pages in cases:
+                        ref = plain(q.float(), *ref_pages, bt, pt, **kw)
+                        for splits in range(1, SPLIT_MAX + 1):
+                            _held(errs, f"split_{kname}/S={splits}/G={group}/"
+                                  f"ps={ps}/w={window}/cap={cap}/"
+                                  f"{str(dtype)[6:]}",
+                                  fn(q, *pages, bt, pt, splits=splits, **kw),
+                                  ref, dtype)
     return errs
 
 
@@ -676,13 +756,16 @@ def prompt_then_burst(cfg, params) -> dict:
     return launches
 
 
-def _kernel_ms(prof, calls: int) -> dict:
-    """{kernel name: device ms per call} of a profile over ``calls`` calls."""
+def _kernel_ms(prof, calls: int, counts: dict | None = None) -> dict:
+    """{kernel name: device ms per call} of a profile over ``calls`` calls;
+    ``counts``, when given, receives {kernel name: launches recorded}."""
     by_name = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
         if t > 0 and e.device_type.name == "CUDA":
             by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3 / calls
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0) + e.count
     return by_name
 
 
@@ -716,12 +799,14 @@ def _profile(label: str, run, steps: int, attn_kernel: str) -> None:
 
 
 def profile_steps(cfg, params) -> None:
-    """Where a full-width step's time goes: a decode step on bf16 pages (8
-    slots at position 200, 256-token tables), a speculative step on int8
+    """Where a full-width step's time goes: a decode step on bf16 and on
+    int8 pages (8 slots at position 200, 256-token tables; B1's and B3's
+    share), a speculative step on int8
     pages (a 2-layer int8 draft proposing 4 tokens, then a 5-row verify
     with the table at the 64-page cap), and a `pf` step on bf16 and on int8
     pages (B2's and B4's share)."""
     from repro_torch import models
+    from repro_torch.kernels.decode_attention import decode_splits
     from repro_torch.runtime import steps as steps_mod
 
     dev, slots, pb, ps = "cuda", 8, 16, 16
@@ -729,11 +814,18 @@ def profile_steps(cfg, params) -> None:
                       device=dev).view(slots, pb)
     pos = torch.full((slots,), 200, dtype=torch.int32, device=dev)
     tok = torch.zeros(slots, 1, dtype=torch.int32, device=dev)
-    cache = models.init_paged_cache(cfg, slots * pb + 1, ps, device=dev)
-    _profile("full-width decode step (bf16 pages, 8 slots, pos 200)",
-             lambda: models.paged_decode_step(cfg, params, cache, tok, pos, bt),
-             5, "paged_decode_kernel")
-    del cache
+    splits = decode_splits(slots, cfg.num_kv_heads,
+                           cfg.num_heads // cfg.num_kv_heads, pb)
+    for kv_dtype, kernel in (("fp32", "B1"), ("int8", "B3")):
+        cache = models.init_paged_cache(cfg, slots * pb + 1, ps, kv_dtype,
+                                        device=dev)
+        pages = "bf16" if kv_dtype == "fp32" else "int8"
+        _profile(f"full-width decode step ({pages} pages, {slots} slots, pos "
+                 f"200; {kernel}, S {splits})",
+                 lambda: models.paged_decode_step(cfg, params, cache, tok, pos,
+                                                  bt),
+                 5, "paged_decode_split_kernel")
+        del cache
     k, cap = 4, 64
     dcfg, dparams = models.draft_view(cfg, params, 2)
     draft = steps_mod.make_draft_fn(dcfg, k=k)
@@ -1130,8 +1222,9 @@ def _device_ms(fn, kernel: str, runs: int = 30) -> tuple[float | None,
     """Device time per call of ``fn``, without the host time ``_median_ms``
     includes, with L2 flushed before each call (the flush not counted), two
     ways: ``torch.profiler`` (the kernels whose name holds ``kernel``; up to
-    three tries, as a profile has on some runs recorded no kernels at all)
-    and ``_queued_ms``. Either is None where it measured nothing."""
+    three tries, as a profile has on some runs recorded none or only some
+    of the ``runs`` launches, and only a try that recorded all of them
+    counts) and ``_queued_ms``. Either is None where it measured nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -1146,8 +1239,12 @@ def _device_ms(fn, kernel: str, runs: int = 30) -> tuple[float | None,
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        ms = sum(v for k, v in _kernel_ms(prof, runs).items() if kernel in k)
-        if ms > 0:
+        counts = {}
+        ms = sum(v for k, v in _kernel_ms(prof, runs, counts).items()
+                 if kernel in k)
+        # a profile that dropped some of the kernels' events would divide
+        # their time by too many calls: take only one that kept them all
+        if ms > 0 and sum(n for k, n in counts.items() if kernel in k) == runs:
             profiled = ms
             break
     return profiled, _queued_ms(fn, flush, runs)
@@ -1161,6 +1258,7 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import decode_splits
 
     dev, dtype = "cuda", torch.bfloat16
     h = kh = 16
@@ -1191,11 +1289,11 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
         return g_.reshape(bt.shape[0], length, kh, dh).transpose(1, 2).to(
             dtype).contiguous()
 
-    def decode_case(int8: bool):
-        # B1/B3 at the decode lane's shapes: 8 slots, pages bucket 16
-        pb = 16
+    def decode_case(int8: bool, pb: int = 16, lo: int = 96):
+        # B1/B3 at the decode lane's shapes: 8 slots, pages bucket 16,
+        # positions lo..pb*ps-1
         bt = perm[: slots * pb].view(slots, pb).to(torch.int32).to(dev)
-        pos = torch.randint(96, pb * ps, (slots,), generator=g,
+        pos = torch.randint(lo, pb * ps, (slots,), generator=g,
                             dtype=torch.int32).to(dev)
         q = torch.randn(slots, h, dh, generator=g).to(dev, dtype)
         mask = torch.arange(pb * ps, device=dev)[None] <= pos[:, None].long()
@@ -1225,6 +1323,30 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
             q.transpose(1, 2), gk, gv, attn_mask=mask[:, None]
         ), int((st + c).sum()), pairs
 
+    def split_sweep(fn, int8: bool) -> dict:
+        """B1/B3 device-only at every S 1-8, at the timing shape and on
+        rows of 48-64 pages (a 64-page bucket): the evidence for
+        ``decode_splits``. All by queued CUDA events, one method for every
+        S. Timing launches are not main-path launches."""
+        sweep, saved = {}, fn.launches
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        for pb, lo in ((16, 96), (64, 768)):
+            args = decode_case(int8, pb, lo)[0]
+            by_s = {}
+            for s_ in range(1, 9):
+                call = partial(fn, *args, splits=s_)
+                for _ in range(5):
+                    call()
+                by_s[s_] = _queued_ms(call, flush, 30)
+            pick = decode_splits(slots, kh, h // kh, pb)
+            log(f"[timing] {fn.__name__} device-only ms by S (queued "
+                f"events), pages bucket {pb} (positions {lo}-{pb * ps - 1}; "
+                f"decode_splits picks {pick}): "
+                + ", ".join(f"S {k} {_fmt_ms(v)}" for k, v in by_s.items()))
+            sweep[pb] = by_s
+        fn.launches = saved
+        return sweep
+
     prefill_start = [0, 64, 128, 192, 0, 64, 128, 192]  # keys < 256
     verify_start = [130, 200, 250, 300, 140, 180, 220, 231]  # keys < 320
     bf16_row, int8_row = kh * dh * 2, kh * dh + 4  # bytes per K or V row
@@ -1249,6 +1371,10 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
 
     def measure(fn, plain, kv_row, case):
         args, library, kv_tokens, pairs = case
+        split = {}
+        if "decode" in fn.__name__:  # B1/B3: the wrapper's cluster size
+            split = {"splits": decode_splits(slots, kh, h // kh,
+                                             args[-2].shape[1])}
         out = fn(*args)
         ref = plain(args[0].float(), *args[1:])
         torch.cuda.synchronize()
@@ -1271,12 +1397,14 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
                                    args[-2:], kv_row)
         log(f"[timing] {fn.__name__} bf16 q{tuple(args[0].shape)} pages "
             f"{tuple(args[1].shape)} {args[1].dtype} table "
-            f"{tuple(args[-2].shape)}: kernel {ms:.4f} ms per call (device "
+            f"{tuple(args[-2].shape)}"
+            + (f" S {split['splits']}" if split else "")
+            + f": kernel {ms:.4f} ms per call (device "
             f"only {_fmt_ms(profiled_ms)} profiled, {_fmt_ms(queued_ms)} "
             f"by queued events), plain {plain_ms:.4f} ms, sdpa "
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), max "
             f"abs err {err:.3g}")
-        return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+        return {**split, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
                 "device_ms_by": device_by, "queued_ms": queued_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms}
@@ -1294,6 +1422,8 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
                         measure(fn, plain, kv_row, verify).items()})
         if fn is kernels.paged_prefill_attention:
             row["verify_launches"] = b2_verify["launches"]  # smoke, phase 5
+        if "decode" in fn.__name__:
+            row["device_ms_by_splits"] = split_sweep(fn, "int8" in fn.__name__)
         rows.append(row)
     return rows
 

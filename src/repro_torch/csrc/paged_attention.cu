@@ -1,29 +1,37 @@
 // Paged decode (B1) and chunked prefill (B2) attention over model-dtype
-// pages: the host entry points of the templates in paged_attention.cuh,
-// instantiated for q/pages in {float32, bfloat16}. B2 in bf16 at head_dim 128
-// runs the tensor-core body of paged_prefill_tc.cuh, the rest CUDA cores.
+// pages: the host entry points of the templates, instantiated for q/pages in
+// {float32, bfloat16}. B1 runs the cluster-split body of
+// paged_decode_split.cuh; B2 in bf16 at head_dim 128 the tensor-core body of
+// paged_prefill_tc.cuh, the rest of B2 paged_attention.cuh's CUDA cores.
 #include "paged_attention.cuh"
+#include "paged_decode_split.cuh"
 #include "paged_prefill_tc.cuh"
 
 using paged::Args;
 using paged::launch_prefill_cuda_cores;
+using paged_split::launch_decode_split;
 using paged_tc::launch_prefill_tensor_cores;
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pages and out). Returns the
-// cudaError_t of the launch (0 on success). Launches on `stream`, allocates
-// nothing, does not sync.
+// dtype: 0 = float32, 1 = bfloat16 (q, pages and out); splits: the CTAs of
+// one cluster that share a row's pages (1-8). Returns the cudaError_t of the
+// launch (0 on success). Launches on `stream`, allocates nothing, does not
+// sync.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* pos, void* out, int batch,
-    int heads, int kv_heads, int pages_per_row, int dtype, int head_dim,
-    int page_size, int has_window, int window, int has_softcap,
+    int heads, int kv_heads, int pages_per_row, int splits, int dtype,
+    int head_dim, int page_size, int has_window, int window, int has_softcap,
     float softcap, float sm_scale, void* stream) {
   const Args a{q, k_pages, v_pages, nullptr, nullptr,
                static_cast<const int*>(block_tables),
                static_cast<const int*>(pos), out, batch, 1, heads, kv_heads,
-               pages_per_row, window, sm_scale, softcap};
-  return paged::launch<paged::DecodeLaunch, false>(
-      a, dtype, head_dim, page_size, has_window, has_softcap, stream);
+               pages_per_row, window, sm_scale, softcap, splits};
+  const int w = has_window, c = has_softcap;
+  if (dtype == 0 && head_dim == 16) return launch_decode_split<float, float, 16>(a, page_size, w, c, stream);
+  if (dtype == 0 && head_dim == 128) return launch_decode_split<float, float, 128>(a, page_size, w, c, stream);
+  if (dtype == 1 && head_dim == 16) return launch_decode_split<__nv_bfloat16, __nv_bfloat16, 16>(a, page_size, w, c, stream);
+  if (dtype == 1 && head_dim == 128) return launch_decode_split<__nv_bfloat16, __nv_bfloat16, 128>(a, page_size, w, c, stream);
+  return cudaErrorInvalidValue;
 }
 
 // As paged_decode_attention, with the chunk length after batch and the

@@ -1,13 +1,12 @@
 // Attention kernels for Hopper (sm_90a) over a KV cache read one key block
-// at a time: paged decode (B1, B3) and chunked prefill (B2, B4) over a pooled
-// KV page cache, in the model dtype (B1/B2) or as int8 pages with
-// per-token-row scales (B3/B4), and dense single-token decode (B5) over a
-// [B, S, KH, HD] cache with a scalar position.
+// at a time: chunked prefill (B2, B4) over a pooled KV page cache, in the
+// model dtype (B2) or as int8 pages with per-token-row scales (B4), and
+// dense single-token decode (B5) over a [B, S, KH, HD] cache with a scalar
+// position; also the conversions, constants, address policies and launch
+// selection the other bodies share.
 //
 // Replaces the Pallas TPU kernels
-//   src/repro/kernels/decode_attention.py:paged_decode_attention        (B1)
 //   src/repro/kernels/prefill_attention.py:paged_prefill_attention      (B2)
-//   src/repro/kernels/decode_attention.py:paged_decode_attention_int8   (B3)
 //   src/repro/kernels/prefill_attention.py:paged_prefill_attention_int8 (B4)
 //   src/repro/kernels/decode_attention.py:decode_attention              (B5)
 // with the same layouts and the same arithmetic: scores, the online softmax
@@ -17,11 +16,13 @@
 // body.
 //
 // This header holds the templates; paged_attention.cu instantiates the
-// model-dtype kernels (B1/B2), paged_attention_int8.cu the int8 ones
-// (B3/B4) and decode_attention.cu the dense one (B5), so each builds as its
-// own nvcc process side by side. flash_attention.cu (B6/B7) takes its
-// conversions and constants from here. B2/B4 in bf16 at head_dim 128 run the
-// tensor-core body of paged_prefill_tc.cuh instead of paged_prefill_kernel.
+// model-dtype kernels (B2), paged_attention_int8.cu the int8 ones (B4) and
+// decode_attention.cu the dense one (B5), so each builds as its own nvcc
+// process side by side. flash_attention.cu (B6/B7) takes its conversions and
+// constants from here. B2/B4 in bf16 at head_dim 128 run the tensor-core
+// body of paged_prefill_tc.cuh instead of paged_prefill_kernel; paged decode
+// (B1, B3) runs the cluster-split body of paged_decode_split.cuh over
+// PagedRows.
 //
 // Layouts (pages contiguous):
 //   pages        [P, page_size, KH, HD]   float / bfloat16 / int8
@@ -33,7 +34,7 @@
 //            stride on HD), pos a 0-dim int32 read on the device
 // Query head h = kh * G + g belongs to kv head kh (G = H / KH, the GQA group).
 //
-// A block of keys is a page for B1-B4 and kDenseBlock consecutive cache rows
+// A block of keys is a page for B2/B4 and kDenseBlock consecutive cache rows
 // for B5: the one body (attend_pages) takes the block's address from a
 // policy (PagedRows chases the block table, DenseRows is the table j -> j),
 // so the online softmax is written once.
@@ -70,7 +71,7 @@ namespace paged {
 constexpr float kNegInf = -2.0e38f;
 constexpr float kMinDenom = 1e-37f;
 constexpr int kThreads = 128;
-constexpr int kDecodeRows = 8;    // query rows (GQA group members) per block
+constexpr int kDecodeRows = 8;    // query rows (GQA group members) a B5 block
 constexpr int kPrefillRows = 16;  // packed chunk rows (C*G) per block
 constexpr int kDenseBlock = 16;   // dense cache rows per key block (B5)
 
@@ -233,50 +234,6 @@ __device__ void attend_pages(Tile<HD, PS, TR>& tile, const P* __restrict__ k,
   }
 }
 
-// B1/B3: one block per (batch row b, kv head kh, group tile); a group of up
-// to kDecodeRows query heads shares one block, so for GQA groups that fit
-// (all configs in the repo) it is one block per (b, kh) and each K/V page is
-// read once per kv head.
-template <typename T, typename P, int HD, int PS, bool WINDOW, bool SOFTCAP>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
-                        const P* __restrict__ v_pages,
-                        const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale,
-                        const int* __restrict__ block_tables,
-                        const int* __restrict__ pos, T* __restrict__ out,
-                        int heads, int kv_heads, int pages_per_row,
-                        float sm_scale, int window, float softcap) {
-  __shared__ Tile<HD, PS, kDecodeRows> tile;
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x, kh = blockIdx.y;
-  const int group = heads / kv_heads;
-  const int h0 = kh * group + blockIdx.z * kDecodeRows;
-  const int rows = min(kDecodeRows, group - static_cast<int>(blockIdx.z) *
-                                                kDecodeRows);
-  const int p = pos[b];
-  const T* q_b = q + (static_cast<size_t>(b) * heads + h0) * HD;
-  for (int i = tid; i < rows * HD; i += kThreads)
-    tile.q[i / HD][i % HD] = to_float(q_b[i]);
-  if (tid < rows) tile.qi[tid] = p;
-  // structural skips: pages past pos, or (window) wholly before the window
-  const int p_hi = min(p / PS, pages_per_row - 1);
-  int p_lo = 0;
-  if constexpr (WINDOW) p_lo = max(p - window + 1, 0) / PS;
-  __syncthreads();
-  const PagedRows<PS> src{block_tables + static_cast<size_t>(b) * pages_per_row,
-                          static_cast<size_t>(kv_heads) * HD,
-                          static_cast<size_t>(kh) * HD};
-  attend_pages<P, HD, PS, WINDOW, SOFTCAP, kDecodeRows>(
-      tile, k_pages, v_pages, k_scale, v_scale, src, rows, p_lo, p_hi,
-      sm_scale, window, softcap);
-  T* out_b = out + (static_cast<size_t>(b) * heads + h0) * HD;
-  for (int i = tid; i < rows * HD; i += kThreads) {
-    const int r = i / HD;
-    out_b[i] = from_float<T>(tile.acc[r][i % HD] / fmaxf(tile.l[r], kMinDenom));
-  }
-}
-
 // B2/B4: one block per (batch row b, kv head kh, tile of kPrefillRows packed
 // rows). Packed row r of a kv head is chunk token c = r / G, group member
 // g = r % G, query head kh * G + g, causal frontier start + c. The page loop
@@ -337,22 +294,7 @@ struct Args {
   void* out;
   int batch, chunk, heads, kv_heads, pages_per_row, window;
   float sm_scale, softcap;
-};
-
-template <typename T, typename P, int HD, int PS, bool WINDOW, bool SOFTCAP>
-struct DecodeLaunch {
-  static cudaError_t run(const Args& a, cudaStream_t stream) {
-    const int group = a.heads / a.kv_heads;
-    const dim3 grid(a.batch, a.kv_heads,
-                    (group + kDecodeRows - 1) / kDecodeRows);
-    paged_decode_kernel<T, P, HD, PS, WINDOW, SOFTCAP>
-        <<<grid, kThreads, 0, stream>>>(
-            static_cast<const T*>(a.q), static_cast<const P*>(a.k_pages),
-            static_cast<const P*>(a.v_pages), a.k_scale, a.v_scale,
-            a.block_tables, a.positions, static_cast<T*>(a.out), a.heads,
-            a.kv_heads, a.pages_per_row, a.sm_scale, a.window, a.softcap);
-    return cudaGetLastError();
-  }
+  int splits;  // decode: CTAs a cluster (paged_decode_split.cuh)
 };
 
 template <typename T, typename P, int HD, int PS, bool WINDOW, bool SOFTCAP>
@@ -372,7 +314,7 @@ struct PrefillLaunch {
   }
 };
 
-// Host-side selection of the instantiation: mode, then shape, then type.
+// Host-side selection of the instantiation: mode, then page size.
 template <template <typename, typename, int, int, bool, bool> class L,
           typename T, typename P, int HD, int PS>
 cudaError_t by_mode(const Args& a, bool window, bool softcap, cudaStream_t s) {
@@ -392,15 +334,6 @@ cudaError_t by_page(const Args& a, int page_size, bool window, bool softcap,
   return cudaErrorInvalidValue;
 }
 
-template <template <typename, typename, int, int, bool, bool> class L,
-          typename T, typename P>
-cudaError_t by_shape(const Args& a, int head_dim, int page_size, bool window,
-                     bool softcap, cudaStream_t s) {
-  if (head_dim == 16) return by_page<L, T, P, 16>(a, page_size, window, softcap, s);
-  if (head_dim == 128) return by_page<L, T, P, 128>(a, page_size, window, softcap, s);
-  return cudaErrorInvalidValue;
-}
-
 // B2/B4 on CUDA cores at one (query type, page type, head_dim): the body for
 // fp32 and for head_dim 16 (paged_prefill_tc.cuh serves bf16 at 128).
 template <typename T, typename P, int HD>
@@ -411,25 +344,6 @@ cudaError_t launch_prefill_cuda_cores(const Args& a, int page_size,
   return by_page<PrefillLaunch, T, P, HD>(a, page_size, has_window != 0,
                                          has_softcap != 0,
                                          static_cast<cudaStream_t>(stream));
-}
-
-// dtype picks the query/output type T: 0 = float32, 1 = bfloat16. With
-// QUANT the pages are int8; otherwise they share T.
-template <template <typename, typename, int, int, bool, bool> class L,
-          bool QUANT>
-int launch(const Args& a, int dtype, int head_dim, int page_size,
-           int has_window, int has_softcap, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.heads % a.kv_heads != 0) return cudaErrorInvalidValue;
-  const bool w = has_window != 0, c = has_softcap != 0;
-  if (dtype == 0)
-    return by_shape<L, float, std::conditional_t<QUANT, int8_t, float>>(
-        a, head_dim, page_size, w, c, s);
-  if (dtype == 1)
-    return by_shape<L, __nv_bfloat16,
-                    std::conditional_t<QUANT, int8_t, __nv_bfloat16>>(
-        a, head_dim, page_size, w, c, s);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace paged

@@ -4,7 +4,8 @@ Each source in ``repro_torch/csrc`` is compiled at first use with ``nvcc``
 into its own shared library with a plain C interface, loaded with
 ``ctypes``. The sources build as parallel ``nvcc`` processes, one per file
 (the model-dtype paged kernels B1/B2, the int8 ones B3/B4, dense decode B5
-and flash attention B6/B7, all over one shared header — B6/B7 and the
+and flash attention B6/B7, all over one shared header — B1/B3's
+cluster-split body is ``paged_decode_split.cuh``, B6/B7 and the
 tensor-core body of B2/B4 (``paged_prefill_tc.cuh``) also over the Hopper
 helpers of ``flash_tc.cuh`` — and the SSD chunked scan B8). Each
 library lands in ``build/repro_torch/`` at the root of the checkout, named
@@ -29,14 +30,15 @@ from types import SimpleNamespace
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-HEADERS = ("paged_attention.cuh", "flash_tc.cuh", "paged_prefill_tc.cuh")
+HEADERS = ("paged_attention.cuh", "flash_tc.cuh", "paged_prefill_tc.cuh",
+           "paged_decode_split.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Instantiated specialisations (csrc/paged_attention.cuh: by_shape/launch).
+# Instantiated specialisations (the C entry points of csrc/paged_attention*.cu).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 128)
 PAGE_SIZES = (8, 16)
@@ -47,18 +49,18 @@ _i64 = ctypes.c_longlong  # element strides
 SOURCES = {
     "paged_attention.cu": {
         # q, k_pages, v_pages, block_tables, pos, out, batch, heads,
-        # kv_heads, pages_per_row, dtype, head_dim, page_size, has_window,
-        # window, has_softcap, softcap, sm_scale, stream
-        "paged_decode_attention": [_ptr] * 6 + [_int] * 10 + [_float] * 2
+        # kv_heads, pages_per_row, splits, dtype, head_dim, page_size,
+        # has_window, window, has_softcap, softcap, sm_scale, stream
+        "paged_decode_attention": [_ptr] * 6 + [_int] * 11 + [_float] * 2
         + [_ptr],
-        # as decode, with the chunk length after batch and the pool's page
-        # count after pages_per_row
+        # as decode without splits, with the chunk length after batch and
+        # the pool's page count after pages_per_row
         "paged_prefill_attention": [_ptr] * 6 + [_int] * 12 + [_float] * 2
         + [_ptr],
     },
     "paged_attention_int8.cu": {
         # as paged_decode_attention, with k_scale, v_scale after v_pages
-        "paged_decode_attention_int8": [_ptr] * 8 + [_int] * 10
+        "paged_decode_attention_int8": [_ptr] * 8 + [_int] * 11
         + [_float] * 2 + [_ptr],
         # as paged_prefill_attention, with k_scale, v_scale after v_pages
         "paged_prefill_attention_int8": [_ptr] * 8 + [_int] * 12

@@ -13,20 +13,27 @@ softcap, and an online softmax. B3 reads int8 pages and dequantises each
 K/V row by its f32 scale (``k_scale``/``v_scale``, ``[P, page_size]``) as it
 loads it.
 
-On the card (``csrc/paged_attention.cu``, ``paged_decode_kernel``) one block
-serves one ``(row, kv head)``: it reads the row's block table and position
-itself (where the TPU kernel prefetched them as scalars), loops over pages
-``0..pos//ps`` — skipping pages wholly before the window — staging each
-page's K/V in shared memory, and keeps scores, softmax state and the
-accumulator in fp32. The work is bound by the K/V bytes it reads from device
-memory; the design reads each needed page once per kv head and nothing past
-``pos``. Window, softcap, head_dim, page_size, the query type and the page
-type are template parameters: one compiled kernel per specialisation; B3 is
-the same body with int8 pages (``paged_attention_int8.cu``), so its bytes
-per K/V element are 1 instead of 2 (bf16) plus 4 per row for the scale.
+On the card (``csrc/paged_decode_split.cuh``, ``paged_decode_split_kernel``,
+instantiated in ``paged_attention.cu`` and, for int8 pages,
+``paged_attention_int8.cu``) the key range of each ``(row, kv head)`` is
+split over the S CTAs of one thread-block cluster ("flash-decoding"): each
+CTA reads the row's position and block table itself (where the TPU kernel
+prefetched them as scalars), takes its contiguous share of the pages the
+row needs (``0..pos//ps``, less pages wholly before the window), and its
+warps load K/V rows straight from device memory, 16 bytes a lane, into fp32
+online softmaxes in registers. The CTAs' partial softmax states merge
+through distributed shared memory in the same launch, so one call is one
+launch that allocates nothing. The work is bound by the K/V bytes it reads
+(int8: 1 byte per element plus 4 per row for the scale, against bf16's 2);
+at the serving shapes those are a few microseconds of HBM, so the design
+spreads them over enough CTAs to keep many loads in flight. S comes from
+``decode_splits``, a function of static shapes only. Window, softcap,
+head_dim, page_size, the query type and the page type are template
+parameters: one compiled kernel per specialisation.
 
 B5 (``decode_attention``, replacing ``repro/kernels/decode_attention.py:
-decode_attention``) is the same body over a dense ``[B, KH, S, dh]`` cache,
+decode_attention``) is the earlier one-block-per-(row, kv head) body of
+``paged_attention.cuh`` (``attend_pages``) over a dense ``[B, KH, S, dh]`` cache,
 read through strides (``csrc/decode_attention.cu``): the model passes its
 ``[B, Smax, KH, dh]`` cache transposed, a view. ``pos`` is a 0-dim int32
 tensor the kernel reads on the device, so the burst loop never syncs to
@@ -46,6 +53,37 @@ import torch
 from . import build
 
 NEG_INF = -2.0e38
+# csrc/paged_decode_split.cuh: a cluster holds 1-8 CTAs (the portable
+# cluster size); a CTA holds one query row for G = 1 and TILE_ROWS for G > 1.
+MAX_SPLITS = 8
+TILE_ROWS = 4
+# CTAs a decode call aims for: ~4 on each of an H100's 132 SMs. Each CTA
+# keeps 8-16 KB of K/V loads in flight; past ~4 a SM, the fixed cost of a
+# CTA (its position load, merges and cluster barriers) outweighs the
+# parallelism (``chip_smoke.py``'s sweep of S).
+TARGET_CTAS = 512
+
+
+def decode_splits(batch: int, kv_heads: int, group: int,
+                  pages_per_row: int) -> int:
+    """The CTAs of one cluster that share a row's pages (1-8), from static
+    shapes only, so the choice is fixed per dispatch key: enough to bring
+    the grid to ``TARGET_CTAS``, and never more than the table's pages."""
+    tiles = batch * kv_heads * (1 if group == 1 else -(-group // TILE_ROWS))
+    want = -(-TARGET_CTAS // max(tiles, 1))
+    return max(1, min(MAX_SPLITS, pages_per_row, want))
+
+
+def _checked_splits(name, q, k_pages, v_pages, block_tables, splits):
+    """S of a B1/B3 launch (``decode_splits`` unless given), after the check
+    the kernel's 16-byte loads of K/V rows need: pools 16-byte aligned."""
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{name}: K/V pages must start 16-byte aligned")
+    b, h, _ = q.shape
+    kh = k_pages.shape[2]
+    if splits is None:
+        splits = decode_splits(b, kh, h // kh, block_tables.shape[1])
+    return splits
 
 
 def paged_decode_attention(
@@ -57,8 +95,10 @@ def paged_decode_attention(
     *,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
-    """Block-table-gather decode attention over a page pool -> [B, H, dh]."""
+    """Block-table-gather decode attention over a page pool -> [B, H, dh].
+    ``splits`` overrides ``decode_splits`` (the card's kernel only)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, block_tables, pos,
@@ -66,13 +106,15 @@ def paged_decode_attention(
         )
     name = "paged_decode_attention"
     build.check_operands(name, q, k_pages, v_pages, block_tables, pos, 3)
+    splits = _checked_splits(name, q, k_pages, v_pages, block_tables, splits)
     b, h, dh = q.shape
     _, ps, kh, _ = k_pages.shape
     out = torch.empty_like(q)
     rc = build.load().paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, h, kh, block_tables.shape[1], build.DTYPE_CODES[q.dtype], dh, ps,
+        b, h, kh, block_tables.shape[1], splits, build.DTYPE_CODES[q.dtype],
+        dh, ps,
         int(window is not None), int(window or 0),
         int(softcap is not None), float(softcap or 0.0),
         1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream,
@@ -96,8 +138,10 @@ def paged_decode_attention_int8(
     *,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
-    """Decode attention over int8 pages -> [B, H, dh] in q's dtype."""
+    """Decode attention over int8 pages -> [B, H, dh] in q's dtype.
+    ``splits`` overrides ``decode_splits`` (the card's kernel only)."""
     if q.device.type == "cpu":
         return paged_decode_attention_int8_plain(
             q, k_pages, v_pages, k_scale, v_scale, block_tables, pos,
@@ -107,6 +151,7 @@ def paged_decode_attention_int8(
     build.check_operands(
         name, q, k_pages, v_pages, block_tables, pos, 3, k_scale, v_scale
     )
+    splits = _checked_splits(name, q, k_pages, v_pages, block_tables, splits)
     b, h, dh = q.shape
     _, ps, kh, _ = k_pages.shape
     out = torch.empty_like(q)
@@ -114,7 +159,7 @@ def paged_decode_attention_int8(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
         pos.data_ptr(), out.data_ptr(), b, h, kh, block_tables.shape[1],
-        build.DTYPE_CODES[q.dtype], dh, ps,
+        splits, build.DTYPE_CODES[q.dtype], dh, ps,
         int(window is not None), int(window or 0),
         int(softcap is not None), float(softcap or 0.0),
         1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream,

@@ -176,6 +176,38 @@ def test_cuda_kernels_match_plain(cuda, group, window, softcap, dtype, atol):
         torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
 
 
+# edge positions of a decode row: the first key, a page's last slot, the
+# next page's first, and the last key of the table's 4 pages
+def _edge_pos(ps: int) -> np.ndarray:
+    return np.array([0, ps - 1, 4 * ps - 1], np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("window,softcap", MODES)
+@pytest.mark.parametrize("ps", PAGE_SIZES)
+@pytest.mark.parametrize("group", GROUPS)
+def test_cuda_decode_kernel_over_splits_and_edge_positions(
+    cuda, group, ps, window, softcap, dtype, atol
+):
+    """B1's cluster-split body at every S 1-8 (more than a short row's
+    pages: empty splits) on the ragged rows and on the edge positions,
+    one launch per call; tolerances as ``test_cuda_kernels_match_plain``."""
+    q, kp, vp, bt, pos = _inputs(group, ps, chunk=0, seed=group + ps)
+    for positions in (pos, _edge_pos(ps)):
+        args = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, bt, positions)]
+        args[0], args[1], args[2] = (a.to(dtype) for a in args[:3])
+        kw = dict(window=window, softcap=softcap)
+        ref = kernels.paged_decode_attention_plain(
+            args[0].float(), args[1].float(), args[2].float(), *args[3:], **kw)
+        for splits in range(1, 9):
+            before = kernels.paged_decode_attention.launches
+            out = kernels.paged_decode_attention(*args, splits=splits, **kw)
+            torch.cuda.synchronize()
+            assert kernels.paged_decode_attention.launches == before + 1
+            torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_on_uninstantiated_shape(cuda):
     q, kp, vp, bt, pos = (

@@ -1,0 +1,378 @@
+"""The cluster-split body of kernels B1 and B3 (paged single-token decode
+attention, ``csrc/paged_decode_split.cuh``).
+
+On the CPU: an emulation of the body's arithmetic — ``decode_splits``'s S,
+each CTA's contiguous share of the row's needed pages by cluster rank, four
+warps over disjoint keys of the share, each warp's lane groups with their
+own online softmax over the keys the kernel's layout gives them (masked
+keys weigh exactly 0; keys past the share clamp to its last row), int8
+dot products scaled by the key's ``k_scale`` and p by its ``v_scale``, and
+the one fp32 merge ``exp(m_s - m)`` over lane groups, warps and CTAs —
+against the fp32 plain versions at 1e-5, over GQA groups 1, 5 and 16, pages
+of 8 and 16, every mode, S 1-8 (also past the row's pages: empty splits),
+pos 0, a page's last slot and a window whose masked keys fill whole
+partials; ``decode_splits``; the C sources (every entry routes to the
+body, which launches a cluster and merges through distributed shared
+memory, and the old body is gone); the wrapper's 16-byte check. On a card
+(marked ``cuda``, skipped here): the kernels against their plain versions
+over the same S and edge cases, and a split count outside 1-8 refused.
+
+Inputs come from a numpy seed. The JAX package is not needed: the plain
+versions are held against the Pallas kernels in ``test_torch_kernels.py``
+and ``test_torch_quantkv.py``.
+"""
+
+from __future__ import annotations
+
+import inspect
+import math
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import (
+    MAX_SPLITS,
+    NEG_INF,
+    TILE_ROWS,
+    _checked_splits,
+    decode_splits,
+)
+from repro_torch.models import quantise_kv_rows
+
+TOL = 1e-5  # fp32 on both sides, summed in another order
+WARPS = 4  # csrc/paged_decode_split.cuh: kWarps
+MODES = [(None, None), (20, None), (None, 2.0), (20, 2.0)]  # window, softcap
+GROUPS = (1, 5, 16)
+SPLITS = range(1, MAX_SPLITS + 1)
+
+
+def _layout(page_dtype: torch.dtype, dh: int) -> tuple[int, int]:
+    """(lane groups a warp, unrolled keys a lane group) of the kernel's
+    ``Layout``: 16 bytes a lane, a key row over ``dh / vec`` lanes."""
+    vec = 16 // torch.empty((), dtype=page_dtype).element_size()
+    keys = 32 // (dh // vec)
+    return keys, (1 if keys >= 8 else 2 if keys >= 4 else 4)
+
+
+def _merge(parts):
+    """The body's one merge form over partials (m [..], l [..], acc [.., dh])
+    stacked on dim 0: m = max m_s, weights exp(m_s - m)."""
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    mx = m.max(0).values
+    w = torch.exp(m - mx)
+    return mx, (w * l).sum(0), (w[..., None] * acc).sum(0)
+
+
+def split_decode_emulation(q, k_pages, v_pages, block_tables, pos, *, splits,
+                           window=None, softcap=None, k_scale=None,
+                           v_scale=None, stats=None):
+    """The cluster-split body's arithmetic in fp32 -> [B, H, dh] in q's
+    dtype. ``stats`` (a dict) counts empty CTAs and lane-group partials
+    that saw only masked keys."""
+    b, h, dh = q.shape
+    _, ps, kh, _ = k_pages.shape
+    group = h // kh
+    kkeys, unroll = _layout(k_pages.dtype, dh)
+    step = kkeys * unroll
+    sm_scale = 1.0 / math.sqrt(dh)
+    stats = {} if stats is None else stats
+    stats.setdefault("empty_ctas", 0)
+    stats.setdefault("masked_partials", 0)
+    out = torch.empty(b, h, dh)
+    for bi in range(b):
+        p = int(pos[bi])
+        p_hi = min(p // ps, block_tables.shape[1] - 1)
+        p_lo = max(p - window + 1, 0) // ps if window is not None else 0
+        n = max(p_hi - p_lo + 1, 0)
+        for hk in range(kh):
+            qg = q[bi, hk * group:(hk + 1) * group].float()  # [G, dh]
+            ctas = []
+            for rank in range(splits):
+                k_begin = (p_lo + rank * n // splits) * ps
+                k_end = (p_lo + (rank + 1) * n // splits) * ps
+                stats["empty_ctas"] += k_begin == k_end
+                warps = []
+                for w in range(WARPS):
+                    m = torch.full((kkeys, group), NEG_INF)
+                    l = torch.zeros(kkeys, group)
+                    acc = torch.zeros(kkeys, group, dh)
+                    for base in range(k_begin + w * step, k_end, WARPS * step):
+                        # keys [U, lane groups]: base + u * kkeys + g
+                        key = (base + torch.arange(unroll)[:, None] * kkeys
+                               + torch.arange(kkeys)[None])
+                        ok = (key < k_end) & (key <= p)
+                        if window is not None:
+                            ok &= key > p - window
+                        kc = key.clamp(max=k_end - 1)
+                        page = block_tables[bi, kc // ps].long()
+                        t = kc % ps
+                        kr = k_pages[page, t, hk].float()  # [U, KG, dh]
+                        vr = v_pages[page, t, hk].float()
+                        s = torch.einsum("gd,ukd->kgu", qg, kr)
+                        if k_scale is not None:
+                            s = s * k_scale[page, t].T[:, None]
+                        s = s * sm_scale
+                        if softcap is not None:
+                            s = torch.tanh(s / softcap) * softcap
+                        okk = ok.T[:, None]  # [KG, 1, U]
+                        s = torch.where(okk, s, NEG_INF)
+                        mn = torch.maximum(m, s.max(-1).values)
+                        corr = torch.exp(m - mn)
+                        pr = torch.where(okk, torch.exp(s - mn[..., None]), 0.0)
+                        l = l * corr + pr.sum(-1)
+                        if v_scale is not None:
+                            pr = pr * v_scale[page, t].T[:, None]
+                        acc = acc * corr[..., None] + torch.einsum(
+                            "kgu,ukd->kgd", pr, vr)
+                        m = mn
+                    if k_begin + w * step < k_end:
+                        stats["masked_partials"] += int((m[:, 0] == NEG_INF).sum())
+                    warps.append(_merge(list(zip(m, l, acc))))
+                ctas.append(_merge(warps))
+            _, l, acc = _merge(ctas)
+            out[bi, hk * group:(hk + 1) * group] = acc / l.clamp(min=1e-37)[:, None]
+    return out.to(q.dtype)
+
+
+def _case(group: int, ps: int, *, seed: int, int8: bool, dh: int = 16,
+          pos=None, pages_bucket: int = 24):
+    """Rows over a shared pool: pos 0, a page's last slot, the first slot of
+    the next page, a short row and a long one; tables padded with the null
+    page 0 past each row's pages and a stale id past the long row's."""
+    rng = np.random.default_rng(seed)
+    kh, n_pages = 2, 80
+    pos = pos if pos is not None else [0, ps - 1, ps, 3 * ps + 5,
+                                       pages_bucket * ps - 3]
+    b = len(pos)
+    q = torch.from_numpy(rng.standard_normal((b, kh * group, dh)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (n_pages, ps, kh, dh)).astype(np.float32)) for _ in range(2))
+    bt = torch.zeros(b, pages_bucket, dtype=torch.int32)
+    for r, p in enumerate(pos):
+        need = p // ps + 1
+        bt[r, :need] = torch.from_numpy(
+            rng.choice(np.arange(1, n_pages), need, replace=False))
+        if need < pages_bucket:
+            bt[r, need:] = int(rng.integers(0, n_pages)) if r % 2 else 0
+    pos = torch.tensor(pos, dtype=torch.int32)
+    if int8:
+        (kq, ks), (vq, vs) = quantise_kv_rows(kp), quantise_kv_rows(vp)
+        return q, (kq, vq, ks, vs), bt, pos
+    return q, (kp, vp), bt, pos
+
+
+def _emulate(q, pages, bt, pos, *, splits, stats=None, **kw):
+    if len(pages) == 4:
+        kq, vq, ks, vs = pages
+        return split_decode_emulation(q, kq, vq, bt, pos, splits=splits,
+                                      k_scale=ks, v_scale=vs, stats=stats, **kw)
+    return split_decode_emulation(q, *pages, bt, pos, splits=splits,
+                                  stats=stats, **kw)
+
+
+def _plain(q, pages, bt, pos, **kw):
+    if len(pages) == 4:
+        return kernels.paged_decode_attention_int8_plain(q, *pages, bt, pos, **kw)
+    return kernels.paged_decode_attention_plain(q, *pages, bt, pos, **kw)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["model_dtype", "int8"])
+@pytest.mark.parametrize("window,softcap", MODES)
+@pytest.mark.parametrize("ps", (8, 16))
+@pytest.mark.parametrize("group", GROUPS)
+def test_split_emulation_matches_plain(group, ps, window, softcap, int8):
+    """Every S 1-8 gives the plain version's result; the short rows leave
+    CTAs without pages at the larger S."""
+    q, pages, bt, pos = _case(group, ps, seed=group * ps + int8, int8=int8)
+    kw = dict(window=window, softcap=softcap)
+    ref = _plain(q, pages, bt, pos, **kw)
+    stats = {}
+    for s in SPLITS:
+        out = _emulate(q, pages, bt, pos, splits=s, stats=stats, **kw)
+        torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL,
+                                   msg=lambda m: f"S={s}: {m}")
+    assert stats["empty_ctas"] > 0
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["model_dtype", "int8"])
+@pytest.mark.parametrize("dh", (16, 128))
+def test_masked_and_empty_partials_weigh_nothing(dh, int8):
+    """A window of 3 keys at the end of a page leaves the lane groups and
+    warps before it with only masked keys (m = NEG_INF), and rows of one
+    or two pages leave most of 8 CTAs empty; the merge gives both weight 0,
+    so the result is the plain version's."""
+    ps = 16
+    pos = [0, 5, ps - 1, 5 * ps + 12, 2 * ps + 2]
+    q, pages, bt, pos = _case(1, ps, seed=dh + int8, int8=int8, dh=dh,
+                              pos=pos, pages_bucket=8)
+    for window in (3, 1):
+        ref = _plain(q, pages, bt, pos, window=window)
+        for s in SPLITS:
+            stats = {}
+            out = _emulate(q, pages, bt, pos, splits=s, stats=stats,
+                           window=window)
+            torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+            assert stats["masked_partials"] > 0
+            if s > 2:
+                assert stats["empty_ctas"] > 0
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["model_dtype", "int8"])
+def test_served_shape_emulation_matches_plain(int8):
+    """olmo-1b's decode shape cut down (G = 1, head_dim 128, page 16, 16
+    pages a row) at the S the wrapper picks and at S 8."""
+    q, pages, bt, pos = _case(1, 16, seed=3, int8=int8, dh=128,
+                              pos=[96, 127, 200, 255], pages_bucket=16)
+    ref = _plain(q, pages, bt, pos)
+    for s in {decode_splits(4, 2, 1, 16), 8}:
+        torch.testing.assert_close(_emulate(q, pages, bt, pos, splits=s), ref,
+                                   atol=TOL, rtol=TOL)
+
+
+def test_decode_splits_depends_on_shapes_only():
+    """1 <= S <= 8, never past the table's pages, from (batch, kv heads,
+    group, pages per row) alone; the timing shape (8 slots x 16 kv heads,
+    G = 1, 16 pages) gets 4, i.e. 512 CTAs, a single row 8."""
+    assert list(inspect.signature(decode_splits).parameters) == [
+        "batch", "kv_heads", "group", "pages_per_row"]
+    assert decode_splits(8, 16, 1, 16) == 4
+    assert decode_splits(1, 16, 1, 16) == 8
+    for b in (1, 2, 8, 64, 256):
+        for kh in (1, 2, 8, 16):
+            for g in (1, 2, 5, 16):
+                for ppr in (1, 2, 5, 16, 64):
+                    s = decode_splits(b, kh, g, ppr)
+                    assert 1 <= s <= min(MAX_SPLITS, ppr)
+                    assert s == decode_splits(b, kh, g, ppr)
+    assert decode_splits(256, 16, 1, 64) == 1  # a full grid needs no split
+
+
+def test_wrapper_checks_16_byte_alignment_and_picks_splits():
+    q, (kp, vp), bt, _ = _case(5, 8, seed=0, int8=False)
+    b, h, _ = q.shape
+    assert _checked_splits("t", q, kp, vp, bt, None) == decode_splits(
+        b, 2, 5, bt.shape[1])
+    assert _checked_splits("t", q, kp, vp, bt, 3) == 3
+    flat = torch.zeros(kp.numel() + 4)
+    off = flat[1:1 + kp.numel()].view(kp.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _checked_splits("t", q, off, vp, bt, None)
+
+
+@pytest.mark.parametrize("kernel", [kernels.paged_decode_attention,
+                                    kernels.paged_decode_attention_int8],
+                         ids=lambda k: k.__name__)
+def test_cpu_tensors_ignore_splits_and_take_the_plain_version(kernel):
+    int8 = kernel is kernels.paged_decode_attention_int8
+    q, pages, bt, pos = _case(5, 8, seed=1, int8=int8)
+    before = kernel.launches
+    for s in (1, 8):
+        torch.testing.assert_close(kernel(q, *pages, bt, pos, splits=s),
+                                   _plain(q, pages, bt, pos), atol=0, rtol=0)
+    assert kernel.launches == before
+
+
+# ------------------------------------------------------------- the sources
+def _body(src: str, signature: str) -> str:
+    return src.split(signature)[1].split("\n}\n")[0]
+
+
+@pytest.mark.parametrize("source,entry", [
+    ("paged_attention.cu", "paged_decode_attention"),
+    ("paged_attention_int8.cu", "paged_decode_attention_int8"),
+])
+def test_decode_entry_points_launch_the_split_body(source, entry):
+    """Every (dtype code, head_dim) the wrappers accept goes to the split
+    body, and the entry point neither allocates nor syncs."""
+    src = (build.CSRC / source).read_text()
+    assert '#include "paged_decode_split.cuh"' in src
+    body = _body(src, f'extern "C" int {entry}(')
+    routes = {(int(d), int(hd)): fn for d, hd, fn in re.findall(
+        r"if \(dtype == (\d) && head_dim == (\d+)\) return (\w+)", body)}
+    assert set(routes) == {(c, hd) for c in build.DTYPE_CODES.values()
+                           for hd in build.HEAD_DIMS}
+    assert set(routes.values()) == {"launch_decode_split"}
+    assert "splits" in body
+    for call in ("cudaMalloc", "Synchronize", "cudaMemcpy", "new "):
+        assert call not in body, call
+
+
+def test_split_body_launches_a_cluster_and_merges_through_dsmem():
+    src = (build.CSRC / "paged_decode_split.cuh").read_text()
+    assert "paged_decode_split.cuh" in build.HEADERS
+    launch = _body(src, "struct SplitLaunch {")
+    assert "cudaLaunchKernelEx(" in launch
+    assert "cudaLaunchAttributeClusterDimension" in launch
+    assert "clusterDim.z = a.splits" in launch
+    # decode_splits counts CTAs with the kernel's own constants
+    assert f"constexpr int kMaxSplits = {MAX_SPLITS};" in src
+    assert f"constexpr int kTileRows = {TILE_ROWS};" in src
+    assert f"constexpr int kWarps = {WARPS};" in src
+    body = _body(src, "__device__ __forceinline__ void decode_split(")
+    assert body.count("cluster.sync()") == 2
+    assert "map_shared_rank(" in body
+    assert "return" not in body  # an early return would deadlock the cluster
+    for call in (r"cudaMalloc\w*\(", r"\batomic\w*\(", r"Synchronize\("):
+        assert not re.search(call, src), call
+    # the kernel's name keeps "paged_decode" for the profiler's filters
+    assert "paged_decode_split_kernel(" in src
+
+
+def test_old_decode_body_is_gone():
+    for path in build.CSRC.iterdir():
+        text = path.read_text()
+        assert "paged_decode_kernel" not in text, path.name
+        assert "DecodeLaunch" not in text, path.name
+
+
+# ------------------------------------------------------------- on the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("int8", [False, True], ids=["model_dtype", "int8"])
+@pytest.mark.parametrize("window,softcap", MODES)
+@pytest.mark.parametrize("ps", (8, 16))
+@pytest.mark.parametrize("group", GROUPS)
+def test_cuda_split_kernel_matches_plain_over_splits(
+    cuda, group, ps, window, softcap, int8, dtype, atol
+):
+    """fp32: same sums, another order -> 1e-4; bf16: the output rounded to
+    bf16 -> 2e-2. One launch per call at every S."""
+    kernel = (kernels.paged_decode_attention_int8 if int8
+              else kernels.paged_decode_attention)
+    for dh in (16, 128):
+        q, pages, bt, pos = _case(group, ps, seed=group + ps, int8=int8, dh=dh)
+        q, bt, pos = q.to(cuda, dtype), bt.to(cuda), pos.to(cuda)
+        pages = tuple(p.to(cuda) for p in pages)
+        if not int8:
+            pages = tuple(p.to(dtype) for p in pages)
+        kw = dict(window=window, softcap=softcap)
+        ref = _plain(q.float(), tuple(p.float() if p.dtype != torch.int8
+                                      else p for p in pages), bt, pos, **kw)
+        for s in SPLITS:
+            before = kernel.launches
+            out = kernel(q, *pages, bt, pos, splits=s, **kw)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0,
+                                       msg=lambda m: f"dh={dh} S={s}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [0, MAX_SPLITS + 1])
+def test_cuda_split_count_outside_1_to_8_is_refused(cuda, splits):
+    q, (kp, vp), bt, pos = _case(1, 8, seed=2, int8=False)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kernels.paged_decode_attention(q.to(cuda), kp.to(cuda), vp.to(cuda),
+                                       bt.to(cuda), pos.to(cuda), splits=splits)

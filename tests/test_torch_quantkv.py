@@ -434,6 +434,33 @@ def test_cuda_int8_kernels_match_plain(cuda, group, window, softcap, dtype, atol
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("window,softcap", MODES)
+@pytest.mark.parametrize("ps", PAGE_SIZES)
+@pytest.mark.parametrize("group", GROUPS)
+def test_cuda_int8_decode_kernel_over_splits_and_edge_positions(
+    cuda, group, ps, window, softcap, dtype, atol
+):
+    """B3's cluster-split body at every S 1-8 (empty splits included) on
+    the ragged rows and at pos 0, a page's last slot and the table's last
+    key, one launch per call; tolerances as above."""
+    q, kq, vq, ks, vs, bt, pos = _int8_inputs(group, ps, chunk=0, seed=group + ps)
+    for positions in (pos, np.array([0, ps - 1, 4 * ps - 1], np.int32)):
+        args = [torch.from_numpy(a).to(cuda)
+                for a in (q, kq, vq, ks, vs, bt, positions)]
+        args[0] = args[0].to(dtype)
+        kw = dict(window=window, softcap=softcap)
+        ref = kernels.paged_decode_attention_int8_plain(
+            args[0].float(), *args[1:], **kw)
+        for splits in range(1, 9):
+            before = kernels.paged_decode_attention_int8.launches
+            out = kernels.paged_decode_attention_int8(*args, splits=splits, **kw)
+            torch.cuda.synchronize()
+            assert kernels.paged_decode_attention_int8.launches == before + 1
+            torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
 def test_cuda_int8_wrapper_raises_on_bad_scales(cuda):
     q, kq, vq, ks, vs, bt, pos = (
         torch.from_numpy(a).to(cuda) for a in _int8_inputs(1, 8, chunk=0)
