@@ -26,7 +26,10 @@ Phases (any failure exits non-zero before a result is printed):
    a window of 40 crossing page boundaries and starts off page boundaries;
    B1/B3's cluster-split body (dh 128) at every split count 1-8, groups 1, 5
    and 16, pages of 8 and 16, every mode, positions 0 and on page
-   boundaries, short rows beside a 64-page row.
+   boundaries, short rows beside a 64-page row; B5 on the same body over a
+   dense cache at every split count 1-8, groups 1, 5 and 16, dh 16 and 128,
+   every mode, positions 0, 15, 16, the last row and one whose window
+   crosses a 16-row block.
 3. The serving paths: olmo-1b at full width (bf16, seeded random weights)
    serving a shared-prefix stream through ``run_paged_stream`` with chunked
    prefill — first on bf16 pages (B1/B2), then on int8 pages with
@@ -49,19 +52,20 @@ Phases (any failure exits non-zero before a result is printed):
    int8 pages; the spec streams equal the plain ones.
 6. mamba2 (B8): the SSD chunked scan against its plain version on the
    smoke config's heads (chunks 4, 8, 16; S 16, 32 and a ragged 20) and on
-   mamba2-370m's (chunk 256; S 1024 and a ragged 1056), fp32 and bf16, with
-   B and C as stride-0 views of one group; then mamba2-370m at full width
+   mamba2-370m's (chunk 256; S 1, 255, 256, 257, 1024, 1056 and 2048; bf16
+   there runs the tensor-core body), fp32 and bf16, with B and C as
+   stride-0 views of one group; then mamba2-370m at full width
    (48 layers, bf16, seeded weights): ``prefill`` of 8 prompts of 1024
    (B8), ``pad_cache`` (SSM slots untouched), 32 greedy burst tokens on the
    recurrent state, ``forward`` over the 1056 tokens (B8; exactly 2 x 48
    launches) against the burst's tokens and against ``ssd_scan``, profiled
-   prefill and burst steps, and the olmo burst cell's traffic through the
+   prefill (which must show the tensor-core B8 kernel) and burst steps, and the olmo burst cell's traffic through the
    per-burst engine; the smoke config's greedy burst stream card = CPU.
 7. The paper's kernel pair through ``KernelBranch`` (B6 specialised against
    B7 from flags, in the causal, causal + window 256 and causal + softcap 50
    modes, at 8 x 1024 tokens); then kernel timing at the main paths' shapes
    (B4 also at the verify window's, B8 at the mamba2 prefill's): kernel
-   (per call, and B1-B4 also device-only from the profiler), plain version,
+   (per call, and B1-B5 and B8 also device-only), plain version,
    one PyTorch library call where one exists (a yardstick the port never
    calls) and the bound, and the B7 / B6 time ratio per mode.
 
@@ -169,6 +173,21 @@ def setup() -> None:
         f"{min(r for r, _ in sp.values())}..{max(r for r, _ in sp.values())}"
         f", spill stores max {spill} B")
     check(spill == 0, f"the cluster-split paged decode body spills {spill} B")
+    dn = _ptxas_by_kernel(info["log"], "dense_decode_split")
+    check(len(dn) == 32, f"expected 32 cluster-split dense decode "
+          f"instantiations (B5 x 2 types x head_dim 16/128 x 4 modes x R "
+          f"1/4), the build log has {len(dn)}")
+    spill = max(s_ for _, s_ in dn.values())
+    log(f"[setup] cluster-split dense decode body (B5): registers "
+        f"{min(r for r, _ in dn.values())}..{max(r for r, _ in dn.values())}"
+        f", spill stores max {spill} B")
+    check(spill == 0, f"the cluster-split dense decode body spills {spill} B")
+    ssd = _ptxas_by_kernel(info["log"], "ssd_chunk_tc")
+    check(len(ssd) == 1, f"expected one tensor-core SSD instantiation (B8, "
+          f"bf16 at 256/64/128), the build log has {len(ssd)}")
+    (regs, spill), = ssd.values()
+    log(f"[setup] tensor-core SSD body (B8): {regs} registers, spill stores "
+        f"{spill} B")
 
 
 def _ptxas_by_kernel(text: str, name: str) -> dict:
@@ -276,6 +295,7 @@ def kernels_vs_plain() -> None:
                     torch.bfloat16, seed=len(worst), sq=sq, sk=sk))
     worst.update(_prefill_tc_cases())
     worst.update(_decode_split_cases())
+    worst.update(_dense_split_cases())
     for dtype in ("float32", "bfloat16"):
         errs = {k: v for k, v in worst.items() if f"/{dtype}" in k}
         log(f"[kernels] {len(errs)} {dtype} cases pass, max abs err "
@@ -295,6 +315,13 @@ def kernels_vs_plain() -> None:
             f"max abs err fp32 "
             f"{max(v for k, v in sp.items() if k.endswith('float32')):.3g}, "
             f"bf16 {max(v for k, v in sp.items() if k.endswith('bfloat16')):.3g}")
+    sp = {k: v for k, v in worst.items() if k.startswith("split_dense/")}
+    log(f"[kernels] cluster-split dense decode (B5) edges (S 1-{SPLIT_MAX}, "
+        f"groups {SPLIT_GROUPS}, head_dim 16/128, 4 modes, window "
+        f"{TC_WINDOW}, positions {DENSE_POSITIONS} of {DENSE_SEQ}, fp32 and "
+        f"bf16): {len(sp)} cases, max abs err fp32 "
+        f"{max(v for k, v in sp.items() if k.endswith('float32')):.3g}, "
+        f"bf16 {max(v for k, v in sp.items() if k.endswith('bfloat16')):.3g}")
     for kname in ("prefill", "prefill_int8"):
         tc = {k: v for k, v in worst.items() if k.startswith(f"tc_{kname}/")}
         log(f"[kernels] tensor-core {kname} edges (chunks {TC_CHUNKS}, groups "
@@ -412,6 +439,47 @@ def _decode_split_cases() -> dict:
                                   f"ps={ps}/w={window}/cap={cap}/"
                                   f"{str(dtype)[6:]}",
                                   fn(q, *pages, bt, pt, splits=splits, **kw),
+                                  ref, dtype)
+    return errs
+
+
+# B5 on the cluster-split body: a ragged dense cache of 70 rows (blocks of
+# 16), positions at 0, at the first block's last row, at the second's first,
+# one whose window of TC_WINDOW crosses a block edge, and the last row.
+DENSE_SEQ = 70
+DENSE_POSITIONS = (0, 15, 16, 41, DENSE_SEQ - 1)
+
+
+def _dense_split_cases() -> dict:
+    """B5 against its plain version at every S 1-``SPLIT_MAX`` x
+    ``SPLIT_GROUPS`` x head_dim 16/128 x mode x fp32/bf16 x
+    ``DENSE_POSITIONS``, 2 kv heads, on the model's ``[B, S, KH, dh]``
+    cache passed as a transposed view."""
+    from repro_torch import kernels
+
+    errs, kh = {}, 2
+    modes = [(None, None), (TC_WINDOW, None), (None, 30.0), (TC_WINDOW, 30.0)]
+    g = torch.Generator().manual_seed(200)
+    for dh in (16, 128):
+        kf, vf = (torch.randn(2, DENSE_SEQ, kh, dh, generator=g).to("cuda")
+                  for _ in range(2))
+        for group in SPLIT_GROUPS:
+            qf = torch.randn(2, kh * group, dh, generator=g).to("cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (t.to(dtype) for t in (qf, kf, vf))
+                k, v = k.transpose(1, 2), v.transpose(1, 2)
+                for pos in DENSE_POSITIONS:
+                    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                    for window, cap in modes:
+                        kw = dict(window=window, softcap=cap)
+                        ref = kernels.decode_attention_plain(
+                            q.float(), k.float(), v.float(), p, **kw)
+                        for splits in range(1, SPLIT_MAX + 1):
+                            _held(errs, f"split_dense/S={splits}/G={group}/"
+                                  f"dh={dh}/pos={pos}/w={window}/cap={cap}/"
+                                  f"{str(dtype)[6:]}",
+                                  kernels.decode_attention(
+                                      q, k, v, p, splits=splits, **kw),
                                   ref, dtype)
     return errs
 
@@ -752,7 +820,7 @@ def prompt_then_burst(cfg, params) -> dict:
         gen_ = torch.Generator(device="cuda")
         _profile(f"full-width burst step (dense cache, {b} rows, pos "
                  f"{prompt_len + n})", lambda: exe(cache, tok, pos, gen_), 5,
-                 "dense_decode_kernel")
+                 "dense_decode_split_kernel")
     return launches
 
 
@@ -769,9 +837,10 @@ def _kernel_ms(prof, calls: int, counts: dict | None = None) -> dict:
     return by_name
 
 
-def _profile(label: str, run, steps: int, attn_kernel: str) -> None:
+def _profile(label: str, run, steps: int, attn_kernel: str) -> dict:
     """Device kernel time by name (``torch.profiler``) over ``steps`` calls
-    of ``run`` against their host wall time."""
+    of ``run`` against their host wall time; returns {kernel: ms per call}
+    (empty when the profiler recorded no kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -788,7 +857,7 @@ def _profile(label: str, run, steps: int, attn_kernel: str) -> None:
     if busy == 0:
         log(f"[profile] {label}: device time not measured (profiler recorded "
             f"no CUDA kernels); host wall {wall_ms:.2f} ms/step")
-        return
+        return by_name
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     attn = sum(v for k, v in by_name.items() if attn_kernel in k)
     log(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy {busy:.3f} ms "
@@ -796,6 +865,7 @@ def _profile(label: str, run, steps: int, attn_kernel: str) -> None:
         f"{attn_kernel} {attn:.3f} ms ({100 * attn / busy:.1f}% of busy); "
         f"top kernels: "
         + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+    return by_name
 
 
 def profile_steps(cfg, params) -> None:
@@ -975,12 +1045,19 @@ def smoke_card_vs_cpu() -> dict:
 # The state is fp32 on both sides from the same inputs -> 2e-4 in both types.
 SSD_REL_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 SSD_STATE_REL_TOL = 2e-4
+# y's rms error over y's rms, both types: a second guard on the tensor-core
+# body's bf16 products. Its split G puts ~1e-4 there, one rounding of G
+# ~3e-3, which the max-over-max limit above lets through.
+SSD_Y_RMS_TOL = 1e-3
 # The B8 cases: the smoke config's heads (8 of 16, state 16) at the chunks
 # the JAX package's kernel tests use, a ragged 20; and mamba2-370m's (32 of
-# 64, state 128, chunk 256) at two rows of 1024 and a ragged 1056.
+# 64, state 128, chunk 256) at two rows of 1024, ragged 1056, and the
+# tensor-core body's edges: one row, one short of / exactly / one past a
+# chunk, and eight chunks.
 SSD_CASES = [(2, s, 8, 16, 16, chunk) for chunk in (4, 8, 16)
              for s in (16, 32, 20)] + [(2, s, 32, 64, 128, 256)
-                                       for s in (1024, 1056)]
+                                       for s in (1, 255, 256, 257, 1024,
+                                                 1056, 2048)]
 
 
 def _ssd_inputs(b, s, h, p, n, dtype, *, seed: int):
@@ -1003,6 +1080,13 @@ def _ssd_errs(out, ref) -> tuple[float, float]:
                  / r.float().abs().max().item() for o, r in zip(out, ref))
 
 
+def _ssd_y_rms(y, ref_y) -> float:
+    """y's rms error over the rms of the reference y."""
+    ref = ref_y.float()
+    return ((y.float() - ref).pow(2).mean().sqrt()
+            / ref.pow(2).mean().sqrt()).item()
+
+
 def ssd_vs_plain() -> dict:
     """B8 against ``ssd_chunk_plain`` on the card for every case, fp32 and
     bf16, y and the final state."""
@@ -1019,18 +1103,24 @@ def ssd_vs_plain() -> dict:
             ref = kernels.ssd_chunk_plain(x, bm, cm, dt, a, chunk=chunk)
             torch.cuda.synchronize()
             ey, es = _ssd_errs(out, ref)
+            rms = _ssd_y_rms(out[0], ref[0])
             tag = f"L={chunk}/S={s}/P={p}/N={n}/{str(dtype)[6:]}"
-            worst[tag] = (ey, es)
+            worst[tag] = (ey, es, rms)
             check(ey <= SSD_REL_TOL[dtype] and es <= SSD_STATE_REL_TOL,
                   f"ssd_chunk {tag}: relative max err y {ey:.3g}, state "
                   f"{es:.3g} > {SSD_REL_TOL[dtype]}, {SSD_STATE_REL_TOL}")
+            check(rms <= SSD_Y_RMS_TOL,
+                  f"ssd_chunk {tag}: y's relative rms err {rms:.3g} > "
+                  f"{SSD_Y_RMS_TOL}")
     for dtype in ("float32", "bfloat16"):
         errs = {k: v for k, v in worst.items() if k.endswith(dtype)}
         log(f"[ssd] {len(errs)} {dtype} B8 cases pass (ragged S and stride-0 "
             f"B/C included): max relative err y "
             f"{max(e[0] for e in errs.values()):.3g}, state "
-            f"{max(e[1] for e in errs.values()):.3g} (tolerance "
-            f"{SSD_REL_TOL[getattr(torch, dtype)]}, {SSD_STATE_REL_TOL})")
+            f"{max(e[1] for e in errs.values()):.3g}, y rms "
+            f"{max(e[2] for e in errs.values()):.3g} (tolerance "
+            f"{SSD_REL_TOL[getattr(torch, dtype)]}, {SSD_STATE_REL_TOL}, "
+            f"{SSD_Y_RMS_TOL})")
     return worst
 
 
@@ -1109,15 +1199,36 @@ def mamba_prompt_then_burst(cfg, params) -> dict:
         check(err <= STEP_LOGIT_ATOL,
               f"mamba forward: B8 vs ssd_scan differ by {err}")
         del logits, scan
-        _profile(f"full-width mamba2 prefill ({b}x{prompt_len}, B8)",
-                 lambda: models.prefill(cfg, params, prompts), 2,
-                 "ssd_chunk_kernel")
+        for _ in range(3):  # a profile has on some runs recorded nothing
+            by_name = _profile(
+                f"full-width mamba2 prefill ({b}x{prompt_len}, B8)",
+                lambda: models.prefill(cfg, params, prompts), 2,
+                "ssd_chunk_tc_kernel")
+            if by_name:
+                break
+        if not by_name:  # a second witness: one B8 call at a prefill layer's shape
+            ssd_args = _ssd_inputs(b, prompt_len, cfg.ssm_heads,
+                                   cfg.ssm_headdim, cfg.ssm_state,
+                                   torch.bfloat16, seed=5)
+            by_name = _profile(
+                "one B8 call at the prefill shape",
+                lambda: kernels.ssd_chunk(*ssd_args, chunk=cfg.ssm_chunk), 1,
+                "ssd_chunk_tc_kernel")
+        if by_name:
+            check(any("ssd_chunk_tc_kernel" in k for k in by_name)
+                  and not any("ssd_chunk_kernel" in k for k in by_name),
+                  f"mamba prefill: the profile does not show the tensor-core "
+                  f"B8 kernel alone ({sorted(by_name)[:8]})")
+        else:
+            log("[mamba prompt+burst] B8's route not profiled (the profiler "
+                "recorded no kernels four times); the launch count above and "
+                "tests/test_torch_ssd_tc.py's source test pin it")
         exe = eng._current
         tok = torch.from_numpy(toks[:, -1:]).to("cuda")
         pos = torch.tensor(prompt_len + n, dtype=torch.int32, device="cuda")
         gen_ = torch.Generator(device="cuda")
         _profile(f"full-width mamba2 burst step ({b} rows, recurrent state)",
-                 lambda: exe(cache, tok, pos, gen_), 5, "ssd_chunk_kernel")
+                 lambda: exe(cache, tok, pos, gen_), 5, "ssd_chunk_tc_kernel")
     return launches
 
 
@@ -1254,6 +1365,24 @@ def _fmt_ms(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+def _device_only(fn, call, kernel: str) -> dict:
+    """``_device_ms`` of ``call``, a call of the wrapper ``fn`` (the
+    profiler's kernels whose name holds ``kernel``), failing if neither way
+    measured anything; timing launches are not main-path launches, so
+    ``fn``'s count is kept."""
+    saved = fn.launches
+    profiled_ms, queued_ms = _device_ms(call, kernel)
+    fn.launches = saved
+    check(profiled_ms is not None or queued_ms is not None,
+          f"{fn.__name__}: neither the profiler nor CUDA events measured its "
+          f"device time")
+    device_ms, device_by = ((profiled_ms, "profiler")
+                            if profiled_ms is not None
+                            else (queued_ms, "cuda events"))
+    return {"device_ms": device_ms, "device_ms_by": device_by,
+            "profiled_ms": profiled_ms, "queued_ms": queued_ms}
+
+
 def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
     import torch.nn.functional as F
 
@@ -1383,14 +1512,8 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
               f"q{tuple(args[0].shape)}: max abs err {err:.3g}")
         saved = fn.launches  # timing launches are not main-path launches
         ms = _median_ms(lambda: fn(*args))
-        profiled_ms, queued_ms = _device_ms(lambda: fn(*args), "paged_")
-        check(profiled_ms is not None or queued_ms is not None,
-              f"{fn.__name__}: neither the profiler nor CUDA events measured "
-              f"its device time")
-        device_ms, device_by = ((profiled_ms, "profiler")
-                                if profiled_ms is not None
-                                else (queued_ms, "cuda events"))
         fn.launches = saved
+        dev = _device_only(fn, lambda: fn(*args), "paged_")
         plain_ms = _median_ms(lambda: plain(*args))
         library_ms = _median_ms(library)
         bound_ms, bound_by = bound(kv_tokens, pairs, args[0], out,
@@ -1400,12 +1523,11 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
             f"{tuple(args[-2].shape)}"
             + (f" S {split['splits']}" if split else "")
             + f": kernel {ms:.4f} ms per call (device "
-            f"only {_fmt_ms(profiled_ms)} profiled, {_fmt_ms(queued_ms)} "
-            f"by queued events), plain {plain_ms:.4f} ms, sdpa "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), max "
-            f"abs err {err:.3g}")
-        return {**split, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
-                "device_ms_by": device_by, "queued_ms": queued_ms,
+            f"only {_fmt_ms(dev['profiled_ms'])} profiled, "
+            f"{_fmt_ms(dev['queued_ms'])} by queued events), plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), max abs err {err:.3g}")
+        return {**split, "max_abs_err": err, "ms": ms, **dev,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms}
 
@@ -1478,6 +1600,7 @@ def time_dense_kernels(launches: dict) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import _dense_splits
 
     dtype, dh, h = torch.bfloat16, 128, 16
 
@@ -1516,22 +1639,29 @@ def time_dense_kernels(launches: dict) -> list[dict]:
     q1 = torch.randn(8, h, dh, generator=g).to("cuda", dtype)
     pos = torch.tensor(255, dtype=torch.int32, device="cuda")
     mask = (torch.arange(1024, device="cuda") <= 255)[None, None, None]
+    b5_args = (q1, cache_k, cache_v, pos)
     m = timed(kernels.decode_attention, kernels.decode_attention,
-              kernels.decode_attention_plain, (q1, cache_k, cache_v, pos),
+              kernels.decode_attention_plain, b5_args,
               lambda: F.scaled_dot_product_attention(
                   q1[:, :, None], cache_k, cache_v, attn_mask=mask))
+    m.update(_device_only(kernels.decode_attention,
+                          lambda: kernels.decode_attention(*b5_args),
+                          "dense_decode_split_kernel"))
     seen = 256
     b_ms, b_by = bound(2 * 8 * seen * h * dh * 2 + 2 * q1.numel() * 2 + 4,
                        8 * h * seen)
+    splits = _dense_splits("decode_attention", q1, cache_k, cache_v, None)
     rows.append({"name": "decode_attention", "route": "cuda",
                  "source": "src/repro_torch/csrc/decode_attention.cu",
                  "replaces": "src/repro/kernels/decode_attention.py:97",
-                 "launches": launches["decode_attention"], **m,
-                 "bound_ms": b_ms, "bound_by": b_by})
+                 "launches": launches["decode_attention"], "splits": splits,
+                 **m, "bound_ms": b_ms, "bound_by": b_by})
     log(f"[timing] decode_attention bf16 q(8, 16, 128) cache (8, 16, 1024, "
-        f"128) pos 255: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms,"
-        f" sdpa {m['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max "
-        f"abs err {m['max_abs_err']:.3g}")
+        f"128) pos 255 S {splits}: kernel {m['ms']:.4f} ms per call (device "
+        f"only {_fmt_ms(m['profiled_ms'])} profiled, "
+        f"{_fmt_ms(m['queued_ms'])} by queued events), plain "
+        f"{m['plain_ms']:.4f} ms, sdpa {m['library_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), max abs err {m['max_abs_err']:.3g}")
     # B6 / B7 at the prefill shape, one entry per mode
     q, k, v = _prefill_shape_qkv(12)
     s_ = 1024
@@ -1608,12 +1738,17 @@ def time_ssd_kernel(launches: dict) -> list[dict]:
     ref = kernels.ssd_chunk_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
     ey, es = _ssd_errs(out, ref)
-    check(ey <= SSD_REL_TOL[dtype] and es <= SSD_STATE_REL_TOL,
+    rms = _ssd_y_rms(out[0], ref[0])
+    check(ey <= SSD_REL_TOL[dtype] and es <= SSD_STATE_REL_TOL
+          and rms <= SSD_Y_RMS_TOL,
           f"ssd_chunk at the prefill shape: relative err y {ey:.3g}, state "
-          f"{es:.3g}")
+          f"{es:.3g}, y rms {rms:.3g}")
     saved = kernels.ssd_chunk.launches  # timing launches are not the path's
     ms = _median_ms(lambda: kernels.ssd_chunk(*args, chunk=chunk))
     kernels.ssd_chunk.launches = saved
+    dev = _device_only(kernels.ssd_chunk,
+                       lambda: kernels.ssd_chunk(*args, chunk=chunk),
+                       "ssd_chunk_tc_kernel")
     plain_ms = _median_ms(lambda: kernels.ssd_chunk_plain(*args, chunk=chunk))
     # each input read once (B and C as their one group), each output
     # written once; flops of the causal half of the two L x L products per
@@ -1629,17 +1764,22 @@ def time_ssd_kernel(launches: dict) -> list[dict]:
     bound_ms = max(t_b, t_o) * 1e3
     bound_by = "bytes" if t_b >= t_o else "operations"
     log(f"[timing] ssd_chunk bf16 x({b}, {s}, {h}, {p}) state {n} chunk "
-        f"{chunk}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
-        f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
-        f"{ops / 1e9:.2f} GFLOP), relative err y {ey:.3g} state {es:.3g}")
+        f"{chunk} (tensor-core body): kernel {ms:.4f} ms per call (device "
+        f"only {_fmt_ms(dev['profiled_ms'])} profiled, "
+        f"{_fmt_ms(dev['queued_ms'])} by queued events), plain "
+        f"{plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
+        f"relative err y {ey:.3g} state {es:.3g} y rms {rms:.3g}")
     return [{"name": "ssd_chunk", "route": "cuda",
              "source": "src/repro_torch/csrc/ssd_chunk.cu",
+             "body": "src/repro_torch/csrc/ssd_chunk_tc.cuh",
              "replaces": "src/repro/kernels/ssd_chunk.py:73",
              "launches": launches["ssd_chunk"], "max_abs_err": max(
                  (o.float() - r_.float()).abs().max().item()
                  for o, r_ in zip(out, ref)),
-             "max_rel_err": max(ey, es), "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
+             "max_rel_err": max(ey, es), "ms": ms, **dev,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}]
 
 
 def main() -> int:

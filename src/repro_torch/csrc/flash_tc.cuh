@@ -1,10 +1,10 @@
-// Hopper building blocks of the tensor-core attention bodies (bf16 at
-// head_dim 128): flash attention (flash_attention.cu, B6/B7) and paged
-// prefill (paged_prefill_tc.cuh, B2/B4). mbarriers, TMA tile loads, bulk
-// copies, wgmma shared-memory descriptors, the wgmma shapes the bodies issue,
-// the special-function unit's exp2 and tanh, and on the host the lookup of
-// libcuda's tensor-map encoder. Inline PTX only (no CUTLASS/CuTe), so the
-// libraries build in seconds.
+// Hopper building blocks of the tensor-core bodies (bf16): flash attention
+// (flash_attention.cu, B6/B7), paged prefill (paged_prefill_tc.cuh, B2/B4)
+// and the SSD chunked scan (ssd_chunk_tc.cuh, B8). mbarriers, TMA tile
+// loads, bulk copies and cp.async, wgmma shared-memory descriptors, the
+// wgmma shapes the bodies issue, the special-function unit's exp2 and tanh,
+// and on the host the lookup of libcuda's tensor-map encoder. Inline PTX
+// only (no CUTLASS/CuTe), so the libraries build in seconds.
 //
 // Tiles are bf16 [rows][64] halves of a [rows][128] tile, 128 bytes a row,
 // loaded by TMA with the 128-byte swizzle into 1024-byte aligned shared
@@ -92,10 +92,44 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// 16 bytes from global into shared memory by the LSU's asynchronous copy
+// (cp.async, not the async proxy): with `valid` false the 16 bytes are
+// zeros and nothing is read. Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Close this thread's cp.async issued since the last commit into a group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed cp.async groups are still
+// in flight (groups complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Make this thread's ordinary shared-memory stores visible to the async
 // proxy (wgmma's operand reads); a barrier among the writers follows.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Hand registers back to / take them from the block's pool, per thread of
+// the executing warpgroup (all its threads run it): a producer warpgroup
+// gives up what its consumers take.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // Barrier `id` (1-15; 0 is __syncthreads) over `count` threads, whole warps.
@@ -166,7 +200,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a_desc,
 }
 
 // D (+)= A B, A [64 x 16] and B [16 x 64] both from shared memory: the
-// 64-column shape (half the accumulator of the one above).
+// 64-column shape (half the accumulator of the one above). TRANS_A /
+// TRANS_B 1 read A / B MN-major (M or N contiguous), 0 K-major.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a_desc,
                                          uint64_t b_desc, int scale_d) {
   asm volatile(
@@ -174,7 +210,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a_desc,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -183,7 +219,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a_desc,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // D += A B, A [64 x 16] bf16 from registers (four bf16 pairs a thread, the
@@ -215,6 +251,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
+
+// D += A B, A [64 x 16] bf16 from registers as above, B [16 x 64]
+// MN-major from shared memory: the 64-column shape.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 

@@ -1,14 +1,13 @@
 // Attention kernels for Hopper (sm_90a) over a KV cache read one key block
 // at a time: chunked prefill (B2, B4) over a pooled KV page cache, in the
-// model dtype (B2) or as int8 pages with per-token-row scales (B4), and
-// dense single-token decode (B5) over a [B, S, KH, HD] cache with a scalar
-// position; also the conversions, constants, address policies and launch
-// selection the other bodies share.
+// model dtype (B2) or as int8 pages with per-token-row scales (B4), on CUDA
+// cores; also the conversions, constants, address policies and launch
+// selection the other bodies share (dense decode, B5, runs the cluster-split
+// body of paged_decode_split.cuh over DenseRows).
 //
 // Replaces the Pallas TPU kernels
 //   src/repro/kernels/prefill_attention.py:paged_prefill_attention      (B2)
 //   src/repro/kernels/prefill_attention.py:paged_prefill_attention_int8 (B4)
-//   src/repro/kernels/decode_attention.py:decode_attention              (B5)
 // with the same layouts and the same arithmetic: scores, the online softmax
 // (NEG_INF = -2e38, denominator clamped at 1e-37) and the accumulator are
 // fp32 whatever the storage type; an int8 K/V element is dequantised as
@@ -16,13 +15,13 @@
 // body.
 //
 // This header holds the templates; paged_attention.cu instantiates the
-// model-dtype kernels (B2), paged_attention_int8.cu the int8 ones (B4) and
-// decode_attention.cu the dense one (B5), so each builds as its own nvcc
-// process side by side. flash_attention.cu (B6/B7) takes its conversions and
-// constants from here. B2/B4 in bf16 at head_dim 128 run the tensor-core
-// body of paged_prefill_tc.cuh instead of paged_prefill_kernel; paged decode
-// (B1, B3) runs the cluster-split body of paged_decode_split.cuh over
-// PagedRows.
+// model-dtype kernels (B2), paged_attention_int8.cu the int8 ones (B4), so
+// each builds as its own nvcc process side by side. flash_attention.cu
+// (B6/B7) takes its conversions and constants from here. B2/B4 in bf16 at
+// head_dim 128 run the tensor-core body of paged_prefill_tc.cuh instead of
+// paged_prefill_kernel; decode (B1, B3 over PagedRows, B5 over DenseRows in
+// decode_attention.cu) runs the cluster-split body of
+// paged_decode_split.cuh.
 //
 // Layouts (pages contiguous):
 //   pages        [P, page_size, KH, HD]   float / bfloat16 / int8
@@ -34,10 +33,10 @@
 //            stride on HD), pos a 0-dim int32 read on the device
 // Query head h = kh * G + g belongs to kv head kh (G = H / KH, the GQA group).
 //
-// A block of keys is a page for B2/B4 and kDenseBlock consecutive cache rows
-// for B5: the one body (attend_pages) takes the block's address from a
-// policy (PagedRows chases the block table, DenseRows is the table j -> j),
-// so the online softmax is written once.
+// A block of keys is a page for B1-B4 and kDenseBlock consecutive cache
+// rows for B5: the bodies take the block's address from a policy (PagedRows
+// chases the block table, DenseRows is the table j -> j), so the online
+// softmax of each body is written once.
 //
 // Semi-static specialisation: the query/output type, the page type,
 // head_dim, page_size and the window / softcap modes are template
@@ -71,7 +70,6 @@ namespace paged {
 constexpr float kNegInf = -2.0e38f;
 constexpr float kMinDenom = 1e-37f;
 constexpr int kThreads = 128;
-constexpr int kDecodeRows = 8;    // query rows (GQA group members) a B5 block
 constexpr int kPrefillRows = 16;  // packed chunk rows (C*G) per block
 constexpr int kDenseBlock = 16;   // dense cache rows per key block (B5)
 
@@ -133,7 +131,7 @@ struct PagedRows {
 };
 
 // B5: block pb is rows [pb * PS, pb * PS + PS) of one row's dense cache,
-// clipped at seq_len.
+// clipped at seq_len (the split body clamps a key to the block's last row).
 template <int PS>
 struct DenseRows {
   size_t base;        // b * batch_stride + kh * head_stride
@@ -146,15 +144,11 @@ struct DenseRows {
 };
 
 // Online-softmax attention of the tile's `rows` query rows (already in
-// tile.q / tile.qi) over key blocks [p_lo, p_hi] of one batch row and kv
-// head, addressed by `src` (PagedRows or DenseRows). Leaves the unnormalised
-// accumulator in tile.acc and the softmax denominator in tile.l. P is the
-// K/V element type; for int8 pages each staged K/V element is multiplied by
-// its row's scale. Rows past a block's end (the ragged tail of a dense
-// cache) stage a copy of its last row and are masked by the causal test:
-// they lie past every query position, as pos < seq_len. A clamp, not a
-// branch: every row's load stays unconditional, so a block's loads issue
-// together.
+// tile.q / tile.qi) over pages [p_lo, p_hi] of one batch row and kv head,
+// addressed by `src` (PagedRows). Leaves the unnormalised accumulator in
+// tile.acc and the softmax denominator in tile.l. P is the K/V element
+// type; for int8 pages each staged K/V element is multiplied by its row's
+// scale.
 template <typename P, int HD, int PS, bool WINDOW, bool SOFTCAP, int TR,
           class Rows>
 __device__ void attend_pages(Tile<HD, PS, TR>& tile, const P* __restrict__ k,
@@ -181,7 +175,7 @@ __device__ void attend_pages(Tile<HD, PS, TR>& tile, const P* __restrict__ k,
     }
     for (int i = tid; i < PS * HD; i += kThreads) {
       const int t = i / HD, d = i % HD;
-      const size_t off = blk.off + min(t, blk.n - 1) * src.row_stride + d;
+      const size_t off = blk.off + t * src.row_stride + d;
       if constexpr (kQuant) {
         tile.k[t][d] = to_float(k[off]) * tile.ks[t];
         tile.v[t][d] = to_float(v[off]) * tile.vs[t];

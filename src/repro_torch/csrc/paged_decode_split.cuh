@@ -61,6 +61,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 
 #include "paged_attention.cuh"
 
@@ -352,25 +353,36 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
       src, p_lo, p_hi, p, sm_scale, window, softcap);
 }
 
+// Launch `kernel` on a (batch, kv heads, tiles x splits) grid in clusters
+// of (1, 1, splits), kThreads a CTA; the launch's own error comes back (a
+// cluster the card refuses included). B1/B3 and B5 launch through it.
+template <typename... Params, typename... Values>
+cudaError_t launch_split(void (*kernel)(Params...), int batch, int kv_heads,
+                         int tiles, int splits, cudaStream_t stream,
+                         Values&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch, kv_heads, tiles * splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Values>(args)...);
+}
+
 template <typename T, typename P, int HD, int PS, bool WINDOW, bool SOFTCAP>
 struct SplitLaunch {
   template <int R>
   static cudaError_t launch(const Args& a, cudaStream_t stream) {
     const int tiles = (a.heads / a.kv_heads + R - 1) / R;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = a.splits;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(a.batch, a.kv_heads, tiles * a.splits);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(
-        &cfg, paged_decode_split_kernel<T, P, HD, PS, WINDOW, SOFTCAP, R>,
+    return launch_split(
+        paged_decode_split_kernel<T, P, HD, PS, WINDOW, SOFTCAP, R>, a.batch,
+        a.kv_heads, tiles, a.splits, stream,
         static_cast<const T*>(a.q), static_cast<const P*>(a.k_pages),
         static_cast<const P*>(a.v_pages), a.k_scale, a.v_scale,
         a.block_tables, a.positions, static_cast<T*>(a.out), a.heads,

@@ -16,7 +16,7 @@
 // through element strides with a unit last axis. Outputs: y [B, S, H, P]
 // contiguous in x's type and the final state [B, H, P, N] fp32.
 //
-// Design. The TPU runs the chunks as a sequential third grid axis with the
+// The CUDA-core body (ssd_chunk_kernel). The TPU runs the chunks as a sequential third grid axis with the
 // state in VMEM scratch. Here one block serves one (batch row, head) and a
 // loop over chunks inside the block takes that axis's place; the [P, N]
 // fp32 state (33 KB at 64 x 128, rows padded by one float against bank
@@ -29,35 +29,33 @@
 // above the diagonal (the Pallas kernel takes exp of every pair and selects,
 // which can meet inf·0). The state update runs after every query tile of
 // the chunk, over the same key tiles weighted by exp(total − cum)·dt. About
-// 80 KB of dynamic shared memory per block: two blocks per SM, the 256
-// (batch, head) blocks of an 8 x 32 prefill in one wave on 132 SMs.
+// 80 KB of dynamic shared memory per block: two blocks per SM.
 //
 // Ragged S. L is a template constant and is never rounded to S: rows past S
 // are not loaded (dt, x, B, C read as 0, so their decay is 1 and their input
 // is 0, ssd_scan's dt = 0 padding) and not stored, so any S (also S < L)
 // gives ssd_scan's result.
 //
-// Bound on the card: at the prefill shape (8 x 1024 tokens, 32 heads of
-// 64, state 128, bf16) the causal half of the L x L products and the state
-// terms come to ~21 GFLOP against ~80 MB of inputs and outputs: 0.02 ms at
-// either the tensor cores' bf16 rate or the HBM rate. This first version
-// runs fp32 FMAs out of shared memory, one element per thread per product,
-// without tensor cores, TMA or wgmma: right first, fast in a later change.
+// Two bodies, chosen in the C entry point by dtype and shape (a semi-static
+// choice, not a fallback): bf16 at (L 256, P 64, N 128), mamba2-370m's
+// every call, runs the tensor-core body of ssd_chunk_tc.cuh
+// (ssd_chunk_tc_kernel: wgmma for all four products, the state in
+// registers, its update in two bf16 terms); fp32 (wgmma has no fp32 mode
+// but TF32, past the fp32 tolerances) and the smoke shapes run
+// ssd_chunk_kernel below, fp32 FMAs out of shared memory, one element per
+// thread per product.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "ssd_chunk_tc.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-struct SsdArgs {
-  int seqlen, heads, heads_per_group;
-  long long x_sb, x_ss, x_sh;
-  long long b_sb, b_ss, b_sg;
-  long long c_sb, c_ss, c_sg;
-  long long dt_sb, dt_ss, dt_sh;
-};
+using ssd::kThreads;
+using ssd::kWarps;
+using ssd::SsdArgs;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -89,30 +87,6 @@ struct SsdShape {
   static constexpr int kAccY = (kT * P + kThreads - 1) / kThreads;
   static constexpr int kAccS = (P * N + kThreads - 1) / kThreads;
 };
-
-// Inclusive prefix sum over the block, one value per thread.
-__device__ float block_inclusive_scan(float v, float* wtot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += o;
-  }
-  if (lane == 31) wtot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < kWarps ? wtot[lane] : 0.f;
-#pragma unroll
-    for (int off = 1; off < kWarps; off <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, t, off);
-      if (lane >= off) t += o;
-    }
-    if (lane < kWarps) wtot[lane] = t;
-  }
-  __syncthreads();
-  if (warp > 0) v += wtot[warp - 1];
-  return v;
-}
 
 // rows [r0, r0 + kT) of a [S, W] operand (row stride `ss`, unit column
 // stride) into dst[kT][ROW] as fp32, times `w[j]` when given; rows past S
@@ -180,7 +154,7 @@ __global__ void __launch_bounds__(kThreads)
       dts[tid] = d;
       v = d * A;
     }
-    v = block_inclusive_scan(v, wtot);
+    v = ssd::block_inclusive_scan(v, wtot);
     if (tid < L) cum[tid] = v;
     __syncthreads();
     const float total = cum[L - 1];
@@ -303,7 +277,9 @@ cudaError_t by_shape(int chunk, int headdim, int state_dim, const void* x,
 #define REPRO_SSD(L_, P_, N_)                                               \
   if (chunk == L_ && headdim == P_ && state_dim == N_)                      \
     return launch<T, L_, P_, N_>(x, b, c, dt, a, y, state, batch, args, s)
-  REPRO_SSD(256, 64, 128);  // mamba2-370m
+  if constexpr (std::is_same<T, float>::value) {
+    REPRO_SSD(256, 64, 128);  // mamba2-370m (bf16: ssd_chunk_tc.cuh)
+  }
   REPRO_SSD(4, 16, 16);     // the smoke config, the JAX tests' chunks
   REPRO_SSD(8, 16, 16);
   REPRO_SSD(16, 16, 16);
@@ -316,7 +292,9 @@ cudaError_t by_shape(int chunk, int headdim, int state_dim, const void* x,
 // dtype: 0 = float32, 1 = bfloat16 (x, b, c and y); dt, a and state are
 // float32. Strides in elements: x (batch, seq, head), b and c (batch, seq,
 // group), dt (batch, seq, head); y is written contiguous [B, S, H, P] and
-// state [B, H, P, N]. Return the cudaError_t of the launch (0 on success).
+// state [B, H, P, N]. Return the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue for an operand the tensor-core body cannot copy:
+// x, b, c not 16-byte aligned or strides not a multiple of 8 elements).
 // Launch on `stream`, allocate nothing, do not sync.
 extern "C" int ssd_chunk(
     const void* x, const void* b, const void* c, const void* dt,
@@ -336,6 +314,9 @@ extern "C" int ssd_chunk(
   const float* af = static_cast<const float*>(a);
   float* sf = static_cast<float*>(state);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && chunk == ssd_tc::kL && headdim == ssd_tc::kP &&
+      state_dim == ssd_tc::kN)
+    return ssd_tc::launch(x, b, c, dtf, af, y, sf, batch, args, s);
   if (dtype == 0)
     return by_shape<float>(chunk, headdim, state_dim, x, b, c, dtf, af, y,
                            sf, batch, args, s);

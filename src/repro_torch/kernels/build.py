@@ -4,10 +4,11 @@ Each source in ``repro_torch/csrc`` is compiled at first use with ``nvcc``
 into its own shared library with a plain C interface, loaded with
 ``ctypes``. The sources build as parallel ``nvcc`` processes, one per file
 (the model-dtype paged kernels B1/B2, the int8 ones B3/B4, dense decode B5
-and flash attention B6/B7, all over one shared header — B1/B3's
+and flash attention B6/B7, all over one shared header — B1/B3's and B5's
 cluster-split body is ``paged_decode_split.cuh``, B6/B7 and the
 tensor-core body of B2/B4 (``paged_prefill_tc.cuh``) also over the Hopper
-helpers of ``flash_tc.cuh`` — and the SSD chunked scan B8). Each
+helpers of ``flash_tc.cuh`` — and the SSD chunked scan B8, whose
+tensor-core body ``ssd_chunk_tc.cuh`` takes the same helpers). Each
 library lands in ``build/repro_torch/`` at the root of the checkout, named
 by a hash of its source, the headers and the flags, so
 an edit rebuilds and an unchanged tree reuses the last build. Nothing here
@@ -31,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 HEADERS = ("paged_attention.cuh", "flash_tc.cuh", "paged_prefill_tc.cuh",
-           "paged_decode_split.cuh")
+           "paged_decode_split.cuh", "ssd_chunk_tc.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,10 +68,10 @@ SOURCES = {
         + [_float] * 2 + [_ptr],
     },
     "decode_attention.cu": {
-        # q, k, v, pos, out, batch, heads, kv_heads, seq_len, strides q
-        # (b, h), k/v (b, s, h), out (b, h), dtype, head_dim, has_window,
-        # window, has_softcap, softcap, sm_scale, stream
-        "dense_decode_attention": [_ptr] * 5 + [_int] * 4 + [_i64] * 7
+        # q, k, v, pos, out, batch, heads, kv_heads, seq_len, splits,
+        # strides q (b, h), k/v (b, s, h), out (b, h), dtype, head_dim,
+        # has_window, window, has_softcap, softcap, sm_scale, stream
+        "dense_decode_attention": [_ptr] * 5 + [_int] * 5 + [_i64] * 7
         + [_int] * 5 + [_float] * 2 + [_ptr],
     },
     "flash_attention.cu": {

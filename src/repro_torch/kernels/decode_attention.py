@@ -32,12 +32,13 @@ head_dim, page_size, the query type and the page type are template
 parameters: one compiled kernel per specialisation.
 
 B5 (``decode_attention``, replacing ``repro/kernels/decode_attention.py:
-decode_attention``) is the earlier one-block-per-(row, kv head) body of
-``paged_attention.cuh`` (``attend_pages``) over a dense ``[B, KH, S, dh]`` cache,
-read through strides (``csrc/decode_attention.cu``): the model passes its
-``[B, Smax, KH, dh]`` cache transposed, a view. ``pos`` is a 0-dim int32
-tensor the kernel reads on the device, so the burst loop never syncs to
-hand it over.
+decode_attention``) runs the same cluster-split body
+(``csrc/decode_attention.cu``, ``dense_decode_split_kernel``) over a dense
+``[B, KH, S, dh]`` cache read through strides, in blocks of 16 cache rows
+(the table j -> j): the model passes its ``[B, Smax, KH, dh]`` cache
+transposed, a view. Its S is ``decode_splits`` over the cache's blocks.
+``pos`` is a 0-dim int32 tensor the kernel reads on the device, so the
+burst loop never syncs to hand it over.
 
 The wrappers run the plain version only for CPU tensors. For CUDA tensors
 they launch the kernel or raise.
@@ -57,6 +58,8 @@ NEG_INF = -2.0e38
 # cluster size); a CTA holds one query row for G = 1 and TILE_ROWS for G > 1.
 MAX_SPLITS = 8
 TILE_ROWS = 4
+# cache rows a key block of B5 (csrc/paged_attention.cuh: kDenseBlock)
+DENSE_BLOCK = 16
 # CTAs a decode call aims for: ~4 on each of an H100's 132 SMs. Each CTA
 # keeps 8-16 KB of K/V loads in flight; past ~4 a SM, the fixed cost of a
 # CTA (its position load, merges and cluster barriers) outweighs the
@@ -254,6 +257,27 @@ def paged_decode_attention_int8_plain(
     )
 
 
+def _dense_splits(name, q, k, v, splits):
+    """S of a B5 launch (``decode_splits`` over the cache's 16-row blocks
+    unless given), after the check the kernel's 16-byte loads of K/V rows
+    need: k and v 16-byte aligned, with (batch, head, sequence) strides of
+    16 bytes' multiples."""
+    size = k.element_size()
+    if k.data_ptr() % 16 or v.data_ptr() % 16 or any(
+        st * size % 16 for st in k.stride()[:3]
+    ):
+        raise ValueError(
+            f"{name}: k/v must start 16-byte aligned with (batch, head, "
+            f"sequence) strides of 16-byte multiples, got strides "
+            f"{k.stride()} of {size}-byte elements"
+        )
+    if splits is None:
+        b, h, _ = q.shape
+        _, kh, seq, _ = k.shape
+        splits = decode_splits(b, kh, h // kh, -(-seq // DENSE_BLOCK))
+    return splits
+
+
 def decode_attention(
     q: torch.Tensor,  # [B, H, dh] one token per row
     k: torch.Tensor,  # [B, KH, S, dh] dense cache (any strides, dh unit)
@@ -262,8 +286,10 @@ def decode_attention(
     *,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
-    """Single-token decode over a dense cache at one position -> [B, H, dh]."""
+    """Single-token decode over a dense cache at one position -> [B, H, dh].
+    ``splits`` overrides ``decode_splits`` (the card's kernel only)."""
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, k, v, pos, window=window, softcap=softcap
@@ -272,12 +298,13 @@ def decode_attention(
     build.check_strided_operands(name, q, k, v, 3, {"pos": (pos, ())})
     if k.stride() != v.stride():
         raise ValueError(f"{name}: k and v must share their strides")
+    splits = _dense_splits(name, q, k, v, splits)
     b, h, dh = q.shape
     _, kh, seq, _ = k.shape
     out = torch.empty_like(q)
     rc = build.load().dense_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, h, kh, seq, q.stride(0), q.stride(1),
+        out.data_ptr(), b, h, kh, seq, splits, q.stride(0), q.stride(1),
         k.stride(0), k.stride(2), k.stride(1), out.stride(0), out.stride(1),
         build.DTYPE_CODES[q.dtype], dh, int(window is not None),
         int(window or 0), int(softcap is not None), float(softcap or 0.0),

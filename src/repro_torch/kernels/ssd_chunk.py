@@ -10,8 +10,14 @@ Outputs ``y [B, S, H, P]`` in x's dtype and the final state ``[B, H, P, N]``
 float32, from a zero initial state.
 
 On the card (``csrc/ssd_chunk.cu``) one block serves one (batch row, head)
-and walks the chunks in order, the ``[P, N]`` state in shared memory for the
-whole loop and written once at the end. The chunk length L, P and N are
+and walks the chunks in order, the ``[P, N]`` state on chip for the whole
+loop and written once at the end. bf16 at ``TC_SHAPE`` (mamba2-370m) runs
+the tensor-core body (``csrc/ssd_chunk_tc.cuh``, ``ssd_chunk_tc_kernel``):
+every product on ``wgmma`` in bf16 with fp32 accumulators, G (for y) and
+``B∘w`` (the state update ``xᵀ·(B∘w)``) each in two bf16 terms (hi + lo),
+the state's operand copy for y's inter term rounded to bf16, the fp32
+state in registers. fp32 and the smoke shapes run the CUDA-core body
+(``ssd_chunk_kernel``). The chunk length L, P and N are
 template parameters (chunk-size specialisation, this family's analogue of
 the attention kernels' mode), and a ragged tail is masked in the kernel:
 rows past S act as ``dt = 0``, so any S gives ``ssd_scan``'s result. The
@@ -32,6 +38,8 @@ from . import build
 # float32 and bfloat16: mamba2-370m at full width, and the smoke config with
 # the JAX package's kernel-test chunks.
 SSD_SHAPES = ((256, 64, 128), (4, 16, 16), (8, 16, 16), (16, 16, 16))
+# The shape whose bf16 calls run the tensor-core body (csrc/ssd_chunk_tc.cuh).
+TC_SHAPE = (256, 64, 128)
 
 
 def check_ssd_operands(name: str, x, b, c, dt, a, chunk: int) -> None:
@@ -75,6 +83,21 @@ def check_ssd_operands(name: str, x, b, c, dt, a, chunk: int) -> None:
             f"{name}: no kernel instantiated for chunk={chunk}, headdim={p}, "
             f"state={n} (instantiated (chunk, headdim, state): {SSD_SHAPES})"
         )
+    if x.dtype == torch.bfloat16 and (chunk, p, n) == TC_SHAPE:
+        check_tc_alignment(name, x, b, c)
+
+
+def check_tc_alignment(name: str, x, b, c) -> None:
+    """The tensor-core body copies rows 16 bytes a thread: x, b and c must
+    start 16-byte aligned and step by multiples of 8 elements on their
+    batch, sequence and head/group axes (a stride-0 head axis is fine)."""
+    for label, t in (("x", x), ("b", b), ("c", c)):
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(
+                f"{name}: {label} must start 16-byte aligned with strides a "
+                f"multiple of 8 elements for the tensor-core body, got "
+                f"offset {t.data_ptr() % 16} B and strides {t.stride()}"
+            )
 
 
 def ssd_chunk(

@@ -1,5 +1,6 @@
 """The cluster-split body of kernels B1 and B3 (paged single-token decode
-attention, ``csrc/paged_decode_split.cuh``).
+attention, ``csrc/paged_decode_split.cuh``), and of B5 (dense decode at a
+scalar position, ``csrc/decode_attention.cu``) over ``DenseRows``.
 
 On the CPU: an emulation of the body's arithmetic — ``decode_splits``'s S,
 each CTA's contiguous share of the row's needed pages by cluster rank, four
@@ -16,6 +17,16 @@ body, which launches a cluster and merges through distributed shared
 memory, and the old body is gone); the wrapper's 16-byte check. On a card
 (marked ``cuda``, skipped here): the kernels against their plain versions
 over the same S and edge cases, and a split count outside 1-8 refused.
+
+B5: the same emulation over a dense cache read as ``DenseRows`` reads it
+(block j of a row is cache rows 16 j .. 16 j + 15, the ragged last block
+clamped to the cache's last row) against ``decode_attention_plain``, over
+S 1-8, groups 1, 5 and 16, every mode, positions 0, 15, 16 and the last
+row, a window crossing a block; the wrapper's S (``decode_splits`` over
+the cache's blocks) and 16-byte check; CPU tensors ignore ``splits``; the
+C source launches the split body over ``DenseRows`` in a cluster and the
+old ``dense_decode_kernel`` is gone. On a card (``cuda``): the kernel
+against its plain version over the same S and positions.
 
 Inputs come from a numpy seed. The JAX package is not needed: the plain
 versions are held against the Pallas kernels in ``test_torch_kernels.py``
@@ -35,10 +46,12 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
+    DENSE_BLOCK,
     MAX_SPLITS,
     NEG_INF,
     TILE_ROWS,
     _checked_splits,
+    _dense_splits,
     decode_splits,
 )
 from repro_torch.models import quantise_kv_rows
@@ -276,6 +289,112 @@ def test_cpu_tensors_ignore_splits_and_take_the_plain_version(kernel):
     assert kernel.launches == before
 
 
+# ------------------------------------------------- B5 over DenseRows
+def dense_as_pages(k, v):
+    """A dense cache ``[B, KH, S, dh]`` (the wrapper's view) as the split
+    body reads it through ``DenseRows``: block j of row b is cache rows
+    16 j .. 16 j + 15, rows past S clamped to the last one -> (k_pages,
+    v_pages, block_tables) for the emulation."""
+    b, kh, seq, dh = k.shape
+    nb = -(-seq // DENSE_BLOCK)
+    rows = torch.arange(nb * DENSE_BLOCK).clamp(max=seq - 1)
+
+    def pages(t):
+        return t.transpose(1, 2)[:, rows].reshape(b * nb, DENSE_BLOCK, kh, dh)
+
+    bt = torch.arange(b * nb, dtype=torch.int32).reshape(b, nb)
+    return pages(k), pages(v), bt
+
+
+def _dense_case(group: int, *, seed: int, seq: int = 70, dh: int = 16,
+                device="cpu", dtype=torch.float32):
+    """q [B, H, dh] and the model's [B, S, KH, dh] cache passed transposed,
+    a view; S ragged against the 16-row blocks."""
+    rng = np.random.default_rng(seed)
+    b, kh = 2, 2
+    q = torch.from_numpy(rng.standard_normal(
+        (b, kh * group, dh)).astype(np.float32)).to(device, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (b, seq, kh, dh)).astype(np.float32)).to(device, dtype).transpose(1, 2)
+        for _ in range(2))
+    return q, k, v
+
+
+def dense_split_emulation(q, k, v, pos: int, *, splits, **kw):
+    kp, vp, bt = dense_as_pages(k, v)
+    return split_decode_emulation(
+        q, kp, vp, bt, torch.full((q.shape[0],), pos, dtype=torch.int32),
+        splits=splits, **kw)
+
+
+DENSE_POSITIONS = (0, 15, 16, 41, 69)  # block edges, mid, the last row
+
+
+@pytest.mark.parametrize("window,softcap", MODES)
+@pytest.mark.parametrize("group", GROUPS)
+def test_dense_split_emulation_matches_plain(group, window, softcap):
+    """Every S 1-8 at every position gives ``decode_attention_plain``'s
+    result; at pos 41 the window of 20 crosses the block edge at 32."""
+    q, k, v = _dense_case(group, seed=group)
+    kw = dict(window=window, softcap=softcap)
+    stats = {}
+    for pos in DENSE_POSITIONS:
+        ref = kernels.decode_attention_plain(
+            q, k, v, torch.tensor(pos, dtype=torch.int32), **kw)
+        for s in SPLITS:
+            out = dense_split_emulation(q, k, v, pos, splits=s, stats=stats,
+                                        **kw)
+            torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL,
+                                       msg=lambda m: f"pos={pos} S={s}: {m}")
+    assert stats["empty_ctas"] > 0
+
+
+def test_dense_burst_shape_emulation_matches_plain():
+    """The burst step's shape cut down (G = 1, head_dim 128, pos 255 of a
+    longer cache) at the S the wrapper picks and at S 8."""
+    q, k, v = _dense_case(1, seed=4, seq=300, dh=128)
+    pos = torch.tensor(255, dtype=torch.int32)
+    ref = kernels.decode_attention_plain(q, k, v, pos)
+    for s in {_dense_splits("t", q, k, v, None), 8}:
+        torch.testing.assert_close(
+            dense_split_emulation(q, k, v, 255, splits=s), ref, atol=TOL,
+            rtol=TOL)
+
+
+def test_dense_wrapper_picks_splits_and_checks_16_byte_strides():
+    """S = ``decode_splits(B, KH, G, blocks)``: the burst shape (8 rows x
+    16 kv heads, a 1024-row cache) gets 4, i.e. 512 CTAs; k/v must start
+    16-byte aligned with strides of 16-byte multiples."""
+    q, k, v = _dense_case(5, seed=0)
+    b, h, _ = q.shape
+    assert _dense_splits("t", q, k, v, None) == decode_splits(
+        b, 2, 5, -(-70 // DENSE_BLOCK))
+    assert _dense_splits("t", q, k, v, 3) == 3
+    q8 = torch.zeros(8, 16, 128, dtype=torch.bfloat16)
+    cache = torch.zeros(8, 1024, 16, 128, dtype=torch.bfloat16).transpose(1, 2)
+    assert _dense_splits("t", q8, cache, cache, None) == 4
+    flat = torch.zeros(k.numel() + 4)
+    shifted = flat[1:1 + k.numel()].view(2, 70, 2, 16).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _dense_splits("t", q, shifted, v, None)
+    wide = torch.zeros(2, 70, 2 * 16 + 2)[..., :32].reshape(
+        2, 70, 2, 16).transpose(1, 2)  # sequence stride 34 floats
+    with pytest.raises(ValueError, match="16-byte"):
+        _dense_splits("t", q, wide, wide, None)
+
+
+def test_dense_cpu_tensors_ignore_splits_and_take_the_plain_version():
+    q, k, v = _dense_case(5, seed=1)
+    pos = torch.tensor(41, dtype=torch.int32)
+    before = kernels.decode_attention.launches
+    for s in (1, 8):
+        torch.testing.assert_close(
+            kernels.decode_attention(q, k, v, pos, splits=s, window=20),
+            kernels.decode_attention_plain(q, k, v, pos, window=20),
+            atol=0, rtol=0)
+    assert kernels.decode_attention.launches == before
+
+
 # ------------------------------------------------------------- the sources
 def _body(src: str, signature: str) -> str:
     return src.split(signature)[1].split("\n}\n")[0]
@@ -305,9 +424,11 @@ def test_split_body_launches_a_cluster_and_merges_through_dsmem():
     src = (build.CSRC / "paged_decode_split.cuh").read_text()
     assert "paged_decode_split.cuh" in build.HEADERS
     launch = _body(src, "struct SplitLaunch {")
-    assert "cudaLaunchKernelEx(" in launch
-    assert "cudaLaunchAttributeClusterDimension" in launch
-    assert "clusterDim.z = a.splits" in launch
+    assert re.search(r"launch_split\([^;]*a\.splits", launch)
+    clusters = _body(src, "cudaError_t launch_split(")
+    assert "cudaLaunchKernelEx(" in clusters
+    assert "cudaLaunchAttributeClusterDimension" in clusters
+    assert "clusterDim.z = splits" in clusters
     # decode_splits counts CTAs with the kernel's own constants
     assert f"constexpr int kMaxSplits = {MAX_SPLITS};" in src
     assert f"constexpr int kTileRows = {TILE_ROWS};" in src
@@ -327,6 +448,38 @@ def test_old_decode_body_is_gone():
         text = path.read_text()
         assert "paged_decode_kernel" not in text, path.name
         assert "DecodeLaunch" not in text, path.name
+
+
+def test_dense_decode_launches_the_split_body_over_dense_rows():
+    """B5: one clustered launch of ``decode_split`` over ``DenseRows`` per
+    call, S CTAs a cluster, S checked in the entry point; the earlier body
+    (``dense_decode_kernel`` over ``attend_pages``) is gone, and
+    ``attend_pages`` serves only the CUDA-core paged prefill."""
+    src = (build.CSRC / "decode_attention.cu").read_text()
+    assert '#include "paged_decode_split.cuh"' in src
+    kernel = _body(src, "dense_decode_split_kernel(")
+    assert "paged::DenseRows<kDenseBlock>" in kernel
+    assert "paged_split::decode_split<" in kernel
+    assert "*pos" in kernel  # the position is read on the device
+    assert "return" not in kernel  # every CTA reaches the cluster barriers
+    # the clusters of (1, 1, S) of B1/B3's launch (launch_split)
+    assert re.search(r"paged_split::launch_split\([^;]*a\.splits", src)
+    entry = _body(src, 'extern "C" int dense_decode_attention(')
+    assert "splits > kMaxSplits" in entry
+    for call in ("cudaMalloc", "Synchronize", "cudaMemcpy", "new "):
+        assert call not in entry, call
+    assert "kDenseBlock = 16;" in (build.CSRC / "paged_attention.cuh").read_text()
+    assert DENSE_BLOCK == 16
+    uses = {}
+    for path in build.CSRC.iterdir():
+        text = path.read_text()
+        assert "dense_decode_kernel" not in text, path.name
+        assert "kDecodeRows" not in text, path.name
+        uses[path.name] = len(re.findall(r"\battend_pages<", text))
+    assert {k: n for k, n in uses.items() if n} == {"paged_attention.cuh": 1}
+    assert "attend_pages<" in _body(
+        (build.CSRC / "paged_attention.cuh").read_text(),
+        "    paged_prefill_kernel(")
 
 
 # ------------------------------------------------------------- on the card
@@ -376,3 +529,41 @@ def test_cuda_split_count_outside_1_to_8_is_refused(cuda, splits):
     with pytest.raises(RuntimeError, match="cudaError"):
         kernels.paged_decode_attention(q.to(cuda), kp.to(cuda), vp.to(cuda),
                                        bt.to(cuda), pos.to(cuda), splits=splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("window,softcap", MODES)
+@pytest.mark.parametrize("group", GROUPS)
+def test_cuda_dense_decode_matches_plain_over_splits_and_positions(
+    cuda, group, window, softcap, dtype, atol
+):
+    """B5 at every S 1-8, positions 0, 15, 16, 41 (the window of 20 crosses
+    a block) and the last row of a ragged cache, on the model's layout as a
+    view; fp32 1e-4, bf16 2e-2 (as B1's). One launch per call."""
+    kw = dict(window=window, softcap=softcap)
+    for dh in (16, 128):
+        q, k, v = _dense_case(group, seed=group + dh, dh=dh, device=cuda,
+                              dtype=dtype)
+        for pos in DENSE_POSITIONS:
+            p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+            ref = kernels.decode_attention_plain(q.float(), k.float(),
+                                                 v.float(), p, **kw)
+            for s in SPLITS:
+                before = kernels.decode_attention.launches
+                out = kernels.decode_attention(q, k, v, p, splits=s, **kw)
+                torch.cuda.synchronize()
+                assert kernels.decode_attention.launches == before + 1
+                torch.testing.assert_close(
+                    out.float(), ref, atol=atol, rtol=0,
+                    msg=lambda m: f"dh={dh} pos={pos} S={s}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [0, MAX_SPLITS + 1])
+def test_cuda_dense_split_count_outside_1_to_8_is_refused(cuda, splits):
+    q, k, v = _dense_case(1, seed=2, device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kernels.decode_attention(q, k, v, torch.tensor(
+            3, dtype=torch.int32, device=cuda), splits=splits)
