@@ -36,7 +36,22 @@ Phases (any failure exits non-zero before a result is printed):
    speculative decoding (k up to 4, a 2-layer int8 draft; B3/B4) — and a
    Poisson stream through the per-burst engine (``run_burst_stream``:
    ``set_mode`` + ``decode_loop``, B5), each with the kernels' launch counts
-   set to 0 just before it and every other kernel held at 0 launches.
+   set to 0 just before it and every other kernel held at 0 launches. Every
+   branch target of these paths is a CUDA graph (``EngineConfig.
+   cuda_graphs``' default on the card), captured once over the engine's
+   pools and caches; a replay counts the kernel launches it holds.
+3b. Graph targets against the eager steps (``cuda_graphs=False``): the
+   bf16, int8+spec and burst cells' traffic (and mamba2's burst traffic in
+   phase 6) each run both ways under one step clock on the same weights
+   and requests; greedy tokens equal, or a request's first divergence is a
+   near-tie on the card; captures after warmup 0 on the paged streams, the
+   distinct keys met on the burst streams; peak memory with every target
+   captured. Then one step of ``cbp``, ``pf``, ``vf``+``dr`` and ``burst``
+   (and mamba2's ``burst``), graph and eager in the same call, as the
+   serving loop takes it: host wall, the host's launch calls per step
+   (``torch.profiler``'s CPU events: ``cudaGraphLaunch``,
+   ``cudaLaunchKernel``/``Ex``, copies), device busy, idle share and the
+   B1-B5 kernels seen inside the replay.
 4. One paged prefill step and one paged decode step at full width with the
    kernels and with the plain attention, on identical inputs, for bf16 and
    int8 pages; the prompt-then-burst path (``prefill`` of 8 prompts of 256
@@ -47,9 +62,11 @@ Phases (any failure exits non-zero before a result is printed):
    steps (int8 pages), `pf` steps
    (8 rows x chunk 64 on bf16 and on int8 pages: B2's and B4's share) and
    burst steps: device busy vs host wall.
-5. The smoke config's greedy stream on the card and on the CPU: plain, and
-   with speculation on model-dtype pages (B2 through the verify lane) and on
-   int8 pages; the spec streams equal the plain ones.
+5. The smoke config's greedy stream on the card (graph targets) and on
+   the CPU under one step clock: plain, and with speculation on model-dtype
+   pages (B2 through the verify lane) and on int8 pages; the spec streams
+   equal the plain ones; a stream with half its requests sampled through
+   graph targets equals the eager targets' for one seed.
 6. mamba2 (B8): the SSD chunked scan against its plain version on the
    smoke config's heads (chunks 4, 8, 16; S 16, 32 and a ragged 20) and on
    mamba2-370m's (chunk 256; S 1, 255, 256, 257, 1024, 1056 and 2048; bf16
@@ -567,6 +584,24 @@ def _launches(label: str, expect: tuple) -> dict:
     return launches
 
 
+def _release_engines() -> None:
+    """Free the memory of engines no longer used (an engine sits in a
+    reference cycle until the collector runs), so a peak reads one path."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _warm_runs_per_key() -> int:
+    """Step runs of one warmed graph target: the eager runs before its
+    capture, then the warm replay."""
+    from repro_torch.core.graph_target import WARMUP_RUNS
+
+    return WARMUP_RUNS + 1
+
+
 def _check_stream(label: str, cfg, reqs, rep: dict) -> None:
     check(rep["finished"] == len(reqs),
           f"{label}: finished {rep['finished']}/{len(reqs)}")
@@ -591,6 +626,7 @@ def burst_stream(cfg, params, label: str = "burst",
     reqs = poisson_arrivals(16, 20.0, seed=0, tokens_mean=16,
                             tokens_max=ecfg.max_len, sample_frac=0.25,
                             vocab=cfg.vocab_size)
+    _release_engines()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()  # this path's run starts here
     t0 = time.perf_counter()
@@ -625,30 +661,36 @@ def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
     from repro_torch.runtime.kvcache import page_bytes
     from repro_torch.runtime.serve import Engine, run_paged_stream
 
+    _release_engines()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()  # this path's run starts here
     t0 = time.perf_counter()
     with Engine(cfg, params, ecfg) as eng:
+        check(eng.graphs, f"{label}: the engine's targets are not CUDA graphs")
         rep = run_paged_stream(eng, reqs, slots=8, seed=0)
         pool_gb = (eng.pool_physical_pages * cfg.num_layers * page_bytes(
             ecfg.page_size, cfg.num_kv_heads, cfg.head_dim, ecfg.kv_dtype,
             cfg.dtype) / 1e9)
         warm = len(eng._chunk_buckets()) + len(eng._k_buckets())
+        targets = len(eng._decode)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches(label, expect)
     # the chunk kernel serves the pf and vf lanes, one launch per layer per
-    # call, warmup's calls included; the steps themselves follow wall-clock
-    # admission, so the count differs from run to run
+    # call, warmup's included: each warmed key runs its step once before
+    # its capture and replays once to warm; a capture launches nothing. The
+    # steps themselves follow wall-clock admission, so the count differs
+    # from run to run
     steps = rep["lane_steps"]
     pf_kernel = next(k for k in expect if "prefill" in k)
-    want = cfg.num_layers * (steps["prefill"] + steps["verify"] + warm)
+    runs = _warm_runs_per_key()
+    want = cfg.num_layers * (steps["prefill"] + steps["verify"] + runs * warm)
     check(launches[pf_kernel] == want,
           f"{label}: {pf_kernel} launched {launches[pf_kernel]} times, "
           f"expected {want} (one per layer per pf/vf call)")
     log(f"[stream:{label}] {pf_kernel} {want} launches = {cfg.num_layers} "
-        f"layers x ({steps['prefill']} pf + {steps['verify']} vf steps + "
-        f"{warm} warmup calls)")
+        f"layers x ({steps['prefill']} pf + {steps['verify']} vf replays + "
+        f"{runs} x {warm} warmup runs) | {targets} graph targets captured")
     check(rep["compiles_after_warmup"] == 0,
           f"{label}: compiles_after_warmup {rep['compiles_after_warmup']}")
     check(rep["prefill_chunks"] > 0, f"{label}: no prefill chunks ran")
@@ -662,8 +704,9 @@ def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
         f"p95 {rep['p95_ms']:.1f} ms, ttft p50 {rep['ttft_p50_ms']:.1f} ms "
         f"p95 {rep['ttft_p95_ms']:.1f} ms | steps {rep['steps']} lanes "
         f"{rep['lane_steps']}, compiles_after_warmup "
-        f"{rep['compiles_after_warmup']}, rebinds {rep['rebinds']} | peak "
-        f"memory {peak_gb:.2f} GB, KV pool {pool_gb:.3f} GB "
+        f"{rep['compiles_after_warmup']} (captures), rebinds "
+        f"{rep['rebinds']} | peak memory {peak_gb:.2f} GB with every target "
+        f"captured, KV pool {pool_gb:.3f} GB "
         f"({rep['kv_dtype']}) | launches {launches}")
     log(f"[stream:{label}] host_plan_ms {rep['pipeline']['host_plan_ms']} "
         f"device_wait_ms {rep['pipeline']['device_wait_ms']} "
@@ -718,6 +761,362 @@ def full_width_streams() -> dict:
     return {"launches": launches, "params": params, "cfg": cfg}
 
 
+# ------------------------------------------------ phase 3b (graphs vs eager)
+class _StepClock:
+    """Virtual time that advances a fixed step per read: a stream forms the
+    same batches whichever targets run it (graphs or eager) and on
+    whichever device, so their tokens compare one for one."""
+
+    def __init__(self, dt: float = 0.004) -> None:
+        self.t = 0.0
+        self.dt = dt
+
+    def now(self) -> float:
+        self.t += self.dt
+        return self.t
+
+    def jump_to(self, t: float) -> None:
+        self.t = max(self.t, t)
+
+
+def _card_near_tie(cfg, params, seq, a: int, b: int,
+                   kv_dtype: str) -> tuple[bool, float]:
+    """Whether tokens ``a`` and ``b`` are a near-tie after ``seq`` at full
+    width: their logits from one eager pass over ``seq`` on the card (a
+    chunked prefill with the plain attention over pages of ``kv_dtype``;
+    ``forward`` through B8 for an SSM stack) lie within
+    ``BF16_TIE_MARGIN``."""
+    from repro_torch import models
+
+    dev = "cuda"
+    tok = torch.tensor([seq], dtype=torch.int32, device=dev)
+    if any(cfg.mixer_at(s) == "mamba" for s in range(cfg.period)):
+        logits, _ = models.forward(cfg, params, tok)
+        row = logits[0, -1].float()
+    else:
+        ps = 16
+        n = -(-len(seq) // ps)
+        cache = models.init_paged_cache(cfg, n + 1, ps, kv_dtype, device=dev)
+        logits, _ = models.paged_prefill_step(
+            cfg, params, cache, tok, torch.zeros(1, dtype=torch.int32,
+                                                 device=dev),
+            torch.arange(1, n + 1, dtype=torch.int32, device=dev)[None],
+            torch.tensor([len(seq)], dtype=torch.int32, device=dev),
+            attn_impl="plain",
+        )
+        row = logits[0].float()
+    gap = abs(float(row[a] - row[b]))
+    return gap < BF16_TIE_MARGIN, gap
+
+
+def _paired_streams(label: str, cfg, params, ecfg: dict, traffic,
+                    kv_dtype: str = "fp32", burst: bool = False) -> dict:
+    """One stream through graph targets and again through the eager steps
+    (``cuda_graphs=False``) on the same weights and requests, under one
+    step clock: greedy tokens equal, or a request's first divergence is a
+    near-tie; builds (captures) after warmup 0 on a paged stream, the
+    distinct keys met on a burst stream."""
+    from repro_torch.runtime.serve import (
+        Engine,
+        EngineConfig,
+        run_burst_stream,
+        run_paged_stream,
+    )
+
+    runs = {}
+    for graphs in (True, False):
+        reqs = traffic()
+        _release_engines()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Engine(cfg, params, EngineConfig(**ecfg, cuda_graphs=graphs)) as eng:
+            check(eng.graphs == graphs, f"{label}: cuda_graphs {eng.graphs}")
+            if burst:
+                rep = run_burst_stream(eng, reqs, clock=_StepClock())
+            else:
+                rep = run_paged_stream(eng, reqs, slots=8, seed=0,
+                                       clock=_StepClock())
+            keys = list(eng._decode.cache.stats.keys)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check_stream(f"{label}/graphs={graphs}", cfg, reqs, rep)
+        want = len(set(keys)) if burst else 0
+        check(rep["compiles_after_warmup"] == want,
+              f"{label}/graphs={graphs}: compiles_after_warmup "
+              f"{rep['compiles_after_warmup']}, expected {want}")
+        runs[graphs] = (reqs, rep, wall,
+                        torch.cuda.max_memory_allocated() / 1e9, len(keys))
+    (greqs, grep, gwall, gpeak, ntargets), (ereqs, erep, ewall, epeak, _) = (
+        runs[True], runs[False])
+    eager_by_rid = {r.rid: r for r in ereqs}
+    equal = ties = sampled = sampled_equal = 0
+    for r in greqs:
+        e = eager_by_rid[r.rid]
+        if not r.greedy:
+            sampled += 1
+            sampled_equal += r.tokens == e.tokens
+            continue
+        if r.tokens == e.tokens:
+            equal += 1
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(r.tokens, e.tokens))
+                 if x != y)
+        ok, gap = _card_near_tie(cfg, params,
+                                 list(r.effective_prompt) + r.tokens[:i],
+                                 r.tokens[i], e.tokens[i], kv_dtype)
+        check(ok, f"{label}: rid {r.rid} graph and eager greedy streams "
+              f"differ at token {i}, logit gap {gap:.4f} >= "
+              f"{BF16_TIE_MARGIN}")
+        ties += 1
+    tokens = sum(len(r.tokens) for r in greqs)
+    host = "" if burst else (
+        f" | host_plan_ms {grep['pipeline']['host_plan_ms']} graphs vs "
+        f"{erep['pipeline']['host_plan_ms']} eager, device_wait_ms "
+        f"{grep['pipeline']['device_wait_ms']} vs "
+        f"{erep['pipeline']['device_wait_ms']}")
+    log(f"[graphs:{label}] {cfg.name}: graphs = eager on {equal} greedy "
+        f"requests, {ties} near-tie divergences; sampled {sampled_equal}/"
+        f"{sampled} equal (one seed) | {tokens} tokens, wall incl. warmup "
+        f"{gwall:.2f}s graphs ({ntargets} targets captured, captures after "
+        f"warmup {grep['compiles_after_warmup']}) vs {ewall:.2f}s eager{host}"
+        f" | peak memory {gpeak:.2f} GB graphs, {epeak:.2f} GB eager | "
+        f"{_card()}")
+    return {"graphs_s": gwall, "eager_s": ewall, "ties": ties}
+
+
+# B1-B5's kernels, as the profiler names them, and the host calls that put
+# work on the card
+_GRAPH_PATH_KERNELS = ("paged_decode_split_kernel", "paged_prefill_tc_kernel",
+                       "paged_prefill_kernel", "dense_decode_split_kernel")
+_HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel",
+                      "cudaLaunchKernelExC", "cuLaunchKernel",
+                      "cuLaunchKernelEx", "cudaMemcpyAsync")
+
+
+def _wall_ms(run, steps: int = 20) -> float:
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def _profile_replay(label: str, runs: dict, steps: int = 5) -> dict:
+    """One step of a lane, graph and eager (``runs``: {"graph": run,
+    "eager": run}): host wall per step (20 steps, no profiler), the host's
+    launch calls per step (``torch.profiler``'s CPU events), device busy
+    (its kernels' time; where it records none, CUDA events around queued
+    steps), idle share, and the B1-B5 kernels seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for mode, run in runs.items():
+        wall = _wall_ms(run)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                run()
+            torch.cuda.synchronize()
+        by_name = _kernel_ms(prof, steps)
+        calls = {e.key: e.count / steps for e in prof.key_averages()
+                 if e.key in _HOST_LAUNCH_CALLS}
+        busy, by = sum(by_name.values()), "profiler"
+        seen = sorted({n for k in by_name for n in _GRAPH_PATH_KERNELS
+                       if n in k})
+        if busy == 0:
+            busy = _queued_ms(run, torch.empty(1, device="cuda"), steps)
+            by = ("cuda events (the profiler recorded no kernel of the "
+                  "step)")
+        idle = None if busy is None else max(0.0, 100 - 100 * busy / wall)
+        out[mode] = {"wall_ms": wall, "busy_ms": busy, "idle_pct": idle,
+                     "calls": calls, "kernels": seen}
+        log(f"[graphs:profile] {label} {mode}: wall {wall:.3f} ms, device "
+            f"busy {_fmt_ms(busy)} by {by}, idle "
+            f"{'not measured' if idle is None else f'{idle:.1f}%'} | host "
+            f"launch calls per step {calls} | B1-B5 kernels "
+            f"{seen or 'none recorded'}")
+    g, e = out["graph"], out["eager"]
+    check(g["calls"].get("cudaGraphLaunch", 0) >= 1 or not g["calls"],
+          f"{label}: no graph launch recorded in the graph step")
+    log(f"[graphs:profile] {label}: wall {g['wall_ms']:.3f} ms graph vs "
+        f"{e['wall_ms']:.3f} ms eager ({e['wall_ms'] / g['wall_ms']:.1f}x) | "
+        f"{_card()}")
+    return out
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _steady_args(exe, args: list) -> list:
+    """The serving loop's steady state: the arguments held in a graph
+    target's static inputs (where the mirror's uploads land), so a call
+    copies nothing in; an eager target takes them as they are."""
+    ins = getattr(exe, "static_inputs", None)
+    if ins is None:
+        return list(args)
+    for d, a in zip(ins, args, strict=True):
+        d.copy_(a)
+    return list(ins)
+
+
+def _step_runs(eng, lane: str, slots: int, dev: str = "cuda"):
+    """A run of one ``lane`` step on ``eng`` as the serving loop takes it,
+    its per-step uploads and its d2h pull included: ``cbp`` (8 slots from
+    position 200, 16-page tables, token and position chained), ``pf``
+    (chunk 64 at starts 0-192, tables at the page cap; four uploads) or
+    ``spec`` (``dr`` k 4, the drafts pulled, the window and lengths
+    uploaded, then ``vf``)."""
+    import numpy as np
+
+    from repro_torch.core import lanes
+    from repro_torch.runtime.scheduler import _upload
+
+    i32 = torch.int32
+    cfg, cap = eng.cfg, eng.max_pages_per_req
+    gen = torch.Generator(device=dev).manual_seed(0)
+    temps = torch.ones(slots, device=dev)
+    greedy = torch.ones(slots, dtype=torch.bool, device=dev)
+    active = torch.ones(slots, dtype=torch.bool, device=dev)
+    bt_h = np.arange(1, slots * cap + 1, dtype=np.int32).reshape(slots, cap)
+    btf = torch.from_numpy(bt_h).to(dev)
+    kv = eng.ecfg.kv_dtype
+    cache = eng.paged_cache(kv)
+    if lane == "cbp":
+        exe = eng._decode.build(lanes.CBP.key(slots, 16, kv))
+        state = _steady_args(exe, [
+            torch.zeros(slots, 1, dtype=i32, device=dev),
+            torch.full((slots,), 200, dtype=i32, device=dev),
+            btf[:, :16].contiguous(), active, temps, greedy])
+
+        def run():
+            out = exe(cache, *state, gen)
+            state[0], state[1] = out[3], out[2]  # chained, as the mirror does
+            return out[4].cpu()
+
+        return run
+    if lane == "pf":
+        exe = eng._decode.build(lanes.PF.key(slots, 64, kv))
+        rng = np.random.default_rng(9)
+        hosts = [rng.integers(0, cfg.vocab_size, (slots, 64)).astype(np.int32),
+                 np.array([0, 64, 128, 192] * (slots // 4), np.int32), bt_h,
+                 np.full(slots, 64, np.int32)]
+        dst = getattr(exe, "static_inputs", None) or (None,) * 4
+        fixed = _steady_args(exe, [torch.from_numpy(h).to(dev) for h in hosts]
+                      + [temps, greedy])
+
+        def run():
+            up = [_upload(h, dev, d) for h, d in zip(hosts, dst)]
+            return exe(cache, *up, fixed[4], fixed[5], gen)[0].cpu()
+
+        return run
+    k = eng.ecfg.spec_k
+    dr = eng._decode.build(lanes.DR.key(slots, k, eng.ecfg.draft_kv_dtype))
+    vf = eng._decode.build(lanes.VF.key(slots, k, kv))
+    dcache = eng.draft_cache(slots, eng.ecfg.draft_kv_dtype)
+    pos = torch.full((slots,), 200, dtype=i32, device=dev)
+    dstate = _steady_args(dr, [torch.zeros(slots, 1, dtype=i32, device=dev), pos,
+                        active])
+    len_h = np.full(slots, k + 1, np.int32)
+    vfixed = _steady_args(vf, [torch.zeros(slots, k + 1, dtype=i32, device=dev),
+                        pos, btf, torch.from_numpy(len_h).to(dev), temps,
+                        greedy])
+    vdst = getattr(vf, "static_inputs", None) or (None,) * 4
+
+    def run():
+        drafts = dr(dcache, *dstate)[0].cpu().numpy()
+        window = np.concatenate([np.zeros((slots, 1), np.int32), drafts], 1)
+        out = vf(cache, _upload(window, dev, vdst[0]), vfixed[1], vfixed[2],
+                 _upload(len_h, dev, vdst[3]), vfixed[4], vfixed[5], gen)
+        return out[3].cpu()
+
+    return run
+
+
+def _burst_run(eng, bucket: int, pos: int):
+    """A run of one burst step as ``decode_loop`` takes it (no pull: the
+    loop chains token and position on the device): ``set_mode`` first, the
+    bucket's cache zeroed."""
+    from repro_torch.runtime.serve import GREEDY
+
+    eng.set_mode(batch=bucket, sampling=GREEDY)
+    exe, cache = eng._current, eng.zero_cache(eng.burst_cache(bucket))
+    gen = torch.Generator(device="cuda")
+    state = [torch.zeros(bucket, 1, dtype=torch.int32, device="cuda"),
+             torch.tensor(pos, dtype=torch.int32, device="cuda")]
+
+    def run():
+        out = exe(cache, *state, gen)
+        state[0], state[1] = out[2], out[3]
+        return out[0]
+
+    return run
+
+
+def graph_phase(cfg, params) -> None:
+    """olmo-1b at full width through graph targets against the eager
+    steps: the bf16, int8+spec and burst cells' traffic, paired; then one
+    replayed step of ``cbp``, ``pf``, ``vf``+``dr`` and ``burst``, graph
+    and eager, profiled."""
+    from repro_torch.runtime.scheduler import poisson_arrivals
+    from repro_torch.runtime.scheduler import shared_prefix_arrivals
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    base = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64)
+    spec = dict(base, kv_dtype="int8", spec_k=4, draft_layers=2,
+                draft_kv_dtype="int8")
+
+    def traffic():
+        return shared_prefix_arrivals(
+            16, 20.0, seed=0, num_prefixes=4, prefix_len=128, tokens_mean=16,
+            total_max=base["max_len"], sample_frac=0.25, vocab=cfg.vocab_size,
+        )
+
+    def burst_traffic():
+        return poisson_arrivals(16, 20.0, seed=0, tokens_mean=16,
+                                tokens_max=1024, sample_frac=0.25,
+                                vocab=cfg.vocab_size)
+
+    burst = dict(max_len=1024, max_batch=8, batch_quantum=4)
+    _paired_streams("bf16", cfg, params, base, traffic)
+    _paired_streams("int8+spec", cfg, params, spec, traffic, "int8")
+    _paired_streams("burst", cfg, params, burst, burst_traffic, burst=True)
+    for label, ecfg, lane in (
+        ("cbp (bf16 pages, 8 slots, pos 200, 16-page tables; B1)", base,
+         "cbp"),
+        ("pf (bf16 pages, 8 rows x chunk 64; B2)", base, "pf"),
+        ("vf+dr (int8 pages, draft 2 layers x k 4 + 5-row verify; B3/B4 "
+         "path)", spec, "spec"),
+    ):
+        runs = {}
+        engines = []
+        for mode in ("graph", "eager"):
+            eng = Engine(cfg, params, EngineConfig(
+                **ecfg, cuda_graphs=mode == "graph"))
+            engines.append(eng)
+            runs[mode] = _step_runs(eng, lane, 8)
+        _profile_replay(label, runs)
+        for eng in engines:
+            eng.close()
+        del engines, runs
+    runs, engines = {}, []
+    for mode in ("graph", "eager"):
+        eng = Engine(cfg, params, EngineConfig(**burst,
+                                               cuda_graphs=mode == "graph"))
+        engines.append(eng)
+        runs[mode] = _burst_run(eng, 8, 288)
+    _profile_replay("burst (dense cache, 8 rows from pos 288; B5)", runs)
+    for eng in engines:
+        eng.close()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 4
 def steps_kernel_vs_plain(cfg, params) -> None:
     from repro_torch import models
@@ -757,9 +1156,21 @@ def steps_kernel_vs_plain(cfg, params) -> None:
                   f"{name}/{pages}: logits differ by {err:.4f}")
 
 
+def _into_burst_cache(eng, bucket: int, cache: list) -> list:
+    """Copy a prompt's cache into the bucket's burst cache, the one its
+    graph targets were captured over (after ``set_mode``, whose warm run
+    writes it)."""
+    dst = eng.burst_cache(bucket)
+    for d, c in zip(dst, cache, strict=True):
+        for k, t in c.items():
+            d[k].copy_(t)
+    return dst
+
+
 def prompt_then_burst(cfg, params) -> dict:
     """``prefill`` (B6) of 8 prompts of 256, ``pad_cache`` to 1024, then
-    ``set_mode`` + ``decode_loop`` of 32 greedy tokens (B5) — the JAX
+    ``set_mode``, the cache copied into the bucket's burst cache, and
+    ``decode_loop`` of 32 greedy tokens (B5, a graph replay a step) — the JAX
     package's prefill-then-decode sequence — and ``forward`` (B6) over
     prompt + tokens, with the counts set to 0 just before and read after.
     Then ``forward`` with B6 against the naive attention on the same
@@ -780,6 +1191,7 @@ def prompt_then_burst(cfg, params) -> dict:
     with Engine(cfg, params, EngineConfig(max_len=max_len, max_batch=b,
                                           batch_quantum=4)) as eng:
         eng.set_mode(batch=b, sampling=GREEDY)
+        cache = _into_burst_cache(eng, b, cache)
         toks, cache = eng.decode_loop(cache, first, prompt_len, n)
         seq = torch.cat([prompts, first,
                          torch.from_numpy(toks[:, :-1]).to("cuda")], dim=1)
@@ -912,8 +1324,9 @@ def profile_steps(cfg, params) -> None:
     def spec_step():
         drafts, _, _ = draft(dparams, dcache, tok, pos, active)
         window = torch.cat([tok, drafts], dim=1)
+        u = steps_mod.draw_noise(slots, cfg.vocab_size, gen, dev)
         return verify(params, cache8, window, pos, btf, length, temps, active,
-                      gen)
+                      u)
 
     _profile("full-width spec step (int8 pages, draft 2 layers x k 4 + "
              "5-row verify, 8 slots, pos 200)", spec_step, 5,
@@ -959,9 +1372,10 @@ def _near_tie(cfg, params, seq, kv_dtype: str) -> bool:
 
 
 def smoke_card_vs_cpu() -> dict:
-    """The smoke config (fp32, TF32 off), greedy: card = CPU for the plain
-    stream and for speculation on model-dtype and on int8 pages; each spec
-    stream equals its pool's plain stream up to a near-tie."""
+    """The smoke config (fp32, TF32 off), greedy: card (graph targets) =
+    CPU for the plain stream and for speculation on model-dtype and on int8
+    pages, under one step clock; each spec stream equals its pool's plain
+    stream up to a near-tie."""
     from repro_torch import kernels, models
     from repro_torch.configs import get_config
     from repro_torch.runtime.scheduler import shared_prefix_arrivals
@@ -983,8 +1397,10 @@ def smoke_card_vs_cpu() -> dict:
                                 draft_kv_dtype=kv_dtype)
             kernels.reset_launch_counts()
             with Engine(cfg, params, ecfg, device=dev) as eng:
-                rep = run_paged_stream(eng, reqs, slots=4)
+                rep = run_paged_stream(eng, reqs, slots=4, clock=_StepClock())
                 warm_vf = len(eng._k_buckets())
+                check(eng.graphs == (dev == "cuda"),
+                      f"smoke {dev}: cuda_graphs {eng.graphs}")
             tag = f"{kv_dtype}/spec_k={spec_k}/{dev}"
             check(rep["finished"] == len(reqs)
                   and rep["compiles_after_warmup"] == 0,
@@ -994,16 +1410,17 @@ def smoke_card_vs_cpu() -> dict:
                 check(rep["lane_steps"]["verify"] > 0, f"{tag}: no verify")
             if spec_k and kv_dtype == "fp32" and dev == "cuda":
                 # B2 serves the pf and vf lanes, one launch per layer per
-                # call, warmup's dummy calls included
+                # call, each warmed key's runs included
                 n = kernels.paged_prefill_attention.launches
                 steps = rep["lane_steps"]
+                runs = _warm_runs_per_key()
                 want = cfg.num_layers * (
-                    steps["prefill"] + len(eng._chunk_buckets())
-                    + steps["verify"] + warm_vf
+                    steps["prefill"] + runs * len(eng._chunk_buckets())
+                    + steps["verify"] + runs * warm_vf
                 )
                 check(n == want, f"{tag}: B2 launched {n}, expected {want}")
                 b2_verify = {"launches": cfg.num_layers
-                             * (steps["verify"] + warm_vf),
+                             * (steps["verify"] + runs * warm_vf),
                              "verify_steps": steps["verify"]}
             streams[tag] = {r.rid: (r.prompt, r.tokens) for r in reqs}
     for kv_dtype in ("fp32", "int8"):
@@ -1028,9 +1445,31 @@ def smoke_card_vs_cpu() -> dict:
         log(f"[smoke] {kv_dtype} pages, greedy: card = CPU with and without "
             f"speculation; spec = plain stream ({len(plain)} requests, {n} "
             f"tokens, {ties} near-tie divergences)")
+    streams = {}
+    for graphs in (True, False):
+        reqs = shared_prefix_arrivals(
+            12, 1000.0, seed=2, num_prefixes=3, prefix_len=20,
+            tokens_mean=8, total_max=64, sample_frac=0.5,
+            vocab=cfg.vocab_size,
+        )
+        with Engine(cfg, params, EngineConfig(
+            max_len=64, max_batch=4, page_size=8, num_pages=40,
+            prefill_chunk=16, spec_k=2, cuda_graphs=graphs)) as eng:
+            rep = run_paged_stream(eng, reqs, slots=4, seed=3,
+                                   clock=_StepClock())
+        check(rep["finished"] == len(reqs) and rep["compiles_after_warmup"]
+              == 0, f"smoke sampled graphs={graphs}: {rep['finished']} "
+              f"finished, {rep['compiles_after_warmup']} captures after "
+              f"warmup")
+        streams[graphs] = {r.rid: r.tokens for r in reqs}
+    check(streams[True] == streams[False],
+          "smoke sampled stream: graph targets != eager targets (seed 3)")
+    log(f"[smoke] sampled stream (half the requests sampled, seed 3, "
+        f"speculation on): graph targets = eager targets token for token "
+        f"({sum(len(t) for t in streams[True].values())} tokens)")
     log(f"[smoke] B2 through the verify lane: {b2_verify['launches']} launches "
-        f"({b2_verify['verify_steps']} verify steps x {cfg.num_layers} layers, "
-        f"warmup included)")
+        f"({b2_verify['verify_steps']} verify replays x {cfg.num_layers} "
+        f"layers, warmup runs included)")
     return b2_verify
 
 
@@ -1164,7 +1603,8 @@ def mamba_prompt_then_burst(cfg, params) -> dict:
     with Engine(cfg, params, EngineConfig(max_len=max_len, max_batch=b,
                                           batch_quantum=4)) as eng:
         eng.set_mode(batch=b, sampling=GREEDY)
-        toks, cache = eng.decode_loop(padded, first, prompt_len, n)
+        cache = _into_burst_cache(eng, b, padded)
+        toks, cache = eng.decode_loop(cache, first, prompt_len, n)
         seq = torch.cat([prompts, first,
                          torch.from_numpy(toks[:, :-1]).to("cuda")], dim=1)
         logits, _ = models.forward(cfg, params, seq)
@@ -1248,6 +1688,26 @@ def mamba_full_width() -> dict:
         f"in {time.perf_counter() - t0:.1f}s")
     launches = mamba_prompt_then_burst(cfg, params)
     burst_stream(cfg, params, "mamba burst", ())
+    from repro_torch.runtime.scheduler import poisson_arrivals
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    burst = dict(max_len=1024, max_batch=8, batch_quantum=4)
+    _paired_streams(
+        "mamba burst", cfg, params, burst,
+        lambda: poisson_arrivals(16, 20.0, seed=0, tokens_mean=16,
+                                 tokens_max=1024, sample_frac=0.25,
+                                 vocab=cfg.vocab_size),
+        burst=True,
+    )
+    runs, engines = {}, []
+    for mode in ("graph", "eager"):
+        eng = Engine(cfg, params, EngineConfig(**burst,
+                                               cuda_graphs=mode == "graph"))
+        engines.append(eng)
+        runs[mode] = _burst_run(eng, 8, 32)
+    _profile_replay("mamba2 burst (8 rows, recurrent state)", runs)
+    for eng in engines:
+        eng.close()
     return launches
 
 
@@ -1793,6 +2253,7 @@ def main() -> int:
     setup()
     kernels_vs_plain()
     main_path = full_width_streams()
+    graph_phase(main_path["cfg"], main_path["params"])
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
     prompt = prompt_then_burst(main_path["cfg"], main_path["params"])
     profile_steps(main_path["cfg"], main_path["params"])

@@ -16,8 +16,8 @@ The ``DispatchPolicy`` makes the paper's Fig. 13 result a first-class knob:
 switching the branch direction is cheap but *not free*, so when the key
 oscillates rapidly (greedy/sample/greedy/sample...) the policy can refuse to
 thrash the slot and serve the minority key straight from the table — the
-table lookup costs one dict hit, while a rebind costs a slot write.
-Hysteresis = N means a key must be seen N times in a row
+table lookup costs one dict hit, while a rebind costs a slot write plus an
+optional warm call. Hysteresis = N means a key must be seen N times in a row
 before it captures the slot.
 
 The ``CompileCache`` closes the paper's §5.2 duplicate-entry-point hazard in
@@ -45,8 +45,8 @@ class DispatchError(RuntimeError):
 class CacheStats:
     hits: int = 0
     misses: int = 0
-    single_flight_waits: int = 0
     evictions: int = 0
+    single_flight_waits: int = 0
     compile_seconds: float = 0.0
     keys: list = field(default_factory=list)
 
@@ -62,11 +62,18 @@ class _Build:
 
 
 class CompileCache:
-    """key -> branch target, with single-flight cold-path builds: on a miss
-    exactly one caller runs ``builder()`` (the leader); concurrent callers
-    for the same key block until the leader finishes and then reuse its
-    target. ``capacity`` bounds the table: least-recently-used entries are
-    evicted, except keys pinned by a live hot slot."""
+    """Bounded key -> branch target cache with single-flight cold-path
+    builds.
+
+    * ``get`` is the warm path: one locked dict hit, never builds.
+    * ``get_or_build`` is the cold path: on a miss, exactly one caller runs
+      ``builder()`` (the leader); concurrent callers for the same key block
+      until the leader finishes and then reuse its target.
+    * ``capacity`` bounds the table; least-recently-used entries are
+      evicted, except keys pinned by a live hot slot (evicting the slot's
+      target while the hot path holds it would be the table edition of the
+      paper's dangling-entry-point hazard).
+    """
 
     def __init__(
         self, name: str = "cache", capacity: int | None = None,
@@ -93,6 +100,10 @@ class CompileCache:
         with self._lock:
             return len(self._table)
 
+    def keys(self) -> tuple:
+        with self._lock:
+            return tuple(self._table)
+
     def pin(self, key: Hashable) -> None:
         with self._lock:
             self._pinned.add(key)
@@ -100,6 +111,21 @@ class CompileCache:
     def unpin(self, key: Hashable) -> None:
         with self._lock:
             self._pinned.discard(key)
+
+    def get(self, key: Hashable) -> Any:
+        """Warm path: plain locked lookup, never a build."""
+        with self._lock:
+            try:
+                exe = self._table[key]
+            except KeyError:
+                raise KeyError(
+                    f"CompileCache {self.name!r} has no branch target for key "
+                    f"{key!r}; precompile it in the cold path with "
+                    f"get_or_build()."
+                ) from None
+            self._table.move_to_end(key)
+            self.stats.hits += 1
+            return exe
 
     def get_or_build(self, key: Hashable, builder: Callable[[], Any]) -> Any:
         """Cold path: build-and-insert on miss, single-flight per key."""
@@ -135,6 +161,7 @@ class CompileCache:
                 build_s = time.perf_counter() - t0
                 with self._lock:
                     self._table[key] = exe
+                    self._table.move_to_end(key)
                     self.stats.misses += 1
                     self.stats.keys.append(key)
                     self.stats.compile_seconds += build_s
@@ -180,10 +207,13 @@ class DispatchPolicy:
                    the cost of serving the minority key from the table.
     capacity     — bound on cached branch targets (None = unbounded); the
                    hot slot's key is never evicted.
+    warm_on_rebind — run the dispatcher's warmer after every rebind (the
+                   paper's dummy-order BTB warming, §4.3).
     """
 
     hysteresis: int = 1
     capacity: int | None = None
+    warm_on_rebind: bool = False
 
     def __post_init__(self) -> None:
         if self.hysteresis < 1:
@@ -201,6 +231,8 @@ class DispatchStats:
         self.table_dispatches = 0  # served from the table without rebinding
         self.rebinds = 0
         self.suppressed_rebinds = 0  # hysteresis said "not yet"
+        self.warms = 0
+        self.last_rebind_seconds = 0.0
 
     @property
     def hits(self) -> int:
@@ -208,9 +240,14 @@ class DispatchStats:
 
     @property
     def misses(self) -> int:
-        """Builds. The serving acceptance metric: after warmup a
-        continuous-batching stream must not move this counter."""
+        """Builds (on the card: captures). The serving acceptance metric:
+        after warmup a continuous-batching stream must not move this
+        counter."""
         return self._cache.stats.misses
+
+    @property
+    def evictions(self) -> int:
+        return self._cache.stats.evictions
 
     @property
     def compile_seconds(self) -> float:
@@ -223,6 +260,8 @@ class DispatchStats:
             "rebinds": self.rebinds,
             "suppressed_rebinds": self.suppressed_rebinds,
             "builds": self.misses,
+            "evictions": self.evictions,
+            "warms": self.warms,
         }
 
 
@@ -237,10 +276,13 @@ class Dispatcher:
     """Open-fan-out semi-static condition with a single hot slot.
 
     ``builder(key)`` produces the branch target for a key (the step
-    callable specialised on the key's static shapes); it runs on the cold
-    path only, at most once per key (single-flight). ``dispatch(key)``
-    returns the target for a key and manages the hot slot per the policy;
-    the caller then calls it directly — the patched-``jmp`` hot path.
+    specialised on the key's static shapes: a captured CUDA graph on the
+    card); it runs on the cold path only, at most once per key
+    (single-flight). ``dispatch(key)`` returns the target for a key and
+    manages the hot slot per the policy; the caller then calls it directly,
+    or calls ``hot(*args)``, the slot itself — the patched-``jmp`` hot path.
+    ``warmer(key, target)`` runs after a rebind when asked (``warm=True``,
+    or ``policy.warm_on_rebind``).
 
     The slot rebind is a single reference assignment (the Python analogue of
     the paper's 4-byte ``memcpy``): atomic w.r.t. concurrent hot-path
@@ -253,10 +295,12 @@ class Dispatcher:
         *,
         name: str | None = None,
         policy: DispatchPolicy | None = None,
+        warmer: Callable[[Hashable, Any], Any] | None = None,
         recorder: Any = None,
     ):
         self._builder = builder
         self.policy = policy or DispatchPolicy()
+        self._warmer = warmer
         self._name = name or f"dispatch@{id(self):x}"
         # Flight recorder shared with the cache: build spans come from the
         # cache, rebind + hysteresis events from here. The slot fast path
@@ -305,7 +349,7 @@ class Dispatcher:
         streak — pure prebuilding (the warm-everything pattern)."""
         return self.cache.get_or_build(key, lambda: self._builder(key))
 
-    def dispatch(self, key: Hashable) -> Any:
+    def dispatch(self, key: Hashable, *, warm: bool | None = None) -> Any:
         """Return the branch target for ``key``; maybe rebind the hot slot.
 
         Fast case: ``key`` already owns the slot — one equality check, no
@@ -325,7 +369,7 @@ class Dispatcher:
             self._candidate = key
             self._streak = 1
         if self._streak >= self.policy.hysteresis:
-            self._rebind(key, exe)
+            self._rebind(key, exe, warm=warm)
         else:
             self.stats.suppressed_rebinds += 1
             self.stats.table_dispatches += 1
@@ -338,7 +382,15 @@ class Dispatcher:
                 )
         return exe
 
-    def _rebind(self, key: Hashable, exe: Callable) -> None:
+    def set_direction(self, key: Hashable, *, warm: bool = False) -> Any:
+        """Forced rebind, bypassing hysteresis — the ``BranchChanger``
+        ``set_direction`` analogue for open fan-out."""
+        exe = self.build(key)
+        self._rebind(key, exe, warm=warm)
+        return exe
+
+    def _rebind(self, key: Hashable, exe: Callable, *, warm: bool | None) -> None:
+        t0 = time.perf_counter()
         old = self._current_key
         self.cache.pin(key)
         self._current = exe  # <- the "jmp patch"
@@ -348,13 +400,32 @@ class Dispatcher:
         self._candidate = key
         self._streak = self.policy.hysteresis  # saturate
         self.stats.rebinds += 1
+        do_warm = self.policy.warm_on_rebind if warm is None else warm
+        if do_warm and self._warmer is not None:
+            self._warmer(key, exe)
+            self.stats.warms += 1
+        self.stats.last_rebind_seconds = time.perf_counter() - t0
         rec = self.recorder
         if rec is not None and rec.enabled:  # the hot-slot flip itself
             rec.emit(
                 "rebind", "dispatcher",
                 args={"key": str(key),
-                      "from": None if old is None else str(old)},
+                      "from": None if old is None else str(old),
+                      "warmed": bool(do_warm and self._warmer is not None)},
             )
+
+    # -------------------------------------------------------------- hot path
+    def hot(self, *args: Any) -> Any:
+        """Direct call through the slot. No conditionals, no dict, no hash."""
+        exe = self._current
+        if exe is None:
+            raise DispatchError(
+                f"Dispatcher {self._name!r} has an empty hot slot; "
+                f"dispatch()/set_direction() a key on the cold path first."
+            )
+        return exe(*args)
+
+    __call__ = hot
 
     # ----------------------------------------------------------------- admin
     def close(self) -> None:
@@ -366,3 +437,14 @@ class Dispatcher:
 
     def __exit__(self, *exc: Any) -> None:
         self.close()
+
+
+def reset_dispatchers() -> None:
+    """Test hook: forget all live dispatcher entry points."""
+    with _REGISTRY_LOCK:
+        _DISPATCHERS.clear()
+
+
+def live_dispatchers() -> tuple[str, ...]:
+    with _REGISTRY_LOCK:
+        return tuple(_DISPATCHERS)

@@ -13,8 +13,9 @@ sampling mode per burst, batch sizes bucketed by ``--batch-quantum``; it
 also serves ``--arch mamba2-370m`` on the SSM's recurrent state (the paged
 engine refuses an SSM arch). Both report latency
 percentiles, TTFT, throughput and cold-path activity (builds after warmup,
-rebinds; for burst, mode switches). Weights are a seeded random init. Runs
-on the GPU unless ``--device cpu``:
+rebinds; for burst, mode switches; on the card every build is a CUDA-graph
+capture, and ``cuda_graphs`` says the targets were graphs). Weights are a
+seeded random init. Runs on the GPU unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --arch olmo-1b --requests 16 --rate 50 --tokens-mean 16 \\
@@ -51,7 +52,7 @@ from repro_torch.runtime.serve import (
 SLOTS = 8  # continuous-batching slots, as in the JAX package's launcher
 
 _REPORT_KEYS = (
-    "compiles_total", "compiles_after_warmup", "rebinds", "slots", "steps",
+    "cuda_graphs", "compiles_total", "compiles_after_warmup", "rebinds", "slots", "steps",
     "occupancy", "prefill_chunk", "prefill_chunks", "chunk_bucket_crossings",
     "h2d_uploads", "kv_dtype", "pool_pages", "pages_in_use_peak",
     "peak_concurrent", "share_ratio", "overcommit_ratio", "preemptions",

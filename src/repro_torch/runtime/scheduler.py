@@ -398,14 +398,40 @@ class PagedBatcherStats(BatcherStats):
     shared_tokens: int = 0  # prompt tokens skipped via the prefix cache
 
 
+def _upload(host: np.ndarray, device: torch.device,
+            dst: torch.Tensor | None = None) -> torch.Tensor:
+    """One host->device transfer: into ``dst`` (a graph target's static
+    input) when given — same shape and dtype, or ``ValueError``, since
+    ``copy_`` would cast silently — else into a fresh tensor."""
+    src = torch.from_numpy(np.ascontiguousarray(host))
+    if dst is None:
+        return src.to(device)
+    if src.shape != dst.shape or src.dtype != dst.dtype:
+        raise ValueError(
+            f"upload of {tuple(src.shape)} {src.dtype} into a static input "
+            f"of {tuple(dst.shape)} {dst.dtype}"
+        )
+    return dst.copy_(src)
+
+
+def _static_inputs(step: Callable) -> tuple:
+    """A graph target's static inputs in call order (uploads land there
+    directly); ``None`` for each input of an eager target."""
+    return getattr(step, "static_inputs", None) or (None,) * 8
+
+
 class _DeviceMirror:
     """Host->device upload dedup for the per-slot coordinate arrays.
 
     They change rarely (admits, finishes, prefill flips) relative to how
     often the step runs, so ``get`` uploads only arrays the host ``touch``ed
-    since the last step, and ``put`` adopts tensors the step itself returned
-    (positions, next tokens): steady-state decode uploads nothing.
-    ``stats.h2d_uploads`` counts actual uploads."""
+    since the last step — into ``dst``, the calling graph target's static
+    input, when there is one — and ``put`` adopts tensors the step itself
+    returned (positions, next tokens): steady-state decode uploads nothing.
+    ``put`` takes a graph target's chained outputs, which are its own
+    static inputs, never a static output of a graph: the next replay of any
+    graph in the engine's pool may overwrite those. ``stats.h2d_uploads``
+    counts actual uploads."""
 
     def __init__(self, stats: BatcherStats, device: torch.device):
         self._dev: dict[str, torch.Tensor] = {}
@@ -416,9 +442,10 @@ class _DeviceMirror:
         for n in names:
             self._dev.pop(n, None)
 
-    def get(self, name: str, host: np.ndarray) -> torch.Tensor:
+    def get(self, name: str, host: np.ndarray,
+            dst: torch.Tensor | None = None) -> torch.Tensor:
         if name not in self._dev:
-            self._dev[name] = torch.tensor(host, device=self._device)
+            self._dev[name] = _upload(host, self._device, dst)
             self._stats.h2d_uploads += 1
         return self._dev[name]
 
@@ -868,6 +895,7 @@ class PagedContinuousBatcher:
         )
         self._note_chunk_bucket(bucket)
         step = self._prefill_dispatch(bucket)
+        ins = _static_inputs(step)
         tok = np.zeros((self.num_slots, bucket), np.int32)
         length = np.zeros(self.num_slots, np.int32)
         bt = np.zeros((self.num_slots, self.max_pages_per_req), np.int32)
@@ -882,21 +910,24 @@ class PagedContinuousBatcher:
         self.stats.note_lane(self._prefill_lane)
         self.stats.h2d_uploads += 4
         dev = self.device
-        tok_dev = torch.tensor(tok, device=dev)
-        start_dev = torch.tensor(self._pos, device=dev)
-        length_dev = torch.tensor(length, device=dev)
+        tok_dev = _upload(tok, dev, ins[0])
+        start_dev = _upload(self._pos, dev, ins[1])
+        length_dev = _upload(length, dev, ins[3])
         t0_ns = time.perf_counter_ns()
         nxt, self._cache = step(
             self._cache,
             tok_dev,
             start_dev,
-            torch.tensor(bt, device=dev),
+            _upload(bt, dev, ins[2]),
             length_dev,
-            self._mirror.get("temps", self._temps),
-            self._mirror.get("greedy", self._greedy),
+            self._mirror.get("temps", self._temps, ins[4]),
+            self._mirror.get("greedy", self._greedy, ins[5]),
             self.generator,
         )
         self._lane_tick(self._prefill_lane, t0_ns)
+        # pulled before the draft mirror's call: with graphs, nxt is a
+        # static output that another replay in the pool may overwrite
+        nxt_host = self._pull(nxt)
         if self._spec_on and self._draft_prefill_dispatch is not None:
             # draft prompt mirror (DESIGN.md §11): the draft stack ingests
             # the same chunk windows into its dense cache from the same
@@ -904,16 +935,16 @@ class PagedContinuousBatcher:
             # here, so the draft's view of a shared prefix stays cold:
             # acceptance drops on those requests, correctness never does.
             dstep = self._draft_prefill_dispatch(bucket)
+            dins = _static_inputs(dstep)
             self.stats.note_lane("drp")
             t0_ns = time.perf_counter_ns()
             _, self._draft_cache = dstep(
                 self._draft_cache, tok_dev, start_dev, length_dev,
-                self._mirror.get("temps", self._temps),
-                self._mirror.get("greedy", self._greedy),
+                self._mirror.get("temps", self._temps, dins[3]),
+                self._mirror.get("greedy", self._greedy, dins[4]),
                 self._draft_generator,
             )
             self._lane_tick("drp", t0_ns)
-        nxt_host = self._pull(nxt)
         finished: list[Request] = []
         for s, cursor, chunk in kept:
             req = self._slots[s]
@@ -1004,6 +1035,7 @@ class PagedContinuousBatcher:
             self._pages_bucket = bucket
             self._tables_changed()  # table width changed
         step = self._dispatch(bucket)  # cold: slot-hit unless bucket moved
+        ins = _static_inputs(step)
         if self._bt_dirty:
             bt = np.zeros((self.num_slots, bucket), np.int32)  # null page 0
             for s, table in enumerate(self._tables):
@@ -1015,20 +1047,22 @@ class PagedContinuousBatcher:
         t0_ns = time.perf_counter_ns()
         nxt, self._cache, pos, tok_col, packed = step(
             self._cache,
-            self._mirror.get("tok", self._tok),
-            self._mirror.get("pos", self._pos),
-            self._mirror.get("bt", self._bt_host),
-            self._mirror.get("active", decoding),
-            self._mirror.get("temps", self._temps),
-            self._mirror.get("greedy", self._greedy),
+            self._mirror.get("tok", self._tok, ins[0]),
+            self._mirror.get("pos", self._pos, ins[1]),
+            self._mirror.get("bt", self._bt_host, ins[2]),
+            self._mirror.get("active", decoding, ins[3]),
+            self._mirror.get("temps", self._temps, ins[4]),
+            self._mirror.get("greedy", self._greedy, ins[5]),
             self.generator,
         )
         self._lane_tick(self._decode_lane, t0_ns)
         self.stats.decode_steps += 1
         self.stats.note_lane(self._decode_lane)
         self.stats.steps += 1
+        # chained on device, no upload (with graphs: the target's own
+        # static inputs, which its replay wrote)
         self._mirror.put("pos", pos)
-        self._mirror.put("tok", tok_col)  # chained on device, no upload
+        self._mirror.put("tok", tok_col)
         p = self._pull(packed)  # [S,2]: nxt | new_pos; blocks on the step
         self._pos = np.array(p[:, 1], np.int32)
         return self._emit_decode(p[:, 0], now)
@@ -1108,12 +1142,13 @@ class PagedContinuousBatcher:
         once ``pos`` is rewound). Returns the host [S, K] candidates — an
         inherent sync, since the host packs the verify windows from them."""
         step = self._draft_dispatch(k)  # cold: slot-hit unless k moved
+        ins = _static_inputs(step)
         t0_ns = time.perf_counter_ns()
         drafts, self._draft_cache, _ = step(
             self._draft_cache,
-            self._mirror.get("tok", self._tok),
-            self._mirror.get("pos", self._pos),
-            self._mirror.get("active", decoding),
+            self._mirror.get("tok", self._tok, ins[0]),
+            self._mirror.get("pos", self._pos, ins[1]),
+            self._mirror.get("active", decoding, ins[2]),
         )
         self._lane_tick("dr", t0_ns)
         self.stats.draft_steps += 1
@@ -1153,16 +1188,17 @@ class PagedContinuousBatcher:
             self._bt_full_dirty = False
             self._mirror.touch("bt_full")
         step = self._verify_dispatch(k)  # cold: slot-hit unless k moved
+        ins = _static_inputs(step)
         self.stats.h2d_uploads += 2  # per-step window data (tokens, lengths)
         dev = self.device
         _, _, self._cache, packed = step(
             self._cache,
-            torch.tensor(tok, device=dev),
-            self._mirror.get("pos", self._pos),
-            self._mirror.get("bt_full", self._bt_full),
-            torch.tensor(lengths, device=dev),
-            self._mirror.get("temps", self._temps),
-            self._mirror.get("greedy", self._greedy),
+            _upload(tok, dev, ins[0]),
+            self._mirror.get("pos", self._pos, ins[1]),
+            self._mirror.get("bt_full", self._bt_full, ins[2]),
+            _upload(lengths, dev, ins[3]),
+            self._mirror.get("temps", self._temps, ins[4]),
+            self._mirror.get("greedy", self._greedy, ins[5]),
             self.generator,
         )
         return packed

@@ -14,11 +14,20 @@ the key's static shapes and page dtype — slots, ``pages_bucket`` and
 ``kv_dtype`` for the ``vf`` verify lane, slots, ``k_bucket`` /
 ``chunk_bucket`` and ``draft_kv_dtype`` for the ``dr``/``drp`` draft lanes —
 with the attention implementation (``EngineConfig.attn_impl``) baked in when
-it is built. **Warm** means build plus one dummy run. Every key in every
-enabled lane's fan-out is warmed before the stream starts, so
+it is built. On the card (``EngineConfig.cuda_graphs``, on by default
+there) a target is a ``core.graph_target.GraphTarget``: the step captured
+once as a CUDA graph over static input and output buffers and over the
+engine's own state — one page pool per page dtype, one dense draft cache
+per (slots, draft dtype), one burst cache per batch bucket — so taking the
+branch is a copy of the few inputs that changed (none in steady-state
+decode: the next token and position are written back into the graph's own
+inputs) and one graph launch, where the eager step issues hundreds of
+kernel launches from Python. On the CPU, or with ``cuda_graphs=False``, the
+target is the eager step behind the same guard. **Build** is the capture;
+**warm** means build plus one dummy run through the hot path. Every key in
+every enabled lane's fan-out is warmed before the stream starts, so
 ``compiles_after_warmup`` (builds after the warm boundary) stays 0 and a
-bucket, k or dtype crossing is a rebind. Capturing the targets as CUDA
-graphs is later work.
+bucket, k or dtype crossing is a rebind.
 
 The **per-burst engine** is the paper's construct in its plain form: a burst
 of requests shares one sampling mode, ``set_mode`` (the cold path) buckets
@@ -27,9 +36,9 @@ on first sight — rebinds the hot slot and warms it with a dummy run, and
 ``decode_loop`` (the hot path) calls the slot directly, step after step,
 chaining tokens and the position on the device (kernel B5 reads the
 position there) and pulling the tokens once at the end.
-``run_burst_stream`` drives a request stream through it; its builds after
-the stream starts are the keys it first meets, the baseline cost the
-continuous engines remove. It serves the SSM family too: a mamba slot's
+``run_burst_stream`` drives a request stream through it, each burst on the
+bucket's cache zeroed; its builds after the stream starts are the keys it
+first meets, the baseline cost the continuous engines remove. It serves the SSM family too: a mamba slot's
 dense cache is its recurrent conv window and state, stepped in place. The
 paged path is attention-only.
 
@@ -40,7 +49,7 @@ no GPU is present unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
@@ -50,6 +59,7 @@ from repro_torch import models
 from repro_torch.configs import ArchConfig
 from repro_torch.core import DispatchError, DispatchPolicy, Dispatcher
 from repro_torch.core import bucket_multiple
+from repro_torch.core.graph_target import GraphTarget, check_args
 from repro_torch.core import lanes as lanes_mod
 from repro_torch.core.lanes import LANES
 from repro_torch.core.telemetry import Telemetry
@@ -117,20 +127,57 @@ class EngineConfig:
     # int8 draft pairs with a model-dtype verify pool.
     draft_kv_dtype: str = "fp32"
     draft_kv_dtypes: tuple = ()
+    # Branch targets as CUDA graphs (module docstring): None = on where the
+    # engine's device is cuda; False keeps the eager steps on the card (the
+    # comparison runs); True on a CPU engine raises.
+    cuda_graphs: bool | None = None
 
 
 @dataclass
 class _WarmCtx:
-    """State threaded through one warmup pass: the pooled caches the dummy
-    runs write into, one per warmed page dtype (their writes land in the
-    null page only), the draft caches per draft dtype, the batcher's
-    speculation opt-in, and a throwaway generator, so warmup consumes none
-    of the batcher's draws."""
+    """State threaded through one warmup pass: the batcher's speculation
+    opt-in and a throwaway generator, so warmup consumes none of the
+    batcher's draws. The dummy runs write into the engine's own caches:
+    the pools' null page only, the draft cache's rows at position 0."""
 
-    paged_caches: dict  # kv_dtype -> pooled cache
     generator: torch.Generator
     spec: bool = False
-    draft_caches: dict = field(default_factory=dict)  # draft dtype -> cache
+
+
+class _GraphStep:
+    """A lane's branch target on the card: a ``GraphTarget`` over the
+    engine's own cache, called as the eager target is, ``target(cache,
+    *rows[, generator])``. A sampling target fills its static noise input
+    from ``generator`` before the replay, as the eager target draws it."""
+
+    __slots__ = ("graph", "rows", "noise", "takes_generator")
+
+    def __init__(self, graph: GraphTarget, rows: int, noise: bool,
+                 takes_generator: bool):
+        self.graph = graph
+        self.rows = rows
+        self.noise = noise
+        self.takes_generator = takes_generator
+
+    @property
+    def static_inputs(self) -> tuple:
+        """The rows' static inputs, in call order (an upload may land in
+        one directly)."""
+        return self.graph.static_inputs[: self.rows]
+
+    def __call__(self, cache, *args):
+        if cache is not self.graph.owned:
+            raise ValueError(
+                f"cache: {self.graph.name} was captured over the engine's own "
+                f"cache and runs on no other"
+            )
+        if self.takes_generator:
+            *args, generator = args
+            if self.noise:
+                u = self.graph.static_inputs[-1]
+                steps_mod.fill_noise(u, generator)
+                return self.graph(*args, u)
+        return self.graph(*args)
 
 
 class Engine:
@@ -154,6 +201,15 @@ class Engine:
                 )
             if self.device.index is None:  # pin "cuda" to a concrete card
                 self.device = torch.device("cuda", torch.cuda.current_device())
+        self.graphs = (
+            self.device.type == "cuda" if ecfg.cuda_graphs is None
+            else bool(ecfg.cuda_graphs)
+        )
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError(
+                f"cuda_graphs=True needs a CUDA device, the engine is on "
+                f"{self.device}"
+            )
         if ecfg.attn_impl not in models.ATTN_IMPLS:
             raise ValueError(
                 f"attn_impl must be one of {models.ATTN_IMPLS}, got "
@@ -184,6 +240,14 @@ class Engine:
         )
         self._current: Callable | None = None  # mirror of the hot slot
         self.stats = {"tokens": 0, "hot_calls": 0, "mode_switches": 0}
+        # the engine's own state, which graph targets are captured over
+        self._paged_caches: dict = {}  # kv_dtype -> page pool
+        self._draft_caches: dict = {}  # (slots, draft dtype) -> dense cache
+        self._burst_caches: dict = {}  # batch bucket -> dense cache
+        # one memory pool for every graph (they never run concurrently)
+        self._graph_pool = (
+            torch.cuda.graph_pool_handle() if self.graphs else None
+        )
 
     def close(self) -> None:
         """Release the dispatcher's entry-point name."""
@@ -203,31 +267,65 @@ class Engine:
         spec = LANES.spec_for(key)
         return getattr(self, spec.builder)(*spec.coords(key))
 
-    def _guarded(
-        self, step: Callable, shapes: dict, cache_dtype: torch.dtype,
-        params: dict | None = None,
+    def _target(
+        self, key: tuple, step: Callable, rows: dict, cache: list,
+        cache_dtype: torch.dtype, *, params: dict | None = None,
+        noise_rows: int = 0, takes_generator: bool = True,
+        chain: dict | None = None,
     ) -> Callable:
-        """Bind ``step`` to the key's static shapes and cache dtype: a call
-        with other shapes, another cache dtype, or off the engine's device
-        is a dispatch bug and raises (the aval guard of a compiled
-        executable). ``params`` defaults to the target's weights."""
+        """A key's branch target: ``step`` bound to its weights (``params``,
+        default the target's), to ``rows`` (name -> (shape, dtype) of each
+        input after the cache) and to the cache dtype, called as
+        ``target(cache, *rows[, generator])``. A call with another shape,
+        dtype or device, or another cache dtype, is a dispatch bug and
+        raises (the aval guard of a compiled executable). ``noise_rows`` >
+        0: the step samples, and takes ``u [noise_rows, V]`` drawn from the
+        generator. With graphs it is captured over ``cache`` (the engine's
+        own), with ``chain`` mapping outputs to the inputs they feed."""
         params = self.params if params is None else params
-        device = self.device
+        specs = [(n, tuple(shape), dt) for n, (shape, dt) in rows.items()]
+        if not self.graphs:
+            return self._guarded(step, specs, cache_dtype, params,
+                                 noise_rows, takes_generator)
+        examples = [
+            torch.ones(shape, dtype=dt, device=self.device)
+            if dt.is_floating_point
+            else torch.zeros(shape, dtype=dt, device=self.device)
+            for _, shape, dt in specs
+        ]
+        names = [n for n, _, _ in specs]
+        if noise_rows:
+            examples.append(torch.full((noise_rows, self.cfg.vocab_size), 0.5,
+                                       device=self.device))
+            names.append("noise")
+        graph = GraphTarget(
+            lambda *ins: step(params, cache, *ins), examples, owned=cache,
+            pool=self._graph_pool, chain=chain, names=names, name=str(key),
+        ).capture()
+        return _GraphStep(graph, len(specs), noise_rows > 0, takes_generator)
 
-        def target(cache, *rows):
+    def _guarded(
+        self, step: Callable, specs: list, cache_dtype: torch.dtype,
+        params: dict, noise_rows: int, takes_generator: bool,
+    ) -> Callable:
+        """The eager target (CPU, or ``cuda_graphs=False``)."""
+        device = self.device
+        vocab = self.cfg.vocab_size
+
+        def target(cache, *args):
             # the K/V rows or pages, or a mamba slot's conv window
             got = cache[0]["k" if "k" in cache[0] else "conv"].dtype
             if got != cache_dtype:
                 raise ValueError(
                     f"cache: expected {cache_dtype} K/V, got {got}"
                 )
-            for (name, want), t in zip(shapes.items(), rows):
-                if tuple(t.shape) != want or t.device != device:
-                    raise ValueError(
-                        f"{name}: expected {want} on {device}, got "
-                        f"{tuple(t.shape)} on {t.device}"
-                    )
-            return step(params, cache, *rows)
+            if takes_generator:
+                *args, generator = args
+            check_args(specs, args, device)
+            if noise_rows:
+                u = steps_mod.draw_noise(noise_rows, vocab, generator, device)
+                return step(params, cache, *args, u)
+            return step(params, cache, *args)
 
         return target
 
@@ -242,13 +340,19 @@ class Engine:
     def _build_burst_decode(self, batch: int, mode: int) -> Callable:
         """Branch target for ``("burst", batch_bucket, mode)``: a dense-cache
         decode step over the whole bucket at one position, with the sampling
-        mode baked in (the per-burst engine, DESIGN.md §2)."""
+        mode baked in (the per-burst engine, DESIGN.md §2), over the
+        bucket's own cache. Its next token and position feed its next
+        call."""
         step = steps_mod.make_sampling_decode_fn(
             self.cfg, mode=mode, temperature=self.ecfg.temperature,
             attn_impl=self.ecfg.attn_impl,
         )
-        return self._guarded(
-            step, {"tok": (batch, 1), "pos": ()}, dtype_of(self.cfg)
+        i32 = torch.int32
+        return self._target(
+            lanes_mod.BURST.key(batch, mode), step,
+            {"tok": ((batch, 1), i32), "pos": ((), i32)},
+            self.burst_cache(batch), dtype_of(self.cfg),
+            noise_rows=batch if mode else 0, chain={2: 0, 3: 1},
         )
 
     def _build_paged_slot_decode(
@@ -258,15 +362,37 @@ class Engine:
         capacity is a semi-static condition (DESIGN.md §9) — the block
         table's width is part of the target's shapes, and outgrowing the
         bucket re-dispatches on the cold path; the page dtype is another
-        (DESIGN.md §12), so model-dtype and int8 pools are two targets."""
+        (DESIGN.md §12), so model-dtype and int8 pools are two targets. The
+        next token and positions feed its next call."""
         step = steps_mod.make_paged_slot_decode_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl
         )
-        return self._guarded(step, {
-            "tok": (slots, 1), "pos": (slots,),
-            "block_tables": (slots, pages_bucket), "active": (slots,),
-            "temps": (slots,), "greedy": (slots,),
-        }, self._kv_torch_dtype(kv_dtype, self.cfg))
+        i32 = torch.int32
+        return self._target(
+            lanes_mod.CBP.key(slots, pages_bucket, kv_dtype), step, {
+                "tok": ((slots, 1), i32), "pos": ((slots,), i32),
+                "block_tables": ((slots, pages_bucket), i32),
+                "active": ((slots,), torch.bool),
+                **self._sampling_rows(slots),
+            }, self.paged_cache(kv_dtype),
+            self._kv_torch_dtype(kv_dtype, self.cfg), noise_rows=slots,
+            chain={3: 0, 2: 1},
+        )
+
+    @staticmethod
+    def _sampling_rows(slots: int) -> dict:
+        return {"temps": ((slots,), torch.float32),
+                "greedy": ((slots,), torch.bool)}
+
+    def _chunk_rows(self, slots: int, width: int) -> dict:
+        """The paged chunk lanes' inputs: the block table is pinned at the
+        per-request page cap."""
+        i32 = torch.int32
+        return {
+            "tok": ((slots, width), i32), "start": ((slots,), i32),
+            "block_tables": ((slots, self.max_pages_per_req), i32),
+            "length": ((slots,), i32), **self._sampling_rows(slots),
+        }
 
     def _build_paged_prefill(
         self, slots: int, chunk_bucket: int, kv_dtype: str
@@ -277,11 +403,11 @@ class Engine:
         step = steps_mod.make_paged_prefill_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl
         )
-        return self._guarded(step, {
-            "tok": (slots, chunk_bucket), "start": (slots,),
-            "block_tables": (slots, self.max_pages_per_req),
-            "length": (slots,), "temps": (slots,), "greedy": (slots,),
-        }, self._kv_torch_dtype(kv_dtype, self.cfg))
+        return self._target(
+            lanes_mod.PF.key(slots, chunk_bucket, kv_dtype), step,
+            self._chunk_rows(slots, chunk_bucket), self.paged_cache(kv_dtype),
+            self._kv_torch_dtype(kv_dtype, self.cfg), noise_rows=slots,
+        )
 
     def _build_paged_verify(self, slots: int, k: int, kv_dtype: str) -> Callable:
         """Branch target for ``("vf", slots, k, kv_dtype)``: the target
@@ -291,11 +417,11 @@ class Engine:
         step = steps_mod.make_paged_verify_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl
         )
-        return self._guarded(step, {
-            "tok": (slots, k + 1), "start": (slots,),
-            "block_tables": (slots, self.max_pages_per_req),
-            "length": (slots,), "temps": (slots,), "greedy": (slots,),
-        }, self._kv_torch_dtype(kv_dtype, self.cfg))
+        return self._target(
+            lanes_mod.VF.key(slots, k, kv_dtype), step,
+            self._chunk_rows(slots, k + 1), self.paged_cache(kv_dtype),
+            self._kv_torch_dtype(kv_dtype, self.cfg), noise_rows=slots,
+        )
 
     def _build_draft(self, slots: int, k: int, draft_kv_dtype: str) -> Callable:
         """Branch target for ``("dr", slots, k, draft_kv_dtype)``: K draft
@@ -303,10 +429,15 @@ class Engine:
         variation re-dispatches on the cold path; the draft cache's dtype is
         its own coordinate (DESIGN.md §16)."""
         step = steps_mod.make_draft_fn(self.draft_cfg, k=k)
-        return self._guarded(step, {
-            "tok": (slots, 1), "pos": (slots,), "active": (slots,),
-        }, self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
-            params=self.draft_params)
+        i32 = torch.int32
+        return self._target(
+            lanes_mod.DR.key(slots, k, draft_kv_dtype), step, {
+                "tok": ((slots, 1), i32), "pos": ((slots,), i32),
+                "active": ((slots,), torch.bool),
+            }, self.draft_cache(slots, draft_kv_dtype),
+            self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
+            params=self.draft_params, takes_generator=False,
+        )
 
     def _build_draft_prefill(
         self, slots: int, chunk_bucket: int, draft_kv_dtype: str
@@ -315,11 +446,55 @@ class Engine:
         draft_kv_dtype)``: the draft's prompt mirror — chunked dense
         ingestion over the draft view, so its cache tracks the prompts."""
         step = steps_mod.make_slot_prefill_fn(self.draft_cfg)
-        return self._guarded(step, {
-            "tok": (slots, chunk_bucket), "start": (slots,),
-            "length": (slots,), "temps": (slots,), "greedy": (slots,),
-        }, self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
-            params=self.draft_params)
+        i32 = torch.int32
+        return self._target(
+            lanes_mod.DRP.key(slots, chunk_bucket, draft_kv_dtype), step, {
+                "tok": ((slots, chunk_bucket), i32), "start": ((slots,), i32),
+                "length": ((slots,), i32), **self._sampling_rows(slots),
+            }, self.draft_cache(slots, draft_kv_dtype),
+            self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
+            params=self.draft_params, noise_rows=slots,
+        )
+
+    # ------------------------------------------------------ engine state
+    def paged_cache(self, kv_dtype: str) -> list:
+        """The page pool of ``kv_dtype`` (null page included), created on
+        first use: every paged target of that dtype is bound to it."""
+        if kv_dtype not in self._paged_caches:
+            self._paged_caches[kv_dtype] = models.init_paged_cache(
+                self.cfg, self.pool_physical_pages, self.ecfg.page_size,
+                kv_dtype, device=self.device,
+            )
+        return self._paged_caches[kv_dtype]
+
+    def draft_cache(self, slots: int, draft_kv_dtype: str) -> list:
+        """The draft view's dense cache for ``slots`` rows of
+        ``max_len``, created on first use."""
+        key = (slots, draft_kv_dtype)
+        if key not in self._draft_caches:
+            self._draft_caches[key] = models.init_cache(
+                self.draft_cfg, slots, self.ecfg.max_len, draft_kv_dtype,
+                device=self.device,
+            )
+        return self._draft_caches[key]
+
+    def burst_cache(self, bucket: int) -> list:
+        """The dense cache of a batch bucket (``max_len`` rows), shared by
+        both modes' burst targets and created on first use. ``set_mode``
+        warms on it, so fill it (or zero it) after ``set_mode``."""
+        if bucket not in self._burst_caches:
+            self._burst_caches[bucket] = models.init_cache(
+                self.cfg, bucket, self.ecfg.max_len, device=self.device
+            )
+        return self._burst_caches[bucket]
+
+    @staticmethod
+    def zero_cache(cache: list) -> list:
+        """Zero a cache in place (cold path): a fresh cache's state."""
+        for slot_cache in cache:
+            for t in slot_cache.values():
+                t.zero_()
+        return cache
 
     @property
     def pool_pages(self) -> int:
@@ -418,7 +593,7 @@ class Engine:
     def _warm_cbp(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, pb, dt = key
         out = exe(
-            ctx.paged_caches[dt], self._zeros(s, 1), self._zeros(s),
+            self.paged_cache(dt), self._zeros(s, 1), self._zeros(s),
             self._zeros(s, pb), self._zeros(s, dtype=torch.bool),
             *self._warm_sampling(s), ctx.generator,
         )
@@ -427,7 +602,7 @@ class Engine:
     def _warm_pf(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, cb, dt = key
         nxt, _ = exe(
-            ctx.paged_caches[dt], self._zeros(s, cb), self._zeros(s),
+            self.paged_cache(dt), self._zeros(s, cb), self._zeros(s),
             self._zeros(s, self.max_pages_per_req), self._zeros(s),
             *self._warm_sampling(s), ctx.generator,
         )
@@ -436,24 +611,16 @@ class Engine:
     def _warm_vf(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, k, dt = key
         out = exe(
-            ctx.paged_caches[dt], self._zeros(s, k + 1), self._zeros(s),
+            self.paged_cache(dt), self._zeros(s, k + 1), self._zeros(s),
             self._zeros(s, self.max_pages_per_req), self._zeros(s),
             *self._warm_sampling(s), ctx.generator,
         )
         steps_mod.pull_host(out[3])
 
-    def _draft_warm_cache(self, ctx: _WarmCtx, s: int, dt: str) -> list:
-        """The draft cache of dtype ``dt``, created on its first warm."""
-        if dt not in ctx.draft_caches:
-            ctx.draft_caches[dt] = models.init_cache(
-                self.draft_cfg, s, self.ecfg.max_len, dt, device=self.device
-            )
-        return ctx.draft_caches[dt]
-
     def _warm_dr(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, k, dt = key
         drafts, _, _ = exe(
-            self._draft_warm_cache(ctx, s, dt), self._zeros(s, 1),
+            self.draft_cache(s, dt), self._zeros(s, 1),
             self._zeros(s), self._zeros(s, dtype=torch.bool),
         )
         steps_mod.pull_host(drafts)
@@ -461,7 +628,7 @@ class Engine:
     def _warm_drp(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, cb, dt = key
         nxt, _ = exe(
-            self._draft_warm_cache(ctx, s, dt), self._zeros(s, cb),
+            self.draft_cache(s, dt), self._zeros(s, cb),
             self._zeros(s), self._zeros(s), *self._warm_sampling(s),
             ctx.generator,
         )
@@ -478,7 +645,8 @@ class Engine:
                 getattr(self, spec.warmer)(key, exe, ctx)
 
     def mark_warm_boundary(self) -> None:
-        """Snapshot the dispatcher's build/rebind counters and roll the
+        """Snapshot the dispatcher's build (on the card: capture) and
+        rebind counters and roll the
         metrics registry into its ``"warmup"`` section, so post-warmup
         gates read clean numbers by construction (DESIGN.md §14)."""
         st = self._decode.stats
@@ -491,7 +659,8 @@ class Engine:
 
     @property
     def post_warmup_compiles(self) -> int:
-        """Dispatcher builds since the last ``mark_warm_boundary``."""
+        """Dispatcher builds (captures) since the last
+        ``mark_warm_boundary``."""
         base = (self._warm_marks or {}).get("compiles", 0)
         return self._decode.stats.misses - base
 
@@ -503,8 +672,9 @@ class Engine:
     # ------------------------------------------------------ per-burst engine
     def set_mode(self, *, batch: int, sampling: int = GREEDY) -> dict:
         """Cold path: bucket the batch, build-or-fetch the burst target,
-        rebind the hot slot, and warm it with one dummy run on a fresh
-        cache (dummy-order warming, paper §4.3)."""
+        rebind the hot slot, and warm it with one dummy run on the bucket's
+        cache (dummy-order warming, paper §4.3), which writes position 0:
+        fill or zero ``burst_cache(bucket)`` after this call."""
         t0 = time.perf_counter()
         bucket = bucket_multiple(
             batch, self.ecfg.batch_quantum, self.ecfg.max_batch
@@ -512,13 +682,11 @@ class Engine:
         key = lanes_mod.BURST.key(bucket, sampling)
         exe = self._decode.dispatch(key)
         self._current = exe  # <- the jmp patch (engine-side mirror)
-        cache = models.init_cache(
-            self.cfg, bucket, self.ecfg.max_len, device=self.device
-        )
         gen = torch.Generator(device=self.device)
         gen.manual_seed(0)
-        tok, _ = exe(cache, self._zeros(bucket, 1), self._zeros(), gen)
-        steps_mod.pull_host(tok)
+        out = exe(self.burst_cache(bucket), self._zeros(bucket, 1),
+                  self._zeros(), gen)
+        steps_mod.pull_host(out[0])
         self.stats["mode_switches"] += 1
         self.telemetry.registry.inc("mode_switches_total")
         return {
@@ -541,11 +709,14 @@ class Engine:
 
         ``first_token`` i32[B,1] (B = the bucket ``set_mode`` chose);
         ``cache`` a dense cache of ``max_len`` rows holding positions before
-        ``start_pos``. Each step's token and position stay on the device and
-        feed the next step; the tokens are pulled once, at the end, as
-        ``[B, num_tokens]``. Sampled bursts draw from ``generator`` (a fresh
-        one seeded 0 if None). ``on_step(i, tok)`` observes each step's
-        device output as it is issued — e.g. to timestamp the first token
+        ``start_pos`` — with graphs it must be ``burst_cache(B)``, the one
+        the target was captured over. Each step's token and position stay
+        on the device and feed the next step (with graphs: inside the
+        graph's own inputs, so a step copies nothing in); each token is
+        copied into a ``[B, num_tokens]`` device buffer, pulled once at the
+        end. Sampled bursts draw from ``generator`` (a fresh one seeded 0
+        if None). ``on_step(i, tok)`` observes each step's tokens in that
+        buffer as they are issued — e.g. to timestamp the first token
         without serialising the rest of the loop."""
         exe = self._current
         if exe is None:
@@ -554,6 +725,12 @@ class Engine:
         batch = int(tok.shape[0])
         if num_tokens <= 0:
             return np.zeros((batch, 0), np.int32), cache
+        if isinstance(exe, _GraphStep) and cache is not exe.graph.owned:
+            raise ValueError(
+                f"decode_loop: the burst target of bucket {batch} was "
+                f"captured over Engine.burst_cache({batch}); copy the cache "
+                f"into it (after set_mode) and pass that"
+            )
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
@@ -566,10 +743,12 @@ class Engine:
             self._burst_hist = reg.histogram("lane_step_ms", lane="burst")
         rec = self.telemetry.trace_or_none()
         pos = torch.tensor(start_pos, dtype=torch.int32, device=self.device)
-        out = []
+        out = torch.empty((batch, num_tokens), dtype=torch.int32,
+                          device=self.device)
         for i in range(num_tokens):
             t0_ns = time.perf_counter_ns()
-            nxt, cache = exe(cache, tok, pos, generator)
+            nxt, cache, tok, pos = exe(cache, tok, pos, generator)
+            out[:, i].copy_(nxt)  # a graph's next replay overwrites nxt
             dt_ns = time.perf_counter_ns() - t0_ns
             self._burst_calls.inc()
             self._burst_hist.observe(dt_ns / 1e6)
@@ -578,14 +757,11 @@ class Engine:
                     "lane_step", "lane:burst", ph="X",
                     ts_ns=t0_ns, dur_ns=dt_ns, args={"step": i},
                 )
-            out.append(nxt)
             if on_step is not None:
-                on_step(i, nxt)
-            tok = nxt[:, None]
-            pos = pos + 1
+                on_step(i, out[:, i])
             self.stats["hot_calls"] += 1
         self.stats["tokens"] += num_tokens * batch
-        toks, _ = steps_mod.pull_host(torch.stack(out, dim=1), rec)
+        toks, _ = steps_mod.pull_host(out, rec)
         return toks, cache
 
     # ---------------------------------------------------- paged continuous
@@ -637,19 +813,16 @@ class Engine:
             self.pool_pages, ecfg.page_size, kv_dtype=dt,
             telemetry=self.telemetry,
         )
+        # a new batcher starts from empty pools and draft caches, as a
+        # fresh engine's
+        for d in self._warm_kv_dtypes():
+            self.zero_cache(self.paged_cache(d))
+        if use_spec:
+            for d in self._warm_draft_kv_dtypes():
+                self.zero_cache(self.draft_cache(s, d))
         warm_gen = torch.Generator(device=self.device)
         warm_gen.manual_seed(seed)
-        ctx = _WarmCtx(
-            paged_caches={
-                d: models.init_paged_cache(
-                    self.cfg, self.pool_physical_pages, ecfg.page_size, d,
-                    device=self.device,
-                )
-                for d in self._warm_kv_dtypes()
-            },
-            generator=warm_gen,
-            spec=use_spec,
-        )
+        ctx = _WarmCtx(generator=warm_gen, spec=use_spec)
         self._warm_lanes("paged", s, ctx)
 
         def dispatch(pages_bucket: int) -> Callable:
@@ -676,7 +849,7 @@ class Engine:
             dispatch_fn=dispatch,
             pool=pool,
             prefix_cache=PrefixCache(pool),
-            cache=ctx.paged_caches[dt],
+            cache=self.paged_cache(dt),
             num_slots=s,
             max_pages_per_req=self.max_pages_per_req,
             device=self.device,
@@ -688,7 +861,7 @@ class Engine:
             draft_dispatch=draft_dispatch,
             verify_dispatch=verify_dispatch,
             draft_prefill_dispatch=draft_prefill_dispatch,
-            draft_cache=ctx.draft_caches.get(ddt) if use_spec else None,
+            draft_cache=self.draft_cache(s, ddt) if use_spec else None,
             spec_k=ecfg.spec_k if use_spec else 0,
         )
 
@@ -723,7 +896,8 @@ def run_burst_stream(
     on a key's first sight, a rebind) before its hot loop; mixed modes split
     into separate bursts because the mode is baked into the target. Every
     burst starts from a fresh cache at position 0 with each request's
-    ``first_token``. Sampled bursts draw from one generator seeded ``seed``.
+    ``first_token``, on the bucket's own cache zeroed. Sampled bursts draw
+    from one generator seeded ``seed``.
     """
     clock = clock or Clock()
     q = RequestQueue(requests)
@@ -756,9 +930,7 @@ def run_burst_stream(
             )
             switches += 1
             b = info["bucket"]
-            cache = models.init_cache(
-                eng.cfg, b, eng.ecfg.max_len, device=eng.device
-            )
+            cache = eng.zero_cache(eng.burst_cache(b))
             first = torch.zeros((b, 1), dtype=torch.int32)
             for i, r in enumerate(chunk):
                 first[i, 0] = r.first_token
@@ -786,6 +958,7 @@ def run_burst_stream(
         engine="burst",
         device=str(eng.device),
         attn_impl=eng.ecfg.attn_impl,
+        cuda_graphs=eng.graphs,
         hot_calls=eng.stats["hot_calls"],
         mode_switches=switches,
         compiles_total=eng._decode.stats.misses,
@@ -857,6 +1030,7 @@ def run_paged_stream(
         engine="paged",
         device=str(eng.device),
         attn_impl=eng.ecfg.attn_impl,
+        cuda_graphs=eng.graphs,
         slots=cb.num_slots,
         steps=cb.stats.steps,
         occupancy=round(cb.stats.occupancy, 4),

@@ -7,9 +7,13 @@ a dispatch key's static shapes. Each step ends with its *bundle*: the next
 step's chained input and one packed int32 tensor of every host-bound output,
 so the serving loop pays exactly one device-to-host transfer per step.
 
-Sampling draws from a ``torch.Generator`` owned by the batcher (one per
-stream, seeded from its ``seed``); its streams are not comparable with the
-JAX package's threefry keys. Greedy rows are exact.
+A sampling step takes its uniform noise ``u [S, V]`` as an input rather
+than a ``torch.Generator``: the engine fills it from the batcher's generator
+(one per stream, seeded from its ``seed``) just before the call —
+``draw_noise`` eagerly, or ``fill_noise`` into a captured graph's static
+input — so a CUDA graph replays no random draw of its own and its tokens
+equal the eager step's for the same seed. The streams are not comparable
+with the JAX package's threefry keys. Greedy rows are exact.
 """
 
 from __future__ import annotations
@@ -24,22 +28,34 @@ from repro_torch import models
 from repro_torch.configs import ArchConfig
 
 
+def draw_noise(
+    rows: int, vocab: int, generator: torch.Generator, device: torch.device
+) -> torch.Tensor:
+    """One step's uniform noise ``f32[rows, vocab]`` from ``generator``."""
+    return torch.rand(
+        (rows, vocab), generator=generator, device=device, dtype=torch.float32
+    )
+
+
+def fill_noise(u: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """``draw_noise`` into ``u`` in place: the same values, from the same
+    generator state (``torch.rand`` is ``uniform_`` on a fresh tensor)."""
+    return u.uniform_(0.0, 1.0, generator=generator)
+
+
 def _sample_rows(
     logits: torch.Tensor,
     temps: torch.Tensor,
     greedy: torch.Tensor,
-    generator: torch.Generator,
+    u: torch.Tensor,
 ) -> torch.Tensor:
     """Sampling as data (DESIGN.md §4): per-row greedy flag and temperature,
     so a mode flip never touches the cold path. Sampled rows use the
-    Gumbel-max trick (argmax of logits/t plus Gumbel noise), a draw from the
-    softmax at temperature t. Returns next tokens i32[B]."""
+    Gumbel-max trick (argmax of logits/t plus Gumbel noise from the uniform
+    ``u``, shaped as ``logits``), a draw from the softmax at temperature t.
+    Returns next tokens i32[B]."""
     g = logits.argmax(dim=-1).to(torch.int32)
     t = temps.clamp_min(1e-4)[:, None].to(logits.dtype)
-    u = torch.rand(
-        logits.shape, generator=generator, device=logits.device,
-        dtype=logits.dtype,
-    )
     s = (logits / t - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
     return torch.where(greedy, g, s)
 
@@ -75,28 +91,29 @@ def make_sampling_decode_fn(
     per-burst engine's branch targets, one per ``("burst", bucket, mode)``
     key (DESIGN.md §2):
 
-        step(params, cache, inputs[B,1], pos, generator) -> (tok[B], cache)
+        step(params, cache, inputs[B,1], pos[, u[B,V]])
+          -> (tok[B], cache, tok_col[B,1], new_pos)
 
-    ``pos`` is a 0-dim int32 device tensor (every row at one position).
-    ``mode`` 0 = greedy (argmax), 1 = a sample at ``temperature`` drawn from
-    ``generator`` (Gumbel-max, as ``_sample_rows``; the JAX package draws
-    from threefry keys, so only greedy bursts compare token for token).
-    Flipping mode means dispatching another target: cheap once built, but a
-    build on first sight and a slot rebind per flip."""
+    ``pos`` is a 0-dim int32 device tensor (every row at one position);
+    ``tok_col`` and ``new_pos = pos + 1`` are the next step's inputs.
+    ``mode`` 0 = greedy (argmax, no noise), 1 = a sample at
+    ``temperature`` from the uniform noise ``u`` (Gumbel-max, as
+    ``_sample_rows``; the JAX package draws from threefry keys, so only
+    greedy bursts compare token for token). Flipping mode means
+    dispatching another target: cheap once built, but a build on first
+    sight and a slot rebind per flip."""
     if mode not in (0, 1):
         raise ValueError(f"mode must be 0 (greedy) or 1 (sample), got {mode}")
     decode = make_decode_fn(cfg, attn_impl=attn_impl)
 
-    def step(params, cache, inputs, pos, generator):
+    def step(params, cache, inputs, pos, u=None):
         logits, cache = decode(params, cache, inputs, pos)
         if mode == 0:
-            return logits.argmax(dim=-1).to(torch.int32), cache
-        u = torch.rand(
-            logits.shape, generator=generator, device=logits.device,
-            dtype=logits.dtype,
-        )
-        g = logits / temperature - torch.log(-torch.log(u))
-        return g.argmax(dim=-1).to(torch.int32), cache
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+        else:
+            g = logits / temperature - torch.log(-torch.log(u))
+            nxt = g.argmax(dim=-1).to(torch.int32)
+        return nxt, cache, nxt[:, None], pos + 1
 
     return step
 
@@ -118,19 +135,19 @@ def make_paged_slot_decode_fn(
     """Paged continuous-batching decode step (DESIGN.md §9):
 
         step(params, cache, tok[S,1], pos[S], block_tables[S,PB], active[S],
-             temps[S], greedy[S], generator)
+             temps[S], greedy[S], u[S,V])
           -> (next_tok[S], cache, new_pos[S], tok_col[S,1], packed[S,2])
 
     Inactive slots carry all-null block tables, so their writes land in the
     null page; their positions do not advance."""
 
     def paged_slot_step(
-        params, cache, tok, pos, block_tables, active, temps, greedy, generator
+        params, cache, tok, pos, block_tables, active, temps, greedy, u
     ):
         logits, cache = models.paged_decode_step(
             cfg, params, cache, tok, pos, block_tables, attn_impl=attn_impl
         )
-        nxt = _sample_rows(logits, temps, greedy, generator)
+        nxt = _sample_rows(logits, temps, greedy, u)
         new_pos = pos + active.to(torch.int32)
         return (nxt, cache, new_pos, *_step_bundle(nxt, new_pos))
 
@@ -143,7 +160,7 @@ def make_paged_prefill_fn(
     """Chunked-prefill step through the paged KV cache (DESIGN.md §10):
 
         step(params, cache, tok[B,CB], start[B], block_tables[B,PB],
-             length[B], temps[B], greedy[B], generator)
+             length[B], temps[B], greedy[B], u[B,V])
           -> (next_tok[B], cache)
 
     ``next_tok`` is sampled from each row's last real chunk token and primes
@@ -151,14 +168,13 @@ def make_paged_prefill_fn(
     are bucket padding: their K/V writes land in the null page."""
 
     def paged_prefill_step(
-        params, cache, tok, start, block_tables, length, temps, greedy,
-        generator,
+        params, cache, tok, start, block_tables, length, temps, greedy, u,
     ):
         logits, cache = models.paged_prefill_step(
             cfg, params, cache, tok, start, block_tables, length,
             attn_impl=attn_impl,
         )
-        return _sample_rows(logits, temps, greedy, generator), cache
+        return _sample_rows(logits, temps, greedy, u), cache
 
     return paged_prefill_step
 
@@ -175,7 +191,7 @@ def make_paged_verify_fn(
     """Verify lane through the paged KV cache (DESIGN.md §11):
 
         step(params, cache, tok[S,K+1], start[S], block_tables[S,PB],
-             length[S], temps[S], greedy[S], generator)
+             length[S], temps[S], greedy[S], u[S,V])
           -> (rows[S,K+1], next0[S], cache, packed[S,K+2])
 
     ``tok`` is each slot's current token followed by its K draft
@@ -183,20 +199,19 @@ def make_paged_verify_fn(
     chunk path (columns >= ``length`` write only the null page).
     ``rows[s, i]`` is the greedy continuation after rows 0..i — acceptance
     and the correction token are host-side comparisons over it. ``next0``
-    is the mode-respecting sample from row 0 (one generator draw, as a
+    is the mode-respecting sample from row 0 (one noise draw, as a
     decode step), so a length-1 window is a decode step and sampling slots
     ride the same call. ``packed`` is ``pack_verify_d2h(rows, next0)``."""
 
     def verify_step(
-        params, cache, tok, start, block_tables, length, temps, greedy,
-        generator,
+        params, cache, tok, start, block_tables, length, temps, greedy, u,
     ):
         logits, cache = models.paged_verify_step(
             cfg, params, cache, tok, start, block_tables, length,
             attn_impl=attn_impl,
         )
         rows = logits.argmax(dim=-1).to(torch.int32)
-        nxt0 = _sample_rows(logits[:, 0], temps, greedy, generator)
+        nxt0 = _sample_rows(logits[:, 0], temps, greedy, u)
         return rows, nxt0, cache, pack_verify_d2h(rows, nxt0)
 
     return verify_step
@@ -215,8 +230,8 @@ def make_draft_fn(draft_cfg: ArchConfig, *, k: int) -> Callable:
     each step feeds the previous candidate back and writes the draft's KV
     at the advancing position (the scheduler later rewinds ``pos`` as data
     and the next round overwrites a rejected tail). Candidates are greedy,
-    as the JAX package's scheduler forces them, so the draft draws nothing
-    from the batcher's generator and sampled streams are untouched."""
+    as the JAX package's scheduler forces them, so the draft takes no noise
+    and sampled streams are untouched."""
 
     def draft_step(params, cache, tok, pos, active):
         drafts = []
@@ -237,31 +252,30 @@ def make_slot_prefill_fn(cfg: ArchConfig) -> Callable:
     draft_kv_dtype)`` key:
 
         step(params, cache, tok[S,CB], start[S], length[S], temps[S],
-             greedy[S], generator)
+             greedy[S], u[S,V])
           -> (next_tok[S], cache)
 
     Every slot carries its own chunk window (``length`` 0 = idle row,
     writes nothing). The batcher discards ``next_tok`` and hands this lane a
     generator of its own, so the mirror never moves the sampled streams."""
 
-    def slot_prefill_step(
-        params, cache, tok, start, length, temps, greedy, generator
-    ):
+    def slot_prefill_step(params, cache, tok, start, length, temps, greedy, u):
         logits, cache = models.chunked_decode_step(
             cfg, params, cache, tok, start, length
         )
-        return _sample_rows(logits, temps, greedy, generator), cache
+        return _sample_rows(logits, temps, greedy, u), cache
 
     return slot_prefill_step
 
 
 def pull_host(dev: torch.Tensor, recorder=None) -> tuple[np.ndarray, int]:
     """The d2h pull boundary: copy one device tensor to the host (blocking
-    until the device has produced it). Returns ``(host_array, elapsed_ns)``;
+    until the device has produced it) — a copy on the CPU too, so a later
+    step never writes the array. Returns ``(host_array, elapsed_ns)``;
     with an enabled flight recorder a "d2h" span lands on the scheduler
     track."""
     t0 = time.perf_counter_ns()
-    out = dev.cpu().numpy()
+    out = dev.to("cpu", copy=True).numpy()
     dt = time.perf_counter_ns() - t0
     if recorder is not None and recorder.enabled:
         recorder.emit(

@@ -108,3 +108,17 @@ def test_ssd_kernel_source_is_built_and_bound():
 
     assert "ssd_chunk" in build.SOURCES["ssd_chunk.cu"]
     assert (PKG / "csrc" / "ssd_chunk.cu").exists()
+
+
+# the modules of the CUDA-graph slice (the dispatch core's construct)
+GRAPH_SLICE_MODULES = (
+    "repro_torch.core.graph_target",
+    "repro_torch.core.semistatic",
+    "repro_torch.core.tracing",
+    "repro_torch.core.dispatch",
+)
+
+
+@pytest.mark.parametrize("module", GRAPH_SLICE_MODULES)
+def test_graph_slice_module_imports_alone_without_jax_or_repro(module):
+    test_slice_module_imports_alone_without_jax_or_repro(module)
