@@ -36,10 +36,12 @@ Phases (any failure exits non-zero before a result is printed):
    speculative decoding (k up to 4, a 2-layer int8 draft; B3/B4) — and a
    Poisson stream through the per-burst engine (``run_burst_stream``:
    ``set_mode`` + ``decode_loop``, B5), each with the kernels' launch counts
-   set to 0 just before it and every other kernel held at 0 launches. Every
-   branch target of these paths is a CUDA graph (``EngineConfig.
-   cuda_graphs``' default on the card), captured once over the engine's
-   pools and caches; a replay counts the kernel launches it holds.
+   set to 0 just before it and every other kernel held at 0 launches (the
+   spec cell's draft lanes run B3/B4 over the int8 draft cache's page
+   view). Every branch target of these paths is a CUDA graph
+   (``EngineConfig.cuda_graphs``' default on the card), captured once over
+   the engine's pools and caches; a replay counts the kernel launches it
+   holds.
 3b. Graph targets against the eager steps (``cuda_graphs=False``): the
    bf16, int8+spec and burst cells' traffic (and mamba2's burst traffic in
    phase 6) each run both ways under one step clock on the same weights
@@ -52,6 +54,18 @@ Phases (any failure exits non-zero before a result is printed):
    (``torch.profiler``'s CPU events: ``cudaGraphLaunch``,
    ``cudaLaunchKernel``/``Ex``, copies), device busy, idle share and the
    B1-B5 kernels seen inside the replay.
+3c. The dense continuous engine (``run_continuous_stream``: 8 slots of one
+   dense cache, ``max_len`` 1024, olmo-1b bf16) on 16 requests at 20 req/s,
+   a quarter sampled: (a) distinct 128-token prompts with ``prefill_chunk``
+   64 (lanes ``cb``/``pfd``: B1/B2 over the cache's identity page view),
+   (b) the same with ``spec_k`` 4 and a 2-layer int8 draft (``vfd``,
+   ``dr``, ``drp``: B2, B3, B4), (c) phase 3's prompt-less burst stream
+   through the continuous engine, set beside the burst engine's report.
+   Each on the wall clock with its counts set to 0 just before and every
+   kernel's count held to one launch per layer per lane call (k per draft
+   layer per ``dr`` call), counted from the graph targets' replays; zero
+   captures after warmup; then graphs against the eager steps under one
+   step clock; one replayed ``cb`` step profiled graph vs eager.
 4. One paged prefill step and one paged decode step at full width with the
    kernels and with the plain attention, on identical inputs, for bf16 and
    int8 pages; the prompt-then-burst path (``prefill`` of 8 prompts of 256
@@ -66,7 +80,9 @@ Phases (any failure exits non-zero before a result is printed):
    the CPU under one step clock: plain, and with speculation on model-dtype
    pages (B2 through the verify lane) and on int8 pages; the spec streams
    equal the plain ones; a stream with half its requests sampled through
-   graph targets equals the eager targets' for one seed.
+   graph targets equals the eager targets' for one seed. The same for the
+   dense continuous engine: olmo-1b with chunked prefill, with speculation
+   and an int8 draft, and mamba2-370m through ``cb``, card = CPU.
 6. mamba2 (B8): the SSD chunked scan against its plain version on the
    smoke config's heads (chunks 4, 8, 16; S 16, 32 and a ragged 20) and on
    mamba2-370m's (chunk 256; S 1, 255, 256, 257, 1024, 1056 and 2048; bf16
@@ -612,7 +628,7 @@ def _check_stream(label: str, cfg, reqs, rep: dict) -> None:
 
 
 def burst_stream(cfg, params, label: str = "burst",
-                 expect: tuple = ("decode_attention",)) -> dict:
+                 expect: tuple = ("decode_attention",)) -> tuple[dict, dict]:
     """The per-burst engine at full width: Poisson traffic (the paged
     streams' rate), a quarter sampled; every burst pays set_mode, so its
     builds after the stream starts are the distinct (bucket, mode) keys it
@@ -650,7 +666,7 @@ def burst_stream(cfg, params, label: str = "burst",
         f"{rep['compiles_after_warmup']} (keys {[tuple(k[1:]) for k in keys]}),"
         f" rebinds {rep['rebinds']} | peak memory {peak_gb:.2f} GB | "
         f"launches {launches}")
-    return launches
+    return launches, rep
 
 
 def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
@@ -671,26 +687,37 @@ def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
         pool_gb = (eng.pool_physical_pages * cfg.num_layers * page_bytes(
             ecfg.page_size, cfg.num_kv_heads, cfg.head_dim, ecfg.kv_dtype,
             cfg.dtype) / 1e9)
-        warm = len(eng._chunk_buckets()) + len(eng._k_buckets())
+        chunk_buckets = eng._chunk_buckets()
+        warm = len(chunk_buckets) + len(eng._k_buckets())
+        draft_layers = eng.draft_cfg.num_layers if ecfg.spec_k else 0
         targets = len(eng._decode)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches(label, expect)
     # the chunk kernel serves the pf and vf lanes, one launch per layer per
     # call, warmup's included: each warmed key runs its step once before
-    # its capture and replays once to warm; a capture launches nothing. The
+    # its capture and replays once to warm; a capture launches nothing.
+    # With speculation the draft's prompt mirror (drp) runs it too, over
+    # the draft cache's page view, one launch per draft layer per call. The
     # steps themselves follow wall-clock admission, so the count differs
     # from run to run
     steps = rep["lane_steps"]
     pf_kernel = next(k for k in expect if "prefill" in k)
     runs = _warm_runs_per_key()
     want = cfg.num_layers * (steps["prefill"] + steps["verify"] + runs * warm)
+    drp = ""
+    if ecfg.spec_k:
+        drp_calls = rep["lane_calls"].get("drp", 0)
+        want += draft_layers * (drp_calls + runs * len(chunk_buckets))
+        drp = (f" + {draft_layers} draft layers x ({drp_calls} drp replays + "
+               f"{runs} x {len(chunk_buckets)} warmup runs)")
     check(launches[pf_kernel] == want,
           f"{label}: {pf_kernel} launched {launches[pf_kernel]} times, "
-          f"expected {want} (one per layer per pf/vf call)")
+          f"expected {want} (one per layer per pf/vf/drp call)")
     log(f"[stream:{label}] {pf_kernel} {want} launches = {cfg.num_layers} "
         f"layers x ({steps['prefill']} pf + {steps['verify']} vf replays + "
-        f"{runs} x {warm} warmup runs) | {targets} graph targets captured")
+        f"{runs} x {warm} warmup runs){drp} | {targets} graph targets "
+        f"captured")
     check(rep["compiles_after_warmup"] == 0,
           f"{label}: compiles_after_warmup {rep['compiles_after_warmup']}")
     check(rep["prefill_chunks"] > 0, f"{label}: no prefill chunks ran")
@@ -742,6 +769,7 @@ def full_width_streams() -> dict:
         "bf16", cfg, params, EngineConfig(**base), traffic(),
         ("paged_decode_attention", "paged_prefill_attention"),
     )
+    by_path = {"paged bf16": dict(launches)}
     rep8, launches8 = _serve(
         "int8+spec", cfg, params,
         EngineConfig(**base, kv_dtype="int8", spec_k=4, draft_layers=2,
@@ -756,9 +784,12 @@ def full_width_streams() -> dict:
         f"({spec['accepted_tokens']}/{spec['drafted_tokens']} drafted tokens; "
         f"a 2-layer draft of random weights), k_bucket_crossings "
         f"{spec['k_bucket_crossings']}, lane calls {rep8['lane_calls']}")
+    by_path["paged int8+spec"] = dict(launches8)
     launches.update({k: v for k, v in launches8.items() if "int8" in k})
-    launches["decode_attention"] = burst_stream(cfg, params)["decode_attention"]
-    return {"launches": launches, "params": params, "cfg": cfg}
+    burst_launches, burst_rep = burst_stream(cfg, params)
+    launches["decode_attention"] = burst_launches["decode_attention"]
+    return {"launches": launches, "params": params, "cfg": cfg,
+            "burst_report": burst_rep, "by_path": by_path}
 
 
 # ------------------------------------------------ phase 3b (graphs vs eager)
@@ -810,16 +841,18 @@ def _card_near_tie(cfg, params, seq, a: int, b: int,
 
 
 def _paired_streams(label: str, cfg, params, ecfg: dict, traffic,
-                    kv_dtype: str = "fp32", burst: bool = False) -> dict:
+                    kv_dtype: str = "fp32", burst: bool = False,
+                    continuous: bool = False) -> dict:
     """One stream through graph targets and again through the eager steps
     (``cuda_graphs=False``) on the same weights and requests, under one
     step clock: greedy tokens equal, or a request's first divergence is a
-    near-tie; builds (captures) after warmup 0 on a paged stream, the
-    distinct keys met on a burst stream."""
+    near-tie; builds (captures) after warmup 0 on a paged or continuous
+    stream, the distinct keys met on a burst stream."""
     from repro_torch.runtime.serve import (
         Engine,
         EngineConfig,
         run_burst_stream,
+        run_continuous_stream,
         run_paged_stream,
     )
 
@@ -833,6 +866,9 @@ def _paired_streams(label: str, cfg, params, ecfg: dict, traffic,
             check(eng.graphs == graphs, f"{label}: cuda_graphs {eng.graphs}")
             if burst:
                 rep = run_burst_stream(eng, reqs, clock=_StepClock())
+            elif continuous:
+                rep = run_continuous_stream(eng, reqs, slots=8, seed=0,
+                                            clock=_StepClock())
             else:
                 rep = run_paged_stream(eng, reqs, slots=8, seed=0,
                                        clock=_StepClock())
@@ -1117,6 +1153,314 @@ def graph_phase(cfg, params) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------ phase 3c (the dense continuous engine)
+def _continuous_traffic(cfg, prompt_len: int = 128) -> list:
+    """16 requests, Poisson 20 req/s, tokens mean 16, a quarter sampled,
+    with distinct prompts of ``prompt_len`` tokens (none for 0), drawn as
+    the launcher's ``make_requests`` draws them for ``--max-len 1024``."""
+    from repro_torch.runtime.scheduler import (
+        attach_distinct_prompts,
+        poisson_arrivals,
+    )
+
+    reqs = poisson_arrivals(
+        16, 20.0, seed=0, tokens_mean=16,
+        tokens_max=max(1, 1024 - max(prompt_len, 1) + 1), sample_frac=0.25,
+        vocab=cfg.vocab_size,
+    )
+    if prompt_len:
+        attach_distinct_prompts(reqs, prompt_len, vocab=cfg.vocab_size, seed=1)
+    return reqs
+
+
+def _dense_lane_kernel(key) -> str:
+    """The kernel a dense lane's key launches: B1 (``cb``, ``dr``) or B2
+    (``pfd``, ``vfd``, ``drp``) over the page view, B3/B4 for an int8
+    draft cache."""
+    name = ("paged_decode_attention" if key[0] in ("cb", "dr")
+            else "paged_prefill_attention")
+    return name + ("_int8" if key[0] in ("dr", "drp") and key[3] == "int8"
+                   else "")
+
+
+def _dense_lane_launches(eng) -> tuple[dict, dict]:
+    """From the engine's graph targets, independently of the kernels'
+    counts: the launches each kernel should have made — every key's step
+    runs ``WARMUP_RUNS`` times before its capture, and every replay (its
+    warm run, ``cb``'s second on the zeroed cache, the batcher's calls)
+    launches its lane's kernel once per layer (``k`` times per draft layer
+    for ``dr``) — and each lane's replays less its warm ones."""
+    from repro_torch.core.graph_target import WARMUP_RUNS
+
+    want, calls = {}, {}
+    for key in eng._decode.cache.keys():
+        target = eng._decode.cache.get(key)
+        lane = key[0]
+        layers = (eng.draft_cfg.num_layers if lane in ("dr", "drp")
+                  else eng.cfg.num_layers)
+        per_run = layers * (key[2] if lane == "dr" else 1)
+        kernel = _dense_lane_kernel(key)
+        replays = target.graph.replays
+        want[kernel] = want.get(kernel, 0) + (replays + WARMUP_RUNS) * per_run
+        calls[lane] = calls.get(lane, 0) + replays - (2 if lane == "cb" else 1)
+    return want, calls
+
+
+def _continuous_stream(label: str, cfg, params, ecfg: dict, reqs) -> tuple:
+    """One main path: the dense continuous engine on the card (graph
+    targets), wall clock; the kernels' counts set to 0 just before and read
+    just after, each held against the targets' replays."""
+    from repro_torch import kernels
+    from repro_torch.runtime.serve import (
+        Engine,
+        EngineConfig,
+        run_continuous_stream,
+    )
+
+    _release_engines()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()  # this path's run starts here
+    t0 = time.perf_counter()
+    with Engine(cfg, params, EngineConfig(**ecfg)) as eng:
+        check(eng.graphs, f"{label}: the engine's targets are not CUDA graphs")
+        rep = run_continuous_stream(eng, reqs, slots=8, seed=0)
+        torch.cuda.synchronize()
+        want, calls = _dense_lane_launches(eng)
+        targets = len(eng._decode)
+    wall = time.perf_counter() - t0
+    launches = _launches(label, tuple(want))
+    for lane, n in calls.items():
+        check(n == rep["lane_calls"].get(lane, 0),
+              f"{label}: {lane} replayed {n} times past warmup, the batcher "
+              f"called it {rep['lane_calls'].get(lane, 0)} times")
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{label}: {name} launched {launches[name]} times, expected "
+              f"{n} (one per layer per call, k per draft layer per dr call)")
+    check(rep["compiles_after_warmup"] == 0,
+          f"{label}: compiles_after_warmup {rep['compiles_after_warmup']}")
+    _check_stream(label, cfg, reqs, rep)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ttft = (f"ttft p50 {rep['ttft_p50_ms']:.1f} ms p95 "
+            f"{rep['ttft_p95_ms']:.1f} ms")
+    log(f"[continuous:{label}] {rep['finished']} requests, {rep['tokens']} "
+        f"tokens ({rep['prompt_tokens']} prompt tokens ingested) in "
+        f"{wall:.1f}s incl. warmup | {rep['tok_per_s']:.1f} tok/s, latency "
+        f"p50 {rep['p50_ms']:.1f} ms p95 {rep['p95_ms']:.1f} ms, {ttft} | "
+        f"steps {rep['steps']} lane calls {rep['lane_calls']}, "
+        f"compiles_after_warmup {rep['compiles_after_warmup']} (captures), "
+        f"{targets} graph targets | launches {launches} = one per layer per "
+        f"lane call (k per draft layer per dr call), warmup runs included | "
+        f"peak memory {peak_gb:.2f} GB | {_card()}")
+    log(f"[continuous:{label}] host_plan_ms {rep['pipeline']['host_plan_ms']}"
+        f" device_wait_ms {rep['pipeline']['device_wait_ms']} "
+        f"tokens/target step {rep.get('tokens_per_target_step')} spec "
+        f"{rep.get('spec')}")
+    return rep, launches
+
+
+def _dense_cb_run(eng, slots: int):
+    """A run of one ``cb`` step as the serving loop takes it: 8 slots from
+    position 200 of the engine's dense cache, token and position chained,
+    the packed pull."""
+    from repro_torch.core import lanes
+
+    dev, i32 = "cuda", torch.int32
+    exe = eng._decode.build(lanes.CB.key(slots))
+    cache = eng.dense_cache(slots)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = _steady_args(exe, [
+        torch.zeros(slots, 1, dtype=i32, device=dev),
+        torch.full((slots,), 200, dtype=i32, device=dev),
+        torch.ones(slots, dtype=torch.bool, device=dev),
+        torch.ones(slots, device=dev),
+        torch.ones(slots, dtype=torch.bool, device=dev)])
+
+    def run():
+        out = exe(cache, *state, gen)
+        state[0], state[1] = out[3], out[2]  # chained, as the mirror does
+        return out[4].cpu()
+
+    return run
+
+
+def dense_view_vs_plain() -> None:
+    """B1-B4 over the dense cache's page view at the continuous cells'
+    shapes, against their plain versions on the same inputs: one layer of
+    an 8-slot, 1024-row cache (16 kv heads of 128; bf16 for the target's
+    ``cb``/``pfd``/``vfd``, int8 for the draft's ``dr``/``drp``), 64 view
+    pages of 16 a row; one token a row at positions 128-300 and the last
+    row, chunks of 64 (``pfd``, ``drp``) and windows of 5 (``vfd``) at
+    starts up to 960. These calls are not a path's launches."""
+    from repro_torch import kernels
+    from repro_torch.models import attention
+
+    dev, dtype = "cuda", torch.bfloat16
+    s, smax, h, kh, dh = 8, 1024, 16, 16, 128
+    g = torch.Generator().manual_seed(13)
+    i32 = torch.int32
+    pos = torch.tensor([128, 140, 150, 160, 200, 250, 300, smax - 1],
+                       dtype=i32, device=dev)
+    start = torch.tensor([0, 64, 128, 192, 128, 140, 960, 5], dtype=i32,
+                         device=dev)
+    shape = (s, smax, kh, dh)
+    errs = {}
+    for int8 in (False, True):
+        if int8:
+            layer = {n: torch.randint(-127, 128, shape, generator=g,
+                                      dtype=torch.int8).to(dev)
+                     for n in ("k", "v")}
+            layer.update({n: (torch.rand(shape[:2], generator=g) * 0.02)
+                          .to(dev) for n in ("ks", "vs")})
+        else:
+            layer = {n: torch.randn(shape, generator=g).to(dev, dtype)
+                     for n in ("k", "v")}
+        pool, table = attention.dense_page_view(layer)
+        pages = [pool["k"], pool["v"]] + (
+            [pool["k_scale"], pool["v_scale"]] if int8 else [])
+        plain_pages = pages if int8 else [t.float() for t in pages]
+        sfx = "_int8" if int8 else ""
+        for name, width, at in (("paged_decode_attention", 0, pos),
+                                ("paged_prefill_attention", 64, start),
+                                ("paged_prefill_attention", 5, start)):
+            fn = getattr(kernels, name + sfx)
+            plain = getattr(kernels, name + sfx + "_plain")
+            qshape = (s, h, dh) if width == 0 else (s, width, h, dh)
+            q = torch.randn(qshape, generator=g).to(dev, dtype)
+            saved = fn.launches  # not a path's launch
+            out = fn(q, *pages, table, at)
+            fn.launches = saved
+            ref = plain(q.float(), *plain_pages, table, at)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            tag = f"{name}{sfx} q{tuple(q.shape)}"
+            check(bool(torch.isfinite(out).all())
+                  and err <= KERNEL_ATOL[dtype],
+                  f"{tag} over the dense page view: max abs err {err:.3g}")
+            errs[tag] = err
+    log(f"[continuous:view] B1-B4 over a [8, 1024, 16, 128] cache's page "
+        f"view (64 pages of 16 a row), bf16 q, kernel vs plain max abs err: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tolerance {KERNEL_ATOL[dtype]})")
+
+
+def continuous_phase(cfg, params, burst_rep: dict) -> dict:
+    """olmo-1b at full width through the dense continuous engine (8 slots,
+    ``max_len`` 1024, bf16): (a) distinct 128-token prompts with
+    ``prefill_chunk`` 64 (``cb``, ``pfd``: B1, B2 over the page view); (b)
+    the same with ``spec_k`` 4 and a 2-layer int8 draft (``vfd``, ``dr``,
+    ``drp``: B2, B3, B4); (c) the prompt-less stream of phase 3's burst
+    engine through the continuous engine, the reference's ``--engine
+    both``. Each on the card's wall clock with its launches checked, then
+    graph targets against the eager steps under one step clock; then one
+    replayed ``cb`` step profiled, graph and eager."""
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    base = dict(max_len=1024, max_batch=8, prefill_chunk=64)
+    spec = dict(base, spec_k=4, draft_layers=2, draft_kv_dtype="int8")
+    plain = dict(max_len=1024, max_batch=8)
+    dense_view_vs_plain()
+    out = {}
+    for label, ecfg, prompt_len in (("a: cb+pfd", base, 128),
+                                    ("b: spec int8 draft", spec, 128),
+                                    ("c: prompt-less", plain, 0)):
+        rep, launches = _continuous_stream(
+            label, cfg, params, ecfg, _continuous_traffic(cfg, prompt_len))
+        if prompt_len:
+            check(rep["prefill_chunks"] > 0, f"{label}: no prefill chunks ran")
+        if "spec_k" in ecfg:
+            check(rep["lane_steps"]["draft"] > 0
+                  and rep["lane_steps"]["verify"] > 0
+                  and rep["lane_calls"].get("drp", 0) > 0,
+                  f"{label}: spec lanes {rep['lane_calls']}")
+        out[label] = {"report": rep, "launches": launches}
+        _paired_streams(f"continuous {label}", cfg, params, ecfg,
+                        partial(_continuous_traffic, cfg, prompt_len),
+                        continuous=True)
+    c, b = out["c: prompt-less"]["report"], burst_rep
+    log(f"[continuous:both] the prompt-less stream (16 requests, 20 req/s, "
+        f"a quarter sampled), continuous vs burst engine: {c['tok_per_s']:.1f}"
+        f" vs {b['tok_per_s']:.1f} tok/s, latency p50 {c['p50_ms']:.1f} vs "
+        f"{b['p50_ms']:.1f} ms, p95 {c['p95_ms']:.1f} vs {b['p95_ms']:.1f} "
+        f"ms, ttft p50 {c['ttft_p50_ms']:.1f} vs {b['ttft_p50_ms']:.1f} ms; "
+        f"captures after warmup {c['compiles_after_warmup']} vs "
+        f"{b['compiles_after_warmup']} | {_card()}")
+    runs, engines = {}, []
+    for mode in ("graph", "eager"):
+        eng = Engine(cfg, params, EngineConfig(**plain,
+                                               cuda_graphs=mode == "graph"))
+        eng.continuous(slots=8)
+        engines.append(eng)
+        runs[mode] = _dense_cb_run(eng, 8)
+    out["cb_profile"] = _profile_replay(
+        "cb (dense cache, 8 slots, pos 200; B1 over the page view)", runs)
+    for eng in engines:
+        eng.close()
+    del engines, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def continuous_smoke_card_vs_cpu() -> None:
+    """The smoke configs' greedy continuous streams (fp32, TF32 off) on
+    the card (graph targets) and on the CPU under one step clock:
+    olmo-1b with chunked prefill, with speculation and an int8 draft, and
+    mamba2-370m through ``cb`` (prompts forced token by token)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.scheduler import (
+        attach_distinct_prompts,
+        poisson_arrivals,
+    )
+    from repro_torch.runtime.serve import (
+        Engine,
+        EngineConfig,
+        run_continuous_stream,
+    )
+
+    for arch, label, ecfg in (
+        ("olmo-1b", "chunked", dict(prefill_chunk=16)),
+        ("olmo-1b", "spec int8 draft",
+         dict(prefill_chunk=16, spec_k=2, draft_kv_dtype="int8")),
+        ("mamba2-370m", "cb, prompts forced", dict()),
+    ):
+        cfg = get_config(arch).smoke()
+        params = models.init_params(cfg, seed=0)
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            reqs = poisson_arrivals(12, 1000.0, seed=2, tokens_mean=8,
+                                    tokens_max=40, sample_frac=0.0,
+                                    vocab=cfg.vocab_size)
+            attach_distinct_prompts(reqs, 20, vocab=cfg.vocab_size, seed=3)
+            with Engine(cfg, params, EngineConfig(max_len=64, max_batch=4,
+                                                  **ecfg), device=dev) as eng:
+                rep = run_continuous_stream(eng, reqs, slots=4,
+                                            clock=_StepClock())
+                check(eng.graphs == (dev == "cuda"),
+                      f"continuous smoke {dev}: cuda_graphs {eng.graphs}")
+            check(rep["finished"] == len(reqs)
+                  and rep["compiles_after_warmup"] == 0,
+                  f"continuous smoke {arch} {label} {dev}: {rep['finished']} "
+                  f"finished, {rep['compiles_after_warmup']} compiles after "
+                  f"warmup")
+            streams[dev] = {r.rid: (r.prompt, r.tokens) for r in reqs}
+        ties = 0
+        for rid, (prompt, toks) in streams["cpu"].items():
+            card = streams["cuda"][rid][1]
+            if card == toks:
+                continue
+            i = next(i for i, (x, y) in enumerate(zip(toks, card)) if x != y)
+            check(arch == "olmo-1b" and _near_tie(
+                cfg, params, list(prompt) + toks[:i], "fp32"),
+                f"continuous smoke {arch} {label}: card != CPU at rid {rid} "
+                f"token {i}")
+            ties += 1
+        n = sum(len(t) for _, t in streams["cpu"].values())
+        log(f"[continuous:smoke] {arch} {label}, greedy: card = CPU on "
+            f"{len(streams['cpu']) - ties} of {len(streams['cpu'])} requests "
+            f"({n} tokens), {ties} near-tie divergences")
+
+
 # ------------------------------------------------------------------ phase 4
 def steps_kernel_vs_plain(cfg, params) -> None:
     from repro_torch import models
@@ -1399,6 +1743,8 @@ def smoke_card_vs_cpu() -> dict:
             with Engine(cfg, params, ecfg, device=dev) as eng:
                 rep = run_paged_stream(eng, reqs, slots=4, clock=_StepClock())
                 warm_vf = len(eng._k_buckets())
+                chunks = len(eng._chunk_buckets())
+                draft_layers = eng.draft_cfg.num_layers if spec_k else 0
                 check(eng.graphs == (dev == "cuda"),
                       f"smoke {dev}: cuda_graphs {eng.graphs}")
             tag = f"{kv_dtype}/spec_k={spec_k}/{dev}"
@@ -1409,15 +1755,15 @@ def smoke_card_vs_cpu() -> dict:
             if spec_k:
                 check(rep["lane_steps"]["verify"] > 0, f"{tag}: no verify")
             if spec_k and kv_dtype == "fp32" and dev == "cuda":
-                # B2 serves the pf and vf lanes, one launch per layer per
-                # call, each warmed key's runs included
+                # B2 serves the pf and vf lanes and the draft's drp, one
+                # launch per layer per call, each warmed key's runs included
                 n = kernels.paged_prefill_attention.launches
                 steps = rep["lane_steps"]
                 runs = _warm_runs_per_key()
                 want = cfg.num_layers * (
-                    steps["prefill"] + runs * len(eng._chunk_buckets())
+                    steps["prefill"] + runs * chunks
                     + steps["verify"] + runs * warm_vf
-                )
+                ) + draft_layers * (rep["lane_calls"]["drp"] + runs * chunks)
                 check(n == want, f"{tag}: B2 launched {n}, expected {want}")
                 b2_verify = {"launches": cfg.num_layers
                              * (steps["verify"] + runs * warm_vf),
@@ -1843,7 +2189,12 @@ def _device_only(fn, call, kernel: str) -> dict:
             "profiled_ms": profiled_ms, "queued_ms": queued_ms}
 
 
-def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
+def time_kernels(launches: dict, b2_verify: dict,
+                 by_path: dict) -> list[dict]:
+    """B1-B4 at the main paths' shapes. ``launches`` holds each kernel's
+    count on its paged main path; ``by_path`` every serving path's counts
+    (the paged cells, the dense continuous streams), each set to 0 just
+    before its path and read just after."""
     import torch.nn.functional as F
 
     from repro_torch import kernels
@@ -1998,6 +2349,8 @@ def time_kernels(launches: dict, b2_verify: dict) -> list[dict]:
             else "paged_attention.cu")
         row = {"name": fn.__name__, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[fn.__name__],
+               "launches_by_path": {path: counts.get(fn.__name__, 0)
+                                    for path, counts in by_path.items()},
                **measure(fn, plain, kv_row, case)}
         if verify is not None:  # the same kernel at the verify window
             row.update({f"verify_{k}": v for k, v in
@@ -2254,6 +2607,10 @@ def main() -> int:
     kernels_vs_plain()
     main_path = full_width_streams()
     graph_phase(main_path["cfg"], main_path["params"])
+    dense = continuous_phase(main_path["cfg"], main_path["params"],
+                             main_path["burst_report"])
+    main_path["by_path"].update({f"continuous {k}": v["launches"]
+                                 for k, v in dense.items() if "launches" in v})
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
     prompt = prompt_then_burst(main_path["cfg"], main_path["params"])
     profile_steps(main_path["cfg"], main_path["params"])
@@ -2263,13 +2620,15 @@ def main() -> int:
     mamba = mamba_full_width()
     torch.cuda.empty_cache()
     b2_verify = smoke_card_vs_cpu()
+    continuous_smoke_card_vs_cpu()
     mamba_smoke_card_vs_cpu()
     launches = dict(main_path["launches"],
                     flash_attention=prompt["flash_attention"],
                     flash_attention_branchy=kernel_pair()[
                         "flash_attention_branchy"],
                     ssd_chunk=mamba["ssd_chunk"])
-    rows = (time_kernels(launches, b2_verify) + time_dense_kernels(launches)
+    rows = (time_kernels(launches, b2_verify, main_path["by_path"])
+            + time_dense_kernels(launches)
             + time_ssd_kernel(launches))
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -2,9 +2,11 @@
 
 The port's copy of ``repro.core.lanes`` (DESIGN.md §12), holding the lanes
 the ported engines run: ``burst`` (the per-burst engine's decode, sampling
-mode baked in), and the paged serving path's ``cbp`` (paged decode), ``pf``
-(chunked paged prefill) and speculative decoding's ``vf`` (paged verify),
-``dr`` (draft) and ``drp`` (the draft's prompt mirror).
+mode baked in), the dense continuous engine's ``cb`` (decode), ``pfd``
+(chunked prefill) and ``vfd`` (verify), the paged serving path's ``cbp``
+(paged decode), ``pf`` (chunked paged prefill) and ``vf`` (paged verify),
+and speculative decoding's ``dr`` (draft) and ``drp`` (the draft's prompt
+mirror), which both continuous engines share.
 
 * ``LaneAxis``    — one coordinate of a lane's key: a name plus the *bucket
                     ladder* that enumerates its warmup fan-out (an engine
@@ -211,7 +213,7 @@ BURST = LANES.register(LaneSpec(
         "fan-out).",
 ))
 
-_SLOTS = LaneAxis("slots")  # pinned per batcher (paged_continuous(slots=...))
+_SLOTS = LaneAxis("slots")  # pinned per batcher (continuous(slots=...))
 _PAGES = LaneAxis("pages_bucket", "_pages_buckets")
 _CHUNK = LaneAxis("chunk_bucket", "_chunk_buckets")
 _KBUCKET = LaneAxis("k_bucket", "_k_buckets")
@@ -220,6 +222,15 @@ _KVDTYPE = LaneAxis("kv_dtype", "_warm_kv_dtypes")
 # can pair with a model-dtype verify pool (DESIGN.md §16) without
 # multiplying the verify lanes' fan-out.
 _DRAFT_KVDTYPE = LaneAxis("draft_kv_dtype", "_warm_draft_kv_dtypes")
+
+CB = LANES.register(LaneSpec(
+    name="cb", role="decode",
+    axes=(_SLOTS,),
+    builder="_build_slot_decode", warmer="_warm_cb",
+    engines=frozenset({"dense"}),
+    doc="Dense continuous decode: one branch target per slot count, "
+        "sampling params as data (DESIGN.md §4).",
+))
 
 CBP = LANES.register(LaneSpec(
     name="cbp", role="decode",
@@ -239,6 +250,14 @@ PF = LANES.register(LaneSpec(
         "covers rides one call (DESIGN.md §10/§12).",
 ))
 
+PFD = LANES.register(LaneSpec(
+    name="pfd", role="prefill",
+    axes=(_SLOTS, _CHUNK),
+    builder="_build_slot_prefill", warmer="_warm_pfd",
+    engines=frozenset({"dense"}), enabled="_supports_chunked_prefill",
+    doc="Dense chunked prefill, batched (DESIGN.md §10).",
+))
+
 VF = LANES.register(LaneSpec(
     name="vf", role="verify",
     axes=(_SLOTS, _KBUCKET, _KVDTYPE),
@@ -247,20 +266,29 @@ VF = LANES.register(LaneSpec(
     doc="Paged verify: K+1 window through the chunk path (DESIGN.md §11).",
 ))
 
+VFD = LANES.register(LaneSpec(
+    name="vfd", role="verify",
+    axes=(_SLOTS, _KBUCKET),
+    builder="_build_slot_verify", warmer="_warm_vfd",
+    engines=frozenset({"dense"}), enabled="_spec_lanes_enabled",
+    doc="Dense verify (DESIGN.md §11).",
+))
+
 DR = LANES.register(LaneSpec(
     name="dr", role="draft",
     axes=(_SLOTS, _KBUCKET, _DRAFT_KVDTYPE),
     builder="_build_draft", warmer="_warm_dr",
-    engines=frozenset({"paged"}), enabled="_spec_lanes_enabled",
+    engines=frozenset({"dense", "paged"}), enabled="_spec_lanes_enabled",
     doc="Draft lane: K decode steps of the truncated-layer view in one "
-        "branch target (DESIGN.md §11; the draft cache is dense).",
+        "branch target (DESIGN.md §11; the draft cache is dense for both "
+        "engines).",
 ))
 
 DRP = LANES.register(LaneSpec(
     name="drp", role="draft",
     axes=(_SLOTS, _CHUNK, _DRAFT_KVDTYPE),
     builder="_build_draft_prefill", warmer="_warm_drp",
-    engines=frozenset({"paged"}), enabled="_spec_lanes_enabled",
+    engines=frozenset({"dense", "paged"}), enabled="_spec_lanes_enabled",
     doc="Draft prompt mirror: chunked dense ingestion over the draft view "
         "(DESIGN.md §11).",
 ))

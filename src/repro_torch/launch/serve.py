@@ -1,5 +1,5 @@
-"""Serving entry point of the port: a request stream through the paged engine
-or the per-burst engine.
+"""Serving entry point of the port: a request stream through the paged
+engine, the dense continuous engine or the per-burst engine.
 
 ``--engine paged`` (default) synthesises open-loop Poisson traffic —
 ``--num-prefixes`` shared prefixes by default, distinct prompts with
@@ -7,21 +7,31 @@ or the per-burst engine.
 and drives it through ``Engine.paged_continuous``; ``--kv-dtype int8``
 stores the pool as int8 pages (kernels B3/B4) and ``--spec-k K`` turns on
 speculative decoding with a ``--draft-layers``-deep draft. ``--engine
-burst`` drives prompt-less Poisson traffic through ``run_burst_stream``
+continuous`` drives Poisson traffic (distinct prompts with
+``--prompt-len``) through ``run_continuous_stream``: ``--slots`` slots of
+one dense cache, lanes ``cb``/``pfd``/``vfd`` (kernels B1/B2 over the
+cache's page view), speculation with ``--spec-k``; an SSM arch decodes
+through ``cb`` with prompts forced token by token. ``--engine burst``
+drives prompt-less Poisson traffic through ``run_burst_stream``
 (``set_mode`` + ``decode_loop``, kernel B5 for attention stacks): one
 sampling mode per burst, batch sizes bucketed by ``--batch-quantum``; it
 also serves ``--arch mamba2-370m`` on the SSM's recurrent state (the paged
-engine refuses an SSM arch). Both report latency
-percentiles, TTFT, throughput and cold-path activity (builds after warmup,
-rebinds; for burst, mode switches; on the card every build is a CUDA-graph
-capture, and ``cuda_graphs`` says the targets were graphs). Weights are a
-seeded random init. Runs on the GPU unless ``--device cpu``:
+engine refuses an SSM arch). ``--engine both`` runs the continuous engine
+and then the burst engine on the same prompt-less stream, the JAX
+package's default. Each reports latency percentiles, TTFT, throughput and
+cold-path activity (builds after warmup, rebinds; for burst, mode
+switches; on the card every build is a CUDA-graph capture, and
+``cuda_graphs`` says the targets were graphs). Weights are a seeded random
+init. Runs on the GPU unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --arch olmo-1b --requests 16 --rate 50 --tokens-mean 16 \\
       --max-len 1024 --page-size 16 --prefix-len 128 --prefill-chunk 64 \\
       --kv-dtype int8 --spec-k 4 --draft-layers 2
-  PYTHONPATH=src python -m repro_torch.launch.serve --engine burst --smoke \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
+      --arch olmo-1b --requests 16 --rate 20 --tokens-mean 16 \\
+      --max-len 1024 --prompt-len 128 --prefill-chunk 64 --slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine both --smoke \\
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       --engine burst
@@ -46,10 +56,11 @@ from repro_torch.runtime.serve import (
     Engine,
     EngineConfig,
     run_burst_stream,
+    run_continuous_stream,
     run_paged_stream,
 )
 
-SLOTS = 8  # continuous-batching slots, as in the JAX package's launcher
+SLOTS = 8  # the engine's max_batch, as in the JAX package's launcher
 
 _REPORT_KEYS = (
     "cuda_graphs", "compiles_total", "compiles_after_warmup", "rebinds", "slots", "steps",
@@ -90,8 +101,9 @@ def _print_report(rep: dict) -> None:
 
 def make_requests(args: argparse.Namespace, vocab: int) -> list:
     """The request stream of the parsed flags, drawn as the JAX package's
-    launcher draws it: prompt-less Poisson traffic for ``--engine burst``,
-    distinct prompts with ``--prompt-len``, shared prefixes otherwise. New
+    launcher draws it: Poisson traffic for the continuous and burst
+    engines, distinct prompts with ``--prompt-len``, and shared prefixes
+    for the paged engine otherwise. New
     tokens are capped at ``max_len - max(prompt_len, 1) + 1``: the batchers
     seat ``prompt + new - 1 <= max_len`` positions."""
     if args.engine == "paged" and args.prompt_len <= 0:
@@ -117,10 +129,13 @@ def make_requests(args: argparse.Namespace, vocab: int) -> list:
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """The launcher's flags, checked against the engine they name."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--engine", choices=("paged", "burst"), default="paged",
-                    help="serving engine: paged continuous batching, or the "
-                         "per-burst engine (mode baked into each burst's "
-                         "branch target)")
+    ap.add_argument("--engine",
+                    choices=("paged", "continuous", "burst", "both"),
+                    default="paged",
+                    help="serving engine: paged continuous batching, dense "
+                         "continuous batching, the per-burst engine (mode "
+                         "baked into each burst's branch target), or both "
+                         "the continuous and the burst engine on one stream")
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family config (fp32, 2 layers)")
@@ -132,6 +147,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--sample-frac", type=float, default=0.5,
                     help="fraction of requests that sample (vs greedy)")
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--slots", type=int, default=0,
+                    help="continuous-batching slots (0 = the engine's "
+                         f"max_batch, {SLOTS})")
     ap.add_argument("--batch-quantum", type=int, default=2,
                     help="burst batch sizes round up to a multiple of this "
                          "(2, the value the JAX package's launcher fixes)")
@@ -172,18 +190,20 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         ap.error(f"--requests must be >= 1, got {args.requests}")
     if args.spec_k < 0:
         ap.error(f"--spec-k must be >= 0, got {args.spec_k}")
-    if args.engine == "burst":
-        # the per-burst stream seeds first_token only and has no lanes
-        # besides its decode (there is no step pipeline to overlap either)
-        if args.prompt_len > 0:
-            ap.error("--prompt-len requires --engine paged (the burst "
-                     "stream does not ingest prompts)")
-        if args.spec_k > 0:
-            ap.error("--spec-k requires --engine paged (the burst stream "
-                     "has no draft/verify lanes)")
-        if args.kv_dtype != "fp32":
-            ap.error("--kv-dtype requires --engine paged (the dense cache "
-                     "has no page pool to quantise)")
+    if args.slots < 0:
+        ap.error(f"--slots must be >= 0, got {args.slots}")
+    burst = args.engine in ("burst", "both")
+    if burst and args.prompt_len > 0:
+        # the per-burst stream seeds first_token only; a side-by-side
+        # report would compare different workloads
+        ap.error("--prompt-len requires --engine continuous or paged (the "
+                 "burst stream does not ingest prompts)")
+    if burst and args.spec_k > 0:
+        ap.error("--spec-k requires --engine continuous or paged (the burst "
+                 "stream has no draft/verify lanes)")
+    if args.kv_dtype != "fp32" and args.engine != "paged":
+        ap.error("--kv-dtype requires --engine paged (the dense cache has "
+                 "no page pool to quantise)")
     if args.engine == "paged":
         try:
             models.check_paged(_config(args))
@@ -216,16 +236,27 @@ def main(argv: list[str] | None = None) -> dict:
         draft_layers=args.draft_layers,
         draft_kv_dtype=args.draft_kv_dtype,
     )
-    reqs = make_requests(args, cfg.vocab_size)
-    with Engine(cfg, params, ecfg, device=device) as eng:
-        if args.engine == "burst":
-            rep = run_burst_stream(eng, reqs, seed=args.seed)
-        else:
-            rep = run_paged_stream(eng, reqs, seed=args.seed)
+    slots = args.slots or None
+    engines = ("continuous", "burst") if args.engine == "both" else (
+        args.engine,)
+    reports = {}
+    for name in engines:
+        reqs = make_requests(args, cfg.vocab_size)
+        with Engine(cfg, params, ecfg, device=device) as eng:
+            if name == "burst":
+                reports[name] = run_burst_stream(eng, reqs, seed=args.seed)
+            elif name == "continuous":
+                reports[name] = run_continuous_stream(
+                    eng, reqs, slots=slots, seed=args.seed)
+            else:
+                reports[name] = run_paged_stream(
+                    eng, reqs, slots=slots, seed=args.seed)
+    rep = reports if args.engine == "both" else reports[args.engine]
     if args.json:
         print(json.dumps(rep, indent=2))
     else:
-        _print_report(rep)
+        for r in reports.values():
+            _print_report(r)
     return rep
 
 

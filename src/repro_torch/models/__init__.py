@@ -1,19 +1,22 @@
 """Model code of the port: the dense LM family's and the Mamba-2 (SSM)
 family's full-sequence forward and prefill, the dense family's paged serving
-path, and the dense-cache decode (burst engine and speculative draft; an SSM
-slot's recurrent state)."""
+path, and the dense-cache decode (burst engine, dense continuous engine and
+speculative draft; an SSM slot's recurrent state)."""
 
 from .attention import (
     ATTN_IMPLS,
     FULL_IMPLS,
     KV_QUANT_MAX,
     KV_SCALE_EPS,
+    dense_page_size,
+    dense_page_view,
     dequantise_kv_rows,
     quantise_kv_rows,
 )
 from .model import (
     check_paged,
     chunked_decode_step,
+    chunked_verify_step,
     copy_cache_pages,
     decode_step,
     draft_view,
@@ -37,8 +40,11 @@ __all__ = [
     "KV_SCALE_EPS",
     "check_paged",
     "chunked_decode_step",
+    "chunked_verify_step",
     "copy_cache_pages",
     "decode_step",
+    "dense_page_size",
+    "dense_page_view",
     "dequantise_kv_rows",
     "draft_view",
     "forward",

@@ -45,9 +45,15 @@ The dense cache's decode (``decode_attention``) at a **scalar** position —
 every row at one depth, the burst engine — writes the new K/V row at ``pos``
 in place and attends with B5 (``attn_impl="kernel"``) or the JAX package's
 einsum tail (``"plain"``); it takes model-dtype caches only, as the JAX
-package's. At **per-row** positions (the draft lanes) it and
-``chunked_decode_attention`` are plain PyTorch, model dtype or int8: the JAX
-package has no Pallas kernel for the per-row dense path either.
+package's. At **per-row** positions (the dense continuous engine's ``cb``
+lane and the draft's ``dr``) it, and ``chunked_decode_attention`` (the
+``pfd``/``vfd`` lanes and the draft's ``drp``), write as the JAX package
+does and attend through the paged kernels over ``dense_page_view``: a slot's
+cache rows are a trivial identity block table (the JAX package's own words),
+so ``[S, max_len, KH, dh]`` viewed as ``[S·max_len/ps, ps, KH, dh]`` is a
+page pool and row s's table lists its own pages in order. B1 (B3 over int8
+rows) serves the one-token form, B2 (B4) the chunk form; ``"plain"`` keeps
+``_decode_sdpa_rows`` over the whole cache.
 """
 
 from __future__ import annotations
@@ -466,7 +472,7 @@ def paged_prefill_attention(
     return _decode_sdpa_rows(cfg, p, q, gk, gv, positions, local=local), cache
 
 
-# ------------------------------------------------------- the draft's dense cache
+# ------------------------------------------------------- the dense per-slot cache
 def init_kv_cache(
     cfg: ArchConfig,
     batch: int,
@@ -474,9 +480,10 @@ def init_kv_cache(
     kv_dtype: str = "fp32",
     device: torch.device | str = "cpu",
 ) -> dict:
-    """Dense per-slot KV cache ``[B, max_len, KH, dh]`` (the draft lanes'
-    storage). ``kv_dtype="int8"`` stores int8 rows plus per-(row, position)
-    f32 scales ``ks``/``vs`` of shape ``[B, max_len]``."""
+    """Dense per-slot KV cache ``[B, max_len, KH, dh]`` (the dense
+    continuous engine's and the draft lanes' storage). ``kv_dtype="int8"``
+    stores int8 rows plus per-(row, position) f32 scales ``ks``/``vs`` of
+    shape ``[B, max_len]``."""
     _check_kv_dtype(kv_dtype)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     if kv_dtype == "int8":
@@ -491,6 +498,45 @@ def init_kv_cache(
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }
+
+
+def dense_page_size(max_len: int) -> int:
+    """The page size of a dense cache's page view: 16 where ``max_len`` is a
+    multiple of 16, else 8 — the two sizes B1-B4 are instantiated at
+    (``kernels.build.PAGE_SIZES``). Any other ``max_len`` has no view and
+    raises ``ValueError``."""
+    for ps in (16, 8):
+        if max_len % ps == 0:
+            return ps
+    raise ValueError(
+        f"a dense KV cache of max_len={max_len} has no page view: the paged "
+        f"kernels take pages of 16 or 8 rows, so max_len must be a multiple "
+        f"of 8"
+    )
+
+
+def dense_page_view(cache: dict) -> tuple[dict, torch.Tensor]:
+    """One layer's dense cache as a page pool, for the paged kernels.
+
+    ``k``/``v`` ``[S, max_len, KH, dh]`` become ``[S·max_len/ps, ps, KH,
+    dh]`` and int8 scales ``ks``/``vs`` ``[S, max_len]`` become the pool's
+    ``k_scale``/``v_scale`` ``[S·max_len/ps, ps]``, all views of the same
+    memory (page size from ``dense_page_size``). Returns ``(pool,
+    table)``: the identity block table ``i32[S, max_len/ps]`` whose row s
+    is ``s·max_len/ps + arange(max_len/ps)``. The kernels clamp a row's
+    page range to its table, so a position at or past ``max_len`` attends
+    over every row of the slot, as the dense mask does."""
+    s, smax = cache["k"].shape[:2]
+    ps = dense_page_size(smax)
+    pages = s * (smax // ps)
+    tail = cache["k"].shape[2:]
+    pool = {"k": cache["k"].view(pages, ps, *tail),
+            "v": cache["v"].view(pages, ps, *tail)}
+    if "ks" in cache:
+        pool["k_scale"] = cache["ks"].view(pages, ps)
+        pool["v_scale"] = cache["vs"].view(pages, ps)
+    table = torch.arange(pages, dtype=torch.int32, device=cache["k"].device)
+    return pool, table.view(s, smax // ps)
 
 
 def _dense_view(cache: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -551,12 +597,14 @@ def decode_attention(
     x: [B,1,D]; cache k/v: [B,Smax,KH,dh]. ``pos`` is either a 0-dim i32
     tensor — the whole batch at one position, the burst engine; model-dtype
     caches only, attention by ``attn_impl`` (B5 or plain) — or i32[B], each
-    row at its own depth (the draft lanes; plain PyTorch). The per-row form
+    row at its own depth (the ``cb`` and ``dr`` lanes). The per-row form
     writes row b's new K/V at ``pos[b]`` in place (a position past the
     cache writes nothing, as the JAX package's masked select) and attends
-    with a per-row causal mask, so a slot that joined at position 0 never
-    sees its previous occupant's rows; an int8 cache quantises the row and
-    follows the int8 dtype rule.
+    with a per-row causal mask — B1 (B3 on an int8 cache) over
+    ``dense_page_view`` with ``"kernel"``, ``_decode_sdpa_rows`` with
+    ``"plain"`` — so a slot that joined at position 0 never sees its
+    previous occupant's rows; an int8 cache quantises the row and follows
+    the int8 dtype rule.
     """
     if pos.dim() == 0:
         if cache["k"].dtype == torch.int8:
@@ -583,6 +631,11 @@ def decode_attention(
     else:
         put(cache["k"], k[:, 0])
         put(cache["v"], v[:, 0])
+    if attn_impl == "kernel":
+        pool, table = dense_page_view(cache)
+        o = _paged_kernel(cfg, pool, q[:, 0], table, pos, local=local,
+                          chunk=False)
+        return _out_proj(cfg, p, o[:, None]), cache
     ck, cv = _dense_view(cache)
     return _decode_sdpa_rows(cfg, p, q, ck, cv, pos, local=local), cache
 
@@ -596,40 +649,53 @@ def chunked_decode_attention(
     length: torch.Tensor,
     *,
     local: bool,
+    attn_impl: str = "kernel",
 ) -> tuple[torch.Tensor, dict]:
-    """Chunk-of-C-tokens ingestion into the dense per-slot cache.
+    """Chunk-of-C-tokens ingestion into the dense per-slot cache (the
+    ``pfd`` and ``vfd`` lanes, the draft's ``drp``).
 
     x: [B,C,D]; ``start``: i32[B]; ``length``: i32[B] real tokens (0 = idle
-    row, writes nothing). Cache row j of batch row b takes chunk row
-    ``j - start`` when it lies in ``[start, start + length)`` (a masked
-    select written back in place, as the JAX package's), then each chunk row
-    attends causally at its own position. An int8 cache quantises the chunk
-    once with ``quantise_kv_rows``: the same bits as C per-row decodes.
+    row, writes nothing). Chunk row i of batch row b lands at cache row
+    ``start[b] + i`` when ``i < length[b]`` and that row lies inside the
+    cache — the rows the JAX package's masked select writes, and the same
+    bits — by one scatter of the B·C rows, not a pass over the whole cache.
+    A row that writes nothing puts its old value back at ``(start[b] + i) %
+    max_len``: the C targets of a batch row are then distinct (C <=
+    max_len), so no two writes race. Each chunk row then attends causally
+    at its own position: B2 (B4 on an int8 cache) over ``dense_page_view``
+    with ``"kernel"``, ``_decode_sdpa_rows`` with ``"plain"``. An int8
+    cache quantises the chunk once with ``quantise_kv_rows``: the same
+    bits as C per-row decodes.
     """
     b, c = x.shape[:2]
+    smax = cache["k"].shape[1]
+    if c > smax:
+        raise ValueError(
+            f"a chunk of {c} rows does not fit a dense cache of max_len={smax}"
+        )
     offs = torch.arange(c, dtype=torch.int32, device=x.device)
     positions = start[:, None] + offs[None, :]  # [B,C]
     q, k, v = _qkv(cfg, p, x, positions)
-    ki = torch.arange(cache["k"].shape[1], device=x.device)
-    sel = (ki[None, :] >= start[:, None]) & (
-        ki[None, :] < (start + length)[:, None]
-    )  # [B,Smax]
-    idx = (ki[None, :] - start[:, None]).clamp(0, c - 1).long()  # [B,Smax]
+    keep = (offs[None, :] < length[:, None]) & (positions < smax)  # [B,C]
+    rows = torch.arange(b, device=x.device)[:, None].expand(b, c)
+    at = (positions % smax).long()
 
-    def insert(t: torch.Tensor, new: torch.Tensor) -> None:
-        tail = new.shape[2:]
-        at = idx.view(*idx.shape, *([1] * len(tail))).expand(*idx.shape, *tail)
-        picked = torch.gather(new, 1, at)
-        t.copy_(torch.where(sel.view(*sel.shape, *([1] * len(tail))), picked, t))
+    def put(t: torch.Tensor, new: torch.Tensor) -> None:
+        k_ = keep.view(b, c, *([1] * (new.dim() - 2)))
+        t.index_put_((rows, at), torch.where(k_, new, t[rows, at]))
 
     if cache["k"].dtype == torch.int8:
         qk, ksc = quantise_kv_rows(k)
         qv, vsc = quantise_kv_rows(v)
         for name, new in (("k", qk), ("v", qv), ("ks", ksc), ("vs", vsc)):
-            insert(cache[name], new)
+            put(cache[name], new)
     else:
-        insert(cache["k"], k)
-        insert(cache["v"], v)
+        put(cache["k"], k)
+        put(cache["v"], v)
+    if attn_impl == "kernel":
+        pool, table = dense_page_view(cache)
+        o = _paged_kernel(cfg, pool, q, table, start, local=local, chunk=True)
+        return _out_proj(cfg, p, o), cache
     ck, cv = _dense_view(cache)
     return (
         _decode_sdpa_rows(cfg, p, q, ck, cv, positions, local=local),

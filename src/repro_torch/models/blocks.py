@@ -155,7 +155,7 @@ def block_paged_prefill(
     return _block_tail(cfg, slot, p, x + h), cache
 
 
-# ------------------------------------------------- the draft's dense cache
+# ------------------------------------------------- the dense per-slot cache
 def block_cache_init(
     cfg: ArchConfig,
     slot: int,
@@ -187,8 +187,8 @@ def block_decode(
     attn_impl: str = "kernel",
 ) -> tuple[torch.Tensor, dict]:
     """Single-token block step into the dense cache at a scalar position
-    (the burst engine) or per-row positions (the draft); a mamba slot
-    ignores ``pos`` and steps its recurrent state."""
+    (the burst engine) or per-row positions (the ``cb`` and ``dr`` lanes);
+    a mamba slot ignores ``pos`` and steps its recurrent state."""
     h = norm_apply(cfg, _scale(p, "norm1"), x)
     if _is_ssm(cfg, slot):
         h, cache = ssm_mod.ssm_decode_step(cfg, p["ssm"], h, cache)
@@ -208,6 +208,8 @@ def block_chunk_decode(
     cache: dict,
     start: torch.Tensor,
     length: torch.Tensor,
+    *,
+    attn_impl: str = "kernel",
 ) -> tuple[torch.Tensor, dict]:
     """Chunk-of-C-tokens block step into the dense cache (DESIGN.md §10)."""
     local = _mixer(
@@ -217,6 +219,7 @@ def block_chunk_decode(
     )
     h = norm_apply(cfg, _scale(p, "norm1"), x)
     h, cache = attn.chunked_decode_attention(
-        cfg, p["attn"], h, cache, start, length, local=local
+        cfg, p["attn"], h, cache, start, length, local=local,
+        attn_impl=attn_impl,
     )
     return _block_tail(cfg, slot, p, x + h), cache

@@ -1,6 +1,6 @@
 """Top-level LM: full-sequence forward and prefill, the paged serving path,
-dense-cache decode (burst engine and speculative draft): counterpart of
-``repro.models.model``, inference only.
+dense-cache decode (burst engine, dense continuous engine and speculative
+draft): counterpart of ``repro.models.model``, inference only.
 
 Params are a flat ``dict[str, Tensor]`` keyed by the JAX pytree's paths::
 
@@ -170,10 +170,11 @@ def init_cache(
     kv_dtype: str = "fp32",
     device: torch.device | str = "cpu",
 ) -> list:
-    """Dense per-slot cache (the burst engine's and the draft lanes'
-    storage), stacked ``[m, ...]`` per period slot; ``kv_dtype="int8"`` adds
-    ``ks``/``vs`` scale leaves (attention slots only); a mamba slot holds
-    its conv window and state whatever ``max_len``."""
+    """Dense per-slot cache (the burst engine's, the dense continuous
+    engine's and the draft lanes' storage), stacked ``[m, ...]`` per period
+    slot; ``kv_dtype="int8"`` adds ``ks``/``vs`` scale leaves (attention
+    slots only); a mamba slot holds its conv window and state whatever
+    ``max_len``."""
     m = cfg.num_layers // cfg.period
     return [
         _stack(block_cache_init(cfg, slot, batch, max_len, kv_dtype, device), m)
@@ -378,10 +379,11 @@ def decode_step(
     """One token for the whole stack through the dense per-slot cache.
 
     inputs: i32[B,1]; pos: a 0-dim i32 tensor (the whole batch at one
-    position — the burst engine; attention by ``attn_impl``, B5 or plain;
-    an int8 cache raises) or i32[B] per-row positions (the draft; plain).
-    Mamba slots ignore ``pos``. Returns (logits [B,V] float32, cache
-    updated in place)."""
+    position — the burst engine; attention B5 or plain; an int8 cache
+    raises) or i32[B] per-row positions (the ``cb`` and ``dr`` lanes;
+    attention B1/B3 over the cache's page view, or plain). ``attn_impl``
+    picks "kernel" or "plain" either way. Mamba slots ignore ``pos``.
+    Returns (logits [B,V] float32, cache updated in place)."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     for slot, p, c in _layers(cfg, params, cache):
         x, _ = block_decode(cfg, slot, p, x, c, pos, attn_impl=attn_impl)
@@ -396,11 +398,13 @@ def _dense_chunk_hidden(
     inputs: torch.Tensor,
     start: torch.Tensor,
     length: torch.Tensor,
+    attn_impl: str,
 ) -> torch.Tensor:
     """The chunk tower over the dense per-slot cache -> normed [B,C,D]."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     for slot, p, c in _layers(cfg, params, cache):
-        x, _ = block_chunk_decode(cfg, slot, p, x, c, start, length)
+        x, _ = block_chunk_decode(cfg, slot, p, x, c, start, length,
+                                  attn_impl=attn_impl)
     return _final_norm(cfg, params, x)
 
 
@@ -411,13 +415,37 @@ def chunked_decode_step(
     inputs: torch.Tensor,
     start: torch.Tensor,
     length: torch.Tensor,
+    *,
+    attn_impl: str = "kernel",
 ) -> tuple[torch.Tensor, list]:
     """A chunk of C tokens for the whole stack into the dense per-slot cache
-    (the draft's prompt mirror). inputs: i32[B,C]; start, length: i32[B]
-    (length 0 = idle row). Returns (logits of the last real chunk row [B,V]
-    float32, cache updated in place)."""
-    x = _dense_chunk_hidden(cfg, params, cache, inputs, start, length)
+    (the ``pfd`` lane and the draft's prompt mirror ``drp``). inputs:
+    i32[B,C]; start, length: i32[B] (length 0 = idle row); attention B2/B4
+    over the cache's page view with ``attn_impl="kernel"``. Returns (logits
+    of the last real chunk row [B,V] float32, cache updated in place)."""
+    x = _dense_chunk_hidden(cfg, params, cache, inputs, start, length,
+                            attn_impl)
     return head_apply(cfg, params, _last_real_row(x, length)), cache
+
+
+def chunked_verify_step(
+    cfg: ArchConfig,
+    params: dict,
+    cache: list,
+    inputs: torch.Tensor,
+    start: torch.Tensor,
+    length: torch.Tensor,
+    *,
+    attn_impl: str = "kernel",
+) -> tuple[torch.Tensor, list]:
+    """Verify lane over the dense per-slot cache (DESIGN.md §11), the
+    ``vfd`` lane: score all K+1 positions of a draft window in one pass —
+    ``chunked_decode_step`` with the head over every chunk row. Returns
+    (logits [B,C,V] float32, cache updated in place); rows with length 0
+    are idle and write nothing."""
+    x = _dense_chunk_hidden(cfg, params, cache, inputs, start, length,
+                            attn_impl)
+    return head_apply(cfg, params, x), cache
 
 
 def draft_view(

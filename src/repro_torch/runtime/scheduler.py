@@ -1,12 +1,17 @@
-"""Request scheduler + paged continuous batching (counterpart of
+"""Request scheduler + continuous batching (counterpart of
 ``repro.runtime.scheduler``: the per-burst engine's batch forming and the
-synchronous paged path).
+synchronous dense and paged paths).
 
 * ``Request`` / ``RequestQueue`` / ``Clock`` and the traffic generators
   (``poisson_arrivals``, ``shared_prefix_arrivals``,
   ``attach_distinct_prompts``) are the JAX package's, unchanged.
 * ``form_bursts`` — the per-burst engine's batch forming (one sampling
   mode per burst, bucketed batch sizes).
+* ``ContinuousBatcher`` — slot-based continuous batching over the dense
+  per-slot cache: lanes ``cb`` (one token per decoding slot), ``pfd``
+  (batched chunked prefill) and, with speculation on, ``dr``/``vfd``/
+  ``drp``. A join resets the slot to position 0 (per-row attention masks
+  the previous occupant's rows), a leave clears its active bit.
 * ``PagedContinuousBatcher`` — slot-based continuous batching against a
   paged KV pool (``runtime.kvcache``, DESIGN.md §9) with the lanes ``cbp``
   (one token per decoding slot), ``pf`` (batched chunked prefill, DESIGN.md
@@ -19,9 +24,15 @@ synchronous paged path).
   preempts, and every lane's bucket axes are semi-static dispatch keys: a
   crossing is a rebind on the cold path, never a build.
 
+Both batchers share ``_MultiLaneMixin``, as in the JAX package: the lane
+plan, FIFO chunk allocation, bucket accounting, the flip that primes
+generation, the decode emit boundary and the draft/verify accept/rollback;
+they differ in storage (dense rows or pages) and in their targets'
+signatures.
+
 Left for later slices of the port: the async step pipeline (so speculation
-commits synchronously), the dense engine and its ``vfd`` lane,
-disaggregation, the mesh axis, fault injection, deadlines and the watchdog.
+commits synchronously), disaggregation, the mesh axis, fault injection,
+deadlines and the watchdog.
 """
 
 from __future__ import annotations
@@ -453,7 +464,711 @@ class _DeviceMirror:
         self._dev[name] = dev
 
 
-class PagedContinuousBatcher:
+class _MultiLaneMixin:
+    """The multi-lane step core shared by both batchers (DESIGN.md §10/§11):
+    telemetry, the per-step ``LanePolicy`` plan, FIFO chunk allocation,
+    chunk/k bucket accounting, flip-time first-token priming, the decode
+    lane's emit boundary, the draft lane and the accept/rollback arithmetic
+    of the verify lane. The engines differ only in storage bookkeeping
+    (dense rows or pages, through the ``_page_upkeep`` / ``_sync_slot`` /
+    ``_before_emit`` / ``_after_commit`` / ``_release`` hooks) and in their
+    targets' signatures. The ``_*_lane`` names are each engine's lane specs
+    in the ``core.lanes`` registry, so ``stats.lane_calls`` groups calls
+    under the names the dispatch keys carry."""
+
+    _decode_lane = "cb"
+    _prefill_lane = "pfd"
+    _verify_lane = "vfd"
+
+    def _init_slots(self, num_slots: int, device, seed: int,
+                    telemetry: Telemetry | None) -> None:
+        """Per-slot host state, the sampling generator and telemetry."""
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        self.telemetry = telemetry or Telemetry()
+        self._trace = self.telemetry.trace_or_none()
+        reg = self.telemetry.registry
+        self._h_qwait = reg.histogram("queue_wait_ms")
+        self._h_ttft = reg.histogram("ttft_ms")
+        self._h_itl = reg.histogram("inter_token_ms")
+        self._h_e2e = reg.histogram("request_latency_ms")
+        self._lane_hist: dict[str, Any] = {}
+        self.num_slots = num_slots
+        self.device = torch.device(device)
+        # sampled rows draw from one generator per batcher (steps.py)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self._slots: list[Request | None] = [None] * num_slots
+        self._cursor = np.zeros(num_slots, np.int64)  # next prompt index fed
+        self._tok = np.zeros((num_slots, 1), np.int32)
+        self._pos = np.zeros(num_slots, np.int32)
+        self._active = np.zeros(num_slots, bool)
+        self._temps = np.ones(num_slots, np.float32)
+        self._greedy = np.ones(num_slots, bool)
+        # chunked prefill (DESIGN.md §10): PREFILL/DECODE state per slot
+        self._prefilling = np.zeros(num_slots, bool)
+        self._chunk_slots: set[int] = set()
+        self._flip_slots: set[int] = set()  # flipped to DECODE this step
+
+    def _init_lanes(
+        self,
+        *,
+        seed: int,
+        prefill_dispatch: Callable[[int], Callable] | None,
+        prefill_chunk: int,
+        draft_dispatch: Callable[[int], Callable] | None,
+        verify_dispatch: Callable[[int], Callable] | None,
+        draft_prefill_dispatch: Callable[[int], Callable] | None,
+        draft_cache: Any,
+        spec_k: int,
+    ) -> None:
+        """Lane wiring shared by both constructors. Speculation is on only
+        when the engine supplied both spec lanes."""
+        self._prefill_dispatch = prefill_dispatch
+        self.prefill_chunk = prefill_chunk if prefill_dispatch else 0
+        # per-step token budget: one per decoding slot plus one full chunk
+        self.token_budget = self.num_slots + self.prefill_chunk
+        self._chunk_bucket = 0
+        self._draft_dispatch = draft_dispatch
+        self._verify_dispatch = verify_dispatch
+        self._draft_prefill_dispatch = draft_prefill_dispatch
+        self._draft_cache = draft_cache  # dense per-slot, updated in place
+        self.spec_k = spec_k if (draft_dispatch and verify_dispatch) else 0
+        self._k_bucket: int | None = None  # unset until the first spec step
+        # the draft prompt mirror samples into a generator of its own, so
+        # it never moves the sampled streams
+        self._draft_generator = torch.Generator(device=self.device)
+        self._draft_generator.manual_seed(seed)
+        # per-slot, per-verify a/k acceptance samples (a bounded window)
+        self.accept_samples: deque[float] = deque(maxlen=4096)
+        self._lane_policy = LanePolicy(
+            token_budget=self.token_budget, spec_k=self.spec_k
+        )
+
+    # ------------------------------------------------------------ properties
+    @property
+    def active_count(self) -> int:
+        return int(self._active.sum())
+
+    @property
+    def free_slots(self) -> int:
+        return self.num_slots - self.active_count
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._active.any())
+
+    @property
+    def _spec_on(self) -> bool:
+        return self.spec_k > 0
+
+    # ------------------------------------------------------------ telemetry
+    def _lane_tick(self, lane: str, t0_ns: int) -> None:
+        """Per-lane call latency (host clock, from just before the call to
+        its return — the device may still be running)."""
+        dt_ns = time.perf_counter_ns() - t0_ns
+        h = self._lane_hist.get(lane)
+        if h is None:
+            h = self._lane_hist[lane] = self.telemetry.registry.histogram(
+                "lane_step_ms", lane=lane
+            )
+        h.observe(dt_ns / 1e6)
+        if self._trace is not None:
+            self._trace.emit("lane_step", "lane:" + lane, ph="X", ts_ns=t0_ns,
+                             dur_ns=dt_ns)
+
+    def _note_admit(self, req: Request, now: float) -> None:
+        self._h_qwait.observe(max(now - req.arrival_s, 0.0) * 1e3)
+        if self._trace is not None:
+            self._trace.emit("admit", "scheduler", args={"rid": req.rid})
+
+    def _note_tokens(self, req: Request, now: float) -> None:
+        """TTFT on the first emitted token, inter-token gap after it."""
+        if req.t_first is None:
+            req.t_first = now
+            self._h_ttft.observe(max(now - req.arrival_s, 0.0) * 1e3)
+        elif req.t_last is not None and now > req.t_last:
+            self._h_itl.observe((now - req.t_last) * 1e3)
+        req.t_last = now
+
+    def _note_finish(self, req: Request, now: float) -> None:
+        self._h_e2e.observe(max(now - req.arrival_s, 0.0) * 1e3)
+        if self._trace is not None:
+            self._trace.emit("finish", "scheduler",
+                             args={"rid": req.rid, "tokens": len(req.tokens)})
+
+    def _pull(self, dev: torch.Tensor) -> np.ndarray:
+        """The emit-boundary d2h sync; ``device_wait_ms`` measures how long
+        the host sat blocked on the device."""
+        out, dt_ns = pull_host(dev, self._trace)
+        self.stats.device_wait_ms += dt_ns / 1e6
+        self.stats.d2h_transfers += 1
+        return out
+
+    # ------------------------------------------------------------- planning
+    def _plan_step(self) -> StepPlan:
+        """The lane policy's budget split. Draft eligibility (greedy, past
+        any token-by-token prompt forcing) is computed here on the cold
+        path; per-slot verify windows are clamped later as data."""
+        decoding = self._active & ~self._prefilling
+        max_rem = 0
+        if self._spec_on:
+            for s, req in enumerate(self._slots):
+                if req is None or not decoding[s] or not req.greedy:
+                    continue
+                if self._cursor[s] + 1 < len(req.effective_prompt):
+                    continue  # still forcing prompt tokens
+                max_rem = max(max_rem, req.new_tokens - len(req.tokens))
+        return self._lane_policy.plan(
+            n_decode=int(decoding.sum()), max_remaining=max_rem
+        )
+
+    def _plan_chunks(self, budget_left: int) -> list[tuple[int, int, int]]:
+        """FIFO chunk allocation for the prefill lane: earliest-admitted
+        prefilling slots first, each chunk clamped to [1, prefill_chunk] —
+        the head slot always progresses even on a dry budget; later slots
+        only while budget remains. A slot whose chunk reaches its prompt end
+        also decodes its first token this step, so the final chunk shrinks
+        to keep that token inside the budget. Returns [(slot, cursor,
+        chunk), ...]."""
+        order = sorted(
+            (
+                s for s in range(self.num_slots)
+                if self._prefilling[s] and self._active[s]
+            ),
+            key=lambda s: (self._slots[s].t_admit or 0.0, s),
+        )
+        out: list[tuple[int, int, int]] = []
+        for s in order:
+            if out and budget_left < 1:
+                break
+            prompt = self._slots[s].effective_prompt
+            cursor = int(self._cursor[s])
+            remaining = len(prompt) - cursor
+            chunk = max(1, min(remaining, budget_left, self.prefill_chunk))
+            if chunk == remaining and chunk + 1 > budget_left and remaining > 1:
+                chunk -= 1
+            out.append((s, cursor, chunk))
+            budget_left -= chunk + (1 if chunk == remaining else 0)
+        return out
+
+    def _chunk_bucket_for(self, plan: list) -> int:
+        """The chunk bucket of a planned prefill call (crossings counted)."""
+        bucket = bucket_pow2(
+            max(c for _, _, c in plan), CHUNK_BUCKET_MIN, self.prefill_chunk
+        )
+        if bucket != self._chunk_bucket:
+            self.stats.chunk_bucket_crossings += 1
+            self._chunk_bucket = bucket
+        return bucket
+
+    def _note_k_bucket(self, k: int) -> None:
+        """k-axis crossing accounting: another draft depth re-dispatches the
+        draft/verify targets, a rebind over warmed buckets. The first spec
+        step binds rather than crosses."""
+        if self._k_bucket is not None and k != self._k_bucket:
+            self.stats.k_bucket_crossings += 1
+        self._k_bucket = k
+
+    # ------------------------------------------------------- prefill lane
+    def _mirror_draft_prompt(self, bucket: int, tok_dev, start_dev,
+                             length_dev) -> None:
+        """Draft prompt mirror (DESIGN.md §11): with speculation on, the
+        draft stack ingests the same chunk windows into its dense cache
+        from the prefill call's device inputs, so its KV tracks the
+        committed stream before the draft lane runs."""
+        if not self._spec_on or self._draft_prefill_dispatch is None:
+            return
+        dstep = self._draft_prefill_dispatch(bucket)
+        dins = _static_inputs(dstep)
+        self.stats.note_lane("drp")
+        t0_ns = time.perf_counter_ns()
+        _, self._draft_cache = dstep(
+            self._draft_cache, tok_dev, start_dev, length_dev,
+            self._mirror.get("temps", self._temps, dins[3]),
+            self._mirror.get("greedy", self._greedy, dins[4]),
+            self._draft_generator,
+        )
+        self._lane_tick("drp", t0_ns)
+
+    def _prime_first_token(self, s: int, req: Request, token: int,
+                           now: float) -> None:
+        """Flip tail: PREFILL -> DECODE; the chunk's last-row sample is the
+        request's first emitted token (its TTFT anchor)."""
+        self._prefilling[s] = False
+        self._flip_slots.add(s)  # its first token is budgeted
+        self._mirror.touch("active")  # the decoding mask just changed
+        req.tokens.append(token)
+        self._note_tokens(req, now)
+        self.stats.tokens += 1
+        self._tok[s, 0] = token
+        self._mirror.touch("tok")
+
+    # -------------------------------------------------------------- hot path
+    def step(self, now: float = 0.0) -> list[Request]:
+        """One multi-lane step for all slots; returns finished requests.
+
+        Cold path first (the lane plan, a batched prefill chunk, page
+        upkeep, bucket dispatch — mostly no-ops), then one direct call of
+        the decode lane's target (or the draft/verify pair)."""
+        t0 = time.perf_counter()
+        dw0 = self.stats.device_wait_ms
+        finished = self._step_impl(now)
+        self.stats.host_plan_ms += (
+            (time.perf_counter() - t0) * 1e3
+            - (self.stats.device_wait_ms - dw0)
+        )
+        return finished
+
+    def _step_impl(self, now: float) -> list[Request]:
+        """Lane order (DESIGN.md §11): prefill chunks first, then either the
+        draft/verify pair (speculation planned this step) or the decode
+        lane for the decoding slots — every lane one direct call of a
+        warmed target, whatever the request mix."""
+        if not self._active.any():
+            return []
+        finished: list[Request] = []
+        self._chunk_slots = set()
+        self._flip_slots = set()
+        plan = self._plan_step()
+        if self.prefill_chunk > 0 and (self._prefilling & self._active).any():
+            finished.extend(self._prefill_step(now, plan.chunk_budget))
+        self._page_upkeep(plan.k)
+        decoding = self._active & ~self._prefilling
+        if not decoding.any():
+            self.stats.steps += 1  # prefill-only step
+            self._count_prefill_only_step()
+            return finished
+        if plan.k > 0:  # the draft/verify lanes replace the decode lane
+            finished.extend(self._spec_step(now, plan.k, decoding))
+            self.stats.steps += 1
+            self._count_prefilling_slot_steps()
+            return finished
+        finished.extend(self._decode_lane_step(now, decoding))
+        return finished
+
+    def _commit_decode(self, t0_ns: int, out: tuple, now: float) -> list:
+        """After the decode lane's call: chain its next token and positions
+        on the device, one packed pull, then the emit boundary."""
+        nxt, self._cache, pos, tok_col, packed = out
+        self._lane_tick(self._decode_lane, t0_ns)
+        self.stats.decode_steps += 1
+        self.stats.note_lane(self._decode_lane)
+        self.stats.steps += 1
+        # chained on device, no upload (with graphs: the target's own
+        # static inputs, which its replay wrote)
+        self._mirror.put("pos", pos)
+        self._mirror.put("tok", tok_col)
+        p = self._pull(packed)  # [S,2]: nxt | new_pos; blocks on the step
+        self._pos = np.array(p[:, 1], np.int32)
+        return self._emit_decode(p[:, 0], now)
+
+    def _emit_decode(self, nxt_host: np.ndarray, now: float) -> list[Request]:
+        """The decode step's emit boundary: teacher-force remaining prompt
+        tokens (``prefill_chunk == 0``), emit, finish."""
+        finished: list[Request] = []
+        self._tok = np.asarray(nxt_host)[:, None].astype(np.int32)
+        self._count_prefilling_slot_steps()
+        for s, req in enumerate(self._slots):
+            if req is None or not self._active[s]:
+                self.stats.idle_slot_steps += 1
+                continue
+            if self._prefilling[s]:
+                continue  # chunked lane owns this slot (ticked above)
+            self.stats.active_slot_steps += 1
+            self._sync_slot(s)
+            prompt = req.effective_prompt
+            if self._cursor[s] + 1 < len(prompt):
+                # token-by-token forcing (no chunked lane): feed the next
+                # prompt token, drop the sample
+                self._cursor[s] += 1
+                self._tok[s, 0] = prompt[self._cursor[s]]
+                self._mirror.touch("tok")
+                self.stats.prompt_tokens += 1
+                continue
+            self._before_emit(s, req)
+            req.tokens.append(int(nxt_host[s]))
+            self._note_tokens(req, now)
+            self.stats.tokens += 1
+            if req.done:
+                req.t_done = now
+                self._note_finish(req, now)
+                finished.append(req)
+                self._release(s)
+        return finished
+
+    # ---------------------------------------------------- draft/verify lanes
+    def _verify_len(self, s: int, k: int) -> int:
+        """Slot ``s``'s verify-window length (0 = not in the lane): 1 +
+        min(k, remaining - 1) for draft-eligible slots, which keeps every
+        write inside the request's capacity; sampling slots, prompt-forcing
+        slots and slots that flipped this step ride with length 1 — a verify
+        of length 1 is a decode step."""
+        req = self._slots[s]
+        if req is None or not self._active[s] or self._prefilling[s]:
+            return 0
+        if (
+            not req.greedy
+            or s in self._flip_slots
+            or self._cursor[s] + 1 < len(req.effective_prompt)
+        ):
+            return 1
+        return 1 + min(k, max(req.new_tokens - len(req.tokens) - 1, 0))
+
+    def _run_draft(self, k: int, decoding) -> np.ndarray:
+        """Draft lane: K greedy candidates per slot in one call. The draft
+        writes its own KV for the fed token at ``pos``, which is how its
+        cache tracks the committed stream (rejected tails are overwritten
+        once ``pos`` is rewound). Returns the host [S, K] candidates — an
+        inherent sync, since the host packs the verify windows from them."""
+        step = self._draft_dispatch(k)  # cold: slot-hit unless k moved
+        ins = _static_inputs(step)
+        t0_ns = time.perf_counter_ns()
+        drafts, self._draft_cache, _ = step(
+            self._draft_cache,
+            self._mirror.get("tok", self._tok, ins[0]),
+            self._mirror.get("pos", self._pos, ins[1]),
+            self._mirror.get("active", decoding, ins[2]),
+        )
+        self._lane_tick("dr", t0_ns)
+        self.stats.draft_steps += 1
+        self.stats.note_lane("dr")
+        return self._pull(drafts)
+
+    @staticmethod
+    def _accepted_prefix(drafts_row, rows_row, k_s: int) -> int:
+        """Greedy acceptance: the longest prefix where the draft's candidate
+        equals the target's own greedy continuation."""
+        a = 0
+        while a < k_s and int(drafts_row[a]) == int(rows_row[a]):
+            a += 1
+        return a
+
+    def _pack_verify_tok(self, drafts, lengths: np.ndarray, k: int):
+        """[S, K+1] verify windows: the committed token, then the candidates;
+        columns >= length are bucket padding."""
+        tok = np.zeros((self.num_slots, k + 1), np.int32)
+        tok[:, 0] = self._tok[:, 0]
+        for s in range(self.num_slots):
+            if lengths[s] > 1:
+                tok[s, 1 : lengths[s]] = drafts[s, : lengths[s] - 1]
+        return tok
+
+    def _spec_step(self, now: float, k: int, decoding) -> list[Request]:
+        """Speculative decode for the decoding slots (DESIGN.md §11): the
+        draft lane proposes K candidates per slot, the verify lane scores
+        all K+1 positions in one target pass, and acceptance rewinds
+        positions (and, paged, trims tables) as data. Synchronous: one
+        packed pull per lane call (drafts, then ``pack_verify_d2h``'s
+        ``[S, K+2]``). The verify target's signature is the engine's
+        (``_verify_call``)."""
+        self._note_k_bucket(k)
+        drafts = self._run_draft(k, decoding)
+        lengths = np.array(
+            [self._verify_len(s, k) for s in range(self.num_slots)], np.int32
+        )
+        tok = self._pack_verify_tok(drafts, lengths, k)
+        t0_ns = time.perf_counter_ns()
+        packed = self._verify_call(k, tok, lengths)
+        self._lane_tick(self._verify_lane, t0_ns)
+        self.stats.verify_steps += 1
+        self.stats.note_lane(self._verify_lane)
+        p = self._pull(packed)
+        return self._apply_verify(now, p[:, : k + 1], p[:, k + 1], drafts, lengths)
+
+    def _apply_verify(self, now, rows, nxt0, drafts, lengths) -> list[Request]:
+        """Accept/rollback as data: commit the accepted prefix plus the
+        target's correction token, advance ``pos`` past it and feed the
+        correction token next. Rejected-tail KV sits beyond the new
+        position — masked by the per-row causal frontier and overwritten by
+        the next committed write (paged storage also trims pages no window
+        can reach, ``_after_commit``)."""
+        finished: list[Request] = []
+        for s, req in enumerate(self._slots):
+            if req is None or not self._active[s]:
+                self.stats.idle_slot_steps += 1
+                continue
+            if self._prefilling[s]:
+                continue  # the chunk lane owns this slot (ticked elsewhere)
+            self.stats.active_slot_steps += 1
+            ln = int(lengths[s])
+            if ln == 0:
+                continue
+            prompt = req.effective_prompt
+            if self._cursor[s] + 1 < len(prompt):
+                # token-by-token forcing: row 0 wrote this prompt token's
+                # KV; feed the next prompt token, drop the sample
+                self._pos[s] += 1
+                self._cursor[s] += 1
+                self._tok[s, 0] = prompt[self._cursor[s]]
+                self._after_commit(s, req)
+                self.stats.prompt_tokens += 1
+                continue
+            self._before_emit(s, req)
+            if ln == 1:
+                emitted = [int(nxt0[s])]
+            else:
+                k_s = ln - 1
+                a = self._accepted_prefix(drafts[s], rows[s], k_s)
+                emitted = [int(t) for t in rows[s, : a + 1]]
+                self.stats.drafted_tokens += k_s
+                self.stats.accepted_tokens += a
+                self.accept_samples.append(a / k_s)
+                if self._trace is not None:
+                    self._trace.emit(
+                        "spec_rollback" if a < k_s else "spec_accept",
+                        "lane:" + self._verify_lane,
+                        args={"slot": s, "accepted": a, "k": k_s},
+                    )
+            self._pos[s] += len(emitted)
+            self._tok[s, 0] = emitted[-1]
+            req.tokens.extend(emitted)
+            self._after_commit(s, req)
+            self._note_tokens(req, now)
+            self.stats.tokens += len(emitted)
+            if req.done:
+                req.t_done = now
+                self._note_finish(req, now)
+                finished.append(req)
+                self._release(s)
+        self._mirror.touch("tok", "pos")
+        return finished
+
+    # ----------------------------------------------- storage hooks (dense)
+    def _page_upkeep(self, k: int = 0) -> None:
+        """Pre-step storage upkeep for the decoding slots' write windows."""
+
+    def _sync_slot(self, s: int) -> None:
+        """The decode lane advanced slot ``s``'s position; sync storage."""
+
+    def _before_emit(self, s: int, req: Request) -> None:
+        """Slot ``s`` is past its prompt and about to emit."""
+
+    def _after_commit(self, s: int, req: Request) -> None:
+        """Slot ``s``'s ``pos`` advanced in the verify lane."""
+
+    def _release(self, s: int) -> None:
+        """A request finished: its slot is free (its rows are masked out by
+        the next occupant's position-0 join)."""
+        self._slots[s] = None
+        self._active[s] = False
+        self._mirror.touch("active")
+        self.stats.finished += 1
+
+    # ------------------------------------------------------------ occupancy
+    def _count_prefilling_slot_steps(self) -> None:
+        """One occupancy tick per prefilling slot: active only for slots
+        that received one of this step's chunks."""
+        for s in range(self.num_slots):
+            if self._slots[s] is None or not self._prefilling[s]:
+                continue
+            if s in self._chunk_slots:
+                self.stats.active_slot_steps += 1
+            else:
+                self.stats.idle_slot_steps += 1
+
+    def _count_prefill_only_step(self) -> None:
+        """Occupancy for a step whose decode lane was skipped."""
+        self._count_prefilling_slot_steps()
+        for s in range(self.num_slots):
+            if self._slots[s] is None or not self._prefilling[s]:
+                self.stats.idle_slot_steps += 1
+
+
+class ContinuousBatcher(_MultiLaneMixin):
+    """Slot-based continuous batching over the dense per-slot cache
+    (DESIGN.md §4/§10/§11).
+
+    ``step`` is the ``("cb", slots)`` branch target (``steps.
+    make_slot_decode_fn``, bound by the engine): ``step(cache, tok, pos,
+    active, temps, greedy, generator)``. The batcher owns the S slots' host
+    state and the engine's dense cache, updated in place by every lane;
+    ``admit`` (cold path) seats requests in free slots in ascending order,
+    ``step`` (hot path) advances every slot with one direct call.
+
+    A join resets the slot's position to 0: the per-row causal mask makes
+    the previous occupant's rows invisible (``attention.decode_attention``).
+    A leave clears the active bit. GREEDY vs SAMPLE is per-slot data.
+
+    Prompts are ingested before generation. With ``prefill_dispatch`` and
+    ``prefill_chunk`` set (DESIGN.md §10) a seated prompt rides the ``pfd``
+    lane C tokens per step (PREFILL until its cursor reaches the prompt
+    end, then DECODE); otherwise prompts are forced token by token through
+    the decode step. With ``draft_dispatch``, ``verify_dispatch`` and
+    ``draft_prefill_dispatch`` and ``spec_k > 0``, a step whose plan has
+    k > 0 runs ``dr`` and ``vfd`` in place of ``cb`` (synchronously)."""
+
+    def __init__(
+        self,
+        *,
+        step: Callable,
+        num_slots: int,
+        max_len: int,
+        cache: Any,
+        device: torch.device | str = "cpu",
+        seed: int = 0,
+        prefill_dispatch: Callable[[int], Callable] | None = None,
+        prefill_chunk: int = 0,
+        telemetry: Telemetry | None = None,
+        draft_dispatch: Callable[[int], Callable] | None = None,
+        verify_dispatch: Callable[[int], Callable] | None = None,
+        draft_prefill_dispatch: Callable[[int], Callable] | None = None,
+        draft_cache: Any = None,
+        spec_k: int = 0,
+    ):
+        self._init_slots(num_slots, device, seed, telemetry)
+        self._step = step
+        self.max_len = max_len
+        self._cache = cache  # the engine's dense cache, updated in place
+        self.stats = BatcherStats(registry=self.telemetry.registry)
+        self._mirror = _DeviceMirror(self.stats, self.device)
+        self._init_lanes(
+            seed=seed,
+            prefill_dispatch=prefill_dispatch,
+            prefill_chunk=prefill_chunk,
+            draft_dispatch=draft_dispatch,
+            verify_dispatch=verify_dispatch,
+            draft_prefill_dispatch=draft_prefill_dispatch,
+            draft_cache=draft_cache,
+            spec_k=spec_k,
+        )
+
+    # ------------------------------------------------------------- cold path
+    def admit(self, requests: Iterable[Request], now: float = 0.0) -> int:
+        """Seat requests in free slots, ascending; returns the number
+        admitted. A request whose prompt and tokens cannot fit ``max_len``
+        raises ``ValueError``."""
+        admitted = 0
+        free = [i for i, r in enumerate(self._slots) if r is None]
+        for req in requests:
+            if not free:
+                raise RuntimeError(
+                    "ContinuousBatcher.admit called with no free slot; "
+                    "gate admissions on .free_slots."
+                )
+            prompt = req.effective_prompt
+            if len(prompt) + req.new_tokens - 1 > self.max_len:
+                raise ValueError(
+                    f"request {req.rid} wants {len(prompt)} prompt + "
+                    f"{req.new_tokens} new tokens but the cache holds "
+                    f"max_len={self.max_len}."
+                )
+            s = free.pop(0)  # ascending slot order (deterministic)
+            self._slots[s] = req
+            self._tok[s, 0] = prompt[0]
+            self._pos[s] = 0
+            self._cursor[s] = 0
+            self._active[s] = True
+            # PREFILL when there is a prompt to ingest and a chunked lane
+            # to ingest it with; single-seed requests decode straight away
+            self._prefilling[s] = self.prefill_chunk > 0 and len(prompt) > 1
+            self._temps[s] = req.temperature
+            self._greedy[s] = req.greedy
+            req.t_admit = now
+            self._note_admit(req, now)
+            admitted += 1
+        if admitted:
+            self._mirror.touch("tok", "pos", "active", "temps", "greedy")
+        self.stats.admitted += admitted
+        return admitted
+
+    # ------------------------------------------------------- prefill lane
+    def _prefill_step(self, now: float, budget: int) -> list[Request]:
+        """Ingest chunks for prefilling requests, batched (DESIGN.md §10):
+        every planned chunk rides one ``("pfd", slots, chunk_bucket)`` call,
+        written straight into its slot's rows (length 0 = idle row). The
+        flip (prompt done) primes generation with the chunk's last-row
+        sample."""
+        plan = self._plan_chunks(budget)
+        if not plan:
+            return []
+        bucket = self._chunk_bucket_for(plan)
+        step = self._prefill_dispatch(bucket)  # cold: slot-hit usually
+        ins = _static_inputs(step)
+        tok = np.zeros((self.num_slots, bucket), np.int32)
+        length = np.zeros(self.num_slots, np.int32)
+        for s, cursor, chunk in plan:
+            prompt = self._slots[s].effective_prompt
+            tok[s, :chunk] = prompt[cursor : cursor + chunk]
+            length[s] = chunk
+        # chunk inputs are per-chunk data, uploaded raw
+        self.stats.prefill_calls += 1
+        self.stats.note_lane(self._prefill_lane)
+        self.stats.h2d_uploads += 3
+        dev = self.device
+        tok_dev = _upload(tok, dev, ins[0])
+        start_dev = _upload(self._pos, dev, ins[1])  # == cursor when prefilling
+        length_dev = _upload(length, dev, ins[2])
+        t0_ns = time.perf_counter_ns()
+        nxt, self._cache = step(
+            self._cache, tok_dev, start_dev, length_dev,
+            self._mirror.get("temps", self._temps, ins[3]),
+            self._mirror.get("greedy", self._greedy, ins[4]),
+            self.generator,
+        )
+        self._lane_tick(self._prefill_lane, t0_ns)
+        # pulled before the draft mirror's call: with graphs, nxt is a
+        # static output that another replay in the pool may overwrite
+        nxt_host = self._pull(nxt)
+        self._mirror_draft_prompt(bucket, tok_dev, start_dev, length_dev)
+        finished: list[Request] = []
+        for s, cursor, chunk in plan:
+            req = self._slots[s]
+            self._chunk_slots.add(s)
+            cursor += chunk
+            self._cursor[s] = cursor
+            self._pos[s] = cursor
+            self.stats.prompt_tokens += chunk
+            self.stats.prefill_chunks += 1
+            if cursor >= len(req.effective_prompt):  # flip: prime generation
+                self._prime_first_token(s, req, int(nxt_host[s]), now)
+                if req.done:  # new_tokens == 1: the primed token was last
+                    req.t_done = now
+                    self._note_finish(req, now)
+                    finished.append(req)
+                    self._release(s)
+        self._mirror.touch("pos")
+        return finished
+
+    # -------------------------------------------------------------- hot path
+    def _decode_lane_step(self, now: float, decoding) -> list[Request]:
+        """The ``cb`` lane: one direct call of the bound target, one packed
+        pull."""
+        step = self._step
+        ins = _static_inputs(step)
+        t0_ns = time.perf_counter_ns()
+        out = step(
+            self._cache,
+            self._mirror.get("tok", self._tok, ins[0]),
+            self._mirror.get("pos", self._pos, ins[1]),
+            self._mirror.get("active", decoding, ins[2]),
+            self._mirror.get("temps", self._temps, ins[3]),
+            self._mirror.get("greedy", self._greedy, ins[4]),
+            self.generator,
+        )
+        return self._commit_decode(t0_ns, out, now)
+
+    def _verify_call(self, k: int, tok: np.ndarray, lengths: np.ndarray):
+        """The dense verify target ``("vfd", slots, k)``: the windows start
+        at each slot's position. Returns the packed ``[S, K+2]`` device
+        tensor."""
+        step = self._verify_dispatch(k)  # cold: slot-hit unless k moved
+        ins = _static_inputs(step)
+        self.stats.h2d_uploads += 2  # per-step window data (tokens, lengths)
+        dev = self.device
+        _, _, self._cache, packed = step(
+            self._cache,
+            _upload(tok, dev, ins[0]),
+            self._mirror.get("pos", self._pos, ins[1]),
+            _upload(lengths, dev, ins[2]),
+            self._mirror.get("temps", self._temps, ins[3]),
+            self._mirror.get("greedy", self._greedy, ins[4]),
+            self.generator,
+        )
+        return packed
+
+
+class PagedContinuousBatcher(_MultiLaneMixin):
     """Continuous batching against a paged KV pool (DESIGN.md §9/§10/§11).
 
     Each seated request owns a ``kvcache.BlockTable`` over the shared
@@ -501,36 +1216,15 @@ class PagedContinuousBatcher:
         draft_cache: Any = None,
         spec_k: int = 0,
     ):
-        if num_slots < 1:
-            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
-        self.telemetry = telemetry or Telemetry()
-        self._trace = self.telemetry.trace_or_none()
-        reg = self.telemetry.registry
-        self._h_qwait = reg.histogram("queue_wait_ms")
-        self._h_ttft = reg.histogram("ttft_ms")
-        self._h_itl = reg.histogram("inter_token_ms")
-        self._h_e2e = reg.histogram("request_latency_ms")
-        self._lane_hist: dict[str, Any] = {}
+        self._init_slots(num_slots, device, seed, telemetry)
         self._dispatch = dispatch_fn
         self.pool = pool
         self.prefix = prefix_cache
         self._cache = cache  # pooled device pages, updated in place by steps
-        self.num_slots = num_slots
         self.max_pages_per_req = max_pages_per_req
-        self.device = torch.device(device)
         # device half of COW: cache_copy(cache, src, dst) -> cache
         self._cache_copy = cache_copy
-        # sampled rows draw from one generator per batcher (steps.py)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
-        self._slots: list[Request | None] = [None] * num_slots
         self._tables: list[BlockTable | None] = [None] * num_slots
-        self._cursor = np.zeros(num_slots, np.int64)  # next prompt index fed
-        self._tok = np.zeros((num_slots, 1), np.int32)
-        self._pos = np.zeros(num_slots, np.int32)
-        self._active = np.zeros(num_slots, bool)
-        self._temps = np.ones(num_slots, np.float32)
-        self._greedy = np.ones(num_slots, bool)
         self._prompt_cached = np.zeros(num_slots, bool)
         self._pages_bucket = 1
         self._bt_host: np.ndarray | None = None
@@ -539,51 +1233,23 @@ class PagedContinuousBatcher:
         # cap, like the prefill lane's: k is the only verify bucket axis)
         self._bt_full: np.ndarray | None = None
         self._bt_full_dirty = True
-        # chunked prefill (DESIGN.md §10): PREFILL/DECODE state per slot
-        self._prefill_dispatch = prefill_dispatch
-        self.prefill_chunk = prefill_chunk if prefill_dispatch else 0
-        # per-step token budget: one per decoding slot plus one full chunk
-        self.token_budget = num_slots + self.prefill_chunk
-        self._chunk_bucket = 0
-        self._prefilling = np.zeros(num_slots, bool)
-        self._chunk_slots: set[int] = set()
-        self._flip_slots: set[int] = set()  # flipped to DECODE this step
-        # speculative decoding (DESIGN.md §11): on only when the engine
-        # supplied both spec lanes
-        self._draft_dispatch = draft_dispatch
-        self._verify_dispatch = verify_dispatch
-        self._draft_prefill_dispatch = draft_prefill_dispatch
-        self._draft_cache = draft_cache  # dense per-slot, updated in place
-        self.spec_k = spec_k if (draft_dispatch and verify_dispatch) else 0
-        self._k_bucket: int | None = None  # unset until the first spec step
-        # the draft prompt mirror samples into a generator of its own, so
-        # it never moves the sampled streams
-        self._draft_generator = torch.Generator(device=self.device)
-        self._draft_generator.manual_seed(seed)
-        # per-slot, per-verify a/k acceptance samples (a bounded window)
-        self.accept_samples: deque[float] = deque(maxlen=4096)
-        self._lane_policy = LanePolicy(
-            token_budget=self.token_budget, spec_k=self.spec_k
-        )
         self.preempted: list[Request] = []
         self.rejected: list[Request] = []  # oversized: can never be seated
         self._starved_rids: set[int] = set()
         self.stats = PagedBatcherStats(registry=self.telemetry.registry)
         self._mirror = _DeviceMirror(self.stats, self.device)
+        self._init_lanes(
+            seed=seed,
+            prefill_dispatch=prefill_dispatch,
+            prefill_chunk=prefill_chunk,
+            draft_dispatch=draft_dispatch,
+            verify_dispatch=verify_dispatch,
+            draft_prefill_dispatch=draft_prefill_dispatch,
+            draft_cache=draft_cache,
+            spec_k=spec_k,
+        )
 
     # ------------------------------------------------------------ properties
-    @property
-    def active_count(self) -> int:
-        return int(self._active.sum())
-
-    @property
-    def free_slots(self) -> int:
-        return self.num_slots - self.active_count
-
-    @property
-    def has_work(self) -> bool:
-        return bool(self._active.any())
-
     @property
     def pages_bucket(self) -> int:
         return self._pages_bucket
@@ -593,10 +1259,6 @@ class PagedContinuousBatcher:
         """The pool's page storage dtype (DESIGN.md §12), fixed per batcher."""
         return self.pool.kv_dtype
 
-    @property
-    def _spec_on(self) -> bool:
-        return self.spec_k > 0
-
     def _tables_changed(self) -> None:
         """Some block table changed shape or contents (growth, COW, trim,
         admit, release): both packed host tables need a rebuild."""
@@ -605,49 +1267,6 @@ class PagedContinuousBatcher:
 
     def live_tables(self):
         return [t for t in self._tables if t is not None]
-
-    # ------------------------------------------------------------ telemetry
-    def _lane_tick(self, lane: str, t0_ns: int) -> None:
-        """Per-lane call latency (host clock, from just before the call to
-        its return — the device may still be running)."""
-        dt_ns = time.perf_counter_ns() - t0_ns
-        h = self._lane_hist.get(lane)
-        if h is None:
-            h = self._lane_hist[lane] = self.telemetry.registry.histogram(
-                "lane_step_ms", lane=lane
-            )
-        h.observe(dt_ns / 1e6)
-        if self._trace is not None:
-            self._trace.emit("lane_step", "lane:" + lane, ph="X", ts_ns=t0_ns,
-                             dur_ns=dt_ns)
-
-    def _note_admit(self, req: Request, now: float) -> None:
-        self._h_qwait.observe(max(now - req.arrival_s, 0.0) * 1e3)
-        if self._trace is not None:
-            self._trace.emit("admit", "scheduler", args={"rid": req.rid})
-
-    def _note_tokens(self, req: Request, now: float) -> None:
-        """TTFT on the first emitted token, inter-token gap after it."""
-        if req.t_first is None:
-            req.t_first = now
-            self._h_ttft.observe(max(now - req.arrival_s, 0.0) * 1e3)
-        elif req.t_last is not None and now > req.t_last:
-            self._h_itl.observe((now - req.t_last) * 1e3)
-        req.t_last = now
-
-    def _note_finish(self, req: Request, now: float) -> None:
-        self._h_e2e.observe(max(now - req.arrival_s, 0.0) * 1e3)
-        if self._trace is not None:
-            self._trace.emit("finish", "scheduler",
-                             args={"rid": req.rid, "tokens": len(req.tokens)})
-
-    def _pull(self, dev: torch.Tensor) -> np.ndarray:
-        """The emit-boundary d2h sync; ``device_wait_ms`` measures how long
-        the host sat blocked on the device."""
-        out, dt_ns = pull_host(dev, self._trace)
-        self.stats.device_wait_ms += dt_ns / 1e6
-        self.stats.d2h_transfers += 1
-        return out
 
     # ------------------------------------------------------------- cold path
     def _reclaim_pages(self, want: int, requester_priority: int) -> bool:
@@ -797,66 +1416,6 @@ class PagedContinuousBatcher:
         self._tables_changed()  # COW swapped a page id in some table
         self._cache = self._cache_copy(self._cache, src, dst)
 
-    # ------------------------------------------------------------- planning
-    def _plan_step(self) -> StepPlan:
-        """The lane policy's budget split. Draft eligibility (greedy, past
-        any token-by-token prompt forcing) is computed here on the cold
-        path; per-slot verify windows are clamped later as data."""
-        decoding = self._active & ~self._prefilling
-        max_rem = 0
-        if self._spec_on:
-            for s, req in enumerate(self._slots):
-                if req is None or not decoding[s] or not req.greedy:
-                    continue
-                if self._cursor[s] + 1 < len(req.effective_prompt):
-                    continue  # still forcing prompt tokens
-                max_rem = max(max_rem, req.new_tokens - len(req.tokens))
-        return self._lane_policy.plan(
-            n_decode=int(decoding.sum()), max_remaining=max_rem
-        )
-
-    def _plan_chunks(self, budget_left: int) -> list[tuple[int, int, int]]:
-        """FIFO chunk allocation for the prefill lane: earliest-admitted
-        prefilling slots first, each chunk clamped to [1, prefill_chunk] —
-        the head slot always progresses even on a dry budget; later slots
-        only while budget remains. A slot whose chunk reaches its prompt end
-        also decodes its first token this step, so the final chunk shrinks
-        to keep that token inside the budget. Returns [(slot, cursor,
-        chunk), ...]."""
-        order = sorted(
-            (
-                s for s in range(self.num_slots)
-                if self._prefilling[s] and self._active[s]
-            ),
-            key=lambda s: (self._slots[s].t_admit or 0.0, s),
-        )
-        out: list[tuple[int, int, int]] = []
-        for s in order:
-            if out and budget_left < 1:
-                break
-            prompt = self._slots[s].effective_prompt
-            cursor = int(self._cursor[s])
-            remaining = len(prompt) - cursor
-            chunk = max(1, min(remaining, budget_left, self.prefill_chunk))
-            if chunk == remaining and chunk + 1 > budget_left and remaining > 1:
-                chunk -= 1
-            out.append((s, cursor, chunk))
-            budget_left -= chunk + (1 if chunk == remaining else 0)
-        return out
-
-    def _note_chunk_bucket(self, bucket: int) -> None:
-        if bucket != self._chunk_bucket:
-            self.stats.chunk_bucket_crossings += 1
-            self._chunk_bucket = bucket
-
-    def _note_k_bucket(self, k: int) -> None:
-        """k-axis crossing accounting: another draft depth re-dispatches the
-        draft/verify targets, a rebind over warmed buckets. The first spec
-        step binds rather than crosses."""
-        if self._k_bucket is not None and k != self._k_bucket:
-            self.stats.k_bucket_crossings += 1
-        self._k_bucket = k
-
     # ------------------------------------------------------- prefill lane
     def _prefill_step(self, now: float, budget: int) -> list[Request]:
         """Ingest chunks for prefilling requests, batched (DESIGN.md §10):
@@ -890,10 +1449,7 @@ class PagedContinuousBatcher:
         ]
         if not kept:
             return []
-        bucket = bucket_pow2(
-            max(c for _, _, c in kept), CHUNK_BUCKET_MIN, self.prefill_chunk
-        )
-        self._note_chunk_bucket(bucket)
+        bucket = self._chunk_bucket_for(kept)
         step = self._prefill_dispatch(bucket)
         ins = _static_inputs(step)
         tok = np.zeros((self.num_slots, bucket), np.int32)
@@ -928,23 +1484,10 @@ class PagedContinuousBatcher:
         # pulled before the draft mirror's call: with graphs, nxt is a
         # static output that another replay in the pool may overwrite
         nxt_host = self._pull(nxt)
-        if self._spec_on and self._draft_prefill_dispatch is not None:
-            # draft prompt mirror (DESIGN.md §11): the draft stack ingests
-            # the same chunk windows into its dense cache from the same
-            # device inputs. Prefix-cache-adopted pages never pass through
-            # here, so the draft's view of a shared prefix stays cold:
-            # acceptance drops on those requests, correctness never does.
-            dstep = self._draft_prefill_dispatch(bucket)
-            dins = _static_inputs(dstep)
-            self.stats.note_lane("drp")
-            t0_ns = time.perf_counter_ns()
-            _, self._draft_cache = dstep(
-                self._draft_cache, tok_dev, start_dev, length_dev,
-                self._mirror.get("temps", self._temps, dins[3]),
-                self._mirror.get("greedy", self._greedy, dins[4]),
-                self._draft_generator,
-            )
-            self._lane_tick("drp", t0_ns)
+        # Prefix-cache-adopted pages never pass through the draft mirror, so
+        # the draft's view of a shared prefix stays cold: acceptance drops
+        # on those requests, correctness never does.
+        self._mirror_draft_prompt(bucket, tok_dev, start_dev, length_dev)
         finished: list[Request] = []
         for s, cursor, chunk in kept:
             req = self._slots[s]
@@ -959,19 +1502,8 @@ class PagedContinuousBatcher:
             self.stats.prefill_chunks += 1
             if cursor >= len(prompt):  # flip: prompt done, prime generation
                 self._tables_changed()  # the decode tables gain this row
-                full = len(prompt) // self.pool.page_size
-                if full > 0:
-                    self.prefix.insert(prompt, table.pages[:full])
-                self._prompt_cached[s] = True
-                self._prefilling[s] = False
-                self._flip_slots.add(s)  # its first token is budgeted
-                self._mirror.touch("active")
-                token = int(nxt_host[s])
-                req.tokens.append(token)
-                self._note_tokens(req, now)
-                self.stats.tokens += 1
-                self._tok[s, 0] = token
-                self._mirror.touch("tok")
+                self._before_emit(s, req)  # publish the prompt's full pages
+                self._prime_first_token(s, req, int(nxt_host[s]), now)
                 if req.done:  # new_tokens == 1: the primed token was last
                     req.t_done = now
                     self._note_finish(req, now)
@@ -981,44 +1513,6 @@ class PagedContinuousBatcher:
         return finished
 
     # -------------------------------------------------------------- hot path
-    def step(self, now: float = 0.0) -> list[Request]:
-        """One multi-lane step for all slots; returns finished requests.
-
-        Cold path first (the lane plan, a batched prefill chunk, page
-        upkeep, bucket dispatch — mostly no-ops), then one direct call of
-        the decode lane's bound step."""
-        t0 = time.perf_counter()
-        dw0 = self.stats.device_wait_ms
-        finished = self._step_impl(now)
-        self.stats.host_plan_ms += (
-            (time.perf_counter() - t0) * 1e3
-            - (self.stats.device_wait_ms - dw0)
-        )
-        return finished
-
-    def _step_impl(self, now: float) -> list[Request]:
-        if not self._active.any():
-            return []
-        finished: list[Request] = []
-        self._chunk_slots = set()
-        self._flip_slots = set()
-        plan = self._plan_step()
-        if self.prefill_chunk > 0 and (self._prefilling & self._active).any():
-            finished.extend(self._prefill_step(now, plan.chunk_budget))
-        self._page_upkeep(plan.k)
-        decoding = self._active & ~self._prefilling
-        if not decoding.any():
-            self.stats.steps += 1  # prefill-only step
-            self._count_prefill_only_step()
-            return finished
-        if plan.k > 0:  # the draft/verify lanes replace the decode lane
-            finished.extend(self._spec_step(now, plan.k, decoding))
-            self.stats.steps += 1
-            self._count_prefilling_slot_steps()
-            return finished
-        finished.extend(self._decode_lane_step(now, decoding))
-        return finished
-
     def _decode_lane_step(self, now: float, decoding) -> list[Request]:
         """Capacity-bucket dispatch, packed block tables, one direct step
         call, one packed pull."""
@@ -1045,7 +1539,7 @@ class PagedContinuousBatcher:
             self._bt_dirty = False
             self._mirror.touch("bt")
         t0_ns = time.perf_counter_ns()
-        nxt, self._cache, pos, tok_col, packed = step(
+        out = step(
             self._cache,
             self._mirror.get("tok", self._tok, ins[0]),
             self._mirror.get("pos", self._pos, ins[1]),
@@ -1055,125 +1549,19 @@ class PagedContinuousBatcher:
             self._mirror.get("greedy", self._greedy, ins[5]),
             self.generator,
         )
-        self._lane_tick(self._decode_lane, t0_ns)
-        self.stats.decode_steps += 1
-        self.stats.note_lane(self._decode_lane)
-        self.stats.steps += 1
-        # chained on device, no upload (with graphs: the target's own
-        # static inputs, which its replay wrote)
-        self._mirror.put("pos", pos)
-        self._mirror.put("tok", tok_col)
-        p = self._pull(packed)  # [S,2]: nxt | new_pos; blocks on the step
-        self._pos = np.array(p[:, 1], np.int32)
-        return self._emit_decode(p[:, 0], now)
+        return self._commit_decode(t0_ns, out, now)
 
-    def _emit_decode(self, nxt_host: np.ndarray, now: float) -> list[Request]:
-        """The decode step's emit boundary: teacher-force remaining prompt
-        tokens, publish finished prompts' pages, emit, finish."""
-        finished: list[Request] = []
-        self._tok = np.asarray(nxt_host)[:, None].astype(np.int32)
-        self._count_prefilling_slot_steps()
-        for s, req in enumerate(self._slots):
-            if req is None or not self._active[s]:
-                self.stats.idle_slot_steps += 1
-                continue
-            if self._prefilling[s]:
-                continue  # chunked lane owns this slot (ticked above)
-            self.stats.active_slot_steps += 1
-            table = self._tables[s]
-            table.num_tokens = int(self._pos[s])
-            prompt = req.effective_prompt
-            if self._cursor[s] + 1 < len(prompt):
-                # token-by-token forcing (no chunked lane): feed the next
-                # prompt token, drop the sample
-                self._cursor[s] += 1
-                self._tok[s, 0] = prompt[self._cursor[s]]
-                self._mirror.touch("tok")
-                self.stats.prompt_tokens += 1
-                continue
-            if not self._prompt_cached[s]:
-                # prompt fully written: publish its full pages for sharing
-                full = len(prompt) // self.pool.page_size
-                if full > 0:
-                    self.prefix.insert(prompt, table.pages[:full])
-                self._prompt_cached[s] = True
-            req.tokens.append(int(nxt_host[s]))
-            self._note_tokens(req, now)
-            self.stats.tokens += 1
-            if req.done:
-                req.t_done = now
-                self._note_finish(req, now)
-                finished.append(req)
-                self._release(s)
-        return finished
+    def _sync_slot(self, s: int) -> None:
+        self._tables[s].num_tokens = int(self._pos[s])
 
     def _release(self, s: int) -> None:
         """A request finished: its pages return to the pool."""
         self._tables[s].release()
         self._tables[s] = None
-        self._slots[s] = None
-        self._active[s] = False
-        self._mirror.touch("active")
         self._tables_changed()
-        self.stats.finished += 1
+        super()._release(s)
 
     # ---------------------------------------------------- draft/verify lanes
-    def _verify_len(self, s: int, k: int) -> int:
-        """Slot ``s``'s verify-window length (0 = not in the lane): 1 +
-        min(k, remaining - 1) for draft-eligible slots, which keeps every
-        write inside the request's capacity; sampling slots, prompt-forcing
-        slots and slots that flipped this step ride with length 1 — a verify
-        of length 1 is a decode step."""
-        req = self._slots[s]
-        if req is None or not self._active[s] or self._prefilling[s]:
-            return 0
-        if (
-            not req.greedy
-            or s in self._flip_slots
-            or self._cursor[s] + 1 < len(req.effective_prompt)
-        ):
-            return 1
-        return 1 + min(k, max(req.new_tokens - len(req.tokens) - 1, 0))
-
-    def _run_draft(self, k: int, decoding) -> np.ndarray:
-        """Draft lane: K greedy candidates per slot in one call. The draft
-        writes its own KV for the fed token at ``pos``, which is how its
-        cache tracks the committed stream (rejected tails are overwritten
-        once ``pos`` is rewound). Returns the host [S, K] candidates — an
-        inherent sync, since the host packs the verify windows from them."""
-        step = self._draft_dispatch(k)  # cold: slot-hit unless k moved
-        ins = _static_inputs(step)
-        t0_ns = time.perf_counter_ns()
-        drafts, self._draft_cache, _ = step(
-            self._draft_cache,
-            self._mirror.get("tok", self._tok, ins[0]),
-            self._mirror.get("pos", self._pos, ins[1]),
-            self._mirror.get("active", decoding, ins[2]),
-        )
-        self._lane_tick("dr", t0_ns)
-        self.stats.draft_steps += 1
-        self.stats.note_lane("dr")
-        return self._pull(drafts)
-
-    @staticmethod
-    def _accepted_prefix(drafts_row, rows_row, k_s: int) -> int:
-        """Greedy acceptance: the longest prefix where the draft's candidate
-        equals the target's own greedy continuation."""
-        a = 0
-        while a < k_s and int(drafts_row[a]) == int(rows_row[a]):
-            a += 1
-        return a
-
-    def _pack_verify_tok(self, drafts, lengths: np.ndarray, k: int):
-        """[S, K+1] verify windows: the committed token, then the candidates;
-        columns >= length are bucket padding."""
-        tok = np.zeros((self.num_slots, k + 1), np.int32)
-        tok[:, 0] = self._tok[:, 0]
-        for s in range(self.num_slots):
-            if lengths[s] > 1:
-                tok[s, 1 : lengths[s]] = drafts[s, : lengths[s] - 1]
-        return tok
-
     def _verify_call(self, k: int, tok: np.ndarray, lengths: np.ndarray):
         """The paged verify target ``("vf", slots, k, kv_dtype)`` with the
         full-width packed tables (rebuilt only when a table changed);
@@ -1203,84 +1591,6 @@ class PagedContinuousBatcher:
         )
         return packed
 
-    def _spec_step(self, now: float, k: int, decoding) -> list[Request]:
-        """Speculative decode for the decoding slots (DESIGN.md §11): the
-        draft lane proposes K candidates per slot, the verify lane scores
-        all K+1 positions in one target pass, and acceptance rewinds
-        positions and trims tables as data. Synchronous: one packed pull
-        per lane call (drafts, then ``pack_verify_d2h``'s ``[S, K+2]``)."""
-        self._note_k_bucket(k)
-        drafts = self._run_draft(k, decoding)
-        lengths = np.array(
-            [self._verify_len(s, k) for s in range(self.num_slots)], np.int32
-        )
-        tok = self._pack_verify_tok(drafts, lengths, k)
-        t0_ns = time.perf_counter_ns()
-        packed = self._verify_call(k, tok, lengths)
-        self._lane_tick(self._verify_lane, t0_ns)
-        self.stats.verify_steps += 1
-        self.stats.note_lane(self._verify_lane)
-        p = self._pull(packed)
-        return self._apply_verify(now, p[:, : k + 1], p[:, k + 1], drafts, lengths)
-
-    def _apply_verify(self, now, rows, nxt0, drafts, lengths) -> list[Request]:
-        """Accept/rollback as data: commit the accepted prefix plus the
-        target's correction token, advance ``pos`` past it and feed the
-        correction token next. Rejected-tail KV sits beyond the new
-        position — masked by the per-row causal frontier, overwritten by the
-        next committed write, and released by ``_after_commit``'s trim once
-        no window can reach its pages."""
-        finished: list[Request] = []
-        for s, req in enumerate(self._slots):
-            if req is None or not self._active[s]:
-                self.stats.idle_slot_steps += 1
-                continue
-            if self._prefilling[s]:
-                continue  # the chunk lane owns this slot (ticked elsewhere)
-            self.stats.active_slot_steps += 1
-            ln = int(lengths[s])
-            if ln == 0:
-                continue
-            prompt = req.effective_prompt
-            if self._cursor[s] + 1 < len(prompt):
-                # token-by-token forcing: row 0 wrote this prompt token's
-                # KV; feed the next prompt token, drop the sample
-                self._pos[s] += 1
-                self._cursor[s] += 1
-                self._tok[s, 0] = prompt[self._cursor[s]]
-                self._after_commit(s, req)
-                self.stats.prompt_tokens += 1
-                continue
-            self._before_emit(s, req)
-            if ln == 1:
-                emitted = [int(nxt0[s])]
-            else:
-                k_s = ln - 1
-                a = self._accepted_prefix(drafts[s], rows[s], k_s)
-                emitted = [int(t) for t in rows[s, : a + 1]]
-                self.stats.drafted_tokens += k_s
-                self.stats.accepted_tokens += a
-                self.accept_samples.append(a / k_s)
-                if self._trace is not None:
-                    self._trace.emit(
-                        "spec_rollback" if a < k_s else "spec_accept",
-                        "lane:" + self._verify_lane,
-                        args={"slot": s, "accepted": a, "k": k_s},
-                    )
-            self._pos[s] += len(emitted)
-            self._tok[s, 0] = emitted[-1]
-            req.tokens.extend(emitted)
-            self._after_commit(s, req)
-            self._note_tokens(req, now)
-            self.stats.tokens += len(emitted)
-            if req.done:
-                req.t_done = now
-                self._note_finish(req, now)
-                finished.append(req)
-                self._release(s)
-        self._mirror.touch("tok", "pos")
-        return finished
-
     def _before_emit(self, s: int, req: Request) -> None:
         """Prompt fully written: publish its full pages for sharing."""
         if not self._prompt_cached[s]:
@@ -1303,25 +1613,6 @@ class PagedContinuousBatcher:
         )
         if table.trim(table.page_index(horizon) + 1):
             self._tables_changed()
-
-    # ------------------------------------------------------------ occupancy
-    def _count_prefilling_slot_steps(self) -> None:
-        """One occupancy tick per prefilling slot: active only for slots
-        that received one of this step's chunks."""
-        for s in range(self.num_slots):
-            if self._slots[s] is None or not self._prefilling[s]:
-                continue
-            if s in self._chunk_slots:
-                self.stats.active_slot_steps += 1
-            else:
-                self.stats.idle_slot_steps += 1
-
-    def _count_prefill_only_step(self) -> None:
-        """Occupancy for a step whose decode lane was skipped."""
-        self._count_prefilling_slot_steps()
-        for s in range(self.num_slots):
-            if self._slots[s] is None or not self._prefilling[s]:
-                self.stats.idle_slot_steps += 1
 
 
 # ------------------------------------------------------------------ reports

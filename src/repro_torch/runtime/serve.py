@@ -1,6 +1,6 @@
 """Serving engine on the unified dispatch core (counterpart of
-``repro.runtime.serve``: the per-burst engine and the paged continuous
-path).
+``repro.runtime.serve``: the per-burst engine and the dense and paged
+continuous paths).
 
 The HFT analogy (DESIGN.md §2/§4): the *hot path* is the token loop — it
 never builds a step or branches on mode. The *cold path* is the scheduler: it
@@ -8,7 +8,9 @@ admits requests, picks the branch target in the ``Dispatcher``'s table,
 warms it, and only then lets the hot loop run.
 
 A **branch target** for a dispatch key is the step callable specialised on
-the key's static shapes and page dtype — slots, ``pages_bucket`` and
+the key's static shapes and page dtype — slots for the dense ``cb`` decode
+lane, slots and ``chunk_bucket`` for its ``pfd`` prefill lane, slots and
+``k_bucket`` for its ``vfd`` verify lane; slots, ``pages_bucket`` and
 ``kv_dtype`` for the ``cbp`` decode lane, slots, ``chunk_bucket`` and
 ``kv_dtype`` for the ``pf`` prefill lane, slots, ``k_bucket`` and
 ``kv_dtype`` for the ``vf`` verify lane, slots, ``k_bucket`` /
@@ -17,8 +19,9 @@ with the attention implementation (``EngineConfig.attn_impl``) baked in when
 it is built. On the card (``EngineConfig.cuda_graphs``, on by default
 there) a target is a ``core.graph_target.GraphTarget``: the step captured
 once as a CUDA graph over static input and output buffers and over the
-engine's own state — one page pool per page dtype, one dense draft cache
-per (slots, draft dtype), one burst cache per batch bucket — so taking the
+engine's own state — one page pool per page dtype, one dense target cache
+per slot count, one dense draft cache per (slots, draft dtype), one burst
+cache per batch bucket — so taking the
 branch is a copy of the few inputs that changed (none in steady-state
 decode: the next token and position are written back into the graph's own
 inputs) and one graph launch, where the eager step issues hundreds of
@@ -42,6 +45,14 @@ first meets, the baseline cost the continuous engines remove. It serves the SSM 
 dense cache is its recurrent conv window and state, stepped in place. The
 paged path is attention-only.
 
+The **dense continuous engine** (``continuous``, ``run_continuous_stream``)
+seats requests in the slots of one dense cache, each slot at its own
+position: ``cb`` decodes one token per slot, ``pfd`` ingests prompt chunks,
+and with speculation ``dr``/``vfd``/``drp`` draft and verify. Its per-row
+attention runs B1-B4 over the cache's identity page view
+(``models.dense_page_view``). An SSM stack serves ``cb`` only, prompts
+forced token by token, as in the JAX package.
+
 The engine runs on the card by default (``device="cuda"``) and raises when
 no GPU is present unless the caller passes ``device="cpu"``.
 """
@@ -57,6 +68,7 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs import ArchConfig
+from repro_torch.kernels import build as kernel_build
 from repro_torch.core import DispatchError, DispatchPolicy, Dispatcher
 from repro_torch.core import bucket_multiple
 from repro_torch.core.graph_target import GraphTarget, check_args
@@ -74,6 +86,7 @@ from repro_torch.runtime.kvcache import (
 from repro_torch.runtime.scheduler import (
     CHUNK_BUCKET_MIN,
     Clock,
+    ContinuousBatcher,
     PagedContinuousBatcher,
     Request,
     RequestQueue,
@@ -138,7 +151,8 @@ class _WarmCtx:
     """State threaded through one warmup pass: the batcher's speculation
     opt-in and a throwaway generator, so warmup consumes none of the
     batcher's draws. The dummy runs write into the engine's own caches:
-    the pools' null page only, the draft cache's rows at position 0."""
+    the pools' null page only, the dense caches' rows at position 0 (and a
+    mamba slot's state)."""
 
     generator: torch.Generator
     spec: bool = False
@@ -181,8 +195,8 @@ class _GraphStep:
 
 
 class Engine:
-    """Single-device engine: the per-burst engine and the paged serving
-    lanes."""
+    """Single-device engine: the per-burst engine and the dense and paged
+    serving lanes."""
 
     def __init__(
         self,
@@ -242,6 +256,7 @@ class Engine:
         self.stats = {"tokens": 0, "hot_calls": 0, "mode_switches": 0}
         # the engine's own state, which graph targets are captured over
         self._paged_caches: dict = {}  # kv_dtype -> page pool
+        self._dense_caches: dict = {}  # slots -> dense target cache
         self._draft_caches: dict = {}  # (slots, draft dtype) -> dense cache
         self._burst_caches: dict = {}  # batch bucket -> dense cache
         # one memory pool for every graph (they never run concurrently)
@@ -355,6 +370,50 @@ class Engine:
             noise_rows=batch if mode else 0, chain={2: 0, 3: 1},
         )
 
+    def _build_slot_decode(self, slots: int) -> Callable:
+        """Branch target for ``("cb", slots)``: the dense continuous decode
+        step over the engine's dense cache of ``slots`` rows, every slot at
+        its own position, sampling params as data (DESIGN.md §4). The next
+        token and positions feed its next call."""
+        step = steps_mod.make_slot_decode_fn(
+            self.cfg, attn_impl=self.ecfg.attn_impl
+        )
+        i32 = torch.int32
+        return self._target(
+            lanes_mod.CB.key(slots), step, {
+                "tok": ((slots, 1), i32), "pos": ((slots,), i32),
+                "active": ((slots,), torch.bool),
+                **self._sampling_rows(slots),
+            }, self.dense_cache(slots), dtype_of(self.cfg), noise_rows=slots,
+            chain={3: 0, 2: 1},
+        )
+
+    def _build_slot_prefill(self, slots: int, chunk_bucket: int) -> Callable:
+        """Branch target for ``("pfd", slots, chunk_bucket)``: batched
+        chunked prefill into the dense cache (DESIGN.md §10) — a slot's rows
+        are a trivial identity block table, so the chunk-bucket machinery of
+        the paged lane serves both engines."""
+        step = steps_mod.make_slot_prefill_fn(
+            self.cfg, attn_impl=self.ecfg.attn_impl
+        )
+        return self._target(
+            lanes_mod.PFD.key(slots, chunk_bucket), step,
+            self._dense_chunk_rows(slots, chunk_bucket),
+            self.dense_cache(slots), dtype_of(self.cfg), noise_rows=slots,
+        )
+
+    def _build_slot_verify(self, slots: int, k: int) -> Callable:
+        """Branch target for ``("vfd", slots, k)``: the dense verify pass
+        (DESIGN.md §11), K+1 window rows through the dense chunk path."""
+        step = steps_mod.make_slot_verify_fn(
+            self.cfg, attn_impl=self.ecfg.attn_impl
+        )
+        return self._target(
+            lanes_mod.VFD.key(slots, k), step,
+            self._dense_chunk_rows(slots, k + 1), self.dense_cache(slots),
+            dtype_of(self.cfg), noise_rows=slots,
+        )
+
     def _build_paged_slot_decode(
         self, slots: int, pages_bucket: int, kv_dtype: str
     ) -> Callable:
@@ -383,6 +442,14 @@ class Engine:
     def _sampling_rows(slots: int) -> dict:
         return {"temps": ((slots,), torch.float32),
                 "greedy": ((slots,), torch.bool)}
+
+    def _dense_chunk_rows(self, slots: int, width: int) -> dict:
+        """The dense chunk lanes' inputs (``pfd``, ``vfd``, ``drp``)."""
+        i32 = torch.int32
+        return {
+            "tok": ((slots, width), i32), "start": ((slots,), i32),
+            "length": ((slots,), i32), **self._sampling_rows(slots),
+        }
 
     def _chunk_rows(self, slots: int, width: int) -> dict:
         """The paged chunk lanes' inputs: the block table is pinned at the
@@ -428,7 +495,9 @@ class Engine:
         decode steps looped inside one target (DESIGN.md §11), so depth
         variation re-dispatches on the cold path; the draft cache's dtype is
         its own coordinate (DESIGN.md §16)."""
-        step = steps_mod.make_draft_fn(self.draft_cfg, k=k)
+        step = steps_mod.make_draft_fn(
+            self.draft_cfg, k=k, attn_impl=self.ecfg.attn_impl
+        )
         i32 = torch.int32
         return self._target(
             lanes_mod.DR.key(slots, k, draft_kv_dtype), step, {
@@ -445,13 +514,13 @@ class Engine:
         """Branch target for ``("drp", slots, chunk_bucket,
         draft_kv_dtype)``: the draft's prompt mirror — chunked dense
         ingestion over the draft view, so its cache tracks the prompts."""
-        step = steps_mod.make_slot_prefill_fn(self.draft_cfg)
-        i32 = torch.int32
+        step = steps_mod.make_slot_prefill_fn(
+            self.draft_cfg, attn_impl=self.ecfg.attn_impl
+        )
         return self._target(
-            lanes_mod.DRP.key(slots, chunk_bucket, draft_kv_dtype), step, {
-                "tok": ((slots, chunk_bucket), i32), "start": ((slots,), i32),
-                "length": ((slots,), i32), **self._sampling_rows(slots),
-            }, self.draft_cache(slots, draft_kv_dtype),
+            lanes_mod.DRP.key(slots, chunk_bucket, draft_kv_dtype), step,
+            self._dense_chunk_rows(slots, chunk_bucket),
+            self.draft_cache(slots, draft_kv_dtype),
             self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
             params=self.draft_params, noise_rows=slots,
         )
@@ -466,6 +535,17 @@ class Engine:
                 kv_dtype, device=self.device,
             )
         return self._paged_caches[kv_dtype]
+
+    def dense_cache(self, slots: int) -> list:
+        """The dense continuous engine's cache of ``slots`` rows of
+        ``max_len`` (model dtype), created on first use: every ``cb``,
+        ``pfd`` and ``vfd`` target of that slot count is bound to it, and
+        ``continuous`` hands it to its batcher."""
+        if slots not in self._dense_caches:
+            self._dense_caches[slots] = models.init_cache(
+                self.cfg, slots, self.ecfg.max_len, device=self.device
+            )
+        return self._dense_caches[slots]
 
     def draft_cache(self, slots: int, draft_kv_dtype: str) -> list:
         """The draft view's dense cache for ``slots`` rows of
@@ -564,14 +644,40 @@ class Engine:
             )
         )
 
+    def _attention_only(self) -> bool:
+        return all(self.cfg.mixer_at(slot).startswith("attn")
+                   for slot in range(self.cfg.period))
+
     def _supports_chunked_prefill(self, ctx: Any = None) -> bool:
-        """The ``pf`` lane's gate (``LaneSpec.enabled``): a chunk size set."""
-        return self.ecfg.prefill_chunk > 0
+        """The ``pf``/``pfd`` lanes' gate (``LaneSpec.enabled``): a chunk
+        size set, and an attention-only stack (an SSM slot's recurrent
+        state would need a per-chunk scan)."""
+        return self.ecfg.prefill_chunk > 0 and self._attention_only()
 
     def _supports_spec_decode(self) -> bool:
-        """Speculation needs a draft depth (the port's stacks are
-        attention-only, which the verify lane's chunk path requires)."""
-        return self.ecfg.spec_k > 0
+        """Speculation needs a draft depth and, since the verify lane rides
+        the chunk path, an attention-only stack."""
+        return self.ecfg.spec_k > 0 and self._attention_only()
+
+    def _check_dense_view(self, cfg: ArchConfig) -> None:
+        """With ``attn_impl="kernel"`` per-row dense attention runs B1-B4
+        over the cache's page view (``models.dense_page_view``): raise
+        ``ValueError`` at build, naming the shape, where no kernel takes it
+        — a ``max_len`` with no page view, or on the card a head_dim with
+        no instantiation. Never a quiet plain path."""
+        if self.ecfg.attn_impl != "kernel" or not any(
+            cfg.mixer_at(slot).startswith("attn") for slot in range(cfg.period)
+        ):
+            return
+        models.dense_page_size(self.ecfg.max_len)
+        if self.device.type == "cuda" and (
+            cfg.head_dim not in kernel_build.HEAD_DIMS
+        ):
+            raise ValueError(
+                f"{cfg.name}: head_dim={cfg.head_dim} has no paged kernel "
+                f"(instantiated: head_dim {kernel_build.HEAD_DIMS}); the dense "
+                f"cache's attention cannot run on the card"
+            )
 
     def _spec_lanes_enabled(self, ctx: "_WarmCtx") -> bool:
         """The draft/verify lanes' gate: the batcher's opt-in and support."""
@@ -589,6 +695,31 @@ class Engine:
             torch.ones(s, dtype=torch.float32, device=self.device),
             torch.ones(s, dtype=torch.bool, device=self.device),
         )
+
+    def _warm_cb(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
+        _, s = key
+        out = exe(
+            self.dense_cache(s), self._zeros(s, 1), self._zeros(s),
+            self._zeros(s, dtype=torch.bool), *self._warm_sampling(s),
+            ctx.generator,
+        )
+        steps_mod.pull_host(out[4])
+
+    def _warm_pfd(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
+        _, s, cb = key
+        nxt, _ = exe(
+            self.dense_cache(s), self._zeros(s, cb), self._zeros(s),
+            self._zeros(s), *self._warm_sampling(s), ctx.generator,
+        )
+        steps_mod.pull_host(nxt)
+
+    def _warm_vfd(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
+        _, s, k = key
+        out = exe(
+            self.dense_cache(s), self._zeros(s, k + 1), self._zeros(s),
+            self._zeros(s), *self._warm_sampling(s), ctx.generator,
+        )
+        steps_mod.pull_host(out[3])
 
     def _warm_cbp(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, pb, dt = key
@@ -809,6 +940,8 @@ class Engine:
             (ecfg.spec_k > 0 if spec_decode is None else spec_decode)
             and self._supports_spec_decode()
         )
+        if use_spec:
+            self._check_dense_view(self.draft_cfg)
         pool = PagePool(
             self.pool_pages, ecfg.page_size, kv_dtype=dt,
             telemetry=self.telemetry,
@@ -839,7 +972,9 @@ class Engine:
         draft_dispatch = verify_dispatch = draft_prefill_dispatch = None
         if use_spec:
             draft_dispatch, verify_dispatch, draft_prefill_dispatch = (
-                self._spec_dispatchers(s, dt, ddt)
+                self._spec_dispatchers(
+                    s, ddt, lambda k: lanes_mod.VF.key(s, k, dt)
+                )
             )
 
         # pre-bind the hot slot to the smallest bucket (already warmed)
@@ -865,16 +1000,18 @@ class Engine:
             spec_k=ecfg.spec_k if use_spec else 0,
         )
 
-    def _spec_dispatchers(self, slots: int, kv_dtype: str, draft_kv_dtype: str):
+    def _spec_dispatchers(self, slots: int, draft_kv_dtype: str,
+                          verify_key: Callable[[int], tuple]):
         """The speculative lanes' dispatch closures over warmed keys: the
-        verify lane pins the pool dtype, the draft lanes the draft dtype."""
+        draft lanes pin the draft dtype, ``verify_key(k)`` is the engine's
+        verify key (``vf`` over its pool dtype, or ``vfd``)."""
         s = slots
 
         def draft_dispatch(k: int) -> Callable:
             return self._decode.dispatch(lanes_mod.DR.key(s, k, draft_kv_dtype))
 
         def verify_dispatch(k: int) -> Callable:
-            return self._decode.dispatch(lanes_mod.VF.key(s, k, kv_dtype))
+            return self._decode.dispatch(verify_key(k))
 
         def draft_prefill_dispatch(chunk_bucket: int) -> Callable:
             return self._decode.dispatch(
@@ -883,8 +1020,151 @@ class Engine:
 
         return draft_dispatch, verify_dispatch, draft_prefill_dispatch
 
+    # ---------------------------------------------------- dense continuous
+    def continuous(
+        self,
+        *,
+        slots: int | None = None,
+        seed: int = 0,
+        spec_decode: bool | None = None,
+        draft_kv_dtype: str | None = None,
+    ) -> ContinuousBatcher:
+        """Cold path: warm every enabled dense lane key through the registry
+        — ``cb``, ``pfd`` per chunk bucket, and with speculation ``vfd``,
+        ``dr`` and ``drp`` per k bucket and chunk bucket — over the engine's
+        dense cache of ``slots`` rows, and return a dense batcher
+        (DESIGN.md §4/§10/§11). Joins, leaves, greedy/sample flips, chunk
+        sizes and draft depths are then data or rebinds over warmed keys.
+        Sampled rows draw from a generator seeded with ``seed``;
+        ``spec_decode`` overrides ``spec_k > 0``; ``draft_kv_dtype``
+        overrides the configured draft dtype and must be in the warmed set.
+
+        The batcher starts from the state the JAX package's warmup leaves:
+        the cache zeroed, then one dummy ``cb`` step (a mamba slot's state
+        carries it, and every later step of an idle slot, into the next
+        occupant, as in the JAX package). The dummy runs of the warm pass
+        are undone first, so that state is the same on every device,
+        however many runs a capture takes."""
+        if self.cfg.input_kind != "tokens":
+            raise ValueError(
+                f"{self.cfg.name}: continuous batching feeds sampled ids "
+                f"back as inputs and needs a token-input arch."
+            )
+        s = slots or self.ecfg.max_batch
+        ddt = draft_kv_dtype or self.ecfg.draft_kv_dtype
+        if ddt not in self._warm_draft_kv_dtypes():
+            raise ValueError(
+                f"draft_kv_dtype={ddt!r} is not in the warmed set "
+                f"{self._warm_draft_kv_dtypes()}; add it to EngineConfig."
+                f"draft_kv_dtype/draft_kv_dtypes."
+            )
+        use_spec = (
+            (self.ecfg.spec_k > 0 if spec_decode is None else spec_decode)
+            and self._supports_spec_decode()
+        )
+        self._check_dense_view(self.cfg)
+        if use_spec:
+            self._check_dense_view(self.draft_cfg)
+            for d in self._warm_draft_kv_dtypes():
+                self.zero_cache(self.draft_cache(s, d))
+        cache = self.zero_cache(self.dense_cache(s))
+        warm_gen = torch.Generator(device=self.device)
+        warm_gen.manual_seed(seed)
+        ctx = _WarmCtx(generator=warm_gen, spec=use_spec)
+        self._warm_lanes("dense", s, ctx)
+        self.zero_cache(cache)
+        key = lanes_mod.CB.key(s)
+        step = self._decode.dispatch(key)  # binds the hot slot (warmed)
+        self._warm_cb(key, step, ctx)  # on the zeroed cache, see above
+
+        prefill_dispatch = None
+        if self._supports_chunked_prefill():
+
+            def prefill_dispatch(chunk_bucket: int) -> Callable:
+                return self._decode.dispatch(
+                    lanes_mod.PFD.key(s, chunk_bucket)
+                )
+
+        draft_dispatch = verify_dispatch = draft_prefill_dispatch = None
+        if use_spec:
+            draft_dispatch, verify_dispatch, draft_prefill_dispatch = (
+                self._spec_dispatchers(
+                    s, ddt, lambda k: lanes_mod.VFD.key(s, k)
+                )
+            )
+        self.mark_warm_boundary()
+        return ContinuousBatcher(
+            step=step,
+            num_slots=s,
+            max_len=self.ecfg.max_len,
+            cache=cache,
+            device=self.device,
+            seed=seed,
+            prefill_dispatch=prefill_dispatch,
+            prefill_chunk=self.ecfg.prefill_chunk,
+            telemetry=self.telemetry,
+            draft_dispatch=draft_dispatch,
+            verify_dispatch=verify_dispatch,
+            draft_prefill_dispatch=draft_prefill_dispatch,
+            draft_cache=self.draft_cache(s, ddt) if use_spec else None,
+            spec_k=self.ecfg.spec_k if use_spec else 0,
+        )
+
 
 # ----------------------------------------------------------- stream runners
+def run_continuous_stream(
+    eng: Engine,
+    requests: list[Request],
+    *,
+    slots: int | None = None,
+    seed: int = 0,
+    clock: Clock | None = None,
+) -> dict:
+    """Drive a request stream through the dense continuous engine; return a
+    report with the JAX package's keys (its mesh and async keys left out).
+
+    The acceptance metric is ``compiles_after_warmup`` (on the card:
+    captures after warmup): 0 for any mix of greedy and sampled requests,
+    prompt lengths and draft depths once ``continuous`` has warmed."""
+    cb = eng.continuous(slots=slots, seed=seed)  # warmup first...
+    clock = clock or Clock()  # ...so served latencies exclude it
+    q = RequestQueue(requests)
+    finished: list[Request] = []
+    while q or cb.has_work:
+        now = clock.now()
+        due = q.pop_due(now, limit=cb.free_slots)
+        if due:
+            cb.admit(due, now=now)
+        if cb.has_work:
+            finished.extend(cb.step(now=clock.now()))
+        else:
+            nxt = q.next_arrival()
+            if nxt is None:
+                break
+            clock.jump_to(nxt)  # idle: fast-forward to the next arrival
+    report = latency_report(finished, batcher=cb)
+    report.update(
+        engine="continuous",
+        device=str(eng.device),
+        attn_impl=eng.ecfg.attn_impl,
+        cuda_graphs=eng.graphs,
+        slots=cb.num_slots,
+        steps=cb.stats.steps,
+        occupancy=round(cb.stats.occupancy, 4),
+        prefill_chunk=cb.prefill_chunk,
+        prompt_tokens=cb.stats.prompt_tokens,
+        prefill_chunks=cb.stats.prefill_chunks,
+        chunk_bucket_crossings=cb.stats.chunk_bucket_crossings,
+        h2d_uploads=cb.stats.h2d_uploads,
+        spec_k=cb.spec_k,
+        k_bucket_crossings=cb.stats.k_bucket_crossings,
+        compiles_total=eng._decode.stats.misses,
+        compiles_after_warmup=eng.post_warmup_compiles,
+        rebinds=eng.post_warmup_rebinds,
+    )
+    return report
+
+
 def run_burst_stream(
     eng: Engine,
     requests: list[Request],

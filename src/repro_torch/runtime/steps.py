@@ -1,5 +1,5 @@
-"""Step builders for the paged serving lanes, the speculative lanes, the
-per-burst engine and full-sequence prefill (counterpart of
+"""Step builders for the dense and paged serving lanes, the speculative
+lanes, the per-burst engine and full-sequence prefill (counterpart of
 ``repro.runtime.steps``).
 
 A step is a plain function over tensors; ``runtime.serve.Engine`` binds it to
@@ -129,6 +129,30 @@ def make_prefill_fn(cfg: ArchConfig, *, impl: str = "kernel") -> Callable:
     return prefill_step
 
 
+def make_slot_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel") -> Callable:
+    """Dense continuous-batching decode step, the ``("cb", slots)`` key
+    (DESIGN.md §4): sampling params are data, not code.
+
+        step(params, cache, tok[S,1], pos[S], active[S], temps[S],
+             greedy[S], u[S,V])
+          -> (next_tok[S], cache, new_pos[S], tok_col[S,1], packed[S,2])
+
+    Each slot sits at its own depth ``pos`` of the dense per-slot cache;
+    inactive slots still compute (fixed shapes) but their positions do not
+    advance. The uniform noise ``u`` takes the place of the JAX package's
+    per-slot keys (module docstring)."""
+
+    def slot_step(params, cache, tok, pos, active, temps, greedy, u):
+        logits, cache = models.decode_step(
+            cfg, params, cache, tok, pos, attn_impl=attn_impl
+        )
+        nxt = _sample_rows(logits, temps, greedy, u)
+        new_pos = pos + active.to(torch.int32)
+        return (nxt, cache, new_pos, *_step_bundle(nxt, new_pos))
+
+    return slot_step
+
+
 def make_paged_slot_decode_fn(
     cfg: ArchConfig, *, attn_impl: str = "kernel"
 ) -> Callable:
@@ -217,7 +241,34 @@ def make_paged_verify_fn(
     return verify_step
 
 
-def make_draft_fn(draft_cfg: ArchConfig, *, k: int) -> Callable:
+def make_slot_verify_fn(
+    cfg: ArchConfig, *, attn_impl: str = "kernel"
+) -> Callable:
+    """Verify lane over the dense per-slot cache, the ``("vfd", slots,
+    k_bucket)`` key (DESIGN.md §11):
+
+        step(params, cache, tok[S,K+1], start[S], length[S], temps[S],
+             greedy[S], u[S,V])
+          -> (rows[S,K+1], next0[S], cache, packed[S,K+2])
+
+    ``make_paged_verify_fn`` without block tables: a dense slot's cache
+    rows are a trivial identity block table, so both engines share the
+    accept/rollback contract (columns >= ``length`` write nothing)."""
+
+    def verify_step(params, cache, tok, start, length, temps, greedy, u):
+        logits, cache = models.chunked_verify_step(
+            cfg, params, cache, tok, start, length, attn_impl=attn_impl,
+        )
+        rows = logits.argmax(dim=-1).to(torch.int32)
+        nxt0 = _sample_rows(logits[:, 0], temps, greedy, u)
+        return rows, nxt0, cache, pack_verify_d2h(rows, nxt0)
+
+    return verify_step
+
+
+def make_draft_fn(
+    draft_cfg: ArchConfig, *, k: int, attn_impl: str = "kernel"
+) -> Callable:
     """Draft lane (DESIGN.md §11): K greedy candidates per slot in one
     branch target, the ``("dr", slots, k_bucket, draft_kv_dtype)`` key:
 
@@ -225,18 +276,21 @@ def make_draft_fn(draft_cfg: ArchConfig, *, k: int) -> Callable:
           -> (drafts[S,K], draft_cache, new_pos[S])
 
     ``draft_cfg``/``draft_params`` are the truncated-layer view
-    (``models.draft_view``), ``draft_cache`` its dense per-slot cache. The K
-    decode steps loop inside the target, so k is fixed when it is built;
-    each step feeds the previous candidate back and writes the draft's KV
-    at the advancing position (the scheduler later rewinds ``pos`` as data
-    and the next round overwrites a rejected tail). Candidates are greedy,
-    as the JAX package's scheduler forces them, so the draft takes no noise
-    and sampled streams are untouched."""
+    (``models.draft_view``), ``draft_cache`` its dense per-slot cache,
+    attended by B1 (B3 on an int8 cache) over its page view with
+    ``attn_impl="kernel"``. The K decode steps loop inside the target, so k
+    is fixed when it is built; each step feeds the previous candidate back
+    and writes the draft's KV at the advancing position (the scheduler
+    later rewinds ``pos`` as data and the next round overwrites a rejected
+    tail). Candidates are greedy, as the JAX package's scheduler forces
+    them, so the draft takes no noise and sampled streams are untouched."""
 
     def draft_step(params, cache, tok, pos, active):
         drafts = []
         for _ in range(k):
-            logits, cache = models.decode_step(draft_cfg, params, cache, tok, pos)
+            logits, cache = models.decode_step(
+                draft_cfg, params, cache, tok, pos, attn_impl=attn_impl
+            )
             nxt = logits.argmax(dim=-1).to(torch.int32)
             drafts.append(nxt)
             tok = nxt[:, None]
@@ -246,9 +300,12 @@ def make_draft_fn(draft_cfg: ArchConfig, *, k: int) -> Callable:
     return draft_step
 
 
-def make_slot_prefill_fn(cfg: ArchConfig) -> Callable:
-    """Chunked prefill into the dense per-slot cache (DESIGN.md §10) — the
-    draft's prompt mirror, the ``("drp", slots, chunk_bucket,
+def make_slot_prefill_fn(
+    cfg: ArchConfig, *, attn_impl: str = "kernel"
+) -> Callable:
+    """Chunked prefill into the dense per-slot cache (DESIGN.md §10): the
+    dense engine's prompt path, the ``("pfd", slots, chunk_bucket)`` key,
+    and the draft's prompt mirror, the ``("drp", slots, chunk_bucket,
     draft_kv_dtype)`` key:
 
         step(params, cache, tok[S,CB], start[S], length[S], temps[S],
@@ -256,12 +313,15 @@ def make_slot_prefill_fn(cfg: ArchConfig) -> Callable:
           -> (next_tok[S], cache)
 
     Every slot carries its own chunk window (``length`` 0 = idle row,
-    writes nothing). The batcher discards ``next_tok`` and hands this lane a
-    generator of its own, so the mirror never moves the sampled streams."""
+    writes nothing); attention is B2 (B4 on an int8 cache) over the
+    cache's page view with ``attn_impl="kernel"``. ``next_tok`` is sampled
+    from each row's last real chunk token; the mirror discards it and
+    samples from a generator of its own, so it never moves the sampled
+    streams."""
 
     def slot_prefill_step(params, cache, tok, start, length, temps, greedy, u):
         logits, cache = models.chunked_decode_step(
-            cfg, params, cache, tok, start, length
+            cfg, params, cache, tok, start, length, attn_impl=attn_impl
         )
         return _sample_rows(logits, temps, greedy, u), cache
 

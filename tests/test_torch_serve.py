@@ -135,7 +135,9 @@ def test_unknown_lane_raises(smoke):
     _, tcfg, _, tparams = smoke
     with Engine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu") as eng:
         with pytest.raises(UnknownLaneError):
-            eng._build(("cb", 4))
+            eng._build(("cbx", 4))  # no such lane
+        with pytest.raises(UnknownLaneError):
+            eng._build(("cb", 4, 16))  # cb takes the slot count alone
         with pytest.raises(UnknownLaneError):
             eng._build(("cbp", 4))  # missing the pages_bucket coordinate
         with pytest.raises(UnknownLaneError):
