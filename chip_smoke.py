@@ -29,7 +29,11 @@ Phases (any failure exits non-zero before a result is printed):
    boundaries, short rows beside a 64-page row; B5 on the same body over a
    dense cache at every split count 1-8, groups 1, 5 and 16, dh 16 and 128,
    every mode, positions 0, 15, 16, the last row and one whose window
-   crosses a 16-row block.
+   crosses a 16-row block; B1-B7 in fp32 at head_dim 64 (hft-demo's 4/4
+   heads, every mode), bf16 at head_dim 64 refused by every wrapper; B1-B4
+   on 512-page tables (gemma2-27b's max_len 8192 at page 16) at positions
+   past a 4096 window. Phase 1 also checks the head_dim-64 instantiations'
+   ptxas report: 65 of them, no spills.
 3. The serving paths: olmo-1b at full width (bf16, seeded random weights)
    serving a shared-prefix stream through ``run_paged_stream`` with chunked
    prefill — first on bf16 pages (B1/B2), then on int8 pages with
@@ -102,6 +106,27 @@ Phases (any failure exits non-zero before a result is printed):
    one PyTorch library call where one exists (a yardstick the port never
    calls) and the bound, and the B7 / B6 time ratio per mode.
 
+8. The rest of the dense model path at full width, one model at a time,
+   weights seeded on the card (init peak: the weights and one f32 slab):
+   qwen3-14b (bf16, 40 heads over 8: a GQA group of 5) on phase 3's
+   paged bf16 cell, dense cell (a) and burst cell; gemma2-27b (bf16, local
+   layers of window 4096 and global ones, softcaps 50 and 30) on 2 slots of
+   8192 with two 5000-token prompts through the paged and dense engines
+   and on the burst cell; hft-demo (fp32, head_dim 64, window 128) on
+   prompts of 200 and bursts of ~200 tokens. Each engine's stream runs
+   through graph targets (counts set to 0 just before, read after, each
+   held to one launch per attention layer per lane call from the targets'
+   replays) and again eager under one step clock (captures after warmup 0,
+   or the burst keys; greedy tokens equal or a near-tie); peak memory
+   against the reckoned weight and KV bytes. gemma2-27b and hft-demo then
+   ``prefill`` (B6) past their windows and take one paged decode step
+   (B1) with the kernels and with the plain attention (within
+   ``STEP_LOGIT_ATOL`` / ``FP32_LOGIT_ATOL``), and with the window off
+   (farther apart: the window masks); hft-demo's paged stream card = CPU.
+   Then B1, B2, B5 and B6 timed at the new shapes (group 5, window 4096
+   past it, fp32 head_dim 64) beside their plain versions, SDPA and bounds,
+   in each kernel's ``new_shapes``.
+
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
 """
@@ -139,6 +164,9 @@ KERNEL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # logits of order 1. (On int8 pages both compute in fp32 and round the
 # attention output to bf16, so they agree more closely.)
 STEP_LOGIT_ATOL = 0.25
+# The same for fp32 models (hft-demo: 4 layers): the kernels and the plain
+# attention sum in other orders, 10x the fp32 kernel tolerance on logits.
+FP32_LOGIT_ATOL = 1e-3
 # Near-tie margin: a greedy stream may flip where the top-2 logits of the
 # reference run lie closer than this (float reassociation).
 TIE_MARGIN = 1e-4
@@ -198,23 +226,39 @@ def setup() -> None:
         f"{max(r for r, _ in pf.values())}, spill stores max {spill} B")
     check(spill == 0, f"the tensor-core paged prefill body spills {spill} B")
     sp = _ptxas_by_kernel(info["log"], "paged_decode_split")
-    check(len(sp) == 128, f"expected 128 cluster-split paged decode "
-          f"instantiations (B1, B3 x 2 query types x head_dim 16/128 x pages "
-          f"8/16 x 4 modes x R 1/4), the build log has {len(sp)}")
+    check(len(sp) == 160, f"expected 160 cluster-split paged decode "
+          f"instantiations (B1, B3 x (2 query types x head_dim 16/128 + fp32 "
+          f"at 64) x pages 8/16 x 4 modes x R 1/4), the build log has "
+          f"{len(sp)}")
     spill = max(s_ for _, s_ in sp.values())
     log(f"[setup] cluster-split paged decode body (B1, B3): registers "
         f"{min(r for r, _ in sp.values())}..{max(r for r, _ in sp.values())}"
         f", spill stores max {spill} B")
     check(spill == 0, f"the cluster-split paged decode body spills {spill} B")
     dn = _ptxas_by_kernel(info["log"], "dense_decode_split")
-    check(len(dn) == 32, f"expected 32 cluster-split dense decode "
-          f"instantiations (B5 x 2 types x head_dim 16/128 x 4 modes x R "
-          f"1/4), the build log has {len(dn)}")
+    check(len(dn) == 40, f"expected 40 cluster-split dense decode "
+          f"instantiations (B5 x (2 types x head_dim 16/128 + fp32 at 64) x "
+          f"4 modes x R 1/4), the build log has {len(dn)}")
     spill = max(s_ for _, s_ in dn.values())
     log(f"[setup] cluster-split dense decode body (B5): registers "
         f"{min(r for r, _ in dn.values())}..{max(r for r, _ in dn.values())}"
         f", spill stores max {spill} B")
     check(spill == 0, f"the cluster-split dense decode body spills {spill} B")
+    # head_dim 64 (a template argument "Li64E" in the mangled names; B8's
+    # P 64 excluded): fp32 only, on every CUDA-core body
+    dh64 = {k: v for body in ("paged_decode_split", "dense_decode_split",
+                              "paged_prefill_kernel", "flash_simt")
+            for k, v in _ptxas_by_kernel(info["log"], body).items()
+            if "Li64E" in k}
+    check(len(dh64) == 32 + 8 + 16 + 9,
+          f"expected 65 head_dim-64 instantiations (B1/B3 32, B5 8, B2/B4 16, "
+          f"B6 8 + B7 1), the build log has {len(dh64)}")
+    spill = max(s_ for _, s_ in dh64.values())
+    log(f"[setup] head_dim 64, fp32 (B1/B3, B5, B2/B4, B6/B7 on CUDA cores): "
+        f"{len(dh64)} instantiations, registers "
+        f"{min(r for r, _ in dh64.values())}.."
+        f"{max(r for r, _ in dh64.values())}, spill stores max {spill} B")
+    check(spill == 0, f"a head_dim-64 instantiation spills {spill} B")
     ssd = _ptxas_by_kernel(info["log"], "ssd_chunk_tc")
     check(len(ssd) == 1, f"expected one tensor-core SSD instantiation (B8, "
           f"bf16 at 256/64/128), the build log has {len(ssd)}")
@@ -279,9 +323,11 @@ def _kernel_inputs(heads, kv_heads, dh, ps, dtype, *, chunk, seed, int8=False):
 def kernels_vs_plain() -> None:
     from repro_torch import kernels
 
-    # group 16 splits a decode block's query heads over two row tiles
+    # group 16 splits a decode block's query heads over two row tiles;
+    # hft-demo's heads of 64 are fp32 only (bf16 at 64 is refused)
     shapes = {"olmo-1b": (16, 16, 128, 16), "gqa-40/8": (40, 8, 128, 16),
-              "gqa-32/2": (32, 2, 128, 16), "smoke": (4, 2, 16, 8)}
+              "gqa-32/2": (32, 2, 128, 16), "smoke": (4, 2, 16, 8),
+              "hft-demo": (4, 4, 64, 16)}
     modes = [(None, None), (24, None), (None, 2.0), (24, 2.0)]
     worst = {}
     for kname, fn, plain, chunk, int8 in (
@@ -295,7 +341,7 @@ def kernels_vs_plain() -> None:
          kernels.paged_prefill_attention_int8_plain, 8, True),
     ):
         for sname, (h, kh, dh, ps) in shapes.items():
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in _dtypes(dh):
                 for window, cap in modes:
                     q, kp, vp, bt, pos = _kernel_inputs(
                         h, kh, dh, ps, dtype, chunk=chunk, seed=len(worst),
@@ -318,7 +364,7 @@ def kernels_vs_plain() -> None:
                           f"{tag}: max abs err {err:.3g} > "
                           f"{KERNEL_ATOL[dtype]}")
     for sname, (h, kh, dh, _) in shapes.items():
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in _dtypes(dh):
             worst.update(_dense_cases(f"{sname}/{str(dtype)[6:]}", h, kh, dh,
                                       dtype, seed=len(worst)))
         if dh == 128:  # the tensor-core body's edges: tails, Sq != Sk
@@ -329,6 +375,8 @@ def kernels_vs_plain() -> None:
     worst.update(_prefill_tc_cases())
     worst.update(_decode_split_cases())
     worst.update(_dense_split_cases())
+    worst.update(_long_table_cases())
+    _bf16_dh64_refused()
     for dtype in ("float32", "bfloat16"):
         errs = {k: v for k, v in worst.items() if f"/{dtype}" in k}
         log(f"[kernels] {len(errs)} {dtype} cases pass, max abs err "
@@ -355,12 +403,116 @@ def kernels_vs_plain() -> None:
         f"bf16): {len(sp)} cases, max abs err fp32 "
         f"{max(v for k, v in sp.items() if k.endswith('float32')):.3g}, "
         f"bf16 {max(v for k, v in sp.items() if k.endswith('bfloat16')):.3g}")
+    dh64 = {k: v for k, v in worst.items() if "hft-demo" in k}
+    log(f"[kernels] fp32 head_dim 64 (hft-demo's 4/4 heads, page 16): "
+        f"B1-B4 x 4 modes, B5 x 3 positions x 4 modes, B6/B7 x 8 modes: "
+        f"{len(dh64)} cases, max abs err {max(dh64.values()):.3g} "
+        f"(tolerance {KERNEL_ATOL[torch.float32]}); bf16 at head_dim 64 "
+        f"refused by B1-B7, naming B9 part 2")
+    long = {k: v for k, v in worst.items() if k.startswith("long/")}
+    log(f"[kernels] {LONG_PAGES}-page tables (gemma2-27b's 32/16 heads of "
+        f"128, bf16, page 16, window 4096 and softcap 50 on and off, "
+        f"positions past 4096): B1-B4, {len(long)} cases, max abs err "
+        f"{max(long.values()):.3g}")
     for kname in ("prefill", "prefill_int8"):
         tc = {k: v for k, v in worst.items() if k.startswith(f"tc_{kname}/")}
         log(f"[kernels] tensor-core {kname} edges (chunks {TC_CHUNKS}, groups "
             f"{TC_GROUPS}, pages 8/16, 4 modes, window {TC_WINDOW}, starts off "
             f"page boundaries): {len(tc)} cases, max abs err "
             f"{max(tc.values()):.3g}")
+
+
+def _dtypes(dh: int) -> tuple:
+    """The query types B1-B7 are instantiated for at ``dh``."""
+    from repro_torch.kernels import build
+
+    return tuple(dt for dt in (torch.float32, torch.bfloat16)
+                 if dh in build.HEAD_DIMS[dt])
+
+
+def _bf16_dh64_refused() -> None:
+    """bf16 at head_dim 64 raises in every wrapper of B1-B7, naming the
+    tensor-core bodies' missing instantiations: no CUDA-core fallback."""
+    from repro_torch import kernels
+
+    q, kp, vp, bt, pos = _kernel_inputs(4, 4, 64, 16, torch.bfloat16,
+                                        chunk=0, seed=0)
+    qc = _kernel_inputs(4, 4, 64, 16, torch.bfloat16, chunk=8, seed=0)[0]
+    (kq, ks), (vq, vs) = _quantised(kp.float()), _quantised(vp.float())
+    dk, dv = kp.view(4, -1, 4, 64).transpose(1, 2), vp.view(
+        4, -1, 4, 64).transpose(1, 2)
+    p0 = torch.tensor(5, dtype=torch.int32, device="cuda")
+    flags = torch.tensor([1, 0, 0], dtype=torch.int32, device="cuda")
+    full = qc.transpose(1, 2)
+    calls = {
+        "B1": lambda: kernels.paged_decode_attention(q, kp, vp, bt, pos),
+        "B2": lambda: kernels.paged_prefill_attention(qc, kp, vp, bt, pos),
+        "B3": lambda: kernels.paged_decode_attention_int8(
+            q, kq, vq, ks, vs, bt, pos),
+        "B4": lambda: kernels.paged_prefill_attention_int8(
+            qc, kq, vq, ks, vs, bt, pos),
+        "B5": lambda: kernels.decode_attention(q, dk, dv, p0),
+        "B6": lambda: kernels.flash_attention(full, full, full),
+        "B7": lambda: kernels.flash_attention_branchy(full, full, full, flags),
+    }
+    before = {k.__name__: k.launches for k in kernels.KERNELS}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            check("B9 part 2" in str(e), f"{name} bf16 head_dim 64: {e}")
+        else:
+            raise AssertionError(f"{name} ran bf16 at head_dim 64")
+    check(before == {k.__name__: k.launches for k in kernels.KERNELS},
+          "a refused bf16 head_dim-64 call counted a launch")
+
+
+# B1-B4 over block tables of gemma2-27b's max_len 8192 at page 16: rows of
+# 512 pages, positions past its 4096 window.
+LONG_PAGES = 512
+
+
+def _long_table_cases() -> dict:
+    """B1-B4 (bf16, 32/16 heads of 128, page 16) against their plain
+    versions on 512-page tables: 2 rows whose pages are scattered over a
+    pool of 1025, decode at positions 5000 and 8191, chunks of 64 from 5000
+    and 8128; window 4096 and softcap 50 on and off."""
+    from repro_torch import kernels
+
+    errs, h, kh, dh, ps = {}, 32, 16, 128, 16
+    g = torch.Generator().manual_seed(512)
+    n_pages = 2 * LONG_PAGES + 1
+    kp = torch.randn(n_pages, ps, kh, dh, generator=g).to("cuda")
+    vp = torch.randn(n_pages, ps, kh, dh, generator=g).to("cuda")
+    (kq, ks), (vq, vs) = _quantised(kp), _quantised(vp)
+    kb, vb = kp.bfloat16(), vp.bfloat16()
+    bt = (torch.randperm(n_pages - 1, generator=g) + 1).view(2, LONG_PAGES)
+    bt = bt.to(torch.int32).to("cuda")
+    pos = torch.tensor([5000, 8191], dtype=torch.int32, device="cuda")
+    start = torch.tensor([5000, 8128], dtype=torch.int32, device="cuda")
+    q1 = torch.randn(2, h, dh, generator=g).to("cuda", torch.bfloat16)
+    qc = torch.randn(2, 64, h, dh, generator=g).to("cuda", torch.bfloat16)
+    for window, cap in ((None, None), (4096, None), (None, 50.0),
+                        (4096, 50.0)):
+        kw = dict(window=window, softcap=cap)
+        for kname, fn, plain, q, at, pages, ref_pages in (
+            ("decode", kernels.paged_decode_attention,
+             kernels.paged_decode_attention_plain, q1, pos, (kb, vb),
+             (kb.float(), vb.float())),
+            ("prefill", kernels.paged_prefill_attention,
+             kernels.paged_prefill_attention_plain, qc, start, (kb, vb),
+             (kb.float(), vb.float())),
+            ("decode_int8", kernels.paged_decode_attention_int8,
+             kernels.paged_decode_attention_int8_plain, q1, pos,
+             (kq, vq, ks, vs), (kq, vq, ks, vs)),
+            ("prefill_int8", kernels.paged_prefill_attention_int8,
+             kernels.paged_prefill_attention_int8_plain, qc, start,
+             (kq, vq, ks, vs), (kq, vq, ks, vs)),
+        ):
+            _held(errs, f"long/{kname}/w={window}/cap={cap}/bfloat16",
+                  fn(q, *pages, bt, at, **kw),
+                  plain(q.float(), *ref_pages, bt, at, **kw), torch.bfloat16)
+    return errs
 
 
 # B2/B4's tensor-core body (bf16, dh 128): chunks of one token, the verify
@@ -627,6 +779,46 @@ def _check_stream(label: str, cfg, reqs, rep: dict) -> None:
               f"{label} rid {r.rid}: token outside the vocabulary")
 
 
+def _shared_prefix_traffic(cfg) -> list:
+    """The bf16 and int8+spec cells' stream: 16 Poisson requests at 20
+    req/s over 4 shared 128-token prefixes, tokens mean 16, a quarter
+    sampled."""
+    from repro_torch.runtime.scheduler import shared_prefix_arrivals
+
+    return shared_prefix_arrivals(
+        16, 20.0, seed=0, num_prefixes=4, prefix_len=128, tokens_mean=16,
+        total_max=1024, sample_frac=0.25, vocab=cfg.vocab_size)
+
+
+def _burst_traffic(cfg, tokens_mean: int = 16) -> list:
+    """The burst cell's stream: 16 prompt-less Poisson requests at 20 req/s,
+    a quarter sampled."""
+    from repro_torch.runtime.scheduler import poisson_arrivals
+
+    return poisson_arrivals(16, 20.0, seed=0, tokens_mean=tokens_mean,
+                            tokens_max=1024, sample_frac=0.25,
+                            vocab=cfg.vocab_size)
+
+
+def _continuous_traffic(cfg, prompt_len: int = 128) -> list:
+    """16 requests, Poisson 20 req/s, tokens mean 16, a quarter sampled,
+    with distinct prompts of ``prompt_len`` tokens (none for 0), drawn as
+    the launcher's ``make_requests`` draws them for ``--max-len 1024``."""
+    from repro_torch.runtime.scheduler import (
+        attach_distinct_prompts,
+        poisson_arrivals,
+    )
+
+    reqs = poisson_arrivals(
+        16, 20.0, seed=0, tokens_mean=16,
+        tokens_max=max(1, 1024 - max(prompt_len, 1) + 1), sample_frac=0.25,
+        vocab=cfg.vocab_size,
+    )
+    if prompt_len:
+        attach_distinct_prompts(reqs, prompt_len, vocab=cfg.vocab_size, seed=1)
+    return reqs
+
+
 def burst_stream(cfg, params, label: str = "burst",
                  expect: tuple = ("decode_attention",)) -> tuple[dict, dict]:
     """The per-burst engine at full width: Poisson traffic (the paged
@@ -635,13 +827,10 @@ def burst_stream(cfg, params, label: str = "burst",
     meets. ``expect``: the kernels of the model's decode step (none for
     mamba2, whose recurrent step is plain tensor code)."""
     from repro_torch import kernels
-    from repro_torch.runtime.scheduler import poisson_arrivals
     from repro_torch.runtime.serve import Engine, EngineConfig, run_burst_stream
 
     ecfg = EngineConfig(max_len=1024, max_batch=8, batch_quantum=4)
-    reqs = poisson_arrivals(16, 20.0, seed=0, tokens_mean=16,
-                            tokens_max=ecfg.max_len, sample_frac=0.25,
-                            vocab=cfg.vocab_size)
+    reqs = _burst_traffic(cfg)
     _release_engines()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()  # this path's run starts here
@@ -747,7 +936,6 @@ def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
 def full_width_streams() -> dict:
     from repro_torch import models
     from repro_torch.configs import get_config
-    from repro_torch.runtime.scheduler import shared_prefix_arrivals
     from repro_torch.runtime.serve import EngineConfig
 
     cfg = get_config("olmo-1b")
@@ -758,15 +946,8 @@ def full_width_streams() -> dict:
     log(f"[stream] olmo-1b {n_params / 1e9:.3f}B params bf16 initialised in "
         f"{time.perf_counter() - t0:.1f}s")
     base = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64)
-
-    def traffic():
-        return shared_prefix_arrivals(
-            16, 20.0, seed=0, num_prefixes=4, prefix_len=128, tokens_mean=16,
-            total_max=base["max_len"], sample_frac=0.25, vocab=cfg.vocab_size,
-        )
-
     _, launches = _serve(
-        "bf16", cfg, params, EngineConfig(**base), traffic(),
+        "bf16", cfg, params, EngineConfig(**base), _shared_prefix_traffic(cfg),
         ("paged_decode_attention", "paged_prefill_attention"),
     )
     by_path = {"paged bf16": dict(launches)}
@@ -774,7 +955,7 @@ def full_width_streams() -> dict:
         "int8+spec", cfg, params,
         EngineConfig(**base, kv_dtype="int8", spec_k=4, draft_layers=2,
                      draft_kv_dtype="int8"),
-        traffic(),
+        _shared_prefix_traffic(cfg),
         ("paged_decode_attention_int8", "paged_prefill_attention_int8"),
     )
     check(rep8["lane_steps"]["draft"] > 0 and rep8["lane_steps"]["verify"] > 0,
@@ -841,13 +1022,17 @@ def _card_near_tie(cfg, params, seq, a: int, b: int,
 
 
 def _paired_streams(label: str, cfg, params, ecfg: dict, traffic,
-                    kv_dtype: str = "fp32", burst: bool = False,
-                    continuous: bool = False) -> dict:
-    """One stream through graph targets and again through the eager steps
+                    engine: str = "paged", slots: int = 8,
+                    count: bool = False) -> dict:
+    """One stream of ``engine`` (``"paged"``, ``"continuous"`` or
+    ``"burst"``) through graph targets and again through the eager steps
     (``cuda_graphs=False``) on the same weights and requests, under one
     step clock: greedy tokens equal, or a request's first divergence is a
     near-tie; builds (captures) after warmup 0 on a paged or continuous
-    stream, the distinct keys met on a burst stream."""
+    stream, the distinct keys met on a burst stream. With ``count`` the
+    graph run is a main path: the kernels' counts set to 0 just before it
+    and held to its targets' replays just after (``_held_launches``)."""
+    from repro_torch import kernels
     from repro_torch.runtime.serve import (
         Engine,
         EngineConfig,
@@ -856,35 +1041,42 @@ def _paired_streams(label: str, cfg, params, ecfg: dict, traffic,
         run_paged_stream,
     )
 
+    launches = None
     runs = {}
     for graphs in (True, False):
         reqs = traffic()
         _release_engines()
         torch.cuda.reset_peak_memory_stats()
+        if count and graphs:
+            kernels.reset_launch_counts()  # this path's run starts here
         t0 = time.perf_counter()
         with Engine(cfg, params, EngineConfig(**ecfg, cuda_graphs=graphs)) as eng:
             check(eng.graphs == graphs, f"{label}: cuda_graphs {eng.graphs}")
-            if burst:
+            if engine == "burst":
                 rep = run_burst_stream(eng, reqs, clock=_StepClock())
-            elif continuous:
-                rep = run_continuous_stream(eng, reqs, slots=8, seed=0,
+            elif engine == "continuous":
+                rep = run_continuous_stream(eng, reqs, slots=slots, seed=0,
                                             clock=_StepClock())
             else:
-                rep = run_paged_stream(eng, reqs, slots=8, seed=0,
+                rep = run_paged_stream(eng, reqs, slots=slots, seed=0,
                                        clock=_StepClock())
+            torch.cuda.synchronize()
             keys = list(eng._decode.cache.stats.keys)
-        torch.cuda.synchronize()
+            if graphs and count:
+                launches = _held_launches(label, eng, rep, engine)
+        del eng  # its pool and graphs go before the next run's peak
         wall = time.perf_counter() - t0
         _check_stream(f"{label}/graphs={graphs}", cfg, reqs, rep)
-        want = len(set(keys)) if burst else 0
+        want = len(set(keys)) if engine == "burst" else 0
         check(rep["compiles_after_warmup"] == want,
               f"{label}/graphs={graphs}: compiles_after_warmup "
               f"{rep['compiles_after_warmup']}, expected {want}")
-        runs[graphs] = (reqs, rep, wall,
-                        torch.cuda.max_memory_allocated() / 1e9, len(keys))
+        runs[graphs] = (reqs, rep, wall, torch.cuda.max_memory_allocated(),
+                        len(keys))
     (greqs, grep, gwall, gpeak, ntargets), (ereqs, erep, ewall, epeak, _) = (
         runs[True], runs[False])
     eager_by_rid = {r.rid: r for r in ereqs}
+    kv_dtype = ecfg.get("kv_dtype", "fp32")
     equal = ties = sampled = sampled_equal = 0
     for r in greqs:
         e = eager_by_rid[r.rid]
@@ -905,19 +1097,26 @@ def _paired_streams(label: str, cfg, params, ecfg: dict, traffic,
               f"{BF16_TIE_MARGIN}")
         ties += 1
     tokens = sum(len(r.tokens) for r in greqs)
-    host = "" if burst else (
-        f" | host_plan_ms {grep['pipeline']['host_plan_ms']} graphs vs "
+    host = "" if engine == "burst" else (
+        f" | {grep['prompt_tokens']} prompt tokens ingested, lane calls "
+        f"{grep['lane_calls']} | host_plan_ms "
+        f"{grep['pipeline']['host_plan_ms']} graphs vs "
         f"{erep['pipeline']['host_plan_ms']} eager, device_wait_ms "
         f"{grep['pipeline']['device_wait_ms']} vs "
         f"{erep['pipeline']['device_wait_ms']}")
+    held = "" if launches is None else (
+        f" | launches {launches} = one per attention layer per lane call, "
+        f"warmup runs included")
     log(f"[graphs:{label}] {cfg.name}: graphs = eager on {equal} greedy "
         f"requests, {ties} near-tie divergences; sampled {sampled_equal}/"
         f"{sampled} equal (one seed) | {tokens} tokens, wall incl. warmup "
         f"{gwall:.2f}s graphs ({ntargets} targets captured, captures after "
         f"warmup {grep['compiles_after_warmup']}) vs {ewall:.2f}s eager{host}"
-        f" | peak memory {gpeak:.2f} GB graphs, {epeak:.2f} GB eager | "
-        f"{_card()}")
-    return {"graphs_s": gwall, "eager_s": ewall, "ties": ties}
+        f"{held} | peak memory {gpeak / 1e9:.2f} GB graphs, "
+        f"{epeak / 1e9:.2f} GB eager | {_card()}")
+    return {"graphs_s": gwall, "eager_s": ewall, "ties": ties,
+            "launches": launches, "report": grep, "requests": greqs,
+            "peak": max(gpeak, epeak)}
 
 
 # B1-B5's kernels, as the profiler names them, and the host calls that put
@@ -1100,29 +1299,17 @@ def graph_phase(cfg, params) -> None:
     steps: the bf16, int8+spec and burst cells' traffic, paired; then one
     replayed step of ``cbp``, ``pf``, ``vf``+``dr`` and ``burst``, graph
     and eager, profiled."""
-    from repro_torch.runtime.scheduler import poisson_arrivals
-    from repro_torch.runtime.scheduler import shared_prefix_arrivals
     from repro_torch.runtime.serve import Engine, EngineConfig
 
     base = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64)
     spec = dict(base, kv_dtype="int8", spec_k=4, draft_layers=2,
                 draft_kv_dtype="int8")
-
-    def traffic():
-        return shared_prefix_arrivals(
-            16, 20.0, seed=0, num_prefixes=4, prefix_len=128, tokens_mean=16,
-            total_max=base["max_len"], sample_frac=0.25, vocab=cfg.vocab_size,
-        )
-
-    def burst_traffic():
-        return poisson_arrivals(16, 20.0, seed=0, tokens_mean=16,
-                                tokens_max=1024, sample_frac=0.25,
-                                vocab=cfg.vocab_size)
-
     burst = dict(max_len=1024, max_batch=8, batch_quantum=4)
+    traffic = partial(_shared_prefix_traffic, cfg)
     _paired_streams("bf16", cfg, params, base, traffic)
-    _paired_streams("int8+spec", cfg, params, spec, traffic, "int8")
-    _paired_streams("burst", cfg, params, burst, burst_traffic, burst=True)
+    _paired_streams("int8+spec", cfg, params, spec, traffic)
+    _paired_streams("burst", cfg, params, burst, partial(_burst_traffic, cfg),
+                    "burst")
     for label, ecfg, lane in (
         ("cbp (bf16 pages, 8 slots, pos 200, 16-page tables; B1)", base,
          "cbp"),
@@ -1154,56 +1341,66 @@ def graph_phase(cfg, params) -> None:
 
 
 # ------------------------------------ phase 3c (the dense continuous engine)
-def _continuous_traffic(cfg, prompt_len: int = 128) -> list:
-    """16 requests, Poisson 20 req/s, tokens mean 16, a quarter sampled,
-    with distinct prompts of ``prompt_len`` tokens (none for 0), drawn as
-    the launcher's ``make_requests`` draws them for ``--max-len 1024``."""
-    from repro_torch.runtime.scheduler import (
-        attach_distinct_prompts,
-        poisson_arrivals,
-    )
-
-    reqs = poisson_arrivals(
-        16, 20.0, seed=0, tokens_mean=16,
-        tokens_max=max(1, 1024 - max(prompt_len, 1) + 1), sample_frac=0.25,
-        vocab=cfg.vocab_size,
-    )
-    if prompt_len:
-        attach_distinct_prompts(reqs, prompt_len, vocab=cfg.vocab_size, seed=1)
-    return reqs
-
-
-def _dense_lane_kernel(key) -> str:
-    """The kernel a dense lane's key launches: B1 (``cb``, ``dr``) or B2
-    (``pfd``, ``vfd``, ``drp``) over the page view, B3/B4 for an int8
-    draft cache."""
-    name = ("paged_decode_attention" if key[0] in ("cb", "dr")
+def _lane_kernel(key) -> str:
+    """The kernel a lane's key launches: B1 (``cbp``, ``cb``, ``dr``) or B2
+    (``pf``, ``vf``, ``pfd``, ``vfd``, ``drp``) — B3/B4 where the key's
+    page or draft dtype is int8 — or B5 (``burst``)."""
+    lane = key[0]
+    if lane == "burst":
+        return "decode_attention"
+    name = ("paged_decode_attention" if lane in ("cbp", "cb", "dr")
             else "paged_prefill_attention")
-    return name + ("_int8" if key[0] in ("dr", "drp") and key[3] == "int8"
-                   else "")
+    int8 = lane in ("cbp", "pf", "vf", "dr", "drp") and key[3] == "int8"
+    return name + ("_int8" if int8 else "")
 
 
-def _dense_lane_launches(eng) -> tuple[dict, dict]:
+def _lane_launches(eng) -> tuple[dict, dict]:
     """From the engine's graph targets, independently of the kernels'
     counts: the launches each kernel should have made — every key's step
     runs ``WARMUP_RUNS`` times before its capture, and every replay (its
-    warm run, ``cb``'s second on the zeroed cache, the batcher's calls)
-    launches its lane's kernel once per layer (``k`` times per draft layer
-    for ``dr``) — and each lane's replays less its warm ones."""
+    warm run, ``cb``'s second on the zeroed cache, a burst key's warm run
+    at each ``set_mode``, the batcher's calls) launches its lane's kernel
+    once per attention layer (``k`` times per draft layer for ``dr``) —
+    and each lane's replays less its warm ones."""
     from repro_torch.core.graph_target import WARMUP_RUNS
+
+    def attn_layers(cfg) -> int:
+        return sum(cfg.mixer_at(i).startswith("attn")
+                   for i in range(cfg.num_layers))
 
     want, calls = {}, {}
     for key in eng._decode.cache.keys():
         target = eng._decode.cache.get(key)
         lane = key[0]
-        layers = (eng.draft_cfg.num_layers if lane in ("dr", "drp")
-                  else eng.cfg.num_layers)
+        layers = attn_layers(eng.draft_cfg if lane in ("dr", "drp")
+                             else eng.cfg)
+        if not layers:
+            continue
         per_run = layers * (key[2] if lane == "dr" else 1)
-        kernel = _dense_lane_kernel(key)
+        kernel = _lane_kernel(key)
         replays = target.graph.replays
         want[kernel] = want.get(kernel, 0) + (replays + WARMUP_RUNS) * per_run
         calls[lane] = calls.get(lane, 0) + replays - (2 if lane == "cb" else 1)
     return want, calls
+
+
+def _held_launches(label: str, eng, rep: dict, engine: str) -> dict:
+    """Read the kernels' counts after ``eng``'s stream (``_launches``) and
+    hold each to ``_lane_launches``' reckoning from the graph targets'
+    replays; on a batcher's stream (paged, continuous) hold each lane's
+    replays past warmup to the batcher's calls."""
+    want, calls = _lane_launches(eng)
+    launches = _launches(label, tuple(want))
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{label}: {name} launched {launches[name]} times, expected "
+              f"{n} (one per layer per call, k per draft layer per dr call)")
+    if engine != "burst":
+        for lane, n in calls.items():
+            check(n == rep["lane_calls"].get(lane, 0),
+                  f"{label}: {lane} replayed {n} times past warmup, the "
+                  f"batcher called it {rep['lane_calls'].get(lane, 0)} times")
+    return launches
 
 
 def _continuous_stream(label: str, cfg, params, ecfg: dict, reqs) -> tuple:
@@ -1225,18 +1422,9 @@ def _continuous_stream(label: str, cfg, params, ecfg: dict, reqs) -> tuple:
         check(eng.graphs, f"{label}: the engine's targets are not CUDA graphs")
         rep = run_continuous_stream(eng, reqs, slots=8, seed=0)
         torch.cuda.synchronize()
-        want, calls = _dense_lane_launches(eng)
+        launches = _held_launches(label, eng, rep, "continuous")
         targets = len(eng._decode)
     wall = time.perf_counter() - t0
-    launches = _launches(label, tuple(want))
-    for lane, n in calls.items():
-        check(n == rep["lane_calls"].get(lane, 0),
-              f"{label}: {lane} replayed {n} times past warmup, the batcher "
-              f"called it {rep['lane_calls'].get(lane, 0)} times")
-    for name, n in want.items():
-        check(launches[name] == n,
-              f"{label}: {name} launched {launches[name]} times, expected "
-              f"{n} (one per layer per call, k per draft layer per dr call)")
     check(rep["compiles_after_warmup"] == 0,
           f"{label}: compiles_after_warmup {rep['compiles_after_warmup']}")
     _check_stream(label, cfg, reqs, rep)
@@ -1376,7 +1564,7 @@ def continuous_phase(cfg, params, burst_rep: dict) -> dict:
         out[label] = {"report": rep, "launches": launches}
         _paired_streams(f"continuous {label}", cfg, params, ecfg,
                         partial(_continuous_traffic, cfg, prompt_len),
-                        continuous=True)
+                        "continuous")
     c, b = out["c: prompt-less"]["report"], burst_rep
     log(f"[continuous:both] the prompt-less stream (16 requests, 20 req/s, "
         f"a quarter sampled), continuous vs burst engine: {c['tok_per_s']:.1f}"
@@ -2034,17 +2222,11 @@ def mamba_full_width() -> dict:
         f"in {time.perf_counter() - t0:.1f}s")
     launches = mamba_prompt_then_burst(cfg, params)
     burst_stream(cfg, params, "mamba burst", ())
-    from repro_torch.runtime.scheduler import poisson_arrivals
     from repro_torch.runtime.serve import Engine, EngineConfig
 
     burst = dict(max_len=1024, max_batch=8, batch_quantum=4)
-    _paired_streams(
-        "mamba burst", cfg, params, burst,
-        lambda: poisson_arrivals(16, 20.0, seed=0, tokens_mean=16,
-                                 tokens_max=1024, sample_frac=0.25,
-                                 vocab=cfg.vocab_size),
-        burst=True,
-    )
+    _paired_streams("mamba burst", cfg, params, burst,
+                    partial(_burst_traffic, cfg), "burst")
     runs, engines = {}, []
     for mode in ("graph", "eager"):
         eng = Engine(cfg, params, EngineConfig(**burst,
@@ -2595,6 +2777,385 @@ def time_ssd_kernel(launches: dict) -> list[dict]:
              "bound_by": bound_by, "library_ms": None}]
 
 
+# ------------------------------------------------------------------ phase 8
+def _long_prompt_traffic(cfg, n: int = 2, prompt_len: int = 5000,
+                         new_tokens: int = 32) -> list:
+    """``n`` greedy requests of ``prompt_len`` distinct prompt tokens and
+    ``new_tokens`` each, all arriving at once: gemma2-27b's cell, whose
+    positions pass its 4096 window."""
+    from repro_torch.runtime.scheduler import Request
+
+    g = torch.Generator().manual_seed(8)
+    return [Request(rid=i, new_tokens=new_tokens, greedy=True, arrival_s=0.0,
+                    prompt=tuple(torch.randint(0, cfg.vocab_size,
+                                               (prompt_len,), generator=g)
+                                 .tolist()))
+            for i in range(n)]
+
+
+def _plans() -> dict:
+    """Per config: each engine's (EngineConfig fields, slots, traffic);
+    full width, weights from a seed. qwen3-14b and hft-demo on phase 3's
+    cells (hft-demo's prompts of 200 and bursts of ~200 tokens pass its 128
+    window); gemma2-27b's paged and dense engines on 2 slots of 8192 with
+    two 5000-token prompts (its local layers' 4096 window over real
+    positions), its burst engine on the burst cell at 8 rows of 1024."""
+    short = dict(max_len=1024, max_batch=8)
+    long_ = dict(max_len=8192, max_batch=2)
+    burst = dict(short, batch_quantum=4)
+    return {
+        "qwen3-14b": {
+            "paged": (dict(short, page_size=16, prefill_chunk=64), 8,
+                      _shared_prefix_traffic),
+            "continuous": (dict(short, prefill_chunk=64), 8,
+                           _continuous_traffic),
+            "burst": (burst, None, _burst_traffic),
+        },
+        "gemma2-27b": {
+            "paged": (dict(long_, page_size=16, prefill_chunk=64), 2,
+                      _long_prompt_traffic),
+            "burst": (burst, None, _burst_traffic),
+            "continuous": (dict(long_, prefill_chunk=64), 2,
+                           _long_prompt_traffic),
+        },
+        "hft-demo": {
+            "paged": (dict(short, page_size=16, prefill_chunk=64), 8,
+                      partial(_continuous_traffic, prompt_len=200)),
+            "continuous": (dict(short, prefill_chunk=64), 8,
+                           partial(_continuous_traffic, prompt_len=200)),
+            "burst": (burst, None, partial(_burst_traffic, tokens_mean=200)),
+        },
+    }
+
+
+def _reckoned(cfg, engine: str, ecfg: dict, slots) -> tuple[float, float]:
+    """(weight bytes, KV bytes) from the config before anything is
+    allocated: ``param_counts`` at the model dtype, and K and V of every
+    attention layer for the engine's rows (the page pool with its null
+    page; the dense cache's ``dense_rows``; the burst buckets of 4 and 8
+    rows) at ``2 * num_layers * kv_dim`` elements a token."""
+    from repro_torch import models
+
+    el = 2 if cfg.dtype == "bfloat16" else 4
+    per_token = 2 * cfg.num_layers * cfg.kv_dim * el
+    if engine == "paged":
+        tokens = (ecfg["max_batch"] * ecfg["max_len"] + ecfg["page_size"])
+    elif engine == "continuous":
+        tokens = slots * models.dense_rows(ecfg["max_len"])
+    else:
+        tokens = (4 + 8) * ecfg["max_len"]
+    return cfg.param_counts()["total"] * el, tokens * per_token
+
+
+def _prompt_decode_check(cfg, params, batch: int, prompt_len: int) -> dict:
+    """``prefill`` of ``batch`` prompts of ``prompt_len`` (B6, one launch
+    per attention layer), its rows copied into pages, then one paged
+    decode step at position ``prompt_len`` (B1 per layer) with the kernels
+    and with the plain attention on the same cache: logits within
+    ``STEP_LOGIT_ATOL`` (bf16) or ``FP32_LOGIT_ATOL``; the same step with
+    the window off differs by more, so the window masked real positions.
+    Counts set to 0 just before the path, read after the kernel step."""
+    import dataclasses
+
+    from repro_torch import kernels, models
+
+    dev, ps = "cuda", 16
+    g = torch.Generator().manual_seed(9)
+    tok = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
+                        dtype=torch.int32).to(dev)
+    kernels.reset_launch_counts()  # this path's run starts here
+    last, dense = models.prefill(cfg, params, tok)
+    n = -(-(prompt_len + 1) // ps)
+    cache = models.init_paged_cache(cfg, batch * n + 1, ps, device=dev)
+    for slot, c in zip(cache, dense, strict=True):
+        for name, t in c.items():
+            m, _, _, kh, dh = c[name].shape
+            c_ = slot[name].view(m, -1, kh, dh)[:, ps:].view(m, batch, n * ps,
+                                                             kh, dh)
+            c_[:, :, :prompt_len].copy_(t)
+    del dense
+    bt = torch.arange(1, batch * n + 1, dtype=torch.int32,
+                      device=dev).view(batch, n)
+    nxt = last.argmax(-1).to(torch.int32)[:, None]
+    pos = torch.full((batch,), prompt_len, dtype=torch.int32, device=dev)
+    lk, _ = models.paged_decode_step(cfg, params, cache, nxt, pos, bt,
+                                     attn_impl="kernel")
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    launches = _launches(f"{cfg.name} prompt+decode",
+                         ("flash_attention", "paged_decode_attention"))
+    for name in ("flash_attention", "paged_decode_attention"):
+        check(launches[name] == layers,
+              f"{cfg.name} prompt+decode: {name} launched {launches[name]} "
+              f"times, expected one per layer ({layers})")
+    lp, _ = models.paged_decode_step(cfg, params, cache, nxt, pos, bt,
+                                     attn_impl="plain")
+    off = dataclasses.replace(cfg, sliding_window=None)
+    lw, _ = models.paged_decode_step(off, params, cache, nxt, pos, bt,
+                                     attn_impl="plain")
+    tol = STEP_LOGIT_ATOL if cfg.dtype == "bfloat16" else FP32_LOGIT_ATOL
+    err = (lk - lp).abs().max().item()
+    gap = (lw - lp).abs().max().item()
+    check(bool(torch.isfinite(lk).all()) and err <= tol,
+          f"{cfg.name}: paged decode at {prompt_len}, kernels vs plain "
+          f"attention: max abs diff {err:.4f} > {tol}")
+    check(gap > err, f"{cfg.name}: the window off changes the step's logits "
+          f"by {gap:.4f}, no more than kernel vs plain ({err:.4f})")
+    log(f"[configs:{cfg.name}] prefill {batch}x{prompt_len} (B6 x "
+        f"{launches['flash_attention']}), one paged decode step at position "
+        f"{prompt_len} over a {n}-page table (B1 x "
+        f"{launches['paged_decode_attention']}): kernels vs plain attention "
+        f"max abs logit diff {err:.4f} (tolerance {tol}); window "
+        f"{cfg.sliding_window} off vs on (plain) {gap:.4f}: the window masks "
+        f"| launches {launches}")
+    return {"launches": launches, "err": err, "window_gap": gap}
+
+
+def _hft_card_vs_cpu(cfg, params, card_reqs, ecfg: dict, slots: int,
+                     traffic) -> None:
+    """hft-demo's paged stream (fp32) on the CPU under the step clock
+    against the card's graph run of the same requests: greedy tokens
+    equal, a divergence only at a near-tie of the CPU logits."""
+    from repro_torch.runtime.serve import Engine, EngineConfig, run_paged_stream
+
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    reqs = traffic(cfg)
+    with Engine(cfg, cpu_params, EngineConfig(**ecfg), device="cpu") as eng:
+        rep = run_paged_stream(eng, reqs, slots=slots, seed=0,
+                               clock=_StepClock())
+    check(rep["finished"] == len(reqs), "hft-demo CPU stream did not finish")
+    card = {r.rid: r.tokens for r in card_reqs}
+    ties = compared = 0
+    for r in reqs:
+        if not r.greedy:
+            continue
+        compared += 1
+        if r.tokens == card[r.rid]:
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(r.tokens, card[r.rid]))
+                 if x != y)
+        check(_near_tie(cfg, cpu_params,
+                        list(r.effective_prompt) + r.tokens[:i], "fp32"),
+              f"hft-demo card != CPU at rid {r.rid} token {i}")
+        ties += 1
+    log(f"[configs:hft-demo] paged stream card (graphs) = CPU on "
+        f"{compared - ties} of {compared} greedy requests, {ties} near-tie "
+        f"divergences")
+
+
+def configs_phase() -> dict:
+    """qwen3-14b and gemma2-27b (bf16) and hft-demo (fp32) at full width on
+    the card, one model at a time, weights seeded on the card: each
+    engine's stream (``_paired_streams`` with its launches held), peak memory against the reckoned
+    weight and KV bytes; gemma2-27b's and hft-demo's prompt + decode check
+    past their windows; hft-demo's stream card = CPU."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    paths = {}
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, plan in _plans().items():
+        cfg = get_config(arch)
+        _release_engines()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = models.init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated()
+        wbytes = sum(t.numel() * t.element_size() for t in params.values())
+        want_w, _ = _reckoned(cfg, "paged", plan["paged"][0], 8)
+        check(wbytes == want_w, f"{arch}: {wbytes} weight bytes, reckoned "
+              f"{want_w}")
+        log(f"[configs:{arch}] {cfg.param_counts()['total'] / 1e9:.3f}B "
+            f"params {cfg.dtype} ({wbytes / 1e9:.2f} GB) initialised on the "
+            f"card in {time.perf_counter() - t0:.1f}s, peak "
+            f"{init_peak / 1e9:.2f} GB (weights + one f32 slab)")
+        for engine, (ecfg, slots, traffic) in plan.items():
+            w, kv = _reckoned(cfg, engine, ecfg, slots)
+            label = f"{arch} {engine}"
+            out = _paired_streams(label, cfg, params, ecfg,
+                                  partial(traffic, cfg), engine, slots,
+                                  count=True)
+            paths[label] = out["launches"]
+            check(out["peak"] < total, f"{label}: peak {out['peak']}")
+            log(f"[configs:{label}] peak memory {out['peak'] / 1e9:.2f} GB "
+                f"against reckoned weights {w / 1e9:.2f} GB + KV "
+                f"{kv / 1e9:.2f} GB = {(w + kv) / 1e9:.2f} GB (card "
+                f"{total / 1e9:.2f} GB)")
+            if arch == "hft-demo" and engine == "paged":
+                _hft_card_vs_cpu(cfg, params, out["requests"], ecfg, slots,
+                                 traffic)
+        if arch == "gemma2-27b":
+            paths[f"{arch} prompt+decode"] = _prompt_decode_check(
+                cfg, params, 1, 5120)["launches"]
+        elif arch == "hft-demo":
+            paths[f"{arch} prompt+decode"] = _prompt_decode_check(
+                cfg, params, 8, 512)["launches"]
+        del params
+        _release_engines()
+    return paths
+
+
+def _time_case(label: str, fn, call, plain, library, nbytes: int, ops: int,
+               dtype, kernel: str) -> dict:
+    """One kernel call at a new shape: held against its plain version, then
+    kernel ms per call, device-only, plain, library and the bound.
+    Timing launches are not a path's launches."""
+    out, ref = call(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= KERNEL_ATOL[dtype], f"{label}: max abs err {err:.3g}")
+    saved = fn.launches
+    ms = _median_ms(call)
+    fn.launches = saved
+    dev = _device_only(fn, call, kernel)
+    plain_ms = _median_ms(plain)
+    library_ms = None
+    try:
+        library_ms = _median_ms(library)
+    except RuntimeError as e:  # a yardstick only: the port never calls it
+        log(f"[timing:new] {label}: sdpa not timed ({e})")
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    bound_ms, by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else
+                                         "operations")
+    log(f"[timing:new] {label}: kernel {ms:.4f} ms per call (device only "
+        f"{_fmt_ms(dev['profiled_ms'])} profiled, "
+        f"{_fmt_ms(dev['queued_ms'])} by queued events), plain "
+        f"{plain_ms:.4f} ms, sdpa "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
+        f"{bound_ms:.4f} ms ({by}), max abs err {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, **dev, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by}
+
+
+def time_new_shapes() -> dict:
+    """B1, B2, B5 and B6 at the shapes this phase's configs give them —
+    group 5 (qwen3-14b: 40 heads over 8 of 128, bf16), window 4096 at
+    positions past it (gemma2-27b: 32 over 16 of 128, bf16; the softcap
+    left out so that SDPA computes the same function), fp32 head_dim 64
+    (hft-demo: 4 over 4 of 64, window 128) — against their plain versions
+    and SDPA, with the bound from the bytes and pairs this data needs.
+    Returns {kernel: {shape: numbers}}."""
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+
+    dev, ps = "cuda", 16
+    out: dict = {}
+
+    def add(name, shape, numbers):
+        out.setdefault(name, {})[shape] = numbers
+
+    for shape, (h, kh, dh, dtype, window, rows, table, pos, starts, cache_len,
+                dense_pos, seq) in {
+        "group 5": (40, 8, 128, torch.bfloat16, None, 8, 16,
+                    [96, 120, 150, 180, 200, 220, 240, 255],
+                    [0, 64, 128, 192, 0, 64, 128, 192], 1024, 255, 1024),
+        "window 4096": (32, 16, 128, torch.bfloat16, 4096, 2, 512,
+                        [5000, 8191], [5000, 8128], 8192, 5000, 5120),
+        "fp32 dh 64": (4, 4, 64, torch.float32, 128, 8, 16,
+                       [96, 120, 150, 180, 200, 220, 240, 255],
+                       [0, 64, 128, 192, 0, 64, 128, 192], 1024, 255, 1024),
+    }.items():
+        g = torch.Generator().manual_seed(31)
+        el = torch.tensor([], dtype=dtype).element_size()
+        kw = dict(window=window)
+        n_pages = rows * table + 1
+        kp, vp = (torch.randn(n_pages, ps, kh, dh, generator=g).to(dev, dtype)
+                  for _ in range(2))
+        bt = (torch.randperm(n_pages - 1, generator=g) + 1).view(rows, table)
+        bt = bt.to(torch.int32).to(dev)
+        gk, gv = (p_[bt.long()].reshape(rows, table * ps, kh, dh)
+                  .transpose(1, 2).contiguous() for p_ in (kp, vp))
+        ki = torch.arange(table * ps, device=dev)
+
+        def visible(qpos):  # [..., L] keys each query sees
+            ok = ki <= qpos[..., None]
+            if window is not None:
+                ok &= ki > qpos[..., None] - window
+            return ok
+
+        # B1: one query a row
+        pt = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q1 = torch.randn(rows, h, dh, generator=g).to(dev, dtype)
+        ok = visible(pt.long())
+        keys = int(ok.sum())
+        add("paged_decode_attention", shape, _time_case(
+            f"paged_decode_attention {shape} q{tuple(q1.shape)} table "
+            f"{tuple(bt.shape)}", kernels.paged_decode_attention,
+            lambda: kernels.paged_decode_attention(q1, kp, vp, bt, pt, **kw),
+            lambda: kernels.paged_decode_attention_plain(
+                q1.float(), kp.float(), vp.float(), bt, pt, **kw),
+            lambda: F.scaled_dot_product_attention(
+                q1[:, :, None], gk, gv, attn_mask=ok[:, None, None],
+                enable_gqa=True),
+            2 * keys * kh * dh * el + 2 * q1.numel() * el
+            + 4 * rows * (table + 1),
+            4 * dh * keys * h, dtype, "paged_decode_split"))
+        # B2: a chunk of 64 a row
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        qc = torch.randn(rows, 64, h, dh, generator=g).to(dev, dtype)
+        qi = st[:, None].long() + torch.arange(64, device=dev)[None]
+        okc = visible(qi)
+        keys_c = int(okc.any(1).sum())
+        add("paged_prefill_attention", shape, _time_case(
+            f"paged_prefill_attention {shape} q{tuple(qc.shape)} table "
+            f"{tuple(bt.shape)}", kernels.paged_prefill_attention,
+            lambda: kernels.paged_prefill_attention(qc, kp, vp, bt, st, **kw),
+            lambda: kernels.paged_prefill_attention_plain(
+                qc.float(), kp.float(), vp.float(), bt, st, **kw),
+            lambda: F.scaled_dot_product_attention(
+                qc.transpose(1, 2), gk, gv, attn_mask=okc[:, None],
+                enable_gqa=True),
+            2 * keys_c * kh * dh * el + 2 * qc.numel() * el
+            + 4 * rows * (table + 1),
+            4 * dh * int(okc.sum()) * h, dtype, "paged_prefill"))
+        del kp, vp, gk, gv
+        # B5: every row at one position of a [rows, cache_len, KH, dh] cache
+        ck, cv = (torch.randn(rows, cache_len, kh, dh, generator=g)
+                  .to(dev, dtype).transpose(1, 2) for _ in range(2))
+        p0 = torch.tensor(dense_pos, dtype=torch.int32, device=dev)
+        kd = torch.arange(cache_len, device=dev)
+        okd = kd <= dense_pos
+        if window is not None:
+            okd &= kd > dense_pos - window
+        seen = int(okd.sum())
+        add("decode_attention", shape, _time_case(
+            f"decode_attention {shape} q{tuple(q1.shape)} cache "
+            f"{tuple(ck.shape)} pos {dense_pos}", kernels.decode_attention,
+            lambda: kernels.decode_attention(q1, ck, cv, p0, **kw),
+            lambda: kernels.decode_attention_plain(
+                q1.float(), ck.float(), cv.float(), p0, **kw),
+            lambda: F.scaled_dot_product_attention(
+                q1[:, :, None], ck, cv, attn_mask=okd[None, None, None],
+                enable_gqa=True),
+            2 * rows * seen * kh * dh * el + 2 * q1.numel() * el + 4,
+            4 * dh * rows * seen * h, dtype, "dense_decode_split"))
+        del ck, cv
+        # B6: causal (and the window) over seq tokens
+        b6 = 1 if seq > 1024 else 2
+        q, k, v = (torch.randn(b6, seq, n, dh, generator=g).to(dev, dtype)
+                   .transpose(1, 2) for n in (h, kh, kh))
+        qs = torch.arange(seq, device=dev)
+        okf = qs[None] <= qs[:, None]
+        if window is not None:
+            okf &= qs[None] > qs[:, None] - window
+        pairs = b6 * h * int(okf.sum())
+        add("flash_attention", shape, _time_case(
+            f"flash_attention {shape} q{tuple(q.shape)} causal window "
+            f"{window}", kernels.flash_attention,
+            lambda: kernels.flash_attention(q, k, v, causal=True, **kw),
+            lambda: kernels.flash_attention_plain(
+                q.float(), k.float(), v.float(), causal=True, **kw),
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=okf, enable_gqa=True),
+            (2 * q.numel() + k.numel() + v.numel()) * el, 4 * dh * pairs,
+            dtype, "flash_"))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2630,7 +3191,19 @@ def main() -> int:
     rows = (time_kernels(launches, b2_verify, main_path["by_path"])
             + time_dense_kernels(launches)
             + time_ssd_kernel(launches))
-    log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
+    t8 = time.perf_counter()
+    paths = configs_phase()
+    new = time_new_shapes()
+    for row in rows:
+        if row["name"] in new:
+            row["new_shapes"] = new[row["name"]]
+        row.setdefault("launches_by_path", {}).update(
+            {path: counts.get(row["name"], 0)
+             for path, counts in paths.items()})
+    end = time.perf_counter()
+    log(f"[done] all phases passed in {end - t0:.1f}s; phase 8 (three "
+        f"configs, new-shape timing) {end - t8:.1f}s, "
+        f"{100 * (end - t8) / (end - t0):.1f}% of it")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

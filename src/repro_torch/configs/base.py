@@ -76,6 +76,10 @@ class ArchConfig:
         return self.num_heads * self.head_dim
 
     @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
     def ssm_d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
@@ -100,6 +104,44 @@ class ArchConfig:
             assert self.ssm_state > 0
             assert self.ssm_d_inner % self.ssm_headdim == 0
         return self
+
+    # --------------------------------------------------------- param math
+    def param_counts(self) -> dict:
+        """Analytic parameter counts: total N and active N (MoE top-k)."""
+        d, V = self.d_model, self.vocab_size
+        embed = V * d if self.input_kind == "tokens" else 0
+        head = 0 if self.tie_embeddings else V * d
+        per_layer_total = 0
+        per_layer_active = 0
+        for i in range(self.period):
+            mixer = self.mixer_at(i)
+            if mixer.startswith("attn"):
+                p = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                if self.qk_norm:
+                    p += 2 * self.head_dim
+            else:  # mamba2
+                din, ns, nh = self.ssm_d_inner, self.ssm_state, self.ssm_heads
+                in_proj = d * (2 * din + 2 * self.ssm_groups * ns + nh)
+                conv = (din + 2 * self.ssm_groups * ns) * self.conv_kernel
+                p = in_proj + conv + 2 * nh + din + din * d  # +A,D,norm,out_proj
+            a = p
+            mlp = self.mlp_at(i)
+            if mlp == "mlp":
+                m = 3 * d * self.d_ff
+                am = m
+            elif mlp == "moe":
+                eff = self.expert_d_ff or self.d_ff
+                m = d * self.num_experts + self.num_experts * 3 * d * eff
+                am = d * self.num_experts + self.top_k * 3 * d * eff
+            else:
+                m = am = 0
+            norms = 2 * d if self.norm == "rmsnorm" else 0
+            per_layer_total += p + m + norms
+            per_layer_active += a + am + norms
+        reps = self.num_layers // self.period
+        total = embed + head + per_layer_total * reps + (d if self.norm == "rmsnorm" else 0)
+        active = embed + head + per_layer_active * reps + (d if self.norm == "rmsnorm" else 0)
+        return {"total": total, "active": active}
 
     # ------------------------------------------------------------ reduced
     def smoke(self) -> "ArchConfig":

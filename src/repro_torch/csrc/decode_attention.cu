@@ -98,17 +98,10 @@ cudaError_t by_mode(const DenseArgs& a, bool w, bool c, cudaStream_t s) {
   return c ? run<T, HD, false, true>(a, s) : run<T, HD, false, false>(a, s);
 }
 
-template <typename T>
-cudaError_t by_shape(const DenseArgs& a, int head_dim, bool w, bool c,
-                     cudaStream_t s) {
-  if (head_dim == 16) return by_mode<T, 16>(a, w, c, s);
-  if (head_dim == 128) return by_mode<T, 128>(a, w, c, s);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out). Strides are in
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); head_dim 16, 64 (fp32
+// only, as the paged kernels) or 128. Strides are in
 // elements; k and v share theirs. splits: CTAs a cluster, 1-8. Returns the
 // cudaError_t of the launch (0 on success; cudaErrorInvalidValue for splits
 // outside 1-8). Launches on `stream`, allocates nothing, does not sync.
@@ -127,7 +120,10 @@ extern "C" int dense_decode_attention(
                     kv_ss, kv_sh, o_sb, o_sh, sm_scale, softcap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool w = has_window != 0, c = has_softcap != 0;
-  if (dtype == 0) return by_shape<float>(a, head_dim, w, c, s);
-  if (dtype == 1) return by_shape<__nv_bfloat16>(a, head_dim, w, c, s);
+  if (dtype == 0 && head_dim == 16) return by_mode<float, 16>(a, w, c, s);
+  if (dtype == 0 && head_dim == 64) return by_mode<float, 64>(a, w, c, s);
+  if (dtype == 0 && head_dim == 128) return by_mode<float, 128>(a, w, c, s);
+  if (dtype == 1 && head_dim == 16) return by_mode<__nv_bfloat16, 16>(a, w, c, s);
+  if (dtype == 1 && head_dim == 128) return by_mode<__nv_bfloat16, 128>(a, w, c, s);
   return cudaErrorInvalidValue;
 }

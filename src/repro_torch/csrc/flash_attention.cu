@@ -61,8 +61,9 @@
 // (as in SDPA's flash kernels).
 //
 // fp32 and head_dim 16 — CUDA cores (flash_block_simt): wgmma has no fp32
-// mode but TF32, which would break the fp32 1e-4 tolerance, and head_dim 16
-// is the smoke configs' width. One block per (row, head, 16 queries) walks
+// mode but TF32, which would break the fp32 1e-4 tolerance (fp32 is
+// instantiated at head_dim 16, 64 and 128), and head_dim 16 is the smoke
+// configs' width. One block per (row, head, 16 queries) walks
 // 16-key tiles in fp32 shared memory with fp32 FMAs.
 //
 // Tensors are read and written through element strides (batch, head,
@@ -652,7 +653,8 @@ bool bad_shape(int batch, int heads, int kv_heads, int sq, int sk) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); strides in elements
 // (batch, head, sequence) for q, k, v and out. Return the cudaError_t of the
 // launch (0 on success). Launch on `stream`, allocate nothing, do not sync.
-// bf16 at head_dim 128 runs on tensor cores, the rest on CUDA cores.
+// bf16 at head_dim 128 runs on tensor cores, the rest on CUDA cores (fp32 at
+// 16, 64 and 128; bf16 at 16).
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* out, int batch,
     int heads, int kv_heads, int sq, int sk, long long q_sb, long long q_sh,
@@ -668,6 +670,7 @@ extern "C" int flash_attention(
   const bool c = causal != 0, w = has_window != 0, sc = has_softcap != 0;
   if (dtype == 1 && head_dim == 128) return launch_tensor_cores(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
   if (dtype == 0 && head_dim == 16) return launch_cuda_cores<float, 16>(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
+  if (dtype == 0 && head_dim == 64) return launch_cuda_cores<float, 64>(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
   if (dtype == 0 && head_dim == 128) return launch_cuda_cores<float, 128>(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
   if (dtype == 1 && head_dim == 16) return launch_cuda_cores<__nv_bfloat16, 16>(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
   return cudaErrorInvalidValue;
@@ -689,6 +692,7 @@ extern "C" int flash_attention_branchy(
   const int* f = static_cast<const int*>(flags);
   if (dtype == 1 && head_dim == 128) return launch_tensor_cores_branchy(q, k, v, f, out, a, batch, s);
   if (dtype == 0 && head_dim == 16) return launch_cuda_cores_branchy<float, 16>(q, k, v, f, out, a, batch, s);
+  if (dtype == 0 && head_dim == 64) return launch_cuda_cores_branchy<float, 64>(q, k, v, f, out, a, batch, s);
   if (dtype == 0 && head_dim == 128) return launch_cuda_cores_branchy<float, 128>(q, k, v, f, out, a, batch, s);
   if (dtype == 1 && head_dim == 16) return launch_cuda_cores_branchy<__nv_bfloat16, 16>(q, k, v, f, out, a, batch, s);
   return cudaErrorInvalidValue;

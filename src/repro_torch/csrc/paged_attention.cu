@@ -12,7 +12,9 @@ using paged::launch_prefill_cuda_cores;
 using paged_split::launch_decode_split;
 using paged_tc::launch_prefill_tensor_cores;
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pages and out); splits: the CTAs of
+// dtype: 0 = float32, 1 = bfloat16 (q, pages and out); head_dim 16, 64 (fp32
+// only: bf16 at 64 waits for the tensor-core prefill body's instantiation)
+// or 128; splits: the CTAs of
 // one cluster that share a row's pages (1-8). Returns the cudaError_t of the
 // launch (0 on success). Launches on `stream`, allocates nothing, does not
 // sync.
@@ -28,6 +30,7 @@ extern "C" int paged_decode_attention(
                pages_per_row, window, sm_scale, softcap, splits};
   const int w = has_window, c = has_softcap;
   if (dtype == 0 && head_dim == 16) return launch_decode_split<float, float, 16>(a, page_size, w, c, stream);
+  if (dtype == 0 && head_dim == 64) return launch_decode_split<float, float, 64>(a, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 128) return launch_decode_split<float, float, 128>(a, page_size, w, c, stream);
   if (dtype == 1 && head_dim == 16) return launch_decode_split<__nv_bfloat16, __nv_bfloat16, 16>(a, page_size, w, c, stream);
   if (dtype == 1 && head_dim == 128) return launch_decode_split<__nv_bfloat16, __nv_bfloat16, 128>(a, page_size, w, c, stream);
@@ -49,6 +52,7 @@ extern "C" int paged_prefill_attention(
   const int w = has_window, c = has_softcap;
   if (dtype == 1 && head_dim == 128) return launch_prefill_tensor_cores<__nv_bfloat16>(a, num_pages, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 16) return launch_prefill_cuda_cores<float, float, 16>(a, page_size, w, c, stream);
+  if (dtype == 0 && head_dim == 64) return launch_prefill_cuda_cores<float, float, 64>(a, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 128) return launch_prefill_cuda_cores<float, float, 128>(a, page_size, w, c, stream);
   if (dtype == 1 && head_dim == 16) return launch_prefill_cuda_cores<__nv_bfloat16, __nv_bfloat16, 16>(a, page_size, w, c, stream);
   return cudaErrorInvalidValue;

@@ -189,7 +189,10 @@ __device__ void attend_pages(Tile<HD, PS, TR>& tile, const P* __restrict__ k,
     for (int i = tid; i < rows * PS; i += kThreads) {
       const int r = i / PS, t = i % PS;
       float dot = 0.f;
-#pragma unroll 16
+      // 8, not 16: at 16 ptxas spills 4 B in <float, float, 64, 8, no
+      // window, softcap>; at 8 no instantiation spills (the sum's order is
+      // the loop's either way)
+#pragma unroll 8
       for (int d = 0; d < HD; ++d) dot += tile.q[r][d] * tile.k[t][d];
       float s = dot * sm_scale;
       if constexpr (SOFTCAP) s = tanhf(s / softcap) * softcap;

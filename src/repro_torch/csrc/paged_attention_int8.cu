@@ -13,7 +13,8 @@ using paged::launch_prefill_cuda_cores;
 using paged_split::launch_decode_split;
 using paged_tc::launch_prefill_tensor_cores;
 
-// dtype: 0 = float32, 1 = bfloat16 (q and out); pages are int8 and
+// dtype: 0 = float32, 1 = bfloat16 (q and out); head_dim 16, 64 (fp32 only)
+// or 128; pages are int8 and
 // k_scale / v_scale are float32 [P, page_size]; splits as in
 // paged_decode_attention. Returns the cudaError_t of the launch (0 on
 // success). Launches on `stream`, allocates nothing, does not sync.
@@ -31,6 +32,7 @@ extern "C" int paged_decode_attention_int8(
                pages_per_row, window, sm_scale, softcap, splits};
   const int w = has_window, c = has_softcap;
   if (dtype == 0 && head_dim == 16) return launch_decode_split<float, int8_t, 16>(a, page_size, w, c, stream);
+  if (dtype == 0 && head_dim == 64) return launch_decode_split<float, int8_t, 64>(a, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 128) return launch_decode_split<float, int8_t, 128>(a, page_size, w, c, stream);
   if (dtype == 1 && head_dim == 16) return launch_decode_split<__nv_bfloat16, int8_t, 16>(a, page_size, w, c, stream);
   if (dtype == 1 && head_dim == 128) return launch_decode_split<__nv_bfloat16, int8_t, 128>(a, page_size, w, c, stream);
@@ -54,6 +56,7 @@ extern "C" int paged_prefill_attention_int8(
   const int w = has_window, c = has_softcap;
   if (dtype == 1 && head_dim == 128) return launch_prefill_tensor_cores<int8_t>(a, num_pages, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 16) return launch_prefill_cuda_cores<float, int8_t, 16>(a, page_size, w, c, stream);
+  if (dtype == 0 && head_dim == 64) return launch_prefill_cuda_cores<float, int8_t, 64>(a, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 128) return launch_prefill_cuda_cores<float, int8_t, 128>(a, page_size, w, c, stream);
   if (dtype == 1 && head_dim == 16) return launch_prefill_cuda_cores<__nv_bfloat16, int8_t, 16>(a, page_size, w, c, stream);
   return cudaErrorInvalidValue;

@@ -39,9 +39,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Instantiated specialisations (the C entry points of csrc/paged_attention*.cu).
+# Instantiated specialisations: the dispatch lines of the C entry points of
+# csrc/paged_attention.cu, paged_attention_int8.cu, decode_attention.cu and
+# flash_attention.cu, which B1-B7 all share. Head dims by the query's type:
+# fp32 runs the CUDA-core bodies at 16, 64 and 128; bf16 at 128 the
+# tensor-core bodies (B2/B4, B6/B7) and at 16 the CUDA-core ones. bf16 at 64
+# waits for the tensor-core bodies' head_dim-64 instantiations (ROADMAP B9
+# part 2) and is refused, never sent to a slow CUDA-core body.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 128)
+HEAD_DIMS = {torch.float32: (16, 64, 128), torch.bfloat16: (16, 128)}
 PAGE_SIZES = (8, 16)
 
 _ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -235,11 +241,11 @@ def check_operands(
         tuple(positions.shape) != (b,)
     ):
         raise ValueError(f"{name}: block tables/positions must be [B, PB]/[B]")
-    if dh not in HEAD_DIMS or ps not in PAGE_SIZES:
+    check_head_dim(name, q.dtype, dh)
+    if ps not in PAGE_SIZES:
         raise ValueError(
-            f"{name}: no kernel instantiated for head_dim={dh}, "
-            f"page_size={ps} (instantiated: head_dim {HEAD_DIMS}, "
-            f"page_size {PAGE_SIZES})"
+            f"{name}: no kernel instantiated for page_size={ps} "
+            f"(instantiated: page_size {PAGE_SIZES})"
         )
 
 
@@ -282,11 +288,32 @@ def check_strided_operands(
                 f"{name}: {label} must be int32 {shape}, got {t.dtype} "
                 f"{tuple(t.shape)}"
             )
-    if dh not in HEAD_DIMS:
-        raise ValueError(
-            f"{name}: no kernel instantiated for head_dim={dh} "
-            f"(instantiated: head_dim {HEAD_DIMS})"
-        )
+    check_head_dim(name, q.dtype, dh)
+
+
+def instantiated() -> set[tuple[int, int]]:
+    """The (dtype code, head_dim) pairs of ``HEAD_DIMS``: what each C entry
+    point of B1-B7 dispatches (``if (dtype == c && head_dim == d)``)."""
+    return {(DTYPE_CODES[dt], hd) for dt, dims in HEAD_DIMS.items()
+            for hd in dims}
+
+
+def check_head_dim(name: str, dtype: torch.dtype, head_dim: int) -> None:
+    """Raise ``ValueError`` naming the shape where B1-B7 have no
+    instantiation for queries of ``dtype`` at ``head_dim``."""
+    dims = HEAD_DIMS.get(dtype, ())
+    if head_dim in dims:
+        return
+    why = ""
+    if dtype == torch.bfloat16 and head_dim in HEAD_DIMS[torch.float32]:
+        why = (" (bf16 at this head_dim needs the tensor-core bodies' "
+               "instantiations, ROADMAP B9 part 2)")
+    raise ValueError(
+        f"{name}: no kernel instantiated for {dtype} at head_dim={head_dim} "
+        f"(instantiated: "
+        + ", ".join(f"{dt} head_dim {hd}" for dt, hd in HEAD_DIMS.items())
+        + f"){why}"
+    )
 
 
 def raise_on_error(name: str, rc: int) -> None:

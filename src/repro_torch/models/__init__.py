@@ -10,6 +10,7 @@ from .attention import (
     KV_SCALE_EPS,
     dense_page_size,
     dense_page_view,
+    dense_rows,
     dequantise_kv_rows,
     quantise_kv_rows,
 )
@@ -45,6 +46,7 @@ __all__ = [
     "decode_step",
     "dense_page_size",
     "dense_page_view",
+    "dense_rows",
     "dequantise_kv_rows",
     "draft_view",
     "forward",

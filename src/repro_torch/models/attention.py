@@ -36,10 +36,13 @@ so there the port's rule has no JAX counterpart.
 Full-sequence attention (``attention``, ``prefill_attention``) has three
 implementations, chosen semi-statically as ``impl`` when a step is built:
 ``"naive"`` (materialised ``[B,KH,G,S,S]`` scores, the JAX package's
-baseline), ``"chunked"`` (online softmax over key blocks of
-``CHUNK_BLOCK``, its flash-style data movement in plain PyTorch) and
+baseline), ``"chunked"`` (online softmax over key blocks of ``perf``'s
+``attn_block``, its flash-style data movement in plain PyTorch) and
 ``"kernel"`` (B6, ``kernels.flash_attention``; its plain version on the
-CPU), fed ``[B,S,H,dh]`` activations as strided views.
+CPU), fed ``[B,S,H,dh]`` activations as strided views. ``"auto"`` resolves
+to ``perf.current().impl``, and ``"naive"``/``"chunked"`` read ``perf``'s
+``score_dtype`` and ``probs_dtype`` where the JAX package does; the kernel
+keeps both in f32 and refuses them (``perf.check_kernel_opts``).
 
 The dense cache's decode (``decode_attention``) at a **scalar** position —
 every row at one depth, the burst engine — writes the new K/V row at ``pos``
@@ -61,7 +64,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, perf
 from repro_torch.configs import ArchConfig
 from repro_torch.runtime.kvcache import KV_DTYPES
 
@@ -69,11 +72,15 @@ from .layers import apply_rope, dtype_of, rms_norm, softcap
 
 NEG_INF = -2.0e38
 ATTN_IMPLS = ("kernel", "plain")  # paged and dense decode
-FULL_IMPLS = ("naive", "chunked", "kernel")  # forward and prefill
-CHUNK_BLOCK = 1024  # key block of "chunked" (the JAX PerfOpts default)
+FULL_IMPLS = ("naive", "chunked", "kernel")  # forward and prefill ("auto": perf)
 # int8 KV quantisation range (DESIGN.md §12): symmetric, full int8 span.
 KV_QUANT_MAX = 127.0
 KV_SCALE_EPS = 1e-8  # all-zero rows quantise with a tiny non-zero scale
+
+
+def _dtype(name: str | None) -> torch.dtype | None:
+    """A ``perf`` dtype name ("bfloat16") as a torch dtype (None stays)."""
+    return None if name is None else getattr(torch, name)
 
 
 def _qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
@@ -134,16 +141,26 @@ def _sdpa_naive(
     window: int | None,
 ) -> torch.Tensor:
     """q: [B,Sq,KH,G,dh]; k,v: [B,Sk,KH,dh] -> [B,Sq,KH,G,dh]. Scores are
-    f32 products of the operands (the JAX package's
-    ``preferred_element_type``), probabilities in v's dtype."""
-    scale = 1.0 / np.sqrt(cfg.head_dim)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
-    scores = softcap(scores, cfg.attn_logit_softcap)
+    f32 products of the operands rounded once to ``perf``'s ``score_dtype``
+    (the JAX package's ``preferred_element_type``), then scaled, capped,
+    masked and softmaxed in that dtype one rounded op at a time, as
+    ``jax.nn.softmax`` does; probabilities in ``probs_dtype``, else v's
+    dtype."""
+    po = perf.current()
+    sd = _dtype(po.score_dtype) or torch.float32
+    scale = torch.tensor(1.0 / np.sqrt(cfg.head_dim), dtype=sd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()).to(sd)
+    scores = softcap(scores * scale, cfg.attn_logit_softcap)
     scores = scores + _mask(
-        q.shape[1], k.shape[1], causal=True, window=window, device=q.device
+        q.shape[1], k.shape[1], causal=True, window=window, dtype=sd,
+        device=q.device,
     )
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).to(v.dtype)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(
+        _dtype(po.probs_dtype) or v.dtype)
+    return torch.einsum(
+        "bhgqk,bkhd->bqhgd", probs, v.to(probs.dtype)
+    ).to(v.dtype)
 
 
 def _sdpa_chunked(
@@ -153,17 +170,19 @@ def _sdpa_chunked(
     v: torch.Tensor,
     *,
     window: int | None,
-    block: int = CHUNK_BLOCK,
+    block: int,
 ) -> torch.Tensor:
     """Online softmax over key blocks: O(S·block) score memory instead of
     O(S²). Shapes as ``_sdpa_naive``; the key length must be a multiple of
-    the block (as in the JAX package)."""
+    the block (as in the JAX package). With ``perf``'s ``probs_dtype`` the
+    P V product runs in that dtype."""
     b, sq, kh, g, dh = q.shape
     sk = k.shape[1]
     block = min(block, sk)
     if sk % block:
         raise ValueError(f"key length {sk} is not a multiple of block {block}")
     scale = 1.0 / np.sqrt(cfg.head_dim)
+    pd = _dtype(perf.current().probs_dtype)
     qf = q.float()
     qi = torch.arange(sq, device=q.device)[:, None]
     m = torch.full((b, kh, g, sq), NEG_INF, device=q.device)
@@ -183,9 +202,11 @@ def _sdpa_chunked(
         p_ = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p_.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhgqk,bkhd->bhgqd", p_, v_i
-        )
+        if pd is not None:
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p_.to(pd), v_i.to(pd)).float()
+        else:
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p_, v_i)
+        acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp_min(l, 1e-37)[..., None]
     return out.movedim(-2, 1).to(v.dtype)  # [B,Sq,KH,G,dh]
@@ -195,17 +216,23 @@ def _full_sequence(
     cfg: ArchConfig, p: dict, q, k, v, *, local: bool, impl: str
 ) -> torch.Tensor:
     """Causal self-attention of q [B,S,H,dh] over k/v [B,S,KH,dh], projected
-    through ``wo`` -> [B,S,D], by the semi-static ``impl``."""
+    through ``wo`` -> [B,S,D], by the semi-static ``impl`` (``"auto"``:
+    ``perf``'s)."""
     window = cfg.sliding_window if local else None
     b, s = q.shape[:2]
+    po = perf.current()
+    if impl == "auto":
+        impl = po.impl
     if impl == "kernel":
+        perf.check_kernel_opts("impl='kernel'", po)
         o = kernels.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, window=window, softcap=cfg.attn_logit_softcap,
         ).transpose(1, 2)  # [B,S,H,dh]: the kernel writes q's layout
         return _out_proj(cfg, p, o)
     if impl == "chunked":
-        og = _sdpa_chunked(cfg, _group(cfg, q), k, v, window=window)
+        og = _sdpa_chunked(cfg, _group(cfg, q), k, v, window=window,
+                           block=po.attn_block)
     elif impl == "naive":
         og = _sdpa_naive(cfg, _group(cfg, q), k, v, window=window)
     else:
@@ -513,6 +540,19 @@ def dense_page_size(max_len: int) -> int:
         f"kernels take pages of 16 or 8 rows, so max_len must be a multiple "
         f"of 8"
     )
+
+
+def dense_rows(max_len: int) -> int:
+    """The rows an engine allocates a dense cache of ``max_len`` positions
+    with: ``max_len`` rounded up to a multiple of 8, so that
+    ``dense_page_view`` exists for every ``max_len``. Admission still holds
+    each request to ``max_len`` positions (prompt, tokens and any verify
+    window), so no kept output reads a row past it: a query at position p
+    sees rows <= p only. What lands there — the draft's writes past a
+    request's end, a finished slot's idle step — is never read by a kept
+    output, as the JAX package's cache of exactly ``max_len`` rows drops
+    such writes."""
+    return -(-max_len // 8) * 8
 
 
 def dense_page_view(cache: dict) -> tuple[dict, torch.Tensor]:

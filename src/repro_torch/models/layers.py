@@ -7,6 +7,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import perf
 from repro_torch.configs import ArchConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -18,17 +19,27 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 
 # ------------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """The reduction in f32; the product too, unless ``perf`` ``norm_bf16``
+    keeps it in a sub-f32 residual dtype."""
+    dt = x.dtype
     xf = x.float()
     r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (xf * r * (1.0 + scale.float())).to(x.dtype)
+    if perf.current().norm_bf16 and dt != torch.float32:
+        return x * r.to(dt) * (1.0 + scale.float()).to(dt)
+    return (xf * r * (1.0 + scale.float())).to(dt)
 
 
 def ln_nonparam(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """OLMo's non-parametric LayerNorm: no scale, no bias."""
+    """OLMo's non-parametric LayerNorm: no scale, no bias (``norm_bf16`` as
+    ``rms_norm``)."""
+    dt = x.dtype
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    r = torch.rsqrt(var + eps)
+    if perf.current().norm_bf16 and dt != torch.float32:
+        return (x - mu.to(dt)) * r.to(dt)
+    return ((xf - mu) * r).to(dt)
 
 
 def norm_apply(

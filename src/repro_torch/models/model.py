@@ -43,6 +43,9 @@ from .blocks import (
 from .layers import dtype_of, embed_apply, head_apply, norm_apply
 
 
+_DRAW_ELEMS = 1 << 28  # f32 values drawn at once by init_params (1 GiB)
+
+
 def init_params(
     cfg: ArchConfig, seed: int = 0, device: torch.device | str = "cpu"
 ) -> dict[str, torch.Tensor]:
@@ -51,7 +54,11 @@ def init_params(
     first axis; embeddings normal * 0.02; norm weights zero; a mamba
     slot's conv normal * 0.1, ``A_log``/``dt_bias`` float32 zeros and ``D``
     float32 ones, as ``ssm_init``). Drawn from a ``torch.Generator`` on
-    ``device``, so the values differ from JAX's."""
+    ``device``, so the values differ from JAX's: in f32 slabs of at most
+    ``_DRAW_ELEMS`` along the first axis (a layer of a stacked tensor at a
+    time), each scaled and cast into the model-dtype tensor, so the peak
+    is the weights plus one slab (gemma2-27b's stacked MLP weight would
+    otherwise be a 15.6 GB f32 temporary on top of 54 GB of bf16)."""
     if cfg.input_kind != "tokens":
         raise ValueError(f"{cfg.name}: embedding-input frontends are not ported")
     gen = torch.Generator(device=device)
@@ -63,8 +70,14 @@ def init_params(
     )
 
     def normal(shape: tuple, std: float) -> torch.Tensor:
-        x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        return (x * std).to(dt)
+        out = torch.empty(shape, dtype=dt, device=device)
+        rows = out.view(shape[0], -1)
+        step = max(1, _DRAW_ELEMS // max(rows.shape[1], 1))
+        for i in range(0, shape[0], step):
+            part = rows[i:i + step]
+            part.copy_(torch.randn(part.shape, generator=gen, device=device,
+                                   dtype=torch.float32).mul_(std))
+        return out
 
     def dense(*shape: int) -> torch.Tensor:  # stacked [m, *shape]
         return normal((m, *shape), shape[0] ** -0.5)
@@ -210,8 +223,9 @@ def forward(
     """inputs: i32[B,S] tokens. Returns (logits [B,S,V] float32, aux): the
     JAX package's pair, inference only (no remat, no backward); ``aux`` is
     the MoE loss term, 0 for the ported stacks. ``impl`` picks the
-    attention — ``"kernel"`` (B6), ``"naive"`` or ``"chunked"`` — and the
-    SSD scan of mamba slots: ``"kernel"`` (B8), else ``ssd_scan``."""
+    attention — ``"kernel"`` (B6), ``"naive"``, ``"chunked"`` or
+    ``"auto"`` (``perf.current().impl``) — and the SSD scan of mamba
+    slots: ``"kernel"`` (B8), else ``ssd_scan``."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     positions = _positions(x)
     for i in range(cfg.num_layers // cfg.period):

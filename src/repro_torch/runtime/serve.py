@@ -53,6 +53,9 @@ attention runs B1-B4 over the cache's identity page view
 (``models.dense_page_view``). An SSM stack serves ``cb`` only, prompts
 forced token by token, as in the JAX package.
 
+Every branch target runs under the ``perf`` opts current when it was
+built (``repro_torch.perf.bake``), whatever the ambient opts at its call.
+
 The engine runs on the card by default (``device="cuda"``) and raises when
 no GPU is present unless the caller passes ``device="cpu"``.
 """
@@ -66,7 +69,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch import models
+from repro_torch import models, perf
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import build as kernel_build
 from repro_torch.core import DispatchError, DispatchPolicy, Dispatcher
@@ -296,7 +299,15 @@ class Engine:
         raises (the aval guard of a compiled executable). ``noise_rows`` >
         0: the step samples, and takes ``u [noise_rows, V]`` drawn from the
         generator. With graphs it is captured over ``cache`` (the engine's
-        own), with ``chain`` mapping outputs to the inputs they feed."""
+        own), with ``chain`` mapping outputs to the inputs they feed.
+
+        The target runs under the ``perf`` opts current when it is built,
+        on every call (semi-static, as a traced step): with
+        ``attn_impl="kernel"`` a sub-f32 ``score_dtype``/``probs_dtype``
+        raises here, at build."""
+        if self.ecfg.attn_impl == "kernel" and self.cfg.has_attention:
+            perf.check_kernel_opts(f"{key}: attn_impl='kernel'")
+        step = perf.bake(step)
         params = self.params if params is None else params
         specs = [(n, tuple(shape), dt) for n, (shape, dt) in rows.items()]
         if not self.graphs:
@@ -538,23 +549,26 @@ class Engine:
 
     def dense_cache(self, slots: int) -> list:
         """The dense continuous engine's cache of ``slots`` rows of
-        ``max_len`` (model dtype), created on first use: every ``cb``,
-        ``pfd`` and ``vfd`` target of that slot count is bound to it, and
-        ``continuous`` hands it to its batcher."""
+        ``models.dense_rows(max_len)`` positions (model dtype; ``max_len``
+        rounded up to a multiple of 8, so its page view exists), created on
+        first use: every ``cb``, ``pfd`` and ``vfd`` target of that slot
+        count is bound to it, and ``continuous`` hands it to its batcher,
+        which still admits requests by ``max_len``."""
         if slots not in self._dense_caches:
             self._dense_caches[slots] = models.init_cache(
-                self.cfg, slots, self.ecfg.max_len, device=self.device
+                self.cfg, slots, models.dense_rows(self.ecfg.max_len),
+                device=self.device,
             )
         return self._dense_caches[slots]
 
     def draft_cache(self, slots: int, draft_kv_dtype: str) -> list:
         """The draft view's dense cache for ``slots`` rows of
-        ``max_len``, created on first use."""
+        ``models.dense_rows(max_len)`` positions, created on first use."""
         key = (slots, draft_kv_dtype)
         if key not in self._draft_caches:
             self._draft_caches[key] = models.init_cache(
-                self.draft_cfg, slots, self.ecfg.max_len, draft_kv_dtype,
-                device=self.device,
+                self.draft_cfg, slots, models.dense_rows(self.ecfg.max_len),
+                draft_kv_dtype, device=self.device,
             )
         return self._draft_caches[key]
 
@@ -659,25 +673,16 @@ class Engine:
         the chunk path, an attention-only stack."""
         return self.ecfg.spec_k > 0 and self._attention_only()
 
-    def _check_dense_view(self, cfg: ArchConfig) -> None:
-        """With ``attn_impl="kernel"`` per-row dense attention runs B1-B4
-        over the cache's page view (``models.dense_page_view``): raise
-        ``ValueError`` at build, naming the shape, where no kernel takes it
-        — a ``max_len`` with no page view, or on the card a head_dim with
-        no instantiation. Never a quiet plain path."""
-        if self.ecfg.attn_impl != "kernel" or not any(
-            cfg.mixer_at(slot).startswith("attn") for slot in range(cfg.period)
-        ):
-            return
-        models.dense_page_size(self.ecfg.max_len)
-        if self.device.type == "cuda" and (
-            cfg.head_dim not in kernel_build.HEAD_DIMS
-        ):
-            raise ValueError(
-                f"{cfg.name}: head_dim={cfg.head_dim} has no paged kernel "
-                f"(instantiated: head_dim {kernel_build.HEAD_DIMS}); the dense "
-                f"cache's attention cannot run on the card"
-            )
+    def _check_kernels(self) -> None:
+        """With ``attn_impl="kernel"`` per-row attention runs B1-B4 (over
+        pages, or over a dense cache's page view): on the card, raise
+        ``ValueError`` at build, naming the shape, where no kernel is
+        instantiated for the model's dtype and head_dim. Never a quiet plain
+        path."""
+        cfg = self.cfg
+        if (self.ecfg.attn_impl == "kernel" and cfg.has_attention
+                and self.device.type == "cuda"):
+            kernel_build.check_head_dim(cfg.name, dtype_of(cfg), cfg.head_dim)
 
     def _spec_lanes_enabled(self, ctx: "_WarmCtx") -> bool:
         """The draft/verify lanes' gate: the batcher's opt-in and support."""
@@ -940,8 +945,7 @@ class Engine:
             (ecfg.spec_k > 0 if spec_decode is None else spec_decode)
             and self._supports_spec_decode()
         )
-        if use_spec:
-            self._check_dense_view(self.draft_cfg)
+        self._check_kernels()
         pool = PagePool(
             self.pool_pages, ecfg.page_size, kv_dtype=dt,
             telemetry=self.telemetry,
@@ -1062,9 +1066,8 @@ class Engine:
             (self.ecfg.spec_k > 0 if spec_decode is None else spec_decode)
             and self._supports_spec_decode()
         )
-        self._check_dense_view(self.cfg)
+        self._check_kernels()
         if use_spec:
-            self._check_dense_view(self.draft_cfg)
             for d in self._warm_draft_kv_dtypes():
                 self.zero_cache(self.draft_cache(s, d))
         cache = self.zero_cache(self.dense_cache(s))

@@ -382,9 +382,15 @@ def test_dense_page_view_is_a_view_with_an_identity_table():
 
 
 def test_a_shape_no_kernel_takes_raises():
-    """A ``max_len`` with no page view raises ``ValueError`` naming it:
-    in the attention, and at engine build (``continuous``; a paged engine's
-    draft cache), never a quiet plain path."""
+    """A dense cache with no page view raises ``ValueError`` naming its
+    ``max_len``, in ``dense_page_size`` and in the attention over it. An
+    engine allocates its dense and draft caches with ``dense_rows(max_len)``
+    rows (a multiple of 8), so it builds at any ``max_len`` and still
+    admits by ``max_len``. A dtype and head_dim no kernel takes raises at
+    build on the card (``build.check_head_dim``): bf16 at head_dim 64 names
+    the tensor-core bodies' missing instantiations (ROADMAP B9 part 2)."""
+    from repro_torch.kernels import build
+
     cfg, _ = _cfg("causal")
     with pytest.raises(ValueError, match="max_len=20"):
         attention.dense_page_size(20)
@@ -394,21 +400,28 @@ def test_a_shape_no_kernel_takes_raises():
             cfg, _layer(cfg), torch.zeros(2, 1, cfg.d_model), cache,
             torch.zeros(2, dtype=torch.int32), local=False,
         )
+    assert [models.dense_rows(n) for n in (20, 24, 100, 1024)] == [
+        24, 24, 104, 1024]
     params = models.init_params(cfg, seed=0)
     with Engine(cfg, params, EngineConfig(max_len=20, max_batch=2),
                 device="cpu") as eng:
+        cb = eng.continuous(slots=2)
+        assert cb.max_len == 20
+        assert eng.dense_cache(2)[0]["k"].shape[2] == 24
         with pytest.raises(ValueError, match="max_len=20"):
-            eng.continuous(slots=2)
+            cb.admit([tsched.Request(rid=0, new_tokens=20, prompt=(1, 2))])
     with Engine(cfg, params, EngineConfig(max_len=20, max_batch=2,
                                           page_size=4, spec_k=2),
                 device="cpu") as eng:
-        with pytest.raises(ValueError, match="max_len=20"):
-            eng.paged_continuous(slots=2)
-    # the plain attention takes any max_len
-    with Engine(cfg, params, EngineConfig(max_len=20, max_batch=2,
-                                          attn_impl="plain"),
-                device="cpu") as eng:
-        assert eng.continuous(slots=2).num_slots == 2
+        assert eng.paged_continuous(slots=2).num_slots == 2
+        assert eng.draft_cache(2, "fp32")[0]["k"].shape[2] == 24
+    with pytest.raises(ValueError, match="B9 part 2"):
+        build.check_head_dim("cb", torch.bfloat16, 64)
+    with pytest.raises(ValueError, match="no kernel instantiated.*head_dim=8"):
+        build.check_head_dim("cb", torch.float32, 8)
+    for dtype, dims in build.HEAD_DIMS.items():
+        for hd in dims:
+            build.check_head_dim("cb", dtype, hd)
 
 
 def test_admission_seats_ascending_and_rejects_what_cannot_fit(smoke):

@@ -212,7 +212,7 @@ def test_split_emulation_matches_plain(group, ps, window, softcap, int8):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["model_dtype", "int8"])
-@pytest.mark.parametrize("dh", (16, 128))
+@pytest.mark.parametrize("dh", (16, 64, 128))
 def test_masked_and_empty_partials_weigh_nothing(dh, int8):
     """A window of 3 keys at the end of a page leaves the lane groups and
     warps before it with only masked keys (m = NEG_INF), and rows of one
@@ -412,8 +412,7 @@ def test_decode_entry_points_launch_the_split_body(source, entry):
     body = _body(src, f'extern "C" int {entry}(')
     routes = {(int(d), int(hd)): fn for d, hd, fn in re.findall(
         r"if \(dtype == (\d) && head_dim == (\d+)\) return (\w+)", body)}
-    assert set(routes) == {(c, hd) for c in build.DTYPE_CODES.values()
-                           for hd in build.HEAD_DIMS}
+    assert set(routes) == build.instantiated()
     assert set(routes.values()) == {"launch_decode_split"}
     assert "splits" in body
     for call in ("cudaMalloc", "Synchronize", "cudaMemcpy", "new "):
