@@ -34,6 +34,15 @@ Phases (any failure exits non-zero before a result is printed):
    on 512-page tables (gemma2-27b's max_len 8192 at page 16) at positions
    past a 4096 window. Phase 1 also checks the head_dim-64 instantiations'
    ptxas report: 65 of them, no spills.
+2b. The sampling kernel (``sample_rows``: the steps' threefry categorical
+   draw, greedy argmax and key split) against its plain version
+   (``repro_torch.prng``) on the card, at 8 rows of 50304, 151936 and
+   256000 and one row of 50304, float32 and bfloat16, mixed temperatures
+   and greedy flags: new keys and every element's score bit for bit (so
+   the random bits, the uniform and the gumbel), tokens equal or a near-tie
+   within one ulp of the score dtype (counted); the burst's
+   ``categorical_rows`` equal; the plain threefry's bits on the card equal
+   the CPU's.
 3. The serving paths: olmo-1b at full width (bf16, seeded random weights)
    serving a shared-prefix stream through ``run_paged_stream`` with chunked
    prefill — first on bf16 pages (B1/B2), then on int8 pages with
@@ -42,7 +51,8 @@ Phases (any failure exits non-zero before a result is printed):
    ``set_mode`` + ``decode_loop``, B5), each with the kernels' launch counts
    set to 0 just before it and every other kernel held at 0 launches (the
    spec cell's draft lanes run B3/B4 over the int8 draft cache's page
-   view). Every branch target of these paths is a CUDA graph
+   view); ``sample_rows`` launches once per sampling step (k times per
+   draft call), its count held to the graph targets' replays. Every branch target of these paths is a CUDA graph
    (``EngineConfig.cuda_graphs``' default on the card), captured once over
    the engine's pools and caches; a replay counts the kernel launches it
    holds.
@@ -50,7 +60,8 @@ Phases (any failure exits non-zero before a result is printed):
    bf16, int8+spec and burst cells' traffic (and mamba2's burst traffic in
    phase 6) each run both ways under one step clock on the same weights
    and requests; greedy tokens equal, or a request's first divergence is a
-   near-tie on the card; captures after warmup 0 on the paged streams, the
+   near-tie on the card, sampled tokens equal (the same keys through the
+   same kernel); captures after warmup 0 on the paged streams, the
    distinct keys met on the burst streams; peak memory with every target
    captured. Then one step of ``cbp``, ``pf``, ``vf``+``dr`` and ``burst``
    (and mamba2's ``burst``), graph and eager in the same call, as the
@@ -70,6 +81,15 @@ Phases (any failure exits non-zero before a result is printed):
    layer per ``dr`` call), counted from the graph targets' replays; zero
    captures after warmup; then graphs against the eager steps under one
    step clock; one replayed ``cb`` step profiled graph vs eager.
+3d. The async step pipeline (``async_steps``) against the synchronous loop
+   on the paged bf16 cell's and dense cell (a)'s streams, each run sync
+   then async on one engine (graph targets) under a clock that moves with
+   the batcher's step count (so both admit each request at the same step):
+   every token equal, sampled ones too, the same steps and lane calls, 0
+   captures after warmup, in-flight depth >= 2; tok/s over the wall time
+   of the steps, ``host_plan_ms``, ``device_wait_ms`` for both, and 20
+   steady decode steps of each engine profiled sync and async (host wall
+   against device busy: the idle share).
 4. One paged prefill step and one paged decode step at full width with the
    kernels and with the plain attention, on identical inputs, for bf16 and
    int8 pages; the prompt-then-burst path (``prefill`` of 8 prompts of 256
@@ -80,13 +100,15 @@ Phases (any failure exits non-zero before a result is printed):
    steps (int8 pages), `pf` steps
    (8 rows x chunk 64 on bf16 and on int8 pages: B2's and B4's share) and
    burst steps: device busy vs host wall.
-5. The smoke config's greedy stream on the card (graph targets) and on
-   the CPU under one step clock: plain, and with speculation on model-dtype
-   pages (B2 through the verify lane) and on int8 pages; the spec streams
+5. The smoke config's stream, a third of its requests sampled, on the card
+   (graph targets) and on the CPU under one step clock, sampled tokens
+   included: plain, and with speculation on model-dtype pages (B2 through
+   the verify lane) and on int8 pages; the spec streams' greedy requests
    equal the plain ones; a stream with half its requests sampled through
-   graph targets equals the eager targets' for one seed. The same for the
-   dense continuous engine: olmo-1b with chunked prefill, with speculation
-   and an int8 draft, and mamba2-370m through ``cb``, card = CPU.
+   graph targets equals the eager targets'. The same for the dense
+   continuous engine: olmo-1b with chunked prefill, with speculation and an
+   int8 draft, and mamba2-370m through ``cb``, card = CPU; and mamba2's
+   burst stream.
 6. mamba2 (B8): the SSD chunked scan against its plain version on the
    smoke config's heads (chunks 4, 8, 16; S 16, 32 and a ragged 20) and on
    mamba2-370m's (chunk 256; S 1, 255, 256, 257, 1024, 1056 and 2048; bf16
@@ -104,7 +126,10 @@ Phases (any failure exits non-zero before a result is printed):
    (B4 also at the verify window's, B8 at the mamba2 prefill's): kernel
    (per call, and B1-B5 and B8 also device-only), plain version,
    one PyTorch library call where one exists (a yardstick the port never
-   calls) and the bound, and the B7 / B6 time ratio per mode.
+   calls) and the bound, and the B7 / B6 time ratio per mode; and
+   ``sample_rows`` at phase 2b's shapes beside its plain version, the old
+   noise tail and its bound (bytes or int32 operations at the card's SM
+   clock).
 
 8. The rest of the dense model path at full width, one model at a time,
    weights seeded on the card (init peak: the weights and one f32 slab):
@@ -175,6 +200,14 @@ TIE_MARGIN = 1e-4
 # near-tie when forward's top logit leads the burst's token by less than the
 # bf16 logits tolerance between two attention implementations.
 BF16_TIE_MARGIN = STEP_LOGIT_ATOL
+# The sampling kernel (csrc/sample_rows.cu): int32 operations per element of
+# a sampled row — threefry-2x32 (2 + 5 x 12 round + 5 x 2 injection adds,
+# a rotate being one funnel shift), the xor of its words and the float's
+# shift and or — and per element of any row (the score's order-preserving
+# packing and the running max); H100 SXM: 132 SMs of 64 int32 lanes.
+SAMPLE_OPS_PER_DRAW = 75
+SAMPLE_OPS_PER_ELEMENT = 4
+INT32_LANES = 132 * 64
 
 
 def log(msg: str) -> None:
@@ -737,6 +770,77 @@ def _dense_cases(tag: str, h: int, kh: int, dh: int, dtype, *, seed: int,
     return errs
 
 
+# ----------------------------------------------------------------- phase 2b
+# The sampling kernel's cases: every served vocabulary (olmo-1b, qwen3-14b,
+# gemma2-27b) at 8 rows, and one row; float32 (the serving steps' logits)
+# and bfloat16.
+SAMPLE_SHAPES = ((8, 50304), (8, 151936), (8, 256000), (1, 50304))
+
+
+def _sampling_inputs(rows: int, vocab: int, dtype, seed: int):
+    """Logits of a trained model's spread, temperatures 0-2 (0 clamps to
+    1e-4), every third row greedy, keys as a batcher draws them."""
+    g = torch.Generator().manual_seed(seed)
+    logits = (torch.randn(rows, vocab, generator=g) * 4).to("cuda", dtype)
+    temps = (torch.rand(rows, generator=g) * 2).to("cuda")
+    temps[0] = 0.0
+    greedy = (torch.arange(rows) % 3 == 1).to("cuda")
+    return logits, temps, greedy, _row_keys(rows, seed=seed)
+
+
+def sampling_vs_plain() -> None:
+    """``sample_rows`` against its plain version on the card: the new keys
+    and every element's score (so the random bits, the uniform and the
+    gumbel) bit for bit, then the tokens; where a token differs, both
+    candidates' scores must lie within one ulp of the score dtype (a
+    near-tie), counted. ``categorical_rows`` (the sampled burst) the same
+    way on its tokens. The plain threefry's bits on the card equal the
+    CPU's."""
+    from repro_torch import kernels, prng
+    from repro_torch.kernels import sampling
+
+    keys = _row_keys(8, seed=1)
+    for width in (32, 8):
+        card = prng.random_bits(keys, width, (50304,))
+        check(torch.equal(card.cpu(), prng.random_bits(keys.cpu(), width,
+                                                        (50304,))),
+              f"prng.random_bits({width}): card != CPU")
+    saved = kernels.sample_rows.launches  # checks are not main-path launches
+    for rows, vocab in SAMPLE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            logits, temps, greedy, keys = _sampling_inputs(rows, vocab, dtype,
+                                                           seed=vocab + rows)
+            scores = torch.empty(rows, vocab, device="cuda")
+            tok, new_keys = kernels.sample_rows(logits, temps, greedy, keys,
+                                                scores=scores)
+            ptok, pkeys = sampling.sample_rows_plain(logits, temps, greedy,
+                                                     keys)
+            want = sampling.sample_scores_plain(logits, temps, greedy, keys)
+            torch.cuda.synchronize()
+            tag = f"sample_rows {rows}x{vocab} {str(dtype)[6:]}"
+            check(torch.equal(new_keys, pkeys), f"{tag}: new keys differ")
+            off = int((scores != want).sum())
+            ulp = torch.finfo(dtype).eps * want.abs().clamp_min(1.0)
+            check(bool(((scores - want).abs() <= ulp).all()),
+                  f"{tag}: scores beyond one ulp of the plain version's")
+            ties = 0
+            for r in torch.nonzero(tok != ptok).flatten().tolist():
+                a, b = want[r, tok[r]], want[r, ptok[r]]
+                check(bool((a - b).abs() <= ulp[r, ptok[r]]),
+                      f"{tag}: row {r} token {int(tok[r])} vs plain "
+                      f"{int(ptok[r])}, scores {float(a)} / {float(b)}")
+                ties += 1
+            flat = kernels.categorical_rows(keys[0], logits, 0.8)
+            pflat = sampling.categorical_rows_plain(keys[0], logits, 0.8)
+            flips = int((flat != pflat).sum())
+            check(flips == 0, f"{tag}: categorical_rows differs on {flips} rows")
+            log(f"[sampling] {tag}: new keys equal, scores (bits, uniform, "
+                f"gumbel, logits / t) bit-equal on all but {off} of "
+                f"{rows * vocab} elements, {ties} near-tie token flips; "
+                f"categorical_rows equal on every row")
+    kernels.sample_rows.launches = saved
+
+
 # ------------------------------------------------------------------ phase 3
 def _launches(label: str, expect: tuple) -> dict:
     """Read the kernels' counts after a path: every kernel in ``expect``
@@ -820,12 +924,14 @@ def _continuous_traffic(cfg, prompt_len: int = 128) -> list:
 
 
 def burst_stream(cfg, params, label: str = "burst",
-                 expect: tuple = ("decode_attention",)) -> tuple[dict, dict]:
+                 expect: tuple = ("decode_attention", "sample_rows"),
+                 ) -> tuple[dict, dict]:
     """The per-burst engine at full width: Poisson traffic (the paged
     streams' rate), a quarter sampled; every burst pays set_mode, so its
     builds after the stream starts are the distinct (bucket, mode) keys it
-    meets. ``expect``: the kernels of the model's decode step (none for
-    mamba2, whose recurrent step is plain tensor code)."""
+    meets. ``expect``: the kernels of the model's decode step (for mamba2,
+    whose recurrent step is plain tensor code, the sampled bursts'
+    ``sample_rows`` alone)."""
     from repro_torch import kernels
     from repro_torch.runtime.serve import Engine, EngineConfig, run_burst_stream
 
@@ -880,9 +986,13 @@ def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
         warm = len(chunk_buckets) + len(eng._k_buckets())
         draft_layers = eng.draft_cfg.num_layers if ecfg.spec_k else 0
         targets = len(eng._decode)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        draws = _lane_launches(eng)[0]["sample_rows"]
     wall = time.perf_counter() - t0
-    launches = _launches(label, expect)
+    launches = _launches(label, expect + ("sample_rows",))
+    check(launches["sample_rows"] == draws,
+          f"{label}: sample_rows launched {launches['sample_rows']} times, "
+          f"expected {draws} (one per sampling step, k per dr call)")
     # the chunk kernel serves the pf and vf lanes, one launch per layer per
     # call, warmup's included: each warmed key runs its step once before
     # its capture and replays once to warm; a capture launches nothing.
@@ -905,8 +1015,9 @@ def _serve(label: str, cfg, params, ecfg, reqs, expect: tuple) -> tuple:
           f"expected {want} (one per layer per pf/vf/drp call)")
     log(f"[stream:{label}] {pf_kernel} {want} launches = {cfg.num_layers} "
         f"layers x ({steps['prefill']} pf + {steps['verify']} vf replays + "
-        f"{runs} x {warm} warmup runs){drp} | {targets} graph targets "
-        f"captured")
+        f"{runs} x {warm} warmup runs){drp} | sample_rows {draws} launches "
+        f"(one per sampling step, k per dr call, warmup runs included) | "
+        f"{targets} graph targets captured")
     check(rep["compiles_after_warmup"] == 0,
           f"{label}: compiles_after_warmup {rep['compiles_after_warmup']}")
     check(rep["prefill_chunks"] > 0, f"{label}: no prefill chunks ran")
@@ -1028,7 +1139,10 @@ def _paired_streams(label: str, cfg, params, ecfg: dict, traffic,
     ``"burst"``) through graph targets and again through the eager steps
     (``cuda_graphs=False``) on the same weights and requests, under one
     step clock: greedy tokens equal, or a request's first divergence is a
-    near-tie; builds (captures) after warmup 0 on a paged or continuous
+    near-tie; sampled tokens equal (both runs draw from the same per-slot
+    keys through the same kernel, so only a logit that differs between the
+    two runs could flip one, and a flip fails); builds (captures) after
+    warmup 0 on a paged or continuous
     stream, the distinct keys met on a burst stream. With ``count`` the
     graph run is a main path: the kernels' counts set to 0 just before it
     and held to its targets' replays just after (``_held_launches``)."""
@@ -1083,6 +1197,8 @@ def _paired_streams(label: str, cfg, params, ecfg: dict, traffic,
         if not r.greedy:
             sampled += 1
             sampled_equal += r.tokens == e.tokens
+            check(r.tokens == e.tokens, f"{label}: rid {r.rid} graph and "
+                  f"eager sampled streams differ")
             continue
         if r.tokens == e.tokens:
             equal += 1
@@ -1109,7 +1225,8 @@ def _paired_streams(label: str, cfg, params, ecfg: dict, traffic,
         f"warmup runs included")
     log(f"[graphs:{label}] {cfg.name}: graphs = eager on {equal} greedy "
         f"requests, {ties} near-tie divergences; sampled {sampled_equal}/"
-        f"{sampled} equal (one seed) | {tokens} tokens, wall incl. warmup "
+        f"{sampled} equal (threefry keys) | {tokens} tokens, wall incl. "
+        f"warmup "
         f"{gwall:.2f}s graphs ({ntargets} targets captured, captures after "
         f"warmup {grep['compiles_after_warmup']}) vs {ewall:.2f}s eager{host}"
         f"{held} | peak memory {gpeak / 1e9:.2f} GB graphs, "
@@ -1189,6 +1306,15 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def _row_keys(rows: int, dev: str = "cuda", seed: int = 0) -> torch.Tensor:
+    """Per-row threefry keys (uint32 bits as int32), drawn as a batcher
+    draws them."""
+    import numpy as np
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2**32, size=(rows, 2), dtype=np.uint32).view(np.int32)).to(dev)
+
+
 def _steady_args(exe, args: list) -> list:
     """The serving loop's steady state: the arguments held in a graph
     target's static inputs (where the mirror's uploads land), so a call
@@ -1215,7 +1341,7 @@ def _step_runs(eng, lane: str, slots: int, dev: str = "cuda"):
 
     i32 = torch.int32
     cfg, cap = eng.cfg, eng.max_pages_per_req
-    gen = torch.Generator(device=dev).manual_seed(0)
+    keys = _row_keys(slots, dev)
     temps = torch.ones(slots, device=dev)
     greedy = torch.ones(slots, dtype=torch.bool, device=dev)
     active = torch.ones(slots, dtype=torch.bool, device=dev)
@@ -1228,12 +1354,13 @@ def _step_runs(eng, lane: str, slots: int, dev: str = "cuda"):
         state = _steady_args(exe, [
             torch.zeros(slots, 1, dtype=i32, device=dev),
             torch.full((slots,), 200, dtype=i32, device=dev),
-            btf[:, :16].contiguous(), active, temps, greedy])
+            btf[:, :16].contiguous(), active, temps, greedy, keys])
 
         def run():
-            out = exe(cache, *state, gen)
-            state[0], state[1] = out[3], out[2]  # chained, as the mirror does
-            return out[4].cpu()
+            out = exe(cache, *state)
+            # chained, as the mirror does: token, position, keys
+            state[0], state[1], state[6] = out[4], out[2], out[3]
+            return out[5].cpu()
 
         return run
     if lane == "pf":
@@ -1242,13 +1369,17 @@ def _step_runs(eng, lane: str, slots: int, dev: str = "cuda"):
         hosts = [rng.integers(0, cfg.vocab_size, (slots, 64)).astype(np.int32),
                  np.array([0, 64, 128, 192] * (slots // 4), np.int32), bt_h,
                  np.full(slots, 64, np.int32)]
-        dst = getattr(exe, "static_inputs", None) or (None,) * 4
-        fixed = _steady_args(exe, [torch.from_numpy(h).to(dev) for h in hosts]
-                      + [temps, greedy])
+        keys_h = keys.cpu().numpy()
+        hosts.append(keys_h)  # a synchronous chunk uploads its keys raw
+        dst = getattr(exe, "static_inputs", None) or (None,) * 7
+        dst = dst[:4] + dst[6:]
+        fixed = _steady_args(exe, [torch.from_numpy(h).to(dev)
+                                   for h in hosts[:4]]
+                             + [temps, greedy, keys])
 
         def run():
             up = [_upload(h, dev, d) for h, d in zip(hosts, dst)]
-            return exe(cache, *up, fixed[4], fixed[5], gen)[0].cpu()
+            return exe(cache, *up[:4], fixed[4], fixed[5], up[4])[3].cpu()
 
         return run
     k = eng.ecfg.spec_k
@@ -1257,19 +1388,21 @@ def _step_runs(eng, lane: str, slots: int, dev: str = "cuda"):
     dcache = eng.draft_cache(slots, eng.ecfg.draft_kv_dtype)
     pos = torch.full((slots,), 200, dtype=i32, device=dev)
     dstate = _steady_args(dr, [torch.zeros(slots, 1, dtype=i32, device=dev), pos,
-                        active])
+                        active, temps, greedy, keys])
     len_h = np.full(slots, k + 1, np.int32)
     vfixed = _steady_args(vf, [torch.zeros(slots, k + 1, dtype=i32, device=dev),
                         pos, btf, torch.from_numpy(len_h).to(dev), temps,
-                        greedy])
+                        greedy, keys])
     vdst = getattr(vf, "static_inputs", None) or (None,) * 4
 
     def run():
         drafts = dr(dcache, *dstate)[0].cpu().numpy()
         window = np.concatenate([np.zeros((slots, 1), np.int32), drafts], 1)
         out = vf(cache, _upload(window, dev, vdst[0]), vfixed[1], vfixed[2],
-                 _upload(len_h, dev, vdst[3]), vfixed[4], vfixed[5], gen)
-        return out[3].cpu()
+                 _upload(len_h, dev, vdst[3]), vfixed[4], vfixed[5],
+                 vfixed[6])
+        vfixed[6] = out[3]  # the verify target's keys chain
+        return out[4].cpu()
 
     return run
 
@@ -1282,12 +1415,12 @@ def _burst_run(eng, bucket: int, pos: int):
 
     eng.set_mode(batch=bucket, sampling=GREEDY)
     exe, cache = eng._current, eng.zero_cache(eng.burst_cache(bucket))
-    gen = torch.Generator(device="cuda")
     state = [torch.zeros(bucket, 1, dtype=torch.int32, device="cuda"),
-             torch.tensor(pos, dtype=torch.int32, device="cuda")]
+             torch.tensor(pos, dtype=torch.int32, device="cuda"),
+             torch.zeros(2, dtype=torch.int32, device="cuda")]
 
     def run():
-        out = exe(cache, *state, gen)
+        out = exe(cache, *state)
         state[0], state[1] = out[2], out[3]
         return out[0]
 
@@ -1360,8 +1493,9 @@ def _lane_launches(eng) -> tuple[dict, dict]:
     runs ``WARMUP_RUNS`` times before its capture, and every replay (its
     warm run, ``cb``'s second on the zeroed cache, a burst key's warm run
     at each ``set_mode``, the batcher's calls) launches its lane's kernel
-    once per attention layer (``k`` times per draft layer for ``dr``) —
-    and each lane's replays less its warm ones."""
+    once per attention layer (``k`` times per draft layer for ``dr``), and
+    ``sample_rows`` once (``k`` times for ``dr``; a greedy burst key not
+    at all) — and each lane's replays less its warm ones."""
     from repro_torch.core.graph_target import WARMUP_RUNS
 
     def attn_layers(cfg) -> int:
@@ -1372,13 +1506,17 @@ def _lane_launches(eng) -> tuple[dict, dict]:
     for key in eng._decode.cache.keys():
         target = eng._decode.cache.get(key)
         lane = key[0]
+        replays = target.graph.replays
+        if lane != "burst" or key[2] == 1:  # every step samples but greedy
+            draws = key[2] if lane == "dr" else 1  # bursts'; dr k times
+            want["sample_rows"] = (want.get("sample_rows", 0)
+                                   + (replays + WARMUP_RUNS) * draws)
         layers = attn_layers(eng.draft_cfg if lane in ("dr", "drp")
                              else eng.cfg)
         if not layers:
             continue
         per_run = layers * (key[2] if lane == "dr" else 1)
         kernel = _lane_kernel(key)
-        replays = target.graph.replays
         want[kernel] = want.get(kernel, 0) + (replays + WARMUP_RUNS) * per_run
         calls[lane] = calls.get(lane, 0) + replays - (2 if lane == "cb" else 1)
     return want, calls
@@ -1456,18 +1594,19 @@ def _dense_cb_run(eng, slots: int):
     dev, i32 = "cuda", torch.int32
     exe = eng._decode.build(lanes.CB.key(slots))
     cache = eng.dense_cache(slots)
-    gen = torch.Generator(device=dev).manual_seed(0)
     state = _steady_args(exe, [
         torch.zeros(slots, 1, dtype=i32, device=dev),
         torch.full((slots,), 200, dtype=i32, device=dev),
         torch.ones(slots, dtype=torch.bool, device=dev),
         torch.ones(slots, device=dev),
-        torch.ones(slots, dtype=torch.bool, device=dev)])
+        torch.ones(slots, dtype=torch.bool, device=dev),
+        _row_keys(slots, dev)])
 
     def run():
-        out = exe(cache, *state, gen)
-        state[0], state[1] = out[3], out[2]  # chained, as the mirror does
-        return out[4].cpu()
+        out = exe(cache, *state)
+        # chained, as the mirror does: token, position, keys
+        state[0], state[1], state[5] = out[4], out[2], out[3]
+        return out[5].cpu()
 
     return run
 
@@ -1590,10 +1729,11 @@ def continuous_phase(cfg, params, burst_rep: dict) -> dict:
 
 
 def continuous_smoke_card_vs_cpu() -> None:
-    """The smoke configs' greedy continuous streams (fp32, TF32 off) on
-    the card (graph targets) and on the CPU under one step clock:
-    olmo-1b with chunked prefill, with speculation and an int8 draft, and
-    mamba2-370m through ``cb`` (prompts forced token by token)."""
+    """The smoke configs' continuous streams (fp32, TF32 off), a third of
+    the requests sampled, on the card (graph targets) and on the CPU under
+    one step clock: olmo-1b with chunked prefill, with speculation and an
+    int8 draft, and mamba2-370m through ``cb`` (prompts forced token by
+    token). Greedy requests equal or a near-tie; sampled ones equal."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.runtime.scheduler import (
@@ -1617,7 +1757,7 @@ def continuous_smoke_card_vs_cpu() -> None:
         streams = {}
         for dev in ("cuda", "cpu"):
             reqs = poisson_arrivals(12, 1000.0, seed=2, tokens_mean=8,
-                                    tokens_max=40, sample_frac=0.0,
+                                    tokens_max=40, sample_frac=1 / 3,
                                     vocab=cfg.vocab_size)
             attach_distinct_prompts(reqs, 20, vocab=cfg.vocab_size, seed=3)
             with Engine(cfg, params, EngineConfig(max_len=64, max_batch=4,
@@ -1631,22 +1771,193 @@ def continuous_smoke_card_vs_cpu() -> None:
                   f"continuous smoke {arch} {label} {dev}: {rep['finished']} "
                   f"finished, {rep['compiles_after_warmup']} compiles after "
                   f"warmup")
-            streams[dev] = {r.rid: (r.prompt, r.tokens) for r in reqs}
+            streams[dev] = {r.rid: (r.prompt, r.tokens, r.greedy)
+                            for r in reqs}
         ties = 0
-        for rid, (prompt, toks) in streams["cpu"].items():
+        for rid, (prompt, toks, greedy) in streams["cpu"].items():
             card = streams["cuda"][rid][1]
             if card == toks:
                 continue
             i = next(i for i, (x, y) in enumerate(zip(toks, card)) if x != y)
-            check(arch == "olmo-1b" and _near_tie(
+            check(greedy and arch == "olmo-1b" and _near_tie(
                 cfg, params, list(prompt) + toks[:i], "fp32"),
                 f"continuous smoke {arch} {label}: card != CPU at rid {rid} "
                 f"token {i}")
             ties += 1
-        n = sum(len(t) for _, t in streams["cpu"].values())
-        log(f"[continuous:smoke] {arch} {label}, greedy: card = CPU on "
+        n = sum(len(t) for _, t, _ in streams["cpu"].values())
+        sampled = sum(not g for _, _, g in streams["cpu"].values())
+        log(f"[continuous:smoke] {arch} {label}: card = CPU on "
             f"{len(streams['cpu']) - ties} of {len(streams['cpu'])} requests "
-            f"({n} tokens), {ties} near-tie divergences")
+            f"({sampled} sampled, {n} tokens), {ties} near-tie divergences")
+
+
+# ------------------------------------------------ phase 3d (async vs sync)
+class _BatcherClock:
+    """Virtual time that moves with the batcher's own step count and jumps
+    over idle gaps: a synchronous and an async run admit each request at
+    the same step, so their schedules — lane calls, and the per-step key
+    splits that decide sampled tokens — are the same, while the loop runs
+    at the card's pace (no waiting), so the wall time between the first
+    and the last step is the stream's processing time."""
+
+    def __init__(self, dt: float = 0.004) -> None:
+        self.dt = dt
+        self.offset = 0.0
+        self.batcher = None
+        self.t_wall = None
+
+    def bind(self, batcher):
+        self.batcher, self.t_wall = batcher, time.perf_counter()
+        return batcher
+
+    def now(self) -> float:
+        steps = self.batcher.stats.steps if self.batcher is not None else 0
+        return self.offset + steps * self.dt
+
+    def jump_to(self, t: float) -> None:
+        self.offset += max(0.0, t - self.now())
+
+
+def _async_stream(eng, engine: str, reqs, async_steps: bool) -> dict:
+    """One stream on ``eng`` under a ``_BatcherClock``: its report, with
+    the wall time from the batcher's creation (after warmup) to the end."""
+    from repro_torch.runtime.serve import run_continuous_stream, run_paged_stream
+
+    clock = _BatcherClock()
+    make = "paged_continuous" if engine == "paged" else "continuous"
+    orig = getattr(eng, make)
+    setattr(eng, make, lambda **kw: clock.bind(orig(**kw)))
+    try:
+        run = run_paged_stream if engine == "paged" else run_continuous_stream
+        rep = run(eng, reqs, slots=8, seed=0, clock=clock,
+                  async_steps=async_steps)
+    finally:
+        delattr(eng, make)
+    torch.cuda.synchronize()
+    rep["wall_s"] = time.perf_counter() - clock.t_wall
+    return rep
+
+
+def _steady_steps(eng, engine: str, async_steps: bool) -> dict:
+    """Steady decode steps as the batcher takes them (8 prompt-less greedy
+    requests of 400 tokens, 10 steps in), sync or async: host wall per step
+    over 50 steps without the profiler (which inflates the host's Python
+    time), device busy per step from ``torch.profiler`` over 20 more, and
+    the step's idle share, 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.scheduler import Request
+
+    cb = (eng.paged_continuous if engine == "paged" else eng.continuous)(
+        slots=8, async_steps=async_steps)
+    cb.admit([Request(rid=i, new_tokens=400, first_token=i + 1)
+              for i in range(8)], now=0.0)
+    for _ in range(10):
+        cb.step(0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        cb.step(0.0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 50
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            cb.step(0.0)
+        torch.cuda.synchronize()
+    busy = sum(_kernel_ms(prof, 20).values()) or None
+    cb.flush(0.0)
+    idle = None if busy is None else 1.0 - busy / wall_ms
+    log(f"[async:{engine}] steady decode step, async_steps={async_steps} (8 "
+        f"slots, positions 10-90): wall {wall_ms:.3f} ms per step (50 steps, "
+        f"no profiler), device busy "
+        + ("not measured" if busy is None else
+           f"{busy:.3f} ms (profiler, 20 steps), idle share "
+           f"{100 * idle:.1f}%") + f" | {_card()}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": idle}
+
+
+def async_phase(cfg, params) -> dict:
+    """The async step pipeline against the synchronous loop at full width
+    (olmo-1b bf16, graph targets): the paged bf16 cell's stream and dense
+    cell (a)'s, each run sync then async on one engine under a
+    ``_BatcherClock``: every token equal (sampled ones too), the same steps
+    and lane calls, 0 captures after warmup, in-flight depth >= 2 on the
+    async run; wall tok/s over the same schedule, ``host_plan_ms`` and
+    ``device_wait_ms`` printed for both, then a steady decode step's idle
+    share both ways."""
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    cells = {
+        "paged": (dict(max_len=1024, max_batch=8, page_size=16,
+                       prefill_chunk=64), _shared_prefix_traffic),
+        "continuous": (dict(max_len=1024, max_batch=8, prefill_chunk=64),
+                       _continuous_traffic),
+    }
+    out = {}
+    for engine, (ecfg, traffic) in cells.items():
+        _release_engines()
+        t0 = time.perf_counter()
+        runs = {}
+        with Engine(cfg, params, EngineConfig(**ecfg)) as eng:
+            check(eng.graphs, f"async {engine}: targets are not CUDA graphs")
+            for mode in (False, True):
+                reqs = traffic(cfg)
+                rep = _async_stream(eng, engine, reqs, mode)
+                _check_stream(f"async {engine}/{mode}", cfg, reqs, rep)
+                check(rep["compiles_after_warmup"] == 0,
+                      f"async {engine} async_steps={mode}: "
+                      f"{rep['compiles_after_warmup']} captures after warmup")
+                runs[mode] = (reqs, rep)
+            idle = {mode: _steady_steps(eng, engine, mode)
+                    for mode in (False, True)}
+        (sreqs, srep), (areqs, arep) = runs[False], runs[True]
+        check([r.tokens for r in sreqs] == [r.tokens for r in areqs],
+              f"async {engine}: async tokens != synchronous tokens")
+        # run-ahead issues a decode step past a stream's last token when
+        # the step before it was chainable (the JAX package's pipeline
+        # does the same): the decode lane may take those extra calls, no
+        # other lane differs
+        lane = "cbp" if engine == "paged" else "cb"
+        extra = arep["steps"] - srep["steps"]
+        calls = dict(arep["lane_calls"])
+        calls[lane] = calls.get(lane, 0) - extra
+        check(extra >= 0 and calls == srep["lane_calls"],
+              f"async {engine}: steps/lane calls {arep['steps']} "
+              f"{arep['lane_calls']} vs sync {srep['steps']} "
+              f"{srep['lane_calls']}")
+        check(arep["pipeline"]["inflight_depth"] >= 2,
+              f"async {engine}: in-flight depth "
+              f"{arep['pipeline']['inflight_depth']}")
+        sampled = sum(not r.greedy for r in areqs)
+        line = {}
+        for mode, (_, rep) in runs.items():
+            p = rep["pipeline"]
+            line[mode] = {"tok_per_s_wall": rep["tokens"] / rep["wall_s"],
+                          "wall_s": rep["wall_s"], "steps": rep["steps"],
+                          "host_plan_ms": p["host_plan_ms"],
+                          "device_wait_ms": p["device_wait_ms"],
+                          "d2h_transfers": p["d2h_transfers"],
+                          "inflight_depth": p["inflight_depth"]}
+        log(f"[async:{engine}] olmo-1b bf16, {len(areqs)} requests "
+            f"({sampled} sampled), {arep['tokens']} tokens, {srep['steps']} "
+            f"steps sync, lane calls {srep['lane_calls']}: async = sync on "
+            f"every token and lane call, +{extra} run-ahead decode step(s) "
+            f"past the last token, 0 captures after warmup | sync: "
+            f"{line[False]['tok_per_s_wall']:.1f} tok/s over "
+            f"{line[False]['wall_s']:.3f}s of steps, host_plan_ms "
+            f"{line[False]['host_plan_ms']}, device_wait_ms "
+            f"{line[False]['device_wait_ms']}, d2h {line[False]['d2h_transfers']}"
+            f" | async: {line[True]['tok_per_s_wall']:.1f} tok/s over "
+            f"{line[True]['wall_s']:.3f}s, host_plan_ms "
+            f"{line[True]['host_plan_ms']}, device_wait_ms "
+            f"{line[True]['device_wait_ms']}, d2h {line[True]['d2h_transfers']}"
+            f", in-flight depth {line[True]['inflight_depth']} | speedup "
+            f"{line[True]['tok_per_s_wall'] / line[False]['tok_per_s_wall']:.3f}"
+            f" | phase {time.perf_counter() - t0:.1f}s | {_card()}")
+        out[engine] = {"sync": line[False], "async": line[True],
+                       "idle": idle}
+    return out
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1761,9 +2072,9 @@ def prompt_then_burst(cfg, params) -> dict:
         exe = eng._current
         tok = torch.from_numpy(toks[:, -1:]).to("cuda")
         pos = torch.tensor(prompt_len + n, dtype=torch.int32, device="cuda")
-        gen_ = torch.Generator(device="cuda")
+        key = torch.zeros(2, dtype=torch.int32, device="cuda")
         _profile(f"full-width burst step (dense cache, {b} rows, pos "
-                 f"{prompt_len + n})", lambda: exe(cache, tok, pos, gen_), 5,
+                 f"{prompt_len + n})", lambda: exe(cache, tok, pos, key), 5,
                  "dense_decode_split_kernel")
     return launches
 
@@ -1850,15 +2161,15 @@ def profile_steps(cfg, params) -> None:
                        device=dev).view(slots, cap)
     active = torch.ones(slots, dtype=torch.bool, device=dev)
     temps = torch.ones(slots, device=dev)
-    gen = torch.Generator(device=dev)
+    keys = _row_keys(slots, dev)
     length = torch.full((slots,), k + 1, dtype=torch.int32, device=dev)
 
     def spec_step():
-        drafts, _, _ = draft(dparams, dcache, tok, pos, active)
+        drafts = draft(dparams, dcache, tok, pos, active, temps, active,
+                       keys)[0]
         window = torch.cat([tok, drafts], dim=1)
-        u = steps_mod.draw_noise(slots, cfg.vocab_size, gen, dev)
         return verify(params, cache8, window, pos, btf, length, temps, active,
-                      u)
+                      keys)
 
     _profile("full-width spec step (int8 pages, draft 2 layers x k 4 + "
              "5-row verify, 8 slots, pos 200)", spec_step, 5,
@@ -1904,10 +2215,13 @@ def _near_tie(cfg, params, seq, kv_dtype: str) -> bool:
 
 
 def smoke_card_vs_cpu() -> dict:
-    """The smoke config (fp32, TF32 off), greedy: card (graph targets) =
-    CPU for the plain stream and for speculation on model-dtype and on int8
-    pages, under one step clock; each spec stream equals its pool's plain
-    stream up to a near-tie."""
+    """The smoke config (fp32, TF32 off), a third of the requests sampled:
+    card (graph targets) = CPU for the plain stream and for speculation on
+    model-dtype and on int8 pages, under one step clock, sampled tokens
+    included (threefry keys: the kernel on the card, ``prng`` on the CPU);
+    each spec stream's greedy requests equal its pool's plain stream up to
+    a near-tie (a sampled request's keys split once per step, and the two
+    schedules take different steps)."""
     from repro_torch import kernels, models
     from repro_torch.configs import get_config
     from repro_torch.runtime.scheduler import shared_prefix_arrivals
@@ -1920,7 +2234,7 @@ def smoke_card_vs_cpu() -> dict:
         for dev in ("cuda", "cpu"):
             reqs = shared_prefix_arrivals(
                 12, 1000.0, seed=2, num_prefixes=3, prefix_len=20,
-                tokens_mean=8, total_max=64, sample_frac=0.0,
+                tokens_mean=8, total_max=64, sample_frac=1 / 3,
                 vocab=cfg.vocab_size,
             )
             ecfg = EngineConfig(max_len=64, max_batch=4, page_size=8,
@@ -1956,7 +2270,8 @@ def smoke_card_vs_cpu() -> dict:
                 b2_verify = {"launches": cfg.num_layers
                              * (steps["verify"] + runs * warm_vf),
                              "verify_steps": steps["verify"]}
-            streams[tag] = {r.rid: (r.prompt, r.tokens) for r in reqs}
+            streams[tag] = {r.rid: (r.prompt, r.tokens, r.greedy)
+                            for r in reqs}
     for kv_dtype in ("fp32", "int8"):
         for spec_k in (0, 2):
             a = streams[f"{kv_dtype}/spec_k={spec_k}/cuda"]
@@ -1965,7 +2280,11 @@ def smoke_card_vs_cpu() -> dict:
         plain = streams[f"{kv_dtype}/spec_k=0/cpu"]
         spec = streams[f"{kv_dtype}/spec_k=2/cpu"]
         ties = 0
-        for rid, (prompt, toks) in plain.items():
+        sampled = sum(not g for _, _, g in plain.values())
+        check(sampled > 0, f"smoke {kv_dtype}: no sampled request")
+        for rid, (prompt, toks, greedy) in plain.items():
+            if not greedy:
+                continue
             other = spec[rid][1]
             diff = [i for i, (x, y) in enumerate(zip(toks, other)) if x != y]
             if diff:
@@ -1975,10 +2294,11 @@ def smoke_card_vs_cpu() -> dict:
                 ties += 1
             else:
                 check(toks == other, f"smoke {kv_dtype}: rid {rid} length")
-        n = sum(len(t) for _, t in plain.values())
-        log(f"[smoke] {kv_dtype} pages, greedy: card = CPU with and without "
-            f"speculation; spec = plain stream ({len(plain)} requests, {n} "
-            f"tokens, {ties} near-tie divergences)")
+        n = sum(len(t) for _, t, _ in plain.values())
+        log(f"[smoke] {kv_dtype} pages: card = CPU with and without "
+            f"speculation, {sampled} of {len(plain)} requests sampled; spec = "
+            f"plain stream on the greedy ones ({n} tokens, {ties} near-tie "
+            f"divergences)")
     streams = {}
     for graphs in (True, False):
         reqs = shared_prefix_arrivals(
@@ -2200,9 +2520,9 @@ def mamba_prompt_then_burst(cfg, params) -> dict:
         exe = eng._current
         tok = torch.from_numpy(toks[:, -1:]).to("cuda")
         pos = torch.tensor(prompt_len + n, dtype=torch.int32, device="cuda")
-        gen_ = torch.Generator(device="cuda")
+        key = torch.zeros(2, dtype=torch.int32, device="cuda")
         _profile(f"full-width mamba2 burst step ({b} rows, recurrent state)",
-                 lambda: exe(cache, tok, pos, gen_), 5, "ssd_chunk_tc_kernel")
+                 lambda: exe(cache, tok, pos, key), 5, "ssd_chunk_tc_kernel")
     return launches
 
 
@@ -2221,7 +2541,7 @@ def mamba_full_width() -> dict:
     log(f"[mamba] mamba2-370m {n_params / 1e9:.3f}B params bf16 initialised "
         f"in {time.perf_counter() - t0:.1f}s")
     launches = mamba_prompt_then_burst(cfg, params)
-    burst_stream(cfg, params, "mamba burst", ())
+    burst_stream(cfg, params, "mamba burst", ("sample_rows",))
     from repro_torch.runtime.serve import Engine, EngineConfig
 
     burst = dict(max_len=1024, max_batch=8, batch_quantum=4)
@@ -2240,8 +2560,9 @@ def mamba_full_width() -> dict:
 
 
 def mamba_smoke_card_vs_cpu() -> None:
-    """The mamba2 smoke config (fp32, TF32 off), greedy: the burst stream's
-    tokens on the card equal the CPU's under one virtual clock."""
+    """The mamba2 smoke config (fp32, TF32 off), a third of the requests
+    sampled: the burst stream's tokens on the card equal the CPU's under
+    one virtual clock."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.runtime.scheduler import poisson_arrivals
@@ -2252,7 +2573,7 @@ def mamba_smoke_card_vs_cpu() -> None:
     streams, reports = {}, {}
     for dev in ("cuda", "cpu"):
         reqs = poisson_arrivals(12, 50.0, seed=4, tokens_mean=8,
-                                tokens_max=32, sample_frac=0.0,
+                                tokens_max=32, sample_frac=1 / 3,
                                 vocab=cfg.vocab_size)
         with Engine(cfg, params, EngineConfig(max_len=32, max_batch=8,
                                               batch_quantum=4),
@@ -2264,7 +2585,7 @@ def mamba_smoke_card_vs_cpu() -> None:
                                             "rebinds")}
     check(streams["cuda"] == streams["cpu"] and reports["cuda"] == reports[
         "cpu"], f"mamba smoke burst stream: card != CPU ({reports})")
-    log(f"[smoke] mamba2 greedy burst stream: card = CPU "
+    log(f"[smoke] mamba2 burst stream (a third sampled): card = CPU "
         f"({len(streams['cpu'])} requests, "
         f"{sum(len(t) for t in streams['cpu'].values())} tokens, "
         f"{reports['cpu']})")
@@ -2543,6 +2864,95 @@ def time_kernels(launches: dict, b2_verify: dict,
             row["device_ms_by_splits"] = split_sweep(fn, "int8" in fn.__name__)
         rows.append(row)
     return rows
+
+
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock, from ``nvidia-smi``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def time_sampling(launches: dict, by_path: dict) -> list[dict]:
+    """``sample_rows`` at the serving shapes (``SAMPLE_SHAPES``, float32 —
+    the steps' logits — and bfloat16): per call with its host time,
+    device-only, the plain version, the old noise tail (``torch.rand`` +
+    ``argmax(logits / t - log(-log(u)))`` + the greedy ``argmax`` and
+    ``where``, the draw the steps made before threefry) and the bound:
+    ``max(bytes / HBM rate, int32 ops / (132 SMs x 64 lanes x the max SM
+    clock))``, the ops counted for this data (sampled rows draw, greedy
+    rows only rank). The row's numbers are olmo-1b's shape, 8 x 50304
+    float32."""
+    from repro_torch import kernels
+    from repro_torch.kernels import sampling
+
+    clock_hz = _sm_clock_hz()
+    fn = kernels.sample_rows
+    shapes = []
+    for rows, vocab in SAMPLE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            logits, temps, greedy, keys = _sampling_inputs(rows, vocab, dtype,
+                                                           seed=vocab + rows)
+
+            def call(logits=logits, temps=temps, greedy=greedy, keys=keys):
+                return fn(logits, temps, greedy, keys)
+
+            def old(logits=logits, temps=temps, greedy=greedy):
+                u = torch.rand(logits.shape, device="cuda")
+                t = temps.clamp_min(1e-4)[:, None].to(logits.dtype)
+                first = logits.argmax(dim=-1).to(torch.int32)
+                drawn = (logits / t - torch.log(-torch.log(u))).argmax(dim=-1)
+                return torch.where(greedy, first, drawn.to(torch.int32))
+
+            scores = torch.empty(rows, vocab, device="cuda")
+            saved = fn.launches  # timing launches are not main-path launches
+            fn(logits, temps, greedy, keys, scores=scores)
+            err = (scores - sampling.sample_scores_plain(
+                logits, temps, greedy, keys)).abs().max().item()
+            ms = _median_ms(call)
+            fn.launches = saved
+            dev = _device_only(fn, call, "sample_rows_kernel")
+            plain_ms = _median_ms(lambda: sampling.sample_rows_plain(
+                logits, temps, greedy, keys))
+            old_ms = _median_ms(old)
+            drawn_rows = int((~greedy).sum())
+            nbytes = (logits.numel() * logits.element_size()
+                      + rows * (4 + 1 + 8) + rows * (4 + 8))
+            ops = (drawn_rows * vocab * SAMPLE_OPS_PER_DRAW
+                   + rows * vocab * SAMPLE_OPS_PER_ELEMENT)
+            t_b = nbytes / HBM_BYTES_PER_S
+            t_o = ops / (INT32_LANES * clock_hz)
+            bound_ms = max(t_b, t_o) * 1e3
+            bound_by = "bytes" if t_b >= t_o else "operations"
+            tag = f"{rows}x{vocab} {str(dtype)[6:]}"
+            log(f"[timing] sample_rows {tag} ({drawn_rows} rows sampled): "
+                f"kernel {ms:.4f} ms per call (device only "
+                f"{_fmt_ms(dev['profiled_ms'])} profiled, "
+                f"{_fmt_ms(dev['queued_ms'])} by queued events), plain "
+                f"(prng, torch ops) {plain_ms:.4f} ms, old noise tail "
+                f"{old_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M int32 ops at "
+                f"{clock_hz / 1e6:.0f} MHz), scores max abs err {err:.3g}")
+            shapes.append({"shape": tag, "ms": ms, **dev, "plain_ms": plain_ms,
+                           "old_tail_ms": old_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "max_abs_err": err})
+    main = shapes[0]  # olmo-1b: 8 x 50304 float32
+    return [{"name": "sample_rows", "route": "cuda",
+             "source": "src/repro_torch/csrc/sample_rows.cu",
+             "replaces": "src/repro/runtime/steps.py:293 (_sample_rows, "
+                         "XLA-fused: no Pallas kernel)",
+             "launches": launches["sample_rows"],
+             "launches_by_path": {path: counts.get("sample_rows", 0)
+                                  for path, counts in by_path.items()},
+             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+             "device_ms": main["device_ms"],
+             "device_ms_by": main["device_ms_by"],
+             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+             "bound_by": main["bound_by"], "library_ms": None,
+             "old_tail_ms": main["old_tail_ms"], "shapes": shapes}]
 
 
 # Modes of the kernel pair at the prefill shape: olmo-1b's (causal) and the
@@ -3166,12 +3576,16 @@ def main() -> int:
     t0 = time.perf_counter()
     setup()
     kernels_vs_plain()
+    sampling_vs_plain()
     main_path = full_width_streams()
     graph_phase(main_path["cfg"], main_path["params"])
     dense = continuous_phase(main_path["cfg"], main_path["params"],
                              main_path["burst_report"])
     main_path["by_path"].update({f"continuous {k}": v["launches"]
                                  for k, v in dense.items() if "launches" in v})
+    t_async = time.perf_counter()
+    async_phase(main_path["cfg"], main_path["params"])
+    t_async = time.perf_counter() - t_async
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
     prompt = prompt_then_burst(main_path["cfg"], main_path["params"])
     profile_steps(main_path["cfg"], main_path["params"])
@@ -3190,7 +3604,8 @@ def main() -> int:
                     ssd_chunk=mamba["ssd_chunk"])
     rows = (time_kernels(launches, b2_verify, main_path["by_path"])
             + time_dense_kernels(launches)
-            + time_ssd_kernel(launches))
+            + time_ssd_kernel(launches)
+            + time_sampling(main_path["launches"], main_path["by_path"]))
     t8 = time.perf_counter()
     paths = configs_phase()
     new = time_new_shapes()
@@ -3203,7 +3618,8 @@ def main() -> int:
     end = time.perf_counter()
     log(f"[done] all phases passed in {end - t0:.1f}s; phase 8 (three "
         f"configs, new-shape timing) {end - t8:.1f}s, "
-        f"{100 * (end - t8) / (end - t0):.1f}% of it")
+        f"{100 * (end - t8) / (end - t0):.1f}% of it; phase 3d (async vs "
+        f"sync) {t_async:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

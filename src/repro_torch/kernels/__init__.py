@@ -9,7 +9,10 @@ scalar position; ``flash_attention`` (B6) carries ``prefill``/``forward``,
 and ``flash_attention_branchy`` (B7) is its runtime-flag twin, the
 conditional baseline ``KernelBranch`` sets beside it. ``ssd_chunk`` (B8) is
 the Mamba-2 SSD chunked scan under the SSM mixer's ``prefill``/``forward``.
-Their wrappers run the
+``sample_rows`` is every serving step's sampling tail (JAX's threefry
+categorical draw and greedy argmax per row, the key split), and
+``categorical_rows`` the per-burst engine's sampled step on the same kernel;
+it replaces XLA-fused code, not a Pallas kernel. Their wrappers run the
 plain version on CPU tensors and launch the kernel on CUDA tensors;
 ``launches`` on each wrapper counts kernel launches.
 """
@@ -35,6 +38,12 @@ from .prefill_attention import (
     paged_prefill_attention_int8_plain,
     paged_prefill_attention_plain,
 )
+from .sampling import (
+    categorical_rows,
+    categorical_rows_plain,
+    sample_rows,
+    sample_rows_plain,
+)
 from .ssd_chunk import ssd_chunk, ssd_chunk_plain
 
 KERNELS = (
@@ -46,6 +55,7 @@ KERNELS = (
     flash_attention,
     flash_attention_branchy,
     ssd_chunk,
+    sample_rows,
 )
 
 
@@ -57,6 +67,8 @@ def reset_launch_counts() -> None:
 __all__ = [
     "KERNELS",
     "KernelBranch",
+    "categorical_rows",
+    "categorical_rows_plain",
     "decode_attention",
     "decode_attention_plain",
     "flash_attention",
@@ -72,6 +84,8 @@ __all__ = [
     "paged_prefill_attention_int8_plain",
     "paged_prefill_attention_plain",
     "reset_launch_counts",
+    "sample_rows",
+    "sample_rows_plain",
     "ssd_chunk",
     "ssd_chunk_plain",
 ]

@@ -8,7 +8,8 @@ and flash attention B6/B7, all over one shared header — B1/B3's and B5's
 cluster-split body is ``paged_decode_split.cuh``, B6/B7 and the
 tensor-core body of B2/B4 (``paged_prefill_tc.cuh``) also over the Hopper
 helpers of ``flash_tc.cuh`` — and the SSD chunked scan B8, whose
-tensor-core body ``ssd_chunk_tc.cuh`` takes the same helpers). Each
+tensor-core body ``ssd_chunk_tc.cuh`` takes the same helpers) and the
+serving steps' sampling tail ``sample_rows.cu``. Each
 library lands in ``build/repro_torch/`` at the root of the checkout, named
 by a hash of its source, the headers and the flags, so
 an edit rebuilds and an unchanged tree reuses the last build. Nothing here
@@ -98,6 +99,12 @@ SOURCES = {
         # instantiations are kernels/ssd_chunk.py:SSD_SHAPES
         "ssd_chunk": [_ptr] * 7 + [_int] * 4 + [_i64] * 12 + [_int] * 4
         + [_ptr],
+    },
+    "sample_rows.cu": {
+        # logits, row_stride, rows, vocab, temps, greedy, keys, new_keys,
+        # tok, best, ticket, scores, dtype, split, temperature, stream
+        "sample_rows": [_ptr, _i64, _int, _int] + [_ptr] * 8 + [_int] * 2
+        + [_float, _ptr],
     },
 }
 

@@ -18,7 +18,8 @@ sampling mode per burst, batch sizes bucketed by ``--batch-quantum``; it
 also serves ``--arch mamba2-370m`` on the SSM's recurrent state (the paged
 engine refuses an SSM arch). ``--engine both`` runs the continuous engine
 and then the burst engine on the same prompt-less stream, the JAX
-package's default. Each reports latency percentiles, TTFT, throughput and
+package's default. ``--async-steps`` (``--async-depth``) pipelines the
+continuous and paged engines' steps. Each reports latency percentiles, TTFT, throughput and
 cold-path activity (builds after warmup, rebinds; for burst, mode
 switches; on the card every build is a CUDA-graph capture, and
 ``cuda_graphs`` says the targets were graphs). Weights are a seeded random
@@ -177,6 +178,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                          "periods")
     ap.add_argument("--draft-kv-dtype", choices=KV_DTYPES, default="fp32",
                     help="storage of the draft's dense cache")
+    ap.add_argument("--async-steps", action="store_true",
+                    help="pipelined step loop (DESIGN.md §13): the host "
+                         "plans and issues step N+1 before it commits step "
+                         "N, whose outputs stay on the device; the pulls "
+                         "land at the token-emit boundaries. The token "
+                         "streams equal the synchronous loop's (continuous "
+                         "and paged engines)")
+    ap.add_argument("--async-depth", type=int, default=2,
+                    help="async step pipeline: issued-but-uncommitted "
+                         "steps at most (2 = one ahead)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
@@ -192,6 +203,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         ap.error(f"--spec-k must be >= 0, got {args.spec_k}")
     if args.slots < 0:
         ap.error(f"--slots must be >= 0, got {args.slots}")
+    if args.async_depth < 1:
+        ap.error(f"--async-depth must be >= 1, got {args.async_depth}")
     burst = args.engine in ("burst", "both")
     if burst and args.prompt_len > 0:
         # the per-burst stream seeds first_token only; a side-by-side
@@ -240,6 +253,7 @@ def main(argv: list[str] | None = None) -> dict:
     engines = ("continuous", "burst") if args.engine == "both" else (
         args.engine,)
     reports = {}
+    pipeline = dict(async_steps=args.async_steps, async_depth=args.async_depth)
     for name in engines:
         reqs = make_requests(args, cfg.vocab_size)
         with Engine(cfg, params, ecfg, device=device) as eng:
@@ -247,10 +261,10 @@ def main(argv: list[str] | None = None) -> dict:
                 reports[name] = run_burst_stream(eng, reqs, seed=args.seed)
             elif name == "continuous":
                 reports[name] = run_continuous_stream(
-                    eng, reqs, slots=slots, seed=args.seed)
+                    eng, reqs, slots=slots, seed=args.seed, **pipeline)
             else:
                 reports[name] = run_paged_stream(
-                    eng, reqs, slots=slots, seed=args.seed)
+                    eng, reqs, slots=slots, seed=args.seed, **pipeline)
     rep = reports if args.engine == "both" else reports[args.engine]
     if args.json:
         print(json.dumps(rep, indent=2))

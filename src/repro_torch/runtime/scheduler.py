@@ -26,13 +26,17 @@ synchronous dense and paged paths).
 
 Both batchers share ``_MultiLaneMixin``, as in the JAX package: the lane
 plan, FIFO chunk allocation, bucket accounting, the flip that primes
-generation, the decode emit boundary and the draft/verify accept/rollback;
+generation, the decode emit boundary, the draft/verify accept/rollback and
+the async step pipeline (DESIGN.md §13: ``async_steps`` issues step N+1
+before committing step N whenever N's outcome cannot change N+1's plan);
 they differ in storage (dense rows or pages) and in their targets'
-signatures.
+signatures. Sampled rows draw from per-slot threefry keys, drawn from a
+numpy generator seeded with the batcher's ``seed`` at construction and at
+each admission, in the JAX package's order, and split inside every step;
+so the sampled streams, like the greedy ones, equal the JAX package's.
 
-Left for later slices of the port: the async step pipeline (so speculation
-commits synchronously), disaggregation, the mesh axis, fault injection,
-deadlines and the watchdog.
+Not in the port: disaggregation, the mesh axis, fault injection, deadlines
+and the watchdog.
 """
 
 from __future__ import annotations
@@ -354,9 +358,11 @@ class BatcherStats:
     prefill_calls: int = 0  # prefill-lane calls
     chunk_bucket_crossings: int = 0
     h2d_uploads: int = 0  # host->device coordinate uploads (see _DeviceMirror)
+    h2d_overlapped: int = 0  # ... of which staged while a step was in flight
     host_plan_ms: float = 0.0  # host time per step outside device waits
     device_wait_ms: float = 0.0  # host time blocked on d2h pulls
     d2h_transfers: int = 0
+    inflight_depth: int = 0  # most issued-but-uncommitted steps at once
     # lane calls (DESIGN.md §11)
     decode_steps: int = 0
     draft_steps: int = 0
@@ -409,19 +415,57 @@ class PagedBatcherStats(BatcherStats):
     shared_tokens: int = 0  # prompt tokens skipped via the prefix cache
 
 
+class _PinnedStaging:
+    """Host->device uploads that never wait for the device (the async
+    pipeline's, on the card): the array is copied into a pinned host buffer
+    and from there with ``non_blocking=True``, behind whatever step is in
+    flight on the stream. A buffer is reused only after the event recorded
+    behind its copy has completed. (A copy from pageable memory makes the
+    host wait for the stream, i.e. for the step in flight.)"""
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._busy: deque = deque()  # (buffer, event), in stream order
+        self._free: dict = {}  # (shape, dtype) -> idle pinned buffers
+
+    def _buffer(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        while self._busy and self._busy[0][1].query():
+            buf, _ = self._busy.popleft()
+            self._free.setdefault((tuple(buf.shape), buf.dtype), []).append(buf)
+        idle = self._free.get((shape, dtype))
+        if idle:
+            return idle.pop()
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    def copy(self, src: torch.Tensor, dst: torch.Tensor | None) -> torch.Tensor:
+        buf = self._buffer(tuple(src.shape), src.dtype)
+        buf.copy_(src)
+        if dst is None:
+            dst = torch.empty(src.shape, dtype=src.dtype, device=self._device)
+        dst.copy_(buf, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self._device))
+        self._busy.append((buf, ev))
+        return dst
+
+
 def _upload(host: np.ndarray, device: torch.device,
-            dst: torch.Tensor | None = None) -> torch.Tensor:
+            dst: torch.Tensor | None = None,
+            staging: _PinnedStaging | None = None) -> torch.Tensor:
     """One host->device transfer: into ``dst`` (a graph target's static
     input) when given — same shape and dtype, or ``ValueError``, since
-    ``copy_`` would cast silently — else into a fresh tensor."""
+    ``copy_`` would cast silently — else into a fresh tensor (never one
+    that shares the host array's memory); through ``staging`` when given."""
     src = torch.from_numpy(np.ascontiguousarray(host))
-    if dst is None:
-        return src.to(device)
-    if src.shape != dst.shape or src.dtype != dst.dtype:
+    if dst is not None and (src.shape != dst.shape or src.dtype != dst.dtype):
         raise ValueError(
             f"upload of {tuple(src.shape)} {src.dtype} into a static input "
             f"of {tuple(dst.shape)} {dst.dtype}"
         )
+    if staging is not None:
+        return staging.copy(src, dst)
+    if dst is None:
+        return src.to(device, copy=True)
     return dst.copy_(src)
 
 
@@ -442,12 +486,14 @@ class _DeviceMirror:
     ``put`` takes a graph target's chained outputs, which are its own
     static inputs, never a static output of a graph: the next replay of any
     graph in the engine's pool may overwrite those. ``stats.h2d_uploads``
-    counts actual uploads."""
+    counts actual uploads. Under the async pipeline on the card every upload
+    goes through ``staging`` (``_PinnedStaging``)."""
 
     def __init__(self, stats: BatcherStats, device: torch.device):
         self._dev: dict[str, torch.Tensor] = {}
         self._stats = stats
         self._device = device
+        self.staging: _PinnedStaging | None = None
 
     def touch(self, *names: str) -> None:
         for n in names:
@@ -456,12 +502,42 @@ class _DeviceMirror:
     def get(self, name: str, host: np.ndarray,
             dst: torch.Tensor | None = None) -> torch.Tensor:
         if name not in self._dev:
-            self._dev[name] = _upload(host, self._device, dst)
+            self._dev[name] = _upload(host, self._device, dst, self.staging)
             self._stats.h2d_uploads += 1
         return self._dev[name]
 
     def put(self, name: str, dev: torch.Tensor) -> None:
         self._dev[name] = dev
+
+    def preload(self, name: str, host: np.ndarray) -> None:
+        """Double-buffered upload (DESIGN.md §13): stage a touched array
+        while a step is in flight, so its copy rides that step's execution
+        and the next ``get`` is a hit (a graph target then copies it into
+        its static input on the device). A later ``touch`` still drops it,
+        so correctness never depends on the overlap."""
+        if name not in self._dev:
+            self._dev[name] = _upload(host, self._device, None, self.staging)
+            self._stats.h2d_uploads += 1
+            self._stats.h2d_overlapped += 1
+
+
+@dataclass
+class _InflightStep:
+    """One issued-but-uncommitted step (DESIGN.md §13). ``packed`` is the
+    step's one host-bound output, already on its way off the device
+    (``_MultiLaneMixin._stage_pull``): a decode step's ``[next_tok | new_pos
+    | keys]``, a non-flip prefill chunk's ``[sample | keys]`` (only the keys
+    are read back; its bookkeeping ran at issue), a spec step's verify rows
+    (``[rows | next0 | keys]``). A spec step keeps its draft candidates and
+    window lengths, so accept/rollback replays one step late against the
+    pulled rows."""
+
+    kind: str  # "decode" | "prefill" | "spec"
+    packed: Any  # (host buffer, event or None), pulled once at commit
+    chainable: bool = False  # a later step may issue before this commits
+    drafts: np.ndarray | None = None  # spec: host [S, K] candidates
+    lengths: np.ndarray | None = None  # spec: verify-window lengths
+    k: int = 0  # spec: the step's k bucket
 
 
 class _MultiLaneMixin:
@@ -482,7 +558,7 @@ class _MultiLaneMixin:
 
     def _init_slots(self, num_slots: int, device, seed: int,
                     telemetry: Telemetry | None) -> None:
-        """Per-slot host state, the sampling generator and telemetry."""
+        """Per-slot host state, the key generator and telemetry."""
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.telemetry = telemetry or Telemetry()
@@ -495,9 +571,9 @@ class _MultiLaneMixin:
         self._lane_hist: dict[str, Any] = {}
         self.num_slots = num_slots
         self.device = torch.device(device)
-        # sampled rows draw from one generator per batcher (steps.py)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        # per-slot threefry keys (uint32), drawn here and at each admission
+        # in the JAX package's order, and split inside every sampling step
+        self._rng = np.random.default_rng(seed)
         self._slots: list[Request | None] = [None] * num_slots
         self._cursor = np.zeros(num_slots, np.int64)  # next prompt index fed
         self._tok = np.zeros((num_slots, 1), np.int32)
@@ -505,15 +581,23 @@ class _MultiLaneMixin:
         self._active = np.zeros(num_slots, bool)
         self._temps = np.ones(num_slots, np.float32)
         self._greedy = np.ones(num_slots, bool)
+        self._keys = self._draw_keys(num_slots, 2)
         # chunked prefill (DESIGN.md §10): PREFILL/DECODE state per slot
         self._prefilling = np.zeros(num_slots, bool)
         self._chunk_slots: set[int] = set()
         self._flip_slots: set[int] = set()  # flipped to DECODE this step
 
+    def _draw_keys(self, *shape: int) -> np.ndarray:
+        return self._rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+
+    @property
+    def _keys_i32(self) -> np.ndarray:
+        """The keys' bits as the steps take them (int32)."""
+        return self._keys.view(np.int32)
+
     def _init_lanes(
         self,
         *,
-        seed: int,
         prefill_dispatch: Callable[[int], Callable] | None,
         prefill_chunk: int,
         draft_dispatch: Callable[[int], Callable] | None,
@@ -521,9 +605,22 @@ class _MultiLaneMixin:
         draft_prefill_dispatch: Callable[[int], Callable] | None,
         draft_cache: Any,
         spec_k: int,
+        async_steps: bool = False,
+        async_depth: int = 2,
     ) -> None:
         """Lane wiring shared by both constructors. Speculation is on only
-        when the engine supplied both spec lanes."""
+        when the engine supplied both spec lanes. ``async_depth`` is the
+        pipeline's issued-step capacity (DESIGN.md §13): at most
+        ``async_depth - 1`` steps stay parked after a ``step()`` returns, so
+        2 (the default) is the one-deep overlap and 1 degrades async mode
+        to the synchronous commit."""
+        self.async_steps = bool(async_steps)
+        self.async_depth = max(1, int(async_depth))
+        self._inflight: deque[_InflightStep] = deque()  # issued, uncommitted
+        self._backlog: list[Request] = []  # finished off the step path
+        self._pull_buffers: dict = {}  # (shape, dtype) -> idle pinned buffers
+        if self.async_steps and self.device.type == "cuda":
+            self._mirror.staging = _PinnedStaging(self.device)
         self._prefill_dispatch = prefill_dispatch
         self.prefill_chunk = prefill_chunk if prefill_dispatch else 0
         # per-step token budget: one per decoding slot plus one full chunk
@@ -535,10 +632,6 @@ class _MultiLaneMixin:
         self._draft_cache = draft_cache  # dense per-slot, updated in place
         self.spec_k = spec_k if (draft_dispatch and verify_dispatch) else 0
         self._k_bucket: int | None = None  # unset until the first spec step
-        # the draft prompt mirror samples into a generator of its own, so
-        # it never moves the sampled streams
-        self._draft_generator = torch.Generator(device=self.device)
-        self._draft_generator.manual_seed(seed)
         # per-slot, per-verify a/k acceptance samples (a bounded window)
         self.accept_samples: deque[float] = deque(maxlen=4096)
         self._lane_policy = LanePolicy(
@@ -556,11 +649,16 @@ class _MultiLaneMixin:
 
     @property
     def has_work(self) -> bool:
-        return bool(self._active.any())
+        return bool(self._active.any()) or bool(self._inflight)
 
     @property
     def _spec_on(self) -> bool:
         return self.spec_k > 0
+
+    def _upload(self, host: np.ndarray, dst: torch.Tensor | None):
+        """A per-step (unmirrored) upload, staged under the async
+        pipeline on the card."""
+        return _upload(host, self.device, dst, self._mirror.staging)
 
     # ------------------------------------------------------------ telemetry
     def _lane_tick(self, lane: str, t0_ns: int) -> None:
@@ -604,6 +702,292 @@ class _MultiLaneMixin:
         self.stats.device_wait_ms += dt_ns / 1e6
         self.stats.d2h_transfers += 1
         return out
+
+    # ------------------------------------------------- step pipeline (§13)
+    def _stage_pull(self, packed: torch.Tensor) -> tuple:
+        """Start a parked step's pull at issue: ``packed`` may be a graph's
+        static output, which the next replay of any graph in the engine's
+        pool overwrites. On the card it is copied with ``non_blocking`` into
+        a pinned buffer of the record's own, behind an event; on the CPU it
+        is copied at once."""
+        if packed.device.type != "cuda":
+            return packed.clone(), None
+        key = (tuple(packed.shape), packed.dtype)
+        idle = self._pull_buffers.get(key)
+        buf = idle.pop() if idle else torch.empty(
+            key[0], dtype=key[1], pin_memory=True)
+        buf.copy_(packed, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return buf, ev
+
+    def _pull_staged(self, staged: tuple) -> np.ndarray:
+        """Commit's pull of a parked step: wait for its copy (the only sync
+        of the async loop; ``device_wait_ms`` times it) and read the
+        buffer, which goes back to the idle set."""
+        buf, ev = staged
+        t0 = time.perf_counter_ns()
+        if ev is not None:
+            ev.synchronize()
+        out = buf.numpy().copy()
+        dt = time.perf_counter_ns() - t0
+        if ev is not None:
+            self._pull_buffers.setdefault(
+                (tuple(buf.shape), buf.dtype), []).append(buf)
+        if self._trace is not None:
+            self._trace.emit(
+                "d2h", "scheduler", ph="X", ts_ns=t0, dur_ns=dt,
+                args={"nbytes": int(out.nbytes), "shape": list(out.shape)},
+            )
+        self.stats.device_wait_ms += dt / 1e6
+        self.stats.d2h_transfers += 1
+        return out
+
+    def step(self, now: float = 0.0) -> list[Request]:
+        """One scheduler step; returns the requests that finished.
+
+        Cold path first (the lane plan, a batched prefill chunk, page
+        upkeep, bucket dispatch — mostly no-ops), then one direct call of
+        the decode lane's target (or the draft/verify pair). Synchronous
+        mode commits each step before it returns. Async mode keeps up to
+        ``async_depth - 1`` issued steps parked: while every parked step is
+        one whose outcome cannot change what the host plans next
+        (``chainable`` decodes, non-flip prefill chunks), the next step is
+        issued first and the oldest parked steps are committed while the
+        device runs it. Any step the host must read before planning (spec
+        accept/rollback, prefill flips, finishes, prompt forcing) commits
+        first, so the sequence of calls on the device — and every token
+        stream — is the synchronous loop's."""
+        t0 = time.perf_counter()
+        dw0 = self.stats.device_wait_ms
+        finished = self._backlog
+        self._backlog = []
+        ran_ahead = False
+        if self.async_steps and self._inflight:
+            if self._can_run_ahead():
+                finished.extend(self._run_ahead(now))
+                ran_ahead = True
+            else:
+                finished.extend(self._commit_pending(now))
+        if not ran_ahead:
+            finished.extend(self._step_impl(now))
+        limit = self.async_depth - 1 if self.async_steps else 0
+        while len(self._inflight) > limit:
+            finished.extend(self._commit_oldest(now))
+        self.stats.host_plan_ms += (
+            (time.perf_counter() - t0) * 1e3
+            - (self.stats.device_wait_ms - dw0)
+        )
+        return finished
+
+    def flush(self, now: float = 0.0) -> list[Request]:
+        """Drain the pipeline: commit every parked step and return every
+        finished request not yet handed out. Call after a stream's last
+        ``step``; a no-op in synchronous mode."""
+        finished = self._backlog
+        self._backlog = []
+        finished.extend(self._commit_pending(now))
+        return finished
+
+    def _can_run_ahead(self) -> bool:
+        """Issue-before-commit is legal only when the newest parked step
+        cannot change the next step's plan: a chainable decode or a parked
+        non-flip prefill chunk; with prefilling slots, only when this
+        step's own chunk plan flips none of them (a flip edits the decoding
+        mask the parked steps were issued under) and no spec step is
+        planned."""
+        if not self._inflight:
+            return False
+        rec = self._inflight[-1]
+        if rec.kind == "spec" or not rec.chainable:
+            return False
+        if not (self._prefilling & self._active).any():
+            return True
+        if self.prefill_chunk <= 0 or self._spec_on:
+            return False
+        plan = self._plan_step()
+        if plan.k > 0:
+            return False
+        return not self._flip_planned(plan.chunk_budget)
+
+    def _flip_planned(self, budget: int) -> bool:
+        """Would this step's chunk plan flip some slot PREFILL -> DECODE?
+        (``_plan_chunks`` has no side effects.)"""
+        return self._flip_planned_in(self._plan_chunks(budget))
+
+    def _run_ahead(self, now: float) -> list[Request]:
+        """The overlap step: issue step N+1 against the mirror's chained
+        device tensors (step N's outputs are already its inputs), then let
+        ``step``'s depth limit pull and emit the oldest parked steps while
+        the device runs N+1. A planned non-flip chunk issues and parks as a
+        decode does."""
+        if self._trace is not None:
+            self._trace.emit("async_issue", "scheduler")
+        self._pre_issue_fast()
+        finished: list[Request] = []
+        self._chunk_slots = set()
+        self._flip_slots = set()
+        prefilling = (
+            self.prefill_chunk > 0
+            and bool((self._prefilling & self._active).any())
+        )
+        if prefilling:
+            # upkeep's preemptions may have turned the plan into a flip (or
+            # freed every decoding slot): re-check, else take the
+            # synchronous path on a drained pipeline
+            plan = self._plan_step()
+            if plan.k > 0 or self._flip_planned(plan.chunk_budget):
+                finished.extend(self._commit_pending(now))
+                finished.extend(self._step_impl(now))
+                return finished
+        decoding = self._active & ~self._prefilling
+        if not decoding.any() and not prefilling:
+            finished.extend(self._commit_pending(now))
+            return finished
+        # stage upkeep-touched inputs while the parked steps run
+        self._preload_step_inputs()
+        if prefilling:
+            finished.extend(self._prefill_step(now, plan.chunk_budget))
+            decoding = self._active & ~self._prefilling
+        if decoding.any():
+            finished.extend(self._decode_lane_step(now, decoding))
+        else:
+            self.stats.steps += 1  # prefill-only step
+            self._count_prefill_only_step()
+        return finished
+
+    def _pre_issue_fast(self) -> None:
+        """Cold-path upkeep an issued decode needs even on the run-ahead
+        path (the paged engine's page upkeep)."""
+
+    def _preload_step_inputs(self) -> None:
+        """Stage every per-slot array whose device copy was dropped — at
+        admission and under run-ahead, while a parked step holds the device
+        — so the next issue uploads nothing (the paged engine adds its
+        packed block table)."""
+        m = self._mirror
+        m.preload("tok", self._tok)
+        m.preload("pos", self._pos)
+        m.preload("active", self._active & ~self._prefilling)
+        m.preload("temps", self._temps)
+        m.preload("greedy", self._greedy)
+        m.preload("keys", self._keys_i32)
+
+    def _decode_chainable(self, decoding) -> bool:
+        """True when the next step's plan does not depend on this decode's
+        outputs for any decoding slot: past prompt forcing (the next input
+        token is the step's own output, chained on the device), not
+        finishing, and not about to enter the draft/verify lanes."""
+        for s, req in enumerate(self._slots):
+            if req is None or not decoding[s]:
+                continue
+            if self._cursor[s] + 1 < len(req.effective_prompt):
+                return False
+            rem_after = req.new_tokens - len(req.tokens) - 1
+            if rem_after < 1:
+                return False
+            if self._spec_on and req.greedy and rem_after > 1:
+                return False
+        return True
+
+    def _queue_decode(self, packed: torch.Tensor, decoding) -> None:
+        """Park a just-issued decode. Positions advance predictively — the
+        device computes ``pos + active`` and the host mirrors it, so the
+        next plan needs no pull (commit reads the device's own
+        ``new_pos``)."""
+        new_pos = np.array(self._pos, np.int32)
+        new_pos[decoding] += 1
+        self._pos = new_pos
+        self._park(_InflightStep(
+            kind="decode", packed=self._stage_pull(packed),
+            chainable=self._decode_chainable(decoding),
+        ))
+
+    def _parks(self, plan: list) -> bool:
+        """Under async a planned chunk that flips no slot leaves every plan
+        input untouched: it issues and parks like a chainable decode (with
+        speculation on, chunks commit at once)."""
+        return (self.async_steps and not self._spec_on
+                and not self._flip_planned_in(plan))
+
+    def _flip_planned_in(self, plan: list) -> bool:
+        return any(
+            cursor + chunk >= len(self._slots[s].effective_prompt)
+            for s, cursor, chunk in plan
+        )
+
+    def _park_prefill(self, plan: list, new_keys: torch.Tensor,
+                      packed: torch.Tensor) -> None:
+        """A parked chunk's bookkeeping runs at issue (its plan is final);
+        its split keys chain on the device, and its pull waits for the
+        pipeline's next emit boundary."""
+        self._mirror.put("keys", new_keys)
+        for s, cursor, chunk in plan:
+            self._chunk_slots.add(s)
+            cursor += chunk
+            self._cursor[s] = cursor
+            self._pos[s] = cursor
+            self._sync_slot(s, cursor)
+            self.stats.prompt_tokens += chunk
+            self.stats.prefill_chunks += 1
+        self._mirror.touch("pos")
+        self._queue_prefill(packed)
+
+    def _queue_prefill(self, packed: torch.Tensor) -> None:
+        """Park a just-issued non-flip prefill chunk: its bookkeeping ran
+        at issue and commit only reads its keys back. Always chainable."""
+        self._park(_InflightStep(kind="prefill",
+                                 packed=self._stage_pull(packed),
+                                 chainable=True))
+
+    def _park(self, rec: _InflightStep) -> None:
+        self._inflight.append(rec)
+        self.stats.inflight_depth = max(
+            self.stats.inflight_depth, len(self._inflight)
+        )
+        if self._trace is not None:
+            self._trace.emit("async_park", "scheduler",
+                             args={"kind": rec.kind,
+                                   "chainable": rec.chainable})
+
+    def _commit_oldest(self, now: float) -> list[Request]:
+        return self._commit_rec(self._inflight.popleft(), now)
+
+    def _commit_pending(self, now: float) -> list[Request]:
+        """Commit every parked step, oldest first (issue order), so the
+        host's state converges to the device's."""
+        out: list[Request] = []
+        while self._inflight:
+            out.extend(self._commit_oldest(now))
+        return out
+
+    def _commit_rec(self, rec: _InflightStep, now: float) -> list[Request]:
+        """The emit boundary of a parked step: its one pull, then exactly
+        the bookkeeping the synchronous loop runs after its call."""
+        if self._trace is not None:
+            self._trace.emit("async_commit", "scheduler",
+                             args={"kind": rec.kind})
+        p = self._pull_staged(rec.packed)
+        if rec.kind == "spec":
+            return self._commit_spec(p, rec, now)
+        if rec.kind == "prefill":
+            # [S,3]: sample | keys. Idle rows kept their keys (steps.py),
+            # so adopting the whole array is exact for every slot.
+            self._keys = p[:, 1:3].astype(np.uint32)
+            return []
+        self._keys = p[:, 2:4].astype(np.uint32)  # [S,4]: nxt | pos | keys
+        return self._emit_decode(p[:, 0], p[:, 1], now)
+
+    def _commit_spec(self, p: np.ndarray, rec: _InflightStep,
+                     now: float) -> list[Request]:
+        """Accept/rollback from the pulled ``[S, K+4]`` verify rows and the
+        record's candidates: the same arithmetic the synchronous loop runs
+        at once, so the committed stream (every rollback included) is the
+        same."""
+        k = rec.k
+        self._keys = p[:, k + 2 : k + 4].astype(np.uint32)
+        return self._apply_verify(now, p[:, : k + 1], p[:, k + 1],
+                                  rec.drafts, rec.lengths)
 
     # ------------------------------------------------------------- planning
     def _plan_step(self) -> StepPlan:
@@ -672,7 +1056,7 @@ class _MultiLaneMixin:
 
     # ------------------------------------------------------- prefill lane
     def _mirror_draft_prompt(self, bucket: int, tok_dev, start_dev,
-                             length_dev) -> None:
+                             length_dev, keys_dev) -> None:
         """Draft prompt mirror (DESIGN.md §11): with speculation on, the
         draft stack ingests the same chunk windows into its dense cache
         from the prefill call's device inputs, so its KV tracks the
@@ -683,11 +1067,12 @@ class _MultiLaneMixin:
         dins = _static_inputs(dstep)
         self.stats.note_lane("drp")
         t0_ns = time.perf_counter_ns()
-        _, self._draft_cache = dstep(
+        # the sample and the split keys are discarded
+        _, self._draft_cache, _, _ = dstep(
             self._draft_cache, tok_dev, start_dev, length_dev,
             self._mirror.get("temps", self._temps, dins[3]),
             self._mirror.get("greedy", self._greedy, dins[4]),
-            self._draft_generator,
+            keys_dev,
         )
         self._lane_tick("drp", t0_ns)
 
@@ -705,21 +1090,6 @@ class _MultiLaneMixin:
         self._mirror.touch("tok")
 
     # -------------------------------------------------------------- hot path
-    def step(self, now: float = 0.0) -> list[Request]:
-        """One multi-lane step for all slots; returns finished requests.
-
-        Cold path first (the lane plan, a batched prefill chunk, page
-        upkeep, bucket dispatch — mostly no-ops), then one direct call of
-        the decode lane's target (or the draft/verify pair)."""
-        t0 = time.perf_counter()
-        dw0 = self.stats.device_wait_ms
-        finished = self._step_impl(now)
-        self.stats.host_plan_ms += (
-            (time.perf_counter() - t0) * 1e3
-            - (self.stats.device_wait_ms - dw0)
-        )
-        return finished
-
     def _step_impl(self, now: float) -> list[Request]:
         """Lane order (DESIGN.md §11): prefill chunks first, then either the
         draft/verify pair (speculation planned this step) or the decode
@@ -747,10 +1117,12 @@ class _MultiLaneMixin:
         finished.extend(self._decode_lane_step(now, decoding))
         return finished
 
-    def _commit_decode(self, t0_ns: int, out: tuple, now: float) -> list:
-        """After the decode lane's call: chain its next token and positions
-        on the device, one packed pull, then the emit boundary."""
-        nxt, self._cache, pos, tok_col, packed = out
+    def _commit_decode(self, t0_ns: int, out: tuple, decoding,
+                       now: float) -> list:
+        """After the decode lane's call: chain its next token, positions
+        and keys on the device; then either park the step (async) or make
+        its one packed pull and run the emit boundary."""
+        nxt, self._cache, pos, keys, tok_col, packed = out
         self._lane_tick(self._decode_lane, t0_ns)
         self.stats.decode_steps += 1
         self.stats.note_lane(self._decode_lane)
@@ -758,14 +1130,22 @@ class _MultiLaneMixin:
         # chained on device, no upload (with graphs: the target's own
         # static inputs, which its replay wrote)
         self._mirror.put("pos", pos)
+        self._mirror.put("keys", keys)
         self._mirror.put("tok", tok_col)
-        p = self._pull(packed)  # [S,2]: nxt | new_pos; blocks on the step
+        if self.async_steps:
+            self._queue_decode(packed, decoding)
+            return []
+        p = self._pull(packed)  # [S,4]: nxt | new_pos | keys; blocks
         self._pos = np.array(p[:, 1], np.int32)
-        return self._emit_decode(p[:, 0], now)
+        self._keys = p[:, 2:4].astype(np.uint32)
+        return self._emit_decode(p[:, 0], p[:, 1], now)
 
-    def _emit_decode(self, nxt_host: np.ndarray, now: float) -> list[Request]:
+    def _emit_decode(self, nxt_host: np.ndarray, pos_host: np.ndarray,
+                     now: float) -> list[Request]:
         """The decode step's emit boundary: teacher-force remaining prompt
-        tokens (``prefill_chunk == 0``), emit, finish."""
+        tokens (``prefill_chunk == 0``), emit, finish. ``pos_host`` is the
+        committed step's own positions (under run-ahead ``self._pos`` is
+        already a step further)."""
         finished: list[Request] = []
         self._tok = np.asarray(nxt_host)[:, None].astype(np.int32)
         self._count_prefilling_slot_steps()
@@ -776,7 +1156,7 @@ class _MultiLaneMixin:
             if self._prefilling[s]:
                 continue  # chunked lane owns this slot (ticked above)
             self.stats.active_slot_steps += 1
-            self._sync_slot(s)
+            self._sync_slot(s, int(pos_host[s]))
             prompt = req.effective_prompt
             if self._cursor[s] + 1 < len(prompt):
                 # token-by-token forcing (no chunked lane): feed the next
@@ -819,16 +1199,23 @@ class _MultiLaneMixin:
         """Draft lane: K greedy candidates per slot in one call. The draft
         writes its own KV for the fed token at ``pos``, which is how its
         cache tracks the committed stream (rejected tails are overwritten
-        once ``pos`` is rewound). Returns the host [S, K] candidates — an
-        inherent sync, since the host packs the verify windows from them."""
+        once ``pos`` is rewound). Greedy is forced on (an all-ones vector,
+        uploaded once), so candidates are deterministic; the keys the draft
+        splits are discarded, so the sampled streams are untouched. Returns
+        the host [S, K] candidates — an inherent sync, since the host packs
+        the verify windows from them."""
         step = self._draft_dispatch(k)  # cold: slot-hit unless k moved
         ins = _static_inputs(step)
         t0_ns = time.perf_counter_ns()
-        drafts, self._draft_cache, _ = step(
+        drafts, self._draft_cache, _, _ = step(
             self._draft_cache,
             self._mirror.get("tok", self._tok, ins[0]),
             self._mirror.get("pos", self._pos, ins[1]),
             self._mirror.get("active", decoding, ins[2]),
+            self._mirror.get("temps", self._temps, ins[3]),
+            self._mirror.get("spec_greedy", np.ones(self.num_slots, bool),
+                             ins[4]),
+            self._mirror.get("keys", self._keys_i32, ins[5]),
         )
         self._lane_tick("dr", t0_ns)
         self.stats.draft_steps += 1
@@ -858,9 +1245,11 @@ class _MultiLaneMixin:
         """Speculative decode for the decoding slots (DESIGN.md §11): the
         draft lane proposes K candidates per slot, the verify lane scores
         all K+1 positions in one target pass, and acceptance rewinds
-        positions (and, paged, trims tables) as data. Synchronous: one
-        packed pull per lane call (drafts, then ``pack_verify_d2h``'s
-        ``[S, K+2]``). The verify target's signature is the engine's
+        positions (and, paged, trims tables) as data. One packed pull per
+        lane call (drafts, then ``pack_verify_d2h``'s ``[S, K+4]``); under
+        async the verify pull parks and accept/rollback is replayed one step
+        late (``_commit_spec``) — the next plan never needs the outcome, so
+        nothing is guessed. The verify target's signature is the engine's
         (``_verify_call``)."""
         self._note_k_bucket(k)
         drafts = self._run_draft(k, decoding)
@@ -869,12 +1258,18 @@ class _MultiLaneMixin:
         )
         tok = self._pack_verify_tok(drafts, lengths, k)
         t0_ns = time.perf_counter_ns()
-        packed = self._verify_call(k, tok, lengths)
+        keys, packed = self._verify_call(k, tok, lengths)
         self._lane_tick(self._verify_lane, t0_ns)
         self.stats.verify_steps += 1
         self.stats.note_lane(self._verify_lane)
-        p = self._pull(packed)
-        return self._apply_verify(now, p[:, : k + 1], p[:, k + 1], drafts, lengths)
+        self._mirror.put("keys", keys)
+        rec = _InflightStep(kind="spec", packed=None, drafts=drafts,
+                            lengths=lengths, k=k)
+        if self.async_steps:
+            rec.packed = self._stage_pull(packed)
+            self._park(rec)
+            return []
+        return self._commit_spec(self._pull(packed), rec, now)
 
     def _apply_verify(self, now, rows, nxt0, drafts, lengths) -> list[Request]:
         """Accept/rollback as data: commit the accepted prefix plus the
@@ -938,8 +1333,8 @@ class _MultiLaneMixin:
     def _page_upkeep(self, k: int = 0) -> None:
         """Pre-step storage upkeep for the decoding slots' write windows."""
 
-    def _sync_slot(self, s: int) -> None:
-        """The decode lane advanced slot ``s``'s position; sync storage."""
+    def _sync_slot(self, s: int, pos: int) -> None:
+        """The decode lane moved slot ``s`` to ``pos``; sync storage."""
 
     def _before_emit(self, s: int, req: Request) -> None:
         """Slot ``s`` is past its prompt and about to emit."""
@@ -981,7 +1376,7 @@ class ContinuousBatcher(_MultiLaneMixin):
 
     ``step`` is the ``("cb", slots)`` branch target (``steps.
     make_slot_decode_fn``, bound by the engine): ``step(cache, tok, pos,
-    active, temps, greedy, generator)``. The batcher owns the S slots' host
+    active, temps, greedy, keys)``. The batcher owns the S slots' host
     state and the engine's dense cache, updated in place by every lane;
     ``admit`` (cold path) seats requests in free slots in ascending order,
     ``step`` (hot path) advances every slot with one direct call.
@@ -996,7 +1391,8 @@ class ContinuousBatcher(_MultiLaneMixin):
     end, then DECODE); otherwise prompts are forced token by token through
     the decode step. With ``draft_dispatch``, ``verify_dispatch`` and
     ``draft_prefill_dispatch`` and ``spec_k > 0``, a step whose plan has
-    k > 0 runs ``dr`` and ``vfd`` in place of ``cb`` (synchronously)."""
+    k > 0 runs ``dr`` and ``vfd`` in place of ``cb``. ``async_steps``
+    pipelines the steps (``_MultiLaneMixin.step``)."""
 
     def __init__(
         self,
@@ -1015,6 +1411,8 @@ class ContinuousBatcher(_MultiLaneMixin):
         draft_prefill_dispatch: Callable[[int], Callable] | None = None,
         draft_cache: Any = None,
         spec_k: int = 0,
+        async_steps: bool = False,
+        async_depth: int = 2,
     ):
         self._init_slots(num_slots, device, seed, telemetry)
         self._step = step
@@ -1023,7 +1421,6 @@ class ContinuousBatcher(_MultiLaneMixin):
         self.stats = BatcherStats(registry=self.telemetry.registry)
         self._mirror = _DeviceMirror(self.stats, self.device)
         self._init_lanes(
-            seed=seed,
             prefill_dispatch=prefill_dispatch,
             prefill_chunk=prefill_chunk,
             draft_dispatch=draft_dispatch,
@@ -1031,13 +1428,20 @@ class ContinuousBatcher(_MultiLaneMixin):
             draft_prefill_dispatch=draft_prefill_dispatch,
             draft_cache=draft_cache,
             spec_k=spec_k,
+            async_steps=async_steps,
+            async_depth=async_depth,
         )
 
     # ------------------------------------------------------------- cold path
     def admit(self, requests: Iterable[Request], now: float = 0.0) -> int:
         """Seat requests in free slots, ascending; returns the number
         admitted. A request whose prompt and tokens cannot fit ``max_len``
-        raises ``ValueError``."""
+        raises ``ValueError``. Each seated request draws its slot's key."""
+        requests = list(requests)
+        if requests and self._inflight:
+            # admission edits the per-slot state and re-uploads it: the
+            # parked steps land first, so those arrays are current
+            self._backlog.extend(self._commit_pending(now))
         admitted = 0
         free = [i for i, r in enumerate(self._slots) if r is None]
         for req in requests:
@@ -1064,11 +1468,15 @@ class ContinuousBatcher(_MultiLaneMixin):
             self._prefilling[s] = self.prefill_chunk > 0 and len(prompt) > 1
             self._temps[s] = req.temperature
             self._greedy[s] = req.greedy
+            self._keys[s] = self._draw_keys(2)
             req.t_admit = now
             self._note_admit(req, now)
             admitted += 1
         if admitted:
-            self._mirror.touch("tok", "pos", "active", "temps", "greedy")
+            self._mirror.touch("tok", "pos", "active", "temps", "greedy",
+                               "keys")
+            if self.async_steps:  # stage them on the cold path
+                self._preload_step_inputs()
         self.stats.admitted += admitted
         return admitted
 
@@ -1078,7 +1486,8 @@ class ContinuousBatcher(_MultiLaneMixin):
         every planned chunk rides one ``("pfd", slots, chunk_bucket)`` call,
         written straight into its slot's rows (length 0 = idle row). The
         flip (prompt done) primes generation with the chunk's last-row
-        sample."""
+        sample. A chunk that flips no slot parks under async
+        (``_park_prefill``)."""
         plan = self._plan_chunks(budget)
         if not plan:
             return []
@@ -1091,29 +1500,38 @@ class ContinuousBatcher(_MultiLaneMixin):
             prompt = self._slots[s].effective_prompt
             tok[s, :chunk] = prompt[cursor : cursor + chunk]
             length[s] = chunk
-        # chunk inputs are per-chunk data, uploaded raw
+        park = self._parks(plan)
+        # chunk inputs are per-chunk data, uploaded raw (the keys too,
+        # unless a parked predecessor's split is still on the device)
         self.stats.prefill_calls += 1
         self.stats.note_lane(self._prefill_lane)
-        self.stats.h2d_uploads += 3
-        dev = self.device
-        tok_dev = _upload(tok, dev, ins[0])
-        start_dev = _upload(self._pos, dev, ins[1])  # == cursor when prefilling
-        length_dev = _upload(length, dev, ins[2])
+        self.stats.h2d_uploads += 3 if park else 4
+        tok_dev = self._upload(tok, ins[0])
+        start_dev = self._upload(self._pos, ins[1])  # == cursor: prefilling
+        length_dev = self._upload(length, ins[2])
+        keys_dev = (self._mirror.get("keys", self._keys_i32, ins[5]) if park
+                    else self._upload(self._keys_i32, ins[5]))
         t0_ns = time.perf_counter_ns()
-        nxt, self._cache = step(
+        nxt, self._cache, new_keys, packed = step(
             self._cache, tok_dev, start_dev, length_dev,
             self._mirror.get("temps", self._temps, ins[3]),
             self._mirror.get("greedy", self._greedy, ins[4]),
-            self.generator,
+            keys_dev,
         )
         self._lane_tick(self._prefill_lane, t0_ns)
-        # pulled before the draft mirror's call: with graphs, nxt is a
+        if park:
+            self._park_prefill(plan, new_keys, packed)
+            return []
+        # pulled before the draft mirror's call: with graphs, packed is a
         # static output that another replay in the pool may overwrite
-        nxt_host = self._pull(nxt)
-        self._mirror_draft_prompt(bucket, tok_dev, start_dev, length_dev)
+        p = self._pull(packed)  # [S,3]: sample | keys
+        nxt_host, nk = p[:, 0], p[:, 1:3].astype(np.uint32)
+        self._mirror_draft_prompt(bucket, tok_dev, start_dev, length_dev,
+                                  keys_dev)
         finished: list[Request] = []
         for s, cursor, chunk in plan:
             req = self._slots[s]
+            self._keys[s] = nk[s]
             self._chunk_slots.add(s)
             cursor += chunk
             self._cursor[s] = cursor
@@ -1127,13 +1545,13 @@ class ContinuousBatcher(_MultiLaneMixin):
                     self._note_finish(req, now)
                     finished.append(req)
                     self._release(s)
-        self._mirror.touch("pos")
+        self._mirror.touch("pos", "keys")
         return finished
 
     # -------------------------------------------------------------- hot path
     def _decode_lane_step(self, now: float, decoding) -> list[Request]:
         """The ``cb`` lane: one direct call of the bound target, one packed
-        pull."""
+        pull (or, under async, a parked step)."""
         step = self._step
         ins = _static_inputs(step)
         t0_ns = time.perf_counter_ns()
@@ -1144,28 +1562,27 @@ class ContinuousBatcher(_MultiLaneMixin):
             self._mirror.get("active", decoding, ins[2]),
             self._mirror.get("temps", self._temps, ins[3]),
             self._mirror.get("greedy", self._greedy, ins[4]),
-            self.generator,
+            self._mirror.get("keys", self._keys_i32, ins[5]),
         )
-        return self._commit_decode(t0_ns, out, now)
+        return self._commit_decode(t0_ns, out, decoding, now)
 
     def _verify_call(self, k: int, tok: np.ndarray, lengths: np.ndarray):
         """The dense verify target ``("vfd", slots, k)``: the windows start
-        at each slot's position. Returns the packed ``[S, K+2]`` device
-        tensor."""
+        at each slot's position. Returns the new keys (chained) and the
+        packed ``[S, K+4]`` device tensor."""
         step = self._verify_dispatch(k)  # cold: slot-hit unless k moved
         ins = _static_inputs(step)
         self.stats.h2d_uploads += 2  # per-step window data (tokens, lengths)
-        dev = self.device
-        _, _, self._cache, packed = step(
+        _, _, self._cache, keys, packed = step(
             self._cache,
-            _upload(tok, dev, ins[0]),
+            self._upload(tok, ins[0]),
             self._mirror.get("pos", self._pos, ins[1]),
-            _upload(lengths, dev, ins[2]),
+            self._upload(lengths, ins[2]),
             self._mirror.get("temps", self._temps, ins[3]),
             self._mirror.get("greedy", self._greedy, ins[4]),
-            self.generator,
+            self._mirror.get("keys", self._keys_i32, ins[5]),
         )
-        return packed
+        return keys, packed
 
 
 class PagedContinuousBatcher(_MultiLaneMixin):
@@ -1180,8 +1597,8 @@ class PagedContinuousBatcher(_MultiLaneMixin):
     step loop calls it directly. With ``draft_dispatch(k)``,
     ``verify_dispatch(k)`` and ``draft_prefill_dispatch(bucket)`` supplied
     and ``spec_k > 0``, a step whose plan has k > 0 runs the draft and
-    verify lanes instead of the decode lane (synchronously: draft pull,
-    verify pull, accept/rollback).
+    verify lanes instead of the decode lane (draft pull, verify pull,
+    accept/rollback; under ``async_steps`` the verify commit lags a step).
 
     Admission walks the ``PrefixCache``: prompt pages already populated by
     an earlier request are adopted by reference, the ingestion cursor starts
@@ -1215,6 +1632,8 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         draft_prefill_dispatch: Callable[[int], Callable] | None = None,
         draft_cache: Any = None,
         spec_k: int = 0,
+        async_steps: bool = False,
+        async_depth: int = 2,
     ):
         self._init_slots(num_slots, device, seed, telemetry)
         self._dispatch = dispatch_fn
@@ -1239,7 +1658,6 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         self.stats = PagedBatcherStats(registry=self.telemetry.registry)
         self._mirror = _DeviceMirror(self.stats, self.device)
         self._init_lanes(
-            seed=seed,
             prefill_dispatch=prefill_dispatch,
             prefill_chunk=prefill_chunk,
             draft_dispatch=draft_dispatch,
@@ -1247,6 +1665,8 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             draft_prefill_dispatch=draft_prefill_dispatch,
             draft_cache=draft_cache,
             spec_k=spec_k,
+            async_steps=async_steps,
+            async_depth=async_depth,
         )
 
     # ------------------------------------------------------------ properties
@@ -1267,6 +1687,17 @@ class PagedContinuousBatcher(_MultiLaneMixin):
 
     def live_tables(self):
         return [t for t in self._tables if t is not None]
+
+    def _preload_step_inputs(self) -> None:
+        super()._preload_step_inputs()
+        if not self._bt_dirty and self._bt_host is not None:
+            self._mirror.preload("bt", self._bt_host)
+
+    def _pre_issue_fast(self) -> None:
+        """Run-ahead needs the decode write windows' pages (growth, COW)
+        before the next step issues; ``self._pos`` is the predicted
+        frontier, exactly the position that step writes."""
+        self._page_upkeep(0)
 
     # ------------------------------------------------------------- cold path
     def _reclaim_pages(self, want: int, requester_priority: int) -> bool:
@@ -1319,8 +1750,14 @@ class PagedContinuousBatcher(_MultiLaneMixin):
     def admit(self, requests: Iterable[Request], now: float = 0.0) -> list:
         """Seat requests in free slots; returns the requests deferred for
         lack of pages (callers re-queue them — admission never rejects a
-        request that can fit)."""
+        request that can fit). Each seated request draws its slot's key."""
+        requests = list(requests)
+        if requests and self._inflight:
+            # admission edits the per-slot state and re-uploads it: the
+            # parked steps land first, so those arrays are current
+            self._backlog.extend(self._commit_pending(now))
         deferred: list[Request] = []
+        seated = False
         free = [i for i, r in enumerate(self._slots) if r is None]
         for req in requests:
             if not free:
@@ -1375,13 +1812,18 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             )
             self._temps[s] = req.temperature
             self._greedy[s] = req.greedy
+            self._keys[s] = self._draw_keys(2)
             self._prompt_cached[s] = False
             req.t_admit = now
             self._note_admit(req, now)
-            self._mirror.touch("tok", "pos", "active", "temps", "greedy")
+            self._mirror.touch("tok", "pos", "active", "temps", "greedy",
+                               "keys")
             self._tables_changed()
             self.stats.admitted += 1
             self.stats.shared_tokens += matched
+            seated = True
+        if seated and self.async_steps:  # stage them on the cold path
+            self._preload_step_inputs()
         return deferred
 
     def _page_upkeep(self, k: int = 0) -> None:
@@ -1461,38 +1903,47 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             length[s] = chunk
             table = self._tables[s]
             bt[s, : table.num_pages] = table.pages
-        # chunk inputs are per-chunk data, uploaded raw
+        park = self._parks(kept)
+        # chunk inputs are per-chunk data, uploaded raw (the keys too,
+        # unless a parked predecessor's split is still on the device)
         self.stats.prefill_calls += 1
         self.stats.note_lane(self._prefill_lane)
-        self.stats.h2d_uploads += 4
-        dev = self.device
-        tok_dev = _upload(tok, dev, ins[0])
-        start_dev = _upload(self._pos, dev, ins[1])
-        length_dev = _upload(length, dev, ins[3])
+        self.stats.h2d_uploads += 4 if park else 5
+        tok_dev = self._upload(tok, ins[0])
+        start_dev = self._upload(self._pos, ins[1])
+        length_dev = self._upload(length, ins[3])
+        keys_dev = (self._mirror.get("keys", self._keys_i32, ins[6]) if park
+                    else self._upload(self._keys_i32, ins[6]))
         t0_ns = time.perf_counter_ns()
-        nxt, self._cache = step(
+        nxt, self._cache, new_keys, packed = step(
             self._cache,
             tok_dev,
             start_dev,
-            _upload(bt, dev, ins[2]),
+            self._upload(bt, ins[2]),
             length_dev,
             self._mirror.get("temps", self._temps, ins[4]),
             self._mirror.get("greedy", self._greedy, ins[5]),
-            self.generator,
+            keys_dev,
         )
         self._lane_tick(self._prefill_lane, t0_ns)
-        # pulled before the draft mirror's call: with graphs, nxt is a
+        if park:
+            self._park_prefill(kept, new_keys, packed)
+            return []
+        # pulled before the draft mirror's call: with graphs, packed is a
         # static output that another replay in the pool may overwrite
-        nxt_host = self._pull(nxt)
+        p = self._pull(packed)  # [S,3]: sample | keys
+        nxt_host, nk = p[:, 0], p[:, 1:3].astype(np.uint32)
         # Prefix-cache-adopted pages never pass through the draft mirror, so
         # the draft's view of a shared prefix stays cold: acceptance drops
         # on those requests, correctness never does.
-        self._mirror_draft_prompt(bucket, tok_dev, start_dev, length_dev)
+        self._mirror_draft_prompt(bucket, tok_dev, start_dev, length_dev,
+                                  keys_dev)
         finished: list[Request] = []
         for s, cursor, chunk in kept:
             req = self._slots[s]
             prompt = req.effective_prompt
             table = self._tables[s]
+            self._keys[s] = nk[s]
             self._chunk_slots.add(s)
             cursor += chunk
             self._cursor[s] = cursor
@@ -1509,13 +1960,13 @@ class PagedContinuousBatcher(_MultiLaneMixin):
                     self._note_finish(req, now)
                     self._release(s)
                     finished.append(req)
-        self._mirror.touch("pos")
+        self._mirror.touch("pos", "keys")
         return finished
 
     # -------------------------------------------------------------- hot path
     def _decode_lane_step(self, now: float, decoding) -> list[Request]:
         """Capacity-bucket dispatch, packed block tables, one direct step
-        call, one packed pull."""
+        call, one packed pull (or, under async, a parked step)."""
         bucket = bucket_pow2(
             max(
                 [t.num_pages for s, t in enumerate(self._tables)
@@ -1547,12 +1998,12 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             self._mirror.get("active", decoding, ins[3]),
             self._mirror.get("temps", self._temps, ins[4]),
             self._mirror.get("greedy", self._greedy, ins[5]),
-            self.generator,
+            self._mirror.get("keys", self._keys_i32, ins[6]),
         )
-        return self._commit_decode(t0_ns, out, now)
+        return self._commit_decode(t0_ns, out, decoding, now)
 
-    def _sync_slot(self, s: int) -> None:
-        self._tables[s].num_tokens = int(self._pos[s])
+    def _sync_slot(self, s: int, pos: int) -> None:
+        self._tables[s].num_tokens = pos
 
     def _release(self, s: int) -> None:
         """A request finished: its pages return to the pool."""
@@ -1566,7 +2017,8 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         """The paged verify target ``("vf", slots, k, kv_dtype)`` with the
         full-width packed tables (rebuilt only when a table changed);
         ``_page_upkeep(k)`` already reserved and COW'd every page of the
-        windows. Returns the packed ``[S, K+2]`` device tensor."""
+        windows. Returns the new keys (chained) and the packed ``[S, K+4]``
+        device tensor."""
         if self._bt_full_dirty:
             bt = np.zeros((self.num_slots, self.max_pages_per_req), np.int32)
             for s, table in enumerate(self._tables):
@@ -1578,18 +2030,17 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         step = self._verify_dispatch(k)  # cold: slot-hit unless k moved
         ins = _static_inputs(step)
         self.stats.h2d_uploads += 2  # per-step window data (tokens, lengths)
-        dev = self.device
-        _, _, self._cache, packed = step(
+        _, _, self._cache, keys, packed = step(
             self._cache,
-            _upload(tok, dev, ins[0]),
+            self._upload(tok, ins[0]),
             self._mirror.get("pos", self._pos, ins[1]),
             self._mirror.get("bt_full", self._bt_full, ins[2]),
-            _upload(lengths, dev, ins[3]),
+            self._upload(lengths, ins[3]),
             self._mirror.get("temps", self._temps, ins[4]),
             self._mirror.get("greedy", self._greedy, ins[5]),
-            self.generator,
+            self._mirror.get("keys", self._keys_i32, ins[6]),
         )
-        return packed
+        return keys, packed
 
     def _before_emit(self, s: int, req: Request) -> None:
         """Prompt fully written: publish its full pages for sharing."""
@@ -1625,9 +2076,15 @@ def latency_report(requests: Sequence[Request], batcher=None) -> dict:
         st = batcher.stats
         lanes["lane_steps"] = st.lane_steps
         lanes["lane_calls"] = dict(st.lane_calls)
+        # step-pipeline telemetry (DESIGN.md §13): how much host work ran
+        # beside the device rather than serialised against it
+        busy = st.host_plan_ms + st.device_wait_ms
         lanes["pipeline"] = {
+            "async_steps": bool(batcher.async_steps),
             "host_plan_ms": round(st.host_plan_ms, 3),
             "device_wait_ms": round(st.device_wait_ms, 3),
+            "overlap_ratio": round(st.host_plan_ms / busy, 4) if busy else 0.0,
+            "inflight_depth": st.inflight_depth,
             "d2h_transfers": st.d2h_transfers,
         }
         if st.target_steps:

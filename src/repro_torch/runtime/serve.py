@@ -69,7 +69,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch import models, perf
+from repro_torch import models, perf, prng
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import build as kernel_build
 from repro_torch.core import DispatchError, DispatchPolicy, Dispatcher
@@ -152,35 +152,29 @@ class EngineConfig:
 @dataclass
 class _WarmCtx:
     """State threaded through one warmup pass: the batcher's speculation
-    opt-in and a throwaway generator, so warmup consumes none of the
-    batcher's draws. The dummy runs write into the engine's own caches:
-    the pools' null page only, the dense caches' rows at position 0 (and a
-    mamba slot's state)."""
+    opt-in. The dummy runs feed zero keys, so warmup draws nothing from the
+    stream's seed, and write into the engine's own caches: the pools' null
+    page only, the dense caches' rows at position 0 (and a mamba slot's
+    state)."""
 
-    generator: torch.Generator
     spec: bool = False
 
 
 class _GraphStep:
     """A lane's branch target on the card: a ``GraphTarget`` over the
     engine's own cache, called as the eager target is, ``target(cache,
-    *rows[, generator])``. A sampling target fills its static noise input
-    from ``generator`` before the replay, as the eager target draws it."""
+    *rows)``."""
 
-    __slots__ = ("graph", "rows", "noise", "takes_generator")
+    __slots__ = ("graph",)
 
-    def __init__(self, graph: GraphTarget, rows: int, noise: bool,
-                 takes_generator: bool):
+    def __init__(self, graph: GraphTarget):
         self.graph = graph
-        self.rows = rows
-        self.noise = noise
-        self.takes_generator = takes_generator
 
     @property
     def static_inputs(self) -> tuple:
         """The rows' static inputs, in call order (an upload may land in
         one directly)."""
-        return self.graph.static_inputs[: self.rows]
+        return self.graph.static_inputs
 
     def __call__(self, cache, *args):
         if cache is not self.graph.owned:
@@ -188,12 +182,6 @@ class _GraphStep:
                 f"cache: {self.graph.name} was captured over the engine's own "
                 f"cache and runs on no other"
             )
-        if self.takes_generator:
-            *args, generator = args
-            if self.noise:
-                u = self.graph.static_inputs[-1]
-                steps_mod.fill_noise(u, generator)
-                return self.graph(*args, u)
         return self.graph(*args)
 
 
@@ -288,18 +276,16 @@ class Engine:
     def _target(
         self, key: tuple, step: Callable, rows: dict, cache: list,
         cache_dtype: torch.dtype, *, params: dict | None = None,
-        noise_rows: int = 0, takes_generator: bool = True,
         chain: dict | None = None,
     ) -> Callable:
         """A key's branch target: ``step`` bound to its weights (``params``,
         default the target's), to ``rows`` (name -> (shape, dtype) of each
         input after the cache) and to the cache dtype, called as
-        ``target(cache, *rows[, generator])``. A call with another shape,
-        dtype or device, or another cache dtype, is a dispatch bug and
-        raises (the aval guard of a compiled executable). ``noise_rows`` >
-        0: the step samples, and takes ``u [noise_rows, V]`` drawn from the
-        generator. With graphs it is captured over ``cache`` (the engine's
-        own), with ``chain`` mapping outputs to the inputs they feed.
+        ``target(cache, *rows)``. A call with another shape, dtype or
+        device, or another cache dtype, is a dispatch bug and raises (the
+        aval guard of a compiled executable). With graphs it is captured
+        over ``cache`` (the engine's own), with ``chain`` mapping outputs to
+        the inputs they feed (the next token, positions and keys).
 
         The target runs under the ``perf`` opts current when it is built,
         on every call (semi-static, as a traced step): with
@@ -311,8 +297,7 @@ class Engine:
         params = self.params if params is None else params
         specs = [(n, tuple(shape), dt) for n, (shape, dt) in rows.items()]
         if not self.graphs:
-            return self._guarded(step, specs, cache_dtype, params,
-                                 noise_rows, takes_generator)
+            return self._guarded(step, specs, cache_dtype, params)
         examples = [
             torch.ones(shape, dtype=dt, device=self.device)
             if dt.is_floating_point
@@ -320,23 +305,18 @@ class Engine:
             for _, shape, dt in specs
         ]
         names = [n for n, _, _ in specs]
-        if noise_rows:
-            examples.append(torch.full((noise_rows, self.cfg.vocab_size), 0.5,
-                                       device=self.device))
-            names.append("noise")
         graph = GraphTarget(
             lambda *ins: step(params, cache, *ins), examples, owned=cache,
             pool=self._graph_pool, chain=chain, names=names, name=str(key),
         ).capture()
-        return _GraphStep(graph, len(specs), noise_rows > 0, takes_generator)
+        return _GraphStep(graph)
 
     def _guarded(
         self, step: Callable, specs: list, cache_dtype: torch.dtype,
-        params: dict, noise_rows: int, takes_generator: bool,
+        params: dict,
     ) -> Callable:
         """The eager target (CPU, or ``cuda_graphs=False``)."""
         device = self.device
-        vocab = self.cfg.vocab_size
 
         def target(cache, *args):
             # the K/V rows or pages, or a mamba slot's conv window
@@ -345,12 +325,7 @@ class Engine:
                 raise ValueError(
                     f"cache: expected {cache_dtype} K/V, got {got}"
                 )
-            if takes_generator:
-                *args, generator = args
             check_args(specs, args, device)
-            if noise_rows:
-                u = steps_mod.draw_noise(noise_rows, vocab, generator, device)
-                return step(params, cache, *args, u)
             return step(params, cache, *args)
 
         return target
@@ -368,7 +343,7 @@ class Engine:
         decode step over the whole bucket at one position, with the sampling
         mode baked in (the per-burst engine, DESIGN.md §2), over the
         bucket's own cache. Its next token and position feed its next
-        call."""
+        call; ``key [2]`` is the step's own (``decode_loop``)."""
         step = steps_mod.make_sampling_decode_fn(
             self.cfg, mode=mode, temperature=self.ecfg.temperature,
             attn_impl=self.ecfg.attn_impl,
@@ -376,16 +351,15 @@ class Engine:
         i32 = torch.int32
         return self._target(
             lanes_mod.BURST.key(batch, mode), step,
-            {"tok": ((batch, 1), i32), "pos": ((), i32)},
-            self.burst_cache(batch), dtype_of(self.cfg),
-            noise_rows=batch if mode else 0, chain={2: 0, 3: 1},
+            {"tok": ((batch, 1), i32), "pos": ((), i32), "key": ((2,), i32)},
+            self.burst_cache(batch), dtype_of(self.cfg), chain={2: 0, 3: 1},
         )
 
     def _build_slot_decode(self, slots: int) -> Callable:
         """Branch target for ``("cb", slots)``: the dense continuous decode
         step over the engine's dense cache of ``slots`` rows, every slot at
         its own position, sampling params as data (DESIGN.md §4). The next
-        token and positions feed its next call."""
+        token, positions and keys feed its next call."""
         step = steps_mod.make_slot_decode_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl
         )
@@ -395,8 +369,8 @@ class Engine:
                 "tok": ((slots, 1), i32), "pos": ((slots,), i32),
                 "active": ((slots,), torch.bool),
                 **self._sampling_rows(slots),
-            }, self.dense_cache(slots), dtype_of(self.cfg), noise_rows=slots,
-            chain={3: 0, 2: 1},
+            }, self.dense_cache(slots), dtype_of(self.cfg),
+            chain={4: 0, 2: 1, 3: 5},
         )
 
     def _build_slot_prefill(self, slots: int, chunk_bucket: int) -> Callable:
@@ -410,7 +384,7 @@ class Engine:
         return self._target(
             lanes_mod.PFD.key(slots, chunk_bucket), step,
             self._dense_chunk_rows(slots, chunk_bucket),
-            self.dense_cache(slots), dtype_of(self.cfg), noise_rows=slots,
+            self.dense_cache(slots), dtype_of(self.cfg), chain={2: 5},
         )
 
     def _build_slot_verify(self, slots: int, k: int) -> Callable:
@@ -422,7 +396,7 @@ class Engine:
         return self._target(
             lanes_mod.VFD.key(slots, k), step,
             self._dense_chunk_rows(slots, k + 1), self.dense_cache(slots),
-            dtype_of(self.cfg), noise_rows=slots,
+            dtype_of(self.cfg), chain={3: 5},
         )
 
     def _build_paged_slot_decode(
@@ -433,7 +407,7 @@ class Engine:
         table's width is part of the target's shapes, and outgrowing the
         bucket re-dispatches on the cold path; the page dtype is another
         (DESIGN.md §12), so model-dtype and int8 pools are two targets. The
-        next token and positions feed its next call."""
+        next token, positions and keys feed its next call."""
         step = steps_mod.make_paged_slot_decode_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl
         )
@@ -445,14 +419,15 @@ class Engine:
                 "active": ((slots,), torch.bool),
                 **self._sampling_rows(slots),
             }, self.paged_cache(kv_dtype),
-            self._kv_torch_dtype(kv_dtype, self.cfg), noise_rows=slots,
-            chain={3: 0, 2: 1},
+            self._kv_torch_dtype(kv_dtype, self.cfg),
+            chain={4: 0, 2: 1, 3: 6},
         )
 
     @staticmethod
     def _sampling_rows(slots: int) -> dict:
         return {"temps": ((slots,), torch.float32),
-                "greedy": ((slots,), torch.bool)}
+                "greedy": ((slots,), torch.bool),
+                "keys": ((slots, 2), torch.int32)}
 
     def _dense_chunk_rows(self, slots: int, width: int) -> dict:
         """The dense chunk lanes' inputs (``pfd``, ``vfd``, ``drp``)."""
@@ -484,7 +459,7 @@ class Engine:
         return self._target(
             lanes_mod.PF.key(slots, chunk_bucket, kv_dtype), step,
             self._chunk_rows(slots, chunk_bucket), self.paged_cache(kv_dtype),
-            self._kv_torch_dtype(kv_dtype, self.cfg), noise_rows=slots,
+            self._kv_torch_dtype(kv_dtype, self.cfg), chain={2: 6},
         )
 
     def _build_paged_verify(self, slots: int, k: int, kv_dtype: str) -> Callable:
@@ -498,14 +473,15 @@ class Engine:
         return self._target(
             lanes_mod.VF.key(slots, k, kv_dtype), step,
             self._chunk_rows(slots, k + 1), self.paged_cache(kv_dtype),
-            self._kv_torch_dtype(kv_dtype, self.cfg), noise_rows=slots,
+            self._kv_torch_dtype(kv_dtype, self.cfg), chain={3: 6},
         )
 
     def _build_draft(self, slots: int, k: int, draft_kv_dtype: str) -> Callable:
         """Branch target for ``("dr", slots, k, draft_kv_dtype)``: K draft
         decode steps looped inside one target (DESIGN.md §11), so depth
         variation re-dispatches on the cold path; the draft cache's dtype is
-        its own coordinate (DESIGN.md §16)."""
+        its own coordinate (DESIGN.md §16). Its keys are the batcher's,
+        split and discarded (``steps.make_draft_fn``)."""
         step = steps_mod.make_draft_fn(
             self.draft_cfg, k=k, attn_impl=self.ecfg.attn_impl
         )
@@ -514,9 +490,10 @@ class Engine:
             lanes_mod.DR.key(slots, k, draft_kv_dtype), step, {
                 "tok": ((slots, 1), i32), "pos": ((slots,), i32),
                 "active": ((slots,), torch.bool),
+                **self._sampling_rows(slots),
             }, self.draft_cache(slots, draft_kv_dtype),
             self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
-            params=self.draft_params, takes_generator=False,
+            params=self.draft_params,
         )
 
     def _build_draft_prefill(
@@ -533,7 +510,7 @@ class Engine:
             self._dense_chunk_rows(slots, chunk_bucket),
             self.draft_cache(slots, draft_kv_dtype),
             self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
-            params=self.draft_params, noise_rows=slots,
+            params=self.draft_params,
         )
 
     # ------------------------------------------------------ engine state
@@ -699,6 +676,7 @@ class Engine:
         return (
             torch.ones(s, dtype=torch.float32, device=self.device),
             torch.ones(s, dtype=torch.bool, device=self.device),
+            self._zeros(s, 2),
         )
 
     def _warm_cb(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
@@ -706,69 +684,68 @@ class Engine:
         out = exe(
             self.dense_cache(s), self._zeros(s, 1), self._zeros(s),
             self._zeros(s, dtype=torch.bool), *self._warm_sampling(s),
-            ctx.generator,
         )
-        steps_mod.pull_host(out[4])
+        steps_mod.pull_host(out[5])
 
     def _warm_pfd(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, cb = key
-        nxt, _ = exe(
+        out = exe(
             self.dense_cache(s), self._zeros(s, cb), self._zeros(s),
-            self._zeros(s), *self._warm_sampling(s), ctx.generator,
+            self._zeros(s), *self._warm_sampling(s),
         )
-        steps_mod.pull_host(nxt)
+        steps_mod.pull_host(out[3])
 
     def _warm_vfd(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, k = key
         out = exe(
             self.dense_cache(s), self._zeros(s, k + 1), self._zeros(s),
-            self._zeros(s), *self._warm_sampling(s), ctx.generator,
+            self._zeros(s), *self._warm_sampling(s),
         )
-        steps_mod.pull_host(out[3])
+        steps_mod.pull_host(out[4])
 
     def _warm_cbp(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, pb, dt = key
         out = exe(
             self.paged_cache(dt), self._zeros(s, 1), self._zeros(s),
             self._zeros(s, pb), self._zeros(s, dtype=torch.bool),
-            *self._warm_sampling(s), ctx.generator,
+            *self._warm_sampling(s),
         )
-        steps_mod.pull_host(out[4])
+        steps_mod.pull_host(out[5])
 
     def _warm_pf(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, cb, dt = key
-        nxt, _ = exe(
+        out = exe(
             self.paged_cache(dt), self._zeros(s, cb), self._zeros(s),
             self._zeros(s, self.max_pages_per_req), self._zeros(s),
-            *self._warm_sampling(s), ctx.generator,
+            *self._warm_sampling(s),
         )
-        steps_mod.pull_host(nxt)
+        steps_mod.pull_host(out[3])
 
     def _warm_vf(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, k, dt = key
         out = exe(
             self.paged_cache(dt), self._zeros(s, k + 1), self._zeros(s),
             self._zeros(s, self.max_pages_per_req), self._zeros(s),
-            *self._warm_sampling(s), ctx.generator,
+            *self._warm_sampling(s),
         )
-        steps_mod.pull_host(out[3])
+        steps_mod.pull_host(out[4])
 
     def _warm_dr(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, k, dt = key
-        drafts, _, _ = exe(
+        drafts, _, _, _ = exe(
             self.draft_cache(s, dt), self._zeros(s, 1),
             self._zeros(s), self._zeros(s, dtype=torch.bool),
+            *self._warm_sampling(s),
         )
         steps_mod.pull_host(drafts)
 
     def _warm_drp(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
         _, s, cb, dt = key
-        nxt, _ = exe(
+        out = exe(
             self.draft_cache(s, dt), self._zeros(s, cb),
             self._zeros(s), self._zeros(s), *self._warm_sampling(s),
-            ctx.generator,
         )
-        steps_mod.pull_host(nxt)
+        steps_mod.pull_host(out[3])
 
     def _warm_lanes(self, kind: str, slots: int, ctx: _WarmCtx) -> None:
         """Registry-driven warmup (DESIGN.md §12): every enabled lane spec,
@@ -818,10 +795,8 @@ class Engine:
         key = lanes_mod.BURST.key(bucket, sampling)
         exe = self._decode.dispatch(key)
         self._current = exe  # <- the jmp patch (engine-side mirror)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(0)
         out = exe(self.burst_cache(bucket), self._zeros(bucket, 1),
-                  self._zeros(), gen)
+                  self._zeros(), self._zeros(2))
         steps_mod.pull_host(out[0])
         self.stats["mode_switches"] += 1
         self.telemetry.registry.inc("mode_switches_total")
@@ -838,7 +813,7 @@ class Engine:
         first_token: torch.Tensor,
         start_pos: int,
         num_tokens: int,
-        generator: torch.Generator | None = None,
+        rng: torch.Tensor | None = None,
         on_step: Callable[[int, torch.Tensor], None] | None = None,
     ) -> tuple[np.ndarray, list]:
         """The latency-critical loop: direct calls of the hot slot only.
@@ -850,8 +825,10 @@ class Engine:
         on the device and feed the next step (with graphs: inside the
         graph's own inputs, so a step copies nothing in); each token is
         copied into a ``[B, num_tokens]`` device buffer, pulled once at the
-        end. Sampled bursts draw from ``generator`` (a fresh one seeded 0
-        if None). ``on_step(i, tok)`` observes each step's tokens in that
+        end. ``rng`` is the burst's key (``[2]`` int32, uint32 bits; zeros
+        if None, as in the JAX package): the prologue splits it into one
+        key per step, so a sampled burst's tokens equal the JAX engine's.
+        ``on_step(i, tok)`` observes each step's tokens in that
         buffer as they are issued — e.g. to timestamp the first token
         without serialising the rest of the loop."""
         exe = self._current
@@ -867,9 +844,10 @@ class Engine:
                 f"captured over Engine.burst_cache({batch}); copy the cache "
                 f"into it (after set_mode) and pass that"
             )
-        if generator is None:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(0)
+        base_key = (torch.zeros(2, dtype=torch.int32) if rng is None
+                    else torch.as_tensor(rng, dtype=torch.int32).cpu())
+        # one key per step, derived in the prologue (one upload)
+        step_keys = prng.split(base_key, num_tokens).to(self.device)
         # Burst/continuous report parity (DESIGN.md §14): burst steps feed
         # the same registry families the batcher lanes do, under the
         # "burst" lane label.
@@ -883,7 +861,7 @@ class Engine:
                           device=self.device)
         for i in range(num_tokens):
             t0_ns = time.perf_counter_ns()
-            nxt, cache, tok, pos = exe(cache, tok, pos, generator)
+            nxt, cache, tok, pos = exe(cache, tok, pos, step_keys[i])
             out[:, i].copy_(nxt)  # a graph's next replay overwrites nxt
             dt_ns = time.perf_counter_ns() - t0_ns
             self._burst_calls.inc()
@@ -909,12 +887,16 @@ class Engine:
         spec_decode: bool | None = None,
         kv_dtype: str | None = None,
         draft_kv_dtype: str | None = None,
+        async_steps: bool = False,
+        async_depth: int = 2,
     ) -> PagedContinuousBatcher:
         """Cold path: build the page pool + prefix cache, warm every enabled
         paged lane key through the registry — every warmed page dtype, and
         with speculation every k bucket and draft dtype — and return a paged
-        batcher (DESIGN.md §9-§12). Sampled rows draw from a generator
-        seeded with ``seed``. ``kv_dtype`` / ``draft_kv_dtype`` override the
+        batcher (DESIGN.md §9-§12). The batcher's per-slot keys come from a
+        numpy generator seeded with ``seed``; ``async_steps`` pipelines its
+        steps (``async_depth`` issued steps at most, DESIGN.md §13) over the
+        same warmed keys. ``kv_dtype`` / ``draft_kv_dtype`` override the
         configured pool / draft dtypes and must be in the warmed sets;
         ``spec_decode`` overrides ``spec_k > 0``. A stack with a mamba slot
         raises at once: its state is per row, not pageable."""
@@ -957,9 +939,7 @@ class Engine:
         if use_spec:
             for d in self._warm_draft_kv_dtypes():
                 self.zero_cache(self.draft_cache(s, d))
-        warm_gen = torch.Generator(device=self.device)
-        warm_gen.manual_seed(seed)
-        ctx = _WarmCtx(generator=warm_gen, spec=use_spec)
+        ctx = _WarmCtx(spec=use_spec)
         self._warm_lanes("paged", s, ctx)
 
         def dispatch(pages_bucket: int) -> Callable:
@@ -1002,6 +982,8 @@ class Engine:
             draft_prefill_dispatch=draft_prefill_dispatch,
             draft_cache=self.draft_cache(s, ddt) if use_spec else None,
             spec_k=ecfg.spec_k if use_spec else 0,
+            async_steps=async_steps,
+            async_depth=async_depth,
         )
 
     def _spec_dispatchers(self, slots: int, draft_kv_dtype: str,
@@ -1032,6 +1014,8 @@ class Engine:
         seed: int = 0,
         spec_decode: bool | None = None,
         draft_kv_dtype: str | None = None,
+        async_steps: bool = False,
+        async_depth: int = 2,
     ) -> ContinuousBatcher:
         """Cold path: warm every enabled dense lane key through the registry
         — ``cb``, ``pfd`` per chunk bucket, and with speculation ``vfd``,
@@ -1039,7 +1023,8 @@ class Engine:
         dense cache of ``slots`` rows, and return a dense batcher
         (DESIGN.md §4/§10/§11). Joins, leaves, greedy/sample flips, chunk
         sizes and draft depths are then data or rebinds over warmed keys.
-        Sampled rows draw from a generator seeded with ``seed``;
+        The batcher's per-slot keys come from a numpy generator seeded with
+        ``seed``; ``async_steps``/``async_depth`` as ``paged_continuous``;
         ``spec_decode`` overrides ``spec_k > 0``; ``draft_kv_dtype``
         overrides the configured draft dtype and must be in the warmed set.
 
@@ -1071,9 +1056,7 @@ class Engine:
             for d in self._warm_draft_kv_dtypes():
                 self.zero_cache(self.draft_cache(s, d))
         cache = self.zero_cache(self.dense_cache(s))
-        warm_gen = torch.Generator(device=self.device)
-        warm_gen.manual_seed(seed)
-        ctx = _WarmCtx(generator=warm_gen, spec=use_spec)
+        ctx = _WarmCtx(spec=use_spec)
         self._warm_lanes("dense", s, ctx)
         self.zero_cache(cache)
         key = lanes_mod.CB.key(s)
@@ -1111,6 +1094,8 @@ class Engine:
             draft_prefill_dispatch=draft_prefill_dispatch,
             draft_cache=self.draft_cache(s, ddt) if use_spec else None,
             spec_k=self.ecfg.spec_k if use_spec else 0,
+            async_steps=async_steps,
+            async_depth=async_depth,
         )
 
 
@@ -1122,14 +1107,20 @@ def run_continuous_stream(
     slots: int | None = None,
     seed: int = 0,
     clock: Clock | None = None,
+    async_steps: bool = False,
+    async_depth: int = 2,
 ) -> dict:
     """Drive a request stream through the dense continuous engine; return a
-    report with the JAX package's keys (its mesh and async keys left out).
+    report with the JAX package's keys (its mesh keys left out).
 
     The acceptance metric is ``compiles_after_warmup`` (on the card:
     captures after warmup): 0 for any mix of greedy and sampled requests,
-    prompt lengths and draft depths once ``continuous`` has warmed."""
-    cb = eng.continuous(slots=slots, seed=seed)  # warmup first...
+    prompt lengths and draft depths once ``continuous`` has warmed.
+    ``async_steps`` pipelines host scheduling against device execution
+    (DESIGN.md §13; ``async_depth`` caps the in-flight steps); the token
+    streams are the same either way."""
+    cb = eng.continuous(slots=slots, seed=seed, async_steps=async_steps,
+                        async_depth=async_depth)  # warmup first...
     clock = clock or Clock()  # ...so served latencies exclude it
     q = RequestQueue(requests)
     finished: list[Request] = []
@@ -1145,9 +1136,11 @@ def run_continuous_stream(
             if nxt is None:
                 break
             clock.jump_to(nxt)  # idle: fast-forward to the next arrival
+    finished.extend(cb.flush(clock.now()))  # commit any in-flight step
     report = latency_report(finished, batcher=cb)
     report.update(
         engine="continuous",
+        async_steps=cb.async_steps,
         device=str(eng.device),
         attn_impl=eng.ecfg.attn_impl,
         cuda_graphs=eng.graphs,
@@ -1179,13 +1172,13 @@ def run_burst_stream(
     on a key's first sight, a rebind) before its hot loop; mixed modes split
     into separate bursts because the mode is baked into the target. Every
     burst starts from a fresh cache at position 0 with each request's
-    ``first_token``, on the bucket's own cache zeroed. Sampled bursts draw
-    from one generator seeded ``seed``.
+    ``first_token``, on the bucket's own cache zeroed. Every burst, greedy
+    or sampled, draws its key from one numpy generator seeded ``seed`` (0,
+    the JAX package's), so sampled bursts equal the JAX engine's.
     """
     clock = clock or Clock()
     q = RequestQueue(requests)
-    gen = torch.Generator(device=eng.device)
-    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
     finished: list[Request] = []
     compiles0 = eng._decode.stats.misses
     rebinds0 = eng._decode.stats.rebinds
@@ -1218,6 +1211,9 @@ def run_burst_stream(
             for i, r in enumerate(chunk):
                 first[i, 0] = r.first_token
                 r.t_admit = clock.now()
+            key = torch.from_numpy(
+                rng.integers(0, 2**32, size=2, dtype=np.uint32).view(np.int32)
+            )
             first_t: dict = {}
 
             def note_first(i, tok, _first_t=first_t):
@@ -1227,7 +1223,7 @@ def run_burst_stream(
 
             toks, _ = eng.decode_loop(  # hot path
                 cache, first.to(eng.device), 0,
-                max(r.new_tokens for r in chunk), generator=gen,
+                max(r.new_tokens for r in chunk), rng=key,
                 on_step=note_first,
             )
             done_t = clock.now()
@@ -1259,6 +1255,8 @@ def run_paged_stream(
     seed: int = 0,
     clock: Clock | None = None,
     kv_dtype: str | None = None,
+    async_steps: bool = False,
+    async_depth: int = 2,
 ) -> dict:
     """Drive a request stream through the paged KV engine; return a report.
 
@@ -1268,8 +1266,11 @@ def run_paged_stream(
     overrides the configured pool dtype (it must be in the warmed set).
     With ``EngineConfig.spec_k > 0`` the report's ``spec`` block carries
     drafted/accepted tokens, the acceptance rate and k-bucket crossings.
+    ``async_steps``/``async_depth`` as ``run_continuous_stream``.
     """
-    cb = eng.paged_continuous(slots=slots, seed=seed, kv_dtype=kv_dtype)
+    cb = eng.paged_continuous(slots=slots, seed=seed, kv_dtype=kv_dtype,
+                              async_steps=async_steps,
+                              async_depth=async_depth)
     clock = clock or Clock()  # ...so served latencies exclude it
     q = RequestQueue(requests)
     finished: list[Request] = []
@@ -1308,9 +1309,11 @@ def run_paged_stream(
         if nxt is None:
             break
         clock.jump_to(nxt)  # idle: fast-forward to the next arrival
+    finished.extend(cb.flush(clock.now()))  # commit any in-flight step
     report = latency_report(finished, batcher=cb)
     report.update(
         engine="paged",
+        async_steps=cb.async_steps,
         device=str(eng.device),
         attn_impl=eng.ecfg.attn_impl,
         cuda_graphs=eng.graphs,

@@ -7,13 +7,15 @@ a dispatch key's static shapes. Each step ends with its *bundle*: the next
 step's chained input and one packed int32 tensor of every host-bound output,
 so the serving loop pays exactly one device-to-host transfer per step.
 
-A sampling step takes its uniform noise ``u [S, V]`` as an input rather
-than a ``torch.Generator``: the engine fills it from the batcher's generator
-(one per stream, seeded from its ``seed``) just before the call —
-``draw_noise`` eagerly, or ``fill_noise`` into a captured graph's static
-input — so a CUDA graph replays no random draw of its own and its tokens
-equal the eager step's for the same seed. The streams are not comparable
-with the JAX package's threefry keys. Greedy rows are exact.
+A sampling step takes per-row threefry keys ``keys [S, 2]`` (uint32 bits
+stored as int32) and returns them split, as the JAX package's steps do:
+each row's key is split in 2, the first half draws the row's categorical
+sample and the second is its next key (``_sample_rows``). The keys chain
+through the step like the next token and position — with graphs, inside
+the target's own inputs — so a CUDA graph replays no random state of its
+own, and the sampled streams equal the JAX package's token for token. On
+the card the tail is one launch of ``kernels.sampling.sample_rows``; on the
+CPU it is its plain version, ``repro_torch.prng``.
 """
 
 from __future__ import annotations
@@ -26,45 +28,42 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs import ArchConfig
-
-
-def draw_noise(
-    rows: int, vocab: int, generator: torch.Generator, device: torch.device
-) -> torch.Tensor:
-    """One step's uniform noise ``f32[rows, vocab]`` from ``generator``."""
-    return torch.rand(
-        (rows, vocab), generator=generator, device=device, dtype=torch.float32
-    )
-
-
-def fill_noise(u: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """``draw_noise`` into ``u`` in place: the same values, from the same
-    generator state (``torch.rand`` is ``uniform_`` on a fresh tensor)."""
-    return u.uniform_(0.0, 1.0, generator=generator)
+from repro_torch.kernels import sampling
 
 
 def _sample_rows(
     logits: torch.Tensor,
     temps: torch.Tensor,
     greedy: torch.Tensor,
-    u: torch.Tensor,
-) -> torch.Tensor:
+    keys: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Sampling as data (DESIGN.md §4): per-row greedy flag and temperature,
-    so a mode flip never touches the cold path. Sampled rows use the
-    Gumbel-max trick (argmax of logits/t plus Gumbel noise from the uniform
-    ``u``, shaped as ``logits``), a draw from the softmax at temperature t.
-    Returns next tokens i32[B]."""
-    g = logits.argmax(dim=-1).to(torch.int32)
-    t = temps.clamp_min(1e-4)[:, None].to(logits.dtype)
-    s = (logits / t - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
-    return torch.where(greedy, g, s)
+    so a mode flip never touches the cold path. Each row's key is split in
+    2: a sampled row draws ``categorical(first half, logits / t)``, a greedy
+    row takes the argmax. Returns (next tokens i32[S], new keys i32[S, 2])
+    (``kernels.sampling.sample_rows``)."""
+    return sampling.sample_rows(logits, temps, greedy, keys)
 
 
-def _step_bundle(nxt: torch.Tensor, new_pos: torch.Tensor):
-    """``tok_col [S,1]`` (the chained next-step input) and ``packed [S,2]``
-    (``[next_tok | new_pos]``, the step's one d2h transfer)."""
+def _step_bundle(nxt: torch.Tensor, new_pos: torch.Tensor,
+                 new_keys: torch.Tensor):
+    """``tok_col [S,1]`` (the chained next-step input) and ``packed [S,4]``
+    (``[next_tok | new_pos | new_keys]``, the step's one d2h transfer)."""
     tok_col = nxt[:, None]
-    return tok_col, torch.stack([nxt, new_pos], dim=1)
+    return tok_col, torch.cat([tok_col, new_pos[:, None], new_keys], dim=1)
+
+
+def pack_step_d2h(nxt: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """``[S]`` next tokens + ``[S,2]`` keys -> one ``[S,3]`` int32 tensor:
+    a prefill chunk's single d2h transfer."""
+    return torch.cat([nxt[:, None], keys], dim=1)
+
+
+def pack_verify_d2h(rows: torch.Tensor, nxt0: torch.Tensor,
+                    keys: torch.Tensor) -> torch.Tensor:
+    """``[S,K+1]`` verify rows + ``[S]`` row-0 samples + ``[S,2]`` keys ->
+    one ``[S,K+4]`` int32 tensor: the verify step's single d2h transfer."""
+    return torch.cat([rows, nxt0[:, None], keys], dim=1)
 
 
 def make_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel") -> Callable:
@@ -91,28 +90,27 @@ def make_sampling_decode_fn(
     per-burst engine's branch targets, one per ``("burst", bucket, mode)``
     key (DESIGN.md §2):
 
-        step(params, cache, inputs[B,1], pos[, u[B,V]])
+        step(params, cache, inputs[B,1], pos, key[2])
           -> (tok[B], cache, tok_col[B,1], new_pos)
 
     ``pos`` is a 0-dim int32 device tensor (every row at one position);
     ``tok_col`` and ``new_pos = pos + 1`` are the next step's inputs.
-    ``mode`` 0 = greedy (argmax, no noise), 1 = a sample at
-    ``temperature`` from the uniform noise ``u`` (Gumbel-max, as
-    ``_sample_rows``; the JAX package draws from threefry keys, so only
-    greedy bursts compare token for token). Flipping mode means
+    ``mode`` 0 = greedy (argmax; the key is ignored), 1 = a sample at
+    ``temperature``: ``categorical(key, logits / temperature)`` with one
+    key over the whole ``[B, V]``, as the JAX package's step draws it
+    (``kernels.sampling.categorical_rows``). Flipping mode means
     dispatching another target: cheap once built, but a build on first
     sight and a slot rebind per flip."""
     if mode not in (0, 1):
         raise ValueError(f"mode must be 0 (greedy) or 1 (sample), got {mode}")
     decode = make_decode_fn(cfg, attn_impl=attn_impl)
 
-    def step(params, cache, inputs, pos, u=None):
+    def step(params, cache, inputs, pos, key):
         logits, cache = decode(params, cache, inputs, pos)
         if mode == 0:
             nxt = logits.argmax(dim=-1).to(torch.int32)
         else:
-            g = logits / temperature - torch.log(-torch.log(u))
-            nxt = g.argmax(dim=-1).to(torch.int32)
+            nxt = sampling.categorical_rows(key, logits, temperature)
         return nxt, cache, nxt[:, None], pos + 1
 
     return step
@@ -134,21 +132,23 @@ def make_slot_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel") -> Callab
     (DESIGN.md §4): sampling params are data, not code.
 
         step(params, cache, tok[S,1], pos[S], active[S], temps[S],
-             greedy[S], u[S,V])
-          -> (next_tok[S], cache, new_pos[S], tok_col[S,1], packed[S,2])
+             greedy[S], keys[S,2])
+          -> (next_tok[S], cache, new_pos[S], new_keys[S,2], tok_col[S,1],
+              packed[S,4])
 
     Each slot sits at its own depth ``pos`` of the dense per-slot cache;
     inactive slots still compute (fixed shapes) but their positions do not
-    advance. The uniform noise ``u`` takes the place of the JAX package's
-    per-slot keys (module docstring)."""
+    advance. ``keys`` are split in the step (``_sample_rows``); ``packed``
+    is ``[next_tok | new_pos | new_keys]``, the step's one pull."""
 
-    def slot_step(params, cache, tok, pos, active, temps, greedy, u):
+    def slot_step(params, cache, tok, pos, active, temps, greedy, keys):
         logits, cache = models.decode_step(
             cfg, params, cache, tok, pos, attn_impl=attn_impl
         )
-        nxt = _sample_rows(logits, temps, greedy, u)
+        nxt, new_keys = _sample_rows(logits, temps, greedy, keys)
         new_pos = pos + active.to(torch.int32)
-        return (nxt, cache, new_pos, *_step_bundle(nxt, new_pos))
+        return (nxt, cache, new_pos, new_keys,
+                *_step_bundle(nxt, new_pos, new_keys))
 
     return slot_step
 
@@ -159,23 +159,35 @@ def make_paged_slot_decode_fn(
     """Paged continuous-batching decode step (DESIGN.md §9):
 
         step(params, cache, tok[S,1], pos[S], block_tables[S,PB], active[S],
-             temps[S], greedy[S], u[S,V])
-          -> (next_tok[S], cache, new_pos[S], tok_col[S,1], packed[S,2])
+             temps[S], greedy[S], keys[S,2])
+          -> (next_tok[S], cache, new_pos[S], new_keys[S,2], tok_col[S,1],
+              packed[S,4])
 
     Inactive slots carry all-null block tables, so their writes land in the
     null page; their positions do not advance."""
 
     def paged_slot_step(
-        params, cache, tok, pos, block_tables, active, temps, greedy, u
+        params, cache, tok, pos, block_tables, active, temps, greedy, keys
     ):
         logits, cache = models.paged_decode_step(
             cfg, params, cache, tok, pos, block_tables, attn_impl=attn_impl
         )
-        nxt = _sample_rows(logits, temps, greedy, u)
+        nxt, new_keys = _sample_rows(logits, temps, greedy, keys)
         new_pos = pos + active.to(torch.int32)
-        return (nxt, cache, new_pos, *_step_bundle(nxt, new_pos))
+        return (nxt, cache, new_pos, new_keys,
+                *_step_bundle(nxt, new_pos, new_keys))
 
     return paged_slot_step
+
+
+def _chunk_sample(logits, length, temps, greedy, keys):
+    """A chunk step's tail: the last real row's sample, the keys split —
+    but idle rows (``length`` 0, bucket padding) keep theirs unsplit, so
+    the keys a chunk returns can be adopted wholesale (the JAX package's
+    rule) — and the packed ``[S,3]`` pull."""
+    nxt, new_keys = _sample_rows(logits, temps, greedy, keys)
+    new_keys = torch.where(length[:, None] > 0, new_keys, keys)
+    return nxt, new_keys, pack_step_d2h(nxt, new_keys)
 
 
 def make_paged_prefill_fn(
@@ -184,29 +196,34 @@ def make_paged_prefill_fn(
     """Chunked-prefill step through the paged KV cache (DESIGN.md §10):
 
         step(params, cache, tok[B,CB], start[B], block_tables[B,PB],
-             length[B], temps[B], greedy[B], u[B,V])
-          -> (next_tok[B], cache)
+             length[B], temps[B], greedy[B], keys[B,2])
+          -> (next_tok[B], cache, new_keys[B,2], packed[B,3])
 
     ``next_tok`` is sampled from each row's last real chunk token and primes
     generation when the chunk reaches the prompt end. Columns >= ``length``
-    are bucket padding: their K/V writes land in the null page."""
+    are bucket padding: their K/V writes land in the null page; a row of
+    length 0 keeps its key (``_chunk_sample``)."""
 
     def paged_prefill_step(
-        params, cache, tok, start, block_tables, length, temps, greedy, u,
+        params, cache, tok, start, block_tables, length, temps, greedy, keys,
     ):
         logits, cache = models.paged_prefill_step(
             cfg, params, cache, tok, start, block_tables, length,
             attn_impl=attn_impl,
         )
-        return _sample_rows(logits, temps, greedy, u), cache
+        nxt, new_keys, packed = _chunk_sample(logits, length, temps, greedy,
+                                              keys)
+        return nxt, cache, new_keys, packed
 
     return paged_prefill_step
 
 
-def pack_verify_d2h(rows: torch.Tensor, nxt0: torch.Tensor) -> torch.Tensor:
-    """``[S,K+1]`` verify rows + ``[S]`` row-0 samples -> one ``[S,K+2]``
-    int32 tensor: the verify step's single d2h transfer."""
-    return torch.cat([rows, nxt0[:, None]], dim=1)
+def _verify_tail(logits, temps, greedy, keys):
+    """The verify lanes' tail: greedy rows, row 0's mode-respecting sample
+    (one key split, as a decode step), the packed ``[S,K+4]`` pull."""
+    rows = logits.argmax(dim=-1).to(torch.int32)
+    nxt0, new_keys = _sample_rows(logits[:, 0], temps, greedy, keys)
+    return rows, nxt0, new_keys, pack_verify_d2h(rows, nxt0, new_keys)
 
 
 def make_paged_verify_fn(
@@ -215,28 +232,29 @@ def make_paged_verify_fn(
     """Verify lane through the paged KV cache (DESIGN.md §11):
 
         step(params, cache, tok[S,K+1], start[S], block_tables[S,PB],
-             length[S], temps[S], greedy[S], u[S,V])
-          -> (rows[S,K+1], next0[S], cache, packed[S,K+2])
+             length[S], temps[S], greedy[S], keys[S,2])
+          -> (rows[S,K+1], next0[S], cache, new_keys[S,2], packed[S,K+4])
 
     ``tok`` is each slot's current token followed by its K draft
     candidates; all K+1 positions are scored in one target pass through the
     chunk path (columns >= ``length`` write only the null page).
     ``rows[s, i]`` is the greedy continuation after rows 0..i — acceptance
     and the correction token are host-side comparisons over it. ``next0``
-    is the mode-respecting sample from row 0 (one noise draw, as a
-    decode step), so a length-1 window is a decode step and sampling slots
-    ride the same call. ``packed`` is ``pack_verify_d2h(rows, next0)``."""
+    is the mode-respecting sample from row 0 (one key split, as a decode
+    step), so a length-1 window is a decode step and sampling slots ride
+    the same call. ``packed`` is ``pack_verify_d2h(rows, next0,
+    new_keys)``."""
 
     def verify_step(
-        params, cache, tok, start, block_tables, length, temps, greedy, u,
+        params, cache, tok, start, block_tables, length, temps, greedy, keys,
     ):
         logits, cache = models.paged_verify_step(
             cfg, params, cache, tok, start, block_tables, length,
             attn_impl=attn_impl,
         )
-        rows = logits.argmax(dim=-1).to(torch.int32)
-        nxt0 = _sample_rows(logits[:, 0], temps, greedy, u)
-        return rows, nxt0, cache, pack_verify_d2h(rows, nxt0)
+        rows, nxt0, new_keys, packed = _verify_tail(logits, temps, greedy,
+                                                    keys)
+        return rows, nxt0, cache, new_keys, packed
 
     return verify_step
 
@@ -248,20 +266,20 @@ def make_slot_verify_fn(
     k_bucket)`` key (DESIGN.md §11):
 
         step(params, cache, tok[S,K+1], start[S], length[S], temps[S],
-             greedy[S], u[S,V])
-          -> (rows[S,K+1], next0[S], cache, packed[S,K+2])
+             greedy[S], keys[S,2])
+          -> (rows[S,K+1], next0[S], cache, new_keys[S,2], packed[S,K+4])
 
     ``make_paged_verify_fn`` without block tables: a dense slot's cache
     rows are a trivial identity block table, so both engines share the
     accept/rollback contract (columns >= ``length`` write nothing)."""
 
-    def verify_step(params, cache, tok, start, length, temps, greedy, u):
+    def verify_step(params, cache, tok, start, length, temps, greedy, keys):
         logits, cache = models.chunked_verify_step(
             cfg, params, cache, tok, start, length, attn_impl=attn_impl,
         )
-        rows = logits.argmax(dim=-1).to(torch.int32)
-        nxt0 = _sample_rows(logits[:, 0], temps, greedy, u)
-        return rows, nxt0, cache, pack_verify_d2h(rows, nxt0)
+        rows, nxt0, new_keys, packed = _verify_tail(logits, temps, greedy,
+                                                    keys)
+        return rows, nxt0, cache, new_keys, packed
 
     return verify_step
 
@@ -269,11 +287,12 @@ def make_slot_verify_fn(
 def make_draft_fn(
     draft_cfg: ArchConfig, *, k: int, attn_impl: str = "kernel"
 ) -> Callable:
-    """Draft lane (DESIGN.md §11): K greedy candidates per slot in one
-    branch target, the ``("dr", slots, k_bucket, draft_kv_dtype)`` key:
+    """Draft lane (DESIGN.md §11): K candidates per slot in one branch
+    target, the ``("dr", slots, k_bucket, draft_kv_dtype)`` key:
 
-        step(draft_params, draft_cache, tok[S,1], pos[S], active[S])
-          -> (drafts[S,K], draft_cache, new_pos[S])
+        step(draft_params, draft_cache, tok[S,1], pos[S], active[S],
+             temps[S], greedy[S], keys[S,2])
+          -> (drafts[S,K], draft_cache, new_pos[S], new_keys[S,2])
 
     ``draft_cfg``/``draft_params`` are the truncated-layer view
     (``models.draft_view``), ``draft_cache`` its dense per-slot cache,
@@ -282,20 +301,22 @@ def make_draft_fn(
     is fixed when it is built; each step feeds the previous candidate back
     and writes the draft's KV at the advancing position (the scheduler
     later rewinds ``pos`` as data and the next round overwrites a rejected
-    tail). Candidates are greedy, as the JAX package's scheduler forces
-    them, so the draft takes no noise and sampled streams are untouched."""
+    tail). Every step samples through ``_sample_rows``, splitting the keys,
+    as the JAX package's draft does; the scheduler forces ``greedy`` on, so
+    the candidates are argmaxes, and discards the returned keys, so the
+    sampled streams are untouched."""
 
-    def draft_step(params, cache, tok, pos, active):
+    def draft_step(params, cache, tok, pos, active, temps, greedy, keys):
         drafts = []
         for _ in range(k):
             logits, cache = models.decode_step(
                 draft_cfg, params, cache, tok, pos, attn_impl=attn_impl
             )
-            nxt = logits.argmax(dim=-1).to(torch.int32)
+            nxt, keys = _sample_rows(logits, temps, greedy, keys)
             drafts.append(nxt)
             tok = nxt[:, None]
             pos = pos + active.to(torch.int32)
-        return torch.stack(drafts, dim=1), cache, pos
+        return torch.stack(drafts, dim=1), cache, pos, keys
 
     return draft_step
 
@@ -309,21 +330,24 @@ def make_slot_prefill_fn(
     draft_kv_dtype)`` key:
 
         step(params, cache, tok[S,CB], start[S], length[S], temps[S],
-             greedy[S], u[S,V])
-          -> (next_tok[S], cache)
+             greedy[S], keys[S,2])
+          -> (next_tok[S], cache, new_keys[S,2], packed[S,3])
 
     Every slot carries its own chunk window (``length`` 0 = idle row,
-    writes nothing); attention is B2 (B4 on an int8 cache) over the
-    cache's page view with ``attn_impl="kernel"``. ``next_tok`` is sampled
-    from each row's last real chunk token; the mirror discards it and
-    samples from a generator of its own, so it never moves the sampled
+    writes nothing and keeps its key); attention is B2 (B4 on an int8
+    cache) over the cache's page view with ``attn_impl="kernel"``.
+    ``next_tok`` is sampled from each row's last real chunk token; the
+    mirror discards its sample and keys, so it never moves the sampled
     streams."""
 
-    def slot_prefill_step(params, cache, tok, start, length, temps, greedy, u):
+    def slot_prefill_step(params, cache, tok, start, length, temps, greedy,
+                          keys):
         logits, cache = models.chunked_decode_step(
             cfg, params, cache, tok, start, length, attn_impl=attn_impl
         )
-        return _sample_rows(logits, temps, greedy, u), cache
+        nxt, new_keys, packed = _chunk_sample(logits, length, temps, greedy,
+                                              keys)
+        return nxt, cache, new_keys, packed
 
     return slot_prefill_step
 

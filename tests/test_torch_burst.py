@@ -5,9 +5,10 @@
 (``params_from_jax``). Both engines run under one virtual clock (time moves
 only by jumps to the next arrival), so the bursts they form are the same and
 their cold-path counters — ``mode_switches``, ``compiles_total``,
-``compiles_after_warmup``, ``rebinds`` — must be equal. Greedy tokens must be
-equal; sampled tokens come from a ``torch.Generator`` on one side and
-threefry keys on the other, so they are only range-checked.
+``compiles_after_warmup``, ``rebinds`` — must be equal. Tokens must be
+equal, sampled ones too: each burst draws its key from
+``np.random.default_rng(0)`` and ``decode_loop`` splits it into one
+threefry key per step, in both packages (``repro_torch.prng``).
 """
 
 from __future__ import annotations
@@ -99,11 +100,10 @@ def test_burst_stream_matches_jax(smoke, policy):
                 "compiles_after_warmup", "rebinds"):
         assert trep[key] == jrep[key], key
     assert trep["engine"] == "burst" and trep["mode_switches"] >= 3
+    assert not all(t.greedy for t in treqs)
     for j, t in zip(jreqs, treqs):
         assert len(t.tokens) == t.new_tokens
-        assert all(0 <= x < tcfg.vocab_size for x in t.tokens)
-        if t.greedy:
-            assert t.tokens == j.tokens, t.rid
+        assert t.tokens == j.tokens, t.rid
 
 
 def test_set_mode_and_decode_loop_match_jax(smoke):
@@ -155,19 +155,30 @@ def test_prompt_then_burst_matches_jax(smoke):
 
 
 def test_sampled_burst_draws_from_the_generator(smoke):
-    _, tcfg, _, tparams = smoke
-    first = torch.zeros(4, 1, dtype=torch.int32)
+    """A sampled burst draws from its ``rng`` key (zeros by default, as in
+    the JAX package): the same key gives the same tokens, another key
+    others, and each equals the JAX engine's ``decode_loop`` under that
+    key."""
+    cfg, tcfg, jparams, tparams = smoke
+    first = np.array([[0], [5], [9], [200]], np.int32)
+    keys = [None, np.array([7, 2**32 - 3], np.uint32),
+            np.array([7, 2**32 - 3], np.uint32), np.array([1, 2], np.uint32)]
     with Engine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu") as eng:
         eng.set_mode(batch=4, sampling=1)
-        runs = []
-        for seed in (0, 0, 1):
-            gen = torch.Generator().manual_seed(seed)
-            toks, _ = eng.decode_loop(models.init_cache(tcfg, 4, 32), first,
-                                      0, 8, generator=gen)
-            runs.append(toks)
+        runs = [eng.decode_loop(
+            models.init_cache(tcfg, 4, 32), torch.from_numpy(first), 0, 8,
+            rng=None if k is None else torch.from_numpy(k.view(np.int32)),
+        )[0] for k in keys]
     assert runs[0].shape == (4, 8) and ((0 <= runs[0]) & (runs[0] < 256)).all()
-    np.testing.assert_array_equal(runs[0], runs[1])
-    assert (runs[0] != runs[2]).any()
+    np.testing.assert_array_equal(runs[1], runs[2])
+    assert (runs[1] != runs[3]).any() and (runs[0] != runs[1]).any()
+    with jserve.Engine(cfg, jparams, jserve.EngineConfig(**ENGINE)) as eng:
+        eng.set_mode(batch=4, sampling=jserve.SAMPLE)
+        for k, toks in zip(keys[:2], runs[:2]):
+            want, _ = eng.decode_loop(
+                jm.init_cache(cfg, 4, 32), jnp.asarray(first), 0, 8,
+                rng=None if k is None else jnp.asarray(k))
+            np.testing.assert_array_equal(toks, np.asarray(want))
 
 
 def test_hot_path_needs_the_cold_path_first(smoke):

@@ -68,10 +68,13 @@ class StepClock:
         self.t = max(self.t, t)
 
 
-def _traffic(sched, vocab: int, prompt_len: int) -> list:
-    """Six greedy requests at 100 req/s; distinct prompts when asked."""
+def _traffic(sched, vocab: int, prompt_len: int,
+             sample_frac: float = 0.0) -> list:
+    """Six requests at 100 req/s, greedy unless ``sample_frac``; distinct
+    prompts when asked."""
     reqs = sched.poisson_arrivals(6, 100.0, seed=5, tokens_mean=6,
-                                  tokens_max=16, sample_frac=0.0, vocab=vocab)
+                                  tokens_max=16, sample_frac=sample_frac,
+                                  vocab=vocab)
     if prompt_len:
         sched.attach_distinct_prompts(reqs, prompt_len, vocab=vocab, seed=6)
     return reqs
@@ -112,12 +115,13 @@ def jax_engines(smoke):
         eng.close()
 
 
-def _both(jeng, cfg, tcfg, tparams, ecfg: dict, prompt_len: int):
+def _both(jeng, cfg, tcfg, tparams, ecfg: dict, prompt_len: int,
+          sample_frac: float = 0.0):
     from repro.runtime import scheduler as jsched
     from repro.runtime import serve as jserve
 
-    jreqs = _traffic(jsched, cfg.vocab_size, prompt_len)
-    treqs = _traffic(tsched, cfg.vocab_size, prompt_len)
+    jreqs = _traffic(jsched, cfg.vocab_size, prompt_len, sample_frac)
+    treqs = _traffic(tsched, cfg.vocab_size, prompt_len, sample_frac)
     jrep = jserve.run_continuous_stream(jeng, jreqs, slots=SLOTS,
                                         clock=StepClock())
     with Engine(tcfg, tparams, EngineConfig(**ENGINE, **ecfg),
@@ -157,6 +161,26 @@ def test_continuous_stream_matches_jax(smoke, jax_engines, name):
             assert trep["spec"][key] == jrep["spec"][key], key
 
 
+@pytest.mark.parametrize("name", ["chunked", "spec_int8_draft"])
+def test_sampled_continuous_stream_matches_jax(smoke, jax_engines, name):
+    """Half the requests sampled (``cb``/``pfd``; with speculation the
+    sampled rows ride ``vfd`` with windows of one while ``dr``/``drp``
+    split and discard keys): every token, the lane steps and the steps
+    equal the JAX engine's on the same engine configuration."""
+    cfg, tcfg, jparams, tparams = smoke
+    ecfg, prompt_len = STREAMS[name]
+    jreqs, jrep, treqs, trep = _both(
+        jax_engines(cfg, jparams, **ecfg), cfg, tcfg, tparams, ecfg,
+        prompt_len, sample_frac=0.5,
+    )
+    assert trep["finished"] == jrep["finished"] == len(treqs)
+    assert not all(r.greedy for r in treqs)
+    assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
+    assert trep["lane_steps"] == jrep["lane_steps"]
+    assert trep["steps"] == jrep["steps"]
+    assert trep["compiles_after_warmup"] == 0
+
+
 def test_mamba2_continuous_stream_matches_jax(jax_engines):
     """An SSM stack serves ``cb`` alone, its prompts forced token by token
     (``prefill_chunk`` and ``spec_k`` are gated off), with the JAX
@@ -194,6 +218,30 @@ def test_mamba2_continuous_stream_matches_jax(jax_engines):
                                        np.asarray(jcache[s][name], np.float32),
                                        atol=1e-5, rtol=1e-5, err_msg=name)
             assert t.abs().sum() > 0, name  # the dummy step wrote state
+
+
+def test_mamba2_sampled_continuous_stream_matches_jax(jax_engines):
+    """mamba2's ``cb`` stream with half the requests sampled: the keys
+    split in every step, every token equal to the JAX engine's."""
+    jax = pytest.importorskip("jax")
+    from repro import models as jm
+    from repro.configs import get_config as jax_config
+    from repro_torch.convert import params_from_jax
+
+    cfg = jax_config("mamba2-370m").smoke()
+    tcfg = get_config("mamba2-370m").smoke()
+    jparams = jm.init_params(cfg, jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
+    ecfg = dict(prefill_chunk=16, spec_k=2)
+    jreqs, jrep, treqs, trep = _both(
+        jax_engines(cfg, jparams, **ecfg), cfg, tcfg, tparams, ecfg, 6,
+        sample_frac=0.5,
+    )
+    assert trep["finished"] == jrep["finished"] == len(treqs)
+    assert not all(r.greedy for r in treqs)
+    assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
+    assert trep["steps"] == jrep["steps"]
+    assert trep["compiles_after_warmup"] == 0
 
 
 def test_chunked_verify_step_matches_jax(smoke):

@@ -197,15 +197,17 @@ def test_eager_target_checks_every_input_dtype(smoke):
         z = torch.zeros
         rows = [z(4, 1, dtype=torch.int32), z(4, dtype=torch.int32),
                 z(4, 2, dtype=torch.int32), z(4, dtype=torch.bool),
-                torch.ones(4), torch.ones(4, dtype=torch.bool)]
+                torch.ones(4), torch.ones(4, dtype=torch.bool),
+                z(4, 2, dtype=torch.int32)]
         for i, name in enumerate(("tok", "pos", "block_tables", "active",
-                                  "temps", "greedy")):
+                                  "temps", "greedy", "keys")):
             bad = list(rows)
             bad[i] = bad[i].to(torch.float64)
             with pytest.raises(ValueError, match=f"{name}: expected"):
-                step(cache, *bad, torch.Generator())
-        out = step(cache, *rows, torch.Generator())
+                step(cache, *bad)
+        out = step(cache, *rows)
         assert out[0].shape == (4,) and out[1] is cache
+        assert out[3].shape == (4, 2) and out[5].shape == (4, 4)
 
 
 def _emulated(monkeypatch, eng):
@@ -314,24 +316,29 @@ def _lane_inputs(key, eng, seed):
 
     temps = torch.rand(s, generator=g).to(dev) + 0.5
     greedy = (torch.arange(s) % 2 == 0).to(dev)
+    keys = torch.randint(-2**31, 2**31 - 1, (s, 2), generator=g,
+                         dtype=i32).to(dev)
     if lane == "burst":
-        return [toks(1), torch.tensor(5, dtype=i32, device=dev)]
+        return [toks(1), torch.tensor(5, dtype=i32, device=dev), keys[0]]
     if lane == "dr":
         return [toks(1), torch.full((s,), 5, dtype=i32, device=dev),
-                torch.ones(s, dtype=torch.bool, device=dev)]
+                torch.ones(s, dtype=torch.bool, device=dev), temps,
+                torch.ones(s, dtype=torch.bool, device=dev), keys]
     if lane == "drp":
         w = coords[1]
         return [toks(w), torch.zeros(s, dtype=i32, device=dev),
-                torch.full((s,), w, dtype=i32, device=dev), temps, greedy]
+                torch.full((s,), w, dtype=i32, device=dev), temps, greedy,
+                keys]
     width = coords[1] if lane == "cbp" else eng.max_pages_per_req
     bt = (torch.arange(s * width, dtype=i32).view(s, width) % 30 + 1).to(dev)
     if lane == "cbp":
         pos = coords[1] * eng.ecfg.page_size - 3
         return [toks(1), torch.full((s,), pos, dtype=i32, device=dev), bt,
-                torch.ones(s, dtype=torch.bool, device=dev), temps, greedy]
+                torch.ones(s, dtype=torch.bool, device=dev), temps, greedy,
+                keys]
     w = coords[1] if lane == "pf" else coords[1] + 1
     return [toks(w), torch.full((s,), 3, dtype=i32, device=dev), bt,
-            torch.full((s,), w, dtype=i32, device=dev), temps, greedy]
+            torch.full((s,), w, dtype=i32, device=dev), temps, greedy, keys]
 
 
 def _lane_cache(eng, key):
@@ -347,8 +354,8 @@ def _lane_cache(eng, key):
 @pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
 def test_cuda_graph_targets_equal_their_eager_steps(cuda, smoke, kv_dtype):
     """cbp, pf, vf, dr, drp and both burst modes: the captured target's
-    outputs and cache writes equal the eager step's on the same inputs,
-    caches and generator seed."""
+    outputs (tokens and split keys included) and cache writes equal the
+    eager step's on the same inputs, caches and keys."""
     cfg, params = smoke
     ecfg = dict(ENGINE, spec_k=2, kv_dtype=kv_dtype, draft_kv_dtype=kv_dtype)
     engines = {
@@ -369,9 +376,7 @@ def test_cuda_graph_targets_equal_their_eager_steps(cuda, smoke, kv_dtype):
                 cache = _lane_cache(eng, key)
                 _fill(cache, seed=i)
                 args = _lane_inputs(key, eng, seed=i)
-                gen = torch.Generator(device=cuda).manual_seed(i)
-                takes_gen = key.lane != "dr"
-                out = exe(cache, *args, *([gen] if takes_gen else []))
+                out = exe(cache, *args)
                 leaves = [t.clone() for t in pytree.tree_leaves(out)
                           if isinstance(t, torch.Tensor)]
                 torch.cuda.synchronize()
@@ -411,8 +416,8 @@ def test_cuda_paged_stream_captures_nothing_after_warmup(cuda, smoke):
 @pytest.mark.cuda
 def test_cuda_sampled_stream_equals_eager(cuda, smoke):
     """One seed, half the requests sampled: the graphs' tokens equal the
-    eager targets' (the noise is drawn from the batcher's generator before
-    each replay, as the eager step draws it)."""
+    eager targets' (the per-slot keys chain through each target's own
+    inputs and are split by the same kernel in both)."""
     cfg, params = smoke
     toks, _, _ = _cuda_stream(cfg, params, True, 0.5)
     want, _, _ = _cuda_stream(cfg, params, False, 0.5)
@@ -430,9 +435,8 @@ def test_cuda_replays_count_their_kernel_launches(cuda, smoke):
         exe = eng._decode.build(key)  # the capture's warmup run launches
         assert kernels.paged_decode_attention.launches == cfg.num_layers
         args = _lane_inputs(key, eng, seed=0)
-        gen = torch.Generator(device=cuda)
         for n in (2, 3):
-            exe(eng.paged_cache("fp32"), *args, gen)
+            exe(eng.paged_cache("fp32"), *args)
             assert kernels.paged_decode_attention.launches == (
                 n * cfg.num_layers)
         assert exe.graph.replays == 2

@@ -122,3 +122,22 @@ GRAPH_SLICE_MODULES = (
 @pytest.mark.parametrize("module", GRAPH_SLICE_MODULES)
 def test_graph_slice_module_imports_alone_without_jax_or_repro(module):
     test_slice_module_imports_alone_without_jax_or_repro(module)
+
+
+# the modules of the sampling slice (threefry and its kernel)
+SAMPLING_SLICE_MODULES = (
+    "repro_torch.prng",
+    "repro_torch.kernels.sampling",
+)
+
+
+@pytest.mark.parametrize("module", SAMPLING_SLICE_MODULES)
+def test_sampling_slice_module_imports_alone_without_jax_or_repro(module):
+    test_slice_module_imports_alone_without_jax_or_repro(module)
+
+
+def test_sampling_kernel_source_is_built_and_bound():
+    from repro_torch.kernels import build
+
+    assert "sample_rows" in build.SOURCES["sample_rows.cu"]
+    assert (PKG / "csrc" / "sample_rows.cu").exists()

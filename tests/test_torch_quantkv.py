@@ -261,8 +261,22 @@ ENGINE = dict(max_len=32, max_batch=4, page_size=8, num_pages=20,
               prefill_chunk=8)
 
 
-def test_int8_stream_matches_jax_int8_stream(smoke):
+@pytest.fixture(scope="module")
+def jax_int8_engine(smoke):
+    """The JAX package's int8 engine, once a module (a second
+    ``run_paged_stream`` re-warms from its compiled keys)."""
     from repro.core import reset_entry_points
+    from repro.runtime import serve as jserve
+
+    cfg, _, jparams, _ = smoke
+    reset_entry_points()
+    jeng = jserve.Engine(cfg, jparams, jserve.EngineConfig(
+        batch_quantum=2, kv_dtype="int8", **ENGINE))
+    yield jeng
+    jeng.close()
+
+
+def test_int8_stream_matches_jax_int8_stream(smoke, jax_int8_engine):
     from repro.runtime import scheduler as jsched
     from repro.runtime import serve as jserve
 
@@ -270,13 +284,7 @@ def test_int8_stream_matches_jax_int8_stream(smoke):
     jreqs = [jsched.Request(rid=r.rid, new_tokens=r.new_tokens, greedy=True,
                             arrival_s=0.0, prompt=r.prompt)
              for r in _reqs(cfg.vocab_size)]
-    reset_entry_points()
-    jeng = jserve.Engine(cfg, jparams, jserve.EngineConfig(
-        batch_quantum=2, kv_dtype="int8", **ENGINE))
-    try:
-        jrep = jserve.run_paged_stream(jeng, jreqs, slots=4)
-    finally:
-        jeng.close()
+    jrep = jserve.run_paged_stream(jax_int8_engine, jreqs, slots=4)
     treqs = _reqs(cfg.vocab_size)
     with Engine(tcfg, tparams, EngineConfig(kv_dtype="int8", **ENGINE),
                 device="cpu") as eng:
@@ -284,6 +292,31 @@ def test_int8_stream_matches_jax_int8_stream(smoke):
     assert trep["kv_dtype"] == jrep["kv_dtype"] == "int8"
     assert trep["finished"] == jrep["finished"] == 3
     assert trep["compiles_after_warmup"] == 0
+    assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
+
+
+def test_int8_sampled_stream_matches_jax_int8_stream(smoke, jax_int8_engine):
+    """Four requests on int8 pages (``cbp``/``pf``), two of them sampled at
+    temperatures 0.7 and 1.3: every token equals the JAX engine's (the
+    batcher's threefry keys, seeded 4, split in every step)."""
+    from repro.runtime import scheduler as jsched
+    from repro.runtime import serve as jserve
+
+    cfg, tcfg, _, tparams = smoke
+    temps = {1: 0.7, 3: 1.3}
+
+    def reqs(cls):
+        return [cls(rid=r.rid, new_tokens=8, greedy=r.rid not in temps,
+                    temperature=temps.get(r.rid, 1.0), arrival_s=0.0,
+                    prompt=r.prompt)
+                for r in _reqs(cfg.vocab_size, n=4)]
+
+    jreqs, treqs = reqs(jsched.Request), reqs(Request)
+    jserve.run_paged_stream(jax_int8_engine, jreqs, slots=4, seed=4)
+    with Engine(tcfg, tparams, EngineConfig(kv_dtype="int8", **ENGINE),
+                device="cpu") as eng:
+        trep = run_paged_stream(eng, treqs, slots=4, seed=4)
+    assert trep["finished"] == 4 and trep["compiles_after_warmup"] == 0
     assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
 
 
@@ -315,7 +348,7 @@ def test_warmed_dtypes_serve_both_pools_without_builds(smoke):
                  z(4, 1, dtype=torch.int32), z(4, dtype=torch.int32),
                  z(4, 1, dtype=torch.int32), z(4, dtype=torch.bool),
                  torch.ones(4), torch.ones(4, dtype=torch.bool),
-                 torch.Generator())
+                 z(4, 2, dtype=torch.int32))
 
 
 # ------------------------------------------------- scales ride the pages

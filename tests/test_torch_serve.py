@@ -29,6 +29,7 @@ from repro_torch.core.telemetry import Telemetry
 from repro_torch.launch import serve as launch
 from repro_torch.runtime.scheduler import shared_prefix_arrivals
 from repro_torch.runtime.serve import Engine, EngineConfig, run_paged_stream
+from test_torch_continuous import StepClock
 
 LOGIT_TOL = 1e-4
 ENGINE = dict(max_len=64, max_batch=4, page_size=8, num_pages=40)
@@ -110,17 +111,33 @@ def test_plain_attention_serves_the_same_greedy_stream(smoke):
 
 
 def test_sampled_rows_follow_the_batcher_seed(smoke):
-    _, tcfg, _, tparams = smoke
+    """Every request sampled: the batcher's per-slot keys come from its
+    ``seed`` (drawn at construction and at each admission, as the JAX
+    package draws them): another seed gives another stream, and under one
+    step clock the stream equals the JAX engine's token for token."""
+    cfg, tcfg, jparams, tparams = smoke
+    traffic = {**TRAFFIC, "sample_frac": 1.0}
     runs = []
-    for _ in range(2):
-        reqs = shared_prefix_arrivals(6, 1000.0, **{**TRAFFIC, "sample_frac": 1.0})
+    for seed in (5, 6):
+        reqs = shared_prefix_arrivals(6, 1000.0, **traffic)
         with Engine(tcfg, tparams, EngineConfig(**ENGINE, prefill_chunk=16),
                     device="cpu") as eng:
-            rep = run_paged_stream(eng, reqs, slots=4, seed=5)
+            rep = run_paged_stream(eng, reqs, slots=4, seed=seed,
+                                   clock=StepClock())
         assert rep["finished"] == len(reqs)
         runs.append({r.rid: r.tokens for r in reqs})
-    assert runs[0] == runs[1]
+    assert runs[0] != runs[1]
     assert all(0 <= t < tcfg.vocab_size for ts in runs[0].values() for t in ts)
+    jreqs = jsched.shared_prefix_arrivals(6, 1000.0, **traffic)
+    reset_entry_points()
+    jeng = jserve.Engine(cfg, jparams, jserve.EngineConfig(
+        batch_quantum=2, prefill_chunk=16, **ENGINE))
+    try:
+        jserve.run_paged_stream(jeng, jreqs, slots=4, seed=5,
+                                clock=StepClock())
+    finally:
+        jeng.close()
+    assert {r.rid: r.tokens for r in jreqs} == runs[0]
 
 
 def test_engine_runs_on_the_gpu_by_default(smoke):
@@ -154,7 +171,7 @@ def test_branch_target_rejects_other_shapes(smoke):
             step(cache, z(4, 1, dtype=torch.int32), z(4, dtype=torch.int32),
                  z(4, 3, dtype=torch.int32), z(4, dtype=torch.bool),
                  torch.ones(4), torch.ones(4, dtype=torch.bool),
-                 torch.Generator())
+                 z(4, 2, dtype=torch.int32))
 
 
 def test_launcher_serves_on_the_cpu():

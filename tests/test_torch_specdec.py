@@ -183,11 +183,26 @@ def test_lane_policy_budget_split_and_k_buckets():
 
 
 # --------------------------------------------------------------- streams
-def test_spec_stream_matches_plain_greedy_and_jax_spec_stream(smoke):
+@pytest.fixture(scope="module")
+def jax_spec_engine(smoke):
+    """The JAX package's paged engine with ``spec_k`` 2, once a module."""
+    from repro.core import reset_entry_points
+    from repro.runtime import serve as jserve
+
+    cfg, _, jparams, _ = smoke
+    reset_entry_points()
+    jeng = jserve.Engine(cfg, jparams, jserve.EngineConfig(
+        batch_quantum=2, spec_k=2, **ENGINE))
+    yield jeng
+    jeng.close()
+
+
+def test_spec_stream_matches_plain_greedy_and_jax_spec_stream(
+    smoke, jax_spec_engine
+):
     """Greedy speculative streams emit what plain greedy decode emits, and
     what the JAX package's spec stream emits, with zero builds after warmup
     and the draft, verify and draft-prompt lanes all exercised."""
-    from repro.core import reset_entry_points
     from repro.runtime import scheduler as jsched
     from repro.runtime import serve as jserve
 
@@ -198,13 +213,7 @@ def test_spec_stream_matches_plain_greedy_and_jax_spec_stream(smoke):
     with _engine(tcfg, tparams, spec_k=0) as eng:
         run_paged_stream(eng, plain, slots=4)
     jreqs = _prompt_reqs(cfg.vocab_size, cls=jsched.Request)
-    reset_entry_points()
-    jeng = jserve.Engine(cfg, jparams, jserve.EngineConfig(
-        batch_quantum=2, spec_k=2, **{k: v for k, v in ENGINE.items()}))
-    try:
-        jrep = jserve.run_paged_stream(jeng, jreqs, slots=4)
-    finally:
-        jeng.close()
+    jrep = jserve.run_paged_stream(jax_spec_engine, jreqs, slots=4)
 
     assert rep["finished"] == jrep["finished"] == 3
     assert rep["compiles_after_warmup"] == 0
@@ -218,6 +227,32 @@ def test_spec_stream_matches_plain_greedy_and_jax_spec_stream(smoke):
     assert rep["lane_steps"] == jrep["lane_steps"]
     assert st["drafted_tokens"] == jrep["spec"]["drafted_tokens"]
     assert st["accepted_tokens"] == jrep["spec"]["accepted_tokens"]
+
+
+def test_sampled_spec_stream_matches_jax_spec_stream(smoke, jax_spec_engine):
+    """Four requests, two sampled: the sampled rows ride the verify lane
+    with windows of one (their row 0 is a decode step: one key split), the
+    greedy ones draft and verify (``dr``/``vf``/``drp``, whose draws split
+    and discard keys); every token equals the JAX engine's."""
+    from repro.runtime import scheduler as jsched
+    from repro.runtime import serve as jserve
+
+    cfg, tcfg, _, tparams = smoke
+
+    def reqs(cls):
+        out = _prompt_reqs(cfg.vocab_size, n=4, seed=3, cls=cls)
+        for r in out[1::2]:
+            r.greedy, r.temperature = False, 0.8
+        return out
+
+    jreqs, treqs = reqs(jsched.Request), reqs(Request)
+    jrep = jserve.run_paged_stream(jax_spec_engine, jreqs, slots=4, seed=2)
+    with _engine(tcfg, tparams, spec_k=2) as eng:
+        rep = run_paged_stream(eng, treqs, slots=4, seed=2)
+    assert rep["finished"] == 4 and rep["compiles_after_warmup"] == 0
+    assert rep["lane_steps"]["verify"] > 0 and rep["lane_calls"]["drp"] > 0
+    assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
+    assert rep["lane_steps"] == jrep["lane_steps"]
 
 
 def test_spec_cache_bits_equal_after_rollback(smoke):

@@ -19,9 +19,9 @@ the same numbers. Tolerances:
   and the output product; the fp32 state sums such inputs -> 2e-2 relative
   to the largest |output| or |state| for both.
 
-The greedy token streams of the burst engine must be equal, as must its
-cold-path counters, under one virtual clock (``test_torch_burst.py``'s
-harness).
+The token streams of the burst engine must be equal, sampled bursts too
+(threefry keys in both packages), as must its cold-path counters, under
+one virtual clock (``test_torch_burst.py``'s harness).
 """
 
 from __future__ import annotations
@@ -407,11 +407,10 @@ def test_burst_stream_matches_jax(engines):
                 "compiles_after_warmup", "rebinds"):
         assert trep[key] == jrep[key], key
     assert trep["mode_switches"] >= 3 and trep["compiles_after_warmup"] >= 2
+    assert not all(t.greedy for t in treqs)
     for j, t in zip(jreqs, treqs):
         assert len(t.tokens) == t.new_tokens
-        assert all(0 <= x < tcfg.vocab_size for x in t.tokens)
-        if t.greedy:
-            assert t.tokens == j.tokens, t.rid
+        assert t.tokens == j.tokens, t.rid  # sampled bursts too (threefry)
 
 
 def test_prompt_then_burst_matches_jax(engines):
