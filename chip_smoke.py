@@ -18,26 +18,30 @@ Phases (any failure exits non-zero before a result is printed):
    positions and block tables that share pages and pad with the null page;
    B5 dense decode at the first, a middle and the last row, and B6/B7 flash
    attention over a ragged 200-token sequence in every causal x window x
-   softcap mode (B7 from flags), on the same four head layouts, fed the
-   model's ``[B, S, H, dh]`` layout as strided views; in bf16 at dh 128 (the
+   softcap mode (B7 from flags), on the same head layouts, fed the model's
+   ``[B, S, H, dh]`` layout as strided views; in bf16 at dh 64 and 128 (the
    tensor-core body) also at lengths 1, 64, 65, 129 and a ragged 1056, and
-   64 queries over 200 keys; B2/B4's tensor-core body (bf16, dh 128) also at
-   chunks 1, 5, 63, 64, 65 and 130, groups 1, 5 and 16, pages of 8 and 16,
-   a window of 40 crossing page boundaries and starts off page boundaries;
-   B1/B3's cluster-split body (dh 128) at every split count 1-8, groups 1, 5
-   and 16, pages of 8 and 16, every mode, positions 0 and on page
-   boundaries, short rows beside a 64-page row; B5 on the same body over a
-   dense cache at every split count 1-8, groups 1, 5 and 16, dh 16 and 128,
-   every mode, positions 0, 15, 16, the last row and one whose window
-   crosses a 16-row block; B1-B7 in fp32 at head_dim 64 (hft-demo's 4/4
-   heads, every mode), bf16 at head_dim 64 refused by every wrapper; B1-B4
-   on 512-page tables (gemma2-27b's max_len 8192 at page 16) at positions
-   past a 4096 window. Phase 1 also checks the head_dim-64 instantiations'
-   ptxas report: 65 of them, no spills.
+   64 queries over 200 keys; B2/B4's tensor-core body (bf16, dh 64 and 128)
+   also at chunks 1, 5, 63, 64, 65 and 130, groups 1, 5 and 16, pages of 8
+   and 16, a window of 40 crossing page boundaries and starts off page
+   boundaries; B1/B3's cluster-split body (dh 128 fp32 and bf16, dh 64
+   bf16) at every split count 1-8, groups 1, 5 and 16, pages of 8 and 16,
+   every mode, positions 0 and on page boundaries, short rows beside a
+   64-page row; B5 on the same body over a dense cache at every split count
+   1-8, groups 1, 5 and 16, dh 16 and 128 (fp32, bf16) and 64 (bf16), every
+   mode, positions 0, 15, 16, the last row and one whose window crosses a
+   16-row block; B1-B7 at head_dim 64 in fp32 (hft-demo's 4/4 heads) and
+   in bf16 (granite-moe's 16/8 heads, a group of 2, and the 4/4 layout, a
+   group of 1), every mode; bf16 head_dim-64 views TMA cannot load refused
+   by B2/B4/B6/B7 and bf16 at head_dim 32 (no instantiation) by every
+   wrapper, without a launch; B1-B4 on 512-page tables (gemma2-27b's
+   max_len 8192 at page 16) at positions past a 4096 window. Phase 1 also
+   checks the head_dim-64 instantiations' ptxas report: 65 in fp32 and 65
+   in bf16, no spills.
 2b. The sampling kernel (``sample_rows``: the steps' threefry categorical
    draw, greedy argmax and key split) against its plain version
-   (``repro_torch.prng``) on the card, at 8 rows of 50304, 151936 and
-   256000 and one row of 50304, float32 and bfloat16, mixed temperatures
+   (``repro_torch.prng``) on the card, at 8 rows of 50304, 151936, 256000
+   and 49155 and one row of 50304, float32 and bfloat16, mixed temperatures
    and greedy flags: new keys and every element's score bit for bit (so
    the random bits, the uniform and the gumbel), tokens equal or a near-tie
    within one ulp of the score dtype (counted); the burst's
@@ -108,7 +112,7 @@ Phases (any failure exits non-zero before a result is printed):
    graph targets equals the eager targets'. The same for the dense
    continuous engine: olmo-1b with chunked prefill, with speculation and an
    int8 draft, and mamba2-370m through ``cb``, card = CPU; and mamba2's
-   burst stream.
+   burst stream. (granite-moe's smoke streams card = CPU run in phase 9.)
 6. mamba2 (B8): the SSD chunked scan against its plain version on the
    smoke config's heads (chunks 4, 8, 16; S 16, 32 and a ragged 20) and on
    mamba2-370m's (chunk 256; S 1, 255, 256, 257, 1024, 1056 and 2048; bf16
@@ -132,7 +136,9 @@ Phases (any failure exits non-zero before a result is printed):
    clock).
 
 8. The rest of the dense model path at full width, one model at a time,
-   weights seeded on the card (init peak: the weights and one f32 slab):
+   weights seeded on the card (init peak: the weights and one f32 slab;
+   qwen3-14b on 20 of its 40 layers and gemma2-27b on 24 of its 46, so
+   that the script keeps its length with phase 9 added):
    qwen3-14b (bf16, 40 heads over 8: a GQA group of 5) on phase 3's
    paged bf16 cell, dense cell (a) and burst cell; gemma2-27b (bf16, local
    layers of window 4096 and global ones, softcaps 50 and 30) on 2 slots of
@@ -149,8 +155,31 @@ Phases (any failure exits non-zero before a result is printed):
    ``STEP_LOGIT_ATOL`` / ``FP32_LOGIT_ATOL``), and with the window off
    (farther apart: the window masks); hft-demo's paged stream card = CPU.
    Then B1, B2, B5 and B6 timed at the new shapes (group 5, window 4096
-   past it, fp32 head_dim 64) beside their plain versions, SDPA and bounds,
-   in each kernel's ``new_shapes``.
+   past it, fp32 head_dim 64, and phase 9's bf16 head_dim 64 with B4 as
+   well) beside their plain versions, SDPA and bounds, in each kernel's
+   ``new_shapes``.
+
+9. granite-moe-1b-a400m at full width (24 layers, bf16, 32 experts top-8,
+   16 heads over 8 of 64: B1-B7 on the bf16 head_dim-64 instantiations),
+   weights seeded on the card (the routers float32): phase 3's paged bf16
+   cell, dense cell (a), the burst cell and phase 3's int8+spec paged cell
+   under ``moe_policy="drop"``, each through graph targets (counts set to
+   0 just before, held to one launch per attention layer per lane call)
+   and again eager under one step clock (captures after warmup 0, or the
+   burst keys; greedy tokens equal or a near-tie, sampled ones equal),
+   peak memory against the reckoned 2.67 GB of weights plus KV (+1.5 GB).
+   Under "drop" capacity follows each call's length, so a chunk or a
+   verify window may drop what token-by-token decode keeps: the streams
+   are held graph to eager, never speculative to plain. Then the
+   prompt-then-burst path (``prefill`` 8 x 256 on B6, 32 burst tokens on
+   B5, ``forward`` over 288 on B6; prefill and forward under "dense",
+   which drops nothing, as the one-token burst steps never do); one
+   full-width decode step under "drop", "dense" and "gather" (agreeing
+   within ``STEP_LOGIT_ATOL``: nothing drops at S = 1); a replayed ``cbp``
+   step profiled graph vs eager (wall, busy, idle share) and again with
+   every MoE tail replaced by zeros, the busy difference being the MoE's
+   share; and the smoke config's paged, dense continuous and burst streams
+   card (graphs) = CPU, a third sampled.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -244,54 +273,67 @@ def setup() -> None:
         f"{min(regs, default=0)}..{max(regs, default=0)}, max spill stores "
         f"{max(spills, default=0)} B")
     tc = _ptxas_by_kernel(info["log"], "flash_tc")
-    check(len(tc) == 9, f"expected 9 tensor-core flash instantiations (B6 x 8 "
-          f"modes, B7), the build log has {len(tc)}")
-    log(f"[setup] tensor-core flash body (B6 x 8 modes, B7): registers "
-        f"{min(r for r, _ in tc.values())}..{max(r for r, _ in tc.values())}"
-        f", spill stores max {max(sp for _, sp in tc.values())} B")
+    check(len(tc) == 18, f"expected 18 tensor-core flash instantiations (B6 x "
+          f"8 modes, B7; head_dim 64 and 128), the build log has {len(tc)}")
+    log(f"[setup] tensor-core flash body (B6 x 8 modes, B7; dh 64/128): "
+        f"registers {min(r for r, _ in tc.values())}.."
+        f"{max(r for r, _ in tc.values())}, spill stores max "
+        f"{max(sp for _, sp in tc.values())} B")
     pf = _ptxas_by_kernel(info["log"], "paged_prefill_tc")
-    check(len(pf) == 16, f"expected 16 tensor-core paged prefill "
-          f"instantiations (B2, B4 x 2 page sizes x 4 modes), the build log "
-          f"has {len(pf)}")
+    check(len(pf) == 32, f"expected 32 tensor-core paged prefill "
+          f"instantiations (B2, B4 x head_dim 64/128 x 2 page sizes x 4 "
+          f"modes), the build log has {len(pf)}")
     spill = max(sp for _, sp in pf.values())
-    log(f"[setup] tensor-core paged prefill body (B2, B4 x pages 8/16 x 4 "
-        f"modes): registers {min(r for r, _ in pf.values())}.."
+    log(f"[setup] tensor-core paged prefill body (B2, B4 x dh 64/128 x "
+        f"pages 8/16 x 4 modes): registers {min(r for r, _ in pf.values())}.."
         f"{max(r for r, _ in pf.values())}, spill stores max {spill} B")
     check(spill == 0, f"the tensor-core paged prefill body spills {spill} B")
     sp = _ptxas_by_kernel(info["log"], "paged_decode_split")
-    check(len(sp) == 160, f"expected 160 cluster-split paged decode "
-          f"instantiations (B1, B3 x (2 query types x head_dim 16/128 + fp32 "
-          f"at 64) x pages 8/16 x 4 modes x R 1/4), the build log has "
-          f"{len(sp)}")
+    check(len(sp) == 192, f"expected 192 cluster-split paged decode "
+          f"instantiations (B1, B3 x 2 query types x head_dim 16/64/128 x "
+          f"pages 8/16 x 4 modes x R 1/4), the build log has {len(sp)}")
     spill = max(s_ for _, s_ in sp.values())
     log(f"[setup] cluster-split paged decode body (B1, B3): registers "
         f"{min(r for r, _ in sp.values())}..{max(r for r, _ in sp.values())}"
         f", spill stores max {spill} B")
     check(spill == 0, f"the cluster-split paged decode body spills {spill} B")
     dn = _ptxas_by_kernel(info["log"], "dense_decode_split")
-    check(len(dn) == 40, f"expected 40 cluster-split dense decode "
-          f"instantiations (B5 x (2 types x head_dim 16/128 + fp32 at 64) x "
-          f"4 modes x R 1/4), the build log has {len(dn)}")
+    check(len(dn) == 48, f"expected 48 cluster-split dense decode "
+          f"instantiations (B5 x 2 types x head_dim 16/64/128 x 4 modes x R "
+          f"1/4), the build log has {len(dn)}")
     spill = max(s_ for _, s_ in dn.values())
     log(f"[setup] cluster-split dense decode body (B5): registers "
         f"{min(r for r, _ in dn.values())}..{max(r for r, _ in dn.values())}"
         f", spill stores max {spill} B")
     check(spill == 0, f"the cluster-split dense decode body spills {spill} B")
     # head_dim 64 (a template argument "Li64E" in the mangled names; B8's
-    # P 64 excluded): fp32 only, on every CUDA-core body
+    # P 64 excluded): fp32 on the CUDA-core bodies and the split body, bf16
+    # (a "13__nv_bfloat16" query type) on the split body and the
+    # tensor-core bodies
     dh64 = {k: v for body in ("paged_decode_split", "dense_decode_split",
-                              "paged_prefill_kernel", "flash_simt")
+                              "paged_prefill_kernel", "flash_simt",
+                              "paged_prefill_tc", "flash_tc")
             for k, v in _ptxas_by_kernel(info["log"], body).items()
             if "Li64E" in k}
-    check(len(dh64) == 32 + 8 + 16 + 9,
-          f"expected 65 head_dim-64 instantiations (B1/B3 32, B5 8, B2/B4 16, "
-          f"B6 8 + B7 1), the build log has {len(dh64)}")
-    spill = max(s_ for _, s_ in dh64.values())
-    log(f"[setup] head_dim 64, fp32 (B1/B3, B5, B2/B4, B6/B7 on CUDA cores): "
-        f"{len(dh64)} instantiations, registers "
-        f"{min(r for r, _ in dh64.values())}.."
-        f"{max(r for r, _ in dh64.values())}, spill stores max {spill} B")
-    check(spill == 0, f"a head_dim-64 instantiation spills {spill} B")
+    bf64 = {k: v for k, v in dh64.items()
+            if "_tc" in k or "13__nv_bfloat16" in k}
+    check(len(dh64) - len(bf64) == 32 + 8 + 16 + 9,
+          f"expected 65 fp32 head_dim-64 instantiations (B1/B3 32, B5 8, "
+          f"B2/B4 16, B6 8 + B7 1), the build log has {len(dh64) - len(bf64)}")
+    check(len(bf64) == 32 + 8 + 16 + 9,
+          f"expected 65 bf16 head_dim-64 instantiations (B1/B3 32 and B5 8 "
+          f"on the split body, B2/B4 16 and B6 8 + B7 1 on the tensor-core "
+          f"bodies), the build log has {len(bf64)}")
+    fp64 = {k: v for k, v in dh64.items() if k not in bf64}
+    for label, group in (("fp32 (CUDA-core and split bodies)", fp64),
+                         ("bf16 (split and tensor-core bodies)", bf64)):
+        spill = max(s_ for _, s_ in group.values())
+        log(f"[setup] head_dim 64, {label}: {len(group)} instantiations, "
+            f"registers "
+            f"{min(r for r, _ in group.values())}.."
+            f"{max(r for r, _ in group.values())}, spill stores max {spill} B")
+        check(spill == 0, f"a {label} head_dim-64 instantiation spills "
+              f"{spill} B")
     ssd = _ptxas_by_kernel(info["log"], "ssd_chunk_tc")
     check(len(ssd) == 1, f"expected one tensor-core SSD instantiation (B8, "
           f"bf16 at 256/64/128), the build log has {len(ssd)}")
@@ -357,10 +399,11 @@ def kernels_vs_plain() -> None:
     from repro_torch import kernels
 
     # group 16 splits a decode block's query heads over two row tiles;
-    # hft-demo's heads of 64 are fp32 only (bf16 at 64 is refused)
+    # heads of 64 in fp32 (hft-demo's 4/4, a group of 1) and bf16
+    # (granite-moe's 16/8, a group of 2, and the 4/4 layout)
     shapes = {"olmo-1b": (16, 16, 128, 16), "gqa-40/8": (40, 8, 128, 16),
               "gqa-32/2": (32, 2, 128, 16), "smoke": (4, 2, 16, 8),
-              "hft-demo": (4, 4, 64, 16)}
+              "hft-demo": (4, 4, 64, 16), "granite": (16, 8, 64, 16)}
     modes = [(None, None), (24, None), (None, 2.0), (24, 2.0)]
     worst = {}
     for kname, fn, plain, chunk, int8 in (
@@ -400,7 +443,7 @@ def kernels_vs_plain() -> None:
         for dtype in _dtypes(dh):
             worst.update(_dense_cases(f"{sname}/{str(dtype)[6:]}", h, kh, dh,
                                       dtype, seed=len(worst)))
-        if dh == 128:  # the tensor-core body's edges: tails, Sq != Sk
+        if dh in (64, 128):  # the tensor-core body's edges: tails, Sq != Sk
             for sq, sk in TC_EDGE_LENGTHS:
                 worst.update(_flash_cases(
                     f"{sname}/bfloat16/sq={sq}/sk={sk}", h, kh, dh,
@@ -409,39 +452,53 @@ def kernels_vs_plain() -> None:
     worst.update(_decode_split_cases())
     worst.update(_dense_split_cases())
     worst.update(_long_table_cases())
-    _bf16_dh64_refused()
+    _bf16_dh64_checks()
+    _tc_routes_profiled()
     for dtype in ("float32", "bfloat16"):
         errs = {k: v for k, v in worst.items() if f"/{dtype}" in k}
         log(f"[kernels] {len(errs)} {dtype} cases pass, max abs err "
             f"{max(errs.values()):.3g} (tolerance "
             f"{KERNEL_ATOL[getattr(torch, dtype)]})")
-    tc = {k: v for k, v in worst.items() if "/sq=" in k}
-    log(f"[kernels] tensor-core B6/B7 edges (lengths "
-        f"{[sq for sq, sk in TC_EDGE_LENGTHS if sq == sk]}, Sq 64 over Sk "
-        f"200; 3 layouts x 8 modes): {len(tc)} cases, max abs err "
-        f"{max(tc.values()):.3g}")
+    for dh in (64, 128):
+        names = [n for n, shape in shapes.items() if shape[2] == dh]
+        tc = {k: v for k, v in worst.items() if "/sq=" in k
+              and any(f"/{n}/bfloat16/" in k for n in names)}
+        log(f"[kernels] tensor-core B6/B7 edges at dh {dh} (lengths "
+            f"{[sq for sq, sk in TC_EDGE_LENGTHS if sq == sk]}, Sq 64 over "
+            f"Sk 200; {len(tc) // (16 * len(TC_EDGE_LENGTHS))} layouts x 8 "
+            f"modes): {len(tc)} cases, max abs err {max(tc.values()):.3g}")
     for kname in ("decode", "decode_int8"):
         sp = {k: v for k, v in worst.items() if k.startswith(f"split_{kname}/")}
+        bf64 = {k: v for k, v in sp.items() if "/dh=64/" in k}
         log(f"[kernels] cluster-split {kname} edges (S 1-{SPLIT_MAX}, groups "
             f"{SPLIT_GROUPS}, pages 8/16, 4 modes, window {TC_WINDOW}, "
             f"positions 0 and on page boundaries, short rows beside a "
-            f"{SPLIT_LONG_PAGES}-page row, fp32 and bf16): {len(sp)} cases, "
-            f"max abs err fp32 "
+            f"{SPLIT_LONG_PAGES}-page row; dh 128 fp32 and bf16, dh 64 "
+            f"bf16): {len(sp)} cases, max abs err fp32 "
             f"{max(v for k, v in sp.items() if k.endswith('float32')):.3g}, "
-            f"bf16 {max(v for k, v in sp.items() if k.endswith('bfloat16')):.3g}")
+            f"bf16 {max(v for k, v in sp.items() if k.endswith('bfloat16')):.3g}"
+            f" (dh 64: {max(bf64.values()):.3g})")
     sp = {k: v for k, v in worst.items() if k.startswith("split_dense/")}
     log(f"[kernels] cluster-split dense decode (B5) edges (S 1-{SPLIT_MAX}, "
-        f"groups {SPLIT_GROUPS}, head_dim 16/128, 4 modes, window "
-        f"{TC_WINDOW}, positions {DENSE_POSITIONS} of {DENSE_SEQ}, fp32 and "
-        f"bf16): {len(sp)} cases, max abs err fp32 "
+        f"groups {SPLIT_GROUPS}, head_dim 16/128 fp32 and bf16, 64 bf16, 4 "
+        f"modes, window {TC_WINDOW}, positions {DENSE_POSITIONS} of "
+        f"{DENSE_SEQ}): {len(sp)} cases, max abs err fp32 "
         f"{max(v for k, v in sp.items() if k.endswith('float32')):.3g}, "
         f"bf16 {max(v for k, v in sp.items() if k.endswith('bfloat16')):.3g}")
-    dh64 = {k: v for k, v in worst.items() if "hft-demo" in k}
-    log(f"[kernels] fp32 head_dim 64 (hft-demo's 4/4 heads, page 16): "
-        f"B1-B4 x 4 modes, B5 x 3 positions x 4 modes, B6/B7 x 8 modes: "
-        f"{len(dh64)} cases, max abs err {max(dh64.values()):.3g} "
-        f"(tolerance {KERNEL_ATOL[torch.float32]}); bf16 at head_dim 64 "
-        f"refused by B1-B7, naming B9 part 2")
+    for dtype, what in (
+        (torch.float32, "hft-demo's 4/4 heads, page 16: B1-B7 every mode"),
+        (torch.bfloat16, "granite-moe's 16/8 heads and the 4/4 layout, page "
+         "16: B1-B7 every mode, the B6/B7 edges; the B2/B4 and split-body "
+         "edges at pages 8/16"),
+    ):
+        name = str(dtype)[6:]
+        dh64 = {k: v for k, v in worst.items() if k.endswith(name) or
+                f"/{name}/" in k}
+        dh64 = {k: v for k, v in dh64.items()
+                if "/hft-demo/" in k or "/granite/" in k or "/dh=64/" in k}
+        log(f"[kernels] {name} head_dim 64 ({what}): {len(dh64)} cases, max "
+            f"abs err {max(dh64.values()):.3g} (tolerance "
+            f"{KERNEL_ATOL[dtype]})")
     long = {k: v for k, v in worst.items() if k.startswith("long/")}
     log(f"[kernels] {LONG_PAGES}-page tables (gemma2-27b's 32/16 heads of "
         f"128, bf16, page 16, window 4096 and softcap 50 on and off, "
@@ -450,9 +507,10 @@ def kernels_vs_plain() -> None:
     for kname in ("prefill", "prefill_int8"):
         tc = {k: v for k, v in worst.items() if k.startswith(f"tc_{kname}/")}
         log(f"[kernels] tensor-core {kname} edges (chunks {TC_CHUNKS}, groups "
-            f"{TC_GROUPS}, pages 8/16, 4 modes, window {TC_WINDOW}, starts off "
-            f"page boundaries): {len(tc)} cases, max abs err "
-            f"{max(tc.values()):.3g}")
+            f"{TC_GROUPS}, pages 8/16, dh 64/128, 4 modes, window "
+            f"{TC_WINDOW}, starts off page boundaries): {len(tc)} cases, max "
+            f"abs err {max(tc.values()):.3g} (dh 64: "
+            f"{max(v for k, v in tc.items() if '/dh=64/' in k):.3g})")
 
 
 def _dtypes(dh: int) -> tuple:
@@ -463,41 +521,136 @@ def _dtypes(dh: int) -> tuple:
                  if dh in build.HEAD_DIMS[dt])
 
 
-def _bf16_dh64_refused() -> None:
-    """bf16 at head_dim 64 raises in every wrapper of B1-B7, naming the
-    tensor-core bodies' missing instantiations: no CUDA-core fallback."""
+def _misaligned(t: torch.Tensor, view: bool = False) -> torch.Tensor:
+    """``t``'s values at a base one element past 16-byte alignment: a
+    contiguous copy, or (``view``) a view whose every stride but the last
+    is odd as well."""
+    if view:
+        wide = torch.zeros(*t.shape[:-1], t.shape[-1] + 1, dtype=t.dtype,
+                           device=t.device)
+        out = wide[..., 1:]
+    else:
+        flat = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+        out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    check(out.data_ptr() % 16 != 0, "the misaligned copy is aligned")
+    return out
+
+
+def _bf16_dh64_checks() -> None:
+    """No fallback around the bf16 head_dim-64 instantiations: a bf16 view
+    at head_dim 64 that TMA cannot load raises in the tensor-core
+    wrappers (B2/B4 a misaligned q, B6/B7 a misaligned strided k), and bf16
+    at head_dim 32, which no body instantiates, raises in every wrapper of
+    B1-B7; none counts a launch."""
     from repro_torch import kernels
 
-    q, kp, vp, bt, pos = _kernel_inputs(4, 4, 64, 16, torch.bfloat16,
+    q, kp, vp, bt, pos = _kernel_inputs(16, 8, 64, 16, torch.bfloat16,
                                         chunk=0, seed=0)
-    qc = _kernel_inputs(4, 4, 64, 16, torch.bfloat16, chunk=8, seed=0)[0]
+    qc = _kernel_inputs(16, 8, 64, 16, torch.bfloat16, chunk=8, seed=0)[0]
     (kq, ks), (vq, vs) = _quantised(kp.float()), _quantised(vp.float())
-    dk, dv = kp.view(4, -1, 4, 64).transpose(1, 2), vp.view(
-        4, -1, 4, 64).transpose(1, 2)
-    p0 = torch.tensor(5, dtype=torch.int32, device="cuda")
-    flags = torch.tensor([1, 0, 0], dtype=torch.int32, device="cuda")
     full = qc.transpose(1, 2)
-    calls = {
-        "B1": lambda: kernels.paged_decode_attention(q, kp, vp, bt, pos),
-        "B2": lambda: kernels.paged_prefill_attention(qc, kp, vp, bt, pos),
-        "B3": lambda: kernels.paged_decode_attention_int8(
-            q, kq, vq, ks, vs, bt, pos),
+    kv = full[:, ::2]
+    flags = torch.tensor([1, 0, 0], dtype=torch.int32, device="cuda")
+    misaligned = {
+        "B2": lambda: kernels.paged_prefill_attention(
+            _misaligned(qc), kp, vp, bt, pos),
         "B4": lambda: kernels.paged_prefill_attention_int8(
-            qc, kq, vq, ks, vs, bt, pos),
-        "B5": lambda: kernels.decode_attention(q, dk, dv, p0),
-        "B6": lambda: kernels.flash_attention(full, full, full),
-        "B7": lambda: kernels.flash_attention_branchy(full, full, full, flags),
+            _misaligned(qc), kq, vq, ks, vs, bt, pos),
+        "B6": lambda: kernels.flash_attention(
+            full, _misaligned(kv, view=True), kv),
+        "B7": lambda: kernels.flash_attention_branchy(
+            full, _misaligned(kv, view=True), kv, flags),
+    }
+    q32, k32, v32 = (t[..., :32].contiguous() for t in (q, kp, vp))
+    qc32, f32 = qc[..., :32].contiguous(), full[..., :32]
+    d32 = k32.view(4, -1, 8, 32).transpose(1, 2)
+    p0 = torch.tensor(5, dtype=torch.int32, device="cuda")
+    (kq32, ks32), (vq32, vs32) = _quantised(k32.float()), _quantised(
+        v32.float())
+    uninstantiated = {
+        "B1": lambda: kernels.paged_decode_attention(q32, k32, v32, bt, pos),
+        "B2": lambda: kernels.paged_prefill_attention(qc32, k32, v32, bt, pos),
+        "B3": lambda: kernels.paged_decode_attention_int8(
+            q32, kq32, vq32, ks32, vs32, bt, pos),
+        "B4": lambda: kernels.paged_prefill_attention_int8(
+            qc32, kq32, vq32, ks32, vs32, bt, pos),
+        "B5": lambda: kernels.decode_attention(q32, d32, d32, p0),
+        "B6": lambda: kernels.flash_attention(f32, f32[:, ::2], f32[:, ::2]),
+        "B7": lambda: kernels.flash_attention_branchy(
+            f32, f32[:, ::2], f32[:, ::2], flags),
     }
     before = {k.__name__: k.launches for k in kernels.KERNELS}
-    for name, call in calls.items():
-        try:
-            call()
-        except ValueError as e:
-            check("B9 part 2" in str(e), f"{name} bf16 head_dim 64: {e}")
-        else:
-            raise AssertionError(f"{name} ran bf16 at head_dim 64")
+    for what, calls, match in (
+        ("bf16 head_dim 64, misaligned", misaligned,
+         "cannot be loaded by TMA"),
+        ("bf16 head_dim 32", uninstantiated, "no kernel instantiated"),
+    ):
+        for name, call in calls.items():
+            try:
+                call()
+            except ValueError as e:
+                check(match in str(e), f"{name} {what}: {e}")
+            else:
+                raise AssertionError(f"{name} ran {what}")
     check(before == {k.__name__: k.launches for k in kernels.KERNELS},
-          "a refused bf16 head_dim-64 call counted a launch")
+          "a refused call counted a launch")
+    log(f"[kernels] refused without a launch: bf16 head_dim 64 views TMA "
+        f"cannot load ({', '.join(misaligned)}), bf16 at head_dim 32 "
+        f"({', '.join(uninstantiated)})")
+
+
+def _tc_routes_profiled() -> None:
+    """B2, B4, B6 and B7 in bf16 at head_dim 64 (granite-moe's 16/8 heads),
+    one call each under ``torch.profiler``: every attention kernel the
+    profile records is the tensor-core body's, instantiated at 64
+    (``paged_prefill_tc_kernel<..., 64, ...>``, ``flash_tc_kernel<64,
+    ...>``, ``flash_tc_branchy_kernel<64>``), never a CUDA-core body's. Up
+    to three tries each, as a profile has recorded no kernels on some runs;
+    these launches are not a path's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+
+    qc, kp, vp, bt, st = _kernel_inputs(16, 8, 64, 16, torch.bfloat16,
+                                        chunk=64, seed=3)
+    (kq, ks), (vq, vs) = _quantised(kp.float()), _quantised(vp.float())
+    full = qc.transpose(1, 2)
+    kv = full[:, ::2]
+    flags = torch.tensor([1, 0, 0], dtype=torch.int32, device="cuda")
+    calls = {
+        "B2": (kernels.paged_prefill_attention, "paged_prefill_tc_kernel",
+               lambda: kernels.paged_prefill_attention(qc, kp, vp, bt, st)),
+        "B4": (kernels.paged_prefill_attention_int8, "paged_prefill_tc_kernel",
+               lambda: kernels.paged_prefill_attention_int8(
+                   qc, kq, vq, ks, vs, bt, st)),
+        "B6": (kernels.flash_attention, "flash_tc_kernel",
+               lambda: kernels.flash_attention(full, kv, kv)),
+        "B7": (kernels.flash_attention_branchy, "flash_tc_branchy_kernel",
+               lambda: kernels.flash_attention_branchy(full, kv, kv, flags)),
+    }
+    seen_by = {}
+    for name, (fn, want, call) in calls.items():
+        saved = fn.launches
+        call()
+        seen = set()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            seen = {e.key for e in prof.key_averages()
+                    if "paged_prefill" in e.key or "flash_" in e.key}
+            if seen:
+                break
+        fn.launches = saved
+        check(bool(seen), f"{name} bf16 head_dim 64: three profiles recorded "
+              f"no attention kernel")
+        check(all(want in k and "64" in k for k in seen),
+              f"{name} bf16 head_dim 64 ran {sorted(seen)}, not {want} at 64")
+        seen_by[name] = sorted(k[:90] for k in seen)
+    log(f"[kernels] bf16 head_dim 64 on the tensor-core bodies, by the "
+        f"profiler's kernel names: {seen_by}")
 
 
 # B1-B4 over block tables of gemma2-27b's max_len 8192 at page 16: rows of
@@ -558,18 +711,18 @@ TC_WINDOW = 40
 
 
 def _prefill_tc_cases() -> dict:
-    """B2 and B4 in bf16 at dh 128 against their plain versions over
+    """B2 and B4 in bf16 at dh 64 and 128 against their plain versions over
     every ``TC_CHUNKS`` x ``TC_GROUPS`` x page size x mode, 2 kv heads, 3
     rows whose starts lie off page boundaries, each row's pages scattered
     over the pool and its table padded with the null page 0."""
     from repro_torch import kernels
 
-    errs, kh, dh = {}, 2, 128
+    errs, kh = {}, 2
     modes = [(None, None), (TC_WINDOW, None), (None, 30.0), (TC_WINDOW, 30.0)]
-    for ps in (8, 16):
+    for dh, ps in ((dh, ps) for dh in (64, 128) for ps in (8, 16)):
         start = [5, ps + 3, 3 * ps - 1]
         pb = -(-(max(start) + max(TC_CHUNKS)) // ps) + 1
-        g = torch.Generator().manual_seed(ps)
+        g = torch.Generator().manual_seed(ps + dh)
         n_pages = 3 * pb + 1
         kp = torch.randn(n_pages, ps, kh, dh, generator=g).to("cuda")
         vp = torch.randn(n_pages, ps, kh, dh, generator=g).to("cuda")
@@ -597,7 +750,7 @@ def _prefill_tc_cases() -> dict:
                     kw = dict(window=window, softcap=cap)
                     for kname, fn, plain, pages, ref_pages in cases:
                         _held(errs, f"tc_{kname}/c={chunk}/G={group}/ps={ps}/"
-                              f"w={window}/cap={cap}/bfloat16",
+                              f"dh={dh}/w={window}/cap={cap}/bfloat16",
                               fn(q, *pages, bt, st, **kw),
                               plain(q.float(), *ref_pages, bt, st, **kw),
                               torch.bfloat16)
@@ -615,17 +768,18 @@ SPLIT_LONG_PAGES = 64
 def _decode_split_cases() -> dict:
     """B1 and B3 against their plain versions at every S 1-``SPLIT_MAX``
     (past a short row's pages: CTAs without pages) x ``SPLIT_GROUPS`` x
-    page size x mode x fp32/bf16, head_dim 128, 2 kv heads; the window
-    leaves lane groups and warps of its first page with only masked keys.
-    Pages are scattered over the pool, tables padded with the null page 0."""
+    page size x mode, head_dim 128 in fp32 and bf16 and head_dim 64 in
+    bf16, 2 kv heads; the window leaves lane groups and warps of its first
+    page with only masked keys. Pages are scattered over the pool, tables
+    padded with the null page 0."""
     from repro_torch import kernels
 
-    errs, kh, dh = {}, 2, 128
+    errs, kh = {}, 2
     modes = [(None, None), (TC_WINDOW, None), (None, 30.0), (TC_WINDOW, 30.0)]
-    for ps in (8, 16):
+    for dh, ps in ((dh, ps) for dh in (64, 128) for ps in (8, 16)):
         pos = [0, ps - 1, ps, 2 * ps - 1, 3 * ps + 5,
                SPLIT_LONG_PAGES * ps - 1]
-        g = torch.Generator().manual_seed(100 + ps)
+        g = torch.Generator().manual_seed(100 + ps + dh)
         n_pages = 2 * SPLIT_LONG_PAGES + 1
         kp = torch.randn(n_pages, ps, kh, dh, generator=g).to("cuda")
         vp = torch.randn(n_pages, ps, kh, dh, generator=g).to("cuda")
@@ -638,7 +792,8 @@ def _decode_split_cases() -> dict:
         pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
         for group in SPLIT_GROUPS:
             qf = torch.randn(len(pos), kh * group, dh, generator=g).to("cuda")
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in ((torch.bfloat16,) if dh == 64
+                          else (torch.float32, torch.bfloat16)):
                 q = qf.to(dtype)
                 # (name, kernel, plain version, its pages, the plain's)
                 cases = (("decode", kernels.paged_decode_attention,
@@ -654,7 +809,7 @@ def _decode_split_cases() -> dict:
                         ref = plain(q.float(), *ref_pages, bt, pt, **kw)
                         for splits in range(1, SPLIT_MAX + 1):
                             _held(errs, f"split_{kname}/S={splits}/G={group}/"
-                                  f"ps={ps}/w={window}/cap={cap}/"
+                                  f"ps={ps}/dh={dh}/w={window}/cap={cap}/"
                                   f"{str(dtype)[6:]}",
                                   fn(q, *pages, bt, pt, splits=splits, **kw),
                                   ref, dtype)
@@ -670,20 +825,21 @@ DENSE_POSITIONS = (0, 15, 16, 41, DENSE_SEQ - 1)
 
 def _dense_split_cases() -> dict:
     """B5 against its plain version at every S 1-``SPLIT_MAX`` x
-    ``SPLIT_GROUPS`` x head_dim 16/128 x mode x fp32/bf16 x
-    ``DENSE_POSITIONS``, 2 kv heads, on the model's ``[B, S, KH, dh]``
-    cache passed as a transposed view."""
+    ``SPLIT_GROUPS`` x head_dim 16/128 in fp32 and bf16 and 64 in bf16 x
+    mode x ``DENSE_POSITIONS``, 2 kv heads, on the model's ``[B, S, KH,
+    dh]`` cache passed as a transposed view."""
     from repro_torch import kernels
 
     errs, kh = {}, 2
     modes = [(None, None), (TC_WINDOW, None), (None, 30.0), (TC_WINDOW, 30.0)]
     g = torch.Generator().manual_seed(200)
-    for dh in (16, 128):
+    for dh in (16, 64, 128):
         kf, vf = (torch.randn(2, DENSE_SEQ, kh, dh, generator=g).to("cuda")
                   for _ in range(2))
         for group in SPLIT_GROUPS:
             qf = torch.randn(2, kh * group, dh, generator=g).to("cuda")
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in ((torch.bfloat16,) if dh == 64
+                          else (torch.float32, torch.bfloat16)):
                 q, k, v = (t.to(dtype) for t in (qf, kf, vf))
                 k, v = k.transpose(1, 2), v.transpose(1, 2)
                 for pos in DENSE_POSITIONS:
@@ -772,9 +928,10 @@ def _dense_cases(tag: str, h: int, kh: int, dh: int, dtype, *, seed: int,
 
 # ----------------------------------------------------------------- phase 2b
 # The sampling kernel's cases: every served vocabulary (olmo-1b, qwen3-14b,
-# gemma2-27b) at 8 rows, and one row; float32 (the serving steps' logits)
-# and bfloat16.
-SAMPLE_SHAPES = ((8, 50304), (8, 151936), (8, 256000), (1, 50304))
+# gemma2-27b, granite-moe's odd 49155) at 8 rows, and one row; float32 (the
+# serving steps' logits) and bfloat16.
+SAMPLE_SHAPES = ((8, 50304), (8, 151936), (8, 256000), (8, 49155),
+                 (1, 50304))
 
 
 def _sampling_inputs(rows: int, vocab: int, dtype, seed: int):
@@ -1102,6 +1259,15 @@ class _StepClock:
         self.t = max(self.t, t)
 
 
+def _tie_policy(cfg) -> str:
+    """The MoE policy of a near-tie's reference pass over a whole sequence:
+    "dense", which drops nothing, as a decode step (S = 1) never does;
+    under "drop" one pass over the sequence would drop by its own
+    capacity, which no step of the stream had."""
+    moe = any(cfg.mlp_at(s) == "moe" for s in range(cfg.period))
+    return "dense" if moe else "drop"
+
+
 def _card_near_tie(cfg, params, seq, a: int, b: int,
                    kv_dtype: str) -> tuple[bool, float]:
     """Whether tokens ``a`` and ``b`` are a near-tie after ``seq`` at full
@@ -1125,7 +1291,7 @@ def _card_near_tie(cfg, params, seq, a: int, b: int,
                                                  device=dev),
             torch.arange(1, n + 1, dtype=torch.int32, device=dev)[None],
             torch.tensor([len(seq)], dtype=torch.int32, device=dev),
-            attn_impl="plain",
+            attn_impl="plain", moe_policy=_tie_policy(cfg),
         )
         row = logits[0].float()
     gap = abs(float(row[a] - row[b]))
@@ -2010,25 +2176,40 @@ def _into_burst_cache(eng, bucket: int, cache: list) -> list:
     return dst
 
 
-def prompt_then_burst(cfg, params) -> dict:
+def prompt_then_burst(cfg, params, moe_policy: str = "drop",
+                      hold: bool = True, logit_tol: float | None = None
+                      ) -> dict:
     """``prefill`` (B6) of 8 prompts of 256, ``pad_cache`` to 1024, then
     ``set_mode``, the cache copied into the bucket's burst cache, and
     ``decode_loop`` of 32 greedy tokens (B5, a graph replay a step) — the JAX
     package's prefill-then-decode sequence — and ``forward`` (B6) over
     prompt + tokens, with the counts set to 0 just before and read after.
     Then ``forward`` with B6 against the naive attention on the same
-    tokens, and a profiled window of burst steps."""
+    tokens, and a profiled window of burst steps. A MoE stack runs
+    ``prefill`` and ``forward`` under ``moe_policy``: "dense" drops
+    nothing, as the burst's one-token steps never do under "drop", so the
+    three agree; "drop" over 256 or 288 tokens would drop by those calls'
+    capacities. The tie margin and the B6-vs-naive tolerance are
+    ``STEP_LOGIT_ATOL`` in bf16 and ``FP32_LOGIT_ATOL`` in fp32 (the
+    latter ``logit_tol`` where given). With
+    ``hold`` False the path's launches and finite logits are held and the
+    two comparisons only logged: granite-moe's random bf16 weights turn
+    any two roundings into other tokens (its fp32 run holds them)."""
     from repro_torch import kernels, models
     from repro_torch.runtime import steps
     from repro_torch.runtime.serve import GREEDY, Engine, EngineConfig
 
+    margin = STEP_LOGIT_ATOL if cfg.dtype == "bfloat16" else FP32_LOGIT_ATOL
+    logit_tol = margin if logit_tol is None else logit_tol
+    held = "" if hold else " (logged, not held)"
     b, prompt_len, n, max_len = 8, 256, 32, 1024
     g = torch.Generator().manual_seed(5)
     prompts = torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=g,
                             dtype=torch.int32).to("cuda")
     kernels.reset_launch_counts()  # this path's run starts here
     t0 = time.perf_counter()
-    last, cache = steps.make_prefill_fn(cfg)(params, prompts)
+    last, cache = steps.make_prefill_fn(cfg, moe_policy=moe_policy)(
+        params, prompts)
     cache = models.pad_cache(cfg, cache, max_len)
     first = last.argmax(-1).to(torch.int32)[:, None]
     with Engine(cfg, params, EngineConfig(max_len=max_len, max_batch=b,
@@ -2038,7 +2219,7 @@ def prompt_then_burst(cfg, params) -> dict:
         toks, cache = eng.decode_loop(cache, first, prompt_len, n)
         seq = torch.cat([prompts, first,
                          torch.from_numpy(toks[:, :-1]).to("cuda")], dim=1)
-        logits, _ = models.forward(cfg, params, seq)
+        logits, _ = models.forward(cfg, params, seq, moe_policy=moe_policy)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _launches("prompt+burst",
@@ -2051,23 +2232,27 @@ def prompt_then_burst(cfg, params) -> dict:
         chosen = torch.from_numpy(toks).to("cuda").long()
         lead = gen.max(-1).values - gen.gather(-1, chosen[..., None])[..., 0]
         flips = int((lead > 0).sum())
-        check(bool((lead < BF16_TIE_MARGIN).all()),
+        check(not hold or bool((lead < margin).all()),
               f"prompt+burst: forward's top logit leads the burst's token by "
               f"{lead.max().item():.4f}")
-        log(f"[prompt+burst] prefill {b}x{prompt_len} (B6), pad_cache to "
+        log(f"[prompt+burst] {cfg.name}: prefill {b}x{prompt_len} (B6), "
+            f"pad_cache to "
             f"{max_len}, decode_loop {n} greedy tokens (B5), forward over "
             f"{seq.shape[1]} tokens (B6) in {wall:.2f}s: argmax agrees at "
-            f"{b * n - flips}/{b * n} generated positions; {flips} flips, "
-            f"each a near-tie (max lead {lead.max().item():.4f} < "
-            f"{BF16_TIE_MARGIN}; {int(((lead > 0) & (lead < TIE_MARGIN)).sum())}"
+            f"{b * n - flips}/{b * n} generated positions ({cfg.dtype}); "
+            f"{flips} flips, max lead {lead.max().item():.4f} (margin "
+            f"{margin}{held}; {int(((lead > 0) & (lead < TIE_MARGIN)).sum())}"
             f" under {TIE_MARGIN}) | launches {launches}")
-        naive, _ = models.forward(cfg, params, seq, impl="naive")
+        naive, _ = models.forward(cfg, params, seq, impl="naive",
+                                  moe_policy=moe_policy)
         err = (logits - naive).abs().max().item()
         agree = (logits.argmax(-1) == naive.argmax(-1)).float().mean().item()
-        log(f"[prompt+burst] forward B6 vs naive attention: logits max abs "
-            f"diff {err:.4f} (tolerance {STEP_LOGIT_ATOL}; |logits| max "
+        log(f"[prompt+burst] {cfg.name}: forward B6 vs naive attention: "
+            f"logits max abs "
+            f"diff {err:.4f} (tolerance {logit_tol}{held}; |logits| max "
             f"{naive.abs().max().item():.2f}), argmax agreement {agree:.3f}")
-        check(err <= STEP_LOGIT_ATOL, f"forward: B6 vs naive differ by {err}")
+        check(not hold or err <= logit_tol,
+              f"forward: B6 vs naive differ by {err}")
         del logits, naive
         exe = eng._current
         tok = torch.from_numpy(toks[:, -1:]).to("cuda")
@@ -2209,6 +2394,7 @@ def _near_tie(cfg, params, seq, kv_dtype: str) -> bool:
         torch.zeros(1, dtype=torch.int32),
         torch.arange(1, n + 1, dtype=torch.int32)[None],
         torch.tensor([len(seq)], dtype=torch.int32), attn_impl="plain",
+        moe_policy=_tie_policy(cfg),
     )
     top2 = logits[0].topk(2).values
     return float(top2[0] - top2[1]) < TIE_MARGIN
@@ -3353,12 +3539,23 @@ def _hft_card_vs_cpu(cfg, params, card_reqs, ecfg: dict, slots: int,
         f"divergences")
 
 
+# Phase 8's depth: qwen3-14b and gemma2-27b at full width on half their
+# layers (gemma2's local/global pairs kept), which halves their streams'
+# eager runs and keeps the whole script near its former length with phase
+# 9 added; hft-demo at full depth.
+PHASE8_LAYERS = {"qwen3-14b": 20, "gemma2-27b": 24}
+
+
 def configs_phase() -> dict:
-    """qwen3-14b and gemma2-27b (bf16) and hft-demo (fp32) at full width on
-    the card, one model at a time, weights seeded on the card: each
-    engine's stream (``_paired_streams`` with its launches held), peak memory against the reckoned
-    weight and KV bytes; gemma2-27b's and hft-demo's prompt + decode check
-    past their windows; hft-demo's stream card = CPU."""
+    """qwen3-14b and gemma2-27b (bf16; full width, depth cut to
+    ``PHASE8_LAYERS``) and hft-demo (fp32, full width and depth) on the
+    card, one model at a time, weights seeded on the card: each engine's
+    stream (``_paired_streams`` with its launches held), peak memory
+    against the reckoned weight and KV bytes; gemma2-27b's and hft-demo's
+    prompt + decode check past their windows; hft-demo's stream card =
+    CPU."""
+    import dataclasses
+
     from repro_torch import models
     from repro_torch.configs import get_config
 
@@ -3366,6 +3563,12 @@ def configs_phase() -> dict:
     total = torch.cuda.get_device_properties(0).total_memory
     for arch, plan in _plans().items():
         cfg = get_config(arch)
+        if arch in PHASE8_LAYERS:
+            full = cfg.num_layers
+            cfg = dataclasses.replace(
+                cfg, num_layers=PHASE8_LAYERS[arch]).validate()
+            log(f"[configs:{arch}] depth cut to {cfg.num_layers} of {full} "
+                f"layers, full width")
         _release_engines()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -3406,6 +3609,330 @@ def configs_phase() -> dict:
     return paths
 
 
+# ------------------------------------------------ phase 9 (granite-moe)
+GRANITE = "granite-moe-1b-a400m"
+
+
+def _granite_plans() -> dict:
+    """granite-moe-1b-a400m's streams, each engine's (EngineConfig fields,
+    slots, traffic, engine): phase 3's paged bf16 cell, dense cell (a), the
+    burst cell and phase 3's int8+spec paged cell, all under the default
+    ``moe_policy="drop"``."""
+    base = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64)
+    return {
+        "paged bf16": (base, 8, _shared_prefix_traffic, "paged"),
+        "continuous": (dict(max_len=1024, max_batch=8, prefill_chunk=64), 8,
+                       _continuous_traffic, "continuous"),
+        "burst": (dict(max_len=1024, max_batch=8, batch_quantum=4), None,
+                  _burst_traffic, "burst"),
+        "paged int8+spec": (dict(base, kv_dtype="int8", spec_k=4,
+                                 draft_layers=2, draft_kv_dtype="int8"), 8,
+                            _shared_prefix_traffic, "paged"),
+    }
+
+
+def _granite_reckoned(cfg, engine: str, ecfg: dict, slots) -> tuple:
+    """(weight bytes, KV bytes) before anything is allocated: the weights
+    at the model dtype but the routers in float32 (``param_counts`` counts
+    them with the rest); K and V as ``_reckoned``, int8 pages at a byte an
+    element plus a float32 scale a row, and the int8 draft's dense cache."""
+    from repro_torch import models
+
+    routers = cfg.num_layers * cfg.d_model * cfg.num_experts
+    weights = cfg.param_counts()["total"] * 2 + routers * 2
+    _, kv = _reckoned(cfg, engine, ecfg, slots)
+    if ecfg.get("kv_dtype") == "int8":  # a byte an element, 4 a row's scale
+        tokens = ecfg["max_batch"] * ecfg["max_len"] + ecfg["page_size"]
+        kv = tokens * 2 * cfg.num_layers * (cfg.kv_dim + 4)
+        draft = ecfg["draft_layers"] * cfg.period
+        kv += (slots * models.dense_rows(ecfg["max_len"]) * 2 * draft
+               * (cfg.kv_dim + 4))
+    return weights, kv
+
+
+def _moe_policies_step(cfg, params, p32) -> dict:
+    """"drop", "dense" and "gather" at S = 1, where capacity is ``top_k``
+    and nothing is dropped: one MoE layer in bf16 (8 rows of full width)
+    within ``KERNEL_ATOL[bf16]`` of "dense" relative to its largest
+    |output|; one full-width paged decode step (8 slots at position 200
+    over pages a chunked prefill filled under "dense") on the fp32 weights
+    ``p32`` within ``STEP_LOGIT_ATOL``; the same step in bf16 logged with
+    each policy's eager host wall (its logits are not held: granite's
+    random bf16 weights turn any two roundings into other logits)."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.models import moe
+
+    dev, slots, ps, n = "cuda", 8, 16, 200
+    g = torch.Generator().manual_seed(23)
+    lp = models.layer_params(params, 0, 0)["moe"]
+    x = torch.randn(slots, 1, cfg.d_model, generator=g).to(dev, torch.bfloat16)
+    ys = {pol: moe.moe_apply(cfg, lp, x, policy=pol, with_aux=False)[0]
+          .float() for pol in ("drop", "dense", "gather")}
+    scale = ys["dense"].abs().max().item()
+    layer = {pol: (ys[pol] - ys["dense"]).abs().max().item() / scale
+             for pol in ("drop", "gather")}
+    for pol, rel in layer.items():
+        check(rel <= KERNEL_ATOL[torch.bfloat16],
+              f"{cfg.name}: one MoE layer at S = 1, {pol} vs dense relative "
+              f"diff {rel:.4g} > {KERNEL_ATOL[torch.bfloat16]}")
+    prompt = torch.randint(0, cfg.vocab_size, (slots, n), generator=g,
+                           dtype=torch.int32).to(dev)
+    pb = -(-(n + 1) // ps)
+    bt = torch.arange(1, slots * pb + 1, dtype=torch.int32,
+                      device=dev).view(slots, pb)
+    zero = torch.zeros(slots, dtype=torch.int32, device=dev)
+    pos = torch.full((slots,), n, dtype=torch.int32, device=dev)
+    out = {}
+    for tag, c, p in (("fp32", dataclasses.replace(cfg, dtype="float32"),
+                       p32), ("bf16", cfg, params)):
+        cache = models.init_paged_cache(c, slots * pb + 1, ps, device=dev)
+        last, _ = models.paged_prefill_step(c, p, cache, prompt, zero, bt,
+                                            pos, moe_policy="dense")
+        tok = last.argmax(-1).to(torch.int32)[:, None]
+        logits, ms = {}, {}
+        for policy in ("drop", "dense", "gather"):
+            def step(policy=policy):
+                return models.paged_decode_step(c, p, cache, tok, pos, bt,
+                                                moe_policy=policy)[0]
+            logits[policy] = step()
+            ms[policy] = _wall_ms(step, steps=10)
+        torch.cuda.synchronize()
+        diff = {f"{a}-dense": (logits[a] - logits["dense"]).abs().max().item()
+                for a in ("drop", "gather")}
+        agree = {a: (logits[a].argmax(-1) == logits["dense"].argmax(-1))
+                 .float().mean().item() for a in ("drop", "gather")}
+        if tag == "fp32":
+            for pair, err in diff.items():
+                check(bool(torch.isfinite(logits[pair[:-6]]).all())
+                      and err <= STEP_LOGIT_ATOL,
+                      f"{cfg.name} fp32: one decode step, {pair} logits "
+                      f"differ by {err:.4g} > {STEP_LOGIT_ATOL}")
+        out[tag] = {"diff": diff, "agree": agree, "ms": ms}
+        log(f"[granite] one full-width decode step ({tag}, {slots} slots, "
+            f"pos {n}) under each moe_policy: logits max abs diff "
+            + ", ".join(f"{k} {v:.4g}" for k, v in diff.items())
+            + (f" (tolerance {STEP_LOGIT_ATOL})" if tag == "fp32"
+               else " (logged, not held)")
+            + f", argmax agreement {agree}; eager host wall per step "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+            + f" | {_card()}")
+        del cache
+    log(f"[granite] one MoE layer (bf16, 8 rows, S = 1): drop and gather vs "
+        f"dense relative diff {layer} (tolerance "
+        f"{KERNEL_ATOL[torch.bfloat16]}): nothing dropped")
+    return out
+
+
+def _granite_moe_share(cfg, params) -> dict:
+    """A replayed ``cbp`` step (8 slots at position 200, 16-page tables,
+    bf16 pages) through graph targets and eager, profiled as phase 3b's
+    (wall, busy, idle share); then the same step with every MoE tail
+    replaced by zeros (the attention, norms, embedding, head and sampling
+    left), whose busy time subtracted from the full step's is the MoE's
+    (the router, the dispatch and combine, the expert products)."""
+    from repro_torch.models import moe
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    ecfg = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64)
+    out = {}
+    real = moe.moe_apply
+    try:
+        for variant in ("full", "without MoE"):
+            if variant != "full":
+                moe.moe_apply = lambda cfg, p, x, **kw: (torch.zeros_like(x),
+                                                         None)
+            runs, engines = {}, []
+            for mode in ("graph", "eager"):
+                eng = Engine(cfg, params, EngineConfig(
+                    **ecfg, cuda_graphs=mode == "graph"))
+                engines.append(eng)
+                runs[mode] = _step_runs(eng, "cbp", 8)
+            out[variant] = _profile_replay(
+                f"{cfg.name} cbp ({variant}; bf16 pages, 8 slots, pos 200, "
+                f"16-page tables)", runs)
+            for eng in engines:
+                eng.close()
+            del engines, runs
+            _release_engines()
+    finally:
+        moe.moe_apply = real
+    share = {}
+    for mode in ("graph", "eager"):
+        full, bare = out["full"][mode]["busy_ms"], out["without MoE"][mode][
+            "busy_ms"]
+        share[mode] = (None if full is None or bare is None
+                       else 100 * (full - bare) / full)
+    g = out["full"]["graph"]
+    idle = g["idle_pct"]
+    log(f"[granite] replayed cbp step: wall {g['wall_ms']:.3f} ms, busy "
+        f"{_fmt_ms(g['busy_ms'])}, idle "
+        f"{'not measured' if idle is None else f'{idle:.1f}%'}"
+        f"; the MoE's share of busy "
+        + ", ".join(f"{m} {'not measured' if v is None else f'{v:.1f}%'}"
+                    for m, v in share.items())
+        + f" | {_card()}")
+    return {"profile": out, "moe_share_pct": share}
+
+
+def granite_phase() -> dict:
+    """granite-moe-1b-a400m at full width (24 layers, bf16, 32 experts top-8,
+    heads of 64: every attention call on the bf16 head_dim-64
+    instantiations), weights seeded on the card: its four streams through
+    graph targets and again eager under one step clock (``_paired_streams``
+    with each kernel's launches held to one per attention layer per lane
+    call), peak memory against the reckoned weight and KV bytes; the
+    prompt-then-burst path under "dense"; one decode step under each
+    ``moe_policy``; a replayed ``cbp`` step profiled with the MoE's
+    share. Across implementations (kernels vs the naive attention, the
+    burst's steps vs ``forward``, one policy vs another) granite's bf16
+    logits are held in fp32 (the weights upcast on the card): with random
+    weights its experts are drawn with ``dense_init``'s fan-in E (std
+    1/sqrt(32)), their outputs far larger than their unit-RMS inputs, and a
+    bf16 rounding moves a top-k routing choice somewhere in 24 layers,
+    which moves the logits by far more than ``STEP_LOGIT_ATOL``; the
+    prompt+burst lines log the bf16 and the fp32 gaps side by side."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    cfg = get_config(GRANITE)
+    paths = {}
+    total = torch.cuda.get_device_properties(0).total_memory
+    _release_engines()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for t in params.values())
+    plans = _granite_plans()
+    want_w, _ = _granite_reckoned(cfg, "paged", plans["paged bf16"][0], 8)
+    check(wbytes == want_w, f"{GRANITE}: {wbytes} weight bytes, reckoned "
+          f"{want_w}")
+    check(params["blocks.0.moe.router"].dtype == torch.float32,
+          f"{GRANITE}: the router is not float32")
+    log(f"[granite] {cfg.param_counts()['total'] / 1e9:.3f}B params "
+        f"({cfg.param_counts()['active'] / 1e9:.3f}B active) bf16 with "
+        f"float32 routers ({wbytes / 1e9:.3f} GB) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f}s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for name, (ecfg, slots, traffic, engine) in plans.items():
+        w, kv = _granite_reckoned(cfg, engine, ecfg, slots)
+        label = f"{GRANITE} {name}"
+        out = _paired_streams(label, cfg, params, ecfg, partial(traffic, cfg),
+                              engine, slots if slots else 8, count=True)
+        paths[label] = out["launches"]
+        check(out["peak"] <= w + kv + 1.5e9,
+              f"{label}: peak {out['peak'] / 1e9:.2f} GB over the reckoned "
+              f"{(w + kv) / 1e9:.2f} GB + 1.5 GB")
+        log(f"[granite:{name}] peak memory {out['peak'] / 1e9:.2f} GB "
+            f"against reckoned weights {w / 1e9:.2f} GB + KV {kv / 1e9:.2f} "
+            f"GB = {(w + kv) / 1e9:.2f} GB (card {total / 1e9:.2f} GB)")
+        if name == "paged int8+spec":
+            rep = out["report"]
+            check(rep["lane_steps"]["draft"] > 0
+                  and rep["lane_steps"]["verify"] > 0,
+                  f"{label}: draft/verify lane steps {rep['lane_steps']}")
+    paths[f"{GRANITE} prompt+burst"] = prompt_then_burst(
+        cfg, params, moe_policy="dense", hold=False)
+    # the same path and one decode step on the weights in fp32, held: the
+    # tokens to the fp32 tie margin; forward's logits B6 vs naive to
+    # STEP_LOGIT_ATOL, since a router near-tie at fp32 rounding can still
+    # move one expert choice, and with it the logits that follow
+    p32 = {k: v.float() for k, v in params.items()}
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    paths[f"{GRANITE} fp32 prompt+burst"] = prompt_then_burst(
+        c32, p32, moe_policy="dense", logit_tol=STEP_LOGIT_ATOL)
+    _moe_policies_step(cfg, params, p32)
+    del p32
+    share = _granite_moe_share(cfg, params)
+    del params
+    _release_engines()
+    return {"paths": paths, "moe_share": share}
+
+
+def granite_smoke_card_vs_cpu() -> None:
+    """granite-moe's smoke config (fp32, TF32 off; 4 experts top-2), a
+    third of the requests sampled, on the card (graph targets) and on the
+    CPU under one step clock: the paged engine with chunked prefill, the
+    dense continuous engine with chunked prefill, and the burst engine.
+    Greedy requests equal or a near-tie of the CPU's drop-free logits;
+    sampled ones equal."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.scheduler import (
+        attach_distinct_prompts,
+        poisson_arrivals,
+        shared_prefix_arrivals,
+    )
+    from repro_torch.runtime.serve import (
+        Engine,
+        EngineConfig,
+        run_burst_stream,
+        run_continuous_stream,
+        run_paged_stream,
+    )
+
+    cfg = get_config(GRANITE).smoke()
+    params = models.init_params(cfg, seed=0)
+    for engine, ecfg in (
+        ("paged", dict(max_len=64, max_batch=4, page_size=8, num_pages=40,
+                       prefill_chunk=16)),
+        ("continuous", dict(max_len=64, max_batch=4, prefill_chunk=16)),
+        ("burst", dict(max_len=64, max_batch=8, batch_quantum=4)),
+    ):
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            if engine == "paged":
+                reqs = shared_prefix_arrivals(
+                    12, 1000.0, seed=2, num_prefixes=3, prefix_len=20,
+                    tokens_mean=8, total_max=64, sample_frac=1 / 3,
+                    vocab=cfg.vocab_size)
+            else:
+                reqs = poisson_arrivals(12, 1000.0, seed=2, tokens_mean=8,
+                                        tokens_max=40, sample_frac=1 / 3,
+                                        vocab=cfg.vocab_size)
+                if engine == "continuous":
+                    attach_distinct_prompts(reqs, 20, vocab=cfg.vocab_size,
+                                            seed=3)
+            with Engine(cfg, params, EngineConfig(**ecfg), device=dev) as eng:
+                if engine == "burst":
+                    rep = run_burst_stream(eng, reqs, clock=_StepClock())
+                elif engine == "continuous":
+                    rep = run_continuous_stream(eng, reqs, slots=4,
+                                                clock=_StepClock())
+                else:
+                    rep = run_paged_stream(eng, reqs, slots=4,
+                                           clock=_StepClock())
+                check(eng.graphs == (dev == "cuda"),
+                      f"granite smoke {dev}: cuda_graphs {eng.graphs}")
+            check(rep["finished"] == len(reqs),
+                  f"granite smoke {engine} {dev}: {rep['finished']} finished")
+            if engine != "burst":
+                check(rep["compiles_after_warmup"] == 0,
+                      f"granite smoke {engine} {dev}: "
+                      f"{rep['compiles_after_warmup']} compiles after warmup")
+            streams[dev] = {r.rid: (r.effective_prompt, r.tokens, r.greedy)
+                            for r in reqs}
+        ties = 0
+        for rid, (prompt, toks, greedy) in streams["cpu"].items():
+            card = streams["cuda"][rid][1]
+            if card == toks:
+                continue
+            i = next(i for i, (x, y) in enumerate(zip(toks, card)) if x != y)
+            check(greedy and _near_tie(cfg, params, list(prompt) + toks[:i],
+                                       "fp32"),
+                  f"granite smoke {engine}: card != CPU at rid {rid} token {i}")
+            ties += 1
+        n = sum(len(t) for _, t, _ in streams["cpu"].values())
+        sampled = sum(not g for _, _, g in streams["cpu"].values())
+        log(f"[granite:smoke] {engine}: card (graphs) = CPU on "
+            f"{len(streams['cpu']) - ties} of {len(streams['cpu'])} requests "
+            f"({sampled} sampled, {n} tokens), {ties} near-tie divergences")
+
+
 def _time_case(label: str, fn, call, plain, library, nbytes: int, ops: int,
                dtype, kernel: str) -> dict:
     """One kernel call at a new shape: held against its plain version, then
@@ -3439,11 +3966,12 @@ def _time_case(label: str, fn, call, plain, library, nbytes: int, ops: int,
 
 
 def time_new_shapes() -> dict:
-    """B1, B2, B5 and B6 at the shapes this phase's configs give them —
-    group 5 (qwen3-14b: 40 heads over 8 of 128, bf16), window 4096 at
-    positions past it (gemma2-27b: 32 over 16 of 128, bf16; the softcap
-    left out so that SDPA computes the same function), fp32 head_dim 64
-    (hft-demo: 4 over 4 of 64, window 128) — against their plain versions
+    """B1, B2, B5 and B6 at the shapes phases 8 and 9 give them — group 5
+    (qwen3-14b: 40 heads over 8 of 128, bf16), window 4096 at positions
+    past it (gemma2-27b: 32 over 16 of 128, bf16; the softcap left out so
+    that SDPA computes the same function), fp32 head_dim 64 (hft-demo: 4
+    over 4 of 64, window 128), bf16 head_dim 64 (granite-moe: 16 over 8 of
+    64, group 2; B4 too, over int8 pages) — against their plain versions
     and SDPA, with the bound from the bytes and pairs this data needs.
     Returns {kernel: {shape: numbers}}."""
     import torch.nn.functional as F
@@ -3466,6 +3994,10 @@ def time_new_shapes() -> dict:
         "fp32 dh 64": (4, 4, 64, torch.float32, 128, 8, 16,
                        [96, 120, 150, 180, 200, 220, 240, 255],
                        [0, 64, 128, 192, 0, 64, 128, 192], 1024, 255, 1024),
+        "granite bf16 dh 64": (16, 8, 64, torch.bfloat16, None, 8, 16,
+                               [96, 120, 150, 180, 200, 220, 240, 255],
+                               [0, 64, 128, 192, 0, 64, 128, 192], 1024, 255,
+                               1024),
     }.items():
         g = torch.Generator().manual_seed(31)
         el = torch.tensor([], dtype=dtype).element_size()
@@ -3520,6 +4052,29 @@ def time_new_shapes() -> dict:
             2 * keys_c * kh * dh * el + 2 * qc.numel() * el
             + 4 * rows * (table + 1),
             4 * dh * int(okc.sum()) * h, dtype, "paged_prefill"))
+        if dtype == torch.bfloat16 and dh == 64:
+            # B4: the same chunks over the pool quantised to int8; the
+            # library call on the dequantised rows, gathered before timing
+            (kq, ks), (vq, vs) = _quantised(kp.float()), _quantised(vp.float())
+            gk8, gv8 = ((p_[bt.long()].float() * s_[bt.long()][..., None, None])
+                        .reshape(rows, table * ps, kh, dh).transpose(1, 2)
+                        .to(dtype).contiguous()
+                        for p_, s_ in ((kq, ks), (vq, vs)))
+            add("paged_prefill_attention_int8", shape, _time_case(
+                f"paged_prefill_attention_int8 {shape} q{tuple(qc.shape)} "
+                f"table {tuple(bt.shape)}",
+                kernels.paged_prefill_attention_int8,
+                lambda: kernels.paged_prefill_attention_int8(
+                    qc, kq, vq, ks, vs, bt, st, **kw),
+                lambda: kernels.paged_prefill_attention_int8_plain(
+                    qc.float(), kq, vq, ks, vs, bt, st, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    qc.transpose(1, 2), gk8, gv8, attn_mask=okc[:, None],
+                    enable_gqa=True),
+                2 * keys_c * (kh * dh + 4) + 2 * qc.numel() * el
+                + 4 * rows * (table + 1),
+                4 * dh * int(okc.sum()) * h, dtype, "paged_prefill"))
+            del kq, vq, gk8, gv8
         del kp, vp, gk, gv
         # B5: every row at one position of a [rows, cache_len, KH, dh] cache
         ck, cv = (torch.randn(rows, cache_len, kh, dh, generator=g)
@@ -3608,6 +4163,11 @@ def main() -> int:
             + time_sampling(main_path["launches"], main_path["by_path"]))
     t8 = time.perf_counter()
     paths = configs_phase()
+    t9 = time.perf_counter()
+    granite = granite_phase()
+    granite_smoke_card_vs_cpu()
+    t9 = time.perf_counter() - t9
+    paths.update(granite["paths"])
     new = time_new_shapes()
     for row in rows:
         if row["name"] in new:
@@ -3616,10 +4176,11 @@ def main() -> int:
             {path: counts.get(row["name"], 0)
              for path, counts in paths.items()})
     end = time.perf_counter()
-    log(f"[done] all phases passed in {end - t0:.1f}s; phase 8 (three "
-        f"configs, new-shape timing) {end - t8:.1f}s, "
-        f"{100 * (end - t8) / (end - t0):.1f}% of it; phase 3d (async vs "
-        f"sync) {t_async:.1f}s")
+    log(f"[done] all phases passed in {end - t0:.1f}s; phases 8 and 9 "
+        f"(three configs, granite-moe, new-shape timing) {end - t8:.1f}s, "
+        f"{100 * (end - t8) / (end - t0):.1f}% of it, of which phase 9 "
+        f"(granite-moe at full width and its smoke card = CPU) {t9:.1f}s; "
+        f"phase 3d (async vs sync) {t_async:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

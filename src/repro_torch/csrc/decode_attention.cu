@@ -100,8 +100,8 @@ cudaError_t by_mode(const DenseArgs& a, bool w, bool c, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); head_dim 16, 64 (fp32
-// only, as the paged kernels) or 128. Strides are in
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); head_dim 16, 64 or
+// 128. Strides are in
 // elements; k and v share theirs. splits: CTAs a cluster, 1-8. Returns the
 // cudaError_t of the launch (0 on success; cudaErrorInvalidValue for splits
 // outside 1-8). Launches on `stream`, allocates nothing, does not sync.
@@ -124,6 +124,7 @@ extern "C" int dense_decode_attention(
   if (dtype == 0 && head_dim == 64) return by_mode<float, 64>(a, w, c, s);
   if (dtype == 0 && head_dim == 128) return by_mode<float, 128>(a, w, c, s);
   if (dtype == 1 && head_dim == 16) return by_mode<__nv_bfloat16, 16>(a, w, c, s);
+  if (dtype == 1 && head_dim == 64) return by_mode<__nv_bfloat16, 64>(a, w, c, s);
   if (dtype == 1 && head_dim == 128) return by_mode<__nv_bfloat16, 128>(a, w, c, s);
   return cudaErrorInvalidValue;
 }

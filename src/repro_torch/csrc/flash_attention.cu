@@ -32,10 +32,13 @@
 // compares one function.
 //
 // Two routes, chosen in the C entry points by dtype and head_dim (a
-// semi-static choice, not a fallback: a bf16 head_dim-128 call never runs
-// the CUDA-core body):
+// semi-static choice, not a fallback: a bf16 head_dim-64 or -128 call never
+// runs the CUDA-core body):
 //
-// bf16, head_dim 128 — tensor cores (flash_tc_block). What bounds the work
+// bf16, head_dim HD = 64 or 128 — tensor cores (flash_tc_block, HD a
+// template parameter; the text below is written for 128, and at 64 a tile
+// is one 64-wide half, Q K^T takes 4 k-steps and P V is m64n64k16). What
+// bounds the work
 // is the products (at the prefill shape ~4 * Sq * Sk * HD flops per head
 // against a few bytes per key), so both products run on wgmma:
 //   - one block per (query tile of 128, head, batch row) of 288 threads:
@@ -223,31 +226,37 @@ struct FlagMode {
   __device__ int hi(int, int n_tiles) const { return n_tiles - 1; }
 };
 
-// ------------------------------------------- tensor-core body (bf16, HD 128)
+// ------------------------------------ tensor-core body (bf16, HD 64 or 128)
 constexpr int kTcRows = 128;               // query rows per block
 constexpr int kTcKeys = 128;               // keys per tile
 constexpr int kTcConsumers = 256;          // two warpgroups of 64 rows
 constexpr int kTcThreads = kTcConsumers + 32;  // + the producer warp
 constexpr int kStages = 2;                 // K/V ring depth
 constexpr int kHalfBytes = 128 * 128;      // [128 rows][64] bf16 = 16 KB
-constexpr int kTileBytes = 2 * kHalfBytes;  // [128 rows][128] bf16 = 32 KB
+// [128 rows][HD] bf16: 32 KB at 128, 16 KB at 64
+template <int HD>
+constexpr int kTileBytes = (HD / 64) * kHalfBytes;
 // Q, the K and V stages, 7 mbarriers, and slack to align the base to 1024
-constexpr int kTcSmem = kTileBytes * (1 + 2 * kStages) + 64 + 1024;
+template <int HD>
+constexpr int kTcSmem = kTileBytes<HD> * (1 + 2 * kStages) + 64 + 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <class Mode>
+template <int HD, class Mode>
 __device__ void flash_tc_block(const CUtensorMap& tq, const CUtensorMap& tk,
                                const CUtensorMap& tv,
                                __nv_bfloat16* __restrict__ out,
                                const FlashArgs& a, const Mode& mode) {
   using namespace flash_tc;
+  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  constexpr int kHalves = HD / 64;
+  constexpr int kTile = kTileBytes<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms: 1024 B
   const uint32_t s_q = base;
-  const uint32_t s_k = base + kTileBytes;                // + stage * tile
-  const uint32_t s_v = base + (1 + kStages) * kTileBytes;
-  const uint32_t bars = base + (1 + 2 * kStages) * kTileBytes;
+  const uint32_t s_k = base + kTile;                // + stage * tile
+  const uint32_t s_v = base + (1 + kStages) * kTile;
+  const uint32_t bars = base + (1 + 2 * kStages) * kTile;
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
   auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
@@ -275,33 +284,37 @@ __device__ void flash_tc_block(const CUtensorMap& tq, const CUtensorMap& tk,
 
   if (warp == kTcConsumers / 32) {  // producer warp: one thread issues TMA
     if (lane == 0) {
-      mbar_expect_tx(q_full, kTileBytes);
-      tma_load_4d(s_q, &tq, q_full, 0, q0, h, b);
-      tma_load_4d(s_q + kHalfBytes, &tq, q_full, 64, q0, h, b);
+      mbar_expect_tx(q_full, kTile);
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf)
+        tma_load_4d(s_q + hf * kHalfBytes, &tq, q_full, 64 * hf, q0, h, b);
       for (int j = 0; lo + j <= hi; ++j) {
         const int s = j % kStages, k0 = (lo + j) * kTcKeys;
         if (j >= kStages) mbar_wait(empty(s), (j / kStages - 1) & 1);
-        const uint32_t kd = s_k + s * kTileBytes, vd = s_v + s * kTileBytes;
-        mbar_expect_tx(k_full(s), kTileBytes);
-        tma_load_4d(kd, &tk, k_full(s), 0, k0, kh, b);
-        tma_load_4d(kd + kHalfBytes, &tk, k_full(s), 64, k0, kh, b);
-        mbar_expect_tx(v_full(s), kTileBytes);
-        tma_load_4d(vd, &tv, v_full(s), 0, k0, kh, b);
-        tma_load_4d(vd + kHalfBytes, &tv, v_full(s), 64, k0, kh, b);
+        const uint32_t kd = s_k + s * kTile, vd = s_v + s * kTile;
+        mbar_expect_tx(k_full(s), kTile);
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf)
+          tma_load_4d(kd + hf * kHalfBytes, &tk, k_full(s), 64 * hf, k0, kh, b);
+        mbar_expect_tx(v_full(s), kTile);
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf)
+          tma_load_4d(vd + hf * kHalfBytes, &tv, v_full(s), 64 * hf, k0, kh, b);
       }
     }
     return;
   }
 
   // consumer warpgroup wg: query rows q0 + 64 wg .. + 63; this thread holds
-  // rows r0 and r0 + 8, columns 8 i + 2 t (+1) of each 64 x 128 fragment
+  // rows r0 and r0 + 8, columns 8 i + 2 t (+1) of each 64 x 128 (S) and
+  // 64 x HD (O) fragment
   const int wg = warp / 4, g = lane / 4, t = lane % 4;
   const int q_first = q0 + 64 * wg, q_last = q_first + 63;
   const int r0 = q_first + 16 * (warp % 4) + g, r1 = r0 + 8;
   const uint32_t q_rows = s_q + wg * 64 * 128;  // 64 rows of 128 B per half
-  float o[64];
+  float o[HD / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   float sc[64];
   uint32_t pa[32];
@@ -310,14 +323,14 @@ __device__ void flash_tc_block(const CUtensorMap& tq, const CUtensorMap& tk,
   for (int j = 0; lo + j <= hi; ++j) {
     const int s = j % kStages, k0 = (lo + j) * kTcKeys;
     const uint32_t phase = (j / kStages) & 1;
-    const uint32_t kt = s_k + s * kTileBytes, vt = s_v + s * kTileBytes;
+    const uint32_t kt = s_k + s * kTile, vt = s_v + s * kTile;
 
-    // S = Q K^T: 8 k-steps of 16 over head_dim, 4 in each 64-wide half
+    // S = Q K^T: HD / 16 k-steps of 16 over head_dim, 4 in each 64-wide half
     mbar_wait(k_full(s), phase);
     fence_operands(sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
       wgmma_ss(sc, sw128_desc(q_rows + off, 16, 1024),
                sw128_desc(kt + off, 16, 1024), kk > 0);
@@ -366,7 +379,7 @@ __device__ void flash_tc_block(const CUtensorMap& tq, const CUtensorMap& tk,
     l0 = l0 * c0 + sum0;  // this thread's columns; the quad sums at the end
     l1 = l1 * c1 + sum1;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < HD / 8; ++i) {
       o[4 * i] *= c0;
       o[4 * i + 1] *= c0;
       o[4 * i + 2] *= c1;
@@ -398,7 +411,7 @@ __device__ void flash_tc_block(const CUtensorMap& tq, const CUtensorMap& tk,
   const float inv1 = 1.f / fmaxf(l1, kMinDenom);
   __nv_bfloat16* o_bh = out + b * a.o_sb + h * a.o_sh;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < HD / 8; ++i) {
     const int col = 8 * i + 2 * t;
     if (r0 < a.sq)
       *reinterpret_cast<uint32_t*>(o_bh + r0 * a.o_ss + col) =
@@ -409,22 +422,24 @@ __device__ void flash_tc_block(const CUtensorMap& tq, const CUtensorMap& tk,
   }
 }
 
-template <class Mode>
+template <int HD, class Mode>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     __nv_bfloat16* __restrict__ out, FlashArgs a, Mode mode) {
-  flash_tc_block(tq, tk, tv, out, a, mode);
+  flash_tc_block<HD>(tq, tk, tv, out, a, mode);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_tc_branchy_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             const int* __restrict__ flags,
                             __nv_bfloat16* __restrict__ out, FlashArgs a) {
-  flash_tc_block(tq, tk, tv, out, a, FlagMode{flags[0], flags[1], flags[2]});
+  flash_tc_block<HD>(tq, tk, tv, out, a,
+                     FlagMode{flags[0], flags[1], flags[2]});
 }
 
 // ----------------------------------- CUDA-core body (fp32, or head_dim 16)
@@ -571,13 +586,14 @@ cudaError_t launch_cuda_cores_branchy(const void* q, const void* k,
 }
 
 // ------------------------------------------ tensor-core route on the host
-// A 4-D map (HD, S, heads, batch) of a bf16 [B, heads, S, 128] view with
+// A 4-D map (HD, S, heads, batch) of a bf16 [B, heads, S, HD] view with
 // element strides (sb, sh, ss), read in boxes of [128 rows][64].
+template <int HD>
 bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int heads,
                 int seq, long long sb, long long sh, long long ss) {
   const flash_tc::EncodeTiled encode = flash_tc::encoder();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(seq),
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
@@ -596,49 +612,53 @@ struct TcMaps {
   CUtensorMap q, k, v;
 };
 
+template <int HD>
 bool tc_maps(TcMaps* m, const void* q, const void* k, const void* v,
              const FlashArgs& a, int batch) {
-  return tensor_map(&m->q, q, batch, a.heads, a.sq, a.q_sb, a.q_sh, a.q_ss) &&
-         tensor_map(&m->k, k, batch, a.kv_heads, a.sk, a.k_sb, a.k_sh,
-                    a.k_ss) &&
-         tensor_map(&m->v, v, batch, a.kv_heads, a.sk, a.v_sb, a.v_sh,
-                    a.v_ss);
+  return tensor_map<HD>(&m->q, q, batch, a.heads, a.sq, a.q_sb, a.q_sh,
+                        a.q_ss) &&
+         tensor_map<HD>(&m->k, k, batch, a.kv_heads, a.sk, a.k_sb, a.k_sh,
+                        a.k_ss) &&
+         tensor_map<HD>(&m->v, v, batch, a.kv_heads, a.sk, a.v_sb, a.v_sh,
+                        a.v_ss);
 }
 
 // Dynamic shared memory above 48 KB is opted into once per instantiation
 // (the function-local statics below).
+template <int HD>
 cudaError_t launch_tensor_cores(const void* q, const void* k, const void* v,
                                 void* out, const FlashArgs& a, int batch,
                                 bool c, bool w, int window, bool sc,
                                 float softcap, cudaStream_t s) {
   TcMaps m;
-  if (!tc_maps(&m, q, k, v, a, batch)) return cudaErrorInvalidValue;
+  if (!tc_maps<HD>(&m, q, k, v, a, batch)) return cudaErrorInvalidValue;
   auto* o = static_cast<__nv_bfloat16*>(out);
   return with_static_mode(c, w, sc, window, softcap, [&](auto mode) {
     using Mode = decltype(mode);
     static const cudaError_t opt_in = cudaFuncSetAttribute(
-        flash_tc_kernel<Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kTcSmem);
+        flash_tc_kernel<HD, Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTcSmem<HD>);
     if (opt_in != cudaSuccess) return opt_in;
     const dim3 g((a.sq + kTcRows - 1) / kTcRows, a.heads, batch);
-    flash_tc_kernel<Mode><<<g, kTcThreads, kTcSmem, s>>>(m.q, m.k, m.v, o, a,
-                                                        mode);
+    flash_tc_kernel<HD, Mode><<<g, kTcThreads, kTcSmem<HD>, s>>>(
+        m.q, m.k, m.v, o, a, mode);
     return cudaGetLastError();
   });
 }
 
+template <int HD>
 cudaError_t launch_tensor_cores_branchy(const void* q, const void* k,
                                         const void* v, const int* flags,
                                         void* out, const FlashArgs& a,
                                         int batch, cudaStream_t s) {
   TcMaps m;
-  if (!tc_maps(&m, q, k, v, a, batch)) return cudaErrorInvalidValue;
+  if (!tc_maps<HD>(&m, q, k, v, a, batch)) return cudaErrorInvalidValue;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      flash_tc_branchy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kTcSmem);
+      flash_tc_branchy_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTcSmem<HD>);
   if (opt_in != cudaSuccess) return opt_in;
   const dim3 g((a.sq + kTcRows - 1) / kTcRows, a.heads, batch);
-  flash_tc_branchy_kernel<<<g, kTcThreads, kTcSmem, s>>>(
+  flash_tc_branchy_kernel<HD><<<g, kTcThreads, kTcSmem<HD>, s>>>(
       m.q, m.k, m.v, flags, static_cast<__nv_bfloat16*>(out), a);
   return cudaGetLastError();
 }
@@ -653,8 +673,8 @@ bool bad_shape(int batch, int heads, int kv_heads, int sq, int sk) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); strides in elements
 // (batch, head, sequence) for q, k, v and out. Return the cudaError_t of the
 // launch (0 on success). Launch on `stream`, allocate nothing, do not sync.
-// bf16 at head_dim 128 runs on tensor cores, the rest on CUDA cores (fp32 at
-// 16, 64 and 128; bf16 at 16).
+// bf16 at head_dim 64 and 128 runs on tensor cores, the rest on CUDA cores
+// (fp32 at 16, 64 and 128; bf16 at 16).
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* out, int batch,
     int heads, int kv_heads, int sq, int sk, long long q_sb, long long q_sh,
@@ -668,7 +688,8 @@ extern "C" int flash_attention(
                     k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, sm_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0, w = has_window != 0, sc = has_softcap != 0;
-  if (dtype == 1 && head_dim == 128) return launch_tensor_cores(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
+  if (dtype == 1 && head_dim == 64) return launch_tensor_cores<64>(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
+  if (dtype == 1 && head_dim == 128) return launch_tensor_cores<128>(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
   if (dtype == 0 && head_dim == 16) return launch_cuda_cores<float, 16>(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
   if (dtype == 0 && head_dim == 64) return launch_cuda_cores<float, 64>(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
   if (dtype == 0 && head_dim == 128) return launch_cuda_cores<float, 128>(q, k, v, out, a, batch, c, w, window, sc, softcap, s);
@@ -690,7 +711,8 @@ extern "C" int flash_attention_branchy(
                     k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, sm_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* f = static_cast<const int*>(flags);
-  if (dtype == 1 && head_dim == 128) return launch_tensor_cores_branchy(q, k, v, f, out, a, batch, s);
+  if (dtype == 1 && head_dim == 64) return launch_tensor_cores_branchy<64>(q, k, v, f, out, a, batch, s);
+  if (dtype == 1 && head_dim == 128) return launch_tensor_cores_branchy<128>(q, k, v, f, out, a, batch, s);
   if (dtype == 0 && head_dim == 16) return launch_cuda_cores_branchy<float, 16>(q, k, v, f, out, a, batch, s);
   if (dtype == 0 && head_dim == 64) return launch_cuda_cores_branchy<float, 64>(q, k, v, f, out, a, batch, s);
   if (dtype == 0 && head_dim == 128) return launch_cuda_cores_branchy<float, 128>(q, k, v, f, out, a, batch, s);

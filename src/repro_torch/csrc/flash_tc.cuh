@@ -6,10 +6,11 @@
 // and on the host the lookup of libcuda's tensor-map encoder. Inline PTX
 // only (no CUTLASS/CuTe), so the libraries build in seconds.
 //
-// Tiles are bf16 [rows][64] halves of a [rows][128] tile, 128 bytes a row,
-// loaded by TMA with the 128-byte swizzle into 1024-byte aligned shared
-// memory (an 8-row group is one 1024-byte swizzle atom). wgmma reads them
-// through descriptors in the canonical Hopper layouts:
+// Tiles are bf16 [rows][64] halves of a [rows][128] tile (the whole tile at
+// head_dim 64), 128 bytes a row, loaded by TMA with the 128-byte swizzle
+// into 1024-byte aligned shared memory (an 8-row group is one 1024-byte
+// swizzle atom). wgmma reads them through descriptors in the canonical
+// Hopper layouts:
 //   K-major (Q and K, the reduced dimension head_dim contiguous): the
 //     8-row groups SBO = 1024 bytes apart, LBO unused; a 16-wide k step
 //     inside the 64-wide half advances the start address by 32 bytes;

@@ -1,8 +1,9 @@
 // Paged decode (B1) and chunked prefill (B2) attention over model-dtype
 // pages: the host entry points of the templates, instantiated for q/pages in
 // {float32, bfloat16}. B1 runs the cluster-split body of
-// paged_decode_split.cuh; B2 in bf16 at head_dim 128 the tensor-core body of
-// paged_prefill_tc.cuh, the rest of B2 paged_attention.cuh's CUDA cores.
+// paged_decode_split.cuh; B2 in bf16 at head_dim 64 and 128 the tensor-core
+// body of paged_prefill_tc.cuh, the rest of B2 paged_attention.cuh's CUDA
+// cores.
 #include "paged_attention.cuh"
 #include "paged_decode_split.cuh"
 #include "paged_prefill_tc.cuh"
@@ -12,10 +13,8 @@ using paged::launch_prefill_cuda_cores;
 using paged_split::launch_decode_split;
 using paged_tc::launch_prefill_tensor_cores;
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pages and out); head_dim 16, 64 (fp32
-// only: bf16 at 64 waits for the tensor-core prefill body's instantiation)
-// or 128; splits: the CTAs of
-// one cluster that share a row's pages (1-8). Returns the cudaError_t of the
+// dtype: 0 = float32, 1 = bfloat16 (q, pages and out); head_dim 16, 64 or
+// 128; splits: the CTAs of one cluster that share a row's pages (1-8). Returns the cudaError_t of the
 // launch (0 on success). Launches on `stream`, allocates nothing, does not
 // sync.
 extern "C" int paged_decode_attention(
@@ -33,6 +32,7 @@ extern "C" int paged_decode_attention(
   if (dtype == 0 && head_dim == 64) return launch_decode_split<float, float, 64>(a, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 128) return launch_decode_split<float, float, 128>(a, page_size, w, c, stream);
   if (dtype == 1 && head_dim == 16) return launch_decode_split<__nv_bfloat16, __nv_bfloat16, 16>(a, page_size, w, c, stream);
+  if (dtype == 1 && head_dim == 64) return launch_decode_split<__nv_bfloat16, __nv_bfloat16, 64>(a, page_size, w, c, stream);
   if (dtype == 1 && head_dim == 128) return launch_decode_split<__nv_bfloat16, __nv_bfloat16, 128>(a, page_size, w, c, stream);
   return cudaErrorInvalidValue;
 }
@@ -50,7 +50,8 @@ extern "C" int paged_prefill_attention(
                static_cast<const int*>(start), out, batch, chunk, heads,
                kv_heads, pages_per_row, window, sm_scale, softcap};
   const int w = has_window, c = has_softcap;
-  if (dtype == 1 && head_dim == 128) return launch_prefill_tensor_cores<__nv_bfloat16>(a, num_pages, page_size, w, c, stream);
+  if (dtype == 1 && head_dim == 64) return launch_prefill_tensor_cores<__nv_bfloat16, 64>(a, num_pages, page_size, w, c, stream);
+  if (dtype == 1 && head_dim == 128) return launch_prefill_tensor_cores<__nv_bfloat16, 128>(a, num_pages, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 16) return launch_prefill_cuda_cores<float, float, 16>(a, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 64) return launch_prefill_cuda_cores<float, float, 64>(a, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 128) return launch_prefill_cuda_cores<float, float, 128>(a, page_size, w, c, stream);

@@ -18,8 +18,8 @@
 // model-dtype kernels (B2), paged_attention_int8.cu the int8 ones (B4), so
 // each builds as its own nvcc process side by side. flash_attention.cu
 // (B6/B7) takes its conversions and constants from here. B2/B4 in bf16 at
-// head_dim 128 run the tensor-core body of paged_prefill_tc.cuh instead of
-// paged_prefill_kernel; decode (B1, B3 over PagedRows, B5 over DenseRows in
+// head_dim 64 and 128 run the tensor-core body of paged_prefill_tc.cuh
+// instead of paged_prefill_kernel; decode (B1, B3 over PagedRows, B5 over DenseRows in
 // decode_attention.cu) runs the cluster-split body of
 // paged_decode_split.cuh.
 //
@@ -55,7 +55,7 @@
 // scores, softmax state and the accumulator in shared memory, so the only
 // device traffic is K/V (+ scales) in, q in and the output out. No tensor
 // cores, TMA or wgmma: the simple version that is right first (B2/B4 in bf16
-// at head_dim 128 have a tensor-core body, paged_prefill_tc.cuh).
+// at head_dim 64 and 128 have a tensor-core body, paged_prefill_tc.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -2,8 +2,9 @@
 // f32 per-token-row scales: the host entry points of the templates,
 // instantiated for q/out in {float32, bfloat16}. B3 runs the cluster-split
 // body of paged_decode_split.cuh. B4 is also the verify lane's kernel (a
-// chunk of K+1 rows); in bf16 at head_dim 128 it runs the tensor-core body
-// of paged_prefill_tc.cuh, the rest paged_attention.cuh's CUDA cores.
+// chunk of K+1 rows); in bf16 at head_dim 64 and 128 it runs the
+// tensor-core body of paged_prefill_tc.cuh, the rest paged_attention.cuh's
+// CUDA cores.
 #include "paged_attention.cuh"
 #include "paged_decode_split.cuh"
 #include "paged_prefill_tc.cuh"
@@ -13,9 +14,8 @@ using paged::launch_prefill_cuda_cores;
 using paged_split::launch_decode_split;
 using paged_tc::launch_prefill_tensor_cores;
 
-// dtype: 0 = float32, 1 = bfloat16 (q and out); head_dim 16, 64 (fp32 only)
-// or 128; pages are int8 and
-// k_scale / v_scale are float32 [P, page_size]; splits as in
+// dtype: 0 = float32, 1 = bfloat16 (q and out); head_dim 16, 64 or 128;
+// pages are int8 and k_scale / v_scale are float32 [P, page_size]; splits as in
 // paged_decode_attention. Returns the cudaError_t of the launch (0 on
 // success). Launches on `stream`, allocates nothing, does not sync.
 extern "C" int paged_decode_attention_int8(
@@ -35,6 +35,7 @@ extern "C" int paged_decode_attention_int8(
   if (dtype == 0 && head_dim == 64) return launch_decode_split<float, int8_t, 64>(a, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 128) return launch_decode_split<float, int8_t, 128>(a, page_size, w, c, stream);
   if (dtype == 1 && head_dim == 16) return launch_decode_split<__nv_bfloat16, int8_t, 16>(a, page_size, w, c, stream);
+  if (dtype == 1 && head_dim == 64) return launch_decode_split<__nv_bfloat16, int8_t, 64>(a, page_size, w, c, stream);
   if (dtype == 1 && head_dim == 128) return launch_decode_split<__nv_bfloat16, int8_t, 128>(a, page_size, w, c, stream);
   return cudaErrorInvalidValue;
 }
@@ -54,7 +55,8 @@ extern "C" int paged_prefill_attention_int8(
                static_cast<const int*>(start), out, batch, chunk, heads,
                kv_heads, pages_per_row, window, sm_scale, softcap};
   const int w = has_window, c = has_softcap;
-  if (dtype == 1 && head_dim == 128) return launch_prefill_tensor_cores<int8_t>(a, num_pages, page_size, w, c, stream);
+  if (dtype == 1 && head_dim == 64) return launch_prefill_tensor_cores<int8_t, 64>(a, num_pages, page_size, w, c, stream);
+  if (dtype == 1 && head_dim == 128) return launch_prefill_tensor_cores<int8_t, 128>(a, num_pages, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 16) return launch_prefill_cuda_cores<float, int8_t, 16>(a, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 64) return launch_prefill_cuda_cores<float, int8_t, 64>(a, page_size, w, c, stream);
   if (dtype == 0 && head_dim == 128) return launch_prefill_cuda_cores<float, int8_t, 128>(a, page_size, w, c, stream);

@@ -1,9 +1,10 @@
 // Chunked prefill attention over a paged KV cache on Hopper's tensor cores:
 // B2 (bf16 pages, paged_attention.cu) and B4 (int8 pages with f32
 // per-token-row scales, paged_attention_int8.cu) for a bf16 query at
-// head_dim 128. The C entry points route bf16 at head_dim 128 here and fp32
-// or head_dim 16 to paged_attention.cuh's CUDA-core body (wgmma has no fp32
-// mode but TF32, which would break the fp32 1e-4 tolerance).
+// head_dim HD = 64 or 128 (a template parameter). The C entry points route
+// bf16 at head_dim 64 and 128 here and fp32 or head_dim 16 to
+// paged_attention.cuh's CUDA-core body (wgmma has no fp32 mode but TF32,
+// which would break the fp32 1e-4 tolerance).
 //
 // Replaces the Pallas TPU kernels
 //   src/repro/kernels/prefill_attention.py:paged_prefill_attention      (B2)
@@ -27,20 +28,22 @@
 //     warp;
 //   - the producer reads block_tables[b] and keeps key tiles of 64 keys in
 //     flight, kStages ahead: each page of a tile is one TMA box of a 4-D map
-//     of the pool [P, PS, KH, 128] (dims HD, KH, PS, P): (64, 1, PS, 1) per
-//     64-wide head_dim half for bf16, landing as PS rows of 128 bytes in the
-//     128-byte swizzle, so 64 / PS boxes stack into the [64 keys][64] halves
-//     wgmma reads (K-major for S = Q K^T, MN-major for P V); (128, 1, PS, 1)
-//     unswizzled for int8. Full (bytes) and empty (consumer) mbarriers guard
-//     each stage. Pages of an edge tile outside [p_lo, p_hi] re-read a page
-//     inside it (finite data, L2-hot) and are masked;
+//     of the pool [P, PS, KH, HD] (dims HD, KH, PS, P): (64, 1, PS, 1) per
+//     64-wide head_dim half for bf16 (two halves at 128, one at 64), landing
+//     as PS rows of 128 bytes in the 128-byte swizzle, so 64 / PS boxes
+//     stack into the [64 keys][64] halves wgmma reads (K-major for
+//     S = Q K^T, MN-major for P V); (HD, 1, PS, 1) unswizzled for int8.
+//     Full (bytes) and empty (consumer) mbarriers guard each stage. Pages
+//     of an edge tile outside [p_lo, p_hi] re-read a page inside it
+//     (finite data, L2-hot) and are masked;
 //   - Q is loaded once: by TMA when G divides 64 (a box (64, G, 64 / G, 1)
-//     of q [B, C, H, 128] lands in packed-row order), else by the consumers
-//     with 16-byte loads into the same swizzled layout (G = 5);
-//   - S = Q K^T by wgmma m64n64k16 from shared memory, the online softmax in
-//     registers (ex2.approx of logits scaled by log2 e, tanh.approx.f32 for
-//     the softcap with its reciprocal hoisted), P rounded to bf16 in
-//     registers as the A operand of O += P V (wgmma m64n128k16, V MN-major),
+//     of q [B, C, H, HD] per half lands in packed-row order), else by the
+//     consumers with 16-byte loads into the same swizzled layout (G = 5);
+//   - S = Q K^T by wgmma m64n64k16 from shared memory (HD / 16 k-steps),
+//     the online softmax in registers (ex2.approx of logits scaled by
+//     log2 e, tanh.approx.f32 for the softcap with its reciprocal hoisted),
+//     P rounded to bf16 in registers as the A operand of O += P V (wgmma
+//     m64nHDk16: n128 at 128, n64 at 64; V MN-major),
 //     O and (m, l) in fp32 registers, NEG_INF -2e38, denominator clamped at
 //     1e-37, out = O / l rounded to bf16;
 //   - key tiles past the tile's last frontier, and (window) tiles wholly
@@ -79,7 +82,6 @@ namespace paged_tc {
 using paged::kMinDenom;
 using paged::kNegInf;
 
-constexpr int kHD = 128;
 constexpr int kRows = 64;                      // packed query rows per block
 constexpr int kKeys = 64;                      // keys per tile
 constexpr int kStages = 4;                     // K/V ring depth
@@ -87,17 +89,20 @@ constexpr int kConsumers = 128;                // one warpgroup
 constexpr int kThreads = kConsumers + 32;      // + the producer warp
 constexpr int kQHalf = kRows * 128;            // [64 rows][64] bf16: 8 KB
 constexpr int kKvHalf = kKeys * 128;           // [64 keys][64] bf16: 8 KB
-constexpr int kBf16Tile = 2 * kKvHalf;         // [64 keys][128] bf16: 16 KB
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr uint32_t kConsumerBar = 1;           // named barrier of the consumers
 
-// Byte offsets in dynamic shared memory (from a 1024-aligned base).
-template <typename P>
+// Byte offsets in dynamic shared memory (from a 1024-aligned base) for
+// pages of type P at head_dim HD (HD / 64 swizzled halves a bf16 tile).
+template <typename P, int HD>
 struct Layout {
+  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
   static constexpr bool kQuant = std::is_same<P, int8_t>::value;
-  static constexpr int kTile = kKeys * kHD * static_cast<int>(sizeof(P));
+  static constexpr int kHalves = HD / 64;
+  static constexpr int kTile = kKeys * HD * static_cast<int>(sizeof(P));
+  static constexpr int kBf16Tile = kHalves * kKvHalf;  // [64 keys][HD] bf16
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + 2 * kQHalf;        // K stages
+  static constexpr int kK = kQ + kHalves * kQHalf;  // K stages
   static constexpr int kV = kK + kStages * kTile;   // V stages
   static constexpr int kWide = kV + kStages * kTile;  // int8: bf16 K, V
   static constexpr int kScales = kWide + (kQuant ? 2 * kBf16Tile : 0);
@@ -109,7 +114,7 @@ struct Layout {
 };
 
 struct TcArgs {
-  const __nv_bfloat16* q;  // [B, C, H, 128] (the consumers' loads of Q)
+  const __nv_bfloat16* q;  // [B, C, H, HD] (the consumers' loads of Q)
   const float* k_scale;    // [P, PS] (int8 pages only)
   const float* v_scale;
   const int* block_tables;
@@ -119,15 +124,16 @@ struct TcArgs {
   float sm_scale, softcap;
 };
 
-// int8 [64 keys][128] (unswizzled) -> bf16 [2 halves][64 keys][64] in the
-// 128-byte swizzle, by the 128 consumer threads: 8 bytes in, 16 out each.
+// int8 [64 keys][HD] (unswizzled) -> bf16 [HD / 64 halves][64 keys][64] in
+// the 128-byte swizzle, by the 128 consumer threads: 8 bytes in, 16 out each.
+template <int HD>
 __device__ __forceinline__ void widen(const uint8_t* src, uint8_t* dst) {
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int j = 0; j < kKeys * kHD / 8 / kConsumers; ++j) {
+  for (int j = 0; j < kKeys * HD / 8 / kConsumers; ++j) {
     const int i = tid + j * kConsumers;  // 8-byte chunk of the tile
-    const int row = i / 16, c16 = i % 16;
-    const uint2 w = *reinterpret_cast<const uint2*>(src + row * 128 + c16 * 8);
+    const int row = i / (HD / 8), c16 = i % (HD / 8);
+    const uint2 w = *reinterpret_cast<const uint2*>(src + row * HD + c16 * 8);
     const int8_t* v = reinterpret_cast<const int8_t*>(&w);
     uint4 o;
     o.x = flash_tc::pack_bf16(static_cast<float>(v[0]), static_cast<float>(v[1]));
@@ -139,15 +145,19 @@ __device__ __forceinline__ void widen(const uint8_t* src, uint8_t* dst) {
   }
 }
 
-template <typename P, int PS, bool WINDOW, bool SOFTCAP>
+template <typename P, int HD, int PS, bool WINDOW, bool SOFTCAP>
 __global__ void __launch_bounds__(kThreads, 1)
     paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             const TcArgs a, const int q_by_tma) {
   using namespace flash_tc;
-  using L = Layout<P>;
+  using L = Layout<P, HD>;
   constexpr bool kQuant = L::kQuant;
+  constexpr int kHalves = L::kHalves;
+  constexpr int kBf16Tile = L::kBf16Tile;
+  // a page's rows in a tile: 128-byte half rows (bf16), HD-byte rows (int8)
+  constexpr int kRowBytes = kQuant ? HD : 128;
   constexpr int kPages = kKeys / PS;  // pages per key tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -192,9 +202,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) {
       if (q_by_tma) {
         const int c0 = r_first / group;
-        mbar_expect_tx(q_full, 2 * kQHalf);
-        tma_load_4d(s_q, &tq, q_full, 0, kh * group, c0, b);
-        tma_load_4d(s_q + kQHalf, &tq, q_full, 64, kh * group, c0, b);
+        mbar_expect_tx(q_full, kHalves * kQHalf);
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf)
+          tma_load_4d(s_q + hf * kQHalf, &tq, q_full, 64 * hf, kh * group, c0,
+                      b);
       }
       const int* table = a.block_tables + static_cast<size_t>(b) * a.pages_per_row;
       for (int j = 0; j < n_tiles; ++j) {
@@ -209,14 +221,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_expect_tx(k_full(s), L::kTile + (kQuant ? 2 * kKeys * 4 : 0));
 #pragma unroll
         for (int i = 0; i < kPages; ++i) {
-          tma_load_4d(kd + i * PS * 128, &tk, k_full(s), 0, kh, 0, page[i]);
+          tma_load_4d(kd + i * PS * kRowBytes, &tk, k_full(s), 0, kh, 0,
+                      page[i]);
           if constexpr (kQuant) {
             const uint32_t sd = smem_addr(scales + s * 2 * kKeys + i * PS);
             bulk_load(sd, a.k_scale + static_cast<size_t>(page[i]) * PS,
                       PS * 4, k_full(s));
             bulk_load(sd + kKeys * 4, a.v_scale + static_cast<size_t>(page[i]) * PS,
                       PS * 4, k_full(s));
-          } else {
+          } else if constexpr (kHalves == 2) {
             tma_load_4d(kd + kKvHalf + i * PS * 128, &tk, k_full(s), 64, kh,
                         0, page[i]);
           }
@@ -224,8 +237,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_expect_tx(v_full(s), L::kTile);
 #pragma unroll
         for (int i = 0; i < kPages; ++i) {
-          tma_load_4d(vd + i * PS * 128, &tv, v_full(s), 0, kh, 0, page[i]);
-          if constexpr (!kQuant)
+          tma_load_4d(vd + i * PS * kRowBytes, &tv, v_full(s), 0, kh, 0,
+                      page[i]);
+          if constexpr (!kQuant && kHalves == 2)
             tma_load_4d(vd + kKvHalf + i * PS * 128, &tv, v_full(s), 64, kh,
                         0, page[i]);
         }
@@ -241,13 +255,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int qi0 = st + R0 / group, qi1 = st + R1 / group;
   if (!q_by_tma) {
     // 16-byte loads of q rows into the swizzled layout; rows past C*G zero
-    for (int i = threadIdx.x; i < kRows * 16; i += kConsumers) {
-      const int r = i / 16, c16 = i % 16, R = r_first + r;
+    for (int i = threadIdx.x; i < kRows * HD / 8; i += kConsumers) {
+      const int r = i / (HD / 8), c16 = i % (HD / 8), R = r_first + r;
       uint4 val = make_uint4(0, 0, 0, 0);
       if (R < rows) {
         const size_t row = (static_cast<size_t>(b) * a.chunk + R / group) *
                                a.heads + kh * group + R % group;
-        val = *reinterpret_cast<const uint4*>(a.q + row * kHD + c16 * 8);
+        val = *reinterpret_cast<const uint4*>(a.q + row * HD + c16 * 8);
       }
       *reinterpret_cast<uint4*>(smem + L::kQ + (c16 / 8) * kQHalf + r * 128 +
                                 (((c16 % 8) ^ (r % 8)) << 4)) = val;
@@ -258,9 +272,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(q_full, 0);
   }
 
-  float o[64];
+  // O: columns 8 i + 2 t (+1) of rows R0 (o[4 i], o[4 i + 1]) and R1
+  float o[HD / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   float sc[32];
   uint32_t pa[16];
@@ -279,17 +294,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     mbar_wait(k_full(s), phase);
     if constexpr (kQuant) {
-      widen(smem + L::kK + s * L::kTile, smem + L::kWide);
+      widen<HD>(smem + L::kK + s * L::kTile, smem + L::kWide);
       fence_proxy_async();
       named_sync(kConsumerBar, kConsumers);
       kt = base + L::kWide;
       vt = base + L::kWide + kBf16Tile;
     }
-    // S = Q K^T: 8 k-steps of 16 over head_dim, 4 in each 64-wide half
+    // S = Q K^T: HD / 16 k-steps of 16 over head_dim, 4 in each 64-wide half
     fence_operands(sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < HD / 16; ++kk) {
       wgmma_ss(sc, sw128_desc(s_q + (kk / 4) * kQHalf + (kk % 4) * 32, 16, 1024),
                sw128_desc(kt + (kk / 4) * kKvHalf + (kk % 4) * 32, 16, 1024),
                kk > 0);
@@ -383,7 +398,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     l1 = l1 * c1 + sum1;
     const float oc0 = c0 * rs0, oc1 = c1 * rs1;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < HD / 8; ++i) {
       o[4 * i] *= oc0;
       o[4 * i + 1] *= oc0;
       o[4 * i + 2] *= oc1;
@@ -393,7 +408,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // O += P V: 4 k-steps of 16 keys; P's k-step kk is pa[4 kk .. 4 kk + 3]
     mbar_wait(v_full(s), phase);
     if constexpr (kQuant) {
-      widen(smem + L::kV + s * L::kTile, smem + L::kWide + kBf16Tile);
+      widen<HD>(smem + L::kV + s * L::kTile, smem + L::kWide + kBf16Tile);
       fence_proxy_async();
       named_sync(kConsumerBar, kConsumers);
       if (lane == 0) mbar_arrive(empty(s));  // tiles and scales consumed
@@ -411,7 +426,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_operands(o);
     if constexpr (kQuant) {  // back to O's units: times S of each row
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < HD / 8; ++i) {
         o[4 * i] *= lead0;
         o[4 * i + 1] *= lead0;
         o[4 * i + 2] *= lead1;
@@ -436,31 +451,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int R = out_rows[h];
     if (R >= rows) continue;  // past the chunk: computed, never stored
     __nv_bfloat16* dst = a.out + ((static_cast<size_t>(b) * a.chunk + R / group) *
-                                      a.heads + kh * group + R % group) * kHD;
+                                      a.heads + kh * group + R % group) * HD;
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < HD / 8; ++i)
       *reinterpret_cast<uint32_t*>(dst + 8 * i + 2 * t) =
           pack_bf16(o[4 * i + 2 * h] * inv[h], o[4 * i + 2 * h + 1] * inv[h]);
   }
 }
 
 // ------------------------------------------------------------------ host
-// A 4-D map (HD, KH, PS, P) of a [P, PS, KH, 128] page pool: bf16 boxes of
-// [PS rows][64] in the 128-byte swizzle, int8 boxes of [PS rows][128]
+// A 4-D map (HD, KH, PS, P) of a [P, PS, KH, HD] page pool: bf16 boxes of
+// [PS rows][64] in the 128-byte swizzle, int8 boxes of [PS rows][HD]
 // unswizzled. Pages past P arrive as zeros.
-template <typename P>
+template <typename P, int HD>
 bool encode_pool_map(CUtensorMap* map, const void* pool, int pages, int ps,
                      int kv_heads) {
   const flash_tc::EncodeTiled encode = flash_tc::encoder();
   if (encode == nullptr) return false;
   constexpr bool kQuant = std::is_same<P, int8_t>::value;
   const cuuint64_t e = sizeof(P);
-  const cuuint64_t dims[4] = {kHD, static_cast<cuuint64_t>(kv_heads),
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(kv_heads),
                               static_cast<cuuint64_t>(ps),
                               static_cast<cuuint64_t>(pages)};
-  const cuuint64_t strides[3] = {kHD * e, kv_heads * kHD * e,
-                                 static_cast<cuuint64_t>(ps) * kv_heads * kHD * e};
-  const cuuint32_t box[4] = {kQuant ? 128u : 64u, 1, static_cast<cuuint32_t>(ps), 1};
+  const cuuint64_t strides[3] = {HD * e, kv_heads * HD * e,
+                                 static_cast<cuuint64_t>(ps) * kv_heads * HD * e};
+  const cuuint32_t box[4] = {kQuant ? static_cast<cuuint32_t>(HD) : 64u, 1,
+                             static_cast<cuuint32_t>(ps), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -471,9 +487,10 @@ bool encode_pool_map(CUtensorMap* map, const void* pool, int pages, int ps,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A pool's map, encoded once per (pointer, shape): the serving loop calls
-// every layer's pools again each step, and its host time is what shows.
-template <typename P>
+// A pool's map, encoded once per (pointer, shape) in each (P, HD)'s own
+// cache: the serving loop calls every layer's pools again each step, and its
+// host time is what shows.
+template <typename P, int HD>
 bool pool_map(CUtensorMap* map, const void* pool, int pages, int ps,
               int kv_heads) {
   struct Key {
@@ -500,23 +517,25 @@ bool pool_map(CUtensorMap* map, const void* pool, int pages, int ps,
     *map = it->second;
     return true;
   }
-  if (!encode_pool_map<P>(map, pool, pages, ps, kv_heads)) return false;
+  if (!encode_pool_map<P, HD>(map, pool, pages, ps, kv_heads)) return false;
   if (cache.size() >= 4096) cache.clear();  // bound a long-lived process
   cache.emplace(key, *map);
   return true;
 }
 
-// q [B, C, H, 128] bf16 as (HD, H, C, B) in boxes (64, G, 64 / G, 1): one
-// box is 64 packed rows of a kv head in order, chunk tokens past C zero.
-inline bool q_map(CUtensorMap* map, const void* q, int batch, int chunk,
-                  int heads, int group) {
+// q [B, C, H, HD] bf16 as (HD, H, C, B) in boxes (64, G, 64 / G, 1): one
+// box is 64 packed rows of a kv head in order (one head_dim half), chunk
+// tokens past C zero.
+template <int HD>
+bool q_map(CUtensorMap* map, const void* q, int batch, int chunk, int heads,
+           int group) {
   const flash_tc::EncodeTiled encode = flash_tc::encoder();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {kHD, static_cast<cuuint64_t>(heads),
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(chunk),
                               static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {kHD * 2, static_cast<cuuint64_t>(heads) * kHD * 2,
-                                 static_cast<cuuint64_t>(chunk) * heads * kHD * 2};
+  const cuuint64_t strides[3] = {HD * 2, static_cast<cuuint64_t>(heads) * HD * 2,
+                                 static_cast<cuuint64_t>(chunk) * heads * HD * 2};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(group),
                              static_cast<cuuint32_t>(kRows / group), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
@@ -533,29 +552,30 @@ struct TcLaunch {
   cudaStream_t stream;
 };
 
-template <typename P, int PS, bool WINDOW, bool SOFTCAP>
+template <typename P, int HD, int PS, bool WINDOW, bool SOFTCAP>
 cudaError_t run(const TcLaunch& l) {
-  constexpr int kBytes = Layout<P>::kBytes;
+  constexpr int kBytes = Layout<P, HD>::kBytes;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      paged_prefill_tc_kernel<P, PS, WINDOW, SOFTCAP>,
+      paged_prefill_tc_kernel<P, HD, PS, WINDOW, SOFTCAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (opt_in != cudaSuccess) return opt_in;
   const int rows = l.a.chunk * (l.a.heads / l.a.kv_heads);
   const dim3 grid(l.batch, l.a.kv_heads, (rows + kRows - 1) / kRows);
-  paged_prefill_tc_kernel<P, PS, WINDOW, SOFTCAP>
+  paged_prefill_tc_kernel<P, HD, PS, WINDOW, SOFTCAP>
       <<<grid, kThreads, kBytes, l.stream>>>(l.q, l.k, l.v, l.a, l.q_by_tma);
   return cudaGetLastError();
 }
 
-template <typename P, int PS>
+template <typename P, int HD, int PS>
 cudaError_t by_mode(const TcLaunch& l, bool window, bool softcap) {
-  if (window) return softcap ? run<P, PS, true, true>(l) : run<P, PS, true, false>(l);
-  return softcap ? run<P, PS, false, true>(l) : run<P, PS, false, false>(l);
+  if (window)
+    return softcap ? run<P, HD, PS, true, true>(l) : run<P, HD, PS, true, false>(l);
+  return softcap ? run<P, HD, PS, false, true>(l) : run<P, HD, PS, false, false>(l);
 }
 
-// bf16 q/out at head_dim 128 over pages of type P (bf16 or int8): the
-// tensor-core body. Returns the cudaError_t of the launch.
-template <typename P>
+// bf16 q/out at head_dim HD (64 or 128) over pages of type P (bf16 or
+// int8): the tensor-core body. Returns the cudaError_t of the launch.
+template <typename P, int HD>
 cudaError_t launch_prefill_tensor_cores(const paged::Args& a, int num_pages,
                                         int page_size, int has_window,
                                         int has_softcap, void* stream) {
@@ -572,14 +592,14 @@ cudaError_t launch_prefill_tensor_cores(const paged::Args& a, int num_pages,
   l.batch = a.batch;
   l.stream = static_cast<cudaStream_t>(stream);
   l.q_by_tma = kRows % group == 0;
-  if (l.q_by_tma && !q_map(&l.q, a.q, a.batch, a.chunk, a.heads, group))
+  if (l.q_by_tma && !q_map<HD>(&l.q, a.q, a.batch, a.chunk, a.heads, group))
     return cudaErrorInvalidValue;
   if (!l.q_by_tma) l.q = CUtensorMap{};  // unused: the consumers load Q
-  if (!pool_map<P>(&l.k, a.k_pages, num_pages, page_size, a.kv_heads) ||
-      !pool_map<P>(&l.v, a.v_pages, num_pages, page_size, a.kv_heads))
+  if (!pool_map<P, HD>(&l.k, a.k_pages, num_pages, page_size, a.kv_heads) ||
+      !pool_map<P, HD>(&l.v, a.v_pages, num_pages, page_size, a.kv_heads))
     return cudaErrorInvalidValue;
   const bool w = has_window != 0, c = has_softcap != 0;
-  return page_size == 8 ? by_mode<P, 8>(l, w, c) : by_mode<P, 16>(l, w, c);
+  return page_size == 8 ? by_mode<P, HD, 8>(l, w, c) : by_mode<P, HD, 16>(l, w, c);
 }
 
 }  // namespace paged_tc

@@ -43,12 +43,12 @@ NVCC_FLAGS = (
 # Instantiated specialisations: the dispatch lines of the C entry points of
 # csrc/paged_attention.cu, paged_attention_int8.cu, decode_attention.cu and
 # flash_attention.cu, which B1-B7 all share. Head dims by the query's type:
-# fp32 runs the CUDA-core bodies at 16, 64 and 128; bf16 at 128 the
-# tensor-core bodies (B2/B4, B6/B7) and at 16 the CUDA-core ones. bf16 at 64
-# waits for the tensor-core bodies' head_dim-64 instantiations (ROADMAP B9
-# part 2) and is refused, never sent to a slow CUDA-core body.
+# fp32 runs the CUDA-core bodies at 16, 64 and 128; bf16 at 64 and 128 the
+# tensor-core bodies (B2/B4, B6/B7) and at 16 the CUDA-core ones. B1/B3/B5
+# run the cluster-split body at every pair. Any other pair is refused, never
+# sent to another body.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = {torch.float32: (16, 64, 128), torch.bfloat16: (16, 128)}
+HEAD_DIMS = {torch.float32: (16, 64, 128), torch.bfloat16: (16, 64, 128)}
 PAGE_SIZES = (8, 16)
 
 _ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -308,18 +308,13 @@ def instantiated() -> set[tuple[int, int]]:
 def check_head_dim(name: str, dtype: torch.dtype, head_dim: int) -> None:
     """Raise ``ValueError`` naming the shape where B1-B7 have no
     instantiation for queries of ``dtype`` at ``head_dim``."""
-    dims = HEAD_DIMS.get(dtype, ())
-    if head_dim in dims:
+    if head_dim in HEAD_DIMS.get(dtype, ()):
         return
-    why = ""
-    if dtype == torch.bfloat16 and head_dim in HEAD_DIMS[torch.float32]:
-        why = (" (bf16 at this head_dim needs the tensor-core bodies' "
-               "instantiations, ROADMAP B9 part 2)")
     raise ValueError(
         f"{name}: no kernel instantiated for {dtype} at head_dim={head_dim} "
         f"(instantiated: "
         + ", ".join(f"{dt} head_dim {hd}" for dt, hd in HEAD_DIMS.items())
-        + f"){why}"
+        + ")"
     )
 
 

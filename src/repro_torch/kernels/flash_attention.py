@@ -10,8 +10,8 @@ indices from 0, as in the Pallas kernels and ``ref.py:attention_ref``.
 
 On the card (``csrc/flash_attention.cu``) one block serves one (row, query
 head, tile of queries) and walks the key tiles itself: in bf16 at head_dim
-128 on tensor cores (wgmma over 128-query, 128-key tiles that TMA loads into
-a shared-memory ring), in fp32 or at head_dim 16 on CUDA cores (16 x 16
+64 or 128 on tensor cores (wgmma over 128-query, 128-key tiles that TMA loads
+into a shared-memory ring), in fp32 or at head_dim 16 on CUDA cores (16 x 16
 tiles; wgmma has no fp32 mode but TF32). B6 bakes causal,
 window and softcap into the compiled kernel and never loads a key tile the
 mask removes whole; B7 reads ``flags = (causal, window|0, softcap|0)`` (an
@@ -37,8 +37,8 @@ import torch
 from . import build
 from .decode_attention import NEG_INF
 
-# bf16 at this head_dim takes the tensor-core body; the rest CUDA cores
-TENSOR_CORE_HEAD_DIM = 128
+# bf16 at these head dims takes the tensor-core body; the rest CUDA cores
+TENSOR_CORE_HEAD_DIMS = frozenset({64, 128})
 
 
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -47,19 +47,21 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
 
 
 def _check_tensor_core_views(name: str, q, k, v) -> None:
-    """bf16 at head_dim 128 runs on tensor cores, whose tiles TMA loads:
-    every base must be 16-byte aligned and every batch, head and sequence
-    stride a multiple of 16 bytes (8 elements); raise on a view that is
-    not."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] != TENSOR_CORE_HEAD_DIM:
+    """bf16 at head_dim 64 or 128 runs on tensor cores, whose tiles TMA
+    loads: every base must be 16-byte aligned and every batch, head and
+    sequence stride a multiple of 16 bytes (8 elements); raise on a view
+    that is not."""
+    if (q.dtype != torch.bfloat16
+            or q.shape[-1] not in TENSOR_CORE_HEAD_DIMS):
         return
     for label, t in zip("qkv", (q, k, v)):
         if t.data_ptr() % 16 or any(s % 8 for s in _strides(t)):
             raise ValueError(
                 f"{name}: {label} cannot be loaded by TMA (base address "
                 f"{t.data_ptr() % 16} bytes past 16-byte alignment, strides "
-                f"{_strides(t)}); bf16 head_dim-128 views need 16-byte "
-                f"aligned bases and strides in multiples of 8 elements"
+                f"{_strides(t)}); bf16 head_dim-{q.shape[-1]} views need "
+                f"16-byte aligned bases and strides in multiples of 8 "
+                f"elements"
             )
 
 

@@ -20,7 +20,7 @@ row's pages up to the tile's last causal frontier (the block table is
 to the prompt) and, in window mode, from its first row's window. Two bodies,
 chosen in the C entry points by dtype and head_dim:
 
-- bf16 at head_dim 128 on tensor cores (``csrc/paged_prefill_tc.cuh``):
+- bf16 at head_dim 64 or 128 on tensor cores (``csrc/paged_prefill_tc.cuh``):
   tiles of 64 packed rows; a producer warp brings 64-key tiles of pages in
   through the block table by TMA (one box per page) into a multi-stage
   mbarrier ring; ``S = Q Kᵀ`` and ``O += P V`` run on ``wgmma`` with the
@@ -49,25 +49,26 @@ import torch
 
 from . import build
 from .decode_attention import gather_pages
-from .flash_attention import TENSOR_CORE_HEAD_DIM
+from .flash_attention import TENSOR_CORE_HEAD_DIMS
 
 NEG_INF = -2.0e38
 
 
 def _check_tma_operands(name: str, q, *tensors) -> None:
-    """bf16 at head_dim 128 runs on tensor cores, which load q, the pools
-    and the scales by TMA and bulk copies: every base must be 16-byte
-    aligned (the operands are contiguous, so at head_dim 128 every stride
-    is a multiple of 16 bytes); raise on a tensor that is not."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] != TENSOR_CORE_HEAD_DIM:
+    """bf16 at head_dim 64 or 128 runs on tensor cores, which load q, the
+    pools and the scales by TMA and bulk copies: every base must be 16-byte
+    aligned (the operands are contiguous, so at these head dims every
+    stride is a multiple of 16 bytes); raise on a tensor that is not."""
+    if (q.dtype != torch.bfloat16
+            or q.shape[-1] not in TENSOR_CORE_HEAD_DIMS):
         return
     for t in (q, *tensors):
         if t.data_ptr() % 16:
             raise ValueError(
                 f"{name}: a {tuple(t.shape)} {t.dtype} operand cannot be "
                 f"loaded by TMA (base address {t.data_ptr() % 16} bytes past "
-                f"16-byte alignment); bf16 head_dim-128 calls need 16-byte "
-                f"aligned q, pages and scales"
+                f"16-byte alignment); bf16 head_dim-{q.shape[-1]} calls need "
+                f"16-byte aligned q, pages and scales"
             )
 
 

@@ -1,7 +1,7 @@
-"""Model code of the port: the dense LM family's and the Mamba-2 (SSM)
-family's full-sequence forward and prefill, the dense family's paged serving
-path, and the dense-cache decode (burst engine, dense continuous engine and
-speculative draft; an SSM slot's recurrent state)."""
+"""Model code of the port: the dense and MoE LM families' and the Mamba-2
+(SSM) family's full-sequence forward and prefill, the attention families'
+paged serving path, and the dense-cache decode (burst engine, dense
+continuous engine and speculative draft; an SSM slot's recurrent state)."""
 
 from .attention import (
     ATTN_IMPLS,
@@ -32,6 +32,7 @@ from .model import (
     pad_cache,
     prefill,
 )
+from .moe import POLICIES as MOE_POLICIES
 from .ssm import init_ssm_cache, ssd_scan, ssm_apply, ssm_decode_step
 
 __all__ = [
@@ -39,6 +40,7 @@ __all__ = [
     "FULL_IMPLS",
     "KV_QUANT_MAX",
     "KV_SCALE_EPS",
+    "MOE_POLICIES",
     "check_paged",
     "chunked_decode_step",
     "chunked_verify_step",

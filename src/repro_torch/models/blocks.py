@@ -1,7 +1,9 @@
-"""Attention/Mamba2 + MLP blocks: full sequence, through the paged KV cache,
-and through the dense cache (counterpart of ``repro.models.blocks``). Mamba
-slots serve the full-sequence path and the dense (recurrent-state) decode;
-the paged and chunk entry points are attention-only."""
+"""Attention/Mamba2 + MLP/MoE blocks: full sequence, through the paged KV
+cache, and through the dense cache (counterpart of ``repro.models.blocks``).
+Mamba slots serve the full-sequence path and the dense (recurrent-state)
+decode; the paged and chunk entry points are attention-only. A MoE slot's
+dispatch policy (``moe_policy``: "drop", "dense" or "gather",
+``models.moe``) is threaded through every variant, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from repro_torch.configs import ArchConfig
 
 from . import attention as attn
 from . import mlp as mlp_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import norm_apply
 
@@ -48,16 +51,21 @@ def _scale(p: dict, norm: str) -> torch.Tensor | None:
 
 
 def _block_tail(
-    cfg: ArchConfig, slot: int, p: dict, x: torch.Tensor
-) -> torch.Tensor:
-    """Residual MLP tail (MoE slots are ported with granite-moe)."""
+    cfg: ArchConfig, slot: int, p: dict, x: torch.Tensor, *, moe_policy: str,
+    with_aux: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Residual MLP/MoE tail shared by every block variant. Returns (x,
+    moe_aux): with ``with_aux`` the aux term of a MoE slot, else (and for
+    the other slots) None."""
     mlp = cfg.mlp_at(slot)
     if mlp == "none":
-        return x
-    if mlp != "mlp":
-        raise ValueError(f"{cfg.name}: slot {slot} mlp {mlp!r} is not ported")
+        return x, None
     h = norm_apply(cfg, _scale(p, "norm2"), x)
-    return x + mlp_mod.mlp_apply(cfg, p["mlp"], h)
+    if mlp == "mlp":
+        return x + mlp_mod.mlp_apply(cfg, p["mlp"], h), None
+    h, aux = moe_mod.moe_apply(cfg, p["moe"], h, policy=moe_policy,
+                               with_aux=with_aux)
+    return x + h, aux
 
 
 def block_apply(
@@ -68,9 +76,11 @@ def block_apply(
     positions: torch.Tensor,
     *,
     impl: str = "kernel",
-) -> torch.Tensor:
+    moe_policy: str = "drop",
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Full-sequence block (``forward``); ``impl`` picks the attention, or
-    for a mamba slot the SSD scan (``"kernel"`` B8, else ``ssd_scan``)."""
+    for a mamba slot the SSD scan (``"kernel"`` B8, else ``ssd_scan``).
+    Returns (x, moe_aux), the aux None off a MoE slot."""
     h = norm_apply(cfg, _scale(p, "norm1"), x)
     if _is_ssm(cfg, slot):
         h, _ = ssm_mod.ssm_apply(cfg, p["ssm"], h, impl=impl)
@@ -79,7 +89,8 @@ def block_apply(
             cfg, p["attn"], h, positions,
             local=_is_local(cfg, slot), impl=impl,
         )
-    return _block_tail(cfg, slot, p, x + h)
+    return _block_tail(cfg, slot, p, x + h, moe_policy=moe_policy,
+                       with_aux=True)
 
 
 def block_prefill(
@@ -90,6 +101,7 @@ def block_prefill(
     positions: torch.Tensor,
     *,
     impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, dict]:
     """Full-sequence block that also emits this slot's cache entry (a
     mamba slot's ``{conv, state}``)."""
@@ -103,7 +115,8 @@ def block_prefill(
             cfg, p["attn"], h, positions,
             local=_is_local(cfg, slot), impl=impl,
         )
-    return _block_tail(cfg, slot, p, x + h), cache
+    x, _ = _block_tail(cfg, slot, p, x + h, moe_policy=moe_policy)
+    return x, cache
 
 
 def block_paged_decode(
@@ -116,6 +129,7 @@ def block_paged_decode(
     block_tables: torch.Tensor,
     *,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, dict]:
     """Single-token block step through the paged KV cache (DESIGN.md §9)."""
     local = _mixer(
@@ -127,7 +141,8 @@ def block_paged_decode(
         cfg, p["attn"], h, cache, pos, block_tables,
         local=local, attn_impl=attn_impl,
     )
-    return _block_tail(cfg, slot, p, x + h), cache
+    x, _ = _block_tail(cfg, slot, p, x + h, moe_policy=moe_policy)
+    return x, cache
 
 
 def block_paged_prefill(
@@ -141,6 +156,7 @@ def block_paged_prefill(
     length: torch.Tensor,
     *,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, dict]:
     """Chunked-prefill block step through the paged KV cache (DESIGN.md §10)."""
     local = _mixer(
@@ -152,7 +168,8 @@ def block_paged_prefill(
         cfg, p["attn"], h, cache, start, block_tables, length,
         local=local, attn_impl=attn_impl,
     )
-    return _block_tail(cfg, slot, p, x + h), cache
+    x, _ = _block_tail(cfg, slot, p, x + h, moe_policy=moe_policy)
+    return x, cache
 
 
 # ------------------------------------------------- the dense per-slot cache
@@ -185,6 +202,7 @@ def block_decode(
     pos: torch.Tensor,
     *,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, dict]:
     """Single-token block step into the dense cache at a scalar position
     (the burst engine) or per-row positions (the ``cb`` and ``dr`` lanes);
@@ -197,7 +215,8 @@ def block_decode(
             cfg, p["attn"], h, cache, pos,
             local=_is_local(cfg, slot), attn_impl=attn_impl,
         )
-    return _block_tail(cfg, slot, p, x + h), cache
+    x, _ = _block_tail(cfg, slot, p, x + h, moe_policy=moe_policy)
+    return x, cache
 
 
 def block_chunk_decode(
@@ -210,6 +229,7 @@ def block_chunk_decode(
     length: torch.Tensor,
     *,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, dict]:
     """Chunk-of-C-tokens block step into the dense cache (DESIGN.md §10)."""
     local = _mixer(
@@ -222,4 +242,5 @@ def block_chunk_decode(
         cfg, p["attn"], h, cache, start, length, local=local,
         attn_impl=attn_impl,
     )
-    return _block_tail(cfg, slot, p, x + h), cache
+    x, _ = _block_tail(cfg, slot, p, x + h, moe_policy=moe_policy)
+    return x, cache

@@ -9,6 +9,8 @@ Params are a flat ``dict[str, Tensor]`` keyed by the JAX pytree's paths::
     "final_norm.scale"           [D]         (rmsnorm only)
     "blocks.{slot}.attn.wq"      [m, D, H, dh]   ... stacked [m, ...] per
     "blocks.{slot}.mlp.w_gate"   [m, D, F]       period slot, as in JAX
+    "blocks.{slot}.moe.router"   [m, D, E]       (float32 in any model dtype)
+    "blocks.{slot}.moe.w_gate"   [m, E, D, F]
 
 Caches mirror the blocks: per period slot, one dict of ``[m, P, page_size,
 KH, dh]`` pages (plus ``[m, P, page_size]`` scales for int8 pages), or, for
@@ -53,7 +55,9 @@ def init_params(
     (``dense_init``: normal / sqrt(fan_in) with fan_in the per-layer shape's
     first axis; embeddings normal * 0.02; norm weights zero; a mamba
     slot's conv normal * 0.1, ``A_log``/``dt_bias`` float32 zeros and ``D``
-    float32 ones, as ``ssm_init``). Drawn from a ``torch.Generator`` on
+    float32 ones, as ``ssm_init``; a MoE slot's router float32 with std
+    1/sqrt(D) and its experts ``[E, D, F]`` / ``[E, F, D]`` std 1/sqrt(E),
+    as ``moe_init``). Drawn from a ``torch.Generator`` on
     ``device``, so the values differ from JAX's: in f32 slabs of at most
     ``_DRAW_ELEMS`` along the first axis (a layer of a stacked tensor at a
     time), each scaled and cast into the model-dtype tensor, so the peak
@@ -69,8 +73,9 @@ def init_params(
         cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     )
 
-    def normal(shape: tuple, std: float) -> torch.Tensor:
-        out = torch.empty(shape, dtype=dt, device=device)
+    def normal(shape: tuple, std: float, dtype: torch.dtype = dt
+               ) -> torch.Tensor:
+        out = torch.empty(shape, dtype=dtype, device=device)
         rows = out.view(shape[0], -1)
         step = max(1, _DRAW_ELEMS // max(rows.shape[1], 1))
         for i in range(0, shape[0], step):
@@ -79,8 +84,8 @@ def init_params(
                                    dtype=torch.float32).mul_(std))
         return out
 
-    def dense(*shape: int) -> torch.Tensor:  # stacked [m, *shape]
-        return normal((m, *shape), shape[0] ** -0.5)
+    def dense(*shape: int, dtype: torch.dtype = dt) -> torch.Tensor:
+        return normal((m, *shape), shape[0] ** -0.5, dtype)  # stacked [m, ...]
 
     def zeros(*shape: int, dtype: torch.dtype = dt) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -92,11 +97,6 @@ def init_params(
     if rms:
         params["final_norm.scale"] = zeros(d)
     for slot in range(cfg.period):
-        if cfg.mlp_at(slot) not in ("mlp", "none"):
-            raise ValueError(
-                f"{cfg.name}: slot {slot} ({cfg.mixer_at(slot)}, "
-                f"{cfg.mlp_at(slot)}) is not ported"
-            )
         pre = f"blocks.{slot}."
         if rms:
             params[pre + "norm1.scale"] = zeros(m, d)
@@ -130,6 +130,14 @@ def init_params(
             params[pre + "mlp.w_gate"] = dense(d, f)
             params[pre + "mlp.w_up"] = dense(d, f)
             params[pre + "mlp.w_down"] = dense(f, d)
+        elif cfg.mlp_at(slot) == "moe":
+            e, ef = cfg.num_experts, cfg.expert_d_ff or cfg.d_ff
+            if rms:
+                params[pre + "norm2.scale"] = zeros(m, d)
+            params[pre + "moe.router"] = dense(d, e, dtype=torch.float32)
+            params[pre + "moe.w_gate"] = dense(e, d, ef)
+            params[pre + "moe.w_up"] = dense(e, d, ef)
+            params[pre + "moe.w_down"] = dense(e, ef, d)
     return params
 
 
@@ -219,23 +227,27 @@ def forward(
     inputs: torch.Tensor,
     *,
     impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """inputs: i32[B,S] tokens. Returns (logits [B,S,V] float32, aux): the
     JAX package's pair, inference only (no remat, no backward); ``aux`` is
-    the MoE loss term, 0 for the ported stacks. ``impl`` picks the
+    the MoE load-balancing term summed over the MoE layers (0 without
+    them), under ``moe_policy`` (``models.moe``). ``impl`` picks the
     attention — ``"kernel"`` (B6), ``"naive"``, ``"chunked"`` or
     ``"auto"`` (``perf.current().impl``) — and the SSD scan of mamba
     slots: ``"kernel"`` (B8), else ``ssd_scan``."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     positions = _positions(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers // cfg.period):
         for slot in range(cfg.period):
-            x = block_apply(
+            x, a = block_apply(
                 cfg, slot, layer_params(params, slot, i), x, positions,
-                impl=impl,
+                impl=impl, moe_policy=moe_policy,
             )
+            if a is not None:
+                aux = aux + a
     x = _final_norm(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return head_apply(cfg, params, x), aux
 
 
@@ -245,11 +257,12 @@ def prefill(
     inputs: torch.Tensor,
     *,
     impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, list]:
     """Run the full prompt i32[B,S]; returns (last-token logits [B,V]
     float32, dense cache stacked ``[m, B, S, KH, dh]`` per period slot, or
-    ``{conv, state}`` stacked ``[m, ...]`` for a mamba slot); ``impl`` as
-    ``forward``."""
+    ``{conv, state}`` stacked ``[m, ...]`` for a mamba slot); ``impl`` and
+    ``moe_policy`` as ``forward``."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     positions = _positions(x)
     per_slot: list[list[dict]] = [[] for _ in range(cfg.period)]
@@ -257,7 +270,7 @@ def prefill(
         for slot in range(cfg.period):
             x, c = block_prefill(
                 cfg, slot, layer_params(params, slot, i), x, positions,
-                impl=impl,
+                impl=impl, moe_policy=moe_policy,
             )
             per_slot[slot].append(c)
     x = _final_norm(cfg, params, x)
@@ -291,6 +304,7 @@ def paged_decode_step(
     block_tables: torch.Tensor,
     *,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, list]:
     """One token for the whole stack through the paged KV cache.
 
@@ -300,7 +314,8 @@ def paged_decode_step(
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     for slot, p, c in _layers(cfg, params, cache):
         x, _ = block_paged_decode(
-            cfg, slot, p, x, c, pos, block_tables, attn_impl=attn_impl
+            cfg, slot, p, x, c, pos, block_tables, attn_impl=attn_impl,
+            moe_policy=moe_policy,
         )
     x = _final_norm(cfg, params, x)
     return head_apply(cfg, params, x[:, -1]), cache
@@ -323,6 +338,7 @@ def paged_prefill_step(
     length: torch.Tensor,
     *,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, list]:
     """A chunk of C prompt tokens for the whole stack (DESIGN.md §10).
 
@@ -331,7 +347,8 @@ def paged_prefill_step(
     last real chunk row [B,V] float32, cache updated in place).
     """
     x = _paged_chunk_hidden(
-        cfg, params, cache, inputs, start, block_tables, length, attn_impl
+        cfg, params, cache, inputs, start, block_tables, length, attn_impl,
+        moe_policy,
     )
     return head_apply(cfg, params, _last_real_row(x, length)), cache
 
@@ -345,6 +362,7 @@ def _paged_chunk_hidden(
     block_tables: torch.Tensor,
     length: torch.Tensor,
     attn_impl: str,
+    moe_policy: str,
 ) -> torch.Tensor:
     """The chunk tower shared by the paged prompt and verify paths: embed,
     every layer through ``block_paged_prefill``, final norm -> [B,C,D]."""
@@ -352,7 +370,7 @@ def _paged_chunk_hidden(
     for slot, p, c in _layers(cfg, params, cache):
         x, _ = block_paged_prefill(
             cfg, slot, p, x, c, start, block_tables, length,
-            attn_impl=attn_impl,
+            attn_impl=attn_impl, moe_policy=moe_policy,
         )
     return _final_norm(cfg, params, x)
 
@@ -367,6 +385,7 @@ def paged_verify_step(
     length: torch.Tensor,
     *,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, list]:
     """Verify lane (DESIGN.md §11): score all K+1 positions of a draft window
     in one pass through the paged chunk tower. Same contract as
@@ -376,7 +395,8 @@ def paged_verify_step(
     place). Row i's logits are what ``paged_decode_step`` gives after feeding
     rows 0..i one at a time, up to the order of float sums."""
     x = _paged_chunk_hidden(
-        cfg, params, cache, inputs, start, block_tables, length, attn_impl
+        cfg, params, cache, inputs, start, block_tables, length, attn_impl,
+        moe_policy,
     )
     return head_apply(cfg, params, x), cache
 
@@ -389,6 +409,7 @@ def decode_step(
     pos: torch.Tensor,
     *,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, list]:
     """One token for the whole stack through the dense per-slot cache.
 
@@ -400,7 +421,8 @@ def decode_step(
     Returns (logits [B,V] float32, cache updated in place)."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     for slot, p, c in _layers(cfg, params, cache):
-        x, _ = block_decode(cfg, slot, p, x, c, pos, attn_impl=attn_impl)
+        x, _ = block_decode(cfg, slot, p, x, c, pos, attn_impl=attn_impl,
+                            moe_policy=moe_policy)
     x = _final_norm(cfg, params, x)
     return head_apply(cfg, params, x[:, -1]), cache
 
@@ -413,12 +435,13 @@ def _dense_chunk_hidden(
     start: torch.Tensor,
     length: torch.Tensor,
     attn_impl: str,
+    moe_policy: str,
 ) -> torch.Tensor:
     """The chunk tower over the dense per-slot cache -> normed [B,C,D]."""
     x = embed_apply(cfg, params["embed.embedding"], inputs)
     for slot, p, c in _layers(cfg, params, cache):
         x, _ = block_chunk_decode(cfg, slot, p, x, c, start, length,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, moe_policy=moe_policy)
     return _final_norm(cfg, params, x)
 
 
@@ -431,6 +454,7 @@ def chunked_decode_step(
     length: torch.Tensor,
     *,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, list]:
     """A chunk of C tokens for the whole stack into the dense per-slot cache
     (the ``pfd`` lane and the draft's prompt mirror ``drp``). inputs:
@@ -438,7 +462,7 @@ def chunked_decode_step(
     over the cache's page view with ``attn_impl="kernel"``. Returns (logits
     of the last real chunk row [B,V] float32, cache updated in place)."""
     x = _dense_chunk_hidden(cfg, params, cache, inputs, start, length,
-                            attn_impl)
+                            attn_impl, moe_policy)
     return head_apply(cfg, params, _last_real_row(x, length)), cache
 
 
@@ -451,6 +475,7 @@ def chunked_verify_step(
     length: torch.Tensor,
     *,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, list]:
     """Verify lane over the dense per-slot cache (DESIGN.md §11), the
     ``vfd`` lane: score all K+1 positions of a draft window in one pass —
@@ -458,7 +483,7 @@ def chunked_verify_step(
     (logits [B,C,V] float32, cache updated in place); rows with length 0
     are idle and write nothing."""
     x = _dense_chunk_hidden(cfg, params, cache, inputs, start, length,
-                            attn_impl)
+                            attn_impl, moe_policy)
     return head_apply(cfg, params, x), cache
 
 

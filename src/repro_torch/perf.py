@@ -18,9 +18,11 @@ code reads the ambient opts, so the knobs stay out of the model signatures:
 
 ``remat_policy``, ``moe_hints``, ``moe_weight_gather`` and
 ``seq_shard_fallback`` keep their names so that ``from_flags`` takes the
-JAX package's keywords; no ported module reads them yet (training,
-mixture-of-experts and meshes are not ported), so a value other than the
-default raises ``ValueError`` rather than being ignored.
+JAX package's keywords; no ported module reads them yet (training and
+meshes are not ported; the MoE knobs act only through sharding hints, which
+change nothing without a mesh, so ``models/moe.py`` has nothing to read),
+so a value other than the default raises ``ValueError`` rather than being
+ignored.
 
 The opts are semi-static: a serving target captures ``current()`` when it
 is built (``bake``) and runs under those opts on every call, as a traced
@@ -39,8 +41,8 @@ from typing import Callable
 # fields no ported module reads yet -> the module that will (ROADMAP.md)
 UNREAD = {
     "remat_policy": "the training loss's remat (A11)",
-    "moe_hints": "models/moe.py (A10)",
-    "moe_weight_gather": "models/moe.py (A10)",
+    "moe_hints": "the mesh's expert sharding (A12)",
+    "moe_weight_gather": "the mesh's expert sharding (A12)",
     "seq_shard_fallback": "the mesh's attention sharding (A12)",
 }
 

@@ -15,8 +15,9 @@ lane, slots and ``chunk_bucket`` for its ``pfd`` prefill lane, slots and
 ``kv_dtype`` for the ``pf`` prefill lane, slots, ``k_bucket`` and
 ``kv_dtype`` for the ``vf`` verify lane, slots, ``k_bucket`` /
 ``chunk_bucket`` and ``draft_kv_dtype`` for the ``dr``/``drp`` draft lanes —
-with the attention implementation (``EngineConfig.attn_impl``) baked in when
-it is built. On the card (``EngineConfig.cuda_graphs``, on by default
+with the attention implementation (``EngineConfig.attn_impl``) and a MoE
+stack's dispatch policy (``EngineConfig.moe_policy``) baked in when it is
+built. On the card (``EngineConfig.cuda_graphs``, on by default
 there) a target is a ``core.graph_target.GraphTarget``: the step captured
 once as a CUDA graph over static input and output buffers and over the
 engine's own state — one page pool per page dtype, one dense target cache
@@ -127,6 +128,11 @@ class EngineConfig:
     # Attention implementation baked into every step (semi-static):
     # "kernel" (B1-B4; their plain versions on the CPU) or "plain".
     attn_impl: str = "kernel"
+    # MoE dispatch policy baked into every step of a MoE stack (semi-static,
+    # models.moe): "drop" (capacity-bounded), "dense" or "gather"; each
+    # policy is its own built and captured target, so switching is cold-path
+    # work (a new engine).
+    moe_policy: str = "drop"
     # Speculative decoding (DESIGN.md §11): max draft depth per target step
     # (0 disables the draft/verify lanes; per-step k comes from the
     # log-sized k-bucket set {1, 2, ..., spec_k}, each a warmed key) and the
@@ -219,6 +225,11 @@ class Engine:
             raise ValueError(
                 f"attn_impl must be one of {models.ATTN_IMPLS}, got "
                 f"{ecfg.attn_impl!r}"
+            )
+        if ecfg.moe_policy not in models.MOE_POLICIES:
+            raise ValueError(
+                f"moe_policy must be one of {models.MOE_POLICIES}, got "
+                f"{ecfg.moe_policy!r}"
             )
         self.cfg = cfg
         self.params = {k: v.to(self.device) for k, v in params.items()}
@@ -347,6 +358,7 @@ class Engine:
         step = steps_mod.make_sampling_decode_fn(
             self.cfg, mode=mode, temperature=self.ecfg.temperature,
             attn_impl=self.ecfg.attn_impl,
+            moe_policy=self.ecfg.moe_policy,
         )
         i32 = torch.int32
         return self._target(
@@ -361,7 +373,8 @@ class Engine:
         its own position, sampling params as data (DESIGN.md §4). The next
         token, positions and keys feed its next call."""
         step = steps_mod.make_slot_decode_fn(
-            self.cfg, attn_impl=self.ecfg.attn_impl
+            self.cfg, attn_impl=self.ecfg.attn_impl,
+            moe_policy=self.ecfg.moe_policy,
         )
         i32 = torch.int32
         return self._target(
@@ -379,7 +392,8 @@ class Engine:
         are a trivial identity block table, so the chunk-bucket machinery of
         the paged lane serves both engines."""
         step = steps_mod.make_slot_prefill_fn(
-            self.cfg, attn_impl=self.ecfg.attn_impl
+            self.cfg, attn_impl=self.ecfg.attn_impl,
+            moe_policy=self.ecfg.moe_policy,
         )
         return self._target(
             lanes_mod.PFD.key(slots, chunk_bucket), step,
@@ -391,7 +405,8 @@ class Engine:
         """Branch target for ``("vfd", slots, k)``: the dense verify pass
         (DESIGN.md §11), K+1 window rows through the dense chunk path."""
         step = steps_mod.make_slot_verify_fn(
-            self.cfg, attn_impl=self.ecfg.attn_impl
+            self.cfg, attn_impl=self.ecfg.attn_impl,
+            moe_policy=self.ecfg.moe_policy,
         )
         return self._target(
             lanes_mod.VFD.key(slots, k), step,
@@ -409,7 +424,8 @@ class Engine:
         (DESIGN.md §12), so model-dtype and int8 pools are two targets. The
         next token, positions and keys feed its next call."""
         step = steps_mod.make_paged_slot_decode_fn(
-            self.cfg, attn_impl=self.ecfg.attn_impl
+            self.cfg, attn_impl=self.ecfg.attn_impl,
+            moe_policy=self.ecfg.moe_policy,
         )
         i32 = torch.int32
         return self._target(
@@ -454,7 +470,8 @@ class Engine:
         batched chunked prefill (DESIGN.md §10). The chunk width is part of
         the shapes; the block table is pinned at the per-request page cap."""
         step = steps_mod.make_paged_prefill_fn(
-            self.cfg, attn_impl=self.ecfg.attn_impl
+            self.cfg, attn_impl=self.ecfg.attn_impl,
+            moe_policy=self.ecfg.moe_policy,
         )
         return self._target(
             lanes_mod.PF.key(slots, chunk_bucket, kv_dtype), step,
@@ -468,7 +485,8 @@ class Engine:
         path (DESIGN.md §11). The window width k+1 is part of the shapes;
         the block table is pinned at the per-request page cap."""
         step = steps_mod.make_paged_verify_fn(
-            self.cfg, attn_impl=self.ecfg.attn_impl
+            self.cfg, attn_impl=self.ecfg.attn_impl,
+            moe_policy=self.ecfg.moe_policy,
         )
         return self._target(
             lanes_mod.VF.key(slots, k, kv_dtype), step,
@@ -483,7 +501,8 @@ class Engine:
         its own coordinate (DESIGN.md §16). Its keys are the batcher's,
         split and discarded (``steps.make_draft_fn``)."""
         step = steps_mod.make_draft_fn(
-            self.draft_cfg, k=k, attn_impl=self.ecfg.attn_impl
+            self.draft_cfg, k=k, attn_impl=self.ecfg.attn_impl,
+            moe_policy=self.ecfg.moe_policy,
         )
         i32 = torch.int32
         return self._target(
@@ -503,7 +522,8 @@ class Engine:
         draft_kv_dtype)``: the draft's prompt mirror — chunked dense
         ingestion over the draft view, so its cache tracks the prompts."""
         step = steps_mod.make_slot_prefill_fn(
-            self.draft_cfg, attn_impl=self.ecfg.attn_impl
+            self.draft_cfg, attn_impl=self.ecfg.attn_impl,
+            moe_policy=self.ecfg.moe_policy,
         )
         return self._target(
             lanes_mod.DRP.key(slots, chunk_bucket, draft_kv_dtype), step,

@@ -3,7 +3,9 @@ lanes, the per-burst engine and full-sequence prefill (counterpart of
 ``repro.runtime.steps``).
 
 A step is a plain function over tensors; ``runtime.serve.Engine`` binds it to
-a dispatch key's static shapes. Each step ends with its *bundle*: the next
+a dispatch key's static shapes. Every builder takes the attention
+implementation and, for a MoE stack, the dispatch policy (``moe_policy``,
+``models.moe``), both baked into the step. Each step ends with its *bundle*: the next
 step's chained input and one packed int32 tensor of every host-bound output,
 so the serving loop pays exactly one device-to-host transfer per step.
 
@@ -66,14 +68,16 @@ def pack_verify_d2h(rows: torch.Tensor, nxt0: torch.Tensor,
     return torch.cat([rows, nxt0[:, None], keys], dim=1)
 
 
-def make_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel") -> Callable:
+def make_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel",
+                   moe_policy: str = "drop") -> Callable:
     """Plain decode step over the dense cache:
 
         step(params, cache, inputs[B,1], pos) -> (logits[B,V], cache)"""
 
     def serve_step(params, cache, inputs, pos):
         return models.decode_step(
-            cfg, params, cache, inputs, pos, attn_impl=attn_impl
+            cfg, params, cache, inputs, pos, attn_impl=attn_impl,
+            moe_policy=moe_policy,
         )
 
     return serve_step
@@ -85,6 +89,7 @@ def make_sampling_decode_fn(
     mode: int,
     temperature: float = 1.0,
     attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> Callable:
     """Decode step with the sampling mode *baked into the target* — the
     per-burst engine's branch targets, one per ``("burst", bucket, mode)``
@@ -103,7 +108,7 @@ def make_sampling_decode_fn(
     sight and a slot rebind per flip."""
     if mode not in (0, 1):
         raise ValueError(f"mode must be 0 (greedy) or 1 (sample), got {mode}")
-    decode = make_decode_fn(cfg, attn_impl=attn_impl)
+    decode = make_decode_fn(cfg, attn_impl=attn_impl, moe_policy=moe_policy)
 
     def step(params, cache, inputs, pos, key):
         logits, cache = decode(params, cache, inputs, pos)
@@ -116,18 +121,21 @@ def make_sampling_decode_fn(
     return step
 
 
-def make_prefill_fn(cfg: ArchConfig, *, impl: str = "kernel") -> Callable:
+def make_prefill_fn(cfg: ArchConfig, *, impl: str = "kernel",
+                    moe_policy: str = "drop") -> Callable:
     """Full-prompt prefill: ``step(params, inputs[B,S]) -> (logits[B,V],
     cache [m,B,S,KH,dh] per slot, or a mamba slot's {conv, state})``;
     ``impl`` as ``models.prefill`` (B6 and B8 with ``"kernel"``)."""
 
     def prefill_step(params, inputs):
-        return models.prefill(cfg, params, inputs, impl=impl)
+        return models.prefill(cfg, params, inputs, impl=impl,
+                              moe_policy=moe_policy)
 
     return prefill_step
 
 
-def make_slot_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel") -> Callable:
+def make_slot_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel",
+                   moe_policy: str = "drop") -> Callable:
     """Dense continuous-batching decode step, the ``("cb", slots)`` key
     (DESIGN.md §4): sampling params are data, not code.
 
@@ -143,7 +151,8 @@ def make_slot_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel") -> Callab
 
     def slot_step(params, cache, tok, pos, active, temps, greedy, keys):
         logits, cache = models.decode_step(
-            cfg, params, cache, tok, pos, attn_impl=attn_impl
+            cfg, params, cache, tok, pos, attn_impl=attn_impl,
+            moe_policy=moe_policy,
         )
         nxt, new_keys = _sample_rows(logits, temps, greedy, keys)
         new_pos = pos + active.to(torch.int32)
@@ -154,7 +163,7 @@ def make_slot_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel") -> Callab
 
 
 def make_paged_slot_decode_fn(
-    cfg: ArchConfig, *, attn_impl: str = "kernel"
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop"
 ) -> Callable:
     """Paged continuous-batching decode step (DESIGN.md §9):
 
@@ -170,7 +179,8 @@ def make_paged_slot_decode_fn(
         params, cache, tok, pos, block_tables, active, temps, greedy, keys
     ):
         logits, cache = models.paged_decode_step(
-            cfg, params, cache, tok, pos, block_tables, attn_impl=attn_impl
+            cfg, params, cache, tok, pos, block_tables, attn_impl=attn_impl,
+            moe_policy=moe_policy,
         )
         nxt, new_keys = _sample_rows(logits, temps, greedy, keys)
         new_pos = pos + active.to(torch.int32)
@@ -191,7 +201,7 @@ def _chunk_sample(logits, length, temps, greedy, keys):
 
 
 def make_paged_prefill_fn(
-    cfg: ArchConfig, *, attn_impl: str = "kernel"
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop"
 ) -> Callable:
     """Chunked-prefill step through the paged KV cache (DESIGN.md §10):
 
@@ -209,7 +219,7 @@ def make_paged_prefill_fn(
     ):
         logits, cache = models.paged_prefill_step(
             cfg, params, cache, tok, start, block_tables, length,
-            attn_impl=attn_impl,
+            attn_impl=attn_impl, moe_policy=moe_policy,
         )
         nxt, new_keys, packed = _chunk_sample(logits, length, temps, greedy,
                                               keys)
@@ -227,7 +237,7 @@ def _verify_tail(logits, temps, greedy, keys):
 
 
 def make_paged_verify_fn(
-    cfg: ArchConfig, *, attn_impl: str = "kernel"
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop"
 ) -> Callable:
     """Verify lane through the paged KV cache (DESIGN.md §11):
 
@@ -250,7 +260,7 @@ def make_paged_verify_fn(
     ):
         logits, cache = models.paged_verify_step(
             cfg, params, cache, tok, start, block_tables, length,
-            attn_impl=attn_impl,
+            attn_impl=attn_impl, moe_policy=moe_policy,
         )
         rows, nxt0, new_keys, packed = _verify_tail(logits, temps, greedy,
                                                     keys)
@@ -260,7 +270,7 @@ def make_paged_verify_fn(
 
 
 def make_slot_verify_fn(
-    cfg: ArchConfig, *, attn_impl: str = "kernel"
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop"
 ) -> Callable:
     """Verify lane over the dense per-slot cache, the ``("vfd", slots,
     k_bucket)`` key (DESIGN.md §11):
@@ -276,6 +286,7 @@ def make_slot_verify_fn(
     def verify_step(params, cache, tok, start, length, temps, greedy, keys):
         logits, cache = models.chunked_verify_step(
             cfg, params, cache, tok, start, length, attn_impl=attn_impl,
+            moe_policy=moe_policy,
         )
         rows, nxt0, new_keys, packed = _verify_tail(logits, temps, greedy,
                                                     keys)
@@ -285,7 +296,8 @@ def make_slot_verify_fn(
 
 
 def make_draft_fn(
-    draft_cfg: ArchConfig, *, k: int, attn_impl: str = "kernel"
+    draft_cfg: ArchConfig, *, k: int, attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> Callable:
     """Draft lane (DESIGN.md §11): K candidates per slot in one branch
     target, the ``("dr", slots, k_bucket, draft_kv_dtype)`` key:
@@ -310,7 +322,8 @@ def make_draft_fn(
         drafts = []
         for _ in range(k):
             logits, cache = models.decode_step(
-                draft_cfg, params, cache, tok, pos, attn_impl=attn_impl
+                draft_cfg, params, cache, tok, pos, attn_impl=attn_impl,
+                moe_policy=moe_policy,
             )
             nxt, keys = _sample_rows(logits, temps, greedy, keys)
             drafts.append(nxt)
@@ -322,7 +335,7 @@ def make_draft_fn(
 
 
 def make_slot_prefill_fn(
-    cfg: ArchConfig, *, attn_impl: str = "kernel"
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop"
 ) -> Callable:
     """Chunked prefill into the dense per-slot cache (DESIGN.md §10): the
     dense engine's prompt path, the ``("pfd", slots, chunk_bucket)`` key,
@@ -343,7 +356,8 @@ def make_slot_prefill_fn(
     def slot_prefill_step(params, cache, tok, start, length, temps, greedy,
                           keys):
         logits, cache = models.chunked_decode_step(
-            cfg, params, cache, tok, start, length, attn_impl=attn_impl
+            cfg, params, cache, tok, start, length, attn_impl=attn_impl,
+            moe_policy=moe_policy,
         )
         nxt, new_keys, packed = _chunk_sample(logits, length, temps, greedy,
                                               keys)

@@ -435,8 +435,9 @@ def test_a_shape_no_kernel_takes_raises():
     engine allocates its dense and draft caches with ``dense_rows(max_len)``
     rows (a multiple of 8), so it builds at any ``max_len`` and still
     admits by ``max_len``. A dtype and head_dim no kernel takes raises at
-    build on the card (``build.check_head_dim``): bf16 at head_dim 64 names
-    the tensor-core bodies' missing instantiations (ROADMAP B9 part 2)."""
+    build on the card (``build.check_head_dim``): bf16 at head_dim 32 is
+    refused, bf16 at head_dim 64 (granite-moe's heads, on the tensor-core
+    bodies) accepted."""
     from repro_torch.kernels import build
 
     cfg, _ = _cfg("causal")
@@ -463,8 +464,11 @@ def test_a_shape_no_kernel_takes_raises():
                 device="cpu") as eng:
         assert eng.paged_continuous(slots=2).num_slots == 2
         assert eng.draft_cache(2, "fp32")[0]["k"].shape[2] == 24
-    with pytest.raises(ValueError, match="B9 part 2"):
-        build.check_head_dim("cb", torch.bfloat16, 64)
+    build.check_head_dim("cb", torch.bfloat16, 64)
+    with pytest.raises(ValueError,
+                       match="no kernel instantiated for torch.bfloat16 at "
+                             "head_dim=32"):
+        build.check_head_dim("cb", torch.bfloat16, 32)
     with pytest.raises(ValueError, match="no kernel instantiated.*head_dim=8"):
         build.check_head_dim("cb", torch.float32, 8)
     for dtype, dims in build.HEAD_DIMS.items():

@@ -138,7 +138,7 @@ def test_flash_takes_strided_views_and_ragged_lengths(seq):
     )
 
 
-# ------------------------------------- B6/B7's tensor-core body (bf16, 128)
+# ------------------------------ B6/B7's tensor-core body (bf16, 64 and 128)
 # chip_smoke.py's KERNEL_ATOL[bf16], the kernels' tolerance on the card
 BF16_KERNEL_ATOL = 2e-2
 TC_MODES = [
@@ -186,16 +186,17 @@ def _tensor_core_rounding(q, k, v, *, causal, window, softcap, tile=128):
     return o.reshape(b, h, sq, dh).bfloat16()
 
 
+@pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("causal,window,softcap", TC_MODES)
 def test_tensor_core_rounding_stays_within_the_bf16_tolerance(
-    causal, window, softcap
+    causal, window, softcap, dh
 ):
     """P rounded to bf16 before P V is the one rounding the tensor-core body
-    adds; at 1 x 1024 tokens, 2 heads of 128, it keeps the output within the
-    card's bf16 tolerance of the fp32 plain version (by design, on the
-    CPU)."""
+    adds; at 1 x 1024 tokens, 2 heads of 64 or 128 (both instantiations), it
+    keeps the output within the card's bf16 tolerance of the fp32 plain
+    version (by design, on the CPU)."""
     rng = np.random.default_rng(15)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 1024, 128)).astype(
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 1024, dh)).astype(
         np.float32)).bfloat16() for _ in range(3))
     kw = dict(causal=causal, window=window, softcap=softcap)
     emulated = _tensor_core_rounding(q, k, v, **kw).float()
@@ -217,7 +218,7 @@ def _entry_routes(src: str, entry: str) -> dict:
 @pytest.mark.parametrize("entry", ["flash_attention",
                                    "flash_attention_branchy"])
 def test_flash_entry_points_route_bf16_128_to_tensor_cores(entry):
-    """Both C entry points send bf16 (code 1) at head_dim 128 to the
+    """Both C entry points send bf16 (code 1) at head_dim 64 and 128 to the
     tensor-core body and fp32 or head_dim 16 to the CUDA-core body, for
     every dtype and head_dim the wrappers accept; the tensor-core body runs
     both products as wgmma and loads its tiles with TMA."""
@@ -226,9 +227,11 @@ def test_flash_entry_points_route_bf16_128_to_tensor_cores(entry):
     src = (build.CSRC / "flash_attention.cu").read_text()
     routes = _entry_routes(src, entry)
     assert set(routes) == build.instantiated()
+    assert {(1, 64), (1, 128)} <= set(routes)
     suffix = "_branchy" if entry.endswith("branchy") else ""
     for key, fn in routes.items():
-        body = "launch_tensor_cores" if key == (1, 128) else "launch_cuda_cores"
+        body = ("launch_tensor_cores" if key in ((1, 64), (1, 128))
+                else "launch_cuda_cores")
         assert fn == body + suffix, (key, fn)
     tc = src.split("__device__ void flash_tc_block(")[1].split("\n}\n")[0]
     for call in ("wgmma_ss(", "wgmma_rs(", "tma_load_4d(", "mbar_wait("):

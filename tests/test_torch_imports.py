@@ -40,6 +40,8 @@ SLICE_MODULES = (
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.ops",
     "repro_torch.core.specialization",
+    "repro_torch.models.moe",
+    "repro_torch.configs.granite_moe_1b_a400m",
 )
 
 

@@ -235,6 +235,7 @@ DENSE_SHAPES = {
     "smoke": (4, 2, 16, 40, 40),
     "gqa-32/2": (32, 2, 128, 200, 200),
     "gqa-32/2-sq64": (32, 2, 128, 64, 200),
+    "granite-16/8": (16, 8, 64, 200, 200),  # the dh-64 tensor-core body
 }
 
 
@@ -270,6 +271,7 @@ def test_dense_cpu_tensors_take_the_plain_version_without_a_launch(kernel):
 @pytest.mark.parametrize("dtype,atol,shape", [
     (torch.float32, 1e-4, "smoke"), (torch.bfloat16, 2e-2, "smoke"),
     (torch.bfloat16, 2e-2, "gqa-32/2"), (torch.bfloat16, 2e-2, "gqa-32/2-sq64"),
+    (torch.bfloat16, 2e-2, "granite-16/8"),
 ])
 @pytest.mark.parametrize("kernel", list(DENSE_PLAIN), ids=lambda k: k.__name__)
 def test_cuda_dense_kernels_match_plain(cuda, kernel, dtype, atol, shape):
@@ -307,13 +309,15 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
     return view
 
 
-def test_tensor_core_view_check_refuses_what_tma_cannot_load():
-    """bf16 at dh 128 (the tensor-core body) needs 16-byte aligned bases and
-    strides in multiples of 8 elements; other dtypes and widths do not."""
+@pytest.mark.parametrize("shape", ["gqa-32/2", "granite-16/8"])
+def test_tensor_core_view_check_refuses_what_tma_cannot_load(shape):
+    """bf16 at dh 64 and 128 (the tensor-core body) needs 16-byte aligned
+    bases and strides in multiples of 8 elements; other dtypes and widths
+    do not."""
     from repro_torch.kernels.flash_attention import _check_tensor_core_views
 
     q, k, v = _dense_args(kernels.flash_attention, torch.bfloat16,
-                          shape="gqa-32/2")
+                          shape=shape)
     _check_tensor_core_views("flash", q, k, v)  # the model's views pass
     with pytest.raises(ValueError, match="cannot be loaded by TMA"):
         _check_tensor_core_views("flash", _misaligned(q), k, v)
@@ -324,9 +328,11 @@ def test_tensor_core_view_check_refuses_what_tma_cannot_load():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["gqa-32/2", "granite-16/8"])
 @pytest.mark.parametrize("kernel", FLASH_KERNELS, ids=lambda k: k.__name__)
-def test_cuda_flash_wrapper_raises_on_a_misaligned_bf16_view(cuda, kernel):
-    args = _dense_args(kernel, torch.bfloat16, cuda, "gqa-32/2")
+def test_cuda_flash_wrapper_raises_on_a_misaligned_bf16_view(cuda, kernel,
+                                                             shape):
+    args = _dense_args(kernel, torch.bfloat16, cuda, shape)
     args[1] = _misaligned(args[1])
     before = kernel.launches
     with pytest.raises(ValueError, match="cannot be loaded by TMA"):

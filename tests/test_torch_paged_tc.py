@@ -1,5 +1,5 @@
 """The tensor-core body of kernels B2 and B4 (paged prefill/verify attention,
-bf16 at head_dim 128, ``csrc/paged_prefill_tc.cuh``).
+bf16 at head_dim 64 and 128, ``csrc/paged_prefill_tc.cuh``).
 
 On the CPU: an emulation of the body's arithmetic (bf16 q and K, int8 pages
 widened exactly, the K scale on S's columns, the V scale folded into P
@@ -104,17 +104,19 @@ def _tc_rounding(q, k_pages, v_pages, bt, start, *, window, softcap, tile,
     return out.bfloat16()
 
 
+@pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("tile", [64, 128])
 @pytest.mark.parametrize("window,softcap", MODES)
 @pytest.mark.parametrize("pages", ["bf16", "int8"])
 def test_tensor_core_rounding_stays_within_the_bf16_tolerance(
-    pages, window, softcap, tile
+    pages, window, softcap, tile, dh
 ):
     """P rounded to bf16 (after the V scale, for int8) is the one rounding
-    the body adds; at 64 chunk rows, 16 heads of 128, starts off page
-    boundaries and a ragged table it keeps the output within the card's
-    bf16 tolerance of the fp32 plain version."""
-    ps, kh, dh, c = 16, 16, 128, 64
+    the body adds; at 64 chunk rows, 16 heads of 64 or 128 (both
+    instantiations), starts off page boundaries and a ragged table it keeps
+    the output within the card's bf16 tolerance of the fp32 plain
+    version."""
+    ps, kh, c = 16, 16, 64
     (kb, vb), ((kq, ks), (vq, vs)) = _pools(ps, kh, dh, 16, seed=3)
     bt = torch.tensor([[3, 9, 1, 12, 5, 0, 0, 0],
                        [7, 2, 8, 4, 11, 6, 14, 0]], dtype=torch.int32)
@@ -148,15 +150,16 @@ def _entry_routes(src: str, entry: str) -> dict:
     ("paged_attention_int8.cu", "paged_prefill_attention_int8"),
 ])
 def test_prefill_entry_points_route_bf16_128_to_tensor_cores(source, entry):
-    """Both C entry points send bf16 (code 1) at head_dim 128 to the
+    """Both C entry points send bf16 (code 1) at head_dim 64 and 128 to the
     tensor-core body and fp32 or head_dim 16 to the CUDA-core body, for
     every dtype and head_dim the wrappers accept."""
     src = (build.CSRC / source).read_text()
     assert '#include "paged_prefill_tc.cuh"' in src
     routes = _entry_routes(src, entry)
     assert set(routes) == build.instantiated()
+    assert {(1, 64), (1, 128)} <= set(routes)
     for key, fn in routes.items():
-        want = ("launch_prefill_tensor_cores" if key == (1, 128)
+        want = ("launch_prefill_tensor_cores" if key in ((1, 64), (1, 128))
                 else "launch_prefill_cuda_cores")
         assert fn == want, (key, fn)
 
@@ -184,11 +187,12 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
     return view
 
 
-def test_tma_check_refuses_what_tma_cannot_load():
-    """bf16 at dh 128 (the tensor-core body) needs 16-byte aligned q, pages
-    and scales; fp32 and head_dim 16 (CUDA cores) do not."""
-    (kb, vb), ((kq, ks), (vq, vs)) = _pools(16, 2, 128, 5, seed=1)
-    q = torch.zeros(2, 5, 2, 128, dtype=torch.bfloat16)
+@pytest.mark.parametrize("dh", [64, 128])
+def test_tma_check_refuses_what_tma_cannot_load(dh):
+    """bf16 at dh 64 and 128 (the tensor-core body) needs 16-byte aligned
+    q, pages and scales; fp32 and head_dim 16 (CUDA cores) do not."""
+    (kb, vb), ((kq, ks), (vq, vs)) = _pools(16, 2, dh, 5, seed=1)
+    q = torch.zeros(2, 5, 2, dh, dtype=torch.bfloat16)
     _check_tma_operands("prefill", q, kb, vb)  # fresh tensors pass
     _check_tma_operands("prefill_int8", q, kq, vq, ks, vs)
     with pytest.raises(ValueError, match="cannot be loaded by TMA"):
@@ -217,10 +221,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_inputs(chunk, group, ps, device, seed):
-    """2 kv heads, 3 rows at starts off page boundaries, each row's pages
-    scattered over the pool, the table padded with the null page 0."""
-    kh, dh = 2, 128
+def _card_inputs(chunk, group, ps, device, seed, dh=128):
+    """2 kv heads of ``dh``, 3 rows at starts off page boundaries, each
+    row's pages scattered over the pool, the table padded with the null
+    page 0."""
+    kh = 2
     start = [5, ps + 3, 3 * ps - 1]
     pb = -(-(max(start) + chunk) // ps) + 1
     n_pages = 3 * pb + 1
@@ -237,15 +242,16 @@ def _card_inputs(chunk, group, ps, device, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("ps", [8, 16])
 @pytest.mark.parametrize("group", GROUPS)
 @pytest.mark.parametrize("chunk", CHUNKS)
-def test_cuda_tensor_core_prefill_matches_plain(cuda, chunk, group, ps):
-    """B2 and B4 in bf16 at dh 128 in every mode (a window of 40 crossing
-    page boundaries, softcap 30) within 2e-2 of the fp32 plain version: the
-    kernel rounds P and its output to bf16."""
+def test_cuda_tensor_core_prefill_matches_plain(cuda, chunk, group, ps, dh):
+    """B2 and B4 in bf16 at dh 64 and 128 in every mode (a window of 40
+    crossing page boundaries, softcap 30) within 2e-2 of the fp32 plain
+    version: the kernel rounds P and its output to bf16."""
     q, bt, st, (kb, vb), (kq, vq, ks, vs) = _card_inputs(
-        chunk, group, ps, cuda, seed=chunk * 31 + group * 7 + ps)
+        chunk, group, ps, cuda, seed=chunk * 31 + group * 7 + ps, dh=dh)
     for window, softcap in MODES:
         kw = dict(window=window, softcap=softcap)
         for kernel, args, plain in (
@@ -265,9 +271,12 @@ def test_cuda_tensor_core_prefill_matches_plain(cuda, chunk, group, ps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("int8", [False, True])
-def test_cuda_prefill_wrapper_raises_on_a_misaligned_bf16_view(cuda, int8):
-    q, bt, st, (kb, vb), (kq, vq, ks, vs) = _card_inputs(5, 1, 16, cuda, 0)
+def test_cuda_prefill_wrapper_raises_on_a_misaligned_bf16_view(cuda, int8,
+                                                               dh):
+    q, bt, st, (kb, vb), (kq, vq, ks, vs) = _card_inputs(5, 1, 16, cuda, 0,
+                                                         dh=dh)
     kernel = (kernels.paged_prefill_attention_int8 if int8
               else kernels.paged_prefill_attention)
     pools = (kq, vq, ks, vs) if int8 else (kb, vb)
