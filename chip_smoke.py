@@ -181,6 +181,34 @@ Phases (any failure exits non-zero before a result is printed):
    share; and the smoke config's paged, dense continuous and burst streams
    card (graphs) = CPU, a third sampled.
 
+10. The last five configs, weights seeded on the card, every stream through
+   graph targets (counts set to 0 just before, held to one launch per
+   attention layer per lane call) and again eager under one step clock,
+   peak memory within the card and logged against the reckoned weight and
+   KV bytes: deepseek-67b (bf16, 64 heads over 8: a GQA group of 8; 16 of
+   its 95 layers, 12.75 B params) on phase 3's paged bf16 cell, dense cell
+   (a) and the burst cell and the prompt-then-burst path; grok-1-314b
+   (bf16, 48 over 8: a group of 6, softcaps 30/30, 8 experts top-2 of d_ff
+   32768; 4 of its 64 layers, 21.29 B) under "drop" on the paged bf16
+   cell, phase 3's int8+spec paged cell and the burst cell, the
+   prompt-then-burst path at 2 x 512 and one decode step per policy at 2
+   rows, logged in bf16 and held on fp32 weights of its first layer;
+   jamba-1.5-large-398b's smoke config card (graphs) = CPU through the
+   dense continuous engine (prompts token by token) and the burst engine,
+   then its two-layer full-width cut (one mamba2 layer of 256 SSD heads
+   with a 16-expert MoE, one attention layer of 64 over 8 heads with a
+   dense MLP; 11.9 B) through ``prefill`` over 2 x 1024 (B8 at 256 heads,
+   B6 at group 8), 32 burst tokens and ``forward``, a dense continuous
+   stream and the burst cell, kernels vs the plain path held on fp32
+   weights; internvl2-1b (14 heads over 2 of 64) and musicgen-medium (24
+   MHA heads of 64) at full width and depth: seeded ``[8, 256, D]``
+   embeddings through ``prefill`` (B6), ``pad_cache``, ``set_mode`` and a
+   one-step ``decode_loop`` through the graph target's ``[8, 1, D]`` bf16
+   input (B5), ``forward`` over the 257 positions (B6), graph = eager,
+   and the smoke configs' one-step tokens card = CPU. Then the new-shape
+   timing (phase 8's, with B3 at granite's shape, groups 6 and 8, group 7
+   and MHA 24 at head_dim 64, and B8 at 256 heads).
+
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
 """
@@ -1280,7 +1308,8 @@ def _card_near_tie(cfg, params, seq, a: int, b: int,
     dev = "cuda"
     tok = torch.tensor([seq], dtype=torch.int32, device=dev)
     if any(cfg.mixer_at(s) == "mamba" for s in range(cfg.period)):
-        logits, _ = models.forward(cfg, params, tok)
+        logits, _ = models.forward(cfg, params, tok,
+                                   moe_policy=_tie_policy(cfg))
         row = logits[0, -1].float()
     else:
         ps = 16
@@ -2177,13 +2206,16 @@ def _into_burst_cache(eng, bucket: int, cache: list) -> list:
 
 
 def prompt_then_burst(cfg, params, moe_policy: str = "drop",
-                      hold: bool = True, logit_tol: float | None = None
-                      ) -> dict:
-    """``prefill`` (B6) of 8 prompts of 256, ``pad_cache`` to 1024, then
+                      hold: bool = True, logit_tol: float | None = None,
+                      b: int = 8, prompt_len: int = 256,
+                      max_len: int = 1024) -> dict:
+    """``prefill`` (B6) of ``b`` prompts of ``prompt_len`` (8 of 256),
+    ``pad_cache`` to ``max_len``, then
     ``set_mode``, the cache copied into the bucket's burst cache, and
-    ``decode_loop`` of 32 greedy tokens (B5, a graph replay a step) — the JAX
-    package's prefill-then-decode sequence — and ``forward`` (B6) over
-    prompt + tokens, with the counts set to 0 just before and read after.
+    ``decode_loop`` of 32 greedy tokens (B5, a graph replay a step) — the
+    JAX package's prefill-then-decode sequence — and ``forward`` (B6) over
+    prompt + tokens, with the counts set to 0 just before and read after;
+    a hybrid stack's mamba layers run B8 in ``prefill`` and ``forward``.
     Then ``forward`` with B6 against the naive attention on the same
     tokens, and a profiled window of burst steps. A MoE stack runs
     ``prefill`` and ``forward`` under ``moe_policy``: "dense" drops
@@ -2202,7 +2234,11 @@ def prompt_then_burst(cfg, params, moe_policy: str = "drop",
     margin = STEP_LOGIT_ATOL if cfg.dtype == "bfloat16" else FP32_LOGIT_ATOL
     logit_tol = margin if logit_tol is None else logit_tol
     held = "" if hold else " (logged, not held)"
-    b, prompt_len, n, max_len = 8, 256, 32, 1024
+    n = 32
+    attn = _attention_layers(cfg)
+    mamba = cfg.num_layers - attn
+    expect = ("flash_attention", "decode_attention") + (
+        ("ssd_chunk",) if mamba else ())
     g = torch.Generator().manual_seed(5)
     prompts = torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=g,
                             dtype=torch.int32).to("cuda")
@@ -2213,7 +2249,7 @@ def prompt_then_burst(cfg, params, moe_policy: str = "drop",
     cache = models.pad_cache(cfg, cache, max_len)
     first = last.argmax(-1).to(torch.int32)[:, None]
     with Engine(cfg, params, EngineConfig(max_len=max_len, max_batch=b,
-                                          batch_quantum=4)) as eng:
+                                          batch_quantum=min(b, 4))) as eng:
         eng.set_mode(batch=b, sampling=GREEDY)
         cache = _into_burst_cache(eng, b, cache)
         toks, cache = eng.decode_loop(cache, first, prompt_len, n)
@@ -2222,11 +2258,14 @@ def prompt_then_burst(cfg, params, moe_policy: str = "drop",
         logits, _ = models.forward(cfg, params, seq, moe_policy=moe_policy)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _launches("prompt+burst",
-                             ("flash_attention", "decode_attention"))
-        check(launches["flash_attention"] == 2 * cfg.num_layers,
+        launches = _launches("prompt+burst", expect)
+        check(launches["flash_attention"] == 2 * attn,
               f"prompt+burst: B6 launched {launches['flash_attention']} "
-              f"times, expected one per layer for prefill and for forward")
+              f"times, expected one per attention layer for prefill and for "
+              f"forward")
+        check(launches["ssd_chunk"] == 2 * mamba,
+              f"prompt+burst: B8 launched {launches['ssd_chunk']} times, "
+              f"expected one per mamba layer for prefill and for forward")
         check(bool(torch.isfinite(logits).all()), "forward: non-finite logits")
         gen = logits[:, prompt_len:].float()  # predicts toks[:, i]
         chosen = torch.from_numpy(toks).to("cuda").long()
@@ -2383,9 +2422,16 @@ def profile_steps(cfg, params) -> None:
 # ------------------------------------------------------------------ phase 5
 def _near_tie(cfg, params, seq, kv_dtype: str) -> bool:
     """Top-2 margin of the greedy logits after ``seq`` (one plain chunked
-    prefill on the CPU, pages of ``kv_dtype``) is under ``TIE_MARGIN``."""
+    prefill on the CPU, pages of ``kv_dtype``; ``forward`` for a stack
+    with mamba layers) is under ``TIE_MARGIN``."""
     from repro_torch import models
 
+    if any(cfg.mixer_at(s) == "mamba" for s in range(cfg.period)):
+        logits, _ = models.forward(
+            cfg, params, torch.tensor([seq], dtype=torch.int32),
+            impl="naive", moe_policy=_tie_policy(cfg))
+        top2 = logits[0, -1].topk(2).values
+        return float(top2[0] - top2[1]) < TIE_MARGIN
     ps = 8
     n = -(-len(seq) // ps)
     cache = models.init_paged_cache(cfg, n + 1, ps, kv_dtype)
@@ -3315,14 +3361,15 @@ def time_dense_kernels(launches: dict) -> list[dict]:
 
 
 
-def time_ssd_kernel(launches: dict) -> list[dict]:
-    """B8 at the prefill shape (8 x 1024 tokens, 32 heads of 64, state 128,
-    chunk 256, bf16, the mixer's strided and stride-0 operands): kernel,
-    plain, no library call (no single PyTorch call computes SSD), and the
-    bound from this input's bytes and useful flops."""
+def _time_ssd(b: int, s: int, h: int) -> dict:
+    """B8 on ``b`` x ``s`` tokens of ``h`` heads of 64, state 128, chunk
+    256, bf16 (the tensor-core body), on the mixer's strided and stride-0
+    operands: held against its plain version, then kernel (per call and
+    device-only), plain, no library call (no single PyTorch call computes
+    SSD), and the bound from this input's bytes and useful flops."""
     from repro_torch import kernels
 
-    b, s, h, p, n, chunk = 8, 1024, 32, 64, 128, 256
+    p, n, chunk = 64, 128, 256
     dtype = torch.bfloat16
     args = _ssd_inputs(b, s, h, p, n, dtype, seed=21)
     out = kernels.ssd_chunk(*args, chunk=chunk)
@@ -3330,9 +3377,12 @@ def time_ssd_kernel(launches: dict) -> list[dict]:
     torch.cuda.synchronize()
     ey, es = _ssd_errs(out, ref)
     rms = _ssd_y_rms(out[0], ref[0])
+    err = max((o.float() - r_.float()).abs().max().item()
+              for o, r_ in zip(out, ref))
+    del out, ref
     check(ey <= SSD_REL_TOL[dtype] and es <= SSD_STATE_REL_TOL
           and rms <= SSD_Y_RMS_TOL,
-          f"ssd_chunk at the prefill shape: relative err y {ey:.3g}, state "
+          f"ssd_chunk x({b}, {s}, {h}, {p}): relative err y {ey:.3g}, state "
           f"{es:.3g}, y rms {rms:.3g}")
     saved = kernels.ssd_chunk.launches  # timing launches are not the path's
     ms = _median_ms(lambda: kernels.ssd_chunk(*args, chunk=chunk))
@@ -3361,16 +3411,19 @@ def time_ssd_kernel(launches: dict) -> list[dict]:
         f"{plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms "
         f"({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
         f"relative err y {ey:.3g} state {es:.3g} y rms {rms:.3g}")
+    return {"max_abs_err": err, "max_rel_err": max(ey, es), "ms": ms, **dev,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def time_ssd_kernel(launches: dict) -> list[dict]:
+    """B8 at the mamba2 prefill shape (8 x 1024 tokens, 32 heads)."""
+    numbers = _time_ssd(8, 1024, 32)
     return [{"name": "ssd_chunk", "route": "cuda",
              "source": "src/repro_torch/csrc/ssd_chunk.cu",
              "body": "src/repro_torch/csrc/ssd_chunk_tc.cuh",
              "replaces": "src/repro/kernels/ssd_chunk.py:73",
-             "launches": launches["ssd_chunk"], "max_abs_err": max(
-                 (o.float() - r_.float()).abs().max().item()
-                 for o, r_ in zip(out, ref)),
-             "max_rel_err": max(ey, es), "ms": ms, **dev,
-             "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None}]
+             "launches": launches["ssd_chunk"], **numbers}]
 
 
 # ------------------------------------------------------------------ phase 8
@@ -3390,57 +3443,174 @@ def _long_prompt_traffic(cfg, n: int = 2, prompt_len: int = 5000,
 
 
 def _plans() -> dict:
-    """Per config: each engine's (EngineConfig fields, slots, traffic);
-    full width, weights from a seed. qwen3-14b and hft-demo on phase 3's
-    cells (hft-demo's prompts of 200 and bursts of ~200 tokens pass its 128
-    window); gemma2-27b's paged and dense engines on 2 slots of 8192 with
-    two 5000-token prompts (its local layers' 4096 window over real
-    positions), its burst engine on the burst cell at 8 rows of 1024."""
+    """Per config: each engine's (EngineConfig fields, slots, traffic,
+    engine); full width, weights from a seed. qwen3-14b and hft-demo on
+    phase 3's cells (hft-demo's prompts of 200 and bursts of ~200 tokens
+    pass its 128 window); gemma2-27b's paged and dense engines on 2 slots
+    of 8192 with two 5000-token prompts (its local layers' 4096 window over
+    real positions), its burst engine on the burst cell at 8 rows of
+    1024."""
     short = dict(max_len=1024, max_batch=8)
     long_ = dict(max_len=8192, max_batch=2)
     burst = dict(short, batch_quantum=4)
     return {
         "qwen3-14b": {
             "paged": (dict(short, page_size=16, prefill_chunk=64), 8,
-                      _shared_prefix_traffic),
+                      _shared_prefix_traffic, "paged"),
             "continuous": (dict(short, prefill_chunk=64), 8,
-                           _continuous_traffic),
-            "burst": (burst, None, _burst_traffic),
+                           _continuous_traffic, "continuous"),
+            "burst": (burst, None, _burst_traffic, "burst"),
         },
         "gemma2-27b": {
             "paged": (dict(long_, page_size=16, prefill_chunk=64), 2,
-                      _long_prompt_traffic),
-            "burst": (burst, None, _burst_traffic),
+                      _long_prompt_traffic, "paged"),
+            "burst": (burst, None, _burst_traffic, "burst"),
             "continuous": (dict(long_, prefill_chunk=64), 2,
-                           _long_prompt_traffic),
+                           _long_prompt_traffic, "continuous"),
         },
         "hft-demo": {
             "paged": (dict(short, page_size=16, prefill_chunk=64), 8,
-                      partial(_continuous_traffic, prompt_len=200)),
+                      partial(_continuous_traffic, prompt_len=200), "paged"),
             "continuous": (dict(short, prefill_chunk=64), 8,
-                           partial(_continuous_traffic, prompt_len=200)),
-            "burst": (burst, None, partial(_burst_traffic, tokens_mean=200)),
+                           partial(_continuous_traffic, prompt_len=200),
+                           "continuous"),
+            "burst": (burst, None, partial(_burst_traffic, tokens_mean=200),
+                      "burst"),
         },
     }
 
 
+def _cell_plans() -> dict:
+    """Phase 3's cells by name, each (EngineConfig fields, slots, traffic,
+    engine): the paged bf16 cell, dense cell (a), the burst cell and the
+    int8+spec paged cell."""
+    base = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64)
+    return {
+        "paged bf16": (base, 8, _shared_prefix_traffic, "paged"),
+        "continuous": (dict(max_len=1024, max_batch=8, prefill_chunk=64), 8,
+                       _continuous_traffic, "continuous"),
+        "burst": (dict(max_len=1024, max_batch=8, batch_quantum=4), None,
+                  _burst_traffic, "burst"),
+        "paged int8+spec": (dict(base, kv_dtype="int8", spec_k=4,
+                                 draft_layers=2, draft_kv_dtype="int8"), 8,
+                            _shared_prefix_traffic, "paged"),
+    }
+
+
+def _depth_cut(cfg, layers: int, tag: str):
+    """``cfg`` at full width on its first ``layers`` layers."""
+    import dataclasses
+
+    full = cfg.num_layers
+    cfg = dataclasses.replace(cfg, num_layers=layers).validate()
+    log(f"[{tag}:{cfg.name}] depth cut to {cfg.num_layers} of {full} layers, "
+        f"full width")
+    return cfg
+
+
+def _seeded(cfg, tag: str) -> dict:
+    """Weights seeded on the card, held to ``_weight_bytes``; the init
+    peak is the weights and one float32 slab."""
+    from repro_torch import models
+
+    _release_engines()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for t in params.values())
+    check(wbytes == _weight_bytes(cfg),
+          f"{cfg.name}: {wbytes} weight bytes, reckoned {_weight_bytes(cfg)}")
+    pc = cfg.param_counts()
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, {pc['total'] / 1e9:.3f}"
+        f"B params ({pc['active'] / 1e9:.3f}B active) {cfg.dtype} "
+        f"({wbytes / 1e9:.2f} GB) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f}s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return params
+
+
+def _held_streams(tag: str, cfg, params, plans: dict,
+                  slack: float | None = None) -> dict:
+    """Each plan's stream (``_paired_streams``: through graph targets with
+    the launches held, then eager under one step clock), peak memory
+    within the card — or within ``slack`` bytes of the reckoned weights
+    and KV — and logged against them; a speculative stream's draft and
+    verify lanes ran. Returns {plan name: ``_paired_streams``' output}."""
+    outs = {}
+    total = torch.cuda.get_device_properties(0).total_memory
+    for name, (ecfg, slots, traffic, engine) in plans.items():
+        w, kv = _reckoned(cfg, engine, ecfg, slots or 8)
+        label = f"{cfg.name} {name}"
+        out = outs[name] = _paired_streams(
+            label, cfg, params, ecfg, partial(traffic, cfg), engine,
+            slots or 8, count=True)
+        limit = total if slack is None else w + kv + slack
+        check(out["peak"] <= limit,
+              f"{label}: peak {out['peak'] / 1e9:.2f} GB over "
+              f"{limit / 1e9:.2f} GB")
+        log(f"[{tag}:{label}] peak memory {out['peak'] / 1e9:.2f} GB against "
+            f"reckoned weights {w / 1e9:.2f} GB + KV {kv / 1e9:.2f} GB = "
+            f"{(w + kv) / 1e9:.2f} GB (card {total / 1e9:.2f} GB)")
+        if ecfg.get("spec_k"):
+            rep = out["report"]
+            check(rep["lane_steps"]["draft"] > 0
+                  and rep["lane_steps"]["verify"] > 0,
+                  f"{label}: draft/verify lane steps {rep['lane_steps']}")
+    return outs
+
+
 def _reckoned(cfg, engine: str, ecfg: dict, slots) -> tuple[float, float]:
     """(weight bytes, KV bytes) from the config before anything is
-    allocated: ``param_counts`` at the model dtype, and K and V of every
-    attention layer for the engine's rows (the page pool with its null
-    page; the dense cache's ``dense_rows``; the burst buckets of 4 and 8
-    rows) at ``2 * num_layers * kv_dim`` elements a token."""
+    allocated: ``_weight_bytes``, and K and V of every attention layer for
+    the engine's rows (the page pool with its null page; the dense cache's
+    ``dense_rows``; the burst buckets of 4 and 8 rows) at ``2 *
+    attention layers * kv_dim`` elements a token — int8 pages at a byte an
+    element plus a float32 scale a row, with the int8 draft's dense cache
+    — and a mamba layer's conv window and float32 state for each dense
+    row."""
     from repro_torch import models
 
     el = 2 if cfg.dtype == "bfloat16" else 4
-    per_token = 2 * cfg.num_layers * cfg.kv_dim * el
+    attn = _attention_layers(cfg)
+    per_token = 2 * attn * cfg.kv_dim * el
     if engine == "paged":
         tokens = (ecfg["max_batch"] * ecfg["max_len"] + ecfg["page_size"])
     elif engine == "continuous":
         tokens = slots * models.dense_rows(ecfg["max_len"])
     else:
         tokens = (4 + 8) * ecfg["max_len"]
-    return cfg.param_counts()["total"] * el, tokens * per_token
+    kv = tokens * per_token
+    if ecfg.get("kv_dtype") == "int8":  # a byte an element, 4 a row's scale
+        kv = tokens * 2 * attn * (cfg.kv_dim + 4)
+        draft = ecfg["draft_layers"] * cfg.period
+        kv += (slots * models.dense_rows(ecfg["max_len"]) * 2 * draft
+               * (cfg.kv_dim + 4))
+    mamba = cfg.num_layers - attn
+    if mamba and engine != "paged":  # a row's conv window and f32 state
+        rows = slots if engine == "continuous" else 4 + 8
+        conv = (cfg.conv_kernel - 1) * (
+            cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state) * el
+        state = cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4
+        kv += rows * mamba * (conv + state)
+    return _weight_bytes(cfg), kv
+
+
+def _attention_layers(cfg) -> int:
+    return sum(cfg.mixer_at(i).startswith("attn")
+               for i in range(cfg.num_layers))
+
+
+def _weight_bytes(cfg) -> int:
+    """``param_counts`` at the model dtype, but a MoE layer's router and a
+    mamba layer's ``A_log``, ``D`` and ``dt_bias`` in float32
+    (``param_counts`` counts ``A`` and ``D`` of the three)."""
+    el = 2 if cfg.dtype == "bfloat16" else 4
+    moe = sum(cfg.mlp_at(i) == "moe" for i in range(cfg.num_layers))
+    mamba = cfg.num_layers - _attention_layers(cfg)
+    return (cfg.param_counts()["total"] * el
+            + moe * cfg.d_model * cfg.num_experts * (4 - el)
+            + mamba * cfg.ssm_heads * (3 * 4 - 2 * el))
 
 
 def _prompt_decode_check(cfg, params, batch: int, prompt_len: int) -> dict:
@@ -3554,50 +3724,21 @@ def configs_phase() -> dict:
     against the reckoned weight and KV bytes; gemma2-27b's and hft-demo's
     prompt + decode check past their windows; hft-demo's stream card =
     CPU."""
-    import dataclasses
-
-    from repro_torch import models
     from repro_torch.configs import get_config
 
     paths = {}
-    total = torch.cuda.get_device_properties(0).total_memory
     for arch, plan in _plans().items():
         cfg = get_config(arch)
         if arch in PHASE8_LAYERS:
-            full = cfg.num_layers
-            cfg = dataclasses.replace(
-                cfg, num_layers=PHASE8_LAYERS[arch]).validate()
-            log(f"[configs:{arch}] depth cut to {cfg.num_layers} of {full} "
-                f"layers, full width")
-        _release_engines()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = models.init_params(cfg, seed=0, device="cuda")
-        torch.cuda.synchronize()
-        init_peak = torch.cuda.max_memory_allocated()
-        wbytes = sum(t.numel() * t.element_size() for t in params.values())
-        want_w, _ = _reckoned(cfg, "paged", plan["paged"][0], 8)
-        check(wbytes == want_w, f"{arch}: {wbytes} weight bytes, reckoned "
-              f"{want_w}")
-        log(f"[configs:{arch}] {cfg.param_counts()['total'] / 1e9:.3f}B "
-            f"params {cfg.dtype} ({wbytes / 1e9:.2f} GB) initialised on the "
-            f"card in {time.perf_counter() - t0:.1f}s, peak "
-            f"{init_peak / 1e9:.2f} GB (weights + one f32 slab)")
-        for engine, (ecfg, slots, traffic) in plan.items():
-            w, kv = _reckoned(cfg, engine, ecfg, slots)
-            label = f"{arch} {engine}"
-            out = _paired_streams(label, cfg, params, ecfg,
-                                  partial(traffic, cfg), engine, slots,
-                                  count=True)
-            paths[label] = out["launches"]
-            check(out["peak"] < total, f"{label}: peak {out['peak']}")
-            log(f"[configs:{label}] peak memory {out['peak'] / 1e9:.2f} GB "
-                f"against reckoned weights {w / 1e9:.2f} GB + KV "
-                f"{kv / 1e9:.2f} GB = {(w + kv) / 1e9:.2f} GB (card "
-                f"{total / 1e9:.2f} GB)")
-            if arch == "hft-demo" and engine == "paged":
-                _hft_card_vs_cpu(cfg, params, out["requests"], ecfg, slots,
-                                 traffic)
+            cfg = _depth_cut(cfg, PHASE8_LAYERS[arch], "configs")
+        params = _seeded(cfg, "configs")
+        outs = _held_streams("configs", cfg, params, plan)
+        paths.update({f"{arch} {name}": out["launches"]
+                      for name, out in outs.items()})
+        if arch == "hft-demo":
+            ecfg, slots, traffic, _ = plan["paged"]
+            _hft_card_vs_cpu(cfg, params, outs["paged"]["requests"], ecfg,
+                             slots, traffic)
         if arch == "gemma2-27b":
             paths[f"{arch} prompt+decode"] = _prompt_decode_check(
                 cfg, params, 1, 5120)["launches"]
@@ -3613,80 +3754,50 @@ def configs_phase() -> dict:
 GRANITE = "granite-moe-1b-a400m"
 
 
-def _granite_plans() -> dict:
-    """granite-moe-1b-a400m's streams, each engine's (EngineConfig fields,
-    slots, traffic, engine): phase 3's paged bf16 cell, dense cell (a), the
-    burst cell and phase 3's int8+spec paged cell, all under the default
-    ``moe_policy="drop"``."""
-    base = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64)
-    return {
-        "paged bf16": (base, 8, _shared_prefix_traffic, "paged"),
-        "continuous": (dict(max_len=1024, max_batch=8, prefill_chunk=64), 8,
-                       _continuous_traffic, "continuous"),
-        "burst": (dict(max_len=1024, max_batch=8, batch_quantum=4), None,
-                  _burst_traffic, "burst"),
-        "paged int8+spec": (dict(base, kv_dtype="int8", spec_k=4,
-                                 draft_layers=2, draft_kv_dtype="int8"), 8,
-                            _shared_prefix_traffic, "paged"),
-    }
-
-
-def _granite_reckoned(cfg, engine: str, ecfg: dict, slots) -> tuple:
-    """(weight bytes, KV bytes) before anything is allocated: the weights
-    at the model dtype but the routers in float32 (``param_counts`` counts
-    them with the rest); K and V as ``_reckoned``, int8 pages at a byte an
-    element plus a float32 scale a row, and the int8 draft's dense cache."""
-    from repro_torch import models
-
-    routers = cfg.num_layers * cfg.d_model * cfg.num_experts
-    weights = cfg.param_counts()["total"] * 2 + routers * 2
-    _, kv = _reckoned(cfg, engine, ecfg, slots)
-    if ecfg.get("kv_dtype") == "int8":  # a byte an element, 4 a row's scale
-        tokens = ecfg["max_batch"] * ecfg["max_len"] + ecfg["page_size"]
-        kv = tokens * 2 * cfg.num_layers * (cfg.kv_dim + 4)
-        draft = ecfg["draft_layers"] * cfg.period
-        kv += (slots * models.dense_rows(ecfg["max_len"]) * 2 * draft
-               * (cfg.kv_dim + 4))
-    return weights, kv
-
-
-def _moe_policies_step(cfg, params, p32) -> dict:
+def _moe_policies_step(runs: list, slots: int = 8) -> dict:
     """"drop", "dense" and "gather" at S = 1, where capacity is ``top_k``
-    and nothing is dropped: one MoE layer in bf16 (8 rows of full width)
-    within ``KERNEL_ATOL[bf16]`` of "dense" relative to its largest
-    |output|; one full-width paged decode step (8 slots at position 200
-    over pages a chunked prefill filled under "dense") on the fp32 weights
-    ``p32`` within ``STEP_LOGIT_ATOL``; the same step in bf16 logged with
-    each policy's eager host wall (its logits are not held: granite's
-    random bf16 weights turn any two roundings into other logits)."""
-    import dataclasses
-
+    and nothing is dropped, for each ``(tag, cfg, params)`` of ``runs``:
+    in bf16 one MoE layer (``slots`` rows of full width) within
+    ``KERNEL_ATOL[bf16]`` of "dense" relative to its largest |output|; one
+    full-width paged decode step (``slots`` slots at position 200 over
+    pages a chunked prefill filled under "dense"), held within
+    ``STEP_LOGIT_ATOL`` on fp32 weights and logged in bf16 with each
+    policy's eager host wall (random bf16 experts turn any two roundings
+    into other logits)."""
     from repro_torch import models
     from repro_torch.models import moe
 
-    dev, slots, ps, n = "cuda", 8, 16, 200
+    dev, ps, n = "cuda", 16, 200
     g = torch.Generator().manual_seed(23)
-    lp = models.layer_params(params, 0, 0)["moe"]
-    x = torch.randn(slots, 1, cfg.d_model, generator=g).to(dev, torch.bfloat16)
-    ys = {pol: moe.moe_apply(cfg, lp, x, policy=pol, with_aux=False)[0]
-          .float() for pol in ("drop", "dense", "gather")}
-    scale = ys["dense"].abs().max().item()
-    layer = {pol: (ys[pol] - ys["dense"]).abs().max().item() / scale
-             for pol in ("drop", "gather")}
-    for pol, rel in layer.items():
-        check(rel <= KERNEL_ATOL[torch.bfloat16],
-              f"{cfg.name}: one MoE layer at S = 1, {pol} vs dense relative "
-              f"diff {rel:.4g} > {KERNEL_ATOL[torch.bfloat16]}")
-    prompt = torch.randint(0, cfg.vocab_size, (slots, n), generator=g,
-                           dtype=torch.int32).to(dev)
-    pb = -(-(n + 1) // ps)
-    bt = torch.arange(1, slots * pb + 1, dtype=torch.int32,
-                      device=dev).view(slots, pb)
-    zero = torch.zeros(slots, dtype=torch.int32, device=dev)
-    pos = torch.full((slots,), n, dtype=torch.int32, device=dev)
     out = {}
-    for tag, c, p in (("fp32", dataclasses.replace(cfg, dtype="float32"),
-                       p32), ("bf16", cfg, params)):
+    for tag, c, p in runs:
+        name = c.name
+        if tag == "bf16":
+            slot = next(i for i in range(c.period) if c.mlp_at(i) == "moe")
+            lp = models.layer_params(p, slot, 0)["moe"]
+            x = torch.randn(slots, 1, c.d_model, generator=g).to(
+                dev, torch.bfloat16)
+            ys = {pol: moe.moe_apply(c, lp, x, policy=pol, with_aux=False)[0]
+                  .float() for pol in ("drop", "dense", "gather")}
+            scale = ys["dense"].abs().max().item()
+            layer = {pol: (ys[pol] - ys["dense"]).abs().max().item() / scale
+                     for pol in ("drop", "gather")}
+            del ys
+            for pol, rel in layer.items():
+                check(rel <= KERNEL_ATOL[torch.bfloat16],
+                      f"{name}: one MoE layer at S = 1, {pol} vs dense "
+                      f"relative diff {rel:.4g} > "
+                      f"{KERNEL_ATOL[torch.bfloat16]}")
+            log(f"[moe:{name}] one MoE layer (bf16, {slots} rows, S = 1): "
+                f"drop and gather vs dense relative diff {layer} (tolerance "
+                f"{KERNEL_ATOL[torch.bfloat16]}): nothing dropped")
+        prompt = torch.randint(0, c.vocab_size, (slots, n), generator=g,
+                               dtype=torch.int32).to(dev)
+        pb = -(-(n + 1) // ps)
+        bt = torch.arange(1, slots * pb + 1, dtype=torch.int32,
+                          device=dev).view(slots, pb)
+        zero = torch.zeros(slots, dtype=torch.int32, device=dev)
+        pos = torch.full((slots,), n, dtype=torch.int32, device=dev)
         cache = models.init_paged_cache(c, slots * pb + 1, ps, device=dev)
         last, _ = models.paged_prefill_step(c, p, cache, prompt, zero, bt,
                                             pos, moe_policy="dense")
@@ -3707,21 +3818,18 @@ def _moe_policies_step(cfg, params, p32) -> dict:
             for pair, err in diff.items():
                 check(bool(torch.isfinite(logits[pair[:-6]]).all())
                       and err <= STEP_LOGIT_ATOL,
-                      f"{cfg.name} fp32: one decode step, {pair} logits "
+                      f"{name} fp32: one decode step, {pair} logits "
                       f"differ by {err:.4g} > {STEP_LOGIT_ATOL}")
         out[tag] = {"diff": diff, "agree": agree, "ms": ms}
-        log(f"[granite] one full-width decode step ({tag}, {slots} slots, "
-            f"pos {n}) under each moe_policy: logits max abs diff "
+        log(f"[moe:{name}] one full-width decode step ({tag}, {slots} "
+            f"slots, pos {n}) under each moe_policy: logits max abs diff "
             + ", ".join(f"{k} {v:.4g}" for k, v in diff.items())
             + (f" (tolerance {STEP_LOGIT_ATOL})" if tag == "fp32"
                else " (logged, not held)")
             + f", argmax agreement {agree}; eager host wall per step "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
             + f" | {_card()}")
-        del cache
-    log(f"[granite] one MoE layer (bf16, 8 rows, S = 1): drop and gather vs "
-        f"dense relative diff {layer} (tolerance "
-        f"{KERNEL_ATOL[torch.bfloat16]}): nothing dropped")
+        del cache, logits
     return out
 
 
@@ -3795,46 +3903,15 @@ def granite_phase() -> dict:
     prompt+burst lines log the bf16 and the fp32 gaps side by side."""
     import dataclasses
 
-    from repro_torch import models
     from repro_torch.configs import get_config
 
     cfg = get_config(GRANITE)
-    paths = {}
-    total = torch.cuda.get_device_properties(0).total_memory
-    _release_engines()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = models.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    wbytes = sum(t.numel() * t.element_size() for t in params.values())
-    plans = _granite_plans()
-    want_w, _ = _granite_reckoned(cfg, "paged", plans["paged bf16"][0], 8)
-    check(wbytes == want_w, f"{GRANITE}: {wbytes} weight bytes, reckoned "
-          f"{want_w}")
+    params = _seeded(cfg, "granite")
     check(params["blocks.0.moe.router"].dtype == torch.float32,
           f"{GRANITE}: the router is not float32")
-    log(f"[granite] {cfg.param_counts()['total'] / 1e9:.3f}B params "
-        f"({cfg.param_counts()['active'] / 1e9:.3f}B active) bf16 with "
-        f"float32 routers ({wbytes / 1e9:.3f} GB) initialised on the card in "
-        f"{time.perf_counter() - t0:.1f}s, peak "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    for name, (ecfg, slots, traffic, engine) in plans.items():
-        w, kv = _granite_reckoned(cfg, engine, ecfg, slots)
-        label = f"{GRANITE} {name}"
-        out = _paired_streams(label, cfg, params, ecfg, partial(traffic, cfg),
-                              engine, slots if slots else 8, count=True)
-        paths[label] = out["launches"]
-        check(out["peak"] <= w + kv + 1.5e9,
-              f"{label}: peak {out['peak'] / 1e9:.2f} GB over the reckoned "
-              f"{(w + kv) / 1e9:.2f} GB + 1.5 GB")
-        log(f"[granite:{name}] peak memory {out['peak'] / 1e9:.2f} GB "
-            f"against reckoned weights {w / 1e9:.2f} GB + KV {kv / 1e9:.2f} "
-            f"GB = {(w + kv) / 1e9:.2f} GB (card {total / 1e9:.2f} GB)")
-        if name == "paged int8+spec":
-            rep = out["report"]
-            check(rep["lane_steps"]["draft"] > 0
-                  and rep["lane_steps"]["verify"] > 0,
-                  f"{label}: draft/verify lane steps {rep['lane_steps']}")
+    outs = _held_streams("granite", cfg, params, _cell_plans(), slack=1.5e9)
+    paths = {f"{GRANITE} {name}": out["launches"]
+             for name, out in outs.items()}
     paths[f"{GRANITE} prompt+burst"] = prompt_then_burst(
         cfg, params, moe_policy="dense", hold=False)
     # the same path and one decode step on the weights in fp32, held: the
@@ -3845,7 +3922,7 @@ def granite_phase() -> dict:
     c32 = dataclasses.replace(cfg, dtype="float32")
     paths[f"{GRANITE} fp32 prompt+burst"] = prompt_then_burst(
         c32, p32, moe_policy="dense", logit_tol=STEP_LOGIT_ATOL)
-    _moe_policies_step(cfg, params, p32)
+    _moe_policies_step([("fp32", c32, p32), ("bf16", cfg, params)])
     del p32
     share = _granite_moe_share(cfg, params)
     del params
@@ -3853,13 +3930,16 @@ def granite_phase() -> dict:
     return {"paths": paths, "moe_share": share}
 
 
-def granite_smoke_card_vs_cpu() -> None:
-    """granite-moe's smoke config (fp32, TF32 off; 4 experts top-2), a
-    third of the requests sampled, on the card (graph targets) and on the
-    CPU under one step clock: the paged engine with chunked prefill, the
-    dense continuous engine with chunked prefill, and the burst engine.
-    Greedy requests equal or a near-tie of the CPU's drop-free logits;
-    sampled ones equal."""
+def smoke_card_vs_cpu_of(arch: str, tag: str,
+                         engines: tuple = ("paged", "continuous", "burst")
+                         ) -> None:
+    """``arch``'s smoke config (fp32, TF32 off), a third of the requests
+    sampled, on the card (graph targets) and on the CPU under one step
+    clock, through each of ``engines``: the paged engine with chunked
+    prefill, the dense continuous engine with chunked prefill (an SSM
+    slot's prompts token by token), and the burst engine. Greedy requests
+    equal or a near-tie of the CPU's drop-free logits; sampled ones
+    equal."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.runtime.scheduler import (
@@ -3875,14 +3955,16 @@ def granite_smoke_card_vs_cpu() -> None:
         run_paged_stream,
     )
 
-    cfg = get_config(GRANITE).smoke()
+    cfg = get_config(arch).smoke()
     params = models.init_params(cfg, seed=0)
-    for engine, ecfg in (
-        ("paged", dict(max_len=64, max_batch=4, page_size=8, num_pages=40,
-                       prefill_chunk=16)),
-        ("continuous", dict(max_len=64, max_batch=4, prefill_chunk=16)),
-        ("burst", dict(max_len=64, max_batch=8, batch_quantum=4)),
-    ):
+    plans = {
+        "paged": dict(max_len=64, max_batch=4, page_size=8, num_pages=40,
+                      prefill_chunk=16),
+        "continuous": dict(max_len=64, max_batch=4, prefill_chunk=16),
+        "burst": dict(max_len=64, max_batch=8, batch_quantum=4),
+    }
+    for engine in engines:
+        ecfg = plans[engine]
         streams = {}
         for dev in ("cuda", "cpu"):
             if engine == "paged":
@@ -3907,12 +3989,12 @@ def granite_smoke_card_vs_cpu() -> None:
                     rep = run_paged_stream(eng, reqs, slots=4,
                                            clock=_StepClock())
                 check(eng.graphs == (dev == "cuda"),
-                      f"granite smoke {dev}: cuda_graphs {eng.graphs}")
+                      f"{tag} smoke {dev}: cuda_graphs {eng.graphs}")
             check(rep["finished"] == len(reqs),
-                  f"granite smoke {engine} {dev}: {rep['finished']} finished")
+                  f"{tag} smoke {engine} {dev}: {rep['finished']} finished")
             if engine != "burst":
                 check(rep["compiles_after_warmup"] == 0,
-                      f"granite smoke {engine} {dev}: "
+                      f"{tag} smoke {engine} {dev}: "
                       f"{rep['compiles_after_warmup']} compiles after warmup")
             streams[dev] = {r.rid: (r.effective_prompt, r.tokens, r.greedy)
                             for r in reqs}
@@ -3924,19 +4006,301 @@ def granite_smoke_card_vs_cpu() -> None:
             i = next(i for i, (x, y) in enumerate(zip(toks, card)) if x != y)
             check(greedy and _near_tie(cfg, params, list(prompt) + toks[:i],
                                        "fp32"),
-                  f"granite smoke {engine}: card != CPU at rid {rid} token {i}")
+                  f"{tag} smoke {engine}: card != CPU at rid {rid} token {i}")
             ties += 1
         n = sum(len(t) for _, t, _ in streams["cpu"].values())
         sampled = sum(not g for _, _, g in streams["cpu"].values())
-        log(f"[granite:smoke] {engine}: card (graphs) = CPU on "
+        log(f"[{tag}:smoke] {engine}: card (graphs) = CPU on "
             f"{len(streams['cpu']) - ties} of {len(streams['cpu'])} requests "
             f"({sampled} sampled, {n} tokens), {ties} near-tie divergences")
 
 
+# ------------------------------------------ phase 10 (the last five archs)
+DEEPSEEK, GROK, JAMBA = ("deepseek-67b", "grok-1-314b",
+                         "jamba-1.5-large-398b")
+EMBEDS = ("internvl2-1b", "musicgen-medium")
+# Phase 10's depth cuts, full width: deepseek-67b on 16 of its 95 layers
+# (12.75 B params, 25.5 GB bf16), grok-1-314b on 4 of its 64 (21.29 B,
+# 42.6 GB; a layer's 8 experts of d_ff 32768 are 9.7 GB), and jamba as one
+# of each of its layer kinds (one period of its 8 layers is 45.1 B params,
+# 90.3 GB in bf16, more than one card holds).
+PHASE10_LAYERS = {DEEPSEEK: 16, GROK: 4}
+
+
+def _jamba_cut(cfg):
+    """jamba-1.5-large-398b's two-layer cut: a mamba2 mixer (256 SSD heads
+    of 64, state 128) with its 16-expert top-2 MoE of d_ff 24576, then an
+    attention layer (64 heads over 8 of 128) with a dense MLP of 24576 —
+    one of each of its layer kinds at the published widths (11.9 B params,
+    23.8 GB bf16); built here only, never as a config."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name}-cut2", num_layers=2,
+        layer_pattern=("mamba", "attn"), mlp_pattern=("moe", "mlp"),
+    ).validate()
+
+
+def _served(tag: str, cfg, params, cells: tuple) -> dict:
+    """``_held_streams`` on the named cells of ``_cell_plans``; returns
+    {path: launches}."""
+    plans = _cell_plans()
+    outs = _held_streams(tag, cfg, params, {c: plans[c] for c in cells})
+    return {f"{cfg.name} {c}": out["launches"] for c, out in outs.items()}
+
+
+def deepseek_phase() -> dict:
+    """deepseek-67b (bf16, 64 heads over 8 of 128: a GQA group of 8, B2's Q
+    by TMA) on 16 of its 95 layers: phase 3's paged bf16 cell, dense cell
+    (a) and the burst cell, and the prompt-then-burst path (prefill 8 x
+    256, 32 burst tokens, forward), held as olmo-1b's."""
+    from repro_torch.configs import get_config
+
+    cfg = _depth_cut(get_config(DEEPSEEK), PHASE10_LAYERS[DEEPSEEK],
+                     "families")
+    params = _seeded(cfg, "deepseek")
+    paths = _served("deepseek", cfg, params,
+                    ("paged bf16", "continuous", "burst"))
+    paths[f"{cfg.name} prompt+burst"] = prompt_then_burst(cfg, params)
+    del params
+    _release_engines()
+    return paths
+
+
+def grok_phase() -> dict:
+    """grok-1-314b (bf16, 48 heads over 8 of 128: a GQA group of 6 — B2/B4
+    take the 16-byte Q path, B1/B3/B5 end each kv head in a partial tile of
+    2 rows — softcaps 30/30, 8 experts top-2 of d_ff 32768) on 4 of its 64
+    layers, under "drop": the paged bf16 cell, phase 3's int8+spec paged
+    cell (B3/B4 at group 6 with softcap 30) and the burst cell, graph =
+    eager and launches held; the prompt+burst path at 2 x 512 and one
+    decode step per policy at 2 rows, logged in bf16 (random experts route
+    chaotically) and held on fp32 weights of its first layer (~26 GB; the
+    bf16 weights are released as they are widened)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = _depth_cut(get_config(GROK), PHASE10_LAYERS[GROK], "families")
+    params = _seeded(cfg, "grok")
+    paths = _served("grok", cfg, params,
+                    ("paged bf16", "paged int8+spec", "burst"))
+    pb = dict(b=2, prompt_len=512, moe_policy="dense")
+    paths[f"{cfg.name} prompt+burst"] = prompt_then_burst(
+        cfg, params, hold=False, **pb)
+    _moe_policies_step([("bf16", cfg, params)], slots=2)
+    _release_engines()
+    c32 = dataclasses.replace(cfg, dtype="float32", num_layers=1).validate()
+    p32 = {}
+    for k in list(params):
+        t = params.pop(k)
+        p32[k] = (t[:1] if k.startswith("blocks.") else t).float()
+        del t
+    del params
+    _release_engines()
+    log(f"[grok] fp32 weights of layer 0 "
+        f"({sum(t.numel() * 4 for t in p32.values()) / 1e9:.2f} GB)")
+    paths[f"{cfg.name} fp32 prompt+burst"] = prompt_then_burst(
+        c32, p32, logit_tol=STEP_LOGIT_ATOL, **pb)
+    _moe_policies_step([("fp32", c32, p32)], slots=2)
+    del p32
+    _release_engines()
+    return paths
+
+
+def jamba_phase() -> dict:
+    """jamba-1.5-large-398b: (a) its smoke config card (graphs) = CPU
+    through the dense continuous engine (``cb``; prompts token by token, as
+    for any SSM slot) and the burst engine; (b) its two-layer full-width
+    cut (``_jamba_cut``): ``prefill`` over 2 x 1024 (B8 at 256 heads, B6 at
+    group 8), 32 burst tokens (B5), ``forward``, then a dense continuous
+    stream (``cb``, B1 over the page view) and the burst cell, graph =
+    eager and launches held; kernels vs the plain path (B6 vs the naive
+    attention, B8 vs ``ssd_scan``, the burst vs ``forward``) held on fp32
+    weights, logged in bf16 (random experts route chaotically)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    smoke_card_vs_cpu_of(JAMBA, "jamba", engines=("continuous", "burst"))
+    cfg = _jamba_cut(get_config(JAMBA))
+    params = _seeded(cfg, "jamba")
+    pb = dict(b=2, prompt_len=1024, moe_policy="dense", max_len=1088)
+    paths = {f"{cfg.name} prompt+burst": prompt_then_burst(
+        cfg, params, hold=False, **pb)}
+    paths.update(_served("jamba", cfg, params, ("continuous", "burst")))
+    _release_engines()
+    for k in list(params):  # widened in place: the bf16 copy goes as it does
+        params[k] = params[k].float()
+    _release_engines()
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    log(f"[jamba] fp32 weights of the cut "
+        f"({sum(t.numel() * 4 for t in params.values()) / 1e9:.2f} GB)")
+    paths[f"{cfg.name} fp32 prompt+burst"] = prompt_then_burst(
+        c32, params, logit_tol=STEP_LOGIT_ATOL, **pb)
+    del params
+    _release_engines()
+    return paths
+
+
+def embeddings_prompt_then_step(arch: str) -> dict:
+    """An embeddings-input arch at full width and depth (bf16, seeded
+    weights, no token embedding table): seeded ``[8, 256, D]`` embeddings
+    through ``prefill`` (B6), ``pad_cache`` to 1024, ``set_mode`` and a
+    one-step ``decode_loop`` fed ``[8, D]`` embeddings (B5, through the
+    graph target's ``[8, 1, D]`` bf16 input), then ``forward`` over the 257
+    positions (B6), with the counts set to 0 just before and read after.
+    Held: the launches, ``prefill``'s last logits against ``forward``'s at
+    position 255 and the step's tokens against ``forward``'s position 256
+    (``STEP_LOGIT_ATOL``), ``forward`` B6 against the naive attention, and
+    the step through an eager target (graph = eager)."""
+    from repro_torch import kernels, models
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph_target import WARMUP_RUNS
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.serve import GREEDY, Engine, EngineConfig
+
+    cfg = get_config(arch)
+    params = _seeded(cfg, "embeddings")
+    check("embed.embedding" not in params, f"{arch}: an embedding table")
+    b, prompt_len, max_len = 8, 256, 1024
+    g = torch.Generator().manual_seed(11)
+    emb = torch.randn(b, prompt_len + 1, cfg.d_model, generator=g).to(
+        "cuda", dtype_of(cfg))
+    prompt, nxt = emb[:, :prompt_len], emb[:, prompt_len]
+    ecfg = dict(max_len=max_len, max_batch=b, batch_quantum=4)
+    layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()  # this path's run starts here
+    t0 = time.perf_counter()
+    last, cache = steps.make_prefill_fn(cfg)(params, prompt)
+    cache = models.pad_cache(cfg, cache, max_len)
+    with Engine(cfg, params, EngineConfig(**ecfg)) as eng:
+        check(eng.graphs, f"{arch}: the burst target is not a CUDA graph")
+        eng.set_mode(batch=b, sampling=GREEDY)
+        toks, _ = eng.decode_loop(_into_burst_cache(eng, b, cache), nxt,
+                                  prompt_len, 1)
+        replays = eng._current.graph.replays
+        static = eng._current.static_inputs[0]
+        check(tuple(static.shape) == (b, 1, cfg.d_model)
+              and static.dtype == dtype_of(cfg),
+              f"{arch}: the graph's input is {tuple(static.shape)} "
+              f"{static.dtype}")
+    logits, _ = models.forward(cfg, params, emb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(f"{arch} prompt+step",
+                         ("flash_attention", "decode_attention"))
+    want = {"flash_attention": 2 * layers,
+            "decode_attention": layers * (WARMUP_RUNS + replays)}
+    for name, n in want.items():
+        check(launches[name] == n, f"{arch} prompt+step: {name} launched "
+              f"{launches[name]} times, expected {n}")
+    check(toks.shape == (b, 1) and bool(torch.isfinite(logits).all())
+          and logits.shape == (b, prompt_len + 1, cfg.vocab_size),
+          f"{arch}: tokens {toks.shape}, logits {tuple(logits.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+    w, kv = _reckoned(cfg, "burst", ecfg, None)
+    pre = (last.float() - logits[:, prompt_len - 1].float()).abs().max().item()
+    gen = logits[:, prompt_len].float()
+    chosen = torch.from_numpy(toks[:, 0]).to("cuda").long()
+    lead = (gen.max(-1).values - gen.gather(-1, chosen[:, None])[:, 0]).max()
+    naive, _ = models.forward(cfg, params, emb, impl="naive")
+    err = (logits - naive).abs().max().item()
+    del naive
+    with Engine(cfg, params, EngineConfig(**ecfg, cuda_graphs=False)) as eng:
+        eng.set_mode(batch=b, sampling=GREEDY)
+        eager, _ = eng.decode_loop(cache, nxt[:, None], prompt_len, 1)
+    check(pre <= STEP_LOGIT_ATOL and float(lead) < STEP_LOGIT_ATOL
+          and err <= STEP_LOGIT_ATOL,
+          f"{arch}: prefill vs forward {pre:.4f}, forward's lead over the "
+          f"step's token {float(lead):.4f}, B6 vs naive {err:.4f} (tolerance "
+          f"{STEP_LOGIT_ATOL})")
+    check((toks == eager).all(), f"{arch}: graph and eager one-step tokens "
+          f"differ on {int((toks != eager).sum())} rows")
+    log(f"[embeddings] {arch}: prefill {b}x{prompt_len}x{cfg.d_model} "
+        f"embeddings (B6), pad_cache to {max_len}, one decode step on [{b}, "
+        f"1, {cfg.d_model}] {cfg.dtype} embeddings through the graph target "
+        f"(B5), forward over {prompt_len + 1} positions (B6) in {wall:.2f}s "
+        f"| prefill's last logits vs forward's max abs {pre:.4f}, forward's "
+        f"top logit leads the step's token by {float(lead):.4f}, forward B6 "
+        f"vs naive {err:.4f} (tolerance {STEP_LOGIT_ATOL}); graph = eager on "
+        f"{b} rows | launches {launches} | peak {peak / 1e9:.2f} GB against "
+        f"reckoned weights {w / 1e9:.3f} GB + burst caches {kv / 1e9:.3f} GB"
+        f" | {_card()}")
+    del params, cache, logits
+    _release_engines()
+    return launches
+
+
+def embeddings_smoke_card_vs_cpu(arch: str) -> None:
+    """The smoke config's one-step path (fp32, TF32 off): ``[4, 12, 64]``
+    embeddings through ``prefill``, ``pad_cache`` and a one-step
+    ``decode_loop``, greedy and sampled, on the card (graph target) and on
+    the CPU: tokens equal (a greedy one may flip only at a near-tie of the
+    CPU's logits)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.serve import (
+        GREEDY,
+        SAMPLE,
+        Engine,
+        EngineConfig,
+    )
+
+    cfg = get_config(arch).smoke()
+    params = models.init_params(cfg, seed=0)
+    g = torch.Generator().manual_seed(12)
+    emb = torch.randn(4, 13, cfg.d_model, generator=g)
+    key = torch.tensor([0, 7], dtype=torch.int32)
+    ecfg = EngineConfig(max_len=32, max_batch=4, batch_quantum=4)
+    for mode in (GREEDY, SAMPLE):
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            p = {k: v.to(dev) for k, v in params.items()}
+            e = emb.to(dev)
+            _, cache = models.prefill(cfg, p, e[:, :12])
+            cache = models.pad_cache(cfg, cache, 32)
+            with Engine(cfg, p, ecfg, device=dev) as eng:
+                check(eng.graphs == (dev == "cuda"),
+                      f"{arch} smoke {dev}: cuda_graphs {eng.graphs}")
+                eng.set_mode(batch=4, sampling=mode)
+                if eng.graphs:
+                    cache = _into_burst_cache(eng, 4, cache)
+                toks[dev], _ = eng.decode_loop(cache, e[:, 12], 12, 1,
+                                               rng=key)
+        same = toks["cuda"] == toks["cpu"]
+        if not same.all():
+            check(mode == GREEDY, f"{arch} smoke: sampled tokens differ")
+            logits, _ = models.forward(cfg, params, emb)
+            top2 = logits[:, -1].topk(2).values
+            gap = (top2[:, 0] - top2[:, 1])[torch.from_numpy(~same[:, 0])]
+            check(bool((gap < TIE_MARGIN).all()),
+                  f"{arch} smoke: card != CPU, top-2 gaps {gap.tolist()}")
+        tag = "greedy" if mode == GREEDY else "sampled"
+        log(f"[embeddings:smoke] {arch} {tag}: one-step tokens card (graph) "
+            f"= CPU on {int(same.sum())} of 4 rows")
+
+
+def families_phase() -> dict:
+    """Phase 10: deepseek-67b, grok-1-314b, jamba-1.5-large-398b,
+    internvl2-1b and musicgen-medium. Returns {path: launches}."""
+    paths = deepseek_phase()
+    paths.update(grok_phase())
+    paths.update(jamba_phase())
+    for arch in EMBEDS:
+        paths[f"{arch} prompt+step"] = embeddings_prompt_then_step(arch)
+        embeddings_smoke_card_vs_cpu(arch)
+    return paths
+
+
 def _time_case(label: str, fn, call, plain, library, nbytes: int, ops: int,
-               dtype, kernel: str) -> dict:
+               dtype, kernel: str, yardstick=None) -> dict:
     """One kernel call at a new shape: held against its plain version, then
-    kernel ms per call, device-only, plain, library and the bound.
+    kernel ms per call, device-only, plain, library (None: no PyTorch call
+    computes this function) and the bound; ``yardstick``, where given, is
+    SDPA on the same inputs without the softcap, which SDPA cannot apply.
     Timing launches are not a path's launches."""
     out, ref = call(), plain()
     torch.cuda.synchronize()
@@ -3947,9 +4311,12 @@ def _time_case(label: str, fn, call, plain, library, nbytes: int, ops: int,
     fn.launches = saved
     dev = _device_only(fn, call, kernel)
     plain_ms = _median_ms(plain)
-    library_ms = None
+    library_ms = yard_ms = None
     try:
-        library_ms = _median_ms(library)
+        if library is not None:
+            library_ms = _median_ms(library)
+        if yardstick is not None:
+            yard_ms = _median_ms(yardstick)
     except RuntimeError as e:  # a yardstick only: the port never calls it
         log(f"[timing:new] {label}: sdpa not timed ({e})")
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
@@ -3959,21 +4326,31 @@ def _time_case(label: str, fn, call, plain, library, nbytes: int, ops: int,
         f"{_fmt_ms(dev['profiled_ms'])} profiled, "
         f"{_fmt_ms(dev['queued_ms'])} by queued events), plain "
         f"{plain_ms:.4f} ms, sdpa "
-        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
-        f"{bound_ms:.4f} ms ({by}), max abs err {err:.3g}")
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}"
+        + ("" if yardstick is None else
+           f" (sdpa without the softcap {_fmt_ms(yard_ms)})")
+        + f", bound {bound_ms:.4f} ms ({by}), max abs err {err:.3g}")
+    extra = {} if yardstick is None else {"sdpa_no_softcap_ms": yard_ms}
     return {"max_abs_err": err, "ms": ms, **dev, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by}
+            "library_ms": library_ms, **extra, "bound_ms": bound_ms,
+            "bound_by": by}
 
 
 def time_new_shapes() -> dict:
-    """B1, B2, B5 and B6 at the shapes phases 8 and 9 give them — group 5
+    """B1, B2, B5 and B6 at the shapes phases 8-10 give them — group 5
     (qwen3-14b: 40 heads over 8 of 128, bf16), window 4096 at positions
     past it (gemma2-27b: 32 over 16 of 128, bf16; the softcap left out so
     that SDPA computes the same function), fp32 head_dim 64 (hft-demo: 4
     over 4 of 64, window 128), bf16 head_dim 64 (granite-moe: 16 over 8 of
-    64, group 2; B4 too, over int8 pages) — against their plain versions
-    and SDPA, with the bound from the bytes and pairs this data needs.
-    Returns {kernel: {shape: numbers}}."""
+    64, group 2; B3 and B4 too, over int8 pages), group 6 with softcap 30
+    (grok-1-314b: 48 over 8 of 128; B4 too; SDPA cannot apply a softcap,
+    so it is timed without one beside the kernel, as a yardstick) and
+    group 8 (deepseek-67b and jamba: 64 over 8 of 128; B4 too), and B5 and
+    B6 alone at group 7 (internvl2-1b: 14 over 2 of 64) and MHA 24
+    (musicgen-medium: 24 over 24 of 64) — against their plain versions and
+    SDPA, with the bound from the bytes and pairs this data needs; and B8
+    at jamba's 256 SSD heads (2 x 1024 tokens). Returns {kernel: {shape:
+    numbers}}."""
     import torch.nn.functional as F
 
     from repro_torch import kernels
@@ -3984,24 +4361,40 @@ def time_new_shapes() -> dict:
     def add(name, shape, numbers):
         out.setdefault(name, {})[shape] = numbers
 
+    bf16 = torch.bfloat16
+    pos8 = [96, 120, 150, 180, 200, 220, 240, 255]
+    starts8 = [0, 64, 128, 192, 0, 64, 128, 192]
+    b1256 = {"B1", "B2", "B5", "B6"}
+    # h, kh, dh, dtype, window, rows, table, positions, chunk starts,
+    # dense cache length and position, B6's tokens, softcap, kernels
     for shape, (h, kh, dh, dtype, window, rows, table, pos, starts, cache_len,
-                dense_pos, seq) in {
-        "group 5": (40, 8, 128, torch.bfloat16, None, 8, 16,
-                    [96, 120, 150, 180, 200, 220, 240, 255],
-                    [0, 64, 128, 192, 0, 64, 128, 192], 1024, 255, 1024),
-        "window 4096": (32, 16, 128, torch.bfloat16, 4096, 2, 512,
-                        [5000, 8191], [5000, 8128], 8192, 5000, 5120),
-        "fp32 dh 64": (4, 4, 64, torch.float32, 128, 8, 16,
-                       [96, 120, 150, 180, 200, 220, 240, 255],
-                       [0, 64, 128, 192, 0, 64, 128, 192], 1024, 255, 1024),
-        "granite bf16 dh 64": (16, 8, 64, torch.bfloat16, None, 8, 16,
-                               [96, 120, 150, 180, 200, 220, 240, 255],
-                               [0, 64, 128, 192, 0, 64, 128, 192], 1024, 255,
-                               1024),
+                dense_pos, seq, softcap, which) in {
+        "group 5": (40, 8, 128, bf16, None, 8, 16, pos8, starts8, 1024, 255,
+                    1024, None, b1256),
+        "window 4096": (32, 16, 128, bf16, 4096, 2, 512, [5000, 8191],
+                        [5000, 8128], 8192, 5000, 5120, None, b1256),
+        "fp32 dh 64": (4, 4, 64, torch.float32, 128, 8, 16, pos8, starts8,
+                       1024, 255, 1024, None, b1256),
+        "granite bf16 dh 64": (16, 8, 64, bf16, None, 8, 16, pos8, starts8,
+                               1024, 255, 1024, None, b1256 | {"B3", "B4"}),
+        "grok group 6 softcap 30": (48, 8, 128, bf16, None, 8, 16, pos8,
+                                    starts8, 1024, 255, 1024, 30.0,
+                                    b1256 | {"B4"}),
+        "deepseek group 8": (64, 8, 128, bf16, None, 8, 16, pos8, starts8,
+                             1024, 255, 1024, None, b1256 | {"B4"}),
+        "internvl2 group 7 dh 64": (14, 2, 64, bf16, None, 8, 16, pos8,
+                                    starts8, 1024, 255, 1024, None,
+                                    {"B5", "B6"}),
+        "musicgen MHA 24 dh 64": (24, 24, 64, bf16, None, 8, 16, pos8,
+                                  starts8, 1024, 255, 1024, None,
+                                  {"B5", "B6"}),
     }.items():
         g = torch.Generator().manual_seed(31)
         el = torch.tensor([], dtype=dtype).element_size()
-        kw = dict(window=window)
+        kw = dict(window=window, softcap=softcap)
+
+        def lib(fn):  # (library, yardstick): SDPA applies no softcap
+            return (None, fn) if softcap is not None else (fn, None)
         n_pages = rows * table + 1
         kp, vp = (torch.randn(n_pages, ps, kh, dh, generator=g).to(dev, dtype)
                   for _ in range(2))
@@ -4022,44 +4415,70 @@ def time_new_shapes() -> dict:
         q1 = torch.randn(rows, h, dh, generator=g).to(dev, dtype)
         ok = visible(pt.long())
         keys = int(ok.sum())
-        add("paged_decode_attention", shape, _time_case(
-            f"paged_decode_attention {shape} q{tuple(q1.shape)} table "
-            f"{tuple(bt.shape)}", kernels.paged_decode_attention,
-            lambda: kernels.paged_decode_attention(q1, kp, vp, bt, pt, **kw),
-            lambda: kernels.paged_decode_attention_plain(
-                q1.float(), kp.float(), vp.float(), bt, pt, **kw),
-            lambda: F.scaled_dot_product_attention(
+        if "B1" in which:
+            sdpa = lib(lambda: F.scaled_dot_product_attention(
                 q1[:, :, None], gk, gv, attn_mask=ok[:, None, None],
-                enable_gqa=True),
-            2 * keys * kh * dh * el + 2 * q1.numel() * el
-            + 4 * rows * (table + 1),
-            4 * dh * keys * h, dtype, "paged_decode_split"))
+                enable_gqa=True))
+            add("paged_decode_attention", shape, _time_case(
+                f"paged_decode_attention {shape} q{tuple(q1.shape)} table "
+                f"{tuple(bt.shape)}", kernels.paged_decode_attention,
+                lambda: kernels.paged_decode_attention(q1, kp, vp, bt, pt,
+                                                       **kw),
+                lambda: kernels.paged_decode_attention_plain(
+                    q1.float(), kp.float(), vp.float(), bt, pt, **kw),
+                sdpa[0], 2 * keys * kh * dh * el + 2 * q1.numel() * el
+                + 4 * rows * (table + 1),
+                4 * dh * keys * h, dtype, "paged_decode_split",
+                yardstick=sdpa[1]))
         # B2: a chunk of 64 a row
         st = torch.tensor(starts, dtype=torch.int32, device=dev)
         qc = torch.randn(rows, 64, h, dh, generator=g).to(dev, dtype)
         qi = st[:, None].long() + torch.arange(64, device=dev)[None]
         okc = visible(qi)
         keys_c = int(okc.any(1).sum())
-        add("paged_prefill_attention", shape, _time_case(
-            f"paged_prefill_attention {shape} q{tuple(qc.shape)} table "
-            f"{tuple(bt.shape)}", kernels.paged_prefill_attention,
-            lambda: kernels.paged_prefill_attention(qc, kp, vp, bt, st, **kw),
-            lambda: kernels.paged_prefill_attention_plain(
-                qc.float(), kp.float(), vp.float(), bt, st, **kw),
-            lambda: F.scaled_dot_product_attention(
+        if "B2" in which:
+            sdpa = lib(lambda: F.scaled_dot_product_attention(
                 qc.transpose(1, 2), gk, gv, attn_mask=okc[:, None],
-                enable_gqa=True),
-            2 * keys_c * kh * dh * el + 2 * qc.numel() * el
-            + 4 * rows * (table + 1),
-            4 * dh * int(okc.sum()) * h, dtype, "paged_prefill"))
-        if dtype == torch.bfloat16 and dh == 64:
-            # B4: the same chunks over the pool quantised to int8; the
+                enable_gqa=True))
+            add("paged_prefill_attention", shape, _time_case(
+                f"paged_prefill_attention {shape} q{tuple(qc.shape)} table "
+                f"{tuple(bt.shape)}", kernels.paged_prefill_attention,
+                lambda: kernels.paged_prefill_attention(qc, kp, vp, bt, st,
+                                                        **kw),
+                lambda: kernels.paged_prefill_attention_plain(
+                    qc.float(), kp.float(), vp.float(), bt, st, **kw),
+                sdpa[0], 2 * keys_c * kh * dh * el + 2 * qc.numel() * el
+                + 4 * rows * (table + 1),
+                4 * dh * int(okc.sum()) * h, dtype, "paged_prefill",
+                yardstick=sdpa[1]))
+        if which & {"B3", "B4"}:
+            # B3/B4: the same rows over the pool quantised to int8; the
             # library call on the dequantised rows, gathered before timing
             (kq, ks), (vq, vs) = _quantised(kp.float()), _quantised(vp.float())
             gk8, gv8 = ((p_[bt.long()].float() * s_[bt.long()][..., None, None])
                         .reshape(rows, table * ps, kh, dh).transpose(1, 2)
                         .to(dtype).contiguous()
                         for p_, s_ in ((kq, ks), (vq, vs)))
+        if "B3" in which:
+            sdpa = lib(lambda: F.scaled_dot_product_attention(
+                q1[:, :, None], gk8, gv8, attn_mask=ok[:, None, None],
+                enable_gqa=True))
+            add("paged_decode_attention_int8", shape, _time_case(
+                f"paged_decode_attention_int8 {shape} q{tuple(q1.shape)} "
+                f"table {tuple(bt.shape)}",
+                kernels.paged_decode_attention_int8,
+                lambda: kernels.paged_decode_attention_int8(
+                    q1, kq, vq, ks, vs, bt, pt, **kw),
+                lambda: kernels.paged_decode_attention_int8_plain(
+                    q1.float(), kq, vq, ks, vs, bt, pt, **kw),
+                sdpa[0], 2 * keys * (kh * dh + 4) + 2 * q1.numel() * el
+                + 4 * rows * (table + 1),
+                4 * dh * keys * h, dtype, "paged_decode_split",
+                yardstick=sdpa[1]))
+        if "B4" in which:
+            sdpa = lib(lambda: F.scaled_dot_product_attention(
+                qc.transpose(1, 2), gk8, gv8, attn_mask=okc[:, None],
+                enable_gqa=True))
             add("paged_prefill_attention_int8", shape, _time_case(
                 f"paged_prefill_attention_int8 {shape} q{tuple(qc.shape)} "
                 f"table {tuple(bt.shape)}",
@@ -4068,12 +4487,11 @@ def time_new_shapes() -> dict:
                     qc, kq, vq, ks, vs, bt, st, **kw),
                 lambda: kernels.paged_prefill_attention_int8_plain(
                     qc.float(), kq, vq, ks, vs, bt, st, **kw),
-                lambda: F.scaled_dot_product_attention(
-                    qc.transpose(1, 2), gk8, gv8, attn_mask=okc[:, None],
-                    enable_gqa=True),
-                2 * keys_c * (kh * dh + 4) + 2 * qc.numel() * el
+                sdpa[0], 2 * keys_c * (kh * dh + 4) + 2 * qc.numel() * el
                 + 4 * rows * (table + 1),
-                4 * dh * int(okc.sum()) * h, dtype, "paged_prefill"))
+                4 * dh * int(okc.sum()) * h, dtype, "paged_prefill",
+                yardstick=sdpa[1]))
+        if which & {"B3", "B4"}:
             del kq, vq, gk8, gv8
         del kp, vp, gk, gv
         # B5: every row at one position of a [rows, cache_len, KH, dh] cache
@@ -4085,17 +4503,18 @@ def time_new_shapes() -> dict:
         if window is not None:
             okd &= kd > dense_pos - window
         seen = int(okd.sum())
+        sdpa = lib(lambda: F.scaled_dot_product_attention(
+            q1[:, :, None], ck, cv, attn_mask=okd[None, None, None],
+            enable_gqa=True))
         add("decode_attention", shape, _time_case(
             f"decode_attention {shape} q{tuple(q1.shape)} cache "
             f"{tuple(ck.shape)} pos {dense_pos}", kernels.decode_attention,
             lambda: kernels.decode_attention(q1, ck, cv, p0, **kw),
             lambda: kernels.decode_attention_plain(
                 q1.float(), ck.float(), cv.float(), p0, **kw),
-            lambda: F.scaled_dot_product_attention(
-                q1[:, :, None], ck, cv, attn_mask=okd[None, None, None],
-                enable_gqa=True),
-            2 * rows * seen * kh * dh * el + 2 * q1.numel() * el + 4,
-            4 * dh * rows * seen * h, dtype, "dense_decode_split"))
+            sdpa[0], 2 * rows * seen * kh * dh * el + 2 * q1.numel() * el + 4,
+            4 * dh * rows * seen * h, dtype, "dense_decode_split",
+            yardstick=sdpa[1]))
         del ck, cv
         # B6: causal (and the window) over seq tokens
         b6 = 1 if seq > 1024 else 2
@@ -4106,18 +4525,19 @@ def time_new_shapes() -> dict:
         if window is not None:
             okf &= qs[None] > qs[:, None] - window
         pairs = b6 * h * int(okf.sum())
+        sdpa = lib(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=okf, enable_gqa=True))
         add("flash_attention", shape, _time_case(
             f"flash_attention {shape} q{tuple(q.shape)} causal window "
-            f"{window}", kernels.flash_attention,
+            f"{window} softcap {softcap}", kernels.flash_attention,
             lambda: kernels.flash_attention(q, k, v, causal=True, **kw),
             lambda: kernels.flash_attention_plain(
                 q.float(), k.float(), v.float(), causal=True, **kw),
-            lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=okf, enable_gqa=True),
-            (2 * q.numel() + k.numel() + v.numel()) * el, 4 * dh * pairs,
-            dtype, "flash_"))
+            sdpa[0], (2 * q.numel() + k.numel() + v.numel()) * el,
+            4 * dh * pairs, dtype, "flash_", yardstick=sdpa[1]))
         del q, k, v
         torch.cuda.empty_cache()
+    add("ssd_chunk", "jamba 256 heads", _time_ssd(2, 1024, 256))
     return out
 
 
@@ -4165,9 +4585,12 @@ def main() -> int:
     paths = configs_phase()
     t9 = time.perf_counter()
     granite = granite_phase()
-    granite_smoke_card_vs_cpu()
+    smoke_card_vs_cpu_of(GRANITE, "granite")
     t9 = time.perf_counter() - t9
     paths.update(granite["paths"])
+    t10 = time.perf_counter()
+    paths.update(families_phase())
+    t10 = time.perf_counter() - t10
     new = time_new_shapes()
     for row in rows:
         if row["name"] in new:
@@ -4176,11 +4599,13 @@ def main() -> int:
             {path: counts.get(row["name"], 0)
              for path, counts in paths.items()})
     end = time.perf_counter()
-    log(f"[done] all phases passed in {end - t0:.1f}s; phases 8 and 9 "
-        f"(three configs, granite-moe, new-shape timing) {end - t8:.1f}s, "
-        f"{100 * (end - t8) / (end - t0):.1f}% of it, of which phase 9 "
-        f"(granite-moe at full width and its smoke card = CPU) {t9:.1f}s; "
-        f"phase 3d (async vs sync) {t_async:.1f}s")
+    log(f"[done] all phases passed in {end - t0:.1f}s; phases 8-10 "
+        f"(three configs, granite-moe, the last five archs, new-shape "
+        f"timing) {end - t8:.1f}s, {100 * (end - t8) / (end - t0):.1f}% of "
+        f"it, of which phase 9 (granite-moe at full width and its smoke card "
+        f"= CPU) {t9:.1f}s and phase 10 (deepseek-67b, grok-1-314b, jamba, "
+        f"internvl2-1b, musicgen-medium) {t10:.1f}s; phase 3d (async vs "
+        f"sync) {t_async:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,16 @@ also serves ``--arch mamba2-370m`` on the SSM's recurrent state (the paged
 engine refuses an SSM arch). ``--engine both`` runs the continuous engine
 and then the burst engine on the same prompt-less stream, the JAX
 package's default. ``--async-steps`` (``--async-depth``) pipelines the
-continuous and paged engines' steps. Each reports latency percentiles, TTFT, throughput and
-cold-path activity (builds after warmup, rebinds; for burst, mode
-switches; on the card every build is a CUDA-graph capture, and
+continuous and paged engines' steps. ``--arch`` names any config of
+``repro_torch.configs``: olmo-1b, qwen3-14b, gemma2-27b, hft-demo,
+deepseek-67b (dense), granite-moe-1b-a400m and grok-1-314b (MoE),
+mamba2-370m (SSM) and jamba-1.5-large-398b (hybrid: attention and mamba
+layers; the paged engine refuses it, as any stack with a mamba layer). The
+embeddings-input archs internvl2-1b and musicgen-medium are refused: a
+stream feeds sampled ids back, and they have no token embedding table.
+Each reports latency percentiles, TTFT, throughput and cold-path
+activity (builds after warmup, rebinds; for burst, mode switches; on the
+card every build is a CUDA-graph capture, and
 ``cuda_graphs`` says the targets were graphs). Weights are a seeded random
 init. Runs on the GPU unless ``--device cpu``:
 
@@ -233,6 +240,12 @@ def _config(args: argparse.Namespace):
 def main(argv: list[str] | None = None) -> dict:
     args = parse_args(argv)
     cfg = _config(args)
+    if cfg.input_kind != "tokens":
+        raise SystemExit(
+            f"{cfg.name} has a stub modality frontend; the serving loop "
+            f"feeds sampled ids back and needs a token-input arch "
+            f"(e.g. olmo-1b)."
+        )
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")

@@ -85,10 +85,14 @@ def apply_rope(
 
 # --------------------------------------------------------------- embeddings
 def embed_apply(
-    cfg: ArchConfig, embedding: torch.Tensor, tokens: torch.Tensor
+    cfg: ArchConfig, params: dict, inputs: torch.Tensor
 ) -> torch.Tensor:
-    """tokens [B,S] -> [B,S,D]."""
-    x = embedding[tokens]
+    """tokens [B,S] -> [B,S,D], or stub-frontend embeddings [B,S,D] passed
+    through in the model dtype (``input_kind="embeddings"``)."""
+    if cfg.input_kind == "tokens":
+        x = params["embed.embedding"][inputs]
+    else:
+        x = inputs.to(dtype_of(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -98,7 +102,7 @@ def head_apply(
     cfg: ArchConfig, params: dict, x: torch.Tensor
 ) -> torch.Tensor:
     """Logits in float32: the product runs in the model dtype, then casts."""
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and cfg.input_kind == "tokens":
         logits = x @ params["embed.embedding"].T
     else:
         logits = x @ params["head.lm_head"]

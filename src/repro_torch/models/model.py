@@ -4,8 +4,8 @@ draft): counterpart of ``repro.models.model``, inference only.
 
 Params are a flat ``dict[str, Tensor]`` keyed by the JAX pytree's paths::
 
-    "embed.embedding"            [V, D]
-    "head.lm_head"               [D, V]      (untied heads only)
+    "embed.embedding"            [V, D]      (token inputs only)
+    "head.lm_head"               [D, V]      (untied or embeddings heads)
     "final_norm.scale"           [D]         (rmsnorm only)
     "blocks.{slot}.attn.wq"      [m, D, H, dh]   ... stacked [m, ...] per
     "blocks.{slot}.mlp.w_gate"   [m, D, F]       period slot, as in JAX
@@ -63,8 +63,6 @@ def init_params(
     time), each scaled and cast into the model-dtype tensor, so the peak
     is the weights plus one slab (gemma2-27b's stacked MLP weight would
     otherwise be a 15.6 GB f32 temporary on top of 54 GB of bf16)."""
-    if cfg.input_kind != "tokens":
-        raise ValueError(f"{cfg.name}: embedding-input frontends are not ported")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dt = dtype_of(cfg)
@@ -91,8 +89,11 @@ def init_params(
         return torch.zeros(shape, dtype=dtype, device=device)
 
     rms = cfg.norm == "rmsnorm"
-    params = {"embed.embedding": normal((cfg.vocab_size, d), 0.02)}
-    if not cfg.tie_embeddings:
+    tokens = cfg.input_kind == "tokens"
+    params = {}
+    if tokens:  # an embeddings arch's stub frontend has no table
+        params["embed.embedding"] = normal((cfg.vocab_size, d), 0.02)
+    if not (cfg.tie_embeddings and tokens):
         params["head.lm_head"] = normal((d, cfg.vocab_size), 0.02)
     if rms:
         params["final_norm.scale"] = zeros(d)
@@ -229,14 +230,16 @@ def forward(
     impl: str = "kernel",
     moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """inputs: i32[B,S] tokens. Returns (logits [B,S,V] float32, aux): the
-    JAX package's pair, inference only (no remat, no backward); ``aux`` is
-    the MoE load-balancing term summed over the MoE layers (0 without
-    them), under ``moe_policy`` (``models.moe``). ``impl`` picks the
+    """inputs: i32[B,S] tokens, or [B,S,D] stub-frontend embeddings for an
+    ``input_kind="embeddings"`` arch (as every entry point below). Returns
+    (logits [B,S,V] float32, aux): the JAX package's pair, inference only
+    (no remat, no backward); ``aux`` is the MoE load-balancing term summed
+    over the MoE layers (0 without them), under ``moe_policy``
+    (``models.moe``). ``impl`` picks the
     attention — ``"kernel"`` (B6), ``"naive"``, ``"chunked"`` or
     ``"auto"`` (``perf.current().impl``) — and the SSD scan of mamba
     slots: ``"kernel"`` (B8), else ``ssd_scan``."""
-    x = embed_apply(cfg, params["embed.embedding"], inputs)
+    x = embed_apply(cfg, params, inputs)
     positions = _positions(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers // cfg.period):
@@ -259,11 +262,11 @@ def prefill(
     impl: str = "kernel",
     moe_policy: str = "drop",
 ) -> tuple[torch.Tensor, list]:
-    """Run the full prompt i32[B,S]; returns (last-token logits [B,V]
-    float32, dense cache stacked ``[m, B, S, KH, dh]`` per period slot, or
-    ``{conv, state}`` stacked ``[m, ...]`` for a mamba slot); ``impl`` and
-    ``moe_policy`` as ``forward``."""
-    x = embed_apply(cfg, params["embed.embedding"], inputs)
+    """Run the full prompt i32[B,S] (or embeddings [B,S,D]); returns
+    (last-token logits [B,V] float32, dense cache stacked ``[m, B, S, KH,
+    dh]`` per period slot, or ``{conv, state}`` stacked ``[m, ...]`` for a
+    mamba slot); ``impl`` and ``moe_policy`` as ``forward``."""
+    x = embed_apply(cfg, params, inputs)
     positions = _positions(x)
     per_slot: list[list[dict]] = [[] for _ in range(cfg.period)]
     for i in range(cfg.num_layers // cfg.period):
@@ -311,7 +314,7 @@ def paged_decode_step(
     inputs: i32[B,1] tokens; pos: i32[B]; block_tables: i32[B, pages_bucket].
     Returns (logits [B,V] float32, cache updated in place).
     """
-    x = embed_apply(cfg, params["embed.embedding"], inputs)
+    x = embed_apply(cfg, params, inputs)
     for slot, p, c in _layers(cfg, params, cache):
         x, _ = block_paged_decode(
             cfg, slot, p, x, c, pos, block_tables, attn_impl=attn_impl,
@@ -366,7 +369,7 @@ def _paged_chunk_hidden(
 ) -> torch.Tensor:
     """The chunk tower shared by the paged prompt and verify paths: embed,
     every layer through ``block_paged_prefill``, final norm -> [B,C,D]."""
-    x = embed_apply(cfg, params["embed.embedding"], inputs)
+    x = embed_apply(cfg, params, inputs)
     for slot, p, c in _layers(cfg, params, cache):
         x, _ = block_paged_prefill(
             cfg, slot, p, x, c, start, block_tables, length,
@@ -413,13 +416,13 @@ def decode_step(
 ) -> tuple[torch.Tensor, list]:
     """One token for the whole stack through the dense per-slot cache.
 
-    inputs: i32[B,1]; pos: a 0-dim i32 tensor (the whole batch at one
-    position — the burst engine; attention B5 or plain; an int8 cache
-    raises) or i32[B] per-row positions (the ``cb`` and ``dr`` lanes;
-    attention B1/B3 over the cache's page view, or plain). ``attn_impl``
+    inputs: i32[B,1] (or embeddings [B,1,D]); pos: a 0-dim i32 tensor (the
+    whole batch at one position — the burst engine; attention B5 or plain;
+    an int8 cache raises) or i32[B] per-row positions (the ``cb`` and
+    ``dr`` lanes; attention B1/B3 over the cache's page view, or plain). ``attn_impl``
     picks "kernel" or "plain" either way. Mamba slots ignore ``pos``.
     Returns (logits [B,V] float32, cache updated in place)."""
-    x = embed_apply(cfg, params["embed.embedding"], inputs)
+    x = embed_apply(cfg, params, inputs)
     for slot, p, c in _layers(cfg, params, cache):
         x, _ = block_decode(cfg, slot, p, x, c, pos, attn_impl=attn_impl,
                             moe_policy=moe_policy)
@@ -438,7 +441,7 @@ def _dense_chunk_hidden(
     moe_policy: str,
 ) -> torch.Tensor:
     """The chunk tower over the dense per-slot cache -> normed [B,C,D]."""
-    x = embed_apply(cfg, params["embed.embedding"], inputs)
+    x = embed_apply(cfg, params, inputs)
     for slot, p, c in _layers(cfg, params, cache):
         x, _ = block_chunk_decode(cfg, slot, p, x, c, start, length,
                                   attn_impl=attn_impl, moe_policy=moe_policy)

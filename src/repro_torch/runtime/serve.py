@@ -361,11 +361,22 @@ class Engine:
             moe_policy=self.ecfg.moe_policy,
         )
         i32 = torch.int32
+        tokens = self.cfg.input_kind == "tokens"
         return self._target(
             lanes_mod.BURST.key(batch, mode), step,
-            {"tok": ((batch, 1), i32), "pos": ((), i32), "key": ((2,), i32)},
-            self.burst_cache(batch), dtype_of(self.cfg), chain={2: 0, 3: 1},
+            {"tok": self._burst_input(batch), "pos": ((), i32),
+             "key": ((2,), i32)},
+            self.burst_cache(batch), dtype_of(self.cfg),
+            chain={2: 0, 3: 1} if tokens else {3: 1},
         )
+
+    def _burst_input(self, batch: int) -> tuple:
+        """(shape, dtype) of a burst step's input: i32 token ids
+        ``[B,1]``, or stub-frontend embeddings ``[B,1,D]`` in the model
+        dtype for an embeddings arch."""
+        if self.cfg.input_kind == "tokens":
+            return (batch, 1), torch.int32
+        return (batch, 1, self.cfg.d_model), dtype_of(self.cfg)
 
     def _build_slot_decode(self, slots: int) -> Callable:
         """Branch target for ``("cb", slots)``: the dense continuous decode
@@ -815,7 +826,8 @@ class Engine:
         key = lanes_mod.BURST.key(bucket, sampling)
         exe = self._decode.dispatch(key)
         self._current = exe  # <- the jmp patch (engine-side mirror)
-        out = exe(self.burst_cache(bucket), self._zeros(bucket, 1),
+        shape, dt = self._burst_input(bucket)
+        out = exe(self.burst_cache(bucket), self._zeros(*shape, dtype=dt),
                   self._zeros(), self._zeros(2))
         steps_mod.pull_host(out[0])
         self.stats["mode_switches"] += 1
@@ -838,7 +850,10 @@ class Engine:
     ) -> tuple[np.ndarray, list]:
         """The latency-critical loop: direct calls of the hot slot only.
 
-        ``first_token`` i32[B,1] (B = the bucket ``set_mode`` chose);
+        ``first_token`` i32[B,1] (B = the bucket ``set_mode`` chose), or
+        for an embeddings arch ``[B,D]`` or ``[B,1,D]`` embeddings, cast to
+        the model dtype, with ``num_tokens`` at most 1 (a sampled id has no
+        embedding to feed back, as in the JAX package);
         ``cache`` a dense cache of ``max_len`` rows holding positions before
         ``start_pos`` — with graphs it must be ``burst_cache(B)``, the one
         the target was captured over. Each step's token and position stay
@@ -854,10 +869,20 @@ class Engine:
         exe = self._current
         if exe is None:
             raise DispatchError("set_mode() before decode_loop() (cold path)")
-        tok = torch.as_tensor(first_token, dtype=torch.int32).to(self.device)
+        tokens = self.cfg.input_kind == "tokens"
+        tok = torch.as_tensor(first_token).to(
+            self.device, torch.int32 if tokens else dtype_of(self.cfg))
+        if not tokens and tok.dim() == 2:  # [B,D] -> [B,1,D]
+            tok = tok[:, None]
         batch = int(tok.shape[0])
         if num_tokens <= 0:
             return np.zeros((batch, 0), np.int32), cache
+        if not tokens and num_tokens > 1:
+            raise ValueError(
+                f"{self.cfg.name} has a stub modality frontend (no token "
+                f"embedding table): sampled ids cannot be fed back as "
+                f"embeddings, so decode_loop supports num_tokens=1 only."
+            )
         if isinstance(exe, _GraphStep) and cache is not exe.graph.owned:
             raise ValueError(
                 f"decode_loop: the burst target of bucket {batch} was "

@@ -99,7 +99,10 @@ def make_sampling_decode_fn(
           -> (tok[B], cache, tok_col[B,1], new_pos)
 
     ``pos`` is a 0-dim int32 device tensor (every row at one position);
-    ``tok_col`` and ``new_pos = pos + 1`` are the next step's inputs.
+    ``tok_col`` and ``new_pos = pos + 1`` are the next step's inputs. For
+    an embeddings arch ``inputs`` is ``[B,1,D]`` in the model dtype and
+    stands in for ``tok_col``: a sampled id has no embedding to feed back
+    (``Engine.decode_loop`` takes one step there).
     ``mode`` 0 = greedy (argmax; the key is ignored), 1 = a sample at
     ``temperature``: ``categorical(key, logits / temperature)`` with one
     key over the whole ``[B, V]``, as the JAX package's step draws it
@@ -109,6 +112,7 @@ def make_sampling_decode_fn(
     if mode not in (0, 1):
         raise ValueError(f"mode must be 0 (greedy) or 1 (sample), got {mode}")
     decode = make_decode_fn(cfg, attn_impl=attn_impl, moe_policy=moe_policy)
+    tokens = cfg.input_kind == "tokens"
 
     def step(params, cache, inputs, pos, key):
         logits, cache = decode(params, cache, inputs, pos)
@@ -116,7 +120,7 @@ def make_sampling_decode_fn(
             nxt = logits.argmax(dim=-1).to(torch.int32)
         else:
             nxt = sampling.categorical_rows(key, logits, temperature)
-        return nxt, cache, nxt[:, None], pos + 1
+        return nxt, cache, nxt[:, None] if tokens else inputs, pos + 1
 
     return step
 

@@ -37,6 +37,7 @@ from repro_torch.launch import serve as launch
 from repro_torch.models import attention
 from repro_torch.runtime import scheduler as tsched
 from repro_torch.runtime.serve import Engine, EngineConfig, run_continuous_stream
+from test_torch_paged_decode_split import _one_thread  # noqa: F401 (autouse)
 
 LOGIT_TOL = 1e-5
 VIEW_TOL = 1e-5

@@ -34,6 +34,7 @@ from repro_torch.runtime.scheduler import (
     poisson_arrivals,
     shared_prefix_arrivals,
 )
+from test_torch_paged_decode_split import _one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -42,6 +42,11 @@ SLICE_MODULES = (
     "repro_torch.core.specialization",
     "repro_torch.models.moe",
     "repro_torch.configs.granite_moe_1b_a400m",
+    "repro_torch.configs.deepseek_67b",
+    "repro_torch.configs.grok_1_314b",
+    "repro_torch.configs.jamba_1_5_large_398b",
+    "repro_torch.configs.internvl2_1b",
+    "repro_torch.configs.musicgen_medium",
 )
 
 

@@ -10,7 +10,9 @@ keys weigh exactly 0; keys past the share clamp to its last row), int8
 dot products scaled by the key's ``k_scale`` and p by its ``v_scale``, and
 the one fp32 merge ``exp(m_s - m)`` over lane groups, warps and CTAs —
 against the fp32 plain versions at 1e-5, over GQA groups 1, 5 and 16, pages
-of 8 and 16, every mode, S 1-8 (also past the row's pages: empty splits),
+of 8 and 16, every mode, and the full-width groups 6, 7 (a kv head ending
+in a partial tile of query rows) and 8 at pages of 16 in two modes each,
+S 1-8 (also past the row's pages: empty splits),
 pos 0, a page's last slot and a window whose masked keys fill whole
 partials; ``decode_splits``; the C sources (every entry routes to the
 body, which launches a cluster and merges through distributed shared
@@ -28,7 +30,10 @@ C source launches the split body over ``DenseRows`` in a cluster and the
 old ``dense_decode_kernel`` is gone. On a card (``cuda``): the kernel
 against its plain version over the same S and positions.
 
-Inputs come from a numpy seed. The JAX package is not needed: the plain
+The emulations run on one torch thread (a module fixture, imported by the
+other CPU-heavy port test files): under parallel test workers, torch's
+intra-op threads oversubscribed the cores and slowed a case tenfold or
+more. Inputs come from a numpy seed. The JAX package is not needed: the plain
 versions are held against the Pallas kernels in ``test_torch_kernels.py``
 and ``test_torch_quantkv.py``.
 """
@@ -60,7 +65,24 @@ TOL = 1e-5  # fp32 on both sides, summed in another order
 WARPS = 4  # csrc/paged_decode_split.cuh: kWarps
 MODES = [(None, None), (20, None), (None, 2.0), (20, 2.0)]  # window, softcap
 GROUPS = (1, 5, 16)
+# the full-width groups 6 (grok-1-314b: 48 over 8, softcap 30; a kv head
+# ends in a partial tile of 2 rows), 7 (internvl2-1b: 14 over 2; 3 rows)
+# and 8 (deepseek-67b, jamba: 64 over 8), two modes each at one page size
+NEW_GROUPS = [(6, None, None, False), (6, None, 30.0, True),
+              (7, None, None, False), (7, 20, None, True),
+              (8, None, None, False), (8, 20, 2.0, True)]
 SPLITS = range(1, MAX_SPLITS + 1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The emulations on one torch thread: under parallel test workers,
+    torch's intra-op threads on every worker oversubscribe the cores and
+    slow each case tenfold or more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _layout(page_dtype: torch.dtype, dh: int) -> tuple[int, int]:
@@ -209,6 +231,20 @@ def test_split_emulation_matches_plain(group, ps, window, softcap, int8):
         torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL,
                                    msg=lambda m: f"S={s}: {m}")
     assert stats["empty_ctas"] > 0
+
+
+@pytest.mark.parametrize("group,window,softcap,int8", NEW_GROUPS)
+def test_split_emulation_matches_plain_at_full_width_groups(group, window,
+                                                            softcap, int8):
+    """Groups 6, 7 and 8 at pages of 16: every S 1-8 gives the plain
+    version's result."""
+    q, pages, bt, pos = _case(group, 16, seed=group + int8, int8=int8)
+    kw = dict(window=window, softcap=softcap)
+    ref = _plain(q, pages, bt, pos, **kw)
+    for s in SPLITS:
+        out = _emulate(q, pages, bt, pos, splits=s, **kw)
+        torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL,
+                                   msg=lambda m: f"S={s}: {m}")
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["model_dtype", "int8"])
@@ -517,6 +553,32 @@ def test_cuda_split_kernel_matches_plain_over_splits(
             out = kernel(q, *pages, bt, pos, splits=s, **kw)
             torch.cuda.synchronize()
             assert kernel.launches == before + 1
+            torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0,
+                                       msg=lambda m: f"dh={dh} S={s}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("group,window,softcap,int8", NEW_GROUPS)
+def test_cuda_split_kernel_matches_plain_at_full_width_groups(
+    cuda, group, window, softcap, int8, dtype, atol
+):
+    """Groups 6 and 7 (a partial tile of 2 or 3 query rows a kv head) and
+    8 at pages of 16, dh 128 and 64, every S."""
+    kernel = (kernels.paged_decode_attention_int8 if int8
+              else kernels.paged_decode_attention)
+    for dh in (64, 128):
+        q, pages, bt, pos = _case(group, 16, seed=group, int8=int8, dh=dh)
+        q, bt, pos = q.to(cuda, dtype), bt.to(cuda), pos.to(cuda)
+        pages = tuple(p.to(cuda) for p in pages)
+        if not int8:
+            pages = tuple(p.to(dtype) for p in pages)
+        kw = dict(window=window, softcap=softcap)
+        ref = _plain(q.float(), tuple(p.float() if p.dtype != torch.int8
+                                      else p for p in pages), bt, pos, **kw)
+        for s in SPLITS:
+            out = kernel(q, *pages, bt, pos, splits=s, **kw)
             torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0,
                                        msg=lambda m: f"dh={dh} S={s}: {m}")
 

@@ -8,9 +8,11 @@ which multiplies O's row), an unscaled denominator, 64- or 128-key tiles over
 a ragged page table with the kernel's loop bounds and clamped edge pages)
 against the fp32 plain versions, within the card's bf16 tolerance; the C
 entry points' routing by dtype and head_dim; the wrapper's TMA alignment
-check. On a card (marked ``cuda``, skipped here): the kernels against their
-plain versions over chunks 1-130, GQA groups 1, 5 and 16, pages of 8 and 16
-and every mode, and the wrapper's refusal of a misaligned view.
+check; the same emulation at the full-width GQA groups 6 (Q over the
+16-byte path, softcap 30) and 8 (Q by TMA). On a card (marked ``cuda``,
+skipped here): the kernels against their plain versions over chunks 1-130,
+GQA groups 1, 5 and 16 (and 6 and 8 at chunks 1, 64 and 130), pages of 8
+and 16 and every mode, and the wrapper's refusal of a misaligned view.
 
 Inputs come from a numpy seed. The JAX package is not needed: the plain
 versions are held against the Pallas kernels in ``test_torch_kernels.py``.
@@ -30,6 +32,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.kernels.prefill_attention import _check_tma_operands
 from repro_torch.models import quantise_kv_rows
+from test_torch_paged_decode_split import _one_thread  # noqa: F401 (autouse)
 
 # chip_smoke.py's KERNEL_ATOL[bf16], the kernels' tolerance on the card
 BF16_KERNEL_ATOL = 2e-2
@@ -48,8 +51,9 @@ def _pools(ps: int, kh: int, dh: int, n_pages: int, seed: int):
 
 def _tc_rounding(q, k_pages, v_pages, bt, start, *, window, softcap, tile,
                  k_scale=None, v_scale=None):
-    """The tensor-core body's arithmetic in PyTorch for one 64-row tile of
-    packed rows per (row, kv head) (G = 1): raw page values (int8 exact in
+    """The tensor-core body's arithmetic in PyTorch over the packed rows
+    of each (row, kv head) — a query head's rows see its kv head's keys,
+    so a GQA group only packs more rows into the tile: raw page values (int8 exact in
     bf16), S = q k in fp32 times the K scale of each column, the softcap,
     key tiles from the first row's window to the last row's frontier with
     pages outside [p_lo, p_hi] clamped in and masked, exp2 of logits scaled
@@ -68,16 +72,17 @@ def _tc_rounding(q, k_pages, v_pages, bt, start, *, window, softcap, tile,
         p_hi = min((st + c - 1) // ps, pb - 1)
         p_lo = max(st - window + 1, 0) // ps if window is not None else 0
         key_end = (p_hi + 1) * ps - 1
-        qr = q[row].float().permute(1, 0, 2)  # [KH, C, dh]
-        m = torch.full((kh, c), NEG_INF)
-        l = torch.zeros(kh, c)
-        o = torch.zeros(kh, c, dh)
+        qr = q[row].float().permute(1, 0, 2)  # [H, C, dh]
+        m = torch.full((h, c), NEG_INF)
+        l = torch.zeros(h, c)
+        o = torch.zeros(h, c, dh)
         for k0 in range(p_lo * ps // tile * tile, p_hi * ps + 1, tile):
             ki = torch.arange(k0, k0 + tile)
             lp = (ki // ps).clamp(p_lo, p_hi)  # logical pages, edges clamped
             page, off = bt[row, lp].long(), ki % ps
-            kt = k_pages[page, off].float().permute(1, 0, 2)  # [KH, T, dh]
-            vt = v_pages[page, off].float().permute(1, 0, 2)
+            kt, vt = (p_[page, off].float().permute(1, 0, 2)  # [KH, T, dh]
+                      .repeat_interleave(h // kh, 0) for p_ in (k_pages,
+                                                                v_pages))
             s = torch.einsum("hqd,hkd->hqk", qr, kt) * (1.0 / math.sqrt(dh))
             if quant:
                 s = s * k_scale[page, off]
@@ -116,13 +121,29 @@ def test_tensor_core_rounding_stays_within_the_bf16_tolerance(
     instantiations), starts off page boundaries and a ragged table it keeps
     the output within the card's bf16 tolerance of the fp32 plain
     version."""
-    ps, kh, c = 16, 16, 64
+    _rounding_case(pages, window, softcap, tile, dh, kh=16, group=1)
+
+
+@pytest.mark.parametrize("group,window,softcap", [(6, None, 30.0),
+                                                  (8, 40, None)])
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_tensor_core_rounding_at_full_width_groups(pages, group, window,
+                                                   softcap):
+    """Groups 6 (grok-1-314b, softcap 30: Q over the 16-byte path, since a
+    tile's 64 rows are no whole number of groups of 6) and 8
+    (deepseek-67b and jamba: Q by TMA) at dh 128, 2 kv heads: within the
+    card's bf16 tolerance."""
+    _rounding_case(pages, window, softcap, 64, 128, kh=2, group=group)
+
+
+def _rounding_case(pages, window, softcap, tile, dh, *, kh, group):
+    ps, c = 16, 64
     (kb, vb), ((kq, ks), (vq, vs)) = _pools(ps, kh, dh, 16, seed=3)
     bt = torch.tensor([[3, 9, 1, 12, 5, 0, 0, 0],
                        [7, 2, 8, 4, 11, 6, 14, 0]], dtype=torch.int32)
     start = torch.tensor([5, 37], dtype=torch.int32)
     rng = np.random.default_rng(4)
-    q = torch.from_numpy(rng.standard_normal((2, c, kh, dh)).astype(
+    q = torch.from_numpy(rng.standard_normal((2, c, kh * group, dh)).astype(
         np.float32)).bfloat16()
     kw = dict(window=window, softcap=softcap)
     if pages == "bf16":
@@ -268,6 +289,18 @@ def test_cuda_tensor_core_prefill_matches_plain(cuda, chunk, group, ps, dh):
             assert kernel.launches == before + 1
             torch.testing.assert_close(out.float(), ref,
                                        atol=BF16_KERNEL_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("group", [6, 8])
+@pytest.mark.parametrize("chunk", [1, 64, 130])
+def test_cuda_tensor_core_prefill_matches_plain_at_full_width_groups(
+    cuda, chunk, group, dh
+):
+    """Groups 6 (the 16-byte Q path) and 8 (Q by TMA) at pages of 16,
+    every mode, as ``test_cuda_tensor_core_prefill_matches_plain``."""
+    test_cuda_tensor_core_prefill_matches_plain(cuda, chunk, group, 16, dh)
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from repro_torch.launch import serve as launch
 from repro_torch.runtime.scheduler import shared_prefix_arrivals
 from repro_torch.runtime.serve import Engine, EngineConfig, run_paged_stream
 from test_torch_continuous import StepClock
+from test_torch_paged_decode_split import _one_thread  # noqa: F401 (autouse)
 
 LOGIT_TOL = 1e-4
 ENGINE = dict(max_len=64, max_batch=4, page_size=8, num_pages=40)

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch import kernels
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_chunk import TC_SHAPE, check_tc_alignment
+from test_torch_paged_decode_split import _one_thread  # noqa: F401 (autouse)
 
 L, P, N = TC_SHAPE
 TILE = 64  # csrc/ssd_chunk_tc.cuh: kTile
