@@ -206,8 +206,35 @@ Phases (any failure exits non-zero before a result is printed):
    one-step ``decode_loop`` through the graph target's ``[8, 1, D]`` bf16
    input (B5), ``forward`` over the 257 positions (B6), graph = eager,
    and the smoke configs' one-step tokens card = CPU. Then the new-shape
-   timing (phase 8's, with B3 at granite's shape, groups 6 and 8, group 7
-   and MHA 24 at head_dim 64, and B8 at 256 heads).
+   timing (phase 8's, with B3 at granite's shape, groups 6 (softcap 30)
+   and 8, group 7 and MHA 24 at head_dim 64, and B8 at 256 heads).
+11. The overload-hardened paged stream (run after phase 3d, on olmo-1b's
+   weights): one engine (8 slots, ``max_len`` 1024, page 16, chunked
+   prefill 64, the int8 pool warmed beside the bf16 one, ``spec_k`` 4
+   with a 2-layer int8 draft, graph targets) runs the bf16 cell's traffic
+   through ``run_paged_stream`` and through ``run_overload_stream`` with
+   every knob at its default, sync and async, under a clock that moves
+   with the batcher's steps: every token equal, nothing shed, cancelled,
+   failed or unserved, no ladder move, 0 captures after warmup, B1-B4 and
+   ``sample_rows`` launches equal between the two loops. Then a flood on
+   a fresh engine, on the wall clock: 96 shared-prefix requests at 2000
+   req/s (a quarter sampled, every fourth with a 0.5 s deadline), a
+   drop-oldest queue of 16 with a 50 ms TTL, the degradation ladder, the
+   watchdog, and a fault plan armed before the engine warms (a capture at
+   build, two poisoned emissions, a 50 ms pull stall, two dry page
+   allocations, a heartbeat outage): every request finished, shed,
+   cancelled or failed exactly once, every fault detected and contained
+   (or its request failed), no negative token, a downward ladder move, the
+   int8 standby admitting requests and replaying its B3/B4 targets, 0
+   captures after warmup, each kernel's launches = the targets' replays;
+   tok/s, latency, TTFT, shed by reason, rung dwell, stragglers, peak
+   memory against the reckoned bytes logged. The flood again with the
+   flight recorder on: the Chrome trace validates with a track per lane
+   that ran plus the dispatcher, scheduler and page-pool; the Prometheus
+   text parses; the registry's shed, cancel and fault counters are the
+   report's robustness block. Last the launcher's ``--engine overload
+   --degrade --chaos-seed 7 --trace-out --metrics-out`` as a subprocess on
+   the card (smoke config).
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -218,6 +245,7 @@ from __future__ import annotations
 import json
 import re
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import time
@@ -2012,6 +2040,18 @@ class _BatcherClock:
     def jump_to(self, t: float) -> None:
         self.offset += max(0.0, t - self.now())
 
+    def run(self, eng, runner, reqs, *, make: str = "paged_continuous",
+            **kw) -> dict:
+        """``runner(eng, reqs, clock=self, **kw)`` with this clock bound to
+        the batcher the runner makes through ``eng.<make>`` (the method is
+        restored after)."""
+        orig = getattr(eng, make)
+        setattr(eng, make, lambda **k: self.bind(orig(**k)))
+        try:
+            return runner(eng, reqs, clock=self, **kw)
+        finally:
+            delattr(eng, make)
+
 
 def _async_stream(eng, engine: str, reqs, async_steps: bool) -> dict:
     """One stream on ``eng`` under a ``_BatcherClock``: its report, with
@@ -2019,15 +2059,11 @@ def _async_stream(eng, engine: str, reqs, async_steps: bool) -> dict:
     from repro_torch.runtime.serve import run_continuous_stream, run_paged_stream
 
     clock = _BatcherClock()
-    make = "paged_continuous" if engine == "paged" else "continuous"
-    orig = getattr(eng, make)
-    setattr(eng, make, lambda **kw: clock.bind(orig(**kw)))
-    try:
-        run = run_paged_stream if engine == "paged" else run_continuous_stream
-        rep = run(eng, reqs, slots=8, seed=0, clock=clock,
-                  async_steps=async_steps)
-    finally:
-        delattr(eng, make)
+    run = run_paged_stream if engine == "paged" else run_continuous_stream
+    rep = clock.run(eng, run, reqs,
+                    make="paged_continuous" if engine == "paged"
+                    else "continuous",
+                    slots=8, seed=0, async_steps=async_steps)
     torch.cuda.synchronize()
     rep["wall_s"] = time.perf_counter() - clock.t_wall
     return rep
@@ -3583,9 +3619,7 @@ def _reckoned(cfg, engine: str, ecfg: dict, slots) -> tuple[float, float]:
     kv = tokens * per_token
     if ecfg.get("kv_dtype") == "int8":  # a byte an element, 4 a row's scale
         kv = tokens * 2 * attn * (cfg.kv_dim + 4)
-        draft = ecfg["draft_layers"] * cfg.period
-        kv += (slots * models.dense_rows(ecfg["max_len"]) * 2 * draft
-               * (cfg.kv_dim + 4))
+        kv += _int8_draft_bytes(cfg, ecfg, slots)
     mamba = cfg.num_layers - attn
     if mamba and engine != "paged":  # a row's conv window and f32 state
         rows = slots if engine == "continuous" else 4 + 8
@@ -3594,6 +3628,16 @@ def _reckoned(cfg, engine: str, ecfg: dict, slots) -> tuple[float, float]:
         state = cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4
         kv += rows * mamba * (conv + state)
     return _weight_bytes(cfg), kv
+
+
+def _int8_draft_bytes(cfg, ecfg: dict, slots: int) -> int:
+    """The int8 draft's dense cache: K and V of each draft layer for every
+    dense row, a byte an element plus a float32 scale a row."""
+    from repro_torch import models
+
+    draft = ecfg["draft_layers"] * cfg.period
+    return (slots * models.dense_rows(ecfg["max_len"]) * 2 * draft
+            * (cfg.kv_dim + 4))
 
 
 def _attention_layers(cfg) -> int:
@@ -4379,7 +4423,7 @@ def time_new_shapes() -> dict:
                                1024, 255, 1024, None, b1256 | {"B3", "B4"}),
         "grok group 6 softcap 30": (48, 8, 128, bf16, None, 8, 16, pos8,
                                     starts8, 1024, 255, 1024, 30.0,
-                                    b1256 | {"B4"}),
+                                    b1256 | {"B3", "B4"}),
         "deepseek group 8": (64, 8, 128, bf16, None, 8, 16, pos8, starts8,
                              1024, 255, 1024, None, b1256 | {"B4"}),
         "internvl2 group 7 dh 64": (14, 2, 64, bf16, None, 8, 16, pos8,
@@ -4541,6 +4585,338 @@ def time_new_shapes() -> dict:
     return out
 
 
+# ----------------------------------- phase 11 (the overload-hardened stream)
+# olmo-1b at full width (bf16): 8 slots, max_len 1024, page 16, chunked
+# prefill 64, the int8 pool warmed beside the bf16 one (the ladder's
+# standby), spec_k 4 with a 2-layer int8 draft; every target a CUDA graph.
+OVERLOAD_ECFG = dict(max_len=1024, max_batch=8, page_size=16,
+                     prefill_chunk=64, kv_dtypes=("int8",), spec_k=4,
+                     draft_layers=2, draft_kv_dtype="int8")
+# The flood's plan, armed before the engine warms: (site, ordinal, extras).
+# The flood's arrivals span ~48 ms and its queue TTL is 50 ms, so the queue
+# is empty after a dozen loop iterations: the heartbeat outage (beats 2-4
+# suppressed, detected at iteration 4 when the monitor times out) forces
+# the bottom rung while requests still queue, so the int8 standby takes
+# admissions; the stall lands near iteration 10, after both batchers'
+# watchdogs are past their 5-step warmup.
+FLOOD_FAULTS = (("build", 0, {}), ("step_output", 3, {}),
+                ("step_output", 9, {}),
+                ("d2h_stall", 60, {"stall_s": 0.05}),
+                ("pool_alloc", 5, {}), ("pool_alloc", 40, {}),
+                ("heartbeat", 1, {"span": 3}))
+OVERLOAD_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
+                    "paged_decode_attention_int8",
+                    "paged_prefill_attention_int8", "sample_rows")
+
+
+def _flood_traffic(cfg) -> list:
+    """96 shared-prefix requests (4 prefixes of 128, lengths mean 16, max
+    64, a quarter sampled), Poisson at 2000 req/s, every fourth with a
+    deadline 0.5 s after its arrival."""
+    from repro_torch.runtime.scheduler import shared_prefix_arrivals
+
+    reqs = shared_prefix_arrivals(
+        96, 2000.0, seed=0, num_prefixes=4, prefix_len=128, tokens_mean=16,
+        tokens_max=64, total_max=1024, sample_frac=0.25,
+        vocab=cfg.vocab_size)
+    for r in reqs[::4]:
+        r.deadline_s = r.arrival_s + 0.5
+    return reqs
+
+
+def _overload_inert(cfg, params) -> dict:
+    """Part 1: phase 3's bf16-cell traffic through ``run_paged_stream`` and
+    through ``run_overload_stream`` with every knob at its default, on one
+    engine under a ``_BatcherClock``, sync then async: every token equal,
+    no shed, cancel, failure or unserved request, no ladder move, 0
+    captures after warmup, and each run's B1-B4 and ``sample_rows`` counts
+    (set to 0 just before it) equal between the two loops (sync)."""
+    from repro_torch import kernels
+    from repro_torch.runtime.serve import (
+        Engine,
+        EngineConfig,
+        run_overload_stream,
+        run_paged_stream,
+    )
+
+    runs = {}
+    _release_engines()
+    with Engine(cfg, params, EngineConfig(**OVERLOAD_ECFG)) as eng:
+        check(eng.graphs, "overload: the engine's targets are not CUDA graphs")
+        # capture every target once before the compared runs: a capture's
+        # eager runs launch the kernels too, and only the first run on an
+        # engine would pay them
+        eng.paged_continuous(slots=8, seed=0)
+        for async_steps in (False, True):
+            for loop, run in (("paged", run_paged_stream),
+                                ("overload", run_overload_stream)):
+                label = f"overload inert {loop}/async={async_steps}"
+                reqs = _shared_prefix_traffic(cfg)
+                kernels.reset_launch_counts()  # this path's run starts here
+                rep = _BatcherClock().run(eng, run, reqs, slots=8, seed=0,
+                                          async_steps=async_steps)
+                torch.cuda.synchronize()
+                launches = _launches(label, OVERLOAD_KERNELS)
+                _check_stream(label, cfg, reqs, rep)
+                check(rep["compiles_after_warmup"] == 0,
+                      f"{label}: {rep['compiles_after_warmup']} captures "
+                      f"after warmup")
+                if loop == "overload":
+                    for k in ("shed", "cancelled", "failed", "unserved"):
+                        check(rep[k] == 0, f"{label}: {k} {rep[k]}")
+                    check(rep["degrade_transitions"] == [],
+                          f"{label}: ladder moved {rep['degrade_transitions']}")
+                runs[loop, async_steps] = ([r.tokens for r in reqs], rep,
+                                             launches)
+    base = runs["paged", False]
+    for key, (toks, rep, launches) in runs.items():
+        check(toks == base[0], f"overload inert {key}: tokens differ from "
+              f"the synchronous run_paged_stream's")
+    check(runs["overload", False][2] == base[2],
+          f"overload inert: launches {runs['overload', False][2]} != "
+          f"run_paged_stream's {base[2]}")
+    rep = runs["overload", False][1]
+    log(f"[overload:inert] bf16 cell's {rep['finished']} requests "
+        f"({rep['tokens']} tokens) through run_overload_stream = "
+        f"run_paged_stream, sync and async, every token (sampled too); "
+        f"{rep['steps']} steps, lane calls {rep['lane_calls']}, 0 shed / "
+        f"cancelled / failed / unserved, no ladder move, 0 captures after "
+        f"warmup | launches (sync) {base[2]} | async run-ahead steps "
+        f"{runs['overload', True][1]['steps'] - rep['steps']}")
+    return {"launches": base[2]}
+
+
+def _flood_checks(label: str, rep: dict, reqs: list, plan,
+                  standby_prompts: int) -> None:
+    """The flood's accounting: every request finished, shed, cancelled or
+    failed, once; every fault detected and contained or failed; no poison
+    in a stream; the ladder moved down and the int8 standby took
+    admissions (its ``pf`` targets ingested ``standby_prompts`` chunks)."""
+    check(rep["finished"] + rep["shed"] + rep["cancelled"] + rep["failed"]
+          == len(reqs) and rep["unserved"] == 0,
+          f"{label}: finished {rep['finished']} shed {rep['shed']} cancelled "
+          f"{rep['cancelled']} failed {rep['failed']} unserved "
+          f"{rep['unserved']} of {len(reqs)}")
+    fates = [(r.t_done is not None) + bool(r.shed_reason and not r.cancelled)
+             + r.cancelled + (r.error is not None) for r in reqs]
+    check(fates == [1] * len(reqs), f"{label}: a request's fate is not one "
+          f"of finished / shed / cancelled / failed: {fates}")
+    fr = plan.report()
+    for site, n in fr["injected"].items():
+        # a heartbeat outage of span 3 suppresses three beats (three
+        # injected opportunities) and is detected once, when the monitor
+        # times out, and contained once, when beats resume
+        want = (sum(1 for s, _, _ in FLOOD_FAULTS if s == site)
+                if site == "heartbeat" else n)
+        det = fr["detected"].get(site, 0)
+        con = fr["contained"].get(site, 0)
+        lost = sum(1 for r in reqs if r.error == site)
+        check(det == want and con + lost == want,
+              f"{label}: {site} injected {n}, detected {det}, contained "
+              f"{con}, failed {lost}")
+    check(set(fr["injected"]) == {s for s, _, _ in FLOOD_FAULTS},
+          f"{label}: sites injected {fr['injected']}")
+    for r in reqs:
+        check(all(t >= 0 for t in r.tokens), f"{label} rid {r.rid}: a "
+              f"negative token in a stream")
+        if r.t_done is not None:
+            check(len(r.tokens) == r.new_tokens, f"{label} rid {r.rid}: short")
+    check(any(t["from"] != t["to"] and t["why"] in ("overload", "heartbeat")
+              for t in rep["degrade_transitions"]),
+          f"{label}: no downward ladder transition")
+    check(standby_prompts > 0, f"{label}: the int8 standby ingested "
+          f"{standby_prompts} prompt chunks: it admitted nothing")
+    check(rep["compiles_after_warmup"] == 0,
+          f"{label}: {rep['compiles_after_warmup']} captures after warmup")
+
+
+def _overload_flood(cfg, params, telemetry: bool) -> dict:
+    """Parts 2 and 3: the flood through ``run_overload_stream`` on a fresh
+    engine (the plan armed before it warms, so the ``build`` fault hits a
+    capture) on the wall clock, watchdog on; with ``telemetry`` the flight
+    recorder is on and the trace and metrics are exported and checked."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.core.faults import Fault, FaultPlan
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.runtime.serve import Engine, EngineConfig, run_overload_stream
+    from repro_torch.runtime.tracing import (
+        lane_track,
+        parse_prometheus,
+        validate_trace,
+        write_trace,
+    )
+
+    label = "overload flood" + (" traced" if telemetry else "")
+    plan = FaultPlan([Fault(site=s, at=a, **kw) for s, a, kw in FLOOD_FAULTS])
+    tel = Telemetry(enabled=telemetry)
+    reqs = _flood_traffic(cfg)
+    _release_engines()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()  # this path's run starts here
+    t0 = time.perf_counter()
+    with Engine(cfg, params, EngineConfig(**OVERLOAD_ECFG),
+                telemetry=tel) as eng:
+        rep = run_overload_stream(
+            eng, reqs, slots=8, seed=0, capacity=16,
+            shed_policy="drop-oldest", queue_ttl_s=0.05, degrade=True,
+            faults=plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want, _ = _lane_launches(eng)
+        # the standby's own calls: every int8-pool key's replays past its
+        # two warm runs (both batchers' warm passes replay every key)
+        replays = {
+            k: eng._decode.cache.get(k).graph.replays - 2
+            for k in eng._decode.cache.keys()
+            if k[0] in ("cbp", "pf", "vf") and k[3] == "int8"}
+        standby = sum(replays.values())
+        standby_prompts = sum(n for k, n in replays.items() if k[0] == "pf")
+    launches = _launches(label, tuple(want))
+    for name, n in want.items():
+        check(launches[name] == n, f"{label}: {name} launched "
+              f"{launches[name]} times, the targets' replays make {n}")
+    check(standby > 0, f"{label}: the int8 standby's targets replayed "
+          f"{standby} times past warmup")
+    _flood_checks(label, rep, reqs, plan, standby_prompts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    w, kv16 = _reckoned(cfg, "paged", OVERLOAD_ECFG, 8)
+    _, kv8 = _reckoned(cfg, "paged", dict(OVERLOAD_ECFG, kv_dtype="int8"), 8)
+    # each batcher's draft state parked while the other's is resident
+    parked = 2 * _int8_draft_bytes(cfg, OVERLOAD_ECFG, 8)
+    reckoned = (w + kv16 + kv8 + parked) / 1e9
+    rob = rep.get("robustness", {})
+    out = {"launches": launches, "standby_calls": standby, "wall": wall}
+    if telemetry:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            trace = write_trace(str(path), tel.recorder)
+            problems = validate_trace(json.loads(path.read_text()))
+        check(problems == [], f"{label}: trace problems {problems[:5]}")
+        tracks = {e["args"]["name"] for e in trace["traceEvents"]
+                  if e["name"] == "thread_name"}
+        lanes = {lane_track(lane) for lane, n in rep["lane_calls"].items()
+                 if n}
+        need = lanes | {"dispatcher", "scheduler", "page-pool"}
+        check(need <= tracks, f"{label}: tracks {sorted(tracks)} lack "
+              f"{sorted(need - tracks)}")
+        prom = parse_prometheus(tel.registry.to_prometheus())
+        snap = json.loads(tel.metrics_json())
+        check("counters" in snap and prom["samples"] > 0,
+              f"{label}: metrics {prom}")
+        # the registry's counters and the robustness block against what
+        # the requests' fates and the plan count; the build fault fires
+        # inside warmup, which the warm boundary's rollover moves out of
+        # the live counters (its label stays, at 0)
+        fr = plan.report()
+        want = {
+            "shed": Counter(r.shed_reason for r in reqs
+                            if r.shed_reason and not r.cancelled),
+            "cancelled": Counter(r.shed_reason for r in reqs if r.cancelled),
+            "failed": Counter(r.error for r in reqs if r.error),
+            **{f"faults_{k}": {s: n for s, n in fr[k].items()
+                               if s != "build"}
+               for k in ("injected", "detected", "contained")},
+        }
+        for key, family, lab in (
+                ("shed", "admission_shed_total", "reason"),
+                ("cancelled", "requests_cancelled_total", "reason"),
+                ("failed", "requests_failed_total", "site"),
+                ("faults_injected", "faults_injected_total", "site"),
+                ("faults_detected", "faults_detected_total", "site"),
+                ("faults_contained", "faults_contained_total", "site")):
+            vals = {k: int(v) for k, v in
+                    tel.registry.labeled_values(family, lab).items()
+                    if k != "build"}
+            rob_vals = {k: v for k, v in rob.get(key, {}).items()
+                        if k != "build"}
+            check(vals == dict(want[key]) == rob_vals, f"{label}: registry "
+                  f"{family} {vals}, robustness {rob.get(key)}, counted "
+                  f"{dict(want[key])}")
+        out["trace_events"] = len(trace["traceEvents"])
+        log(f"[overload:telemetry] trace {len(trace['traceEvents'])} events "
+            f"({tel.recorder.dropped} dropped) on tracks {sorted(tracks)}, "
+            f"validate_trace [] | prometheus {prom['samples']} samples of "
+            f"{len(prom['types'])} families | registry = robustness block = "
+            f"the requests' fates and the plan")
+    log(f"[overload:flood{' traced' if telemetry else ''}] olmo-1b bf16, "
+        f"{len(reqs)} requests at 2000 req/s into 8 slots: finished "
+        f"{rep['finished']}, shed {rep['shed']} {rob.get('shed')}, cancelled "
+        f"{rep['cancelled']} {rob.get('cancelled')}, failed {rep['failed']}, "
+        f"unserved {rep['unserved']} | {rep.get('tok_per_s', 0.0):.1f} tok/s, "
+        f"latency p50 {rep.get('p50_ms', 0.0):.1f} ms p95 "
+        f"{rep.get('p95_ms', 0.0):.1f} ms, ttft p50 "
+        f"{rep.get('ttft_p50_ms', 0.0):.1f} ms p95 "
+        f"{rep.get('ttft_p95_ms', 0.0):.1f} ms | steps {rep['steps']}, "
+        f"stragglers {rep['stragglers']}, deadline missed "
+        f"{rep['deadline_missed']}, preemptions {rep['preemptions']} | rung "
+        f"dwell s {rob.get('rung_dwell_s')}, transitions "
+        f"{[(t['t'], t['to'], t['why']) for t in rep['degrade_transitions']]}"
+        f" | standby: {standby_prompts} int8 prompt chunks, {standby} int8 "
+        f"replays | faults {plan.report()} | 0 captures after warmup | peak "
+        f"{peak:.2f} GB, reckoned {reckoned:.2f} GB (weights + bf16 and "
+        f"int8 pools + int8 draft and its two parked copies) | {wall:.1f}s incl. warmup | {_card()}")
+    return out
+
+
+def _overload_launcher() -> None:
+    """Part 4: the launcher's overload flags as a user runs them, a
+    subprocess on the card (smoke config): exit 0, a report with every
+    request accounted and 0 captures after warmup, a trace that validates
+    and a ``.prom`` file that parses."""
+    import os
+    import tempfile
+
+    from repro_torch.runtime.tracing import parse_prometheus, validate_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, prom = Path(tmp) / "t.json", Path(tmp) / "m.prom"
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+               "--engine", "overload", "--degrade", "--chaos-seed", "7",
+               "--trace-out", str(trace), "--metrics-out", str(prom),
+               "--json"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        out = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                             env=env, timeout=300)
+        check(out.returncode == 0, f"launcher overload: exit "
+              f"{out.returncode}: {out.stderr[-2000:]}")
+        text = out.stdout
+        rep = json.loads(text[text.index("{\n"):])
+        check(rep["engine"] == "overload" and rep["unserved"] == 0
+              and rep["finished"] + rep["shed"] + rep["cancelled"]
+              + rep["failed"] == 24,
+              f"launcher overload: accounting {rep}")
+        check(rep["compiles_after_warmup"] == 0,
+              f"launcher overload: {rep['compiles_after_warmup']} captures")
+        problems = validate_trace(json.loads(trace.read_text()))
+        check(problems == [], f"launcher overload: trace {problems[:5]}")
+        prom_ = parse_prometheus(prom.read_text())
+    log(f"[overload:launcher] python -m repro_torch.launch.serve --smoke "
+        f"--engine overload --degrade --chaos-seed 7 --trace-out "
+        f"--metrics-out --json on the card: exit 0, {rep['finished']} "
+        f"finished, {rep['steps']} steps, faults {rep['faults']['injected']}, "
+        f"trace valid, {prom_['samples']} prometheus samples")
+
+
+def overload_phase(cfg, params) -> dict:
+    """Phase 11: the overload-hardened paged stream at full width (olmo-1b
+    bf16): inert = ``run_paged_stream``; the flood with its faults; the
+    flood again with the flight recorder on; the launcher's flags. Returns
+    the launch counts of the inert run and the flood (``paths``)."""
+    t0 = time.perf_counter()
+    inert = _overload_inert(cfg, params)
+    flood = _overload_flood(cfg, params, telemetry=False)
+    _overload_flood(cfg, params, telemetry=True)
+    _overload_launcher()
+    _release_engines()
+    seconds = time.perf_counter() - t0
+    log(f"[overload] phase 11 passed in {seconds:.1f}s | {_card()}")
+    return {"paths": {"overload inert": inert["launches"],
+                      "overload flood": flood["launches"]},
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4561,6 +4937,7 @@ def main() -> int:
     t_async = time.perf_counter()
     async_phase(main_path["cfg"], main_path["params"])
     t_async = time.perf_counter() - t_async
+    overload = overload_phase(main_path["cfg"], main_path["params"])
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
     prompt = prompt_then_burst(main_path["cfg"], main_path["params"])
     profile_steps(main_path["cfg"], main_path["params"])
@@ -4598,6 +4975,10 @@ def main() -> int:
         row.setdefault("launches_by_path", {}).update(
             {path: counts.get(row["name"], 0)
              for path, counts in paths.items()})
+        if row["name"] in OVERLOAD_KERNELS:
+            row["launches_by_path"].update(
+                {path: counts[row["name"]]
+                 for path, counts in overload["paths"].items()})
     end = time.perf_counter()
     log(f"[done] all phases passed in {end - t0:.1f}s; phases 8-10 "
         f"(three configs, granite-moe, the last five archs, new-shape "
@@ -4605,7 +4986,8 @@ def main() -> int:
         f"it, of which phase 9 (granite-moe at full width and its smoke card "
         f"= CPU) {t9:.1f}s and phase 10 (deepseek-67b, grok-1-314b, jamba, "
         f"internvl2-1b, musicgen-medium) {t10:.1f}s; phase 3d (async vs "
-        f"sync) {t_async:.1f}s")
+        f"sync) {t_async:.1f}s; phase 11 (the overload stream) "
+        f"{overload['seconds']:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,8 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Hashable
 
+from .faults import InjectedFault
+
 
 class DispatchError(RuntimeError):
     """Raised for dispatcher misuse that would be undefined behaviour."""
@@ -314,6 +316,7 @@ class Dispatcher:
         self._candidate: Hashable | None = None
         self._streak = 0
         self.stats = DispatchStats(self.cache)
+        self._faults = None  # core.faults.FaultPlan ("build" site)
         with _REGISTRY_LOCK:
             if self._name in _DISPATCHERS:
                 raise DispatchError(
@@ -344,9 +347,38 @@ class Dispatcher:
         return len(self.cache)
 
     # ------------------------------------------------------------- cold path
+    def attach_faults(self, plan) -> None:
+        """Arm a ``core.faults.FaultPlan`` at the ``build`` site: an
+        injected fault makes the single-flight leader raise before the
+        builder runs (on the card: before any capture begins, so no stream
+        is left capturing and no graph half-built), exercising the
+        CompileCache's error path end to end; containment is a one-shot
+        rebuild retry (already on the cold path — a retry is a build,
+        never a hot-loop branch)."""
+        self._faults = plan
+
     def build(self, key: Hashable) -> Any:
         """Build (or fetch) a key without touching the slot or the policy
         streak — pure prebuilding (the warm-everything pattern)."""
+        plan = self._faults
+        if plan is not None and key not in self.cache:
+            f = plan.fire("build")
+            if f is not None:
+
+                def _fail() -> Any:
+                    raise InjectedFault(f)
+
+                try:
+                    self.cache.get_or_build(key, _fail)
+                except InjectedFault:
+                    # the failed leader cleared its in-flight entry; the
+                    # retry below becomes a fresh leader and builds clean
+                    plan.note_detected("build")
+                    exe = self.cache.get_or_build(
+                        key, lambda: self._builder(key)
+                    )
+                    plan.note_contained("build")
+                    return exe
         return self.cache.get_or_build(key, lambda: self._builder(key))
 
     def dispatch(self, key: Hashable, *, warm: bool | None = None) -> Any:

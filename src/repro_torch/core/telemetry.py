@@ -12,13 +12,15 @@ complementary surfaces share one namespace:
   ``benchmarks/telemetry_bench.py`` in the JAX package). When enabled, the buffer holds the
   last ``capacity`` events — old events fall off the front and are counted
   in ``dropped`` — so a long-running server records a flight-recorder
-  window, not an unbounded log.
+  window, not an unbounded log. ``runtime/tracing.py`` exports the buffer
+  as Chrome trace-event JSON for ui.perfetto.dev.
 
 * ``MetricsRegistry`` — always-on counters, gauges, and fixed-bucket
   histograms, keyed by ``(name, labels)``. ``BatcherStats.lane_calls`` and
   ``latency_report`` *derive from* this registry rather than maintaining
   parallel dicts, so per-lane counters, dispatch telemetry, and the trace
-  agree by construction. Snapshots serialise to JSON.
+  agree by construction. Snapshots serialise to JSON and to Prometheus
+  text exposition format (``to_prometheus``).
 
 ``Telemetry`` bundles the two and is what ``Engine``, batchers, and
 ``PagePool`` accept. This is the port's copy of ``repro.core.telemetry``.
@@ -26,6 +28,7 @@ complementary surfaces share one namespace:
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from bisect import bisect_left
@@ -137,6 +140,20 @@ class FlightRecorder:
             return
         self.emit(name, track, PH_COUNTER, args=dict(values))
 
+    # ----------------------------------------------------------- inspection
+    def __len__(self) -> int:
+        return min(self._next, self.capacity)
+
+    @property
+    def emitted(self) -> int:
+        """Total events ever emitted (including those that fell off)."""
+        return self._next
+
+    @property
+    def dropped(self) -> int:
+        """Events lost to ring overflow."""
+        return max(0, self._next - self.capacity)
+
     def events(self) -> list[Event]:
         """Snapshot the ring in emission order (oldest surviving first)."""
         with self._lock:
@@ -148,6 +165,18 @@ class FlightRecorder:
                 e for e in self._buf[head:] + self._buf[:head]
                 if e is not None
             ]
+
+    def tracks(self) -> list[str]:
+        seen: dict[str, None] = {}
+        for ev in self.events():
+            seen.setdefault(ev.track, None)
+        return list(seen)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buf = [None] * self.capacity
+            self._next = 0
+            self.t0_ns = time.perf_counter_ns()
 
 # ---------------------------------------------------------------- instruments
 # Log-spaced millisecond buckets: 50µs .. 10s, a fixed layout so histograms
@@ -261,7 +290,7 @@ class _Family:
 
 
 class MetricsRegistry:
-    """Named, labelled counters/gauges/histograms with a JSON snapshot.
+    """Named, labelled counters/gauges/histograms with JSON + Prometheus out.
 
     Instruments are created on first use and *reset in place* by
     ``rollover`` — handles cached by hot code paths stay valid across the
@@ -312,6 +341,16 @@ class MetricsRegistry:
 
     def set(self, name: str, v: float, **labels) -> None:
         self.gauge(name, **labels).set(v)
+
+    def observe(self, name: str, v: float, **labels) -> None:
+        self.histogram(name, **labels).observe(v)
+
+    def value(self, name: str, default: float = 0.0, **labels) -> float:
+        fam = self._families.get(name)
+        if fam is None:
+            return default
+        child = fam.children.get(_label_key(labels))
+        return default if child is None else child.value
 
     def labeled_values(self, name: str, label: str) -> dict:
         """{label_value: value} across a family — e.g. lane_calls by lane.
@@ -387,6 +426,59 @@ class MetricsRegistry:
                 child.reset()
         return snap
 
+    # ------------------------------------------------------------ prometheus
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format (0.0.4)."""
+        def fmt_labels(labels: dict, extra: str = "") -> str:
+            parts = [
+                f'{k}="{_escape(str(v))}"' for k, v in sorted(labels.items())
+            ]
+            if extra:
+                parts.append(extra)
+            return "{" + ",".join(parts) + "}" if parts else ""
+
+        def _escape(s: str) -> str:
+            return s.replace("\\", "\\\\").replace('"', '\\"')
+
+        def fmt_num(v: float) -> str:
+            return str(int(v)) if float(v).is_integer() else repr(float(v))
+
+        lines: list[str] = []
+        for name, fam in sorted(self._families.items()):
+            if fam.kind == "counter":
+                lines.append(f"# TYPE {name} counter")
+                for key, child in sorted(fam.children.items()):
+                    lines.append(
+                        f"{name}{fmt_labels(dict(key))} "
+                        f"{fmt_num(child.value)}"
+                    )
+            elif fam.kind == "gauge":
+                lines.append(f"# TYPE {name} gauge")
+                for key, child in sorted(fam.children.items()):
+                    lines.append(
+                        f"{name}{fmt_labels(dict(key))} "
+                        f"{fmt_num(child.value)}"
+                    )
+            else:
+                lines.append(f"# TYPE {name} histogram")
+                for key, child in sorted(fam.children.items()):
+                    labels = dict(key)
+                    for b, cum in child.cumulative():
+                        le = "+Inf" if b == float("inf") else fmt_num(b)
+                        le_label = 'le="' + le + '"'
+                        lines.append(
+                            f"{name}_bucket"
+                            f"{fmt_labels(labels, le_label)} {cum}"
+                        )
+                    lines.append(
+                        f"{name}_sum{fmt_labels(labels)} "
+                        f"{fmt_num(child.sum)}"
+                    )
+                    lines.append(
+                        f"{name}_count{fmt_labels(labels)} {child.count}"
+                    )
+        return "\n".join(lines) + "\n"
+
 
 # ------------------------------------------------------------------- facade
 class Telemetry:
@@ -406,6 +498,19 @@ class Telemetry:
         self.recorder = FlightRecorder(capacity=capacity, enabled=enabled)
         self.registry = MetricsRegistry()
 
+    @property
+    def enabled(self) -> bool:
+        return self.recorder.enabled
+
+    def enable(self) -> None:
+        self.recorder.enabled = True
+
+    def disable(self) -> None:
+        self.recorder.enabled = False
+
     def trace_or_none(self) -> FlightRecorder | None:
         """The call-site guard: hold the recorder only when it records."""
         return self.recorder if self.recorder.enabled else None
+
+    def metrics_json(self) -> str:
+        return json.dumps(self.registry.snapshot(), indent=2, sort_keys=True)

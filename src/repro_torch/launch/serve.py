@@ -18,8 +18,18 @@ sampling mode per burst, batch sizes bucketed by ``--batch-quantum``; it
 also serves ``--arch mamba2-370m`` on the SSM's recurrent state (the paged
 engine refuses an SSM arch). ``--engine both`` runs the continuous engine
 and then the burst engine on the same prompt-less stream, the JAX
-package's default. ``--async-steps`` (``--async-depth``) pipelines the
-continuous and paged engines' steps. ``--arch`` names any config of
+package's default; ``--engine all`` runs the continuous, burst and paged
+engines in turn. ``--engine overload`` drives Poisson traffic through
+``run_overload_stream``, the overload-hardened paged stream: a bounded
+admission queue (``--capacity``, ``--shed-policy``, ``--queue-ttl``),
+per-request deadlines (``--deadline``), the degradation ladder
+(``--degrade``: spec off, the minimum chunk, a trimmed budget, then new
+admissions on a pre-warmed int8 pool) and deterministic fault injection at
+five sites (``--chaos-seed``: ``FaultPlan.random``). ``--trace-out PATH``
+turns the flight recorder on and writes a Chrome trace-event file
+(ui.perfetto.dev), ``--metrics-out PATH`` the metrics registry (Prometheus
+text for ``.prom``, JSON otherwise). ``--async-steps`` (``--async-depth``)
+pipelines the continuous and paged engines' steps. ``--arch`` names any config of
 ``repro_torch.configs``: olmo-1b, qwen3-14b, gemma2-27b, hft-demo,
 deepseek-67b (dense), granite-moe-1b-a400m and grok-1-314b (MoE),
 mamba2-370m (SSM) and jamba-1.5-large-398b (hybrid: attention and mamba
@@ -43,17 +53,25 @@ init. Runs on the GPU unless ``--device cpu``:
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       --engine burst
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine overload \\
+      --smoke --device cpu --degrade --chaos-seed 7 --trace-out t.json \\
+      --metrics-out m.prom
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 
 import torch
 
 from repro_torch import models
 from repro_torch.configs import get_config
+from repro_torch.core.faults import FaultPlan
+from repro_torch.core.telemetry import Telemetry
+from repro_torch.runtime.admission import SHED_POLICIES
 from repro_torch.runtime.scheduler import (
     attach_distinct_prompts,
     poisson_arrivals,
@@ -65,8 +83,10 @@ from repro_torch.runtime.serve import (
     EngineConfig,
     run_burst_stream,
     run_continuous_stream,
+    run_overload_stream,
     run_paged_stream,
 )
+from repro_torch.runtime.tracing import write_trace
 
 SLOTS = 8  # the engine's max_batch, as in the JAX package's launcher
 
@@ -80,12 +100,19 @@ _REPORT_KEYS = (
 )
 
 
+_HARDENING_KEYS = (
+    "capacity", "shed_policy", "shed", "cancelled", "failed",
+    "deadline_missed", "stragglers", "preemptions", "unserved",
+    "degrade_rung",
+)
+
+
 def _print_report(rep: dict) -> None:
     tag = f"[serve/{rep['engine']}]"
-    head = (
-        f"{tag} {rep.get('finished', 0)} requests, "
-        f"{rep.get('tokens', 0)} tokens on {rep['device']}"
-    )
+    head = (f"{tag} {rep.get('finished', 0)} requests, "
+            f"{rep.get('tokens', 0)} tokens")
+    if "device" in rep:
+        head += f" on {rep['device']}"
     if "p50_ms" in rep:
         head += (
             f" | latency p50 {rep['p50_ms']:.1f}ms p95 {rep['p95_ms']:.1f}ms "
@@ -105,16 +132,29 @@ def _print_report(rep: dict) -> None:
     if "spec" in rep:
         print(f"{tag} specdec: {rep['spec']} tokens/target step "
               f"{rep.get('tokens_per_target_step')}", flush=True)
+    if rep["engine"] == "overload":  # hardening surfaces (DESIGN.md §15)
+        hard = {k: rep[k] for k in _HARDENING_KEYS if rep.get(k) is not None}
+        print(f"{tag} hardening: {hard}", flush=True)
+        if rep.get("degrade_transitions"):
+            print(f"{tag} ladder: {rep['degrade_transitions']}", flush=True)
+        if rep.get("faults"):
+            print(f"{tag} faults: {rep['faults']}", flush=True)
+    if rep.get("robustness"):  # registry-derived accounting (DESIGN.md §15)
+        print(f"{tag} robustness: {rep['robustness']}", flush=True)
 
 
-def make_requests(args: argparse.Namespace, vocab: int) -> list:
-    """The request stream of the parsed flags, drawn as the JAX package's
-    launcher draws it: Poisson traffic for the continuous and burst
-    engines, distinct prompts with ``--prompt-len``, and shared prefixes
-    for the paged engine otherwise. New
-    tokens are capped at ``max_len - max(prompt_len, 1) + 1``: the batchers
-    seat ``prompt + new - 1 <= max_len`` positions."""
-    if args.engine == "paged" and args.prompt_len <= 0:
+def make_requests(args: argparse.Namespace, vocab: int,
+                  engine: str | None = None) -> list:
+    """The request stream of the parsed flags for ``engine`` (default
+    ``--engine``), drawn as the JAX package's launcher draws it: Poisson
+    traffic for the continuous, burst and overload engines, distinct
+    prompts with ``--prompt-len``, and shared prefixes for the paged engine
+    otherwise. New tokens are capped at ``max_len - max(prompt_len, 1) +
+    1``: the batchers seat ``prompt + new - 1 <= max_len`` positions. With
+    ``--deadline`` (overload) each request's queue TTL is the deadline and
+    its absolute deadline is its arrival plus the deadline."""
+    engine = engine or args.engine
+    if engine == "paged" and args.prompt_len <= 0:
         return shared_prefix_arrivals(
             args.requests, args.rate, seed=args.seed,
             num_prefixes=args.num_prefixes, prefix_len=args.prefix_len,
@@ -131,6 +171,10 @@ def make_requests(args: argparse.Namespace, vocab: int) -> list:
         attach_distinct_prompts(
             reqs, args.prompt_len, vocab=vocab, seed=args.seed + 1
         )
+    if engine == "overload" and args.deadline > 0:
+        for r in reqs:
+            r.ttl_s = args.deadline
+            r.deadline_s = r.arrival_s + args.deadline
     return reqs
 
 
@@ -138,12 +182,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """The launcher's flags, checked against the engine they name."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--engine",
-                    choices=("paged", "continuous", "burst", "both"),
+                    choices=("paged", "continuous", "burst", "overload",
+                             "both", "all"),
                     default="paged",
                     help="serving engine: paged continuous batching, dense "
                          "continuous batching, the per-burst engine (mode "
-                         "baked into each burst's branch target), or both "
-                         "the continuous and the burst engine on one stream")
+                         "baked into each burst's branch target), the "
+                         "overload-hardened paged stream, both the "
+                         "continuous and the burst engine on one stream, or "
+                         "all of continuous, burst and paged")
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family config (fp32, 2 layers)")
@@ -195,6 +242,40 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--async-depth", type=int, default=2,
                     help="async step pipeline: issued-but-uncommitted "
                          "steps at most (2 = one ahead)")
+    ap.add_argument("--capacity", type=int, default=0,
+                    help="overload engine: bounded admission-queue "
+                         "capacity (0 = unbounded; DESIGN.md §15)")
+    ap.add_argument("--shed-policy", choices=SHED_POLICIES,
+                    default="reject-new",
+                    help="overload engine: what to drop when the bounded "
+                         "queue is full")
+    ap.add_argument("--queue-ttl", type=float, default=0.0,
+                    help="overload engine: shed requests that waited in "
+                         "queue longer than this many seconds (0 = off)")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="overload engine: per-request SLO in seconds — "
+                         "bounds queue wait (ttl) and sets the absolute "
+                         "decode deadline past which a seated request is "
+                         "cancelled (0 = off)")
+    ap.add_argument("--degrade", action="store_true",
+                    help="overload engine: the semi-static degradation "
+                         "ladder (spec off -> chunk-min -> budget-trim -> "
+                         "int8 pool), rebinds over warmed keys, never a "
+                         "build")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="overload engine: arm FaultPlan.random(SEED) — "
+                         "deterministic fault injection across the five "
+                         "sites, with detection/containment accounting in "
+                         "the report")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="turn the flight recorder on (DESIGN.md §14) and "
+                         "write a Chrome trace-event JSON file, openable in "
+                         "ui.perfetto.dev — one track per lane plus "
+                         "dispatcher / scheduler / page-pool tracks")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics-registry snapshot after the "
+                         "run: Prometheus text exposition if PATH ends in "
+                         ".prom, JSON otherwise")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
@@ -212,7 +293,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         ap.error(f"--slots must be >= 0, got {args.slots}")
     if args.async_depth < 1:
         ap.error(f"--async-depth must be >= 1, got {args.async_depth}")
-    burst = args.engine in ("burst", "both")
+    burst = args.engine in ("burst", "both", "all")
     if burst and args.prompt_len > 0:
         # the per-burst stream seeds first_token only; a side-by-side
         # report would compare different workloads
@@ -221,14 +302,20 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if burst and args.spec_k > 0:
         ap.error("--spec-k requires --engine continuous or paged (the burst "
                  "stream has no draft/verify lanes)")
-    if args.kv_dtype != "fp32" and args.engine != "paged":
-        ap.error("--kv-dtype requires --engine paged (the dense cache has "
-                 "no page pool to quantise)")
-    if args.engine == "paged":
+    if args.kv_dtype != "fp32" and args.engine not in ("paged", "overload"):
+        ap.error("--kv-dtype requires --engine paged or overload (the dense "
+                 "cache has no page pool to quantise)")
+    if args.engine != "overload" and (
+        args.capacity or args.queue_ttl or args.deadline or args.degrade
+        or args.chaos_seed is not None
+    ):
+        ap.error("--capacity/--queue-ttl/--deadline/--degrade/--chaos-seed "
+                 "require --engine overload (the hardened serving loop)")
+    if args.engine in ("paged", "overload", "all"):
         try:
             models.check_paged(_config(args))
         except ValueError as e:
-            ap.error(f"--engine paged: {e}")
+            ap.error(f"--engine {args.engine}: {e}")
     return args
 
 
@@ -263,22 +350,61 @@ def main(argv: list[str] | None = None) -> dict:
         draft_kv_dtype=args.draft_kv_dtype,
     )
     slots = args.slots or None
-    engines = ("continuous", "burst") if args.engine == "both" else (
-        args.engine,)
+    engines = {"both": ("continuous", "burst"),
+               "all": ("continuous", "burst", "paged")}.get(
+                   args.engine, (args.engine,))
+    # One Telemetry for every engine of the run (DESIGN.md §14); the
+    # flight recorder records only when a trace is asked for.
+    telemetry = Telemetry(enabled=args.trace_out is not None)
     reports = {}
     pipeline = dict(async_steps=args.async_steps, async_depth=args.async_depth)
     for name in engines:
-        reqs = make_requests(args, cfg.vocab_size)
-        with Engine(cfg, params, ecfg, device=device) as eng:
+        reqs = make_requests(args, cfg.vocab_size, name)
+        eng_cfg = ecfg
+        if name == "overload" and args.degrade and "int8" not in (
+            ecfg.kv_dtype, *ecfg.kv_dtypes
+        ):
+            # warm the int8 standby pool so the ladder's bottom rung (an
+            # admission-routed pool flip) is expressible
+            eng_cfg = dataclasses.replace(
+                ecfg, kv_dtypes=(*ecfg.kv_dtypes, "int8"))
+        with Engine(cfg, params, eng_cfg, telemetry=telemetry,
+                    device=device) as eng:
             if name == "burst":
                 reports[name] = run_burst_stream(eng, reqs, seed=args.seed)
             elif name == "continuous":
                 reports[name] = run_continuous_stream(
                     eng, reqs, slots=slots, seed=args.seed, **pipeline)
+            elif name == "overload":
+                reports[name] = run_overload_stream(
+                    eng, reqs, slots=slots, seed=args.seed,
+                    async_steps=args.async_steps, kv_dtype=args.kv_dtype,
+                    capacity=args.capacity or None,
+                    shed_policy=args.shed_policy,
+                    queue_ttl_s=args.queue_ttl or None,
+                    degrade=args.degrade,
+                    faults=(FaultPlan.random(args.chaos_seed)
+                            if args.chaos_seed is not None else None),
+                )
             else:
                 reports[name] = run_paged_stream(
                     eng, reqs, slots=slots, seed=args.seed, **pipeline)
-    rep = reports if args.engine == "both" else reports[args.engine]
+    for path in (args.trace_out, args.metrics_out):
+        if path and os.path.dirname(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+    if args.trace_out:
+        trace = write_trace(args.trace_out, telemetry.recorder)
+        print(f"[serve] trace: {args.trace_out} "
+              f"({len(trace['traceEvents'])} events, "
+              f"{telemetry.recorder.dropped} dropped) — open in "
+              f"ui.perfetto.dev", flush=True)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as fh:
+            fh.write(telemetry.registry.to_prometheus()
+                     if args.metrics_out.endswith(".prom")
+                     else telemetry.metrics_json())
+        print(f"[serve] metrics: {args.metrics_out}", flush=True)
+    rep = reports if len(engines) > 1 else reports[args.engine]
     if args.json:
         print(json.dumps(rep, indent=2))
     else:

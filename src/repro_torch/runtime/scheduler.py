@@ -4,7 +4,9 @@ synchronous dense and paged paths).
 
 * ``Request`` / ``RequestQueue`` / ``Clock`` and the traffic generators
   (``poisson_arrivals``, ``shared_prefix_arrivals``,
-  ``attach_distinct_prompts``) are the JAX package's, unchanged.
+  ``attach_distinct_prompts``) are the JAX package's: the same fields
+  (deadlines and the robustness outcome included) and the same draws for
+  one seed.
 * ``form_bursts`` — the per-burst engine's batch forming (one sampling
   mode per burst, bucketed batch sizes).
 * ``ContinuousBatcher`` — slot-based continuous batching over the dense
@@ -35,8 +37,17 @@ numpy generator seeded with the batcher's ``seed`` at construction and at
 each admission, in the JAX package's order, and split inside every step;
 so the sampled streams, like the greedy ones, equal the JAX package's.
 
-Not in the port: disaggregation, the mesh axis, fault injection, deadlines
-and the watchdog.
+The robustness surface (DESIGN.md §15) is the JAX package's too: mid-stream
+``cancel`` and per-request deadlines (commit-then-discard under the async
+pipeline), the ``set_knobs`` actuation surface the degradation ladder
+drives (clamped into the warmed bucket sets), the ``step_output`` and
+``d2h_stall`` fault sites with the emitted-token guard and one-retry
+quarantine at every commit boundary, and an attachable step-time watchdog.
+A ``FaultPlan`` counts the JAX package's opportunities: where the port
+packs what the JAX package pulls separately into one transfer, that pull
+counts as many ``d2h_stall`` opportunities as the JAX package's pulls.
+
+Not in the port: disaggregation and the mesh axis.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bucket_multiple, bucket_pow2
+from repro_torch.core.faults import POISON_TOKEN
 from repro_torch.core.telemetry import MetricsRegistry, Telemetry
 from repro_torch.runtime.kvcache import BlockTable
 from repro_torch.runtime.steps import pull_host
@@ -114,6 +126,13 @@ class Request:
     arrival_s: float = 0.0
     prompt: tuple = ()
     priority: int = 0
+    # Deadlines (DESIGN.md §15). ``ttl_s`` bounds *queue wait*: a request
+    # still queued ttl_s after arrival is shed before admission
+    # (runtime.admission). ``deadline_s`` is the absolute clock completion
+    # deadline: a seated request past it is cancelled mid-stream, its
+    # slot/pages released. None = no deadline.
+    ttl_s: float | None = None
+    deadline_s: float | None = None
     # Filled by the runtime:
     tokens: list = field(default_factory=list)
     t_admit: float | None = None
@@ -121,6 +140,10 @@ class Request:
     t_last: float | None = None  # last emit (inter-token histogram anchor)
     t_done: float | None = None
     preemptions: int = 0
+    shed_reason: str | None = None  # why admission dropped it (§15)
+    cancelled: bool = False  # cancelled mid-stream (deadline or explicit)
+    error: str | None = None  # failed after fault containment gave up
+    faults: int = 0  # times this request's slot was quarantined
 
     def __post_init__(self) -> None:
         if self.prompt:
@@ -371,6 +394,16 @@ class BatcherStats:
     drafted_tokens: int = 0
     accepted_tokens: int = 0
     k_bucket_crossings: int = 0
+    # Robustness accounting (DESIGN.md §15): mid-stream cancellations (by
+    # deadline or explicit cancel), step-time stragglers flagged by an
+    # attached watchdog, and fault-containment outcomes (quarantined slots
+    # whose requests were re-admitted vs failed).
+    cancelled: int = 0
+    deadline_missed: int = 0
+    stragglers: int = 0
+    faults_detected: int = 0
+    faults_contained: int = 0
+    faults_failed: int = 0
     # The metrics registry this batcher's per-lane counters and latency
     # histograms live in (DESIGN.md §14); ``lane_calls`` derives from it.
     registry: MetricsRegistry = field(
@@ -586,6 +619,18 @@ class _MultiLaneMixin:
         self._prefilling = np.zeros(num_slots, bool)
         self._chunk_slots: set[int] = set()
         self._flip_slots: set[int] = set()  # flipped to DECODE this step
+        # Overload/fault hardening (DESIGN.md §15). All inert by default:
+        # un-attached, each costs one None-check (or, for deadlines, one
+        # bool check) per step.
+        self._watchdog = None  # ft.failover.StepTimeWatchdog
+        self._on_straggler: Callable[[float], None] | None = None
+        self._faults = None  # core.faults.FaultPlan
+        self._stall_pending = False  # an injected d2h stall awaits detection
+        self._has_deadlines = False  # any seated request carries deadline_s
+        self._fault_retry_limit = 1  # re-admissions before a request fails
+        self.cancelled_requests: list[Request] = []
+        self.failed_requests: list[Request] = []
+        self.requeued: list[Request] = []  # quarantined, to be re-admitted
 
     def _draw_keys(self, *shape: int) -> np.ndarray:
         return self._rng.integers(0, 2**32, size=shape, dtype=np.uint32)
@@ -637,6 +682,12 @@ class _MultiLaneMixin:
         self._lane_policy = LanePolicy(
             token_budget=self.token_budget, spec_k=self.spec_k
         )
+        # Launch-time knob ceilings: ``set_knobs`` (the degradation ladder's
+        # actuation surface) may move spec_k/prefill_chunk/token_budget only
+        # within the ranges whose dispatch keys warmup built.
+        self._spec_max = self.spec_k
+        self._chunk_max = self.prefill_chunk
+        self._budget_max = self.token_budget
 
     # ------------------------------------------------------------ properties
     @property
@@ -695,9 +746,25 @@ class _MultiLaneMixin:
             self._trace.emit("finish", "scheduler",
                              args={"rid": req.rid, "tokens": len(req.tokens)})
 
-    def _pull(self, dev: torch.Tensor) -> np.ndarray:
+    def _stall_site(self, opportunities: int = 1) -> None:
+        """The ``d2h_stall`` fault site: ``opportunities`` host-blocking
+        pulls of the JAX package (its synchronous decode pulls the next
+        token, the positions and the keys apart; the port packs them into
+        one transfer), each one opportunity of the plan. A fired fault
+        sleeps its ``stall_s`` (a simulated interconnect stall) for the
+        watchdog to flag."""
+        for _ in range(opportunities):
+            f = self._faults.fire("d2h_stall")
+            if f is not None:
+                time.sleep(f.stall_s)
+                self._stall_pending = True
+
+    def _pull(self, dev: torch.Tensor, opportunities: int = 1) -> np.ndarray:
         """The emit-boundary d2h sync; ``device_wait_ms`` measures how long
-        the host sat blocked on the device."""
+        the host sat blocked on the device. ``opportunities`` is the
+        ``d2h_stall`` count of the pull (``_stall_site``)."""
+        if self._faults is not None:
+            self._stall_site(opportunities)
         out, dt_ns = pull_host(dev, self._trace)
         self.stats.device_wait_ms += dt_ns / 1e6
         self.stats.d2h_transfers += 1
@@ -726,6 +793,8 @@ class _MultiLaneMixin:
         of the async loop; ``device_wait_ms`` times it) and read the
         buffer, which goes back to the idle set."""
         buf, ev = staged
+        if self._faults is not None:
+            self._stall_site()
         t0 = time.perf_counter_ns()
         if ev is not None:
             ev.synchronize()
@@ -757,9 +826,13 @@ class _MultiLaneMixin:
         device runs it. Any step the host must read before planning (spec
         accept/rollback, prefill flips, finishes, prompt forcing) commits
         first, so the sequence of calls on the device — and every token
-        stream — is the synchronous loop's."""
+        stream — is the synchronous loop's. Seated requests past their
+        ``deadline_s`` are cancelled first; an attached watchdog observes
+        the step's wall time last."""
         t0 = time.perf_counter()
         dw0 = self.stats.device_wait_ms
+        if self._has_deadlines:
+            self._cancel_overdue(now)
         finished = self._backlog
         self._backlog = []
         ran_ahead = False
@@ -778,6 +851,8 @@ class _MultiLaneMixin:
             (time.perf_counter() - t0) * 1e3
             - (self.stats.device_wait_ms - dw0)
         )
+        if self._watchdog is not None:
+            self._watchdog_tick(time.perf_counter() - t0)
         return finished
 
     def flush(self, now: float = 0.0) -> list[Request]:
@@ -1064,14 +1139,13 @@ class _MultiLaneMixin:
         if not self._spec_on or self._draft_prefill_dispatch is None:
             return
         dstep = self._draft_prefill_dispatch(bucket)
-        dins = _static_inputs(dstep)
         self.stats.note_lane("drp")
         t0_ns = time.perf_counter_ns()
         # the sample and the split keys are discarded
         _, self._draft_cache, _, _ = dstep(
             self._draft_cache, tok_dev, start_dev, length_dev,
-            self._mirror.get("temps", self._temps, dins[3]),
-            self._mirror.get("greedy", self._greedy, dins[4]),
+            self._mirror.get("temps", self._temps),
+            self._mirror.get("greedy", self._greedy),
             keys_dev,
         )
         self._lane_tick("drp", t0_ns)
@@ -1135,7 +1209,9 @@ class _MultiLaneMixin:
         if self.async_steps:
             self._queue_decode(packed, decoding)
             return []
-        p = self._pull(packed)  # [S,4]: nxt | new_pos | keys; blocks
+        # [S,4]: nxt | new_pos | keys; blocks. Three d2h_stall
+        # opportunities: the JAX package pulls the three apart.
+        p = self._pull(packed, opportunities=3)
         self._pos = np.array(p[:, 1], np.int32)
         self._keys = p[:, 2:4].astype(np.uint32)
         return self._emit_decode(p[:, 0], p[:, 1], now)
@@ -1147,6 +1223,8 @@ class _MultiLaneMixin:
         committed step's own positions (under run-ahead ``self._pos`` is
         already a step further)."""
         finished: list[Request] = []
+        if self._faults is not None:
+            nxt_host, _ = self._inject_step_output(nxt_host)
         self._tok = np.asarray(nxt_host)[:, None].astype(np.int32)
         self._count_prefilling_slot_steps()
         for s, req in enumerate(self._slots):
@@ -1167,6 +1245,10 @@ class _MultiLaneMixin:
                 self.stats.prompt_tokens += 1
                 continue
             self._before_emit(s, req)
+            if int(nxt_host[s]) < 0:
+                # NaN guard (§15): invalid token id — quarantine this slot
+                self._quarantine_slot(s, now)
+                continue
             req.tokens.append(int(nxt_host[s]))
             self._note_tokens(req, now)
             self.stats.tokens += 1
@@ -1203,19 +1285,25 @@ class _MultiLaneMixin:
         uploaded once), so candidates are deterministic; the keys the draft
         splits are discarded, so the sampled streams are untouched. Returns
         the host [S, K] candidates — an inherent sync, since the host packs
-        the verify windows from them."""
+        the verify windows from them.
+
+        The draft lanes' targets are keyed by slots, k and the draft dtype,
+        not by the pool, so every batcher of the engine on one slot count
+        (the overload stream's int8 standby too) shares them: a mirrored upload
+        lands in a tensor of this batcher's own, never in a shared target's
+        static input, which the other batcher's call would overwrite; and
+        the dispatch puts this batcher's own draft state back into the
+        shared draft cache first (the engine's ``_DraftBank``)."""
         step = self._draft_dispatch(k)  # cold: slot-hit unless k moved
-        ins = _static_inputs(step)
         t0_ns = time.perf_counter_ns()
         drafts, self._draft_cache, _, _ = step(
             self._draft_cache,
-            self._mirror.get("tok", self._tok, ins[0]),
-            self._mirror.get("pos", self._pos, ins[1]),
-            self._mirror.get("active", decoding, ins[2]),
-            self._mirror.get("temps", self._temps, ins[3]),
-            self._mirror.get("spec_greedy", np.ones(self.num_slots, bool),
-                             ins[4]),
-            self._mirror.get("keys", self._keys_i32, ins[5]),
+            self._mirror.get("tok", self._tok),
+            self._mirror.get("pos", self._pos),
+            self._mirror.get("active", decoding),
+            self._mirror.get("temps", self._temps),
+            self._mirror.get("spec_greedy", np.ones(self.num_slots, bool)),
+            self._mirror.get("keys", self._keys_i32),
         )
         self._lane_tick("dr", t0_ns)
         self.stats.draft_steps += 1
@@ -1277,8 +1365,11 @@ class _MultiLaneMixin:
         correction token next. Rejected-tail KV sits beyond the new
         position — masked by the per-row causal frontier and overwritten by
         the next committed write (paged storage also trims pages no window
-        can reach, ``_after_commit``)."""
+        can reach, ``_after_commit``). A poisoned window (an emitted id
+        below 0) quarantines its slot instead."""
         finished: list[Request] = []
+        if self._faults is not None:
+            nxt0, rows = self._inject_step_output(nxt0, rows)
         for s, req in enumerate(self._slots):
             if req is None or not self._active[s]:
                 self.stats.idle_slot_steps += 1
@@ -1315,6 +1406,12 @@ class _MultiLaneMixin:
                         "lane:" + self._verify_lane,
                         args={"slot": s, "accepted": a, "k": k_s},
                     )
+            if min(emitted) < 0:
+                # NaN guard (§15): a poisoned sample surfaced as an invalid
+                # token id. Quarantine exactly this slot — pos is not
+                # advanced, nothing is appended, co-batched rows untouched.
+                self._quarantine_slot(s, now)
+                continue
             self._pos[s] += len(emitted)
             self._tok[s, 0] = emitted[-1]
             req.tokens.extend(emitted)
@@ -1349,6 +1446,206 @@ class _MultiLaneMixin:
         self._active[s] = False
         self._mirror.touch("active")
         self.stats.finished += 1
+
+    # ------------------------------------- robustness surface (DESIGN.md §15)
+    def _release_slot(self, s: int) -> None:
+        """Storage-release hook for cancel/quarantine: clear the slot's
+        host state and drop the device copies of its token and active bit,
+        so the next step (a captured target's replay too) masks the row out
+        (paged storage overrides to return the block table's pages too).
+        The slot's input token is zeroed so a poisoned id never feeds a
+        later gather."""
+        self._slots[s] = None
+        self._active[s] = False
+        self._prefilling[s] = False
+        self._tok[s, 0] = 0
+        self._mirror.touch("tok", "active")
+
+    def attach_watchdog(self, watchdog, on_straggler=None) -> None:
+        """Wire a ``ft.failover.StepTimeWatchdog`` into the step loop:
+        every ``step()`` observes its wall time; a flagged straggler emits
+        a flight-recorder event, counts in the registry, and calls
+        ``on_straggler(dt_s)`` (the degradation controller's hook)."""
+        self._watchdog = watchdog
+        self._on_straggler = on_straggler
+
+    def attach_faults(self, plan) -> None:
+        """Arm a ``core.faults.FaultPlan`` at this batcher's injection
+        sites (``step_output`` at the commit boundaries, ``d2h_stall`` in
+        the pulls). Detection/containment report back through the plan."""
+        self._faults = plan
+
+    def _watchdog_tick(self, dt_s: float) -> None:
+        straggler = self._watchdog.observe(self.stats.steps, dt_s)
+        if straggler:
+            self.stats.stragglers += 1
+            self.telemetry.registry.inc("step_stragglers_total")
+            if self._trace is not None:
+                self._trace.emit(
+                    "straggler", "scheduler",
+                    args={"step": self.stats.steps,
+                          "ms": round(dt_s * 1e3, 3)},
+                )
+            if self._stall_pending and self._faults is not None:
+                # an injected d2h stall was caught by the watchdog: the
+                # detection mechanism worked; containment is that the step
+                # still committed (a latency fault kills no request)
+                self._faults.note_detected("d2h_stall")
+                self._faults.note_contained("d2h_stall")
+            if self._on_straggler is not None:
+                self._on_straggler(dt_s)
+        self._stall_pending = False
+
+    def set_knobs(
+        self,
+        *,
+        spec_k: int | None = None,
+        prefill_chunk: int | None = None,
+        token_budget: int | None = None,
+    ) -> dict:
+        """Cold-path actuation surface for the degradation ladder (§15).
+
+        Every knob is pure host data consumed by the per-step plan: the
+        next step dispatches other *already-warmed* keys (smaller chunk
+        buckets, smaller or no k-buckets), so an actuation is at most a
+        rebind — never a build (on the card, never a capture). Values are
+        clamped into the launch-time ranges warmup built; restoring the
+        launch values is the symmetric recovery path."""
+        if spec_k is not None:
+            k = int(spec_k)
+            k = 0 if k <= 0 else min(k, self._spec_max)
+            if self._draft_dispatch is None or self._verify_dispatch is None:
+                k = 0
+            self.spec_k = k
+            self._lane_policy.spec_k = k
+        if prefill_chunk is not None and self._chunk_max > 0:
+            self.prefill_chunk = bucket_pow2(
+                max(CHUNK_BUCKET_MIN,
+                    min(int(prefill_chunk), self._chunk_max)),
+                CHUNK_BUCKET_MIN,
+                self._chunk_max,
+            )
+        if token_budget is not None:
+            b = min(self._budget_max,
+                    max(int(token_budget), self.num_slots + 1))
+            self.token_budget = b
+            self._lane_policy.token_budget = b
+        return {
+            "spec_k": self.spec_k,
+            "prefill_chunk": self.prefill_chunk,
+            "token_budget": self.token_budget,
+        }
+
+    def cancel(self, rid: int, now: float = 0.0,
+               reason: str = "cancel") -> bool:
+        """Mid-stream cancellation: release the request's slot (and, paged,
+        its pages), mark it cancelled, and account it. Every parked step
+        commits first and its outcome is honoured — a request that finished
+        inside that commit is *not* cancelled (commit-then-discard).
+        Returns True when a seated request with ``rid`` was cancelled."""
+        for s, req in enumerate(self._slots):
+            if req is not None and req.rid == rid:
+                return self._cancel_slot(s, now, reason) is not None
+        return False
+
+    def _cancel_slot(self, s: int, now: float, reason: str):
+        target = self._slots[s]
+        if self._inflight:
+            # a parked step may be about to emit into this slot: commit
+            # them all, then discard whatever landed (commit-then-discard)
+            self._backlog.extend(self._commit_pending(now))
+        req = self._slots[s]
+        if req is None or req is not target:
+            return None  # the committed step finished (or replaced) it
+        req.cancelled = True
+        req.shed_reason = reason
+        self._release_slot(s)
+        self.cancelled_requests.append(req)
+        self.stats.cancelled += 1
+        if reason == "deadline":
+            self.stats.deadline_missed += 1
+        self.telemetry.registry.inc(
+            "requests_cancelled_total", reason=reason
+        )
+        if self._trace is not None:
+            self._trace.emit("cancel", "scheduler",
+                             args={"rid": req.rid, "slot": s,
+                                   "reason": reason})
+        return req
+
+    def _cancel_overdue(self, now: float) -> None:
+        """Deadline enforcement: cancel every seated request whose
+        ``deadline_s`` has passed (runs once per step, only while some
+        admitted request carried a deadline)."""
+        for s in range(self.num_slots):
+            req = self._slots[s]
+            if (
+                req is not None
+                and req.deadline_s is not None
+                and now > req.deadline_s
+            ):
+                self._cancel_slot(s, now, "deadline")
+
+    def _quarantine_slot(self, s: int, now: float,
+                         site: str = "step_output") -> None:
+        """Fault containment (§15): a poisoned emission was detected on
+        slot ``s``. Quarantine exactly that slot — release it (paged
+        storage frees its pages) and either re-admit its request from
+        scratch (first offence) or fail it (retry limit reached). The
+        co-batched slots' state is untouched: per-row masking means the
+        released row simply stops participating."""
+        req = self._slots[s]
+        self._release_slot(s)
+        req.faults += 1
+        self.stats.faults_detected += 1
+        plan = self._faults
+        if plan is not None:
+            plan.note_detected(site)
+        if self._trace is not None:
+            self._trace.emit("quarantine", "scheduler",
+                             args={"rid": req.rid, "slot": s, "site": site})
+        if req.faults <= self._fault_retry_limit:
+            # restart from scratch: poisoned progress is discarded, like a
+            # preemption (the serving loop re-submits ``requeued``)
+            req.tokens = []
+            req.t_admit = None
+            req.t_first = None
+            req.t_last = None
+            self.requeued.append(req)
+            self.stats.faults_contained += 1
+            if plan is not None:
+                plan.note_contained(site)
+        else:
+            req.error = site
+            self.failed_requests.append(req)
+            self.stats.faults_failed += 1
+            self.telemetry.registry.inc("requests_failed_total", site=site)
+
+    def _inject_step_output(self, nxt_host, rows=None):
+        """``step_output`` fault site: one commit boundary. When armed,
+        replace the victim slot's emission with ``POISON_TOKEN`` (the
+        int32 image of a NaN-poisoned sample). Only host copies are
+        poisoned: a captured graph's static outputs and the async
+        pipeline's pinned buffers are never written."""
+        f = self._faults.fire("step_output")
+        if f is None:
+            return nxt_host, rows
+        cands = [
+            s for s, r in enumerate(self._slots)
+            if r is not None and self._active[s] and not self._prefilling[s]
+        ]
+        if not cands:
+            return nxt_host, rows
+        s = cands[f.slot % len(cands)]
+        nxt_host = np.array(nxt_host)
+        nxt_host[s] = POISON_TOKEN
+        if rows is not None:
+            rows = np.array(rows)
+            rows[s, :] = POISON_TOKEN
+        if self._trace is not None:
+            self._trace.emit("fault_inject", "scheduler",
+                             args={"site": "step_output", "slot": s})
+        return nxt_host, rows
 
     # ------------------------------------------------------------ occupancy
     def _count_prefilling_slot_steps(self) -> None:
@@ -1470,6 +1767,8 @@ class ContinuousBatcher(_MultiLaneMixin):
             self._greedy[s] = req.greedy
             self._keys[s] = self._draw_keys(2)
             req.t_admit = now
+            if req.deadline_s is not None:
+                self._has_deadlines = True
             self._note_admit(req, now)
             admitted += 1
         if admitted:
@@ -1815,6 +2114,8 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             self._keys[s] = self._draw_keys(2)
             self._prompt_cached[s] = False
             req.t_admit = now
+            if req.deadline_s is not None:
+                self._has_deadlines = True
             self._note_admit(req, now)
             self._mirror.touch("tok", "pos", "active", "temps", "greedy",
                                "keys")
@@ -2012,6 +2313,17 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         self._tables_changed()
         super()._release(s)
 
+    def _release_slot(self, s: int) -> None:
+        """Cancel/quarantine release for paged storage: the slot's block
+        table returns its pages to the pool before the host state clears,
+        and the packed tables are rebuilt, so no later replay reads a
+        freed page."""
+        if self._tables[s] is not None:
+            self._tables[s].release()
+            self._tables[s] = None
+        super()._release_slot(s)
+        self._tables_changed()
+
     # ---------------------------------------------------- draft/verify lanes
     def _verify_call(self, k: int, tok: np.ndarray, lengths: np.ndarray):
         """The paged verify target ``("vf", slots, k, kv_dtype)`` with the
@@ -2067,9 +2379,13 @@ class PagedContinuousBatcher(_MultiLaneMixin):
 
 
 # ------------------------------------------------------------------ reports
-def latency_report(requests: Sequence[Request], batcher=None) -> dict:
+def latency_report(
+    requests: Sequence[Request], batcher=None, registry=None
+) -> dict:
     """p50/p95/p99 latency + TTFT + throughput over finished requests, plus
-    the batcher's per-lane counts and host/device split when given."""
+    the batcher's per-lane counts and host/device split when given, and
+    the robustness block (shed, cancelled, failed, faults, the ladder) from
+    ``registry`` (default: the batcher's) when any of it is non-empty."""
     done = [r for r in requests if r.t_done is not None]
     lanes: dict = {}
     if batcher is not None:
@@ -2105,6 +2421,40 @@ def latency_report(requests: Sequence[Request], batcher=None) -> dict:
             if len(acc):
                 lanes["spec"]["acceptance_p50"] = float(np.percentile(acc, 50))
                 lanes["spec"]["acceptance_p95"] = float(np.percentile(acc, 95))
+                lanes["spec"]["acceptance_p99"] = float(np.percentile(acc, 99))
+    # Robustness block (DESIGN.md §15): shed/cancel/fault/degradation
+    # accounting, derived from the registry the hardened loop feeds. A
+    # clean run has every family empty, so the block is omitted.
+    reg = registry
+    if reg is None and batcher is not None:
+        reg = batcher.telemetry.registry
+    if reg is not None:
+        robust: dict = {}
+        for key, family, label in (
+            ("shed", "admission_shed_total", "reason"),
+            ("cancelled", "requests_cancelled_total", "reason"),
+            ("failed", "requests_failed_total", "site"),
+            ("faults_injected", "faults_injected_total", "site"),
+            ("faults_detected", "faults_detected_total", "site"),
+            ("faults_contained", "faults_contained_total", "site"),
+            ("rung_dwell_s", "degrade_rung_dwell_s", "rung"),
+            ("degrade_transitions", "degrade_transitions_total",
+             "direction"),
+        ):
+            vals = reg.labeled_values(family, label)
+            if vals:
+                robust[key] = (
+                    {k: round(v, 3) for k, v in vals.items()}
+                    if key == "rung_dwell_s" else
+                    {k: int(v) for k, v in vals.items()}
+                )
+        stragglers = reg.value("step_stragglers_total")
+        if stragglers:
+            robust["stragglers"] = int(stragglers)
+        if batcher is not None and batcher.stats.deadline_missed:
+            robust["deadline_missed"] = batcher.stats.deadline_missed
+        if robust:
+            lanes["robustness"] = robust
     if not done:
         return {"finished": 0, **lanes}
     lat = np.array([r.latency_s for r in done])

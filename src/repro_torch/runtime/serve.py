@@ -57,6 +57,15 @@ forced token by token, as in the JAX package.
 Every branch target runs under the ``perf`` opts current when it was
 built (``repro_torch.perf.bake``), whatever the ambient opts at its call.
 
+The **overload-hardened paged stream** (``run_overload_stream``, DESIGN.md
+§15) is the paper's construct applied to load: bounded admission with shed
+policies and queue TTLs, deadlines and cancellation, a degradation ladder
+whose rungs move the batchers' knobs over warmed keys and route new
+admissions to a pre-warmed int8 standby pool, fault injection at five
+sites, a step-count heartbeat and the step-time watchdog. The cold-path
+controller flips which warmed target the hot path runs; the hot path never
+tests "are we overloaded?".
+
 The engine runs on the card by default (``device="cuda"``) and raises when
 no GPU is present unless the caller passes ``device="cpu"``.
 """
@@ -64,6 +73,7 @@ no GPU is present unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -79,7 +89,15 @@ from repro_torch.core.graph_target import GraphTarget, check_args
 from repro_torch.core import lanes as lanes_mod
 from repro_torch.core.lanes import LANES
 from repro_torch.core.telemetry import Telemetry
+from repro_torch.ft.failover import HeartbeatMonitor, StepTimeWatchdog
 from repro_torch.runtime import steps as steps_mod
+from repro_torch.runtime.admission import AdmissionQueue
+from repro_torch.runtime.degrade import (
+    DegradeController,
+    Rung,
+    apply_rung,
+    default_ladder,
+)
 from repro_torch.models.layers import dtype_of
 from repro_torch.runtime.kvcache import (
     KV_DTYPES,
@@ -164,6 +182,67 @@ class _WarmCtx:
     state)."""
 
     spec: bool = False
+
+
+class _DraftOwner:
+    """A batcher's claim on the draft caches it speculates over; held by its
+    draft dispatch closures, so it lives as long as the batcher."""
+
+    __slots__ = ("__weakref__",)
+
+
+class _DraftBank:
+    """Whose draft state one draft cache holds. The draft lanes' targets are
+    keyed by slots, k and the draft dtype, not by the pool, and are bound
+    (captured, on the card) to the engine's one draft cache of that slot
+    count and dtype; so every batcher on it — the overload stream's int8
+    standby beside the first batcher — runs its draft lanes over that cache.
+    Each batcher keeps its own draft state all the same, as each JAX batcher
+    owns its cache value: ``claim`` parks the resident owner's state in a
+    copy of its own and restores the caller's before its draft lane runs.
+    With one batcher on the cache nothing is copied."""
+
+    def __init__(self, cache: list) -> None:
+        self.cache = cache
+        self._owner: weakref.ref | None = None
+        self._parked: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+    def _resident(self) -> _DraftOwner | None:
+        return self._owner() if self._owner is not None else None
+
+    def vacate(self) -> None:
+        """Park the resident owner's state: the engine is about to zero the
+        cache for a new batcher and warm its lanes over it."""
+        owner = self._resident()
+        if owner is not None:
+            saved = self._parked.get(owner)
+            if saved is None:
+                self._parked[owner] = [
+                    {n: t.clone() for n, t in layer.items()}
+                    for layer in self.cache
+                ]
+            else:
+                _copy_cache(saved, self.cache)
+        self._owner = None
+
+    def seat(self, owner: _DraftOwner) -> None:
+        """``owner``'s state is the one the cache holds now."""
+        self._owner = weakref.ref(owner)
+
+    def claim(self, owner: _DraftOwner) -> None:
+        """Make ``owner``'s state the resident one (cold path: a copy only
+        when another batcher's draft lane ran last)."""
+        if self._resident() is owner:
+            return
+        self.vacate()
+        _copy_cache(self.cache, self._parked[owner])
+        self.seat(owner)
+
+
+def _copy_cache(dst: list, src: list) -> None:
+    for d, s in zip(dst, src):
+        for name, t in d.items():
+            t.copy_(s[name])
 
 
 class _GraphStep:
@@ -260,6 +339,7 @@ class Engine:
         self._paged_caches: dict = {}  # kv_dtype -> page pool
         self._dense_caches: dict = {}  # slots -> dense target cache
         self._draft_caches: dict = {}  # (slots, draft dtype) -> dense cache
+        self._draft_banks: dict = {}  # (slots, draft dtype) -> _DraftBank
         self._burst_caches: dict = {}  # batch bucket -> dense cache
         # one memory pool for every graph (they never run concurrently)
         self._graph_pool = (
@@ -580,6 +660,20 @@ class Engine:
             )
         return self._draft_caches[key]
 
+    def _reset_drafts(self, slots: int, draft_kv_dtype: str) -> _DraftOwner:
+        """A new speculating batcher on ``slots``: park every draft cache's
+        resident state, zero the caches (a fresh engine's), and return the
+        owner whose state the ``draft_kv_dtype`` cache holds after the
+        batcher's warmup."""
+        owner = _DraftOwner()
+        for d in self._warm_draft_kv_dtypes():
+            cache = self.draft_cache(slots, d)
+            bank = self._draft_banks.setdefault((slots, d), _DraftBank(cache))
+            bank.vacate()
+            self.zero_cache(cache)
+        self._draft_banks[slots, draft_kv_dtype].seat(owner)
+        return owner
+
     def burst_cache(self, bucket: int) -> list:
         """The dense cache of a batch bucket (``max_len`` rows), shared by
         both modes' burst targets and created on first use. ``set_mode``
@@ -813,6 +907,12 @@ class Engine:
         base = (self._warm_marks or {}).get("rebinds", 0)
         return self._decode.stats.rebinds - base
 
+    def attach_faults(self, plan) -> None:
+        """Arm a ``core.faults.FaultPlan`` at the engine's ``build`` site
+        (the dispatcher's cold path; on the card a build is a capture).
+        Batcher- and pool-side sites are armed on those objects directly."""
+        self._decode.attach_faults(plan)
+
     # ------------------------------------------------------ per-burst engine
     def set_mode(self, *, batch: int, sampling: int = GREEDY) -> dict:
         """Cold path: bucket the batch, build-or-fetch the burst target,
@@ -981,9 +1081,7 @@ class Engine:
         # fresh engine's
         for d in self._warm_kv_dtypes():
             self.zero_cache(self.paged_cache(d))
-        if use_spec:
-            for d in self._warm_draft_kv_dtypes():
-                self.zero_cache(self.draft_cache(s, d))
+        owner = self._reset_drafts(s, ddt) if use_spec else None
         ctx = _WarmCtx(spec=use_spec)
         self._warm_lanes("paged", s, ctx)
 
@@ -1002,7 +1100,7 @@ class Engine:
         if use_spec:
             draft_dispatch, verify_dispatch, draft_prefill_dispatch = (
                 self._spec_dispatchers(
-                    s, ddt, lambda k: lanes_mod.VF.key(s, k, dt)
+                    s, ddt, lambda k: lanes_mod.VF.key(s, k, dt), owner
                 )
             )
 
@@ -1032,19 +1130,25 @@ class Engine:
         )
 
     def _spec_dispatchers(self, slots: int, draft_kv_dtype: str,
-                          verify_key: Callable[[int], tuple]):
+                          verify_key: Callable[[int], tuple],
+                          owner: _DraftOwner):
         """The speculative lanes' dispatch closures over warmed keys: the
-        draft lanes pin the draft dtype, ``verify_key(k)`` is the engine's
-        verify key (``vf`` over its pool dtype, or ``vfd``)."""
+        draft lanes pin the draft dtype and make ``owner``'s draft state the
+        resident one (the batcher calls its draft target right after),
+        ``verify_key(k)`` is the engine's verify key (``vf`` over its pool
+        dtype, or ``vfd``)."""
         s = slots
+        bank = self._draft_banks[s, draft_kv_dtype]
 
         def draft_dispatch(k: int) -> Callable:
+            bank.claim(owner)
             return self._decode.dispatch(lanes_mod.DR.key(s, k, draft_kv_dtype))
 
         def verify_dispatch(k: int) -> Callable:
             return self._decode.dispatch(verify_key(k))
 
         def draft_prefill_dispatch(chunk_bucket: int) -> Callable:
+            bank.claim(owner)
             return self._decode.dispatch(
                 lanes_mod.DRP.key(s, chunk_bucket, draft_kv_dtype)
             )
@@ -1097,9 +1201,7 @@ class Engine:
             and self._supports_spec_decode()
         )
         self._check_kernels()
-        if use_spec:
-            for d in self._warm_draft_kv_dtypes():
-                self.zero_cache(self.draft_cache(s, d))
+        owner = self._reset_drafts(s, ddt) if use_spec else None
         cache = self.zero_cache(self.dense_cache(s))
         ctx = _WarmCtx(spec=use_spec)
         self._warm_lanes("dense", s, ctx)
@@ -1120,7 +1222,7 @@ class Engine:
         if use_spec:
             draft_dispatch, verify_dispatch, draft_prefill_dispatch = (
                 self._spec_dispatchers(
-                    s, ddt, lambda k: lanes_mod.VFD.key(s, k)
+                    s, ddt, lambda k: lanes_mod.VFD.key(s, k), owner
                 )
             )
         self.mark_warm_boundary()
@@ -1400,6 +1502,261 @@ def run_paged_stream(
         cow_copies=cb.pool.stats.cow_copies,
         prefix_evictions=cb.pool.stats.prefix_evictions,
         unserved=len(requests) - len(finished),
+        compiles_total=eng._decode.stats.misses,
+        compiles_after_warmup=eng.post_warmup_compiles,
+        rebinds=eng.post_warmup_rebinds,
+    )
+    return report
+
+
+def run_overload_stream(
+    eng: Engine,
+    requests: list[Request],
+    *,
+    slots: int | None = None,
+    seed: int = 0,
+    clock: Clock | None = None,
+    kv_dtype: str | None = None,
+    async_steps: bool = False,
+    capacity: int | None = None,
+    shed_policy: str = "reject-new",
+    queue_ttl_s: float | None = None,
+    controller: DegradeController | None = None,
+    degrade: bool = False,
+    faults=None,
+    watchdog: bool = True,
+    heartbeat_timeout_steps: float = 2.0,
+    max_steps: int | None = None,
+) -> dict:
+    """The overload-hardened paged stream (DESIGN.md §15).
+
+    Everything ``run_paged_stream`` does, plus the hardening surfaces:
+
+    * **bounded admission** — an ``runtime.admission.AdmissionQueue`` with
+      ``capacity``/``shed_policy``/``queue_ttl_s``;
+    * **deadlines** — per-request ``ttl_s`` sheds in queue, ``deadline_s``
+      cancels mid-stream (the batcher's ``_cancel_overdue``);
+    * **degradation ladder** — a ``runtime.degrade.DegradeController``
+      observed once per iteration; its rung changes actuate ``set_knobs``
+      over already-warmed keys, and an ``int8-pool`` rung routes *new
+      admissions* to a pre-warmed int8 standby batcher while the other
+      drains (pools flip at the admission boundary — a live cache is never
+      requantised);
+    * **fault injection** — an armed ``core.faults.FaultPlan`` is attached
+      to the dispatcher (``build``), pools (``pool_alloc``) and batchers
+      (``step_output``/``d2h_stall``); ``heartbeat`` is driven here: each
+      iteration beats a ``ft.failover.HeartbeatMonitor`` on a *step-count*
+      time axis (deterministic under any clock), a fired fault suppresses
+      the beat, and a lost heartbeat forces the controller to the bottom
+      rung until beats resume;
+    * **watchdog** — ``ft.failover.StepTimeWatchdog`` wired into the step
+      loop (wall time); stragglers feed the controller.
+
+    With every knob at its default (no capacity, no TTL, no controller, no
+    faults) this is behaviourally ``run_paged_stream``: the hardened loop
+    is inert until configured. The clock is read where the JAX package's
+    loop reads it, so one deterministic clock drives both alike.
+    """
+    registry = eng.telemetry.registry
+    trace = eng.telemetry.trace_or_none()
+    if faults is not None and faults.registry is None:
+        faults.registry = registry
+    if faults is not None:
+        eng.attach_faults(faults)
+
+    cb = eng.paged_continuous(  # warmup builds first
+        slots=slots, seed=seed, kv_dtype=kv_dtype, async_steps=async_steps
+    )
+    base = Rung(
+        "base",
+        spec_k=cb.spec_k,
+        prefill_chunk=cb.prefill_chunk,
+        token_budget=cb.token_budget,
+        kv_dtype=cb.pool.kv_dtype,
+    )
+    ctrl = controller
+    if ctrl is None and degrade:
+        ctrl = DegradeController(
+            default_ladder(
+                spec_k=cb.spec_k,
+                prefill_chunk=cb.prefill_chunk,
+                token_budget=cb.token_budget,
+                int8_pool=(
+                    "int8" in eng._warm_kv_dtypes()
+                    and cb.pool.kv_dtype != "int8"
+                ),
+            ),
+            registry=registry,
+            trace=trace,
+            queue_high=max(2 * cb.num_slots, 8),
+            queue_low=max(cb.num_slots // 2, 1),
+        )
+    # int8 standby: warm the flip target *before* the warm boundary
+    # settles, so an int8-pool rung crossing is pure admission routing
+    cb8 = None
+    if ctrl is not None and any(
+        r.kv_dtype == "int8" for r in ctrl.rungs
+    ) and base.kv_dtype != "int8":
+        cb8 = eng.paged_continuous(
+            slots=slots, seed=seed, kv_dtype="int8",
+            async_steps=async_steps,
+        )
+    batchers = [b for b in (cb, cb8) if b is not None]
+    if faults is not None:
+        for b in batchers:
+            b.attach_faults(faults)
+            b.pool.attach_faults(faults)
+    if watchdog:
+        straggled = {"now": False}
+
+        def _on_straggler(dt_s: float) -> None:
+            straggled["now"] = True
+
+        for b in batchers:
+            b.attach_watchdog(StepTimeWatchdog(), _on_straggler)
+    monitor = HeartbeatMonitor(
+        ["engine"], timeout_s=heartbeat_timeout_steps
+    )
+    hb_lost = False
+
+    clock = clock or Clock()
+    # Open-loop traffic: ``pending`` holds requests that have not *arrived*
+    # yet; the bounded AdmissionQueue only ever sees arrived requests, so
+    # capacity/TTL/shedding act on actual queue wait.
+    pending = RequestQueue(requests)
+    q = AdmissionQueue(
+        (),
+        capacity=capacity,
+        shed_policy=shed_policy,
+        queue_ttl_s=queue_ttl_s,
+        registry=registry,
+        trace=trace,
+    )
+    active = cb  # admission target; rung crossings may re-route it
+    finished: list[Request] = []
+    stall_steps = 0
+    steps = 0
+
+    def _has_work() -> bool:
+        return any(b.has_work for b in batchers)
+
+    while pending or q or _has_work():
+        if max_steps is not None and steps >= max_steps:
+            break
+        steps += 1
+        now = clock.now()
+        for r in pending.pop_due(now):
+            q.submit(r)  # arrival: the shed policy applies here
+        # --- heartbeat (step-count time axis: deterministic) -------------
+        beat = True
+        if faults is not None and faults.fire("heartbeat") is not None:
+            beat = False
+        if beat:
+            monitor.beat("engine", t=float(steps))
+        healthy = not monitor.failed(now=float(steps))
+        if not healthy and not hb_lost:
+            hb_lost = True
+            if faults is not None:
+                faults.note_detected("heartbeat")
+        elif healthy and hb_lost:
+            hb_lost = False
+            if faults is not None:
+                # beats resumed and the stream kept serving: contained
+                faults.note_contained("heartbeat")
+        # --- controller ---------------------------------------------------
+        if ctrl is not None:
+            rung = ctrl.observe(
+                now,
+                queue_depth=len(q),
+                pool_frac=active.pool.pages_in_use / active.pool.num_pages,
+                straggler=watchdog and straggled["now"],
+                healthy=healthy,
+            )
+            if watchdog:
+                straggled["now"] = False
+            if rung is not None:
+                for b in batchers:
+                    apply_rung(b, rung, base)
+                active = (
+                    cb8
+                    if (rung.kv_dtype == "int8" and cb8 is not None)
+                    else cb
+                )
+        # --- admission ----------------------------------------------------
+        due = q.pop_due(now, limit=active.free_slots)
+        if due:
+            for r in active.admit(due, now=now):
+                q.submit(r)  # deferred for pages: retried, never rejected
+        # --- step every batcher that holds work ---------------------------
+        stepped = False
+        for b in batchers:
+            if not b.has_work:
+                continue
+            stepped = True
+            finished.extend(b.step(now=clock.now()))
+            for r in b.preempted:
+                q.submit(r)
+            b.preempted.clear()
+            for r in b.requeued:  # quarantined: restart from scratch
+                q.submit(r)
+            b.requeued.clear()
+        if stepped:
+            stall_steps = 0
+            continue
+        if q:
+            # arrived work but nothing admitted: reclaim prefix pages,
+            # then declare a stall (pool too small for anything queued)
+            if active.prefix.evict(active.pool.num_pages) == 0:
+                stall_steps += 1
+                if stall_steps > 2:
+                    break
+            continue
+        nxt = pending.next_arrival()
+        if nxt is None:
+            break
+        clock.jump_to(nxt)  # idle: fast-forward to the next arrival
+    now = clock.now()
+    for b in batchers:
+        finished.extend(b.flush(now))
+    if ctrl is not None:
+        ctrl.finalize(now)
+    # pool_alloc containment is the pre-existing evict/preempt/defer
+    # machinery; if the stream drained (no injected exhaustion wedged it),
+    # every injected alloc failure was absorbed.
+    if faults is not None and not q and not pending:
+        n_pa = sum(1 for site, _ in faults.injected if site == "pool_alloc")
+        for _ in range(n_pa - faults.contained.get("pool_alloc", 0)):
+            faults.note_contained("pool_alloc")
+
+    cancelled = [r for b in batchers for r in b.cancelled_requests]
+    failed = [r for b in batchers for r in b.failed_requests]
+    report = latency_report(finished, batcher=cb, registry=registry)
+    report.update(
+        engine="overload",
+        async_steps=cb.async_steps,
+        slots=cb.num_slots,
+        steps=sum(b.stats.steps for b in batchers),
+        kv_dtype=active.pool.kv_dtype,
+        capacity=capacity,
+        shed_policy=shed_policy,
+        shed=len(q.shed),
+        cancelled=len(cancelled),
+        failed=len(failed),
+        deadline_missed=sum(b.stats.deadline_missed for b in batchers),
+        stragglers=sum(b.stats.stragglers for b in batchers),
+        preemptions=sum(b.stats.preemptions for b in batchers),
+        unserved=len(requests)
+        - len(finished) - len(q.shed) - len(cancelled) - len(failed),
+        degrade_rung=(ctrl.rung.name if ctrl is not None else None),
+        degrade_transitions=(
+            [
+                {"t": round(t, 4), "from": a, "to": b_, "why": w}
+                for t, a, b_, w in ctrl.transitions
+            ]
+            if ctrl is not None
+            else []
+        ),
+        faults=(faults.report() if faults is not None else None),
         compiles_total=eng._decode.stats.misses,
         compiles_after_warmup=eng.post_warmup_compiles,
         rebinds=eng.post_warmup_rebinds,

@@ -294,7 +294,7 @@ def test_burst_launcher_builds_its_engine_with_the_reference_quantum(
     class Built(Exception):
         pass
 
-    def engine(cfg, params, ecfg, device=None):
+    def engine(cfg, params, ecfg, telemetry=None, device=None):
         built["ecfg"], built["device"] = ecfg, device
         raise Built
 
