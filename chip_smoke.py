@@ -137,8 +137,8 @@ Phases (any failure exits non-zero before a result is printed):
 
 8. The rest of the dense model path at full width, one model at a time,
    weights seeded on the card (init peak: the weights and one f32 slab;
-   qwen3-14b on 20 of its 40 layers and gemma2-27b on 24 of its 46, so
-   that the script keeps its length with phase 9 added):
+   qwen3-14b on 10 of its 40 layers and gemma2-27b on 12 of its 46, so
+   that the script keeps its length with phases 9-12 added):
    qwen3-14b (bf16, 40 heads over 8: a GQA group of 5) on phase 3's
    paged bf16 cell, dense cell (a) and burst cell; gemma2-27b (bf16, local
    layers of window 4096 and global ones, softcaps 50 and 30) on 2 slots of
@@ -235,6 +235,24 @@ Phases (any failure exits non-zero before a result is printed):
    report's robustness block. Last the launcher's ``--engine overload
    --degrade --chaos-seed 7 --trace-out --metrics-out`` as a subprocess on
    the card (smoke config).
+
+12. Training, after phase 11 and again at the end. First C13 on the
+   card: phase 3's bf16 cell (olmo-1b, graph targets) run once, then again
+   on the same engine with a second paged batcher of the same key built at
+   the first batcher's third step, which then serves the same stream:
+   both streams' tokens equal the first run's, 0 captures in the second
+   run. Then olmo-1b at full width (bf16, remat "block" as its config
+   says): ``make_train_fn`` for 12 steps at 8 x 512 on one repeated
+   synthetic batch (the naive attention; B1-B8 and ``sample_rows`` launch
+   0 times): losses and grad norms finite, step 12's loss below step 1's;
+   the median step by CUDA events past 2 warm steps, tokens/s, peak memory
+   against the reckoned bytes (params, grads, f32 moments, activations).
+   A two-layer cut at olmo-1b's widths (bf16): 6 steps, save, restore
+   (``checkpoint.CheckpointManager``), 6 more against 12 uninterrupted
+   (bytes and seconds written logged). The smoke configs of olmo-1b and
+   mamba2-370m: 3 fp32 steps card = CPU. The launcher ``python -m
+   repro_torch.launch.train --smoke`` for 10 steps, then ``--resume`` to
+   20, as subprocesses on the card.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -3753,11 +3771,11 @@ def _hft_card_vs_cpu(cfg, params, card_reqs, ecfg: dict, slots: int,
         f"divergences")
 
 
-# Phase 8's depth: qwen3-14b and gemma2-27b at full width on half their
-# layers (gemma2's local/global pairs kept), which halves their streams'
-# eager runs and keeps the whole script near its former length with phase
-# 9 added; hft-demo at full depth.
-PHASE8_LAYERS = {"qwen3-14b": 20, "gemma2-27b": 24}
+# Phase 8's depth: qwen3-14b and gemma2-27b at full width on a quarter of
+# their layers (gemma2's local/global pairs kept). Their streams' eager
+# runs are host-bound and scale with depth, so this keeps the whole script
+# well inside its limit with phases 9-12 added; hft-demo at full depth.
+PHASE8_LAYERS = {"qwen3-14b": 10, "gemma2-27b": 12}
 
 
 def configs_phase() -> dict:
@@ -4063,12 +4081,12 @@ def smoke_card_vs_cpu_of(arch: str, tag: str,
 DEEPSEEK, GROK, JAMBA = ("deepseek-67b", "grok-1-314b",
                          "jamba-1.5-large-398b")
 EMBEDS = ("internvl2-1b", "musicgen-medium")
-# Phase 10's depth cuts, full width: deepseek-67b on 16 of its 95 layers
-# (12.75 B params, 25.5 GB bf16), grok-1-314b on 4 of its 64 (21.29 B,
-# 42.6 GB; a layer's 8 experts of d_ff 32768 are 9.7 GB), and jamba as one
-# of each of its layer kinds (one period of its 8 layers is 45.1 B params,
-# 90.3 GB in bf16, more than one card holds).
-PHASE10_LAYERS = {DEEPSEEK: 16, GROK: 4}
+# Phase 10's depth cuts, full width: deepseek-67b on 8 of its 95 layers
+# (its eager runs are host-bound and scale with depth), grok-1-314b on 4
+# of its 64 (21.29 B, 42.6 GB; a layer's 8 experts of d_ff 32768 are 9.7
+# GB), and jamba as one of each of its layer kinds (one period of its 8
+# layers is 45.1 B params, 90.3 GB in bf16, more than one card holds).
+PHASE10_LAYERS = {DEEPSEEK: 8, GROK: 4}
 
 
 def _jamba_cut(cfg):
@@ -4095,9 +4113,9 @@ def _served(tag: str, cfg, params, cells: tuple) -> dict:
 
 def deepseek_phase() -> dict:
     """deepseek-67b (bf16, 64 heads over 8 of 128: a GQA group of 8, B2's Q
-    by TMA) on 16 of its 95 layers: phase 3's paged bf16 cell, dense cell
-    (a) and the burst cell, and the prompt-then-burst path (prefill 8 x
-    256, 32 burst tokens, forward), held as olmo-1b's."""
+    by TMA) on ``PHASE10_LAYERS`` of its 95 layers: phase 3's paged bf16
+    cell, dense cell (a) and the burst cell, and the prompt-then-burst path
+    (prefill 8 x 256, 32 burst tokens, forward), held as olmo-1b's."""
     from repro_torch.configs import get_config
 
     cfg = _depth_cut(get_config(DEEPSEEK), PHASE10_LAYERS[DEEPSEEK],
@@ -4917,6 +4935,390 @@ def overload_phase(cfg, params) -> dict:
             "seconds": seconds}
 
 
+# ------------------------------------------------------------------ phase 12
+def _bf16_cell_tokens(eng, cfg, build_second_at: int | None = None,
+                      second=None):
+    """Phase 3's bf16 cell's stream through ``run_paged_stream``'s loop
+    under a step clock (so every run admits alike), on a new batcher of
+    ``eng`` (or ``second``, an already built one); with
+    ``build_second_at`` another batcher of the same key is built just
+    before that step of this one. Returns (tokens by rid, the batcher
+    built)."""
+    from repro_torch.runtime.scheduler import RequestQueue
+
+    reqs = _shared_prefix_traffic(cfg)
+    cb = second or eng.paged_continuous(slots=8, seed=0)
+    clock, q, built = _StepClock(), RequestQueue(reqs), None
+    while q or cb.has_work:
+        now = clock.now()
+        due = q.pop_due(now, limit=cb.free_slots)
+        for r in (cb.admit(due, now=now) if due else []):
+            q.submit(r)
+        if cb.has_work:
+            if built is None and cb.stats.steps == build_second_at:
+                built = eng.paged_continuous(slots=8, seed=0)
+            cb.step(now=clock.now())
+            for r in cb.preempted:
+                q.submit(r)
+            cb.preempted.clear()
+            continue
+        nxt = q.next_arrival()
+        if nxt is None:
+            break
+        clock.jump_to(nxt)
+    check(all(len(r.tokens) == r.new_tokens for r in reqs),
+          "c13: a request did not finish")
+    return {r.rid: r.tokens for r in reqs}, built
+
+
+def c13_on_card(cfg, params) -> tuple[float, dict]:
+    """Two batchers of one key on one engine keep their own pools (ROADMAP
+    C13): the second, built at the first's third step, neither changes the
+    first's tokens nor captures anything, and then serves the same stream
+    to the same tokens from its own pool. The kernels' counts are set to 0
+    just before the two-batcher run and read just after, each held to the
+    graph targets' replays in that run. Returns (seconds, the counts)."""
+    from repro_torch import kernels
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    label = "c13 two batchers"
+    _release_engines()
+    t0 = time.perf_counter()
+    ecfg = EngineConfig(max_len=1024, max_batch=8, page_size=16,
+                        prefill_chunk=64)
+    with Engine(cfg, params, ecfg) as eng:
+        want, _ = _bf16_cell_tokens(eng, cfg)
+        captures = eng._decode.stats.misses
+        before, _ = _lane_launches(eng)
+        kernels.reset_launch_counts()  # this path's run starts here
+        got, second = _bf16_cell_tokens(eng, cfg, build_second_at=3)
+        check(second is not None, "c13: the second batcher was not built")
+        check(got == want, "c13: a second batcher built at step 3 changed "
+              "the first batcher's tokens")
+        again, _ = _bf16_cell_tokens(eng, cfg, second=second)
+        torch.cuda.synchronize()
+        after, _ = _lane_launches(eng)
+        launches = _launches(label, tuple(after))
+        for name, n in after.items():
+            ran = n - before.get(name, 0)
+            check(launches[name] == ran,
+                  f"{label}: {name} launched {launches[name]} times, the "
+                  f"targets' replays in this run reckon {ran}")
+        check(again == want, "c13: the second batcher's stream differs")
+        extra = eng._decode.stats.misses - captures
+        check(extra == 0, f"c13: {extra} captures after the first run")
+    seconds = time.perf_counter() - t0
+    ran = ", ".join(f"{k} {launches[k]}" for k in sorted(after))
+    log(f"[train:c13] bf16 cell, a second batcher of its key built at step "
+        f"3: the first's {sum(map(len, got.values()))} tokens equal its run "
+        f"alone, the second then serves the stream to the same tokens, 0 "
+        f"captures after the first run; launches in the two-batcher run "
+        f"({ran}) equal the targets' replays ({seconds:.1f}s)")
+    return seconds, launches
+
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = 8, 512, 12, 2
+# a bf16 parameter's ulp at the weights' scale (std 0.02) is ~1e-4, so a
+# smaller step would round away
+TRAIN_OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+
+
+def _device_batch(cfg, batch: int, seq: int, step: int = 0,
+                  device: str = "cuda") -> dict:
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    data = SyntheticLM(cfg, DataConfig(batch, seq, seed=0))
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in data.batch_at(step).items()}
+
+
+def _fresh_state(cfg, device: str = "cuda", params: dict | None = None):
+    from repro_torch import models
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import TrainState
+
+    if params is None:
+        params = models.init_params(cfg, seed=0, device=device)
+    return TrainState(params=params, opt=adamw.init(params))
+
+
+def _reckoned_train_bytes(cfg, batch: int, seq: int) -> dict:
+    """Params and grads at the model dtype, float32 mu and nu, and the
+    activations: under remat "block" each layer's input is kept ([B, S, D]
+    at the model dtype), one layer is recomputed at a time (its naive
+    attention's float32 scores, mask add, exp and probabilities, [B, H, S,
+    S] each, and its MLP's three [B, S, F] products), and the head's
+    float32 logits, their log-softmax's exp and the logits' gradient
+    ([B, S, V] float32 each, and the product at the model dtype)."""
+    el = 2 if cfg.dtype == "bfloat16" else 4
+    n = _weight_bytes(cfg) // el
+    tok = batch * seq
+    acts = (cfg.num_layers * tok * cfg.d_model * el
+            + 4 * batch * cfg.num_heads * seq * seq * 4
+            + 3 * tok * cfg.d_ff * el
+            + tok * cfg.vocab_size * (3 * 4 + el))
+    return {"params": n * el, "grads": n * el, "moments": 2 * n * 4,
+            "activations": acts}
+
+
+def _finite(x: torch.Tensor) -> bool:
+    return bool(torch.isfinite(x).all())
+
+
+# cuBLAS's and CUTLASS's matrix-product kernels on Hopper (cuBLASLt names
+# its own nvjet_*)
+_GEMM_NAMES = ("nvjet", "gemm", "xmma", "cutlass", "sm90_")
+
+
+def _train_step_split(cfg, state, batch, opt_cfg) -> str:
+    """One more step taken apart, as ``make_train_fn`` runs it: the loss
+    and its gradient, then the in-place AdamW update, each timed by CUDA
+    events; the same step under ``torch.profiler``: device busy, the
+    matrix products' share (kernels named nvjet/gemm/xmma/cutlass/sm90),
+    the float32 elementwise and reduction passes' and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import models
+    from repro_torch.optim import adamw
+
+    def step() -> tuple[float, float]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        leaves = {k: p.detach().requires_grad_()
+                  for k, p in state.params.items()}
+        loss, _ = models.loss_fn(cfg, leaves, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        ev[1].record()
+        adamw.update(opt_cfg, dict(zip(leaves, grads)), state.opt,
+                     state.params)
+        ev[2].record()
+        ev[2].synchronize()
+        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+    fb, up = step()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name = _kernel_ms(prof, 1)
+    busy = sum(by_name.values())
+    if busy == 0:
+        return (f"loss + grad {fb:.1f} ms, AdamW {up:.1f} ms; device busy "
+                f"not measured (the profiler recorded no kernels)")
+    products = {k: v for k, v in by_name.items()
+                if any(n in k.lower() for n in _GEMM_NAMES)}
+    gemm = sum(products.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (f"loss + grad {fb:.1f} ms, AdamW {up:.1f} ms (CUDA events); "
+            f"profiled step busy {busy:.1f} ms, matrix products {gemm:.1f} "
+            f"ms ({100 * gemm / busy:.1f}%, {len(products)} kernels), the "
+            f"rest {busy - gemm:.1f} ms; top: "
+            + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top))
+
+
+def train_full_width() -> dict:
+    """olmo-1b at full width: 12 steps on one repeated batch."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_train_fn
+
+    cfg = get_config("olmo-1b")
+    _release_engines()
+    torch.cuda.reset_peak_memory_stats()
+    state = _fresh_state(cfg)
+    batch = _device_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    fn = make_train_fn(cfg, adamw.AdamWConfig(**TRAIN_OPT))
+    kernels.reset_launch_counts()  # the training path's run starts here
+    losses, norms, ms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, m = fn(state, batch)
+        end.record()
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    launches = _launches("train olmo-1b", ())
+    loss = [float(x) for x in losses]
+    gnorm = [float(x) for x in norms]
+    check(all(map(_finite, losses + norms)),
+          f"train olmo-1b: a loss or grad norm is not finite: {loss} {gnorm}")
+    check(loss[-1] < loss[0], f"train olmo-1b: the loss did not fall on its "
+          f"repeated batch: step 1 {loss[0]:.4f}, step 12 {loss[-1]:.4f}")
+    peak = torch.cuda.max_memory_allocated()
+    reck = _reckoned_train_bytes(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    step_ms = statistics.median(ms[TRAIN_WARM:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train:olmo-1b] full width, bf16, remat {cfg.remat!r}, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps on one "
+        f"batch: loss {loss[0]:.4f} -> {loss[-1]:.4f}, grad norm "
+        f"{gnorm[0]:.3f} -> {gnorm[-1]:.3f} | step ms (CUDA events) median "
+        f"{step_ms:.3f} of steps {TRAIN_WARM + 1}-{TRAIN_STEPS} (all: "
+        f"{', '.join(f'{x:.1f}' for x in ms)}) | {tokens / step_ms * 1e3:.1f} "
+        f"tokens/s | peak {peak / 1e9:.2f} GB, reckoned "
+        f"{sum(reck.values()) / 1e9:.2f} GB ("
+        + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in reck.items())
+        + f") | kernel launches {launches} | {_card()}")
+    split = _train_step_split(cfg, state, batch,
+                              adamw.AdamWConfig(**TRAIN_OPT))
+    log(f"[train:olmo-1b] a 13th step taken apart: {split}")
+    del state
+    return {"launches": launches, "step_ms": step_ms}
+
+
+def _train_leaves(state) -> dict:
+    """Every tensor of a ``TrainState``: params, mu, nu and the step."""
+    out = {f"params/{k}": v for k, v in state.params.items()}
+    out.update({f"mu/{k}": v for k, v in state.opt.mu.items()})
+    out.update({f"nu/{k}": v for k, v in state.opt.nu.items()})
+    out["step"] = state.opt.step
+    return out
+
+
+def _train_gap(state, want: dict) -> tuple[float, str]:
+    """The largest |difference| of ``state`` from the snapshot ``want``,
+    and the leaf where it is."""
+    have = _train_leaves(state)
+    gaps = {k: float((have[k].float() - v.float()).abs().max())
+            for k, v in want.items()}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def train_resume_cut() -> None:
+    """A two-layer cut at olmo-1b's widths (bf16): 6 steps + save + restore
+    + 6 against 12 uninterrupted. The step is deterministic on one card, so
+    the restore must give back params, mu, nu and step bit for bit, and the
+    resumed run the uninterrupted run's losses and state exactly."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_train_fn
+
+    cfg = _depth_cut(get_config("olmo-1b"), 2, "train:resume")
+    _release_engines()
+    fn = make_train_fn(cfg, adamw.AdamWConfig(**TRAIN_OPT))
+    batches = [_device_batch(cfg, 4, 256, step=i) for i in range(12)]
+    state = _fresh_state(cfg)
+    whole = []
+    for b in batches:
+        state, m = fn(state, b)
+        whole.append(float(m["loss"]))
+    # the step updates in place, so snapshots are clones
+    want = {k: v.clone() for k, v in _train_leaves(state).items()}
+    del state
+    tmp = Path(tempfile.mkdtemp(prefix="repro-torch-ckpt-"))
+    try:
+        state = _fresh_state(cfg)
+        for b in batches[:6]:
+            state, _ = fn(state, b)
+        saved = {k: v.clone() for k, v in _train_leaves(state).items()}
+        mgr = CheckpointManager(tmp, async_write=False)
+        t0 = time.perf_counter()
+        mgr.save(6, state)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in tmp.rglob("*") if f.is_file())
+        del state
+        t0 = time.perf_counter()
+        step, state = mgr.restore(_fresh_state(cfg))
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        check(step == 6, f"train resume: restored step {step}")
+        back, where = _train_gap(state, saved)
+        check(back == 0, f"train resume: the restored state differs from the "
+              f"saved one by {back} at {where}")
+        del saved
+        resumed = []
+        for b in batches[6:]:
+            state, m = fn(state, b)
+            resumed.append(float(m["loss"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diff, where = _train_gap(state, want)
+    check(diff == 0 and resumed == whole[6:],
+          f"train resume: 6 + restore + 6 steps differ from 12 by {diff} at "
+          f"{where}, losses {resumed} vs {whole[6:]}")
+    log(f"[train:resume] 2-layer cut, bf16, 4 x 256: the restore gives back "
+        f"params, mu, nu and step bit for bit, and 6 steps + save + restore "
+        f"+ 6 = 12 uninterrupted bit for bit (params, mu, nu, step and every "
+        f"loss; step 12 loss {resumed[-1]:.4f}) | checkpoint "
+        f"{nbytes / 1e9:.3f} GB written in {t_save:.2f}s "
+        f"({nbytes / 1e9 / t_save:.2f} GB/s), restored in "
+        f"{t_restore:.2f}s; the directory removed")
+
+
+def train_smoke_card_vs_cpu() -> None:
+    """3 fp32 steps of the smoke configs, card = CPU (TF32 off, phase 1)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_train_fn
+
+    for arch in ("olmo-1b", "mamba2-370m"):
+        cfg = get_config(arch).smoke()
+        fn = make_train_fn(cfg, adamw.AdamWConfig(**TRAIN_OPT))
+        params = models.init_params(cfg, seed=0)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            state = _fresh_state(cfg, params={k: v.to(dev).clone()
+                                              for k, v in params.items()})
+            losses = []
+            for i in range(3):
+                state, m = fn(state, _device_batch(cfg, 4, 32, i, dev))
+                losses.append(float(m["loss"]))
+            runs[dev] = (losses, {k: v.cpu() for k, v in state.params.items()})
+        (cl, cp), (gl, gp) = runs["cpu"], runs["cuda"]
+        diff = max(float((gp[k] - cp[k]).abs().max()) for k in cp)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+        check(rel <= 1e-5 and diff <= 1e-4,
+              f"train {arch} smoke: card {gl} vs CPU {cl}, params {diff}")
+        log(f"[train:smoke] {arch}: 3 fp32 steps card = CPU, losses "
+            f"{', '.join(f'{x:.6f}' for x in gl)}, max relative loss "
+            f"difference {rel:.3g} (limit 1e-5), params max |diff| {diff:.3g} "
+            f"(limit 1e-4)")
+
+
+def train_launcher() -> None:
+    """The launcher as a user runs it, on the card: 10 steps, then resume
+    to 20."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        base = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+                "--batch", "4", "--seq", "64", "--ckpt-dir", tmp,
+                "--ckpt-every", "5", "--log-every", "5"]
+        outs = []
+        for extra in (["--steps", "10"], ["--steps", "20", "--resume"]):
+            out = subprocess.run(base + extra, capture_output=True, text=True,
+                                 cwd=ROOT, env=env, timeout=300)
+            check(out.returncode == 0, f"launcher train {extra}: exit "
+                  f"{out.returncode}: {out.stderr[-2000:]}")
+            outs.append(out.stdout)
+    check("[train] resumed from step 10" in outs[1]
+          and "[train] done at step 20" in outs[1],
+          f"launcher train: {outs[1][-1000:]}")
+    last = [ln for ln in outs[1].splitlines() if " loss " in ln][-1]
+    log(f"[train:launcher] python -m repro_torch.launch.train --smoke on the "
+        f"card: 10 steps, then --resume to 20 ({last.strip()})")
+
+
+def train_phase() -> dict:
+    """Phase 12's training part (the C13 check runs after phase 11)."""
+    t0 = time.perf_counter()
+    full = train_full_width()
+    train_resume_cut()
+    train_smoke_card_vs_cpu()
+    train_launcher()
+    _release_engines()
+    return dict(full, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4938,6 +5340,7 @@ def main() -> int:
     async_phase(main_path["cfg"], main_path["params"])
     t_async = time.perf_counter() - t_async
     overload = overload_phase(main_path["cfg"], main_path["params"])
+    t_c13, c13_launches = c13_on_card(main_path["cfg"], main_path["params"])
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
     prompt = prompt_then_burst(main_path["cfg"], main_path["params"])
     profile_steps(main_path["cfg"], main_path["params"])
@@ -4969,6 +5372,12 @@ def main() -> int:
     paths.update(families_phase())
     t10 = time.perf_counter() - t10
     new = time_new_shapes()
+    train = train_phase()
+    t12 = t_c13 + train["seconds"]
+    log(f"[train] phase 12 passed in {t12:.1f}s (C13 {t_c13:.1f}s, training "
+        f"{train['seconds']:.1f}s) | {_card()}")
+    paths["c13 two batchers (phase 12)"] = c13_launches
+    paths["train (phase 12)"] = train["launches"]
     for row in rows:
         if row["name"] in new:
             row["new_shapes"] = new[row["name"]]
@@ -4987,7 +5396,7 @@ def main() -> int:
         f"= CPU) {t9:.1f}s and phase 10 (deepseek-67b, grok-1-314b, jamba, "
         f"internvl2-1b, musicgen-medium) {t10:.1f}s; phase 3d (async vs "
         f"sync) {t_async:.1f}s; phase 11 (the overload stream) "
-        f"{overload['seconds']:.1f}s")
+        f"{overload['seconds']:.1f}s; phase 12 (C13, training) {t12:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@
 the *caller* converted its leaves to numpy (this module imports neither jax
 nor ``repro``) and returns the port's flat ``dict[str, Tensor]`` with the
 same layout, keyed by the tree path (``"blocks.0.attn.wq"``), so both
-packages compute on identical weights.
+packages compute on identical weights. ``leaf_order`` gives those keys in
+the order JAX flattens the tree, where a sum over leaves must add in the
+JAX package's order (the optimiser's global norm).
 """
 
 from __future__ import annotations
@@ -19,7 +21,16 @@ def _tensor(a: Any) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a).copy())
+    return torch.from_numpy(np.array(a, order="C", copy=True))  # 0-d kept
+
+
+def leaf_order(names) -> list[str]:
+    """Flat keys in JAX's tree-flatten order: dict keys sorted, list
+    indices (the all-digit path components) in numeric order."""
+    return sorted(names, key=lambda name: tuple(
+        (0, int(c), "") if c.isdigit() else (1, 0, c)
+        for c in name.split(".")
+    ))
 
 
 def params_from_jax(tree: Any, device: torch.device | str = "cpu") -> dict:

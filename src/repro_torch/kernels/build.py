@@ -191,6 +191,19 @@ def load() -> SimpleNamespace:
     return _lib
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``ValueError``, before any launch (and before the CPU's plain
+    version), when grad mode is on and an input requires a gradient: the
+    kernels write into fresh outputs that autograd sees no graph through,
+    so a loss built on them would lose those gradients without an error."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name}: the kernel has no backward and an input requires a "
+            f"gradient; train with impl='naive' or 'chunked' (models."
+            f"loss_fn's default is 'naive')"
+        )
+
+
 def check_operands(
     name: str, q, k_pages, v_pages, block_tables, positions, q_ndim: int,
     k_scale=None, v_scale=None,

@@ -24,7 +24,9 @@ activations as transposed views and receives its output in that layout, and
 ragged sequence lengths are masked.
 
 The wrappers run the plain version only for CPU tensors. For CUDA tensors
-they launch the kernel or raise.
+they launch the kernel or raise. Either way they raise ``ValueError`` under
+grad mode when an input requires a gradient: the kernels have no backward
+(nor have the Pallas kernels), so training takes the plain attention.
 """
 
 from __future__ import annotations
@@ -84,6 +86,7 @@ def flash_attention(
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Specialised flash attention -> [B, H, Sq, dh] with q's strides."""
+    build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, softcap=softcap
@@ -115,6 +118,7 @@ def flash_attention_branchy(
     flags: torch.Tensor,  # i32[3]: (causal, window|0, softcap|0)
 ) -> torch.Tensor:
     """Runtime-flag flash attention -> [B, H, Sq, dh] with q's strides."""
+    build.refuse_grad("flash_attention_branchy", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_branchy_plain(q, k, v, flags)
     name = "flash_attention_branchy"

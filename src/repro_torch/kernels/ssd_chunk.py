@@ -24,7 +24,9 @@ rows past S act as ``dt = 0``, so any S gives ``ssd_scan``'s result. The
 inputs are read through element strides (the last axis needs unit stride).
 
 The wrapper runs the plain version only for CPU tensors. For CUDA tensors
-it launches the kernel or raises.
+it launches the kernel or raises. Either way it raises ``ValueError`` under
+grad mode when an input requires a gradient (the kernel has no backward;
+training scans with ``ssd_scan``).
 """
 
 from __future__ import annotations
@@ -111,6 +113,7 @@ def ssd_chunk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SSD scan with chunk length ``chunk`` -> (y [B, S, H, P] contiguous,
     state [B, H, P, N] float32)."""
+    build.refuse_grad("ssd_chunk", x, b, c, dt, a)
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, b, c, dt, a, chunk=chunk)
     name = "ssd_chunk"

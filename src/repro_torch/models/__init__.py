@@ -1,6 +1,6 @@
 """Model code of the port: the dense and MoE LM families' and the Mamba-2
 (SSM) family's full-sequence forward and prefill, the attention families'
-paged serving path, and the dense-cache decode (burst engine, dense
+paged serving path, the training loss, and the dense-cache decode (burst engine, dense
 continuous engine and speculative draft; an SSM slot's recurrent state)."""
 
 from .attention import (
@@ -15,6 +15,7 @@ from .attention import (
     quantise_kv_rows,
 )
 from .model import (
+    MOE_AUX_WEIGHT,
     check_paged,
     chunked_decode_step,
     chunked_verify_step,
@@ -26,6 +27,7 @@ from .model import (
     init_paged_cache,
     init_params,
     layer_params,
+    loss_fn,
     paged_decode_step,
     paged_prefill_step,
     paged_verify_step,
@@ -40,6 +42,7 @@ __all__ = [
     "FULL_IMPLS",
     "KV_QUANT_MAX",
     "KV_SCALE_EPS",
+    "MOE_AUX_WEIGHT",
     "MOE_POLICIES",
     "check_paged",
     "chunked_decode_step",
@@ -57,6 +60,7 @@ __all__ = [
     "init_params",
     "init_ssm_cache",
     "layer_params",
+    "loss_fn",
     "paged_decode_step",
     "paged_prefill_step",
     "paged_verify_step",

@@ -1,6 +1,6 @@
 """Top-level LM: full-sequence forward and prefill, the paged serving path,
 dense-cache decode (burst engine, dense continuous engine and speculative
-draft): counterpart of ``repro.models.model``, inference only.
+draft), and the training loss: counterpart of ``repro.models.model``.
 
 Params are a flat ``dict[str, Tensor]`` keyed by the JAX pytree's paths::
 
@@ -24,11 +24,14 @@ each layer's cache is a view into the stacked tensor, updated in place.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import replace
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as checkpoint_utils
 
+from repro_torch import perf
 from repro_torch.configs import ArchConfig
 
 from .attention import init_paged_kv_cache
@@ -43,6 +46,8 @@ from .blocks import (
     check_paged_slot,
 )
 from .layers import dtype_of, embed_apply, head_apply, norm_apply
+
+MOE_AUX_WEIGHT = 0.01  # the load-balancing term's weight in the loss
 
 
 _DRAW_ELEMS = 1 << 28  # f32 values drawn at once by init_params (1 GiB)
@@ -63,8 +68,10 @@ def init_params(
     time), each scaled and cast into the model-dtype tensor, so the peak
     is the weights plus one slab (gemma2-27b's stacked MLP weight would
     otherwise be a 15.6 GB f32 temporary on top of 54 GB of bf16)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None  # the meta device draws nothing (shapes only)
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     dt = dtype_of(cfg)
     m = cfg.num_layers // cfg.period
     d, h, kh, dh, f = (
@@ -222,6 +229,28 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
 
+def _remat_context():
+    """``perf``'s ``remat_policy`` as a checkpoint context: "dots" keeps the
+    matrix products' outputs (``jax.checkpoint_policies.checkpoint_dots``)
+    and recomputes the rest; "full" recomputes everything."""
+    if perf.current().remat_policy != "dots":
+        return contextlib.nullcontext(), contextlib.nullcontext()
+    return checkpoint_utils.create_selective_checkpoint_contexts(
+        _save_dots
+    )
+
+
+_DOTS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (checkpoint_utils.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else checkpoint_utils.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def forward(
     cfg: ArchConfig,
     params: dict,
@@ -229,20 +258,34 @@ def forward(
     *,
     impl: str = "kernel",
     moe_policy: str = "drop",
+    remat: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """inputs: i32[B,S] tokens, or [B,S,D] stub-frontend embeddings for an
     ``input_kind="embeddings"`` arch (as every entry point below). Returns
-    (logits [B,S,V] float32, aux): the JAX package's pair, inference only
-    (no remat, no backward); ``aux`` is the MoE load-balancing term summed
-    over the MoE layers (0 without them), under ``moe_policy``
-    (``models.moe``). ``impl`` picks the
+    (logits [B,S,V] float32, aux): the JAX package's pair; ``aux`` is the
+    MoE load-balancing term summed over the MoE layers (0 without them),
+    under ``moe_policy`` (``models.moe``). ``impl`` picks the
     attention — ``"kernel"`` (B6), ``"naive"``, ``"chunked"`` or
     ``"auto"`` (``perf.current().impl``) — and the SSD scan of mamba
-    slots: ``"kernel"`` (B8), else ``ssd_scan``."""
+    slots: ``"kernel"`` (B8), else ``ssd_scan``. The kernels have no
+    backward and refuse inputs that need a gradient, so training takes
+    ``"naive"`` or ``"chunked"`` (``loss_fn``'s default).
+
+    ``remat`` (None: ``cfg.remat == "block"``) recomputes each period of
+    blocks in the backward pass (``torch.utils.checkpoint`` around the
+    period, as the JAX package's ``jax.checkpoint`` around its scan body),
+    under ``perf``'s ``remat_policy``. It changes no value, only what the
+    backward keeps."""
+    if remat is None:
+        remat = cfg.remat == "block"
+    # only a backward needs the recomputation: serving never pays for it
+    remat = remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in params.values())
     x = embed_apply(cfg, params, inputs)
     positions = _positions(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers // cfg.period):
+
+    def period(x: torch.Tensor, aux: torch.Tensor,
+               i: int) -> tuple[torch.Tensor, torch.Tensor]:
         for slot in range(cfg.period):
             x, a = block_apply(
                 cfg, slot, layer_params(params, slot, i), x, positions,
@@ -250,8 +293,46 @@ def forward(
             )
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers // cfg.period):
+        if remat:
+            x, aux = checkpoint_utils.checkpoint(
+                period, x, aux, i, use_reentrant=False,
+                context_fn=_remat_context,
+            )
+        else:
+            x, aux = period(x, aux, i)
     x = _final_norm(cfg, params, x)
     return head_apply(cfg, params, x), aux
+
+
+def loss_fn(
+    cfg: ArchConfig,
+    params: dict,
+    batch: dict,
+    *,
+    impl: str = "naive",
+    moe_policy: str = "drop",
+    remat: bool | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """batch: {"inputs": tokens | embeddings, "labels": i32[B,S] (-1 =
+    pad)}. Returns (cross-entropy over the valid labels + ``MOE_AUX_WEIGHT``
+    x aux, {"ce", "moe_aux", "ntok"}), as the JAX package's ``loss_fn``;
+    ``remat`` as ``forward``."""
+    logits, aux = forward(cfg, params, batch["inputs"], impl=impl,
+                          moe_policy=moe_policy, remat=remat)
+    labels = batch["labels"]
+    valid = (labels >= 0).to(torch.float32)
+    safe = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = (logz - ll) * valid
+    ntok = torch.clamp(torch.sum(valid), min=1.0)
+    loss = torch.sum(ce) / ntok
+    total = loss + MOE_AUX_WEIGHT * aux
+    return total, {"ce": loss, "moe_aux": aux, "ntok": ntok}
 
 
 def prefill(

@@ -16,13 +16,16 @@ code reads the ambient opts, so the knobs stay out of the model signatures:
 * ``norm_bf16`` — ``rms_norm``/``ln_nonparam`` keep the normalised product
   in the residual dtype (only the per-token reduction in f32).
 
-``remat_policy``, ``moe_hints``, ``moe_weight_gather`` and
-``seq_shard_fallback`` keep their names so that ``from_flags`` takes the
-JAX package's keywords; no ported module reads them yet (training and
-meshes are not ported; the MoE knobs act only through sharding hints, which
-change nothing without a mesh, so ``models/moe.py`` has nothing to read),
-so a value other than the default raises ``ValueError`` rather than being
-ignored.
+* ``remat_policy`` — what ``forward``'s remat keeps for the backward pass
+  (``"full"`` recomputes a period of blocks, ``"dots"`` keeps the matrix
+  products' outputs).
+
+``moe_hints``, ``moe_weight_gather`` and ``seq_shard_fallback`` keep their
+names so that ``from_flags`` takes the JAX package's keywords; no ported
+module reads them yet (meshes are not ported; the MoE knobs act only
+through sharding hints, which change nothing without a mesh, so
+``models/moe.py`` has nothing to read), so a value other than the default
+raises ``ValueError`` rather than being ignored.
 
 The opts are semi-static: a serving target captures ``current()`` when it
 is built (``bake``) and runs under those opts on every call, as a traced
@@ -40,7 +43,6 @@ from typing import Callable
 
 # fields no ported module reads yet -> the module that will (ROADMAP.md)
 UNREAD = {
-    "remat_policy": "the training loss's remat (A11)",
     "moe_hints": "the mesh's expert sharding (A12)",
     "moe_weight_gather": "the mesh's expert sharding (A12)",
     "seq_shard_fallback": "the mesh's attention sharding (A12)",

@@ -542,6 +542,13 @@ class _DeviceMirror:
     def put(self, name: str, dev: torch.Tensor) -> None:
         self._dev[name] = dev
 
+    def detach(self) -> None:
+        """Hold copies of its own of every device array: another batcher's
+        calls (or a new batcher's warmup) are about to replay the graph
+        targets whose static inputs these may be. The next call copies them
+        back in as it copies any argument that is not already static."""
+        self._dev = {n: t.clone() for n, t in self._dev.items()}
+
     def preload(self, name: str, host: np.ndarray) -> None:
         """Double-buffered upload (DESIGN.md §13): stage a touched array
         while a step is in flight, so its copy rides that step's execution
@@ -652,13 +659,21 @@ class _MultiLaneMixin:
         spec_k: int,
         async_steps: bool = False,
         async_depth: int = 2,
+        storage: Any = None,
     ) -> None:
         """Lane wiring shared by both constructors. Speculation is on only
         when the engine supplied both spec lanes. ``async_depth`` is the
         pipeline's issued-step capacity (DESIGN.md §13): at most
         ``async_depth - 1`` steps stay parked after a ``step()`` returns, so
         2 (the default) is the one-deep overlap and 1 degrades async mode
-        to the synchronous commit."""
+        to the synchronous commit. ``storage`` is the engine's claim on the
+        tensors this batcher's targets run over, which other batchers of the
+        same key share (``serve._Owner``): every step claims it first, so
+        the cache holds this batcher's state, and it detaches the device
+        mirror when another batcher is about to run those targets."""
+        self._storage = storage
+        if storage is not None:
+            storage.mirror = self._mirror
         self.async_steps = bool(async_steps)
         self.async_depth = max(1, int(async_depth))
         self._inflight: deque[_InflightStep] = deque()  # issued, uncommitted
@@ -831,6 +846,8 @@ class _MultiLaneMixin:
         the step's wall time last."""
         t0 = time.perf_counter()
         dw0 = self.stats.device_wait_ms
+        if self._storage is not None:
+            self._storage.claim()
         if self._has_deadlines:
             self._cancel_overdue(now)
         finished = self._backlog
@@ -1293,7 +1310,7 @@ class _MultiLaneMixin:
         lands in a tensor of this batcher's own, never in a shared target's
         static input, which the other batcher's call would overwrite; and
         the dispatch puts this batcher's own draft state back into the
-        shared draft cache first (the engine's ``_DraftBank``)."""
+        shared draft cache first (the engine's ``_StorageBank``)."""
         step = self._draft_dispatch(k)  # cold: slot-hit unless k moved
         t0_ns = time.perf_counter_ns()
         drafts, self._draft_cache, _, _ = step(
@@ -1710,6 +1727,7 @@ class ContinuousBatcher(_MultiLaneMixin):
         spec_k: int = 0,
         async_steps: bool = False,
         async_depth: int = 2,
+        storage: Any = None,
     ):
         self._init_slots(num_slots, device, seed, telemetry)
         self._step = step
@@ -1727,6 +1745,7 @@ class ContinuousBatcher(_MultiLaneMixin):
             spec_k=spec_k,
             async_steps=async_steps,
             async_depth=async_depth,
+            storage=storage,
         )
 
     # ------------------------------------------------------------- cold path
@@ -1933,6 +1952,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         spec_k: int = 0,
         async_steps: bool = False,
         async_depth: int = 2,
+        storage: Any = None,
     ):
         self._init_slots(num_slots, device, seed, telemetry)
         self._dispatch = dispatch_fn
@@ -1966,6 +1986,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             spec_k=spec_k,
             async_steps=async_steps,
             async_depth=async_depth,
+            storage=storage,
         )
 
     # ------------------------------------------------------------ properties

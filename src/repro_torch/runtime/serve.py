@@ -184,35 +184,61 @@ class _WarmCtx:
     spec: bool = False
 
 
-class _DraftOwner:
-    """A batcher's claim on the draft caches it speculates over; held by its
-    draft dispatch closures, so it lives as long as the batcher."""
+class _Owner:
+    """A batcher's claim on the engine storage its targets run over: held
+    by the batcher (``storage``) and its draft dispatch closures, so it
+    lives as long as the batcher. ``bank`` is its page pool's or dense
+    cache's, claimed at the top of each of its steps (the draft cache's is
+    claimed where a draft lane is dispatched). ``mirror`` is the batcher's
+    device mirror (``scheduler._DeviceMirror``, set by the batcher),
+    detached whenever another batcher's calls, or a new batcher's warmup,
+    are about to replay targets whose static inputs it may hold."""
 
-    __slots__ = ("__weakref__",)
+    __slots__ = ("bank", "mirror", "__weakref__")
+
+    def __init__(self) -> None:
+        self.bank: _StorageBank | None = None
+        self.mirror = None
+
+    def detach(self) -> None:
+        if self.mirror is not None:
+            self.mirror.detach()
+
+    def claim(self) -> None:
+        """Put this batcher's state back into its pool or dense cache."""
+        self.bank.claim(self)
 
 
-class _DraftBank:
-    """Whose draft state one draft cache holds. The draft lanes' targets are
-    keyed by slots, k and the draft dtype, not by the pool, and are bound
-    (captured, on the card) to the engine's one draft cache of that slot
-    count and dtype; so every batcher on it — the overload stream's int8
-    standby beside the first batcher — runs its draft lanes over that cache.
-    Each batcher keeps its own draft state all the same, as each JAX batcher
-    owns its cache value: ``claim`` parks the resident owner's state in a
-    copy of its own and restores the caller's before its draft lane runs.
-    With one batcher on the cache nothing is copied."""
+class _StorageBank:
+    """Whose state one of the engine's cache tensor sets holds. A lane's
+    targets are keyed by shapes and dtypes, not by batcher, and are bound
+    (captured, on the card) to the engine's one page pool per dtype, one
+    dense cache per slot count and one draft cache per slot count and draft
+    dtype; so every batcher of one key runs over the same tensors. Each
+    batcher keeps its own state all the same, as each JAX batcher owns its
+    cache value: ``claim`` parks the resident owner's state in a copy of its
+    own and restores the caller's, always with ``copy_`` into the captured
+    tensors, never rebinding them (the graphs hold their addresses).
+
+    The cost: with one batcher on a tensor set nothing is copied. When two
+    batchers of one key alternate, each switch copies the whole set twice
+    (park the resident, restore the caller): a bf16 olmo-1b pool of 8 x
+    1024 tokens is 1.07 GB, so a switch moves 4.3 GB, ~1.3 ms at the card's
+    memory rate. The parked copy holds the set's bytes once per batcher
+    that has been displaced, on top of the set itself, at the peak."""
 
     def __init__(self, cache: list) -> None:
         self.cache = cache
         self._owner: weakref.ref | None = None
         self._parked: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
-    def _resident(self) -> _DraftOwner | None:
+    def _resident(self) -> _Owner | None:
         return self._owner() if self._owner is not None else None
 
     def vacate(self) -> None:
-        """Park the resident owner's state: the engine is about to zero the
-        cache for a new batcher and warm its lanes over it."""
+        """Park the resident owner's state and detach its mirror: the
+        engine is about to zero the set for a new batcher and warm its lanes
+        over it, or another batcher is about to step over it."""
         owner = self._resident()
         if owner is not None:
             saved = self._parked.get(owner)
@@ -223,15 +249,16 @@ class _DraftBank:
                 ]
             else:
                 _copy_cache(saved, self.cache)
+            owner.detach()
         self._owner = None
 
-    def seat(self, owner: _DraftOwner) -> None:
-        """``owner``'s state is the one the cache holds now."""
+    def seat(self, owner: _Owner) -> None:
+        """``owner``'s state is the one the set holds now."""
         self._owner = weakref.ref(owner)
 
-    def claim(self, owner: _DraftOwner) -> None:
-        """Make ``owner``'s state the resident one (cold path: a copy only
-        when another batcher's draft lane ran last)."""
+    def claim(self, owner: _Owner) -> None:
+        """Make ``owner``'s state the resident one (a copy only when
+        another batcher of the key stepped last)."""
         if self._resident() is owner:
             return
         self.vacate()
@@ -339,7 +366,10 @@ class Engine:
         self._paged_caches: dict = {}  # kv_dtype -> page pool
         self._dense_caches: dict = {}  # slots -> dense target cache
         self._draft_caches: dict = {}  # (slots, draft dtype) -> dense cache
-        self._draft_banks: dict = {}  # (slots, draft dtype) -> _DraftBank
+        # whose state each of those tensor sets holds (C13):
+        # ("paged", dtype) / ("dense", slots) / ("draft", slots, dtype)
+        self._banks: dict = {}
+        self._owners: weakref.WeakSet = weakref.WeakSet()  # live batchers
         self._burst_caches: dict = {}  # batch bucket -> dense cache
         # one memory pool for every graph (they never run concurrently)
         self._graph_pool = (
@@ -660,19 +690,35 @@ class Engine:
             )
         return self._draft_caches[key]
 
-    def _reset_drafts(self, slots: int, draft_kv_dtype: str) -> _DraftOwner:
-        """A new speculating batcher on ``slots``: park every draft cache's
-        resident state, zero the caches (a fresh engine's), and return the
-        owner whose state the ``draft_kv_dtype`` cache holds after the
-        batcher's warmup."""
-        owner = _DraftOwner()
-        for d in self._warm_draft_kv_dtypes():
-            cache = self.draft_cache(slots, d)
-            bank = self._draft_banks.setdefault((slots, d), _DraftBank(cache))
-            bank.vacate()
-            self.zero_cache(cache)
-        self._draft_banks[slots, draft_kv_dtype].seat(owner)
+    def _new_owner(self) -> _Owner:
+        """A new batcher's claim. Its warmup replays targets that other
+        live batchers may hold static inputs of (every warmed dtype's, the
+        draft lanes'), so their mirrors are detached first."""
+        for other in list(self._owners):
+            other.detach()
+        owner = _Owner()
+        self._owners.add(owner)
         return owner
+
+    def _reset_storage(self, key: tuple, cache: list) -> _StorageBank:
+        """Park the state of the batcher resident in ``cache`` and zero it
+        (a fresh engine's) for a new batcher; the rest stay as they are."""
+        bank = self._banks.setdefault(key, _StorageBank(cache))
+        bank.vacate()
+        self.zero_cache(cache)
+        return bank
+
+    def _reset_drafts(self, slots: int, draft_kv_dtype: str,
+                      owner: _Owner) -> None:
+        """A new speculating batcher on ``slots``: park every warmed draft
+        dtype's resident state and zero those caches (its warmup writes
+        them all); ``owner``'s state is the ``draft_kv_dtype`` cache's
+        after the batcher's warmup."""
+        for d in self._warm_draft_kv_dtypes():
+            bank = self._reset_storage(("draft", slots, d),
+                                       self.draft_cache(slots, d))
+            if d == draft_kv_dtype:
+                bank.seat(owner)
 
     def burst_cache(self, bucket: int) -> list:
         """The dense cache of a batch bucket (``max_len`` rows), shared by
@@ -1077,11 +1123,13 @@ class Engine:
             self.pool_pages, ecfg.page_size, kv_dtype=dt,
             telemetry=self.telemetry,
         )
-        # a new batcher starts from empty pools and draft caches, as a
-        # fresh engine's
-        for d in self._warm_kv_dtypes():
-            self.zero_cache(self.paged_cache(d))
-        owner = self._reset_drafts(s, ddt) if use_spec else None
+        # a new batcher starts from an empty pool and draft caches, as a
+        # fresh engine's; a batcher resident there is parked, not wiped
+        owner = self._new_owner()
+        owner.bank = self._reset_storage(("paged", dt), self.paged_cache(dt))
+        owner.bank.seat(owner)
+        if use_spec:
+            self._reset_drafts(s, ddt, owner)
         ctx = _WarmCtx(spec=use_spec)
         self._warm_lanes("paged", s, ctx)
 
@@ -1127,18 +1175,19 @@ class Engine:
             spec_k=ecfg.spec_k if use_spec else 0,
             async_steps=async_steps,
             async_depth=async_depth,
+            storage=owner,
         )
 
     def _spec_dispatchers(self, slots: int, draft_kv_dtype: str,
                           verify_key: Callable[[int], tuple],
-                          owner: _DraftOwner):
+                          owner: _Owner):
         """The speculative lanes' dispatch closures over warmed keys: the
         draft lanes pin the draft dtype and make ``owner``'s draft state the
         resident one (the batcher calls its draft target right after),
         ``verify_key(k)`` is the engine's verify key (``vf`` over its pool
         dtype, or ``vfd``)."""
         s = slots
-        bank = self._draft_banks[s, draft_kv_dtype]
+        bank = self._banks["draft", s, draft_kv_dtype]
 
         def draft_dispatch(k: int) -> Callable:
             bank.claim(owner)
@@ -1201,8 +1250,12 @@ class Engine:
             and self._supports_spec_decode()
         )
         self._check_kernels()
-        owner = self._reset_drafts(s, ddt) if use_spec else None
-        cache = self.zero_cache(self.dense_cache(s))
+        owner = self._new_owner()
+        cache = self.dense_cache(s)
+        owner.bank = self._reset_storage(("dense", s), cache)
+        owner.bank.seat(owner)
+        if use_spec:
+            self._reset_drafts(s, ddt, owner)
         ctx = _WarmCtx(spec=use_spec)
         self._warm_lanes("dense", s, ctx)
         self.zero_cache(cache)
@@ -1243,6 +1296,7 @@ class Engine:
             spec_k=self.ecfg.spec_k if use_spec else 0,
             async_steps=async_steps,
             async_depth=async_depth,
+            storage=owner,
         )
 
 

@@ -1,6 +1,6 @@
 """Step builders for the dense and paged serving lanes, the speculative
-lanes, the per-burst engine and full-sequence prefill (counterpart of
-``repro.runtime.steps``).
+lanes, the per-burst engine, full-sequence prefill and training (counterpart
+of ``repro.runtime.steps``).
 
 A step is a plain function over tensors; ``runtime.serve.Engine`` binds it to
 a dispatch key's static shapes. Every builder takes the attention
@@ -23,7 +23,7 @@ CPU it is its plain version, ``repro_torch.prng``.
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ import torch
 from repro_torch import models
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import sampling
+from repro_torch.optim import adamw
 
 
 def _sample_rows(
@@ -385,3 +386,60 @@ def pull_host(dev: torch.Tensor, recorder=None) -> tuple[np.ndarray, int]:
             args={"nbytes": int(out.nbytes), "shape": list(out.shape)},
         )
     return out, dt
+
+
+# ------------------------------------------------------------------ training
+class TrainState(NamedTuple):
+    params: dict
+    opt: adamw.AdamWState
+
+
+def state_shapes(cfg: ArchConfig) -> TrainState:
+    """The ``TrainState``'s shapes and dtypes, on the meta device (nothing
+    allocated)."""
+    params = models.init_params(cfg, device="meta")
+    return TrainState(params=params, opt=adamw.init(params))
+
+
+def make_train_fn(
+    cfg: ArchConfig,
+    opt_cfg: adamw.AdamWConfig | None = None,
+    *,
+    impl: str = "naive",
+    moe_policy: str = "drop",
+    remat: bool | None = None,
+    grad_compress: Callable | None = None,
+) -> Callable:
+    """The train step ``(state, batch) -> (new state, metrics)``: the loss
+    and its gradient (``torch.autograd.grad`` over the parameter tensors,
+    so no ``.grad`` field is left behind), the optional ``grad_compress``
+    hook, then AdamW. ``batch`` holds tensors on the state's device;
+    ``metrics`` are 0-d tensors: ``loss``, ``ce``, ``moe_aux``, ``ntok``,
+    ``grad_norm``, ``lr``. The step consumes the state it is given (JAX's
+    donated buffers): its tensors are updated in place and returned in the
+    new state. It runs eagerly; ``impl`` must be ``"naive"`` or
+    ``"chunked"`` (the kernels refuse a gradient), and ``remat`` is as
+    ``models.forward``."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def train_step(state: TrainState, batch: dict):
+        with torch.enable_grad():
+            leaves = {k: p.detach().requires_grad_(p.is_floating_point())
+                      for k, p in state.params.items()}
+            loss, metrics = models.loss_fn(
+                cfg, leaves, batch, impl=impl, moe_policy=moe_policy,
+                remat=remat,
+            )
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()), materialize_grads=True,
+            )))
+        if grad_compress is not None:
+            grads = grad_compress(grads)
+        new_p, new_opt, opt_metrics = adamw.update(
+            opt_cfg, grads, state.opt, state.params
+        )
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss=loss.detach(), **opt_metrics)
+        return TrainState(params=new_p, opt=new_opt), metrics
+
+    return train_step

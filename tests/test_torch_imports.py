@@ -55,6 +55,11 @@ SLICE_MODULES = (
     "repro_torch.runtime.tracing",
     "repro_torch.core.telemetry",
     "repro_torch.runtime.scheduler",
+    "repro_torch.optim.adamw",
+    "repro_torch.data.pipeline",
+    "repro_torch.checkpoint.checkpoint",
+    "repro_torch.distributed.collectives",
+    "repro_torch.launch.train",
 )
 
 
