@@ -253,6 +253,27 @@ Phases (any failure exits non-zero before a result is printed):
    mamba2-370m: 3 fp32 steps card = CPU. The launcher ``python -m
    repro_torch.launch.train --smoke`` for 10 steps, then ``--resume`` to
    20, as subprocesses on the card.
+13. The mesh coordinate and disaggregated prefill/decode (after phase 12's
+   C13 check): olmo-1b at full width (bf16), 8 slots, page 16, chunk 64,
+   max_len 1024, the decode mesh "1x1" and the prefill slice "1x1@1" both
+   on this card (``devices=("cuda:0", "cuda:0")``: two pools, the page
+   handoff a device-local copy). First B4's tensor-core body where a
+   never-written row (scale 0) leads a tile: finite, = plain (the body
+   took 1 / 0 there before PR 27). The reference's ``mixed()`` stream at full
+   width (one request of prompt 64 and 256 new tokens beside 12 prompts of
+   512 with 4 each, all at 0) shared, then disaggregated, sync and async, on
+   bf16 pages and on int8 pages: tokens equal, every prompt migrates its
+   pages (388 of them), 0 captures after warmup, each kernel's launches =
+   the replays' reckoning per slice (the arm's own path); a split ->
+   collapse -> split run (2 rebinds), a prompt repeated after its
+   migration (a trie hit, the same tail), the slices' pools distinct, the
+   peak against weights + two pools. The bf16 engine is warmed with the
+   capture report on: no key's report an error; the ``cbp``, ``pf`` and
+   ``mg`` keys' flops, bytes, kernel share, capture ms and roofline floor,
+   and the replayed ``cbp`` / ``pf`` steps against that floor; the smoke
+   config's report on the card = a CPU engine's; and the launcher with
+   ``--meshes 1x1@1 --disagg --devices "cuda:0 cuda:0" --compile-report``
+   as a subprocess.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -275,9 +296,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The H100 peaks and each kernel's work reckoning (the bound column) live
+# in ``repro_torch.roofline``, imported where a bound is computed.
 # Kernel vs plain, same inputs. fp32: both sum in fp32, in another order ->
 # 1e-4. bf16: the plain version runs in fp32 on the same bf16 values; the
 # kernels compute scores and the softmax in fp32 and round the output to
@@ -303,14 +323,6 @@ TIE_MARGIN = 1e-4
 # near-tie when forward's top logit leads the burst's token by less than the
 # bf16 logits tolerance between two attention implementations.
 BF16_TIE_MARGIN = STEP_LOGIT_ATOL
-# The sampling kernel (csrc/sample_rows.cu): int32 operations per element of
-# a sampled row — threefry-2x32 (2 + 5 x 12 round + 5 x 2 injection adds,
-# a rotate being one funnel shift), the xor of its words and the float's
-# shift and or — and per element of any row (the score's order-preserving
-# packing and the running max); H100 SXM: 132 SMs of 64 int32 lanes.
-SAMPLE_OPS_PER_DRAW = 75
-SAMPLE_OPS_PER_ELEMENT = 4
-INT32_LANES = 132 * 64
 
 
 def log(msg: str) -> None:
@@ -1591,7 +1603,7 @@ def _step_runs(eng, lane: str, slots: int, dev: str = "cuda"):
     kv = eng.ecfg.kv_dtype
     cache = eng.paged_cache(kv)
     if lane == "cbp":
-        exe = eng._decode.build(lanes.CBP.key(slots, 16, kv))
+        exe = eng._decode.build(lanes.CBP.key(slots, 16, kv, "1x1"))
         state = _steady_args(exe, [
             torch.zeros(slots, 1, dtype=i32, device=dev),
             torch.full((slots,), 200, dtype=i32, device=dev),
@@ -1605,7 +1617,7 @@ def _step_runs(eng, lane: str, slots: int, dev: str = "cuda"):
 
         return run
     if lane == "pf":
-        exe = eng._decode.build(lanes.PF.key(slots, 64, kv))
+        exe = eng._decode.build(lanes.PF.key(slots, 64, kv, "1x1"))
         rng = np.random.default_rng(9)
         hosts = [rng.integers(0, cfg.vocab_size, (slots, 64)).astype(np.int32),
                  np.array([0, 64, 128, 192] * (slots // 4), np.int32), bt_h,
@@ -1624,8 +1636,9 @@ def _step_runs(eng, lane: str, slots: int, dev: str = "cuda"):
 
         return run
     k = eng.ecfg.spec_k
-    dr = eng._decode.build(lanes.DR.key(slots, k, eng.ecfg.draft_kv_dtype))
-    vf = eng._decode.build(lanes.VF.key(slots, k, kv))
+    dr = eng._decode.build(lanes.DR.key(slots, k, eng.ecfg.draft_kv_dtype,
+                                              "1x1"))
+    vf = eng._decode.build(lanes.VF.key(slots, k, kv, "1x1"))
     dcache = eng.draft_cache(slots, eng.ecfg.draft_kv_dtype)
     pos = torch.full((slots,), 200, dtype=i32, device=dev)
     dstate = _steady_args(dr, [torch.zeros(slots, 1, dtype=i32, device=dev), pos,
@@ -1728,7 +1741,7 @@ def _lane_kernel(key) -> str:
     return name + ("_int8" if int8 else "")
 
 
-def _lane_launches(eng) -> tuple[dict, dict]:
+def _lane_launches(eng, mesh: str | None = None) -> tuple[dict, dict]:
     """From the engine's graph targets, independently of the kernels'
     counts: the launches each kernel should have made — every key's step
     runs ``WARMUP_RUNS`` times before its capture, and every replay (its
@@ -1736,8 +1749,12 @@ def _lane_launches(eng) -> tuple[dict, dict]:
     at each ``set_mode``, the batcher's calls) launches its lane's kernel
     once per attention layer (``k`` times per draft layer for ``dr``), and
     ``sample_rows`` once (``k`` times for ``dr``; a greedy burst key not
-    at all) — and each lane's replays less its warm ones."""
+    at all) — and each lane's replays less its warm ones. An engine warmed
+    with the capture report runs each key's step once more, eagerly, at
+    its build. ``mesh`` keeps the keys of one mesh (slice) only."""
     from repro_torch.core.graph_target import WARMUP_RUNS
+
+    runs0 = WARMUP_RUNS + int(eng.telemetry.compile_analysis)
 
     def attn_layers(cfg) -> int:
         return sum(cfg.mixer_at(i).startswith("attn")
@@ -1747,18 +1764,22 @@ def _lane_launches(eng) -> tuple[dict, dict]:
     for key in eng._decode.cache.keys():
         target = eng._decode.cache.get(key)
         lane = key[0]
+        if lane == "mg":  # the page transport: no kernel, no sampling
+            continue
+        if mesh is not None and (lane == "burst" or key[-1] != mesh):
+            continue
         replays = target.graph.replays
         if lane != "burst" or key[2] == 1:  # every step samples but greedy
             draws = key[2] if lane == "dr" else 1  # bursts'; dr k times
             want["sample_rows"] = (want.get("sample_rows", 0)
-                                   + (replays + WARMUP_RUNS) * draws)
+                                   + (replays + runs0) * draws)
         layers = attn_layers(eng.draft_cfg if lane in ("dr", "drp")
                              else eng.cfg)
         if not layers:
             continue
         per_run = layers * (key[2] if lane == "dr" else 1)
         kernel = _lane_kernel(key)
-        want[kernel] = want.get(kernel, 0) + (replays + WARMUP_RUNS) * per_run
+        want[kernel] = want.get(kernel, 0) + (replays + runs0) * per_run
         calls[lane] = calls.get(lane, 0) + replays - (2 if lane == "cb" else 1)
     return want, calls
 
@@ -1833,7 +1854,7 @@ def _dense_cb_run(eng, slots: int):
     from repro_torch.core import lanes
 
     dev, i32 = "cuda", torch.int32
-    exe = eng._decode.build(lanes.CB.key(slots))
+    exe = eng._decode.build(lanes.CB.key(slots, "1x1"))
     cache = eng.dense_cache(slots)
     state = _steady_args(exe, [
         torch.zeros(slots, 1, dtype=i32, device=dev),
@@ -2986,7 +3007,7 @@ def time_kernels(launches: dict, b2_verify: dict,
     before its path and read just after."""
     import torch.nn.functional as F
 
-    from repro_torch import kernels
+    from repro_torch import kernels, roofline
     from repro_torch.kernels.decode_attention import decode_splits
 
     dev, dtype = "cuda", torch.bfloat16
@@ -3000,14 +3021,15 @@ def time_kernels(launches: dict, b2_verify: dict,
     perm = torch.randperm(pool - 1, generator=g) + 1  # distinct live pages
 
     def bound(kv_tokens: int, pairs: int, q, out, ints, kv_bytes: int):
-        """Least time for the call: each visible K/V row read once (and its
-        scale, for int8), q read, out written; or its flops at bf16 peak."""
-        nbytes = (2 * kv_tokens * kv_bytes + q.numel() * q.element_size()
-                  + out.numel() * out.element_size()
-                  + sum(t.numel() * 4 for t in ints))
-        ops = 4 * dh * pairs  # QK^T and PV, two flops per MAC
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
-        return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+        """Least time for the call (``roofline.paged_attention_work``):
+        each visible K/V row read once (and its scale, for int8), q read,
+        out written; or its flops at bf16 peak."""
+        return roofline.bound_ms(roofline.paged_attention_work(
+            dh=dh, pairs=pairs, kv_tokens=kv_tokens, kv_row_bytes=kv_bytes,
+            io_bytes=(q.numel() * q.element_size()
+                      + out.numel() * out.element_size()
+                      + sum(t.numel() * 4 for t in ints)),
+        ), dtype)
 
     def gathered(pages, bt, length, scale=None):
         """Pages of each row as [B, KH, L, dh] in q's dtype (dequantised
@@ -3172,7 +3194,7 @@ def time_sampling(launches: dict, by_path: dict) -> list[dict]:
     clock))``, the ops counted for this data (sampled rows draw, greedy
     rows only rank). The row's numbers are olmo-1b's shape, 8 x 50304
     float32."""
-    from repro_torch import kernels
+    from repro_torch import kernels, roofline
     from repro_torch.kernels import sampling
 
     clock_hz = _sm_clock_hz()
@@ -3205,14 +3227,11 @@ def time_sampling(launches: dict, by_path: dict) -> list[dict]:
                 logits, temps, greedy, keys))
             old_ms = _median_ms(old)
             drawn_rows = int((~greedy).sum())
-            nbytes = (logits.numel() * logits.element_size()
-                      + rows * (4 + 1 + 8) + rows * (4 + 8))
-            ops = (drawn_rows * vocab * SAMPLE_OPS_PER_DRAW
-                   + rows * vocab * SAMPLE_OPS_PER_ELEMENT)
-            t_b = nbytes / HBM_BYTES_PER_S
-            t_o = ops / (INT32_LANES * clock_hz)
-            bound_ms = max(t_b, t_o) * 1e3
-            bound_by = "bytes" if t_b >= t_o else "operations"
+            work = roofline.sample_rows_work(
+                rows=rows, vocab=vocab, elt=logits.element_size(),
+                drawn_rows=drawn_rows)
+            nbytes, ops = work.bytes, work.int_ops
+            bound_ms, bound_by = roofline.bound_ms(work, clock_hz=clock_hz)
             tag = f"{rows}x{vocab} {str(dtype)[6:]}"
             log(f"[timing] sample_rows {tag} ({drawn_rows} rows sampled): "
                 f"kernel {ms:.4f} ms per call (device only "
@@ -3290,15 +3309,10 @@ def time_dense_kernels(launches: dict) -> list[dict]:
     library (SDPA; none computes a softcap) and bound, and B7 / B6."""
     import torch.nn.functional as F
 
-    from repro_torch import kernels
+    from repro_torch import kernels, roofline
     from repro_torch.kernels.decode_attention import _dense_splits
 
     dtype, dh, h = torch.bfloat16, 128, 16
-
-    def bound(nbytes: int, pairs: int) -> tuple[float, str]:
-        t_b = nbytes / HBM_BYTES_PER_S
-        t_o = 4 * dh * pairs / PEAK_FLOPS[dtype]  # QK^T and PV
-        return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
     def timed(fn, call, plain, args, library) -> dict:
         """``call`` runs the wrapper ``fn`` (bound to a mode); timing
@@ -3339,8 +3353,8 @@ def time_dense_kernels(launches: dict) -> list[dict]:
                           lambda: kernels.decode_attention(*b5_args),
                           "dense_decode_split_kernel"))
     seen = 256
-    b_ms, b_by = bound(2 * 8 * seen * h * dh * 2 + 2 * q1.numel() * 2 + 4,
-                       8 * h * seen)
+    b_ms, b_by = roofline.bound_ms(roofline.dense_decode_work(
+        rows=8, heads=h, kv_heads=h, dh=dh, seen=seen, elt=2), dtype)
     splits = _dense_splits("decode_attention", q1, cache_k, cache_v, None)
     rows.append({"name": "decode_attention", "route": "cuda",
                  "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -3365,7 +3379,8 @@ def time_dense_kernels(launches: dict) -> list[dict]:
         if window is not None:
             ok &= ki > qi - window
         pairs = 8 * h * int(ok.sum())
-        b_ms, b_by = bound(4 * 8 * s_ * h * dh * 2, pairs)
+        b_ms, b_by = roofline.bound_ms(roofline.flash_work(
+            batch=8, seq=s_, heads=h, dh=dh, elt=2, pairs=pairs), dtype)
         if "softcap" in mode:
             library = None
         elif window is None:
@@ -3421,7 +3436,7 @@ def _time_ssd(b: int, s: int, h: int) -> dict:
     operands: held against its plain version, then kernel (per call and
     device-only), plain, no library call (no single PyTorch call computes
     SSD), and the bound from this input's bytes and useful flops."""
-    from repro_torch import kernels
+    from repro_torch import kernels, roofline
 
     p, n, chunk = 64, 128, 256
     dtype = torch.bfloat16
@@ -3448,16 +3463,10 @@ def _time_ssd(b: int, s: int, h: int) -> dict:
     # each input read once (B and C as their one group), each output
     # written once; flops of the causal half of the two L x L products per
     # chunk, the inter-chunk term and the state update (2 per MAC)
-    nbytes = (2 * b * s * h * p * 2 + 2 * b * s * n * 2 + b * s * h * 4
-              + h * 4 + b * h * p * n * 4)
-    ops = 0
-    for c0 in range(0, s, chunk):
-        r = min(chunk, s - c0)
-        ops += 2 * (r * (r + 1) // 2) * (n + p) + 4 * r * p * n
-    ops *= b * h
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
-    bound_ms = max(t_b, t_o) * 1e3
-    bound_by = "bytes" if t_b >= t_o else "operations"
+    work = roofline.ssd_chunk_work(batch=b, seq=s, heads=h, head_dim=p,
+                                   state=n, chunk=chunk, elt=2)
+    nbytes, ops = work.bytes, work.flops
+    bound_ms, bound_by = roofline.bound_ms(work, dtype)
     log(f"[timing] ssd_chunk bf16 x({b}, {s}, {h}, {p}) state {n} chunk "
         f"{chunk} (tensor-core body): kernel {ms:.4f} ms per call (device "
         f"only {_fmt_ms(dev['profiled_ms'])} profiled, "
@@ -4357,8 +4366,8 @@ def families_phase() -> dict:
     return paths
 
 
-def _time_case(label: str, fn, call, plain, library, nbytes: int, ops: int,
-               dtype, kernel: str, yardstick=None) -> dict:
+def _time_case(label: str, fn, call, plain, library, work, dtype,
+               kernel: str, yardstick=None) -> dict:
     """One kernel call at a new shape: held against its plain version, then
     kernel ms per call, device-only, plain, library (None: no PyTorch call
     computes this function) and the bound; ``yardstick``, where given, is
@@ -4381,9 +4390,9 @@ def _time_case(label: str, fn, call, plain, library, nbytes: int, ops: int,
             yard_ms = _median_ms(yardstick)
     except RuntimeError as e:  # a yardstick only: the port never calls it
         log(f"[timing:new] {label}: sdpa not timed ({e})")
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
-    bound_ms, by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else
-                                         "operations")
+    from repro_torch import roofline
+
+    bound_ms, by = roofline.bound_ms(work, dtype)
     log(f"[timing:new] {label}: kernel {ms:.4f} ms per call (device only "
         f"{_fmt_ms(dev['profiled_ms'])} profiled, "
         f"{_fmt_ms(dev['queued_ms'])} by queued events), plain "
@@ -4415,10 +4424,16 @@ def time_new_shapes() -> dict:
     numbers}}."""
     import torch.nn.functional as F
 
-    from repro_torch import kernels
+    from repro_torch import kernels, roofline
 
     dev, ps = "cuda", 16
     out: dict = {}
+
+    def paged(kv_tokens, pairs, kv_row, q):
+        return roofline.paged_attention_work(
+            dh=q.shape[-1], pairs=pairs, kv_tokens=kv_tokens,
+            kv_row_bytes=kv_row,
+            io_bytes=2 * q.numel() * q.element_size() + 4 * rows * (table + 1))
 
     def add(name, shape, numbers):
         out.setdefault(name, {})[shape] = numbers
@@ -4488,9 +4503,8 @@ def time_new_shapes() -> dict:
                                                        **kw),
                 lambda: kernels.paged_decode_attention_plain(
                     q1.float(), kp.float(), vp.float(), bt, pt, **kw),
-                sdpa[0], 2 * keys * kh * dh * el + 2 * q1.numel() * el
-                + 4 * rows * (table + 1),
-                4 * dh * keys * h, dtype, "paged_decode_split",
+                sdpa[0], paged(keys, keys * h, kh * dh * el, q1), dtype,
+                "paged_decode_split",
                 yardstick=sdpa[1]))
         # B2: a chunk of 64 a row
         st = torch.tensor(starts, dtype=torch.int32, device=dev)
@@ -4509,9 +4523,8 @@ def time_new_shapes() -> dict:
                                                         **kw),
                 lambda: kernels.paged_prefill_attention_plain(
                     qc.float(), kp.float(), vp.float(), bt, st, **kw),
-                sdpa[0], 2 * keys_c * kh * dh * el + 2 * qc.numel() * el
-                + 4 * rows * (table + 1),
-                4 * dh * int(okc.sum()) * h, dtype, "paged_prefill",
+                sdpa[0], paged(keys_c, int(okc.sum()) * h, kh * dh * el, qc),
+                dtype, "paged_prefill",
                 yardstick=sdpa[1]))
         if which & {"B3", "B4"}:
             # B3/B4: the same rows over the pool quantised to int8; the
@@ -4533,9 +4546,8 @@ def time_new_shapes() -> dict:
                     q1, kq, vq, ks, vs, bt, pt, **kw),
                 lambda: kernels.paged_decode_attention_int8_plain(
                     q1.float(), kq, vq, ks, vs, bt, pt, **kw),
-                sdpa[0], 2 * keys * (kh * dh + 4) + 2 * q1.numel() * el
-                + 4 * rows * (table + 1),
-                4 * dh * keys * h, dtype, "paged_decode_split",
+                sdpa[0], paged(keys, keys * h, kh * dh + 4, q1), dtype,
+                "paged_decode_split",
                 yardstick=sdpa[1]))
         if "B4" in which:
             sdpa = lib(lambda: F.scaled_dot_product_attention(
@@ -4549,9 +4561,8 @@ def time_new_shapes() -> dict:
                     qc, kq, vq, ks, vs, bt, st, **kw),
                 lambda: kernels.paged_prefill_attention_int8_plain(
                     qc.float(), kq, vq, ks, vs, bt, st, **kw),
-                sdpa[0], 2 * keys_c * (kh * dh + 4) + 2 * qc.numel() * el
-                + 4 * rows * (table + 1),
-                4 * dh * int(okc.sum()) * h, dtype, "paged_prefill",
+                sdpa[0], paged(keys_c, int(okc.sum()) * h, kh * dh + 4, qc),
+                dtype, "paged_prefill",
                 yardstick=sdpa[1]))
         if which & {"B3", "B4"}:
             del kq, vq, gk8, gv8
@@ -4574,8 +4585,9 @@ def time_new_shapes() -> dict:
             lambda: kernels.decode_attention(q1, ck, cv, p0, **kw),
             lambda: kernels.decode_attention_plain(
                 q1.float(), ck.float(), cv.float(), p0, **kw),
-            sdpa[0], 2 * rows * seen * kh * dh * el + 2 * q1.numel() * el + 4,
-            4 * dh * rows * seen * h, dtype, "dense_decode_split",
+            sdpa[0], roofline.dense_decode_work(
+                rows=rows, heads=h, kv_heads=kh, dh=dh, seen=seen, elt=el),
+            dtype, "dense_decode_split",
             yardstick=sdpa[1]))
         del ck, cv
         # B6: causal (and the window) over seq tokens
@@ -4595,8 +4607,9 @@ def time_new_shapes() -> dict:
             lambda: kernels.flash_attention(q, k, v, causal=True, **kw),
             lambda: kernels.flash_attention_plain(
                 q.float(), k.float(), v.float(), causal=True, **kw),
-            sdpa[0], (2 * q.numel() + k.numel() + v.numel()) * el,
-            4 * dh * pairs, dtype, "flash_", yardstick=sdpa[1]))
+            sdpa[0], roofline.flash_work(batch=b6, seq=seq, heads=h, dh=dh,
+                                         elt=el, pairs=pairs, kv_heads=kh),
+            dtype, "flash_", yardstick=sdpa[1]))
         del q, k, v
         torch.cuda.empty_cache()
     add("ssd_chunk", "jamba 256 heads", _time_ssd(2, 1024, 256))
@@ -4796,7 +4809,9 @@ def _overload_flood(cfg, params, telemetry: bool) -> dict:
         check(launches[name] == n, f"{label}: {name} launched "
               f"{launches[name]} times, the targets' replays make {n}")
     check(standby > 0, f"{label}: the int8 standby's targets replayed "
-          f"{standby} times past warmup")
+          f"{standby} times past warmup (finished {rep['finished']}, shed "
+          f"{rep['shed']}, steps {rep['steps']}, transitions "
+          f"{rep['degrade_transitions'][:4]}, faults {rep['faults']})")
     _flood_checks(label, rep, reqs, plan, standby_prompts)
     peak = torch.cuda.max_memory_allocated() / 1e9
     w, kv16 = _reckoned(cfg, "paged", OVERLOAD_ECFG, 8)
@@ -5319,6 +5334,459 @@ def train_phase() -> dict:
     return dict(full, seconds=time.perf_counter() - t0)
 
 
+# ----------------------- phase 13 (the mesh coordinate, disagg, the report)
+# olmo-1b at full width (bf16), 8 slots, page 16, chunk 64, max_len 1024;
+# the decode mesh "1x1" and the prefill slice "1x1@1", both on this card
+# (``devices``): two pools, the page handoff a device-local copy, and
+# prefill and decode sharing the SMs.
+DISAGG_ECFG = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64,
+                   mesh="1x1", meshes=("1x1@1",),
+                   devices=("cuda:0", "cuda:0"))
+DISAGG_LONG, DISAGG_PROMPT = 12, 512
+
+
+def _disagg_traffic(cfg, seed: int = 0) -> list:
+    """The reference's ``mixed()`` stream (``tests/test_disagg.py``) at full
+    width: one decode-heavy request (prompt 64, 256 new tokens) beside 12
+    prompts of 512 with 4 new tokens each, all arriving at 0."""
+    import numpy as np
+
+    from repro_torch.runtime.scheduler import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=0, new_tokens=256, greedy=True, arrival_s=0.0,
+                    prompt=tuple(int(x) for x in
+                                 rng.integers(0, cfg.vocab_size, 64)))]
+    for _ in range(DISAGG_LONG):
+        reqs.append(Request(
+            rid=len(reqs), new_tokens=4, greedy=True, arrival_s=0.0,
+            prompt=tuple(int(x) for x in
+                         rng.integers(0, cfg.vocab_size, DISAGG_PROMPT))))
+    return reqs
+
+
+def _disagg_arm(eng, cfg, label: str, **kw) -> tuple:
+    """One stream of ``_disagg_traffic`` through ``run_paged_stream`` under
+    a step clock, its own path: the kernels' counts set to 0 just before
+    and read just after, each held to the targets' replays in the run, per
+    slice (the decode mesh and the prefill slice). Returns (tokens, report,
+    counts, counts by slice)."""
+    from repro_torch import kernels
+    from repro_torch.runtime.serve import run_paged_stream
+
+    reqs = _disagg_traffic(cfg)
+    before = {m: _lane_launches(eng, m)[0] for m in ("1x1", "1x1@1")}
+    kernels.reset_launch_counts()
+    rep = run_paged_stream(eng, reqs, slots=8, clock=_StepClock(), **kw)
+    torch.cuda.synchronize()
+    after = {m: _lane_launches(eng, m)[0] for m in ("1x1", "1x1@1")}
+    ran = {m: {k: n - before[m].get(k, 0) for k, n in after[m].items()}
+           for m in after}
+    total = {k: ran["1x1"].get(k, 0) + ran["1x1@1"].get(k, 0)
+             for k in set(ran["1x1"]) | set(ran["1x1@1"])}
+    launches = _launches(label, tuple(k for k, n in total.items() if n))
+    for name, n in total.items():
+        check(launches[name] == n,
+              f"{label}: {name} launched {launches[name]} times, the "
+              f"replays of both slices reckon {n} ({ran})")
+    _check_stream(label, cfg, reqs, rep)
+    check(rep["compiles_after_warmup"] == 0,
+          f"{label}: {rep['compiles_after_warmup']} captures after warmup")
+    return reqs, rep, launches, ran
+
+
+def _split_equals_shared(label: str, cfg, params, shared, split,
+                         kv_dtype: str) -> int:
+    """The split's greedy tokens against the shared stream's, request by
+    request: equal, or the first divergence is a near-tie of the plain
+    attention's logits (``_card_near_tie``, ``BF16_TIE_MARGIN``) — the
+    split ingests prompts in other chunks (its chunk budget is the whole
+    token budget), so a bf16 product may round otherwise. Returns the
+    near-tie count."""
+    ties = 0
+    for r, d in zip(shared, split):
+        if r.tokens == d.tokens:
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(r.tokens, d.tokens))
+                 if x != y)
+        ok, gap = _card_near_tie(cfg, params,
+                                 list(r.effective_prompt) + r.tokens[:i],
+                                 r.tokens[i], d.tokens[i], kv_dtype)
+        check(ok, f"{label}: rid {r.rid} split and shared greedy streams "
+              f"differ at token {i}, logit gap {gap:.4f} >= "
+              f"{BF16_TIE_MARGIN}")
+        ties += 1
+    return ties
+
+
+def _disagg_rebind_arm(eng, cfg) -> dict:
+    """The reference's split -> collapse -> split loop (collapse at step 4,
+    re-split at step 8) on the full-width stream."""
+    cb = eng.paged_continuous(slots=8, disagg=True)
+    r0 = eng.telemetry.registry.value("disagg_rebinds_total")
+    pending, done, t, i = _disagg_traffic(cfg, seed=3), [], 0.0, 0
+    n = len(pending)
+    while pending or cb.has_work:
+        if i == 4:
+            cb.set_disagg(False, now=t)
+        elif i == 8:
+            cb.set_disagg(True, now=t)
+        if pending and cb.free_slots:
+            take = min(len(pending), cb.free_slots)
+            cb.admit(pending[:take], now=t)
+            del pending[:take]
+        done += cb.step(now=t)
+        i += 1
+        t += 0.05
+        check(i < 4000, "disagg rebind arm did not drain")
+    done += cb.flush()
+    rebinds = int(eng.telemetry.registry.value("disagg_rebinds_total") - r0)
+    check(len(done) == n and rebinds == 2 and eng.post_warmup_compiles == 0,
+          f"disagg split -> collapse -> split: {len(done)}/{n} finished, "
+          f"{rebinds} rebinds, {eng.post_warmup_compiles} captures")
+    return {"rebinds": rebinds, "migrations": cb.stats.migrations,
+            "migrated_pages": cb.stats.migrated_pages}, cb
+
+
+def _time_transport(cb, pages: int = 30) -> dict:
+    """One migration's device time: the prefill slice's ``mg`` gather, the
+    block's move and the decode slice's scatter of ``pages`` pages (the
+    stream's mean is 388 / 13 = 29.8; the targets always move the 64-page
+    cap, padded with the null page), by CUDA events over 20 calls after 3
+    warm ones, on pages the drained stream left free. The bound: the
+    64-page block read and written by the gather, by the copy into the
+    scatter's static input and by the scatter."""
+    from repro_torch import roofline
+
+    ids = list(range(1, pages + 1))
+    run = partial(cb._transport, cb._pf_cache, cb._cache, ids, ids)
+    for _ in range(3):
+        run()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        run()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / 20
+    block = sum(t[:, :64].numel() * t.element_size()
+                for layer in cb._cache for t in layer.values())
+    bound_ms = 6 * block / roofline.HBM_BYTES_PER_S * 1e3
+    log(f"[disagg] one migration of {pages} pages (a 64-page block of "
+        f"{block / 1e6:.1f} MB): {ms:.4f} ms by CUDA events, "
+        f"{ms / pages:.5f} ms a page, bound {bound_ms:.4f} ms (the block "
+        f"read and written three times at 3.35 TB/s) | {_card()}")
+    return {"migration_ms": ms, "migration_ms_per_page": ms / pages,
+            "migration_bound_ms": bound_ms}
+
+
+def _disagg_trie(eng, cfg) -> dict:
+    """A prompt repeated after its pages migrated: the second request
+    adopts them from the prefix trie and decodes the same tail."""
+    import numpy as np
+
+    from repro_torch.runtime.scheduler import Request
+    from repro_torch.runtime.serve import run_paged_stream
+
+    prompt = tuple(int(x) for x in np.random.default_rng(7).integers(
+        0, cfg.vocab_size, DISAGG_PROMPT))
+    a, b = (Request(rid=i, new_tokens=4, greedy=True, arrival_s=5.0 * i,
+                    prompt=prompt) for i in range(2))
+    rep = run_paged_stream(eng, [a, b], slots=8, disagg=True,
+                           clock=_StepClock())
+    check(rep["migrations"] > 0 and rep["shared_prompt_tokens"] > 0
+          and a.tokens == b.tokens and rep["compiles_after_warmup"] == 0,
+          f"disagg trie after a migrated fork: migrations "
+          f"{rep['migrations']}, shared {rep['shared_prompt_tokens']}, "
+          f"tails {a.tokens} / {b.tokens}")
+    return {"shared_prompt_tokens": rep["shared_prompt_tokens"]}
+
+
+def _b4_never_written_lead() -> float:
+    """B4's tensor-core body where a never-written row (a zeroed pool's
+    scale 0) leads a query row's tile: the chunk's later rows see a last
+    page whose rows past the frontier are zero, and every written key
+    scores below 0. Before PR 27 the body took 1 / 0 there and the row came
+    out NaN (its K/V then reached the null page). Finite, = plain."""
+    from repro_torch import kernels
+    from repro_torch.models import quantise_kv_rows
+
+    g = torch.Generator().manual_seed(6)
+    kq, ks = quantise_kv_rows(torch.randn(8, 16, 2, 128, generator=g))
+    vq, vs = quantise_kv_rows(torch.randn(8, 16, 2, 128, generator=g))
+    kq = -kq.abs()
+    for t in (kq, vq, ks, vs):
+        t[5, 8:] = 0
+    q = torch.ones(1, 64, 2, 128, dtype=torch.bfloat16)
+    bt = torch.tensor([[3, 5, 0, 0]], dtype=torch.int32)
+    st = torch.zeros(1, dtype=torch.int32)
+    args = [t.to("cuda") for t in (q, kq, vq, ks, vs, bt, st)]
+    saved = kernels.paged_prefill_attention_int8.launches
+    out = kernels.paged_prefill_attention_int8(*args)
+    kernels.paged_prefill_attention_int8.launches = saved
+    ref = kernels.paged_prefill_attention_int8_plain(args[0].float(),
+                                                     *args[1:])
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    check(bool(torch.isfinite(out.float()).all())
+          and err <= KERNEL_ATOL[torch.bfloat16],
+          f"B4 with a never-written row leading: finite "
+          f"{bool(torch.isfinite(out.float()).all())}, max abs err {err}")
+    return err
+
+
+def _pool_bytes(eng, kv_dtype: str, mesh: str) -> int:
+    return sum(t.numel() * t.element_size()
+               for layer in eng.paged_cache(kv_dtype, mesh)
+               for t in layer.values())
+
+
+def _capture_rows(eng, dtype: str) -> dict:
+    """The capture report of the ``cbp`` (16-page bucket), ``pf`` (chunk
+    64) and ``mg`` keys, and the replayed ``cbp`` / ``pf`` steps against
+    the roofline floor of their report."""
+    from repro_torch.core import lanes
+
+    reps = {str(r["key"]): r for r in eng.telemetry.compile_reports}
+    bad = [k for k, r in reps.items() if "error" in r]
+    check(not bad, f"capture report: errors at {bad[:3]}: "
+          f"{[reps[k]['error'] for k in bad[:3]]}")
+    rows = {}
+    for name, key in (
+        ("cbp", lanes.CBP.key(8, 16, dtype, "1x1")),
+        ("pf", lanes.PF.key(8, 64, dtype, "1x1")),
+        ("mg gather", lanes.MG.key("gather", dtype, "1x1@1")),
+        ("mg scatter", lanes.MG.key("scatter", dtype, "1x1")),
+    ):
+        r = reps[str(key)]
+        t = r["roofline"]
+        floor_ms = max(t["ideal_compute_s"], t["ideal_memory_s"]) * 1e3
+        row = {"flops": r["flops"], "bytes": r["bytes"],
+               "kernel_flop_share": (r["kernel_flops"] / r["flops"]
+                                     if r["flops"] else 0.0),
+               "capture_ms": r["build_ms"], "floor_ms": floor_ms}
+        if name in ("cbp", "pf"):
+            row["step_ms"] = _wall_ms(_step_runs(eng, name, 8), steps=20)
+        rows[name] = row
+        log(f"[disagg:capture] {name} {key}: {r['flops'] / 1e9:.3f} GFLOP, "
+            f"{r['bytes'] / 1e9:.3f} GB counted (every op's inputs and "
+            f"outputs), kernels {100 * row['kernel_flop_share']:.1f}% of "
+            f"the flops, capture {r['build_ms']:.1f} ms, roofline floor "
+            f"{floor_ms:.4f} ms ({r['param_bytes'] / 1e9:.3f} GB weights + "
+            f"{r['cache_extent_bytes'] / 1e9:.4f} GB cache extent at 3.35 "
+            f"TB/s)" + (f"; replayed step {row['step_ms']:.4f} ms wall, "
+                        f"{row['step_ms'] / floor_ms:.1f}x the floor"
+                        if "step_ms" in row else "") + f" | {_card()}")
+    return rows
+
+
+def _capture_smoke_card_vs_cpu() -> int:
+    """The smoke config's capture report on the card equals a CPU engine's,
+    key for key (flops, bytes, transcendentals, the kernels' share): the
+    kernels add their reckoning at the key's shapes on both devices."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    cfg = get_config("olmo-1b").smoke()
+    params = models.init_params(cfg, seed=0)
+    reps = {}
+    for dev in ("cuda", "cpu"):
+        tel = Telemetry(compile_analysis=True)
+        ecfg = EngineConfig(max_len=48, max_batch=4, page_size=8,
+                            num_pages=40, prefill_chunk=8, mesh="1x1",
+                            meshes=("1x1@1",), devices=(dev, dev))
+        with Engine(cfg, params, ecfg, telemetry=tel, device=dev) as eng:
+            eng.paged_continuous(slots=4, disagg=True)
+        reps[dev] = {str(r["key"]): r for r in tel.compile_reports}
+    fields = ("flops", "bytes", "transcendentals", "kernel_flops",
+              "kernel_bytes")
+    check(sorted(reps["cuda"]) == sorted(reps["cpu"]),
+          "capture report: the card's keys differ from the CPU's")
+    for k, r in reps["cuda"].items():
+        got = [r.get(f) for f in fields]
+        want = [reps["cpu"][k].get(f) for f in fields]
+        check(got == want, f"capture report {k}: card {got} != cpu {want}")
+    return len(reps["cuda"])
+
+
+def _start_disagg_launcher() -> tuple:
+    """The launcher's mesh and capture flags as a user runs them: a
+    subprocess on the card (smoke config), started at the phase's start so
+    its process start-up overlaps the full-width streams (the card is
+    shared; the phase's timings are taken after it has ended)."""
+    import os
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp())
+    path = tmp / "compile.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+           "--engine", "paged", "--prompt-len", "24", "--prefill-chunk",
+           "8", "--requests", "4", "--meshes", "1x1@1", "--disagg",
+           "--devices", "cuda:0 cuda:0", "--compile-report", str(path),
+           "--json"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out, err = open(tmp / "stdout", "w"), open(tmp / "stderr", "w")
+    proc = subprocess.Popen(cmd, stdout=out, stderr=err, cwd=ROOT, env=env)
+    return proc, tmp, (out, err)
+
+
+def _finish_disagg_launcher(proc, tmp: Path, files: tuple) -> dict:
+    """Wait for the launcher; exit 0, one report entry per captured key,
+    none an error, migrations, 0 captures after warmup."""
+    import shutil
+
+    try:
+        rc = proc.wait(timeout=300)
+        for f in files:
+            f.close()
+        text = (tmp / "stdout").read_text()
+        check(rc == 0, f"launcher disagg: exit {rc}: "
+              f"{(tmp / 'stderr').read_text()[-2000:]}")
+        rep = json.loads(text[text.index("{\n"):])
+        entries = json.loads((tmp / "compile.json").read_text())
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = {e["key"] for e in entries}
+    check(len(keys) == len(entries) == rep["compiles_total"]
+          and rep["migrations"] > 0 and rep["compiles_after_warmup"] == 0
+          and not any("error" in e for e in entries),
+          f"launcher disagg: {len(entries)} report entries, "
+          f"{rep['compiles_total']} captures, {rep['migrations']} migrations")
+    log(f"[disagg:launcher] python -m repro_torch.launch.serve --smoke "
+        f"--engine paged --meshes 1x1@1 --disagg --devices 'cuda:0 cuda:0' "
+        f"--compile-report on the card: exit 0, {rep['finished']} finished, "
+        f"{rep['migrations']} migrations of {rep['migrated_pages']} pages, "
+        f"{len(entries)} report entries, one per captured key")
+    return rep
+
+
+def disagg_phase(cfg, params) -> dict:
+    """Phase 13: the mesh coordinate and disaggregated prefill/decode on one
+    card, and the capture report. The launcher's run starts first, beside
+    the rest; then B4 with a never-written row leading a tile. On the bf16
+    pool (the engine warmed with
+    the capture report on) and the int8 pool, shared then disaggregated,
+    sync then async: the disaggregated greedy tokens equal the shared
+    ones, every prompt migrates its pages (``migrated_pages`` = the pages
+    its prompt fills), 0 captures after warmup, each kernel's launches =
+    the replays' reckoning per slice; then a split -> collapse -> split
+    run (2 rebinds) and one migration's device time, a prompt repeated
+    after its migration (a trie hit, the same tail), the two slices' pools
+    distinct storage, the peak
+    against the reckoned bytes (weights + two pools); the report's rows,
+    the smoke report card = CPU, and the launcher. Returns the seconds
+    and each arm's counts."""
+    _release_engines()
+    t0 = time.perf_counter()
+    launcher = _start_disagg_launcher()
+    try:
+        return _disagg_phase(cfg, params, launcher, t0)
+    finally:
+        if launcher[0].poll() is None:  # a check failed before its wait
+            launcher[0].kill()
+
+
+def _disagg_phase(cfg, params, launcher: tuple, t0: float) -> dict:
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    err = _b4_never_written_lead()
+    log(f"[disagg] B4 (tensor-core body) with a never-written row leading "
+        f"a tile: finite, max abs err {err:.3g} against the plain version")
+    log(f"[disagg] both slices of the split on one card: devices "
+        f"{DISAGG_ECFG['devices']}, decode mesh 1x1 and prefill slice "
+        f"1x1@1 — the page handoff is a device-local copy and prefill and "
+        f"decode share the SMs, so this phase shows the semantics and the "
+        f"handoff's cost, not the speed of disaggregation | {_card()}")
+    ps = DISAGG_ECFG["page_size"]
+    pages = -(-64 // ps) + DISAGG_LONG * -(-DISAGG_PROMPT // ps)
+    paths, out = {}, {}
+    for dt in ("fp32", "int8"):
+        tag = "bf16" if dt == "fp32" else "int8"
+        torch.cuda.reset_peak_memory_stats()
+        tel = Telemetry(compile_analysis=dt == "fp32")
+        with Engine(cfg, params, EngineConfig(kv_dtype=dt, **DISAGG_ECFG),
+                    telemetry=tel) as eng:
+            for async_steps in (False, True):
+                mode = "async" if async_steps else "sync"
+                t_shared = time.perf_counter()
+                shared, rs, _, _ = _disagg_arm(
+                    eng, cfg, f"disagg {tag} {mode} shared",
+                    async_steps=async_steps)
+                t_shared = time.perf_counter() - t_shared
+                t_arm = time.perf_counter()
+                split, rd, ld, by_slice = _disagg_arm(
+                    eng, cfg, f"disagg {tag} {mode} split", disagg=True,
+                    async_steps=async_steps)
+                t_arm = time.perf_counter() - t_arm
+                ties = _split_equals_shared(f"disagg {tag} {mode}", cfg,
+                                            params, shared, split, dt)
+                out.setdefault("ties", {})[f"{tag} {mode}"] = ties
+                check(rd["migrations"] >= DISAGG_LONG
+                      and rd["migrated_pages"] == pages,
+                      f"disagg {tag} {mode}: {rd['migrations']} migrations "
+                      f"of {rd['migrated_pages']} pages, reckoned {pages}")
+                paths[f"disagg {tag} {mode}"] = ld
+                log(f"[disagg] {tag} {mode}: tokens = shared on "
+                    f"{len(split) - ties} of {len(split)} requests, {ties} "
+                    f"near-tie divergences ({sum(len(r.tokens) for r in split)}"
+                    f" tokens), {rd['migrations']} "
+                    f"migrations of {rd['migrated_pages']} pages, lanes "
+                    f"{rd['lane_steps']}, 0 captures after warmup; launches "
+                    f"per slice (decode 1x1 / prefill 1x1@1): "
+                    + "; ".join(f"{k} {by_slice['1x1'].get(k, 0)} / "
+                                f"{by_slice['1x1@1'].get(k, 0)}"
+                                for k in sorted(ld) if ld[k])
+                    + f"; wall incl. its batcher's warm replays: split "
+                    f"{t_arm:.2f} s, shared {t_shared:.2f} s; step-clock "
+                    f"span shared {rs['span_s']:.3f} s / split "
+                    f"{rd['span_s']:.3f} s | {_card()}")
+            if dt == "fp32":
+                out["rebind"], split_cb = _disagg_rebind_arm(eng, cfg)
+                out["trie"] = _disagg_trie(eng, cfg)
+                t_wait = time.perf_counter()
+                _finish_disagg_launcher(*launcher)
+                t_wait = time.perf_counter() - t_wait
+                out["rebind"].update(_time_transport(split_cb))
+                out["capture"] = _capture_rows(eng, dt)
+            dec, pf = eng.paged_cache(dt, "1x1"), eng.paged_cache(dt, "1x1@1")
+            check(all(a[n].data_ptr() != b[n].data_ptr()
+                      for a, b in zip(dec, pf) for n in a),
+                  f"disagg {tag}: the two slices' pools share storage")
+            reckoned = (sum(t.numel() * t.element_size()
+                            for t in params.values())
+                        + _pool_bytes(eng, dt, "1x1")
+                        + _pool_bytes(eng, dt, "1x1@1"))
+            peak = torch.cuda.max_memory_allocated()
+            log(f"[disagg] {tag}: peak {peak / 1e9:.2f} GB against "
+                f"{reckoned / 1e9:.2f} GB reckoned (weights + two pools of "
+                f"{_pool_bytes(eng, dt, '1x1') / 1e9:.3f} GB); the pools' "
+                f"storage is distinct | {_card()}")
+            out[f"peak_{tag}_gb"] = peak / 1e9
+        del eng  # its pools and graphs go before the next engine's peak
+        _release_engines()
+    t_smoke = time.perf_counter()
+    n_keys = _capture_smoke_card_vs_cpu()
+    log(f"[disagg:capture] smoke olmo-1b: the card's report equals the "
+        f"CPU's on all {n_keys} keys (flops, bytes, transcendentals, the "
+        f"kernels' share)")
+    end = time.perf_counter()
+    out["seconds"] = end - t0
+    out["paths"] = paths
+    log(f"[disagg] phase 13 passed in {out['seconds']:.1f}s (full-width "
+        f"engines {t_smoke - t0:.1f}s, of which {t_wait:.1f}s waiting for "
+        f"the launcher run beside them; smoke report card vs CPU "
+        f"{end - t_smoke:.1f}s): "
+        f"split -> collapse -> split {out['rebind']['rebinds']} rebinds, "
+        f"trie hit {out['trie']['shared_prompt_tokens']} shared prompt "
+        f"tokens after a migration | {_card()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5341,6 +5809,7 @@ def main() -> int:
     t_async = time.perf_counter() - t_async
     overload = overload_phase(main_path["cfg"], main_path["params"])
     t_c13, c13_launches = c13_on_card(main_path["cfg"], main_path["params"])
+    disagg = disagg_phase(main_path["cfg"], main_path["params"])
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
     prompt = prompt_then_burst(main_path["cfg"], main_path["params"])
     profile_steps(main_path["cfg"], main_path["params"])
@@ -5377,6 +5846,7 @@ def main() -> int:
     log(f"[train] phase 12 passed in {t12:.1f}s (C13 {t_c13:.1f}s, training "
         f"{train['seconds']:.1f}s) | {_card()}")
     paths["c13 two batchers (phase 12)"] = c13_launches
+    paths.update({f"{k} (phase 13)": v for k, v in disagg["paths"].items()})
     paths["train (phase 12)"] = train["launches"]
     for row in rows:
         if row["name"] in new:
@@ -5396,7 +5866,8 @@ def main() -> int:
         f"= CPU) {t9:.1f}s and phase 10 (deepseek-67b, grok-1-314b, jamba, "
         f"internvl2-1b, musicgen-medium) {t10:.1f}s; phase 3d (async vs "
         f"sync) {t_async:.1f}s; phase 11 (the overload stream) "
-        f"{overload['seconds']:.1f}s; phase 12 (C13, training) {t12:.1f}s")
+        f"{overload['seconds']:.1f}s; phase 12 (C13, training) {t12:.1f}s; "
+        f"phase 13 (mesh, disagg, capture report) {disagg['seconds']:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,239 @@
+"""Per-key capture report: the port's counterpart of ``repro.hlo_analysis``.
+
+The JAX package cost-analyses each compiled executable's HLO text
+(``analyze_compiled``). The port has no HLO: a branch target is an eager
+step or a CUDA graph captured from one. So ``analyze_target`` runs the step
+once, eagerly, on the key's static shapes (the engine's build inputs: zero
+tokens, positions and block tables, so only the reserved null page and
+position 0 are written) and counts what the PyTorch dispatcher sees:
+
+* ``flops`` — 2·M·N·K for every product (``torch.utils.flop_counter.
+  FlopCounterMode``: matmuls, batched matmuls and the products an einsum
+  lowers to), as ``hlo_analysis._dot_flops`` counts each dot;
+* ``transcendentals`` — the elements of every exp, tanh, log, rsqrt, sqrt
+  and pow, as ``_comp_cost`` counts them in the optimised HLO: softmax and
+  its log as the exp and log they compute, a sigmoid or SiLU as the one exp
+  XLA expands a logistic into, and a square (``pow(x, 2)``) as the multiply
+  XLA emits, so none;
+* ``bytes`` — the inputs and outputs of every op a ``TorchDispatchMode``
+  sees (views excepted). There is no fusion, so every intermediate counts:
+  this is not comparable with XLA's fusion-boundary bytes.
+* ``collectives`` (empty), ``collective_bytes_total`` and
+  ``unknown_trip_whiles`` (0): one card, and Python loops run unrolled.
+
+Each hand-written kernel's wrapper (``counted``) adds its reckoning
+(``roofline``) at the shapes it was given — the key's static extent, e.g.
+``pages_bucket × page_size`` keys per decode row — to ``kernel_flops``,
+``kernel_bytes`` and the totals, and the ops inside it (its plain version on
+the CPU, its launch on the card) are not also counted. So one key gives the
+same report on the CPU and on the card. A failure is folded into an
+``{"error": ...}`` report: analysis never breaks a build.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch import roofline
+
+# Transcendental elements per output element, by op (packet names).
+_TRANSCENDENTAL = {
+    "exp": 1, "exp2": 1, "expm1": 1, "tanh": 1, "log": 1, "log1p": 1,
+    "log2": 1, "rsqrt": 1, "sqrt": 1, "pow": 1, "sigmoid": 1, "silu": 1,
+    "_softmax": 1, "_log_softmax": 2,
+}
+
+
+class _Counter(TorchDispatchMode):
+    """Bytes and transcendentals of every op outside a kernel region."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.bytes = 0
+        self.transcendentals = 0
+        self.paused = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.paused or getattr(func, "is_view", False):
+            return out
+        nbytes = 0
+        for t in _tensors((args, kwargs, out)):
+            nbytes += t.numel() * t.element_size()
+        self.bytes += nbytes
+        name = func._overloadpacket.__name__
+        per = _TRANSCENDENTAL.get(name)
+        if name == "pow" and len(args) > 1 and args[1] == 2:
+            per = 0  # a square
+        if per:
+            self.transcendentals += per * sum(
+                t.numel() for t in _tensors(out))
+        return out
+
+
+def _tensors(tree: Any):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _tensors(x)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            yield from _tensors(x)
+
+
+class _Analysis:
+    def __init__(self) -> None:
+        self.flop_mode = FlopCounterMode(display=False)
+        self.counter = _Counter()
+        self.kernel = roofline.Work(0.0, 0.0, 0.0, 0.0)
+        self.excluded_flops = 0
+
+
+_ACTIVE: _Analysis | None = None
+
+
+def counted(reckon: Callable[..., roofline.Work]) -> Callable:
+    """Decorate a kernel wrapper: under an analysis, add ``reckon(*args,
+    **kwargs)`` (the call's work at its shapes) and count none of the ops
+    inside the call. Otherwise the wrapper runs as it is."""
+
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            a = _ACTIVE
+            if a is None or a.counter.paused:
+                return fn(*args, **kwargs)
+            w = reckon(*args, **kwargs)
+            a.kernel = roofline.Work(*(x + y for x, y in zip(a.kernel, w)))
+            f0 = a.flop_mode.get_total_flops()
+            a.counter.paused += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                a.counter.paused -= 1
+                a.excluded_flops += a.flop_mode.get_total_flops() - f0
+
+        return wrapper
+
+    return deco
+
+
+def analyze_target(step: Callable, *args: Any) -> dict:
+    """Run ``step(*args)`` once under the counters and return the report
+    (module docstring); ``{"error": ...}`` if anything fails."""
+    global _ACTIVE
+    try:
+        a = _Analysis()
+        _ACTIVE = a
+        try:
+            with torch.no_grad(), a.flop_mode, a.counter:
+                step(*args)
+        finally:
+            _ACTIVE = None
+        k = a.kernel
+        flops = a.flop_mode.get_total_flops() - a.excluded_flops + k.flops
+        return {
+            "flops": float(flops),
+            "bytes": float(a.counter.bytes + k.bytes),
+            "transcendentals": float(a.counter.transcendentals
+                                     + k.transcendentals),
+            "collectives": {},
+            "collective_bytes_total": 0.0,
+            "unknown_trip_whiles": 0,
+            "kernel_flops": float(k.flops),
+            "kernel_bytes": float(k.bytes),
+        }
+    except Exception as exc:  # noqa: BLE001 - report, never break a build
+        return {"error": f"{type(exc).__name__}: {exc}"}
+
+
+# ------------------------------------------- the wrappers' static extents
+# Each takes a kernel wrapper's arguments and returns its reckoning at the
+# shapes given: every key column of a row's table is a visible K/V row.
+def _nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _kv_row_bytes(k_pages: torch.Tensor, scaled: bool) -> int:
+    _, _, kh, dh = k_pages.shape
+    return kh * dh * k_pages.element_size() + (4 if scaled else 0)
+
+
+def paged_decode_extent(q, k_pages, v_pages, *rest, softcap=None,
+                        **_) -> roofline.Work:
+    """B1/B3: ``q [B, H, dh]``, a ``[B, PB]`` table of ``ps``-row pages."""
+    scaled = len(rest) == 4  # int8: k_scale, v_scale, tables, pos
+    bt, pos = rest[-2], rest[-1]
+    b, h, dh = q.shape
+    kv_tokens = b * bt.shape[1] * k_pages.shape[1]
+    return roofline.paged_attention_work(
+        dh=dh, pairs=kv_tokens * h, kv_tokens=kv_tokens,
+        kv_row_bytes=_kv_row_bytes(k_pages, scaled),
+        io_bytes=2 * _nbytes(q) + _nbytes(bt, pos),
+        softcap=softcap is not None,
+    )
+
+
+def paged_prefill_extent(q, k_pages, v_pages, *rest, softcap=None,
+                         **_) -> roofline.Work:
+    """B2/B4: ``q [B, C, H, dh]`` over a ``[B, PB]`` table."""
+    scaled = len(rest) == 4
+    bt, start = rest[-2], rest[-1]
+    b, c, h, dh = q.shape
+    kv_tokens = b * bt.shape[1] * k_pages.shape[1]
+    return roofline.paged_attention_work(
+        dh=dh, pairs=kv_tokens * c * h, kv_tokens=kv_tokens,
+        kv_row_bytes=_kv_row_bytes(k_pages, scaled),
+        io_bytes=2 * _nbytes(q) + _nbytes(bt, start),
+        softcap=softcap is not None,
+    )
+
+
+def dense_decode_extent(q, k, v, pos, *, softcap=None, **_) -> roofline.Work:
+    """B5: ``q [B, H, dh]`` over a ``[B, KH, L, dh]`` cache, every row."""
+    b, h, dh = q.shape
+    return roofline.dense_decode_work(
+        rows=b, heads=h, kv_heads=k.shape[1], dh=dh, seen=k.shape[2],
+        elt=q.element_size(), softcap=softcap is not None,
+    )
+
+
+def flash_extent(q, k, v, *rest, causal=True, softcap=None,
+                 **_) -> roofline.Work:
+    """B6/B7: ``q [B, H, S, dh]``, causal: half the square and its
+    diagonal."""
+    b, h, s, dh = q.shape
+    sk = k.shape[2]
+    pairs = b * h * (s * (s + 1) // 2 if causal and s == sk else s * sk)
+    return roofline.flash_work(
+        batch=b, seq=s, heads=h, dh=dh, elt=q.element_size(), pairs=pairs,
+        kv_heads=k.shape[1], softcap=softcap is not None,
+    )
+
+
+def ssd_extent(x, b, c, dt, a, *, chunk: int = 256, **_) -> roofline.Work:
+    """B8: ``x [B, L, H, P]``, ``b [B, L, G, N]``."""
+    bsz, seq, heads, p = x.shape
+    return roofline.ssd_chunk_work(
+        batch=bsz, seq=seq, heads=heads, head_dim=p, state=b.shape[-1],
+        chunk=chunk, elt=x.element_size(),
+    )
+
+
+def sample_extent(logits, *_, **__) -> roofline.Work:
+    """``sample_rows``: every row draws at the static extent."""
+    rows, vocab = logits.shape
+    return roofline.sample_rows_work(rows=rows, vocab=vocab,
+                                     elt=logits.element_size(),
+                                     drawn_rows=rows)
+
+
+def categorical_extent(key, logits, temperature) -> roofline.Work:
+    """``categorical_rows`` (the same kernel): every row draws."""
+    return sample_extent(logits)

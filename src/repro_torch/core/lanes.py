@@ -5,8 +5,9 @@ the ported engines run: ``burst`` (the per-burst engine's decode, sampling
 mode baked in), the dense continuous engine's ``cb`` (decode), ``pfd``
 (chunked prefill) and ``vfd`` (verify), the paged serving path's ``cbp``
 (paged decode), ``pf`` (chunked paged prefill) and ``vf`` (paged verify),
-and speculative decoding's ``dr`` (draft) and ``drp`` (the draft's prompt
-mirror), which both continuous engines share.
+speculative decoding's ``dr`` (draft) and ``drp`` (the draft's prompt
+mirror), which both continuous engines share, and ``mg``, the KV-page
+migration transport of disaggregated prefill/decode (DESIGN.md §17).
 
 * ``LaneAxis``    — one coordinate of a lane's key: a name plus the *bucket
                     ladder* that enumerates its warmup fan-out (an engine
@@ -25,9 +26,9 @@ mirror), which both continuous engines share.
 The registry holds *declarations only* (method names, not callables), so it
 imports nothing heavier than the stdlib and carries no reference to a live
 engine. The page dtype is a coordinate of every pool lane (``kv_dtype``) and
-the draft cache's dtype one of the draft lanes (``draft_kv_dtype``), as in
-the JAX package; its ``mesh`` coordinate joins the keys when the
-multi-device layer is ported.
+the draft cache's dtype one of the draft lanes (``draft_kv_dtype``), and the
+device topology (``mesh``, DESIGN.md §16) the last coordinate of every lane
+that touches a pool, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -113,6 +114,11 @@ class LaneSpec:
     engines: frozenset[str] = field(default_factory=frozenset)
     enabled: str | None = None
     doc: str = ""
+    # Which mesh slice the lane's calls route to under disaggregated
+    # prefill/decode (DESIGN.md §17): "prefill" lanes follow the
+    # DisaggPlan's prefill slice, every other lane stays on the decode
+    # (= base) mesh; with disaggregation off both resolve to one mesh.
+    slice: str = "decode"
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -135,6 +141,17 @@ class LaneSpec:
                 f"got {tuple(key)!r}"
             )
         return tuple(key[1:])
+
+    def coord(self, key: tuple, axis: str) -> Hashable:
+        """One named coordinate out of a validated key."""
+        try:
+            i = self.axis_names.index(axis)
+        except ValueError:
+            raise UnknownLaneError(
+                f"lane {self.name!r} has no axis {axis!r} "
+                f"(axes: {self.axis_names})"
+            ) from None
+        return self.coords(key)[i]
 
     def fanout(self, engine: Any, **pinned: Hashable) -> list[DispatchKey]:
         """The lane's complete warmup key set: the cartesian product of
@@ -222,10 +239,14 @@ _KVDTYPE = LaneAxis("kv_dtype", "_warm_kv_dtypes")
 # can pair with a model-dtype verify pool (DESIGN.md §16) without
 # multiplying the verify lanes' fan-out.
 _DRAFT_KVDTYPE = LaneAxis("draft_kv_dtype", "_warm_draft_kv_dtypes")
+# The device topology as the trailing coordinate of every lane that touches
+# a pool (DESIGN.md §16): mesh names, warmed like any bucket ladder, so a
+# topology change is a rebind over captured keys, never a capture.
+_MESH = LaneAxis("mesh", "_warm_meshes")
 
 CB = LANES.register(LaneSpec(
     name="cb", role="decode",
-    axes=(_SLOTS,),
+    axes=(_SLOTS, _MESH),
     builder="_build_slot_decode", warmer="_warm_cb",
     engines=frozenset({"dense"}),
     doc="Dense continuous decode: one branch target per slot count, "
@@ -234,7 +255,7 @@ CB = LANES.register(LaneSpec(
 
 CBP = LANES.register(LaneSpec(
     name="cbp", role="decode",
-    axes=(_SLOTS, _PAGES, _KVDTYPE),
+    axes=(_SLOTS, _PAGES, _KVDTYPE, _MESH),
     builder="_build_paged_slot_decode", warmer="_warm_cbp",
     engines=frozenset({"paged"}),
     doc="Paged continuous decode: capacity bucket + page dtype as "
@@ -243,24 +264,26 @@ CBP = LANES.register(LaneSpec(
 
 PF = LANES.register(LaneSpec(
     name="pf", role="prefill",
-    axes=(_SLOTS, _CHUNK, _KVDTYPE),
+    axes=(_SLOTS, _CHUNK, _KVDTYPE, _MESH),
     builder="_build_paged_prefill", warmer="_warm_pf",
     engines=frozenset({"paged"}), enabled="_supports_chunked_prefill",
+    slice="prefill",
     doc="Paged chunked prefill, batched: every prefilling slot the budget "
         "covers rides one call (DESIGN.md §10/§12).",
 ))
 
 PFD = LANES.register(LaneSpec(
     name="pfd", role="prefill",
-    axes=(_SLOTS, _CHUNK),
+    axes=(_SLOTS, _CHUNK, _MESH),
     builder="_build_slot_prefill", warmer="_warm_pfd",
     engines=frozenset({"dense"}), enabled="_supports_chunked_prefill",
+    slice="prefill",
     doc="Dense chunked prefill, batched (DESIGN.md §10).",
 ))
 
 VF = LANES.register(LaneSpec(
     name="vf", role="verify",
-    axes=(_SLOTS, _KBUCKET, _KVDTYPE),
+    axes=(_SLOTS, _KBUCKET, _KVDTYPE, _MESH),
     builder="_build_paged_verify", warmer="_warm_vf",
     engines=frozenset({"paged"}), enabled="_spec_lanes_enabled",
     doc="Paged verify: K+1 window through the chunk path (DESIGN.md §11).",
@@ -268,7 +291,7 @@ VF = LANES.register(LaneSpec(
 
 VFD = LANES.register(LaneSpec(
     name="vfd", role="verify",
-    axes=(_SLOTS, _KBUCKET),
+    axes=(_SLOTS, _KBUCKET, _MESH),
     builder="_build_slot_verify", warmer="_warm_vfd",
     engines=frozenset({"dense"}), enabled="_spec_lanes_enabled",
     doc="Dense verify (DESIGN.md §11).",
@@ -276,7 +299,7 @@ VFD = LANES.register(LaneSpec(
 
 DR = LANES.register(LaneSpec(
     name="dr", role="draft",
-    axes=(_SLOTS, _KBUCKET, _DRAFT_KVDTYPE),
+    axes=(_SLOTS, _KBUCKET, _DRAFT_KVDTYPE, _MESH),
     builder="_build_draft", warmer="_warm_dr",
     engines=frozenset({"dense", "paged"}), enabled="_spec_lanes_enabled",
     doc="Draft lane: K decode steps of the truncated-layer view in one "
@@ -286,9 +309,21 @@ DR = LANES.register(LaneSpec(
 
 DRP = LANES.register(LaneSpec(
     name="drp", role="draft",
-    axes=(_SLOTS, _CHUNK, _DRAFT_KVDTYPE),
+    axes=(_SLOTS, _CHUNK, _DRAFT_KVDTYPE, _MESH),
     builder="_build_draft_prefill", warmer="_warm_drp",
     engines=frozenset({"dense", "paged"}), enabled="_spec_lanes_enabled",
+    slice="prefill",
     doc="Draft prompt mirror: chunked dense ingestion over the draft view "
         "(DESIGN.md §11).",
+))
+
+MG = LANES.register(LaneSpec(
+    name="mg", role="migrate",
+    axes=(LaneAxis("op", "_mg_ops"), _KVDTYPE, _MESH),
+    builder="_build_migrate", warmer="_warm_mg",
+    engines=frozenset({"paged"}), enabled="_disagg_lanes_enabled",
+    doc="KV-page migration transport (DESIGN.md §17): gather pages out of "
+        "one pool / scatter them into another, at a fixed page-index "
+        "width. Warmed over the mesh ladder so both slices of a "
+        "DisaggPlan carry captured gather and scatter targets.",
 ))

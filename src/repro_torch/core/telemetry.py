@@ -488,15 +488,21 @@ class Telemetry:
       hot path pays one pointer compare, nothing else.
     * ``registry`` — always-on metrics (lane_calls, latency histograms);
       this is what ``latency_report`` derives from.
+    * ``compile_analysis`` — when True, ``Engine._build`` runs
+      ``capture_analysis.analyze_target`` on every freshly built target and
+      appends a per-DispatchKey report to ``compile_reports``.
     """
 
     def __init__(
         self,
         enabled: bool = False,
         capacity: int = 65536,
+        compile_analysis: bool = False,
     ):
         self.recorder = FlightRecorder(capacity=capacity, enabled=enabled)
         self.registry = MetricsRegistry()
+        self.compile_analysis = bool(compile_analysis)
+        self.compile_reports: list[dict] = []
 
     @property
     def enabled(self) -> bool:

@@ -374,6 +374,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         lead(top1, lead1, __shfl_xor_sync(0xffffffffu, top1, d),
              __shfl_xor_sync(0xffffffffu, lead1, d));
       }
+      // A row never written (a zeroed pool's scale 0, V 0) can lead where
+      // a padded query row sees past its chunk's frontier: 1 / 0 would make
+      // the row NaN, and its K/V, written to the null page, every later
+      // read of that page. Such a row folds the bare scales instead.
+      if (lead0 == 0.f) lead0 = 1.f;
+      if (lead1 == 0.f) lead1 = 1.f;
     }
     const float rs0 = 1.f / lead0, rs1 = 1.f / lead1;
     float sum0 = 0.f, sum1 = 0.f;

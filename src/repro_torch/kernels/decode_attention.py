@@ -52,6 +52,8 @@ from typing import Optional
 import torch
 
 from . import build
+from repro_torch import capture_analysis
+from repro_torch.capture_analysis import counted
 
 NEG_INF = -2.0e38
 # csrc/paged_decode_split.cuh: a cluster holds 1-8 CTAs (the portable
@@ -89,6 +91,7 @@ def _checked_splits(name, q, k_pages, v_pages, block_tables, splits):
     return splits
 
 
+@counted(capture_analysis.paged_decode_extent)
 def paged_decode_attention(
     q: torch.Tensor,  # [B, H, dh] one token per row
     k_pages: torch.Tensor,  # [P, page_size, KH, dh] pooled pages
@@ -130,6 +133,7 @@ def paged_decode_attention(
 paged_decode_attention.launches = 0  # kernel launches (CUDA path only)
 
 
+@counted(capture_analysis.paged_decode_extent)
 def paged_decode_attention_int8(
     q: torch.Tensor,  # [B, H, dh] one token per row
     k_pages: torch.Tensor,  # int8 [P, page_size, KH, dh] quantised pages
@@ -278,6 +282,7 @@ def _dense_splits(name, q, k, v, splits):
     return splits
 
 
+@counted(capture_analysis.dense_decode_extent)
 def decode_attention(
     q: torch.Tensor,  # [B, H, dh] one token per row
     k: torch.Tensor,  # [B, KH, S, dh] dense cache (any strides, dh unit)

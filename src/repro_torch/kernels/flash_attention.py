@@ -37,6 +37,8 @@ from typing import Optional
 import torch
 
 from . import build
+from repro_torch import capture_analysis
+from repro_torch.capture_analysis import counted
 from .decode_attention import NEG_INF
 
 # bf16 at these head dims takes the tensor-core body; the rest CUDA cores
@@ -76,6 +78,7 @@ def _launch_args(q, k, v, out) -> tuple:
     )
 
 
+@counted(capture_analysis.flash_extent)
 def flash_attention(
     q: torch.Tensor,  # [B, H, Sq, dh]
     k: torch.Tensor,  # [B, KH, Sk, dh]
@@ -111,6 +114,7 @@ def flash_attention(
 flash_attention.launches = 0  # kernel launches (CUDA path only)
 
 
+@counted(capture_analysis.flash_extent)
 def flash_attention_branchy(
     q: torch.Tensor,  # [B, H, Sq, dh]
     k: torch.Tensor,  # [B, KH, Sk, dh]

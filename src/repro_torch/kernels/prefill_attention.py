@@ -48,6 +48,8 @@ from typing import Optional
 import torch
 
 from . import build
+from repro_torch import capture_analysis
+from repro_torch.capture_analysis import counted
 from .decode_attention import gather_pages
 from .flash_attention import TENSOR_CORE_HEAD_DIMS
 
@@ -72,6 +74,7 @@ def _check_tma_operands(name: str, q, *tensors) -> None:
             )
 
 
+@counted(capture_analysis.paged_prefill_extent)
 def paged_prefill_attention(
     q: torch.Tensor,  # [B, C, H, dh] one chunk of C query tokens per row
     k_pages: torch.Tensor,  # [P, page_size, KH, dh] pooled pages (chunk written)
@@ -111,6 +114,7 @@ def paged_prefill_attention(
 paged_prefill_attention.launches = 0  # kernel launches (CUDA path only)
 
 
+@counted(capture_analysis.paged_prefill_extent)
 def paged_prefill_attention_int8(
     q: torch.Tensor,  # [B, C, H, dh] one chunk of C query tokens per row
     k_pages: torch.Tensor,  # int8 [P, page_size, KH, dh] (chunk written)

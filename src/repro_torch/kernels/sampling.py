@@ -38,6 +38,8 @@ import torch
 from repro_torch import prng
 
 from . import build
+from repro_torch import capture_analysis
+from repro_torch.capture_analysis import counted
 
 # rows the workspace holds (one 64-bit best word and one ticket per row);
 # allocated once per device, so a captured graph's pointers stay valid
@@ -112,6 +114,7 @@ def _launch(name, logits, temps, greedy, keys, new_keys, split: bool,
     return tok
 
 
+@counted(capture_analysis.sample_extent)
 def sample_rows(
     logits: torch.Tensor,  # [S, V] float32 or bfloat16
     temps: torch.Tensor,  # [S] float32
@@ -146,6 +149,7 @@ def sample_rows(
 sample_rows.launches = 0  # kernel launches (CUDA path only)
 
 
+@counted(capture_analysis.categorical_extent)
 def categorical_rows(key: torch.Tensor, logits: torch.Tensor,
                      temperature: float) -> torch.Tensor:
     """``jax.random.categorical(key, logits / temperature)`` over ``[B,

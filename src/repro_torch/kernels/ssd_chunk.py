@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from repro_torch import capture_analysis
+from repro_torch.capture_analysis import counted
 
 # (chunk L, head dim P, state N) instantiated in csrc/ssd_chunk.cu, each for
 # float32 and bfloat16: mamba2-370m at full width, and the smoke config with
@@ -102,6 +104,7 @@ def check_tc_alignment(name: str, x, b, c) -> None:
             )
 
 
+@counted(capture_analysis.ssd_extent)
 def ssd_chunk(
     x: torch.Tensor,  # [B, S, H, P]
     b: torch.Tensor,  # [B, S, G, N]

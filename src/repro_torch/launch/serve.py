@@ -28,8 +28,17 @@ admissions on a pre-warmed int8 pool) and deterministic fault injection at
 five sites (``--chaos-seed``: ``FaultPlan.random``). ``--trace-out PATH``
 turns the flight recorder on and writes a Chrome trace-event file
 (ui.perfetto.dev), ``--metrics-out PATH`` the metrics registry (Prometheus
-text for ``.prom``, JSON otherwise). ``--async-steps`` (``--async-depth``)
-pipelines the continuous and paged engines' steps. ``--arch`` names any config of
+text for ``.prom``, JSON otherwise), ``--compile-report PATH`` one JSON
+entry per warmed key (``capture_analysis``: flops, bytes, transcendentals,
+the kernels' share, the capture ms and the key's H100 roofline terms).
+``--async-steps`` (``--async-depth``) pipelines the continuous and paged
+engines' steps. ``--mesh`` and ``--meshes`` name the active and standby
+serving meshes (DESIGN.md §16; one-device plans, "1x1" and slices
+"1x1@OFF") over ``--devices`` (space-separated; default each visible
+device of ``--device``'s type), and ``--disagg [SLICE]`` pins the paged
+engine's prefill lanes to a slice (DESIGN.md §17; default the slice right
+after the decode mesh's devices), which ``--meshes`` must list:
+``--devices "cuda:0 cuda:0"`` runs both slices on one card. ``--arch`` names any config of
 ``repro_torch.configs``: olmo-1b, qwen3-14b, gemma2-27b, hft-demo,
 deepseek-67b (dense), granite-moe-1b-a400m and grok-1-314b (MoE),
 mamba2-370m (SSM) and jamba-1.5-large-398b (hybrid: attention and mamba
@@ -56,6 +65,9 @@ init. Runs on the GPU unless ``--device cpu``:
   PYTHONPATH=src python -m repro_torch.launch.serve --engine overload \\
       --smoke --device cpu --degrade --chaos-seed 7 --trace-out t.json \\
       --metrics-out m.prom
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
+      --smoke --device cpu --prompt-len 24 --prefill-chunk 8 \\
+      --meshes 1x1@1 --disagg --devices "cpu cpu" --compile-report r.json
 """
 
 from __future__ import annotations
@@ -129,6 +141,11 @@ def _print_report(rep: dict) -> None:
     if "lane_steps" in rep:
         print(f"{tag} lanes: {rep['lane_steps']} "
               f"pipeline: {rep.get('pipeline')}", flush=True)
+    if rep.get("disagg"):  # the prefill/decode split (DESIGN.md §17)
+        print(f"{tag} disagg: prefill_slice={rep['disagg']} "
+              f"migrations={rep.get('migrations', 0)} "
+              f"migrated_pages={rep.get('migrated_pages', 0)} "
+              f"rebinds={rep.get('disagg_rebinds', 0)}", flush=True)
     if "spec" in rep:
         print(f"{tag} specdec: {rep['spec']} tokens/target step "
               f"{rep.get('tokens_per_target_step')}", flush=True)
@@ -276,6 +293,35 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="write the metrics-registry snapshot after the "
                          "run: Prometheus text exposition if PATH ends in "
                          ".prom, JSON otherwise")
+    ap.add_argument("--compile-report", default=None, metavar="PATH",
+                    help="write a per-DispatchKey capture report (capture "
+                         "ms, flops/bytes/transcendentals counted on one "
+                         "eager run at the key's shapes, the kernels' "
+                         "share, H100 roofline terms) as JSON")
+    ap.add_argument("--mesh", default="1x1",
+                    help="serving mesh 'DPxMP[@OFF]' (DESIGN.md §16), a "
+                         "warmed dispatch coordinate. One-device plans "
+                         "only: '1x1' or a slice '1x1@OFF' on --devices' "
+                         "entry OFF; more devices wait for ROADMAP A12 "
+                         "part 2")
+    ap.add_argument("--meshes", default="",
+                    help="space-separated standby mesh names to warm "
+                         "alongside --mesh (e.g. '1x1@1'): a mid-stream "
+                         "rebind onto any of them is a hot-slot flip, "
+                         "never a capture")
+    ap.add_argument("--disagg", nargs="?", const=True, default=None,
+                    metavar="SLICE",
+                    help="disaggregated prefill/decode (DESIGN.md §17): "
+                         "pin the prefill lanes to a mesh slice ('1x1@1') "
+                         "while decode stays on --mesh; with no value, "
+                         "the slice right after the decode mesh's "
+                         "devices. The slice must be listed in --meshes; "
+                         "needs --engine paged and --prefill-chunk > 0")
+    ap.add_argument("--devices", default="",
+                    help="the engine's logical devices, space-separated "
+                         "(e.g. 'cuda:0 cuda:0': both slices of a split on "
+                         "one card); default each visible device of "
+                         "--device's type")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
@@ -311,6 +357,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ):
         ap.error("--capacity/--queue-ttl/--deadline/--degrade/--chaos-seed "
                  "require --engine overload (the hardened serving loop)")
+    if args.disagg is not None and args.engine != "paged":
+        ap.error("--disagg requires --engine paged (prefill/decode "
+                 "disaggregation pins the paged lanes to mesh slices)")
+    if args.disagg is not None and args.prefill_chunk <= 0:
+        ap.error("--disagg requires --prefill-chunk > 0 (without the "
+                 "chunked prefill lane there is nothing to pin to a "
+                 "prefill slice)")
     if args.engine in ("paged", "overload", "all"):
         try:
             models.check_paged(_config(args))
@@ -348,14 +401,19 @@ def main(argv: list[str] | None = None) -> dict:
         spec_k=args.spec_k,
         draft_layers=args.draft_layers,
         draft_kv_dtype=args.draft_kv_dtype,
+        mesh=args.mesh,
+        meshes=tuple(args.meshes.split()),
+        devices=tuple(args.devices.split()),
     )
     slots = args.slots or None
     engines = {"both": ("continuous", "burst"),
                "all": ("continuous", "burst", "paged")}.get(
                    args.engine, (args.engine,))
     # One Telemetry for every engine of the run (DESIGN.md §14); the
-    # flight recorder records only when a trace is asked for.
-    telemetry = Telemetry(enabled=args.trace_out is not None)
+    # flight recorder records only when a trace is asked for, the capture
+    # analysis only when the compile report is.
+    telemetry = Telemetry(enabled=args.trace_out is not None,
+                          compile_analysis=args.compile_report is not None)
     reports = {}
     pipeline = dict(async_steps=args.async_steps, async_depth=args.async_depth)
     for name in engines:
@@ -388,8 +446,9 @@ def main(argv: list[str] | None = None) -> dict:
                 )
             else:
                 reports[name] = run_paged_stream(
-                    eng, reqs, slots=slots, seed=args.seed, **pipeline)
-    for path in (args.trace_out, args.metrics_out):
+                    eng, reqs, slots=slots, seed=args.seed,
+                    disagg=args.disagg, **pipeline)
+    for path in (args.trace_out, args.metrics_out, args.compile_report):
         if path and os.path.dirname(path):
             os.makedirs(os.path.dirname(path), exist_ok=True)
     if args.trace_out:
@@ -404,6 +463,11 @@ def main(argv: list[str] | None = None) -> dict:
                      if args.metrics_out.endswith(".prom")
                      else telemetry.metrics_json())
         print(f"[serve] metrics: {args.metrics_out}", flush=True)
+    if args.compile_report:
+        with open(args.compile_report, "w") as fh:
+            json.dump(telemetry.compile_reports, fh, indent=2)
+        print(f"[serve] compile report: {args.compile_report} "
+              f"({len(telemetry.compile_reports)} keys)", flush=True)
     rep = reports if len(engines) > 1 else reports[args.engine]
     if args.json:
         print(json.dumps(rep, indent=2))

@@ -47,7 +47,13 @@ A ``FaultPlan`` counts the JAX package's opportunities: where the port
 packs what the JAX package pulls separately into one transfer, that pull
 counts as many ``d2h_stall`` opportunities as the JAX package's pulls.
 
-Not in the port: disaggregation and the mesh axis.
+The mesh coordinate (DESIGN.md §16-§17) is the JAX package's too:
+``set_mesh`` moves a batcher to another warmed one-device mesh, and the
+paged batcher's disaggregated mode runs the prefill lane on its own slice
+and pool, migrating each prompt's pages to the decode pool at its PREFILL
+-> DECODE flip (``kvcache.migrate_pages`` and the engine's ``mg``
+targets); ``set_disagg`` splits and collapses mid-stream. Not in the port:
+meshes of more than one device (ROADMAP A12 part 2).
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ import torch
 from repro_torch.core import bucket_multiple, bucket_pow2
 from repro_torch.core.faults import POISON_TOKEN
 from repro_torch.core.telemetry import MetricsRegistry, Telemetry
-from repro_torch.runtime.kvcache import BlockTable
+from repro_torch.runtime.kvcache import BlockTable, migrate_pages
 from repro_torch.runtime.steps import pull_host
 
 # Smallest chunked-prefill bucket: chunk sizes are drawn from the log-sized
@@ -90,11 +96,17 @@ class LanePolicy:
     the remainder funds the prefill lane's chunks. The draft depth ``k`` is
     drawn from the log-sized k-bucket set {1, 2, 4, ..., spec_k} and clamped
     by the longest useful window (``max_remaining - 1``), so k shrinks near
-    stream tails and the crossing is a rebind over warmed buckets."""
+    stream tails and the crossing is a rebind over warmed buckets.
 
-    def __init__(self, *, token_budget: int, spec_k: int = 0):
+    ``decoupled`` (DESIGN.md §17): under disaggregated prefill/decode the
+    two lanes run on disjoint slices, so decoding slots no longer eat into
+    the prefill budget: the chunk budget is the whole token budget."""
+
+    def __init__(self, *, token_budget: int, spec_k: int = 0,
+                 decoupled: bool = False):
         self.token_budget = token_budget
         self.spec_k = spec_k
+        self.decoupled = decoupled
 
     def plan(self, *, n_decode: int, max_remaining: int = 0) -> StepPlan:
         """``max_remaining`` is the largest remaining emission count over
@@ -102,9 +114,9 @@ class LanePolicy:
         k = 0
         if self.spec_k > 0 and n_decode > 0 and max_remaining > 1:
             k = bucket_pow2(min(self.spec_k, max_remaining - 1), 1, self.spec_k)
-        return StepPlan(
-            chunk_budget=self.token_budget - n_decode * (1 + k), k=k
-        )
+        budget = (self.token_budget if self.decoupled
+                  else self.token_budget - n_decode * (1 + k))
+        return StepPlan(chunk_budget=budget, k=k)
 
 
 # ------------------------------------------------------------------ requests
@@ -446,6 +458,12 @@ class PagedBatcherStats(BatcherStats):
     starved_admissions: int = 0  # distinct requests deferred for pages
     rejected_oversize: int = 0  # requests that can never fit the page cap
     shared_tokens: int = 0  # prompt tokens skipped via the prefix cache
+    # Disaggregated prefill/decode (DESIGN.md §17): PREFILL -> DECODE flips
+    # that moved pages across pools, the pages moved, and prefill-slice
+    # shadow pages allocated (adopted-prefix copies and split-time copies).
+    migrations: int = 0
+    migrated_pages: int = 0
+    pf_shadow_pages: int = 0
 
 
 class _PinnedStaging:
@@ -542,6 +560,13 @@ class _DeviceMirror:
     def put(self, name: str, dev: torch.Tensor) -> None:
         self._dev[name] = dev
 
+    def invalidate(self, device: torch.device) -> None:
+        """Drop every device copy: a mesh rebind moved the serving state
+        to ``device`` (DESIGN.md §16), and the next ``get`` of each name
+        uploads the host copy there."""
+        self._dev.clear()
+        self._device = device
+
     def detach(self) -> None:
         """Hold copies of its own of every device array: another batcher's
         calls (or a new batcher's warmup) are about to replay the graph
@@ -595,6 +620,14 @@ class _MultiLaneMixin:
     _decode_lane = "cb"
     _prefill_lane = "pfd"
     _verify_lane = "vfd"
+    # The active mesh coordinate (DESIGN.md §16): the engine passes its
+    # launch mesh and ``set_mesh`` moves it; ``_mesh_ctl`` is the engine's
+    # topology-flip closure.
+    mesh = "1x1"
+    _mesh_ctl = None
+    # Disaggregated prefill/decode (DESIGN.md §17): True while the prefill
+    # lane runs on its slice. The dense engine never sets it.
+    disagg = False
 
     def _init_slots(self, num_slots: int, device, seed: int,
                     telemetry: Telemetry | None) -> None:
@@ -660,6 +693,7 @@ class _MultiLaneMixin:
         async_steps: bool = False,
         async_depth: int = 2,
         storage: Any = None,
+        token_budget: int = 0,
     ) -> None:
         """Lane wiring shared by both constructors. Speculation is on only
         when the engine supplied both spec lanes. ``async_depth`` is the
@@ -683,8 +717,10 @@ class _MultiLaneMixin:
             self._mirror.staging = _PinnedStaging(self.device)
         self._prefill_dispatch = prefill_dispatch
         self.prefill_chunk = prefill_chunk if prefill_dispatch else 0
-        # per-step token budget: one per decoding slot plus one full chunk
-        self.token_budget = self.num_slots + self.prefill_chunk
+        # per-step token budget: by default one per decoding slot plus one
+        # full chunk
+        self.token_budget = token_budget or (
+            self.num_slots + self.prefill_chunk)
         self._chunk_bucket = 0
         self._draft_dispatch = draft_dispatch
         self._verify_dispatch = verify_dispatch
@@ -695,7 +731,8 @@ class _MultiLaneMixin:
         # per-slot, per-verify a/k acceptance samples (a bounded window)
         self.accept_samples: deque[float] = deque(maxlen=4096)
         self._lane_policy = LanePolicy(
-            token_budget=self.token_budget, spec_k=self.spec_k
+            token_budget=self.token_budget, spec_k=self.spec_k,
+            decoupled=self.disagg,
         )
         # Launch-time knob ceilings: ``set_knobs`` (the degradation ladder's
         # actuation surface) may move spec_k/prefill_chunk/token_budget only
@@ -729,12 +766,17 @@ class _MultiLaneMixin:
     # ------------------------------------------------------------ telemetry
     def _lane_tick(self, lane: str, t0_ns: int) -> None:
         """Per-lane call latency (host clock, from just before the call to
-        its return — the device may still be running)."""
+        its return — the device may still be running). The histogram
+        carries a ``mesh`` label off the classic ``"1x1"`` (DESIGN.md §16),
+        so a rebind's latency shift is visible."""
         dt_ns = time.perf_counter_ns() - t0_ns
         h = self._lane_hist.get(lane)
         if h is None:
+            labels = {"lane": lane}
+            if self.mesh != "1x1":
+                labels["mesh"] = self.mesh
             h = self._lane_hist[lane] = self.telemetry.registry.histogram(
-                "lane_step_ms", lane=lane
+                "lane_step_ms", **labels
             )
         h.observe(dt_ns / 1e6)
         if self._trace is not None:
@@ -887,7 +929,8 @@ class _MultiLaneMixin:
         non-flip prefill chunk; with prefilling slots, only when this
         step's own chunk plan flips none of them (a flip edits the decoding
         mask the parked steps were issued under) and no spec step is
-        planned."""
+        planned. Disaggregated prefill always commits first: its chunks
+        bridge two pools."""
         if not self._inflight:
             return False
         rec = self._inflight[-1]
@@ -895,7 +938,7 @@ class _MultiLaneMixin:
             return False
         if not (self._prefilling & self._active).any():
             return True
-        if self.prefill_chunk <= 0 or self._spec_on:
+        if self.prefill_chunk <= 0 or self.disagg or self._spec_on:
             return False
         plan = self._plan_step()
         if plan.k > 0:
@@ -998,8 +1041,8 @@ class _MultiLaneMixin:
     def _parks(self, plan: list) -> bool:
         """Under async a planned chunk that flips no slot leaves every plan
         input untouched: it issues and parks like a chainable decode (with
-        speculation on, chunks commit at once)."""
-        return (self.async_steps and not self._spec_on
+        speculation on, and disaggregated, chunks commit at once)."""
+        return (self.async_steps and not self._spec_on and not self.disagg
                 and not self._flip_planned_in(plan))
 
     def _flip_planned_in(self, plan: list) -> bool:
@@ -1478,6 +1521,46 @@ class _MultiLaneMixin:
         self._tok[s, 0] = 0
         self._mirror.touch("tok", "active")
 
+    def set_mesh(self, name: str, now: float = 0.0) -> str:
+        """Cold-path topology rebind (DESIGN.md §16): move the live serving
+        state onto another *warmed* mesh and flip the decode hot slot to
+        its targets — ``set_knobs``'s twin on the key's mesh axis. The
+        engine's ``mesh_ctl`` validates the name, copies the caches into
+        the target mesh's captured buffers, moves the shared binding every
+        dispatch closure reads and rebinds the dispatcher: a rebind, never
+        a capture. Parked steps commit first; the device mirror drops its
+        copies and the mesh-labelled lane histograms refresh. Returns the
+        canonical name of the mesh now active (the current one: a
+        no-op)."""
+        if self._mesh_ctl is None:
+            raise RuntimeError(
+                "this batcher has no mesh control surface; construct it "
+                "through Engine.continuous/paged_continuous with the "
+                "target topology in EngineConfig.mesh/meshes."
+            )
+        if self._inflight:
+            self._backlog.extend(self._commit_pending(now))
+        nm, self._cache, self._draft_cache = self._mesh_ctl(
+            name, self._cache, self._draft_cache, **self._mesh_hot()
+        )
+        if nm != self.mesh:
+            self.mesh = nm
+            leaf = self._cache[0]
+            self.device = leaf[next(iter(leaf))].device
+            self._mirror.invalidate(self.device)
+            self._lane_hist = {}  # new handles carry the new mesh label
+            self._rebind_step()
+        return nm
+
+    def _mesh_hot(self) -> dict:
+        """The batcher's bucket state for ``mesh_ctl``'s hot key (the paged
+        engine adds its pages bucket)."""
+        return {}
+
+    def _rebind_step(self) -> None:
+        """Re-fetch a bound decode target under the new mesh binding (the
+        paged engine dispatches per step and stores none)."""
+
     def attach_watchdog(self, watchdog, on_straggler=None) -> None:
         """Wire a ``ft.failover.StepTimeWatchdog`` into the step loop:
         every ``step()`` observes its wall time; a flagged straggler emits
@@ -1728,9 +1811,16 @@ class ContinuousBatcher(_MultiLaneMixin):
         async_steps: bool = False,
         async_depth: int = 2,
         storage: Any = None,
+        token_budget: int = 0,
+        mesh: str = "1x1",
+        mesh_ctl: Callable | None = None,
+        step_dispatch: Callable[[], Callable] | None = None,
     ):
+        self.mesh = mesh  # before telemetry: lane histograms carry it
+        self._mesh_ctl = mesh_ctl
         self._init_slots(num_slots, device, seed, telemetry)
         self._step = step
+        self._step_dispatch = step_dispatch
         self.max_len = max_len
         self._cache = cache  # the engine's dense cache, updated in place
         self.stats = BatcherStats(registry=self.telemetry.registry)
@@ -1746,7 +1836,15 @@ class ContinuousBatcher(_MultiLaneMixin):
             async_steps=async_steps,
             async_depth=async_depth,
             storage=storage,
+            token_budget=token_budget,
         )
+
+    def _rebind_step(self) -> None:
+        """The dense batcher holds its decode target bound; after a mesh
+        flip the engine's closure fetches the new mesh's (``mesh_ctl``'s
+        ``set_direction`` already flipped the hot slot: a table read)."""
+        if self._step_dispatch is not None:
+            self._step = self._step_dispatch()
 
     # ------------------------------------------------------------- cold path
     def admit(self, requests: Iterable[Request], now: float = 0.0) -> int:
@@ -1924,6 +2022,15 @@ class PagedContinuousBatcher(_MultiLaneMixin):
     exhaustion idle cached pages are evicted first, then the lowest-priority
     active request is preempted (its pages recycle; it re-queues and
     restarts) — admission never hard-rejects a request that can fit.
+
+    Disaggregated (DESIGN.md §17; the engine passes ``pf_pool``,
+    ``pf_cache``, ``transport`` and ``disagg_ctl``), a prefilling slot
+    writes a shadow block table in the prefill slice's own pool: its
+    adopted prefix pages are copied there at admission, its chunks run on
+    the prefill slice, and at the PREFILL -> DECODE flip its fresh pages
+    migrate to the decode pool (``kvcache.migrate_pages`` for the ids, the
+    ``mg`` targets for the contents) before the prompt is published to the
+    prefix trie. ``set_disagg`` splits or collapses mid-stream.
     """
 
     _decode_lane = "cbp"
@@ -1953,7 +2060,18 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         async_steps: bool = False,
         async_depth: int = 2,
         storage: Any = None,
+        token_budget: int = 0,
+        mesh: str = "1x1",
+        mesh_ctl: Callable | None = None,
+        pf_pool=None,
+        pf_cache: Any = None,
+        pf_device: torch.device | str | None = None,
+        transport: Callable | None = None,
+        disagg_ctl: Callable | None = None,
+        disagg: bool = False,
     ):
+        self.mesh = mesh  # before telemetry: lane histograms carry it
+        self._mesh_ctl = mesh_ctl
         self._init_slots(num_slots, device, seed, telemetry)
         self._dispatch = dispatch_fn
         self.pool = pool
@@ -1974,6 +2092,21 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         self.preempted: list[Request] = []
         self.rejected: list[Request] = []  # oversized: can never be seated
         self._starved_rids: set[int] = set()
+        # Disaggregated prefill/decode (DESIGN.md §17): the prefill slice's
+        # pool and cache, the page transport and the split/collapse rebind
+        # (engine-wired; None without ``disagg``). ``self.disagg`` is the
+        # current mode. Per slot: the shadow table a prefilling slot writes
+        # on the prefill slice, and how many of its leading pages are copies
+        # of decode-resident pages (dropped, not migrated, at the flip).
+        self.pf_pool = pf_pool
+        self._pf_cache = pf_cache
+        self._pf_device = torch.device(pf_device or self.device)
+        self._transport = transport
+        self._pf_staged: dict[str, tuple[np.ndarray, torch.Tensor]] = {}
+        self._disagg_ctl = disagg_ctl
+        self.disagg = bool(disagg) and disagg_ctl is not None
+        self._pf_tables: dict[int, BlockTable] = {}
+        self._pf_keep: dict[int, int] = {}
         self.stats = PagedBatcherStats(registry=self.telemetry.registry)
         self._mirror = _DeviceMirror(self.stats, self.device)
         self._init_lanes(
@@ -1987,6 +2120,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             async_steps=async_steps,
             async_depth=async_depth,
             storage=storage,
+            token_budget=token_budget,
         )
 
     # ------------------------------------------------------------ properties
@@ -2007,6 +2141,11 @@ class PagedContinuousBatcher(_MultiLaneMixin):
 
     def live_tables(self):
         return [t for t in self._tables if t is not None]
+
+    def _mesh_hot(self) -> dict:
+        """The paged decode key carries the pages bucket: ``mesh_ctl``
+        flips the hot slot to the same bucket on the new mesh."""
+        return {"pages_bucket": self._pages_bucket}
 
     def _preload_step_inputs(self) -> None:
         super()._preload_step_inputs()
@@ -2050,6 +2189,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
 
     def _preempt_slot(self, s: int) -> None:
         req = self._slots[s]
+        self._drop_pf_state(s)
         self._tables[s].release()
         self._tables[s] = None
         self._slots[s] = None
@@ -2108,28 +2248,38 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             matched = usable * self.pool.page_size
             table = BlockTable(pool=self.pool, pages=pages, num_tokens=matched)
             # first private page: the one the re-fed prompt token writes into
-            if not self._reclaim_pages(1, req.priority) or (
+            starved = not self._reclaim_pages(1, req.priority) or (
                 not table.ensure_capacity(matched)
-            ):
+            )
+            # PREFILL when more than the re-fed last token remains to ingest
+            # and a chunked lane exists; otherwise straight to DECODE
+            # (token-by-token forcing handles any prompt remainder there)
+            will_prefill = self.prefill_chunk > 0 and len(prompt) - matched > 1
+            s = free[0]
+            if not starved and self.disagg and will_prefill:
+                # disaggregated chunks run on the prefill slice: copy the
+                # adopted prefix pages there, and drop the just-ensured
+                # private decode page (every page the prefill lane writes
+                # reaches the decode pool by migration at the flip)
+                if self._make_pf_shadow(s, table):
+                    table.trim(len(pages))
+                else:
+                    starved = True
+            if starved:
                 table.release()
                 if req.rid not in self._starved_rids:  # count requests once
                     self._starved_rids.add(req.rid)
                     self.stats.starved_admissions += 1
                 deferred.append(req)
                 continue
-            s = free.pop(0)
+            free.pop(0)  # == s, peeked above
             self._slots[s] = req
             self._tables[s] = table
             self._cursor[s] = matched
             self._tok[s, 0] = prompt[matched]
             self._pos[s] = matched
             self._active[s] = True
-            # PREFILL when more than the re-fed last token remains to ingest
-            # and a chunked lane exists; otherwise straight to DECODE
-            # (token-by-token forcing handles any prompt remainder there)
-            self._prefilling[s] = (
-                self.prefill_chunk > 0 and len(prompt) - matched > 1
-            )
+            self._prefilling[s] = will_prefill
             self._temps[s] = req.temperature
             self._greedy[s] = req.greedy
             self._keys[s] = self._draw_keys(2)
@@ -2180,6 +2330,135 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         self._tables_changed()  # COW swapped a page id in some table
         self._cache = self._cache_copy(self._cache, src, dst)
 
+    # ----------------------------- disaggregated prefill/decode (§17)
+    def _pf_stage(self, name: str, host: np.ndarray) -> torch.Tensor:
+        """Upload ``host`` to the prefill slice, memoised by content: the
+        per-slot sampling state changes rarely between chunk steps, so the
+        steady state uploads nothing new."""
+        hit = self._pf_staged.get(name)
+        if hit is not None and np.array_equal(hit[0], host):
+            return hit[1]
+        dev = _upload(host, self._pf_device)
+        self._pf_staged[name] = (np.array(host, copy=True), dev)
+        self.stats.h2d_uploads += 1
+        return dev
+
+    def _make_pf_shadow(self, s: int, table: BlockTable, n: int | None = None,
+                        keep: int | None = None) -> bool:
+        """Give slot ``s`` a prefill-slice shadow of the first ``n`` pages
+        of its decode-side ``table`` (default: its full adopted prefix
+        pages): twins in the prefill pool, their contents copied across, so
+        the chunk steps attend the prefix without touching the decode
+        slice. ``keep`` of the leading shadow pages are never written on
+        the prefill slice and are dropped, not migrated, at the flip
+        (default all ``n``; a mid-prefill split passes fewer: its partly
+        written boundary page keeps being written there). False = the
+        prefill pool is dry."""
+        if n is None:
+            n = table.num_tokens // self.pool.page_size
+        if keep is None:
+            keep = n
+        pages: list[int] = []
+        for _ in range(n):
+            pid = self.pf_pool.alloc()
+            if pid is None:
+                for p in pages:
+                    self.pf_pool.decref(p)
+                return False
+            pages.append(pid)
+        if pages:
+            self._transport(self._cache, self._pf_cache, table.pages[:n],
+                            pages, to_prefill=True)
+        self._pf_tables[s] = BlockTable(
+            pool=self.pf_pool, pages=pages, num_tokens=table.num_tokens,
+        )
+        self._pf_keep[s] = keep
+        self.stats.pf_shadow_pages += n
+        return True
+
+    def _migrate_back(self, s: int) -> bool:
+        """Land slot ``s``'s freshly written prefill-slice pages in the
+        decode pool and fold them into its table: the KV handoff of the
+        PREFILL -> DECODE flip (and of a collapse). The ids move by
+        ``kvcache.migrate_pages`` (refcounts conserved), the contents by the
+        engine's transport. The leading ``_pf_keep`` shadow pages copy
+        pages the table still holds and are dropped; a partly written
+        boundary page (a mid-prefill split) migrates back and replaces its
+        stale decode twin (``trim``). False = the decode pool could not
+        take the pages and the slot was preempted."""
+        pf_t = self._pf_tables.pop(s)
+        keep = self._pf_keep.pop(s, 0)
+        base = self._tables[s]
+        req = self._slots[s]
+        fresh = pf_t.pages[keep:]
+        if fresh:
+            if not self._reclaim_pages(len(fresh), req.priority):
+                pf_t.release()
+                self._preempt_slot(s)
+                return False
+            mapping = migrate_pages(self.pf_pool, self.pool, fresh)
+            dst = [mapping[p] for p in fresh]
+            self._transport(self._pf_cache, self._cache, fresh, dst)
+            base.trim(keep)  # the stale twin of the boundary page, if any
+            base.pages.extend(dst)  # the import carried the refcounts
+            self.stats.migrations += 1
+            self.stats.migrated_pages += len(fresh)
+            # the exported ids already left the prefill pool: drop them
+            # without a decref, so release() returns only the kept shadows
+            del pf_t.pages[keep:]
+        base.num_tokens = int(self._cursor[s])
+        pf_t.release()
+        self._tables_changed()
+        return True
+
+    def _drop_pf_state(self, s: int) -> None:
+        """Slot ``s`` is leaving (preempt, cancel, finish): return its
+        prefill-slice shadow pages, if it still holds any."""
+        pf_t = self._pf_tables.pop(s, None)
+        if pf_t is not None:
+            pf_t.release()
+        self._pf_keep.pop(s, None)
+
+    def set_disagg(self, on: bool, now: float = 0.0) -> bool:
+        """Cold-path split/collapse (DESIGN.md §17): switch between
+        disaggregated prefill/decode and shared-mesh serving mid-stream.
+        Both prefill bindings are warmed, so — like ``set_mesh`` and
+        ``set_knobs`` — this is a rebind, never a capture; the decode lane's
+        binding never moves. Parked steps commit first. Splitting gives
+        every mid-prefill slot a shadow of its written pages on the
+        prefill slice (its next chunk runs there); collapsing migrates the
+        fresh prefill-slice pages back and prefill continues on the decode
+        mesh. Returns the mode now active."""
+        if self._disagg_ctl is None:
+            raise RuntimeError(
+                "this batcher has no disaggregation surface; construct it "
+                "through Engine.paged_continuous(disagg=...)."
+            )
+        on = bool(on)
+        if on == self.disagg:
+            return on
+        if self._inflight:
+            self._backlog.extend(self._commit_pending(now))
+        ps = self.pool.page_size
+        if on:
+            for s, req in enumerate(self._slots):
+                if req is None or not self._active[s] or not self._prefilling[s]:
+                    continue
+                table = self._tables[s]
+                if not self._make_pf_shadow(s, table, n=table.num_pages,
+                                            keep=table.num_tokens // ps):
+                    self._preempt_slot(s)  # the prefill slice can't hold it
+        else:
+            for s in list(self._pf_tables):
+                if s in self._pf_tables:  # a reclaim may have preempted it
+                    self._migrate_back(s)
+        self.disagg = on
+        self._lane_policy.decoupled = on
+        self._disagg_ctl(on)
+        if self._trace is not None:
+            self._trace.emit("disagg_flip", "scheduler", args={"on": on})
+        return on
+
     # ------------------------------------------------------- prefill lane
     def _prefill_step(self, now: float, budget: int) -> list[Request]:
         """Ingest chunks for prefilling requests, batched (DESIGN.md §10):
@@ -2189,15 +2468,23 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         windows through per-row block tables, length 0 = idle row, padded
         columns writing only the null page. The flip (prompt done) publishes
         the prompt's full pages to the prefix cache and primes generation
-        with the chunk's last-row sample."""
+        with the chunk's last-row sample. Disaggregated, the call runs on
+        the prefill slice over the slots' shadow tables, and a flip first
+        migrates the prompt's pages to the decode pool."""
         plan = self._plan_chunks(budget)
         for s, cursor, chunk in plan:
             req = self._slots[s]
             if req is None or not self._active[s] or not self._prefilling[s]:
                 continue  # a victim of an earlier reservation's preemption
-            table = self._tables[s]
+            table = self._pf_tables[s] if self.disagg else self._tables[s]
             need = table.page_index(cursor + chunk - 1) + 1 - table.num_pages
             if need <= 0:
+                continue
+            if self.disagg:
+                # prefill-slice growth draws on the prefill pool alone: it
+                # has no trie to evict and no decode tenants to preempt
+                if not table.ensure_capacity(cursor + chunk - 1):
+                    self._preempt_slot(s)
                 continue
             self._tables_changed()
             if not self._reclaim_pages(need, req.priority) or (
@@ -2223,30 +2510,44 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             prompt = self._slots[s].effective_prompt
             tok[s, :chunk] = prompt[cursor : cursor + chunk]
             length[s] = chunk
-            table = self._tables[s]
+            table = self._pf_tables[s] if self.disagg else self._tables[s]
             bt[s, : table.num_pages] = table.pages
         park = self._parks(kept)
         # chunk inputs are per-chunk data, uploaded raw (the keys too,
         # unless a parked predecessor's split is still on the device)
         self.stats.prefill_calls += 1
         self.stats.note_lane(self._prefill_lane)
-        self.stats.h2d_uploads += 4 if park else 5
-        tok_dev = self._upload(tok, ins[0])
-        start_dev = self._upload(self._pos, ins[1])
-        length_dev = self._upload(length, ins[3])
-        keys_dev = (self._mirror.get("keys", self._keys_i32, ins[6]) if park
-                    else self._upload(self._keys_i32, ins[6]))
+        if self.disagg:
+            # straight to the prefill slice; the slow-moving sampling state
+            # is staged there and uploaded again only when it changes
+            dev = self._pf_device
+            self.stats.h2d_uploads += 5
+            tok_dev = _upload(tok, dev, ins[0])
+            start_dev = _upload(self._pos, dev, ins[1])
+            bt_dev = _upload(bt, dev, ins[2])
+            length_dev = _upload(length, dev, ins[3])
+            temps_dev = self._pf_stage("temps", self._temps)
+            greedy_dev = self._pf_stage("greedy", self._greedy)
+            keys_dev = _upload(self._keys_i32, dev, ins[6])
+            cache_in = self._pf_cache
+        else:
+            self.stats.h2d_uploads += 4 if park else 5
+            tok_dev = self._upload(tok, ins[0])
+            start_dev = self._upload(self._pos, ins[1])
+            bt_dev = self._upload(bt, ins[2])
+            length_dev = self._upload(length, ins[3])
+            temps_dev = self._mirror.get("temps", self._temps, ins[4])
+            greedy_dev = self._mirror.get("greedy", self._greedy, ins[5])
+            keys_dev = (self._mirror.get("keys", self._keys_i32, ins[6])
+                        if park else self._upload(self._keys_i32, ins[6]))
+            cache_in = self._cache
         t0_ns = time.perf_counter_ns()
-        nxt, self._cache, new_keys, packed = step(
-            self._cache,
-            tok_dev,
-            start_dev,
-            self._upload(bt, ins[2]),
-            length_dev,
-            self._mirror.get("temps", self._temps, ins[4]),
-            self._mirror.get("greedy", self._greedy, ins[5]),
-            keys_dev,
+        nxt, cache_out, new_keys, packed = step(
+            cache_in, tok_dev, start_dev, bt_dev, length_dev, temps_dev,
+            greedy_dev, keys_dev,
         )
+        if not self.disagg:  # the prefill slice's pool is updated in place
+            self._cache = cache_out
         self._lane_tick(self._prefill_lane, t0_ns)
         if park:
             self._park_prefill(kept, new_keys, packed)
@@ -2264,16 +2565,20 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         for s, cursor, chunk in kept:
             req = self._slots[s]
             prompt = req.effective_prompt
-            table = self._tables[s]
             self._keys[s] = nk[s]
             self._chunk_slots.add(s)
             cursor += chunk
             self._cursor[s] = cursor
             self._pos[s] = cursor
-            table.num_tokens = cursor
+            # disaggregated, the shadow tracks the written frontier and the
+            # decode table catches up at the flip's migration
+            (self._pf_tables[s] if self.disagg
+             else self._tables[s]).num_tokens = cursor
             self.stats.prompt_tokens += chunk
             self.stats.prefill_chunks += 1
             if cursor >= len(prompt):  # flip: prompt done, prime generation
+                if self.disagg and not self._migrate_back(s):
+                    continue  # the decode pool balked: the slot was preempted
                 self._tables_changed()  # the decode tables gain this row
                 self._before_emit(s, req)  # publish the prompt's full pages
                 self._prime_first_token(s, req, int(nxt_host[s]), now)
@@ -2329,6 +2634,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
 
     def _release(self, s: int) -> None:
         """A request finished: its pages return to the pool."""
+        self._drop_pf_state(s)
         self._tables[s].release()
         self._tables[s] = None
         self._tables_changed()
@@ -2339,6 +2645,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         table returns its pages to the pool before the host state clears,
         and the packed tables are rebuilt, so no later replay reads a
         freed page."""
+        self._drop_pf_state(s)
         if self._tables[s] is not None:
             self._tables[s].release()
             self._tables[s] = None

@@ -14,14 +14,16 @@ lane, slots and ``chunk_bucket`` for its ``pfd`` prefill lane, slots and
 ``kv_dtype`` for the ``cbp`` decode lane, slots, ``chunk_bucket`` and
 ``kv_dtype`` for the ``pf`` prefill lane, slots, ``k_bucket`` and
 ``kv_dtype`` for the ``vf`` verify lane, slots, ``k_bucket`` /
-``chunk_bucket`` and ``draft_kv_dtype`` for the ``dr``/``drp`` draft lanes —
-with the attention implementation (``EngineConfig.attn_impl``) and a MoE
-stack's dispatch policy (``EngineConfig.moe_policy``) baked in when it is
-built. On the card (``EngineConfig.cuda_graphs``, on by default
-there) a target is a ``core.graph_target.GraphTarget``: the step captured
-once as a CUDA graph over static input and output buffers and over the
-engine's own state — one page pool per page dtype, one dense target cache
-per slot count, one dense draft cache per (slots, draft dtype), one burst
+``chunk_bucket`` and ``draft_kv_dtype`` for the ``dr``/``drp`` draft lanes,
+and ``op`` and ``kv_dtype`` for the ``mg`` page transport; every lane that
+touches a pool ends with its ``mesh`` — with the attention implementation
+(``EngineConfig.attn_impl``) and a MoE stack's dispatch policy
+(``EngineConfig.moe_policy``) baked in when it is built. On the card
+(``EngineConfig.cuda_graphs``, on by default there) a target is a
+``core.graph_target.GraphTarget``: the step captured once as a CUDA graph
+over static input and output buffers and over the engine's own state — one
+page pool per (page dtype, mesh), one dense target cache per (slot count,
+mesh), one dense draft cache per (slots, draft dtype, mesh), one burst
 cache per batch bucket — so taking the
 branch is a copy of the few inputs that changed (none in steady-state
 decode: the next token and position are written back into the graph's own
@@ -66,6 +68,21 @@ sites, a step-count heartbeat and the step-time watchdog. The cold-path
 controller flips which warmed target the hot path runs; the hot path never
 tests "are we overloaded?".
 
+The **mesh coordinate** (DESIGN.md §16-§17): each warmed mesh name
+(``EngineConfig.mesh``/``meshes``) is a cell of its own — its own pools and
+dense caches on its device (``"1x1"`` the engine's, a slice ``"1x1@OFF"``
+``EngineConfig.devices[OFF]``, which may name the same card) and its own
+captured targets — so ``set_mesh`` copies a batcher's live state into the
+target cell and flips the hot slot, never rebinding a captured tensor.
+``paged_continuous(disagg=...)`` splits prefill from decode: the prefill
+lanes run on the prefill slice's pool, and a prompt's pages migrate to the
+decode pool at its flip (the ``mg`` targets). Plans of more than one device
+wait for ROADMAP A12 part 2 and raise ``NotImplementedError``.
+
+With ``Telemetry(compile_analysis=True)`` each build appends the key's
+capture report (``capture_analysis``) with its roofline terms
+(``roofline``).
+
 The engine runs on the card by default (``device="cuda"``) and raises when
 no GPU is present unless the caller passes ``device="cpu"``.
 """
@@ -80,7 +97,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch import models, perf, prng
+from repro_torch import capture_analysis, models, perf, prng, roofline
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import build as kernel_build
 from repro_torch.core import DispatchError, DispatchPolicy, Dispatcher
@@ -89,6 +106,7 @@ from repro_torch.core.graph_target import GraphTarget, check_args
 from repro_torch.core import lanes as lanes_mod
 from repro_torch.core.lanes import LANES
 from repro_torch.core.telemetry import Telemetry
+from repro_torch.distributed import sharding as shd
 from repro_torch.ft.failover import HeartbeatMonitor, StepTimeWatchdog
 from repro_torch.runtime import steps as steps_mod
 from repro_torch.runtime.admission import AdmissionQueue
@@ -107,6 +125,8 @@ from repro_torch.runtime.kvcache import (
 )
 from repro_torch.runtime.scheduler import (
     CHUNK_BUCKET_MIN,
+    _static_inputs,
+    _upload,
     Clock,
     ContinuousBatcher,
     PagedContinuousBatcher,
@@ -171,6 +191,21 @@ class EngineConfig:
     # engine's device is cuda; False keeps the eager steps on the card (the
     # comparison runs); True on a CPU engine raises.
     cuda_graphs: bool | None = None
+    # The continuous batchers' per-step token budget (DESIGN.md §11): 0 =
+    # one per slot plus one full prefill chunk.
+    token_budget: int = 0
+    # The serving mesh (DESIGN.md §16-§17): the active topology and the
+    # standby names to warm, each a trailing key coordinate of every lane
+    # that touches a pool. One-device plans only: "1x1" (the engine's own
+    # device) and slices "1x1@OFF" (``devices[OFF]``); a plan of more than
+    # one device raises NotImplementedError (ROADMAP A12 part 2).
+    mesh: str = "1x1"
+    meshes: tuple = ()
+    # The engine's logical devices, which slices index: () = each visible
+    # device of the engine's type (every CUDA card, or "cpu" once). One
+    # device may be named twice (("cuda:0", "cuda:0") puts both slices of a
+    # split on one card).
+    devices: tuple = ()
 
 
 @dataclass
@@ -182,22 +217,24 @@ class _WarmCtx:
     state)."""
 
     spec: bool = False
+    disagg: bool = False  # the batcher's disaggregation opt-in (§17)
 
 
 class _Owner:
     """A batcher's claim on the engine storage its targets run over: held
     by the batcher (``storage``) and its draft dispatch closures, so it
-    lives as long as the batcher. ``bank`` is its page pool's or dense
-    cache's, claimed at the top of each of its steps (the draft cache's is
-    claimed where a draft lane is dispatched). ``mirror`` is the batcher's
+    lives as long as the batcher. ``banks`` are its page pool's (both
+    slices' pools under disaggregation) or dense cache's, claimed at the top
+    of each of its steps (the draft cache's is claimed where a draft lane is
+    dispatched). ``mirror`` is the batcher's
     device mirror (``scheduler._DeviceMirror``, set by the batcher),
     detached whenever another batcher's calls, or a new batcher's warmup,
     are about to replay targets whose static inputs it may hold."""
 
-    __slots__ = ("bank", "mirror", "__weakref__")
+    __slots__ = ("banks", "mirror", "__weakref__")
 
     def __init__(self) -> None:
-        self.bank: _StorageBank | None = None
+        self.banks: list[_StorageBank] = []
         self.mirror = None
 
     def detach(self) -> None:
@@ -205,8 +242,9 @@ class _Owner:
             self.mirror.detach()
 
     def claim(self) -> None:
-        """Put this batcher's state back into its pool or dense cache."""
-        self.bank.claim(self)
+        """Put this batcher's state back into its pools or dense cache."""
+        for bank in self.banks:
+            bank.claim(self)
 
 
 class _StorageBank:
@@ -265,6 +303,13 @@ class _StorageBank:
         _copy_cache(self.cache, self._parked[owner])
         self.seat(owner)
 
+    def leave(self, owner: _Owner) -> None:
+        """``owner`` moved its state to another set (a mesh rebind): it is
+        resident here no more and keeps no parked copy."""
+        if self._resident() is owner:
+            self._owner = None
+        self._parked.pop(owner, None)
+
 
 def _copy_cache(dst: list, src: list) -> None:
     for d, s in zip(dst, src):
@@ -298,8 +343,8 @@ class _GraphStep:
 
 
 class Engine:
-    """Single-device engine: the per-burst engine and the dense and paged
-    serving lanes."""
+    """The per-burst engine and the dense and paged serving lanes, on one
+    device or on one-device mesh slices of the engine's devices."""
 
     def __init__(
         self,
@@ -362,12 +407,18 @@ class Engine:
         )
         self._current: Callable | None = None  # mirror of the hot slot
         self.stats = {"tokens": 0, "hot_calls": 0, "mode_switches": 0}
+        # mesh plans by name, and the weights per mesh device (§16-§17)
+        self._mesh_plans: dict[str, shd.MeshPlan] = {}
+        self._mesh_params: dict = {}
+        self._last_target = None  # the capture report's input (_build)
         # the engine's own state, which graph targets are captured over
-        self._paged_caches: dict = {}  # kv_dtype -> page pool
-        self._dense_caches: dict = {}  # slots -> dense target cache
-        self._draft_caches: dict = {}  # (slots, draft dtype) -> dense cache
-        # whose state each of those tensor sets holds (C13):
-        # ("paged", dtype) / ("dense", slots) / ("draft", slots, dtype)
+        self._paged_caches: dict = {}  # (kv_dtype, mesh) -> page pool
+        self._dense_caches: dict = {}  # (slots, mesh) -> dense target cache
+        # (slots, draft dtype, mesh) -> dense draft cache
+        self._draft_caches: dict = {}
+        # whose state each of those tensor sets holds (C13): ("paged",
+        # dtype, mesh) / ("dense", slots, mesh) / ("draft", slots, dtype,
+        # mesh)
         self._banks: dict = {}
         self._owners: weakref.WeakSet = weakref.WeakSet()  # live batchers
         self._burst_caches: dict = {}  # batch bucket -> dense cache
@@ -390,23 +441,119 @@ class Engine:
     def _build(self, key: tuple) -> Callable:
         """Dispatcher builder: the key's lane resolves to its ``LaneSpec``,
         whose ``builder`` hook returns the branch target. An unregistered
-        lane or malformed key raises ``UnknownLaneError`` here."""
+        lane or malformed key raises ``UnknownLaneError`` here. With
+        ``Telemetry.compile_analysis`` on, the key's capture report
+        (``capture_analysis.analyze_target``: one counted eager run of the
+        step on the key's shapes, after the build) is appended to
+        ``telemetry.compile_reports`` with the build (on the card: capture)
+        time as ``build_ms`` and the key's roofline terms (DESIGN.md §14)."""
         spec = LANES.spec_for(key)
-        return getattr(self, spec.builder)(*spec.coords(key))
+        if not self.telemetry.compile_analysis:
+            return getattr(self, spec.builder)(*spec.coords(key))
+        self._last_target = None
+        t0 = time.perf_counter()
+        exe = getattr(self, spec.builder)(*spec.coords(key))
+        build_ms = (time.perf_counter() - t0) * 1e3
+        rep = self._capture_report()
+        rep["key"] = str(key)
+        rep["lane"] = spec.name
+        rep["build_ms"] = round(build_ms, 3)
+        self.telemetry.compile_reports.append(rep)
+        return exe
+
+    def _capture_report(self) -> dict:
+        """The last built target's capture report and its roofline terms:
+        ``model_flops`` = its flops, ``min_bytes_global`` = the weights plus
+        the key's cache extent, one chip. A failure is an ``{"error": ...}``
+        report, never a failed build."""
+        last = self._last_target
+        if last is None:
+            return {"error": "no target was built"}
+        step, params, cache, args, extent = last
+        rep = capture_analysis.analyze_target(step, params, cache, *args)
+        if "error" in rep:
+            return rep
+        rep["cache_extent_bytes"] = extent
+        rep["param_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in params.values())
+        rep["roofline"] = roofline.roofline_terms({
+            "flops_per_device": rep["flops"],
+            "bytes_per_device": rep["bytes"],
+            "collective_bytes_per_device": rep["collectives"],
+            "chips": 1,
+            "model_flops": rep["flops"],
+            "min_bytes_global": rep["param_bytes"] + extent,
+        }, dtype=dtype_of(self.cfg))
+        return rep
+
+    # ------------------------------------------------------- mesh plans
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        """The engine's logical devices (``EngineConfig.devices``; default
+        each visible device of the engine's type)."""
+        if self.ecfg.devices:
+            devs = tuple(torch.device(d) for d in self.ecfg.devices)
+        elif self.device.type == "cuda":
+            devs = tuple(torch.device("cuda", i)
+                         for i in range(torch.cuda.device_count()))
+        else:
+            devs = (torch.device("cpu"),)
+        for d in devs:
+            if d.type != self.device.type:
+                raise ValueError(
+                    f"EngineConfig.devices: {d} is not a {self.device.type} "
+                    f"device, as the engine's {self.device} is"
+                )
+        return devs
+
+    def _mesh_plan(self, name: str) -> shd.MeshPlan:
+        """The plan of a mesh name, checked where an engine warms or binds
+        it: a slice past ``devices`` raises ``ValueError``, a plan of more
+        than one device ``NotImplementedError``."""
+        nm = shd.mesh_name(*shd.parse_slice_name(name))
+        plan = self._mesh_plans.get(nm)
+        if plan is None:
+            plan = shd.MeshPlan(nm, self.devices)
+            plan.device  # noqa: B018 - the checks above
+            self._mesh_plans[nm] = plan
+        return plan
+
+    def _mesh_device(self, mesh: str) -> torch.device:
+        """The device a mesh's targets and storage live on: the engine's
+        own for ``"1x1"``, ``devices[OFF]`` for a slice ``"1x1@OFF"``."""
+        plan = self._mesh_plan(mesh)
+        return self.device if plan.single else plan.device
+
+    def _params_for_mesh(self, mesh: str, *, draft: bool = False) -> dict:
+        """The weights as a mesh's targets take them, moved to its device
+        once (``.to()`` onto the engine's own device returns each tensor
+        itself, so a slice on the same card shares the weights)."""
+        base = self.draft_params if draft else self.params
+        dev = self._mesh_device(mesh)
+        key = (str(dev), draft)
+        hit = self._mesh_params.get(key)
+        if hit is None:
+            hit = self._mesh_params[key] = {
+                k: v.to(dev) for k, v in base.items()
+            }
+        return hit
 
     def _target(
         self, key: tuple, step: Callable, rows: dict, cache: list,
-        cache_dtype: torch.dtype, *, params: dict | None = None,
-        chain: dict | None = None,
+        cache_dtype: torch.dtype, *, mesh: str = "1x1", draft: bool = False,
+        chain: dict | None = None, extent: int = 0,
     ) -> Callable:
-        """A key's branch target: ``step`` bound to its weights (``params``,
-        default the target's), to ``rows`` (name -> (shape, dtype) of each
-        input after the cache) and to the cache dtype, called as
-        ``target(cache, *rows)``. A call with another shape, dtype or
-        device, or another cache dtype, is a dispatch bug and raises (the
-        aval guard of a compiled executable). With graphs it is captured
-        over ``cache`` (the engine's own), with ``chain`` mapping outputs to
-        the inputs they feed (the next token, positions and keys).
+        """A key's branch target: ``step`` bound to its weights (the
+        target's, or the draft view's with ``draft``, on the mesh's
+        device), to ``rows`` (name -> (shape, dtype) of each input after
+        the cache) and to the cache dtype, called as ``target(cache,
+        *rows)``. A call with another shape, dtype or device, or another
+        cache dtype, is a dispatch bug and raises (the aval guard of a
+        compiled executable). With graphs it is captured over ``cache``
+        (the engine's own), with ``chain`` mapping outputs to the inputs
+        they feed (the next token, positions and keys). ``extent`` is the
+        bytes of ``cache`` the key's shapes address (its capture report's
+        roofline floor).
 
         The target runs under the ``perf`` opts current when it is built,
         on every call (semi-static, as a traced step): with
@@ -415,16 +562,19 @@ class Engine:
         if self.ecfg.attn_impl == "kernel" and self.cfg.has_attention:
             perf.check_kernel_opts(f"{key}: attn_impl='kernel'")
         step = perf.bake(step)
-        params = self.params if params is None else params
+        device = self._mesh_device(mesh)
+        params = self._params_for_mesh(mesh, draft=draft)
         specs = [(n, tuple(shape), dt) for n, (shape, dt) in rows.items()]
-        if not self.graphs:
-            return self._guarded(step, specs, cache_dtype, params)
         examples = [
-            torch.ones(shape, dtype=dt, device=self.device)
+            torch.ones(shape, dtype=dt, device=device)
             if dt.is_floating_point
-            else torch.zeros(shape, dtype=dt, device=self.device)
+            else torch.zeros(shape, dtype=dt, device=device)
             for _, shape, dt in specs
         ]
+        if self.telemetry.compile_analysis:
+            self._last_target = (step, params, cache, examples, extent)
+        if not self.graphs:
+            return self._guarded(step, specs, cache_dtype, params, device)
         names = [n for n, _, _ in specs]
         graph = GraphTarget(
             lambda *ins: step(params, cache, *ins), examples, owned=cache,
@@ -434,10 +584,9 @@ class Engine:
 
     def _guarded(
         self, step: Callable, specs: list, cache_dtype: torch.dtype,
-        params: dict,
+        params: dict, device: torch.device,
     ) -> Callable:
         """The eager target (CPU, or ``cuda_graphs=False``)."""
-        device = self.device
 
         def target(cache, *args):
             # the K/V rows or pages, or a mamba slot's conv window
@@ -459,6 +608,17 @@ class Engine:
             )
         return torch.int8 if kv_dtype == "int8" else dtype_of(cfg)
 
+    @staticmethod
+    def _extent(cache: list, pages: int | None = None) -> int:
+        """Bytes of a cache a key's shapes address: ``pages`` pages of
+        every leaf of a pool (page axis 1), or the whole of a dense cache."""
+        total = 0
+        for layer in cache:
+            for t in layer.values():
+                n = t.numel() * t.element_size()
+                total += n if pages is None else n // t.shape[1] * pages
+        return total
+
     def _build_burst_decode(self, batch: int, mode: int) -> Callable:
         """Branch target for ``("burst", batch_bucket, mode)``: a dense-cache
         decode step over the whole bucket at one position, with the sampling
@@ -472,12 +632,14 @@ class Engine:
         )
         i32 = torch.int32
         tokens = self.cfg.input_kind == "tokens"
+        cache = self.burst_cache(batch)
         return self._target(
             lanes_mod.BURST.key(batch, mode), step,
             {"tok": self._burst_input(batch), "pos": ((), i32),
              "key": ((2,), i32)},
-            self.burst_cache(batch), dtype_of(self.cfg),
+            cache, dtype_of(self.cfg),
             chain={2: 0, 3: 1} if tokens else {3: 1},
+            extent=self._extent(cache),
         )
 
     def _burst_input(self, batch: int) -> tuple:
@@ -488,27 +650,30 @@ class Engine:
             return (batch, 1), torch.int32
         return (batch, 1, self.cfg.d_model), dtype_of(self.cfg)
 
-    def _build_slot_decode(self, slots: int) -> Callable:
-        """Branch target for ``("cb", slots)``: the dense continuous decode
-        step over the engine's dense cache of ``slots`` rows, every slot at
-        its own position, sampling params as data (DESIGN.md §4). The next
-        token, positions and keys feed its next call."""
+    def _build_slot_decode(self, slots: int, mesh: str = "1x1") -> Callable:
+        """Branch target for ``("cb", slots, mesh)``: the dense continuous
+        decode step over the engine's dense cache of ``slots`` rows on
+        ``mesh``, every slot at its own position, sampling params as data
+        (DESIGN.md §4). The next token, positions and keys feed its next
+        call."""
         step = steps_mod.make_slot_decode_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
         )
         i32 = torch.int32
+        cache = self.dense_cache(slots, mesh)
         return self._target(
-            lanes_mod.CB.key(slots), step, {
+            lanes_mod.CB.key(slots, mesh), step, {
                 "tok": ((slots, 1), i32), "pos": ((slots,), i32),
                 "active": ((slots,), torch.bool),
                 **self._sampling_rows(slots),
-            }, self.dense_cache(slots), dtype_of(self.cfg),
-            chain={4: 0, 2: 1, 3: 5},
+            }, cache, dtype_of(self.cfg), mesh=mesh,
+            chain={4: 0, 2: 1, 3: 5}, extent=self._extent(cache),
         )
 
-    def _build_slot_prefill(self, slots: int, chunk_bucket: int) -> Callable:
-        """Branch target for ``("pfd", slots, chunk_bucket)``: batched
+    def _build_slot_prefill(self, slots: int, chunk_bucket: int,
+                            mesh: str = "1x1") -> Callable:
+        """Branch target for ``("pfd", slots, chunk_bucket, mesh)``: batched
         chunked prefill into the dense cache (DESIGN.md §10) — a slot's rows
         are a trivial identity block table, so the chunk-bucket machinery of
         the paged lane serves both engines."""
@@ -516,48 +681,56 @@ class Engine:
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
         )
+        cache = self.dense_cache(slots, mesh)
         return self._target(
-            lanes_mod.PFD.key(slots, chunk_bucket), step,
-            self._dense_chunk_rows(slots, chunk_bucket),
-            self.dense_cache(slots), dtype_of(self.cfg), chain={2: 5},
+            lanes_mod.PFD.key(slots, chunk_bucket, mesh), step,
+            self._dense_chunk_rows(slots, chunk_bucket), cache,
+            dtype_of(self.cfg), mesh=mesh, chain={2: 5},
+            extent=self._extent(cache),
         )
 
-    def _build_slot_verify(self, slots: int, k: int) -> Callable:
-        """Branch target for ``("vfd", slots, k)``: the dense verify pass
-        (DESIGN.md §11), K+1 window rows through the dense chunk path."""
+    def _build_slot_verify(self, slots: int, k: int,
+                           mesh: str = "1x1") -> Callable:
+        """Branch target for ``("vfd", slots, k, mesh)``: the dense verify
+        pass (DESIGN.md §11), K+1 window rows through the dense chunk
+        path."""
         step = steps_mod.make_slot_verify_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
         )
+        cache = self.dense_cache(slots, mesh)
         return self._target(
-            lanes_mod.VFD.key(slots, k), step,
-            self._dense_chunk_rows(slots, k + 1), self.dense_cache(slots),
-            dtype_of(self.cfg), chain={3: 5},
+            lanes_mod.VFD.key(slots, k, mesh), step,
+            self._dense_chunk_rows(slots, k + 1), cache,
+            dtype_of(self.cfg), mesh=mesh, chain={3: 5},
+            extent=self._extent(cache),
         )
 
     def _build_paged_slot_decode(
-        self, slots: int, pages_bucket: int, kv_dtype: str
+        self, slots: int, pages_bucket: int, kv_dtype: str, mesh: str = "1x1"
     ) -> Callable:
-        """Branch target for ``("cbp", slots, pages_bucket, kv_dtype)``:
-        capacity is a semi-static condition (DESIGN.md §9) — the block
-        table's width is part of the target's shapes, and outgrowing the
-        bucket re-dispatches on the cold path; the page dtype is another
-        (DESIGN.md §12), so model-dtype and int8 pools are two targets. The
-        next token, positions and keys feed its next call."""
+        """Branch target for ``("cbp", slots, pages_bucket, kv_dtype,
+        mesh)``: capacity is a semi-static condition (DESIGN.md §9) — the
+        block table's width is part of the target's shapes, and outgrowing
+        the bucket re-dispatches on the cold path; the page dtype is another
+        (DESIGN.md §12), so model-dtype and int8 pools are two targets, and
+        the mesh a third (DESIGN.md §16). The next token, positions and keys
+        feed its next call."""
         step = steps_mod.make_paged_slot_decode_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
         )
         i32 = torch.int32
+        cache = self.paged_cache(kv_dtype, mesh)
         return self._target(
-            lanes_mod.CBP.key(slots, pages_bucket, kv_dtype), step, {
+            lanes_mod.CBP.key(slots, pages_bucket, kv_dtype, mesh), step, {
                 "tok": ((slots, 1), i32), "pos": ((slots,), i32),
                 "block_tables": ((slots, pages_bucket), i32),
                 "active": ((slots,), torch.bool),
                 **self._sampling_rows(slots),
-            }, self.paged_cache(kv_dtype),
-            self._kv_torch_dtype(kv_dtype, self.cfg),
+            }, cache, self._kv_torch_dtype(kv_dtype, self.cfg), mesh=mesh,
             chain={4: 0, 2: 1, 3: 6},
+            extent=self._extent(cache, slots * pages_bucket),
         )
 
     @staticmethod
@@ -585,108 +758,154 @@ class Engine:
         }
 
     def _build_paged_prefill(
-        self, slots: int, chunk_bucket: int, kv_dtype: str
+        self, slots: int, chunk_bucket: int, kv_dtype: str, mesh: str = "1x1"
     ) -> Callable:
-        """Branch target for ``("pf", slots, chunk_bucket, kv_dtype)``:
-        batched chunked prefill (DESIGN.md §10). The chunk width is part of
-        the shapes; the block table is pinned at the per-request page cap."""
+        """Branch target for ``("pf", slots, chunk_bucket, kv_dtype,
+        mesh)``: batched chunked prefill (DESIGN.md §10). The chunk width is
+        part of the shapes; the block table is pinned at the per-request
+        page cap. Under disaggregation (§17) the batcher dispatches it on
+        the prefill slice's mesh, over that slice's pool."""
         step = steps_mod.make_paged_prefill_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
         )
+        cache = self.paged_cache(kv_dtype, mesh)
         return self._target(
-            lanes_mod.PF.key(slots, chunk_bucket, kv_dtype), step,
-            self._chunk_rows(slots, chunk_bucket), self.paged_cache(kv_dtype),
-            self._kv_torch_dtype(kv_dtype, self.cfg), chain={2: 6},
+            lanes_mod.PF.key(slots, chunk_bucket, kv_dtype, mesh), step,
+            self._chunk_rows(slots, chunk_bucket), cache,
+            self._kv_torch_dtype(kv_dtype, self.cfg), mesh=mesh, chain={2: 6},
+            extent=self._extent(cache, slots * self.max_pages_per_req),
         )
 
-    def _build_paged_verify(self, slots: int, k: int, kv_dtype: str) -> Callable:
-        """Branch target for ``("vf", slots, k, kv_dtype)``: the target
-        scores all K+1 window positions in one pass through the paged chunk
-        path (DESIGN.md §11). The window width k+1 is part of the shapes;
-        the block table is pinned at the per-request page cap."""
+    def _build_paged_verify(self, slots: int, k: int, kv_dtype: str,
+                            mesh: str = "1x1") -> Callable:
+        """Branch target for ``("vf", slots, k, kv_dtype, mesh)``: the
+        target scores all K+1 window positions in one pass through the paged
+        chunk path (DESIGN.md §11). The window width k+1 is part of the
+        shapes; the block table is pinned at the per-request page cap."""
         step = steps_mod.make_paged_verify_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
         )
+        cache = self.paged_cache(kv_dtype, mesh)
         return self._target(
-            lanes_mod.VF.key(slots, k, kv_dtype), step,
-            self._chunk_rows(slots, k + 1), self.paged_cache(kv_dtype),
-            self._kv_torch_dtype(kv_dtype, self.cfg), chain={3: 6},
+            lanes_mod.VF.key(slots, k, kv_dtype, mesh), step,
+            self._chunk_rows(slots, k + 1), cache,
+            self._kv_torch_dtype(kv_dtype, self.cfg), mesh=mesh, chain={3: 6},
+            extent=self._extent(cache, slots * self.max_pages_per_req),
         )
 
-    def _build_draft(self, slots: int, k: int, draft_kv_dtype: str) -> Callable:
-        """Branch target for ``("dr", slots, k, draft_kv_dtype)``: K draft
-        decode steps looped inside one target (DESIGN.md §11), so depth
-        variation re-dispatches on the cold path; the draft cache's dtype is
-        its own coordinate (DESIGN.md §16). Its keys are the batcher's,
-        split and discarded (``steps.make_draft_fn``)."""
+    def _build_draft(self, slots: int, k: int, draft_kv_dtype: str,
+                     mesh: str = "1x1") -> Callable:
+        """Branch target for ``("dr", slots, k, draft_kv_dtype, mesh)``: K
+        draft decode steps looped inside one target (DESIGN.md §11), so
+        depth variation re-dispatches on the cold path; the draft cache's
+        dtype is its own coordinate (DESIGN.md §16). Its keys are the
+        batcher's, split and discarded (``steps.make_draft_fn``)."""
         step = steps_mod.make_draft_fn(
             self.draft_cfg, k=k, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
         )
         i32 = torch.int32
+        cache = self.draft_cache(slots, draft_kv_dtype, mesh)
         return self._target(
-            lanes_mod.DR.key(slots, k, draft_kv_dtype), step, {
+            lanes_mod.DR.key(slots, k, draft_kv_dtype, mesh), step, {
                 "tok": ((slots, 1), i32), "pos": ((slots,), i32),
                 "active": ((slots,), torch.bool),
                 **self._sampling_rows(slots),
-            }, self.draft_cache(slots, draft_kv_dtype),
-            self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
-            params=self.draft_params,
+            }, cache, self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
+            mesh=mesh, draft=True, extent=self._extent(cache),
         )
 
     def _build_draft_prefill(
-        self, slots: int, chunk_bucket: int, draft_kv_dtype: str
+        self, slots: int, chunk_bucket: int, draft_kv_dtype: str,
+        mesh: str = "1x1",
     ) -> Callable:
-        """Branch target for ``("drp", slots, chunk_bucket,
-        draft_kv_dtype)``: the draft's prompt mirror — chunked dense
-        ingestion over the draft view, so its cache tracks the prompts."""
+        """Branch target for ``("drp", slots, chunk_bucket, draft_kv_dtype,
+        mesh)``: the draft's prompt mirror — chunked dense ingestion over
+        the draft view, so its cache tracks the prompts."""
         step = steps_mod.make_slot_prefill_fn(
             self.draft_cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
         )
+        cache = self.draft_cache(slots, draft_kv_dtype, mesh)
         return self._target(
-            lanes_mod.DRP.key(slots, chunk_bucket, draft_kv_dtype), step,
-            self._dense_chunk_rows(slots, chunk_bucket),
-            self.draft_cache(slots, draft_kv_dtype),
+            lanes_mod.DRP.key(slots, chunk_bucket, draft_kv_dtype, mesh),
+            step, self._dense_chunk_rows(slots, chunk_bucket), cache,
             self._kv_torch_dtype(draft_kv_dtype, self.draft_cfg),
-            params=self.draft_params,
+            mesh=mesh, draft=True, extent=self._extent(cache),
+        )
+
+    def _build_migrate(self, op: str, kv_dtype: str = "fp32",
+                       mesh: str = "1x1") -> Callable:
+        """Branch target for ``("mg", op, kv_dtype, mesh)``: one half of
+        the KV-page migration transport (DESIGN.md §17) over the mesh's
+        pool of ``kv_dtype``. ``gather(cache, idx[B]) -> block`` reads B
+        pages of every leaf (int8 scales ride along);
+        ``scatter(cache, idx[B], *block)`` writes a block into the pool in
+        place. B is pinned at the per-request page cap and short
+        migrations pad ``idx`` with the null page, so the page count is
+        never a coordinate: one pair of targets moves one page or a whole
+        request."""
+        cache = self.paged_cache(kv_dtype, mesh)
+        b = self.max_pages_per_req
+        rows = {"idx": ((b,), torch.int32)}
+        if op == "gather":
+            step = steps_mod.make_page_gather_fn()
+        elif op == "scatter":
+            step = steps_mod.make_page_scatter_fn()
+            for i, n in steps_mod.page_leaves(cache):
+                t = cache[i][n]
+                rows[f"block {i}/{n}"] = (
+                    (t.shape[0], b) + tuple(t.shape[2:]), t.dtype)
+        else:
+            raise ValueError(f"unknown migration op {op!r}")
+        return self._target(
+            lanes_mod.MG.key(op, kv_dtype, mesh), step, rows, cache,
+            self._kv_torch_dtype(kv_dtype, self.cfg), mesh=mesh,
+            extent=self._extent(cache, b),
         )
 
     # ------------------------------------------------------ engine state
-    def paged_cache(self, kv_dtype: str) -> list:
-        """The page pool of ``kv_dtype`` (null page included), created on
-        first use: every paged target of that dtype is bound to it."""
-        if kv_dtype not in self._paged_caches:
-            self._paged_caches[kv_dtype] = models.init_paged_cache(
+    def paged_cache(self, kv_dtype: str, mesh: str = "1x1") -> list:
+        """The page pool of ``kv_dtype`` on ``mesh`` (null page included),
+        created on first use on the mesh's device: every paged target of
+        that (dtype, mesh) cell is bound to it. The two slices of a split
+        hold two pools, distinct storage even on one card."""
+        key = (kv_dtype, shd.mesh_name(*shd.parse_slice_name(mesh)))
+        if key not in self._paged_caches:
+            self._paged_caches[key] = models.init_paged_cache(
                 self.cfg, self.pool_physical_pages, self.ecfg.page_size,
-                kv_dtype, device=self.device,
+                kv_dtype, device=self._mesh_device(key[1]),
             )
-        return self._paged_caches[kv_dtype]
+        return self._paged_caches[key]
 
-    def dense_cache(self, slots: int) -> list:
+    def dense_cache(self, slots: int, mesh: str = "1x1") -> list:
         """The dense continuous engine's cache of ``slots`` rows of
-        ``models.dense_rows(max_len)`` positions (model dtype; ``max_len``
-        rounded up to a multiple of 8, so its page view exists), created on
-        first use: every ``cb``, ``pfd`` and ``vfd`` target of that slot
-        count is bound to it, and ``continuous`` hands it to its batcher,
-        which still admits requests by ``max_len``."""
-        if slots not in self._dense_caches:
-            self._dense_caches[slots] = models.init_cache(
+        ``models.dense_rows(max_len)`` positions on ``mesh`` (model dtype;
+        ``max_len`` rounded up to a multiple of 8, so its page view exists),
+        created on first use: every ``cb``, ``pfd`` and ``vfd`` target of
+        that slot count and mesh is bound to it, and ``continuous`` hands it
+        to its batcher, which still admits requests by ``max_len``."""
+        key = (slots, shd.mesh_name(*shd.parse_slice_name(mesh)))
+        if key not in self._dense_caches:
+            self._dense_caches[key] = models.init_cache(
                 self.cfg, slots, models.dense_rows(self.ecfg.max_len),
-                device=self.device,
+                device=self._mesh_device(key[1]),
             )
-        return self._dense_caches[slots]
+        return self._dense_caches[key]
 
-    def draft_cache(self, slots: int, draft_kv_dtype: str) -> list:
+    def draft_cache(self, slots: int, draft_kv_dtype: str,
+                    mesh: str = "1x1") -> list:
         """The draft view's dense cache for ``slots`` rows of
-        ``models.dense_rows(max_len)`` positions, created on first use."""
-        key = (slots, draft_kv_dtype)
+        ``models.dense_rows(max_len)`` positions on ``mesh``, created on
+        first use."""
+        key = (slots, draft_kv_dtype,
+               shd.mesh_name(*shd.parse_slice_name(mesh)))
         if key not in self._draft_caches:
             self._draft_caches[key] = models.init_cache(
                 self.draft_cfg, slots, models.dense_rows(self.ecfg.max_len),
-                draft_kv_dtype, device=self.device,
+                draft_kv_dtype, device=self._mesh_device(key[2]),
             )
         return self._draft_caches[key]
 
@@ -708,17 +927,82 @@ class Engine:
         self.zero_cache(cache)
         return bank
 
-    def _reset_drafts(self, slots: int, draft_kv_dtype: str,
+    def _reset_drafts(self, slots: int, draft_kv_dtype: str, mesh: str,
                       owner: _Owner) -> None:
         """A new speculating batcher on ``slots``: park every warmed draft
-        dtype's resident state and zero those caches (its warmup writes
-        them all); ``owner``'s state is the ``draft_kv_dtype`` cache's
-        after the batcher's warmup."""
+        (dtype, mesh) cell's resident state and zero those caches (its
+        warmup writes them all); ``owner``'s state is the cell
+        ``(draft_kv_dtype, mesh)``'s after the batcher's warmup."""
         for d in self._warm_draft_kv_dtypes():
-            bank = self._reset_storage(("draft", slots, d),
-                                       self.draft_cache(slots, d))
-            if d == draft_kv_dtype:
-                bank.seat(owner)
+            for m in self._warm_meshes():
+                bank = self._reset_storage(("draft", slots, d, m),
+                                           self.draft_cache(slots, d, m))
+                if (d, m) == (draft_kv_dtype, mesh):
+                    bank.seat(owner)
+
+    def _move_storage(self, owner: _Owner, src_key: tuple,
+                      dst: tuple) -> list:
+        """A mesh rebind's data movement: ``owner``'s state in the set of
+        bank ``src_key`` is copied into ``dst`` = (bank key, cache), the
+        target cell's captured tensors (their resident batcher parked
+        first), never rebinding a captured tensor; ``owner`` leaves its old
+        set. Returns the target cache."""
+        dst_key, target = dst
+        src = self._banks[src_key]
+        bank = self._banks.setdefault(dst_key, _StorageBank(target))
+        bank.vacate()
+        _copy_cache(target, src.cache)
+        bank.seat(owner)
+        src.leave(owner)
+        if src in owner.banks:  # a draft cache is claimed at its dispatch
+            owner.banks[owner.banks.index(src)] = bank
+        return target
+
+    def _make_mesh_ctl(self, mesh_bind: dict, owner: _Owner,
+                       cell: Callable[[str], tuple],
+                       draft_cell: Callable[[str], tuple] | None,
+                       hot_key: Callable) -> Callable:
+        """The batcher's topology-flip closure (DESIGN.md §16):
+        ``mesh_ctl(name, cache, draft_cache, **hot)`` validates the name
+        against the warmed ladder, copies the live caches into the target
+        mesh's cells (``cell(mesh)`` / ``draft_cell(mesh)`` -> (bank key,
+        cache)), moves the shared mesh binding every dispatch closure reads
+        and flips the decode hot slot with ``set_direction`` (``hot_key``
+        maps the batcher's bucket state to the decode key under the new
+        binding): a rebind, never a capture. Refused while disaggregated:
+        the decode slice anchors the page pool."""
+        warm = self._warm_meshes()
+
+        def mesh_ctl(name: str, cache: list, draft_cache, **hot: Any):
+            if "prefill" in mesh_bind:
+                raise ValueError(
+                    "cannot rebind the decode mesh while disaggregated "
+                    "prefill/decode is configured (DESIGN.md §17): the "
+                    "decode slice anchors the page pool; use set_disagg "
+                    "to split/collapse instead."
+                )
+            nm = shd.mesh_name(*shd.parse_slice_name(name))
+            if nm not in warm:
+                raise ValueError(
+                    f"mesh {nm!r} is not in the warmed set {warm}; add it "
+                    f"to EngineConfig.mesh/meshes so its lanes are warmed "
+                    f"(a cold topology would capture mid-stream)."
+                )
+            if nm != mesh_bind["mesh"]:
+                now = mesh_bind["mesh"]
+                cache = self._move_storage(owner, cell(now)[0], cell(nm))
+                if draft_cache is not None:
+                    draft_cache = self._move_storage(
+                        owner, draft_cell(now)[0], draft_cell(nm))
+                mesh_bind["mesh"] = nm
+                self._decode.set_direction(hot_key(**hot))
+                self.telemetry.registry.inc("mesh_rebinds_total")
+                rec = self.telemetry.trace_or_none()
+                if rec is not None:
+                    rec.emit("mesh_rebind", "dispatcher", args={"mesh": nm})
+            return nm, cache, draft_cache
+
+        return mesh_ctl
 
     def burst_cache(self, bucket: int) -> list:
         """The dense cache of a batch bucket (``max_len`` rows), shared by
@@ -753,9 +1037,34 @@ class Engine:
         )
 
     @property
+    def pool_shards(self) -> int:
+        """Page-pool shard count: the widest warmed data-parallel degree,
+        which every other warmed mesh's dp must divide. 1 with one-device
+        plans, the only ones the port runs (ROADMAP A12 part 2)."""
+        meshes = self._warm_meshes()
+        shards = max(shd.parse_mesh_name(m)[0] for m in meshes)
+        for m in meshes:
+            dp = shd.parse_mesh_name(m)[0]
+            if shards % dp != 0:
+                raise ValueError(
+                    f"warmed mesh {m!r}: dp={dp} must divide the pool "
+                    f"shard count {shards} (the widest warmed dp) so all "
+                    f"topologies share one physical page layout."
+                )
+        return shards
+
+    @property
     def pool_physical_pages(self) -> int:
-        """Device page-axis extent: allocatable pages plus the null page."""
-        return self.pool_pages + 1
+        """Device page-axis extent: allocatable pages plus one null page
+        per shard (``pool_pages + 1`` with one shard)."""
+        shards = self.pool_shards
+        if self.pool_pages % shards:
+            raise ValueError(
+                f"num_pages={self.pool_pages} must divide evenly across "
+                f"{shards} pool shards; pad EngineConfig.num_pages to a "
+                f"multiple."
+            )
+        return self.pool_pages + shards
 
     # ----------------------------------------------- registry axis ladders
     def _chunk_buckets(self) -> list[int]:
@@ -806,6 +1115,33 @@ class Engine:
             )
         )
 
+    def _warm_meshes(self) -> tuple[str, ...]:
+        """The mesh-axis ladder (DESIGN.md §16): the active topology plus
+        every standby name to warm, canonicalised ("1,1" -> "1x1"; offset
+        slices stay distinct) and deduped."""
+        names = (self.ecfg.mesh,) + tuple(self.ecfg.meshes)
+        return tuple(
+            dict.fromkeys(
+                shd.mesh_name(*shd.parse_slice_name(n)) for n in names
+            )
+        )
+
+    def _check_meshes(self) -> None:
+        """Every warmed mesh must be a plan the port runs, on a listed
+        device (``_mesh_plan``): checked before a batcher warms anything."""
+        for m in self._warm_meshes():
+            self._mesh_plan(m)
+
+    def _disagg_lanes_enabled(self, ctx: "_WarmCtx") -> bool:
+        """The migration lane's gate: only a batcher that opted into
+        disaggregated prefill/decode warms the transport."""
+        return bool(ctx.disagg)
+
+    def _mg_ops(self) -> tuple[str, ...]:
+        """The migration lane's op ladder: the export gather and the import
+        scatter (DESIGN.md §17)."""
+        return ("gather", "scatter")
+
     def _attention_only(self) -> bool:
         return all(self.cfg.mixer_at(slot).startswith("attn")
                    for slot in range(self.cfg.period))
@@ -840,83 +1176,119 @@ class Engine:
     # One warm method per LaneSpec: dummy-run the freshly built target
     # through the runtime path (upload, call, packed pull) with inactive
     # slots, null tables and length 0, so no live page is written.
-    def _zeros(self, *shape: int, dtype=torch.int32) -> torch.Tensor:
-        return torch.zeros(shape, dtype=dtype, device=self.device)
+    def _zeros(self, *shape: int, dtype=torch.int32,
+               device: torch.device | None = None) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=device or self.device)
 
-    def _warm_sampling(self, s: int) -> tuple:
+    def _warm_sampling(self, s: int, device: torch.device) -> tuple:
         return (
-            torch.ones(s, dtype=torch.float32, device=self.device),
-            torch.ones(s, dtype=torch.bool, device=self.device),
-            self._zeros(s, 2),
+            torch.ones(s, dtype=torch.float32, device=device),
+            torch.ones(s, dtype=torch.bool, device=device),
+            self._zeros(s, 2, device=device),
         )
 
     def _warm_cb(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
-        _, s = key
+        _, s, m = key
+        d = self._mesh_device(m)
         out = exe(
-            self.dense_cache(s), self._zeros(s, 1), self._zeros(s),
-            self._zeros(s, dtype=torch.bool), *self._warm_sampling(s),
+            self.dense_cache(s, m), self._zeros(s, 1, device=d),
+            self._zeros(s, device=d),
+            self._zeros(s, dtype=torch.bool, device=d),
+            *self._warm_sampling(s, d),
         )
         steps_mod.pull_host(out[5])
 
     def _warm_pfd(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
-        _, s, cb = key
+        _, s, cb, m = key
+        d = self._mesh_device(m)
         out = exe(
-            self.dense_cache(s), self._zeros(s, cb), self._zeros(s),
-            self._zeros(s), *self._warm_sampling(s),
+            self.dense_cache(s, m), self._zeros(s, cb, device=d),
+            self._zeros(s, device=d), self._zeros(s, device=d),
+            *self._warm_sampling(s, d),
         )
         steps_mod.pull_host(out[3])
 
     def _warm_vfd(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
-        _, s, k = key
+        _, s, k, m = key
+        d = self._mesh_device(m)
         out = exe(
-            self.dense_cache(s), self._zeros(s, k + 1), self._zeros(s),
-            self._zeros(s), *self._warm_sampling(s),
+            self.dense_cache(s, m), self._zeros(s, k + 1, device=d),
+            self._zeros(s, device=d), self._zeros(s, device=d),
+            *self._warm_sampling(s, d),
         )
         steps_mod.pull_host(out[4])
 
     def _warm_cbp(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
-        _, s, pb, dt = key
+        _, s, pb, dt, m = key
+        d = self._mesh_device(m)
         out = exe(
-            self.paged_cache(dt), self._zeros(s, 1), self._zeros(s),
-            self._zeros(s, pb), self._zeros(s, dtype=torch.bool),
-            *self._warm_sampling(s),
+            self.paged_cache(dt, m), self._zeros(s, 1, device=d),
+            self._zeros(s, device=d), self._zeros(s, pb, device=d),
+            self._zeros(s, dtype=torch.bool, device=d),
+            *self._warm_sampling(s, d),
         )
         steps_mod.pull_host(out[5])
 
     def _warm_pf(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
-        _, s, cb, dt = key
+        _, s, cb, dt, m = key
+        d = self._mesh_device(m)
         out = exe(
-            self.paged_cache(dt), self._zeros(s, cb), self._zeros(s),
-            self._zeros(s, self.max_pages_per_req), self._zeros(s),
-            *self._warm_sampling(s),
+            self.paged_cache(dt, m), self._zeros(s, cb, device=d),
+            self._zeros(s, device=d),
+            self._zeros(s, self.max_pages_per_req, device=d),
+            self._zeros(s, device=d), *self._warm_sampling(s, d),
         )
         steps_mod.pull_host(out[3])
 
     def _warm_vf(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
-        _, s, k, dt = key
+        _, s, k, dt, m = key
+        d = self._mesh_device(m)
         out = exe(
-            self.paged_cache(dt), self._zeros(s, k + 1), self._zeros(s),
-            self._zeros(s, self.max_pages_per_req), self._zeros(s),
-            *self._warm_sampling(s),
+            self.paged_cache(dt, m), self._zeros(s, k + 1, device=d),
+            self._zeros(s, device=d),
+            self._zeros(s, self.max_pages_per_req, device=d),
+            self._zeros(s, device=d), *self._warm_sampling(s, d),
         )
         steps_mod.pull_host(out[4])
 
     def _warm_dr(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
-        _, s, k, dt = key
+        _, s, k, dt, m = key
+        d = self._mesh_device(m)
         drafts, _, _, _ = exe(
-            self.draft_cache(s, dt), self._zeros(s, 1),
-            self._zeros(s), self._zeros(s, dtype=torch.bool),
-            *self._warm_sampling(s),
+            self.draft_cache(s, dt, m), self._zeros(s, 1, device=d),
+            self._zeros(s, device=d),
+            self._zeros(s, dtype=torch.bool, device=d),
+            *self._warm_sampling(s, d),
         )
         steps_mod.pull_host(drafts)
 
     def _warm_drp(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
-        _, s, cb, dt = key
+        _, s, cb, dt, m = key
+        d = self._mesh_device(m)
         out = exe(
-            self.draft_cache(s, dt), self._zeros(s, cb),
-            self._zeros(s), self._zeros(s), *self._warm_sampling(s),
+            self.draft_cache(s, dt, m), self._zeros(s, cb, device=d),
+            self._zeros(s, device=d), self._zeros(s, device=d),
+            *self._warm_sampling(s, d),
         )
         steps_mod.pull_host(out[3])
+
+    def _warm_mg(self, key: tuple, exe: Callable, ctx: _WarmCtx) -> None:
+        """Every index names the null page, so the scatter writes only that
+        reserved page."""
+        _, op, dt, m = key
+        d = self._mesh_device(m)
+        cache = self.paged_cache(dt, m)
+        idx = self._zeros(self.max_pages_per_req, device=d)
+        if op == "gather":
+            exe(cache, idx)
+        else:
+            exe(cache, idx, *(
+                torch.zeros((t.shape[0], self.max_pages_per_req)
+                            + tuple(t.shape[2:]), dtype=t.dtype, device=d)
+                for t in (cache[i][n]
+                          for i, n in steps_mod.page_leaves(cache))
+            ))
+        steps_mod.pull_host(idx)  # the call has run
 
     def _warm_lanes(self, kind: str, slots: int, ctx: _WarmCtx) -> None:
         """Registry-driven warmup (DESIGN.md §12): every enabled lane spec,
@@ -924,7 +1296,8 @@ class Engine:
         for spec in LANES.for_engine(kind):
             if spec.enabled is not None and not getattr(self, spec.enabled)(ctx):
                 continue
-            for key in spec.fanout(self, slots=slots):
+            pins = {"slots": slots} if "slots" in spec.axis_names else {}
+            for key in spec.fanout(self, **pins):
                 exe = self._decode.build(key)
                 getattr(self, spec.warmer)(key, exe, ctx)
 
@@ -1070,6 +1443,62 @@ class Engine:
         return toks, cache
 
     # ---------------------------------------------------- paged continuous
+    def _mesh_arg(self, mesh: str | None) -> str:
+        """The batcher's decode mesh: canonical, warmed, and one the port
+        runs (every warmed mesh is checked first)."""
+        warm = self._warm_meshes()
+        m0 = shd.mesh_name(*shd.parse_slice_name(mesh or self.ecfg.mesh))
+        if m0 not in warm:
+            raise ValueError(
+                f"mesh={m0!r} is not in the warmed set {warm}; add it to "
+                f"EngineConfig.mesh/meshes."
+            )
+        self._check_meshes()
+        return m0
+
+    def _disagg_plan(self, disagg, m0: str,
+                     use_spec: bool) -> shd.DisaggPlan | None:
+        """``paged_continuous(disagg=...)`` resolved and validated as the
+        JAX package does (DESIGN.md §17)."""
+        if not disagg:
+            return None
+        if isinstance(disagg, shd.DisaggPlan):
+            dg = disagg
+        elif isinstance(disagg, str):
+            dg = shd.DisaggPlan(prefill=disagg, decode=m0)
+        else:  # True: the devices right after the decode slice's
+            dp, mp, off = shd.parse_slice_name(m0)
+            dg = shd.DisaggPlan(
+                prefill=shd.mesh_name(1, mp, off + dp * mp), decode=m0
+            )
+        warm = self._warm_meshes()
+        if dg.decode != m0:
+            raise ValueError(
+                f"DisaggPlan.decode={dg.decode!r} must equal the active "
+                f"mesh {m0!r}: the decode slice anchors the page pool "
+                f"and the batcher's cache binding."
+            )
+        if dg.prefill not in warm:
+            raise ValueError(
+                f"disagg prefill slice {dg.prefill!r} is not in the warmed "
+                f"set {warm}; add it to EngineConfig.meshes so its lanes "
+                f"are warmed."
+            )
+        if use_spec:
+            raise ValueError(
+                "disaggregated prefill/decode does not compose with "
+                "speculative decoding yet: the draft cache is dense "
+                "(no page migration path); pass spec_decode=False."
+            )
+        if not self._supports_chunked_prefill():
+            raise ValueError(
+                "disaggregated prefill/decode needs the chunked prefill "
+                "lane (EngineConfig.prefill_chunk > 0): without it prompts "
+                "are forced through the decode lane and there is nothing "
+                "to pin to a prefill slice."
+            )
+        return dg
+
     def paged_continuous(
         self,
         *,
@@ -1080,17 +1509,29 @@ class Engine:
         draft_kv_dtype: str | None = None,
         async_steps: bool = False,
         async_depth: int = 2,
+        mesh: str | None = None,
+        disagg: "bool | str | shd.DisaggPlan | None" = None,
     ) -> PagedContinuousBatcher:
         """Cold path: build the page pool + prefix cache, warm every enabled
-        paged lane key through the registry — every warmed page dtype, and
-        with speculation every k bucket and draft dtype — and return a paged
-        batcher (DESIGN.md §9-§12). The batcher's per-slot keys come from a
-        numpy generator seeded with ``seed``; ``async_steps`` pipelines its
-        steps (``async_depth`` issued steps at most, DESIGN.md §13) over the
-        same warmed keys. ``kv_dtype`` / ``draft_kv_dtype`` override the
-        configured pool / draft dtypes and must be in the warmed sets;
+        paged lane key through the registry — every warmed page dtype and
+        mesh, and with speculation every k bucket and draft dtype — and
+        return a paged batcher (DESIGN.md §9-§12, §16). The batcher's
+        per-slot keys come from a numpy generator seeded with ``seed``;
+        ``async_steps`` pipelines its steps (``async_depth`` issued steps at
+        most, DESIGN.md §13) over the same warmed keys. ``kv_dtype`` /
+        ``draft_kv_dtype`` / ``mesh`` override the configured pool dtype,
+        draft dtype and mesh and must be in the warmed sets;
         ``spec_decode`` overrides ``spec_k > 0``. A stack with a mamba slot
-        raises at once: its state is per row, not pageable."""
+        raises at once: its state is per row, not pageable.
+
+        ``disagg`` opts into disaggregated prefill/decode (DESIGN.md §17):
+        a prefill slice name (``"1x1@1"``), a ``DisaggPlan`` whose decode
+        slice is the active mesh, or ``True`` for the slice on the device
+        right after the decode slice's. Both slices must be warmed meshes;
+        the prefill lanes then run on the prefill slice's own pool and a
+        prompt's pages migrate to the decode pool at its PREFILL -> DECODE
+        flip (the ``mg`` targets); ``set_disagg`` splits and collapses
+        mid-stream as a rebind."""
         models.check_paged(self.cfg)
         if self.cfg.input_kind != "tokens":
             raise ValueError(
@@ -1107,6 +1548,12 @@ class Engine:
                 f"kv_dtypes so its lanes are warmed (a cold pool dtype would "
                 f"build mid-stream)."
             )
+        use_spec = (
+            (ecfg.spec_k > 0 if spec_decode is None else spec_decode)
+            and self._supports_spec_decode()
+        )
+        m0 = self._mesh_arg(mesh)
+        dg = self._disagg_plan(disagg, m0, use_spec)
         ddt = draft_kv_dtype or ecfg.draft_kv_dtype
         if ddt not in self._warm_draft_kv_dtypes():
             raise ValueError(
@@ -1114,93 +1561,179 @@ class Engine:
                 f"{self._warm_draft_kv_dtypes()}; add it to EngineConfig."
                 f"draft_kv_dtype/draft_kv_dtypes."
             )
-        use_spec = (
-            (ecfg.spec_k > 0 if spec_decode is None else spec_decode)
-            and self._supports_spec_decode()
-        )
         self._check_kernels()
         pool = PagePool(
             self.pool_pages, ecfg.page_size, kv_dtype=dt,
-            telemetry=self.telemetry,
+            telemetry=self.telemetry, shards=self.pool_shards,
         )
-        # a new batcher starts from an empty pool and draft caches, as a
+        # the prefill slice's own pool, of the same geometry: the two share
+        # null-page ids, so migration's index padding fits both; the decode
+        # pool stays the id authority (the prefix trie roots there)
+        pf_pool = None if dg is None else PagePool(
+            self.pool_pages, ecfg.page_size, kv_dtype=dt,
+            telemetry=self.telemetry, shards=self.pool_shards,
+        )
+        # a new batcher starts from empty pools and draft caches, as a
         # fresh engine's; a batcher resident there is parked, not wiped
         owner = self._new_owner()
-        owner.bank = self._reset_storage(("paged", dt), self.paged_cache(dt))
-        owner.bank.seat(owner)
+        cells = [m0] if dg is None else [m0, dg.prefill]
+        owner.banks = [
+            self._reset_storage(("paged", dt, m), self.paged_cache(dt, m))
+            for m in cells
+        ]
+        for bank in owner.banks:
+            bank.seat(owner)
         if use_spec:
-            self._reset_drafts(s, ddt, owner)
-        ctx = _WarmCtx(spec=use_spec)
+            self._reset_drafts(s, ddt, m0, owner)
+        ctx = _WarmCtx(spec=use_spec, disagg=dg is not None)
         self._warm_lanes("paged", s, ctx)
+        # The shared mesh binding: "mesh" routes the decode-group lanes and
+        # never moves while disaggregated; "prefill" (only with a plan)
+        # routes the prefill-group lanes and flips between the prefill
+        # slice and the decode mesh (the set_disagg rebind).
+        mb = {"mesh": m0}
+        if dg is not None:
+            mb["prefill"] = dg.prefill
 
         def dispatch(pages_bucket: int) -> Callable:
-            return self._decode.dispatch(lanes_mod.CBP.key(s, pages_bucket, dt))
+            return self._decode.dispatch(
+                lanes_mod.CBP.key(s, pages_bucket, dt, mb["mesh"]))
 
         prefill_dispatch = None
         if self._supports_chunked_prefill():
 
             def prefill_dispatch(chunk_bucket: int) -> Callable:
-                return self._decode.dispatch(
-                    lanes_mod.PF.key(s, chunk_bucket, dt)
-                )
+                # PF is a prefill-group lane (LaneSpec.slice): under a live
+                # split it routes to the prefill slice binding
+                return self._decode.dispatch(lanes_mod.PF.key(
+                    s, chunk_bucket, dt, mb.get("prefill", mb["mesh"])))
 
         draft_dispatch = verify_dispatch = draft_prefill_dispatch = None
         if use_spec:
             draft_dispatch, verify_dispatch, draft_prefill_dispatch = (
                 self._spec_dispatchers(
-                    s, ddt, lambda k: lanes_mod.VF.key(s, k, dt), owner
+                    s, ddt, mb,
+                    lambda k: lanes_mod.VF.key(s, k, dt, mb["mesh"]), owner,
                 )
             )
-
+        mesh_ctl = self._make_mesh_ctl(
+            mb, owner,
+            lambda m: (("paged", dt, m), self.paged_cache(dt, m)),
+            lambda m: (("draft", s, ddt, m), self.draft_cache(s, ddt, m)),
+            lambda pages_bucket: lanes_mod.CBP.key(
+                s, pages_bucket, dt, mb["mesh"]),
+        )
         # pre-bind the hot slot to the smallest bucket (already warmed)
-        self._decode.dispatch(lanes_mod.CBP.key(s, 1, dt))
+        self._decode.dispatch(lanes_mod.CBP.key(s, 1, dt, m0))
+        transport = disagg_ctl = None
+        if dg is not None:
+            transport = self._transport(dt, m0, dg.prefill)
+
+            def disagg_ctl(on: bool) -> str:
+                target = dg.prefill if on else m0
+                if mb["prefill"] != target:
+                    mb["prefill"] = target
+                    self.telemetry.registry.inc("disagg_rebinds_total")
+                    rec = self.telemetry.trace_or_none()
+                    if rec is not None:
+                        rec.emit("disagg_rebind", "dispatcher",
+                                 args={"prefill": target, "on": on})
+                return target
+
         self.mark_warm_boundary()
         return PagedContinuousBatcher(
             dispatch_fn=dispatch,
             pool=pool,
             prefix_cache=PrefixCache(pool),
-            cache=self.paged_cache(dt),
+            cache=self.paged_cache(dt, m0),
             num_slots=s,
             max_pages_per_req=self.max_pages_per_req,
-            device=self.device,
+            device=self._mesh_device(m0),
             cache_copy=models.copy_cache_pages,
             seed=seed,
             prefill_dispatch=prefill_dispatch,
             prefill_chunk=ecfg.prefill_chunk,
+            token_budget=ecfg.token_budget,
             telemetry=self.telemetry,
             draft_dispatch=draft_dispatch,
             verify_dispatch=verify_dispatch,
             draft_prefill_dispatch=draft_prefill_dispatch,
-            draft_cache=self.draft_cache(s, ddt) if use_spec else None,
+            draft_cache=self.draft_cache(s, ddt, m0) if use_spec else None,
             spec_k=ecfg.spec_k if use_spec else 0,
             async_steps=async_steps,
             async_depth=async_depth,
             storage=owner,
+            mesh=m0,
+            mesh_ctl=mesh_ctl,
+            pf_pool=pf_pool,
+            pf_cache=None if dg is None else self.paged_cache(dt, dg.prefill),
+            pf_device=None if dg is None else self._mesh_device(dg.prefill),
+            transport=transport,
+            disagg_ctl=disagg_ctl,
+            disagg=dg is not None,
         )
 
+    def _transport(self, kv_dtype: str, decode: str,
+                   prefill: str) -> Callable:
+        """The page transport between a split's two pools (DESIGN.md §17):
+        ``transport(src_cache, dst_cache, src_ids, dst_ids, to_prefill)``
+        gathers the pages on the source slice's ``mg`` target, moves the
+        block to the destination's device (a device-local copy when both
+        slices name one card) and scatters it on the destination's. The
+        page ids move separately (``kvcache.migrate_pages``). Indices past
+        ``len(ids)`` name the null page, reserved on both ends, so a short
+        migration runs the same targets."""
+        mg = {
+            (op, m): self._decode.dispatch(lanes_mod.MG.key(op, kv_dtype, m))
+            for op in self._mg_ops()
+            for m in (decode, prefill)
+        }
+        b = self.max_pages_per_req
+
+        def idx(ids, step, mesh: str) -> torch.Tensor:
+            host = np.zeros(b, np.int32)  # the null page
+            host[: len(ids)] = ids
+            ins = _static_inputs(step)
+            return _upload(host, self._mesh_device(mesh), ins[0])
+
+        def transport(src_cache, dst_cache, src_ids, dst_ids,
+                      to_prefill: bool = False) -> None:
+            src_m, dst_m = ((decode, prefill) if to_prefill
+                            else (prefill, decode))
+            gather, scatter = mg["gather", src_m], mg["scatter", dst_m]
+            block = gather(src_cache, idx(src_ids, gather, src_m))
+            dev = self._mesh_device(dst_m)
+            scatter(dst_cache, idx(dst_ids, scatter, dst_m),
+                    *(t.to(dev) for t in block))
+
+        return transport
+
     def _spec_dispatchers(self, slots: int, draft_kv_dtype: str,
+                          mesh_bind: dict,
                           verify_key: Callable[[int], tuple],
                           owner: _Owner):
         """The speculative lanes' dispatch closures over warmed keys: the
-        draft lanes pin the draft dtype and make ``owner``'s draft state the
-        resident one (the batcher calls its draft target right after),
-        ``verify_key(k)`` is the engine's verify key (``vf`` over its pool
-        dtype, or ``vfd``)."""
-        s = slots
-        bank = self._banks["draft", s, draft_kv_dtype]
+        draft lanes pin the draft dtype, read the batcher's live mesh
+        binding (so a topology flip re-routes them on their next dispatch)
+        and make ``owner``'s draft state the resident one (the batcher
+        calls its draft target right after); ``verify_key(k)`` is the
+        engine's verify key (``vf`` over its pool dtype, or ``vfd``)."""
+        s, ddt, mb = slots, draft_kv_dtype, mesh_bind
 
         def draft_dispatch(k: int) -> Callable:
-            bank.claim(owner)
-            return self._decode.dispatch(lanes_mod.DR.key(s, k, draft_kv_dtype))
+            self._banks["draft", s, ddt, mb["mesh"]].claim(owner)
+            return self._decode.dispatch(
+                lanes_mod.DR.key(s, k, ddt, mb["mesh"]))
 
         def verify_dispatch(k: int) -> Callable:
             return self._decode.dispatch(verify_key(k))
 
         def draft_prefill_dispatch(chunk_bucket: int) -> Callable:
-            bank.claim(owner)
+            # DRP is a prefill-group lane; with no split it is the shared mesh
+            m = mb.get("prefill", mb["mesh"])
+            self._banks["draft", s, ddt, m].claim(owner)
             return self._decode.dispatch(
-                lanes_mod.DRP.key(s, chunk_bucket, draft_kv_dtype)
-            )
+                lanes_mod.DRP.key(s, chunk_bucket, ddt, m))
 
         return draft_dispatch, verify_dispatch, draft_prefill_dispatch
 
@@ -1214,15 +1747,17 @@ class Engine:
         draft_kv_dtype: str | None = None,
         async_steps: bool = False,
         async_depth: int = 2,
+        mesh: str | None = None,
     ) -> ContinuousBatcher:
         """Cold path: warm every enabled dense lane key through the registry
         — ``cb``, ``pfd`` per chunk bucket, and with speculation ``vfd``,
-        ``dr`` and ``drp`` per k bucket and chunk bucket — over the engine's
-        dense cache of ``slots`` rows, and return a dense batcher
-        (DESIGN.md §4/§10/§11). Joins, leaves, greedy/sample flips, chunk
-        sizes and draft depths are then data or rebinds over warmed keys.
-        The batcher's per-slot keys come from a numpy generator seeded with
-        ``seed``; ``async_steps``/``async_depth`` as ``paged_continuous``;
+        ``dr`` and ``drp`` per k bucket and chunk bucket, each on every
+        warmed mesh — over the engine's dense caches of ``slots`` rows, and
+        return a dense batcher on ``mesh`` (DESIGN.md §4/§10/§11/§16).
+        Joins, leaves, greedy/sample flips, chunk sizes, draft depths and
+        mesh flips are then data or rebinds over warmed keys. The batcher's
+        per-slot keys come from a numpy generator seeded with ``seed``;
+        ``async_steps``/``async_depth`` as ``paged_continuous``;
         ``spec_decode`` overrides ``spec_k > 0``; ``draft_kv_dtype``
         overrides the configured draft dtype and must be in the warmed set.
 
@@ -1238,6 +1773,7 @@ class Engine:
                 f"back as inputs and needs a token-input arch."
             )
         s = slots or self.ecfg.max_batch
+        m0 = self._mesh_arg(mesh)
         ddt = draft_kv_dtype or self.ecfg.draft_kv_dtype
         if ddt not in self._warm_draft_kv_dtypes():
             raise ValueError(
@@ -1251,52 +1787,67 @@ class Engine:
         )
         self._check_kernels()
         owner = self._new_owner()
-        cache = self.dense_cache(s)
-        owner.bank = self._reset_storage(("dense", s), cache)
-        owner.bank.seat(owner)
+        cache = self.dense_cache(s, m0)
+        owner.banks = [self._reset_storage(("dense", s, m0), cache)]
+        owner.banks[0].seat(owner)
         if use_spec:
-            self._reset_drafts(s, ddt, owner)
+            self._reset_drafts(s, ddt, m0, owner)
         ctx = _WarmCtx(spec=use_spec)
         self._warm_lanes("dense", s, ctx)
         self.zero_cache(cache)
-        key = lanes_mod.CB.key(s)
+        mb = {"mesh": m0}
+        key = lanes_mod.CB.key(s, m0)
         step = self._decode.dispatch(key)  # binds the hot slot (warmed)
         self._warm_cb(key, step, ctx)  # on the zeroed cache, see above
+
+        def step_dispatch() -> Callable:
+            return self._decode.dispatch(lanes_mod.CB.key(s, mb["mesh"]))
 
         prefill_dispatch = None
         if self._supports_chunked_prefill():
 
             def prefill_dispatch(chunk_bucket: int) -> Callable:
                 return self._decode.dispatch(
-                    lanes_mod.PFD.key(s, chunk_bucket)
+                    lanes_mod.PFD.key(s, chunk_bucket, mb["mesh"])
                 )
 
         draft_dispatch = verify_dispatch = draft_prefill_dispatch = None
         if use_spec:
             draft_dispatch, verify_dispatch, draft_prefill_dispatch = (
                 self._spec_dispatchers(
-                    s, ddt, lambda k: lanes_mod.VFD.key(s, k), owner
+                    s, ddt, mb, lambda k: lanes_mod.VFD.key(s, k, mb["mesh"]),
+                    owner,
                 )
             )
+        mesh_ctl = self._make_mesh_ctl(
+            mb, owner,
+            lambda m: (("dense", s, m), self.dense_cache(s, m)),
+            lambda m: (("draft", s, ddt, m), self.draft_cache(s, ddt, m)),
+            lambda: lanes_mod.CB.key(s, mb["mesh"]),
+        )
         self.mark_warm_boundary()
         return ContinuousBatcher(
             step=step,
             num_slots=s,
             max_len=self.ecfg.max_len,
             cache=cache,
-            device=self.device,
+            device=self._mesh_device(m0),
             seed=seed,
             prefill_dispatch=prefill_dispatch,
             prefill_chunk=self.ecfg.prefill_chunk,
+            token_budget=self.ecfg.token_budget,
             telemetry=self.telemetry,
             draft_dispatch=draft_dispatch,
             verify_dispatch=verify_dispatch,
             draft_prefill_dispatch=draft_prefill_dispatch,
-            draft_cache=self.draft_cache(s, ddt) if use_spec else None,
+            draft_cache=self.draft_cache(s, ddt, m0) if use_spec else None,
             spec_k=self.ecfg.spec_k if use_spec else 0,
             async_steps=async_steps,
             async_depth=async_depth,
             storage=owner,
+            mesh=m0,
+            mesh_ctl=mesh_ctl,
+            step_dispatch=step_dispatch,
         )
 
 
@@ -1310,9 +1861,10 @@ def run_continuous_stream(
     clock: Clock | None = None,
     async_steps: bool = False,
     async_depth: int = 2,
+    mesh: str | None = None,
 ) -> dict:
-    """Drive a request stream through the dense continuous engine; return a
-    report with the JAX package's keys (its mesh keys left out).
+    """Drive a request stream through the dense continuous engine (on
+    ``mesh``, a warmed one); return a report with the JAX package's keys.
 
     The acceptance metric is ``compiles_after_warmup`` (on the card:
     captures after warmup): 0 for any mix of greedy and sampled requests,
@@ -1321,7 +1873,7 @@ def run_continuous_stream(
     (DESIGN.md §13; ``async_depth`` caps the in-flight steps); the token
     streams are the same either way."""
     cb = eng.continuous(slots=slots, seed=seed, async_steps=async_steps,
-                        async_depth=async_depth)  # warmup first...
+                        async_depth=async_depth, mesh=mesh)  # warmup first...
     clock = clock or Clock()  # ...so served latencies exclude it
     q = RequestQueue(requests)
     finished: list[Request] = []
@@ -1342,6 +1894,7 @@ def run_continuous_stream(
     report.update(
         engine="continuous",
         async_steps=cb.async_steps,
+        mesh=cb.mesh,
         device=str(eng.device),
         attn_impl=eng.ecfg.attn_impl,
         cuda_graphs=eng.graphs,
@@ -1458,6 +2011,8 @@ def run_paged_stream(
     kv_dtype: str | None = None,
     async_steps: bool = False,
     async_depth: int = 2,
+    mesh: str | None = None,
+    disagg: "bool | str | shd.DisaggPlan | None" = None,
 ) -> dict:
     """Drive a request stream through the paged KV engine; return a report.
 
@@ -1467,11 +2022,16 @@ def run_paged_stream(
     overrides the configured pool dtype (it must be in the warmed set).
     With ``EngineConfig.spec_k > 0`` the report's ``spec`` block carries
     drafted/accepted tokens, the acceptance rate and k-bucket crossings.
-    ``async_steps``/``async_depth`` as ``run_continuous_stream``.
+    ``async_steps``/``async_depth`` as ``run_continuous_stream``. ``mesh``
+    and ``disagg`` as ``Engine.paged_continuous``: a disaggregated run's
+    report counts its page migrations (``migrations``, ``migrated_pages``)
+    and the engine's ``disagg_rebinds``; its greedy tokens equal the shared
+    run's.
     """
     cb = eng.paged_continuous(slots=slots, seed=seed, kv_dtype=kv_dtype,
                               async_steps=async_steps,
-                              async_depth=async_depth)
+                              async_depth=async_depth, mesh=mesh,
+                              disagg=disagg)
     clock = clock or Clock()  # ...so served latencies exclude it
     q = RequestQueue(requests)
     finished: list[Request] = []
@@ -1515,6 +2075,7 @@ def run_paged_stream(
     report.update(
         engine="paged",
         async_steps=cb.async_steps,
+        mesh=cb.mesh,
         device=str(eng.device),
         attn_impl=eng.ecfg.attn_impl,
         cuda_graphs=eng.graphs,
@@ -1523,6 +2084,7 @@ def run_paged_stream(
         occupancy=round(cb.stats.occupancy, 4),
         page_size=cb.pool.page_size,
         kv_dtype=cb.pool.kv_dtype,
+        pool_shards=cb.pool.shards,
         pool_pages=cb.pool.num_pages,
         pool_tokens=cb.pool.total_tokens,
         pages_in_use_peak=cb.pool.stats.peak_in_use,
@@ -1556,6 +2118,13 @@ def run_paged_stream(
         cow_copies=cb.pool.stats.cow_copies,
         prefix_evictions=cb.pool.stats.prefix_evictions,
         unserved=len(requests) - len(finished),
+        disagg=cb.disagg,
+        migrations=cb.stats.migrations,
+        migrated_pages=cb.stats.migrated_pages,
+        disagg_rebinds=int(
+            eng.telemetry.registry.value("disagg_rebinds_total")
+        ),
+        mesh_rebinds=int(eng.telemetry.registry.value("mesh_rebinds_total")),
         compiles_total=eng._decode.stats.misses,
         compiles_after_warmup=eng.post_warmup_compiles,
         rebinds=eng.post_warmup_rebinds,

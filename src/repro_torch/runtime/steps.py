@@ -371,6 +371,48 @@ def make_slot_prefill_fn(
     return slot_prefill_step
 
 
+# -------------------------------------------- KV-page migration transport
+# Disaggregated prefill/decode (DESIGN.md §17) moves a request's KV pages
+# between two pools when its slot flips PREFILL -> DECODE. The unit is a
+# page-index bucket: gather B pages out of every leaf of the source pool
+# ([m, P, page_size, ...], page axis 1; the int8 scale leaves share it), move
+# the block to the destination's device, scatter it into the destination
+# pool in place. ``idx`` is padded with the pools' null page, so a short
+# migration reads and writes only that reserved page: the shapes never
+# change and each (kv_dtype, mesh) cell captures the pair once. A block is
+# the pool's leaves in order (period slot, then leaf name), flattened.
+def page_leaves(cache: list) -> list[tuple[int, str]]:
+    """The (period slot, leaf name) of every leaf of a pool, in block
+    order."""
+    return [(i, n) for i, layer in enumerate(cache) for n in sorted(layer)]
+
+
+def make_page_gather_fn() -> Callable:
+    """``gather(params, cache, idx[B]) -> block``: B pages of every leaf (the
+    migration's export half; ``params`` is unused, as every target takes
+    it)."""
+
+    def gather(params, cache, idx):
+        idx = idx.long()
+        return tuple(cache[i][n][:, idx] for i, n in page_leaves(cache))
+
+    return gather
+
+
+def make_page_scatter_fn() -> Callable:
+    """``scatter(params, cache, idx[B], *block) -> ()``: write a migrated
+    block into the destination pool at ``idx``, in place (the import half;
+    it returns nothing, so a captured scatter has no static output)."""
+
+    def scatter(params, cache, idx, *block):
+        idx = idx.long()
+        for (i, n), b in zip(page_leaves(cache), block):
+            cache[i][n][:, idx] = b
+        return ()
+
+    return scatter
+
+
 def pull_host(dev: torch.Tensor, recorder=None) -> tuple[np.ndarray, int]:
     """The d2h pull boundary: copy one device tensor to the host (blocking
     until the device has produced it) — a copy on the CPU too, so a later

@@ -184,7 +184,7 @@ def test_cuda_graphs_true_on_a_cpu_engine_raises(smoke):
     with serve.Engine(cfg, params, serve.EngineConfig(**ENGINE),
                       device="cpu") as eng:
         assert eng.graphs is False
-        step = eng._build(lanes.CBP.key(4, 2, "fp32"))
+        step = eng._build(lanes.CBP.key(4, 2, "fp32", "1x1"))
         assert not hasattr(step, "static_inputs")  # the eager target
 
 
@@ -193,7 +193,7 @@ def test_eager_target_checks_every_input_dtype(smoke):
     cfg, params = smoke
     with serve.Engine(cfg, params, serve.EngineConfig(**ENGINE),
                       device="cpu") as eng:
-        step = eng._build(lanes.CBP.key(4, 2, "fp32"))
+        step = eng._build(lanes.CBP.key(4, 2, "fp32", "1x1"))
         cache = eng.paged_cache("fp32")
         z = torch.zeros
         rows = [z(4, 1, dtype=torch.int32), z(4, dtype=torch.int32),
@@ -364,9 +364,11 @@ def test_cuda_graph_targets_equal_their_eager_steps(cuda, smoke, kv_dtype):
                                                         cuda_graphs=g))
         for g in (True, False)
     }
-    keys = [lanes.CBP.key(4, 2, kv_dtype), lanes.PF.key(4, 16, kv_dtype),
-            lanes.VF.key(4, 2, kv_dtype), lanes.DR.key(4, 2, kv_dtype),
-            lanes.DRP.key(4, 16, kv_dtype), lanes.BURST.key(4, 0),
+    keys = [lanes.CBP.key(4, 2, kv_dtype, "1x1"),
+            lanes.PF.key(4, 16, kv_dtype, "1x1"),
+            lanes.VF.key(4, 2, kv_dtype, "1x1"),
+            lanes.DR.key(4, 2, kv_dtype, "1x1"),
+            lanes.DRP.key(4, 16, kv_dtype, "1x1"), lanes.BURST.key(4, 0),
             lanes.BURST.key(4, 1)]
     try:
         for i, key in enumerate(keys):
@@ -431,7 +433,7 @@ def test_cuda_replays_count_their_kernel_launches(cuda, smoke):
 
     cfg, params = smoke
     with serve.Engine(cfg, params, serve.EngineConfig(**ENGINE)) as eng:
-        key = lanes.CBP.key(4, 2, "fp32")
+        key = lanes.CBP.key(4, 2, "fp32", "1x1")
         kernels.reset_launch_counts()
         exe = eng._decode.build(key)  # the capture's warmup run launches
         assert kernels.paged_decode_attention.launches == cfg.num_layers

@@ -60,6 +60,9 @@ SLICE_MODULES = (
     "repro_torch.checkpoint.checkpoint",
     "repro_torch.distributed.collectives",
     "repro_torch.launch.train",
+    "repro_torch.distributed.sharding",
+    "repro_torch.roofline",
+    "repro_torch.capture_analysis",
 )
 
 

@@ -58,9 +58,10 @@ def _tc_rounding(q, k_pages, v_pages, bt, start, *, window, softcap, tile,
     key tiles from the first row's window to the last row's frontier with
     pages outside [p_lo, p_hi] clamped in and masked, exp2 of logits scaled
     by log2 e, P times the V scale over the scale of the row's leading key
-    (S) rounded to bf16 for P V with fp32 accumulation, O's row times S, the
-    denominator summed from the unscaled P, the output rounded to bf16. The
-    hardware's approximate exp2 and tanh are left to the card's checks."""
+    (S; 1 where that key's row was never written, scale 0) rounded to bf16
+    for P V with fp32 accumulation, O's row times S, the denominator summed
+    from the unscaled P, the output rounded to bf16. The hardware's
+    approximate exp2 and tanh are left to the card's checks."""
     b, c, h, dh = q.shape
     _, ps, kh, _ = k_pages.shape
     pb = bt.shape[1]
@@ -99,6 +100,7 @@ def _tc_rounding(q, k_pages, v_pages, bt, start, *, window, softcap, tile,
             if quant:  # V scales relative to each row's leading key's
                 vsc = v_scale[page, off]
                 lead = vsc[x.argmax(-1)]
+                lead = torch.where(lead == 0, 1.0, lead)
                 pv = p * vsc / lead[..., None]
             else:
                 lead, pv = torch.ones_like(m), p
@@ -157,6 +159,36 @@ def _rounding_case(pages, window, softcap, tile, dh, *, kh, group):
             q.float(), kq, vq, ks, vs, bt, start, **kw)
     err = (emulated.float() - plain).abs().max().item()
     assert 0 < err <= BF16_KERNEL_ATOL
+
+
+def _unwritten_lead_case():
+    """An int8 pool whose written keys all score below 0 against q, and a
+    last page whose rows past the frontier were never written (K and V 0,
+    scales 0, as a zeroed pool holds them): the chunk's later rows see them
+    causally, and a never-written key leads their tile (score 0)."""
+    ps, c, kh, dh = 16, 64, 2, 128
+    _, ((kq, ks), (vq, vs)) = _pools(ps, kh, dh, 8, seed=6)
+    kq = -kq.abs()  # every written key scores below 0 against q > 0
+    bt = torch.tensor([[3, 5, 0, 0]], dtype=torch.int32)
+    start = torch.tensor([0], dtype=torch.int32)
+    for t in (kq, vq, ks, vs):  # page 5's rows 8.. never written
+        t[5, 8:] = 0
+    q = torch.ones(1, c, kh, dh).bfloat16()
+    return q, (kq, vq, ks, vs), bt, start
+
+
+def test_tensor_core_rounding_with_a_never_written_row_leading():
+    """Where a never-written row (scale 0) leads a query row's tile, the V
+    scales fold bare (a reciprocal of 0 would make the row NaN, and its
+    K/V, written to the null page, every later read of it): finite and
+    within the bf16 tolerance of the plain version."""
+    q, (kq, vq, ks, vs), bt, start = _unwritten_lead_case()
+    emulated = _tc_rounding(q, kq, vq, bt, start, tile=64, window=None,
+                            softcap=None, k_scale=ks, v_scale=vs)
+    plain = kernels.paged_prefill_attention_int8_plain(
+        q.float(), kq, vq, ks, vs, bt, start)
+    assert torch.isfinite(emulated.float()).all()
+    assert (emulated.float() - plain).abs().max().item() <= BF16_KERNEL_ATOL
 
 
 def _entry_routes(src: str, entry: str) -> dict:
@@ -301,6 +333,21 @@ def test_cuda_tensor_core_prefill_matches_plain_at_full_width_groups(
     """Groups 6 (the 16-byte Q path) and 8 (Q by TMA) at pages of 16,
     every mode, as ``test_cuda_tensor_core_prefill_matches_plain``."""
     test_cuda_tensor_core_prefill_matches_plain(cuda, chunk, group, 16, dh)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_never_written_row_leading_stays_finite(cuda):
+    """B4 where a never-written row (scale 0) leads a tile: finite, within
+    2e-2 of the plain version (``_unwritten_lead_case``)."""
+    q, pools, bt, start = _unwritten_lead_case()
+    args = [t.to(cuda) for t in (q, *pools, bt, start)]
+    out = kernels.paged_prefill_attention_int8(*args)
+    ref = kernels.paged_prefill_attention_int8_plain(args[0].float(),
+                                                     *args[1:])
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref, atol=BF16_KERNEL_ATOL,
+                               rtol=0)
 
 
 @pytest.mark.cuda

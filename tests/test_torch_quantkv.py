@@ -341,7 +341,7 @@ def test_warmed_dtypes_serve_both_pools_without_builds(smoke):
                                 kv_dtype="int8")
         assert eng._decode.stats.misses == built
         assert (rep["kv_dtype"], rep8["kv_dtype"]) == ("fp32", "int8")
-        step = eng._build(("cbp", 4, 1, "int8"))
+        step = eng._build(("cbp", 4, 1, "int8", "1x1"))
         z = torch.zeros
         with pytest.raises(ValueError, match="torch.int8"):
             step(models.init_paged_cache(tcfg, eng.pool_physical_pages, 8),

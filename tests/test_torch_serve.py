@@ -155,17 +155,19 @@ def test_unknown_lane_raises(smoke):
         with pytest.raises(UnknownLaneError):
             eng._build(("cbx", 4))  # no such lane
         with pytest.raises(UnknownLaneError):
-            eng._build(("cb", 4, 16))  # cb takes the slot count alone
+            eng._build(("cb", 4, "1x1", 16))  # cb takes slots and mesh alone
         with pytest.raises(UnknownLaneError):
             eng._build(("cbp", 4))  # missing the pages_bucket coordinate
         with pytest.raises(UnknownLaneError):
             eng._build(("cbp", 4, 2))  # missing the kv_dtype coordinate
+        with pytest.raises(UnknownLaneError):
+            eng._build(("cbp", 4, 2, "fp32"))  # missing the mesh coordinate
 
 
 def test_branch_target_rejects_other_shapes(smoke):
     _, tcfg, _, tparams = smoke
     with Engine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu") as eng:
-        step = eng._build(("cbp", 4, 2, "fp32"))
+        step = eng._build(("cbp", 4, 2, "fp32", "1x1"))
         cache = tm.init_paged_cache(tcfg, eng.pool_physical_pages, 8)
         z = torch.zeros
         with pytest.raises(ValueError, match="block_tables"):

@@ -313,11 +313,12 @@ def test_warmup_covers_every_enabled_lane_key(smoke, kv_dtype):
         cb = eng.paged_continuous(slots=s)
         built = eng._decode.stats.misses
         keys = (
-            [("cbp", s, pb, kv_dtype) for pb in eng._pages_buckets()]
-            + [("pf", s, c, kv_dtype) for c in eng._chunk_buckets()]
-            + [("vf", s, k, kv_dtype) for k in eng._k_buckets()]
-            + [("dr", s, k, d) for k in eng._k_buckets() for d in ("fp32", "int8")]
-            + [("drp", s, c, d) for c in eng._chunk_buckets()
+            [("cbp", s, pb, kv_dtype, "1x1") for pb in eng._pages_buckets()]
+            + [("pf", s, c, kv_dtype, "1x1") for c in eng._chunk_buckets()]
+            + [("vf", s, k, kv_dtype, "1x1") for k in eng._k_buckets()]
+            + [("dr", s, k, d, "1x1") for k in eng._k_buckets()
+               for d in ("fp32", "int8")]
+            + [("drp", s, c, d, "1x1") for c in eng._chunk_buckets()
                for d in ("fp32", "int8")]
         )
         assert eng._k_buckets() == [1, 2, 4]
@@ -340,10 +341,10 @@ def test_spec_decode_false_leaves_the_spec_lanes_cold(smoke):
     with _engine(tcfg, tparams, spec_k=2) as eng:
         cb = eng.paged_continuous(slots=4, spec_decode=False)
         assert cb.spec_k == 0 and cb._draft_cache is None
-        for key in (("vf", 4, 1, "fp32"), ("dr", 4, 1, "fp32"),
-                    ("drp", 4, 8, "fp32")):
+        for key in (("vf", 4, 1, "fp32", "1x1"), ("dr", 4, 1, "fp32", "1x1"),
+                    ("drp", 4, 8, "fp32", "1x1")):
             assert key not in eng._decode
-        assert ("cbp", 4, 1, "fp32") in eng._decode
+        assert ("cbp", 4, 1, "fp32", "1x1") in eng._decode
 
 
 def test_int8_draft_pairs_with_model_dtype_verify_stream(smoke):
