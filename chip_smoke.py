@@ -163,11 +163,12 @@ Phases (any failure exits non-zero before a result is printed):
    16 heads over 8 of 64: B1-B7 on the bf16 head_dim-64 instantiations),
    weights seeded on the card (the routers float32): phase 3's paged bf16
    cell, dense cell (a), the burst cell and phase 3's int8+spec paged cell
-   under ``moe_policy="drop"``, each through graph targets (counts set to
+   under ``moe_policy="drop"`` on the first 12 layers (a depth cut with
+   weights of its own), each through graph targets (counts set to
    0 just before, held to one launch per attention layer per lane call)
    and again eager under one step clock (captures after warmup 0, or the
    burst keys; greedy tokens equal or a near-tie, sampled ones equal),
-   peak memory against the reckoned 2.67 GB of weights plus KV (+1.5 GB).
+   peak memory against the reckoned weights plus KV (+1.5 GB).
    Under "drop" capacity follows each call's length, so a chunk or a
    verify window may drop what token-by-token decode keeps: the streams
    are held graph to eager, never speculative to plain. Then the
@@ -207,7 +208,8 @@ Phases (any failure exits non-zero before a result is printed):
    input (B5), ``forward`` over the 257 positions (B6), graph = eager,
    and the smoke configs' one-step tokens card = CPU. Then the new-shape
    timing (phase 8's, with B3 at granite's shape, groups 6 (softcap 30)
-   and 8, group 7 and MHA 24 at head_dim 64, and B8 at 256 heads).
+   and 8, group 7 and MHA 24 at head_dim 64, olmo-1b's shard at model
+   size 2 (8 of 128, phase 14's B1 and B2) and B8 at 256 heads).
 11. The overload-hardened paged stream (run after phase 3d, on olmo-1b's
    weights): one engine (8 slots, ``max_len`` 1024, page 16, chunked
    prefill 64, the int8 pool warmed beside the bf16 one, ``spec_k`` 4
@@ -217,7 +219,8 @@ Phases (any failure exits non-zero before a result is printed):
    with the batcher's steps: every token equal, nothing shed, cancelled,
    failed or unserved, no ladder move, 0 captures after warmup, B1-B4 and
    ``sample_rows`` launches equal between the two loops. Then a flood on
-   a fresh engine, on the wall clock: 96 shared-prefix requests at 2000
+   a fresh engine, under the same step clock (both batchers' steps; the
+   pull stall and the watchdog act on the wall clock): 96 shared-prefix requests at 2000
    req/s (a quarter sampled, every fourth with a 0.5 s deadline), a
    drop-oldest queue of 16 with a 50 ms TTL, the degradation ladder, the
    watchdog, and a fault plan armed before the engine warms (a capture at
@@ -232,7 +235,13 @@ Phases (any failure exits non-zero before a result is printed):
    flight recorder on: the Chrome trace validates with a track per lane
    that ran plus the dispatcher, scheduler and page-pool; the Prometheus
    text parses; the registry's shed, cancel and fault counters are the
-   report's robustness block. Last the launcher's ``--engine overload
+   report's robustness block. The two flood arms, seeing the same
+   stragglers, give every request the same fate, the same shed counts by
+   reason and the same ladder transitions (the watchdog acts on the wall
+   clock and a straggler moves the ladder: where the arms' stragglers
+   differ, the transitions made before the controller's call at the first
+   difference agree). Last the
+   launcher's ``--engine overload
    --degrade --chaos-seed 7 --trace-out --metrics-out`` as a subprocess on
    the card (smoke config).
 
@@ -274,6 +283,25 @@ Phases (any failure exits non-zero before a result is printed):
    config's report on the card = a CPU engine's; and the launcher with
    ``--meshes 1x1@1 --disagg --devices "cuda:0 cuda:0" --compile-report``
    as a subprocess.
+14. Meshes of more than one logical device (after phase 13): olmo-1b at
+   full width (bf16), 8 slots, page 16, chunk 64, max_len 1024,
+   ``devices=("cuda:0",) * 4`` and the ladder 1x1 / 1x2 / 2x1 / 2x2, every
+   target a CUDA graph (the tensor-parallel weights split over "model",
+   each mesh's pool over its data rows). The bf16 cell's stream under a
+   step clock at 1x1, 1x2 and 2x2, then 1x2 -> 2x2 -> 1x1 mid-stream: 0
+   captures after warmup, 2 rebinds, pool_shards 2, each kernel's
+   launches = the replays' reckoning (layers x dp x mp per step for B1 and
+   B2, one ``sample_rows`` a step), tokens = 1x1's but where 1x1's
+   decision was a near-tie (greedy: the two tokens' logits, sampled: the
+   sampler's scores under the row's key, within ``STEP_LOGIT_ATOL``); one
+   decode step's and one prefill chunk's logits at 1x2 and 2x2 within
+   ``STEP_LOGIT_ATOL`` of 1x1's on one pool content; a replayed ``cbp``
+   step's wall and busy ms at each mesh; the peak against the reckoned
+   bytes; the fp32 smoke config at 1x2 and 2x2 card = CPU (sampled too);
+   ``pipeline_forward`` over 4 logical stages = ``reference_forward``
+   within 1e-5 (fp32); ``compressed_psum`` card = CPU; the launcher's
+   ``--mesh 1x2 --meshes "1x1 2x2" --devices "cuda:0 cuda:0 cuda:0
+   cuda:0"`` as a subprocess.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -1361,6 +1389,13 @@ def _card_near_tie(cfg, params, seq, a: int, b: int,
     chunked prefill with the plain attention over pages of ``kv_dtype``;
     ``forward`` through B8 for an SSM stack) lie within
     ``BF16_TIE_MARGIN``."""
+    row = _card_logits(cfg, params, seq, kv_dtype)
+    gap = abs(float(row[a] - row[b]))
+    return gap < BF16_TIE_MARGIN, gap
+
+
+def _card_logits(cfg, params, seq, kv_dtype: str) -> torch.Tensor:
+    """The float32 logits after ``seq`` from one eager pass on the card."""
     from repro_torch import models
 
     dev = "cuda"
@@ -1381,8 +1416,7 @@ def _card_near_tie(cfg, params, seq, a: int, b: int,
             attn_impl="plain", moe_policy=_tie_policy(cfg),
         )
         row = logits[0].float()
-    gap = abs(float(row[a] - row[b]))
-    return gap < BF16_TIE_MARGIN, gap
+    return row
 
 
 def _paired_streams(label: str, cfg, params, ecfg: dict, traffic,
@@ -1747,12 +1781,14 @@ def _lane_launches(eng, mesh: str | None = None) -> tuple[dict, dict]:
     runs ``WARMUP_RUNS`` times before its capture, and every replay (its
     warm run, ``cb``'s second on the zeroed cache, a burst key's warm run
     at each ``set_mode``, the batcher's calls) launches its lane's kernel
-    once per attention layer (``k`` times per draft layer for ``dr``), and
+    once per attention layer (``k`` times per draft layer for ``dr``; on a
+    mesh of dp x mp logical devices once per layer per shard), and
     ``sample_rows`` once (``k`` times for ``dr``; a greedy burst key not
     at all) — and each lane's replays less its warm ones. An engine warmed
     with the capture report runs each key's step once more, eagerly, at
     its build. ``mesh`` keeps the keys of one mesh (slice) only."""
     from repro_torch.core.graph_target import WARMUP_RUNS
+    from repro_torch.distributed.sharding import parse_mesh_name
 
     runs0 = WARMUP_RUNS + int(eng.telemetry.compile_analysis)
 
@@ -1778,6 +1814,9 @@ def _lane_launches(eng, mesh: str | None = None) -> tuple[dict, dict]:
         if not layers:
             continue
         per_run = layers * (key[2] if lane == "dr" else 1)
+        if lane in ("cbp", "pf"):  # a mesh's shards each launch (phase 14)
+            dp, mp = parse_mesh_name(key[-1])
+            per_run *= dp * mp
         kernel = _lane_kernel(key)
         want[kernel] = want.get(kernel, 0) + (replays + runs0) * per_run
         calls[lane] = calls.get(lane, 0) + replays - (2 if lane == "cb" else 1)
@@ -2065,15 +2104,18 @@ class _BatcherClock:
     def __init__(self, dt: float = 0.004) -> None:
         self.dt = dt
         self.offset = 0.0
-        self.batcher = None
+        self.batchers: list = []
         self.t_wall = None
 
     def bind(self, batcher):
-        self.batcher, self.t_wall = batcher, time.perf_counter()
+        """Count ``batcher``'s steps too (a stream of two batchers, as the
+        overload stream's int8 standby, moves the clock with both)."""
+        self.batchers.append(batcher)
+        self.t_wall = time.perf_counter()
         return batcher
 
     def now(self) -> float:
-        steps = self.batcher.stats.steps if self.batcher is not None else 0
+        steps = sum(b.stats.steps for b in self.batchers)
         return self.offset + steps * self.dt
 
     def jump_to(self, t: float) -> None:
@@ -3955,10 +3997,14 @@ def _granite_moe_share(cfg, params) -> dict:
     return {"profile": out, "moe_share_pct": share}
 
 
+GRANITE_STREAM_LAYERS = 12
+
+
 def granite_phase() -> dict:
     """granite-moe-1b-a400m at full width (24 layers, bf16, 32 experts top-8,
     heads of 64: every attention call on the bf16 head_dim-64
-    instantiations), weights seeded on the card: its four streams through
+    instantiations), weights seeded on the card: its four streams (on the
+    first ``GRANITE_STREAM_LAYERS`` layers, weights of their own) through
     graph targets and again eager under one step clock (``_paired_streams``
     with each kernel's launches held to one per attention layer per lane
     call), peak memory against the reckoned weight and KV bytes; the
@@ -3977,12 +4023,18 @@ def granite_phase() -> dict:
     from repro_torch.configs import get_config
 
     cfg = get_config(GRANITE)
-    params = _seeded(cfg, "granite")
+    # the paired streams on a depth cut (their eager twins were ~150 s of
+    # the script at 24 layers); everything after them at full depth
+    scfg = _depth_cut(cfg, GRANITE_STREAM_LAYERS, "granite")
+    params = _seeded(scfg, "granite")
     check(params["blocks.0.moe.router"].dtype == torch.float32,
           f"{GRANITE}: the router is not float32")
-    outs = _held_streams("granite", cfg, params, _cell_plans(), slack=1.5e9)
+    outs = _held_streams("granite", scfg, params, _cell_plans(), slack=1.5e9)
     paths = {f"{GRANITE} {name}": out["launches"]
              for name, out in outs.items()}
+    del params
+    _release_engines()
+    params = _seeded(cfg, "granite")
     paths[f"{GRANITE} prompt+burst"] = prompt_then_burst(
         cfg, params, moe_policy="dense", hold=False)
     # the same path and one decode step on the weights in fp32, held: the
@@ -4416,7 +4468,9 @@ def time_new_shapes() -> dict:
     64, group 2; B3 and B4 too, over int8 pages), group 6 with softcap 30
     (grok-1-314b: 48 over 8 of 128; B4 too; SDPA cannot apply a softcap,
     so it is timed without one beside the kernel, as a yardstick) and
-    group 8 (deepseek-67b and jamba: 64 over 8 of 128; B4 too), and B5 and
+    group 8 (deepseek-67b and jamba: 64 over 8 of 128; B4 too), olmo-1b's
+    shard on a mesh of model size 2 (8 over 8 of 128: phase 14's B1 and
+    B2 launches), and B5 and
     B6 alone at group 7 (internvl2-1b: 14 over 2 of 64) and MHA 24
     (musicgen-medium: 24 over 24 of 64) — against their plain versions and
     SDPA, with the bound from the bytes and pairs this data needs; and B8
@@ -4459,6 +4513,8 @@ def time_new_shapes() -> dict:
                                     b1256 | {"B3", "B4"}),
         "deepseek group 8": (64, 8, 128, bf16, None, 8, 16, pos8, starts8,
                              1024, 255, 1024, None, b1256 | {"B4"}),
+        "olmo shard at mp 2": (8, 8, 128, bf16, None, 8, 16, pos8, starts8,
+                               1024, 255, 1024, None, b1256),
         "internvl2 group 7 dh 64": (14, 2, 64, bf16, None, 8, 16, pos8,
                                     starts8, 1024, 255, 1024, None,
                                     {"B5", "B6"}),
@@ -4624,12 +4680,14 @@ OVERLOAD_ECFG = dict(max_len=1024, max_batch=8, page_size=16,
                      prefill_chunk=64, kv_dtypes=("int8",), spec_k=4,
                      draft_layers=2, draft_kv_dtype="int8")
 # The flood's plan, armed before the engine warms: (site, ordinal, extras).
-# The flood's arrivals span ~48 ms and its queue TTL is 50 ms, so the queue
-# is empty after a dozen loop iterations: the heartbeat outage (beats 2-4
-# suppressed, detected at iteration 4 when the monitor times out) forces
-# the bottom rung while requests still queue, so the int8 standby takes
-# admissions; the stall lands near iteration 10, after both batchers'
-# watchdogs are past their 5-step warmup.
+# The flood runs under a _BatcherClock (4 ms a batcher step, both
+# batchers' steps counted): its arrivals span ~48 ms, a dozen steps, and
+# its queue TTL is 50 ms, so the heartbeat outage (beats 2-4 suppressed,
+# detected at iteration 4 when the monitor times out) forces the bottom
+# rung while requests queue, whatever the host's pace, and the int8
+# standby takes admissions; the stall lands near iteration 10, after both
+# batchers' watchdogs are past their 5-step warmup. The stall (a real 50
+# ms sleep) and the watchdog still act on the wall clock.
 FLOOD_FAULTS = (("build", 0, {}), ("step_output", 3, {}),
                 ("step_output", 9, {}),
                 ("d2h_stall", 60, {"stall_s": 0.05}),
@@ -4761,16 +4819,68 @@ def _flood_checks(label: str, rep: dict, reqs: list, plan,
           f"{label}: {rep['compiles_after_warmup']} captures after warmup")
 
 
+def _flood_fates(reqs: list, rep: dict, observed: list) -> dict:
+    """What the flood did to each request, its shed counts by reason and
+    its ladder transitions, and the controller's calls as (step-clock time,
+    straggler, transitions made before the call): the straggler is the
+    watchdog's one real-time input, and under the step clock two arms that
+    saw the same stragglers run one schedule."""
+    return {
+        "fates": [(r.rid, r.t_done is not None, r.shed_reason, r.cancelled,
+                   r.error) for r in reqs],
+        "shed": rep.get("robustness", {}).get("shed"),
+        "transitions": rep["degrade_transitions"],
+        "stragglers": [t for t, s, _ in observed if s],
+        "observed": observed,
+    }
+
+
+def _flood_arms_equal(plain: dict, traced: dict) -> str:
+    """The flood's two arms against each other. Seeing the same
+    stragglers, they give every request the same fate, the same shed
+    counts by reason and the same ladder transitions. The watchdog acts on
+    the wall clock and a straggler moves the ladder (its ``over`` signal),
+    so where the arms saw different stragglers only the transitions made
+    before the controller's call at the first such difference must agree
+    (the call itself may move the ladder in one arm and not in the other);
+    the rest is logged."""
+    if plain["stragglers"] == traced["stragglers"]:
+        for key in ("fates", "shed", "transitions"):
+            check(plain[key] == traced[key], f"overload flood: the plain and "
+                  f"the traced arm differ in {key}: {plain[key]} != "
+                  f"{traced[key]}")
+        return (f"{len(plain['fates'])} fates, shed {plain['shed']}, "
+                f"{len(plain['transitions'])} ladder transitions equal "
+                f"(stragglers at {plain['stragglers']} in both)")
+    first = min(set(plain["stragglers"]) ^ set(traced["stragglers"]))
+    made = [next((n for t, _, n in arm["observed"] if t >= first),
+                 len(arm["transitions"])) for arm in (plain, traced)]
+    before = [arm["transitions"][:n] for arm, n in zip((plain, traced), made)]
+    check(before[0] == before[1], f"overload flood: the arms' ladder "
+          f"transitions differ before their stragglers do (the call at t "
+          f"{first}): {before[0]} != {before[1]}")
+    return (f"stragglers at {plain['stragglers']} / {traced['stragglers']} "
+            f"(the watchdog's wall clock): {len(before[0])} transitions "
+            f"before the call at t {first} equal; fates equal "
+            f"{plain['fates'] == traced['fates']}, shed equal "
+            f"{plain['shed'] == traced['shed']}, transitions "
+            f"{[(t['t'], t['to']) for t in plain['transitions']]} / "
+            f"{[(t['t'], t['to']) for t in traced['transitions']]}")
+
+
 def _overload_flood(cfg, params, telemetry: bool) -> dict:
     """Parts 2 and 3: the flood through ``run_overload_stream`` on a fresh
     engine (the plan armed before it warms, so the ``build`` fault hits a
-    capture) on the wall clock, watchdog on; with ``telemetry`` the flight
-    recorder is on and the trace and metrics are exported and checked."""
+    capture) under a ``_BatcherClock`` (arrivals, the queue TTL and the
+    deadlines counted in steps), watchdog on; with ``telemetry`` the
+    flight recorder is on and the trace and metrics are exported and
+    checked."""
     import tempfile
 
     from repro_torch import kernels
     from repro_torch.core.faults import Fault, FaultPlan
     from repro_torch.core.telemetry import Telemetry
+    from repro_torch.runtime.degrade import DegradeController
     from repro_torch.runtime.serve import Engine, EngineConfig, run_overload_stream
     from repro_torch.runtime.tracing import (
         lane_track,
@@ -4789,10 +4899,22 @@ def _overload_flood(cfg, params, telemetry: bool) -> dict:
     t0 = time.perf_counter()
     with Engine(cfg, params, EngineConfig(**OVERLOAD_ECFG),
                 telemetry=tel) as eng:
-        rep = run_overload_stream(
-            eng, reqs, slots=8, seed=0, capacity=16,
-            shed_policy="drop-oldest", queue_ttl_s=0.05, degrade=True,
-            faults=plan)
+        observed: list = []
+        observe = DegradeController.observe
+
+        def noted(ctrl, now, **kw):  # reads the controller's inputs only
+            observed.append((round(now, 6), bool(kw.get("straggler")),
+                             len(ctrl.transitions)))
+            return observe(ctrl, now, **kw)
+
+        DegradeController.observe = noted
+        try:
+            rep = _BatcherClock().run(
+                eng, run_overload_stream, reqs, slots=8, seed=0,
+                capacity=16, shed_policy="drop-oldest", queue_ttl_s=0.05,
+                degrade=True, faults=plan)
+        finally:
+            DegradeController.observe = observe
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         want, _ = _lane_launches(eng)
@@ -4820,7 +4942,8 @@ def _overload_flood(cfg, params, telemetry: bool) -> dict:
     parked = 2 * _int8_draft_bytes(cfg, OVERLOAD_ECFG, 8)
     reckoned = (w + kv16 + kv8 + parked) / 1e9
     rob = rep.get("robustness", {})
-    out = {"launches": launches, "standby_calls": standby, "wall": wall}
+    out = {"launches": launches, "standby_calls": standby, "wall": wall,
+           **_flood_fates(reqs, rep, observed)}
     if telemetry:
         with tempfile.TemporaryDirectory() as tmp:
             path = Path(tmp) / "trace.json"
@@ -4877,8 +5000,8 @@ def _overload_flood(cfg, params, telemetry: bool) -> dict:
         f"{len(reqs)} requests at 2000 req/s into 8 slots: finished "
         f"{rep['finished']}, shed {rep['shed']} {rob.get('shed')}, cancelled "
         f"{rep['cancelled']} {rob.get('cancelled')}, failed {rep['failed']}, "
-        f"unserved {rep['unserved']} | {rep.get('tok_per_s', 0.0):.1f} tok/s, "
-        f"latency p50 {rep.get('p50_ms', 0.0):.1f} ms p95 "
+        f"unserved {rep['unserved']} | on the step clock: "
+        f"{rep.get('tok_per_s', 0.0):.1f} tok/s, latency p50 {rep.get('p50_ms', 0.0):.1f} ms p95 "
         f"{rep.get('p95_ms', 0.0):.1f} ms, ttft p50 "
         f"{rep.get('ttft_p50_ms', 0.0):.1f} ms p95 "
         f"{rep.get('ttft_p95_ms', 0.0):.1f} ms | steps {rep['steps']}, "
@@ -4940,7 +5063,9 @@ def overload_phase(cfg, params) -> dict:
     t0 = time.perf_counter()
     inert = _overload_inert(cfg, params)
     flood = _overload_flood(cfg, params, telemetry=False)
-    _overload_flood(cfg, params, telemetry=True)
+    traced = _overload_flood(cfg, params, telemetry=True)
+    log(f"[overload:flood] plain arm against traced arm under the step "
+        f"clock: {_flood_arms_equal(flood, traced)}")
     _overload_launcher()
     _release_engines()
     seconds = time.perf_counter() - t0
@@ -5787,6 +5912,446 @@ def _disagg_phase(cfg, params, launcher: tuple, t0: float) -> dict:
     return out
 
 
+# ------------------- phase 14 (meshes of more than one logical device)
+# olmo-1b at full width (bf16), 8 slots, page 16, chunk 64, max_len 1024,
+# four logical devices that all name this card, and the ladder 1x1 / 1x2 /
+# 2x1 / 2x2: each mesh its own pool and CUDA graphs, the 2-way meshes'
+# weights split over "model" (one set of pieces, shared by 1x2 and 2x2).
+MESH_ECFG = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64,
+                 mesh="1x1", meshes=("1x2", "2x1", "2x2"),
+                 devices=("cuda:0",) * 4)
+MESH_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
+                "sample_rows")
+
+
+def _mesh_stream(eng, reqs, mesh: str, flips: dict | None = None) -> tuple:
+    """``_shared_prefix_traffic`` through ``run_paged_stream`` at ``mesh``
+    under a ``_BatcherClock`` (one schedule at every mesh), with
+    ``flips`` {batcher step: mesh} rebinding before that step. Returns the
+    report and the key (uint32 pair) each request's token i was drawn
+    with, which a sampled token's near-tie check needs."""
+    from repro_torch.runtime.serve import run_paged_stream
+
+    clock, keys = _BatcherClock(), {}
+    by_rid = {r.rid: r for r in reqs}
+    make = eng.paged_continuous
+
+    def logged_batcher(**kw):
+        cb = clock.bind(make(**kw))
+        step = cb.step
+
+        def logged(now: float = 0.0):
+            to = (flips or {}).get(cb.stats.steps)
+            if to is not None and cb.mesh != to:
+                cb.set_mesh(to, now=now)
+            seated = {r.rid: (len(r.tokens), cb._keys[s].copy())
+                      for s, r in enumerate(cb._slots) if r is not None}
+            out = step(now)
+            for rid, (n, key) in seated.items():
+                if len(by_rid[rid].tokens) > n:
+                    keys[rid, n] = key
+            return out
+
+        cb.step = logged
+        return cb
+
+    eng.paged_continuous = logged_batcher
+    try:
+        rep = run_paged_stream(eng, reqs, slots=8, seed=0, clock=clock,
+                               mesh=mesh)
+    finally:
+        del eng.paged_continuous
+    torch.cuda.synchronize()
+    return rep, keys
+
+
+def _card_score_near_tie(cfg, params, seq, a: int, b: int, key,
+                         temperature: float) -> tuple[bool, float]:
+    """``_card_near_tie`` for a sampled token: the sampler's scores
+    (``gumbel + logits / t`` under the row's key at that token,
+    ``kernels.sampling.sample_scores_plain``) of ``a`` and ``b`` lie within
+    ``BF16_TIE_MARGIN``."""
+    import numpy as np
+
+    from repro_torch.kernels import sampling
+
+    row = _card_logits(cfg, params, seq, "fp32")
+    k = torch.from_numpy(np.asarray(key, np.uint32).view(np.int32)).cuda()
+    scores = sampling.sample_scores_plain(
+        row[None], torch.tensor([temperature], device="cuda"),
+        torch.zeros(1, dtype=torch.bool, device="cuda"), k[None])[0]
+    gap = abs(float(scores[a] - scores[b]))
+    return gap < BF16_TIE_MARGIN, gap
+
+
+def _mesh_equals(label: str, cfg, params, base, got, keys) -> int:
+    """A mesh's tokens against 1x1's, request by request: equal, or the
+    first divergence is a near-tie — of the logits for a greedy row, of
+    the sampler's scores under the row's key for a sampled one. Returns
+    the near-tie count."""
+    ties = 0
+    for r, d in zip(base, got):
+        if r.tokens == d.tokens:
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(r.tokens, d.tokens))
+                 if x != y)
+        seq = list(r.effective_prompt) + r.tokens[:i]
+        if r.greedy:
+            ok, gap = _card_near_tie(cfg, params, seq, r.tokens[i],
+                                     d.tokens[i], "fp32")
+        else:
+            ok, gap = _card_score_near_tie(cfg, params, seq, r.tokens[i],
+                                           d.tokens[i], keys[r.rid, i],
+                                           r.temperature)
+        check(ok, f"{label}: rid {r.rid} ({'greedy' if r.greedy else 'sampled'}"
+              f") differs from 1x1 at token {i}, gap {gap:.4f} >= "
+              f"{BF16_TIE_MARGIN}")
+        ties += 1
+    return ties
+
+
+def _mesh_arm(eng, cfg, label: str, mesh: str,
+              flips: dict | None = None) -> tuple:
+    """One stream, its own path: the kernels' counts set to 0 just before
+    and read just after, each held to the targets' replays in the run over
+    every mesh (layers x dp x mp per ``cbp``/``pf`` replay, one
+    ``sample_rows``)."""
+    from repro_torch import kernels
+
+    reqs = _shared_prefix_traffic(cfg)
+    before = _lane_launches(eng)[0]
+    kernels.reset_launch_counts()
+    rep, keys = _mesh_stream(eng, reqs, mesh, flips)
+    want = {k: n - before.get(k, 0) for k, n in _lane_launches(eng)[0].items()}
+    launches = _launches(label, tuple(k for k, n in want.items() if n))
+    for name, n in want.items():
+        check(launches[name] == n, f"{label}: {name} launched "
+              f"{launches[name]} times, the replays reckon {n}")
+    _check_stream(label, cfg, reqs, rep)
+    check(rep["compiles_after_warmup"] == 0,
+          f"{label}: {rep['compiles_after_warmup']} captures after warmup")
+    check(rep["pool_shards"] == 2, f"{label}: pool_shards "
+          f"{rep['pool_shards']}")
+    return reqs, rep, launches, keys
+
+
+def _mesh_tables(eng, slots: int = 8, pages: int = 16) -> torch.Tensor:
+    """Slot s's ``pages`` pages on its own pool shard's block."""
+    shards = eng.pool_shards
+    blk = eng.pool_physical_pages // shards
+    per = slots // shards
+    return torch.tensor([[(s * shards // slots) * blk + 1 + (s % per) * pages
+                          + j for j in range(pages)] for s in range(slots)],
+                        dtype=torch.int32, device="cuda")
+
+
+def _mesh_step_logits(eng, cfg) -> dict:
+    """One decode step (8 slots at position 200 over 16-page tables) and
+    one prefill chunk (64 rows) at 1x2 and 2x2 against 1x1, on one pool
+    content (a copy of 1x1's pool laid out onto each mesh's pieces): the
+    eager steps' logits, max abs difference."""
+    from repro_torch import models
+    from repro_torch.models import tensor_parallel as tp
+
+    g = torch.Generator().manual_seed(14)
+    bt = _mesh_tables(eng)
+    tok = torch.randint(0, cfg.vocab_size, (8, 1), generator=g,
+                        dtype=torch.int32).cuda()
+    chunk = torch.randint(0, cfg.vocab_size, (8, 64), generator=g,
+                          dtype=torch.int32).cuda()
+    pos = torch.full((8,), 200, dtype=torch.int32, device="cuda")
+    start = torch.tensor([0, 64, 128, 192] * 2, dtype=torch.int32,
+                         device="cuda")
+    length = torch.full((8,), 64, dtype=torch.int32, device="cuda")
+    snap = [{n: t.clone() for n, t in d.items()}
+            for d in eng.paged_cache("fp32", "1x1")]
+    out = {}
+    with torch.no_grad():
+        for m in ("1x1", "1x2", "2x2"):
+            pool, ps = eng.paged_cache("fp32", m), eng._params_for_mesh(m)
+            models.relayout_cache(pool, snap)
+            if m == "1x1":
+                dec = models.paged_decode_step(cfg, ps, pool, tok, pos, bt)[0]
+                models.relayout_cache(pool, snap)
+                pf = models.paged_prefill_step(cfg, ps, pool, chunk, start,
+                                               bt, length)[0]
+            else:
+                lay = eng._layout(m, 8)
+                dec = tp.mesh_paged_decode_step(cfg, lay, ps, pool, tok, pos,
+                                                bt)
+                models.relayout_cache(pool, snap)
+                pf = tp.mesh_paged_prefill_step(cfg, lay, ps, pool, chunk,
+                                                start, bt, length)
+            models.relayout_cache(pool, snap)
+            out[m] = (dec.float(), pf.float())
+    del snap
+    errs = {}
+    for m in ("1x2", "2x2"):
+        errs[m] = [float((a - b).abs().max())
+                   for a, b in zip(out[m], out["1x1"])]
+        check(all(e <= STEP_LOGIT_ATOL for e in errs[m]) and all(
+              bool(torch.isfinite(a).all()) for a in out[m]),
+              f"mesh {m}: step logits differ from 1x1's by {errs[m]} "
+              f"(decode, prefill) > {STEP_LOGIT_ATOL}")
+    return errs
+
+
+def _mesh_replay_ms(eng, mesh: str, steps: int = 5) -> dict:
+    """A replayed ``cbp`` step at ``mesh`` (8 slots at position 200,
+    16-page tables, token, position and keys chained): host wall per step
+    over 20 steps, device busy per step from ``torch.profiler`` (CUDA
+    events around queued steps where it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import lanes
+
+    i32 = torch.int32
+    exe = eng._decode.build(lanes.CBP.key(8, 16, "fp32", mesh))
+    state = _steady_args(exe, [
+        torch.zeros(8, 1, dtype=i32, device="cuda"),
+        torch.full((8,), 200, dtype=i32, device="cuda"), _mesh_tables(eng),
+        torch.ones(8, dtype=torch.bool, device="cuda"),
+        torch.ones(8, device="cuda"),
+        torch.ones(8, dtype=torch.bool, device="cuda"), _row_keys(8)])
+    cache = eng.paged_cache("fp32", mesh)
+
+    def run():
+        o = exe(cache, *state)
+        state[0], state[1], state[6] = o[4], o[2], o[3]
+        return o[5].cpu()
+
+    wall = _wall_ms(run)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    busy, by = sum(_kernel_ms(prof, steps).values()), "profiler"
+    if busy == 0:
+        busy = _queued_ms(run, torch.empty(1, device="cuda"), steps)
+        by = "cuda events"
+    return {"wall_ms": wall, "busy_ms": busy, "by": by}
+
+
+def _mesh_smoke_card_vs_cpu() -> dict:
+    """The fp32 smoke config at 1x2 and 2x2 (every other request sampled):
+    the card's graph targets give the CPU engine's tokens, under a step
+    clock."""
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.scheduler import Request
+    from repro_torch.runtime.serve import Engine, EngineConfig, run_paged_stream
+
+    cfg = get_config("olmo-1b").smoke()
+    params = models.init_params(cfg, seed=0)
+    out = {}
+    for mesh in ("1x2", "2x2"):
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            rng = np.random.default_rng(0)
+            rs = [Request(rid=i, new_tokens=6, greedy=i % 2 == 0,
+                          temperature=1.0 if i % 2 == 0 else 0.8,
+                          arrival_s=0.0, prompt=tuple(
+                              int(x) for x in rng.integers(0, cfg.vocab_size,
+                                                           12)))
+                  for i in range(6)]
+            ecfg = EngineConfig(max_len=32, max_batch=4, page_size=8,
+                                num_pages=20, prefill_chunk=8, mesh=mesh,
+                                devices=(dev,) * 4)
+            with Engine(cfg, params, ecfg, device=dev) as eng:
+                rep = run_paged_stream(eng, rs, slots=4, clock=_StepClock())
+            check(rep["compiles_after_warmup"] == 0 and rep["finished"] == 6,
+                  f"mesh smoke {mesh} on {dev}: {rep['finished']} finished, "
+                  f"{rep['compiles_after_warmup']} captures after warmup")
+            toks[dev] = [r.tokens for r in rs]
+        check(toks["cuda"] == toks["cpu"], f"mesh smoke {mesh}: card "
+              f"{toks['cuda']} != CPU {toks['cpu']}")
+        out[mesh] = sum(len(t) for t in toks["cuda"])
+    return out
+
+
+def _pipeline_and_collectives() -> dict:
+    """``pipeline_forward`` over 4 logical stages on this card against
+    ``reference_forward`` (fp32, 8 microbatches of 16 x 256), and
+    ``compressed_psum`` over a 4-way axis on the card against the CPU's."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import pipeline
+    from repro_torch.distributed.sharding import LogicalMesh
+
+    g = torch.Generator().manual_seed(14)
+    n, m, mb, d = 4, 8, 16, 256
+    params = {"w": (torch.randn(n, d, d, generator=g) * d ** -0.5).cuda(),
+              "b": torch.randn(n, d, generator=g).cuda()}
+    xs = torch.randn(m, mb, d, generator=g).cuda()
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    mesh = LogicalMesh((n,), ("stage",), ["cuda:0"] * n)
+    got = pipeline.pipeline_forward(stage, params, xs, mesh=mesh)
+    ref = pipeline.reference_forward(stage, params, xs)
+    err = float((got - ref).abs().max())
+    check(err <= 1e-5, f"pipeline_forward over 4 stages: max abs err {err}")
+    shards = [torch.randn(64, 128, generator=g) * (i + 1) for i in range(4)]
+    cpu = coll.compressed_psum({(i,): s for i, s in enumerate(shards)},
+                               LogicalMesh((4,), ("pod",), ["cpu"] * 4),
+                               "pod")
+    card = coll.compressed_psum({(i,): s.cuda() for i, s in
+                                 enumerate(shards)},
+                                LogicalMesh((4,), ("pod",), ["cuda:0"] * 4),
+                                "pod")
+    check(all(torch.equal(card[c].cpu(), cpu[c]) for c in cpu),
+          "compressed_psum on the card differs from the CPU's")
+    return {"pipeline_err": err,
+            "bubble": pipeline.bubble_fraction(n, m)}
+
+
+def _start_mesh_launcher() -> tuple:
+    """``--mesh 1x2 --meshes "1x1 2x2"`` over four logical devices on this
+    card, as a user runs it (smoke config), a subprocess started at the
+    phase's start."""
+    import os
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp())
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+           "--engine", "paged", "--requests", "6", "--prefix-len", "16",
+           "--prefill-chunk", "16", "--max-len", "64", "--mesh", "1x2",
+           "--meshes", "1x1 2x2", "--devices",
+           "cuda:0 cuda:0 cuda:0 cuda:0", "--json"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out, err = open(tmp / "stdout", "w"), open(tmp / "stderr", "w")
+    proc = subprocess.Popen(cmd, stdout=out, stderr=err, cwd=ROOT, env=env)
+    return proc, tmp, (out, err)
+
+
+def _finish_mesh_launcher(proc, tmp: Path, files: tuple) -> dict:
+    import shutil
+
+    try:
+        rc = proc.wait(timeout=300)
+        for f in files:
+            f.close()
+        text = (tmp / "stdout").read_text()
+        check(rc == 0, f"launcher mesh: exit {rc}: "
+              f"{(tmp / 'stderr').read_text()[-2000:]}")
+        rep = json.loads(text[text.index("{"):])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(rep["mesh"] == "1x2" and rep["pool_shards"] == 2
+          and rep["finished"] == 6 and rep["compiles_after_warmup"] == 0,
+          f"launcher mesh: mesh {rep.get('mesh')}, shards "
+          f"{rep.get('pool_shards')}, finished {rep.get('finished')}, "
+          f"{rep.get('compiles_after_warmup')} captures after warmup")
+    log(f"[mesh:launcher] python -m repro_torch.launch.serve --smoke --engine "
+        f"paged --mesh 1x2 --meshes '1x1 2x2' --devices 'cuda:0 cuda:0 "
+        f"cuda:0 cuda:0' on the card: exit 0, {rep['finished']} finished, "
+        f"pool_shards 2, {rep['compiles_total']} captures, 0 after warmup")
+    return rep
+
+
+def mesh_phase(cfg, params) -> dict:
+    """Phase 14: paged serving on meshes of more than one logical device,
+    all on this card, the pipeline and the collectives. The launcher runs
+    beside the rest. The bf16 cell's stream at 1x1, 1x2 and 2x2, then
+    1x2 -> 2x2 -> 1x1 mid-stream: 0 captures after warmup, 2 rebinds,
+    pool_shards 2, each kernel's launches = the replays' reckoning
+    (layers x dp x mp per step for B1 and B2, one ``sample_rows``), tokens
+    = 1x1's but for near-ties; one step's logits at 1x2 and 2x2 within
+    ``STEP_LOGIT_ATOL`` of 1x1's; a replayed ``cbp`` step's wall and busy
+    ms at each mesh; the peak against the reckoned bytes; the smoke config
+    card = CPU at 1x2 and 2x2; ``pipeline_forward`` and
+    ``compressed_psum``."""
+    _release_engines()
+    t0 = time.perf_counter()
+    launcher = _start_mesh_launcher()
+    try:
+        return _mesh_phase(cfg, params, launcher, t0)
+    finally:
+        if launcher[0].poll() is None:
+            launcher[0].kill()
+
+
+def _mesh_phase(cfg, params, launcher: tuple, t0: float) -> dict:
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    out, paths, arms = {}, {}, {}
+    with Engine(cfg, params, EngineConfig(**MESH_ECFG)) as eng:
+        check(eng.graphs, "mesh: the engine's targets are not CUDA graphs")
+        t_warm = time.perf_counter()
+        eng.paged_continuous(slots=8)  # captures every mesh's targets
+        t_warm = time.perf_counter() - t_warm
+        captures = eng._decode.stats.misses
+        for mesh in ("1x1", "1x2", "2x2"):
+            arms[mesh] = _mesh_arm(eng, cfg, f"mesh {mesh}", mesh)
+        arms["ladder"] = _mesh_arm(eng, cfg, "mesh ladder 1x2 -> 2x2 -> 1x1",
+                                   "1x2", flips={20: "2x2", 60: "1x1"})
+        r0 = arms["ladder"][1]
+        rebinds = int(eng.telemetry.registry.value("mesh_rebinds_total"))
+        check(rebinds == 2, f"mesh ladder: {rebinds} rebinds")
+        base, _, _, keys1 = arms["1x1"]
+        for name, (reqs, rep, launches, _) in arms.items():
+            paths[f"mesh {name} (phase 14)"] = launches
+            if name == "1x1":
+                continue
+            ties = _mesh_equals(f"mesh {name}", cfg, params, base, reqs,
+                                keys1)
+            out.setdefault("ties", {})[name] = ties
+            log(f"[mesh] {name}: tokens = 1x1's on {len(reqs) - ties} of "
+                f"{len(reqs)} requests ({sum(not r.greedy for r in reqs)} "
+                f"sampled, {sum(len(r.tokens) for r in reqs)} tokens), {ties}"
+                f" near-tie divergences; {rep['steps']} steps, lanes "
+                f"{rep['lane_steps']}, 0 captures after warmup; launches "
+                + ", ".join(f"{k} {launches[k]}" for k in MESH_KERNELS))
+        peak = torch.cuda.max_memory_allocated()
+        pools = {m: _pool_bytes(eng, "fp32", m)
+                 for m in ("1x1", "1x2", "2x1", "2x2")}
+        weights = sum(t.numel() * t.element_size() for t in params.values())
+        pieces = sum(t.numel() * t.element_size()
+                     for t in eng._tp_pieces.values())
+        reckoned = weights + pieces + sum(pools.values())
+        errs = _mesh_step_logits(eng, cfg)
+        timing = {m: _mesh_replay_ms(eng, m)
+                  for m in ("1x1", "1x2", "2x1", "2x2")}
+        t_wait = time.perf_counter()
+        _finish_mesh_launcher(*launcher)
+        t_wait = time.perf_counter() - t_wait
+    del eng
+    _release_engines()
+    smoke = _mesh_smoke_card_vs_cpu()
+    pc = _pipeline_and_collectives()
+    out.update(seconds=time.perf_counter() - t0, paths=paths, errs=errs,
+               timing=timing, peak_gb=peak / 1e9)
+    log(f"[mesh] olmo-1b bf16 on four logical devices of one card "
+        f"{MESH_ECFG['devices']}: {captures} targets captured for the "
+        f"ladder 1x1 / 1x2 / 2x1 / 2x2 in {t_warm:.1f} s; the ladder arm "
+        f"{r0['finished']} finished, 2 rebinds, 0 captures after warmup")
+    log(f"[mesh] one step's logits against 1x1 (decode, prefill max abs): "
+        + "; ".join(f"{m} {e[0]:.4f}, {e[1]:.4f}" for m, e in errs.items())
+        + f" (limit {STEP_LOGIT_ATOL})")
+    for m, t in timing.items():
+        log(f"[mesh] replayed cbp step at {m} (8 slots at position 200, "
+            f"16-page tables): wall {t['wall_ms']:.4f} ms, device busy "
+            f"{_fmt_ms(t['busy_ms'])} by {t['by']} | {_card()}")
+    log(f"[mesh] peak {peak / 1e9:.2f} GB against {reckoned / 1e9:.2f} GB "
+        f"reckoned (weights {weights / 1e9:.3f} + the split weights' pieces "
+        f"{pieces / 1e9:.3f} + four pools "
+        + ", ".join(f"{m} {b / 1e9:.3f}" for m, b in pools.items())
+        + f" GB) | {_card()}")
+    log(f"[mesh] smoke (fp32) card = CPU at 1x2 and 2x2 ({smoke} tokens); "
+        f"pipeline_forward over 4 logical stages = reference_forward, max "
+        f"abs err {pc['pipeline_err']:.3g} (bubble "
+        f"{pc['bubble']:.4f}); compressed_psum card = CPU")
+    log(f"[mesh] phase 14 passed in {out['seconds']:.1f}s (of which "
+        f"{t_wait:.1f}s waiting for the launcher) | {_card()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5810,6 +6375,7 @@ def main() -> int:
     overload = overload_phase(main_path["cfg"], main_path["params"])
     t_c13, c13_launches = c13_on_card(main_path["cfg"], main_path["params"])
     disagg = disagg_phase(main_path["cfg"], main_path["params"])
+    mesh = mesh_phase(main_path["cfg"], main_path["params"])
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
     prompt = prompt_then_burst(main_path["cfg"], main_path["params"])
     profile_steps(main_path["cfg"], main_path["params"])
@@ -5847,6 +6413,7 @@ def main() -> int:
         f"{train['seconds']:.1f}s) | {_card()}")
     paths["c13 two batchers (phase 12)"] = c13_launches
     paths.update({f"{k} (phase 13)": v for k, v in disagg["paths"].items()})
+    paths.update(mesh["paths"])
     paths["train (phase 12)"] = train["launches"]
     for row in rows:
         if row["name"] in new:
@@ -5867,7 +6434,8 @@ def main() -> int:
         f"internvl2-1b, musicgen-medium) {t10:.1f}s; phase 3d (async vs "
         f"sync) {t_async:.1f}s; phase 11 (the overload stream) "
         f"{overload['seconds']:.1f}s; phase 12 (C13, training) {t12:.1f}s; "
-        f"phase 13 (mesh, disagg, capture report) {disagg['seconds']:.1f}s")
+        f"phase 13 (mesh, disagg, capture report) {disagg['seconds']:.1f}s; "
+        f"phase 14 (meshes of more than one device) {mesh['seconds']:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,19 @@
-"""Gradient compression for the trainer (the port's copy of the compressor
-half of ``repro.distributed.collectives``), over dicts of tensors.
+"""Gradient compression for the trainer and the collectives over a logical
+mesh: the port's copy of ``repro.distributed.collectives``.
 
 ``quantize_tree`` / ``dequantize_tree`` are int8 quantisation with one
 float32 scale per leaf; ``make_grad_compressor`` is the trainer's
 ``grad_compress`` hook (int8 or bf16, with an error-feedback residual so
-repeated compression does not bias the optimiser). The JAX package's
-``compressed_psum`` is an all-reduce over a device mesh and waits for the
-mesh layer (ROADMAP A12).
+repeated compression does not bias the optimiser). ``all_reduce``,
+``all_gather``, ``ppermute``, ``pmax`` and ``compressed_psum`` (an int8
+all-reduce) run over one axis of a ``sharding.LogicalMesh``, on a mapping
+from mesh coordinate to shard: the port's counterparts of ``lax.psum``,
+``lax.all_gather``, ``lax.ppermute`` and ``lax.pmax`` inside ``shard_map``.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Mapping, Sequence
 
 import torch
 
@@ -69,3 +71,97 @@ def make_grad_compressor(
         return ghat, new_r
 
     return compress, init_residual
+
+
+# ------------------------------------------------- collectives over a mesh
+# Each takes and returns a mapping from mesh coordinate to tensor (the
+# shards of one logical array); ``axis`` names the mesh axis the collective
+# runs over, so coordinates that differ only there form one group. Every
+# result is computed once per group in a fixed order of coordinates (so it
+# does not depend on which device asks) and moved to each member's device
+# with ``.to(device)``: on one card the members share one tensor.
+def _groups(xs: Mapping[tuple, torch.Tensor], mesh,
+            axis: str) -> list[list[tuple]]:
+    """``xs``'s coordinates grouped by every axis but ``axis``, each group
+    in ascending order along ``axis``."""
+    a = mesh.axis(axis)
+    groups: dict[tuple, list[tuple]] = {}
+    for c in sorted(xs):
+        groups.setdefault(c[:a] + c[a + 1:], []).append(c)
+    return list(groups.values())
+
+
+def _spread(group: list[tuple], value: torch.Tensor, mesh) -> dict:
+    return {c: value.to(mesh.device(c)) for c in group}
+
+
+def all_reduce(xs: Mapping[tuple, torch.Tensor], mesh,
+               axis: str) -> dict:
+    """The sum over ``axis`` (``lax.psum``), accumulated in the shards'
+    dtype in ascending coordinate order."""
+    out: dict = {}
+    for group in _groups(xs, mesh, axis):
+        dev = mesh.device(group[0])
+        acc = xs[group[0]]
+        for c in group[1:]:
+            acc = acc + xs[c].to(dev)
+        out.update(_spread(group, acc, mesh))
+    return out
+
+
+def pmax(xs: Mapping[tuple, torch.Tensor], mesh, axis: str) -> dict:
+    """The elementwise maximum over ``axis`` (``lax.pmax``)."""
+    out: dict = {}
+    for group in _groups(xs, mesh, axis):
+        dev = mesh.device(group[0])
+        acc = xs[group[0]]
+        for c in group[1:]:
+            acc = torch.maximum(acc, xs[c].to(dev))
+        out.update(_spread(group, acc, mesh))
+    return out
+
+
+def all_gather(xs: Mapping[tuple, torch.Tensor], mesh, axis: str, *,
+               dim: int = 0, tiled: bool = False) -> dict:
+    """Every shard along ``axis``, in order (``lax.all_gather``): stacked
+    on a new axis ``dim``, or with ``tiled`` concatenated along ``dim``."""
+    out: dict = {}
+    for group in _groups(xs, mesh, axis):
+        dev = mesh.device(group[0])
+        parts = [xs[c].to(dev) for c in group]
+        joined = torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
+        out.update(_spread(group, joined, mesh))
+    return out
+
+
+def ppermute(xs: Mapping[tuple, torch.Tensor], mesh, axis: str,
+             perm: Sequence[tuple[int, int]]) -> dict:
+    """``lax.ppermute``: the shard at index ``src`` along ``axis`` moves to
+    index ``dst`` for every ``(src, dst)`` of ``perm``; a coordinate that
+    receives nothing gets zeros."""
+    a = mesh.axis(axis)
+    dst_of = dict(perm)
+    out = {c: torch.zeros_like(x) for c, x in xs.items()}
+    for c, x in xs.items():
+        if c[a] in dst_of:
+            to = c[:a] + (dst_of[c[a]],) + c[a + 1:]
+            if to in out:
+                out[to] = x.to(mesh.device(to))
+    return out
+
+
+def compressed_psum(xs: Mapping[tuple, torch.Tensor], mesh,
+                    axis: str) -> dict:
+    """int8-on-the-wire all-reduce (``repro.distributed.collectives``'s
+    ``compressed_psum``): each shard's absmax scale, their ``pmax``, each
+    shard quantised to int8 at that shared scale, an ``all_gather`` of the
+    int8 shards (the moved tensors really are int8: a quarter of an f32
+    all-reduce's bytes), and an f32 sum of them times the scale. Right-sized
+    for a small axis (2-8 shards)."""
+    scales = pmax({c: _qparams(x.to(torch.float32)) for c, x in xs.items()},
+                  mesh, axis)
+    qs = {c: _quantize(x.to(torch.float32), scales[c])
+          for c, x in xs.items()}
+    gathered = all_gather(qs, mesh, axis)  # int8 on the wire
+    return {c: torch.sum(g.to(torch.float32), dim=0) * scales[c]
+            for c, g in gathered.items()}

@@ -1,0 +1,40 @@
+"""Production and debug meshes (the port's copy of ``repro.launch.mesh``).
+
+Functions, not module-level constants, so importing this module touches no
+device. A production mesh is over ``meta`` devices: it allocates nothing,
+and the spec rules (``distributed.sharding``) resolve against it.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.distributed.sharding import LogicalMesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """The 16x16 ("data", "model") mesh, or 2x16x16 with a "pod" axis."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in shape:
+        n *= s
+    return LogicalMesh(shape, axes, ["meta"] * n)
+
+
+def make_debug_mesh(shape: Sequence[int] = (2, 2),
+                    axes: Sequence[str] = ("data", "model"),
+                    devices: Sequence[str | torch.device] | None = None
+                    ) -> LogicalMesh:
+    """A small mesh over ``devices`` (default: ``cuda:0`` named once per
+    coordinate where a card is present, else the CPU), for logical devices
+    on one card or on the CPU in tests."""
+    n = 1
+    for s in shape:
+        n *= s
+    if devices is None:
+        dev = "cuda:0" if torch.cuda.is_available() else "cpu"
+        devices = [dev] * n
+    return LogicalMesh(shape, axes, devices)

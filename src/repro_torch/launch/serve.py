@@ -33,9 +33,11 @@ entry per warmed key (``capture_analysis``: flops, bytes, transcendentals,
 the kernels' share, the capture ms and the key's H100 roofline terms).
 ``--async-steps`` (``--async-depth``) pipelines the continuous and paged
 engines' steps. ``--mesh`` and ``--meshes`` name the active and standby
-serving meshes (DESIGN.md §16; one-device plans, "1x1" and slices
-"1x1@OFF") over ``--devices`` (space-separated; default each visible
-device of ``--device``'s type), and ``--disagg [SLICE]`` pins the paged
+serving meshes (DESIGN.md §16: "1x1", slices "1x1@OFF" and, for the
+paged engine, plans of several devices such as "1x2" and "2x2") over
+``--devices`` (space-separated; default each visible device of
+``--device``'s type; ``--mesh 1x2 --meshes "1x1 2x2" --devices "cuda:0
+cuda:0 cuda:0 cuda:0"`` serves tensor- and data-parallel on one card), and ``--disagg [SLICE]`` pins the paged
 engine's prefill lanes to a slice (DESIGN.md §17; default the slice right
 after the decode mesh's devices), which ``--meshes`` must list:
 ``--devices "cuda:0 cuda:0"`` runs both slices on one card. ``--arch`` names any config of
@@ -108,7 +110,7 @@ _REPORT_KEYS = (
     "h2d_uploads", "kv_dtype", "pool_pages", "pages_in_use_peak",
     "peak_concurrent", "share_ratio", "overcommit_ratio", "preemptions",
     "bucket_crossings", "cow_copies", "spec_k", "k_bucket_crossings",
-    "mode_switches", "hot_calls",
+    "mode_switches", "hot_calls", "mesh", "pool_shards",
 )
 
 
@@ -299,14 +301,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                          "eager run at the key's shapes, the kernels' "
                          "share, H100 roofline terms) as JSON")
     ap.add_argument("--mesh", default="1x1",
-                    help="serving mesh 'DPxMP[@OFF]' (DESIGN.md §16), a "
-                         "warmed dispatch coordinate. One-device plans "
-                         "only: '1x1' or a slice '1x1@OFF' on --devices' "
-                         "entry OFF; more devices wait for ROADMAP A12 "
-                         "part 2")
+                    help="serving mesh 'DPxMP[@OFF]' (DESIGN.md §16) — "
+                         "data x model over --devices' entries [OFF, OFF + "
+                         "DP*MP), which may all name one card — a warmed "
+                         "dispatch coordinate. Plans of more than one "
+                         "device serve --engine paged (dense family, "
+                         "fp32/model-dtype pages, no --spec-k)")
     ap.add_argument("--meshes", default="",
                     help="space-separated standby mesh names to warm "
-                         "alongside --mesh (e.g. '1x1@1'): a mid-stream "
+                         "alongside --mesh (e.g. '1x2 2x2'): a mid-stream "
                          "rebind onto any of them is a hot-slot flip, "
                          "never a capture")
     ap.add_argument("--disagg", nargs="?", const=True, default=None,
@@ -320,8 +323,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--devices", default="",
                     help="the engine's logical devices, space-separated "
                          "(e.g. 'cuda:0 cuda:0': both slices of a split on "
-                         "one card); default each visible device of "
-                         "--device's type")
+                         "one card; 'cuda:0 cuda:0 cuda:0 cuda:0': a 2x2 "
+                         "plan on one card); default each visible device "
+                         "of --device's type")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")

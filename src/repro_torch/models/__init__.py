@@ -1,7 +1,9 @@
 """Model code of the port: the dense and MoE LM families' and the Mamba-2
 (SSM) family's full-sequence forward and prefill, the attention families'
 paged serving path, the training loss, and the dense-cache decode (burst engine, dense
-continuous engine and speculative draft; an SSM slot's recurrent state)."""
+continuous engine and speculative draft; an SSM slot's recurrent state),
+and the dense family's paged path over a mesh of logical devices
+(``tensor_parallel``)."""
 
 from .attention import (
     ATTN_IMPLS,
@@ -36,6 +38,7 @@ from .model import (
 )
 from .moe import POLICIES as MOE_POLICIES
 from .ssm import init_ssm_cache, ssd_scan, ssm_apply, ssm_decode_step
+from .tensor_parallel import ShardedCache, relayout_cache
 
 __all__ = [
     "ATTN_IMPLS",
@@ -44,6 +47,7 @@ __all__ = [
     "KV_SCALE_EPS",
     "MOE_AUX_WEIGHT",
     "MOE_POLICIES",
+    "ShardedCache",
     "check_paged",
     "chunked_decode_step",
     "chunked_verify_step",
@@ -67,6 +71,7 @@ __all__ = [
     "pad_cache",
     "prefill",
     "quantise_kv_rows",
+    "relayout_cache",
     "ssd_scan",
     "ssm_apply",
     "ssm_decode_step",

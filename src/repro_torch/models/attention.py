@@ -282,7 +282,22 @@ def _decode_sdpa_rows(
 ) -> torch.Tensor:
     """Per-row masked SDPA tail: q [B,Sq,H,dh]; keys/vals [B,L,KH,dh] (each
     row's gathered pages); pos i32[B] (one query per row) or i32[B,Sq]
-    (per-query causal frontiers). Returns the projected output [B,Sq,D].
+    (per-query causal frontiers). Returns the projected output [B,Sq,D]."""
+    return _out_proj(cfg, p, _decode_sdpa_core(cfg, q, keys, vals, pos,
+                                               local=local))
+
+
+def _decode_sdpa_core(
+    cfg: ArchConfig,
+    q: torch.Tensor,
+    keys: torch.Tensor,
+    vals: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    local: bool,
+) -> torch.Tensor:
+    """``_decode_sdpa_rows`` before ``wo``: the attention output
+    [B,Sq,H,dh].
 
     Keys/values dequantised from int8 arrive in f32: the products then run
     in f32 and the attention output is cast to the model dtype before
@@ -307,7 +322,7 @@ def _decode_sdpa_rows(
         mask = torch.where(ok, 0.0, NEG_INF)[:, None, None, None, :]
     probs = torch.softmax(scores + mask, dim=-1).to(vals.dtype)
     og = torch.einsum("bhgqk,bkhd->bqhgd", probs, vals).to(q.dtype)
-    return _out_proj(cfg, p, og.reshape(b, sq, cfg.num_heads, cfg.head_dim))
+    return og.reshape(b, sq, cfg.num_heads, cfg.head_dim)
 
 
 def quantise_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -443,18 +458,39 @@ def paged_decode_attention(
     writes its scales beside it; attention then follows the int8 dtype
     rule (module docstring).
     """
+    q, k, v = _qkv(cfg, p, x, pos[:, None])
+    o = paged_decode_core(cfg, cache, q, k, v, pos, block_tables,
+                          local=local, attn_impl=attn_impl)
+    return _out_proj(cfg, p, o), cache
+
+
+def paged_decode_core(
+    cfg: ArchConfig,
+    cache: dict,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos: torch.Tensor,
+    block_tables: torch.Tensor,
+    *,
+    local: bool,
+    attn_impl: str = "kernel",
+) -> torch.Tensor:
+    """``paged_decode_attention`` between the projections: write the new
+    K/V row (k/v [B,1,KH,dh]) and attend q [B,1,H,dh] over the row's pages
+    -> [B,1,H,dh] (the tensor-parallel forward runs it on each shard's
+    heads)."""
     ps = cache["k"].shape[1]
     pages_bucket = block_tables.shape[1]
-    q, k, v = _qkv(cfg, p, x, pos[:, None])
     page_idx = (pos // ps).clamp(0, pages_bucket - 1).long()
     wpage = block_tables.gather(1, page_idx[:, None])[:, 0]
     _write_pages(cache, wpage, pos % ps, k[:, 0], v[:, 0])
     if attn_impl == "kernel":
         o = _paged_kernel(cfg, cache, q[:, 0], block_tables, pos,
                           local=local, chunk=False)
-        return _out_proj(cfg, p, o[:, None]), cache
+        return o[:, None]
     gk, gv = _gather_pages(cfg, cache, block_tables)
-    return _decode_sdpa_rows(cfg, p, q, gk, gv, pos, local=local), cache
+    return _decode_sdpa_core(cfg, q, gk, gv, pos, local=local)
 
 
 def paged_prefill_attention(
@@ -481,22 +517,48 @@ def paged_prefill_attention(
     quantises the rows with the decode path's ``quantise_kv_rows``, so both
     write the same bits.
     """
-    c = x.shape[1]
+    q, k, v = _qkv(cfg, p, x, chunk_positions(start, x.shape[1]))
+    o = paged_prefill_core(cfg, cache, q, k, v, start, block_tables, length,
+                           local=local, attn_impl=attn_impl)
+    return _out_proj(cfg, p, o), cache
+
+
+def chunk_positions(start: torch.Tensor, c: int) -> torch.Tensor:
+    """The positions [B,C] of a chunk of ``c`` rows starting at ``start``."""
+    offs = torch.arange(c, dtype=torch.int32, device=start.device)
+    return start[:, None] + offs[None, :]
+
+
+def paged_prefill_core(
+    cfg: ArchConfig,
+    cache: dict,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    start: torch.Tensor,
+    block_tables: torch.Tensor,
+    length: torch.Tensor,
+    *,
+    local: bool,
+    attn_impl: str = "kernel",
+) -> torch.Tensor:
+    """``paged_prefill_attention`` between the projections: write the
+    chunk's K/V rows (k/v [B,C,KH,dh]; padded columns to the null page)
+    and attend q [B,C,H,dh] causally -> [B,C,H,dh]."""
+    c = q.shape[1]
     ps = cache["k"].shape[1]
     pages_bucket = block_tables.shape[1]
-    offs = torch.arange(c, dtype=torch.int32, device=x.device)
+    offs = torch.arange(c, dtype=torch.int32, device=q.device)
     positions = start[:, None] + offs[None, :]  # [B,C]
-    q, k, v = _qkv(cfg, p, x, positions)
     page_idx = (positions // ps).clamp(0, pages_bucket - 1).long()
     wpage = block_tables.gather(1, page_idx)  # [B,C]
     wpage = torch.where(offs[None, :] < length[:, None], wpage, 0)
     _write_pages(cache, wpage, positions % ps, k, v)
     if attn_impl == "kernel":
-        o = _paged_kernel(cfg, cache, q, block_tables, start,
-                          local=local, chunk=True)
-        return _out_proj(cfg, p, o), cache
+        return _paged_kernel(cfg, cache, q, block_tables, start,
+                             local=local, chunk=True)
     gk, gv = _gather_pages(cfg, cache, block_tables)
-    return _decode_sdpa_rows(cfg, p, q, gk, gv, positions, local=local), cache
+    return _decode_sdpa_core(cfg, q, gk, gv, positions, local=local)
 
 
 # ------------------------------------------------------- the dense per-slot cache

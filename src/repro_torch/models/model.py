@@ -34,6 +34,7 @@ import torch.utils.checkpoint as checkpoint_utils
 from repro_torch import perf
 from repro_torch.configs import ArchConfig
 
+from . import tensor_parallel
 from .attention import init_paged_kv_cache
 from .blocks import (
     block_apply,
@@ -596,7 +597,11 @@ def copy_cache_pages(cache: list, src: int, dst: int) -> list:
     """Copy one physical page's contents in every layer — the device half
     of copy-on-write (``kvcache.BlockTable.ensure_writable``). Every leaf
     with a page axis moves, int8 pages' scales included. In place: ``dst``
-    pages are overwritten, nothing is reallocated."""
+    pages are overwritten, nothing is reallocated. A mesh's pool
+    (``tensor_parallel.ShardedCache``) copies within the pages' data row."""
+    if isinstance(cache, tensor_parallel.ShardedCache):
+        tensor_parallel.copy_mesh_pages(cache, src, dst)
+        return cache
     for slot_cache in cache:
         for t in slot_cache.values():
             t[:, dst] = t[:, src]

@@ -1,0 +1,456 @@
+"""The paged serving path of the dense family over a mesh of logical
+devices (DESIGN.md §16; ROADMAP A12 part 2): tensor parallelism over
+``model`` and data parallelism over ``data``, with the collectives where
+GSPMD puts them in the JAX package.
+
+**Weights** (``shard_params``) follow ``MeshPlan.param_specs`` (TP only):
+each model shard ``m`` holds its piece of every split leaf and the whole of
+every replicated one. The layout of the forward is read from those specs,
+never assumed (``TPLayout``):
+
+* ``wq``/``wk``/``wv`` column-parallel over heads, ``wo`` row-parallel, and
+  an ``all_reduce`` over ``model`` after ``wo`` (Megatron's split);
+* ``w_gate``/``w_up`` column-parallel over ``d_ff``, ``w_down``
+  row-parallel, an ``all_reduce`` after it;
+* the embedding vocab-parallel: a masked lookup of the shard's rows, then
+  an ``all_reduce``; the head (tied or not) gives vocab-parallel logits,
+  then an ``all_gather``. Where the vocab does not divide, the rules split
+  ``d_model`` instead: the lookup's columns are gathered, and the head's
+  products over its columns are summed with an ``all_reduce``.
+
+Where a spec leaves a weight whole (``num_kv_heads % mp != 0``: ``wk``/
+``wv`` replicated while ``wq`` is split), each shard computes it whole, as
+GSPMD would: every shard writes the whole K/V into its replica of the pool,
+the query heads are gathered over ``model``, and each shard attends with
+every head and keeps its own heads' output for its rows of ``wo``. Where
+``wq`` itself is whole (``num_heads % mp != 0``), attention runs whole on
+every shard and needs no reduction. Norms and residuals run on every shard
+as replicas.
+
+**The pool** (``ShardedCache``, ``init_mesh_paged_cache``) follows
+``MeshPlan.paged_cache_specs``: data row ``d`` holds the physical page block
+``[d·R, (d+1)·R)`` (R = physical pages / dp; with ``kvcache.PagePool``'s
+shards, one or more shard blocks, each with its own null page), its kv heads
+split over ``model`` where they divide. Block tables keep global page ids;
+the step turns them into each row's local ids (an id outside the row, the
+null padding, reads and writes the row's first null page).
+
+**Slots**: slot ``s`` runs on data row ``s·dp // S`` — the row that holds
+its pool shard (``s·shards // S``, ``runtime.scheduler``) — so rows are the
+equal contiguous groups ``row_spec`` gives when ``S % dp == 0``. Each row's
+devices run every layer on its slots; kernels B1/B2 launch on each shard's
+heads over its pool block. The rows' logits are gathered over ``data`` onto
+the mesh's first device, where the step samples once.
+
+Families other than dense attention + MLP stacks, int8 pools and the
+speculative, dense-engine and migration lanes raise ``NotImplementedError``
+(ROADMAP A12 part 3) in the engine before anything here runs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Sequence
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shd
+
+from . import attention as attn
+from . import mlp as mlp_mod
+from .blocks import _scale, _is_local
+from .layers import embed_apply, head_apply, norm_apply, softcap
+
+
+def check_dense(cfg: ArchConfig) -> None:
+    """The tensor-parallel path serves attention + MLP stacks only."""
+    for slot in range(cfg.period):
+        if (not cfg.mixer_at(slot).startswith("attn")
+                or cfg.mlp_at(slot) == "moe"):
+            raise NotImplementedError(
+                f"{cfg.name}: slot {slot} ({cfg.mixer_at(slot)}, "
+                f"{cfg.mlp_at(slot)}) on a plan of more than one device "
+                f"waits for {shd.PART3}: the tensor-parallel path serves "
+                f"dense attention + MLP stacks")
+    if cfg.input_kind != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: embeddings inputs on a plan of more than one "
+            f"device wait for {shd.PART3}")
+
+
+@dataclass(frozen=True)
+class TPLayout:
+    """What a mesh's resolved specs split, and where each slot runs."""
+
+    dp: int
+    mp: int
+    heads: bool  # wq/wo split over model (num_heads % mp == 0)
+    kv: bool  # wk/wv and the pool's heads split (num_kv_heads % mp == 0)
+    mlp: bool  # w_gate/w_up/w_down split over d_ff
+    vocab: bool  # the embedding and the head split over the vocab
+    width: bool  # ... else over d_model (a vocab 'model' does not divide)
+    rows: tuple  # (lo, hi) slot range of each data row
+    row_block: int  # physical pages per data row
+
+    def local_cfg(self, cfg: ArchConfig, *, kv_whole: bool = False
+                  ) -> ArchConfig:
+        """``cfg`` at one shard's head counts (no ``validate``: a shard's
+        query heads need not divide its kv heads' group)."""
+        h = cfg.num_heads // self.mp if self.heads else cfg.num_heads
+        kh = (cfg.num_kv_heads // self.mp if self.kv and not kv_whole
+              else cfg.num_kv_heads)
+        return replace(cfg, num_heads=h, num_kv_heads=kh)
+
+
+def layout_for(cfg: ArchConfig, specs: dict, plan: shd.MeshPlan,
+               slots: int, physical_pages: int) -> TPLayout:
+    """The layout ``specs`` (``plan.param_specs``) give, with ``slots``
+    grouped by data row."""
+    def split(key: str) -> bool:
+        return key in specs and shd.splits(specs[key], "model")
+
+    emb = specs["embed.embedding"]  # [V, D]; an untied head [D, V] splits
+    # its vocab, or else its width, exactly where the table does
+
+    slot0 = "blocks.0."
+    rows = tuple(
+        (next((s for s in range(slots) if s * plan.dp // slots == d), slots),
+         next((s for s in range(slots) if s * plan.dp // slots > d), slots))
+        for d in range(plan.dp))
+    return TPLayout(
+        dp=plan.dp, mp=plan.mp,
+        heads=split(slot0 + "attn.wq"), kv=split(slot0 + "attn.wk"),
+        mlp=split(slot0 + "mlp.w_gate"),
+        vocab="model" in shd.spec_axes(emb[0]),
+        width="model" in shd.spec_axes(emb[1]),
+        rows=rows, row_block=physical_pages // plan.dp,
+    )
+
+
+# ---------------------------------------------------------------- weights
+def shard_params(params: dict, specs: dict, mesh: shd.LogicalMesh,
+                 memo: dict) -> dict:
+    """Each coordinate's weights: a split leaf's piece (a contiguous copy on
+    the coordinate's device), a replicated leaf moved there (``.to`` of a
+    tensor already on that device is the tensor itself; so is every leaf
+    of a mesh whose model axis has one device). ``memo`` keys pieces by
+    (device, leaf, model size, model index), so data rows on one card, and
+    every mesh of one model size, share them."""
+    out = {}
+    a = mesh.axis("model")
+    mp = mesh.shape["model"]
+    for c in mesh.coords():
+        dev = mesh.device(c)
+        shard: dict = {}
+        for key, t in params.items():
+            spec = specs[key]
+            if mp == 1 or not shd.splits(spec, "model"):
+                shard[key] = t.to(dev)  # whole on every coordinate
+                continue
+            mk = (str(dev), key, mp, c[a])
+            if mk not in memo:
+                sl = shd.shard_slices(t.shape, spec, mesh, c)
+                memo[mk] = t[sl].to(dev, copy=True).contiguous()
+            shard[key] = memo[mk]
+        out[c] = shard
+    return out
+
+
+# ------------------------------------------------------------------- pool
+class ShardedCache(list):
+    """A mesh's page pool: every coordinate's per-period-slot leaf dicts in
+    coordinate order (so what walks a cache — zeroing, parking, copying one
+    pool into another of the same mesh — walks the pieces), with ``shards``
+    (coordinate -> its period-slot list), ``mesh``, ``specs`` (per period
+    slot, leaf -> spec), the global ``shapes`` and ``row_block``."""
+
+    def __init__(self, mesh, shards: dict, specs: list, shapes: list,
+                 row_block: int):
+        super().__init__(d for c in mesh.coords() for d in shards[c])
+        self.mesh = mesh
+        self.shards = shards
+        self.specs = specs
+        self.shapes = shapes
+        self.row_block = row_block
+
+
+def init_mesh_paged_cache(plan: shd.MeshPlan, global_cache: list,
+                          ) -> ShardedCache:
+    """The pool of a multi-device ``plan`` for the global layout
+    ``global_cache`` (``models.init_paged_cache`` on the ``meta`` device):
+    each coordinate's zeroed piece on its device."""
+    mesh = plan.mesh
+    specs = plan.paged_cache_specs(global_cache)
+    shapes = [{n: tuple(t.shape) for n, t in d.items()} for d in global_cache]
+    shards = {
+        c: [{n: torch.zeros(shd.local_shape(t.shape, sp[n], mesh),
+                            dtype=t.dtype, device=mesh.device(c))
+             for n, t in d.items()}
+            for d, sp in zip(global_cache, specs)]
+        for c in mesh.coords()
+    }
+    phys = global_cache[0]["k"].shape[1]
+    return ShardedCache(mesh, shards, specs, shapes, phys // plan.dp)
+
+
+def _global_leaf(cache: list, i: int, name: str,
+                 device: torch.device) -> torch.Tensor:
+    if isinstance(cache, ShardedCache):
+        pieces = {c: cache.shards[c][i][name] for c in cache.mesh.coords()}
+        return shd.unshard(pieces, cache.specs[i][name], cache.mesh, device)
+    return cache[i][name].to(device)
+
+
+def relayout_cache(dst: list, src: list) -> None:
+    """Copy pool ``src`` into pool ``dst`` of any layout (one device or a
+    mesh's pieces): global page ``p`` of every leaf lands at ``p`` of the
+    other layout. In place: ``dst``'s tensors are written, never rebound
+    (the graphs captured over them hold their addresses)."""
+    if not isinstance(dst, ShardedCache) and not isinstance(src,
+                                                            ShardedCache):
+        for d, s in zip(dst, src):
+            for name, t in d.items():
+                t.copy_(s[name])
+        return
+    sharded = isinstance(dst, ShardedCache)
+    for i in range(len(dst.specs) if sharded else len(dst)):
+        for name in (dst.specs[i] if sharded else dst[i]):
+            if sharded:
+                first = dst.shards[dst.mesh.coords()[0]][i][name]
+                g = _global_leaf(src, i, name, first.device)
+                for c in dst.mesh.coords():
+                    piece = dst.shards[c][i][name]
+                    piece.copy_(g[shd.shard_slices(
+                        dst.shapes[i][name], dst.specs[i][name], dst.mesh,
+                        c)])
+            else:
+                t = dst[i][name]
+                t.copy_(_global_leaf(src, i, name, t.device))
+
+
+def copy_mesh_pages(cache: ShardedCache, src: int, dst: int) -> None:
+    """``models.copy_cache_pages`` on a mesh's pool: both pages lie in one
+    data row's block (a table only holds pages of its slot's shard); every
+    coordinate of that row copies its piece."""
+    rb = cache.row_block
+    row = src // rb
+    if dst // rb != row:
+        raise ValueError(f"copy-on-write across data rows: page {src} (row "
+                         f"{row}) -> {dst} (row {dst // rb})")
+    a = cache.mesh.axis("data")
+    for c in cache.mesh.coords():
+        if c[a] != row:
+            continue
+        for slot_cache in cache.shards[c]:
+            for t in slot_cache.values():
+                t[:, dst - row * rb] = t[:, src - row * rb]
+
+
+# ---------------------------------------------------------------- forward
+def _local_tables(bt: torch.Tensor, row: int, block: int) -> torch.Tensor:
+    """Global page ids -> the row's local ids; ids outside the row (null
+    padding of another shard) -> the row's first null page."""
+    loc = bt - row * block
+    return torch.where((loc >= 0) & (loc < block), loc, torch.zeros_like(loc))
+
+
+class _Row:
+    """One data row's shards: its coordinates, devices, weights and pool
+    pieces, and the collectives over its model axis."""
+
+    def __init__(self, lay: TPLayout, mesh, params: dict, cache: ShardedCache,
+                 d: int):
+        self.lay, self.mesh = lay, mesh
+        self.coords = [(d, m) for m in range(lay.mp)]
+        self.devs = [mesh.device(c) for c in self.coords]
+        self.params = [params[c] for c in self.coords]
+        self.caches = [cache.shards[c] for c in self.coords]
+        self._views: dict = {}
+
+    def layer(self, m: int, i: int, slot: int) -> tuple[dict, dict]:
+        """Shard ``m``'s layer ``i`` of period slot ``slot``: its weights
+        (nested, as the blocks take them) and its pool views."""
+        key = (m, i, slot)
+        if key not in self._views:
+            prefix = f"blocks.{slot}."
+            p: dict = {}
+            for name, t in self.params[m].items():
+                if name.startswith(prefix):
+                    module, leaf = name[len(prefix):].split(".", 1)
+                    p.setdefault(module, {})[leaf] = t[i]
+            self._views[key] = (p, {k: t[i] for k, t in
+                                    self.caches[m][slot].items()})
+        return self._views[key]
+
+    def each(self, t: torch.Tensor) -> list:
+        return [t.to(dv) for dv in self.devs]
+
+    def reduce(self, xs: list) -> list:
+        out = coll.all_reduce(dict(zip(self.coords, xs)), self.mesh, "model")
+        return [out[c] for c in self.coords]
+
+    def gather(self, xs: list, dim: int) -> list:
+        out = coll.all_gather(dict(zip(self.coords, xs)), self.mesh, "model",
+                              dim=dim, tiled=True)
+        return [out[c] for c in self.coords]
+
+
+def _embed(cfg: ArchConfig, row: _Row, toks: list) -> list:
+    lay = row.lay
+    if not lay.vocab:
+        xs = [embed_apply(cfg, p, t) for p, t in zip(row.params, toks)]
+        return row.gather(xs, dim=-1) if lay.width else xs
+    xs = []
+    for m, (p, t) in enumerate(zip(row.params, toks)):
+        table = p["embed.embedding"]
+        n = table.shape[0]
+        ids = t - m * n
+        ok = (ids >= 0) & (ids < n)
+        x = embed_apply(cfg, {"embed.embedding": table},
+                        torch.where(ok, ids, torch.zeros_like(ids)))
+        xs.append(x * ok[..., None].to(x.dtype))
+    return row.reduce(xs)
+
+
+def _head(cfg: ArchConfig, row: _Row, xs: list) -> torch.Tensor:
+    if row.lay.width:  # each shard's columns of the product, then summed
+        parts = []
+        for m, (p, x) in enumerate(zip(row.params, xs)):
+            w = (p["embed.embedding"].T if cfg.tie_embeddings
+                 else p["head.lm_head"])
+            n = w.shape[0]
+            parts.append(x[..., m * n:(m + 1) * n] @ w)
+        return softcap(row.reduce(parts)[0].float(), cfg.final_logit_softcap)
+    logits = [head_apply(cfg, p, x) for p, x in zip(row.params, xs)]
+    if row.lay.vocab:
+        logits = row.gather(logits, dim=-1)
+    return logits[0]
+
+
+def _attend(cfg: ArchConfig, row: _Row, slot: int, i: int, hs: list,
+            positions: list, core) -> list:
+    """One layer's attention on every shard of a row -> each shard's share
+    of the output (reduced over ``model`` when ``wo`` is split). ``core(
+    lcfg, cache, q, k, v, shard)`` writes and attends."""
+    lay = row.lay
+    local = _is_local(cfg, slot)
+    kv_whole = lay.heads and not lay.kv
+    lcfg = lay.local_cfg(cfg, kv_whole=kv_whole)
+    outs, qs, kvs = [], [], []
+    for m in range(lay.mp):
+        p, c = row.layer(m, i, slot)
+        q, k, v = attn._qkv(lcfg, p["attn"], hs[m], positions[m])
+        qs.append(q)
+        kvs.append((p, c, k, v))
+    if kv_whole:  # every head attends on every shard; each keeps its own
+        qs = row.gather(qs, dim=2)
+        h = lcfg.num_heads
+        for m, (p, c, k, v) in enumerate(kvs):
+            o = core(cfg, c, qs[m], k, v, m, local)
+            outs.append(attn._out_proj(lcfg, p["attn"],
+                                       o[:, :, m * h:(m + 1) * h]))
+    else:
+        for m, (p, c, k, v) in enumerate(kvs):
+            o = core(lcfg, c, qs[m], k, v, m, local)
+            outs.append(attn._out_proj(lcfg, p["attn"], o))
+    return row.reduce(outs) if lay.heads else outs
+
+
+def _mlp(cfg: ArchConfig, row: _Row, slot: int, i: int, xs: list) -> list:
+    if cfg.mlp_at(slot) == "none":
+        return xs
+    outs = []
+    for m in range(row.lay.mp):
+        p, _ = row.layer(m, i, slot)
+        h = norm_apply(cfg, _scale(p, "norm2"), xs[m])
+        outs.append(mlp_mod.mlp_apply(cfg, p["mlp"], h))
+    if row.lay.mlp:
+        outs = row.reduce(outs)
+    return [x + o for x, o in zip(xs, outs)]
+
+
+def _tower(cfg: ArchConfig, row: _Row, toks: list, positions: list,
+           core) -> list:
+    """Embed, every layer (attention then MLP, residuals on every shard),
+    the final norm -> each shard's hidden state (replicas)."""
+    xs = _embed(cfg, row, toks)
+    for i in range(cfg.num_layers // cfg.period):
+        for slot in range(cfg.period):
+            hs = [norm_apply(cfg, _scale(row.layer(m, i, slot)[0], "norm1"),
+                             xs[m]) for m in range(row.lay.mp)]
+            a = _attend(cfg, row, slot, i, hs, positions, core)
+            xs = [x + o for x, o in zip(xs, a)]
+            xs = _mlp(cfg, row, slot, i, xs)
+    return [norm_apply(cfg, p.get("final_norm.scale"), x)
+            for p, x in zip(row.params, xs)]
+
+
+def _rows(lay: TPLayout, mesh, params: dict, cache: ShardedCache):
+    for d, (lo, hi) in enumerate(lay.rows):
+        if hi > lo:
+            yield d, lo, hi, _Row(lay, mesh, params, cache, d)
+
+
+def mesh_paged_decode_step(
+    cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
+    inputs: torch.Tensor, pos: torch.Tensor, block_tables: torch.Tensor,
+    *, attn_impl: str = "kernel",
+) -> torch.Tensor:
+    """``models.paged_decode_step`` over the mesh: inputs i32[S,1], pos
+    i32[S], block_tables i32[S,PB] (global ids) on the mesh's first device
+    -> logits [S,V] float32 there; every shard's pool piece updated in
+    place."""
+    mesh = cache.mesh
+    out = []
+    for d, lo, hi, row in _rows(lay, mesh, params, cache):
+        p = row.each(pos[lo:hi])
+        bt = row.each(_local_tables(block_tables[lo:hi], d, lay.row_block))
+
+        def core(lcfg, c, q, k, v, m, local, p=p, bt=bt):
+            return attn.paged_decode_core(lcfg, c, q, k, v, p[m], bt[m],
+                                          local=local, attn_impl=attn_impl)
+
+        xs = _tower(cfg, row, row.each(inputs[lo:hi]),
+                    [x[:, None] for x in p], core)
+        out.append(_head(cfg, row, [x[:, -1] for x in xs]))
+    return _gather_rows(mesh, out)
+
+
+def mesh_paged_prefill_step(
+    cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
+    inputs: torch.Tensor, start: torch.Tensor, block_tables: torch.Tensor,
+    length: torch.Tensor, *, attn_impl: str = "kernel",
+) -> torch.Tensor:
+    """``models.paged_prefill_step`` over the mesh: inputs i32[S,C], start,
+    length i32[S], block_tables i32[S,PB] (global ids) on the mesh's first
+    device -> the logits of each row's last real chunk row [S,V] float32
+    there; every shard's pool piece updated in place."""
+    from .model import _last_real_row
+
+    mesh = cache.mesh
+    out = []
+    c_len = inputs.shape[1]
+    for d, lo, hi, row in _rows(lay, mesh, params, cache):
+        st = row.each(start[lo:hi])
+        ln = row.each(length[lo:hi])
+        bt = row.each(_local_tables(block_tables[lo:hi], d, lay.row_block))
+
+        def core(lcfg, c, q, k, v, m, local, st=st, bt=bt, ln=ln):
+            return attn.paged_prefill_core(lcfg, c, q, k, v, st[m], bt[m],
+                                           ln[m], local=local,
+                                           attn_impl=attn_impl)
+
+        xs = _tower(cfg, row, row.each(inputs[lo:hi]),
+                    [attn.chunk_positions(s, c_len) for s in st], core)
+        out.append(_head(cfg, row, [_last_real_row(x, n)
+                                    for x, n in zip(xs, ln)]))
+    return _gather_rows(mesh, out)
+
+
+def _gather_rows(mesh, out: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The data rows' logits concatenated in slot order on the mesh's first
+    device (the gather over ``data``)."""
+    dev = mesh.device(mesh.coords()[0])
+    return torch.cat([o.to(dev) for o in out], dim=0)

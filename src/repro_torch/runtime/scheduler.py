@@ -52,8 +52,12 @@ The mesh coordinate (DESIGN.md §16-§17) is the JAX package's too:
 paged batcher's disaggregated mode runs the prefill lane on its own slice
 and pool, migrating each prompt's pages to the decode pool at its PREFILL
 -> DECODE flip (``kvcache.migrate_pages`` and the engine's ``mg``
-targets); ``set_disagg`` splits and collapses mid-stream. Not in the port:
-meshes of more than one device (ROADMAP A12 part 2).
+targets); ``set_disagg`` splits and collapses mid-stream. On a pool of
+several shards (a warm ladder with a data-parallel mesh) slot ``s`` is
+pinned to shard ``s * shards // num_slots``, as in the JAX package: its
+table allocates, adopts and prefix-matches pages of that shard only, and
+pads with that shard's null page, so a mesh's data row finds every page of
+its slots in its own block.
 """
 
 from __future__ import annotations
@@ -2070,6 +2074,11 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         disagg_ctl: Callable | None = None,
         disagg: bool = False,
     ):
+        if pool.shards > num_slots:
+            raise ValueError(
+                f"pool has {pool.shards} shards but only {num_slots} slots; "
+                f"every shard needs at least one slot to serve its pages."
+            )
         self.mesh = mesh  # before telemetry: lane histograms carry it
         self._mesh_ctl = mesh_ctl
         self._init_slots(num_slots, device, seed, telemetry)
@@ -2083,6 +2092,16 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         self._tables: list[BlockTable | None] = [None] * num_slots
         self._prompt_cached = np.zeros(num_slots, bool)
         self._pages_bucket = 1
+        # Data-parallel slot partitioning (DESIGN.md §16): slot ``s`` is
+        # pinned to pool shard ``s * shards // num_slots`` (contiguous slot
+        # groups per shard), so its table allocates, adopts and
+        # prefix-matches only that shard's pages; one shard makes every
+        # entry 0, the unsharded layout. Packed tables pad each row with
+        # its own shard's null page (zeros with one shard).
+        self._slot_shard = [s * pool.shards // num_slots
+                            for s in range(num_slots)]
+        self._null_fill = np.array(
+            [pool.null_page(sh) for sh in self._slot_shard], np.int32)
         self._bt_host: np.ndarray | None = None
         self._bt_dirty = True  # packed decode tables need a rebuild
         # full-width packed tables for the verify lane (pinned at the page
@@ -2159,26 +2178,33 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         self._page_upkeep(0)
 
     # ------------------------------------------------------------- cold path
-    def _reclaim_pages(self, want: int, requester_priority: int) -> bool:
-        """Free >= ``want`` pages: evict idle prefix pages, then preempt
-        strictly-lower-priority requests. False if pressure can't be met."""
-        if self.pool.pages_free >= want:
+    def _reclaim_pages(self, want: int, requester_priority: int,
+                       shard: int = 0) -> bool:
+        """Free >= ``want`` pages *on ``shard``*: evict idle prefix pages
+        from that shard's trie, then preempt strictly-lower-priority
+        requests seated on the same shard (a victim elsewhere would free
+        the wrong shard's pages). False if pressure can't be met."""
+        if self.pool.pages_free_in(shard) >= want:
             return True
-        self.prefix.evict(want - self.pool.pages_free)
-        while self.pool.pages_free < want:
-            victim = self._pick_victim(requester_priority)
+        self.prefix.evict(want - self.pool.pages_free_in(shard), shard)
+        while self.pool.pages_free_in(shard) < want:
+            victim = self._pick_victim(requester_priority, shard)
             if victim is None:
                 return False
             self._preempt_slot(victim)
-            self.prefix.evict(want - self.pool.pages_free)
+            self.prefix.evict(want - self.pool.pages_free_in(shard), shard)
         return True
 
-    def _pick_victim(self, requester_priority: int) -> int | None:
-        """Lowest-priority active slot strictly below the requester; ties
-        break toward the most recently admitted (least sunk work)."""
+    def _pick_victim(self, requester_priority: int,
+                     shard: int = 0) -> int | None:
+        """Lowest-priority active slot strictly below the requester *on the
+        requester's shard*; ties break toward the most recently admitted
+        (least sunk work)."""
         best, best_key = None, None
         for s, req in enumerate(self._slots):
             if req is None or not self._active[s]:
+                continue
+            if self._slot_shard[s] != shard:
                 continue
             if req.priority >= requester_priority:
                 continue
@@ -2236,26 +2262,31 @@ class PagedContinuousBatcher(_MultiLaneMixin):
                 self.stats.rejected_oversize += 1
                 self.rejected.append(req)
                 continue
+            # The request seats in the head free slot, and the slot pins the
+            # pool shard, so the shard is decided before the prefix walk:
+            # only pages resident on that shard may be adopted.
+            s = free[0]
+            shard = self._slot_shard[s]
             # Prefix-cache walk: adopt already-populated full prompt pages,
             # but never the page holding the last prompt token — that token
             # is re-fed to prime generation, and keeping its page private
             # makes prompt-path writes COW-free.
-            pages, _ = self.prefix.match(prompt)
+            pages, _ = self.prefix.match(prompt, shard)
             usable = min(len(pages), (len(prompt) - 1) // self.pool.page_size)
             for pid in pages[usable:]:
                 self.pool.decref(pid)
             pages = pages[:usable]
             matched = usable * self.pool.page_size
-            table = BlockTable(pool=self.pool, pages=pages, num_tokens=matched)
+            table = BlockTable(pool=self.pool, pages=pages, num_tokens=matched,
+                               shard=shard)
             # first private page: the one the re-fed prompt token writes into
-            starved = not self._reclaim_pages(1, req.priority) or (
+            starved = not self._reclaim_pages(1, req.priority, shard) or (
                 not table.ensure_capacity(matched)
             )
             # PREFILL when more than the re-fed last token remains to ingest
             # and a chunked lane exists; otherwise straight to DECODE
             # (token-by-token forcing handles any prompt remainder there)
             will_prefill = self.prefill_chunk > 0 and len(prompt) - matched > 1
-            s = free[0]
             if not starved and self.disagg and will_prefill:
                 # disaggregated chunks run on the prefill slice: copy the
                 # adopted prefix pages there, and drop the just-ensured
@@ -2314,7 +2345,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             need = table.page_index(top) + 1 - table.num_pages
             if need > 0:
                 self._tables_changed()
-                if not self._reclaim_pages(need, req.priority) or (
+                if not self._reclaim_pages(need, req.priority, table.shard) or (
                     not table.ensure_capacity(top)
                 ):
                     self._preempt_slot(s)  # can't grow: preempt the requester
@@ -2358,9 +2389,10 @@ class PagedContinuousBatcher(_MultiLaneMixin):
             n = table.num_tokens // self.pool.page_size
         if keep is None:
             keep = n
+        shard = table.shard
         pages: list[int] = []
         for _ in range(n):
-            pid = self.pf_pool.alloc()
+            pid = self.pf_pool.alloc(shard)
             if pid is None:
                 for p in pages:
                     self.pf_pool.decref(p)
@@ -2371,6 +2403,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
                             pages, to_prefill=True)
         self._pf_tables[s] = BlockTable(
             pool=self.pf_pool, pages=pages, num_tokens=table.num_tokens,
+            shard=shard,
         )
         self._pf_keep[s] = keep
         self.stats.pf_shadow_pages += n
@@ -2392,11 +2425,12 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         req = self._slots[s]
         fresh = pf_t.pages[keep:]
         if fresh:
-            if not self._reclaim_pages(len(fresh), req.priority):
+            shard = base.shard
+            if not self._reclaim_pages(len(fresh), req.priority, shard):
                 pf_t.release()
                 self._preempt_slot(s)
                 return False
-            mapping = migrate_pages(self.pf_pool, self.pool, fresh)
+            mapping = migrate_pages(self.pf_pool, self.pool, fresh, shard)
             dst = [mapping[p] for p in fresh]
             self._transport(self._pf_cache, self._cache, fresh, dst)
             base.trim(keep)  # the stale twin of the boundary page, if any
@@ -2487,7 +2521,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
                     self._preempt_slot(s)
                 continue
             self._tables_changed()
-            if not self._reclaim_pages(need, req.priority) or (
+            if not self._reclaim_pages(need, req.priority, table.shard) or (
                 not table.ensure_capacity(cursor + chunk - 1)
             ):
                 self._preempt_slot(s)
@@ -2505,7 +2539,9 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         ins = _static_inputs(step)
         tok = np.zeros((self.num_slots, bucket), np.int32)
         length = np.zeros(self.num_slots, np.int32)
-        bt = np.zeros((self.num_slots, self.max_pages_per_req), np.int32)
+        # idle rows pad with each slot's own shard's null page, so padded
+        # writes stay in the slot's shard under a data-parallel mesh
+        bt = np.repeat(self._null_fill[:, None], self.max_pages_per_req, 1)
         for s, cursor, chunk in kept:
             prompt = self._slots[s].effective_prompt
             tok[s, :chunk] = prompt[cursor : cursor + chunk]
@@ -2609,7 +2645,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         step = self._dispatch(bucket)  # cold: slot-hit unless bucket moved
         ins = _static_inputs(step)
         if self._bt_dirty:
-            bt = np.zeros((self.num_slots, bucket), np.int32)  # null page 0
+            bt = np.repeat(self._null_fill[:, None], bucket, 1)  # null pages
             for s, table in enumerate(self._tables):
                 if table is not None and decoding[s]:
                     bt[s, : table.num_pages] = table.pages
@@ -2660,7 +2696,7 @@ class PagedContinuousBatcher(_MultiLaneMixin):
         windows. Returns the new keys (chained) and the packed ``[S, K+4]``
         device tensor."""
         if self._bt_full_dirty:
-            bt = np.zeros((self.num_slots, self.max_pages_per_req), np.int32)
+            bt = np.repeat(self._null_fill[:, None], self.max_pages_per_req, 1)
             for s, table in enumerate(self._tables):
                 if table is not None:
                     bt[s, : table.num_pages] = table.pages

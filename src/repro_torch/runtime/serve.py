@@ -76,8 +76,17 @@ captured targets — so ``set_mesh`` copies a batcher's live state into the
 target cell and flips the hot slot, never rebinding a captured tensor.
 ``paged_continuous(disagg=...)`` splits prefill from decode: the prefill
 lanes run on the prefill slice's pool, and a prompt's pages migrate to the
-decode pool at its flip (the ``mg`` targets). Plans of more than one device
-wait for ROADMAP A12 part 2 and raise ``NotImplementedError``.
+decode pool at its flip (the ``mg`` targets). A plan of more than one
+logical device ("1x2", "2x2", ...: ``devices[off : off + dp·mp]``, which
+may all name one card) serves the paged lanes ``cbp`` and ``pf`` of the
+dense family: tensor-parallel weights over ``model``, the pool's page
+blocks over ``data`` and its kv heads over ``model``
+(``models.tensor_parallel``); each such mesh is a cell with its own pool
+and targets, and on the card each key is still one CUDA graph. ``set_mesh``
+copies the live pages between the layouts. int8 pools, speculation, the
+dense engine's lanes, disaggregation over multi-device slices, other
+families and plans across distinct cards raise ``NotImplementedError``
+there (ROADMAP A12 part 3).
 
 With ``Telemetry(compile_analysis=True)`` each build appends the key's
 capture report (``capture_analysis``) with its roofline terms
@@ -100,6 +109,7 @@ import torch
 from repro_torch import capture_analysis, models, perf, prng, roofline
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import build as kernel_build
+from repro_torch.models import tensor_parallel
 from repro_torch.core import DispatchError, DispatchPolicy, Dispatcher
 from repro_torch.core import bucket_multiple
 from repro_torch.core.graph_target import GraphTarget, check_args
@@ -196,15 +206,16 @@ class EngineConfig:
     token_budget: int = 0
     # The serving mesh (DESIGN.md §16-§17): the active topology and the
     # standby names to warm, each a trailing key coordinate of every lane
-    # that touches a pool. One-device plans only: "1x1" (the engine's own
-    # device) and slices "1x1@OFF" (``devices[OFF]``); a plan of more than
-    # one device raises NotImplementedError (ROADMAP A12 part 2).
+    # that touches a pool: "1x1" (the engine's own device), slices
+    # "1x1@OFF" (``devices[OFF]``) and plans "DPxMP[@OFF]" of more than one
+    # logical device (``devices[OFF : OFF + DP*MP]``; the paged lanes of the
+    # dense family, all on one card).
     mesh: str = "1x1"
     meshes: tuple = ()
-    # The engine's logical devices, which slices index: () = each visible
+    # The engine's logical devices, which meshes index: () = each visible
     # device of the engine's type (every CUDA card, or "cpu" once). One
-    # device may be named twice (("cuda:0", "cuda:0") puts both slices of a
-    # split on one card).
+    # device may be named several times (("cuda:0",) * 4 is a 2x2 plan on
+    # one card).
     devices: tuple = ()
 
 
@@ -344,7 +355,8 @@ class _GraphStep:
 
 class Engine:
     """The per-burst engine and the dense and paged serving lanes, on one
-    device or on one-device mesh slices of the engine's devices."""
+    device, on one-device mesh slices of the engine's devices, or (the
+    paged lanes) on meshes of several logical devices."""
 
     def __init__(
         self,
@@ -407,9 +419,12 @@ class Engine:
         )
         self._current: Callable | None = None  # mirror of the hot slot
         self.stats = {"tokens": 0, "hot_calls": 0, "mode_switches": 0}
-        # mesh plans by name, and the weights per mesh device (§16-§17)
+        # mesh plans by name, the weights per mesh device (§16-§17), and
+        # tensor-parallel weight pieces (shared by every mesh of one model
+        # size on one card)
         self._mesh_plans: dict[str, shd.MeshPlan] = {}
         self._mesh_params: dict = {}
+        self._tp_pieces: dict = {}
         self._last_target = None  # the capture report's input (_build)
         # the engine's own state, which graph targets are captured over
         self._paged_caches: dict = {}  # (kv_dtype, mesh) -> page pool
@@ -469,6 +484,9 @@ class Engine:
         last = self._last_target
         if last is None:
             return {"error": "no target was built"}
+        if last == "mesh":
+            return {"error": f"the capture report of a plan of more than "
+                             f"one device waits for {shd.PART3}"}
         step, params, cache, args, extent = last
         rep = capture_analysis.analyze_target(step, params, cache, *args)
         if "error" in rep:
@@ -508,27 +526,68 @@ class Engine:
 
     def _mesh_plan(self, name: str) -> shd.MeshPlan:
         """The plan of a mesh name, checked where an engine warms or binds
-        it: a slice past ``devices`` raises ``ValueError``, a plan of more
-        than one device ``NotImplementedError``."""
+        it: a plan past ``devices`` raises ``ValueError``; a plan of more
+        than one device whose devices span distinct cards, or whose model
+        the tensor-parallel path does not serve, ``NotImplementedError``."""
         nm = shd.mesh_name(*shd.parse_slice_name(name))
         plan = self._mesh_plans.get(nm)
         if plan is None:
             plan = shd.MeshPlan(nm, self.devices)
-            plan.device  # noqa: B018 - the checks above
+            if plan.solo:
+                plan.device  # noqa: B018 - the check above
+            else:
+                cards = sorted({str(d) for d in plan.mesh.devices})
+                if len(cards) > 1:
+                    raise NotImplementedError(
+                        f"mesh {nm!r} spans the distinct devices {cards}: "
+                        f"plans across cards wait for {shd.PART3}; name one "
+                        f"card for every logical device")
+                tensor_parallel.check_dense(self.cfg)
             self._mesh_plans[nm] = plan
         return plan
 
+    def _multi(self, mesh: str) -> bool:
+        """Whether ``mesh`` is a plan of more than one logical device."""
+        return not self._mesh_plan(mesh).solo
+
+    def _one_device(self, mesh: str, what: str) -> None:
+        """Refuse ``what`` on a plan of more than one device (part 3)."""
+        if self._multi(mesh):
+            raise NotImplementedError(
+                f"{what} on the mesh {mesh!r} of more than one device waits "
+                f"for {shd.PART3}")
+
     def _mesh_device(self, mesh: str) -> torch.device:
         """The device a mesh's targets and storage live on: the engine's
-        own for ``"1x1"``, ``devices[OFF]`` for a slice ``"1x1@OFF"``."""
+        own for ``"1x1"``, ``devices[OFF]`` for a slice ``"1x1@OFF"``, the
+        first of a multi-device plan's (where its steps' per-slot inputs
+        and outputs live)."""
         plan = self._mesh_plan(mesh)
-        return self.device if plan.single else plan.device
+        return self.device if plan.single else torch.device(plan.device)
+
+    def _layout(self, mesh: str, slots: int) -> "tensor_parallel.TPLayout":
+        """A multi-device plan's tensor-parallel layout for ``slots``."""
+        plan = self._mesh_plan(mesh)
+        return tensor_parallel.layout_for(
+            self.cfg, plan.param_specs(self.params), plan, slots,
+            self.pool_physical_pages)
 
     def _params_for_mesh(self, mesh: str, *, draft: bool = False) -> dict:
         """The weights as a mesh's targets take them, moved to its device
         once (``.to()`` onto the engine's own device returns each tensor
-        itself, so a slice on the same card shares the weights)."""
+        itself, so a slice on the same card shares the weights); for a
+        multi-device plan, each coordinate's (``tensor_parallel.
+        shard_params``: replicated weights shared, pieces once per card and
+        model size)."""
         base = self.draft_params if draft else self.params
+        if self._multi(mesh):
+            plan = self._mesh_plan(mesh)
+            key = ("mesh", plan.name)
+            if key not in self._mesh_params:
+                self._mesh_params[key] = tensor_parallel.shard_params(
+                    base, plan.param_specs(base), plan.mesh,
+                    self._tp_pieces)
+            return self._mesh_params[key]
         dev = self._mesh_device(mesh)
         key = (str(dev), draft)
         hit = self._mesh_params.get(key)
@@ -572,7 +631,8 @@ class Engine:
             for _, shape, dt in specs
         ]
         if self.telemetry.compile_analysis:
-            self._last_target = (step, params, cache, examples, extent)
+            self._last_target = ("mesh" if self._multi(mesh) else
+                                 (step, params, cache, examples, extent))
         if not self.graphs:
             return self._guarded(step, specs, cache_dtype, params, device)
         names = [n for n, _, _ in specs]
@@ -611,12 +671,15 @@ class Engine:
     @staticmethod
     def _extent(cache: list, pages: int | None = None) -> int:
         """Bytes of a cache a key's shapes address: ``pages`` pages of
-        every leaf of a pool (page axis 1), or the whole of a dense cache."""
+        every leaf of a pool (page axis 1; a mesh's pages spread over its
+        data rows), or the whole of a dense cache."""
         total = 0
         for layer in cache:
             for t in layer.values():
                 n = t.numel() * t.element_size()
                 total += n if pages is None else n // t.shape[1] * pages
+        if pages is not None and isinstance(cache, models.ShardedCache):
+            total //= cache.mesh.shape["data"]
         return total
 
     def _build_burst_decode(self, batch: int, mode: int) -> Callable:
@@ -719,6 +782,7 @@ class Engine:
         step = steps_mod.make_paged_slot_decode_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
+            layout=self._layout(mesh, slots) if self._multi(mesh) else None,
         )
         i32 = torch.int32
         cache = self.paged_cache(kv_dtype, mesh)
@@ -768,6 +832,7 @@ class Engine:
         step = steps_mod.make_paged_prefill_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
+            layout=self._layout(mesh, slots) if self._multi(mesh) else None,
         )
         cache = self.paged_cache(kv_dtype, mesh)
         return self._target(
@@ -783,6 +848,7 @@ class Engine:
         target scores all K+1 window positions in one pass through the paged
         chunk path (DESIGN.md §11). The window width k+1 is part of the
         shapes; the block table is pinned at the per-request page cap."""
+        self._one_device(mesh, "speculation ('vf')")
         step = steps_mod.make_paged_verify_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
@@ -847,6 +913,7 @@ class Engine:
         migrations pad ``idx`` with the null page, so the page count is
         never a coordinate: one pair of targets moves one page or a whole
         request."""
+        self._one_device(mesh, "page migration ('mg')")
         cache = self.paged_cache(kv_dtype, mesh)
         b = self.max_pages_per_req
         rows = {"idx": ((b,), torch.int32)}
@@ -874,10 +941,18 @@ class Engine:
         hold two pools, distinct storage even on one card."""
         key = (kv_dtype, shd.mesh_name(*shd.parse_slice_name(mesh)))
         if key not in self._paged_caches:
-            self._paged_caches[key] = models.init_paged_cache(
-                self.cfg, self.pool_physical_pages, self.ecfg.page_size,
-                kv_dtype, device=self._mesh_device(key[1]),
-            )
+            if self._multi(key[1]):  # the mesh's pieces of the pool
+                if kv_dtype == "int8":
+                    self._one_device(key[1], "an int8 pool")
+                self._paged_caches[key] = tensor_parallel.init_mesh_paged_cache(
+                    self._mesh_plan(key[1]), models.init_paged_cache(
+                        self.cfg, self.pool_physical_pages,
+                        self.ecfg.page_size, kv_dtype, device="meta"))
+            else:
+                self._paged_caches[key] = models.init_paged_cache(
+                    self.cfg, self.pool_physical_pages, self.ecfg.page_size,
+                    kv_dtype, device=self._mesh_device(key[1]),
+                )
         return self._paged_caches[key]
 
     def dense_cache(self, slots: int, mesh: str = "1x1") -> list:
@@ -888,6 +963,7 @@ class Engine:
         that slot count and mesh is bound to it, and ``continuous`` hands it
         to its batcher, which still admits requests by ``max_len``."""
         key = (slots, shd.mesh_name(*shd.parse_slice_name(mesh)))
+        self._one_device(key[1], "the dense engine's cache")
         if key not in self._dense_caches:
             self._dense_caches[key] = models.init_cache(
                 self.cfg, slots, models.dense_rows(self.ecfg.max_len),
@@ -902,6 +978,7 @@ class Engine:
         first use."""
         key = (slots, draft_kv_dtype,
                shd.mesh_name(*shd.parse_slice_name(mesh)))
+        self._one_device(key[2], "speculation's draft cache")
         if key not in self._draft_caches:
             self._draft_caches[key] = models.init_cache(
                 self.draft_cfg, slots, models.dense_rows(self.ecfg.max_len),
@@ -951,7 +1028,7 @@ class Engine:
         src = self._banks[src_key]
         bank = self._banks.setdefault(dst_key, _StorageBank(target))
         bank.vacate()
-        _copy_cache(target, src.cache)
+        models.relayout_cache(target, src.cache)  # either layout to either
         bank.seat(owner)
         src.leave(owner)
         if src in owner.banks:  # a draft cache is claimed at its dispatch
@@ -1039,8 +1116,8 @@ class Engine:
     @property
     def pool_shards(self) -> int:
         """Page-pool shard count: the widest warmed data-parallel degree,
-        which every other warmed mesh's dp must divide. 1 with one-device
-        plans, the only ones the port runs (ROADMAP A12 part 2)."""
+        which every other warmed mesh's dp must divide (so every warmed
+        mesh's data rows hold whole shard blocks)."""
         meshes = self._warm_meshes()
         shards = max(shd.parse_mesh_name(m)[0] for m in meshes)
         for m in meshes:
@@ -1131,6 +1208,23 @@ class Engine:
         device (``_mesh_plan``): checked before a batcher warms anything."""
         for m in self._warm_meshes():
             self._mesh_plan(m)
+
+    def _check_mesh_lanes(self, *, dense: bool = False, spec: bool = False,
+                          disagg: bool = False) -> None:
+        """What a multi-device plan in the warm ladder cannot warm yet
+        (ROADMAP A12 part 3), refused before anything is warmed: the dense
+        engine, speculation, int8 pools, disaggregation."""
+        multi = [m for m in self._warm_meshes() if self._multi(m)]
+        if not multi:
+            return
+        if dense:
+            self._one_device(multi[0], "the dense engine's 'cb'/'pfd' lanes")
+        if spec:
+            self._one_device(multi[0], "speculation ('vf', 'dr', 'drp')")
+        if "int8" in self._warm_kv_dtypes():
+            self._one_device(multi[0], "an int8 pool")
+        if disagg:
+            self._one_device(multi[0], "disaggregated prefill/decode")
 
     def _disagg_lanes_enabled(self, ctx: "_WarmCtx") -> bool:
         """The migration lane's gate: only a batcher that opted into
@@ -1553,6 +1647,7 @@ class Engine:
             and self._supports_spec_decode()
         )
         m0 = self._mesh_arg(mesh)
+        self._check_mesh_lanes(spec=use_spec, disagg=bool(disagg))
         dg = self._disagg_plan(disagg, m0, use_spec)
         ddt = draft_kv_dtype or ecfg.draft_kv_dtype
         if ddt not in self._warm_draft_kv_dtypes():
@@ -1774,6 +1869,7 @@ class Engine:
             )
         s = slots or self.ecfg.max_batch
         m0 = self._mesh_arg(mesh)
+        self._check_mesh_lanes(dense=True)
         ddt = draft_kv_dtype or self.ecfg.draft_kv_dtype
         if ddt not in self._warm_draft_kv_dtypes():
             raise ValueError(

@@ -31,6 +31,7 @@ import torch
 from repro_torch import models
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import sampling
+from repro_torch.models import tensor_parallel
 from repro_torch.optim import adamw
 
 
@@ -168,7 +169,8 @@ def make_slot_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel",
 
 
 def make_paged_slot_decode_fn(
-    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop"
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop",
+    layout: tensor_parallel.TPLayout | None = None,
 ) -> Callable:
     """Paged continuous-batching decode step (DESIGN.md §9):
 
@@ -178,15 +180,24 @@ def make_paged_slot_decode_fn(
               packed[S,4])
 
     Inactive slots carry all-null block tables, so their writes land in the
-    null page; their positions do not advance."""
+    null page; their positions do not advance. With a mesh ``layout``
+    (``models.tensor_parallel``) ``params`` are the mesh's per-coordinate
+    weights and ``cache`` its ``ShardedCache``: each data row's shards run
+    every layer on its slots, and the gathered logits are sampled once on
+    the mesh's first device, where the rows live."""
 
     def paged_slot_step(
         params, cache, tok, pos, block_tables, active, temps, greedy, keys
     ):
-        logits, cache = models.paged_decode_step(
-            cfg, params, cache, tok, pos, block_tables, attn_impl=attn_impl,
-            moe_policy=moe_policy,
-        )
+        if layout is not None:
+            logits = tensor_parallel.mesh_paged_decode_step(
+                cfg, layout, params, cache, tok, pos, block_tables,
+                attn_impl=attn_impl)
+        else:
+            logits, cache = models.paged_decode_step(
+                cfg, params, cache, tok, pos, block_tables,
+                attn_impl=attn_impl, moe_policy=moe_policy,
+            )
         nxt, new_keys = _sample_rows(logits, temps, greedy, keys)
         new_pos = pos + active.to(torch.int32)
         return (nxt, cache, new_pos, new_keys,
@@ -206,7 +217,8 @@ def _chunk_sample(logits, length, temps, greedy, keys):
 
 
 def make_paged_prefill_fn(
-    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop"
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop",
+    layout: tensor_parallel.TPLayout | None = None,
 ) -> Callable:
     """Chunked-prefill step through the paged KV cache (DESIGN.md §10):
 
@@ -217,15 +229,21 @@ def make_paged_prefill_fn(
     ``next_tok`` is sampled from each row's last real chunk token and primes
     generation when the chunk reaches the prompt end. Columns >= ``length``
     are bucket padding: their K/V writes land in the null page; a row of
-    length 0 keeps its key (``_chunk_sample``)."""
+    length 0 keeps its key (``_chunk_sample``). A mesh ``layout`` as in
+    ``make_paged_slot_decode_fn``."""
 
     def paged_prefill_step(
         params, cache, tok, start, block_tables, length, temps, greedy, keys,
     ):
-        logits, cache = models.paged_prefill_step(
-            cfg, params, cache, tok, start, block_tables, length,
-            attn_impl=attn_impl, moe_policy=moe_policy,
-        )
+        if layout is not None:
+            logits = tensor_parallel.mesh_paged_prefill_step(
+                cfg, layout, params, cache, tok, start, block_tables, length,
+                attn_impl=attn_impl)
+        else:
+            logits, cache = models.paged_prefill_step(
+                cfg, params, cache, tok, start, block_tables, length,
+                attn_impl=attn_impl, moe_policy=moe_policy,
+            )
         nxt, new_keys, packed = _chunk_sample(logits, length, temps, greedy,
                                               keys)
         return nxt, cache, new_keys, packed

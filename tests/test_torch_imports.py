@@ -63,6 +63,9 @@ SLICE_MODULES = (
     "repro_torch.distributed.sharding",
     "repro_torch.roofline",
     "repro_torch.capture_analysis",
+    "repro_torch.distributed.pipeline",
+    "repro_torch.launch.mesh",
+    "repro_torch.models.tensor_parallel",
 )
 
 
