@@ -137,8 +137,8 @@ Phases (any failure exits non-zero before a result is printed):
 
 8. The rest of the dense model path at full width, one model at a time,
    weights seeded on the card (init peak: the weights and one f32 slab;
-   qwen3-14b on 10 of its 40 layers and gemma2-27b on 12 of its 46, so
-   that the script keeps its length with phases 9-12 added):
+   qwen3-14b on 6 of its 40 layers and gemma2-27b on 8 of its 46, so
+   that the script keeps its length with phases 9-15 added):
    qwen3-14b (bf16, 40 heads over 8: a GQA group of 5) on phase 3's
    paged bf16 cell, dense cell (a) and burst cell; gemma2-27b (bf16, local
    layers of window 4096 and global ones, softcaps 50 and 30) on 2 slots of
@@ -186,8 +186,8 @@ Phases (any failure exits non-zero before a result is printed):
    graph targets (counts set to 0 just before, held to one launch per
    attention layer per lane call) and again eager under one step clock,
    peak memory within the card and logged against the reckoned weight and
-   KV bytes: deepseek-67b (bf16, 64 heads over 8: a GQA group of 8; 16 of
-   its 95 layers, 12.75 B params) on phase 3's paged bf16 cell, dense cell
+   KV bytes: deepseek-67b (bf16, 64 heads over 8: a GQA group of 8; 4 of
+   its 95 layers, 4.45 B params) on phase 3's paged bf16 cell, dense cell
    (a) and the burst cell and the prompt-then-burst path; grok-1-314b
    (bf16, 48 over 8: a group of 6, softcaps 30/30, 8 experts top-2 of d_ff
    32768; 4 of its 64 layers, 21.29 B) under "drop" on the paged bf16
@@ -209,7 +209,8 @@ Phases (any failure exits non-zero before a result is printed):
    and the smoke configs' one-step tokens card = CPU. Then the new-shape
    timing (phase 8's, with B3 at granite's shape, groups 6 (softcap 30)
    and 8, group 7 and MHA 24 at head_dim 64, olmo-1b's shard at model
-   size 2 (8 of 128, phase 14's B1 and B2) and B8 at 256 heads).
+   size 2 (8 of 128: phase 14's B1 and B2, phase 15's B3 and B4, B4 also
+   over a verify window of 8 x 5) and B8 at 256 heads).
 11. The overload-hardened paged stream (run after phase 3d, on olmo-1b's
    weights): one engine (8 slots, ``max_len`` 1024, page 16, chunked
    prefill 64, the int8 pool warmed beside the bf16 one, ``spec_k`` 4
@@ -302,6 +303,27 @@ Phases (any failure exits non-zero before a result is printed):
    within 1e-5 (fp32); ``compressed_psum`` card = CPU; the launcher's
    ``--mesh 1x2 --meshes "1x1 2x2" --devices "cuda:0 cuda:0 cuda:0
    cuda:0"`` as a subprocess.
+15. Every lane of both continuous engines on those meshes (after phase
+   14): olmo-1b at full width (bf16), 8 slots, page 16, chunk 64,
+   max_len 1024, ``devices=("cuda:0",) * 4`` and the ladder 1x1 / 1x2 /
+   2x2, every target a CUDA graph. Phase 3's int8+spec cell (an int8
+   pool, ``spec_k`` 4, a 2-layer int8 draft) on a paged engine, then phase
+   3c's dense cells (a) ``cb`` + ``pfd`` and (b) with speculation on one
+   dense engine: each cell's stream under a step clock at 1x1, 1x2 and
+   2x2, then 1x2 -> 2x2 -> 1x1 mid-stream (at a quarter and a half of
+   1x1's steps): 0 captures after warmup, 2 rebinds, each kernel's
+   launches = the replays' reckoning (layers x dp x mp per ``cbp``,
+   ``pf``, ``vf``, ``cb``, ``pfd``, ``vfd`` and ``drp`` call, k x 2 x dp x
+   mp per ``dr`` call; B3/B4 on the int8 pool and draft), the speculative
+   lanes stepped where the cell speculates, tokens = 1x1's but where
+   1x1's decision was a near-tie (over int8 pages for the int8 cell); a
+   replayed ``cbp`` step over int8 pages, ``vf`` step at k 4 and dense
+   ``cb`` step at each mesh (wall, busy); each engine's peak between its
+   reckoned bytes (weights, the split pieces, every mesh's pools, dense and
+   draft caches) and the card's memory; the fp32 smoke config card = CPU
+   at 1x2, 2x2 and 1x4 (its 2 kv heads whole: the pool replicated, the
+   dense caches' sequence split) on both engines (an int8 pool with
+   speculation; the dense engine with speculation).
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -1782,7 +1804,8 @@ def _lane_launches(eng, mesh: str | None = None) -> tuple[dict, dict]:
     warm run, ``cb``'s second on the zeroed cache, a burst key's warm run
     at each ``set_mode``, the batcher's calls) launches its lane's kernel
     once per attention layer (``k`` times per draft layer for ``dr``; on a
-    mesh of dp x mp logical devices once per layer per shard), and
+    mesh of dp x mp logical devices once per layer per shard, every lane),
+    and
     ``sample_rows`` once (``k`` times for ``dr``; a greedy burst key not
     at all) — and each lane's replays less its warm ones. An engine warmed
     with the capture report runs each key's step once more, eagerly, at
@@ -1814,7 +1837,7 @@ def _lane_launches(eng, mesh: str | None = None) -> tuple[dict, dict]:
         if not layers:
             continue
         per_run = layers * (key[2] if lane == "dr" else 1)
-        if lane in ("cbp", "pf"):  # a mesh's shards each launch (phase 14)
+        if lane != "burst":  # a mesh's shards each launch (phases 14-15)
             dp, mp = parse_mesh_name(key[-1])
             per_run *= dp * mp
         kernel = _lane_kernel(key)
@@ -1886,15 +1909,15 @@ def _continuous_stream(label: str, cfg, params, ecfg: dict, reqs) -> tuple:
     return rep, launches
 
 
-def _dense_cb_run(eng, slots: int):
+def _dense_cb_run(eng, slots: int, mesh: str = "1x1"):
     """A run of one ``cb`` step as the serving loop takes it: 8 slots from
-    position 200 of the engine's dense cache, token and position chained,
-    the packed pull."""
+    position 200 of the engine's dense cache on ``mesh``, token and
+    position chained, the packed pull."""
     from repro_torch.core import lanes
 
     dev, i32 = "cuda", torch.int32
-    exe = eng._decode.build(lanes.CB.key(slots, "1x1"))
-    cache = eng.dense_cache(slots)
+    exe = eng._decode.build(lanes.CB.key(slots, mesh))
+    cache = eng.dense_cache(slots, mesh)
     state = _steady_args(exe, [
         torch.zeros(slots, 1, dtype=i32, device=dev),
         torch.full((slots,), 200, dtype=i32, device=dev),
@@ -3822,11 +3845,11 @@ def _hft_card_vs_cpu(cfg, params, card_reqs, ecfg: dict, slots: int,
         f"divergences")
 
 
-# Phase 8's depth: qwen3-14b and gemma2-27b at full width on a quarter of
+# Phase 8's depth: qwen3-14b and gemma2-27b at full width on 6 and 8 of
 # their layers (gemma2's local/global pairs kept). Their streams' eager
 # runs are host-bound and scale with depth, so this keeps the whole script
-# well inside its limit with phases 9-12 added; hft-demo at full depth.
-PHASE8_LAYERS = {"qwen3-14b": 10, "gemma2-27b": 12}
+# well inside its limit with phases 9-15 added; hft-demo at full depth.
+PHASE8_LAYERS = {"qwen3-14b": 6, "gemma2-27b": 8}
 
 
 def configs_phase() -> dict:
@@ -4142,12 +4165,12 @@ def smoke_card_vs_cpu_of(arch: str, tag: str,
 DEEPSEEK, GROK, JAMBA = ("deepseek-67b", "grok-1-314b",
                          "jamba-1.5-large-398b")
 EMBEDS = ("internvl2-1b", "musicgen-medium")
-# Phase 10's depth cuts, full width: deepseek-67b on 8 of its 95 layers
+# Phase 10's depth cuts, full width: deepseek-67b on 4 of its 95 layers
 # (its eager runs are host-bound and scale with depth), grok-1-314b on 4
 # of its 64 (21.29 B, 42.6 GB; a layer's 8 experts of d_ff 32768 are 9.7
 # GB), and jamba as one of each of its layer kinds (one period of its 8
 # layers is 45.1 B params, 90.3 GB in bf16, more than one card holds).
-PHASE10_LAYERS = {DEEPSEEK: 8, GROK: 4}
+PHASE10_LAYERS = {DEEPSEEK: 4, GROK: 4}
 
 
 def _jamba_cut(cfg):
@@ -4469,8 +4492,9 @@ def time_new_shapes() -> dict:
     (grok-1-314b: 48 over 8 of 128; B4 too; SDPA cannot apply a softcap,
     so it is timed without one beside the kernel, as a yardstick) and
     group 8 (deepseek-67b and jamba: 64 over 8 of 128; B4 too), olmo-1b's
-    shard on a mesh of model size 2 (8 over 8 of 128: phase 14's B1 and
-    B2 launches), and B5 and
+    shard on a mesh of model size 2 (8 over 8 of 128: phases 14-15's B1
+    and B2 launches, and phase 15's B3 and B4, B4 also over the ``vf``
+    lane's 8 x 5 window), and B5 and
     B6 alone at group 7 (internvl2-1b: 14 over 2 of 64) and MHA 24
     (musicgen-medium: 24 over 24 of 64) — against their plain versions and
     SDPA, with the bound from the bytes and pairs this data needs; and B8
@@ -4514,7 +4538,8 @@ def time_new_shapes() -> dict:
         "deepseek group 8": (64, 8, 128, bf16, None, 8, 16, pos8, starts8,
                              1024, 255, 1024, None, b1256 | {"B4"}),
         "olmo shard at mp 2": (8, 8, 128, bf16, None, 8, 16, pos8, starts8,
-                               1024, 255, 1024, None, b1256),
+                               1024, 255, 1024, None,
+                               b1256 | {"B3", "B4", "B4 verify"}),
         "internvl2 group 7 dh 64": (14, 2, 64, bf16, None, 8, 16, pos8,
                                     starts8, 1024, 255, 1024, None,
                                     {"B5", "B6"}),
@@ -4620,6 +4645,27 @@ def time_new_shapes() -> dict:
                 sdpa[0], paged(keys_c, int(okc.sum()) * h, kh * dh + 4, qc),
                 dtype, "paged_prefill",
                 yardstick=sdpa[1]))
+        if "B4 verify" in which:  # the vf lane's window: 5 rows a slot
+            qv = qc[:, :5].contiguous()
+            sv = pt - 4  # windows that end at the decode positions
+            okv = visible(sv[:, None].long()
+                          + torch.arange(5, device=dev)[None])
+            keys_v = int(okv.any(1).sum())
+            sdpa = lib(lambda: F.scaled_dot_product_attention(
+                qv.transpose(1, 2), gk8, gv8, attn_mask=okv[:, None],
+                enable_gqa=True))
+            add("paged_prefill_attention_int8", f"{shape}, verify 8 x 5",
+                _time_case(
+                    f"paged_prefill_attention_int8 {shape} verify "
+                    f"q{tuple(qv.shape)} table {tuple(bt.shape)}",
+                    kernels.paged_prefill_attention_int8,
+                    lambda: kernels.paged_prefill_attention_int8(
+                        qv, kq, vq, ks, vs, bt, sv, **kw),
+                    lambda: kernels.paged_prefill_attention_int8_plain(
+                        qv.float(), kq, vq, ks, vs, bt, sv, **kw),
+                    sdpa[0], paged(keys_v, int(okv.sum()) * h, kh * dh + 4,
+                                   qv),
+                    dtype, "paged_prefill", yardstick=sdpa[1]))
         if which & {"B3", "B4"}:
             del kq, vq, gk8, gv8
         del kp, vp, gk, gv
@@ -5924,19 +5970,28 @@ MESH_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
                 "sample_rows")
 
 
-def _mesh_stream(eng, reqs, mesh: str, flips: dict | None = None) -> tuple:
-    """``_shared_prefix_traffic`` through ``run_paged_stream`` at ``mesh``
-    under a ``_BatcherClock`` (one schedule at every mesh), with
-    ``flips`` {batcher step: mesh} rebinding before that step. Returns the
-    report and the key (uint32 pair) each request's token i was drawn
-    with, which a sampled token's near-tie check needs."""
-    from repro_torch.runtime.serve import run_paged_stream
+def _mesh_stream(eng, reqs, mesh: str, flips: dict | None = None, *,
+                 engine: str = "paged", spec: bool | None = None) -> tuple:
+    """``reqs`` through ``run_paged_stream`` (``engine`` "paged") or
+    ``run_continuous_stream`` ("dense", its batcher built with
+    ``spec_decode=spec``) at ``mesh`` under a ``_BatcherClock`` (one
+    schedule at every mesh), with ``flips`` {batcher step: mesh} rebinding
+    before that step. Returns the report and the key (uint32 pair) each
+    request's token i was drawn with, which a sampled token's near-tie
+    check needs."""
+    from repro_torch.runtime.serve import (
+        run_continuous_stream,
+        run_paged_stream,
+    )
 
     clock, keys = _BatcherClock(), {}
     by_rid = {r.rid: r for r in reqs}
-    make = eng.paged_continuous
+    name = "paged_continuous" if engine == "paged" else "continuous"
+    make = getattr(eng, name)
 
     def logged_batcher(**kw):
+        if spec is not None:
+            kw["spec_decode"] = spec
         cb = clock.bind(make(**kw))
         step = cb.step
 
@@ -5955,18 +6010,19 @@ def _mesh_stream(eng, reqs, mesh: str, flips: dict | None = None) -> tuple:
         cb.step = logged
         return cb
 
-    eng.paged_continuous = logged_batcher
+    setattr(eng, name, logged_batcher)
+    run = run_paged_stream if engine == "paged" else run_continuous_stream
     try:
-        rep = run_paged_stream(eng, reqs, slots=8, seed=0, clock=clock,
-                               mesh=mesh)
+        rep = run(eng, reqs, slots=8, seed=0, clock=clock, mesh=mesh)
     finally:
-        del eng.paged_continuous
+        delattr(eng, name)
     torch.cuda.synchronize()
     return rep, keys
 
 
 def _card_score_near_tie(cfg, params, seq, a: int, b: int, key,
-                         temperature: float) -> tuple[bool, float]:
+                         temperature: float,
+                         kv_dtype: str = "fp32") -> tuple[bool, float]:
     """``_card_near_tie`` for a sampled token: the sampler's scores
     (``gumbel + logits / t`` under the row's key at that token,
     ``kernels.sampling.sample_scores_plain``) of ``a`` and ``b`` lie within
@@ -5975,7 +6031,7 @@ def _card_score_near_tie(cfg, params, seq, a: int, b: int, key,
 
     from repro_torch.kernels import sampling
 
-    row = _card_logits(cfg, params, seq, "fp32")
+    row = _card_logits(cfg, params, seq, kv_dtype)
     k = torch.from_numpy(np.asarray(key, np.uint32).view(np.int32)).cuda()
     scores = sampling.sample_scores_plain(
         row[None], torch.tensor([temperature], device="cuda"),
@@ -5984,11 +6040,12 @@ def _card_score_near_tie(cfg, params, seq, a: int, b: int, key,
     return gap < BF16_TIE_MARGIN, gap
 
 
-def _mesh_equals(label: str, cfg, params, base, got, keys) -> int:
+def _mesh_equals(label: str, cfg, params, base, got, keys,
+                 kv_dtype: str = "fp32") -> int:
     """A mesh's tokens against 1x1's, request by request: equal, or the
-    first divergence is a near-tie — of the logits for a greedy row, of
-    the sampler's scores under the row's key for a sampled one. Returns
-    the near-tie count."""
+    first divergence is a near-tie — of the logits (over pages of
+    ``kv_dtype``) for a greedy row, of the sampler's scores under the row's
+    key for a sampled one. Returns the near-tie count."""
     ties = 0
     for r, d in zip(base, got):
         if r.tokens == d.tokens:
@@ -5998,11 +6055,11 @@ def _mesh_equals(label: str, cfg, params, base, got, keys) -> int:
         seq = list(r.effective_prompt) + r.tokens[:i]
         if r.greedy:
             ok, gap = _card_near_tie(cfg, params, seq, r.tokens[i],
-                                     d.tokens[i], "fp32")
+                                     d.tokens[i], kv_dtype)
         else:
             ok, gap = _card_score_near_tie(cfg, params, seq, r.tokens[i],
                                            d.tokens[i], keys[r.rid, i],
-                                           r.temperature)
+                                           r.temperature, kv_dtype)
         check(ok, f"{label}: rid {r.rid} ({'greedy' if r.greedy else 'sampled'}"
               f") differs from 1x1 at token {i}, gap {gap:.4f} >= "
               f"{BF16_TIE_MARGIN}")
@@ -6011,17 +6068,19 @@ def _mesh_equals(label: str, cfg, params, base, got, keys) -> int:
 
 
 def _mesh_arm(eng, cfg, label: str, mesh: str,
-              flips: dict | None = None) -> tuple:
-    """One stream, its own path: the kernels' counts set to 0 just before
-    and read just after, each held to the targets' replays in the run over
-    every mesh (layers x dp x mp per ``cbp``/``pf`` replay, one
-    ``sample_rows``)."""
+              flips: dict | None = None, *, reqs=None, **stream) -> tuple:
+    """One stream (``_shared_prefix_traffic`` unless ``reqs``; ``stream``
+    as ``_mesh_stream``), its own path: the kernels' counts set to 0 just
+    before and read just after, each held to the targets' replays in the
+    run over every mesh (layers x dp x mp per replay of every lane, k x
+    draft layers x dp x mp per ``dr`` replay; one ``sample_rows`` a
+    sampling step, k per ``dr``)."""
     from repro_torch import kernels
 
-    reqs = _shared_prefix_traffic(cfg)
+    reqs = _shared_prefix_traffic(cfg) if reqs is None else reqs
     before = _lane_launches(eng)[0]
     kernels.reset_launch_counts()
-    rep, keys = _mesh_stream(eng, reqs, mesh, flips)
+    rep, keys = _mesh_stream(eng, reqs, mesh, flips, **stream)
     want = {k: n - before.get(k, 0) for k, n in _lane_launches(eng)[0].items()}
     launches = _launches(label, tuple(k for k, n in want.items() if n))
     for name, n in want.items():
@@ -6030,8 +6089,8 @@ def _mesh_arm(eng, cfg, label: str, mesh: str,
     _check_stream(label, cfg, reqs, rep)
     check(rep["compiles_after_warmup"] == 0,
           f"{label}: {rep['compiles_after_warmup']} captures after warmup")
-    check(rep["pool_shards"] == 2, f"{label}: pool_shards "
-          f"{rep['pool_shards']}")
+    check(rep.get("pool_shards", 2) == 2, f"{label}: pool_shards "
+          f"{rep.get('pool_shards')}")  # the dense engine has no pool
     return reqs, rep, launches, keys
 
 
@@ -6101,8 +6160,6 @@ def _mesh_replay_ms(eng, mesh: str, steps: int = 5) -> dict:
     16-page tables, token, position and keys chained): host wall per step
     over 20 steps, device busy per step from ``torch.profiler`` (CUDA
     events around queued steps where it records none)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import lanes
 
     i32 = torch.int32
@@ -6120,6 +6177,15 @@ def _mesh_replay_ms(eng, mesh: str, steps: int = 5) -> dict:
         state[0], state[1], state[6] = o[4], o[2], o[3]
         return o[5].cpu()
 
+    return _replay_ms(run, steps)
+
+
+def _replay_ms(run, steps: int = 5) -> dict:
+    """Host wall per step of ``run`` over 20 steps, device busy per step
+    from ``torch.profiler`` (CUDA events around queued steps where it
+    records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
     wall = _wall_ms(run)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -6133,21 +6199,30 @@ def _mesh_replay_ms(eng, mesh: str, steps: int = 5) -> dict:
     return {"wall_ms": wall, "busy_ms": busy, "by": by}
 
 
-def _mesh_smoke_card_vs_cpu() -> dict:
-    """The fp32 smoke config at 1x2 and 2x2 (every other request sampled):
+def _mesh_smoke_card_vs_cpu(cell: dict | None = None, engine: str = "paged",
+                            meshes: tuple = ("1x2", "2x2")) -> dict:
+    """The fp32 smoke config at ``meshes`` (every other request sampled):
     the card's graph targets give the CPU engine's tokens, under a step
-    clock."""
+    clock; ``cell`` adds to the engine's config (phase 15: an int8 pool
+    with speculation, the dense engine with speculation)."""
     import numpy as np
 
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.runtime.scheduler import Request
-    from repro_torch.runtime.serve import Engine, EngineConfig, run_paged_stream
+    from repro_torch.runtime.serve import (
+        Engine,
+        EngineConfig,
+        run_continuous_stream,
+        run_paged_stream,
+    )
 
     cfg = get_config("olmo-1b").smoke()
     params = models.init_params(cfg, seed=0)
+    run = run_paged_stream if engine == "paged" else run_continuous_stream
+    label = "mesh smoke" + ("" if cell is None else f" {engine} {cell}")
     out = {}
-    for mesh in ("1x2", "2x2"):
+    for mesh in meshes:
         toks = {}
         for dev in ("cuda", "cpu"):
             rng = np.random.default_rng(0)
@@ -6159,14 +6234,17 @@ def _mesh_smoke_card_vs_cpu() -> dict:
                   for i in range(6)]
             ecfg = EngineConfig(max_len=32, max_batch=4, page_size=8,
                                 num_pages=20, prefill_chunk=8, mesh=mesh,
-                                devices=(dev,) * 4)
+                                devices=(dev,) * 4, **(cell or {}))
             with Engine(cfg, params, ecfg, device=dev) as eng:
-                rep = run_paged_stream(eng, rs, slots=4, clock=_StepClock())
+                rep = run(eng, rs, slots=4, clock=_StepClock())
             check(rep["compiles_after_warmup"] == 0 and rep["finished"] == 6,
-                  f"mesh smoke {mesh} on {dev}: {rep['finished']} finished, "
+                  f"{label} {mesh} on {dev}: {rep['finished']} finished, "
                   f"{rep['compiles_after_warmup']} captures after warmup")
+            if cell and cell.get("spec_k"):
+                check(rep["lane_steps"]["verify"] > 0,
+                      f"{label} {mesh} on {dev}: lanes {rep['lane_steps']}")
             toks[dev] = [r.tokens for r in rs]
-        check(toks["cuda"] == toks["cpu"], f"mesh smoke {mesh}: card "
+        check(toks["cuda"] == toks["cpu"], f"{label} {mesh}: card "
               f"{toks['cuda']} != CPU {toks['cpu']}")
         out[mesh] = sum(len(t) for t in toks["cuda"])
     return out
@@ -6351,6 +6429,201 @@ def _mesh_phase(cfg, params, launcher: tuple, t0: float) -> dict:
         f"{t_wait:.1f}s waiting for the launcher) | {_card()}")
     return out
 
+# ---- phase 15 (every lane of both continuous engines on those meshes)
+# olmo-1b at full width (bf16), 8 slots, page 16, chunk 64, max_len 1024,
+# four logical devices that all name this card and the ladder 1x1 / 1x2 /
+# 2x2: phase 3's int8+spec cell (an int8 pool, spec k up to 4, a 2-layer
+# int8 draft) on a paged engine, then phase 3c's dense cells (a) cb+pfd and
+# (b) with speculation on one dense engine (cell (a)'s batcher does not
+# speculate), every target a CUDA graph.
+LANES_ECFG = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64,
+                  spec_k=4, draft_layers=2, draft_kv_dtype="int8",
+                  mesh="1x1", meshes=("1x2", "2x2"),
+                  devices=("cuda:0",) * 4)
+LANES_CELLS = {  # cell: (engine, the engine's pool dtype, speculation)
+    "paged int8+spec": ("paged", "int8", None),
+    "dense a: cb+pfd": ("dense", "fp32", False),
+    "dense b: spec int8 draft": ("dense", "fp32", None),
+}
+LANES_SMOKE = {  # the fp32 smoke config's cells, card = CPU
+    "paged": dict(kv_dtype="int8", spec_k=2, draft_kv_dtype="int8"),
+    "dense": dict(spec_k=2),
+}
+# ... at 1x2 and 2x2, and at 1x4, where the smoke config's 2 kv heads stay
+# whole: the pool is replicated over "model" and the dense caches split
+# their sequence (olmo-1b's 16 kv heads divide at every mesh here)
+LANES_SMOKE_MESHES = ("1x2", "2x2", "1x4")
+
+
+def _cache_bytes(eng) -> dict:
+    """The bytes of every pool, dense and draft cache the engine holds,
+    by kind (a mesh's pieces each counted: replicas are allocations)."""
+    out = {}
+    for kind, caches in (("pools", eng._paged_caches),
+                         ("dense", eng._dense_caches),
+                         ("drafts", eng._draft_caches)):
+        out[kind] = sum(t.numel() * t.element_size() for c in
+                        caches.values() for layer in c for t in layer.values())
+    return out
+
+
+def _lanes_cell(eng, cfg, params, cell: str, rebinds0: int) -> dict:
+    """One cell at 1x1, 1x2 and 2x2 and on the ladder 1x2 -> 2x2 -> 1x1
+    (the flips at a quarter and a half of 1x1's steps), each arm its own
+    path (``_mesh_arm``): 0 captures after warmup, launches = the
+    replays' reckoning, the speculative lanes stepped, tokens = 1x1's but
+    for near-ties, 2 rebinds on the ladder."""
+    engine, kv, spec = LANES_CELLS[cell]
+    traffic = (_shared_prefix_traffic if engine == "paged"
+               else partial(_continuous_traffic, prompt_len=128))
+    kw = dict(engine=engine, spec=spec)
+    arms = {}
+    for mesh in ("1x1", "1x2", "2x2"):
+        arms[mesh] = _mesh_arm(eng, cfg, f"lanes {cell} {mesh}", mesh,
+                               reqs=traffic(cfg), **kw)
+    n = arms["1x1"][1]["steps"]
+    arms["ladder"] = _mesh_arm(
+        eng, cfg, f"lanes {cell} ladder 1x2 -> 2x2 -> 1x1", "1x2",
+        flips={n // 4: "2x2", n // 2: "1x1"}, reqs=traffic(cfg), **kw)
+    rebinds = int(eng.telemetry.registry.value("mesh_rebinds_total"))
+    check(rebinds - rebinds0 == 2, f"lanes {cell} ladder: "
+          f"{rebinds - rebinds0} rebinds")
+    base, _, _, keys1 = arms["1x1"]
+    out = {"paths": {}, "ties": {}, "steps": n, "rebinds": rebinds}
+    for name, (reqs, rep, launches, _) in arms.items():
+        out["paths"][f"lanes {cell} {name} (phase 15)"] = launches
+        spec_on = rep["lane_steps"].get("verify", 0) > 0
+        check(spec_on == (spec is not False), f"lanes {cell} {name}: lane "
+              f"steps {rep['lane_steps']}")
+        if name == "1x1":
+            continue
+        ties = _mesh_equals(f"lanes {cell} {name}", cfg, params, base, reqs,
+                            keys1, kv)
+        out["ties"][name] = ties
+        log(f"[lanes] {cell} {name}: tokens = 1x1's on {len(reqs) - ties} "
+            f"of {len(reqs)} requests ({sum(not r.greedy for r in reqs)} "
+            f"sampled, {sum(len(r.tokens) for r in reqs)} tokens), {ties} "
+            f"near-tie divergences; {rep['steps']} steps, lanes "
+            f"{rep['lane_steps']}, 0 captures after warmup; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    return out
+
+
+def _lanes_replays(eng, engine: str) -> dict:
+    """Replayed steps at 1x1, 1x2 and 2x2 (8 slots at position 200): the
+    paged engine's ``cbp`` over the int8 pool (16-page tables) and its
+    ``vf`` at k 4 (a 5-row window), the dense engine's ``cb``; wall and
+    busy ms per step (``_replay_ms``)."""
+    from repro_torch.core import lanes
+
+    i32, dev = torch.int32, "cuda"
+    out = {}
+    for mesh in ("1x1", "1x2", "2x2"):
+        if engine == "dense":
+            out["cb", mesh] = _replay_ms(_dense_cb_run(eng, 8, mesh))
+            continue
+        pool = eng.paged_cache("int8", mesh)
+        exe = eng._decode.build(lanes.CBP.key(8, 16, "int8", mesh))
+        state = _steady_args(exe, [
+            torch.zeros(8, 1, dtype=i32, device=dev),
+            torch.full((8,), 200, dtype=i32, device=dev), _mesh_tables(eng),
+            torch.ones(8, dtype=torch.bool, device=dev),
+            torch.ones(8, device=dev),
+            torch.ones(8, dtype=torch.bool, device=dev), _row_keys(8)])
+
+        def cbp(exe=exe, state=state, pool=pool):
+            o = exe(pool, *state)
+            state[0], state[1], state[6] = o[4], o[2], o[3]
+            return o[5].cpu()
+
+        out["cbp int8", mesh] = _replay_ms(cbp)
+        exe = eng._decode.build(lanes.VF.key(8, 4, "int8", mesh))
+        args = _steady_args(exe, [
+            torch.zeros(8, 5, dtype=i32, device=dev),
+            torch.full((8,), 200, dtype=i32, device=dev),
+            _mesh_tables(eng, pages=eng.max_pages_per_req),
+            torch.full((8,), 5, dtype=i32, device=dev),
+            torch.ones(8, device=dev),
+            torch.ones(8, dtype=torch.bool, device=dev), _row_keys(8)])
+        out["vf int8 k 4", mesh] = _replay_ms(
+            lambda exe=exe, args=args, pool=pool: exe(pool, *args)[4].cpu())
+    return out
+
+
+def lanes_phase(cfg, params) -> dict:
+    """Phase 15: every lane of both continuous engines on meshes of more
+    than one logical device of this card (ROADMAP A12 part 3, items 1-2):
+    ``_lanes_cell`` for each cell, the replayed steps, the peak against
+    the reckoned bytes per engine, and the smoke config card = CPU on both
+    engines at ``LANES_SMOKE_MESHES``."""
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    _release_engines()
+    t0 = time.perf_counter()
+    weights = sum(t.numel() * t.element_size() for t in params.values())
+    out = {"paths": {}, "ties": {}, "timing": {}, "peak": {}, "warm": {},
+           "arms_s": {}}
+    for engine, cells, extra in (
+            ("paged", ["paged int8+spec"], dict(kv_dtype="int8")),
+            ("dense", ["dense a: cb+pfd", "dense b: spec int8 draft"], {})):
+        torch.cuda.reset_peak_memory_stats()
+        with Engine(cfg, params, EngineConfig(**LANES_ECFG, **extra)) as eng:
+            check(eng.graphs, "lanes: the engine's targets are not CUDA "
+                  "graphs")
+            for cell in cells:
+                spec = LANES_CELLS[cell][2]
+                t_warm = time.perf_counter()
+                captured = eng._decode.stats.misses
+                if engine == "paged":  # captures every mesh's targets
+                    eng.paged_continuous(slots=8)
+                else:
+                    eng.continuous(slots=8, spec_decode=spec)
+                out["warm"][cell] = (eng._decode.stats.misses - captured,
+                                     time.perf_counter() - t_warm)
+                rebinds0 = int(eng.telemetry.registry.value(
+                    "mesh_rebinds_total"))
+                t_arms = time.perf_counter()
+                got = _lanes_cell(eng, cfg, params, cell, rebinds0)
+                out["arms_s"][cell] = time.perf_counter() - t_arms
+                out["paths"].update(got["paths"])
+                out["ties"][cell] = got["ties"]
+            out["timing"].update(_lanes_replays(eng, engine))
+            peak = torch.cuda.max_memory_allocated()
+            caches = _cache_bytes(eng)
+            pieces = sum(t.numel() * t.element_size()
+                         for t in eng._tp_pieces.values())
+            reckoned = weights + pieces + sum(caches.values())
+            total = torch.cuda.get_device_properties(0).total_memory
+            check(reckoned <= peak <= total, f"lanes {engine}: peak "
+                  f"{peak / 1e9:.2f} GB against {reckoned / 1e9:.2f} GB "
+                  f"reckoned, {total / 1e9:.2f} GB on the card")
+            out["peak"][engine] = (peak, reckoned, weights, pieces, caches)
+        del eng
+        _release_engines()
+    smoke = {engine: _mesh_smoke_card_vs_cpu(cell, engine,
+                                             LANES_SMOKE_MESHES)
+             for engine, cell in LANES_SMOKE.items()}
+    out["seconds"] = time.perf_counter() - t0
+    for cell, (n, sec) in out["warm"].items():
+        log(f"[lanes] {cell}: {n} targets captured over 1x1 / 1x2 / 2x2 in "
+            f"{sec:.1f} s; its four arms {out['arms_s'][cell]:.1f} s")
+    for (lane, mesh), t in out["timing"].items():
+        log(f"[lanes] replayed {lane} step at {mesh} (8 slots at position "
+            f"200): wall {t['wall_ms']:.4f} ms, device busy "
+            f"{_fmt_ms(t['busy_ms'])} by {t['by']} | {_card()}")
+    for engine, (peak, reckoned, w, pieces, caches) in out["peak"].items():
+        log(f"[lanes] {engine} engine: peak {peak / 1e9:.2f} GB against "
+            f"{reckoned / 1e9:.2f} GB reckoned (weights {w / 1e9:.3f} + the "
+            f"split weights' pieces {pieces / 1e9:.3f} + "
+            + ", ".join(f"{k} {b / 1e9:.3f}" for k, b in caches.items())
+            + f" GB over the three meshes) | {_card()}")
+    log(f"[lanes] smoke (fp32) card = CPU at {', '.join(LANES_SMOKE_MESHES)}"
+        f" (1x4: the dense caches' sequence split): the int8 paged stream "
+        f"with spec {smoke['paged']} tokens, the dense stream with spec "
+        f"{smoke['dense']} tokens")
+    log(f"[lanes] phase 15 passed in {out['seconds']:.1f}s | {_card()}")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -6376,6 +6649,7 @@ def main() -> int:
     t_c13, c13_launches = c13_on_card(main_path["cfg"], main_path["params"])
     disagg = disagg_phase(main_path["cfg"], main_path["params"])
     mesh = mesh_phase(main_path["cfg"], main_path["params"])
+    lanes = lanes_phase(main_path["cfg"], main_path["params"])
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
     prompt = prompt_then_burst(main_path["cfg"], main_path["params"])
     profile_steps(main_path["cfg"], main_path["params"])
@@ -6414,6 +6688,7 @@ def main() -> int:
     paths["c13 two batchers (phase 12)"] = c13_launches
     paths.update({f"{k} (phase 13)": v for k, v in disagg["paths"].items()})
     paths.update(mesh["paths"])
+    paths.update(lanes["paths"])
     paths["train (phase 12)"] = train["launches"]
     for row in rows:
         if row["name"] in new:
@@ -6435,7 +6710,8 @@ def main() -> int:
         f"sync) {t_async:.1f}s; phase 11 (the overload stream) "
         f"{overload['seconds']:.1f}s; phase 12 (C13, training) {t12:.1f}s; "
         f"phase 13 (mesh, disagg, capture report) {disagg['seconds']:.1f}s; "
-        f"phase 14 (meshes of more than one device) {mesh['seconds']:.1f}s")
+        f"phase 14 (meshes of more than one device) {mesh['seconds']:.1f}s; "
+        f"phase 15 (every lane on those meshes) {lanes['seconds']:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 (SSM) family's full-sequence forward and prefill, the attention families'
 paged serving path, the training loss, and the dense-cache decode (burst engine, dense
 continuous engine and speculative draft; an SSM slot's recurrent state),
-and the dense family's paged path over a mesh of logical devices
+and the dense family's serving paths over a mesh of logical devices
 (``tensor_parallel``)."""
 
 from .attention import (

@@ -325,7 +325,14 @@ def _decode_sdpa_core(
     return og.reshape(b, sq, cfg.num_heads, cfg.head_dim)
 
 
-def quantise_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def kv_row_amax(x: torch.Tensor) -> torch.Tensor:
+    """The absmax of each token row of ``x [..., KH, dh]`` in f32 ->
+    ``[...]``: what ``quantise_kv_rows`` scales by."""
+    return x.float().abs().amax(dim=(-2, -1))
+
+
+def quantise_kv_rows(x: torch.Tensor, amax: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token-row symmetric int8 quantisation (DESIGN.md §12).
 
     ``x``: ``[..., KH, dh]`` K or V rows. Each row (one token's heads × dims)
@@ -333,9 +340,13 @@ def quantise_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``round`` (half to even, as ``jnp.round``) and ``clip`` to ±127. Returns
     ``(q int8[..., KH, dh], scale f32[...])``: the same bits as the JAX
     package's ``quantise_kv_rows``. One implementation for every lane's
-    write, so chunked and token-by-token ingestion write the same bits."""
+    write, so chunked and token-by-token ingestion write the same bits.
+    ``amax`` (``[...]``) replaces the rows' own absmax: a shard holding
+    some of a row's heads passes the maximum over all of them
+    (``models.tensor_parallel``), so it writes the whole row's bits."""
     xf = x.float()
-    amax = xf.abs().amax(dim=(-2, -1))
+    if amax is None:
+        amax = kv_row_amax(xf)
     scale = torch.clamp_min(amax / KV_QUANT_MAX, KV_SCALE_EPS)
     q = torch.clamp(
         torch.round(xf / scale[..., None, None]), -KV_QUANT_MAX, KV_QUANT_MAX
@@ -383,12 +394,15 @@ def init_paged_kv_cache(
     }
 
 
-def _write_pages(cache: dict, wpage, woff, k: torch.Tensor, v: torch.Tensor):
+def _write_pages(cache: dict, wpage, woff, k: torch.Tensor, v: torch.Tensor,
+                 amax: tuple | None = None):
     """In-place write of K/V rows at ``pages[wpage, woff]`` (quantised with
-    their scales for an int8 pool)."""
+    their scales for an int8 pool; ``amax`` = the K and V rows' absmax where
+    the caller holds only some of their heads)."""
     if cache["k"].dtype == torch.int8:
-        qk, ksc = quantise_kv_rows(k)
-        qv, vsc = quantise_kv_rows(v)
+        ka, va = amax or (None, None)
+        qk, ksc = quantise_kv_rows(k, ka)
+        qv, vsc = quantise_kv_rows(v, va)
         cache["k"].index_put_((wpage, woff), qk)
         cache["v"].index_put_((wpage, woff), qv)
         cache["k_scale"].index_put_((wpage, woff), ksc)
@@ -475,16 +489,18 @@ def paged_decode_core(
     *,
     local: bool,
     attn_impl: str = "kernel",
+    amax: tuple | None = None,
 ) -> torch.Tensor:
     """``paged_decode_attention`` between the projections: write the new
     K/V row (k/v [B,1,KH,dh]) and attend q [B,1,H,dh] over the row's pages
     -> [B,1,H,dh] (the tensor-parallel forward runs it on each shard's
-    heads)."""
+    heads; ``amax`` as ``_write_pages``, [B,1] each)."""
     ps = cache["k"].shape[1]
     pages_bucket = block_tables.shape[1]
     page_idx = (pos // ps).clamp(0, pages_bucket - 1).long()
     wpage = block_tables.gather(1, page_idx[:, None])[:, 0]
-    _write_pages(cache, wpage, pos % ps, k[:, 0], v[:, 0])
+    _write_pages(cache, wpage, pos % ps, k[:, 0], v[:, 0],
+                 amax and (amax[0][:, 0], amax[1][:, 0]))
     if attn_impl == "kernel":
         o = _paged_kernel(cfg, cache, q[:, 0], block_tables, pos,
                           local=local, chunk=False)
@@ -541,10 +557,12 @@ def paged_prefill_core(
     *,
     local: bool,
     attn_impl: str = "kernel",
+    amax: tuple | None = None,
 ) -> torch.Tensor:
     """``paged_prefill_attention`` between the projections: write the
     chunk's K/V rows (k/v [B,C,KH,dh]; padded columns to the null page)
-    and attend q [B,C,H,dh] causally -> [B,C,H,dh]."""
+    and attend q [B,C,H,dh] causally -> [B,C,H,dh] (``amax`` as
+    ``_write_pages``, [B,C] each)."""
     c = q.shape[1]
     ps = cache["k"].shape[1]
     pages_bucket = block_tables.shape[1]
@@ -553,7 +571,7 @@ def paged_prefill_core(
     page_idx = (positions // ps).clamp(0, pages_bucket - 1).long()
     wpage = block_tables.gather(1, page_idx)  # [B,C]
     wpage = torch.where(offs[None, :] < length[:, None], wpage, 0)
-    _write_pages(cache, wpage, positions % ps, k, v)
+    _write_pages(cache, wpage, positions % ps, k, v, amax)
     if attn_impl == "kernel":
         return _paged_kernel(cfg, cache, q, block_tables, start,
                              local=local, chunk=True)
@@ -714,32 +732,61 @@ def decode_attention(
         return _decode_at_scalar(
             cfg, p, x, cache, pos, local=local, attn_impl=attn_impl
         )
-    b = x.shape[0]
-    smax = cache["k"].shape[1]
     q, k, v = _qkv(cfg, p, x, pos[:, None])
-    rows = torch.arange(b, device=x.device)
-    inside = pos < smax
-    at = pos.clamp(max=smax - 1).long()
+    o = dense_decode_core(cfg, cache, q, k, v, pos, local=local,
+                          attn_impl=attn_impl)
+    return _out_proj(cfg, p, o), cache
+
+
+def _put_rows(cache: dict, rows, at, keep, k: torch.Tensor, v: torch.Tensor,
+              amax: tuple | None) -> None:
+    """Write K/V rows (and an int8 cache's scales) at ``[rows, at]`` of a
+    dense cache where ``keep``; elsewhere the old value is put back."""
 
     def put(t: torch.Tensor, new: torch.Tensor) -> None:
-        keep = inside.view(-1, *([1] * (new.dim() - 1)))
-        t.index_put_((rows, at), torch.where(keep, new, t[rows, at]))
+        k_ = keep.view(*keep.shape, *([1] * (new.dim() - keep.dim())))
+        t.index_put_((rows, at), torch.where(k_, new, t[rows, at]))
 
     if cache["k"].dtype == torch.int8:
-        qk, ksc = quantise_kv_rows(k[:, 0])
-        qv, vsc = quantise_kv_rows(v[:, 0])
+        ka, va = amax or (None, None)
+        qk, ksc = quantise_kv_rows(k, ka)
+        qv, vsc = quantise_kv_rows(v, va)
         for name, new in (("k", qk), ("v", qv), ("ks", ksc), ("vs", vsc)):
             put(cache[name], new)
     else:
-        put(cache["k"], k[:, 0])
-        put(cache["v"], v[:, 0])
+        put(cache["k"], k)
+        put(cache["v"], v)
+
+
+def dense_decode_core(
+    cfg: ArchConfig,
+    cache: dict,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    local: bool,
+    attn_impl: str = "kernel",
+    amax: tuple | None = None,
+) -> torch.Tensor:
+    """``decode_attention`` at per-row positions between the projections:
+    write row b's new K/V (k/v [B,1,KH,dh]) at ``pos[b]`` (nothing past the
+    cache) and attend q [B,1,H,dh] -> [B,1,H,dh] (the tensor-parallel
+    forward runs it on each shard's heads; ``amax`` as ``_write_pages``,
+    [B,1] each)."""
+    b = q.shape[0]
+    smax = cache["k"].shape[1]
+    rows = torch.arange(b, device=q.device)
+    _put_rows(cache, rows, pos.clamp(max=smax - 1).long(), pos < smax,
+              k[:, 0], v[:, 0], amax and (amax[0][:, 0], amax[1][:, 0]))
     if attn_impl == "kernel":
         pool, table = dense_page_view(cache)
         o = _paged_kernel(cfg, pool, q[:, 0], table, pos, local=local,
                           chunk=False)
-        return _out_proj(cfg, p, o[:, None]), cache
+        return o[:, None]
     ck, cv = _dense_view(cache)
-    return _decode_sdpa_rows(cfg, p, q, ck, cv, pos, local=local), cache
+    return _decode_sdpa_core(cfg, q, ck, cv, pos, local=local)
 
 
 def chunked_decode_attention(
@@ -769,37 +816,44 @@ def chunked_decode_attention(
     cache quantises the chunk once with ``quantise_kv_rows``: the same
     bits as C per-row decodes.
     """
-    b, c = x.shape[:2]
+    c = x.shape[1]
     smax = cache["k"].shape[1]
     if c > smax:
         raise ValueError(
             f"a chunk of {c} rows does not fit a dense cache of max_len={smax}"
         )
-    offs = torch.arange(c, dtype=torch.int32, device=x.device)
-    positions = start[:, None] + offs[None, :]  # [B,C]
-    q, k, v = _qkv(cfg, p, x, positions)
-    keep = (offs[None, :] < length[:, None]) & (positions < smax)  # [B,C]
-    rows = torch.arange(b, device=x.device)[:, None].expand(b, c)
-    at = (positions % smax).long()
+    q, k, v = _qkv(cfg, p, x, chunk_positions(start, c))
+    o = dense_chunk_core(cfg, cache, q, k, v, start, length, local=local,
+                         attn_impl=attn_impl)
+    return _out_proj(cfg, p, o), cache
 
-    def put(t: torch.Tensor, new: torch.Tensor) -> None:
-        k_ = keep.view(b, c, *([1] * (new.dim() - 2)))
-        t.index_put_((rows, at), torch.where(k_, new, t[rows, at]))
 
-    if cache["k"].dtype == torch.int8:
-        qk, ksc = quantise_kv_rows(k)
-        qv, vsc = quantise_kv_rows(v)
-        for name, new in (("k", qk), ("v", qv), ("ks", ksc), ("vs", vsc)):
-            put(cache[name], new)
-    else:
-        put(cache["k"], k)
-        put(cache["v"], v)
+def dense_chunk_core(
+    cfg: ArchConfig,
+    cache: dict,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    start: torch.Tensor,
+    length: torch.Tensor,
+    *,
+    local: bool,
+    attn_impl: str = "kernel",
+    amax: tuple | None = None,
+) -> torch.Tensor:
+    """``chunked_decode_attention`` between the projections: write the
+    chunk's K/V rows (k/v [B,C,KH,dh]) and attend q [B,C,H,dh] causally ->
+    [B,C,H,dh] (``amax`` as ``_write_pages``, [B,C] each)."""
+    b, c = q.shape[:2]
+    smax = cache["k"].shape[1]
+    positions = chunk_positions(start, c)  # [B,C]
+    offs = positions - start[:, None]
+    keep = (offs < length[:, None]) & (positions < smax)  # [B,C]
+    rows = torch.arange(b, device=q.device)[:, None].expand(b, c)
+    _put_rows(cache, rows, (positions % smax).long(), keep, k, v, amax)
     if attn_impl == "kernel":
         pool, table = dense_page_view(cache)
-        o = _paged_kernel(cfg, pool, q, table, start, local=local, chunk=True)
-        return _out_proj(cfg, p, o), cache
+        return _paged_kernel(cfg, pool, q, table, start, local=local,
+                             chunk=True)
     ck, cv = _dense_view(cache)
-    return (
-        _decode_sdpa_rows(cfg, p, q, ck, cv, positions, local=local),
-        cache,
-    )
+    return _decode_sdpa_core(cfg, q, ck, cv, positions, local=local)

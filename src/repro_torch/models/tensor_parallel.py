@@ -1,7 +1,7 @@
-"""The paged serving path of the dense family over a mesh of logical
-devices (DESIGN.md §16; ROADMAP A12 part 2): tensor parallelism over
-``model`` and data parallelism over ``data``, with the collectives where
-GSPMD puts them in the JAX package.
+"""The serving paths of the dense family over a mesh of logical devices
+(DESIGN.md §16; ROADMAP A12 parts 2-3): tensor parallelism over ``model``
+and data parallelism over ``data``, with the collectives where GSPMD puts
+them in the JAX package.
 
 **Weights** (``shard_params``) follow ``MeshPlan.param_specs`` (TP only):
 each model shard ``m`` holds its piece of every split leaf and the whole of
@@ -25,7 +25,8 @@ the query heads are gathered over ``model``, and each shard attends with
 every head and keeps its own heads' output for its rows of ``wo``. Where
 ``wq`` itself is whole (``num_heads % mp != 0``), attention runs whole on
 every shard and needs no reduction. Norms and residuals run on every shard
-as replicas.
+as replicas. The speculative draft (``models.draft_view``) is the same
+slices of the target's shards (``draft_shards``): views, no second copy.
 
 **The pool** (``ShardedCache``, ``init_mesh_paged_cache``) follows
 ``MeshPlan.paged_cache_specs``: data row ``d`` holds the physical page block
@@ -33,18 +34,35 @@ as replicas.
 shards, one or more shard blocks, each with its own null page), its kv heads
 split over ``model`` where they divide. Block tables keep global page ids;
 the step turns them into each row's local ids (an id outside the row, the
-null padding, reads and writes the row's first null page).
+null padding, reads and writes the row's first null page). An int8 pool's
+scales ``[m, P, ps]`` are replicated over ``model``, and one scale covers a
+token row's every kv head: where the heads are split, each shard's absmax is
+reduced with ``collectives.pmax`` over the row's shards before it rounds,
+so every shard writes the whole row's scale and the bits a one-device pool
+holds.
+
+**The dense caches** (``init_mesh_dense_cache``: the dense engine's and
+every draft's) follow ``MeshPlan.dense_cache_specs``: slots over ``data``
+(``slots % dp == 0``, else ``ValueError``), the kv heads over ``model``
+where they divide, **else the sequence**: shard ``m`` then holds positions
+``[m·L/mp, (m+1)·L/mp)`` of every head. Attention needs the whole row, so
+there each shard gathers the row's pieces over ``model`` (one copy of the
+row's cache a layer), writes the new rows into the gathered cache and
+attends over its page view with the unchanged kernels, then copies its own
+positions back: a new row lands only in the piece that owns its position.
+The scales ``[m, S, L]`` stay whole on every shard.
 
 **Slots**: slot ``s`` runs on data row ``s·dp // S`` — the row that holds
-its pool shard (``s·shards // S``, ``runtime.scheduler``) — so rows are the
-equal contiguous groups ``row_spec`` gives when ``S % dp == 0``. Each row's
-devices run every layer on its slots; kernels B1/B2 launch on each shard's
-heads over its pool block. The rows' logits are gathered over ``data`` onto
-the mesh's first device, where the step samples once.
+its pool shard (``s·shards // S``, ``runtime.scheduler``) or its dense
+cache rows — so rows are the equal contiguous groups ``row_spec`` gives
+when ``S % dp == 0``. Each row's devices run every layer on its slots;
+kernels B1-B4 launch on each shard's heads over its pool block or dense
+rows. The rows' logits are gathered over ``data`` onto the mesh's first
+device, where the step samples once.
 
-Families other than dense attention + MLP stacks, int8 pools and the
-speculative, dense-engine and migration lanes raise ``NotImplementedError``
-(ROADMAP A12 part 3) in the engine before anything here runs.
+Families other than dense attention + MLP stacks, and the migration lane,
+raise ``NotImplementedError`` (ROADMAP A12 part 3) in the engine before
+anything here runs.
 """
 
 from __future__ import annotations
@@ -160,20 +178,39 @@ def shard_params(params: dict, specs: dict, mesh: shd.LogicalMesh,
 
 # ------------------------------------------------------------------- pool
 class ShardedCache(list):
-    """A mesh's page pool: every coordinate's per-period-slot leaf dicts in
-    coordinate order (so what walks a cache — zeroing, parking, copying one
-    pool into another of the same mesh — walks the pieces), with ``shards``
-    (coordinate -> its period-slot list), ``mesh``, ``specs`` (per period
-    slot, leaf -> spec), the global ``shapes`` and ``row_block``."""
+    """A mesh's page pool or dense cache: every coordinate's per-period-slot
+    leaf dicts in coordinate order (so what walks a cache — zeroing,
+    parking, copying one cache into another of the same mesh — walks the
+    pieces), with ``shards`` (coordinate -> its period-slot list), ``mesh``,
+    ``specs`` (per period slot, leaf -> spec), the global ``shapes``,
+    ``row_block`` (a pool's physical pages per data row) and ``seq_split``
+    (a dense cache whose sequence axis is split over ``model``)."""
 
     def __init__(self, mesh, shards: dict, specs: list, shapes: list,
-                 row_block: int):
+                 row_block: int, seq_split: bool = False):
         super().__init__(d for c in mesh.coords() for d in shards[c])
         self.mesh = mesh
         self.shards = shards
         self.specs = specs
         self.shapes = shapes
         self.row_block = row_block
+        self.seq_split = seq_split
+
+
+def _zeroed_pieces(mesh, global_cache: list, specs: list) -> dict:
+    """Each coordinate's zeroed pieces of ``global_cache`` (meta tensors)
+    on its device."""
+    return {
+        c: [{n: torch.zeros(shd.local_shape(t.shape, sp[n], mesh),
+                            dtype=t.dtype, device=mesh.device(c))
+             for n, t in d.items()}
+            for d, sp in zip(global_cache, specs)]
+        for c in mesh.coords()
+    }
+
+
+def _shapes(global_cache: list) -> list:
+    return [{n: tuple(t.shape) for n, t in d.items()} for d in global_cache]
 
 
 def init_mesh_paged_cache(plan: shd.MeshPlan, global_cache: list,
@@ -183,16 +220,38 @@ def init_mesh_paged_cache(plan: shd.MeshPlan, global_cache: list,
     each coordinate's zeroed piece on its device."""
     mesh = plan.mesh
     specs = plan.paged_cache_specs(global_cache)
-    shapes = [{n: tuple(t.shape) for n, t in d.items()} for d in global_cache]
-    shards = {
-        c: [{n: torch.zeros(shd.local_shape(t.shape, sp[n], mesh),
-                            dtype=t.dtype, device=mesh.device(c))
-             for n, t in d.items()}
-            for d, sp in zip(global_cache, specs)]
-        for c in mesh.coords()
-    }
     phys = global_cache[0]["k"].shape[1]
-    return ShardedCache(mesh, shards, specs, shapes, phys // plan.dp)
+    return ShardedCache(mesh, _zeroed_pieces(mesh, global_cache, specs),
+                        specs, _shapes(global_cache), phys // plan.dp)
+
+
+def init_mesh_dense_cache(plan: shd.MeshPlan, global_cache: list,
+                          ) -> ShardedCache:
+    """The dense per-slot cache of a multi-device ``plan`` for the global
+    layout ``global_cache`` (``models.init_cache`` on the ``meta`` device:
+    the dense engine's, or a draft's of either dtype): each coordinate's
+    zeroed piece on its device. Slots must divide over the data rows."""
+    mesh = plan.mesh
+    slots = global_cache[0]["k"].shape[1]
+    if slots % plan.dp:
+        raise ValueError(
+            f"a dense cache of {slots} slots on mesh {plan.name!r}: the "
+            f"slots must divide over its {plan.dp} data rows (each row "
+            f"holds its slots' cache rows)")
+    specs = plan.dense_cache_specs(global_cache)
+    return ShardedCache(mesh, _zeroed_pieces(mesh, global_cache, specs),
+                        specs, _shapes(global_cache), slots // plan.dp,
+                        seq_split=specs[0]["k"][2] == "model")
+
+
+def draft_shards(params: dict, draft_cfg: ArchConfig) -> dict:
+    """The draft view's weights on a mesh: each coordinate's target shard
+    with every ``blocks.*`` piece sliced to the draft's depth (views of the
+    target's pieces, as ``models.draft_view`` of the whole weights)."""
+    d = draft_cfg.num_layers // draft_cfg.period
+    return {c: {k: (t[:d] if k.startswith("blocks.") else t)
+                for k, t in shard.items()}
+            for c, shard in params.items()}
 
 
 def _global_leaf(cache: list, i: int, name: str,
@@ -257,7 +316,7 @@ def _local_tables(bt: torch.Tensor, row: int, block: int) -> torch.Tensor:
 
 
 class _Row:
-    """One data row's shards: its coordinates, devices, weights and pool
+    """One data row's shards: its coordinates, devices, weights and cache
     pieces, and the collectives over its model axis."""
 
     def __init__(self, lay: TPLayout, mesh, params: dict, cache: ShardedCache,
@@ -267,11 +326,12 @@ class _Row:
         self.devs = [mesh.device(c) for c in self.coords]
         self.params = [params[c] for c in self.coords]
         self.caches = [cache.shards[c] for c in self.coords]
+        self.seq_split = cache.seq_split
         self._views: dict = {}
 
     def layer(self, m: int, i: int, slot: int) -> tuple[dict, dict]:
         """Shard ``m``'s layer ``i`` of period slot ``slot``: its weights
-        (nested, as the blocks take them) and its pool views."""
+        (nested, as the blocks take them) and its cache views."""
         key = (m, i, slot)
         if key not in self._views:
             prefix = f"blocks.{slot}."
@@ -294,6 +354,10 @@ class _Row:
     def gather(self, xs: list, dim: int) -> list:
         out = coll.all_gather(dict(zip(self.coords, xs)), self.mesh, "model",
                               dim=dim, tiled=True)
+        return [out[c] for c in self.coords]
+
+    def pmax(self, xs: list) -> list:
+        out = coll.pmax(dict(zip(self.coords, xs)), self.mesh, "model")
         return [out[c] for c in self.coords]
 
 
@@ -333,28 +397,31 @@ def _attend(cfg: ArchConfig, row: _Row, slot: int, i: int, hs: list,
             positions: list, core) -> list:
     """One layer's attention on every shard of a row -> each shard's share
     of the output (reduced over ``model`` when ``wo`` is split). ``core(
-    lcfg, cache, q, k, v, shard)`` writes and attends."""
+    acfg, caches, qs, ks, vs, local, amax)`` writes and attends on every
+    shard -> each shard's output; ``amax[m]`` is the (K, V) row absmax
+    over all kv heads where shard ``m`` holds some of them of an int8 cache
+    (``collectives.pmax``), else None."""
     lay = row.lay
     local = _is_local(cfg, slot)
     kv_whole = lay.heads and not lay.kv
     lcfg = lay.local_cfg(cfg, kv_whole=kv_whole)
-    outs, qs, kvs = [], [], []
+    ps, cs, qs, ks, vs = [], [], [], [], []
     for m in range(lay.mp):
         p, c = row.layer(m, i, slot)
         q, k, v = attn._qkv(lcfg, p["attn"], hs[m], positions[m])
-        qs.append(q)
-        kvs.append((p, c, k, v))
+        for xs, x in ((ps, p), (cs, c), (qs, q), (ks, k), (vs, v)):
+            xs.append(x)
+    amax = [None] * lay.mp
+    if lay.kv and lay.mp > 1 and cs[0]["k"].dtype == torch.int8:
+        amax = list(zip(row.pmax([attn.kv_row_amax(k) for k in ks]),
+                        row.pmax([attn.kv_row_amax(v) for v in vs])))
     if kv_whole:  # every head attends on every shard; each keeps its own
-        qs = row.gather(qs, dim=2)
         h = lcfg.num_heads
-        for m, (p, c, k, v) in enumerate(kvs):
-            o = core(cfg, c, qs[m], k, v, m, local)
-            outs.append(attn._out_proj(lcfg, p["attn"],
-                                       o[:, :, m * h:(m + 1) * h]))
+        os = core(cfg, cs, row.gather(qs, dim=2), ks, vs, local, amax)
+        os = [o[:, :, m * h:(m + 1) * h] for m, o in enumerate(os)]
     else:
-        for m, (p, c, k, v) in enumerate(kvs):
-            o = core(lcfg, c, qs[m], k, v, m, local)
-            outs.append(attn._out_proj(lcfg, p["attn"], o))
+        os = core(lcfg, cs, qs, ks, vs, local, amax)
+    outs = [attn._out_proj(lcfg, p["attn"], o) for p, o in zip(ps, os)]
     return row.reduce(outs) if lay.heads else outs
 
 
@@ -408,13 +475,42 @@ def mesh_paged_decode_step(
         p = row.each(pos[lo:hi])
         bt = row.each(_local_tables(block_tables[lo:hi], d, lay.row_block))
 
-        def core(lcfg, c, q, k, v, m, local, p=p, bt=bt):
-            return attn.paged_decode_core(lcfg, c, q, k, v, p[m], bt[m],
-                                          local=local, attn_impl=attn_impl)
+        def core(acfg, cs, qs, ks, vs, local, amax, p=p, bt=bt):
+            return [attn.paged_decode_core(
+                acfg, c, q, k, v, p[m], bt[m], local=local,
+                attn_impl=attn_impl, amax=amax[m])
+                for m, (c, q, k, v) in enumerate(zip(cs, qs, ks, vs))]
 
         xs = _tower(cfg, row, row.each(inputs[lo:hi]),
                     [x[:, None] for x in p], core)
         out.append(_head(cfg, row, [x[:, -1] for x in xs]))
+    return _gather_rows(mesh, out)
+
+
+def _paged_chunk(cfg, lay, params, cache, inputs, start, block_tables,
+                 length, attn_impl: str, every_row: bool) -> torch.Tensor:
+    """The paged chunk tower over the mesh -> the logits of each row's last
+    real chunk row [S,V], or with ``every_row`` of every row [S,C,V]."""
+    from .model import _last_real_row
+
+    mesh = cache.mesh
+    out = []
+    c_len = inputs.shape[1]
+    for d, lo, hi, row in _rows(lay, mesh, params, cache):
+        st = row.each(start[lo:hi])
+        ln = row.each(length[lo:hi])
+        bt = row.each(_local_tables(block_tables[lo:hi], d, lay.row_block))
+
+        def core(acfg, cs, qs, ks, vs, local, amax, st=st, bt=bt, ln=ln):
+            return [attn.paged_prefill_core(
+                acfg, c, q, k, v, st[m], bt[m], ln[m], local=local,
+                attn_impl=attn_impl, amax=amax[m])
+                for m, (c, q, k, v) in enumerate(zip(cs, qs, ks, vs))]
+
+        xs = _tower(cfg, row, row.each(inputs[lo:hi]),
+                    [attn.chunk_positions(s, c_len) for s in st], core)
+        out.append(_head(cfg, row, xs if every_row else
+                         [_last_real_row(x, n) for x, n in zip(xs, ln)]))
     return _gather_rows(mesh, out)
 
 
@@ -427,26 +523,119 @@ def mesh_paged_prefill_step(
     length i32[S], block_tables i32[S,PB] (global ids) on the mesh's first
     device -> the logits of each row's last real chunk row [S,V] float32
     there; every shard's pool piece updated in place."""
+    return _paged_chunk(cfg, lay, params, cache, inputs, start,
+                        block_tables, length, attn_impl, every_row=False)
+
+
+def mesh_paged_verify_step(
+    cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
+    inputs: torch.Tensor, start: torch.Tensor, block_tables: torch.Tensor,
+    length: torch.Tensor, *, attn_impl: str = "kernel",
+) -> torch.Tensor:
+    """``models.paged_verify_step`` over the mesh (the ``vf`` lane): as
+    ``mesh_paged_prefill_step``, but the logits of all C = k+1 window rows
+    [S,C,V] float32, gathered over ``data`` onto the mesh's first
+    device."""
+    return _paged_chunk(cfg, lay, params, cache, inputs, start,
+                        block_tables, length, attn_impl, every_row=True)
+
+
+def _dense_cores(row: _Row, cs: list, fn) -> list:
+    """Run ``fn(m, cache)`` (write, then attend) on every shard's dense
+    cache of one layer -> each shard's output. Where the sequence is split
+    over ``model``, ``fn`` runs over the row's pieces gathered (all
+    positions; the scales are whole on every shard), and each shard then
+    copies its own positions back into its piece."""
+    if not row.seq_split:
+        return [fn(m, c) for m, c in enumerate(cs)]
+    full = {n: row.gather([c[n] for c in cs], dim=1) for n in ("k", "v")}
+    outs = []
+    for m, c in enumerate(cs):
+        whole = dict(c, k=full["k"][m], v=full["v"][m])
+        outs.append(fn(m, whole))
+        n = c["k"].shape[1]
+        for name in ("k", "v"):
+            c[name].copy_(whole[name][:, m * n:(m + 1) * n])
+    return outs
+
+
+def mesh_slot_decode_step(
+    cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
+    inputs: torch.Tensor, pos: torch.Tensor, *, attn_impl: str = "kernel",
+) -> torch.Tensor:
+    """``models.decode_step`` at per-row positions over the mesh (the
+    ``cb`` lane, and each of a ``dr`` call's steps): inputs i32[S,1], pos
+    i32[S] on the mesh's first device -> logits [S,V] float32 there; every
+    shard's dense cache piece updated in place."""
+    mesh = cache.mesh
+    out = []
+    for d, lo, hi, row in _rows(lay, mesh, params, cache):
+        p = row.each(pos[lo:hi])
+
+        def core(acfg, cs, qs, ks, vs, local, amax, p=p, row=row):
+            return _dense_cores(row, cs, lambda m, c: attn.dense_decode_core(
+                acfg, c, qs[m], ks[m], vs[m], p[m], local=local,
+                attn_impl=attn_impl, amax=amax[m]))
+
+        xs = _tower(cfg, row, row.each(inputs[lo:hi]),
+                    [x[:, None] for x in p], core)
+        out.append(_head(cfg, row, [x[:, -1] for x in xs]))
+    return _gather_rows(mesh, out)
+
+
+def _dense_chunk(cfg, lay, params, cache, inputs, start, length,
+                 attn_impl: str, every_row: bool) -> torch.Tensor:
+    """The dense chunk tower over the mesh -> the logits of each row's last
+    real chunk row [S,V], or with ``every_row`` of every row [S,C,V]."""
     from .model import _last_real_row
 
     mesh = cache.mesh
-    out = []
     c_len = inputs.shape[1]
+    smax = cache.shapes[0]["k"][2]
+    if c_len > smax:
+        raise ValueError(f"a chunk of {c_len} rows does not fit a dense "
+                         f"cache of max_len={smax}")
+    out = []
     for d, lo, hi, row in _rows(lay, mesh, params, cache):
         st = row.each(start[lo:hi])
         ln = row.each(length[lo:hi])
-        bt = row.each(_local_tables(block_tables[lo:hi], d, lay.row_block))
 
-        def core(lcfg, c, q, k, v, m, local, st=st, bt=bt, ln=ln):
-            return attn.paged_prefill_core(lcfg, c, q, k, v, st[m], bt[m],
-                                           ln[m], local=local,
-                                           attn_impl=attn_impl)
+        def core(acfg, cs, qs, ks, vs, local, amax, st=st, ln=ln, row=row):
+            return _dense_cores(row, cs, lambda m, c: attn.dense_chunk_core(
+                acfg, c, qs[m], ks[m], vs[m], st[m], ln[m], local=local,
+                attn_impl=attn_impl, amax=amax[m]))
 
         xs = _tower(cfg, row, row.each(inputs[lo:hi]),
                     [attn.chunk_positions(s, c_len) for s in st], core)
-        out.append(_head(cfg, row, [_last_real_row(x, n)
-                                    for x, n in zip(xs, ln)]))
+        out.append(_head(cfg, row, xs if every_row else
+                         [_last_real_row(x, n) for x, n in zip(xs, ln)]))
     return _gather_rows(mesh, out)
+
+
+def mesh_slot_prefill_step(
+    cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
+    inputs: torch.Tensor, start: torch.Tensor, length: torch.Tensor, *,
+    attn_impl: str = "kernel",
+) -> torch.Tensor:
+    """``models.chunked_decode_step`` over the mesh (the ``pfd`` lane and
+    the draft's ``drp``): inputs i32[S,C], start, length i32[S] on the
+    mesh's first device -> the logits of each row's last real chunk row
+    [S,V] float32 there; every shard's dense cache piece updated in
+    place."""
+    return _dense_chunk(cfg, lay, params, cache, inputs, start, length,
+                        attn_impl, every_row=False)
+
+
+def mesh_slot_verify_step(
+    cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
+    inputs: torch.Tensor, start: torch.Tensor, length: torch.Tensor, *,
+    attn_impl: str = "kernel",
+) -> torch.Tensor:
+    """``models.chunked_verify_step`` over the mesh (the ``vfd`` lane):
+    the logits of all C = k+1 window rows [S,C,V] float32 on the mesh's
+    first device."""
+    return _dense_chunk(cfg, lay, params, cache, inputs, start, length,
+                        attn_impl, every_row=True)
 
 
 def _gather_rows(mesh, out: Sequence[torch.Tensor]) -> torch.Tensor:

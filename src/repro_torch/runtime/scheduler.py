@@ -48,7 +48,8 @@ packs what the JAX package pulls separately into one transfer, that pull
 counts as many ``d2h_stall`` opportunities as the JAX package's pulls.
 
 The mesh coordinate (DESIGN.md §16-§17) is the JAX package's too:
-``set_mesh`` moves a batcher to another warmed one-device mesh, and the
+``set_mesh`` moves a batcher (either engine's, its draft state with it) to
+another warmed mesh, of one device or of several logical devices, and the
 paged batcher's disaggregated mode runs the prefill lane on its own slice
 and pool, migrating each prompt's pages to the decode pool at its PREFILL
 -> DECODE flip (``kvcache.migrate_pages`` and the engine's ``mg``
@@ -57,7 +58,12 @@ several shards (a warm ladder with a data-parallel mesh) slot ``s`` is
 pinned to shard ``s * shards // num_slots``, as in the JAX package: its
 table allocates, adopts and prefix-matches pages of that shard only, and
 pads with that shard's null page, so a mesh's data row finds every page of
-its slots in its own block.
+its slots in its own block; copy-on-write within a table never crosses
+shards. A dense cache on a mesh holds slot ``s``'s rows on data row ``s *
+dp // num_slots`` (``models.tensor_parallel``), so the dense batcher's
+slots are pinned by construction: any free slot is served by the row that
+holds its cache. The speculative lanes follow the batcher's mesh binding
+like its decode lane.
 """
 
 from __future__ import annotations

@@ -78,15 +78,18 @@ target cell and flips the hot slot, never rebinding a captured tensor.
 lanes run on the prefill slice's pool, and a prompt's pages migrate to the
 decode pool at its flip (the ``mg`` targets). A plan of more than one
 logical device ("1x2", "2x2", ...: ``devices[off : off + dp·mp]``, which
-may all name one card) serves the paged lanes ``cbp`` and ``pf`` of the
-dense family: tensor-parallel weights over ``model``, the pool's page
-blocks over ``data`` and its kv heads over ``model``
-(``models.tensor_parallel``); each such mesh is a cell with its own pool
-and targets, and on the card each key is still one CUDA graph. ``set_mesh``
-copies the live pages between the layouts. int8 pools, speculation, the
-dense engine's lanes, disaggregation over multi-device slices, other
-families and plans across distinct cards raise ``NotImplementedError``
-there (ROADMAP A12 part 3).
+may all name one card) serves every lane of both continuous engines for
+the dense family — ``cbp``, ``pf`` and ``vf`` over model-dtype and int8
+pools, ``cb``, ``pfd`` and ``vfd`` over the dense cache, and the draft's
+``dr`` and ``drp`` — with tensor-parallel weights over ``model``, the
+pool's page blocks and the dense caches' slots over ``data`` and their kv
+heads (else a dense cache's sequence) over ``model``
+(``models.tensor_parallel``); each such mesh is a cell with its own pool,
+dense and draft caches and targets, and on the card each key is still one
+CUDA graph. ``set_mesh`` copies the live pages and dense rows between the
+layouts. Disaggregation over multi-device slices, page migration there,
+other families and plans across distinct cards raise
+``NotImplementedError`` (ROADMAP A12 part 3).
 
 With ``Telemetry(compile_analysis=True)`` each build appends the key's
 capture report (``capture_analysis``) with its roofline terms
@@ -208,8 +211,8 @@ class EngineConfig:
     # standby names to warm, each a trailing key coordinate of every lane
     # that touches a pool: "1x1" (the engine's own device), slices
     # "1x1@OFF" (``devices[OFF]``) and plans "DPxMP[@OFF]" of more than one
-    # logical device (``devices[OFF : OFF + DP*MP]``; the paged lanes of the
-    # dense family, all on one card).
+    # logical device (``devices[OFF : OFF + DP*MP]``; the dense family's
+    # lanes, all on one card).
     mesh: str = "1x1"
     meshes: tuple = ()
     # The engine's logical devices, which meshes index: () = each visible
@@ -356,7 +359,7 @@ class _GraphStep:
 class Engine:
     """The per-burst engine and the dense and paged serving lanes, on one
     device, on one-device mesh slices of the engine's devices, or (the
-    paged lanes) on meshes of several logical devices."""
+    continuous engines' lanes) on meshes of several logical devices."""
 
     def __init__(
         self,
@@ -565,12 +568,17 @@ class Engine:
         plan = self._mesh_plan(mesh)
         return self.device if plan.single else torch.device(plan.device)
 
-    def _layout(self, mesh: str, slots: int) -> "tensor_parallel.TPLayout":
-        """A multi-device plan's tensor-parallel layout for ``slots``."""
+    def _layout(self, mesh: str, slots: int, *, paged: bool = True
+                ) -> "tensor_parallel.TPLayout | None":
+        """A multi-device plan's tensor-parallel layout for ``slots`` (the
+        draft's too: its layers have the target's shapes); None for a
+        one-device mesh. A dense cache's layout has no page blocks."""
+        if not self._multi(mesh):
+            return None
         plan = self._mesh_plan(mesh)
         return tensor_parallel.layout_for(
             self.cfg, plan.param_specs(self.params), plan, slots,
-            self.pool_physical_pages)
+            self.pool_physical_pages if paged else 0)
 
     def _params_for_mesh(self, mesh: str, *, draft: bool = False) -> dict:
         """The weights as a mesh's targets take them, moved to its device
@@ -578,15 +586,19 @@ class Engine:
         itself, so a slice on the same card shares the weights); for a
         multi-device plan, each coordinate's (``tensor_parallel.
         shard_params``: replicated weights shared, pieces once per card and
-        model size)."""
+        model size; the draft's are views of the target's,
+        ``tensor_parallel.draft_shards``)."""
         base = self.draft_params if draft else self.params
         if self._multi(mesh):
             plan = self._mesh_plan(mesh)
-            key = ("mesh", plan.name)
+            key = ("mesh", plan.name, draft)
             if key not in self._mesh_params:
-                self._mesh_params[key] = tensor_parallel.shard_params(
-                    base, plan.param_specs(base), plan.mesh,
-                    self._tp_pieces)
+                self._mesh_params[key] = (
+                    tensor_parallel.draft_shards(
+                        self._params_for_mesh(mesh), self.draft_cfg)
+                    if draft else tensor_parallel.shard_params(
+                        base, plan.param_specs(base), plan.mesh,
+                        self._tp_pieces))
             return self._mesh_params[key]
         dev = self._mesh_device(mesh)
         key = (str(dev), draft)
@@ -722,6 +734,7 @@ class Engine:
         step = steps_mod.make_slot_decode_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
+            layout=self._layout(mesh, slots, paged=False),
         )
         i32 = torch.int32
         cache = self.dense_cache(slots, mesh)
@@ -743,6 +756,7 @@ class Engine:
         step = steps_mod.make_slot_prefill_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
+            layout=self._layout(mesh, slots, paged=False),
         )
         cache = self.dense_cache(slots, mesh)
         return self._target(
@@ -760,6 +774,7 @@ class Engine:
         step = steps_mod.make_slot_verify_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
+            layout=self._layout(mesh, slots, paged=False),
         )
         cache = self.dense_cache(slots, mesh)
         return self._target(
@@ -782,7 +797,7 @@ class Engine:
         step = steps_mod.make_paged_slot_decode_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
-            layout=self._layout(mesh, slots) if self._multi(mesh) else None,
+            layout=self._layout(mesh, slots),
         )
         i32 = torch.int32
         cache = self.paged_cache(kv_dtype, mesh)
@@ -832,7 +847,7 @@ class Engine:
         step = steps_mod.make_paged_prefill_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
-            layout=self._layout(mesh, slots) if self._multi(mesh) else None,
+            layout=self._layout(mesh, slots),
         )
         cache = self.paged_cache(kv_dtype, mesh)
         return self._target(
@@ -848,10 +863,10 @@ class Engine:
         target scores all K+1 window positions in one pass through the paged
         chunk path (DESIGN.md §11). The window width k+1 is part of the
         shapes; the block table is pinned at the per-request page cap."""
-        self._one_device(mesh, "speculation ('vf')")
         step = steps_mod.make_paged_verify_fn(
             self.cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
+            layout=self._layout(mesh, slots),
         )
         cache = self.paged_cache(kv_dtype, mesh)
         return self._target(
@@ -871,6 +886,7 @@ class Engine:
         step = steps_mod.make_draft_fn(
             self.draft_cfg, k=k, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
+            layout=self._layout(mesh, slots, paged=False),
         )
         i32 = torch.int32
         cache = self.draft_cache(slots, draft_kv_dtype, mesh)
@@ -893,6 +909,7 @@ class Engine:
         step = steps_mod.make_slot_prefill_fn(
             self.draft_cfg, attn_impl=self.ecfg.attn_impl,
             moe_policy=self.ecfg.moe_policy,
+            layout=self._layout(mesh, slots, paged=False),
         )
         cache = self.draft_cache(slots, draft_kv_dtype, mesh)
         return self._target(
@@ -942,8 +959,6 @@ class Engine:
         key = (kv_dtype, shd.mesh_name(*shd.parse_slice_name(mesh)))
         if key not in self._paged_caches:
             if self._multi(key[1]):  # the mesh's pieces of the pool
-                if kv_dtype == "int8":
-                    self._one_device(key[1], "an int8 pool")
                 self._paged_caches[key] = tensor_parallel.init_mesh_paged_cache(
                     self._mesh_plan(key[1]), models.init_paged_cache(
                         self.cfg, self.pool_physical_pages,
@@ -963,13 +978,23 @@ class Engine:
         that slot count and mesh is bound to it, and ``continuous`` hands it
         to its batcher, which still admits requests by ``max_len``."""
         key = (slots, shd.mesh_name(*shd.parse_slice_name(mesh)))
-        self._one_device(key[1], "the dense engine's cache")
         if key not in self._dense_caches:
-            self._dense_caches[key] = models.init_cache(
-                self.cfg, slots, models.dense_rows(self.ecfg.max_len),
-                device=self._mesh_device(key[1]),
-            )
+            self._dense_caches[key] = self._new_dense_cache(
+                self.cfg, slots, "fp32", key[1])
         return self._dense_caches[key]
+
+    def _new_dense_cache(self, cfg: ArchConfig, slots: int, kv_dtype: str,
+                         mesh: str) -> list:
+        """A zeroed dense cache of ``slots`` rows of ``dense_rows(max_len)``
+        positions on ``mesh``: on its device, or a multi-device plan's
+        pieces (``tensor_parallel.init_mesh_dense_cache``)."""
+        rows = models.dense_rows(self.ecfg.max_len)
+        if self._multi(mesh):
+            return tensor_parallel.init_mesh_dense_cache(
+                self._mesh_plan(mesh), models.init_cache(
+                    cfg, slots, rows, kv_dtype, device="meta"))
+        return models.init_cache(cfg, slots, rows, kv_dtype,
+                                 device=self._mesh_device(mesh))
 
     def draft_cache(self, slots: int, draft_kv_dtype: str,
                     mesh: str = "1x1") -> list:
@@ -978,12 +1003,9 @@ class Engine:
         first use."""
         key = (slots, draft_kv_dtype,
                shd.mesh_name(*shd.parse_slice_name(mesh)))
-        self._one_device(key[2], "speculation's draft cache")
         if key not in self._draft_caches:
-            self._draft_caches[key] = models.init_cache(
-                self.draft_cfg, slots, models.dense_rows(self.ecfg.max_len),
-                draft_kv_dtype, device=self._mesh_device(key[2]),
-            )
+            self._draft_caches[key] = self._new_dense_cache(
+                self.draft_cfg, slots, draft_kv_dtype, key[2])
         return self._draft_caches[key]
 
     def _new_owner(self) -> _Owner:
@@ -1209,21 +1231,12 @@ class Engine:
         for m in self._warm_meshes():
             self._mesh_plan(m)
 
-    def _check_mesh_lanes(self, *, dense: bool = False, spec: bool = False,
-                          disagg: bool = False) -> None:
-        """What a multi-device plan in the warm ladder cannot warm yet
-        (ROADMAP A12 part 3), refused before anything is warmed: the dense
-        engine, speculation, int8 pools, disaggregation."""
+    def _check_disagg_meshes(self) -> None:
+        """Disaggregation with a multi-device plan in the warm ladder waits
+        for ROADMAP A12 part 3 (the ``mg`` transport over a mesh's pool),
+        refused before anything is warmed."""
         multi = [m for m in self._warm_meshes() if self._multi(m)]
-        if not multi:
-            return
-        if dense:
-            self._one_device(multi[0], "the dense engine's 'cb'/'pfd' lanes")
-        if spec:
-            self._one_device(multi[0], "speculation ('vf', 'dr', 'drp')")
-        if "int8" in self._warm_kv_dtypes():
-            self._one_device(multi[0], "an int8 pool")
-        if disagg:
+        if multi:
             self._one_device(multi[0], "disaggregated prefill/decode")
 
     def _disagg_lanes_enabled(self, ctx: "_WarmCtx") -> bool:
@@ -1647,7 +1660,8 @@ class Engine:
             and self._supports_spec_decode()
         )
         m0 = self._mesh_arg(mesh)
-        self._check_mesh_lanes(spec=use_spec, disagg=bool(disagg))
+        if disagg:
+            self._check_disagg_meshes()
         dg = self._disagg_plan(disagg, m0, use_spec)
         ddt = draft_kv_dtype or ecfg.draft_kv_dtype
         if ddt not in self._warm_draft_kv_dtypes():
@@ -1869,7 +1883,6 @@ class Engine:
             )
         s = slots or self.ecfg.max_batch
         m0 = self._mesh_arg(mesh)
-        self._check_mesh_lanes(dense=True)
         ddt = draft_kv_dtype or self.ecfg.draft_kv_dtype
         if ddt not in self._warm_draft_kv_dtypes():
             raise ValueError(

@@ -23,6 +23,7 @@ CPU it is its plain version, ``repro_torch.prng``.
 from __future__ import annotations
 
 import time
+from functools import partial
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -140,8 +141,26 @@ def make_prefill_fn(cfg: ArchConfig, *, impl: str = "kernel",
     return prefill_step
 
 
-def make_slot_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel",
-                   moe_policy: str = "drop") -> Callable:
+def _decode_logits(one: Callable, mesh: Callable, cfg: ArchConfig,
+                   attn_impl: str, moe_policy: str,
+                   layout: tensor_parallel.TPLayout | None) -> Callable:
+    """A step's logits ``(params, cache, *inputs)``: the one-device model
+    function ``one`` (its cache updated in place) or, with a mesh
+    ``layout``, its counterpart ``mesh`` in ``models.tensor_parallel``."""
+    if layout is not None:
+        return partial(mesh, cfg, layout, attn_impl=attn_impl)
+
+    def logits(params, cache, *inputs):
+        return one(cfg, params, cache, *inputs, attn_impl=attn_impl,
+                   moe_policy=moe_policy)[0]
+
+    return logits
+
+
+def make_slot_decode_fn(
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop",
+    layout: tensor_parallel.TPLayout | None = None,
+) -> Callable:
     """Dense continuous-batching decode step, the ``("cb", slots)`` key
     (DESIGN.md §4): sampling params are data, not code.
 
@@ -153,13 +172,15 @@ def make_slot_decode_fn(cfg: ArchConfig, *, attn_impl: str = "kernel",
     Each slot sits at its own depth ``pos`` of the dense per-slot cache;
     inactive slots still compute (fixed shapes) but their positions do not
     advance. ``keys`` are split in the step (``_sample_rows``); ``packed``
-    is ``[next_tok | new_pos | new_keys]``, the step's one pull."""
+    is ``[next_tok | new_pos | new_keys]``, the step's one pull. A mesh
+    ``layout`` as in ``make_paged_slot_decode_fn``, over the mesh's dense
+    cache."""
+    decode = _decode_logits(models.decode_step,
+                            tensor_parallel.mesh_slot_decode_step, cfg,
+                            attn_impl, moe_policy, layout)
 
     def slot_step(params, cache, tok, pos, active, temps, greedy, keys):
-        logits, cache = models.decode_step(
-            cfg, params, cache, tok, pos, attn_impl=attn_impl,
-            moe_policy=moe_policy,
-        )
+        logits = decode(params, cache, tok, pos)
         nxt, new_keys = _sample_rows(logits, temps, greedy, keys)
         new_pos = pos + active.to(torch.int32)
         return (nxt, cache, new_pos, new_keys,
@@ -186,18 +207,14 @@ def make_paged_slot_decode_fn(
     every layer on its slots, and the gathered logits are sampled once on
     the mesh's first device, where the rows live."""
 
+    decode = _decode_logits(models.paged_decode_step,
+                            tensor_parallel.mesh_paged_decode_step, cfg,
+                            attn_impl, moe_policy, layout)
+
     def paged_slot_step(
         params, cache, tok, pos, block_tables, active, temps, greedy, keys
     ):
-        if layout is not None:
-            logits = tensor_parallel.mesh_paged_decode_step(
-                cfg, layout, params, cache, tok, pos, block_tables,
-                attn_impl=attn_impl)
-        else:
-            logits, cache = models.paged_decode_step(
-                cfg, params, cache, tok, pos, block_tables,
-                attn_impl=attn_impl, moe_policy=moe_policy,
-            )
+        logits = decode(params, cache, tok, pos, block_tables)
         nxt, new_keys = _sample_rows(logits, temps, greedy, keys)
         new_pos = pos + active.to(torch.int32)
         return (nxt, cache, new_pos, new_keys,
@@ -232,18 +249,14 @@ def make_paged_prefill_fn(
     length 0 keeps its key (``_chunk_sample``). A mesh ``layout`` as in
     ``make_paged_slot_decode_fn``."""
 
+    prefill = _decode_logits(models.paged_prefill_step,
+                             tensor_parallel.mesh_paged_prefill_step, cfg,
+                             attn_impl, moe_policy, layout)
+
     def paged_prefill_step(
         params, cache, tok, start, block_tables, length, temps, greedy, keys,
     ):
-        if layout is not None:
-            logits = tensor_parallel.mesh_paged_prefill_step(
-                cfg, layout, params, cache, tok, start, block_tables, length,
-                attn_impl=attn_impl)
-        else:
-            logits, cache = models.paged_prefill_step(
-                cfg, params, cache, tok, start, block_tables, length,
-                attn_impl=attn_impl, moe_policy=moe_policy,
-            )
+        logits = prefill(params, cache, tok, start, block_tables, length)
         nxt, new_keys, packed = _chunk_sample(logits, length, temps, greedy,
                                               keys)
         return nxt, cache, new_keys, packed
@@ -260,7 +273,8 @@ def _verify_tail(logits, temps, greedy, keys):
 
 
 def make_paged_verify_fn(
-    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop"
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop",
+    layout: tensor_parallel.TPLayout | None = None,
 ) -> Callable:
     """Verify lane through the paged KV cache (DESIGN.md §11):
 
@@ -276,15 +290,16 @@ def make_paged_verify_fn(
     is the mode-respecting sample from row 0 (one key split, as a decode
     step), so a length-1 window is a decode step and sampling slots ride
     the same call. ``packed`` is ``pack_verify_d2h(rows, next0,
-    new_keys)``."""
+    new_keys)``. A mesh ``layout`` as in ``make_paged_slot_decode_fn``:
+    the window's logits are gathered onto the mesh's first device."""
+    verify = _decode_logits(models.paged_verify_step,
+                            tensor_parallel.mesh_paged_verify_step, cfg,
+                            attn_impl, moe_policy, layout)
 
     def verify_step(
         params, cache, tok, start, block_tables, length, temps, greedy, keys,
     ):
-        logits, cache = models.paged_verify_step(
-            cfg, params, cache, tok, start, block_tables, length,
-            attn_impl=attn_impl, moe_policy=moe_policy,
-        )
+        logits = verify(params, cache, tok, start, block_tables, length)
         rows, nxt0, new_keys, packed = _verify_tail(logits, temps, greedy,
                                                     keys)
         return rows, nxt0, cache, new_keys, packed
@@ -293,7 +308,8 @@ def make_paged_verify_fn(
 
 
 def make_slot_verify_fn(
-    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop"
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop",
+    layout: tensor_parallel.TPLayout | None = None,
 ) -> Callable:
     """Verify lane over the dense per-slot cache, the ``("vfd", slots,
     k_bucket)`` key (DESIGN.md §11):
@@ -304,13 +320,14 @@ def make_slot_verify_fn(
 
     ``make_paged_verify_fn`` without block tables: a dense slot's cache
     rows are a trivial identity block table, so both engines share the
-    accept/rollback contract (columns >= ``length`` write nothing)."""
+    accept/rollback contract (columns >= ``length`` write nothing). A mesh
+    ``layout`` as in ``make_slot_decode_fn``."""
+    verify = _decode_logits(models.chunked_verify_step,
+                            tensor_parallel.mesh_slot_verify_step, cfg,
+                            attn_impl, moe_policy, layout)
 
     def verify_step(params, cache, tok, start, length, temps, greedy, keys):
-        logits, cache = models.chunked_verify_step(
-            cfg, params, cache, tok, start, length, attn_impl=attn_impl,
-            moe_policy=moe_policy,
-        )
+        logits = verify(params, cache, tok, start, length)
         rows, nxt0, new_keys, packed = _verify_tail(logits, temps, greedy,
                                                     keys)
         return rows, nxt0, cache, new_keys, packed
@@ -321,6 +338,7 @@ def make_slot_verify_fn(
 def make_draft_fn(
     draft_cfg: ArchConfig, *, k: int, attn_impl: str = "kernel",
     moe_policy: str = "drop",
+    layout: tensor_parallel.TPLayout | None = None,
 ) -> Callable:
     """Draft lane (DESIGN.md §11): K candidates per slot in one branch
     target, the ``("dr", slots, k_bucket, draft_kv_dtype)`` key:
@@ -339,15 +357,18 @@ def make_draft_fn(
     tail). Every step samples through ``_sample_rows``, splitting the keys,
     as the JAX package's draft does; the scheduler forces ``greedy`` on, so
     the candidates are argmaxes, and discards the returned keys, so the
-    sampled streams are untouched."""
+    sampled streams are untouched. With a mesh ``layout`` each of the k
+    steps runs over the mesh (the draft's shards and dense cache), its
+    logits gathered and sampled once on the mesh's first device, and the
+    candidate goes back to the rows."""
+    decode = _decode_logits(models.decode_step,
+                            tensor_parallel.mesh_slot_decode_step, draft_cfg,
+                            attn_impl, moe_policy, layout)
 
     def draft_step(params, cache, tok, pos, active, temps, greedy, keys):
         drafts = []
         for _ in range(k):
-            logits, cache = models.decode_step(
-                draft_cfg, params, cache, tok, pos, attn_impl=attn_impl,
-                moe_policy=moe_policy,
-            )
+            logits = decode(params, cache, tok, pos)
             nxt, keys = _sample_rows(logits, temps, greedy, keys)
             drafts.append(nxt)
             tok = nxt[:, None]
@@ -358,7 +379,8 @@ def make_draft_fn(
 
 
 def make_slot_prefill_fn(
-    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop"
+    cfg: ArchConfig, *, attn_impl: str = "kernel", moe_policy: str = "drop",
+    layout: tensor_parallel.TPLayout | None = None,
 ) -> Callable:
     """Chunked prefill into the dense per-slot cache (DESIGN.md §10): the
     dense engine's prompt path, the ``("pfd", slots, chunk_bucket)`` key,
@@ -374,14 +396,14 @@ def make_slot_prefill_fn(
     cache) over the cache's page view with ``attn_impl="kernel"``.
     ``next_tok`` is sampled from each row's last real chunk token; the
     mirror discards its sample and keys, so it never moves the sampled
-    streams."""
+    streams. A mesh ``layout`` as in ``make_slot_decode_fn``."""
+    prefill = _decode_logits(models.chunked_decode_step,
+                             tensor_parallel.mesh_slot_prefill_step, cfg,
+                             attn_impl, moe_policy, layout)
 
     def slot_prefill_step(params, cache, tok, start, length, temps, greedy,
                           keys):
-        logits, cache = models.chunked_decode_step(
-            cfg, params, cache, tok, start, length, attn_impl=attn_impl,
-            moe_policy=moe_policy,
-        )
+        logits = prefill(params, cache, tok, start, length)
         nxt, new_keys, packed = _chunk_sample(logits, length, temps, greedy,
                                               keys)
         return nxt, cache, new_keys, packed

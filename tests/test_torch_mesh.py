@@ -21,9 +21,11 @@ tokens, every other one sampled), one torch thread.
 * One decode step's and one prefill chunk's logits at 1x2 and 2x2 within
   1e-5 of 1x1's on one pool content (and under layouts that leave the kv
   heads, the heads and the MLP whole, and split the table's d_model).
-* The launcher's ``--mesh 1x2 --meshes "1x1 2x2"`` serves; what waits for
-  ROADMAP A12 part 3 raises naming it; a plan across distinct devices
-  raises.
+* The launcher's ``--mesh 1x2 --meshes "1x1 2x2"`` serves; the dense
+  engine, speculation and int8 pools warm on a multi-device ladder
+  (``tests/test_torch_mesh_lanes.py`` holds them to the JAX package); what
+  still waits for ROADMAP A12 part 3 raises naming it; a plan across
+  distinct devices raises.
 """
 
 from __future__ import annotations
@@ -303,23 +305,29 @@ def test_one_step_logits_at_1x2_and_2x2_equal_1x1(tparams, variant):
 
 
 def test_out_of_scope_lanes_raise_naming_part3(cfg, tparams):
-    """What waits for ROADMAP A12 part 3, refused before anything is
-    warmed: the dense engine, speculation and int8 pools on a ladder with
-    a multi-device plan; disaggregation beside one; a non-dense family; a
-    plan across distinct devices."""
-    cases = [
-        (dict(meshes=("1x2",)), "continuous", {}),
-        (dict(meshes=("1x2",), spec_k=2), "paged_continuous", {}),
+    """The dense engine, speculation and int8 pools on a ladder with a
+    multi-device plan serve (ROADMAP A12 part 3, items 1-2: every lane
+    warmed at every mesh). What still waits for A12 part 3 is refused
+    before anything is warmed, naming it: disaggregation beside a
+    multi-device plan, a non-dense family, a plan across distinct devices;
+    and the capture report of a multi-device plan's key says so."""
+    served = [
+        (dict(meshes=("1x2",)), "continuous", ("cb", 4, "1x2")),
+        (dict(meshes=("1x2",), spec_k=2), "paged_continuous",
+         ("vf", 4, 2, "fp32", "1x2")),
         (dict(meshes=("2x1",), kv_dtypes=("int8",)), "paged_continuous",
-         {}),
-        (dict(meshes=("1x1@1", "1x2")), "paged_continuous",
-         {"disagg": "1x1@1"}),
+         ("cbp", 4, 1, "int8", "2x1")),
     ]
-    for kw, make, call in cases:
+    for kw, make, key in served:
         with _engine(cfg, tparams, devices=CPU4, **kw) as eng:
-            with pytest.raises(NotImplementedError, match="A12 part 3"):
-                getattr(eng, make)(slots=4, **call)
-            assert len(eng._decode) == 0
+            getattr(eng, make)(slots=4)
+            assert key in eng._decode, key
+            assert eng.post_warmup_compiles == 0
+    with _engine(cfg, tparams, devices=CPU4,
+                 meshes=("1x1@1", "1x2")) as eng:
+        with pytest.raises(NotImplementedError, match="A12 part 3"):
+            eng.paged_continuous(slots=4, disagg="1x1@1")
+        assert len(eng._decode) == 0
     moe = get_config("granite-moe-1b-a400m").smoke()
     with Engine(moe, models.init_params(moe, seed=0),
                 EngineConfig(**BASE, meshes=("1x2",), devices=CPU4),
@@ -330,6 +338,15 @@ def test_out_of_scope_lanes_raise_naming_part3(cfg, tparams):
     with _engine(cfg, tparams, meshes=("1x2",), devices=two) as eng:
         with pytest.raises(NotImplementedError, match="distinct"):
             eng.paged_continuous(slots=4)
+    from repro_torch.core.telemetry import Telemetry
+
+    with Engine(cfg, tparams, EngineConfig(**BASE, mesh="1x2",
+                                           devices=CPU4),
+                telemetry=Telemetry(compile_analysis=True),
+                device="cpu") as eng:
+        eng.paged_continuous(slots=4)
+        reports = eng.telemetry.compile_reports
+    assert reports and all("A12 part 3" in r["error"] for r in reports)
 
 
 def test_launcher_serves_a_mesh(tmp_path):

@@ -4,8 +4,7 @@ JAX package's ``repro.distributed.sharding``.
 Mesh and slice names parse as the reference parses them, valid or not (the
 same exception type); ``MeshPlan``'s shape fields and ``DisaggPlan``'s
 overlap check and ``split`` agree. The engine: a plan of more than one
-device serves the paged lanes (its dense lanes raise
-``NotImplementedError`` naming ROADMAP A12 part 3), a slice past
+device serves the paged and the dense lanes, a slice past
 ``EngineConfig.devices`` raises ``ValueError``, and ``set_mesh`` keeps the
 reference's in-process contract (``tests/test_sharding.py``: an unwarmed
 mesh refused, a no-op flip, no control surface, refused while
@@ -102,17 +101,17 @@ def _engine(smoke, **kw) -> Engine:
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x1", "2x2@1"])
 def test_a_plan_of_more_than_one_device_raises(smoke, mesh):
-    """A plan of more than one logical device: the paged engine warms it
-    and serves on it (the same tokens as the plain engine); the dense
-    engine's lanes there wait for ROADMAP A12 part 3 and raise before
-    anything is warmed."""
+    """A plan of more than one logical device: the paged engine and the
+    dense engine (ROADMAP A12 part 3, item 2) warm it and serve on it, each
+    with the same tokens as the plain engine's."""
     cfg, _ = smoke
     with _engine(smoke, devices=("cpu",) * 5) as eng:
         want = _serve(eng.paged_continuous(slots=4), _reqs(cfg.vocab_size))
+        want_dense = _serve(eng.continuous(slots=4), _reqs(cfg.vocab_size))
     with _engine(smoke, meshes=(mesh,), devices=("cpu",) * 5) as eng:
-        with pytest.raises(NotImplementedError, match="A12 part 3"):
-            eng.continuous(slots=4)
-        assert len(eng._decode) == 0  # nothing was warmed
+        dense = eng.continuous(slots=4, mesh=mesh)
+        assert ("cb", 4, shd_name(mesh)) in eng._decode
+        assert _serve(dense, _reqs(cfg.vocab_size)) == want_dense
         cb = eng.paged_continuous(slots=4, mesh=mesh)
         assert cb.mesh == shd_name(mesh)
         assert ("cbp", 4, 1, "fp32", shd_name(mesh)) in eng._decode
