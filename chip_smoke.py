@@ -61,18 +61,19 @@ Phases (any failure exits non-zero before a result is printed):
    the engine's pools and caches; a replay counts the kernel launches it
    holds.
 3b. Graph targets against the eager steps (``cuda_graphs=False``): the
-   bf16, int8+spec and burst cells' traffic (and mamba2's burst traffic in
-   phase 6) each run both ways under one step clock on the same weights
-   and requests; greedy tokens equal, or a request's first divergence is a
+   bf16, int8+spec and burst cells' traffic on the first 4 of olmo-1b's
+   16 layers (and mamba2's burst traffic in phase 6, on 12 of its 48)
+   each run both ways under one step clock on the same weights and
+   requests; greedy tokens equal, or a request's first divergence is a
    near-tie on the card, sampled tokens equal (the same keys through the
    same kernel); captures after warmup 0 on the paged streams, the
    distinct keys met on the burst streams; peak memory with every target
-   captured. Then one step of ``cbp``, ``pf``, ``vf``+``dr`` and ``burst``
-   (and mamba2's ``burst``), graph and eager in the same call, as the
-   serving loop takes it: host wall, the host's launch calls per step
-   (``torch.profiler``'s CPU events: ``cudaGraphLaunch``,
-   ``cudaLaunchKernel``/``Ex``, copies), device busy, idle share and the
-   B1-B5 kernels seen inside the replay.
+   captured. Then one step of ``cbp``, ``pf``, ``vf``+``dr`` and
+   ``burst`` (and mamba2's ``burst``), graph and eager in the same call,
+   as the serving loop takes it, at full depth: host wall, the host's
+   launch calls per step (the CUDA runtime calls ``torch.profiler``
+   records: ``cudaGraphLaunch``, ``cudaLaunchKernel``/``Ex``, copies),
+   device busy, idle share and the B1-B5 kernels seen inside the replay.
 3c. The dense continuous engine (``run_continuous_stream``: 8 slots of one
    dense cache, ``max_len`` 1024, olmo-1b bf16) on 16 requests at 20 req/s,
    a quarter sampled: (a) distinct 128-token prompts with ``prefill_chunk``
@@ -137,8 +138,9 @@ Phases (any failure exits non-zero before a result is printed):
 
 8. The rest of the dense model path at full width, one model at a time,
    weights seeded on the card (init peak: the weights and one f32 slab;
-   qwen3-14b on 6 of its 40 layers and gemma2-27b on 8 of its 46, so
-   that the script keeps its length with phases 9-15 added):
+   qwen3-14b on 2 of its 40 layers, gemma2-27b on 2 of its 46 and
+   hft-demo on 2 of its 4, so that the script keeps its length with
+   phases 9-16 added):
    qwen3-14b (bf16, 40 heads over 8: a GQA group of 5) on phase 3's
    paged bf16 cell, dense cell (a) and burst cell; gemma2-27b (bf16, local
    layers of window 4096 and global ones, softcaps 50 and 30) on 2 slots of
@@ -163,7 +165,7 @@ Phases (any failure exits non-zero before a result is printed):
    16 heads over 8 of 64: B1-B7 on the bf16 head_dim-64 instantiations),
    weights seeded on the card (the routers float32): phase 3's paged bf16
    cell, dense cell (a), the burst cell and phase 3's int8+spec paged cell
-   under ``moe_policy="drop"`` on the first 12 layers (a depth cut with
+   under ``moe_policy="drop"`` on the first 3 layers (a depth cut with
    weights of its own), each through graph targets (counts set to
    0 just before, held to one launch per attention layer per lane call)
    and again eager under one step clock (captures after warmup 0, or the
@@ -186,12 +188,13 @@ Phases (any failure exits non-zero before a result is printed):
    graph targets (counts set to 0 just before, held to one launch per
    attention layer per lane call) and again eager under one step clock,
    peak memory within the card and logged against the reckoned weight and
-   KV bytes: deepseek-67b (bf16, 64 heads over 8: a GQA group of 8; 4 of
-   its 95 layers, 4.45 B params) on phase 3's paged bf16 cell, dense cell
+   KV bytes: deepseek-67b (bf16, 64 heads over 8: a GQA group of 8; 2 of
+   its 95 layers) on phase 3's paged bf16 cell, dense cell
    (a) and the burst cell and the prompt-then-burst path; grok-1-314b
    (bf16, 48 over 8: a group of 6, softcaps 30/30, 8 experts top-2 of d_ff
-   32768; 4 of its 64 layers, 21.29 B) under "drop" on the paged bf16
-   cell, phase 3's int8+spec paged cell and the burst cell, the
+   32768; 2 of its 64 layers) under "drop" on the paged bf16
+   cell, phase 3's int8+spec paged cell (its draft 1 layer) and the burst
+   cell, the
    prompt-then-burst path at 2 x 512 and one decode step per policy at 2
    rows, logged in bf16 and held on fp32 weights of its first layer;
    jamba-1.5-large-398b's smoke config card (graphs) = CPU through the
@@ -285,45 +288,62 @@ Phases (any failure exits non-zero before a result is printed):
    ``--meshes 1x1@1 --disagg --devices "cuda:0 cuda:0" --compile-report``
    as a subprocess.
 14. Meshes of more than one logical device (after phase 13): olmo-1b at
-   full width (bf16), 8 slots, page 16, chunk 64, max_len 1024,
-   ``devices=("cuda:0",) * 4`` and the ladder 1x1 / 1x2 / 2x1 / 2x2, every
-   target a CUDA graph (the tensor-parallel weights split over "model",
-   each mesh's pool over its data rows). The bf16 cell's stream under a
-   step clock at 1x1, 1x2 and 2x2, then 1x2 -> 2x2 -> 1x1 mid-stream: 0
-   captures after warmup, 2 rebinds, pool_shards 2, each kernel's
-   launches = the replays' reckoning (layers x dp x mp per step for B1 and
-   B2, one ``sample_rows`` a step), tokens = 1x1's but where 1x1's
-   decision was a near-tie (greedy: the two tokens' logits, sampled: the
-   sampler's scores under the row's key, within ``STEP_LOGIT_ATOL``); one
-   decode step's and one prefill chunk's logits at 1x2 and 2x2 within
-   ``STEP_LOGIT_ATOL`` of 1x1's on one pool content; a replayed ``cbp``
-   step's wall and busy ms at each mesh; the peak against the reckoned
-   bytes; the fp32 smoke config at 1x2 and 2x2 card = CPU (sampled too);
-   ``pipeline_forward`` over 4 logical stages = ``reference_forward``
-   within 1e-5 (fp32); ``compressed_psum`` card = CPU; the launcher's
-   ``--mesh 1x2 --meshes "1x1 2x2" --devices "cuda:0 cuda:0 cuda:0
-   cuda:0"`` as a subprocess.
-15. Every lane of both continuous engines on those meshes (after phase
-   14): olmo-1b at full width (bf16), 8 slots, page 16, chunk 64,
+   full width (bf16) on 4 of its 16 layers, 8 slots, page 16, chunk 64,
    max_len 1024, ``devices=("cuda:0",) * 4`` and the ladder 1x1 / 1x2 /
-   2x2, every target a CUDA graph. Phase 3's int8+spec cell (an int8
-   pool, ``spec_k`` 4, a 2-layer int8 draft) on a paged engine, then phase
-   3c's dense cells (a) ``cb`` + ``pfd`` and (b) with speculation on one
-   dense engine: each cell's stream under a step clock at 1x1, 1x2 and
-   2x2, then 1x2 -> 2x2 -> 1x1 mid-stream (at a quarter and a half of
-   1x1's steps): 0 captures after warmup, 2 rebinds, each kernel's
-   launches = the replays' reckoning (layers x dp x mp per ``cbp``,
-   ``pf``, ``vf``, ``cb``, ``pfd``, ``vfd`` and ``drp`` call, k x 2 x dp x
-   mp per ``dr`` call; B3/B4 on the int8 pool and draft), the speculative
-   lanes stepped where the cell speculates, tokens = 1x1's but where
-   1x1's decision was a near-tie (over int8 pages for the int8 cell); a
-   replayed ``cbp`` step over int8 pages, ``vf`` step at k 4 and dense
-   ``cb`` step at each mesh (wall, busy); each engine's peak between its
-   reckoned bytes (weights, the split pieces, every mesh's pools, dense and
-   draft caches) and the card's memory; the fp32 smoke config card = CPU
-   at 1x2, 2x2 and 1x4 (its 2 kv heads whole: the pool replicated, the
-   dense caches' sequence split) on both engines (an int8 pool with
-   speculation; the dense engine with speculation).
+   2x1 / 2x2, every target a CUDA graph (the tensor-parallel weights
+   split over "model", each mesh's pool over its data rows). The bf16
+   cell's stream under a step clock at 1x1, 1x2 and 2x2, then 1x2 -> 2x2
+   -> 1x1 mid-stream: 0 captures after warmup, 2 rebinds, pool_shards 2,
+   each kernel's launches = the replays' reckoning (layers x dp x mp per
+   step for B1 and B2, one ``sample_rows`` a step), tokens = 1x1's but
+   where 1x1's decision was a near-tie (greedy: the two tokens' logits,
+   sampled: the sampler's scores under the row's key, within
+   ``STEP_LOGIT_ATOL``); one decode step's and one prefill chunk's
+   logits at 1x2 and 2x2 within ``STEP_LOGIT_ATOL`` of 1x1's on one pool
+   content; a replayed ``cbp`` step's wall and busy ms at each mesh; the
+   peak against the reckoned bytes; the fp32 smoke config at 1x2 and 2x2
+   card = CPU (sampled too); ``pipeline_forward`` over 4 logical stages
+   = ``reference_forward`` within 1e-5 (fp32); ``compressed_psum`` card
+   = CPU; the launcher's ``--mesh 1x2 --meshes "1x1 2x2" --devices
+   "cuda:0 cuda:0 cuda:0 cuda:0"`` as a subprocess.
+15. Every lane of both continuous engines on those meshes (after phase
+   14): olmo-1b at full width (bf16) on 4 of its 16 layers, 8 slots,
+   page 16, chunk 64, max_len 1024, ``devices=("cuda:0",) * 4`` and the
+   ladder 1x1 / 1x2 / 2x2, every target a CUDA graph. Phase 3's
+   int8+spec cell (an int8 pool, ``spec_k`` 4, a 2-layer int8 draft) on
+   a paged engine, then phase 3c's dense cells (a) ``cb`` + ``pfd`` and
+   (b) with speculation on one dense engine: each cell's stream under a
+   step clock at 1x1, 1x2 and 2x2, then 1x2 -> 2x2 -> 1x1 mid-stream (at
+   a quarter and a half of 1x1's steps): 0 captures after warmup, 2
+   rebinds, each kernel's launches = the replays' reckoning (layers x dp
+   x mp per ``cbp``, ``pf``, ``vf``, ``cb``, ``pfd``, ``vfd`` and
+   ``drp`` call, k x 2 x dp x mp per ``dr`` call; B3/B4 on the int8 pool
+   and draft), the speculative lanes stepped where the cell speculates,
+   tokens = 1x1's but where 1x1's decision was a near-tie (over int8
+   pages for the int8 cell); a replayed ``cbp`` step over int8 pages,
+   ``vf`` step at k 4 and dense ``cb`` step at each mesh (wall, busy);
+   each engine's peak between its reckoned bytes (weights, the split
+   pieces, every mesh's pools, dense and draft caches) and the card's
+   memory; the fp32 smoke config card = CPU at 1x2, 2x2 and 1x4 (its 2
+   kv heads whole: the pool replicated, the dense caches' sequence
+   split) on both engines (an int8 pool with speculation; the dense
+   engine with speculation).
+16. Disaggregation over multi-device slices and the overload stream on a
+   plan (after phase 15; it reads phase 13's one-device streams): olmo-1b
+   at full width (bf16), 8 slots, ``devices=("cuda:0",) * 4``.
+   ``DisaggPlan.split("2x2")`` (decode 1x2, prefill 1x2@2) on bf16 and
+   int8 pools, sync and async, and ``split("3x1")`` (decode 2x1, prefill
+   1x1@2; bf16, sync), phase 13's ``mixed()`` stream, each arm its own
+   path (counts set to 0 just before, held to the replays per slice): 0
+   captures after warmup, tokens = phase 13's one-device shared stream
+   but where its decision was a near-tie, migrations and migrated pages =
+   phase 13's split; at 1x2 split -> collapse -> split (2 rebinds), one
+   migration of 30 pages by CUDA events, every warmed key's capture
+   report without an error (the decode slice's ``cbp`` key: one device's
+   flops, bytes and collective bytes), a replayed ``cbp`` step on the
+   decode slice, the slices' pools distinct, each engine's peak against
+   its reckoned bytes; then phase 11's inert arm (sync) and its flood in
+   two arms (``_flood_arms_equal``) on ``mesh="1x2"``.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -331,6 +351,7 @@ It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import statistics
@@ -338,7 +359,7 @@ from collections import Counter
 import subprocess
 import sys
 import time
-from functools import partial
+from functools import cache, partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1152,8 +1173,6 @@ def _launches(label: str, expect: tuple) -> dict:
 def _release_engines() -> None:
     """Free the memory of engines no longer used (an engine sits in a
     reference cycle until the collector runs), so a peak reads one path."""
-    import gc
-
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1568,16 +1587,17 @@ def _wall_ms(run, steps: int = 20) -> float:
 def _profile_replay(label: str, runs: dict, steps: int = 5) -> dict:
     """One step of a lane, graph and eager (``runs``: {"graph": run,
     "eager": run}): host wall per step (20 steps, no profiler), the host's
-    launch calls per step (``torch.profiler``'s CPU events), device busy
-    (its kernels' time; where it records none, CUDA events around queued
-    steps), idle share, and the B1-B5 kernels seen."""
+    launch calls per step (the CUDA runtime calls ``torch.profiler``
+    records with its CUDA activity alone: recording the CPU ops too made
+    each eager session cost seconds of the profiler's own host time),
+    device busy (its kernels' time; where it records none, CUDA events
+    around queued steps), idle share, and the B1-B5 kernels seen."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
     for mode, run in runs.items():
         wall = _wall_ms(run)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 run()
             torch.cuda.synchronize()
@@ -1608,7 +1628,10 @@ def _profile_replay(label: str, runs: dict, steps: int = 5) -> dict:
     return out
 
 
+@cache
 def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them (read
+    once: neither changes while the script runs)."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -1737,22 +1760,34 @@ def _burst_run(eng, bucket: int, pos: int):
     return run
 
 
+# olmo-1b's depth, at full width, where a path is held to another run of
+# the same depth (graphs to eager in phase 3b, each mesh to its own 1x1 in
+# phases 14 and 15): these runs are host-bound and scale with depth (phase
+# 3b's eager twins were 41 s of the script at 16 layers). The counted
+# streams of phases 1-3, the profiled steps and phases 11-13 and 16 keep
+# all 16 layers.
+OLMO_CUT_LAYERS = 4
+
+
 def graph_phase(cfg, params) -> None:
     """olmo-1b at full width through graph targets against the eager
-    steps: the bf16, int8+spec and burst cells' traffic, paired; then one
-    replayed step of ``cbp``, ``pf``, ``vf``+``dr`` and ``burst``, graph
-    and eager, profiled."""
+    steps: the bf16, int8+spec and burst cells' traffic, paired, on the
+    first ``OLMO_CUT_LAYERS`` layers; then one replayed step of ``cbp``,
+    ``pf``, ``vf``+``dr`` and ``burst`` at full depth, graph and eager,
+    profiled."""
     from repro_torch.runtime.serve import Engine, EngineConfig
 
     base = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64)
     spec = dict(base, kv_dtype="int8", spec_k=4, draft_layers=2,
                 draft_kv_dtype="int8")
     burst = dict(max_len=1024, max_batch=8, batch_quantum=4)
-    traffic = partial(_shared_prefix_traffic, cfg)
-    _paired_streams("bf16", cfg, params, base, traffic)
-    _paired_streams("int8+spec", cfg, params, spec, traffic)
-    _paired_streams("burst", cfg, params, burst, partial(_burst_traffic, cfg),
-                    "burst")
+    tcfg, tparams = _depth_view(cfg, params, OLMO_CUT_LAYERS, "graphs")
+    traffic = partial(_shared_prefix_traffic, tcfg)
+    _paired_streams("bf16", tcfg, tparams, base, traffic)
+    _paired_streams("int8+spec", tcfg, tparams, spec, traffic)
+    _paired_streams("burst", tcfg, tparams, burst,
+                    partial(_burst_traffic, tcfg), "burst")
+    del tparams
     for label, ecfg, lane in (
         ("cbp (bf16 pages, 8 slots, pos 200, 16-page tables; B1)", base,
          "cbp"),
@@ -2195,8 +2230,7 @@ def _steady_steps(eng, engine: str, async_steps: bool) -> dict:
         cb.step(0.0)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 50
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
             cb.step(0.0)
         torch.cuda.synchronize()
@@ -2465,7 +2499,7 @@ def _profile(label: str, run, steps: int, attn_kernel: str) -> dict:
     for _ in range(2):
         run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             run()
@@ -2898,10 +2932,16 @@ def mamba_prompt_then_burst(cfg, params) -> dict:
     return launches
 
 
+# mamba2's graphs-vs-eager twin on 12 of its 48 layers (its eager run was
+# 30 s of the script at 48); its counted stream and profiles keep all 48.
+MAMBA_TWIN_LAYERS = 12
+
+
 def mamba_full_width() -> dict:
     """mamba2-370m at full width (48 layers, bf16, seeded weights): the
     prompt-then-burst path through B8, then the olmo burst cell's traffic
-    through the per-burst engine on the recurrent state."""
+    through the per-burst engine on the recurrent state (graphs against
+    eager on the first ``MAMBA_TWIN_LAYERS`` layers)."""
     from repro_torch import models
     from repro_torch.configs import get_config
 
@@ -2917,8 +2957,10 @@ def mamba_full_width() -> dict:
     from repro_torch.runtime.serve import Engine, EngineConfig
 
     burst = dict(max_len=1024, max_batch=8, batch_quantum=4)
-    _paired_streams("mamba burst", cfg, params, burst,
-                    partial(_burst_traffic, cfg), "burst")
+    tcfg, tparams = _depth_view(cfg, params, MAMBA_TWIN_LAYERS, "mamba")
+    _paired_streams("mamba burst", tcfg, tparams, burst,
+                    partial(_burst_traffic, tcfg), "burst")
+    del tparams
     runs, engines = {}, []
     for mode in ("graph", "eager"):
         eng = Engine(cfg, params, EngineConfig(**burst,
@@ -3636,6 +3678,16 @@ def _depth_cut(cfg, layers: int, tag: str):
     return cfg
 
 
+def _depth_view(cfg, params: dict, layers: int, tag: str) -> tuple:
+    """``_depth_cut`` with the full model's weights to match: every
+    ``blocks.*`` tensor's leading (layer) axis sliced, views of the same
+    storage, no copy."""
+    cut = _depth_cut(cfg, layers, tag)
+    m = layers // cfg.period
+    return cut, {k: (t[:m] if k.startswith("blocks.") else t)
+                 for k, t in params.items()}
+
+
 def _seeded(cfg, tag: str) -> dict:
     """Weights seeded on the card, held to ``_weight_bytes``; the init
     peak is the weights and one float32 slab."""
@@ -3845,16 +3897,17 @@ def _hft_card_vs_cpu(cfg, params, card_reqs, ecfg: dict, slots: int,
         f"divergences")
 
 
-# Phase 8's depth: qwen3-14b and gemma2-27b at full width on 6 and 8 of
-# their layers (gemma2's local/global pairs kept). Their streams' eager
-# runs are host-bound and scale with depth, so this keeps the whole script
-# well inside its limit with phases 9-15 added; hft-demo at full depth.
-PHASE8_LAYERS = {"qwen3-14b": 6, "gemma2-27b": 8}
+# Phase 8's depth: qwen3-14b, gemma2-27b and hft-demo at full width on 2
+# of their layers (gemma2's one local/global pair). Their
+# streams' eager runs are host-bound and scale with depth (hft-demo's
+# burst twin, ~1200 steps, was 33 s of the script at 4 layers), so this
+# keeps the whole script inside its limit with phases 9-16 added.
+PHASE8_LAYERS = {"qwen3-14b": 2, "gemma2-27b": 2, "hft-demo": 2}
 
 
 def configs_phase() -> dict:
     """qwen3-14b and gemma2-27b (bf16; full width, depth cut to
-    ``PHASE8_LAYERS``) and hft-demo (fp32, full width and depth) on the
+    ``PHASE8_LAYERS``) and hft-demo (fp32, full width, the same) on the
     card, one model at a time, weights seeded on the card: each engine's
     stream (``_paired_streams`` with its launches held), peak memory
     against the reckoned weight and KV bytes; gemma2-27b's and hft-demo's
@@ -4020,7 +4073,7 @@ def _granite_moe_share(cfg, params) -> dict:
     return {"profile": out, "moe_share_pct": share}
 
 
-GRANITE_STREAM_LAYERS = 12
+GRANITE_STREAM_LAYERS = 3
 
 
 def granite_phase() -> dict:
@@ -4165,12 +4218,15 @@ def smoke_card_vs_cpu_of(arch: str, tag: str,
 DEEPSEEK, GROK, JAMBA = ("deepseek-67b", "grok-1-314b",
                          "jamba-1.5-large-398b")
 EMBEDS = ("internvl2-1b", "musicgen-medium")
-# Phase 10's depth cuts, full width: deepseek-67b on 4 of its 95 layers
-# (its eager runs are host-bound and scale with depth), grok-1-314b on 4
-# of its 64 (21.29 B, 42.6 GB; a layer's 8 experts of d_ff 32768 are 9.7
-# GB), and jamba as one of each of its layer kinds (one period of its 8
+# Phase 10's depth cuts, full width: deepseek-67b on 2 of its 95 layers
+# (its eager runs are host-bound and scale with depth), grok-1-314b on 2
+# of its 64 (a layer's 8 experts of d_ff 32768 are 9.7 GB, read whole by
+# every step under "drop": its streams are bound by those reads, and its
+# int8+spec cell's draft is cut to 1 layer, shorter than the target),
+# and jamba as one of each of its layer kinds (one period of its 8
 # layers is 45.1 B params, 90.3 GB in bf16, more than one card holds).
-PHASE10_LAYERS = {DEEPSEEK: 4, GROK: 4}
+PHASE10_LAYERS = {DEEPSEEK: 2, GROK: 2}
+GROK_DRAFT_LAYERS = 1
 
 
 def _jamba_cut(cfg):
@@ -4187,11 +4243,17 @@ def _jamba_cut(cfg):
     ).validate()
 
 
-def _served(tag: str, cfg, params, cells: tuple) -> dict:
-    """``_held_streams`` on the named cells of ``_cell_plans``; returns
+def _served(tag: str, cfg, params, cells: tuple,
+            draft_layers: int | None = None) -> dict:
+    """``_held_streams`` on the named cells of ``_cell_plans`` (a
+    speculative cell's draft on ``draft_layers`` where given); returns
     {path: launches}."""
-    plans = _cell_plans()
-    outs = _held_streams(tag, cfg, params, {c: plans[c] for c in cells})
+    plans = {c: _cell_plans()[c] for c in cells}
+    for c, (ecfg, slots, traffic, engine) in plans.items():
+        if draft_layers is not None and ecfg.get("spec_k"):
+            plans[c] = (dict(ecfg, draft_layers=draft_layers), slots,
+                        traffic, engine)
+    outs = _held_streams(tag, cfg, params, plans)
     return {f"{cfg.name} {c}": out["launches"] for c, out in outs.items()}
 
 
@@ -4216,9 +4278,10 @@ def deepseek_phase() -> dict:
 def grok_phase() -> dict:
     """grok-1-314b (bf16, 48 heads over 8 of 128: a GQA group of 6 — B2/B4
     take the 16-byte Q path, B1/B3/B5 end each kv head in a partial tile of
-    2 rows — softcaps 30/30, 8 experts top-2 of d_ff 32768) on 4 of its 64
-    layers, under "drop": the paged bf16 cell, phase 3's int8+spec paged
-    cell (B3/B4 at group 6 with softcap 30) and the burst cell, graph =
+    2 rows — softcaps 30/30, 8 experts top-2 of d_ff 32768) on
+    ``PHASE10_LAYERS`` of its 64 layers, under "drop": the paged bf16
+    cell, phase 3's int8+spec paged cell (B3/B4 at group 6 with softcap
+    30; its draft on ``GROK_DRAFT_LAYERS``) and the burst cell, graph =
     eager and launches held; the prompt+burst path at 2 x 512 and one
     decode step per policy at 2 rows, logged in bf16 (random experts route
     chaotically) and held on fp32 weights of its first layer (~26 GB; the
@@ -4230,7 +4293,8 @@ def grok_phase() -> dict:
     cfg = _depth_cut(get_config(GROK), PHASE10_LAYERS[GROK], "families")
     params = _seeded(cfg, "grok")
     paths = _served("grok", cfg, params,
-                    ("paged bf16", "paged int8+spec", "burst"))
+                    ("paged bf16", "paged int8+spec", "burst"),
+                    draft_layers=GROK_DRAFT_LAYERS)
     pb = dict(b=2, prompt_len=512, moe_policy="dense")
     paths[f"{cfg.name} prompt+burst"] = prompt_then_burst(
         cfg, params, hold=False, **pb)
@@ -4759,13 +4823,15 @@ def _flood_traffic(cfg) -> list:
     return reqs
 
 
-def _overload_inert(cfg, params) -> dict:
+def _overload_inert(cfg, params, ecfg: dict = OVERLOAD_ECFG,
+                    modes: tuple = (False, True), tag: str = "") -> dict:
     """Part 1: phase 3's bf16-cell traffic through ``run_paged_stream`` and
     through ``run_overload_stream`` with every knob at its default, on one
-    engine under a ``_BatcherClock``, sync then async: every token equal,
-    no shed, cancel, failure or unserved request, no ladder move, 0
-    captures after warmup, and each run's B1-B4 and ``sample_rows`` counts
-    (set to 0 just before it) equal between the two loops (sync)."""
+    engine (``ecfg``) under a ``_BatcherClock``, sync then async (``modes``):
+    every token equal, no shed, cancel, failure or unserved request, no
+    ladder move, 0 captures after warmup, and each run's B1-B4 and
+    ``sample_rows`` counts (set to 0 just before it) equal between the two
+    loops (sync). ``tag`` names the arm in the log (phase 16: "1x2")."""
     from repro_torch import kernels
     from repro_torch.runtime.serve import (
         Engine,
@@ -4776,16 +4842,16 @@ def _overload_inert(cfg, params) -> dict:
 
     runs = {}
     _release_engines()
-    with Engine(cfg, params, EngineConfig(**OVERLOAD_ECFG)) as eng:
+    with Engine(cfg, params, EngineConfig(**ecfg)) as eng:
         check(eng.graphs, "overload: the engine's targets are not CUDA graphs")
         # capture every target once before the compared runs: a capture's
         # eager runs launch the kernels too, and only the first run on an
         # engine would pay them
         eng.paged_continuous(slots=8, seed=0)
-        for async_steps in (False, True):
+        for async_steps in modes:
             for loop, run in (("paged", run_paged_stream),
                                 ("overload", run_overload_stream)):
-                label = f"overload inert {loop}/async={async_steps}"
+                label = f"overload{tag and ' ' + tag} inert {loop}/async={async_steps}"
                 reqs = _shared_prefix_traffic(cfg)
                 kernels.reset_launch_counts()  # this path's run starts here
                 rep = _BatcherClock().run(eng, run, reqs, slots=8, seed=0,
@@ -4811,13 +4877,16 @@ def _overload_inert(cfg, params) -> dict:
           f"overload inert: launches {runs['overload', False][2]} != "
           f"run_paged_stream's {base[2]}")
     rep = runs["overload", False][1]
-    log(f"[overload:inert] bf16 cell's {rep['finished']} requests "
-        f"({rep['tokens']} tokens) through run_overload_stream = "
-        f"run_paged_stream, sync and async, every token (sampled too); "
+    ahead = (f" | async run-ahead steps "
+             f"{runs['overload', True][1]['steps'] - rep['steps']}"
+             if True in modes else "")
+    log(f"[overload{tag and ':' + tag}:inert] bf16 cell's {rep['finished']} "
+        f"requests ({rep['tokens']} tokens) through run_overload_stream = "
+        f"run_paged_stream, {'sync and async' if True in modes else 'sync'}"
+        f", every token (sampled too); "
         f"{rep['steps']} steps, lane calls {rep['lane_calls']}, 0 shed / "
         f"cancelled / failed / unserved, no ladder move, 0 captures after "
-        f"warmup | launches (sync) {base[2]} | async run-ahead steps "
-        f"{runs['overload', True][1]['steps'] - rep['steps']}")
+        f"warmup | launches (sync) {base[2]}{ahead}")
     return {"launches": base[2]}
 
 
@@ -4914,13 +4983,14 @@ def _flood_arms_equal(plain: dict, traced: dict) -> str:
             f"{[(t['t'], t['to']) for t in traced['transitions']]}")
 
 
-def _overload_flood(cfg, params, telemetry: bool) -> dict:
+def _overload_flood(cfg, params, telemetry: bool,
+                    ecfg: dict = OVERLOAD_ECFG, tag: str = "") -> dict:
     """Parts 2 and 3: the flood through ``run_overload_stream`` on a fresh
-    engine (the plan armed before it warms, so the ``build`` fault hits a
-    capture) under a ``_BatcherClock`` (arrivals, the queue TTL and the
-    deadlines counted in steps), watchdog on; with ``telemetry`` the
-    flight recorder is on and the trace and metrics are exported and
-    checked."""
+    engine (``ecfg``; the plan armed before it warms, so the ``build``
+    fault hits a capture) under a ``_BatcherClock`` (arrivals, the queue
+    TTL and the deadlines counted in steps), watchdog on; with
+    ``telemetry`` the flight recorder is on and the trace and metrics are
+    exported and checked. ``tag`` names the arm in the log."""
     import tempfile
 
     from repro_torch import kernels
@@ -4935,7 +5005,8 @@ def _overload_flood(cfg, params, telemetry: bool) -> dict:
         write_trace,
     )
 
-    label = "overload flood" + (" traced" if telemetry else "")
+    label = ("overload" + (tag and " " + tag) + " flood"
+             + (" traced" if telemetry else ""))
     plan = FaultPlan([Fault(site=s, at=a, **kw) for s, a, kw in FLOOD_FAULTS])
     tel = Telemetry(enabled=telemetry)
     reqs = _flood_traffic(cfg)
@@ -4943,8 +5014,7 @@ def _overload_flood(cfg, params, telemetry: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()  # this path's run starts here
     t0 = time.perf_counter()
-    with Engine(cfg, params, EngineConfig(**OVERLOAD_ECFG),
-                telemetry=tel) as eng:
+    with Engine(cfg, params, EngineConfig(**ecfg), telemetry=tel) as eng:
         observed: list = []
         observe = DegradeController.observe
 
@@ -5042,7 +5112,8 @@ def _overload_flood(cfg, params, telemetry: bool) -> dict:
             f"validate_trace [] | prometheus {prom['samples']} samples of "
             f"{len(prom['types'])} families | registry = robustness block = "
             f"the requests' fates and the plan")
-    log(f"[overload:flood{' traced' if telemetry else ''}] olmo-1b bf16, "
+    log(f"[overload{tag and ':' + tag}:flood{' traced' if telemetry else ''}]"
+        f" olmo-1b bf16{tag and ' at ' + tag}, "
         f"{len(reqs)} requests at 2000 req/s into 8 slots: finished "
         f"{rep['finished']}, shed {rep['shed']} {rob.get('shed')}, cancelled "
         f"{rep['cancelled']} {rob.get('cancelled')}, failed {rep['failed']}, "
@@ -5536,25 +5607,26 @@ def _disagg_traffic(cfg, seed: int = 0) -> list:
     return reqs
 
 
-def _disagg_arm(eng, cfg, label: str, **kw) -> tuple:
+def _disagg_arm(eng, cfg, label: str, slices: tuple = ("1x1", "1x1@1"),
+                **kw) -> tuple:
     """One stream of ``_disagg_traffic`` through ``run_paged_stream`` under
     a step clock, its own path: the kernels' counts set to 0 just before
     and read just after, each held to the targets' replays in the run, per
-    slice (the decode mesh and the prefill slice). Returns (tokens, report,
-    counts, counts by slice)."""
+    slice (``slices``: the decode mesh and the prefill slice). Returns
+    (tokens, report, counts, counts by slice)."""
     from repro_torch import kernels
     from repro_torch.runtime.serve import run_paged_stream
 
     reqs = _disagg_traffic(cfg)
-    before = {m: _lane_launches(eng, m)[0] for m in ("1x1", "1x1@1")}
+    before = {m: _lane_launches(eng, m)[0] for m in slices}
     kernels.reset_launch_counts()
     rep = run_paged_stream(eng, reqs, slots=8, clock=_StepClock(), **kw)
     torch.cuda.synchronize()
-    after = {m: _lane_launches(eng, m)[0] for m in ("1x1", "1x1@1")}
+    after = {m: _lane_launches(eng, m)[0] for m in slices}
     ran = {m: {k: n - before[m].get(k, 0) for k, n in after[m].items()}
            for m in after}
-    total = {k: ran["1x1"].get(k, 0) + ran["1x1@1"].get(k, 0)
-             for k in set(ran["1x1"]) | set(ran["1x1@1"])}
+    total = {k: sum(ran[m].get(k, 0) for m in slices)
+             for k in set().union(*ran.values())}
     launches = _launches(label, tuple(k for k, n in total.items() if n))
     for name, n in total.items():
         check(launches[name] == n,
@@ -5619,7 +5691,7 @@ def _disagg_rebind_arm(eng, cfg) -> dict:
             "migrated_pages": cb.stats.migrated_pages}, cb
 
 
-def _time_transport(cb, pages: int = 30) -> dict:
+def _time_transport(cb, pages: int = 30, tag: str = "disagg") -> dict:
     """One migration's device time: the prefill slice's ``mg`` gather, the
     block's move and the decode slice's scatter of ``pages`` pages (the
     stream's mean is 388 / 13 = 29.8; the targets always move the 64-page
@@ -5643,7 +5715,7 @@ def _time_transport(cb, pages: int = 30) -> dict:
     block = sum(t[:, :64].numel() * t.element_size()
                 for layer in cb._cache for t in layer.values())
     bound_ms = 6 * block / roofline.HBM_BYTES_PER_S * 1e3
-    log(f"[disagg] one migration of {pages} pages (a 64-page block of "
+    log(f"[{tag}] one migration of {pages} pages (a 64-page block of "
         f"{block / 1e6:.1f} MB): {ms:.4f} ms by CUDA events, "
         f"{ms / pages:.5f} ms a page, bound {bound_ms:.4f} ms (the block "
         f"read and written three times at 3.35 TB/s) | {_card()}")
@@ -5897,6 +5969,10 @@ def _disagg_phase(cfg, params, launcher: tuple, t0: float) -> dict:
                 ties = _split_equals_shared(f"disagg {tag} {mode}", cfg,
                                             params, shared, split, dt)
                 out.setdefault("ties", {})[f"{tag} {mode}"] = ties
+                # phase 16 holds its multi-device splits to these
+                out.setdefault("shared", {})[f"{tag} {mode}"] = shared
+                out.setdefault("split", {})[f"{tag} {mode}"] = (
+                    rd["migrations"], rd["migrated_pages"])
                 check(rd["migrations"] >= DISAGG_LONG
                       and rd["migrated_pages"] == pages,
                       f"disagg {tag} {mode}: {rd['migrations']} migrations "
@@ -6187,8 +6263,7 @@ def _replay_ms(run, steps: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     wall = _wall_ms(run)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             run()
         torch.cuda.synchronize()
@@ -6334,7 +6409,8 @@ def _finish_mesh_launcher(proc, tmp: Path, files: tuple) -> dict:
 
 def mesh_phase(cfg, params) -> dict:
     """Phase 14: paged serving on meshes of more than one logical device,
-    all on this card, the pipeline and the collectives. The launcher runs
+    all on this card (olmo-1b on its first ``OLMO_CUT_LAYERS`` layers),
+    the pipeline and the collectives. The launcher runs
     beside the rest. The bf16 cell's stream at 1x1, 1x2 and 2x2, then
     1x2 -> 2x2 -> 1x1 mid-stream: 0 captures after warmup, 2 rebinds,
     pool_shards 2, each kernel's launches = the replays' reckoning
@@ -6346,6 +6422,7 @@ def mesh_phase(cfg, params) -> dict:
     ``compressed_psum``."""
     _release_engines()
     t0 = time.perf_counter()
+    cfg, params = _depth_view(cfg, params, OLMO_CUT_LAYERS, "mesh")
     launcher = _start_mesh_launcher()
     try:
         return _mesh_phase(cfg, params, launcher, t0)
@@ -6552,7 +6629,8 @@ def _lanes_replays(eng, engine: str) -> dict:
 
 def lanes_phase(cfg, params) -> dict:
     """Phase 15: every lane of both continuous engines on meshes of more
-    than one logical device of this card (ROADMAP A12 part 3, items 1-2):
+    than one logical device of this card (ROADMAP A12 part 3, items 1-2;
+    olmo-1b on its first ``OLMO_CUT_LAYERS`` layers):
     ``_lanes_cell`` for each cell, the replayed steps, the peak against
     the reckoned bytes per engine, and the smoke config card = CPU on both
     engines at ``LANES_SMOKE_MESHES``."""
@@ -6560,6 +6638,7 @@ def lanes_phase(cfg, params) -> dict:
 
     _release_engines()
     t0 = time.perf_counter()
+    cfg, params = _depth_view(cfg, params, OLMO_CUT_LAYERS, "lanes")
     weights = sum(t.numel() * t.element_size() for t in params.values())
     out = {"paths": {}, "ties": {}, "timing": {}, "peak": {}, "warm": {},
            "arms_s": {}}
@@ -6625,6 +6704,182 @@ def lanes_phase(cfg, params) -> dict:
     return out
 
 
+# ------ phase 16 (disaggregation over multi-device slices, overload on a
+# plan, the capture report of a multi-device key)
+# olmo-1b at full width (bf16), 8 slots, page 16, chunk 64, max_len 1024,
+# four logical devices that all name this card: DisaggPlan.split("2x2")
+# (decode "1x2", prefill "1x2@2") on bf16 and int8 pools, sync and async,
+# with the capture report on the bf16 engine; split("3x1") (decode "2x1",
+# prefill "1x1@2"); phase 13's mixed() stream through each, held to phase
+# 13's one-device shared stream; then the overload stream at "1x2".
+SPLIT_ECFG = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64,
+                  devices=("cuda:0",) * 4)
+SPLITS = {"2x2": ("1x2", "1x2@2"), "3x1": ("2x1", "1x1@2")}
+OVERLOAD_PLAN_ECFG = dict(OVERLOAD_ECFG, mesh="1x2", devices=("cuda:0",) * 4)
+
+
+def _split_arm(eng, cfg, params, label: str, slices: tuple, phase13: dict,
+               kv: str, async_steps: bool) -> tuple:
+    """One split stream (``_disagg_arm`` over ``slices``) held to phase
+    13's one-device run of the same pool dtype and mode: tokens = its
+    shared stream's but for near-ties (``_mesh_equals``), migrations and
+    migrated pages = its split's. Returns (requests, tie count, report,
+    launches, launches by slice)."""
+    tag = f"{'bf16' if kv == 'fp32' else 'int8'} " \
+          f"{'async' if async_steps else 'sync'}"
+    reqs, rep, launches, by_slice = _disagg_arm(
+        eng, cfg, label, slices=slices, disagg=slices[1],
+        async_steps=async_steps)
+    ties = _mesh_equals(label, cfg, params, phase13["shared"][tag], reqs, {},
+                        kv)
+    got = (rep["migrations"], rep["migrated_pages"])
+    check(got == phase13["split"][tag], f"{label}: {got[0]} migrations of "
+          f"{got[1]} pages, the one-device split (phase 13) "
+          f"{phase13['split'][tag]}")
+    check(rep["mesh"] == slices[0] and rep["disagg"], f"{label}: report "
+          f"mesh {rep['mesh']}, disagg {rep['disagg']}")
+    return reqs, ties, rep, launches, by_slice
+
+
+def _split_capture(eng) -> dict:
+    """Every warmed key's capture report at the split (no ``error``), and
+    the decode slice's ``cbp`` key (8 slots, 16 pages): one device's flops,
+    bytes and collective bytes by op type."""
+    from repro_torch.core import lanes
+
+    reps = {str(r["key"]): r for r in eng.telemetry.compile_reports}
+    bad = [k for k, r in reps.items() if "error" in r]
+    check(reps and not bad, f"split capture report: errors at {bad[:3]}")
+    r = reps[str(lanes.CBP.key(8, 16, "fp32", "1x2"))]
+    check(r["chips"] == 2 and r["collectives"].get("all-reduce", 0) > 0,
+          f"split capture report cbp: chips {r['chips']}, collectives "
+          f"{r['collectives']}")
+    return {"keys": len(reps), "flops": r["flops"], "bytes": r["bytes"],
+            "collectives": r["collectives"], "chips": r["chips"],
+            "t_collective_s": r["roofline"]["t_collective_s"]}
+
+
+def split_mesh_phase(cfg, params, phase13: dict) -> dict:
+    """Phase 16: disaggregated prefill/decode over multi-device slices of
+    this card (ROADMAP A12 part 3, item 3), the overload stream on a
+    multi-device plan (item 8) and the capture report of a multi-device key
+    (item 6's collective bytes). Each split stream is its own path (counts
+    set to 0 just before, read just after, held to the replays per slice):
+    0 captures after warmup, tokens = phase 13's one-device shared stream
+    but near-ties, migrations and migrated pages = phase 13's split; at
+    1x2 split -> collapse -> split (2 rebinds), one migration's ms and a
+    replayed ``cbp`` step on the decode slice; the peak against the
+    reckoned bytes. Then phase 11's inert arm and its flood (two arms,
+    ``_flood_arms_equal``) at 1x2."""
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    _release_engines()
+    t0 = time.perf_counter()
+    weights = sum(t.numel() * t.element_size() for t in params.values())
+    out = {"paths": {}, "ties": {}, "peak": {}}
+    for base, kv, modes in (("2x2", "fp32", (False, True)),
+                            ("2x2", "int8", (False, True)),
+                            ("3x1", "fp32", (False,))):
+        dec, pf = SPLITS[base]
+        tag = "bf16" if kv == "fp32" else "int8"
+        torch.cuda.reset_peak_memory_stats()
+        tel = Telemetry(compile_analysis=(base, kv) == ("2x2", "fp32"))
+        t_warm = time.perf_counter()
+        with Engine(cfg, params, EngineConfig(
+                kv_dtype=kv, mesh=dec, meshes=(pf,), **SPLIT_ECFG),
+                telemetry=tel) as eng:
+            check(eng.graphs, "split: the engine's targets are not CUDA "
+                  "graphs")
+            eng.paged_continuous(slots=8, disagg=pf)  # captures both slices
+            captures = eng._decode.stats.misses
+            t_warm = time.perf_counter() - t_warm
+            for async_steps in modes:
+                mode = "async" if async_steps else "sync"
+                label = f"split {dec}+{pf} {tag} {mode}"
+                reqs, ties, rep, launches, by_slice = _split_arm(
+                    eng, cfg, params, label, (dec, pf), phase13, kv,
+                    async_steps)
+                out["ties"][label] = ties
+                out["paths"][f"{label} (phase 16)"] = launches
+                log(f"[split] {label}: tokens = the one-device shared "
+                    f"stream's on {len(reqs) - ties} of {len(reqs)} "
+                    f"requests, {ties} near-tie divergences; "
+                    f"{rep['migrations']} migrations of "
+                    f"{rep['migrated_pages']} pages (= phase 13's), lanes "
+                    f"{rep['lane_steps']}, 0 captures after warmup "
+                    f"({captures} captured in {t_warm:.1f} s); launches per "
+                    f"slice ({dec} / {pf}): "
+                    + "; ".join(f"{k} {by_slice[dec].get(k, 0)} / "
+                                f"{by_slice[pf].get(k, 0)}"
+                                for k in sorted(launches) if launches[k])
+                    + f" | {_card()}")
+            if kv == "fp32" and base == "2x2":
+                out["rebind"], split_cb = _disagg_rebind_arm(eng, cfg)
+                out["rebind"].update(_time_transport(
+                    split_cb, tag=f"split {dec}+{pf}"))
+                del split_cb  # its batcher holds the engine's storage
+                out["capture"] = _split_capture(eng)
+                out["cbp"] = _mesh_replay_ms(eng, dec)
+            ptrs = [{t.data_ptr() for d in eng.paged_cache(kv, m)
+                     for t in d.values()} for m in (dec, pf)]
+            check(not ptrs[0] & ptrs[1],
+                  f"split {dec}+{pf} {tag}: the slices' pools share storage")
+            pieces = sum(t.numel() * t.element_size()
+                         for t in eng._tp_pieces.values())
+            caches = _cache_bytes(eng)
+            reckoned = weights + pieces + sum(caches.values())
+            peak = torch.cuda.max_memory_allocated()
+            total = torch.cuda.get_device_properties(0).total_memory
+            check(reckoned <= peak <= total, f"split {dec}+{pf} {tag}: peak "
+                  f"{peak / 1e9:.2f} GB against {reckoned / 1e9:.2f} GB "
+                  f"reckoned")
+            out["peak"][f"{dec}+{pf} {tag}"] = (peak, reckoned, pieces,
+                                                caches["pools"])
+        del eng
+        _release_engines()
+    t_split = time.perf_counter() - t0
+    t_over = time.perf_counter()
+    inert = _overload_inert(cfg, params, OVERLOAD_PLAN_ECFG, modes=(False,),
+                            tag="1x2")
+    flood = _overload_flood(cfg, params, False, OVERLOAD_PLAN_ECFG, "1x2")
+    traced = _overload_flood(cfg, params, True, OVERLOAD_PLAN_ECFG, "1x2")
+    log(f"[overload:1x2:flood] plain arm against traced arm under the step "
+        f"clock: {_flood_arms_equal(flood, traced)}")
+    _release_engines()
+    out["paths"]["overload 1x2 inert (phase 16)"] = inert["launches"]
+    out["paths"]["overload 1x2 flood (phase 16)"] = flood["launches"]
+    t_over = time.perf_counter() - t_over
+    out["seconds"] = time.perf_counter() - t0
+    rb, cap, cbp = out["rebind"], out["capture"], out["cbp"]
+    log(f"[split] 1x2+1x2@2 split -> collapse -> split: {rb['rebinds']} "
+        f"rebinds, {rb['migrations']} migrations of {rb['migrated_pages']} "
+        f"pages, 0 captures after warmup; one migration of 30 pages "
+        f"{rb['migration_ms']:.4f} ms (phase 13 at one device, this run: "
+        f"{phase13['rebind']['migration_ms']:.4f} ms), "
+        f"bound {rb['migration_bound_ms']:.4f} ms | {_card()}")
+    log(f"[split:capture] {cap['keys']} keys, none an error; cbp (8 slots, "
+        f"16 pages) at 1x2, one of {cap['chips']} devices: "
+        f"{cap['flops'] / 1e9:.4f} GFLOP, {cap['bytes'] / 1e9:.4f} GB "
+        f"counted, collectives "
+        + ", ".join(f"{op} {n / 1e6:.4f} MB" for op, n in
+                    cap["collectives"].items())
+        + f" (collective term {cap['t_collective_s'] * 1e6:.3f} us at the "
+        f"data sheet's 900 GB/s NVLink) | {_card()}")
+    log(f"[split] replayed cbp step on the decode slice 1x2 (8 slots at "
+        f"position 200, 16-page tables): wall {cbp['wall_ms']:.4f} ms, "
+        f"device busy {_fmt_ms(cbp['busy_ms'])} by {cbp['by']} | {_card()}")
+    for name, (peak, reckoned, pieces, pools) in out["peak"].items():
+        log(f"[split] {name}: peak {peak / 1e9:.2f} GB against "
+            f"{reckoned / 1e9:.2f} GB reckoned (weights {weights / 1e9:.3f} "
+            f"+ the split weights' pieces {pieces / 1e9:.3f} + the two "
+            f"slices' pools {pools / 1e9:.3f} GB) | {_card()}")
+    log(f"[split] phase 16 passed in {out['seconds']:.1f}s (the splits "
+        f"{t_split:.1f}s, the overload stream at 1x2 {t_over:.1f}s) | "
+        f"{_card()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6633,13 +6888,27 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     t0 = time.perf_counter()
+    spans, last = {}, [t0]
+
+    def span(name: str) -> None:  # the seconds since the previous span
+        now = time.perf_counter()
+        spans[name] = now - last[0]
+        last[0] = now
+
     setup()
+    # what is alive now (torch, the port, the kernels' libraries) lives to
+    # the end: out of the collector's sight, each _release_engines' full
+    # collection walks only what the phases make
+    gc.freeze()
+    span("setup (the kernels' build)")
     kernels_vs_plain()
     sampling_vs_plain()
+    span("kernels and sampling vs plain")
     main_path = full_width_streams()
     graph_phase(main_path["cfg"], main_path["params"])
     dense = continuous_phase(main_path["cfg"], main_path["params"],
                              main_path["burst_report"])
+    span("olmo-1b streams, graphs, dense cells")
     main_path["by_path"].update({f"continuous {k}": v["launches"]
                                  for k, v in dense.items() if "launches" in v})
     t_async = time.perf_counter()
@@ -6650,6 +6919,8 @@ def main() -> int:
     disagg = disagg_phase(main_path["cfg"], main_path["params"])
     mesh = mesh_phase(main_path["cfg"], main_path["params"])
     lanes = lanes_phase(main_path["cfg"], main_path["params"])
+    split = split_mesh_phase(main_path["cfg"], main_path["params"], disagg)
+    span("phases 3d, 11 and 13-16")
     steps_kernel_vs_plain(main_path["cfg"], main_path["params"])
     prompt = prompt_then_burst(main_path["cfg"], main_path["params"])
     profile_steps(main_path["cfg"], main_path["params"])
@@ -6658,9 +6929,11 @@ def main() -> int:
     ssd_vs_plain()
     mamba = mamba_full_width()
     torch.cuda.empty_cache()
+    span("olmo-1b steps and prompt+burst, profiles, B8, mamba2")
     b2_verify = smoke_card_vs_cpu()
     continuous_smoke_card_vs_cpu()
     mamba_smoke_card_vs_cpu()
+    span("smoke configs card vs CPU")
     launches = dict(main_path["launches"],
                     flash_attention=prompt["flash_attention"],
                     flash_attention_branchy=kernel_pair()[
@@ -6670,6 +6943,7 @@ def main() -> int:
             + time_dense_kernels(launches)
             + time_ssd_kernel(launches)
             + time_sampling(main_path["launches"], main_path["by_path"]))
+    span("kernel timings")
     t8 = time.perf_counter()
     paths = configs_phase()
     t9 = time.perf_counter()
@@ -6689,6 +6963,7 @@ def main() -> int:
     paths.update({f"{k} (phase 13)": v for k, v in disagg["paths"].items()})
     paths.update(mesh["paths"])
     paths.update(lanes["paths"])
+    paths.update(split["paths"])
     paths["train (phase 12)"] = train["launches"]
     for row in rows:
         if row["name"] in new:
@@ -6711,7 +6986,10 @@ def main() -> int:
         f"{overload['seconds']:.1f}s; phase 12 (C13, training) {t12:.1f}s; "
         f"phase 13 (mesh, disagg, capture report) {disagg['seconds']:.1f}s; "
         f"phase 14 (meshes of more than one device) {mesh['seconds']:.1f}s; "
-        f"phase 15 (every lane on those meshes) {lanes['seconds']:.1f}s")
+        f"phase 15 (every lane on those meshes) {lanes['seconds']:.1f}s; "
+        f"phase 16 (splits over meshes, overload on a plan) "
+        f"{split['seconds']:.1f}s; before phase 8: "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in spans.items()))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,25 @@ position 0 are written) and counts what the PyTorch dispatcher sees:
 * ``bytes`` — the inputs and outputs of every op a ``TorchDispatchMode``
   sees (views excepted). There is no fusion, so every intermediate counts:
   this is not comparable with XLA's fusion-boundary bytes.
-* ``collectives`` (empty), ``collective_bytes_total`` and
-  ``unknown_trip_whiles`` (0): one card, and Python loops run unrolled.
+* ``collectives`` — the result bytes of every collective a device issues,
+  by op type (``all-reduce``, ``all-gather``, ``collective-permute``), as
+  ``hlo_analysis`` counts each collective's result shape once: counted
+  where ``distributed.collectives`` runs ``all_reduce``, ``pmax``,
+  ``all_gather`` and ``ppermute`` (``compressed_psum`` through its
+  ``pmax`` and ``all_gather``), per mesh coordinate, and reported for the
+  coordinate that moves the most; empty on one device.
+  ``collective_bytes_total`` is their sum, ``unknown_trip_whiles`` 0
+  (Python loops run unrolled).
+
+On a mesh of several logical devices the report is one device's, as the
+JAX package's is the partitioned per-device program's. The mesh steps
+(``models.tensor_parallel``) issue every op once per coordinate, on its
+rows and heads (a product split over ``model`` at 1/mp of its width), so
+what runs inside them (``spread``) counts 1/devices to a device; the
+step's tail after the rows' logits are gathered (the sampling) runs on the
+mesh's first device and counts whole there, which makes the first device
+the busiest. The per-row table arithmetic inside a mesh step is spread as
+well, an undercount of a few integer ops a row.
 
 Each hand-written kernel's wrapper (``counted``) adds its reckoning
 (``roofline``) at the shapes it was given — the key's static extent, e.g.
@@ -32,8 +49,10 @@ same report on the CPU and on the card. A failure is folded into an
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Any, Callable
+from collections import defaultdict
+from typing import Any, Callable, Mapping
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -93,6 +112,26 @@ class _Analysis:
         self.counter = _Counter()
         self.kernel = roofline.Work(0.0, 0.0, 0.0, 0.0)
         self.excluded_flops = 0
+        # coordinate -> op type -> result bytes
+        self.collectives: dict = defaultdict(lambda: defaultdict(float))
+        self.spread: list[tuple[int, tuple]] = []  # (devices, totals' delta)
+
+    def totals(self) -> tuple:
+        """(flops, bytes, transcendentals, kernel flops, kernel bytes) so
+        far, the kernels' reckonings included."""
+        k = self.kernel
+        return (self.flop_mode.get_total_flops() - self.excluded_flops
+                + k.flops, self.counter.bytes + k.bytes,
+                self.counter.transcendentals + k.transcendentals, k.flops,
+                k.bytes)
+
+    def per_device(self) -> tuple:
+        """``totals`` of the busiest device: what ran inside a ``spread``
+        region at 1/devices, the rest whole."""
+        out = list(self.totals())
+        for devices, delta in self.spread:
+            out = [x - d + d / devices for x, d in zip(out, delta)]
+        return tuple(out)
 
 
 _ACTIVE: _Analysis | None = None
@@ -124,6 +163,51 @@ def counted(reckon: Callable[..., roofline.Work]) -> Callable:
     return deco
 
 
+def collective(op: str) -> Callable:
+    """Decorate a collective over a mesh axis (``fn(xs, mesh, axis, ...)``
+    -> coordinate -> shard): under an analysis, none of its ops count as
+    compute, and each coordinate's result bytes count under ``op``; over an
+    axis of one device it moves nothing and counts nothing."""
+
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(xs, mesh, axis, *args, **kwargs):
+            a = _ACTIVE
+            if a is None or a.counter.paused:
+                return fn(xs, mesh, axis, *args, **kwargs)
+            f0 = a.flop_mode.get_total_flops()
+            a.counter.paused += 1
+            try:
+                out: Mapping = fn(xs, mesh, axis, *args, **kwargs)
+            finally:
+                a.counter.paused -= 1
+                a.excluded_flops += a.flop_mode.get_total_flops() - f0
+            if mesh.shape[axis] > 1:
+                for c, t in out.items():
+                    a.collectives[c][op] += t.numel() * t.element_size()
+            return out
+
+        return wrapper
+
+    return deco
+
+
+@contextlib.contextmanager
+def spread(devices: int):
+    """The ops inside run once on each of ``devices`` mesh coordinates
+    (each on its piece): a device's report counts 1/devices of them."""
+    a = _ACTIVE
+    if a is None or a.counter.paused or devices == 1:
+        yield
+        return
+    before = a.totals()
+    try:
+        yield
+    finally:
+        a.spread.append((devices, tuple(
+            y - x for x, y in zip(before, a.totals()))))
+
+
 def analyze_target(step: Callable, *args: Any) -> dict:
     """Run ``step(*args)`` once under the counters and return the report
     (module docstring); ``{"error": ...}`` if anything fails."""
@@ -136,18 +220,19 @@ def analyze_target(step: Callable, *args: Any) -> dict:
                 step(*args)
         finally:
             _ACTIVE = None
-        k = a.kernel
-        flops = a.flop_mode.get_total_flops() - a.excluded_flops + k.flops
+        flops, nbytes, trans, kflops, kbytes = a.per_device()
+        busiest = max(a.collectives.values(), key=lambda ops: sum(
+            ops.values()), default={})
+        colls = {op: float(n) for op, n in sorted(busiest.items())}
         return {
             "flops": float(flops),
-            "bytes": float(a.counter.bytes + k.bytes),
-            "transcendentals": float(a.counter.transcendentals
-                                     + k.transcendentals),
-            "collectives": {},
-            "collective_bytes_total": 0.0,
+            "bytes": float(nbytes),
+            "transcendentals": float(trans),
+            "collectives": colls,
+            "collective_bytes_total": float(sum(colls.values())),
             "unknown_trip_whiles": 0,
-            "kernel_flops": float(k.flops),
-            "kernel_bytes": float(k.bytes),
+            "kernel_flops": float(kflops),
+            "kernel_bytes": float(kbytes),
         }
     except Exception as exc:  # noqa: BLE001 - report, never break a build
         return {"error": f"{type(exc).__name__}: {exc}"}

@@ -17,6 +17,8 @@ from typing import Callable, Mapping, Sequence
 
 import torch
 
+from repro_torch.capture_analysis import collective
+
 
 def _qparams(x: torch.Tensor) -> torch.Tensor:
     amax = torch.max(torch.abs(x))
@@ -79,7 +81,9 @@ def make_grad_compressor(
 # runs over, so coordinates that differ only there form one group. Every
 # result is computed once per group in a fixed order of coordinates (so it
 # does not depend on which device asks) and moved to each member's device
-# with ``.to(device)``: on one card the members share one tensor.
+# with ``.to(device)``: on one card the members share one tensor. Under a
+# capture report (``capture_analysis``) each counts its result's bytes per
+# coordinate under the JAX package's op type (``pmax`` is an all-reduce).
 def _groups(xs: Mapping[tuple, torch.Tensor], mesh,
             axis: str) -> list[list[tuple]]:
     """``xs``'s coordinates grouped by every axis but ``axis``, each group
@@ -95,6 +99,7 @@ def _spread(group: list[tuple], value: torch.Tensor, mesh) -> dict:
     return {c: value.to(mesh.device(c)) for c in group}
 
 
+@collective("all-reduce")
 def all_reduce(xs: Mapping[tuple, torch.Tensor], mesh,
                axis: str) -> dict:
     """The sum over ``axis`` (``lax.psum``), accumulated in the shards'
@@ -109,6 +114,7 @@ def all_reduce(xs: Mapping[tuple, torch.Tensor], mesh,
     return out
 
 
+@collective("all-reduce")
 def pmax(xs: Mapping[tuple, torch.Tensor], mesh, axis: str) -> dict:
     """The elementwise maximum over ``axis`` (``lax.pmax``)."""
     out: dict = {}
@@ -121,6 +127,7 @@ def pmax(xs: Mapping[tuple, torch.Tensor], mesh, axis: str) -> dict:
     return out
 
 
+@collective("all-gather")
 def all_gather(xs: Mapping[tuple, torch.Tensor], mesh, axis: str, *,
                dim: int = 0, tiled: bool = False) -> dict:
     """Every shard along ``axis``, in order (``lax.all_gather``): stacked
@@ -134,6 +141,7 @@ def all_gather(xs: Mapping[tuple, torch.Tensor], mesh, axis: str, *,
     return out
 
 
+@collective("collective-permute")
 def ppermute(xs: Mapping[tuple, torch.Tensor], mesh, axis: str,
              perm: Sequence[tuple[int, int]]) -> dict:
     """``lax.ppermute``: the shard at index ``src`` along ``axis`` moves to

@@ -60,18 +60,26 @@ kernels B1-B4 launch on each shard's heads over its pool block or dense
 rows. The rows' logits are gathered over ``data`` onto the mesh's first
 device, where the step samples once.
 
-Families other than dense attention + MLP stacks, and the migration lane,
-raise ``NotImplementedError`` (ROADMAP A12 part 3) in the engine before
-anything here runs.
+**Page migration** (the ``mg`` lane of a disaggregated split whose slices
+are meshes, DESIGN.md §17): ``gather_mesh_pages`` reads a request's pages
+out of the pool into one block in the global layout (every kv head in
+order, the replicated scales once) and ``scatter_mesh_pages`` writes such a
+block into another pool of any layout, each page into the row that holds
+it and each head into its model shard; the two ends never assume each
+other's layout.
+
+Families other than dense attention + MLP stacks raise
+``NotImplementedError`` (ROADMAP A12 part 3) in the engine before anything
+here runs.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
-from typing import Sequence
-
 import torch
 
+from repro_torch import capture_analysis
 from repro_torch.configs import ArchConfig
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as shd
@@ -289,6 +297,111 @@ def relayout_cache(dst: list, src: list) -> None:
                 t.copy_(_global_leaf(src, i, name, t.device))
 
 
+def _per_device(fn):
+    """A mesh step: every op inside runs once per coordinate, so a capture
+    report counts 1/devices of them to a device (``capture_analysis.
+    spread``); the mesh is the one of the ``ShardedCache`` argument."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        cache = next(a for a in args if isinstance(a, ShardedCache))
+        with capture_analysis.spread(cache.mesh.size):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def _page_rows(cache: ShardedCache, idx: torch.Tensor) -> tuple:
+    """Each global page id's data row and its local id in that row's
+    block."""
+    row = torch.div(idx, cache.row_block, rounding_mode="floor")
+    return row, idx - row * cache.row_block
+
+
+def _model_dim(spec: tuple) -> int | None:
+    """The dim a leaf splits over ``model`` (kv heads), None if whole."""
+    return next((j for j, e in enumerate(spec) if "model" in
+                 shd.spec_axes(e)), None)
+
+
+@_per_device
+def gather_mesh_pages(cache: ShardedCache, idx: torch.Tensor,
+                      leaves: list) -> tuple:
+    """The ``mg`` gather over a mesh's pool: ``idx[B]`` global page ids (on
+    the mesh's first device) -> one block per leaf of ``leaves`` ((period
+    slot, name) in block order) in the global layout, ``[m, B, ...]`` with
+    every kv head in global order, on the mesh's first device: the unit
+    both ends of a migration agree on, whatever their layouts. Each
+    coordinate reads the pages of its own row's block (an id of another
+    row reads the row's null page); the row's heads are joined over
+    ``model`` (``all_gather``; a leaf whole on every model shard, as the
+    int8 scales, is taken from the first) and each page is then taken from
+    the row that holds it (``all_gather`` over ``data``)."""
+    mesh = cache.mesh
+    first = mesh.device(mesh.coords()[0])
+    idx = idx.long()
+    row, loc = _page_rows(cache, idx)
+    dp = mesh.shape["data"]
+    out = []
+    for i, n in leaves:
+        spec = cache.specs[i][n]
+        dim = _model_dim(spec)
+        mine = {}
+        for c in mesh.coords():
+            piece = cache.shards[c][i][n]
+            at = torch.where(row == c[0], loc, torch.zeros_like(loc))
+            mine[c] = piece[:, at.to(piece.device)]
+        if dim is not None:
+            mine = coll.all_gather(mine, mesh, "model", dim=dim, tiled=True)
+        if dp == 1:
+            out.append(mine[mesh.coords()[0]].to(first))
+            continue
+        stacked = coll.all_gather(mine, mesh, "data")[mesh.coords()[0]]
+        stacked = stacked.to(first)
+        block = stacked[0]
+        shape = (1, -1) + (1,) * (block.dim() - 2)
+        for d in range(1, dp):
+            block = torch.where((row == d).view(shape), stacked[d], block)
+        out.append(block)
+    return tuple(out)
+
+
+@_per_device
+def scatter_mesh_pages(cache: ShardedCache, idx: torch.Tensor,
+                       leaves: list, block: tuple) -> None:
+    """The ``mg`` scatter over a mesh's pool, in place: each page ``j`` of
+    ``block`` (global layout, as ``gather_mesh_pages`` gives it) lands at
+    global id ``idx[j]``, in the row that holds it and in each model
+    shard's heads (a leaf whole on every model shard, as the int8 scales,
+    on every one). A row writes only its own ids, so what another row's
+    block holds, its null page included, keeps its bits: an entry of
+    another row is redirected onto the row's first own entry, with that
+    entry's value, or where the row has none onto its null page with the
+    page's own value (duplicate ids then always carry equal values)."""
+    mesh = cache.mesh
+    idx = idx.long()
+    row, loc = _page_rows(cache, idx)
+    order = torch.arange(idx.shape[0], device=idx.device)
+    for (i, n), b in zip(leaves, block):
+        spec = cache.specs[i][n]
+        dim = _model_dim(spec)
+        for d in range(mesh.shape["data"]):
+            mine = row == d
+            some = mine.any()
+            j = torch.where(mine, order, mine.to(torch.int32).argmax())
+            at = torch.where(some, loc[j], torch.zeros_like(loc))
+            for c in (c for c in mesh.coords() if c[0] == d):
+                piece = cache.shards[c][i][n]
+                dev = piece.device
+                vals = b.to(dev)
+                if dim is not None:
+                    w = piece.shape[dim]
+                    vals = vals.narrow(dim, c[1] * w, w)
+                vals = torch.where(some.to(dev), vals[:, j.to(dev)],
+                                   piece[:, :1])
+                piece[:, at.to(dev)] = vals
+
+
 def copy_mesh_pages(cache: ShardedCache, src: int, dst: int) -> None:
     """``models.copy_cache_pages`` on a mesh's pool: both pages lie in one
     data row's block (a table only holds pages of its slot's shard); every
@@ -460,6 +573,7 @@ def _rows(lay: TPLayout, mesh, params: dict, cache: ShardedCache):
             yield d, lo, hi, _Row(lay, mesh, params, cache, d)
 
 
+@_per_device
 def mesh_paged_decode_step(
     cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
     inputs: torch.Tensor, pos: torch.Tensor, block_tables: torch.Tensor,
@@ -470,7 +584,7 @@ def mesh_paged_decode_step(
     -> logits [S,V] float32 there; every shard's pool piece updated in
     place."""
     mesh = cache.mesh
-    out = []
+    out = {}
     for d, lo, hi, row in _rows(lay, mesh, params, cache):
         p = row.each(pos[lo:hi])
         bt = row.each(_local_tables(block_tables[lo:hi], d, lay.row_block))
@@ -483,10 +597,11 @@ def mesh_paged_decode_step(
 
         xs = _tower(cfg, row, row.each(inputs[lo:hi]),
                     [x[:, None] for x in p], core)
-        out.append(_head(cfg, row, [x[:, -1] for x in xs]))
+        out[d, 0] = _head(cfg, row, [x[:, -1] for x in xs])
     return _gather_rows(mesh, out)
 
 
+@_per_device
 def _paged_chunk(cfg, lay, params, cache, inputs, start, block_tables,
                  length, attn_impl: str, every_row: bool) -> torch.Tensor:
     """The paged chunk tower over the mesh -> the logits of each row's last
@@ -494,7 +609,7 @@ def _paged_chunk(cfg, lay, params, cache, inputs, start, block_tables,
     from .model import _last_real_row
 
     mesh = cache.mesh
-    out = []
+    out = {}
     c_len = inputs.shape[1]
     for d, lo, hi, row in _rows(lay, mesh, params, cache):
         st = row.each(start[lo:hi])
@@ -509,8 +624,8 @@ def _paged_chunk(cfg, lay, params, cache, inputs, start, block_tables,
 
         xs = _tower(cfg, row, row.each(inputs[lo:hi]),
                     [attn.chunk_positions(s, c_len) for s in st], core)
-        out.append(_head(cfg, row, xs if every_row else
-                         [_last_real_row(x, n) for x, n in zip(xs, ln)]))
+        out[d, 0] = _head(cfg, row, xs if every_row else
+                          [_last_real_row(x, n) for x, n in zip(xs, ln)])
     return _gather_rows(mesh, out)
 
 
@@ -559,6 +674,7 @@ def _dense_cores(row: _Row, cs: list, fn) -> list:
     return outs
 
 
+@_per_device
 def mesh_slot_decode_step(
     cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
     inputs: torch.Tensor, pos: torch.Tensor, *, attn_impl: str = "kernel",
@@ -568,7 +684,7 @@ def mesh_slot_decode_step(
     i32[S] on the mesh's first device -> logits [S,V] float32 there; every
     shard's dense cache piece updated in place."""
     mesh = cache.mesh
-    out = []
+    out = {}
     for d, lo, hi, row in _rows(lay, mesh, params, cache):
         p = row.each(pos[lo:hi])
 
@@ -579,10 +695,11 @@ def mesh_slot_decode_step(
 
         xs = _tower(cfg, row, row.each(inputs[lo:hi]),
                     [x[:, None] for x in p], core)
-        out.append(_head(cfg, row, [x[:, -1] for x in xs]))
+        out[d, 0] = _head(cfg, row, [x[:, -1] for x in xs])
     return _gather_rows(mesh, out)
 
 
+@_per_device
 def _dense_chunk(cfg, lay, params, cache, inputs, start, length,
                  attn_impl: str, every_row: bool) -> torch.Tensor:
     """The dense chunk tower over the mesh -> the logits of each row's last
@@ -595,7 +712,7 @@ def _dense_chunk(cfg, lay, params, cache, inputs, start, length,
     if c_len > smax:
         raise ValueError(f"a chunk of {c_len} rows does not fit a dense "
                          f"cache of max_len={smax}")
-    out = []
+    out = {}
     for d, lo, hi, row in _rows(lay, mesh, params, cache):
         st = row.each(start[lo:hi])
         ln = row.each(length[lo:hi])
@@ -607,8 +724,8 @@ def _dense_chunk(cfg, lay, params, cache, inputs, start, length,
 
         xs = _tower(cfg, row, row.each(inputs[lo:hi]),
                     [attn.chunk_positions(s, c_len) for s in st], core)
-        out.append(_head(cfg, row, xs if every_row else
-                         [_last_real_row(x, n) for x, n in zip(xs, ln)]))
+        out[d, 0] = _head(cfg, row, xs if every_row else
+                          [_last_real_row(x, n) for x, n in zip(xs, ln)])
     return _gather_rows(mesh, out)
 
 
@@ -638,8 +755,8 @@ def mesh_slot_verify_step(
                         attn_impl, every_row=True)
 
 
-def _gather_rows(mesh, out: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The data rows' logits concatenated in slot order on the mesh's first
-    device (the gather over ``data``)."""
-    dev = mesh.device(mesh.coords()[0])
-    return torch.cat([o.to(dev) for o in out], dim=0)
+def _gather_rows(mesh, out: dict) -> torch.Tensor:
+    """The data rows' logits (``{(row, 0): logits}``) concatenated in slot
+    order on the mesh's first device: the ``all_gather`` over ``data``."""
+    got = coll.all_gather(out, mesh, "data", dim=0, tiled=True)
+    return got[min(got)].to(mesh.device(mesh.coords()[0]))

@@ -6,9 +6,14 @@ HBM3 3.35 TB/s, bf16 tensor cores 989 TFLOP/s, fp32 67 TFLOP/s. They are
 data-sheet values, not measurements: a card set below its 700 W limit runs
 slower under load, so a number printed beside them names the card and its
 power limit (``nvidia-smi --query-gpu=name,power.limit
---format=csv,noheader``). One card, so the collective term is 0; the JAX
-package's ``collective_bytes_from_hlo`` has no counterpart (there is no
-HLO) and waits for ROADMAP A12 part 2.
+--format=csv,noheader``). The collective term reads a device's collective
+bytes at the data sheet's NVLink rate, 900 GB/s (``NVLINK_BYTES_PER_S``),
+where the JAX package reads TPU ICI links. The bytes come from the capture
+report (``capture_analysis``: each collective's result bytes where
+``distributed.collectives`` issues it), the counterpart of
+``collective_bytes_from_hlo``; on one device there are none. On logical
+devices of one card a collective is a copy in device memory, so that term
+is the yardstick of a plan across cards, not of one card's.
 
 Each hand-written kernel (B1-B8 and ``sample_rows``) has one reckoning of
 the work a call does, ``Work(flops, bytes, transcendentals, int_ops)``, from
@@ -24,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
+NVLINK_BYTES_PER_S = 900e9  # the data sheet's NVLink bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # The sampling kernel's int32 operations per element of a sampled row —
 # threefry-2x32 (2 + 5 x 12 round + 5 x 2 injection adds, a rotate being one
@@ -146,14 +152,16 @@ def roofline_terms(rec: dict, *, dtype: torch.dtype = torch.bfloat16) -> dict:
     at the H100 constants, flops at ``dtype``'s peak:
     ``roofline_fraction`` = (the floor: the larger of ``model_flops`` at
     peak and ``min_bytes_global`` — weights and cache moved once — at the
-    HBM rate) / (the largest term). ``t_collective_s`` is 0 on one card."""
+    HBM rate) / (the largest term). ``t_collective_s`` is a device's
+    collective bytes at the NVLink rate (0 on one device)."""
     peak = PEAK_FLOPS[dtype]
     f = rec["flops_per_device"]
     b = rec["bytes_per_device"]
+    c = sum(rec["collective_bytes_per_device"].values())
     chips = rec["chips"]
     t_compute = f / peak
     t_memory = b / HBM_BYTES_PER_S
-    t_coll = 0.0
+    t_coll = c / NVLINK_BYTES_PER_S
     dominant = max(
         [("compute", t_compute), ("memory", t_memory), ("collective", t_coll)],
         key=lambda kv: kv[1],

@@ -87,9 +87,11 @@ heads (else a dense cache's sequence) over ``model``
 (``models.tensor_parallel``); each such mesh is a cell with its own pool,
 dense and draft caches and targets, and on the card each key is still one
 CUDA graph. ``set_mesh`` copies the live pages and dense rows between the
-layouts. Disaggregation over multi-device slices, page migration there,
-other families and plans across distinct cards raise
-``NotImplementedError`` (ROADMAP A12 part 3).
+layouts. A split's slices may be such meshes too, of any layouts (decode
+"1x2" beside prefill "1x2@2", or "2x1" beside "1x1@2"): the ``mg``
+targets move a request's pages in the global layout between them. Other
+families and plans across distinct cards raise ``NotImplementedError``
+(ROADMAP A12 part 3).
 
 With ``Telemetry(compile_analysis=True)`` each build appends the key's
 capture report (``capture_analysis``) with its roofline terms
@@ -480,29 +482,29 @@ class Engine:
         return exe
 
     def _capture_report(self) -> dict:
-        """The last built target's capture report and its roofline terms:
-        ``model_flops`` = its flops, ``min_bytes_global`` = the weights plus
-        the key's cache extent, one chip. A failure is an ``{"error": ...}``
-        report, never a failed build."""
+        """The last built target's capture report (one device's, on a mesh
+        the busiest's, with its collectives' bytes) and its roofline terms:
+        ``chips`` = the mesh's devices, ``model_flops`` = a device's flops
+        times the devices, ``min_bytes_global`` = the weights plus the
+        key's cache extent. A failure is an ``{"error": ...}`` report,
+        never a failed build."""
         last = self._last_target
         if last is None:
             return {"error": "no target was built"}
-        if last == "mesh":
-            return {"error": f"the capture report of a plan of more than "
-                             f"one device waits for {shd.PART3}"}
-        step, params, cache, args, extent = last
+        step, params, cache, args, extent, weights, chips = last
         rep = capture_analysis.analyze_target(step, params, cache, *args)
         if "error" in rep:
             return rep
+        rep["chips"] = chips
         rep["cache_extent_bytes"] = extent
         rep["param_bytes"] = sum(t.numel() * t.element_size()
-                                 for t in params.values())
+                                 for t in weights.values())
         rep["roofline"] = roofline.roofline_terms({
             "flops_per_device": rep["flops"],
             "bytes_per_device": rep["bytes"],
             "collective_bytes_per_device": rep["collectives"],
-            "chips": 1,
-            "model_flops": rep["flops"],
+            "chips": chips,
+            "model_flops": rep["flops"] * chips,
             "min_bytes_global": rep["param_bytes"] + extent,
         }, dtype=dtype_of(self.cfg))
         return rep
@@ -552,13 +554,6 @@ class Engine:
     def _multi(self, mesh: str) -> bool:
         """Whether ``mesh`` is a plan of more than one logical device."""
         return not self._mesh_plan(mesh).solo
-
-    def _one_device(self, mesh: str, what: str) -> None:
-        """Refuse ``what`` on a plan of more than one device (part 3)."""
-        if self._multi(mesh):
-            raise NotImplementedError(
-                f"{what} on the mesh {mesh!r} of more than one device waits "
-                f"for {shd.PART3}")
 
     def _mesh_device(self, mesh: str) -> torch.device:
         """The device a mesh's targets and storage live on: the engine's
@@ -643,8 +638,9 @@ class Engine:
             for _, shape, dt in specs
         ]
         if self.telemetry.compile_analysis:
-            self._last_target = ("mesh" if self._multi(mesh) else
-                                 (step, params, cache, examples, extent))
+            self._last_target = (step, params, cache, examples, extent,
+                                 self.draft_params if draft else self.params,
+                                 self._mesh_plan(mesh).num_devices)
         if not self.graphs:
             return self._guarded(step, specs, cache_dtype, params, device)
         names = [n for n, _, _ in specs]
@@ -929,8 +925,9 @@ class Engine:
         place. B is pinned at the per-request page cap and short
         migrations pad ``idx`` with the null page, so the page count is
         never a coordinate: one pair of targets moves one page or a whole
-        request."""
-        self._one_device(mesh, "page migration ('mg')")
+        request. On a mesh's pool the block is in the global layout
+        (``tensor_parallel.gather_mesh_pages``/``scatter_mesh_pages``), so
+        the two slices of a split may have any layouts."""
         cache = self.paged_cache(kv_dtype, mesh)
         b = self.max_pages_per_req
         rows = {"idx": ((b,), torch.int32)}
@@ -938,10 +935,9 @@ class Engine:
             step = steps_mod.make_page_gather_fn()
         elif op == "scatter":
             step = steps_mod.make_page_scatter_fn()
-            for i, n in steps_mod.page_leaves(cache):
-                t = cache[i][n]
-                rows[f"block {i}/{n}"] = (
-                    (t.shape[0], b) + tuple(t.shape[2:]), t.dtype)
+            for (i, n), leaf in zip(steps_mod.page_leaves(cache),
+                                    steps_mod.page_block(cache, b)):
+                rows[f"block {i}/{n}"] = leaf
         else:
             raise ValueError(f"unknown migration op {op!r}")
         return self._target(
@@ -1231,14 +1227,6 @@ class Engine:
         for m in self._warm_meshes():
             self._mesh_plan(m)
 
-    def _check_disagg_meshes(self) -> None:
-        """Disaggregation with a multi-device plan in the warm ladder waits
-        for ROADMAP A12 part 3 (the ``mg`` transport over a mesh's pool),
-        refused before anything is warmed."""
-        multi = [m for m in self._warm_meshes() if self._multi(m)]
-        if multi:
-            self._one_device(multi[0], "disaggregated prefill/decode")
-
     def _disagg_lanes_enabled(self, ctx: "_WarmCtx") -> bool:
         """The migration lane's gate: only a batcher that opted into
         disaggregated prefill/decode warms the transport."""
@@ -1390,11 +1378,8 @@ class Engine:
             exe(cache, idx)
         else:
             exe(cache, idx, *(
-                torch.zeros((t.shape[0], self.max_pages_per_req)
-                            + tuple(t.shape[2:]), dtype=t.dtype, device=d)
-                for t in (cache[i][n]
-                          for i, n in steps_mod.page_leaves(cache))
-            ))
+                torch.zeros(shape, dtype=dt, device=d) for shape, dt in
+                steps_mod.page_block(cache, self.max_pages_per_req)))
         steps_mod.pull_host(idx)  # the call has run
 
     def _warm_lanes(self, kind: str, slots: int, ctx: _WarmCtx) -> None:
@@ -1660,8 +1645,6 @@ class Engine:
             and self._supports_spec_decode()
         )
         m0 = self._mesh_arg(mesh)
-        if disagg:
-            self._check_disagg_meshes()
         dg = self._disagg_plan(disagg, m0, use_spec)
         ddt = draft_kv_dtype or ecfg.draft_kv_dtype
         if ddt not in self._warm_draft_kv_dtypes():

@@ -421,10 +421,29 @@ def make_slot_prefill_fn(
 # migration reads and writes only that reserved page: the shapes never
 # change and each (kv_dtype, mesh) cell captures the pair once. A block is
 # the pool's leaves in order (period slot, then leaf name), flattened.
+# On a mesh's pool (``tensor_parallel.ShardedCache``) the block is in the
+# global layout, as the JAX package lowers it replicated: the one unit both
+# slices agree on, whatever their layouts.
 def page_leaves(cache: list) -> list[tuple[int, str]]:
     """The (period slot, leaf name) of every leaf of a pool, in block
     order."""
-    return [(i, n) for i, layer in enumerate(cache) for n in sorted(layer)]
+    layers = (cache.specs if isinstance(cache, tensor_parallel.ShardedCache)
+              else cache)
+    return [(i, n) for i, layer in enumerate(layers) for n in sorted(layer)]
+
+
+def page_block(cache: list, pages: int) -> list[tuple[tuple, torch.dtype]]:
+    """The (shape, dtype) of each leaf's block of ``pages`` pages, in block
+    order (the global layout on a mesh's pool)."""
+    out = []
+    for i, n in page_leaves(cache):
+        if isinstance(cache, tensor_parallel.ShardedCache):
+            shape = cache.shapes[i][n]
+            dt = cache.shards[cache.mesh.coords()[0]][i][n].dtype
+        else:
+            shape, dt = tuple(cache[i][n].shape), cache[i][n].dtype
+        out.append(((shape[0], pages) + tuple(shape[2:]), dt))
+    return out
 
 
 def make_page_gather_fn() -> Callable:
@@ -433,6 +452,9 @@ def make_page_gather_fn() -> Callable:
     it)."""
 
     def gather(params, cache, idx):
+        if isinstance(cache, tensor_parallel.ShardedCache):
+            return tensor_parallel.gather_mesh_pages(cache, idx,
+                                                     page_leaves(cache))
         idx = idx.long()
         return tuple(cache[i][n][:, idx] for i, n in page_leaves(cache))
 
@@ -445,6 +467,10 @@ def make_page_scatter_fn() -> Callable:
     it returns nothing, so a captured scatter has no static output)."""
 
     def scatter(params, cache, idx, *block):
+        if isinstance(cache, tensor_parallel.ShardedCache):
+            tensor_parallel.scatter_mesh_pages(cache, idx, page_leaves(cache),
+                                               block)
+            return ()
         idx = idx.long()
         for (i, n), b in zip(page_leaves(cache), block):
             cache[i][n][:, idx] = b

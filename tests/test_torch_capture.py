@@ -12,7 +12,8 @@
   optimised HLO holds: the softmax's exp, the Gumbel draw's two logs per
   logit, one rsqrt per row a norm, one exp per SiLU element (XLA's CPU
   lowering of the logistic), none for a square (a multiply in HLO).
-- ``roofline_terms`` is the reference's formula at the H100 constants.
+- ``roofline_terms`` is the reference's formula at the H100 constants
+  (its collective term at the NVLink rate, 900 GB/s).
 - The kernels' reckonings, at the main-path shapes and data ``chip_smoke.py``
   times them at (the same seeded draws), reproduce ``PERF.md`` §6's bound
   column to its printed digits.
@@ -78,12 +79,15 @@ def test_roofline_terms_are_the_reference_formula(jaxpkg, monkeypatch):  # noqa:
 
     monkeypatch.setattr(jroofline, "PEAK_FLOPS", 989e12)
     monkeypatch.setattr(jroofline, "HBM_BW", 3.35e12)
+    monkeypatch.setattr(jroofline, "LINK_BW", 900e9)  # H100 NVLink
     rng = np.random.default_rng(0)
-    for _ in range(20):
+    for i in range(20):
         rec = {
             "flops_per_device": float(rng.uniform(0, 1e13)),
             "bytes_per_device": float(rng.uniform(0, 1e10)),
-            "collective_bytes_per_device": {},
+            "collective_bytes_per_device": {} if i % 2 else {
+                "all-reduce": float(rng.uniform(0, 1e10)),
+                "all-gather": float(rng.uniform(0, 1e9))},
             "chips": 1,
             "model_flops": float(rng.uniform(0, 1e13)),
             "min_bytes_global": float(rng.uniform(0, 1e10)),

@@ -23,9 +23,10 @@ tokens, every other one sampled), one torch thread.
   heads, the heads and the MLP whole, and split the table's d_model).
 * The launcher's ``--mesh 1x2 --meshes "1x1 2x2"`` serves; the dense
   engine, speculation and int8 pools warm on a multi-device ladder
-  (``tests/test_torch_mesh_lanes.py`` holds them to the JAX package); what
-  still waits for ROADMAP A12 part 3 raises naming it; a plan across
-  distinct devices raises.
+  (``tests/test_torch_mesh_lanes.py`` holds them to the JAX package), and
+  so do disaggregation beside a multi-device plan and the capture report
+  of a multi-device key; what still waits for ROADMAP A12 part 3 raises
+  naming it; a plan across distinct devices raises.
 """
 
 from __future__ import annotations
@@ -307,10 +308,13 @@ def test_one_step_logits_at_1x2_and_2x2_equal_1x1(tparams, variant):
 def test_out_of_scope_lanes_raise_naming_part3(cfg, tparams):
     """The dense engine, speculation and int8 pools on a ladder with a
     multi-device plan serve (ROADMAP A12 part 3, items 1-2: every lane
-    warmed at every mesh). What still waits for A12 part 3 is refused
-    before anything is warmed, naming it: disaggregation beside a
-    multi-device plan, a non-dense family, a plan across distinct devices;
-    and the capture report of a multi-device plan's key says so."""
+    warmed at every mesh), and so does disaggregation beside a
+    multi-device plan (item 3: the ``mg`` targets of every slice warmed;
+    ``tests/test_torch_disagg_mesh.py`` holds its streams to the JAX
+    package), with a capture report of every multi-device key (its
+    collectives' bytes; ``tests/test_torch_capture_mesh.py``). What still
+    waits for A12 part 3 is refused before anything is warmed, naming it:
+    a non-dense family, a plan across distinct devices."""
     served = [
         (dict(meshes=("1x2",)), "continuous", ("cb", 4, "1x2")),
         (dict(meshes=("1x2",), spec_k=2), "paged_continuous",
@@ -325,9 +329,11 @@ def test_out_of_scope_lanes_raise_naming_part3(cfg, tparams):
             assert eng.post_warmup_compiles == 0
     with _engine(cfg, tparams, devices=CPU4,
                  meshes=("1x1@1", "1x2")) as eng:
-        with pytest.raises(NotImplementedError, match="A12 part 3"):
-            eng.paged_continuous(slots=4, disagg="1x1@1")
-        assert len(eng._decode) == 0
+        cb = eng.paged_continuous(slots=4, disagg="1x1@1")
+        assert cb.disagg and eng.post_warmup_compiles == 0
+        for m in ("1x1", "1x1@1", "1x2"):
+            for op in ("gather", "scatter"):
+                assert ("mg", op, "fp32", m) in eng._decode, (op, m)
     moe = get_config("granite-moe-1b-a400m").smoke()
     with Engine(moe, models.init_params(moe, seed=0),
                 EngineConfig(**BASE, meshes=("1x2",), devices=CPU4),
@@ -346,7 +352,9 @@ def test_out_of_scope_lanes_raise_naming_part3(cfg, tparams):
                 device="cpu") as eng:
         eng.paged_continuous(slots=4)
         reports = eng.telemetry.compile_reports
-    assert reports and all("A12 part 3" in r["error"] for r in reports)
+    assert reports and not any("error" in r for r in reports)
+    assert all(r["chips"] == 2 and r["collectives"]["all-reduce"] > 0
+               for r in reports)
 
 
 def test_launcher_serves_a_mesh(tmp_path):

@@ -65,7 +65,7 @@ def test_names_and_plans_parse_as_the_reference(jshd, name):
 
 @pytest.mark.parametrize("pair", [
     ("1x1@1", "1x1"), ("1x1", "1x1"), ("1x2@1", "1x1"), ("1x1@2", "2x1"),
-    ("1,1@1", "1,1"), ("1x2@2", "1x2"),
+    ("1,1@1", "1,1"), ("1x2@2", "1x2"), ("1x2@1", "1x2"), ("1x1@1", "2x1"),
 ])
 def test_disagg_plan_overlap_as_the_reference(jshd, pair):
     t = _outcome(lambda: tshd.DisaggPlan(*pair))
@@ -77,7 +77,8 @@ def test_disagg_plan_overlap_as_the_reference(jshd, pair):
         assert t[1] is j[1] is ValueError
 
 
-@pytest.mark.parametrize("base", ["2x1", "3x2", "2x2@1", "1x1", "1x4"])
+@pytest.mark.parametrize("base", ["2x1", "3x2", "2x2@1", "1x1", "1x4",
+                                  "2x2", "3x1"])
 def test_disagg_split_as_the_reference(jshd, base):
     t = _outcome(tshd.DisaggPlan.split, base)
     j = _outcome(jshd.DisaggPlan.split, base)
@@ -86,6 +87,17 @@ def test_disagg_split_as_the_reference(jshd, base):
         assert (t[1].prefill, t[1].decode) == (j[1].prefill, j[1].decode)
     else:
         assert t[1] is j[1]
+
+
+@pytest.mark.parametrize("base,want", [
+    ("2x2", ("1x2@2", "1x2")), ("3x1", ("1x1@2", "2x1")),
+    ("2x1", ("1x1@1", "1x1")),
+])
+def test_disagg_split_of_a_multi_device_base(base, want):
+    """The splits the multi-device disaggregation serves
+    (``tests/test_torch_disagg_mesh.py``): the last data row prefills."""
+    plan = tshd.DisaggPlan.split(base)
+    assert (plan.prefill, plan.decode) == want
 
 
 @pytest.fixture(scope="module")
