@@ -345,6 +345,28 @@ Phases (any failure exits non-zero before a result is printed):
    its reckoned bytes; then phase 11's inert arm (sync) and its flood in
    two arms (``_flood_arms_equal``) on ``mesh="1x2"``.
 
+17. Training on a mesh of logical devices (after phase 12): olmo-1b at
+   full width and depth (bf16, remat "block"), phase 12's batch of 8 x
+   512, the sharded train step (``steps.lower_for`` of a train shape:
+   FSDP over "data", TP over "model", the batch over the data rows) at
+   1x1, 1x2 and 2x2 on logical devices of this card
+   (``make_debug_mesh``: ``cuda:0`` at every coordinate, no CPU
+   fallback), 3 steps each with phase 12's optimizer (peak_lr 1e-3, so
+   the first step moves bf16 weights): the first loss and grad_norm = the
+   one-device ``make_train_fn``'s within 1e-2 relative; after one step
+   each leaf's unsharded mu within 1e-1 (relative L2) of 1x1's and its
+   params differing from 1x1's in at most 12% of its elements; every
+   replica of a piece and every step counter equal bit for bit; losses
+   and grad norms finite; the step ms by CUDA events, the peak against
+   the reckoned bytes, and one more step counted
+   (``capture_analysis.analyze_step``: a device's flops and collective
+   bytes by op type). B1-B8 and ``sample_rows`` launch 0 times (training
+   runs cuBLAS and the plain attention). The fp32 smoke config's step at
+   2x2 on the card = the CPU's at 1x1 within 2e-4 relative (loss, params,
+   moments); the elastic re-mesh on a 2-layer fp32 cut: a step at 2x2,
+   save, restore (= the saved state bit for bit), place onto 1x2, a step
+   = two uninterrupted steps at 1x1 within 2e-4 (loss, params, moments).
+
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
 """
@@ -5576,6 +5598,380 @@ def train_phase() -> dict:
     return dict(full, seconds=time.perf_counter() - t0)
 
 
+# -------------------- phase 17 (training on a mesh of logical devices)
+# olmo-1b at full width and depth (bf16, remat "block"), phase 12's batch of
+# 8 x 512: the sharded train step (FSDP over "data", TP over "model") at
+# 1x1, 1x2 and 2x2 on logical devices of this card, held to the one-device
+# make_train_fn and, leaf by leaf after one step, to 1x1; the fp32 smoke
+# config at 2x2 held to the CPU at 1x1; the elastic re-mesh on a 2-layer
+# fp32 cut.
+TRAIN_MESHES = ((1, 1), (1, 2), (2, 2))
+MESH_TRAIN_STEPS = 3
+# bf16: the same function with its sums in other orders (the TP shards'
+# partial products, the vocab-parallel logsumexp); the first loss and the
+# first step's grad_norm (before the clip: a reduction done twice doubles it)
+TRAIN_MESH_LOSS_RTOL = 1e-2
+# bf16, after one step, each leaf against 1x1's. mu (0.1 of the clipped
+# gradient) as ||mu - mu_1x1|| / ||mu_1x1||: the same bf16 gradient summed in
+# other orders; a data row's part lost, or a reduction missing, moves it by
+# ~0.5 or more. The params as the share of a leaf's elements that differ:
+# both start from the same bf16 weights and Adam's first step is lr·g/(|g| +
+# eps) ≈ ±lr plus the same decay, so an element differs only where the
+# gradient's sign is in doubt (|g| at its rounding noise, or near eps: many
+# of w_down's elements, 4% of block 0's on an H100); a leaf stepped twice, or
+# by a wrong gradient, differs in a quarter of its elements or more
+TRAIN_MESH_MU_RTOL = 1e-1
+TRAIN_MESH_PARAM_SHARE = 0.12
+# fp32: the JAX package's own tolerance for a sharded step
+MESH_FP32_RTOL = 2e-4
+
+
+def _reckoned_mesh_train_bytes(cfg, batch: int, seq: int, dp: int,
+                               mp: int) -> dict:
+    """The peak of one sharded step, reckoned before the run: the state's
+    pieces (bf16 params, f32 mu and nu: no leaf of olmo-1b is replicated
+    at these meshes), the seeded weights kept to place every mesh, each
+    coordinate's weights gathered over "data" (whole over the data axis:
+    dp copies of the model in all) and their gradients, the reduced
+    gradient pieces, and the activations: under remat "block" each period's
+    input kept on every model shard (mp replicas of [B, S, D]), one period
+    recomputed for one row at a time (its naive attention's f32 scores,
+    mask add, exp and probabilities, [B/dp, H, S, S] each over the row's
+    shards, and its MLP's three [B/dp, S, F] products), and the
+    vocab-parallel head's f32 logits, their exp and their gradient
+    ([B, S, V] f32 each over the shards) and the product at the model
+    dtype."""
+    el = 2 if cfg.dtype == "bfloat16" else 4
+    n = _weight_bytes(cfg) // el
+    tok = batch * seq
+    return {
+        "state": n * el + 2 * n * 4,
+        "seeded weights": n * el,
+        "gathered weights and gradients": 2 * dp * n * el,
+        "reduced gradients": n * el,
+        "activations": (mp * cfg.num_layers * tok * cfg.d_model * el
+                        + 4 * (batch // dp) * cfg.num_heads * seq * seq * 4
+                        + 3 * (tok // dp) * cfg.d_ff * el
+                        + tok * cfg.vocab_size * (3 * 4 + el)),
+    }
+
+
+def _joined_leaves(state):
+    """Each leaf of a sharded state's params and mu, joined one at a time:
+    yields ("params" or "mu", key, the global tensor on the card)."""
+    from repro_torch.distributed import sharding as shd
+
+    p_spec, mu_spec = state.specs
+    for tree, specs, name in ((state.params, p_spec, "params"),
+                              (state.opt.mu, mu_spec, "mu")):
+        for k, pieces in tree.items():
+            yield name, k, shd.unshard(pieces, specs[k], state.mesh)
+
+
+def _check_replicas(state) -> int:
+    """The number of leaf pieces that have replicas, after checking every
+    replica equal to the first bit for bit, and every coordinate's step
+    counter equal."""
+    from repro_torch.distributed import sharding as shd
+
+    mesh = state.mesh
+    replicated = 0
+    p_spec, mu_spec = state.specs
+    for tree, specs in ((state.params, p_spec), (state.opt.mu, mu_spec),
+                        (state.opt.nu, mu_spec)):
+        for k, pieces in tree.items():
+            seen: dict = {}
+            for c, t in pieces.items():
+                split = {a for e in specs[k] for a in shd.spec_axes(e)}
+                key = tuple(c[i] for i, a in enumerate(mesh.axis_names)
+                            if a in split)
+                seen.setdefault(key, []).append(t)
+            for ts in seen.values():
+                if len(ts) > 1:
+                    replicated += len(ts)
+                    check(all(torch.equal(t, ts[0]) for t in ts[1:]),
+                          f"train mesh {mesh.shape}: replicas of {k} differ")
+    steps_ = {int(t) for t in state.opt.step.values()}
+    check(len(steps_) == 1, f"train mesh: step counters differ: {steps_}")
+    return replicated
+
+
+def _first_step_vs(state, base: dict | None) -> tuple[dict, dict]:
+    """After one step: with ``base`` None, every leaf's params and mu
+    joined onto the host (1x1's, the base); else each leaf held against the
+    base (mu by TRAIN_MESH_MU_RTOL, params by TRAIN_MESH_PARAM_SHARE) ->
+    (the base, the worst of each check with its leaf)."""
+    if base is None:
+        return {(n, k): t.cpu() for n, k, t in _joined_leaves(state)}, {}
+    worst = {"mu": (0.0, ""), "params": (0.0, "")}
+    for name, k, t in _joined_leaves(state):
+        want = base[name, k].to(t.device)
+        if name == "mu":
+            gap = float(torch.linalg.vector_norm(t - want)
+                        / torch.linalg.vector_norm(want).clamp(min=1e-30))
+        else:
+            gap = float((t != want).float().mean())
+        worst[name] = max(worst[name], (gap, k))
+        del t, want
+    name = f"train mesh {state.mesh.shape}"
+    check(worst["mu"][0] <= TRAIN_MESH_MU_RTOL,
+          f"{name}: mu after one step differs from 1x1's by {worst['mu']} "
+          f"(relative, limit {TRAIN_MESH_MU_RTOL})")
+    check(worst["params"][0] <= TRAIN_MESH_PARAM_SHARE,
+          f"{name}: params after one step differ from 1x1's in a share "
+          f"{worst['params']} (limit {TRAIN_MESH_PARAM_SHARE})")
+    return base, worst
+
+
+def _train_mesh_full_width() -> dict:
+    """olmo-1b at full width and depth: the sharded step at each mesh."""
+    from repro_torch import capture_analysis, kernels, models
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = get_config("olmo-1b")
+    _release_engines()
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    params = models.init_params(cfg, seed=0, device="cuda")
+    batch = _device_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    one = _fresh_state(cfg, params={k: v.clone() for k, v in params.items()})
+    one, m = steps.make_train_fn(cfg, opt)(one, batch)
+    want, want_norm = float(m["loss"]), float(m["grad_norm"])
+    del one, m
+    _release_engines()
+    shape = ShapeSpec("phase17", "train", TRAIN_SEQ, TRAIN_BATCH)
+    out, base = {"meshes": {}}, None
+    kernels.reset_launch_counts()  # the path's run starts here
+    for dp, mp in TRAIN_MESHES:
+        name = f"{dp}x{mp}"
+        mesh = make_debug_mesh((dp, mp))  # cuda:0 at every coordinate
+        state = steps.place_train_state(cfg, _fresh_state(cfg, params=params),
+                                        mesh)
+        exe = steps.lower_for(cfg, mesh, shape, opt_cfg=opt).compile()
+        _release_engines()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i in range(MESH_TRAIN_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            state, m = exe(state, batch)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            check(_finite(m["loss"]) and _finite(m["grad_norm"]),
+                  f"train mesh {name}: step {i + 1} loss {losses[-1]}")
+            if i == 0:
+                rel = abs(losses[0] - want) / abs(want)
+                norm = float(m["grad_norm"])
+                norm_rel = abs(norm - want_norm) / want_norm
+                lr1 = float(m["lr"])
+                check(rel <= TRAIN_MESH_LOSS_RTOL
+                      and norm_rel <= TRAIN_MESH_LOSS_RTOL,
+                      f"train mesh {name}: first loss {losses[0]:.6f}, "
+                      f"grad_norm {norm:.6f}; one device {want:.6f}, "
+                      f"{want_norm:.6f} (relative {rel:.3g}, {norm_rel:.3g}, "
+                      f"limit {TRAIN_MESH_LOSS_RTOL})")
+                check(lr1 > 0, f"train mesh {name}: the step's lr is {lr1}")
+                base, worst = _first_step_vs(state, base)
+                # the check's joins out of the steps' peak
+                _release_engines()
+                torch.cuda.reset_peak_memory_stats()
+        peak = torch.cuda.max_memory_allocated()
+        replicated = _check_replicas(state)
+        rep = capture_analysis.analyze_step(exe, (state, batch), mesh=mesh)
+        reck = _reckoned_mesh_train_bytes(cfg, TRAIN_BATCH, TRAIN_SEQ, dp, mp)
+        out["meshes"][name] = dict(
+            step_ms=statistics.median(ms[1:]), ms=ms, losses=losses,
+            peak=peak, reckoned=reck, first=worst, grad_norm=norm,
+            collectives=rep["collectives"], flops=rep["flops"],
+            mem=rep["mem"])
+        vs = ("the base of the checks" if not worst else
+              f"mu relative {worst['mu'][0]:.3g} at {worst['mu'][1]} (limit "
+              f"{TRAIN_MESH_MU_RTOL}), params differing in a share "
+              f"{worst['params'][0]:.3g} at {worst['params'][1]} (limit "
+              f"{TRAIN_MESH_PARAM_SHARE})")
+        log(f"[train-mesh:olmo-1b] {name}: FSDP over data x TP over model on "
+            f"logical devices of this card, bf16, {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}, {MESH_TRAIN_STEPS} steps (peak_lr "
+            f"{opt.peak_lr:g}, step 1's lr {lr1:.3g}): losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f" (one device's first {want:.4f}) | step 1's grad_norm "
+            f"{norm:.6f} (one device's {want_norm:.6f}) | after one step vs "
+            f"1x1: {vs} | "
+            + (f"{replicated} replicated pieces equal bit for bit"
+               if replicated else "no leaf replicated at this mesh")
+            + f", step counters equal on {mesh.size} coordinates | step ms "
+            f"(CUDA events) median {out['meshes'][name]['step_ms']:.3f} of "
+            f"steps 2-{MESH_TRAIN_STEPS} (all: "
+            + ", ".join(f"{x:.1f}" for x in ms)
+            + f") | peak of steps 2-{MESH_TRAIN_STEPS} {peak / 1e9:.2f} GB, "
+            f"reckoned {sum(reck.values()) / 1e9:.2f} GB ("
+            + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in reck.items())
+            + f") | one more step counted: {rep['flops'] / 1e12:.4f} TFLOP a "
+            f"device, collective bytes a device "
+            + (", ".join(f"{op} {n / 1e6:.3f} MB"
+                         for op, n in rep["collectives"].items()) or "none")
+            + f"; mem {rep['mem']} | {_card()}")
+        del state, exe, m
+        _release_engines()
+    out["launches"] = _launches("train mesh (phase 17)", ())
+    del params, base, batch
+    _release_engines()
+    return out
+
+
+def _mesh_smoke_batch(dev: str) -> dict:
+    """8 x 32 tokens of a numpy seed, pads spread unevenly over the rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    tok = rng.integers(0, 256, (8, 32)).astype(np.int32)
+    lab = tok.copy()
+    lab[0, 5:] = -1
+    lab[3, 20:] = -1
+    lab[6, :] = -1
+    return {"inputs": torch.from_numpy(tok).to(dev),
+            "labels": torch.from_numpy(lab).to(dev)}
+
+
+def _leaf_gap(a: dict, b: dict) -> float:
+    """The largest |a - b| of a leaf relative to its largest |b|."""
+    return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max())
+               / max(float(b[k].float().abs().max()), 1e-30) for k in b)
+
+
+def _train_mesh_smoke() -> None:
+    """The fp32 smoke config: one sharded step at 2x2 on the card = the
+    CPU's at 1x1 (loss, params, mu, nu)."""
+    from repro_torch import models
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime import steps
+
+    cfg = get_config("olmo-1b").smoke()
+    params = models.init_params(cfg, seed=0)
+    shape = ShapeSpec("smoke", "train", 32, 8)
+    runs = {}
+    for dev, mesh in (("cpu", make_debug_mesh((1, 1), devices=["cpu"])),
+                      ("cuda", make_debug_mesh((2, 2)))):
+        state = steps.place_train_state(
+            cfg, _fresh_state(cfg, params={k: v.to(dev).clone()
+                                           for k, v in params.items()}),
+            mesh)
+        state, m = steps.lower_for(cfg, mesh, shape).compile()(
+            state, _mesh_smoke_batch(dev))
+        runs[dev] = (float(m["loss"]), fsdp.unshard_state(state, "cpu"))
+    (cl, cs), (gl, gs) = runs["cpu"], runs["cuda"]
+    rel = abs(gl - cl) / abs(cl)
+    gaps = {"params": _leaf_gap(gs.params, cs.params),
+            "mu": _leaf_gap(gs.opt.mu, cs.opt.mu),
+            "nu": _leaf_gap(gs.opt.nu, cs.opt.nu)}
+    check(rel <= MESH_FP32_RTOL and max(gaps.values()) <= MESH_FP32_RTOL,
+          f"train mesh smoke: card 2x2 loss {gl} vs CPU 1x1 {cl}, state "
+          f"{gaps}")
+    log(f"[train-mesh:smoke] olmo-1b smoke (fp32): one sharded step at 2x2 "
+        f"on the card = the CPU's at 1x1: loss {gl:.6f} vs {cl:.6f} "
+        f"(relative {rel:.3g}), state relative "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f" (limit {MESH_FP32_RTOL})")
+
+
+def _train_mesh_elastic() -> None:
+    """A 2-layer fp32 cut at olmo-1b's widths: step at 2x2, save, restore
+    (= the saved state bit for bit), place onto 1x2, step = two
+    uninterrupted steps at 1x1 (loss, params, mu, nu)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch import models
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime import steps
+
+    cfg = dataclasses.replace(
+        _depth_cut(get_config("olmo-1b"), 2, "train-mesh"),
+        dtype="float32")
+    params = models.init_params(cfg, seed=0, device="cuda")
+    batch = _device_batch(cfg, 4, 128)
+    shape = ShapeSpec("elastic", "train", 128, 4)
+
+    def placed(dp: int, mp: int, state=None):
+        mesh = make_debug_mesh((dp, mp))
+        state = state or _fresh_state(cfg, params={k: v.clone() for k, v in
+                                                   params.items()})
+        return (steps.place_train_state(cfg, state, mesh),
+                steps.lower_for(cfg, mesh, shape).compile())
+
+    state, exe = placed(1, 1)
+    for _ in range(2):
+        state, m = exe(state, batch)
+    want = float(m["loss"])
+    want_state = _train_leaves(fsdp.unshard_state(state, "cpu"))
+    del state, exe
+    tmp = Path(tempfile.mkdtemp(prefix="repro-torch-elastic-"))
+    try:
+        state, exe = placed(2, 2)
+        state, _ = exe(state, batch)
+        saved = fsdp.unshard_state(state, "cpu")
+        mgr = CheckpointManager(tmp, async_write=False)
+        t0 = time.perf_counter()
+        mgr.save(1, state)
+        t_save = time.perf_counter() - t0
+        del state, exe
+        template = _fresh_state(cfg, device="cpu", params={
+            k: torch.empty(v.shape, dtype=v.dtype) for k, v in params.items()})
+        step, restored = mgr.restore(template)
+        check(step == 1, f"train mesh elastic: restored step {step}")
+        back = _train_leaves(restored)
+        differ = [k for k, v in _train_leaves(saved).items()
+                  if not torch.equal(back[k], v)]
+        check(not differ, f"train mesh elastic: the restored state differs "
+              f"from the saved 2x2 state in {differ[:4]}")
+        del saved, back
+        state, exe = placed(1, 2, restored)
+        state, m = exe(state, batch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = float(m["loss"])
+    rel = abs(got - want) / abs(want)
+    have = _train_leaves(fsdp.unshard_state(state, "cpu"))
+    gaps = {t: _leaf_gap({k: v for k, v in have.items()
+                          if k.startswith(t + "/")},
+                         {k: v for k, v in want_state.items()
+                          if k.startswith(t + "/")})
+            for t in ("params", "mu", "nu")}
+    check(rel <= MESH_FP32_RTOL and max(gaps.values()) <= MESH_FP32_RTOL,
+          f"train mesh elastic: 2x2 + save + restore + 1x2 loss {got} vs "
+          f"uninterrupted {want}, state {gaps}")
+    log(f"[train-mesh:elastic] 2-layer cut, fp32, 4 x 128: a step at 2x2, "
+        f"save ({t_save:.2f}s), restore (params, mu, nu and step = the saved "
+        f"state bit for bit), place onto 1x2, a step = two uninterrupted "
+        f"steps at 1x1: loss {got:.6f} vs {want:.6f} (relative {rel:.3g}), "
+        f"state relative " + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f" (limit {MESH_FP32_RTOL})")
+    del state, exe, params, have, want_state
+    _release_engines()
+
+
+def train_mesh_phase() -> dict:
+    """Phase 17 (module docstring)."""
+    t0 = time.perf_counter()
+    out = _train_mesh_full_width()
+    _train_mesh_smoke()
+    _train_mesh_elastic()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train-mesh] phase 17 passed in {out['seconds']:.1f}s | {_card()}")
+    return out
+
+
 # ----------------------- phase 13 (the mesh coordinate, disagg, the report)
 # olmo-1b at full width (bf16), 8 slots, page 16, chunk 64, max_len 1024;
 # the decode mesh "1x1" and the prefill slice "1x1@1", both on this card
@@ -6959,12 +7355,14 @@ def main() -> int:
     t12 = t_c13 + train["seconds"]
     log(f"[train] phase 12 passed in {t12:.1f}s (C13 {t_c13:.1f}s, training "
         f"{train['seconds']:.1f}s) | {_card()}")
+    train_mesh = train_mesh_phase()
     paths["c13 two batchers (phase 12)"] = c13_launches
     paths.update({f"{k} (phase 13)": v for k, v in disagg["paths"].items()})
     paths.update(mesh["paths"])
     paths.update(lanes["paths"])
     paths.update(split["paths"])
     paths["train (phase 12)"] = train["launches"]
+    paths["train mesh (phase 17)"] = train_mesh["launches"]
     for row in rows:
         if row["name"] in new:
             row["new_shapes"] = new[row["name"]]
@@ -6988,7 +7386,8 @@ def main() -> int:
         f"phase 14 (meshes of more than one device) {mesh['seconds']:.1f}s; "
         f"phase 15 (every lane on those meshes) {lanes['seconds']:.1f}s; "
         f"phase 16 (splits over meshes, overload on a plan) "
-        f"{split['seconds']:.1f}s; before phase 8: "
+        f"{split['seconds']:.1f}s; phase 17 (training on meshes) "
+        f"{train_mesh['seconds']:.1f}s; before phase 8: "
         + ", ".join(f"{k} {v:.1f}s" for k, v in spans.items()))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,12 +45,36 @@ Each hand-written kernel's wrapper (``counted``) adds its reckoning
 the CPU, its launch on the card) are not also counted. So one key gives the
 same report on the CPU and on the card. A failure is folded into an
 ``{"error": ...}`` report: analysis never breaks a build.
+
+**A step that takes a gradient** (``analyze_step``: the mesh train step of
+``runtime.steps.lower_train``, and the dry run's prefill and decode). It
+runs as the step asks (no ``torch.no_grad()`` around it), and a failure
+raises. Autograd runs the backward inside ``torch.autograd.grad``, which
+the step calls inside its ``spread`` region, so the backward counts 1/
+devices to a device as its forward does. It adds ``mem``, the JAX
+package's ``memory_analysis()`` fields under the port's conventions (not
+XLA's buffer assignment):
+
+* ``argument_bytes`` / ``output_bytes`` — the bytes the busiest coordinate
+  holds of the step's arguments and outputs, exactly: its pieces, its
+  piece of each global tensor by the spec the lowering gives it (the batch
+  split over the rows), and a tensor without one whole on the first
+  coordinate (the metrics, the gathered logits);
+* ``temp_bytes`` — the peak of live intermediate storage (every op's
+  outputs that are not an argument's storage, until the storage is freed,
+  as a dispatch-mode tracker sees them), a storage made inside a
+  ``spread`` region counted 1/devices as its ops are: every coordinate
+  there runs the same ops on equal pieces, and on ``meta`` devices each
+  holds its own copy of a collective's result;
+* ``code_bytes`` — 0 (no generated code).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import math
+import weakref
 from collections import defaultdict
 from typing import Any, Callable, Mapping
 
@@ -76,6 +100,7 @@ class _Counter(TorchDispatchMode):
         self.bytes = 0
         self.transcendentals = 0
         self.paused = 0
+        self.ops: dict = defaultdict(lambda: [0, 0])  # name -> calls, bytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -86,8 +111,11 @@ class _Counter(TorchDispatchMode):
             nbytes += t.numel() * t.element_size()
         self.bytes += nbytes
         name = func._overloadpacket.__name__
+        self.ops[name][0] += 1
+        self.ops[name][1] += nbytes
         per = _TRANSCENDENTAL.get(name)
-        if name == "pow" and len(args) > 1 and args[1] == 2:
+        if (name == "pow" and len(args) > 1
+                and isinstance(args[1], (int, float)) and args[1] == 2):
             per = 0  # a square
         if per:
             self.transcendentals += per * sum(
@@ -115,6 +143,7 @@ class _Analysis:
         # coordinate -> op type -> result bytes
         self.collectives: dict = defaultdict(lambda: defaultdict(float))
         self.spread: list[tuple[int, tuple]] = []  # (devices, totals' delta)
+        self.devices = 1  # the open ``spread`` region's devices
 
     def totals(self) -> tuple:
         """(flops, bytes, transcendentals, kernel flops, kernel bytes) so
@@ -200,12 +229,33 @@ def spread(devices: int):
     if a is None or a.counter.paused or devices == 1:
         yield
         return
+    if a.devices != 1:
+        raise RuntimeError("spread regions do not nest")
     before = a.totals()
+    a.devices = devices
     try:
         yield
     finally:
+        a.devices = 1
         a.spread.append((devices, tuple(
             y - x for x, y in zip(before, a.totals()))))
+
+
+def _report(a: _Analysis) -> dict:
+    flops, nbytes, trans, kflops, kbytes = a.per_device()
+    busiest = max(a.collectives.values(), key=lambda ops: sum(
+        ops.values()), default={})
+    colls = {op: float(n) for op, n in sorted(busiest.items())}
+    return {
+        "flops": float(flops),
+        "bytes": float(nbytes),
+        "transcendentals": float(trans),
+        "collectives": colls,
+        "collective_bytes_total": float(sum(colls.values())),
+        "unknown_trip_whiles": 0,
+        "kernel_flops": float(kflops),
+        "kernel_bytes": float(kbytes),
+    }
 
 
 def analyze_target(step: Callable, *args: Any) -> dict:
@@ -220,22 +270,116 @@ def analyze_target(step: Callable, *args: Any) -> dict:
                 step(*args)
         finally:
             _ACTIVE = None
-        flops, nbytes, trans, kflops, kbytes = a.per_device()
-        busiest = max(a.collectives.values(), key=lambda ops: sum(
-            ops.values()), default={})
-        colls = {op: float(n) for op, n in sorted(busiest.items())}
-        return {
-            "flops": float(flops),
-            "bytes": float(nbytes),
-            "transcendentals": float(trans),
-            "collectives": colls,
-            "collective_bytes_total": float(sum(colls.values())),
-            "unknown_trip_whiles": 0,
-            "kernel_flops": float(kflops),
-            "kernel_bytes": float(kbytes),
-        }
+        return _report(a)
     except Exception as exc:  # noqa: BLE001 - report, never break a build
         return {"error": f"{type(exc).__name__}: {exc}"}
+
+
+class _Live(TorchDispatchMode):
+    """The live bytes of op outputs (storages that are no argument's, each
+    once, until it is freed) and their peak, for one device: a storage made
+    inside a ``spread`` region counts 1/devices, as its ops do."""
+
+    def __init__(self, args: Any) -> None:
+        super().__init__()
+        self.live = self.peak = 0
+        self._held: set = set()
+        self._args = {t.untyped_storage()._cdata for t in _tensors(args)}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ins = {t.untyped_storage()._cdata for t in _tensors((args, kwargs))}
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in ins or key in self._args or key in self._held:
+                continue
+            share = st.nbytes() / (_ACTIVE.devices if _ACTIVE else 1)
+            self._held.add(key)
+            self.live += share
+            weakref.finalize(st, self._free, key, share)
+        self.peak = max(self.peak, self.live)
+        return out
+
+    def _free(self, key: int, share: float) -> None:
+        self._held.discard(key)
+        self.live -= share
+
+
+def piece_bytes(tree: Any, mesh, specs: Any = None) -> dict:
+    """The bytes each coordinate of ``mesh`` holds of ``tree``: a mapping
+    from coordinate to pieces, and a ``ShardedCache``'s ``shards``, count
+    at their coordinates; a tensor whose place in ``specs`` (a structure
+    parallel to ``tree``) is a spec counts its piece at every coordinate
+    (``()``: replicated); any other tensor counts whole at the first."""
+    from repro_torch.distributed.sharding import local_shape
+
+    out = {c: 0 for c in mesh.coords()}
+    first = mesh.coords()[0]
+
+    def at(node: Any, c: tuple) -> None:
+        out[c] += sum(t.numel() * t.element_size() for t in _tensors(node))
+
+    def walk(node: Any, spec: Any) -> None:
+        if isinstance(node, torch.Tensor):
+            if spec is None:
+                at(node, first)
+                return
+            n = math.prod(local_shape(node.shape, spec, mesh))
+            for c in out:
+                out[c] += n * node.element_size()
+        elif hasattr(node, "shards") and hasattr(node, "mesh"):
+            for c, pieces in node.shards.items():
+                at(pieces, c)
+        elif isinstance(node, Mapping) and node and all(k in out
+                                                        for k in node):
+            for c, pieces in node.items():
+                at(pieces, c)
+        elif isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, spec.get(k) if isinstance(spec, Mapping) else None)
+        elif isinstance(node, (list, tuple)):
+            parallel = (isinstance(spec, (list, tuple))
+                        and len(spec) == len(node))
+            for i, v in enumerate(node):
+                walk(v, spec[i] if parallel else None)
+
+    walk(tree, specs)
+    return out
+
+
+def analyze_step(step: Callable, args: tuple, *, mesh,
+                 arg_specs: Any = None, op_table: bool = False) -> dict:
+    """Run ``step(*args)`` once, as it asks (a gradient may be taken), under
+    the counters and the live-storage tracker -> the report of
+    ``analyze_target`` with ``mem`` (module docstring), and with
+    ``op_table`` the counted ops by name (``{name: {"calls", "bytes",
+    "flops"}}``, every coordinate's, before ``spread``'s 1/devices). Raises
+    what the step raises."""
+    global _ACTIVE
+    a = _Analysis()
+    live = _Live(args)
+    _ACTIVE = a
+    try:
+        with a.flop_mode, a.counter, live:
+            out = step(*args)
+    finally:
+        _ACTIVE = None
+    rep = _report(a)
+    rep["mem"] = {
+        "argument_bytes": max(piece_bytes(args, mesh, arg_specs).values()),
+        "output_bytes": max(piece_bytes(out, mesh).values()),
+        "temp_bytes": int(live.peak),
+        "code_bytes": 0,
+    }
+    if op_table:
+        flops = {str(getattr(op, "__name__", op)): n for op, n in
+                 a.flop_mode.get_flop_counts().get("Global", {}).items()}
+        rep["op_table"] = {
+            name: {"calls": calls, "bytes": nbytes,
+                   "flops": flops.get(name, 0)}
+            for name, (calls, nbytes) in sorted(a.counter.ops.items())}
+    return rep
 
 
 # ------------------------------------------- the wrappers' static extents

@@ -8,6 +8,13 @@ Layout::
         host_0000.npz        flat {path: array} of the whole state
         META.json            {"step": ..., "ts": ..., **meta}
 
+Each host writes and reads its own ``host_{host_id:04d}.npz``
+(``CheckpointManager(host_id=, num_hosts=)``, as the JAX package names it).
+A state sharded over a mesh (``distributed.fsdp.ShardedTrainState``) is
+saved as its joined, unsharded arrays, as the JAX package's
+``jax.device_get`` saves a sharded state: so a checkpoint restores onto any
+mesh (``runtime.steps.place_train_state``), the elastic re-mesh.
+
 Keys are the JAX package's ``_flatten`` names of the same state: a
 ``TrainState``'s params are ``.params/blocks/0/attn/wk`` (the port's key
 ``blocks.0.attn.wk``), its moments ``.opt/.mu/...`` and ``.opt/.nu/...`` and
@@ -35,8 +42,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-# One host writes the whole state; the JAX package's single-host file name.
-_HOST_FILE = "host_0000.npz"
+from repro_torch.distributed.fsdp import ShardedTrainState, unshard_state
 
 
 def _walk(node: Any, path: str, leaf: Callable[[str, Any], Any]) -> Any:
@@ -74,7 +80,10 @@ def _to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def flatten(state: Any) -> dict[str, np.ndarray]:
-    """The state as ``{JAX path: numpy array}`` on the host."""
+    """The state as ``{JAX path: numpy array}`` on the host (a sharded
+    state's joined arrays)."""
+    if isinstance(state, ShardedTrainState):
+        state = unshard_state(state, device="cpu")
     flat: dict[str, np.ndarray] = {}
 
     def put(key: str, t: torch.Tensor) -> None:
@@ -102,14 +111,22 @@ class CheckpointManager:
         self,
         directory: str | Path,
         *,
+        host_id: int = 0,
+        num_hosts: int = 1,
         keep: int = 3,
         async_write: bool = True,
     ):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.keep = keep
         self.async_write = async_write
         self._pending: threading.Thread | None = None
+
+    @property
+    def _host_file(self) -> str:
+        return f"host_{self.host_id:04d}.npz"
 
     # ----------------------------------------------------------------- save
     def save(self, step: int, state: Any, *, meta: dict | None = None) -> None:
@@ -128,7 +145,7 @@ class CheckpointManager:
         tmp = self.dir / f"step_{step:08d}.tmp"
         final = self.dir / f"step_{step:08d}"
         tmp.mkdir(parents=True, exist_ok=True)
-        np.savez(tmp / _HOST_FILE, **flat)
+        np.savez(tmp / self._host_file, **flat)
         (tmp / "META.json").write_text(
             json.dumps({"step": step, "ts": time.time(), **meta})
         )
@@ -168,7 +185,7 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        path = self.dir / f"step_{step:08d}" / _HOST_FILE
+        path = self.dir / f"step_{step:08d}" / self._host_file
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
         return step, unflatten(template, flat)

@@ -88,6 +88,11 @@ class ArchConfig:
         return self.ssm_d_inner // self.ssm_headdim
 
     @property
+    def subquadratic(self) -> bool:
+        """True iff every layer's mixer is O(seq) — required for long_500k."""
+        return all(m == "mamba" for m in self.layer_pattern)
+
+    @property
     def has_attention(self) -> bool:
         return any(m.startswith("attn") for m in self.layer_pattern)
 
@@ -167,6 +172,36 @@ class ArchConfig:
             remat="none",
             dtype="float32",
         ).validate()
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One cell's workload shape: the step kind and its global sizes."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """long_500k needs sub-quadratic attention (DESIGN.md §4)."""
+    if shape.name == "long_500k" and not (
+        cfg.subquadratic or cfg.family == "hybrid"
+    ):
+        return False, (
+            "skipped: full-attention layers are quadratic at 512k "
+            "(see DESIGN.md long-context applicability)"
+        )
+    return True, ""
 
 
 _REGISTRY: dict[str, ArchConfig] = {}

@@ -5,10 +5,12 @@ mesh: the port's copy of ``repro.distributed.collectives``.
 float32 scale per leaf; ``make_grad_compressor`` is the trainer's
 ``grad_compress`` hook (int8 or bf16, with an error-feedback residual so
 repeated compression does not bias the optimiser). ``all_reduce``,
-``all_gather``, ``ppermute``, ``pmax`` and ``compressed_psum`` (an int8
-all-reduce) run over one axis of a ``sharding.LogicalMesh``, on a mapping
-from mesh coordinate to shard: the port's counterparts of ``lax.psum``,
-``lax.all_gather``, ``lax.ppermute`` and ``lax.pmax`` inside ``shard_map``.
+``all_gather``, ``reduce_scatter``, ``ppermute``, ``pmax`` and
+``compressed_psum`` (an int8 all-reduce) run over one axis of a
+``sharding.LogicalMesh``, on a mapping from mesh coordinate to shard: the
+port's counterparts of ``lax.psum``, ``lax.all_gather``,
+``lax.psum_scatter``, ``lax.ppermute`` and ``lax.pmax`` inside
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -81,9 +83,15 @@ def make_grad_compressor(
 # runs over, so coordinates that differ only there form one group. Every
 # result is computed once per group in a fixed order of coordinates (so it
 # does not depend on which device asks) and moved to each member's device
-# with ``.to(device)``: on one card the members share one tensor. Under a
-# capture report (``capture_analysis``) each counts its result's bytes per
-# coordinate under the JAX package's op type (``pmax`` is an all-reduce).
+# with ``.to(device)``: on one card the members share one tensor. A mesh of
+# ``meta`` devices (the dry run) stands for distinct cards, so there each
+# member gets its own copy (free on ``meta``: nothing is allocated), as
+# each card would hold one. Under a capture report (``capture_analysis``)
+# each counts its result's bytes per coordinate under the JAX package's op
+# type (``pmax`` is an all-reduce). Where a result takes a gradient (the
+# mesh train step) the backward runs the transposed collective, counted
+# too: ``all_reduce``'s is an ``all_reduce`` of the members' gradients, a
+# tiled ``all_gather``'s a ``reduce_scatter``.
 def _groups(xs: Mapping[tuple, torch.Tensor], mesh,
             axis: str) -> list[list[tuple]]:
     """``xs``'s coordinates grouped by every axis but ``axis``, each group
@@ -95,8 +103,52 @@ def _groups(xs: Mapping[tuple, torch.Tensor], mesh,
     return list(groups.values())
 
 
+def _member(value: torch.Tensor, mesh, c: tuple, i: int) -> torch.Tensor:
+    if i and value.device.type == "meta":
+        return value.clone()
+    return value.to(mesh.device(c))
+
+
 def _spread(group: list[tuple], value: torch.Tensor, mesh) -> dict:
-    return {c: value.to(mesh.device(c)) for c in group}
+    return {c: _member(value, mesh, c, i) for i, c in enumerate(group)}
+
+
+class _Fanout(torch.autograd.Function):
+    """A collective's result handed to every member of its group, whose
+    backward is the transposed collective: the members' gradients summed by
+    ``all_reduce`` (the result of an ``all_reduce``) or by
+    ``reduce_scatter`` along ``dim`` and joined (the result of a tiled
+    ``all_gather``), so a capture report counts the backward pass's
+    collectives as the JAX package's per-device program holds them."""
+
+    @staticmethod
+    def forward(ctx, value, mesh, axis, group, dim):
+        ctx.mesh, ctx.axis, ctx.group, ctx.dim = mesh, axis, group, dim
+        ctx.device = value.device
+        return tuple(value.view_as(value) if m is value else m
+                     for m in (_member(value, mesh, c, i)
+                               for i, c in enumerate(group)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        gs = dict(zip(ctx.group, grads))
+        first = ctx.group[0]
+        if ctx.dim is None:
+            total = all_reduce(gs, ctx.mesh, ctx.axis)[first]
+        else:
+            parts = reduce_scatter(gs, ctx.mesh, ctx.axis, dim=ctx.dim)
+            dev = parts[first].device
+            total = torch.cat([parts[c].to(dev) for c in ctx.group], ctx.dim)
+        return total.to(ctx.device), None, None, None, None
+
+
+def _fan(group: list[tuple], value: torch.Tensor, mesh, axis: str,
+         dim: int | None = None) -> dict:
+    """``_spread``, differentiable with the transposed collective where
+    the result takes a gradient."""
+    if not (torch.is_grad_enabled() and value.requires_grad):
+        return _spread(group, value, mesh)
+    return dict(zip(group, _Fanout.apply(value, mesh, axis, group, dim)))
 
 
 @collective("all-reduce")
@@ -110,7 +162,7 @@ def all_reduce(xs: Mapping[tuple, torch.Tensor], mesh,
         acc = xs[group[0]]
         for c in group[1:]:
             acc = acc + xs[c].to(dev)
-        out.update(_spread(group, acc, mesh))
+        out.update(_fan(group, acc, mesh, axis))
     return out
 
 
@@ -136,8 +188,36 @@ def all_gather(xs: Mapping[tuple, torch.Tensor], mesh, axis: str, *,
     for group in _groups(xs, mesh, axis):
         dev = mesh.device(group[0])
         parts = [xs[c].to(dev) for c in group]
-        joined = torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
-        out.update(_spread(group, joined, mesh))
+        if tiled:
+            out.update(_fan(group, torch.cat(parts, dim), mesh, axis, dim))
+        else:
+            out.update(_spread(group, torch.stack(parts, dim), mesh))
+    return out
+
+
+@collective("reduce-scatter")
+def reduce_scatter(xs: Mapping[tuple, torch.Tensor], mesh, axis: str, *,
+                   dim: int = 0) -> dict:
+    """The sum over ``axis``, of which each coordinate keeps its slice
+    along ``dim`` (``lax.psum_scatter`` with ``tiled=True``): the member at
+    index ``i`` along ``axis`` gets chunk ``i`` of ``n``, summed in the
+    shards' dtype in ascending coordinate order, as ``all_reduce``."""
+    a = mesh.axis(axis)
+    n = mesh.shape[axis]
+    out: dict = {}
+    for group in _groups(xs, mesh, axis):
+        dev = mesh.device(group[0])
+        acc = xs[group[0]]
+        for c in group[1:]:
+            acc = acc + xs[c].to(dev)
+        size = acc.shape[dim]
+        if size % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {size} does not "
+                             f"divide over the {n} members of {axis!r}")
+        step = size // n
+        for c in group:
+            out[c] = acc.narrow(dim, c[a] * step, step).to(
+                mesh.device(c), copy=True)
     return out
 
 

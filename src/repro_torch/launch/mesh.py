@@ -28,13 +28,18 @@ def make_debug_mesh(shape: Sequence[int] = (2, 2),
                     axes: Sequence[str] = ("data", "model"),
                     devices: Sequence[str | torch.device] | None = None
                     ) -> LogicalMesh:
-    """A small mesh over ``devices`` (default: ``cuda:0`` named once per
-    coordinate where a card is present, else the CPU), for logical devices
-    on one card or on the CPU in tests."""
+    """A small mesh over ``devices``: logical devices on one card, or on
+    the CPU in tests. With no ``devices`` every coordinate is ``cuda:0``,
+    and without a card that raises ``RuntimeError`` (there is no silent
+    CPU fallback); the CPU is used only where the caller names it
+    (``devices=["cpu"] * n``)."""
     n = 1
     for s in shape:
         n *= s
     if devices is None:
-        dev = "cuda:0" if torch.cuda.is_available() else "cpu"
-        devices = [dev] * n
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_debug_mesh: no CUDA device; pass devices=['cpu'] * "
+                f"{n} for a mesh of logical devices on the CPU")
+        devices = ["cuda:0"] * n
     return LogicalMesh(shape, axes, devices)

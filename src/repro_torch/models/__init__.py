@@ -28,6 +28,7 @@ from .model import (
     init_cache,
     init_paged_cache,
     init_params,
+    input_specs,
     layer_params,
     loss_fn,
     paged_decode_step,
@@ -62,6 +63,7 @@ __all__ = [
     "init_cache",
     "init_paged_cache",
     "init_params",
+    "input_specs",
     "init_ssm_cache",
     "layer_params",
     "loss_fn",

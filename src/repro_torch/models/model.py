@@ -336,6 +336,29 @@ def loss_fn(
     return total, {"ce": loss, "moe_aux": aux, "ntok": ntok}
 
 
+def input_specs(cfg: ArchConfig, kind: str, batch: int, seq: int,
+                device: torch.device | str = "meta") -> dict:
+    """Stand-ins for every input of a ``kind`` step (``"train"``,
+    ``"prefill"``, ``"decode"``) on ``device`` (``meta``: nothing
+    allocated): tokens i32, or a stub frontend's embeddings in the model
+    dtype for an ``input_kind="embeddings"`` arch, as the JAX package's
+    ``input_specs``."""
+    def empty(*shape: int, dtype=torch.int32) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    emb = cfg.input_kind != "tokens"
+    width = (cfg.d_model,) if emb else ()
+    dt = dtype_of(cfg) if emb else torch.int32
+    if kind == "train":
+        return {"inputs": empty(batch, seq, *width, dtype=dt),
+                "labels": empty(batch, seq)}
+    if kind == "prefill":
+        return {"inputs": empty(batch, seq, *width, dtype=dt)}
+    if kind == "decode":
+        return {"inputs": empty(batch, 1, *width, dtype=dt), "pos": empty()}
+    raise ValueError(kind)
+
+
 def prefill(
     cfg: ArchConfig,
     params: dict,

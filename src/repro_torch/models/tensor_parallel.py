@@ -77,7 +77,9 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, replace
+
 import torch
+import torch.utils.checkpoint as checkpoint_utils
 
 from repro_torch import capture_analysis
 from repro_torch.configs import ArchConfig
@@ -429,17 +431,21 @@ def _local_tables(bt: torch.Tensor, row: int, block: int) -> torch.Tensor:
 
 
 class _Row:
-    """One data row's shards: its coordinates, devices, weights and cache
-    pieces, and the collectives over its model axis."""
+    """One data row's shards: its coordinates (``(d, m)`` for each model
+    index ``m``, or the ``coords`` given: a row of a mesh with a ``pod``
+    axis), devices, weights and cache pieces (none for a cacheless
+    training forward), and the collectives over its model axis."""
 
-    def __init__(self, lay: TPLayout, mesh, params: dict, cache: ShardedCache,
-                 d: int):
+    def __init__(self, lay: TPLayout, mesh, params: dict,
+                 cache: ShardedCache | None, d: int,
+                 coords: list | None = None):
         self.lay, self.mesh = lay, mesh
-        self.coords = [(d, m) for m in range(lay.mp)]
+        self.coords = coords or [(d, m) for m in range(lay.mp)]
         self.devs = [mesh.device(c) for c in self.coords]
         self.params = [params[c] for c in self.coords]
-        self.caches = [cache.shards[c] for c in self.coords]
-        self.seq_split = cache.seq_split
+        self.caches = (None if cache is None
+                       else [cache.shards[c] for c in self.coords])
+        self.seq_split = cache is not None and cache.seq_split
         self._views: dict = {}
 
     def layer(self, m: int, i: int, slot: int) -> tuple[dict, dict]:
@@ -453,8 +459,9 @@ class _Row:
                 if name.startswith(prefix):
                     module, leaf = name[len(prefix):].split(".", 1)
                     p.setdefault(module, {})[leaf] = t[i]
-            self._views[key] = (p, {k: t[i] for k, t in
-                                    self.caches[m][slot].items()})
+            views = {} if self.caches is None else {
+                k: t[i] for k, t in self.caches[m][slot].items()}
+            self._views[key] = (p, views)
         return self._views[key]
 
     def each(self, t: torch.Tensor) -> list:
@@ -491,16 +498,33 @@ def _embed(cfg: ArchConfig, row: _Row, toks: list) -> list:
     return row.reduce(xs)
 
 
+def _width_product(cfg: ArchConfig, row: _Row, xs: list) -> list:
+    """Where the head splits ``d_model``: each shard's columns of the
+    product, summed (every shard's copy, at the model dtype)."""
+    parts = []
+    for m, (p, x) in enumerate(zip(row.params, xs)):
+        w = (p["embed.embedding"].T if cfg.tie_embeddings
+             else p["head.lm_head"])
+        n = w.shape[0]
+        parts.append(x[..., m * n:(m + 1) * n] @ w)
+    return row.reduce(parts)
+
+
+def _shard_logits(cfg: ArchConfig, row: _Row, xs: list) -> list:
+    """Each shard's float32 logits: its vocab columns where the head splits
+    the vocab, else the whole vocab."""
+    if row.lay.width:
+        return [softcap(t.float(), cfg.final_logit_softcap)
+                for t in _width_product(cfg, row, xs)]
+    return [head_apply(cfg, p, x) for p, x in zip(row.params, xs)]
+
+
 def _head(cfg: ArchConfig, row: _Row, xs: list) -> torch.Tensor:
-    if row.lay.width:  # each shard's columns of the product, then summed
-        parts = []
-        for m, (p, x) in enumerate(zip(row.params, xs)):
-            w = (p["embed.embedding"].T if cfg.tie_embeddings
-                 else p["head.lm_head"])
-            n = w.shape[0]
-            parts.append(x[..., m * n:(m + 1) * n] @ w)
-        return softcap(row.reduce(parts)[0].float(), cfg.final_logit_softcap)
-    logits = [head_apply(cfg, p, x) for p, x in zip(row.params, xs)]
+    """The row's whole logits, on its first shard."""
+    if row.lay.width:
+        return softcap(_width_product(cfg, row, xs)[0].float(),
+                       cfg.final_logit_softcap)
+    logits = _shard_logits(cfg, row, xs)
     if row.lay.vocab:
         logits = row.gather(logits, dim=-1)
     return logits[0]
@@ -525,7 +549,7 @@ def _attend(cfg: ArchConfig, row: _Row, slot: int, i: int, hs: list,
         for xs, x in ((ps, p), (cs, c), (qs, q), (ks, k), (vs, v)):
             xs.append(x)
     amax = [None] * lay.mp
-    if lay.kv and lay.mp > 1 and cs[0]["k"].dtype == torch.int8:
+    if lay.kv and lay.mp > 1 and cs[0] and cs[0]["k"].dtype == torch.int8:
         amax = list(zip(row.pmax([attn.kv_row_amax(k) for k in ks]),
                         row.pmax([attn.kv_row_amax(v) for v in vs])))
     if kv_whole:  # every head attends on every shard; each keeps its own
@@ -552,17 +576,32 @@ def _mlp(cfg: ArchConfig, row: _Row, slot: int, i: int, xs: list) -> list:
 
 
 def _tower(cfg: ArchConfig, row: _Row, toks: list, positions: list,
-           core) -> list:
+           core, remat: bool = False) -> list:
     """Embed, every layer (attention then MLP, residuals on every shard),
-    the final norm -> each shard's hidden state (replicas)."""
-    xs = _embed(cfg, row, toks)
-    for i in range(cfg.num_layers // cfg.period):
+    the final norm -> each shard's hidden state (replicas). ``remat``
+    recomputes each period of layers in the backward pass, as
+    ``models.forward``'s."""
+
+    def period(i: int, *xs: torch.Tensor) -> list:
+        xs = list(xs)
         for slot in range(cfg.period):
             hs = [norm_apply(cfg, _scale(row.layer(m, i, slot)[0], "norm1"),
                              xs[m]) for m in range(row.lay.mp)]
             a = _attend(cfg, row, slot, i, hs, positions, core)
             xs = [x + o for x, o in zip(xs, a)]
             xs = _mlp(cfg, row, slot, i, xs)
+        return xs
+
+    xs = _embed(cfg, row, toks)
+    for i in range(cfg.num_layers // cfg.period):
+        if remat:
+            from .model import _remat_context
+
+            xs = checkpoint_utils.checkpoint(
+                period, i, *xs, use_reentrant=False,
+                context_fn=_remat_context)
+        else:
+            xs = period(i, *xs)
     return [norm_apply(cfg, p.get("final_norm.scale"), x)
             for p, x in zip(row.params, xs)]
 
@@ -756,7 +795,12 @@ def mesh_slot_verify_step(
 
 
 def _gather_rows(mesh, out: dict) -> torch.Tensor:
-    """The data rows' logits (``{(row, 0): logits}``) concatenated in slot
-    order on the mesh's first device: the ``all_gather`` over ``data``."""
-    got = coll.all_gather(out, mesh, "data", dim=0, tiled=True)
-    return got[min(got)].to(mesh.device(mesh.coords()[0]))
+    """The rows' outputs (``{row's first coordinate: [b, ...]}``)
+    concatenated in row order on the mesh's first device: the
+    ``all_gather`` over ``data``, then over ``pod`` where the mesh has one
+    (rows ``pod`` major)."""
+    for axis in ("data", "pod"):
+        if axis in mesh.axis_names:
+            out = coll.all_gather(out, mesh, axis, dim=0, tiled=True)
+    first = mesh.coords()[0]
+    return out[first].to(mesh.device(first))

@@ -81,15 +81,20 @@ _SLAB = 1 << 26  # elements updated at once (256 MB of float32 a temporary)
 
 @torch.no_grad()
 def update(
-    cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict
+    cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
+    gnorm: torch.Tensor | None = None,
 ) -> tuple[dict, AdamWState, dict]:
     """One AdamW step -> (new params, new state, {"grad_norm", "lr"}). The
     params' and moments' tensors are overwritten in place and returned (the
     JAX step's donated buffers), so the state is never held twice. Each
     leaf is updated in slabs of ``_SLAB`` elements: the arithmetic is
     elementwise, so a slab's is the whole leaf's, and the float32
-    temporaries stay a few slabs however large the leaf."""
-    gnorm = global_norm(grads)
+    temporaries stay a few slabs however large the leaf. ``gnorm`` is the
+    whole gradient's global norm where ``grads`` are one mesh
+    coordinate's pieces of it (``distributed.fsdp``); by default
+    ``global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

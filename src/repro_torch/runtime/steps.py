@@ -29,10 +29,12 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import models
-from repro_torch.configs import ArchConfig
+from repro_torch import capture_analysis, models, perf
+from repro_torch.configs import ArchConfig, ShapeSpec
+from repro_torch.distributed import fsdp
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import sampling
-from repro_torch.models import tensor_parallel
+from repro_torch.models import input_specs, spmd, tensor_parallel
 from repro_torch.optim import adamw
 
 
@@ -551,3 +553,249 @@ def make_train_fn(
         return TrainState(params=new_p, opt=new_opt), metrics
 
     return train_step
+
+
+# ------------------------------------------- steps over a mesh (full rules)
+class Lowered:
+    """A step built for one mesh's static shapes (the JAX package's
+    ``jit(...).lower(...)``): ``compile()`` gives the step, which runs under
+    the ``perf`` opts current when it was lowered; ``args`` are its
+    arguments on ``meta`` (sharded pieces, and global tensors); ``arg_specs``
+    parallel ``args`` with the spec of each global tensor (what each
+    coordinate holds of it: ``()`` replicated) and None where the argument
+    is held as pieces."""
+
+    def __init__(self, kind: str, step: Callable, args: tuple,
+                 arg_specs: tuple, mesh) -> None:
+        self.kind, self.mesh = kind, mesh
+        self.args, self.arg_specs = args, arg_specs
+        self._step = step
+
+    def compile(self) -> Callable:
+        return self._step
+
+
+def _meta(mesh) -> shd.LogicalMesh:
+    """``mesh``'s coordinates over ``meta`` devices: where a lowering's
+    arguments live (nothing allocated, whatever devices ``mesh`` names)."""
+    return shd.LogicalMesh(tuple(mesh.shape.values()), mesh.axis_names,
+                           ["meta"] * mesh.size)
+
+
+def train_shardings(cfg: ArchConfig, mesh, shape: ShapeSpec):
+    """(the state's shapes, the batch's shapes — ``TrainState`` and dict on
+    ``meta`` —, the state's specs, the batch's specs)."""
+    st = state_shapes(cfg)
+    p_spec, mu_spec = fsdp.state_specs(cfg, st.params, mesh)
+    state_spec = TrainState(params=p_spec, opt=adamw.AdamWState(
+        step=(), mu=mu_spec, nu=mu_spec))
+    batch = input_specs(cfg, "train", shape.global_batch, shape.seq_len)
+    batch_spec = {k: shd.data_pspec(tuple(v.shape), mesh)
+                  for k, v in batch.items()}
+    return st, batch, state_spec, batch_spec
+
+
+def make_mesh_train_fn(
+    cfg: ArchConfig,
+    mesh,
+    opt_cfg: adamw.AdamWConfig | None = None,
+    *,
+    impl: str = "naive",
+    donate: bool = True,
+) -> Callable:
+    """``make_train_fn`` over ``mesh`` with the full rules: ``step(state,
+    batch) -> (new state, metrics)`` for a ``fsdp.ShardedTrainState`` and a
+    global batch (split over the mesh's rows). Each coordinate gathers its
+    weights at use, one ``torch.autograd.grad`` gives every coordinate's
+    part of the gradient, ``fsdp.reduce_grads`` sums the parts into each
+    piece's gradient and AdamW updates every piece in place. ``metrics``
+    are 0-d tensors on the mesh's first device: ``loss``, ``ce``,
+    ``moe_aux``, ``ntok``, ``grad_norm``, ``lr``. With ``donate`` the step
+    consumes the state it is given (its pieces are updated and returned),
+    else it updates a copy. Every op runs once per coordinate, so a capture
+    report counts 1/devices of them to a device (``capture_analysis.
+    spread``), the backward too."""
+    tensor_parallel.check_dense(cfg)
+    spmd.check_mesh(mesh)
+    spmd.full_core(impl)  # refuses an attention that has no backward
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    remat = cfg.remat == "block"
+    first = mesh.coords()[0]
+
+    def train_step(state: fsdp.ShardedTrainState, batch: dict):
+        p_spec = state.specs[0]
+        uspecs = fsdp.use_specs(p_spec)
+        with capture_analysis.spread(mesh.size):
+            if not donate:
+                state = fsdp.clone_state(state)
+            used = fsdp.gather_params(state.params, p_spec, mesh)
+        with torch.enable_grad():
+            leaves = {c: {k: t.detach().requires_grad_(
+                t.is_floating_point()) for k, t in ws.items()}
+                for c, ws in used.items()}
+            loss, metrics = spmd.mesh_loss(
+                cfg, mesh, leaves, uspecs, batch, impl=impl, remat=remat)
+            keys = [(c, k) for c in spmd.ran(mesh) for k in leaves[c]]
+            with spmd.row_spread(mesh):
+                got = torch.autograd.grad(
+                    loss[first], [leaves[c][k] for c, k in keys],
+                    materialize_grads=True)
+        grads: dict = {c: {} for c in spmd.ran(mesh)}
+        for (c, k), g in zip(keys, got):
+            grads[c][k] = g
+        del leaves, used, got
+        grads = {c: grads[spmd.stand_in(mesh, c)] for c in mesh.coords()}
+        with capture_analysis.spread(mesh.size):
+            grads = fsdp.reduce_grads(grads, p_spec, mesh)
+            state, opt_metrics = fsdp.apply_adamw(opt_cfg, grads, state)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss=loss[first].detach(), **opt_metrics)
+        return state, metrics
+
+    return train_step
+
+
+def lower_train(
+    cfg: ArchConfig,
+    mesh,
+    shape: ShapeSpec,
+    *,
+    impl: str = "naive",
+    moe_policy: str = "drop",
+    donate: bool = True,
+    opts: perf.PerfOpts | None = None,
+    opt_cfg: adamw.AdamWConfig | None = None,
+) -> Lowered:
+    """The train step for ``shape`` on ``mesh`` (``make_mesh_train_fn``)
+    with the optimizer ``opt_cfg`` (default ``AdamWConfig()``, as the JAX
+    package's lowered step); ``moe_policy`` is taken for the JAX package's
+    signature (the mesh runs dense stacks only)."""
+    with perf.use_perf_opts(opts or perf.current()):
+        fn = perf.bake(make_mesh_train_fn(cfg, mesh, opt_cfg, impl=impl,
+                                          donate=donate))
+    st, batch, _, batch_spec = train_shardings(cfg, mesh, shape)
+    state = fsdp.shard_state(cfg, st, _meta(mesh))._replace(mesh=mesh)
+    return Lowered("train", fn, (state, batch), (None, batch_spec), mesh)
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, max_len: int) -> list:
+    """The dense cache's leaves on ``meta`` (nothing allocated)."""
+    return models.init_cache(cfg, batch, max_len, device="meta")
+
+
+def _sharded_params(cfg: ArchConfig, mesh) -> tuple[dict, dict]:
+    """(the params' pieces on ``meta`` by ``mesh``'s rules, their
+    specs)."""
+    shapes = models.init_params(cfg, device="meta")
+    p_spec, _ = fsdp.state_specs(cfg, shapes, mesh)
+    return {k: shd.shard(t, p_spec[k], _meta(mesh))
+            for k, t in shapes.items()}, p_spec
+
+
+def _copy_cache(cache: tensor_parallel.ShardedCache):
+    shards = {c: [{n: t.clone() for n, t in d.items()} for d in per]
+              for c, per in cache.shards.items()}
+    return tensor_parallel.ShardedCache(
+        cache.mesh, shards, cache.specs, cache.shapes, cache.row_block,
+        seq_split=cache.seq_split)
+
+
+def lower_decode(
+    cfg: ArchConfig,
+    mesh,
+    shape: ShapeSpec,
+    *,
+    moe_policy: str = "drop",
+    donate: bool = True,
+    impl: str = "naive",  # taken for the signature; decode has one impl
+    opts: perf.PerfOpts | None = None,
+) -> Lowered:
+    """One new token per row against a dense cache of ``shape.seq_len``:
+    ``step(params, cache, inputs [B, 1], pos) -> (logits [B, V] on the
+    mesh's first device, cache)``, params as pieces by the full rules
+    (gathered over ``data`` at use), the cache a ``ShardedCache`` in
+    ``cache_pspec_tree``'s layout, updated in place (with ``donate``; else
+    a copy is)."""
+    tensor_parallel.check_dense(cfg)
+    spmd.check_mesh(mesh)
+    b, s = shape.global_batch, shape.seq_len
+    params, p_spec = _sharded_params(cfg, mesh)
+    uspecs = fsdp.use_specs(p_spec)
+    c_shape = cache_shapes(cfg, b, s)
+    c_spec = shd.cache_pspec_tree(cfg, c_shape, mesh)
+    cache = tensor_parallel.ShardedCache(
+        mesh, tensor_parallel._zeroed_pieces(_meta(mesh), c_shape, c_spec),
+        c_spec,
+        tensor_parallel._shapes(c_shape), b // spmd.num_rows(mesh),
+        seq_split="model" in shd.spec_axes(c_spec[0]["k"][2]))
+    ins = input_specs(cfg, "decode", b, s)
+
+    def decode_step(params, cache, inputs, pos):
+        with torch.no_grad():
+            with capture_analysis.spread(mesh.size):
+                if not donate:
+                    cache = _copy_cache(cache)
+                used = fsdp.gather_params(params, p_spec, mesh)
+            logits = spmd.mesh_decode(cfg, mesh, used, uspecs, cache,
+                                      inputs, pos)
+        return logits, cache
+
+    with perf.use_perf_opts(opts or perf.current()):
+        fn = perf.bake(decode_step)
+    return Lowered("decode", fn, (params, cache, ins["inputs"], ins["pos"]),
+                   (None, None, shd.data_pspec(tuple(ins["inputs"].shape),
+                                               mesh), ()), mesh)
+
+
+def lower_prefill(
+    cfg: ArchConfig,
+    mesh,
+    shape: ShapeSpec,
+    *,
+    impl: str = "naive",
+    moe_policy: str = "drop",
+    opts: perf.PerfOpts | None = None,
+) -> Lowered:
+    """``step(params, inputs [B, S]) -> (the last token's logits [B, V] on
+    the mesh's first device, the dense cache as a ``ShardedCache`` in
+    ``cache_pspec_tree``'s layout)``, params as ``lower_decode``'s."""
+    tensor_parallel.check_dense(cfg)
+    spmd.check_mesh(mesh)
+    b, s = shape.global_batch, shape.seq_len
+    params, p_spec = _sharded_params(cfg, mesh)
+    uspecs = fsdp.use_specs(p_spec)
+    c_spec = shd.cache_pspec_tree(cfg, cache_shapes(cfg, b, s), mesh)
+    ins = input_specs(cfg, "prefill", b, s)
+
+    def prefill_step(params, inputs):
+        with torch.no_grad():
+            with capture_analysis.spread(mesh.size):
+                used = fsdp.gather_params(params, p_spec, mesh)
+            return spmd.mesh_prefill(cfg, mesh, used, uspecs, inputs,
+                                     c_spec, impl=impl)
+
+    with perf.use_perf_opts(opts or perf.current()):
+        fn = perf.bake(prefill_step)
+    return Lowered("prefill", fn, (params, ins["inputs"]),
+                   (None, shd.data_pspec(tuple(ins["inputs"].shape), mesh)),
+                   mesh)
+
+
+def lower_for(cfg: ArchConfig, mesh, shape: ShapeSpec, **kw) -> Lowered:
+    if shape.kind == "train":
+        return lower_train(cfg, mesh, shape, **kw)
+    if shape.kind == "prefill":
+        return lower_prefill(cfg, mesh, shape, **kw)
+    if shape.kind == "decode":
+        return lower_decode(cfg, mesh, shape, **kw)
+    raise ValueError(shape.kind)
+
+
+def place_train_state(cfg: ArchConfig, state, mesh) -> fsdp.ShardedTrainState:
+    """Elastic re-mesh: place a ``TrainState`` (one device's, or a restored
+    checkpoint's: checkpoints hold the joined arrays) or a state sharded on
+    another mesh onto ``mesh`` by the rules; every piece a copy on its
+    coordinate's device."""
+    if isinstance(state, fsdp.ShardedTrainState):
+        state = fsdp.unshard_state(state)
+    return fsdp.shard_state(cfg, state, mesh)

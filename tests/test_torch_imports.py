@@ -66,6 +66,10 @@ SLICE_MODULES = (
     "repro_torch.distributed.pipeline",
     "repro_torch.launch.mesh",
     "repro_torch.models.tensor_parallel",
+    "repro_torch.configs",
+    "repro_torch.distributed.fsdp",
+    "repro_torch.models.spmd",
+    "repro_torch.launch.dryrun",
 )
 
 
