@@ -366,6 +366,28 @@ Phases (any failure exits non-zero before a result is printed):
    moments); the elastic re-mesh on a 2-layer fp32 cut: a step at 2x2,
    save, restore (= the saved state bit for bit), place onto 1x2, a step
    = two uninterrupted steps at 1x1 within 2e-4 (loss, params, moments).
+18. The MoE family on meshes of logical devices (after phase 17):
+   granite-moe-1b-a400m at full width (bf16, 32 experts top-8, float32
+   routers) on 4 of its 24 layers, phase 14's engine shape, the ladder
+   1x1 / 1x2 / 2x2 over ``devices=("cuda:0",) * 4``, every target a CUDA
+   graph, the MoE tail's experts split over "model" (EP). The bf16 cell's
+   stream under ``moe_policy="drop"`` at 1x1, 1x2 and 2x2: 0 captures
+   after warmup, B1/B2 launches = layers x dp x mp per replay and one
+   ``sample_rows`` a step, the requests whose tokens leave 1x1's counted
+   (a bf16 rounding of a TP sum moves one of granite's random routing
+   choices, as in phase 9); the same on the weights in fp32, tokens =
+   1x1's but near-ties (phase 14's rule, held);
+   one decode step's and one prefill chunk's logits at 1x2 and 2x2 under
+   each of "drop", "dense" and "gather" against 1x1's (bf16 logged; the
+   same weights in fp32 held to ``STEP_LOGIT_ATOL``, as phase 9 holds
+   granite's); a replayed ``cbp`` step's wall and busy ms at each mesh;
+   the 1x2 ``cbp`` key's capture report (GFLOP, its all-reduce bytes = the
+   reckoning: the head's partial logits, per layer ``wo``'s and the MoE
+   tail's float32 sum); the peak against the reckoned bytes; phase 3's
+   int8+spec cell at 1x2 (B3/B4, launches = the replays); the mesh train
+   step at 1x2 and 2x2, 3 steps with phase 12's optimizer: the first
+   loss, ``moe_aux`` and ``grad_norm`` within 1e-2 of one device's, no
+   kernel launched; granite's fp32 smoke config card = CPU at 2x2.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -6540,13 +6562,15 @@ def _mesh_equals(label: str, cfg, params, base, got, keys,
 
 
 def _mesh_arm(eng, cfg, label: str, mesh: str,
-              flips: dict | None = None, *, reqs=None, **stream) -> tuple:
+              flips: dict | None = None, *, reqs=None, shards: int = 2,
+              **stream) -> tuple:
     """One stream (``_shared_prefix_traffic`` unless ``reqs``; ``stream``
     as ``_mesh_stream``), its own path: the kernels' counts set to 0 just
     before and read just after, each held to the targets' replays in the
     run over every mesh (layers x dp x mp per replay of every lane, k x
     draft layers x dp x mp per ``dr`` replay; one ``sample_rows`` a
-    sampling step, k per ``dr``)."""
+    sampling step, k per ``dr``); a paged stream's ``pool_shards`` held to
+    ``shards`` (the ladder's widest data axis)."""
     from repro_torch import kernels
 
     reqs = _shared_prefix_traffic(cfg) if reqs is None else reqs
@@ -6561,7 +6585,7 @@ def _mesh_arm(eng, cfg, label: str, mesh: str,
     _check_stream(label, cfg, reqs, rep)
     check(rep["compiles_after_warmup"] == 0,
           f"{label}: {rep['compiles_after_warmup']} captures after warmup")
-    check(rep.get("pool_shards", 2) == 2, f"{label}: pool_shards "
+    check(rep.get("pool_shards", shards) == shards, f"{label}: pool_shards "
           f"{rep.get('pool_shards')}")  # the dense engine has no pool
     return reqs, rep, launches, keys
 
@@ -6576,11 +6600,14 @@ def _mesh_tables(eng, slots: int = 8, pages: int = 16) -> torch.Tensor:
                         dtype=torch.int32, device="cuda")
 
 
-def _mesh_step_logits(eng, cfg) -> dict:
+def _mesh_step_logits(eng, cfg, moe_policy: str = "drop",
+                      label: str = "mesh", hold: bool = True) -> dict:
     """One decode step (8 slots at position 200 over 16-page tables) and
     one prefill chunk (64 rows) at 1x2 and 2x2 against 1x1, on one pool
     content (a copy of 1x1's pool laid out onto each mesh's pieces): the
-    eager steps' logits, max abs difference."""
+    eager steps' logits (a MoE stack's under ``moe_policy``), max abs
+    difference, held to ``STEP_LOGIT_ATOL`` (with ``hold``; else only
+    returned)."""
     from repro_torch import models
     from repro_torch.models import tensor_parallel as tp
 
@@ -6601,18 +6628,20 @@ def _mesh_step_logits(eng, cfg) -> dict:
         for m in ("1x1", "1x2", "2x2"):
             pool, ps = eng.paged_cache("fp32", m), eng._params_for_mesh(m)
             models.relayout_cache(pool, snap)
+            kw = dict(moe_policy=moe_policy)
             if m == "1x1":
-                dec = models.paged_decode_step(cfg, ps, pool, tok, pos, bt)[0]
+                dec = models.paged_decode_step(cfg, ps, pool, tok, pos, bt,
+                                               **kw)[0]
                 models.relayout_cache(pool, snap)
                 pf = models.paged_prefill_step(cfg, ps, pool, chunk, start,
-                                               bt, length)[0]
+                                               bt, length, **kw)[0]
             else:
                 lay = eng._layout(m, 8)
                 dec = tp.mesh_paged_decode_step(cfg, lay, ps, pool, tok, pos,
-                                                bt)
+                                                bt, **kw)
                 models.relayout_cache(pool, snap)
                 pf = tp.mesh_paged_prefill_step(cfg, lay, ps, pool, chunk,
-                                                start, bt, length)
+                                                start, bt, length, **kw)
             models.relayout_cache(pool, snap)
             out[m] = (dec.float(), pf.float())
     del snap
@@ -6620,9 +6649,10 @@ def _mesh_step_logits(eng, cfg) -> dict:
     for m in ("1x2", "2x2"):
         errs[m] = [float((a - b).abs().max())
                    for a, b in zip(out[m], out["1x1"])]
-        check(all(e <= STEP_LOGIT_ATOL for e in errs[m]) and all(
-              bool(torch.isfinite(a).all()) for a in out[m]),
-              f"mesh {m}: step logits differ from 1x1's by {errs[m]} "
+        check(all(bool(torch.isfinite(a).all()) for a in out[m]),
+              f"{label} {m}: step logits not finite")
+        check(not hold or all(e <= STEP_LOGIT_ATOL for e in errs[m]),
+              f"{label} {m}: step logits differ from 1x1's by {errs[m]} "
               f"(decode, prefill) > {STEP_LOGIT_ATOL}")
     return errs
 
@@ -6671,11 +6701,12 @@ def _replay_ms(run, steps: int = 5) -> dict:
 
 
 def _mesh_smoke_card_vs_cpu(cell: dict | None = None, engine: str = "paged",
-                            meshes: tuple = ("1x2", "2x2")) -> dict:
-    """The fp32 smoke config at ``meshes`` (every other request sampled):
-    the card's graph targets give the CPU engine's tokens, under a step
-    clock; ``cell`` adds to the engine's config (phase 15: an int8 pool
-    with speculation, the dense engine with speculation)."""
+                            meshes: tuple = ("1x2", "2x2"),
+                            arch: str = "olmo-1b") -> dict:
+    """``arch``'s fp32 smoke config at ``meshes`` (every other request
+    sampled): the card's graph targets give the CPU engine's tokens, under
+    a step clock; ``cell`` adds to the engine's config (phase 15: an int8
+    pool with speculation, the dense engine with speculation)."""
     import numpy as np
 
     from repro_torch import models
@@ -6688,10 +6719,11 @@ def _mesh_smoke_card_vs_cpu(cell: dict | None = None, engine: str = "paged",
         run_paged_stream,
     )
 
-    cfg = get_config("olmo-1b").smoke()
+    cfg = get_config(arch).smoke()
     params = models.init_params(cfg, seed=0)
     run = run_paged_stream if engine == "paged" else run_continuous_stream
-    label = "mesh smoke" + ("" if cell is None else f" {engine} {cell}")
+    label = (f"mesh smoke {arch}"
+             + ("" if cell is None else f" {engine} {cell}"))
     out = {}
     for mesh in meshes:
         toks = {}
@@ -7276,6 +7308,279 @@ def split_mesh_phase(cfg, params, phase13: dict) -> dict:
     return out
 
 
+# ---- phase 18 (the MoE family on meshes of logical devices)
+# granite-moe-1b-a400m at full width (bf16, 32 experts top-8, float32
+# routers) on 4 of its 24 layers, phase 14's engine shape and the ladder
+# 1x1 / 1x2 / 2x2 over four logical devices of this card, every target a
+# CUDA graph; the MoE tail under "drop" (EP: 16 experts a shard at model 2).
+MOE_MESH_LAYERS = 4
+MOE_MESH_ECFG = dict(max_len=1024, max_batch=8, page_size=16, prefill_chunk=64,
+                     mesh="1x1", meshes=("1x2", "2x2"),
+                     devices=("cuda:0",) * 4, moe_policy="drop")
+# phase 3's int8+spec cell, at 1x2 alone
+MOE_MESH_INT8 = dict(MOE_MESH_ECFG, mesh="1x2", meshes=(), kv_dtype="int8",
+                     kv_dtypes=("int8",), spec_k=4, draft_layers=2,
+                     draft_kv_dtype="int8")
+MOE_POLICIES = ("drop", "dense", "gather")
+MOE_TRAIN_MESHES = ((1, 2), (2, 2))
+
+
+def _moe_all_reduce_bytes(cfg, slots: int) -> int:
+    """One device's all-reduce bytes of a ``cbp`` step at model size 2:
+    the head's partial logits ``[S, V]`` at the model dtype (granite's
+    49155-entry vocab splits the table's d_model), and per layer ``wo``'s
+    ``[S, D]`` at the model dtype and the MoE tail's in float32."""
+    el = 2 if cfg.dtype == "bfloat16" else 4
+    return slots * (cfg.vocab_size * el
+                    + cfg.num_layers * cfg.d_model * (el + 4))
+
+
+def _moe_mesh_arms(eng, cfg, params, tag: str, hold: bool) -> tuple:
+    """The stream at 1x1, 1x2 and 2x2 on a warmed engine (``_mesh_arm``:
+    launches held, 0 captures after warmup) -> (each arm's path, each
+    mesh's divergences from 1x1: held to near-ties with ``hold``, else
+    counted: the requests whose tokens differ)."""
+    arms, paths, ties = {}, {}, {}
+    for mesh in ("1x1", "1x2", "2x2"):
+        arms[mesh] = _mesh_arm(eng, cfg, f"moe mesh {tag} {mesh}", mesh)
+        paths[f"{GRANITE} {tag} mesh {mesh} (phase 18)"] = arms[mesh][2]
+    base, _, _, keys1 = arms["1x1"]
+    ties["1x1"] = 0
+    for name in ("1x1", "1x2", "2x2"):
+        reqs, rep, launches, _ = arms[name]
+        if name == "1x1":
+            pass
+        elif hold:
+            ties[name] = _mesh_equals(f"moe mesh {tag} {name}", cfg, params,
+                                      base, reqs, keys1)
+        else:
+            ties[name] = sum(r.tokens != d.tokens
+                             for r, d in zip(base, reqs))
+        log(f"[moe-mesh] {tag} {name}: tokens = 1x1's on "
+            f"{len(reqs) - ties[name]} of {len(reqs)} requests "
+            f"({sum(not r.greedy for r in reqs)} sampled, "
+            f"{sum(len(r.tokens) for r in reqs)} tokens), {ties[name]} "
+            + ("near-tie divergences (held)" if hold else
+               "divergences (logged, not held)")
+            + f"; {rep['steps']} steps, lanes {rep['lane_steps']}, 0 "
+            f"captures after warmup; launches "
+            + ", ".join(f"{k} {launches[k]}" for k in MESH_KERNELS))
+    return paths, ties
+
+
+def _moe_mesh_train(cfg, params) -> dict:
+    """The mesh train step on the phase's cut (bf16, remat "block", phase
+    12's batch and optimizer): the one-device ``make_train_fn``'s first
+    step, then 3 steps at each of ``MOE_TRAIN_MESHES`` (``cuda:0`` at every
+    coordinate): the first loss, ``moe_aux`` and ``grad_norm`` within
+    ``TRAIN_MESH_LOSS_RTOL`` of one device's, every step finite, replicas
+    equal; no kernel launched."""
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    keys = ("loss", "moe_aux", "grad_norm")
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    batch = _device_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    kernels.reset_launch_counts()  # the path's run starts here
+    one = _fresh_state(cfg, params={k: v.clone() for k, v in params.items()})
+    fn, ms1 = steps.make_train_fn(cfg, opt), []
+    for i in range(MESH_TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        one, m = fn(one, batch)
+        end.record()
+        end.synchronize()
+        ms1.append(start.elapsed_time(end))
+        if i == 0:
+            want = {k: float(m[k]) for k in keys}
+    del one, m
+    _release_engines()
+    shape = ShapeSpec("phase18", "train", TRAIN_SEQ, TRAIN_BATCH)
+    out = {"one device": dict(first=want, ms=ms1,
+                              step_ms=statistics.median(ms1[1:]))}
+    log(f"[moe-mesh:train] {GRANITE} ({cfg.num_layers} layers) one device: "
+        f"step 1 " + ", ".join(f"{k} {v:.6f}" for k, v in want.items())
+        + f" | step ms (CUDA events) median {out['one device']['step_ms']:.3f}"
+        f" of steps 2-{MESH_TRAIN_STEPS} (all: "
+        + ", ".join(f"{x:.1f}" for x in ms1) + f") | {_card()}")
+    for dp, mp in MOE_TRAIN_MESHES:
+        name = f"{dp}x{mp}"
+        mesh = make_debug_mesh((dp, mp))
+        state = steps.place_train_state(cfg, _fresh_state(cfg, params=params),
+                                        mesh)
+        exe = steps.lower_for(cfg, mesh, shape, opt_cfg=opt).compile()
+        ms, losses, first = [], [], None
+        for i in range(MESH_TRAIN_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            state, m = exe(state, batch)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            check(_finite(m["loss"]) and _finite(m["grad_norm"]),
+                  f"moe train mesh {name}: step {i + 1} loss {losses[-1]}")
+            if i == 0:
+                first = {k: float(m[k]) for k in keys}
+                rel = {k: abs(first[k] - want[k]) / abs(want[k])
+                       for k in keys}
+                check(all(r <= TRAIN_MESH_LOSS_RTOL for r in rel.values()),
+                      f"moe train mesh {name}: first step {first}, one "
+                      f"device {want} (relative {rel}, limit "
+                      f"{TRAIN_MESH_LOSS_RTOL})")
+        replicated = _check_replicas(state)
+        out[name] = dict(first=first, rel=rel, losses=losses, ms=ms,
+                         step_ms=statistics.median(ms[1:]))
+        log(f"[moe-mesh:train] {GRANITE} ({cfg.num_layers} layers, bf16, "
+            f"remat {cfg.remat}) {name}: {TRAIN_BATCH} x {TRAIN_SEQ}, "
+            f"{MESH_TRAIN_STEPS} steps: losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + " | step 1 " + ", ".join(
+                f"{k} {first[k]:.6f} (one device {want[k]:.6f}, relative "
+                f"{rel[k]:.3g})" for k in keys)
+            + f" | {replicated} replicated pieces equal bit for bit | step "
+            f"ms (CUDA events) median {out[name]['step_ms']:.3f} of steps "
+            f"2-{MESH_TRAIN_STEPS} (all: " + ", ".join(f"{x:.1f}" for x in ms)
+            + f") | {_card()}")
+        del state, exe, m
+        _release_engines()
+    out["launches"] = _launches("moe train mesh (phase 18)", ())
+    del batch
+    _release_engines()
+    return out
+
+
+def moe_mesh_phase() -> dict:
+    """Phase 18: granite-moe on meshes of logical devices of this card
+    (``MOE_MESH_ECFG``; module docstring). The bf16 cell's stream under
+    "drop" at 1x1, 1x2 and 2x2 (0 captures after warmup, each kernel's
+    launches = the replays' reckoning, tokens against 1x1's counted), and
+    the same weights in fp32 (tokens = 1x1's but near-ties, held); one
+    decode step's and one prefill chunk's logits per MoE policy at 1x2 and
+    2x2 against 1x1 (bf16 logged, fp32 held to ``STEP_LOGIT_ATOL``): a
+    bf16 rounding of a TP sum moves one of granite's random top-8 routing
+    choices, and the logits after it by more than a near-tie (phase 9
+    holds granite on fp32 weights for the same reason; on an H100 a 1x2
+    greedy row left 1x1's at token 8 where the two logits were 0.4688
+    apart); a replayed
+    ``cbp`` step per mesh; the 1x2
+    ``cbp`` key's capture report (its all-reduce bytes =
+    ``_moe_all_reduce_bytes``); the peak against the reckoned bytes; the
+    int8+spec cell at 1x2; the mesh train step at 1x2 and 2x2; the fp32
+    smoke config card = CPU at 2x2."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    _release_engines()
+    t0 = time.perf_counter()
+    cfg = _depth_cut(get_config(GRANITE), MOE_MESH_LAYERS, "moe-mesh")
+    params = _seeded(cfg, "moe-mesh")
+    torch.cuda.reset_peak_memory_stats()
+    out, paths, arms = {}, {}, {}
+    with Engine(cfg, params, EngineConfig(**MOE_MESH_ECFG)) as eng:
+        check(eng.graphs, "moe mesh: the engine's targets are not CUDA graphs")
+        t_warm = time.perf_counter()
+        eng.paged_continuous(slots=8)  # captures every mesh's targets
+        t_warm = time.perf_counter() - t_warm
+        captures = eng._decode.stats.misses
+        got, out["diverged bf16"] = _moe_mesh_arms(eng, cfg, params, "bf16",
+                                                   hold=False)
+        paths.update(got)
+        peak = torch.cuda.max_memory_allocated()
+        pools = {m: _pool_bytes(eng, "fp32", m) for m in ("1x1", "1x2", "2x2")}
+        weights = sum(t.numel() * t.element_size() for t in params.values())
+        pieces = sum(t.numel() * t.element_size()
+                     for t in eng._tp_pieces.values())
+        reckoned = weights + pieces + sum(pools.values())
+        check(peak <= reckoned + 4e9, f"moe mesh: peak {peak / 1e9:.2f} GB "
+              f"over the reckoned {reckoned / 1e9:.2f} GB + 4 GB")
+        bf16 = {pol: _mesh_step_logits(eng, cfg, pol, "moe mesh bf16",
+                                       hold=False) for pol in MOE_POLICIES}
+        timing = {m: _mesh_replay_ms(eng, m) for m in ("1x1", "1x2", "2x2")}
+        # the capture report of one key: its target built once more with
+        # the analysis on (a capture of its own, after every counted path)
+        eng.telemetry.compile_analysis = True
+        try:
+            eng._build_paged_slot_decode(8, 16, "fp32", "1x2")
+            cap = eng._capture_report()
+        finally:
+            eng.telemetry.compile_analysis = False
+        want_ar = _moe_all_reduce_bytes(cfg, 8)
+        check("error" not in cap and cap["chips"] == 2
+              and cap["collectives"].get("all-reduce") == want_ar,
+              f"moe mesh capture report cbp 1x2: chips {cap['chips']}, "
+              f"collectives {cap['collectives']}, all-reduce reckoned "
+              f"{want_ar}")
+    del eng
+    _release_engines()
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    with Engine(c32, p32, EngineConfig(**MOE_MESH_ECFG)) as eng:
+        eng.paged_continuous(slots=8)
+        got, out["ties fp32"] = _moe_mesh_arms(eng, c32, p32, "fp32",
+                                               hold=True)
+        paths.update(got)
+        fp32 = {pol: _mesh_step_logits(eng, c32, pol, "moe mesh fp32")
+                for pol in MOE_POLICIES}
+    del eng, p32
+    _release_engines()
+    with Engine(cfg, params, EngineConfig(**MOE_MESH_INT8)) as eng:
+        eng.paged_continuous(slots=8)
+        reqs, rep, launches, _ = _mesh_arm(
+            eng, cfg, "moe mesh int8+spec 1x2", "1x2", shards=1)
+        check(rep["lane_steps"]["verify"] > 0 < rep["lane_steps"]["draft"],
+              f"moe mesh int8+spec 1x2: lanes {rep['lane_steps']}")
+        paths[f"{GRANITE} mesh int8+spec 1x2 (phase 18)"] = launches
+        log(f"[moe-mesh] int8+spec 1x2: {rep['finished']} finished, "
+            f"{rep['steps']} steps, lanes {rep['lane_steps']}, 0 captures "
+            f"after warmup; launches " + ", ".join(
+                f"{k} {n}" for k, n in launches.items() if n))
+    del eng
+    _release_engines()
+    train = _moe_mesh_train(cfg, params)
+    paths[f"{GRANITE} train mesh (phase 18)"] = train["launches"]
+    del params
+    _release_engines()
+    smoke = _mesh_smoke_card_vs_cpu(meshes=("2x2",), arch=GRANITE)
+    out.update(seconds=time.perf_counter() - t0, paths=paths, bf16=bf16,
+               fp32=fp32, timing=timing, train=train, peak_gb=peak / 1e9,
+               capture=dict(flops=cap["flops"], bytes=cap["bytes"],
+                            collectives=cap["collectives"]))
+    log(f"[moe-mesh] {GRANITE} bf16 ({cfg.num_layers} of 24 layers) on four "
+        f"logical devices of one card: {captures} targets captured for "
+        f"1x1 / 1x2 / 2x2 in {t_warm:.1f} s")
+    for name, errs in (("bf16 (logged)", bf16), ("fp32 weights (held)",
+                                                  fp32)):
+        log(f"[moe-mesh] one step's logits against 1x1, {name} (decode, "
+            f"prefill max abs; limit {STEP_LOGIT_ATOL}): " + "; ".join(
+                f"{pol} " + ", ".join(f"{m} {e[0]:.4g}, {e[1]:.4g}"
+                                      for m, e in errs[pol].items())
+                for pol in MOE_POLICIES))
+    for m, t in timing.items():
+        log(f"[moe-mesh] replayed cbp step at {m} (8 slots at position 200, "
+            f"16-page tables): wall {t['wall_ms']:.4f} ms, device busy "
+            f"{_fmt_ms(t['busy_ms'])} by {t['by']} | {_card()}")
+    log(f"[moe-mesh] capture report of the 1x2 cbp key (8 slots, 16 "
+        f"pages): {cap['flops'] / 1e9:.4f} GFLOP, {cap['bytes'] / 1e9:.4f} "
+        f"GB a device, collective bytes "
+        + ", ".join(f"{op} {n:.0f}" for op, n in cap["collectives"].items())
+        + f" (all-reduce reckoned {want_ar})")
+    log(f"[moe-mesh] peak {peak / 1e9:.2f} GB against {reckoned / 1e9:.2f} "
+        f"GB reckoned (weights {weights / 1e9:.3f} + the split weights' "
+        f"pieces {pieces / 1e9:.3f} + three pools "
+        + ", ".join(f"{m} {b / 1e9:.3f}" for m, b in pools.items())
+        + f" GB) | {_card()}")
+    log(f"[moe-mesh] smoke (fp32) card = CPU at 2x2 ({smoke['2x2']} tokens)")
+    log(f"[moe-mesh] phase 18 passed in {out['seconds']:.1f}s | {_card()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -7356,6 +7661,8 @@ def main() -> int:
     log(f"[train] phase 12 passed in {t12:.1f}s (C13 {t_c13:.1f}s, training "
         f"{train['seconds']:.1f}s) | {_card()}")
     train_mesh = train_mesh_phase()
+    moe_mesh = moe_mesh_phase()
+    paths.update(moe_mesh["paths"])
     paths["c13 two batchers (phase 12)"] = c13_launches
     paths.update({f"{k} (phase 13)": v for k, v in disagg["paths"].items()})
     paths.update(mesh["paths"])
@@ -7387,7 +7694,8 @@ def main() -> int:
         f"phase 15 (every lane on those meshes) {lanes['seconds']:.1f}s; "
         f"phase 16 (splits over meshes, overload on a plan) "
         f"{split['seconds']:.1f}s; phase 17 (training on meshes) "
-        f"{train_mesh['seconds']:.1f}s; before phase 8: "
+        f"{train_mesh['seconds']:.1f}s; phase 18 (granite-moe on meshes) "
+        f"{moe_mesh['seconds']:.1f}s; before phase 8: "
         + ", ".join(f"{k} {v:.1f}s" for k, v in spans.items()))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

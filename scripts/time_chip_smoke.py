@@ -5,6 +5,11 @@ where the script's time goes.
 Run from the root of a checkout, on the machine with the GPU:
 
     python3 scripts/time_chip_smoke.py [--out chiprun_out/chip_smoke_times.txt]
+    python3 scripts/time_chip_smoke.py --only moe_mesh_phase  # one phase
+
+``--only NAME`` runs ``setup()`` (the kernels' build) and then the one
+phase function ``NAME`` of ``chip_smoke`` instead of the whole script
+(a phase that reads another's result takes no ``--only``).
 
 Every function of ``chip_smoke`` (and the engine's ``__init__``,
 ``paged_continuous``, ``continuous``, ``_build``, ``_warm_lanes`` and
@@ -56,6 +61,9 @@ def _timed(owner, name: str, label: str, seconds: dict, calls: dict,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke_times.txt")
+    ap.add_argument("--only", default=None,
+                    help="a phase function of chip_smoke to run alone, "
+                         "after setup()")
     args = ap.parse_args()
     seconds, calls, depth = {}, {}, {}
     for name, fn in list(vars(chip_smoke).items()):
@@ -71,7 +79,16 @@ def main() -> int:
     log = chip_smoke.log
     chip_smoke.log = lambda msg: log(f"@{time.perf_counter() - t0:7.1f} {msg}")
     try:
-        return chip_smoke.main()
+        if args.only is None:
+            return chip_smoke.main()
+        if not chip_smoke.torch.cuda.is_available():
+            raise SystemExit("--only needs a CUDA device")
+        chip_smoke.setup()
+        t1 = time.perf_counter()
+        getattr(chip_smoke, args.only)()
+        chip_smoke.log(f"[only] {args.only} passed in "
+                       f"{time.perf_counter() - t1:.1f}s")
+        return 0
     finally:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

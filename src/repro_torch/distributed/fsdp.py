@@ -14,8 +14,14 @@ once per coordinate.
 
 **At use** (``gather_params``) each coordinate gathers its model shard of
 every leaf over ``data``: the layout ``use_specs`` gives (the rules with
-``data`` and ``pod`` stripped), which ``models.spmd`` runs the dense tower
-on.
+``data`` and ``pod`` stripped), which ``models.spmd`` runs the tower on.
+A dim split over ``("data", "model")`` together (a vocab that ``model``
+does not divide puts the table's ``d_model`` there: granite's 49155
+entries) holds chunk ``i_data·|model| + i_model`` at ``(d, m)``, data
+major (``sharding.shard_slices``). At a fixed ``m`` the data pieces are
+then the strided chunks ``m, mp+m, 2mp+m, ...``, not the contiguous model
+block ``m`` the use layout needs, so such a dim is gathered whole over
+both axes and each coordinate takes its block.
 
 **Gradients** (``reduce_grads``). A coordinate's autograd gradient of its
 gathered weight is its part of the sum over every use of the weight:
@@ -24,8 +30,12 @@ gathered weight is its part of the sum over every use of the weight:
   model shard of a row used, so its shards' partial gradients are
   ``all_reduce``d over ``model``;
 * then the data rows' parts are summed: a leaf split over ``data`` keeps
-  its slice (``reduce_scatter``), any other is ``all_reduce``d;
-* the ``pod`` axis holds replicas of the params: ``all_reduce``.
+  its slice (``reduce_scatter``), any other is ``all_reduce``d; a dim over
+  ``("data", "model")`` is ``all_reduce``d over ``data``, its model blocks
+  joined over ``model`` (``all_gather``) and each coordinate keeps its
+  chunk;
+* the ``pod`` axis holds replicas of the params: ``all_reduce``, or under
+  ZeRO over ``pod`` (below) ``reduce_scatter`` onto the moments' slices.
 
 **The update** (``apply_adamw``) is ``optim.adamw.update`` on each
 coordinate's pieces, with the global norm of the whole gradient: each
@@ -34,12 +44,15 @@ every axis its spec leaves whole holds it), and the per-coordinate sums are
 ``all_reduce``d over every axis, so every replica clips by the same scale
 and stays equal bit for bit.
 
-Two layouts of the rules arise only for families the mesh forward refuses
-(``tensor_parallel.check_dense``), and ``state_specs`` refuses them with
-``NotImplementedError``: ZeRO over ``pod`` (moments split finer than
-params, ``cfg.zero_over_pod``: grok and jamba) and a dim split over
-``("data", "model")`` together (a vocab that ``model`` does not divide:
-granite's table, internvl2's head).
+**ZeRO over ``pod``** (``cfg.zero_over_pod``: grok, jamba) splits a
+moment finer than its param: the first data dim takes ``pod`` as its minor
+axis (``sharding.opt_pspec_tree``), so the moment at pod index ``p`` is
+sub-block ``p`` of the param piece along that dim. The gradient is
+reduce-scattered over ``pod`` onto that sub-block, the update steps the
+sub-block of the param, and the updated sub-blocks are gathered over
+``pod`` back into every replica of the piece, which so stay equal bit for
+bit. The global norm counts such a gradient by the moment's spec: each
+sub-block once.
 """
 
 from __future__ import annotations
@@ -68,18 +81,28 @@ class ShardedTrainState(NamedTuple):
 
 
 def state_specs(cfg, params_shape: Mapping[str, Any], mesh) -> tuple:
-    """(param specs, moment specs) of a state on ``mesh`` by the rules."""
+    """(param specs, moment specs) of a state on ``mesh`` by the rules. A
+    moment's spec is its param's, or under ZeRO over ``pod`` its param's
+    with ``pod`` the minor axis of one data dim (``zero_dim``); a param
+    spec that splits over ``pod`` is refused (the rules make none)."""
     p_spec = shd.param_pspec_tree(params_shape, mesh)
     mu_spec = shd.opt_pspec_tree(cfg, p_spec, params_shape, mesh)
     for k, s in mu_spec.items():
-        j = _data_dim(s)
-        if s != p_spec[k] or (j is not None
-                              and shd.spec_axes(s[j]) != ("data",)):
-            raise NotImplementedError(
-                f"{cfg.name}: {k} laid out as {s} (params {p_spec[k]}) on a "
-                f"mesh waits for {shd.PART3}: training there gathers and "
-                f"reduces dims split over 'data' alone")
+        if shd.splits(p_spec[k], "pod") or (
+                s != p_spec[k] and zero_dim(p_spec[k], s) is None):
+            raise ValueError(f"{k}: moments {s} are not params {p_spec[k]} "
+                             f"or a split of them over 'pod'")
     return p_spec, mu_spec
+
+
+def zero_dim(p_spec: tuple, mu_spec: tuple) -> int | None:
+    """The dim a moment splits finer than its param (its param's axes then
+    ``pod``), None where the two specs are equal."""
+    for j, (a, b) in enumerate(zip(p_spec, mu_spec)):
+        if a != b:
+            return (j if shd.spec_axes(b) == shd.spec_axes(a) + ("pod",)
+                    else None)
+    return None
 
 
 def shard_state(cfg, state, mesh) -> ShardedTrainState:
@@ -146,13 +169,40 @@ def _data_dim(spec: tuple) -> int | None:
                  if set(shd.spec_axes(e)) & set(BATCH_AXES)), None)
 
 
+def _chunk(t: torch.Tensor, dim: int, axes: tuple, mesh,
+           c: tuple) -> torch.Tensor:
+    """Coordinate ``c``'s chunk of ``t`` along ``dim`` split over ``axes``
+    (major to minor), as ``sharding.shard_slices`` lays it out."""
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * mesh.shape[a] + c[mesh.axis(a)]
+        n *= mesh.shape[a]
+    w = t.shape[dim] // n
+    return t.narrow(dim, idx * w, w)
+
+
+def _whole(pieces: dict, dim: int, axes: tuple, mesh) -> dict:
+    """Every coordinate's copy of the whole dim ``dim`` split over
+    ``axes``: gathered over the minor axis first, so that each gather
+    joins neighbouring chunks."""
+    for a in reversed(axes):
+        pieces = coll.all_gather(pieces, mesh, a, dim=dim, tiled=True)
+    return pieces
+
+
 def gather_leaf(pieces: dict, spec: tuple, mesh) -> dict:
     """One leaf's pieces -> each coordinate's piece in the ``use_specs``
-    layout (gathered over ``data``)."""
+    layout (gathered over ``data``; a dim over ``("data", "model")``
+    gathered whole, then each coordinate's model block)."""
     j = _data_dim(spec)
     if j is None:
         return dict(pieces)
-    return coll.all_gather(pieces, mesh, "data", dim=j, tiled=True)
+    axes = shd.spec_axes(spec[j])
+    if axes == ("data",):
+        return coll.all_gather(pieces, mesh, "data", dim=j, tiled=True)
+    rest = tuple(a for a in axes if a not in BATCH_AXES)
+    return {c: _chunk(t, j, rest, mesh, c).contiguous()
+            for c, t in _whole(pieces, j, axes, mesh).items()}
 
 
 def gather_params(params: dict, p_spec: Mapping[str, tuple], mesh) -> dict:
@@ -165,21 +215,31 @@ def gather_params(params: dict, p_spec: Mapping[str, tuple], mesh) -> dict:
 
 
 def reduce_grads(grads: Mapping[tuple, Mapping[str, torch.Tensor]],
-                 p_spec: Mapping[str, tuple], mesh) -> dict:
+                 p_spec: Mapping[str, tuple], mesh,
+                 mu_spec: Mapping[str, tuple] | None = None) -> dict:
     """Each coordinate's autograd gradients in the ``use_specs`` layout ->
-    ``{coord: {key: gradient of its piece}}`` (module docstring)."""
+    ``{coord: {key: gradient of its piece}}``, of its moment's slice where
+    ``mu_spec`` splits the moment over ``pod`` (module docstring)."""
     out: dict = {c: {} for c in mesh.coords()}
     for k, spec in p_spec.items():
         g = {c: grads[c][k] for c in mesh.coords()}
         if "model" in mesh.axis_names and not shd.splits(spec, "model"):
             g = coll.all_reduce(g, mesh, "model")
         j = _data_dim(spec)
-        if j is not None:
+        axes = shd.spec_axes(spec[j]) if j is not None else ()
+        if axes == ("data",):
             g = coll.reduce_scatter(g, mesh, "data", dim=j)
+        elif j is not None:  # the model blocks joined, each its chunk
+            g = coll.all_reduce(g, mesh, "data")
+            rest = tuple(a for a in axes if a not in BATCH_AXES)
+            g = {c: _chunk(t, j, axes, mesh, c).contiguous()
+                 for c, t in _whole(g, j, rest, mesh).items()}
         elif "data" in mesh.axis_names:
             g = coll.all_reduce(g, mesh, "data")
         if "pod" in mesh.axis_names:
-            g = coll.all_reduce(g, mesh, "pod")
+            z = zero_dim(spec, mu_spec[k]) if mu_spec else None
+            g = (coll.all_reduce(g, mesh, "pod") if z is None
+                 else coll.reduce_scatter(g, mesh, "pod", dim=z))
         for c, t in g.items():
             out[c][k] = t
     return out
@@ -214,13 +274,20 @@ def global_norm(grads: Mapping[tuple, Mapping[str, torch.Tensor]],
 def apply_adamw(opt_cfg: adamw.AdamWConfig, grads: dict,
                 state: ShardedTrainState) -> tuple:
     """AdamW on every coordinate's pieces, in place -> (the new state,
-    ``{"grad_norm", "lr"}`` of the first coordinate)."""
+    ``{"grad_norm", "lr"}`` of the first coordinate). ``grads`` are
+    ``reduce_grads``' (a ZeRO'd leaf's of its moment's slice)."""
     mesh = state.mesh
-    p_spec = state.specs[0]
-    norms = global_norm(grads, p_spec, mesh)
-    step, metrics = {}, None
+    p_spec, mu_spec = state.specs
+    zero = {k: z for k in p_spec
+            if (z := zero_dim(p_spec[k], mu_spec[k])) is not None}
+    g_spec = {k: mu_spec[k] if k in zero else p_spec[k] for k in p_spec}
+    norms = global_norm(grads, g_spec, mesh)
+    step, metrics, stepped = {}, None, {k: {} for k in zero}
     for c in mesh.coords():
         params = {k: pieces[c] for k, pieces in state.params.items()}
+        for k, z in zero.items():  # the moment's sub-block of the piece
+            params[k] = stepped[k][c] = _chunk(
+                params[k], z, ("pod",), mesh, c).contiguous()
         opt = adamw.AdamWState(
             step=state.opt.step[c],
             mu={k: pieces[c] for k, pieces in state.opt.mu.items()},
@@ -230,4 +297,8 @@ def apply_adamw(opt_cfg: adamw.AdamWConfig, grads: dict,
         step[c] = new_opt.step
         if metrics is None:
             metrics = m
+    for k, z in zero.items():  # every replica gets every stepped sub-block
+        for c, t in coll.all_gather(stepped[k], mesh, "pod", dim=z,
+                                    tiled=True).items():
+            state.params[k][c].copy_(t)
     return state._replace(opt=state.opt._replace(step=step)), metrics

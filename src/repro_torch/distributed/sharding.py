@@ -37,8 +37,10 @@ The JAX package's ``hint``/``use_shard_hints`` constrain GSPMD's layout of
 activations; the port has no GSPMD. Its tensor-parallel forward
 (``models.tensor_parallel``) lays every activation out explicitly from the
 resolved specs and issues each collective where GSPMD put it, which takes
-their place. ``hint_attn_q`` (and ``perf.seq_shard_fallback``, which it
-reads) waits for ROADMAP A12 part 3.
+their place: the MoE tail's layout included, which is the one
+``perf.moe_hints`` and ``perf.moe_weight_gather`` ask GSPMD for
+(``models.moe.check_mesh_opts``). ``hint_attn_q`` (and
+``perf.seq_shard_fallback``, which it reads) waits for ROADMAP A12 part 3.
 """
 
 from __future__ import annotations

@@ -28,13 +28,17 @@ touched. Per cell the record holds what the roofline needs:
 * ``roofline`` — ``roofline.roofline_terms`` at the H100 constants (the
   config's dtype's peak, HBM, NVLink).
 
-A family the mesh steps refuse (``tensor_parallel.check_dense``: MoE, SSM,
-hybrid, embeddings inputs) gives an ``error`` record whose
-``NotImplementedError`` names ROADMAP A12 part 3. ``--seq-fallback``,
-``--moe-hints`` and ``--moe-weight-gather`` raise ``ValueError``
-(``perf.UNREAD``) until their readers land. ``--save-hlo PATH`` has no HLO
-to save: it writes the counted per-op table (every coordinate's ops by
-name: calls, bytes, flops) to ``PATH`` instead.
+Dense and MoE attention stacks run (the MoE tail under ``--moe-policy``,
+its experts over ``model`` where the rules put them, ZeRO over ``pod`` on
+the multi-pod mesh for grok). A family the mesh steps refuse
+(``tensor_parallel.check_family``: SSM, hybrid, embeddings inputs) gives an
+``error`` record whose ``NotImplementedError`` names ROADMAP A12 part 3.
+``--moe-hints`` and ``--moe-weight-gather`` are accepted and change no
+number: the port's MoE tail already has the layout each asks GSPMD for
+(``perf``). ``--seq-fallback`` raises ``ValueError`` (``perf.UNREAD``)
+until its reader lands. ``--save-hlo PATH`` has no HLO to save: it writes
+the counted per-op table (every coordinate's ops by name: calls, bytes,
+flops) to ``PATH`` instead.
 
 Usage (from the root of a checkout):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \\

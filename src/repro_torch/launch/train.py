@@ -7,8 +7,15 @@ compression (int8, no error feedback) and ``--preset 100m`` for the
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \\
       --steps 50 --batch 8 --seq 128 --ckpt-dir ckpt [--resume]
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --arch granite-moe-1b-a400m --mesh 2x2 --devices "cpu cpu cpu cpu"
 
-Weights come from ``models.init_params(cfg, seed=0)``, batches from
+``--mesh DPxMP`` (or ``PODxDPxMP``) trains on a mesh of logical devices
+(``runtime.steps.make_mesh_train_fn``: FSDP over ``data``, tensor
+parallelism over ``model``, ZeRO over ``pod`` where the config asks) over
+``--devices``, one per coordinate (default ``--device`` at every one: one
+card named several times); checkpoints hold the joined state, so a run
+resumes onto any mesh. Weights come from ``models.init_params(cfg, seed=0)``, batches from
 ``data.pipeline.SyntheticLM`` (seed 0), moved to the device here. The log
 lines are the JAX launcher's.
 """
@@ -29,8 +36,10 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
 from repro_torch.distributed.collectives import make_grad_compressor
 from repro_torch.ft.failover import StepTimeWatchdog
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.optim import adamw
-from repro_torch.runtime.steps import TrainState, make_train_fn
+from repro_torch.runtime.steps import (TrainState, make_mesh_train_fn,
+                                       make_train_fn, place_train_state)
 
 
 def preset_100m(base):
@@ -71,6 +80,12 @@ def main() -> None:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' trains there)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="'DPxMP' or 'PODxDPxMP': train on a mesh of "
+                         "logical devices over --devices")
+    ap.add_argument("--devices", default="",
+                    help="space-separated, one per mesh coordinate "
+                         "(default --device at every coordinate)")
     args = ap.parse_args()
 
     device = torch.device(args.device)
@@ -94,7 +109,22 @@ def main() -> None:
         cfn, init_residual = make_grad_compressor(bits=8, error_feedback=False)
         compress = lambda g: cfn(g, init_residual(g))[0]  # noqa: E731
 
-    step_fn = make_train_fn(cfg, opt_cfg, grad_compress=compress)
+    shape = tuple(int(n) for n in args.mesh.lower().split("x"))
+    mesh = None
+    if shape != (1, 1):
+        if len(shape) not in (2, 3) or compress is not None:
+            raise SystemExit("--mesh takes DPxMP or PODxDPxMP, without "
+                             "--grad-compress")
+        axes = ("pod", "data", "model")[-len(shape):]
+        n = 1
+        for s in shape:
+            n *= s
+        mesh = make_debug_mesh(shape, axes, devices=(
+            args.devices.split() or [str(device)] * n))
+        print(f"[train] mesh {dict(zip(axes, shape))}")
+        step_fn = make_mesh_train_fn(cfg, mesh, opt_cfg)
+    else:
+        step_fn = make_train_fn(cfg, opt_cfg, grad_compress=compress)
 
     params = models.init_params(cfg, seed=0, device=device)
     state = TrainState(params=params, opt=adamw.init(params))
@@ -103,6 +133,9 @@ def main() -> None:
     if args.resume and mgr.latest_step() is not None:
         start, state = mgr.restore(state)
         print(f"[train] resumed from step {start}")
+    if mesh is not None:
+        state = place_train_state(cfg, state, mesh)
+        device = mesh.device(mesh.coords()[0])
 
     data = SyntheticLM(cfg, DataConfig(args.batch, args.seq, seed=0))
     pf = Prefetcher(data, start_step=start)

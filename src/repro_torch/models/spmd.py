@@ -4,9 +4,10 @@ part 3 items 4-5; the bodies of ``runtime.steps.lower_train``,
 ``lower_prefill`` and ``lower_decode``).
 
 Each coordinate computes with its model shard of every weight, whole over
-``data`` (``distributed.fsdp.gather_params``): the dense tower of
-``models.tensor_parallel`` (``_Row``, ``_tower``) runs on each data row's
-shards, with the collectives over ``model`` where GSPMD puts them. The
+``data`` (``distributed.fsdp.gather_params``): the tower of
+``models.tensor_parallel`` (``_Row``, ``_tower``; MLP or MoE tails, the
+MoE under ``moe_policy``) runs on each data row's shards, with the
+collectives over ``model`` where GSPMD puts them. The
 batch is split over the rows of ``("pod", "data")`` (row ``r`` of ``R``
 takes batch rows ``[r·B/R, (r+1)·B/R)``, as ``sharding.data_pspec`` lays
 it out), and it must divide over them. The attention is the plain one
@@ -16,7 +17,15 @@ package's lowered steps reach no Pallas kernel.
 **The loss** is the global mean. Each row reduces its cross-entropy sum and
 its valid-token count, and only those scalars cross rows (``all_reduce``
 over ``data``, then ``pod``), then one division: a mean of the rows' means
-would be wrong where the rows hold different numbers of pads. Where the
+would be wrong where the rows hold different numbers of pads. The MoE
+load-balancing term is the JAX package's ``Σ me·ce · E/k`` with ``me`` and
+``ce`` means over the **global** batch: each row's ``[E]`` sums
+(``moe.aux_stats``) are reduced over the rows before the product (a mean
+of the rows' terms would be another number). Every model shard of a row
+computes it alike from the replicated router outputs, and it enters the
+loss as the cross-entropy does: each coordinate adds its copy, and the
+gradient is taken of the first coordinate's loss only, so it reaches the
+router once. Where the
 head splits the vocab over ``model``, the loss is vocab-parallel: each
 shard's logsumexp pieces combine by ``pmax`` and ``all_reduce``, and the
 label's logit comes from the shard that owns it, so no ``[B, S, V]``
@@ -41,8 +50,8 @@ where a run on real devices counts every row's 1/devices: the same
 per-device work, in a sixteenth of the time on the 16 x 16 production
 mesh.
 
-Families other than dense attention + MLP stacks raise
-``NotImplementedError`` (``tensor_parallel.check_dense``).
+SSM and hybrid stacks and embeddings inputs raise ``NotImplementedError``
+(``tensor_parallel.check_family``).
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as shd
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import tensor_parallel as tp
 from .model import MOE_AUX_WEIGHT, _positions
 
@@ -80,7 +90,7 @@ def layout(cfg: ArchConfig, uspecs: dict, mesh) -> tp.TPLayout:
     return tp.TPLayout(
         dp=num_rows(mesh), mp=mesh.shape["model"],
         heads=split("blocks.0.attn.wq"), kv=split("blocks.0.attn.wk"),
-        mlp=split("blocks.0.mlp.w_gate"),
+        mlp=split("blocks.0.mlp.w_gate"), moe=moe_mod.moe_split(uspecs),
         vocab="model" in shd.spec_axes(emb[0]),
         width="model" in shd.spec_axes(emb[1]),
         rows=(), row_block=0)
@@ -206,38 +216,48 @@ def _across_rows(xs: dict, mesh) -> dict:
 
 
 def mesh_loss(cfg: ArchConfig, mesh, params: dict, uspecs: dict,
-              batch: dict, *, impl: str = "naive",
+              batch: dict, *, impl: str = "naive", moe_policy: str = "drop",
               remat: bool = False) -> tuple[dict, dict]:
     """The loss of ``batch`` (global ``inputs`` i32[B, S] and ``labels``,
     -1 = pad) over the mesh with each coordinate's weights ``params``
     (``{coord: {key: piece}}`` in the ``uspecs`` layout) -> (``{coord:
     loss}``, the first coordinate's ``{"ce", "moe_aux", "ntok"}``), as
     ``models.loss_fn``'s."""
-    tp.check_dense(cfg)
+    tp.check_family(cfg)
     check_mesh(mesh)
     core = full_core(impl)
     n = num_rows(mesh)
-    ce_sum, ntok = {}, {}
+    moe = any(cfg.mlp_at(s) == "moe" for s in range(cfg.period))
+    ce_sum, ntok, stats = {}, {}, {}
     with row_spread(mesh):
         for r, row in _rows_of(cfg, mesh, params, uspecs):
             toks = _row_slice(batch["inputs"], r, n)
             labels = _row_slice(batch["labels"], r, n)
+            layers: list = []  # each MoE layer's shards' aux sums
             xs = tp._tower(cfg, row, row.each(toks),
                            [_positions(t) for t in row.each(toks)], core,
-                           remat=remat)
-            for c, ce, lab in zip(row.coords,
-                                  _row_ce(cfg, row, xs, labels),
-                                  row.each(labels)):
+                           remat=remat, moe_policy=moe_policy, aux=layers)
+            for m, (c, ce, lab) in enumerate(zip(
+                    row.coords, _row_ce(cfg, row, xs, labels),
+                    row.each(labels))):
                 ce_sum[c] = torch.sum(ce)
                 ntok[c] = torch.sum((lab >= 0).to(torch.float32))
+                if moe:  # [layers, 2, E]: this shard's sums of the row
+                    stats[c] = torch.stack([layer[m] for layer in layers])
         ce_sum, ntok = _copies(mesh, ce_sum), _copies(mesh, ntok)
+        stats = _copies(mesh, stats) if moe else {}
     ce_sum, ntok = _across_rows(ce_sum, mesh), _across_rows(ntok, mesh)
     loss = {c: ce_sum[c] / torch.clamp(ntok[c], min=1.0) for c in ce_sum}
+    if moe:  # the global batch's sums, then the product
+        tokens = batch["inputs"].shape[0] * batch["inputs"].shape[1]
+        aux = {c: moe_mod.aux_from_stats(cfg, t, tokens)
+               for c, t in _across_rows(stats, mesh).items()}
+    else:
+        aux = {c: torch.zeros((), dtype=torch.float32, device=v.device)
+               for c, v in loss.items()}
+    total = {c: v + MOE_AUX_WEIGHT * aux[c] for c, v in loss.items()}
     first = mesh.coords()[0]
-    aux = torch.zeros((), dtype=torch.float32, device=mesh.device(first))
-    total = {c: v + MOE_AUX_WEIGHT * aux.to(v.device)
-             for c, v in loss.items()}
-    return total, {"ce": loss[first], "moe_aux": aux,
+    return total, {"ce": loss[first], "moe_aux": aux[first],
                    "ntok": torch.clamp(ntok[first], min=1.0)}
 
 
@@ -252,12 +272,12 @@ def _seq_pieces(row, full: list, seq_split: bool) -> list:
 
 def mesh_prefill(cfg: ArchConfig, mesh, params: dict, uspecs: dict,
                  inputs: torch.Tensor, cache_specs: list, *,
-                 impl: str = "naive") -> tuple:
+                 impl: str = "naive", moe_policy: str = "drop") -> tuple:
     """``models.prefill`` over the mesh: ``inputs`` i32[B, S] -> (the last
     token's logits [B, V] float32 on the mesh's first device, the dense
     cache as a ``tensor_parallel.ShardedCache`` in ``cache_specs``'
     layout)."""
-    tp.check_dense(cfg)
+    tp.check_family(cfg)
     check_mesh(mesh)
     n = num_rows(mesh)
     b, s = inputs.shape[0] // n, inputs.shape[1]
@@ -285,7 +305,8 @@ def mesh_prefill(cfg: ArchConfig, mesh, params: dict, uspecs: dict,
 
             toks = _row_slice(inputs, r, n)
             xs = tp._tower(cfg, row, row.each(toks),
-                           [_positions(t) for t in row.each(toks)], core)
+                           [_positions(t) for t in row.each(toks)], core,
+                           moe_policy=moe_policy)
             logits[row.coords[0]] = tp._head(cfg, row,
                                              [x[:, -1] for x in xs])
         logits = _copies(mesh, logits, model0=True)
@@ -303,19 +324,22 @@ def mesh_prefill(cfg: ArchConfig, mesh, params: dict, uspecs: dict,
 
 def mesh_decode(cfg: ArchConfig, mesh, params: dict, uspecs: dict,
                 cache: "tp.ShardedCache", inputs: torch.Tensor,
-                pos: torch.Tensor) -> torch.Tensor:
+                pos: torch.Tensor, *, moe_policy: str = "drop"
+                ) -> torch.Tensor:
     """``models.decode_step`` over the mesh: ``inputs`` i32[B, 1] and one
     position ``pos`` (0-d, every row's) -> logits [B, V] float32 on the
     mesh's first device; every coordinate's cache piece (the
     ``cache_pspec_tree`` layout) updated in place."""
-    tp.check_dense(cfg)
+    tp.check_family(cfg)
     check_mesh(mesh)
     with row_spread(mesh):
-        logits = _decode_rows(cfg, mesh, params, uspecs, cache, inputs, pos)
+        logits = _decode_rows(cfg, mesh, params, uspecs, cache, inputs, pos,
+                              moe_policy)
     return tp._gather_rows(mesh, logits)
 
 
-def _decode_rows(cfg, mesh, params, uspecs, cache, inputs, pos) -> dict:
+def _decode_rows(cfg, mesh, params, uspecs, cache, inputs, pos,
+                 moe_policy) -> dict:
     n = num_rows(mesh)
     logits = {}
     for r, row in _rows_of(cfg, mesh, params, uspecs, cache):
@@ -340,6 +364,6 @@ def _decode_rows(cfg, mesh, params, uspecs, cache, inputs, pos) -> dict:
             return tp._dense_cores(row, cs, write_attend)
 
         xs = tp._tower(cfg, row, row.each(toks), [x[:, None] for x in p],
-                       core)
+                       core, moe_policy=moe_policy)
         logits[row.coords[0]] = tp._head(cfg, row, [x[:, -1] for x in xs])
     return _copies(mesh, logits, model0=True)

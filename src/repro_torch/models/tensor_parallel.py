@@ -12,6 +12,12 @@ never assumed (``TPLayout``):
   an ``all_reduce`` over ``model`` after ``wo`` (Megatron's split);
 * ``w_gate``/``w_up`` column-parallel over ``d_ff``, ``w_down``
   row-parallel, an ``all_reduce`` after it;
+* a MoE tail (``models.moe.moe_shard``) with the router whole on every
+  shard and the experts split where the rules put them: E over ``model``
+  (EP: each shard runs the assignments of its own experts) or else F (TP
+  on F: every assignment over the shard's slice). Each shard returns its
+  float32 part of ``y``, and one ``all_reduce`` over ``model`` sums them,
+  as after the dense ``w_down``; the sum is cast to the model dtype once;
 * the embedding vocab-parallel: a masked lookup of the shard's rows, then
   an ``all_reduce``; the head (tied or not) gives vocab-parallel logits,
   then an ``all_gather``. Where the vocab does not divide, the rules split
@@ -68,9 +74,9 @@ block into another pool of any layout, each page into the row that holds
 it and each head into its model shard; the two ends never assume each
 other's layout.
 
-Families other than dense attention + MLP stacks raise
-``NotImplementedError`` (ROADMAP A12 part 3) in the engine before anything
-here runs.
+Attention stacks with MLP or MoE tails are served (``check_family``);
+SSM and hybrid stacks and embeddings inputs raise ``NotImplementedError``
+(ROADMAP A12 part 3) in the engine before anything here runs.
 """
 
 from __future__ import annotations
@@ -88,20 +94,21 @@ from repro_torch.distributed import sharding as shd
 
 from . import attention as attn
 from . import mlp as mlp_mod
+from . import moe as moe_mod
 from .blocks import _scale, _is_local
 from .layers import embed_apply, head_apply, norm_apply, softcap
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """The tensor-parallel path serves attention + MLP stacks only."""
+def check_family(cfg: ArchConfig) -> None:
+    """The tensor-parallel path serves attention stacks with MLP or MoE
+    tails on token inputs."""
     for slot in range(cfg.period):
-        if (not cfg.mixer_at(slot).startswith("attn")
-                or cfg.mlp_at(slot) == "moe"):
+        if not cfg.mixer_at(slot).startswith("attn"):
             raise NotImplementedError(
                 f"{cfg.name}: slot {slot} ({cfg.mixer_at(slot)}, "
                 f"{cfg.mlp_at(slot)}) on a plan of more than one device "
                 f"waits for {shd.PART3}: the tensor-parallel path serves "
-                f"dense attention + MLP stacks")
+                f"attention stacks with MLP or MoE tails")
     if cfg.input_kind != "tokens":
         raise NotImplementedError(
             f"{cfg.name}: embeddings inputs on a plan of more than one "
@@ -117,6 +124,7 @@ class TPLayout:
     heads: bool  # wq/wo split over model (num_heads % mp == 0)
     kv: bool  # wk/wv and the pool's heads split (num_kv_heads % mp == 0)
     mlp: bool  # w_gate/w_up/w_down split over d_ff
+    moe: str | None  # the experts over model: "experts", "ffn" or whole
     vocab: bool  # the embedding and the head split over the vocab
     width: bool  # ... else over d_model (a vocab 'model' does not divide)
     rows: tuple  # (lo, hi) slot range of each data row
@@ -150,7 +158,7 @@ def layout_for(cfg: ArchConfig, specs: dict, plan: shd.MeshPlan,
     return TPLayout(
         dp=plan.dp, mp=plan.mp,
         heads=split(slot0 + "attn.wq"), kv=split(slot0 + "attn.wk"),
-        mlp=split(slot0 + "mlp.w_gate"),
+        mlp=split(slot0 + "mlp.w_gate"), moe=moe_mod.moe_split(specs),
         vocab="model" in shd.spec_axes(emb[0]),
         width="model" in shd.spec_axes(emb[1]),
         rows=rows, row_block=physical_pages // plan.dp,
@@ -562,46 +570,84 @@ def _attend(cfg: ArchConfig, row: _Row, slot: int, i: int, hs: list,
     return row.reduce(outs) if lay.heads else outs
 
 
-def _mlp(cfg: ArchConfig, row: _Row, slot: int, i: int, xs: list) -> list:
-    if cfg.mlp_at(slot) == "none":
-        return xs
-    outs = []
-    for m in range(row.lay.mp):
-        p, _ = row.layer(m, i, slot)
-        h = norm_apply(cfg, _scale(p, "norm2"), xs[m])
-        outs.append(mlp_mod.mlp_apply(cfg, p["mlp"], h))
-    if row.lay.mlp:
-        outs = row.reduce(outs)
-    return [x + o for x, o in zip(xs, outs)]
+def _moe(cfg: ArchConfig, row: _Row, slot: int, i: int, hs: list,
+         moe_policy: str, with_aux: bool) -> tuple[list, list | None]:
+    """One MoE tail on every shard of a row -> (each shard's ``y`` in the
+    model dtype, with ``with_aux`` each shard's ``moe.aux_stats``, else
+    None: serving computes no aux term)."""
+    lay = row.lay
+    ys, stats = [], []
+    for m in range(lay.mp):
+        p = row.layer(m, i, slot)[0]["moe"]
+        moe_mod.check_mesh_opts(cfg, p, lay.moe, lay.mp)
+        lo = m * p["w_gate"].shape[0] if lay.moe == "experts" else 0
+        y, idx, probs = moe_mod.moe_shard(cfg, p, hs[m], policy=moe_policy,
+                                          lo=lo, partial=lay.moe is not None)
+        ys.append(y)
+        if with_aux:
+            stats.append(moe_mod.aux_stats(cfg, idx, probs))
+    if lay.moe is not None:  # the float32 parts summed, then one cast
+        ys = [y.to(h.dtype) for y, h in zip(row.reduce(ys), hs)]
+    return ys, (stats if with_aux else None)
+
+
+def _mlp(cfg: ArchConfig, row: _Row, slot: int, i: int, xs: list,
+         moe_policy: str = "drop",
+         with_aux: bool = False) -> tuple[list, list | None]:
+    """The residual MLP or MoE tail on every shard -> (xs, with
+    ``with_aux`` each shard's aux sums of a MoE slot, else None)."""
+    kind = cfg.mlp_at(slot)
+    if kind == "none":
+        return xs, None
+    hs = [norm_apply(cfg, _scale(row.layer(m, i, slot)[0], "norm2"), xs[m])
+          for m in range(row.lay.mp)]
+    stats = None
+    if kind == "moe":
+        outs, stats = _moe(cfg, row, slot, i, hs, moe_policy, with_aux)
+    else:
+        outs = [mlp_mod.mlp_apply(cfg, row.layer(m, i, slot)[0]["mlp"], h)
+                for m, h in enumerate(hs)]
+        if row.lay.mlp:
+            outs = row.reduce(outs)
+    return [x + o for x, o in zip(xs, outs)], stats
 
 
 def _tower(cfg: ArchConfig, row: _Row, toks: list, positions: list,
-           core, remat: bool = False) -> list:
-    """Embed, every layer (attention then MLP, residuals on every shard),
-    the final norm -> each shard's hidden state (replicas). ``remat``
-    recomputes each period of layers in the backward pass, as
-    ``models.forward``'s."""
+           core, remat: bool = False, moe_policy: str = "drop",
+           aux: list | None = None) -> list:
+    """Embed, every layer (attention then the MLP or MoE tail, residuals
+    on every shard), the final norm -> each shard's hidden state
+    (replicas). ``remat`` recomputes each period of layers in the backward
+    pass, as ``models.forward``'s. With ``aux`` (a list) each MoE layer
+    appends every shard's ``moe.aux_stats`` (a list of ``[2, E]``)."""
+    mp = row.lay.mp
 
-    def period(i: int, *xs: torch.Tensor) -> list:
-        xs = list(xs)
+    def period(i: int, *xs: torch.Tensor) -> tuple:
+        xs, got = list(xs), []
         for slot in range(cfg.period):
             hs = [norm_apply(cfg, _scale(row.layer(m, i, slot)[0], "norm1"),
-                             xs[m]) for m in range(row.lay.mp)]
+                             xs[m]) for m in range(mp)]
             a = _attend(cfg, row, slot, i, hs, positions, core)
             xs = [x + o for x, o in zip(xs, a)]
-            xs = _mlp(cfg, row, slot, i, xs)
-        return xs
+            xs, stats = _mlp(cfg, row, slot, i, xs, moe_policy,
+                             with_aux=aux is not None)
+            if stats is not None:
+                got += stats
+        return (*xs, *got)  # outputs, so that a remat region returns them
 
     xs = _embed(cfg, row, toks)
     for i in range(cfg.num_layers // cfg.period):
         if remat:
             from .model import _remat_context
 
-            xs = checkpoint_utils.checkpoint(
+            out = checkpoint_utils.checkpoint(
                 period, i, *xs, use_reentrant=False,
                 context_fn=_remat_context)
         else:
-            xs = period(i, *xs)
+            out = period(i, *xs)
+        xs, got = list(out[:mp]), out[mp:]
+        if aux is not None:
+            aux.extend(list(got[j:j + mp]) for j in range(0, len(got), mp))
     return [norm_apply(cfg, p.get("final_norm.scale"), x)
             for p, x in zip(row.params, xs)]
 
@@ -616,7 +662,7 @@ def _rows(lay: TPLayout, mesh, params: dict, cache: ShardedCache):
 def mesh_paged_decode_step(
     cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
     inputs: torch.Tensor, pos: torch.Tensor, block_tables: torch.Tensor,
-    *, attn_impl: str = "kernel",
+    *, attn_impl: str = "kernel", moe_policy: str = "drop",
 ) -> torch.Tensor:
     """``models.paged_decode_step`` over the mesh: inputs i32[S,1], pos
     i32[S], block_tables i32[S,PB] (global ids) on the mesh's first device
@@ -635,14 +681,15 @@ def mesh_paged_decode_step(
                 for m, (c, q, k, v) in enumerate(zip(cs, qs, ks, vs))]
 
         xs = _tower(cfg, row, row.each(inputs[lo:hi]),
-                    [x[:, None] for x in p], core)
+                    [x[:, None] for x in p], core, moe_policy=moe_policy)
         out[d, 0] = _head(cfg, row, [x[:, -1] for x in xs])
     return _gather_rows(mesh, out)
 
 
 @_per_device
 def _paged_chunk(cfg, lay, params, cache, inputs, start, block_tables,
-                 length, attn_impl: str, every_row: bool) -> torch.Tensor:
+                 length, attn_impl: str, every_row: bool,
+                 moe_policy: str) -> torch.Tensor:
     """The paged chunk tower over the mesh -> the logits of each row's last
     real chunk row [S,V], or with ``every_row`` of every row [S,C,V]."""
     from .model import _last_real_row
@@ -662,7 +709,8 @@ def _paged_chunk(cfg, lay, params, cache, inputs, start, block_tables,
                 for m, (c, q, k, v) in enumerate(zip(cs, qs, ks, vs))]
 
         xs = _tower(cfg, row, row.each(inputs[lo:hi]),
-                    [attn.chunk_positions(s, c_len) for s in st], core)
+                    [attn.chunk_positions(s, c_len) for s in st], core,
+                    moe_policy=moe_policy)
         out[d, 0] = _head(cfg, row, xs if every_row else
                           [_last_real_row(x, n) for x, n in zip(xs, ln)])
     return _gather_rows(mesh, out)
@@ -672,26 +720,30 @@ def mesh_paged_prefill_step(
     cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
     inputs: torch.Tensor, start: torch.Tensor, block_tables: torch.Tensor,
     length: torch.Tensor, *, attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> torch.Tensor:
     """``models.paged_prefill_step`` over the mesh: inputs i32[S,C], start,
     length i32[S], block_tables i32[S,PB] (global ids) on the mesh's first
     device -> the logits of each row's last real chunk row [S,V] float32
     there; every shard's pool piece updated in place."""
     return _paged_chunk(cfg, lay, params, cache, inputs, start,
-                        block_tables, length, attn_impl, every_row=False)
+                        block_tables, length, attn_impl, every_row=False,
+                        moe_policy=moe_policy)
 
 
 def mesh_paged_verify_step(
     cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
     inputs: torch.Tensor, start: torch.Tensor, block_tables: torch.Tensor,
     length: torch.Tensor, *, attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> torch.Tensor:
     """``models.paged_verify_step`` over the mesh (the ``vf`` lane): as
     ``mesh_paged_prefill_step``, but the logits of all C = k+1 window rows
     [S,C,V] float32, gathered over ``data`` onto the mesh's first
     device."""
     return _paged_chunk(cfg, lay, params, cache, inputs, start,
-                        block_tables, length, attn_impl, every_row=True)
+                        block_tables, length, attn_impl, every_row=True,
+                        moe_policy=moe_policy)
 
 
 def _dense_cores(row: _Row, cs: list, fn) -> list:
@@ -717,6 +769,7 @@ def _dense_cores(row: _Row, cs: list, fn) -> list:
 def mesh_slot_decode_step(
     cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
     inputs: torch.Tensor, pos: torch.Tensor, *, attn_impl: str = "kernel",
+    moe_policy: str = "drop",
 ) -> torch.Tensor:
     """``models.decode_step`` at per-row positions over the mesh (the
     ``cb`` lane, and each of a ``dr`` call's steps): inputs i32[S,1], pos
@@ -733,14 +786,15 @@ def mesh_slot_decode_step(
                 attn_impl=attn_impl, amax=amax[m]))
 
         xs = _tower(cfg, row, row.each(inputs[lo:hi]),
-                    [x[:, None] for x in p], core)
+                    [x[:, None] for x in p], core, moe_policy=moe_policy)
         out[d, 0] = _head(cfg, row, [x[:, -1] for x in xs])
     return _gather_rows(mesh, out)
 
 
 @_per_device
 def _dense_chunk(cfg, lay, params, cache, inputs, start, length,
-                 attn_impl: str, every_row: bool) -> torch.Tensor:
+                 attn_impl: str, every_row: bool,
+                 moe_policy: str) -> torch.Tensor:
     """The dense chunk tower over the mesh -> the logits of each row's last
     real chunk row [S,V], or with ``every_row`` of every row [S,C,V]."""
     from .model import _last_real_row
@@ -762,7 +816,8 @@ def _dense_chunk(cfg, lay, params, cache, inputs, start, length,
                 attn_impl=attn_impl, amax=amax[m]))
 
         xs = _tower(cfg, row, row.each(inputs[lo:hi]),
-                    [attn.chunk_positions(s, c_len) for s in st], core)
+                    [attn.chunk_positions(s, c_len) for s in st], core,
+                    moe_policy=moe_policy)
         out[d, 0] = _head(cfg, row, xs if every_row else
                           [_last_real_row(x, n) for x, n in zip(xs, ln)])
     return _gather_rows(mesh, out)
@@ -771,7 +826,7 @@ def _dense_chunk(cfg, lay, params, cache, inputs, start, length,
 def mesh_slot_prefill_step(
     cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
     inputs: torch.Tensor, start: torch.Tensor, length: torch.Tensor, *,
-    attn_impl: str = "kernel",
+    attn_impl: str = "kernel", moe_policy: str = "drop",
 ) -> torch.Tensor:
     """``models.chunked_decode_step`` over the mesh (the ``pfd`` lane and
     the draft's ``drp``): inputs i32[S,C], start, length i32[S] on the
@@ -779,19 +834,19 @@ def mesh_slot_prefill_step(
     [S,V] float32 there; every shard's dense cache piece updated in
     place."""
     return _dense_chunk(cfg, lay, params, cache, inputs, start, length,
-                        attn_impl, every_row=False)
+                        attn_impl, every_row=False, moe_policy=moe_policy)
 
 
 def mesh_slot_verify_step(
     cfg: ArchConfig, lay: TPLayout, params: dict, cache: ShardedCache,
     inputs: torch.Tensor, start: torch.Tensor, length: torch.Tensor, *,
-    attn_impl: str = "kernel",
+    attn_impl: str = "kernel", moe_policy: str = "drop",
 ) -> torch.Tensor:
     """``models.chunked_verify_step`` over the mesh (the ``vfd`` lane):
     the logits of all C = k+1 window rows [S,C,V] float32 on the mesh's
     first device."""
     return _dense_chunk(cfg, lay, params, cache, inputs, start, length,
-                        attn_impl, every_row=True)
+                        attn_impl, every_row=True, moe_policy=moe_policy)
 
 
 def _gather_rows(mesh, out: dict) -> torch.Tensor:

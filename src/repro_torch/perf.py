@@ -20,12 +20,20 @@ code reads the ambient opts, so the knobs stay out of the model signatures:
   (``"full"`` recomputes a period of blocks, ``"dots"`` keeps the matrix
   products' outputs).
 
-``moe_hints``, ``moe_weight_gather`` and ``seq_shard_fallback`` keep their
-names so that ``from_flags`` takes the JAX package's keywords; no ported
-module reads them yet (meshes are not ported; the MoE knobs act only
-through sharding hints, which change nothing without a mesh, so
-``models/moe.py`` has nothing to read), so a value other than the default
-raises ``ValueError`` rather than being ignored.
+* ``moe_hints`` and ``moe_weight_gather`` — in the JAX package, sharding
+  constraints on the MoE tail for GSPMD: the dispatch buffer and expert
+  hidden state at "batch over data, experts over model", and the expert
+  weights gathered over ``data`` at their use. Both change nothing
+  without a mesh. On a mesh the port lays the tail out by hand in exactly
+  those layouts (each data row runs its own tokens, a shard holds its
+  experts wherever ``model`` divides E, and ``fsdp.gather_params`` gathers
+  every weight over ``data`` at use), so each flag selects the layout the
+  port already has: ``models.moe.check_mesh_opts`` reads them there and
+  raises if the layout were ever another.
+
+``seq_shard_fallback`` keeps its name so that ``from_flags`` takes the JAX
+package's keyword; no ported module reads it yet (``UNREAD``), so a value
+other than the default raises ``ValueError`` rather than being ignored.
 
 The opts are semi-static: a serving target captures ``current()`` when it
 is built (``bake``) and runs under those opts on every call, as a traced
@@ -43,8 +51,6 @@ from typing import Callable
 
 # fields no ported module reads yet -> the module that will (ROADMAP.md)
 UNREAD = {
-    "moe_hints": "the mesh's expert sharding (A12)",
-    "moe_weight_gather": "the mesh's expert sharding (A12)",
     "seq_shard_fallback": "the mesh's attention sharding (A12)",
 }
 

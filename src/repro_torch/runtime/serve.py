@@ -79,7 +79,8 @@ lanes run on the prefill slice's pool, and a prompt's pages migrate to the
 decode pool at its flip (the ``mg`` targets). A plan of more than one
 logical device ("1x2", "2x2", ...: ``devices[off : off + dp·mp]``, which
 may all name one card) serves every lane of both continuous engines for
-the dense family — ``cbp``, ``pf`` and ``vf`` over model-dtype and int8
+attention stacks with MLP or MoE tails (the MoE tail under the engine's
+``moe_policy``, its experts split over ``model``) — ``cbp``, ``pf`` and ``vf`` over model-dtype and int8
 pools, ``cb``, ``pfd`` and ``vfd`` over the dense cache, and the draft's
 ``dr`` and ``drp`` — with tensor-parallel weights over ``model``, the
 pool's page blocks and the dense caches' slots over ``data`` and their kv
@@ -89,9 +90,9 @@ dense and draft caches and targets, and on the card each key is still one
 CUDA graph. ``set_mesh`` copies the live pages and dense rows between the
 layouts. A split's slices may be such meshes too, of any layouts (decode
 "1x2" beside prefill "1x2@2", or "2x1" beside "1x1@2"): the ``mg``
-targets move a request's pages in the global layout between them. Other
-families and plans across distinct cards raise ``NotImplementedError``
-(ROADMAP A12 part 3).
+targets move a request's pages in the global layout between them. SSM
+and hybrid stacks, embeddings inputs and plans across distinct cards
+raise ``NotImplementedError`` (ROADMAP A12 part 3).
 
 With ``Telemetry(compile_analysis=True)`` each build appends the key's
 capture report (``capture_analysis``) with its roofline terms
@@ -547,7 +548,7 @@ class Engine:
                         f"mesh {nm!r} spans the distinct devices {cards}: "
                         f"plans across cards wait for {shd.PART3}; name one "
                         f"card for every logical device")
-                tensor_parallel.check_dense(self.cfg)
+                tensor_parallel.check_family(self.cfg)
             self._mesh_plans[nm] = plan
         return plan
 

@@ -150,7 +150,8 @@ def _decode_logits(one: Callable, mesh: Callable, cfg: ArchConfig,
     function ``one`` (its cache updated in place) or, with a mesh
     ``layout``, its counterpart ``mesh`` in ``models.tensor_parallel``."""
     if layout is not None:
-        return partial(mesh, cfg, layout, attn_impl=attn_impl)
+        return partial(mesh, cfg, layout, attn_impl=attn_impl,
+                       moe_policy=moe_policy)
 
     def logits(params, cache, *inputs):
         return one(cfg, params, cache, *inputs, attn_impl=attn_impl,
@@ -601,6 +602,7 @@ def make_mesh_train_fn(
     opt_cfg: adamw.AdamWConfig | None = None,
     *,
     impl: str = "naive",
+    moe_policy: str = "drop",
     donate: bool = True,
 ) -> Callable:
     """``make_train_fn`` over ``mesh`` with the full rules: ``step(state,
@@ -612,10 +614,12 @@ def make_mesh_train_fn(
     are 0-d tensors on the mesh's first device: ``loss``, ``ce``,
     ``moe_aux``, ``ntok``, ``grad_norm``, ``lr``. With ``donate`` the step
     consumes the state it is given (its pieces are updated and returned),
-    else it updates a copy. Every op runs once per coordinate, so a capture
+    else it updates a copy. A MoE stack's tail runs under ``moe_policy``
+    (its aux term from the global batch, ``models.spmd.mesh_loss``). Every
+    op runs once per coordinate, so a capture
     report counts 1/devices of them to a device (``capture_analysis.
     spread``), the backward too."""
-    tensor_parallel.check_dense(cfg)
+    tensor_parallel.check_family(cfg)
     spmd.check_mesh(mesh)
     spmd.full_core(impl)  # refuses an attention that has no backward
     opt_cfg = opt_cfg or adamw.AdamWConfig()
@@ -634,7 +638,8 @@ def make_mesh_train_fn(
                 t.is_floating_point()) for k, t in ws.items()}
                 for c, ws in used.items()}
             loss, metrics = spmd.mesh_loss(
-                cfg, mesh, leaves, uspecs, batch, impl=impl, remat=remat)
+                cfg, mesh, leaves, uspecs, batch, impl=impl,
+                moe_policy=moe_policy, remat=remat)
             keys = [(c, k) for c in spmd.ran(mesh) for k in leaves[c]]
             with spmd.row_spread(mesh):
                 got = torch.autograd.grad(
@@ -646,7 +651,7 @@ def make_mesh_train_fn(
         del leaves, used, got
         grads = {c: grads[spmd.stand_in(mesh, c)] for c in mesh.coords()}
         with capture_analysis.spread(mesh.size):
-            grads = fsdp.reduce_grads(grads, p_spec, mesh)
+            grads = fsdp.reduce_grads(grads, p_spec, mesh, state.specs[1])
             state, opt_metrics = fsdp.apply_adamw(opt_cfg, grads, state)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(loss=loss[first].detach(), **opt_metrics)
@@ -668,10 +673,10 @@ def lower_train(
 ) -> Lowered:
     """The train step for ``shape`` on ``mesh`` (``make_mesh_train_fn``)
     with the optimizer ``opt_cfg`` (default ``AdamWConfig()``, as the JAX
-    package's lowered step); ``moe_policy`` is taken for the JAX package's
-    signature (the mesh runs dense stacks only)."""
+    package's lowered step) and a MoE stack's ``moe_policy``."""
     with perf.use_perf_opts(opts or perf.current()):
         fn = perf.bake(make_mesh_train_fn(cfg, mesh, opt_cfg, impl=impl,
+                                          moe_policy=moe_policy,
                                           donate=donate))
     st, batch, _, batch_spec = train_shardings(cfg, mesh, shape)
     state = fsdp.shard_state(cfg, st, _meta(mesh))._replace(mesh=mesh)
@@ -716,7 +721,7 @@ def lower_decode(
     (gathered over ``data`` at use), the cache a ``ShardedCache`` in
     ``cache_pspec_tree``'s layout, updated in place (with ``donate``; else
     a copy is)."""
-    tensor_parallel.check_dense(cfg)
+    tensor_parallel.check_family(cfg)
     spmd.check_mesh(mesh)
     b, s = shape.global_batch, shape.seq_len
     params, p_spec = _sharded_params(cfg, mesh)
@@ -737,7 +742,7 @@ def lower_decode(
                     cache = _copy_cache(cache)
                 used = fsdp.gather_params(params, p_spec, mesh)
             logits = spmd.mesh_decode(cfg, mesh, used, uspecs, cache,
-                                      inputs, pos)
+                                      inputs, pos, moe_policy=moe_policy)
         return logits, cache
 
     with perf.use_perf_opts(opts or perf.current()):
@@ -759,7 +764,7 @@ def lower_prefill(
     """``step(params, inputs [B, S]) -> (the last token's logits [B, V] on
     the mesh's first device, the dense cache as a ``ShardedCache`` in
     ``cache_pspec_tree``'s layout)``, params as ``lower_decode``'s."""
-    tensor_parallel.check_dense(cfg)
+    tensor_parallel.check_family(cfg)
     spmd.check_mesh(mesh)
     b, s = shape.global_batch, shape.seq_len
     params, p_spec = _sharded_params(cfg, mesh)
@@ -772,7 +777,8 @@ def lower_prefill(
             with capture_analysis.spread(mesh.size):
                 used = fsdp.gather_params(params, p_spec, mesh)
             return spmd.mesh_prefill(cfg, mesh, used, uspecs, inputs,
-                                     c_spec, impl=impl)
+                                     c_spec, impl=impl,
+                                     moe_policy=moe_policy)
 
     with perf.use_perf_opts(opts or perf.current()):
         fn = perf.bake(prefill_step)

@@ -25,8 +25,8 @@ tokens, every other one sampled), one torch thread.
   engine, speculation and int8 pools warm on a multi-device ladder
   (``tests/test_torch_mesh_lanes.py`` holds them to the JAX package), and
   so do disaggregation beside a multi-device plan and the capture report
-  of a multi-device key; what still waits for ROADMAP A12 part 3 raises
-  naming it; a plan across distinct devices raises.
+  of a multi-device key; what still waits for ROADMAP A12 part 3 (an SSM
+  stack) raises naming it; a plan across distinct devices raises.
 """
 
 from __future__ import annotations
@@ -314,7 +314,7 @@ def test_out_of_scope_lanes_raise_naming_part3(cfg, tparams):
     package), with a capture report of every multi-device key (its
     collectives' bytes; ``tests/test_torch_capture_mesh.py``). What still
     waits for A12 part 3 is refused before anything is warmed, naming it:
-    a non-dense family, a plan across distinct devices."""
+    an SSM family, a plan across distinct devices."""
     served = [
         (dict(meshes=("1x2",)), "continuous", ("cb", 4, "1x2")),
         (dict(meshes=("1x2",), spec_k=2), "paged_continuous",
@@ -334,12 +334,12 @@ def test_out_of_scope_lanes_raise_naming_part3(cfg, tparams):
         for m in ("1x1", "1x1@1", "1x2"):
             for op in ("gather", "scatter"):
                 assert ("mg", op, "fp32", m) in eng._decode, (op, m)
-    moe = get_config("granite-moe-1b-a400m").smoke()
-    with Engine(moe, models.init_params(moe, seed=0),
+    ssm = get_config("mamba2-370m").smoke()  # (MoE stacks are served)
+    with Engine(ssm, models.init_params(ssm, seed=0),
                 EngineConfig(**BASE, meshes=("1x2",), devices=CPU4),
                 device="cpu") as eng:
         with pytest.raises(NotImplementedError, match="A12 part 3"):
-            eng.paged_continuous(slots=4)
+            eng.continuous(slots=4)
     two = ("cpu", "cpu:1", "cpu", "cpu")  # two distinct logical devices
     with _engine(cfg, tparams, meshes=("1x2",), devices=two) as eng:
         with pytest.raises(NotImplementedError, match="distinct"):

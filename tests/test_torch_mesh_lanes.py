@@ -295,10 +295,11 @@ def test_int8_writes_equal_one_device_bit_for_bit(cfg, mesh):
 
 
 # ----------------------------------------------------- one step's logits
-def _lane_logits(cfg, params, meshes) -> dict:
+def _lane_logits(cfg, params, meshes, moe_policy: str = "drop") -> dict:
     """One ``vf`` window (3 rows) over a pool and one ``cb`` step, ``pfd``
     chunk and ``vfd`` window over a dense cache, each from one content
-    (random, laid out onto each mesh's pieces) at 1x1 and at ``meshes``."""
+    (random, laid out onto each mesh's pieces) at 1x1 and at ``meshes``
+    (a MoE stack's tail under ``moe_policy``)."""
     rng = np.random.default_rng(3)
     out = {}
     with _engine(cfg, params, mesh="1x1", meshes=meshes,
@@ -322,30 +323,32 @@ def _lane_logits(cfg, params, meshes) -> dict:
         pos = torch.tensor([3, 9, 31, 15], dtype=torch.int32)
         start = torch.tensor([0, 2, 14, 27], dtype=torch.int32)
         length = torch.tensor([3, 2, 3, 0], dtype=torch.int32)
+        kw = dict(moe_policy=moe_policy)
         for m in ("1x1",) + tuple(meshes):
             pool, dense = eng.paged_cache("fp32", m), eng.dense_cache(4, m)
             ps = eng._params_for_mesh(m)
             models.relayout_cache(pool, psnap)
             if m == "1x1":
                 steps = (
-                    lambda: models.decode_step(cfg, ps, dense, tok, pos)[0],
+                    lambda: models.decode_step(cfg, ps, dense, tok, pos,
+                                               **kw)[0],
                     lambda: models.chunked_decode_step(
-                        cfg, ps, dense, chunk, start, length)[0],
+                        cfg, ps, dense, chunk, start, length, **kw)[0],
                     lambda: models.chunked_verify_step(
-                        cfg, ps, dense, win, start, length)[0])
+                        cfg, ps, dense, win, start, length, **kw)[0])
                 vf = models.paged_verify_step(cfg, ps, pool, win, start, bt,
-                                              length)[0]
+                                              length, **kw)[0]
             else:
                 lay, dlay = eng._layout(m, 4), eng._layout(m, 4, paged=False)
                 steps = (
                     lambda: tp.mesh_slot_decode_step(cfg, dlay, ps, dense,
-                                                     tok, pos),
+                                                     tok, pos, **kw),
                     lambda: tp.mesh_slot_prefill_step(
-                        cfg, dlay, ps, dense, chunk, start, length),
+                        cfg, dlay, ps, dense, chunk, start, length, **kw),
                     lambda: tp.mesh_slot_verify_step(
-                        cfg, dlay, ps, dense, win, start, length))
+                        cfg, dlay, ps, dense, win, start, length, **kw))
                 vf = tp.mesh_paged_verify_step(cfg, lay, ps, pool, win, start,
-                                               bt, length)
+                                               bt, length, **kw)
             got = [vf]
             for step in steps:
                 models.relayout_cache(dense, dsnap)
