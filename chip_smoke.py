@@ -388,6 +388,24 @@ Phases (any failure exits non-zero before a result is printed):
    step at 1x2 and 2x2, 3 steps with phase 12's optimizer: the first
    loss, ``moe_aux`` and ``grad_norm`` within 1e-2 of one device's, no
    kernel launched; granite's fp32 smoke config card = CPU at 2x2.
+19. Context-parallel attention (``perf.seq_shard_fallback``) and the
+   embeddings-input family on logical devices of this card (after phase
+   18), bf16, seeded numpy embeddings and tokens: internvl2-1b at full
+   width and depth at 1x4 (14 heads, 2 kv heads: neither divides 4) and
+   1x2 (both divide): ``lower_for`` prefill of 8 x 512 with the fallback
+   off and on, last-token logits within ``STEP_LOGIT_ATOL`` of one
+   device's naive ``prefill`` and of each other, 2 decode steps on the
+   emitted cache against one device's, the 1x4 prefill's capture report
+   (a device's flops and all-gather bytes, off against on), one train
+   step at 1x4 off and on (phase 12's optimizer: the first loss and
+   ``grad_norm`` within 1e-2 of one device's ``make_train_fn``);
+   musicgen-medium on 4 of its 48 layers at 2x2 (the vocab split):
+   prefill and train the same; qwen3-14b on 2 of its 40 layers at 1x16
+   (40 heads): prefill off and on; each arm ms by CUDA events, no kernel
+   launched on the mesh steps. gemma2-27b on 2 of its 46 layers through
+   the paged engine (bf16 pages) at 1x1 and 1x2: 0 captures after warmup,
+   B1/B2 launches = the replays' reckoning, per shard and per mode
+   (window + softcap, softcap), 1x2's tokens = 1x1's but near-ties.
 
 It prints the card line, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -7581,6 +7599,316 @@ def moe_mesh_phase() -> dict:
     return out
 
 
+# ------- phase 19 (context-parallel attention, the embeddings family)
+# bf16 at full width on logical devices of this card; the mesh steps run
+# the plain attention (``steps.lower_for``: the kernels refuse a gradient,
+# and the JAX package's lowered steps reach no Pallas kernel), so no kernel
+# launches on them. gemma2's paged cell (B1, B2, sample_rows) runs its
+# kernels per shard.
+FALLBACK_B, FALLBACK_S, FALLBACK_DECODE, FALLBACK_REPS = 8, 512, 2, 3
+FALLBACK_CUTS = {"musicgen-medium": 4, "qwen3-14b": 2, "gemma2-27b": 2}
+FALLBACK_ECFG = dict(max_len=1024, max_batch=8, page_size=16,
+                     prefill_chunk=64, mesh="1x1", meshes=("1x2",),
+                     devices=("cuda:0",) * 2)
+
+
+def _timed_call(fn) -> tuple:
+    """(``fn()``'s result, its milliseconds by CUDA events)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _fallback_inputs(cfg, b: int, s: int, seed: int) -> torch.Tensor:
+    """Seeded numpy inputs on the card: tokens, or a stub frontend's
+    embeddings ``[b, s, D]`` in the model dtype."""
+    import numpy as np
+
+    from repro_torch.models.layers import dtype_of
+
+    rng = np.random.default_rng(seed)
+    if cfg.input_kind == "tokens":
+        return torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    return torch.from_numpy(rng.standard_normal(
+        (b, s, cfg.d_model)).astype(np.float32)).to("cuda", dtype_of(cfg))
+
+
+def _mesh_pieces(cfg, params: dict, mesh) -> dict:
+    """The weights as the mesh steps take them: each leaf's pieces by the
+    full rules (``fsdp.state_specs``), each its own copy."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+
+    p_spec, _ = fsdp.state_specs(cfg, params, mesh)
+    return {k: shd.shard(t, p_spec[k], mesh) for k, t in params.items()}
+
+
+def _fallback_prefill(cfg, params, meshes, tag: str, *, decode: bool,
+                      report: tuple = ()) -> dict:
+    """``lower_for`` prefill of ``FALLBACK_B`` x ``FALLBACK_S`` at each mesh
+    of ``meshes`` with the fallback off and on, each its own path (the
+    counts set to 0 before and read after: no kernel): last-token logits
+    within ``STEP_LOGIT_ATOL`` of one device's ``models.prefill`` (naive)
+    and of each other; with ``decode``, ``FALLBACK_DECODE`` decode steps on
+    the emitted cache at its last positions (rewriting them) against one
+    device's ``decode_step`` on its own cache; for the meshes in
+    ``report``, the prefill's capture report (a device's flops and
+    collective bytes). An arm's ms is the median of ``FALLBACK_REPS``
+    prefill calls after the checked one."""
+    from repro_torch import capture_analysis, kernels, models, perf
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime import steps
+
+    b, s = FALLBACK_B, FALLBACK_S
+    inputs = _fallback_inputs(cfg, b, s, seed=19)
+    nxt = [_fallback_inputs(cfg, b, 1, seed=20 + j)
+           for j in range(FALLBACK_DECODE)]
+    positions = range(s - FALLBACK_DECODE, s)
+    with torch.no_grad():
+        want, cache1 = models.prefill(cfg, params, inputs, impl="naive")
+        want_dec = [models.decode_step(
+            cfg, params, cache1, x, torch.tensor(p, dtype=torch.int32,
+                                                 device="cuda"),
+            attn_impl="plain")[0] for x, p in zip(nxt, positions)] \
+            if decode else []
+    del cache1
+    out = {}
+    for dims in meshes:
+        mesh = make_debug_mesh(dims)
+        name = f"{dims[0]}x{dims[1]}"
+        pieces = _mesh_pieces(cfg, params, mesh)
+        got = {}
+        for fb in (False, True):
+            arm = f"{tag} {name} fallback {'on' if fb else 'off'}"
+            opts = perf.PerfOpts(seq_shard_fallback=fb)
+            low = steps.lower_for(cfg, mesh, ShapeSpec("p19", "prefill", s, b),
+                                  opts=opts)
+            step = low.compile()
+            kernels.reset_launch_counts()  # this arm's path starts here
+            logits, cache = step(pieces, inputs)
+            ms = statistics.median(
+                _timed_call(lambda: step(pieces, inputs))[1]
+                for _ in range(FALLBACK_REPS))
+            _launches(f"{arm} prefill", ())
+            err = (logits - want).abs().max().item()
+            check(_finite(logits) and logits.shape == want.shape
+                  and err <= STEP_LOGIT_ATOL,
+                  f"{arm}: prefill logits {tuple(logits.shape)} max abs "
+                  f"{err:.4g} from one device's (limit {STEP_LOGIT_ATOL})")
+            rec = dict(ms=ms, err=err, logits=logits)
+            if decode:
+                dec = steps.lower_for(
+                    cfg, mesh, ShapeSpec("d19", "decode", s, b),
+                    opts=opts).compile()
+                errs, dms = [], []
+                for x, p, w in zip(nxt, positions, want_dec):
+                    (dl, _), t = _timed_call(lambda: dec(
+                        pieces, cache, x, torch.tensor(p, dtype=torch.int32)))
+                    errs.append((dl - w).abs().max().item())
+                    dms.append(t)
+                    check(_finite(dl) and errs[-1] <= STEP_LOGIT_ATOL,
+                          f"{arm}: decode at {p} max abs {errs[-1]:.4g} from "
+                          f"one device's (limit {STEP_LOGIT_ATOL})")
+                _launches(f"{arm} decode", ())
+                rec.update(decode_err=errs, decode_ms=dms)
+            if dims in report:
+                rep = capture_analysis.analyze_step(
+                    step, (pieces, inputs), mesh=mesh,
+                    arg_specs=low.arg_specs)
+                rec.update(flops=rep["flops"],
+                           collectives=dict(rep["collectives"]))
+            del cache
+            got[fb] = rec
+            log(f"[fallback] {arm}: prefill {b} x {s} {ms:.3f} ms (CUDA "
+                f"events, median of {FALLBACK_REPS}), logits max abs "
+                f"{err:.4g} from one device's"
+                + (f"; decode at {list(positions)} "
+                   + ", ".join(f"{t:.3f} ms" for t in rec["decode_ms"])
+                   + ", max abs " + ", ".join(
+                       f"{e:.4g}" for e in rec["decode_err"])
+                   if decode else "")
+                + (f"; capture report {rec['flops'] / 1e9:.4f} GFLOP a "
+                   f"device, collectives " + ", ".join(
+                       f"{op} {n:.0f} B" for op, n in
+                       rec["collectives"].items())
+                   if "flops" in rec else "") + f" | {_card()}")
+        gap = (got[True]["logits"] - got[False]["logits"]).abs().max().item()
+        check(gap <= STEP_LOGIT_ATOL, f"{tag} {name}: fallback on vs off "
+              f"logits max abs {gap:.4g} (limit {STEP_LOGIT_ATOL})")
+        for rec in got.values():
+            del rec["logits"]
+        out[name] = dict(off=got[False], on=got[True], on_vs_off=gap)
+        del pieces
+        _release_engines()
+    return out
+
+
+def _fallback_train(cfg, params, dims: tuple, tag: str) -> dict:
+    """Two train steps at ``dims`` with the fallback off and on (phase
+    12's batch shape and ``TRAIN_OPT``), each its own path (no kernel):
+    the first loss and ``grad_norm`` within ``TRAIN_MESH_LOSS_RTOL`` of
+    one device's ``make_train_fn``; the ms of each second step."""
+    from repro_torch import kernels, perf
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    keys = ("loss", "grad_norm")
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    batch = _device_batch(cfg, FALLBACK_B, FALLBACK_S)
+    one = _fresh_state(cfg, params={k: v.clone() for k, v in params.items()})
+    fn = steps.make_train_fn(cfg, opt)
+    one, m = fn(one, batch)
+    want = {k: float(m[k]) for k in keys}
+    (one, _), ms1 = _timed_call(lambda: fn(one, batch))
+    del one, m
+    _release_engines()
+    mesh = make_debug_mesh(dims)
+    name = f"{dims[0]}x{dims[1]}"
+    shape = ShapeSpec("t19", "train", FALLBACK_S, FALLBACK_B)
+    out = {"one device": dict(first=want, ms=ms1)}
+    for fb in (False, True):
+        arm = f"{tag} train {name} fallback {'on' if fb else 'off'}"
+        state = steps.place_train_state(cfg, _fresh_state(cfg, params=params),
+                                        mesh)
+        exe = steps.lower_for(cfg, mesh, shape, opt_cfg=opt,
+                              opts=perf.PerfOpts(seq_shard_fallback=fb)
+                              ).compile()
+        kernels.reset_launch_counts()  # this arm's path starts here
+        state, m = exe(state, batch)
+        first = {k: float(m[k]) for k in keys}
+        (state, _), ms = _timed_call(lambda: exe(state, batch))
+        _launches(arm, ())
+        rel = {k: abs(first[k] - want[k]) / abs(want[k]) for k in keys}
+        check(all(_finite(m[k]) for k in keys)
+              and all(r <= TRAIN_MESH_LOSS_RTOL for r in rel.values()),
+              f"{arm}: first step {first}, one device {want} (relative "
+              f"{rel}, limit {TRAIN_MESH_LOSS_RTOL})")
+        out["on" if fb else "off"] = dict(first=first, rel=rel, ms=ms)
+        log(f"[fallback] {arm}: {FALLBACK_B} x {FALLBACK_S}, step 1 "
+            + ", ".join(f"{k} {first[k]:.6f} (one device {want[k]:.6f}, "
+                        f"relative {rel[k]:.3g})" for k in keys)
+            + f"; step 2 {ms:.3f} ms (one device {ms1:.3f} ms; CUDA events) "
+            f"| {_card()}")
+        del state, exe, m
+        _release_engines()
+    del batch
+    _release_engines()
+    return out
+
+
+def _fallback_gemma2(tag: str) -> tuple:
+    """gemma2-27b's cut through the paged engine (bf16 pages) at 1x1 and
+    1x2 (``_mesh_arm``: launches = the replays' reckoning, 0 captures after
+    warmup): 1x2's tokens = 1x1's but near-ties; B1/B2 per mode (every
+    replay launches one per layer per shard: the local layers' window +
+    softcap instantiation, the global layers' softcap one)."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.serve import Engine, EngineConfig
+
+    cfg = _depth_cut(get_config("gemma2-27b"), FALLBACK_CUTS["gemma2-27b"],
+                     tag)
+    params = _seeded(cfg, tag)
+    local = sum(cfg.mixer_at(i % cfg.period) == "attn_local"
+                for i in range(cfg.num_layers))
+    arms = {}
+    with Engine(cfg, params, EngineConfig(**FALLBACK_ECFG)) as eng:
+        check(eng.graphs, "gemma2 mesh: the engine's targets are not graphs")
+        eng.paged_continuous(slots=8)
+        for mesh in ("1x1", "1x2"):
+            arms[mesh] = _mesh_arm(eng, cfg, f"{tag} gemma2 {mesh}", mesh,
+                                   shards=1)
+    base, got = arms["1x1"][0], arms["1x2"][0]
+    ties = _mesh_equals(f"{tag} gemma2 1x2", cfg, params, base, got,
+                        arms["1x1"][3])
+    per_mode = {}
+    for mesh, (_, rep, launches, _) in arms.items():
+        for k in ("paged_decode_attention", "paged_prefill_attention"):
+            per = launches[k] * local // cfg.num_layers
+            per_mode[mesh, k] = {"window+softcap": per,
+                                 "softcap": launches[k] - per}
+        log(f"[fallback] {tag} gemma2 {mesh}: {rep['finished']} finished, "
+            f"{rep['steps']} steps, lanes {rep['lane_steps']}, 0 captures "
+            f"after warmup; launches " + ", ".join(
+                f"{k} {n}" for k, n in launches.items() if n)
+            + "; per mode (all shards) " + "; ".join(
+                f"{k}: " + ", ".join(f"{mode} {n}" for mode, n in
+                                     per_mode[mesh, k].items())
+                for k in ("paged_decode_attention",
+                          "paged_prefill_attention")))
+    log(f"[fallback] {tag} gemma2 1x2: tokens = 1x1's on "
+        f"{len(got) - ties} of {len(got)} requests, {ties} near-tie "
+        f"divergences")
+    paths = {f"gemma2-27b mesh {m} (phase 19)": a[2] for m, a in arms.items()}
+    del params
+    _release_engines()
+    return paths, ties, per_mode
+
+
+def fallback_mesh_phase() -> dict:
+    """Phase 19: context-parallel attention (``perf.seq_shard_fallback``)
+    and the embeddings-input family on logical devices of this card, bf16
+    (module docstring). internvl2-1b at full width and depth at 1x4 (14
+    heads, 2 kv heads: neither divides 4) and 1x2 (both divide): prefill
+    off/on against one device's, 2 decode steps, the 1x4 prefill's capture
+    report off against on, one train step at 1x4 off/on against one
+    device's; musicgen-medium's cut at 2x2 (the vocab split): prefill and
+    train the same; qwen3-14b's cut at 1x16 (40 heads): prefill off/on;
+    gemma2-27b's cut at 1x2 through the paged engine."""
+    from repro_torch.configs import get_config
+
+    _release_engines()
+    t0 = time.perf_counter()
+    tag = "fallback"
+    out, paths = {}, {}
+    cfg = get_config("internvl2-1b")
+    params = _seeded(cfg, tag)
+    out["internvl2-1b"] = dict(
+        prefill=_fallback_prefill(cfg, params, ((1, 4), (1, 2)),
+                                  "internvl2-1b", decode=True,
+                                  report=((1, 4),)),
+        train=_fallback_train(cfg, params, (1, 4), "internvl2-1b"))
+    del params
+    cfg = _depth_cut(get_config("musicgen-medium"),
+                     FALLBACK_CUTS["musicgen-medium"], tag)
+    params = _seeded(cfg, tag)
+    out["musicgen-medium"] = dict(
+        prefill=_fallback_prefill(cfg, params, ((2, 2),), "musicgen-medium",
+                                  decode=False),
+        train=_fallback_train(cfg, params, (2, 2), "musicgen-medium"))
+    del params
+    cfg = _depth_cut(get_config("qwen3-14b"), FALLBACK_CUTS["qwen3-14b"],
+                     tag)
+    params = _seeded(cfg, tag)
+    out["qwen3-14b"] = dict(prefill=_fallback_prefill(
+        cfg, params, ((1, 16),), "qwen3-14b", decode=False))
+    del params
+    _release_engines()
+    got, ties, per_mode = _fallback_gemma2(tag)
+    paths.update(got)
+    rep = out["internvl2-1b"]["prefill"]["1x4"]
+    log(f"[fallback] internvl2-1b 1x4 prefill capture report, off -> on: "
+        f"{rep['off']['flops'] / 1e12:.4f} -> {rep['on']['flops'] / 1e12:.4f}"
+        f" TFLOP a device, all-gather "
+        f"{rep['off']['collectives'].get('all-gather', 0) / 1e6:.3f} -> "
+        f"{rep['on']['collectives'].get('all-gather', 0) / 1e6:.3f} MB, "
+        f"all-reduce "
+        f"{rep['off']['collectives'].get('all-reduce', 0) / 1e6:.3f} -> "
+        f"{rep['on']['collectives'].get('all-reduce', 0) / 1e6:.3f} MB")
+    out.update(seconds=time.perf_counter() - t0, paths=paths,
+               gemma2_ties=ties,
+               gemma2_per_mode={f"{m} {k}": v for (m, k), v in
+                                per_mode.items()})
+    log(f"[fallback] phase 19 passed in {out['seconds']:.1f}s | {_card()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -7663,6 +7991,8 @@ def main() -> int:
     train_mesh = train_mesh_phase()
     moe_mesh = moe_mesh_phase()
     paths.update(moe_mesh["paths"])
+    fallback = fallback_mesh_phase()
+    paths.update(fallback["paths"])
     paths["c13 two batchers (phase 12)"] = c13_launches
     paths.update({f"{k} (phase 13)": v for k, v in disagg["paths"].items()})
     paths.update(mesh["paths"])
@@ -7695,7 +8025,9 @@ def main() -> int:
         f"phase 16 (splits over meshes, overload on a plan) "
         f"{split['seconds']:.1f}s; phase 17 (training on meshes) "
         f"{train_mesh['seconds']:.1f}s; phase 18 (granite-moe on meshes) "
-        f"{moe_mesh['seconds']:.1f}s; before phase 8: "
+        f"{moe_mesh['seconds']:.1f}s; phase 19 (context-parallel attention, "
+        f"the embeddings family on meshes) {fallback['seconds']:.1f}s; "
+        f"before phase 8: "
         + ", ".join(f"{k} {v:.1f}s" for k, v in spans.items()))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

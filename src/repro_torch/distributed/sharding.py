@@ -39,8 +39,10 @@ activations; the port has no GSPMD. Its tensor-parallel forward
 resolved specs and issues each collective where GSPMD put it, which takes
 their place: the MoE tail's layout included, which is the one
 ``perf.moe_hints`` and ``perf.moe_weight_gather`` ask GSPMD for
-(``models.moe.check_mesh_opts``). ``hint_attn_q`` (and
-``perf.seq_shard_fallback``, which it reads) waits for ROADMAP A12 part 3.
+(``models.moe.check_mesh_opts``). ``attn_q_split`` is ``hint_attn_q``'s
+decision (heads, the query sequence under ``perf.seq_shard_fallback``, or
+replicated), which the mesh's full-sequence attention reads
+(``models.tensor_parallel._attend``).
 """
 
 from __future__ import annotations
@@ -252,6 +254,28 @@ def cache_pspec_tree(cfg, cache_shape: Sequence[Mapping[str, Any]],
             specs[name] = tuple(parts)
         out.append(specs)
     return out
+
+
+def attn_q_split(num_heads: int, seq: int, mp: int,
+                 fallback: bool | None = None) -> str | None:
+    """How full-sequence attention's ``q`` and ``o`` ``[B, S, H, dh]`` lie
+    over a ``model`` axis of ``mp`` devices (the JAX package's
+    ``hint_attn_q``): ``"heads"`` where ``mp`` divides the heads; else, with
+    ``fallback`` (default ``perf.current().seq_shard_fallback``) and ``mp``
+    dividing ``seq``, ``"seq"`` (each shard the queries of its ``S / mp``
+    rows: context-parallel attention for qwen3's 40 heads, musicgen's 24
+    and internvl2's 14 on a 16-way axis); else None (replicated)."""
+    if mp <= 1:
+        return None
+    if num_heads % mp == 0:
+        return "heads"
+    if fallback is None:
+        from repro_torch import perf
+
+        fallback = perf.current().seq_shard_fallback
+    if fallback and seq % mp == 0:
+        return "seq"
+    return None
 
 
 def _strip_axes(spec: tuple, drop: tuple[str, ...]) -> tuple:

@@ -28,15 +28,17 @@ touched. Per cell the record holds what the roofline needs:
 * ``roofline`` — ``roofline.roofline_terms`` at the H100 constants (the
   config's dtype's peak, HBM, NVLink).
 
-Dense and MoE attention stacks run (the MoE tail under ``--moe-policy``,
-its experts over ``model`` where the rules put them, ZeRO over ``pod`` on
-the multi-pod mesh for grok). A family the mesh steps refuse
-(``tensor_parallel.check_family``: SSM, hybrid, embeddings inputs) gives an
+Dense and MoE attention stacks run, on token or embeddings inputs (the MoE
+tail under ``--moe-policy``, its experts over ``model`` where the rules put
+them, ZeRO over ``pod`` on the multi-pod mesh for grok). A family the mesh
+steps refuse (``tensor_parallel.check_family``: SSM, hybrid) gives an
 ``error`` record whose ``NotImplementedError`` names ROADMAP A12 part 3.
 ``--moe-hints`` and ``--moe-weight-gather`` are accepted and change no
 number: the port's MoE tail already has the layout each asks GSPMD for
-(``perf``). ``--seq-fallback`` raises ``ValueError`` (``perf.UNREAD``)
-until its reader lands. ``--save-hlo PATH`` has no HLO to save: it writes
+(``perf``). ``--seq-fallback`` sets ``perf.seq_shard_fallback`` (written
+into the record's ``perf_opts``): where ``model`` does not divide the
+heads, the train and prefill cells split attention's query sequence over
+``model``. ``--save-hlo PATH`` has no HLO to save: it writes
 the counted per-op table (every coordinate's ops by name: calls, bytes,
 flops) to ``PATH`` instead.
 

@@ -9,10 +9,13 @@ compression (int8, no error feedback) and ``--preset 100m`` for the
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --arch granite-moe-1b-a400m --mesh 2x2 --devices "cpu cpu cpu cpu"
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --arch internvl2-1b --mesh 1x4 --devices "cpu cpu cpu cpu"
 
 ``--mesh DPxMP`` (or ``PODxDPxMP``) trains on a mesh of logical devices
 (``runtime.steps.make_mesh_train_fn``: FSDP over ``data``, tensor
-parallelism over ``model``, ZeRO over ``pod`` where the config asks) over
+parallelism over ``model``, ZeRO over ``pod`` where the config asks; an
+embeddings arch on the pipeline's float inputs) over
 ``--devices``, one per coordinate (default ``--device`` at every one: one
 card named several times); checkpoints hold the joined state, so a run
 resumes onto any mesh. Weights come from ``models.init_params(cfg, seed=0)``, batches from

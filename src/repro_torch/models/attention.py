@@ -85,16 +85,35 @@ def _dtype(name: str | None) -> torch.dtype | None:
 
 def _qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
     """x [B,S,D] -> q [B,S,H,dh], k/v [B,S,KH,dh], rope applied."""
+    return (_q(cfg, p, x, positions), _k(cfg, p, x, positions),
+            _v(cfg, p, x))
+
+
+def _q(cfg: ArchConfig, p: dict, x: torch.Tensor,
+       positions: torch.Tensor) -> torch.Tensor:
+    """x [B,S,D] -> q [B,S,H,dh] at ``positions`` [B,S], rope applied."""
     b, s, d = x.shape
     q = (x @ p["wq"].reshape(d, -1)).view(b, s, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"].reshape(d, -1)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"].reshape(d, -1)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_scale"], cfg.norm_eps)
+    return apply_rope(q, positions, cfg.rope_theta)
+
+
+def _k(cfg: ArchConfig, p: dict, x: torch.Tensor,
+       positions: torch.Tensor) -> torch.Tensor:
+    """x [B,S,D] -> k [B,S,KH,dh] at ``positions``, rope applied."""
+    b, s, d = x.shape
+    k = (x @ p["wk"].reshape(d, -1)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
         k = rms_norm(k, p["k_scale"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return apply_rope(k, positions, cfg.rope_theta)
+
+
+def _v(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x [B,S,D] -> v [B,S,KH,dh]."""
+    b, s, d = x.shape
+    return (x @ p["wv"].reshape(d, -1)).view(b, s, cfg.num_kv_heads,
+                                             cfg.head_dim)
 
 
 def _out_proj(cfg: ArchConfig, p: dict, o: torch.Tensor) -> torch.Tensor:
@@ -139,8 +158,11 @@ def _sdpa_naive(
     v: torch.Tensor,
     *,
     window: int | None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """q: [B,Sq,KH,G,dh]; k,v: [B,Sk,KH,dh] -> [B,Sq,KH,G,dh]. Scores are
+    """q: [B,Sq,KH,G,dh]; k,v: [B,Sk,KH,dh] -> [B,Sq,KH,G,dh]; query ``i``
+    sits at position ``q_offset + i`` (a shard's rows of a sequence split
+    over the mesh). Scores are
     f32 products of the operands rounded once to ``perf``'s ``score_dtype``
     (the JAX package's ``preferred_element_type``), then scaled, capped,
     masked and softmaxed in that dtype one rounded op at a time, as
@@ -153,7 +175,7 @@ def _sdpa_naive(
     scores = softcap(scores * scale, cfg.attn_logit_softcap)
     scores = scores + _mask(
         q.shape[1], k.shape[1], causal=True, window=window, dtype=sd,
-        device=q.device,
+        q_offset=q_offset, device=q.device,
     )
     e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     probs = (e / e.sum(dim=-1, keepdim=True)).to(
@@ -171,11 +193,12 @@ def _sdpa_chunked(
     *,
     window: int | None,
     block: int,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Online softmax over key blocks: O(S·block) score memory instead of
-    O(S²). Shapes as ``_sdpa_naive``; the key length must be a multiple of
-    the block (as in the JAX package). With ``perf``'s ``probs_dtype`` the
-    P V product runs in that dtype."""
+    O(S²). Shapes and ``q_offset`` as ``_sdpa_naive``; the key length must
+    be a multiple of the block (as in the JAX package). With ``perf``'s
+    ``probs_dtype`` the P V product runs in that dtype."""
     b, sq, kh, g, dh = q.shape
     sk = k.shape[1]
     block = min(block, sk)
@@ -184,7 +207,7 @@ def _sdpa_chunked(
     scale = 1.0 / np.sqrt(cfg.head_dim)
     pd = _dtype(perf.current().probs_dtype)
     qf = q.float()
-    qi = torch.arange(sq, device=q.device)[:, None]
+    qi = torch.arange(sq, device=q.device)[:, None] + q_offset
     m = torch.full((b, kh, g, sq), NEG_INF, device=q.device)
     l = torch.zeros((b, kh, g, sq), device=q.device)
     acc = torch.zeros((b, kh, g, sq, dh), device=q.device)

@@ -7,7 +7,9 @@ Each coordinate computes with its model shard of every weight, whole over
 ``data`` (``distributed.fsdp.gather_params``): the tower of
 ``models.tensor_parallel`` (``_Row``, ``_tower``; MLP or MoE tails, the
 MoE under ``moe_policy``) runs on each data row's shards, with the
-collectives over ``model`` where GSPMD puts them. The
+collectives over ``model`` where GSPMD puts them. Inputs are tokens, or an
+embeddings arch's ``[B, S, D]`` (``[B, 1, D]`` in decode), replicated over
+``model``. The
 batch is split over the rows of ``("pod", "data")`` (row ``r`` of ``R``
 takes batch rows ``[r·B/R, (r+1)·B/R)``, as ``sharding.data_pspec`` lays
 it out), and it must divide over them. The attention is the plain one
@@ -31,6 +33,15 @@ shard's logsumexp pieces combine by ``pmax`` and ``all_reduce``, and the
 label's logit comes from the shard that owns it, so no ``[B, S, V]``
 logits are gathered (as GSPMD partitions the JAX package's logsumexp).
 
+**Full-sequence attention** (the loss and prefill) lays its queries out as
+the JAX package's ``hint_attn_q``: by heads where ``model`` divides them,
+else, under ``perf.seq_shard_fallback`` where ``model`` divides the
+sequence, by query rows (``sharding.attn_q_split``; each shard attends its
+``S / mp`` rows at their global positions over the whole K/V and the rows
+are joined by an ``all_gather`` over ``model``,
+``tensor_parallel._attend_rows``), else whole on every shard. Decode never
+reads the flag, as the JAX package's does not.
+
 **Prefill** emits the dense cache in ``sharding.cache_pspec_tree``'s
 layout (batch over the rows, sequence over ``model``, every kv head):
 where a shard computed some of the kv heads, the row's heads are joined
@@ -50,7 +61,7 @@ where a run on real devices counts every row's 1/devices: the same
 per-device work, in a sixteenth of the time on the 16 x 16 production
 mesh.
 
-SSM and hybrid stacks and embeddings inputs raise ``NotImplementedError``
+SSM and hybrid stacks raise ``NotImplementedError``
 (``tensor_parallel.check_family``).
 """
 
@@ -86,14 +97,12 @@ def layout(cfg: ArchConfig, uspecs: dict, mesh) -> tp.TPLayout:
     def split(key: str) -> bool:
         return key in uspecs and shd.splits(uspecs[key], "model")
 
-    emb = uspecs.get("embed.embedding", (None, None))
+    vocab, width = tp.vocab_split(cfg, uspecs)
     return tp.TPLayout(
         dp=num_rows(mesh), mp=mesh.shape["model"],
         heads=split("blocks.0.attn.wq"), kv=split("blocks.0.attn.wk"),
         mlp=split("blocks.0.mlp.w_gate"), moe=moe_mod.moe_split(uspecs),
-        vocab="model" in shd.spec_axes(emb[0]),
-        width="model" in shd.spec_axes(emb[1]),
-        rows=(), row_block=0)
+        vocab=vocab, width=width, rows=(), row_block=0)
 
 
 def num_rows(mesh) -> int:
@@ -148,32 +157,41 @@ def _copies(mesh, out: dict, model0: bool = False) -> dict:
             for c in mesh.coords() if not (model0 and c[-1])}
 
 
-def _rows_of(cfg, mesh, params: dict, uspecs: dict, cache=None):
-    """(row index, ``tensor_parallel._Row``) for every row that runs."""
+def _rows_of(cfg, mesh, params: dict, uspecs: dict, cache=None,
+             seq: int | None = None):
+    """(row index, ``tensor_parallel._Row``) for every row that runs; with
+    ``seq`` (full-sequence attention over that many rows) the rows split
+    their queries where ``sharding.attn_q_split`` says "seq"."""
     lay = layout(cfg, uspecs, mesh)
+    seq_q = seq is not None and shd.attn_q_split(
+        cfg.num_heads, seq, lay.mp) == "seq"
     run = rows(mesh)[:1] if symmetric(mesh) else rows(mesh)
     for r, coords in enumerate(run):
-        yield r, tp._Row(lay, mesh, params, cache, r, coords=coords)
+        yield r, tp._Row(lay, mesh, params, cache, r, coords=coords,
+                         seq_q=seq_q)
 
 
 def full_core(impl: str):
     """The cacheless core of a training forward: causal attention of each
-    shard's heads over its row's whole sequence."""
+    shard's heads over its row's whole sequence; with ``offsets`` (a
+    ``seq_q`` row) each shard's queries start at its offset."""
     if impl not in TRAIN_IMPLS:
         raise ValueError(f"impl must be one of {TRAIN_IMPLS} on a mesh (the "
                          f"kernels refuse a gradient), got {impl!r}")
 
-    def core(acfg, cs, qs, ks, vs, local, amax):
+    def core(acfg, cs, qs, ks, vs, local, amax, offsets=None):
         window = acfg.sliding_window if local else None
         outs = []
-        for q, k, v in zip(qs, ks, vs):
+        for q, k, v, off in zip(qs, ks, vs, offsets or [0] * len(qs)):
             b, s, h, dh = q.shape
             qg = attn._group(acfg, q)
             if impl == "chunked":
                 og = attn._sdpa_chunked(acfg, qg, k, v, window=window,
-                                        block=perf.current().attn_block)
+                                        block=perf.current().attn_block,
+                                        q_offset=off)
             else:
-                og = attn._sdpa_naive(acfg, qg, k, v, window=window)
+                og = attn._sdpa_naive(acfg, qg, k, v, window=window,
+                                      q_offset=off)
             outs.append(og.reshape(b, s, h, dh))
         return outs
 
@@ -230,7 +248,8 @@ def mesh_loss(cfg: ArchConfig, mesh, params: dict, uspecs: dict,
     moe = any(cfg.mlp_at(s) == "moe" for s in range(cfg.period))
     ce_sum, ntok, stats = {}, {}, {}
     with row_spread(mesh):
-        for r, row in _rows_of(cfg, mesh, params, uspecs):
+        for r, row in _rows_of(cfg, mesh, params, uspecs,
+                               seq=batch["inputs"].shape[1]):
             toks = _row_slice(batch["inputs"], r, n)
             labels = _row_slice(batch["labels"], r, n)
             layers: list = []  # each MoE layer's shards' aux sums
@@ -273,10 +292,10 @@ def _seq_pieces(row, full: list, seq_split: bool) -> list:
 def mesh_prefill(cfg: ArchConfig, mesh, params: dict, uspecs: dict,
                  inputs: torch.Tensor, cache_specs: list, *,
                  impl: str = "naive", moe_policy: str = "drop") -> tuple:
-    """``models.prefill`` over the mesh: ``inputs`` i32[B, S] -> (the last
-    token's logits [B, V] float32 on the mesh's first device, the dense
-    cache as a ``tensor_parallel.ShardedCache`` in ``cache_specs``'
-    layout)."""
+    """``models.prefill`` over the mesh: ``inputs`` i32[B, S] (or an
+    embeddings arch's [B, S, D]) -> (the last token's logits [B, V] float32
+    on the mesh's first device, the dense cache as a
+    ``tensor_parallel.ShardedCache`` in ``cache_specs``' layout)."""
     tp.check_family(cfg)
     check_mesh(mesh)
     n = num_rows(mesh)
@@ -288,11 +307,11 @@ def mesh_prefill(cfg: ArchConfig, mesh, params: dict, uspecs: dict,
     logits = {}
     base = full_core(impl)
     with row_spread(mesh):
-        for r, row in _rows_of(cfg, mesh, params, uspecs):
+        for r, row in _rows_of(cfg, mesh, params, uspecs, seq=s):
             calls = iter(range(layers * cfg.period))
 
-            def core(acfg, cs, qs, ks, vs, local, amax, row=row,
-                     calls=calls):
+            def core(acfg, cs, qs, ks, vs, local, amax, offsets=None,
+                     row=row, calls=calls):
                 slot = next(calls) % cfg.period
                 whole = (ks, vs)
                 if ks[0].shape[2] < cfg.num_kv_heads:  # the heads joined
@@ -301,7 +320,7 @@ def mesh_prefill(cfg: ArchConfig, mesh, params: dict, uspecs: dict,
                     for c, t in zip(row.coords,
                                     _seq_pieces(row, full, seq_split)):
                         kept[c][slot][name].append(t)
-                return base(acfg, cs, qs, ks, vs, local, amax)
+                return base(acfg, cs, qs, ks, vs, local, amax, offsets)
 
             toks = _row_slice(inputs, r, n)
             xs = tp._tower(cfg, row, row.each(toks),
@@ -326,10 +345,11 @@ def mesh_decode(cfg: ArchConfig, mesh, params: dict, uspecs: dict,
                 cache: "tp.ShardedCache", inputs: torch.Tensor,
                 pos: torch.Tensor, *, moe_policy: str = "drop"
                 ) -> torch.Tensor:
-    """``models.decode_step`` over the mesh: ``inputs`` i32[B, 1] and one
-    position ``pos`` (0-d, every row's) -> logits [B, V] float32 on the
-    mesh's first device; every coordinate's cache piece (the
-    ``cache_pspec_tree`` layout) updated in place."""
+    """``models.decode_step`` over the mesh: ``inputs`` i32[B, 1] (or an
+    embeddings arch's [B, 1, D]) and one position ``pos`` (0-d, every
+    row's) -> logits [B, V] float32 on the mesh's first device; every
+    coordinate's cache piece (the ``cache_pspec_tree`` layout) updated in
+    place."""
     tp.check_family(cfg)
     check_mesh(mesh)
     with row_spread(mesh):

@@ -22,7 +22,11 @@ never assumed (``TPLayout``):
   an ``all_reduce``; the head (tied or not) gives vocab-parallel logits,
   then an ``all_gather``. Where the vocab does not divide, the rules split
   ``d_model`` instead: the lookup's columns are gathered, and the head's
-  products over its columns are summed with an ``all_reduce``.
+  products over its columns are summed with an ``all_reduce``. An
+  embeddings arch (a stub frontend's ``[B, S, D]``, no table) passes its
+  inputs through, replicated over ``model`` and cast to the model dtype,
+  and its head's spec alone sets the split (internvl2's 151655-entry vocab
+  splits its width, musicgen's 2048 its vocab).
 
 Where a spec leaves a weight whole (``num_kv_heads % mp != 0``: ``wk``/
 ``wv`` replicated while ``wq`` is split), each shard computes it whole, as
@@ -30,9 +34,19 @@ GSPMD would: every shard writes the whole K/V into its replica of the pool,
 the query heads are gathered over ``model``, and each shard attends with
 every head and keeps its own heads' output for its rows of ``wo``. Where
 ``wq`` itself is whole (``num_heads % mp != 0``), attention runs whole on
-every shard and needs no reduction. Norms and residuals run on every shard
-as replicas. The speculative draft (``models.draft_view``) is the same
-slices of the target's shards (``draft_shards``): views, no second copy.
+every shard and needs no reduction, except in full-sequence attention
+(the training loss and ``prefill``, ``models.spmd``) under
+``perf.seq_shard_fallback`` where ``model`` divides the sequence
+(``sharding.attn_q_split``): there shard ``m`` projects the queries and
+keys of its ``S / mp`` rows at their global positions, the keys are
+gathered over ``model`` and V projected whole (the split GSPMD gives the
+JAX package's step), each shard attends its queries over the whole K/V
+and projects them through ``wo`` (whole there), and one tiled
+``all_gather`` over ``model`` along the sequence joins the rows (each
+gather's backward a ``reduce_scatter``). Norms and residuals run on every
+shard as replicas. The speculative draft (``models.draft_view``) is the
+same slices of the target's shards (``draft_shards``): views, no second
+copy.
 
 **The pool** (``ShardedCache``, ``init_mesh_paged_cache``) follows
 ``MeshPlan.paged_cache_specs``: data row ``d`` holds the physical page block
@@ -74,9 +88,11 @@ block into another pool of any layout, each page into the row that holds
 it and each head into its model shard; the two ends never assume each
 other's layout.
 
-Attention stacks with MLP or MoE tails are served (``check_family``);
-SSM and hybrid stacks and embeddings inputs raise ``NotImplementedError``
-(ROADMAP A12 part 3) in the engine before anything here runs.
+Attention stacks with MLP or MoE tails are served (``check_family``), on
+token or embeddings inputs (the continuous engines refuse an embeddings
+arch with ``ValueError`` before any mesh, as the JAX package's do); SSM
+and hybrid stacks raise ``NotImplementedError`` (ROADMAP A12 part 3) in
+the engine before anything here runs.
 """
 
 from __future__ import annotations
@@ -101,7 +117,7 @@ from .layers import embed_apply, head_apply, norm_apply, softcap
 
 def check_family(cfg: ArchConfig) -> None:
     """The tensor-parallel path serves attention stacks with MLP or MoE
-    tails on token inputs."""
+    tails (token or embeddings inputs)."""
     for slot in range(cfg.period):
         if not cfg.mixer_at(slot).startswith("attn"):
             raise NotImplementedError(
@@ -109,10 +125,18 @@ def check_family(cfg: ArchConfig) -> None:
                 f"{cfg.mlp_at(slot)}) on a plan of more than one device "
                 f"waits for {shd.PART3}: the tensor-parallel path serves "
                 f"attention stacks with MLP or MoE tails")
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: embeddings inputs on a plan of more than one "
-            f"device wait for {shd.PART3}")
+
+
+def vocab_split(cfg: ArchConfig, specs: dict) -> tuple[bool, bool]:
+    """(the vocab over ``model``, else ``d_model`` over ``model``) from the
+    table's spec ``[V, D]``, or an embeddings arch's head's ``[D, V]`` (it
+    has no table; an untied head of a token arch splits where its table
+    does)."""
+    if cfg.input_kind == "tokens":
+        vocab, width = specs["embed.embedding"]
+    else:
+        width, vocab = specs["head.lm_head"]
+    return "model" in shd.spec_axes(vocab), "model" in shd.spec_axes(width)
 
 
 @dataclass(frozen=True)
@@ -147,9 +171,7 @@ def layout_for(cfg: ArchConfig, specs: dict, plan: shd.MeshPlan,
     def split(key: str) -> bool:
         return key in specs and shd.splits(specs[key], "model")
 
-    emb = specs["embed.embedding"]  # [V, D]; an untied head [D, V] splits
-    # its vocab, or else its width, exactly where the table does
-
+    vocab, width = vocab_split(cfg, specs)
     slot0 = "blocks.0."
     rows = tuple(
         (next((s for s in range(slots) if s * plan.dp // slots == d), slots),
@@ -159,8 +181,7 @@ def layout_for(cfg: ArchConfig, specs: dict, plan: shd.MeshPlan,
         dp=plan.dp, mp=plan.mp,
         heads=split(slot0 + "attn.wq"), kv=split(slot0 + "attn.wk"),
         mlp=split(slot0 + "mlp.w_gate"), moe=moe_mod.moe_split(specs),
-        vocab="model" in shd.spec_axes(emb[0]),
-        width="model" in shd.spec_axes(emb[1]),
+        vocab=vocab, width=width,
         rows=rows, row_block=physical_pages // plan.dp,
     )
 
@@ -442,12 +463,14 @@ class _Row:
     """One data row's shards: its coordinates (``(d, m)`` for each model
     index ``m``, or the ``coords`` given: a row of a mesh with a ``pod``
     axis), devices, weights and cache pieces (none for a cacheless
-    training forward), and the collectives over its model axis."""
+    training forward), and the collectives over its model axis. ``seq_q``
+    (full-sequence attention only) splits attention's query rows over
+    ``model`` where ``wq`` is whole (``sharding.attn_q_split``'s "seq")."""
 
     def __init__(self, lay: TPLayout, mesh, params: dict,
                  cache: ShardedCache | None, d: int,
-                 coords: list | None = None):
-        self.lay, self.mesh = lay, mesh
+                 coords: list | None = None, seq_q: bool = False):
+        self.lay, self.mesh, self.seq_q = lay, mesh, seq_q
         self.coords = coords or [(d, m) for m in range(lay.mp)]
         self.devs = [mesh.device(c) for c in self.coords]
         self.params = [params[c] for c in self.coords]
@@ -491,6 +514,8 @@ class _Row:
 
 def _embed(cfg: ArchConfig, row: _Row, toks: list) -> list:
     lay = row.lay
+    if cfg.input_kind != "tokens":  # embeddings, replicated over model
+        return [embed_apply(cfg, p, t) for p, t in zip(row.params, toks)]
     if not lay.vocab:
         xs = [embed_apply(cfg, p, t) for p, t in zip(row.params, toks)]
         return row.gather(xs, dim=-1) if lay.width else xs
@@ -511,7 +536,8 @@ def _width_product(cfg: ArchConfig, row: _Row, xs: list) -> list:
     product, summed (every shard's copy, at the model dtype)."""
     parts = []
     for m, (p, x) in enumerate(zip(row.params, xs)):
-        w = (p["embed.embedding"].T if cfg.tie_embeddings
+        w = (p["embed.embedding"].T
+             if cfg.tie_embeddings and cfg.input_kind == "tokens"
              else p["head.lm_head"])
         n = w.shape[0]
         parts.append(x[..., m * n:(m + 1) * n] @ w)
@@ -545,9 +571,12 @@ def _attend(cfg: ArchConfig, row: _Row, slot: int, i: int, hs: list,
     acfg, caches, qs, ks, vs, local, amax)`` writes and attends on every
     shard -> each shard's output; ``amax[m]`` is the (K, V) row absmax
     over all kv heads where shard ``m`` holds some of them of an int8 cache
-    (``collectives.pmax``), else None."""
+    (``collectives.pmax``), else None. On a ``seq_q`` row the core is also
+    given ``offsets``, each shard's first query position."""
     lay = row.lay
     local = _is_local(cfg, slot)
+    if row.seq_q:
+        return _attend_rows(cfg, row, slot, i, hs, positions, core, local)
     kv_whole = lay.heads and not lay.kv
     lcfg = lay.local_cfg(cfg, kv_whole=kv_whole)
     ps, cs, qs, ks, vs = [], [], [], [], []
@@ -568,6 +597,33 @@ def _attend(cfg: ArchConfig, row: _Row, slot: int, i: int, hs: list,
         os = core(lcfg, cs, qs, ks, vs, local, amax)
     outs = [attn._out_proj(lcfg, p["attn"], o) for p, o in zip(ps, os)]
     return row.reduce(outs) if lay.heads else outs
+
+
+def _attend_rows(cfg: ArchConfig, row: _Row, slot: int, i: int, hs: list,
+                 positions: list, core, local: bool) -> list:
+    """Context-parallel attention of a ``seq_q`` row: shard ``m`` projects
+    the queries and keys of rows ``[m·n, (m+1)·n)`` (n = S / mp) at their
+    global positions, the keys are joined over ``model`` (``all_gather``
+    along the sequence) and V is projected whole, as GSPMD partitions the
+    JAX package's step (its flops to the op); each shard attends its
+    queries over the whole K/V and projects them through ``wo``, and the
+    rows are joined along the sequence by one more ``all_gather``."""
+    mp = row.lay.mp
+    n = hs[0].shape[1] // mp
+    ps, cs, qs, ks, vs = [], [], [], [], []
+    for m in range(mp):
+        p, c = row.layer(m, i, slot)
+        mine = slice(m * n, (m + 1) * n)
+        h, at = hs[m][:, mine], positions[m][:, mine]
+        for xs, x in ((ps, p), (cs, c), (qs, attn._q(cfg, p["attn"], h, at)),
+                      (ks, attn._k(cfg, p["attn"], h, at)),
+                      (vs, attn._v(cfg, p["attn"], hs[m]))):
+            xs.append(x)
+    ks = row.gather(ks, dim=1)
+    os = core(cfg, cs, qs, ks, vs, local, [None] * mp,
+              offsets=[m * n for m in range(mp)])
+    return row.gather([attn._out_proj(cfg, p["attn"], o)
+                       for p, o in zip(ps, os)], dim=1)
 
 
 def _moe(cfg: ArchConfig, row: _Row, slot: int, i: int, hs: list,

@@ -31,9 +31,12 @@ code reads the ambient opts, so the knobs stay out of the model signatures:
   port already has: ``models.moe.check_mesh_opts`` reads them there and
   raises if the layout were ever another.
 
-``seq_shard_fallback`` keeps its name so that ``from_flags`` takes the JAX
-package's keyword; no ported module reads it yet (``UNREAD``), so a value
-other than the default raises ``ValueError`` rather than being ignored.
+* ``seq_shard_fallback`` — on a mesh whose ``model`` axis does not divide
+  the heads, full-sequence attention (the training loss and ``prefill``)
+  splits the query sequence over ``model`` instead of running whole on
+  every shard (``distributed.sharding.attn_q_split``, read by
+  ``models.tensor_parallel``). Decode and the serving lanes never read it,
+  as in the JAX package. It changes no value beyond the order of sums.
 
 The opts are semi-static: a serving target captures ``current()`` when it
 is built (``bake``) and runs under those opts on every call, as a traced
@@ -46,14 +49,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import functools
-from dataclasses import dataclass, fields, replace
+from dataclasses import dataclass, replace
 from typing import Callable
-
-# fields no ported module reads yet -> the module that will (ROADMAP.md)
-UNREAD = {
-    "seq_shard_fallback": "the mesh's attention sharding (A12)",
-}
-
 
 @dataclass(frozen=True)
 class PerfOpts:
@@ -71,14 +68,6 @@ class PerfOpts:
     # moe
     moe_hints: bool = False  # explicit EP sharding constraints in dispatch
     moe_weight_gather: bool = False  # force FSDP weight all-gather at use site
-
-    def __post_init__(self) -> None:
-        for f in fields(self):
-            if f.name in UNREAD and getattr(self, f.name) != f.default:
-                raise ValueError(
-                    f"PerfOpts.{f.name}={getattr(self, f.name)!r}: no ported "
-                    f"module reads it yet; {UNREAD[f.name]} will"
-                )
 
 
 _OPTS: contextvars.ContextVar = contextvars.ContextVar(

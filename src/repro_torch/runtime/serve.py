@@ -91,8 +91,10 @@ CUDA graph. ``set_mesh`` copies the live pages and dense rows between the
 layouts. A split's slices may be such meshes too, of any layouts (decode
 "1x2" beside prefill "1x2@2", or "2x1" beside "1x1@2"): the ``mg``
 targets move a request's pages in the global layout between them. SSM
-and hybrid stacks, embeddings inputs and plans across distinct cards
-raise ``NotImplementedError`` (ROADMAP A12 part 3).
+and hybrid stacks and plans across distinct cards raise
+``NotImplementedError`` (ROADMAP A12 part 3); an embeddings arch is
+refused by both continuous engines with the JAX package's ``ValueError``
+on any plan (the burst engine serves it on the engine's device).
 
 With ``Telemetry(compile_analysis=True)`` each build appends the key's
 capture report (``capture_analysis``) with its roofline terms

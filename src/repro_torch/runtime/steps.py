@@ -673,7 +673,10 @@ def lower_train(
 ) -> Lowered:
     """The train step for ``shape`` on ``mesh`` (``make_mesh_train_fn``)
     with the optimizer ``opt_cfg`` (default ``AdamWConfig()``, as the JAX
-    package's lowered step) and a MoE stack's ``moe_policy``."""
+    package's lowered step) and a MoE stack's ``moe_policy``; its batch
+    holds tokens or an embeddings arch's ``[B, S, D]`` inputs
+    (``models.input_specs``), and its loss reads ``perf.seq_shard_fallback``
+    as ``lower_prefill``."""
     with perf.use_perf_opts(opts or perf.current()):
         fn = perf.bake(make_mesh_train_fn(cfg, mesh, opt_cfg, impl=impl,
                                           moe_policy=moe_policy,
@@ -716,8 +719,9 @@ def lower_decode(
     opts: perf.PerfOpts | None = None,
 ) -> Lowered:
     """One new token per row against a dense cache of ``shape.seq_len``:
-    ``step(params, cache, inputs [B, 1], pos) -> (logits [B, V] on the
-    mesh's first device, cache)``, params as pieces by the full rules
+    ``step(params, cache, inputs [B, 1] (an embeddings arch's [B, 1, D]),
+    pos) -> (logits [B, V] on the mesh's first device, cache)``, params as
+    pieces by the full rules
     (gathered over ``data`` at use), the cache a ``ShardedCache`` in
     ``cache_pspec_tree``'s layout, updated in place (with ``donate``; else
     a copy is)."""
@@ -761,9 +765,12 @@ def lower_prefill(
     moe_policy: str = "drop",
     opts: perf.PerfOpts | None = None,
 ) -> Lowered:
-    """``step(params, inputs [B, S]) -> (the last token's logits [B, V] on
-    the mesh's first device, the dense cache as a ``ShardedCache`` in
-    ``cache_pspec_tree``'s layout)``, params as ``lower_decode``'s."""
+    """``step(params, inputs [B, S] (an embeddings arch's [B, S, D])) ->
+    (the last token's logits [B, V] on the mesh's first device, the dense
+    cache as a ``ShardedCache`` in ``cache_pspec_tree``'s layout)``, params
+    as ``lower_decode``'s. Under ``perf.seq_shard_fallback`` (``opts``, or
+    the opts current at lowering) attention splits its query sequence over
+    ``model`` where the heads do not divide (``models.spmd``)."""
     tensor_parallel.check_family(cfg)
     spmd.check_mesh(mesh)
     b, s = shape.global_batch, shape.seq_len

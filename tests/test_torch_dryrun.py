@@ -15,8 +15,7 @@ mesh of ``meta`` devices:
 * every argument the lowering builds is on ``meta``;
 * the CLI end to end on the 256-device production mesh (olmo-1b
   ``decode_32k``), a refused family's ``error`` record, a skipped shape,
-  ``--seq-fallback``, which waits for ROADMAP A12 part 3 item 6, and
-  the MoE flags accepted, ``--save-hlo``;
+  ``--seq-fallback`` and the MoE flags accepted, ``--save-hlo``;
 * ``SHAPES``, ``ASSIGNED`` and ``shape_applicable`` = the JAX package's
   for all 11 configs and 4 shapes;
 * every kernel wrapper given ``meta`` tensors raises before any launch.
@@ -205,19 +204,21 @@ def test_long_context_is_skipped_with_the_jax_reason():
 @pytest.mark.parametrize("flag", ["--seq-fallback", "--moe-hints",
                                   "--moe-weight-gather"])
 def test_unread_perf_flags_raise(monkeypatch, tmp_path, small_cells, flag):
-    """``--seq-fallback`` waits for its reader and raises; the MoE flags
-    have theirs (``models.moe.check_mesh_opts``) and are accepted: a
-    granite record with the flag set and an ok status."""
-    argv = ("--shape", "d32", "--out", str(tmp_path), flag)
-    if flag == "--seq-fallback":
-        with pytest.raises(ValueError, match="no ported module reads it"):
-            _main(monkeypatch, "--arch", "olmo-1b", *argv)
-        return
-    _main(monkeypatch, "--arch", "granite-moe-1b-a400m", *argv)
+    """No flag is unread any more: each has its reader
+    (``sharding.attn_q_split`` for ``--seq-fallback``,
+    ``models.moe.check_mesh_opts`` for the MoE flags) and is accepted, a
+    record (qwen3's prefill, granite's decode) with the flag set in
+    ``perf_opts`` and an ok status."""
+    arch, shape = (("qwen3-14b", "p32") if flag == "--seq-fallback"
+                   else ("granite-moe-1b-a400m", "d32"))
+    _main(monkeypatch, "--arch", arch, "--shape", shape, "--out",
+          str(tmp_path), flag)
     rec = json.loads(
-        (tmp_path / "granite-moe-1b-a400m--d32--single.json").read_text())
+        (tmp_path / f"{arch}--{shape}--single.json").read_text())
+    field = {"--seq-fallback": "seq_shard_fallback"}.get(
+        flag, flag[2:].replace("-", "_"))
     assert rec["status"] == "ok"
-    assert rec["perf_opts"][flag[2:].replace("-", "_")] is True
+    assert rec["perf_opts"][field] is True
 
 
 def test_save_hlo_writes_the_counted_op_table(small_cells, tmp_path):

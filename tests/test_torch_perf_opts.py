@@ -203,16 +203,36 @@ def test_attn_block_is_the_chunked_key_block():
             models.forward(cfg, params, tok, impl="auto")
 
 
-@pytest.mark.parametrize("field", sorted(perf.UNREAD))
-def test_unread_fields_refuse_a_value_other_than_the_default(field):
-    """A field no ported module reads yet takes only its default, so that
-    a caller's value is never silently ignored."""
-    default = getattr(perf.PerfOpts(), field)
-    value = "dots" if isinstance(default, str) else not default
-    with pytest.raises(ValueError, match=field):
-        perf.PerfOpts(**{field: value})
-    with pytest.raises(ValueError, match=field):
-        perf.from_flags(**{field: value})
+def test_seq_shard_fallback_is_read_by_the_mesh_prefill():
+    """Every field has its reader: ``seq_shard_fallback=True`` is accepted
+    and changes the collectives of a mesh's prefill where the heads do not
+    divide ``model`` (qwen3 smoke, 4 heads, on a 1 x 8 ``meta`` mesh): each
+    layer's keys and query rows joined over ``model`` by an all-gather
+    (``[B, S, KH, dh]`` and ``[B, S, D]`` float32) that the unflagged step
+    does not make; the all-reduces stay, the flops fall."""
+    from repro_torch import capture_analysis
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.runtime import steps
+
+    assert not hasattr(perf, "UNREAD")
+    assert perf.from_flags(seq_shard_fallback=True).seq_shard_fallback
+    cfg = get_config("qwen3-14b").smoke()
+    mesh = tmesh.make_debug_mesh((1, 8), ("data", "model"),
+                                 devices=["meta"] * 8)
+    b, s = 8, 32
+    reps = []
+    for fb in (False, True):
+        low = steps.lower_for(cfg, mesh, ShapeSpec("p", "prefill", s, b),
+                              opts=perf.PerfOpts(seq_shard_fallback=fb))
+        reps.append(capture_analysis.analyze_step(
+            low.compile(), low.args, mesh=mesh, arg_specs=low.arg_specs))
+    off, on = reps
+    row = b * s * (cfg.num_kv_heads * cfg.head_dim + cfg.d_model) * 4
+    assert (on["collectives"].get("all-gather", 0)
+            - off["collectives"].get("all-gather", 0)) == cfg.num_layers * row
+    assert on["collectives"]["all-reduce"] == off["collectives"]["all-reduce"]
+    assert on["flops"] < off["flops"] / 2
 
 
 def test_auto_resolves_to_the_opts_impl():
